@@ -1,19 +1,29 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port on one NVIDIA card.
 
-Drives ``mxnet_tpu_torch``'s serving path — ``GenerationServer.submit_async``
--> scheduler -> ``GenerationEngine`` -> ``TransformerLM.prefill`` /
-``decode_step`` — at the full width of the flagship TransformerLM (vocab
-32000, d_model 2048, 16 heads of 128, 4 layers, d_ff 8192, bf16, seeded
-random weights) and holds each hand-written CUDA kernel against its plain
-PyTorch version on the card.
+Drives ``mxnet_tpu_torch``'s two main paths at full width, with seeded
+random weights, and holds each hand-written CUDA kernel against its plain
+PyTorch version on the card:
+
+* serving — ``GenerationServer.submit_async`` -> scheduler ->
+  ``GenerationEngine`` -> ``TransformerLM.prefill`` / ``decode_step`` — on
+  the flagship TransformerLM (vocab 32000, d_model 2048, 16 heads of 128,
+  4 layers, d_ff 8192, bf16);
+* training — ``make_train_step`` -> ``TransformerLM.loss`` -> ``apply`` and
+  its backward, SGD with momentum — on the flagship at batch 8 x 1024
+  (bench.py's training configuration: dense attention, no remat) and on
+  the long-context configuration (d_model 1024, 16 heads of 64, 4 layers,
+  d_ff 4096, bf16, remat, batch 1 x 8192: bench.py's long-context leg),
+  which crosses the dense->flash gate and so runs the flash forward, dQ
+  and dK/dV kernels.
 
 Run from the root of the repository, with no arguments::
 
     python3 chip_smoke.py
 
-``--profile`` adds a last phase that traces one long prefill and a few
-decode iterations with ``torch.profiler`` (where the device time goes).
+``--profile`` adds a last phase that traces one long prefill, a few decode
+iterations and one training step of each training configuration with
+``torch.profiler`` (where the device time goes).
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -29,12 +39,22 @@ Phases, in order; any failure raises and exits non-zero:
    requests (one ~4000-token prompt crosses the flash gate), a solo
    resubmission must reproduce its batched stream, the kernel counters
    must show the CUDA kernels on the path, and the prefill logits through
-   the kernels must match those through the plain versions.
+   the kernels must match those through the plain versions;
+5. train   — for each training configuration, one warm step and then
+   ``TRAIN_STEPS`` timed steps on one fixed batch: losses must be finite
+   and fall, the kernel counters must show exactly the expected launches
+   per step and no plain version; then, on the long-context
+   configuration, the loss and every parameter gradient through the
+   kernels must match those through the plain versions.
 
-The last line is ``{"ok": true, "device": {...}}``; the line before it is the
-``{"kernels": [...]}`` summary.  Without a CUDA device the script exits
-non-zero and prints no result.
+Each main path (serve, and each training configuration) runs with the
+counters zeroed just before it and read just after.  The line before the
+last is the ``{"kernels": [...]}`` summary (launches summed over those
+runs), and before it the ``nvidia-smi`` name and power limit; the last line
+is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
+exits non-zero and prints no result.
 """
+import contextlib
 import json
 import statistics
 import subprocess
@@ -55,6 +75,38 @@ SOLO_INDEX = 1
 # paths round activations to bf16 at other points (flash keeps p in f32,
 # dense rounds it), and one-ulp flips (2^-8 relative) compound over 4 layers
 LOGITS_ATOL = 5e-2
+
+# the training configurations: (name, config, batch, sequence length)
+LONGCTX = dict(vocab_size=32000, d_model=1024, n_heads=16, n_layers=4,
+               d_ff=4096, max_len=8192, dtype="bfloat16", remat=True)
+TRAIN_CELLS = (
+    ("flagship_b8_t1024", dict(FLAGSHIP, max_len=1024, remat=False), 8,
+     1024),
+    ("longctx_b1_t8192", LONGCTX, 1, 8192),
+)
+TRAIN_STEPS = 3
+# kernel launches per training step, from the code: RMSNorm twice per block
+# and once before the logits, and with remat once more per block for the
+# recomputed forward; flash forward per block (twice with remat), dQ and
+# dK/dV once per block; the softmax cross-entropy once each way
+EXPECTED_LAUNCHES = {
+    "flagship_b8_t1024": {"fused_rmsnorm": 9, "fused_softmax_xent": 1,
+                          "fused_softmax_xent_bwd": 1},
+    "longctx_b1_t8192": {"fused_rmsnorm": 17, "flash_attention": 8,
+                         "flash_attention_dq": 4, "flash_attention_dkv": 4,
+                         "fused_softmax_xent": 1,
+                         "fused_softmax_xent_bwd": 1},
+}
+# kernel-vs-plain training step (bf16 model, loss of order 10): loss within
+# 1e-3 absolute, every parameter gradient within 2e-2 relative L2 error.
+# The kernels and the plain versions round to bf16 at the same points, so
+# they differ only in f32 summation order (the flash forward's online
+# softmax above all); but one-ulp bf16 flips (2^-8 relative) of
+# activations compound over 4 layers forward and back.  Measured on an
+# H100 80GB HBM3 at 700 W, the same in two runs: loss 4.3e-5, largest
+# gradient error 8.0e-3 (embed)
+STEP_LOSS_ATOL = 1e-3
+STEP_GRAD_REL_L2 = 2e-2
 
 
 def _check(cond, msg):
@@ -242,6 +294,191 @@ def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen):
     return rec
 
 
+def _time_eager_ms(fn, reps=5):
+    """Device milliseconds of one call of ``fn``, called ``reps`` times
+    between two CUDA events after a warm call (no graph: for the library
+    yardsticks that run autograd)."""
+    import torch
+
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _xent_case(N, V, dtype_name, gen):
+    """Both softmax cross-entropy kernels on logits [N, V]: two records."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.kernels import layers
+
+    dt = getattr(torch, dtype_name)
+    logits = (3 * torch.randn((N, V), generator=gen, device="cuda")).to(dt)
+    labels = torch.randint(0, V, (N,), generator=gen, device="cuda")
+    g = torch.randn(N, generator=gen, device="cuda")
+    loss, lse = layers._xent_fwd_cuda(logits, labels)
+    rloss, rlse = layers.softmax_xent_reference(logits, labels,
+                                                return_lse=True)
+    d = layers._xent_bwd_cuda(logits, labels, lse, g)
+    rd = layers.softmax_xent_bwd_reference(logits, labels, lse, g)
+    torch.cuda.synchronize()
+    # loss and lse: f32 sums of V exponentials in another order, with expf
+    # and logf within 2 ulp; dlogits: f32 within 2 ulp of exp, bf16 one
+    # rounding of it (2^-8 relative)
+    err_l, ok_l = _err(loss, rloss, 1e-4, 1e-5)
+    err_s, ok_s = _err(lse, rlse, 1e-4, 1e-5)
+    d_atol, d_rtol = (1e-6, 1e-5) if dtype_name == "float32" \
+        else (1e-6, 2**-7)
+    err_d, ok_d = _err(d, rd, d_atol, d_rtol)
+    isz = logits.element_size()
+    fwd_bound, fwd_by = _bound(4.0 * N * V, N * V * isz + 16 * N, "float32")
+    bwd_bound, bwd_by = _bound(4.0 * N * V, 2 * N * V * isz + 16 * N,
+                               "float32")
+    fargs = _copies((logits, labels))
+    bargs = _copies((logits, labels, lse, g))
+    fwd = {
+        "kernel": "fused_softmax_xent", "shape": [N, V], "dtype": dtype_name,
+        "max_abs_err": max(err_l, err_s), "atol": 1e-4, "rtol": 1e-5,
+        "ok": ok_l and ok_s,
+        "ms": _time_ms(layers._xent_fwd_cuda, fargs),
+        "plain_ms": _time_ms(lambda l, y: layers.softmax_xent_reference(
+            l, y, return_lse=True), fargs),
+        "library_ms": _time_ms(lambda l, y: F.cross_entropy(
+            l, y, reduction="none"), fargs),
+        "library": "F.cross_entropy(reduction='none')",
+        "bound_ms": fwd_bound, "bound_by": fwd_by,
+    }
+    bwd = {
+        "kernel": "fused_softmax_xent_bwd", "shape": [N, V],
+        "dtype": dtype_name, "max_abs_err": err_d, "atol": d_atol,
+        "rtol": d_rtol, "ok": ok_d,
+        "ms": _time_ms(layers._xent_bwd_cuda, bargs),
+        "plain_ms": _time_ms(layers.softmax_xent_bwd_reference, bargs),
+        # one softmax reads and writes the same bytes as the backward
+        "library_ms": _time_ms(lambda l, y, s, g: torch.softmax(l, -1),
+                               bargs),
+        "library": "torch.softmax (same bytes read and written)",
+        "bound_ms": bwd_bound, "bound_by": bwd_by,
+    }
+    for rec in (fwd, bwd):
+        _emit(rec)
+        _check(rec["ok"], "%s %s %s disagrees with its plain version (max "
+               "abs err %g)" % (rec["kernel"], [N, V], dtype_name,
+                                rec["max_abs_err"]))
+    return fwd, bwd
+
+
+def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
+                    with_dlse=False):
+    """The dQ and the dK/dV kernel against the plain backward: two
+    records."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.kernels.flash_attention import (
+        _delta, _flash_bwd_cuda, _flash_cuda, _flash_dkv_cuda,
+        _flash_dq_cuda, flash_attention_bwd_reference,
+        flash_attention_reference)
+
+    dt = getattr(torch, dtype_name)
+    scale = 1.0 / D ** 0.5
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    q, k, v = rnd(B, Tq, H, D), rnd(B, Tk, H, D), rnd(B, Tk, H, D)
+    o, lse = _flash_cuda(q, k, v, causal)
+    do = rnd(B, Tq, H, D)
+    dlse = (torch.randn((B, H, Tq), generator=gen, device="cuda")
+            if with_dlse else None)
+    got = _flash_bwd_cuda(q, k, v, o, lse, do, dlse, causal)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, dlse, causal)
+    torch.cuda.synchronize()
+    # f32 sums over every key (dQ) or query (dK, dV) in another order;
+    # bf16 adds one rounding of that sum (2^-8 relative)
+    atol, rtol = (1e-4, 1e-4) if dtype_name == "float32" \
+        else (1e-3, 2**-7)
+    errs = [_err(a, b, atol, rtol) for a, b in zip(got, want)]
+    # the plain backward repeats the kernels' arithmetic (same lse, same
+    # delta, f32 GEMMs that accumulate in the kernels' order) and may agree
+    # bit for bit, so the kernels are also held against an independent
+    # formula: autograd through the dense forward.  In bf16 that formula
+    # takes delta = sum(p * dp) in f32 where the kernels, as the TPU's do,
+    # take rowsum(dO * O) of the bf16-rounded O; held to 2^-6 of each
+    # gradient's largest entry
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o_r, lse_r = flash_attention_reference(qr, kr, vr, causal,
+                                           return_lse=True)
+    outs, cts = (o_r, lse_r), (do, dlse)
+    if dlse is None:
+        outs, cts = (o_r,), (do,)
+    auto = torch.autograd.grad(outs, (qr, kr, vr), cts)
+    del o_r, lse_r, outs
+    auto_rel = 1e-4 if dtype_name == "float32" else 2**-6
+    auto_errs = [float((a.float() - b.float()).abs().max())
+                 / float(b.float().abs().max()) for a, b in zip(got, auto)]
+    auto_ok = max(auto_errs) <= auto_rel
+    zero_ok = True
+    if causal and Tq < Tk:        # keys no query sees: dK = dV = 0
+        zero_ok = not got[1][:, Tq:].any() and not got[2][:, Tq:].any()
+    if causal:
+        pairs = sum(min(i + 1, Tk) for i in range(Tq))
+    else:
+        pairs = Tq * Tk
+    isz = q.element_size()
+    rows = 8 * B * H * Tq                           # lse and delta, f32
+    dq_bound, dq_by = _bound(6.0 * D * B * H * pairs,
+                             isz * B * H * D * (3 * Tq + 2 * Tk) + rows,
+                             dtype_name)
+    dkv_bound, dkv_by = _bound(8.0 * D * B * H * pairs,
+                               isz * B * H * D * (2 * Tq + 4 * Tk) + rows,
+                               dtype_name)
+    delta = _delta(o, do, dlse)
+    args = _copies((q, k, v, do, lse, delta))
+    plain_ms = _time_ms(
+        lambda q, k, v, do, lse, delta: flash_attention_bwd_reference(
+            q, k, v, o, lse, do, dlse, causal), args, rounds=1)
+    # SDPA's backward at the same shape: forward+backward minus forward
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+    lib_ms = (_time_eager_ms(lambda: torch.autograd.grad(
+        sdpa(), (qt, kt, vt), dot)) - _time_eager_ms(sdpa))
+    shared = {"q": [B, Tq, H, D], "k": [B, Tk, H, D], "causal": causal,
+              "dtype": dtype_name, "dlse": with_dlse, "atol": atol,
+              "rtol": rtol, "err_vs_dense_autograd_rel_to_max": auto_errs,
+              "dense_autograd_rel_tol": auto_rel,
+              # the plain version computes dQ, dK and dV in one call, and
+              # SDPA's backward all three too: both rows carry that time
+              "plain_ms": plain_ms, "library_ms": lib_ms,
+              "library": "SDPA backward (forward+backward minus forward)"}
+    dq = dict(shared, kernel="flash_attention_dq", max_abs_err=errs[0][0],
+              ok=errs[0][1] and auto_ok,
+              ms=_time_ms(lambda q, k, v, do, lse, delta: _flash_dq_cuda(
+                  q, k, v, do, lse, delta, causal, scale), args),
+              bound_ms=dq_bound, bound_by=dq_by)
+    dkv = dict(shared, kernel="flash_attention_dkv",
+               max_abs_err=max(errs[1][0], errs[2][0]),
+               ok=errs[1][1] and errs[2][1] and zero_ok and auto_ok,
+               ms=_time_ms(lambda q, k, v, do, lse, delta: _flash_dkv_cuda(
+                   q, k, v, do, lse, delta, causal, scale), args),
+               bound_ms=dkv_bound, bound_by=dkv_by)
+    for rec in (dq, dkv):
+        _emit(rec)
+        _check(rec["ok"], "%s q %s k %s %s disagrees with its plain version "
+               "(max abs err %g)" % (rec["kernel"], rec["q"], rec["k"],
+                                     dtype_name, rec["max_abs_err"]))
+    return dq, dkv
+
+
 def phase_kernels():
     import torch
 
@@ -257,7 +494,36 @@ def phase_kernels():
     _flash_case(1, 4000, 4000, 16, 128, True, "bfloat16", gen)
     _flash_case(1, 1000, 3000, 16, 128, False, "bfloat16", gen)
     _flash_case(2, 1024, 1024, 8, 64, True, "float32", gen)
+    # the training path: the long-context configuration's attention and
+    # both configurations' logits
+    _flash_case(1, 8192, 8192, 16, 64, True, "bfloat16", gen)
+    main["flash_attention_dq"], main["flash_attention_dkv"] = \
+        _flash_bwd_case(1, 8192, 8192, 16, 64, True, "bfloat16", gen)
+    _flash_bwd_case(2, 1024, 1024, 8, 64, True, "float32", gen,
+                    with_dlse=True)
+    _flash_bwd_case(1, 1000, 3000, 16, 64, False, "bfloat16", gen)
+    _flash_bwd_case(1, 1000, 3000, 16, 64, True, "bfloat16", gen)
+    main["fused_softmax_xent"], main["fused_softmax_xent_bwd"] = \
+        _xent_case(8192, 32000, "float32", gen)
+    _xent_case(8192, 32000, "bfloat16", gen)
+    _xent_case(777, 30001, "float32", gen)
     return main
+
+
+@contextlib.contextmanager
+def _plain_versions():
+    """Route every kernel of the registry to its plain version on CUDA
+    tensors too, for the kernel-vs-plain checks; restored on exit."""
+    from mxnet_tpu_torch.ops.kernels import common
+
+    saved = {n: dict(e) for n, e in common._REGISTRY.items()}
+    try:
+        for name, entry in saved.items():
+            common.register_impl(name, cuda=entry["reference"],
+                                 reference=entry["reference"])
+        yield
+    finally:
+        common._REGISTRY.update(saved)
 
 
 def phase_serve(dev):
@@ -265,8 +531,7 @@ def phase_serve(dev):
     import torch
     from mxnet_tpu_torch import (GenerationConfig, GenerationServer,
                                  TransformerConfig, TransformerLM)
-    from mxnet_tpu_torch.ops.kernels import (common, flash_attention_reference,
-                                             fused_rmsnorm_reference)
+    from mxnet_tpu_torch.ops.kernels import common
 
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -342,18 +607,8 @@ def phase_serve(dev):
     table = np.zeros(eng.pages_per_seq, np.int64)
     long_prompt = prompts[-1]
     logits_k = eng.prefill(long_prompt, table)
-    saved = {n: dict(e) for n, e in common._REGISTRY.items()}
-    try:
-        common.register_impl("fused_rmsnorm", cuda=fused_rmsnorm_reference,
-                             reference=fused_rmsnorm_reference)
-        common.register_impl(
-            "flash_attention",
-            cuda=lambda q, k, v, causal, scale: flash_attention_reference(
-                q, k, v, causal, scale, return_lse=True),
-            reference=saved["flash_attention"]["reference"])
+    with _plain_versions():
         logits_p = eng.prefill(long_prompt, table)
-    finally:
-        common._REGISTRY.update(saved)
     diff = float(np.abs(logits_k - logits_p).max())
     ok = (logits_k.shape == (FLAGSHIP["vocab_size"],)
           and bool(np.isfinite(logits_k).all()) and diff <= LOGITS_ATOL)
@@ -364,6 +619,155 @@ def phase_serve(dev):
     _check(ok, "prefill logits through the kernels differ from the plain "
            "versions by %g (atol %g)" % (diff, LOGITS_ATOL))
     return launches, model
+
+
+def _train_cell(name, cfg_kw, B, T, dev):
+    """One training configuration: seeded weights, one fixed batch, one
+    warm step, then ``TRAIN_STEPS`` timed steps with the counters zeroed
+    just before and read just after.  Returns the record and the state the
+    later checks and ``--profile`` reuse."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import (TransformerConfig, TransformerLM,
+                                 make_train_step)
+    from mxnet_tpu_torch.ops.kernels import common
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = TransformerLM(TransformerConfig(**cfg_kw), device="cuda",
+                          generator=gen)
+    V = cfg_kw["vocab_size"]
+    toks = np.random.default_rng(1).integers(0, V, (B, T + 1))
+    x = torch.from_numpy(toks[:, :-1].copy()).cuda()
+    y = torch.from_numpy(toks[:, 1:].copy()).cuda()
+    params = dict(model.named_parameters())
+    velocity = {k: torch.zeros_like(p) for k, p in params.items()}
+    step = make_train_step(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [float(step(params, velocity, x, y)[2])]          # warm
+    warm_s = time.perf_counter() - t0
+
+    # -- the main path: counters zeroed just before, read just after ----
+    common.reset_counts()
+    step_ms = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = step(params, velocity, x, y)[2]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    selects = common.selection_counts()
+    launches = common.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    per_step = {k.split(".", 2)[2]: v / TRAIN_STEPS
+                for k, v in launches.items()}
+    rec = {
+        "phase": "train", "config": name, "device": dev["name"],
+        "nvidia_smi": dev["smi"], "batch": B, "seq": T,
+        "params": sum(p.numel() for p in params.values()),
+        "remat": cfg_kw["remat"], "losses": losses, "warm_s": warm_s,
+        "step_ms": step_ms, "tokens_per_s": [B * T * 1e3 / m
+                                             for m in step_ms],
+        "peak_mem_gb": peak_gb, "launches_per_step": per_step,
+        "selections_per_step": {k: v / TRAIN_STEPS
+                                for k, v in selects.items()},
+    }
+    _emit(rec)
+    _check(all(np.isfinite(losses)), "%s: a loss is not finite: %s"
+           % (name, losses))
+    _check(losses[-1] < losses[0], "%s: the loss did not fall: %s"
+           % (name, losses))
+    _check(not any(k.endswith(".reference") for k in selects),
+           "%s: a plain version ran on the main path: %s" % (name, selects))
+    _check(per_step == EXPECTED_LAUNCHES[name],
+           "%s: launches per step %s, expected %s"
+           % (name, per_step, EXPECTED_LAUNCHES[name]))
+    state = {"model": model, "params": params, "velocity": velocity,
+             "step": step, "x": x, "y": y}
+    return rec, launches, state
+
+
+def _step_kernels_vs_plain(name, st):
+    """The loss and every parameter gradient of one step through the
+    kernels against the same step through the plain versions."""
+    import torch
+
+    model, x, y = st["model"], st["x"], st["y"]
+    loss_k, g_k = model.value_and_grad(None, x, y)
+    with _plain_versions():
+        loss_p, g_p = model.value_and_grad(None, x, y)
+    rel = {n: float((g_k[n].float() - g_p[n].float()).norm()
+                    / g_p[n].float().norm().clamp_min(1e-30))
+           for n in g_p}
+    loss_err = abs(float(loss_k) - float(loss_p))
+    finite = all(bool(torch.isfinite(g).all()) for g in g_k.values())
+    ok = (finite and loss_err <= STEP_LOSS_ATOL
+          and max(rel.values()) <= STEP_GRAD_REL_L2)
+    _emit({"phase": "train_step_kernels_vs_plain", "config": name,
+           "loss_kernels": float(loss_k), "loss_plain": float(loss_p),
+           "loss_abs_err": loss_err, "loss_atol": STEP_LOSS_ATOL,
+           "grad_rel_l2": rel, "grad_rel_l2_max": max(rel.values()),
+           "grad_rel_l2_tol": STEP_GRAD_REL_L2, "ok": ok})
+    _check(ok, "%s: the training step through the kernels differs from the "
+           "plain versions (loss err %g, grad rel L2 %g)"
+           % (name, loss_err, max(rel.values())))
+
+
+def phase_train(dev):
+    """Both training configurations; the long-context one carries the
+    kernel-vs-plain step check.  Returns the launches of each run and the
+    state of each configuration."""
+    import torch
+
+    launches, states = {}, {}
+    for name, cfg_kw, B, T in TRAIN_CELLS:
+        _, launches[name], states[name] = _train_cell(name, cfg_kw, B, T,
+                                                      dev)
+        if name.startswith("longctx"):
+            _step_kernels_vs_plain(name, states[name])
+        torch.cuda.empty_cache()
+    return launches, states
+
+
+def _profile_window(name, fn):
+    """Trace ``fn`` (after one warm call) with ``torch.profiler``; print
+    the wall time, the device busy time and share, and the kernels that
+    took most."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()                                             # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    _emit({"phase": "profile", "window": name, "wall_ms": wall_ms,
+           "device_busy_ms": busy_ms if kern else "not measured",
+           "device_busy_share": busy_ms / wall_ms if kern
+           else "not measured",
+           "top_kernels": [
+               {"name": e.key[:96], "ms": e.self_device_time_total / 1e3,
+                "calls": e.count,
+                "share_of_busy": e.self_device_time_total / 1e3 / busy_ms}
+               for e in kern[:12]]})
+
+
+def phase_profile_train(states):
+    """``--profile`` only: one training step of each configuration."""
+    for name, st in states.items():
+        _profile_window("train_step_" + name, lambda st=st: st["step"](
+            st["params"], st["velocity"], st["x"], st["y"]))
 
 
 def phase_profile(model):
@@ -377,9 +781,6 @@ def phase_profile(model):
     import types
 
     import numpy as np
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from mxnet_tpu_torch import GenerationConfig, GenerationEngine
 
     eng = GenerationEngine(model, GenerationConfig(
@@ -403,51 +804,46 @@ def phase_profile(model):
             lambda: [eng.decode(seqs) for _ in range(8)],
     }
     for name, fn in windows.items():
-        fn()                                         # warm
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kern = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total > 0]
-        busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-        kern.sort(key=lambda e: -e.self_device_time_total)
-        _emit({"phase": "profile", "window": name, "wall_ms": wall_ms,
-               "device_busy_ms": busy_ms if kern else "not measured",
-               "device_busy_share": busy_ms / wall_ms if kern
-               else "not measured",
-               "top_kernels": [
-                   {"name": e.key[:96], "ms": e.self_device_time_total / 1e3,
-                    "calls": e.count,
-                    "share_of_busy": e.self_device_time_total / 1e3
-                    / busy_ms} for e in kern[:12]]})
+        _profile_window(name, fn)
 
 
 def main():
     dev = phase_device()
     phase_build()
     main_cases = phase_kernels()
-    launches, model = phase_serve(dev)
+    serve_launches, model = phase_serve(dev)
+    train_launches, states = phase_train(dev)
     if "--profile" in sys.argv[1:]:
         phase_profile(model)
+        phase_profile_train(states)
     sources = {
         "fused_rmsnorm": ("mxnet_tpu_torch/ops/kernels/csrc/rmsnorm.cu",
                           "mxnet_tpu/ops/pallas/layers.py:31"),
         "flash_attention": (
             "mxnet_tpu_torch/ops/kernels/csrc/flash_attention.cu",
             "mxnet_tpu/ops/pallas/flash_attention.py:55"),
+        "flash_attention_dq": (
+            "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu",
+            "mxnet_tpu/ops/pallas/flash_attention.py:142"),
+        "flash_attention_dkv": (
+            "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu",
+            "mxnet_tpu/ops/pallas/flash_attention.py:179"),
+        "fused_softmax_xent": (
+            "mxnet_tpu_torch/ops/kernels/csrc/softmax_xent.cu",
+            "mxnet_tpu/ops/pallas/layers.py:116"),
+        "fused_softmax_xent_bwd": (
+            "mxnet_tpu_torch/ops/kernels/csrc/softmax_xent.cu",
+            "mxnet_tpu/ops/pallas/layers.py:151"),
     }
+    runs = [serve_launches] + list(train_launches.values())
     kernels = []
     for name, (src, replaces) in sources.items():
         rec = main_cases[name]
+        launches = sum(r.get("kernels.launch.%s" % name, 0) for r in runs)
+        _check(launches > 0, "%s never launched on the main paths" % name)
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces,
-            "launches": launches.get("kernels.launch.%s" % name, 0),
+            "replaces": replaces, "launches": launches,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],

@@ -6,10 +6,14 @@ written by hand for Hopper (``ops/kernels/csrc``), built with ``nvcc`` at
 first use.  The package imports ``torch`` and ``numpy``, never ``jax`` and
 nothing of ``mxnet_tpu``; only the parity tests import both.
 
-This slice carries the serving path of the flagship TransformerLM:
-``GenerationServer.submit_async`` -> scheduler -> ``GenerationEngine`` ->
-``TransformerLM.prefill`` / ``decode_step``, with the fused RMSNorm and
-flash-attention forward kernels.
+It carries the flagship TransformerLM on two paths:
+
+* serving: ``GenerationServer.submit_async`` -> scheduler ->
+  ``GenerationEngine`` -> ``TransformerLM.prefill`` / ``decode_step``, with
+  the fused RMSNorm and flash-attention forward kernels;
+* training: ``make_train_step`` -> ``TransformerLM.loss`` -> ``apply`` and
+  backward, with, besides those, the flash-attention dQ and dK/dV kernels
+  and the fused softmax cross-entropy forward and backward kernels.
 
 Entry points take ``device=``.  The default is ``cuda:0``; without a CUDA
 device they raise unless the caller asks for the CPU explicitly
@@ -21,8 +25,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["default_device", "resolve_device", "TransformerConfig",
-           "TransformerLM", "GenerationConfig", "GenerationEngine",
-           "GenerationServer"]
+           "TransformerLM", "make_train_step", "GenerationConfig",
+           "GenerationEngine", "GenerationServer"]
 
 
 def default_device() -> torch.device:
@@ -56,6 +60,7 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-from .models.transformer import TransformerConfig, TransformerLM  # noqa: E402
+from .models.transformer import (TransformerConfig,  # noqa: E402
+                                 TransformerLM, make_train_step)
 from .generation import (GenerationConfig, GenerationEngine,  # noqa: E402
                          GenerationServer)

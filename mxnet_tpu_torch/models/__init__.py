@@ -1,3 +1,3 @@
 """Flagship models of the port; counterpart of ``mxnet_tpu/models``."""
 from .transformer import (TransformerConfig, TransformerLM,  # noqa: F401
-                          params_from_numpy)
+                          make_train_step, params_from_numpy)

@@ -1,15 +1,17 @@
 """Decoder-only Transformer LM: the port of ``mxnet_tpu/models/transformer.py``.
 
-This slice carries the forward pass and the paged-KV serving path
-(``init_kv_pages`` / ``prefill`` / ``decode_step``) on one device.  Training
-(``loss``, ``make_train_step``), MoE and the mesh paths (ring attention,
-sharding rules) come in later slices.
+It carries the forward pass, the paged-KV serving path (``init_kv_pages``
+/ ``prefill`` / ``decode_step``) and training (``loss``,
+:func:`make_train_step`, SGD with momentum) on one device.  MoE and the
+mesh paths (ring attention, sharding rules) come in later slices.
 
 The parameters are those of the JAX model, under the same names: the
 stacked per-layer tensors ``[L, ...]`` live in the ``blocks`` submodule, so
 ``state_dict()`` keys are exactly the JAX flat-dict keys (``"embed"``,
 ``"blocks.wqkv"``, ...) and :meth:`TransformerLM.load_jax_params` carries a
-JAX model's weights across.
+JAX model's weights across.  Like the JAX model's, ``apply`` and ``loss``
+are functions of a flat parameter dict under those names; ``params=None``
+means the module's own parameters.
 
 Numerics follow the JAX model's cast points: matmuls accumulate in f32 and
 round to the model dtype where JAX casts back (``.astype(x.dtype)``), and
@@ -27,23 +29,27 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..ops.kernels.common import _NEG
 from ..ops.kernels.flash_attention import flash_attention
-from ..ops.kernels.layers import fused_rmsnorm
+from ..ops.kernels.layers import fused_rmsnorm, fused_softmax_xent
 
-__all__ = ["TransformerConfig", "TransformerLM", "params_from_numpy"]
+__all__ = ["TransformerConfig", "TransformerLM", "make_train_step",
+           "params_from_numpy"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """The JAX model's configuration, same fields and defaults.  ``remat``,
-    ``scan_unroll``, ``n_experts`` and ``moe_aux_weight`` only matter to
-    training and MoE, which this slice does not port; ``use_moe=True`` is
-    refused."""
+    """The JAX model's configuration, same fields and defaults.  ``remat``
+    recomputes each block's forward in the backward pass (per-block
+    activation checkpointing, as ``jax.checkpoint`` of the scan body).
+    ``scan_unroll`` has no meaning in eager PyTorch (the layers are a
+    Python loop); ``n_experts`` and ``moe_aux_weight`` matter only to MoE,
+    which is not ported: ``use_moe=True`` is refused."""
     vocab_size: int = 32000
     d_model: int = 512
     n_heads: int = 8
@@ -98,8 +104,7 @@ def _dense_self_attention(q, k, v, causal=True):
 
 
 def _param(shape, device, dtype):
-    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
-                        requires_grad=False)
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
 
 
 class _Blocks(nn.Module):
@@ -186,47 +191,82 @@ class TransformerLM(nn.Module):
         return self
 
     # -- forward -------------------------------------------------------
+    def _params(self, params):
+        return dict(self.named_parameters()) if params is None else params
+
     def _rmsnorm(self, x, scale):
         return fused_rmsnorm(x, scale.to(x.dtype))
 
-    def _block(self, layer, x, with_kv=False):
+    def _block(self, P, layer, x, with_kv=False):
         cfg = self.cfg
-        bp = self.blocks
         B, T, _ = x.shape
         H, D = cfg.n_heads, cfg.head_dim
-        h = self._rmsnorm(x, bp.ln1_scale[layer])
-        qkv = torch.matmul(h, bp.wqkv[layer])
+        h = self._rmsnorm(x, P["blocks.ln1_scale"][layer])
+        qkv = torch.matmul(h, P["blocks.wqkv"][layer])
         q, k, v = (t.view(B, T, H, D) for t in qkv.split(H * D, dim=-1))
         score_mb = B * H * T * T * 4 / 1e6
         if score_mb <= cfg.dense_attn_max_score_mb:
             attn = _dense_self_attention(q, k, v, causal=True)
         else:
             attn = flash_attention(q, k, v, causal=True)
-        o = torch.matmul(attn.reshape(B, T, H * D), bp.wo[layer])
+        o = torch.matmul(attn.reshape(B, T, H * D), P["blocks.wo"][layer])
         x = x + o
-        h = self._rmsnorm(x, bp.ln2_scale[layer])
-        up = torch.matmul(h.float(), bp.w_up[layer].float())
+        h = self._rmsnorm(x, P["blocks.ln2_scale"][layer])
+        up = torch.matmul(h.float(), P["blocks.w_up"][layer].float())
         ff = torch.matmul(F.gelu(up, approximate="tanh").to(x.dtype),
-                          bp.w_down[layer])
+                          P["blocks.w_down"][layer])
         x = x + ff
         if with_kv:
             return x, k, v
         return x
 
-    def _logits(self, x):
-        x = self._rmsnorm(x, self.final_ln_scale)
-        return torch.matmul(x.float(), self.unembed.float())
+    def _logits(self, P, x):
+        x = self._rmsnorm(x, P["final_ln_scale"])
+        return torch.matmul(x.float(), P["unembed"].float())
 
-    def apply(self, tokens):
-        """tokens [B, T] (int) -> logits [B, T, V] (f32).  The full forward
-        pass: the oracle for the incremental decode path."""
-        x = self.embed[tokens]
+    def apply(self, tokens, params=None):
+        """tokens [B, T] (int) -> ``(logits [B, T, V] f32, aux)``, ``aux``
+        the f32 scalar MoE auxiliary loss (0 for the dense MLP).  The full
+        forward pass: the oracle for the incremental decode path.
+
+        With ``cfg.remat`` and gradients enabled, each block runs under
+        non-reentrant activation checkpointing and its forward runs again
+        in the backward pass, as under ``jax.checkpoint``."""
+        P = self._params(params)
+        x = P["embed"][tokens]
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in range(self.cfg.n_layers):
-            x = self._block(layer, x)
-        return self._logits(x)
+            if remat:
+                x = checkpoint(self._block, P, layer, x, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = self._block(P, layer, x)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._logits(P, x), aux
 
     def forward(self, tokens):
         return self.apply(tokens)
+
+    # -- training ------------------------------------------------------
+    def loss(self, params, tokens, targets):
+        """Causal LM loss: the mean token cross-entropy of the fused
+        softmax-xent kernel, plus ``moe_aux_weight·aux``.  ``params`` is a
+        flat ``{name: tensor}`` dict or ``None`` (the module's own
+        parameters); tokens, targets: [B, T] int."""
+        logits, aux = self.apply(tokens, params)
+        nll = fused_softmax_xent(logits, targets).mean()
+        return nll + self.cfg.moe_aux_weight * aux
+
+    def value_and_grad(self, params, tokens, targets):
+        """``(loss, grads)`` of :meth:`loss` with respect to every tensor of
+        ``params`` (``None``: the module's own), the counterpart of
+        ``jax.value_and_grad(model.loss)``.  ``grads`` is a dict under the
+        same names, each gradient in its parameter's dtype."""
+        P = self._params(params)
+        leaves = {k: p.detach().requires_grad_(True) for k, p in P.items()}
+        loss = self.loss(leaves, tokens, targets)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), dict(zip(leaves, grads))
 
     # -- generative decode (paged KV cache) ----------------------------
     #
@@ -258,15 +298,16 @@ class TransformerLM(nn.Module):
         H, D = cfg.n_heads, cfg.head_dim
         ps = k_pages.shape[2]
         Tpad = tokens.shape[1]
-        x = self.embed[tokens]
+        P = self._params(None)
+        x = P["embed"][tokens]
         t = torch.arange(Tpad, device=tokens.device)
         dest = torch.where(t < length, page_table[t // ps] * ps + t % ps,
                            t % ps)
         for layer in range(cfg.n_layers):
-            x, k, v = self._block(layer, x, with_kv=True)
+            x, k, v = self._block(P, layer, x, with_kv=True)
             k_pages[layer].view(-1, H, D)[dest] = k[0]
             v_pages[layer].view(-1, H, D)[dest] = v[0]
-        return self._logits(x[:, length - 1])[0]
+        return self._logits(P, x[:, length - 1])[0]
 
     def decode_step(self, k_pages, v_pages, tokens, page_tables, lens,
                     active):
@@ -281,16 +322,16 @@ class TransformerLM(nn.Module):
         H, D = cfg.n_heads, cfg.head_dim
         S = tokens.shape[0]
         ps = k_pages.shape[2]
-        bp = self.blocks
-        x = self.embed[tokens][:, None, :]                  # [S, 1, E]
+        P = self._params(None)
+        x = P["embed"][tokens][:, None, :]                  # [S, 1, E]
         cur_page = page_tables.gather(1, (lens // ps)[:, None])[:, 0]
         dest = torch.where(active, cur_page, 0) * ps + lens % ps
         span = page_tables.shape[1] * ps
         attn_mask = (torch.arange(span, device=lens.device)[None, :]
                      <= lens[:, None])                      # [S, span]
         for layer in range(cfg.n_layers):
-            h = self._rmsnorm(x, bp.ln1_scale[layer])
-            qkv = torch.matmul(h, bp.wqkv[layer])
+            h = self._rmsnorm(x, P["blocks.ln1_scale"][layer])
+            qkv = torch.matmul(h, P["blocks.wqkv"][layer])
             q, k, v = qkv.split(H * D, dim=-1)
             q = q.reshape(S, H, D)
             kp, vp = k_pages[layer], v_pages[layer]
@@ -304,11 +345,39 @@ class TransformerLM(nn.Module):
             p = torch.softmax(s, dim=-1).to(x.dtype)
             attn = torch.einsum("shk,skhd->shd", p.float(),
                                 vg.float()).to(x.dtype)
-            o = torch.matmul(attn.reshape(S, 1, H * D), bp.wo[layer])
+            o = torch.matmul(attn.reshape(S, 1, H * D), P["blocks.wo"][layer])
             x = x + o
-            h = self._rmsnorm(x, bp.ln2_scale[layer])
-            up = torch.matmul(h.float(), bp.w_up[layer].float())
+            h = self._rmsnorm(x, P["blocks.ln2_scale"][layer])
+            up = torch.matmul(h.float(), P["blocks.w_up"][layer].float())
             ff = torch.matmul(F.gelu(up, approximate="tanh").to(x.dtype),
-                              bp.w_down[layer])
+                              P["blocks.w_down"][layer])
             x = x + ff
-        return self._logits(x[:, 0])
+        return self._logits(P, x[:, 0])
+
+
+def make_train_step(model, lr=1e-2, momentum=0.9, rules=None):
+    """SGD with momentum, the counterpart of the JAX ``make_train_step``:
+    returns ``step(params, velocity, tokens, targets) -> (params, velocity,
+    loss)`` over flat ``{name: tensor}`` dicts under the JAX names (the
+    ``state_dict`` keys, e.g. ``dict(model.named_parameters())`` and zeros
+    of the same shapes).
+
+    The update is JAX's, in each parameter's dtype: ``v = momentum·v + g``,
+    then ``p = p − lr·v`` (``lr·v`` rounded to the dtype first).  It is made
+    IN PLACE: the returned dicts are the ones passed in, their tensors
+    overwritten, so passing the module's own parameters trains the module.
+    ``rules`` (sharding) is not ported until the mesh slice."""
+    if rules is not None:
+        raise NotImplementedError("mxnet_tpu_torch: sharding rules are not "
+                                  "ported yet (one device only)")
+
+    def step(params, velocity, tokens, targets):
+        loss, grads = model.value_and_grad(params, tokens, targets)
+        with torch.no_grad():
+            for name, p in params.items():
+                v = velocity[name]
+                v.mul_(momentum).add_(grads[name].to(v.dtype))
+                p.sub_(v.to(p.dtype) * lr)
+        return params, velocity, loss
+
+    return step

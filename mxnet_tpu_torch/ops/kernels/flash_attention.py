@@ -1,4 +1,4 @@
-"""Flash attention forward.
+"""Flash attention, forward and backward.
 
 Counterpart of ``mxnet_tpu/ops/pallas/flash_attention.py``.  The public
 entry points take ``[B, T, H, D]`` tensors, as the JAX package's do:
@@ -6,13 +6,21 @@ entry points take ``[B, T, H, D]`` tensors, as the JAX package's do:
 * :func:`flash_attention` -> ``o`` in ``q``'s dtype;
 * :func:`flash_attention_lse` -> ``(o, lse)``, ``lse`` f32 ``[B, H, Tq]``.
 
-On a CUDA tensor they launch the hand-written kernel ``csrc/
-flash_attention.cu``, which reads the inputs through their strides (the
-q/k/v slices of a fused qkv projection go in without a transpose or a pad
-copy).  On a CPU tensor they run :func:`flash_attention_reference`, the
-plain dense f32 version of the same function.  The causal mask is
-``q_pos >= k_pos`` with both positions counted from 0, as in the TPU kernel.
-The backward kernels belong to the training slice and are not ported yet.
+Both are differentiable: one :class:`torch.autograd.Function` stands for the
+two custom VJPs ``_flash`` and ``_flash_lse``.  Its forward saves ``(q, k,
+v, o, lse)``; its backward computes ``delta = rowsum(dO∘O) − dlse`` in f32
+with torch ops, as ``_bwd`` does (the lse cotangent folds into ``delta``,
+which is what lets a merge of partials over key sets train), then runs the
+dQ and dK/dV kernels.
+
+On a CUDA tensor they launch the hand-written kernels ``csrc/
+flash_attention.cu`` (forward) and ``csrc/flash_attention_bwd.cu`` (dQ and
+dK/dV), which read the inputs through their strides (the q/k/v slices of a
+fused qkv projection and a non-contiguous ``dO`` go in without a transpose
+or a pad copy).  On a CPU tensor they run :func:`flash_attention_reference`
+and :func:`flash_attention_bwd_reference`, the plain dense f32 versions of
+the same functions.  The causal mask is ``q_pos >= k_pos`` with both
+positions counted from 0, as in the TPU kernels.
 """
 from __future__ import annotations
 
@@ -25,7 +33,7 @@ from . import _build
 from .common import _NEG, count_launch, register_impl, select_impl
 
 __all__ = ["flash_attention", "flash_attention_lse",
-           "flash_attention_reference"]
+           "flash_attention_reference", "flash_attention_bwd_reference"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -58,18 +66,66 @@ def flash_attention_reference(q, k, v, causal=True, scale=None,
     return o
 
 
+def _delta(o, do, dlse):
+    """``rowsum(dO∘O) − dlse`` in f32, ``[B, H, Tq]`` contiguous: the
+    ``delta`` operand of both backward kernels, computed outside them as
+    ``_bwd`` does."""
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    return delta.contiguous()
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, dlse=None,
+                                  causal=True, scale=None):
+    """Plain dense f32 version of the dQ and dK/dV kernels: ``p = exp(s −
+    lse)`` recomputed from the masked scaled scores, ``dp = dO·Vᵀ``, ``ds =
+    p∘(dp − delta)·scale``; ``dQ = ds·K``, ``dK = dsᵀ·Q``, ``dV = pᵀ·dO``,
+    each rounded to its input's dtype.  ``dlse`` (optional) is the
+    cotangent of ``lse`` [B, H, Tq].  Returns ``(dq, dk, dv)``."""
+    D = q.shape[-1]
+    Tq, Tk = q.shape[1], k.shape[1]
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if causal:
+        q_pos = torch.arange(Tq, device=q.device)[:, None]
+        k_pos = torch.arange(Tk, device=q.device)[None, :]
+        s = s.masked_fill(q_pos < k_pos, _NEG)
+    p = torch.exp(s - lse.float()[..., None])                 # [B, H, Tq, Tk]
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - _delta(o, do, dlse)[..., None]) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _configure(lib):
-    ll, vp = ctypes.c_longlong, ctypes.c_void_p
+    ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
     lib.mxt_flash_fwd.argtypes = (
-        [vp] * 5 + [ctypes.c_int] * 5 + [ll] * 12
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp])
+        [vp] * 5 + [i] * 5 + [ll] * 12
+        + [ctypes.c_float, i, i, i, vp])
     lib.mxt_flash_fwd.restype = ctypes.c_int
-    lib.mxt_flash_error_string.argtypes = [ctypes.c_int]
+    lib.mxt_flash_error_string.argtypes = [i]
     lib.mxt_flash_error_string.restype = ctypes.c_char_p
 
 
-def _flash_cuda(q, k, v, causal=True, scale=None):
-    """Launch ``csrc/flash_attention.cu``; returns ``(o, lse)``."""
+def _configure_bwd(lib):
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    tail = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, i, vp]
+    lib.mxt_flash_bwd_dq.argtypes = [vp] * 7 + [i] * 5 + tail
+    lib.mxt_flash_bwd_dq.restype = ctypes.c_int
+    lib.mxt_flash_bwd_dkv.argtypes = [vp] * 8 + [i] * 5 + tail
+    lib.mxt_flash_bwd_dkv.restype = ctypes.c_int
+    lib.mxt_flash_bwd_error_string.argtypes = [i]
+    lib.mxt_flash_bwd_error_string.restype = ctypes.c_char_p
+
+
+def _check_qkv(q, k, v):
+    """Refuse what the kernels do not take; returns ``(B, Tq, Tk, H,
+    D)``."""
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
         raise TypeError("flash_attention: q/k/v must share one dtype of "
                         "float32 or bfloat16; got %s/%s/%s"
@@ -93,6 +149,12 @@ def _flash_cuda(q, k, v, causal=True, scale=None):
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: head_dim must be the unit-stride "
                          "axis")
+    return B, Tq, Tk, H, D
+
+
+def _flash_cuda(q, k, v, causal=True, scale=None):
+    """Launch ``csrc/flash_attention.cu``; returns ``(o, lse)``."""
+    B, Tq, Tk, H, D = _check_qkv(q, k, v)
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
@@ -111,19 +173,121 @@ def _flash_cuda(q, k, v, causal=True, scale=None):
     return o, lse
 
 
+def _strides(*tensors):
+    """The (B, T, H) strides of each tensor, as a C array of int64."""
+    flat = [s for t in tensors for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _flash_dq_cuda(q, k, v, do, lse, delta, causal=True, scale=None):
+    """Launch the dQ kernel of ``csrc/flash_attention_bwd.cu`` on checked
+    inputs (``lse``, ``delta``: f32 [B, H, Tq] contiguous); returns ``dq``,
+    contiguous, in ``q``'s dtype."""
+    B, Tq, H, D = q.shape
+    dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+    if B * H * Tq == 0:
+        return dq
+    lib = _build.load("flash_attention_bwd", _configure_bwd)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    count_launch("flash_attention_dq")
+    rc = lib.mxt_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, Tq,
+        k.shape[1], D, _strides(q, k, v, do, dq), float(scale),
+        int(bool(causal)), _DTYPE_CODE[q.dtype], stream)
+    _build.check(lib, "mxt_flash_bwd", rc)
+    return dq
+
+
+def _flash_dkv_cuda(q, k, v, do, lse, delta, causal=True, scale=None):
+    """Launch the dK/dV kernel of ``csrc/flash_attention_bwd.cu`` on
+    checked inputs; returns ``(dk, dv)``, contiguous, every row written
+    (rows no query sees are 0)."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    dk = torch.empty((B, Tk, H, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, Tk, H, D), dtype=v.dtype, device=q.device)
+    if B * H * Tq == 0:
+        return dk.zero_(), dv.zero_()
+    lib = _build.load("flash_attention_bwd", _configure_bwd)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    count_launch("flash_attention_dkv")
+    rc = lib.mxt_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
+        H, Tq, Tk, D, _strides(q, k, v, do, dk, dv), float(scale),
+        int(bool(causal)), _DTYPE_CODE[q.dtype], stream)
+    _build.check(lib, "mxt_flash_bwd", rc)
+    return dk, dv
+
+
+def _flash_bwd_cuda(q, k, v, o, lse, do, dlse=None, causal=True,
+                    scale=None):
+    """The backward on CUDA tensors: ``delta`` with torch ops, then the dQ
+    and the dK/dV kernel; returns ``(dq, dk, dv)``, contiguous, in the
+    input dtype.  ``dO`` is read through its strides (copied only if its
+    head_dim axis is not unit-stride)."""
+    B, Tq, Tk, H, D = _check_qkv(q, k, v)
+    if tuple(do.shape) != (B, Tq, H, D) or tuple(o.shape) != (B, Tq, H, D):
+        raise ValueError("flash_attention backward: o/dO shapes %s/%s, "
+                         "expected %s" % (tuple(o.shape), tuple(do.shape),
+                                          (B, Tq, H, D)))
+    if tuple(lse.shape) != (B, H, Tq):
+        raise ValueError("flash_attention backward: lse shape %s, expected "
+                         "%s" % (tuple(lse.shape), (B, H, Tq)))
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    do = do.to(q.dtype)
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    lse = lse.float().contiguous()
+    delta = _delta(o, do, dlse)
+    dq = _flash_dq_cuda(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = _flash_dkv_cuda(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The custom VJPs ``_flash`` / ``_flash_lse`` in one: outputs ``(o,
+    lse)``; saves ``(q, k, v, o, lse)``; the backward takes the cotangents
+    of both outputs (``None`` for one that was not used)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        fn, _ = select_impl("flash_attention", q)
+        o, lse = fn(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        fn, _ = select_impl("flash_attention_bwd", q)
+        dq, dk, dv = fn(q, k, v, o, lse, do, dlse, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, causal=True, scale=None):
-    """Flash attention over [B, T, H, D] tensors; returns ``o``."""
-    fn, _ = select_impl("flash_attention", q)
-    return fn(q, k, v, causal, scale)[0]
+    """Flash attention over [B, T, H, D] tensors; returns ``o``.
+    Differentiable in ``q``, ``k`` and ``v``."""
+    return flash_attention_lse(q, k, v, causal, scale)[0]
 
 
 def flash_attention_lse(q, k, v, causal=True, scale=None):
     """Flash attention returning ``(o, lse)``: ``lse`` is the per-row
-    logsumexp [B, H, Tq] (f32) of the scaled masked scores."""
-    fn, _ = select_impl("flash_attention", q)
-    return fn(q, k, v, causal, scale)
+    logsumexp [B, H, Tq] (f32) of the scaled masked scores.
+    Differentiable in both outputs."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    return _FlashAttention.apply(q, k, v, bool(causal), float(scale))
 
 
 register_impl("flash_attention", cuda=_flash_cuda,
               reference=functools.partial(flash_attention_reference,
                                           return_lse=True))
+register_impl("flash_attention_bwd", cuda=_flash_bwd_cuda,
+              reference=flash_attention_bwd_reference)

@@ -9,7 +9,10 @@ no JAX), so it runs there without the repository's conftest::
 Tolerances: f32 within 2e-5 (the same f32 arithmetic in another summation
 order; ``rsqrtf`` and ``expf`` within 2 ulp).  bf16 outputs may round to
 the neighbouring bf16 value (2^-8 relative): 2^-7 relative after one
-rounding, 2^-6 after RMSNorm's two.  ``lse`` is f32 in both.
+rounding, 2^-6 after RMSNorm's two.  ``lse`` is f32 in both.  The flash
+gradients sum over every key (dQ) or query (dK, dV) in f32, in another
+order than the dense plain version: f32 within 1e-4 relative and 1e-4
+absolute; bf16 after their one rounding, 2^-7 relative and 1e-3 absolute.
 """
 import numpy as np
 import pytest
@@ -17,13 +20,18 @@ import torch
 
 from mxnet_tpu_torch.ops.kernels import common
 from mxnet_tpu_torch.ops.kernels.flash_attention import (
-    _flash_cuda, flash_attention_lse, flash_attention_reference)
-from mxnet_tpu_torch.ops.kernels.layers import (_rmsnorm_cuda, fused_rmsnorm,
-                                                fused_rmsnorm_reference)
+    _flash_bwd_cuda, _flash_cuda, flash_attention, flash_attention_bwd_reference,
+    flash_attention_lse, flash_attention_reference)
+from mxnet_tpu_torch.ops.kernels.layers import (
+    _rmsnorm_cuda, _xent_bwd_cuda, _xent_fwd_cuda, fused_rmsnorm,
+    fused_rmsnorm_reference, fused_softmax_xent, softmax_xent_bwd_reference,
+    softmax_xent_reference)
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_ONE_ROUNDING = dict(rtol=2.0 ** -7, atol=1e-5)
 BF16_TWO_ROUNDINGS = dict(rtol=2.0 ** -6, atol=1e-6)
+F32_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_GRAD_TOL = dict(rtol=2.0 ** -7, atol=1e-3)
 
 pytestmark = pytest.mark.cuda
 
@@ -115,3 +123,190 @@ def test_flash_refuses_bad_inputs(dev):
     q = torch.randn(1, 8, 2, 64, device=dev)
     with pytest.raises(TypeError):
         _flash_cuda(q, q.half(), q)
+
+
+# ---------------------------------------------------------------------------
+# flash backward: dQ and dK/dV
+# ---------------------------------------------------------------------------
+FLASH_BWD_CASES = FLASH_CASES + [
+    (1, 8, 200, 2, 32, True),        # causal Tq < Tk: keys 8.. get dK=dV=0
+]
+
+
+def _flash_bwd_inputs(dev, B, Tq, Tk, H, D, causal, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((B, T, H, D), generator=g, device=dev).to(dtype)
+               for T in (Tq, Tk, Tk))
+    o, lse = _flash_cuda(q, k, v, causal)
+    do = torch.randn((B, Tq, H, D), generator=g, device=dev).to(dtype)
+    dlse = torch.randn((B, H, Tq), generator=g, device=dev)
+    return q, k, v, o, lse, do, dlse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_flash_bwd_kernels_match_plain(dev, case, dtype):
+    B, Tq, Tk, H, D, causal = case
+    q, k, v, o, lse, do, dlse = _flash_bwd_inputs(dev, *case, dtype)
+    # free NaN blocks of dQ's and dK/dV's sizes, so that the outputs'
+    # torch.empty likely reuse them: every row must be written
+    for t in (q, k, v):
+        torch.full_like(t, float("nan"))
+    got = _flash_bwd_cuda(q, k, v, o, lse, do, dlse, causal)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, dlse, causal)
+    tol = F32_GRAD_TOL if dtype == torch.float32 else BF16_GRAD_TOL
+    for gt, wt, name in zip(got, want, ("dq", "dk", "dv")):
+        assert gt.dtype == dtype and gt.shape == wt.shape
+        assert torch.isfinite(gt).all(), name
+        np.testing.assert_allclose(_np(gt), _np(wt), err_msg=name, **tol)
+    if causal and Tq < Tk:
+        assert not got[1][:, Tq:].any() and not got[2][:, Tq:].any()
+
+
+def test_flash_bwd_reads_strided_slices_and_dout(dev):
+    """q/k/v as slices of one fused qkv tensor and a non-contiguous dO
+    give the same gradients as contiguous copies."""
+    B, T, H, D = 1, 77, 2, 64
+    g = torch.Generator(device=dev).manual_seed(1)
+    qkv = torch.randn(B, T, 3 * H * D, generator=g, device=dev,
+                      dtype=torch.bfloat16)
+    q, k, v = (t.view(B, T, H, D) for t in qkv.split(H * D, -1))
+    o, lse = _flash_cuda(q, k, v)
+    do = torch.randn(B, H, T, D, generator=g, device=dev,
+                     dtype=torch.bfloat16).transpose(1, 2)
+    assert not q.is_contiguous() and not do.is_contiguous()
+    a = _flash_bwd_cuda(q, k, v, o, lse, do)
+    b = _flash_bwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(), o,
+                        lse, do.contiguous())
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_flash_autograd_launches_backward_kernels(dev):
+    B, T, H, D = 1, 130, 2, 64
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn(B, T, H, D, generator=g, device=dev,
+                           requires_grad=True) for _ in range(3))
+    common.reset_counts()
+    o, lse = flash_attention_lse(q, k, v)
+    (o.square().sum() + lse.tanh().sum()).backward()
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention": 1,
+        "kernels.launch.flash_attention_dq": 1,
+        "kernels.launch.flash_attention_dkv": 1}
+    assert common.selection_counts() == {
+        "kernels.select.flash_attention.cuda": 1,
+        "kernels.select.flash_attention_bwd.cuda": 1}
+    qr, kr, vr = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    o2, lse2 = flash_attention_reference(qr, kr, vr, return_lse=True)
+    (o2.square().sum() + lse2.tanh().sum()).backward()
+    for t, r in ((q, qr), (k, kr), (v, vr)):
+        np.testing.assert_allclose(_np(t.grad), _np(r.grad), **F32_GRAD_TOL)
+
+
+def test_flash_bwd_refuses_bad_inputs(dev):
+    q = torch.randn(1, 8, 2, 48, device=dev)
+    lse = torch.zeros(1, 2, 8, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        _flash_bwd_cuda(q, q, q, q, lse, q)
+    q = torch.randn(1, 8, 2, 64, device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        _flash_bwd_cuda(q, q, q, q, lse, q)
+    q = torch.randn(1, 8, 2, 64, device=dev)
+    with pytest.raises(ValueError, match="lse"):
+        _flash_bwd_cuda(q, q, q, q, lse[:, :, :4], q)
+    with pytest.raises(TypeError):
+        flash_attention(q.double(), q.double(), q.double())
+
+
+# ---------------------------------------------------------------------------
+# softmax cross-entropy: forward and backward
+# ---------------------------------------------------------------------------
+XENT_CASES = [
+    (37, 77),          # ragged N, V not a multiple of the block
+    (64, 1000),
+    (300, 32000),      # the model's vocabulary
+    (5, 1),
+]
+
+
+def _xent_inputs(dev, N, V, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logits = (3 * torch.randn(N, V, generator=g, device=dev)).to(dtype)
+    labels = torch.randint(0, V, (N,), generator=g, device=dev)
+    labels[0], labels[-1] = V, -1           # outside [0, V): gold 0
+    return logits, labels
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", XENT_CASES)
+def test_xent_kernels_match_plain(dev, case, dtype):
+    N, V = case
+    logits, labels = _xent_inputs(dev, N, V, dtype)
+    loss, lse = _xent_fwd_cuda(logits, labels)
+    rloss, rlse = softmax_xent_reference(logits, labels, return_lse=True)
+    assert loss.dtype == lse.dtype == torch.float32 and loss.shape == (N,)
+    np.testing.assert_allclose(_np(loss), _np(rloss), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(_np(lse), _np(rlse), rtol=1e-5, atol=1e-4)
+    g = torch.randn(N, device=dev)
+    d = _xent_bwd_cuda(logits, labels, lse, g)
+    rd = softmax_xent_bwd_reference(logits, labels, lse, g)
+    assert d.dtype == dtype and d.shape == logits.shape
+    tol = F32_TOL if dtype == torch.float32 else BF16_ONE_ROUNDING
+    np.testing.assert_allclose(_np(d), _np(rd), **tol)
+
+
+def test_xent_reads_row_stride_and_stride0_g(dev):
+    """A column slice of a wider buffer goes in through its row stride;
+    the ``.mean()`` cotangent is an expanded, stride-0 ``g``."""
+    wide, labels = _xent_inputs(dev, 33, 700, torch.float32)
+    logits = wide[:, :500]
+    labels = labels.clamp(0, 499)
+    assert not logits.is_contiguous()
+    loss, lse = _xent_fwd_cuda(logits, labels)
+    loss2, lse2 = _xent_fwd_cuda(logits.contiguous(), labels)
+    assert torch.equal(loss, loss2) and torch.equal(lse, lse2)
+    g = torch.full((), 1 / 33, device=dev).expand(33)
+    assert g.stride() == (0,)
+    d = _xent_bwd_cuda(logits, labels, lse, g)
+    rd = softmax_xent_bwd_reference(logits, labels, lse, g.contiguous())
+    np.testing.assert_allclose(_np(d), _np(rd), **F32_TOL)
+
+
+def test_xent_autograd_launches_both_kernels(dev):
+    logits, labels = _xent_inputs(dev, 4 * 6, 50, torch.float32)
+    logits = logits.view(4, 6, 50).requires_grad_(True)
+    labels = labels.clamp(0, 49).view(4, 6)
+    common.reset_counts()
+    fused_softmax_xent(logits, labels).mean().backward()
+    assert common.launch_counts() == {
+        "kernels.launch.fused_softmax_xent": 1,
+        "kernels.launch.fused_softmax_xent_bwd": 1}
+    ref = logits.detach().clone().requires_grad_(True)
+    torch.nn.functional.cross_entropy(ref.view(-1, 50),
+                                      labels.view(-1)).backward()
+    np.testing.assert_allclose(_np(logits.grad), _np(ref.grad), **F32_TOL)
+
+
+def test_xent_refuses_bad_inputs(dev):
+    logits = torch.randn(4, 10, device=dev, dtype=torch.float16)
+    labels = torch.zeros(4, dtype=torch.int64, device=dev)
+    with pytest.raises(TypeError):
+        _xent_fwd_cuda(logits, labels)
+    with pytest.raises(TypeError):
+        _xent_fwd_cuda(logits.float(), labels.float())
+    with pytest.raises(ValueError, match="shape"):
+        _xent_fwd_cuda(logits.float(), labels[:3])
+
+
+def test_rmsnorm_backward_on_card_matches_cpu(dev):
+    """The RMSNorm gradient is plain torch math on both devices."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(6, 256, generator=g, device=dev, requires_grad=True)
+    s = (1 + 0.1 * torch.randn(256, generator=g, device=dev)
+         ).requires_grad_(True)
+    fused_rmsnorm(x, s).square().sum().backward()
+    xc, sc = (t.detach().cpu().requires_grad_(True) for t in (x, s))
+    fused_rmsnorm(xc, sc).square().sum().backward()
+    np.testing.assert_allclose(_np(x.grad), _np(xc.grad), **F32_GRAD_TOL)
+    np.testing.assert_allclose(_np(s.grad), _np(sc.grad), **F32_GRAD_TOL)

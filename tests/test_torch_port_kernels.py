@@ -1,4 +1,5 @@
-"""Port kernels against the JAX package: RMSNorm and flash-attention forward.
+"""Port kernels against the JAX package: RMSNorm, flash attention and the
+fused softmax cross-entropy, forward and gradients.
 
 The same numpy inputs (from a seed) go through ``mxnet_tpu``'s Pallas
 kernels, run on the CPU through the Pallas interpreter, and through
@@ -13,6 +14,14 @@ rsqrt/exp rounding).  bf16 outputs may land on the neighbouring bf16 value
 when the f32 value before rounding differs in its last bits: one ulp is
 2^-8 relative, so bf16 is held to 2^-7 relative after one rounding and to
 2^-6 after RMSNorm's two.
+
+Gradients go through ``jax.vjp`` of the JAX function (its custom VJP: the
+Pallas backward kernels through the interpreter) and through
+``torch.autograd.grad`` of the port's, with the same numpy cotangents.
+f32 gradients are held to 1e-5 relative and 1e-5 absolute (2e-5 through
+the attention backward: a sum over every key or query row in another
+order).  bf16 gradients are rounded once from f32 sums that differ only in
+order, so they are held to one rounding, 2^-7 relative.
 """
 import numpy as np
 import pytest
@@ -20,23 +29,32 @@ import torch
 
 import jax.numpy as jnp
 
+import jax
+
 from mxnet_tpu.ops.pallas import (flash_attention as jax_flash,
                                   flash_attention_lse as jax_flash_lse,
-                                  fused_rmsnorm as jax_rmsnorm)
+                                  fused_rmsnorm as jax_rmsnorm,
+                                  fused_softmax_xent as jax_xent)
 from mxnet_tpu.ops.pallas.layers import _rmsnorm_lax
 from mxnet_tpu_torch.ops.kernels import (common, flash_attention,
                                          flash_attention_lse,
+                                         flash_attention_bwd_reference,
                                          flash_attention_reference,
                                          fused_rmsnorm,
                                          fused_rmsnorm_reference,
-                                         launch_counts, select_impl,
-                                         selection_counts)
+                                         fused_softmax_xent, launch_counts,
+                                         select_impl, selection_counts,
+                                         softmax_xent_bwd_reference,
+                                         softmax_xent_reference)
 from mxnet_tpu_torch.ops.kernels import _build
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 F32_FLASH_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_ONE_ROUNDING = dict(rtol=2.0 ** -7, atol=1e-5)
 BF16_TWO_ROUNDINGS = dict(rtol=2.0 ** -6, atol=1e-6)
+F32_GRAD_TOL = dict(rtol=1e-5, atol=1e-5)
+F32_FLASH_GRAD_TOL = dict(rtol=2e-5, atol=2e-5)
+BF16_GRAD_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
 
 
 def _np(shape, seed, dtype):
@@ -54,7 +72,7 @@ def _to_torch(a):
 
 def _f32(x):
     if isinstance(x, torch.Tensor):
-        return x.float().numpy()
+        return x.detach().float().numpy()
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
@@ -175,6 +193,167 @@ class TestFlashAttentionParity:
                                            return_lse=True)
         assert torch.isfinite(lse).all() and torch.isfinite(o).all()
         assert torch.equal(o[0, 0], v[0, 0])
+
+
+# ---------------------------------------------------------------------------
+# gradients: the custom VJPs through the Pallas interpreter vs autograd
+# ---------------------------------------------------------------------------
+def _leaves(*arrays):
+    return [_to_torch(a).requires_grad_(True) for a in arrays]
+
+
+class TestRMSNormGrad:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("shape", [(16, 128), (3, 7, 96)])
+    def test_dx_dscale_match_pallas_vjp(self, shape, dtype):
+        x = _np(shape, 20, dtype)
+        scale = np.asarray(1.0 + 0.1 * _np(shape[-1:], 21, "float32"),
+                           dtype=x.dtype)
+        g = _np(shape, 22, dtype)
+        _, vjp = jax.vjp(lambda x, s: jax_rmsnorm(x, s, interpret=True),
+                         jnp.asarray(x), jnp.asarray(scale))
+        jdx, jds = vjp(jnp.asarray(g))
+        tx, ts = _leaves(x, scale)
+        dx, ds = torch.autograd.grad(fused_rmsnorm(tx, ts), (tx, ts),
+                                     _to_torch(g))
+        assert dx.dtype == tx.dtype and ds.dtype == ts.dtype
+        tol = F32_GRAD_TOL if dtype == "float32" else BF16_GRAD_TOL
+        np.testing.assert_allclose(_f32(dx), _f32(jdx), **tol)
+        # dscale sums over every row: f32 to 1e-4 relative
+        np.testing.assert_allclose(
+            _f32(ds), _f32(jds), **(dict(rtol=1e-4, atol=1e-4)
+                                    if dtype == "float32" else tol))
+
+
+FLASH_GRAD_CASES = [
+    # (B, Tq, Tk, H, D, causal)
+    (2, 16, 16, 2, 16, True),        # aligned
+    (1, 37, 37, 2, 32, True),        # ragged T
+    (1, 37, 37, 2, 32, False),
+    (1, 24, 40, 2, 16, False),       # Tq != Tk
+    (1, 20, 33, 3, 64, True),        # causal, Tq < Tk (rows past Tq: dK=dV=0)
+]
+
+
+class TestFlashAttentionGrad:
+    @pytest.mark.parametrize("case,dtype", [
+        (c, "float32") for c in FLASH_GRAD_CASES] + [
+        (FLASH_GRAD_CASES[i], "bfloat16") for i in (1, 4)])
+    def test_lse_vjp_matches_pallas_kernels(self, case, dtype):
+        """Cotangents on both outputs: the lse one folds into delta."""
+        B, Tq, Tk, H, D, causal = case
+        q, k, v = _qkv(B, Tq, Tk, H, D, dtype)
+        do = _np((B, Tq, H, D), 13, dtype)
+        dlse = _np((B, H, Tq), 14, "float32")
+        _, vjp = jax.vjp(lambda q, k, v: jax_flash_lse(
+            q, k, v, causal=causal, interpret=True),
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        want = vjp((jnp.asarray(do), jnp.asarray(dlse)))
+        tq, tk, tv = _leaves(q, k, v)
+        o, lse = flash_attention_lse(tq, tk, tv, causal=causal)
+        got = torch.autograd.grad((o, lse), (tq, tk, tv),
+                                  (_to_torch(do), _to_torch(dlse)))
+        tol = F32_FLASH_GRAD_TOL if dtype == "float32" else BF16_GRAD_TOL
+        for g, w, name in zip(got, want, "qkv"):
+            assert g.dtype == tq.dtype
+            np.testing.assert_allclose(_f32(g), _f32(w), err_msg="d" + name,
+                                       **tol)
+
+    @pytest.mark.parametrize("causal,dtype", [(True, "float32"),
+                                              (False, "bfloat16")])
+    def test_output_vjp_matches_pallas_kernels(self, causal, dtype):
+        q, k, v = _qkv(1, 37, 37, 2, 32, dtype)
+        do = _np((1, 37, 2, 32), 15, dtype)
+        _, vjp = jax.vjp(lambda q, k, v: jax_flash(
+            q, k, v, causal=causal, interpret=True),
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        want = vjp(jnp.asarray(do))
+        tq, tk, tv = _leaves(q, k, v)
+        got = torch.autograd.grad(flash_attention(tq, tk, tv, causal=causal),
+                                  (tq, tk, tv), _to_torch(do))
+        tol = F32_FLASH_GRAD_TOL if dtype == "float32" else BF16_GRAD_TOL
+        for g, w, name in zip(got, want, "qkv"):
+            np.testing.assert_allclose(_f32(g), _f32(w), err_msg="d" + name,
+                                       **tol)
+
+    def test_causal_rows_past_tq_get_zero_dk_dv(self):
+        """Causal Tq < Tk: keys past Tq - 1 are seen by no query."""
+        q, k, v = (_to_torch(a) for a in _qkv(1, 20, 33, 3, 64, "float32"))
+        o, lse = flash_attention_reference(q, k, v, True, return_lse=True)
+        do = _to_torch(_np((1, 20, 3, 64), 16, "float32"))
+        dq, dk, dv = flash_attention_bwd_reference(q, k, v, o, lse, do)
+        assert not dk[:, 20:].any() and not dv[:, 20:].any()
+        assert dk[:, :20].abs().sum() > 0 and dq.abs().sum() > 0
+
+    def test_backward_routes_to_reference_on_cpu(self):
+        common.reset_counts()
+        tq, tk, tv = _leaves(*_qkv(1, 9, 9, 1, 16, "float32"))
+        flash_attention(tq, tk, tv).sum().backward()
+        sel = selection_counts()
+        assert sel == {"kernels.select.flash_attention.reference": 1,
+                       "kernels.select.flash_attention_bwd.reference": 1}
+        assert launch_counts() == {}
+
+
+XENT_CASES = [
+    # (leading shape, V): V not a multiple of 128, N ragged
+    ((37,), 77),
+    ((3, 5), 300),
+    ((64,), 1000),
+]
+
+
+def _labels(shape, V, seed=30):
+    lab = np.random.default_rng(seed).integers(0, V, shape)
+    flat = lab.reshape(-1)
+    flat[0], flat[-1] = V, -1      # outside [0, V): gold 0, no one-hot
+    return lab
+
+
+class TestSoftmaxXentParity:
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("case", XENT_CASES)
+    def test_loss_and_dlogits_match_pallas_kernels(self, case, dtype):
+        lead, V = case
+        logits = _np(lead + (V,), 31, dtype)
+        labels = _labels(lead, V)
+        g = _np(lead, 32, "float32")
+        jloss, vjp = jax.vjp(lambda l: jax_xent(
+            l, jnp.asarray(labels, jnp.int32), interpret=True),
+            jnp.asarray(logits))
+        (jdl,) = vjp(jnp.asarray(g))
+        tl = _to_torch(logits).requires_grad_(True)
+        loss = fused_softmax_xent(tl, torch.from_numpy(labels))
+        assert loss.shape == lead and loss.dtype == torch.float32
+        (dl,) = torch.autograd.grad(loss, (tl,), _to_torch(g))
+        assert dl.dtype == tl.dtype and dl.shape == tl.shape
+        # the loss is f32 on both sides; bf16 inputs are exact in f32
+        np.testing.assert_allclose(_f32(loss), _f32(jloss), **F32_GRAD_TOL)
+        tol = F32_GRAD_TOL if dtype == "float32" else BF16_GRAD_TOL
+        np.testing.assert_allclose(_f32(dl), _f32(jdl), **tol)
+
+    def test_out_of_range_label_has_no_gold(self):
+        logits = _to_torch(_np((2, 10), 33, "float32"))
+        labels = torch.tensor([10, -1])
+        loss, lse = softmax_xent_reference(logits, labels, return_lse=True)
+        assert torch.equal(loss, lse)
+        d = softmax_xent_bwd_reference(logits, labels, lse, torch.ones(2))
+        assert torch.allclose(d, torch.softmax(logits, -1))
+
+    def test_mean_cotangent_and_cpu_routing(self):
+        """``.mean()`` hands the backward an expanded, stride-0 ``g``."""
+        common.reset_counts()
+        tl = _to_torch(_np((4, 6, 50), 34, "float32")).requires_grad_(True)
+        labels = torch.from_numpy(_labels((4, 6), 50))
+        fused_softmax_xent(tl, labels).mean().backward()
+        want = softmax_xent_bwd_reference(
+            tl.detach(), labels, torch.logsumexp(tl.detach(), -1),
+            torch.full((4, 6), 1 / 24))
+        np.testing.assert_allclose(_f32(tl.grad), _f32(want), **F32_TOL)
+        assert selection_counts() == {
+            "kernels.select.fused_softmax_xent.reference": 1,
+            "kernels.select.fused_softmax_xent_bwd.reference": 1}
+        assert launch_counts() == {}
 
 
 # ---------------------------------------------------------------------------

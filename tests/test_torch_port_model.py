@@ -77,7 +77,7 @@ def route(request, monkeypatch):
 
 def _f32(x):
     if isinstance(x, torch.Tensor):
-        return x.float().numpy()
+        return x.detach().float().numpy()
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
@@ -214,7 +214,8 @@ def test_apply_logits_match_jax(route, dtype):
     m = _port_model(dtype, flash=route == "flash")
     toks = np.stack([_prompt(13, 1), _prompt(13, 2)])
     want, _ = jm.apply(params, jnp.asarray(toks, jnp.int32))
-    got = m.apply(torch.from_numpy(toks))
+    got, aux = m.apply(torch.from_numpy(toks))
+    assert float(aux) == 0.0                   # JAX's aux for the dense MLP
     assert got.dtype == torch.float32 and got.shape == (2, 13, VOCAB)
     np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype,
                                                              "logits"))
@@ -297,7 +298,7 @@ def test_six_decode_steps_match_jax_and_full_forward(route, dtype):
         np.testing.assert_allclose(_f32(got[0]), _f32(jl[0]),
                                    **_tol(dtype, "logits"))
         if dtype == "float32":
-            full = m.apply(torch.tensor(seq)[None])[0, -1]
+            full = m.apply(torch.tensor(seq)[None])[0][0, -1]
             np.testing.assert_allclose(_f32(got[0]), _f32(full), **F32_TOL)
         length += 1
         last = int(np.argmax(_f32(jl[0])))
