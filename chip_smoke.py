@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port on one NVIDIA card.
 
-Drives ``mxnet_tpu_torch``'s two main paths at full width, with seeded
+Drives ``mxnet_tpu_torch``'s three main paths at full width, with seeded
 random weights, and holds each hand-written CUDA kernel against its plain
 PyTorch version on the card:
 
@@ -15,15 +15,22 @@ PyTorch version on the card:
   the long-context configuration (d_model 1024, 16 heads of 64, 4 layers,
   d_ff 4096, bf16, remat, batch 1 x 8192: bench.py's long-context leg),
   which crosses the dense->flash gate and so runs the flash forward, dQ
-  and dK/dV kernels.
+  and dK/dV kernels;
+* INT8 inference — the symbolic ResNet-50 (``models/resnet_symbol.py``,
+  1000 classes, 3x224x224) is calibrated, quantized, BN-folded and
+  int8-fused by ``contrib.quantization.quantize_model``, bound, and run at
+  batch 128, with the int8 matmul kernel in its classifier; and
+  ``nd.contrib.quantized_dense`` on the classifier's int8 inputs, with the
+  int8 matmul's fused-dequant kernel.
 
 Run from the root of the repository, with no arguments::
 
     python3 chip_smoke.py
 
 ``--profile`` adds a last phase that traces one long prefill, a few decode
-iterations and one training step of each training configuration with
-``torch.profiler`` (where the device time goes).
+iterations, one training step of each training configuration and one
+fp32 and one int8 ResNet-50 forward with ``torch.profiler`` (where the
+device time goes).
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -45,10 +52,21 @@ Phases, in order; any failure raises and exits non-zero:
    and fall, the kernel counters must show exactly the expected launches
    per step and no plain version; then, on the long-context
    configuration, the loss and every parameter gradient through the
-   kernels must match those through the plain versions.
+   kernels must match those through the plain versions;
+6. int8    — the fp32 ResNet-50 graph at batch 128 (one warm forward, then
+   ``INT8_TIMED`` timed), ``quantize_model`` (naive calibration on 32
+   images in batches of 16, fold_bn, fuse_int8), the int8 graph (one warm
+   forward, then ``INT8_TIMED`` timed): the op counts must equal the JAX
+   package's, the int8 outputs must keep a cosine above 0.99 with the
+   fp32 ones, the int8 forward through the kernels must equal the one
+   through the plain versions bit for bit, the int8 matmul must launch
+   exactly once per forward, and ``quantized_dense`` on the classifier's
+   int8 inputs must equal ``dequantize(quantized_fully_connected(...))``
+   and launch the fused-dequant kernel once.
 
-Each main path (serve, and each training configuration) runs with the
-counters zeroed just before it and read just after.  The line before the
+Each main path (serve, each training configuration, the timed int8
+forwards and the ``quantized_dense`` call) runs with the counters zeroed
+just before it and read just after.  The line before the
 last is the ``{"kernels": [...]}`` summary (launches summed over those
 runs), and before it the ``nvidia-smi`` name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -64,7 +82,7 @@ import time
 # published dense peaks of one H100 SXM (NVIDIA data sheet); roofline
 # bounds below are against these, with the card's power limit printed beside
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 FLAGSHIP = dict(vocab_size=32000, d_model=2048, n_heads=16, n_layers=4,
                 d_ff=8192, max_len=8192, dtype="bfloat16")
@@ -107,6 +125,28 @@ EXPECTED_LAUNCHES = {
 # gradient error 8.0e-3 (embed)
 STEP_LOSS_ATOL = 1e-3
 STEP_GRAD_REL_L2 = 2e-2
+
+# the INT8 phase: resnet.py's ImageNet ResNet-50 (train_imagenet.py's
+# default network) and bench.py's int8 leg (int8_bench: batch 128, 224^2,
+# 32 naive-calibration images in batches of 16, fold_bn and fuse_int8)
+INT8_NET = dict(num_classes=1000, num_layers=50, image_shape="3,224,224")
+INT8_BATCH = 128
+INT8_CALIB = 32
+INT8_CALIB_BATCH = 16
+INT8_TIMED = 3
+# the quantized graph's op counts under fold_bn + fuse_int8, as the JAX
+# package's quantize_model writes them for this network
+INT8_OPS = {"_contrib_quantized_conv": 53,
+            "_contrib_quantized_fully_connected": 1,
+            "_contrib_requantize": 32, "_contrib_quantized_act": 32,
+            "_contrib_quantize_v2": 18, "_contrib_dequantize": 22,
+            "BatchNorm": 18, "Activation": 18, "broadcast_add": 16,
+            "Pooling": 2, "Flatten": 1, "SoftmaxOutput": 1}
+INT8_MIN_COSINE = 0.99          # the bar of tests/test_quantization.py
+# quantized_dense vs dequantize(quantized_fully_connected): both are
+# f32(acc) times the same f32 scale, so they agree bit for bit; held to
+# the oracle's stated 1e-6 relative
+DENSE_RTOL = 1e-6
 
 
 def _check(cond, msg):
@@ -479,6 +519,68 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     return dq, dkv
 
 
+def _int8_case(M, K, N, gen):
+    """Both int8 matmul kernels on a [M, K] x [N, K]: int32 out, and the
+    fused dequant with a scalar ``scale_a`` and a per-channel ``scale_b``
+    (bench.py's kernel leg).  Both must equal their plain version bit for
+    bit.  Two records."""
+    import torch
+    from mxnet_tpu_torch.ops.kernels.int8_matmul import (
+        _int8_matmul_cuda, int8_matmul_reference)
+
+    a = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (N, K), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    sa = torch.tensor([0.05], device="cuda")
+    sb = torch.rand(N, generator=gen, device="cuda") * 0.1 + 0.01
+    got = _int8_matmul_cuda(a, b)
+    ref = int8_matmul_reference(a, b)
+    got_d = _int8_matmul_cuda(a, b, sa, sb)
+    ref_d = int8_matmul_reference(a, b, sa, sb)
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(got, ref))
+    # bitwise: the f32 outputs compared as their int32 bit patterns
+    exact_d = bool(torch.equal(got_d.view(torch.int32),
+                               ref_d.view(torch.int32)))
+    err = float((got.double() - ref.double()).abs().max())
+    err_d = float((got_d - ref_d).abs().max())
+
+    def lib(a, b):
+        return torch._int_mm(a, b.t())
+
+    try:                         # cuBLASLt's shape rules: M > 16, K, N % 8
+        lib(a, b)
+        torch.cuda.synchronize()
+    except RuntimeError:
+        lib = None
+    ops = 2.0 * M * N * K
+    args = _copies((a, b))
+    dargs = _copies((a, b, sa, sb))
+    lib_ms = _time_ms(lib, args) if lib else None
+    recs = []
+    for name, ok, e, nbytes, fn, fargs in (
+            ("int8_matmul", exact, err, M * K + N * K + 4 * M * N,
+             _int8_matmul_cuda, args),
+            ("int8_matmul_dequant", exact_d, err_d,
+             M * K + N * K + 4 * M * N + 4 * N, _int8_matmul_cuda, dargs)):
+        bound, by = _bound(ops, nbytes, "int8")
+        rec = {"kernel": name, "M": M, "K": K, "N": N, "bit_exact": ok,
+               "max_abs_err": e, "ok": ok,
+               "ms": _time_ms(fn, fargs),
+               "plain_ms": _time_ms(int8_matmul_reference, fargs),
+               "library_ms": lib_ms,
+               "library": "torch._int_mm (cuBLASLt int8; the int32 "
+                          "accumulator only)" if lib else
+                          "none: torch._int_mm refuses this shape",
+               "bound_ms": bound, "bound_by": by}
+        _emit(rec)
+        _check(ok, "%s [%d, %d] x [%d, %d] is not bit-exact against its "
+               "plain version (max abs err %g)" % (name, M, K, N, K, e))
+        recs.append(rec)
+    return recs
+
+
 def phase_kernels():
     import torch
 
@@ -507,6 +609,14 @@ def phase_kernels():
         _xent_case(8192, 32000, "float32", gen)
     _xent_case(8192, 32000, "bfloat16", gen)
     _xent_case(777, 30001, "float32", gen)
+    # the INT8 path: bench.py's 2048^3 kernel leg, VGG16's fc6 at batch
+    # 128, ResNet-50's classifier (the shape the int8 phase runs) and a
+    # ragged case (no dimension a multiple of the tiles, K odd)
+    _int8_case(2048, 2048, 2048, gen)
+    _int8_case(128, 25088, 4096, gen)
+    main["int8_matmul"], main["int8_matmul_dequant"] = \
+        _int8_case(INT8_BATCH, 2048, INT8_NET["num_classes"], gen)
+    _int8_case(777, 301, 1001, gen)
     return main
 
 
@@ -731,6 +841,193 @@ def phase_train(dev):
     return launches, states
 
 
+def _xavier_params(sym, ctx, seed=0):
+    """Seeded weights for ``sym``: Xavier-uniform convolution and FC
+    weights (magnitude 3, fan average: MXNet's ``Xavier()``), zero biases,
+    BatchNorm gamma 1, beta 0, moving mean 0, moving var 1."""
+    import numpy as np
+    from mxnet_tpu_torch.model import params_from_numpy
+
+    arg_shapes, _, aux_shapes = sym.infer_shape(
+        data=(1,) + tuple(int(x) for x in
+                          INT8_NET["image_shape"].split(",")))
+    rng = np.random.default_rng(seed)
+    args, auxs = {}, {}
+    for name, shape in zip(sym.list_arguments(), arg_shapes):
+        if name in ("data", "softmax_label"):
+            continue
+        if name.endswith("_weight"):
+            rf = int(np.prod(shape[2:]))
+            scale = np.sqrt(3.0 / ((shape[1] * rf + shape[0] * rf) / 2.0))
+            args[name] = rng.uniform(-scale, scale, shape).astype(np.float32)
+        elif name.endswith("_gamma"):
+            args[name] = np.ones(shape, np.float32)
+        else:                                        # beta, bias
+            args[name] = np.zeros(shape, np.float32)
+    for name, shape in zip(sym.list_auxiliary_states(), aux_shapes):
+        fill = np.ones if name.endswith("_var") else np.zeros
+        auxs[name] = fill(shape, np.float32)
+    return params_from_numpy(args, auxs, ctx=ctx)
+
+
+def _timed_forwards(exe, n):
+    """``n`` forwards, each timed on the host clock and ending in a
+    synchronize.  Returns the ms and the last outputs."""
+    import torch
+
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        outs = exe.forward(is_train=False)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, outs
+
+
+def phase_int8(dev):
+    """The INT8 path on the symbolic ResNet-50.  Returns the launches of
+    its two counted runs (the timed int8 forwards, the quantized_dense
+    call) and the fp32 and int8 executors, for ``--profile``."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib.quantization import quantize_model
+    from mxnet_tpu_torch.models.resnet_symbol import get_symbol
+    from mxnet_tpu_torch.ops.kernels import common
+
+    ctx = mx.gpu(0)
+    net = get_symbol(**INT8_NET)
+    args, auxs = _xavier_params(net, ctx)
+    rng = np.random.default_rng(2)
+    shape = (INT8_BATCH,) + tuple(int(x) for x in
+                                  INT8_NET["image_shape"].split(","))
+    x = rng.random(shape, dtype=np.float32)
+    calib_x = rng.random((INT8_CALIB,) + shape[1:], dtype=np.float32)
+    label = mx.nd.zeros((INT8_BATCH,), ctx=ctx)
+
+    # -- the fp32 graph, the reference of the int8 one -------------------
+    # each graph is bound with its classifier's logits as a second output
+    # (fc1, and fc1_dequantize in the int8 graph): with random weights the
+    # 1000-way softmax is nearly flat, so int8 and fp32 are compared on the
+    # logits, whose cosine does not saturate
+    torch.cuda.reset_peak_memory_stats()
+    exe = mx.sym.Group([net, net.get_internals()["fc1_output"]]).simple_bind(
+        ctx=ctx, grad_req="null", data=shape)
+    exe.copy_params_from(args, auxs)
+    exe.forward(is_train=False, data=mx.nd.array(x, ctx=ctx))    # warm
+    torch.cuda.synchronize()
+    fp32_ms, outs = _timed_forwards(exe, INT8_TIMED)
+    want, want_logits = (o.asnumpy() for o in outs)
+    fp32_peak = torch.cuda.max_memory_allocated() / 1e9
+    del outs
+
+    # -- quantize: calibrate, fold, rewrite, fuse -------------------------
+    t0 = time.perf_counter()
+    calib = mx.io.NDArrayIter(calib_x, np.zeros(INT8_CALIB),
+                              INT8_CALIB_BATCH)
+    qsym, qargs, qauxs = quantize_model(
+        net, args, auxs, ctx=ctx, calib_mode="naive", calib_data=calib,
+        num_calib_examples=INT8_CALIB, fold_bn=True, fuse_int8=True)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    ops = {}
+    for n in qsym._topo():
+        if not n.is_var:
+            ops[n.op.name] = ops.get(n.op.name, 0) + 1
+    _check(ops == INT8_OPS, "int8 op counts %s differ from the JAX "
+           "package's %s" % (ops, INT8_OPS))
+
+    # -- the main path: the timed int8 forwards ---------------------------
+    qgraph = mx.sym.Group([qsym,
+                           qsym.get_internals()["fc1_dequantize_output"]])
+    qexe = qgraph.bind(ctx=ctx, args=dict(qargs,
+                                          data=mx.nd.array(x, ctx=ctx),
+                                          softmax_label=label),
+                       aux_states=qauxs, grad_req="null")
+    qexe.forward(is_train=False)                   # warm, uncounted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_counts()
+    int8_ms, outs = _timed_forwards(qexe, INT8_TIMED)
+    selects = common.selection_counts()
+    fwd_launches = common.launch_counts()
+    int8_peak = torch.cuda.max_memory_allocated() / 1e9
+    got, logits = (o.asnumpy() for o in outs)
+    _check(fwd_launches == {"kernels.launch.int8_matmul": INT8_TIMED},
+           "int8 forwards launched %s, expected int8_matmul once per "
+           "forward" % fwd_launches)
+    _check(not any(k.endswith(".reference") for k in selects),
+           "a plain version ran on the int8 path: %s" % selects)
+    with _plain_versions():
+        plain = [o.asnumpy() for o in qexe.forward(is_train=False)]
+
+    def cosine(a, b):
+        a, b = a.astype(np.float64).ravel(), b.astype(np.float64).ravel()
+        return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+    cos = cosine(logits, want_logits)
+    top1 = float((logits.argmax(1) == want_logits.argmax(1)).mean())
+    same_as_plain = bool(np.array_equal(got, plain[0])
+                         and np.array_equal(logits, plain[1]))
+
+    # -- quantized_dense on the classifier's int8 inputs ------------------
+    qi = qsym.get_internals()
+    fc_in = mx.sym.Group([qi["fc1_data_quantize_output%d" % i]
+                          for i in range(3)])
+    q, qmin, qmax = fc_in.bind(ctx=ctx, args=qexe.arg_dict,
+                               aux_states=qexe.aux_dict,
+                               grad_req="null").forward()
+    w, wmin, wmax = (qargs[k] for k in ("fc1_weight_quantize", "fc1_wmin",
+                                        "fc1_wmax"))
+    nh = INT8_NET["num_classes"]
+    common.reset_counts()
+    dense = mx.nd.contrib.quantized_dense(q, w, qmin, qmax, wmin, wmax,
+                                          num_hidden=nh, no_bias=True)
+    torch.cuda.synchronize()
+    dense_launches = common.launch_counts()
+    fc, fmn, fmx = mx.nd.contrib.quantized_fully_connected(
+        q, w, qmin, qmax, wmin, wmax, num_hidden=nh, no_bias=True)
+    oracle = mx.nd.contrib.dequantize(fc, fmn, fmx).asnumpy()
+    dense = dense.asnumpy()
+    dense_err = float(np.abs(dense - oracle).max())
+    dense_ok = bool((np.abs(dense - oracle)
+                     <= DENSE_RTOL * np.abs(oracle)).all())
+
+    rec = {
+        "phase": "int8", "device": dev["name"], "nvidia_smi": dev["smi"],
+        "net": INT8_NET, "batch": INT8_BATCH,
+        "fp32_ms": fp32_ms,
+        "fp32_img_per_s": [INT8_BATCH * 1e3 / m for m in fp32_ms],
+        "fp32_peak_mem_gb": fp32_peak,
+        "quantize_model_s": quantize_s, "calib_images": INT8_CALIB,
+        "int8_ms": int8_ms,
+        "int8_img_per_s": [INT8_BATCH * 1e3 / m for m in int8_ms],
+        "int8_peak_mem_gb": int8_peak, "op_counts": ops,
+        "logits_cosine_int8_vs_fp32": cos, "min_cosine": INT8_MIN_COSINE,
+        "softmax_cosine_int8_vs_fp32": cosine(got, want),
+        "logits_std_fp32": float(want_logits.std()),
+        "top1_agreement": top1, "kernels_equal_plain_bitwise":
+        same_as_plain, "forward_launches": fwd_launches,
+        "forward_selections": selects,
+        "quantized_dense_launches": dense_launches,
+        "quantized_dense_max_abs_err_vs_oracle": dense_err,
+        "quantized_dense_rtol": DENSE_RTOL,
+    }
+    _emit(rec)
+    _check(np.isfinite(got).all() and got.shape == (INT8_BATCH, nh),
+           "int8 outputs: shape %s, finite %s" % (got.shape,
+                                                  np.isfinite(got).all()))
+    _check(cos > INT8_MIN_COSINE, "int8 vs fp32 logits cosine %g <= %g"
+           % (cos, INT8_MIN_COSINE))
+    _check(same_as_plain, "the int8 forward through the kernels differs "
+           "from the one through the plain versions")
+    _check(dense_launches == {"kernels.launch.int8_matmul_dequant": 1},
+           "quantized_dense launched %s" % dense_launches)
+    _check(dense_ok, "quantized_dense differs from dequantize("
+           "quantized_fully_connected) by %g" % dense_err)
+    return [fwd_launches, dense_launches], {"fp32": exe, "int8": qexe}
+
+
 def _profile_window(name, fn):
     """Trace ``fn`` (after one warm call) with ``torch.profiler``; print
     the wall time, the device busy time and share, and the kernels that
@@ -813,9 +1110,13 @@ def main():
     main_cases = phase_kernels()
     serve_launches, model = phase_serve(dev)
     train_launches, states = phase_train(dev)
+    int8_launches, int8_exes = phase_int8(dev)
     if "--profile" in sys.argv[1:]:
         phase_profile(model)
         phase_profile_train(states)
+        for name, exe in int8_exes.items():
+            _profile_window("resnet50_%s_forward_b%d" % (name, INT8_BATCH),
+                            lambda exe=exe: exe.forward(is_train=False))
     sources = {
         "fused_rmsnorm": ("mxnet_tpu_torch/ops/kernels/csrc/rmsnorm.cu",
                           "mxnet_tpu/ops/pallas/layers.py:31"),
@@ -834,8 +1135,14 @@ def main():
         "fused_softmax_xent_bwd": (
             "mxnet_tpu_torch/ops/kernels/csrc/softmax_xent.cu",
             "mxnet_tpu/ops/pallas/layers.py:151"),
+        "int8_matmul": (
+            "mxnet_tpu_torch/ops/kernels/csrc/int8_matmul.cu",
+            "mxnet_tpu/ops/pallas/int8_matmul.py:46"),
+        "int8_matmul_dequant": (
+            "mxnet_tpu_torch/ops/kernels/csrc/int8_matmul.cu",
+            "mxnet_tpu/ops/pallas/int8_matmul.py:54"),
     }
-    runs = [serve_launches] + list(train_launches.values())
+    runs = [serve_launches] + list(train_launches.values()) + int8_launches
     kernels = []
     for name, (src, replaces) in sources.items():
         rec = main_cases[name]

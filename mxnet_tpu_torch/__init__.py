@@ -6,19 +6,25 @@ written by hand for Hopper (``ops/kernels/csrc``), built with ``nvcc`` at
 first use.  The package imports ``torch`` and ``numpy``, never ``jax`` and
 nothing of ``mxnet_tpu``; only the parity tests import both.
 
-It carries the flagship TransformerLM on two paths:
+It carries three paths:
 
-* serving: ``GenerationServer.submit_async`` -> scheduler ->
-  ``GenerationEngine`` -> ``TransformerLM.prefill`` / ``decode_step``, with
-  the fused RMSNorm and flash-attention forward kernels;
-* training: ``make_train_step`` -> ``TransformerLM.loss`` -> ``apply`` and
-  backward, with, besides those, the flash-attention dQ and dK/dV kernels
-  and the fused softmax cross-entropy forward and backward kernels.
+* serving the flagship TransformerLM: ``GenerationServer.submit_async`` ->
+  scheduler -> ``GenerationEngine`` -> ``TransformerLM.prefill`` /
+  ``decode_step``, with the fused RMSNorm and flash-attention forward
+  kernels;
+* training it: ``make_train_step`` -> ``TransformerLM.loss`` -> ``apply``
+  and backward, with, besides those, the flash-attention dQ and dK/dV
+  kernels and the fused softmax cross-entropy forward and backward kernels;
+* INT8 post-training quantization and int8 inference of a symbolic graph
+  (the MXNet API core: ``Context``, ``nd``, ``sym``, the executor,
+  ``io.NDArrayIter``): ``contrib.quantization.quantize_model`` -> ``bind``
+  -> ``forward``, with the int8 matmul kernels (int32 out, and with the
+  per-channel dequant fused).
 
-Entry points take ``device=``.  The default is ``cuda:0``; without a CUDA
-device they raise unless the caller asks for the CPU explicitly
-(``device="cpu"``, which the tests do), and then every kernel runs its plain
-PyTorch version.
+Entry points take ``device=`` (or, on the symbolic path, ``ctx=``).  The
+default is ``cuda:0`` (``gpu(0)``); without a CUDA device they raise unless
+the caller asks for the CPU explicitly (``device="cpu"`` / ``ctx=cpu()``,
+which the tests do), and then every kernel runs its plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -26,7 +32,8 @@ import torch
 
 __all__ = ["default_device", "resolve_device", "TransformerConfig",
            "TransformerLM", "make_train_step", "GenerationConfig",
-           "GenerationEngine", "GenerationServer"]
+           "GenerationEngine", "GenerationServer", "Context", "cpu", "gpu",
+           "current_context", "nd", "sym", "io", "contrib"]
 
 
 def default_device() -> torch.device:
@@ -64,3 +71,7 @@ from .models.transformer import (TransformerConfig,  # noqa: E402
                                  TransformerLM, make_train_step)
 from .generation import (GenerationConfig, GenerationEngine,  # noqa: E402
                          GenerationServer)
+from .context import Context, cpu, current_context, gpu  # noqa: E402
+from . import ndarray as nd  # noqa: E402
+from . import symbol as sym  # noqa: E402
+from . import contrib, io, model  # noqa: E402,F401

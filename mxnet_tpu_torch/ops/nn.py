@@ -1,0 +1,171 @@
+"""Neural-network operators, inference forward only.
+
+Counterpart of the ops of ``mxnet_tpu/ops/nn.py`` that the symbolic
+ResNet path runs: Convolution, FullyConnected, Pooling, BatchNorm (with the
+moving statistics), Activation and SoftmaxOutput (forward: softmax).
+Layouts are the reference's (NCHW data, OIHW weights, ``(num_hidden,
+input_dim)`` FC weights).  Convolutions go to cuDNN and products to cuBLAS
+through PyTorch; the executor turns TF32 off for both on the card, so f32
+stays f32 as JAX's "highest" precision keeps it.
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .registry import register
+
+
+def _tup(v, n, default):
+    if v is None or v == () or v == []:
+        return (default,) * n
+    if isinstance(v, int):
+        return (v,) * n
+    return tuple(int(x) for x in v)
+
+
+def _attr_bool(v):
+    return str(v).lower() in ("true", "1")
+
+
+# ---------------------------------------------------------------------------
+# FullyConnected / Convolution
+# ---------------------------------------------------------------------------
+@register("FullyConnected", input_names=("data", "weight", "bias"))
+def _fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
+                     flatten=True):
+    """y = x·Wᵀ + b (src/operator/nn/fully_connected.cc)."""
+    if _attr_bool(flatten) and data.dim() > 2:
+        data = data.reshape(data.shape[0], -1)
+    y = torch.matmul(data, weight.t())
+    if not _attr_bool(no_bias) and bias is not None:
+        y = y + bias
+    return y
+
+
+def conv_nd(data, weight, kernel, stride, dilate, pad, num_group):
+    """N-d convolution in the dtype of its inputs, NC(D)HW / OI(D)HW."""
+    n = len(kernel)
+    if n not in (1, 2, 3):
+        raise ValueError("Convolution: %d spatial dims" % n)
+    return getattr(F, "conv%dd" % n)(
+        data, weight, stride=_tup(stride, n, 1), padding=_tup(pad, n, 0),
+        dilation=_tup(dilate, n, 1), groups=int(num_group))
+
+
+@register("Convolution", input_names=("data", "weight", "bias"))
+def _convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                 pad=(), num_filter=1, num_group=1, no_bias=False,
+                 cudnn_tune=None, cudnn_off=False, workspace=1024,
+                 layout=None):
+    """src/operator/nn/convolution.cc: grouped, dilated N-d convolution."""
+    n = len(kernel)
+    if data.dim() == n + 1:          # unbatched
+        data = data[None]
+    out = conv_nd(data, weight, kernel, stride, dilate, pad, num_group)
+    if not _attr_bool(no_bias) and bias is not None:
+        out = out + bias.reshape((1, -1) + (1,) * n)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Pooling
+# ---------------------------------------------------------------------------
+@register("Pooling", input_names=("data",))
+def _pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
+             pad=(), pooling_convention="valid", count_include_pad=True,
+             cudnn_off=False, p_value=2, layout=None):
+    """src/operator/nn/pooling.cc, NC(D)HW: max, avg or sum.
+
+    As in the reference's lowering, the input is padded explicitly (with
+    -inf for max, 0 for avg/sum), with ``pooling_convention="full"`` adding
+    the extra high-side padding that turns floor into ceil; avg is the
+    window sum divided by the window size (or, without
+    ``count_include_pad``, by the count of real elements), one IEEE
+    division, as in the reference."""
+    n = data.dim() - 2
+    if n not in (2, 3):
+        raise ValueError("Pooling: %d spatial dims (2-d and 3-d are "
+                         "ported)" % n)
+    if _attr_bool(global_pool):
+        kernel, stride, pad = tuple(data.shape[2:]), (1,) * n, (0,) * n
+    else:
+        kernel, stride, pad = (_tup(kernel, n, 1), _tup(stride, n, 1),
+                               _tup(pad, n, 0))
+    pads = []                         # F.pad order: last dim first
+    for i in reversed(range(n)):
+        extra = 0
+        if pooling_convention == "full" and not _attr_bool(global_pool):
+            rem = (data.shape[2 + i] + 2 * pad[i] - kernel[i]) % stride[i]
+            extra = (stride[i] - rem) % stride[i] if rem else 0
+        pads += [pad[i], pad[i] + extra]
+    if pool_type == "max":
+        x = F.pad(data, pads, value=float("-inf")) if any(pads) else data
+        return getattr(F, "max_pool%dd" % n)(x, kernel, stride)
+    if pool_type not in ("avg", "sum"):
+        raise ValueError("unknown pool_type %r" % pool_type)
+    # the window sum: an average pool with divisor 1
+    window_sum = functools.partial(getattr(F, "avg_pool%dd" % n),
+                                   kernel_size=kernel, stride=stride,
+                                   divisor_override=1)
+    out = window_sum(F.pad(data, pads) if any(pads) else data)
+    if pool_type == "sum":
+        return out
+    if _attr_bool(count_include_pad):
+        return out / torch.tensor(float(math.prod(kernel)), dtype=out.dtype,
+                                  device=out.device)
+    ones = torch.ones_like(data)
+    return out / window_sum(F.pad(ones, pads) if any(pads) else ones)
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm (inference)
+# ---------------------------------------------------------------------------
+@register("BatchNorm", input_names=("data", "gamma", "beta", "moving_mean",
+                                    "moving_var"),
+          mutate={3: 3, 4: 4}, num_outputs=5,
+          visible_out=lambda attrs: [0, 1, 2]
+          if _attr_bool(attrs.get("output_mean_var", False)) else [0])
+def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                momentum=0.9, fix_gamma=True, use_global_stats=False,
+                output_mean_var=False, axis=1, cudnn_off=False):
+    """src/operator/nn/batch_norm.cc in inference mode: normalize with the
+    moving statistics, ``(x − mean)·(γ·rsqrt(var + eps)) + β`` (γ = 1 under
+    ``fix_gamma``), subtract first as the reference does.  Returns the
+    reference's five outputs; the moving statistics come back unchanged."""
+    low = data.dtype in (torch.float16, torch.bfloat16)
+    x = data.float() if low else data
+    g = torch.ones_like(gamma) if _attr_bool(fix_gamma) else gamma
+    ax = int(axis) % data.dim()
+    bshape = [1] * data.dim()
+    bshape[ax] = data.shape[ax]
+    inv = torch.rsqrt(moving_var + eps)
+    out = (x - moving_mean.reshape(bshape)) * (g * inv).reshape(bshape) \
+        + beta.reshape(bshape)
+    return (out.to(data.dtype), moving_mean, moving_var, moving_mean,
+            moving_var)
+
+
+# ---------------------------------------------------------------------------
+# Activation / SoftmaxOutput
+# ---------------------------------------------------------------------------
+@register("Activation", input_names=("data",))
+def _activation(data, act_type="relu"):
+    if act_type != "relu":
+        raise ValueError("Activation: act_type %r is not ported (relu)"
+                         % (act_type,))
+    return torch.relu(data)
+
+
+@register("SoftmaxOutput", input_names=("data", "label"),
+          aliases=("Softmax",))
+def _softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                    multi_output=False, use_ignore=False,
+                    preserve_shape=False, normalization="null",
+                    out_grad=False, smooth_alpha=0.0):
+    """Forward of src/operator/softmax_output.cc: the softmax of ``data``
+    (over axis 1 with ``multi_output``, else the last)."""
+    return torch.softmax(data, dim=1 if _attr_bool(multi_output) else -1)

@@ -13,12 +13,16 @@ rounding, 2^-6 after RMSNorm's two.  ``lse`` is f32 in both.  The flash
 gradients sum over every key (dQ) or query (dK, dV) in f32, in another
 order than the dense plain version: f32 within 1e-4 relative and 1e-4
 absolute; bf16 after their one rounding, 2^-7 relative and 1e-3 absolute.
+The int8 matmul, both variants, is bit-exact against its plain version (an
+exact int32 sum; one rounding to f32 and one f32 product in the dequant).
 """
 import numpy as np
 import pytest
 import torch
 
-from mxnet_tpu_torch.ops.kernels import common
+from mxnet_tpu_torch.ops.kernels import common, int8_matmul
+from mxnet_tpu_torch.ops.kernels.int8_matmul import (_int8_matmul_cuda,
+                                                     int8_matmul_reference)
 from mxnet_tpu_torch.ops.kernels.flash_attention import (
     _flash_bwd_cuda, _flash_cuda, flash_attention, flash_attention_bwd_reference,
     flash_attention_lse, flash_attention_reference)
@@ -310,3 +314,78 @@ def test_rmsnorm_backward_on_card_matches_cpu(dev):
     fused_rmsnorm(xc, sc).square().sum().backward()
     np.testing.assert_allclose(_np(x.grad), _np(xc.grad), **F32_GRAD_TOL)
     np.testing.assert_allclose(_np(s.grad), _np(sc.grad), **F32_GRAD_TOL)
+
+
+# ---------------------------------------------------------------------------
+# int8 matmul: int32 out and fused dequant
+# ---------------------------------------------------------------------------
+INT8_CASES = [
+    # (M, K, N)
+    (1, 1, 1),
+    (16, 32, 8),                     # one mma tile
+    (128, 2048, 1000),               # ResNet-50's classifier at batch 128
+    (256, 512, 384),                 # aligned, 128x128 tiles on small cards
+    (777, 301, 1001),                # ragged everywhere, K odd
+    (64, 48, 130),                   # K % 16 == 0 but not a tile of K
+    (300, 1000, 72),                 # K % 16 != 0, K % 8 == 0
+    (2048, 2048, 2048),              # the 128x128 tile path on an H100
+]
+
+
+def _int8_inputs(dev, M, K, N, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randint(-127, 128, (M, K), generator=g, device=dev,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (N, K), generator=g, device=dev,
+                      dtype=torch.int8)
+    sa = torch.tensor([0.05], device=dev)
+    sb = torch.rand(N, generator=g, device=dev) * 0.1 + 0.01
+    return a, b, sa, sb
+
+
+@pytest.mark.parametrize("case", INT8_CASES)
+def test_int8_matmul_kernels_bit_exact(dev, case):
+    a, b, sa, sb = _int8_inputs(dev, *case)
+    got = _int8_matmul_cuda(a, b)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, int8_matmul_reference(a, b))
+    for scales in ((sa, sb), (sa, None), (None, sb)):
+        got = _int8_matmul_cuda(a, b, *scales)
+        want = int8_matmul_reference(a, b, *scales)
+        assert got.dtype == torch.float32
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_int8_matmul_on_strided_and_offset_operands(dev):
+    """Rows with a stride past K and a base not 16-byte aligned take the
+    general path; the result is the same."""
+    M, K, N = 70, 64, 40
+    a, b, sa, sb = _int8_inputs(dev, M, K + 16, N)
+    a2, b2 = a[:, 3:3 + K], b[:, 1:1 + K]
+    assert a2.stride(0) == K + 16 and not a2.is_contiguous()
+    for scales in ((None, None), (sa, sb)):
+        assert torch.equal(_int8_matmul_cuda(a2, b2, *scales),
+                           int8_matmul_reference(a2.contiguous(),
+                                                 b2.contiguous(), *scales))
+
+
+def test_int8_matmul_routes_cuda_tensors_to_the_kernels(dev):
+    a, b, sa, sb = _int8_inputs(dev, 32, 64, 24)
+    common.reset_counts()
+    int8_matmul(a, b)
+    int8_matmul(a, b, sa, sb)
+    assert common.selection_counts() == {
+        "kernels.select.int8_matmul.cuda": 2}
+    assert common.launch_counts() == {
+        "kernels.launch.int8_matmul": 1,
+        "kernels.launch.int8_matmul_dequant": 1}
+
+
+def test_int8_matmul_refuses_bad_inputs(dev):
+    a, b, _, _ = _int8_inputs(dev, 8, 16, 4)
+    with pytest.raises(TypeError):
+        _int8_matmul_cuda(a.float(), b)
+    with pytest.raises(ValueError):
+        _int8_matmul_cuda(a, b[:, :8])
+    with pytest.raises(ValueError, match="scales"):
+        _int8_matmul_cuda(a, b, None, torch.ones(5, device=dev))

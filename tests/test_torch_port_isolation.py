@@ -3,9 +3,11 @@
 * An AST scan of every module of ``mxnet_tpu_torch/`` and of
   ``chip_smoke.py`` finds no import of ``jax`` or ``mxnet_tpu``.
 * A child process in which ``jax`` and ``mxnet_tpu`` cannot be imported
-  imports the port and serves two tokens on the CPU.
+  imports the port and serves two tokens on the CPU; another quantizes a
+  small symbolic convnet and runs it in int8.
 * Without a CUDA device, the entry points refuse to start unless the
-  caller asks for the CPU.
+  caller asks for the CPU (``device="cpu"``, or ``ctx=cpu()`` on the
+  symbolic path).
 """
 import ast
 import json
@@ -94,6 +96,54 @@ def test_serves_with_jax_unimportable():
     assert all(0 <= t < TINY["vocab_size"] for t in res["tokens"])
 
 
+_CHILD_INT8 = r"""
+import importlib.abc, json, sys
+
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, _Block())
+import numpy as np
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch.contrib.quantization import quantize_model
+cpu = mx.cpu()
+net = mx.sym.Convolution(mx.sym.Variable("data"), kernel=(3, 3),
+                         num_filter=4, name="conv")
+net = mx.sym.Flatten(mx.sym.Activation(net, act_type="relu"))
+net = mx.sym.FullyConnected(net, num_hidden=3, name="fc")
+rng = np.random.RandomState(0)
+x = rng.rand(4, 2, 6, 6).astype(np.float32)
+ex = net.simple_bind(ctx=cpu, grad_req="null", data=x.shape)
+args = {k: mx.nd.array(rng.randn(*v.shape) * 0.3, ctx=cpu)
+        for k, v in ex.arg_dict.items() if k != "data"}
+qsym, qargs, _ = quantize_model(
+    net, args, {}, ctx=cpu, calib_mode="naive",
+    calib_data=mx.io.NDArrayIter(x, np.zeros(4), 2), fuse_int8=True)
+out = qsym.bind(ctx=cpu, args=dict(qargs, data=mx.nd.array(x, ctx=cpu))
+                ).forward()[0].asnumpy()
+ex.copy_params_from(args)
+ref = ex.forward(data=x)[0].asnumpy()
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))
+print(json.dumps({"shape": list(out.shape), "max_err": float(abs(out - ref).max()),
+                  "scale": float(abs(ref).max()), "loaded": loaded}))
+"""
+
+
+def test_int8_path_runs_with_jax_unimportable():
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD_INT8], capture_output=True, text=True,
+        timeout=120, cwd=REPO, env=subprocess_env())
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == []
+    assert res["shape"] == [4, 3]
+    assert res["max_err"] <= 0.05 * res["scale"]
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -112,6 +162,35 @@ def test_entry_points_refuse_cpu_fallback(no_cuda, device):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GenerationServer(model, GenerationConfig(max_pages=4),
                          device=device, warm=False)
+
+
+def test_symbolic_entry_points_refuse_cpu_fallback(no_cuda):
+    import numpy as np
+
+    from mxnet_tpu_torch import cpu, current_context, gpu, nd, sym
+    from mxnet_tpu_torch.contrib.quantization import quantize_model
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        nd.array([1.0, 2.0])                  # default context gpu(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        nd.zeros((2,), ctx=gpu(0))
+    net = sym.FullyConnected(sym.Variable("data"), num_hidden=2, name="fc")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        net.simple_bind(data=(1, 3))
+    args = {"fc_weight": nd.zeros((2, 3), ctx=cpu()),
+            "fc_bias": nd.zeros((2,), ctx=cpu())}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        net.bind(args=dict(args, data=nd.zeros((1, 3), ctx=cpu())))
+    calib = __import__("mxnet_tpu_torch").io.NDArrayIter(
+        np.zeros((2, 3), np.float32), np.zeros(2), 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quantize_model(net, args, {}, calib_mode="naive", calib_data=calib)
+    assert net.simple_bind(ctx=cpu(), data=(1, 3)).forward()[0].shape == \
+        (1, 2)
+    with cpu():                    # a context scope sets the default
+        assert current_context() == cpu()
+        assert nd.array([1.0]).context == cpu()
+    assert current_context() == gpu(0)
 
 
 def test_default_device_is_cuda0_when_present(monkeypatch):
