@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port on one NVIDIA card.
 
-Drives ``mxnet_tpu_torch``'s three main paths at full width, with seeded
-random weights, and holds each hand-written CUDA kernel against its plain
-PyTorch version on the card:
+Drives ``mxnet_tpu_torch``'s main paths at full width, with seeded random
+weights, and holds each hand-written CUDA kernel against its plain version
+on the card:
 
 * serving — ``GenerationServer.submit_async`` -> scheduler ->
   ``GenerationEngine`` -> ``TransformerLM.prefill`` / ``decode_step`` — on
@@ -21,16 +21,23 @@ PyTorch version on the card:
   int8-fused by ``contrib.quantization.quantize_model``, bound, and run at
   batch 128, with the int8 matmul kernel in its classifier; and
   ``nd.contrib.quantized_dense`` on the classifier's int8 inputs, with the
-  int8 matmul's fused-dequant kernel.
+  int8 matmul's fused-dequant kernel;
+* symbolic training — ``Module.fit`` of the same ResNet-50 at
+  train_imagenet.py's settings (batch 32, SGD with momentum and weight
+  decay, a MultiFactorScheduler, accuracy, ``Uniform(0.01)``), f32;
+* user kernels — CUDA source compiled at runtime by ``mx.rtc`` (NVRTC)
+  and launched from a ``CustomOp`` (``rtc_softmax``) on that path: in
+  ``example/numpy-ops/custom_softmax.py``'s training and as ResNet-50's
+  head.
 
 Run from the root of the repository, with no arguments::
 
     python3 chip_smoke.py
 
 ``--profile`` adds a last phase that traces one long prefill, a few decode
-iterations, one training step of each training configuration and one
-fp32 and one int8 ResNet-50 forward with ``torch.profiler`` (where the
-device time goes).
+iterations, one training step of each training configuration, one fp32
+and one int8 ResNet-50 forward and one ResNet-50 Module training step with
+``torch.profiler`` (where the device time goes).
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -62,10 +69,30 @@ Phases, in order; any failure raises and exits non-zero:
    through the plain versions bit for bit, the int8 matmul must launch
    exactly once per forward, and ``quantized_dense`` on the classifier's
    int8 inputs must equal ``dequantize(quantized_fully_connected(...))``
-   and launch the fused-dequant kernel once.
+   and launch the fused-dequant kernel once;
+7. module_train — ``Module.fit`` of ResNet-50 on 256 seeded images in
+   batches of 32 (one warm step, then 7 timed, each ending in a
+   synchronize): losses finite, 8 updates, the data BatchNorm's moving
+   statistics equal to 8 EMA steps of the batches' moments (each step
+   updates them exactly once), every moving statistic moved; then one
+   ``forward_backward`` and ``update`` at batch 4 on the card against the
+   same on the CPU: every gradient, moving statistic and update within
+   ``MODULE_CHECK_REL``;
+8. rtc — (a) the reference's templated ``axpy<float>`` / ``axpy<double>``
+   and tests/test_rtc.py's kernels in CUDA, equal to torch; a second
+   module of the same source and a second launch compile nothing; the host
+   cost of one launch; (b) the custom-softmax example through
+   ``rtc_softmax`` and through ``numpy_softmax`` from the same parameters:
+   accuracy at least 0.9, parameters within ``RTC_FIT_REL``, exactly the
+   expected launches; (c) one ResNet-50 step at batch 32 with the head
+   swapped for each: every gradient within ``RTC_STEP_REL``, one launch of
+   each kernel; and the two kernels against numpy_softmax at [32, 1000]
+   and [64, 4], timed.
 
 Each main path (serve, each training configuration, the timed int8
-forwards and the ``quantized_dense`` call) runs with the counters zeroed
+forwards, the ``quantized_dense`` call, ``Module.fit``, the example's
+training through ``rtc_softmax`` and the ResNet-50 step through it) runs
+with the counters zeroed
 just before it and read just after.  The line before the
 last is the ``{"kernels": [...]}`` summary (launches summed over those
 runs), and before it the ``nvidia-smi`` name and power limit; the last line
@@ -147,6 +174,203 @@ INT8_MIN_COSINE = 0.99          # the bar of tests/test_quantization.py
 # f32(acc) times the same f32 scale, so they agree bit for bit; held to
 # the oracle's stated 1e-6 relative
 DENSE_RTOL = 1e-6
+
+
+# the module_train phase: train_imagenet.py's defaults (resnet-50,
+# 3x224x224, 1000 classes, batch 32; fit.py: sgd, lr 0.1, momentum 0.9, wd
+# 1e-4, the lr divided by 10 at epochs 30 and 60, metric accuracy, and
+# Module.fit's default initializer Uniform(0.01)), f32 with TF32 off
+MODULE_BATCH = 32
+MODULE_IMAGES = 256                  # 8 steps: one warm, 7 timed
+MODULE_EPOCH_SIZE = 1281167 // MODULE_BATCH
+MODULE_SGD = dict(learning_rate=0.1, momentum=0.9, wd=1e-4)
+# card vs CPU, one forward_backward and update at batch 4, f32: every
+# gradient, moving statistic and update w_new - w_old within 1e-3 relative
+# L2 (cuDNN and the CPU's convolutions sum in other orders through 50
+# layers and their backward; see _compare_tensors for sums that cancel)
+MODULE_CHECK_BATCH = 4
+MODULE_CHECK_REL = 1e-3
+# the data BatchNorm's moving statistics after k steps against k EMA
+# applications of the batches' moments, computed on the host in f64
+MODULE_STATS_REL = 1e-5
+
+# the rtc phase: example/numpy-ops/custom_softmax.py's network and training
+# (16 -> 16 -> 4, 512 examples, batch 64, adam 5e-3, Xavier, 10 epochs),
+# through the user op rtc_softmax (CUDA kernels compiled by mx.rtc) and
+# through the example's numpy_softmax, from the same parameters
+RTC_EPOCHS = 10
+RTC_MIN_ACC = 0.9                    # the example's bar
+RTC_FIT_REL = 1e-4
+RTC_STEP_REL = 1e-4                  # ResNet-50 gradients, rtc vs numpy head
+RTC_THREADS = 128
+# rtc_softmax's forward against numpy's: expf and numpy's exp within 2 ulp,
+# the row sum in another order; the backward on the same p is bit-exact
+# ((p - onehot) / batch: one f32 subtraction and one f32 division)
+RTC_FWD_ATOL, RTC_FWD_RTOL = 1e-7, 1e-5
+# tensors whose norm is below this share of their group's joint norm are
+# reported, not gated, by the step comparisons (see _compare_tensors)
+CANCELLED_SHARE = 1e-3
+
+# User code: the kernels a user of mx.rtc writes, and the CustomOps over
+# them.  One CTA per row; max and sum in f32 by warp shuffles.
+RTC_SOFTMAX_SRC = r"""
+__device__ float warp_reduce(float v, bool take_max) {
+    for (int o = 16; o > 0; o >>= 1) {
+        float w = __shfl_xor_sync(0xffffffffu, v, o);
+        v = take_max ? fmaxf(v, w) : v + w;
+    }
+    return v;
+}
+
+__device__ float block_reduce(float v, bool take_max) {
+    __shared__ float part[32];
+    int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    v = warp_reduce(v, take_max);
+    __syncthreads();                      // part[] may hold the last call's
+    if (lane == 0) part[warp] = v;
+    __syncthreads();
+    int warps = (blockDim.x + 31) >> 5;
+    float idle = take_max ? __int_as_float(0xff800000) : 0.0f;
+    return warp_reduce(lane < warps ? part[lane] : idle, take_max);
+}
+
+extern "C" __global__ void softmax_forward(const float *x, float *y,
+                                           int cols) {
+    const float *row = x + (size_t)blockIdx.x * cols;
+    float *out = y + (size_t)blockIdx.x * cols;
+    float m = __int_as_float(0xff800000);
+    for (int j = threadIdx.x; j < cols; j += blockDim.x)
+        m = fmaxf(m, row[j]);
+    m = block_reduce(m, true);
+    float s = 0.0f;
+    for (int j = threadIdx.x; j < cols; j += blockDim.x)
+        s += expf(row[j] - m);
+    s = block_reduce(s, false);
+    for (int j = threadIdx.x; j < cols; j += blockDim.x)
+        out[j] = expf(row[j] - m) / s;
+}
+
+extern "C" __global__ void softmax_backward(const float *p,
+                                            const float *label, float *dx,
+                                            int cols, float batch) {
+    size_t base = (size_t)blockIdx.x * cols;
+    int y = (int)label[blockIdx.x];
+    for (int j = threadIdx.x; j < cols; j += blockDim.x)
+        dx[base + j] = (p[base + j] - (j == y ? 1.0f : 0.0f)) / batch;
+}
+"""
+# the reference rtc docstring's templated kernel, and tests/test_rtc.py's
+# two Pallas kernels written in CUDA; --fmad=false keeps a*x + y two
+# roundings, as the torch expressions they are held to exactly
+RTC_AXPY_TEMPLATE_SRC = r"""
+template<typename DType>
+__global__ void axpy(const DType *x, DType *y, DType alpha) {
+    int i = threadIdx.x + blockIdx.x * blockDim.x;
+    y[i] += alpha * x[i];
+}
+"""
+RTC_TEST_SRC = r"""
+extern "C" __global__ void axpy(const float *x, const float *y, float *o,
+                                int n) {
+    int i = threadIdx.x + blockIdx.x * blockDim.x;
+    if (i < n) o[i] = 2.5f * x[i] + y[i];
+}
+
+extern "C" __global__ void scale(const float *x, float *o, int n) {
+    int i = threadIdx.x + blockIdx.x * blockDim.x;
+    if (i < n) o[i] = x[i] * 3.0f;
+}
+"""
+
+
+def register_user_ops(mx):
+    """Register the user ops ``numpy_softmax`` (the example's, its class
+    body as it is) and ``rtc_softmax`` (the same arguments, outputs and
+    shapes, its forward and backward launching ``RTC_SOFTMAX_SRC``'s
+    kernels through ``mx.rtc``) over package ``mx``.  The CUDA module is
+    compiled at the first ``rtc_softmax`` operator and kept."""
+    import numpy as np
+
+    class NumpySoftmax(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0].asnumpy()
+            e = np.exp(x - x.max(axis=1, keepdims=True))
+            self.assign(out_data[0], req[0], mx.nd.array(
+                e / e.sum(axis=1, keepdims=True)))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            # fused softmax+CE gradient: (p - onehot(y)) / batch
+            p = out_data[0].asnumpy()
+            y = in_data[1].asnumpy().astype(int)
+            g = p.copy()
+            g[np.arange(len(y)), y] -= 1.0
+            self.assign(in_grad[0], req[0], mx.nd.array(g / len(y)))
+            self.assign(in_grad[1], req[1], mx.nd.zeros_like(in_data[1]))
+
+    class RtcSoftmax(mx.operator.CustomOp):
+        def __init__(self, kernels):
+            self.fwd, self.bwd = kernels
+
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0]
+            n, c = x.shape
+            out = out_data[0] if req[0] == "write" else \
+                mx.nd.zeros_like(out_data[0])
+            self.fwd.launch([x, out, c], x.context, (n, 1, 1),
+                            (RTC_THREADS, 1, 1))
+            if out is not out_data[0]:
+                self.assign(out_data[0], req[0], out)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            p, y = out_data[0], in_data[1]
+            n, c = p.shape
+            dx = in_grad[0] if req[0] == "write" else \
+                mx.nd.zeros_like(in_grad[0])
+            self.bwd.launch([p, y, dx, c, float(n)], p.context, (n, 1, 1),
+                            (RTC_THREADS, 1, 1))
+            if dx is not in_grad[0]:
+                self.assign(in_grad[0], req[0], dx)
+            self.assign(in_grad[1], req[1], mx.nd.zeros_like(in_data[1]))
+
+    compiled = {}
+
+    def kernels():
+        if not compiled:
+            mod = mx.rtc.CudaModule(RTC_SOFTMAX_SRC)
+            compiled["module"] = mod
+            compiled["kernels"] = (
+                mod.get_kernel("softmax_forward",
+                               "const float *x, float *y, int cols"),
+                mod.get_kernel("softmax_backward",
+                               "const float *p, const float *label, "
+                               "float *dx, int cols, float batch"))
+        return compiled["kernels"]
+
+    class _SoftmaxProp(mx.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def list_outputs(self):
+            return ["output"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], (in_shape[0][0],)], [in_shape[0]], []
+
+    @mx.operator.register("numpy_softmax")
+    class NumpySoftmaxProp(_SoftmaxProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return NumpySoftmax()
+
+    @mx.operator.register("rtc_softmax")
+    class RtcSoftmaxProp(_SoftmaxProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return RtcSoftmax(kernels())
+
+    return {"numpy": NumpySoftmax, "rtc": RtcSoftmax, "kernels": kernels,
+            "compiled": compiled}
 
 
 def _check(cond, msg):
@@ -1028,6 +1252,438 @@ def phase_int8(dev):
     return [fwd_launches, dense_launches], {"fp32": exe, "int8": qexe}
 
 
+def _rel_l2(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _compare_tensors(got, want, tol):
+    """Hold ``{name: array}`` ``got`` to ``want``: the relative L2 error of
+    all of them together, and of each whose norm is at least
+    ``CANCELLED_SHARE`` of their joint norm, within ``tol``.  A smaller
+    tensor is a sum that cancels, whose relative error a one-ulp change
+    anywhere upstream inflates: in a CPU rehearsal (ResNet-18, batch 4),
+    swapping the head's softmax for one a few ulp away moved bn0's gamma
+    gradient (4e-5 of the whole's norm of 12) by 2.7% and its beta gradient
+    (7e-4 of it) by 7e-5, all the rest by at most 3e-5.  Such a tensor's
+    error is reported, not gated.  Returns ``(ok, report)``."""
+    import numpy as np
+
+    names = sorted(want)
+    total = float(np.sqrt(sum(np.square(np.asarray(want[n], np.float64))
+                              .sum() for n in names)))
+    diff = float(np.sqrt(sum(np.square(np.asarray(got[n], np.float64)
+                                       - want[n]).sum() for n in names)))
+    errs = {n: _rel_l2(got[n], want[n]) for n in names}
+    small = {n for n in names
+             if np.linalg.norm(want[n]) < CANCELLED_SHARE * total}
+    gated = {n: e for n, e in errs.items() if n not in small}
+    worst = max(gated.items(), key=lambda kv: kv[1]) if gated else None
+    joint = diff / max(total, 1e-30)
+    ok = (joint <= tol and (worst is None or worst[1] <= tol)
+          and all(np.isfinite(got[n]).all() for n in names))
+    return ok, {"joint_rel_l2": joint, "worst": worst, "tensors": len(names),
+                "cancelled": {n: errs[n] for n in sorted(small)}}
+
+
+def _module_step(mx, net, ctx, args, auxs, x, y):
+    """One ``forward_backward`` and ``update`` of a fresh Module on ``ctx``
+    from numpy ``args`` / ``auxs``: the gradients, the moving statistics
+    after the step and the update ``w_new - w_old``, as numpy."""
+    from mxnet_tpu_torch.model import params_from_numpy
+
+    mod = mx.mod.Module(net, context=ctx)
+    mod.bind(data_shapes=[("data", x.shape)],
+             label_shapes=[("softmax_label", y.shape)])
+    a, b = params_from_numpy(args, auxs, ctx=ctx)
+    mod.init_params(arg_params=a, aux_params=b)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(
+        MODULE_SGD, lr_scheduler=mx.lr_scheduler.MultiFactorScheduler(
+            [30 * MODULE_EPOCH_SIZE, 60 * MODULE_EPOCH_SIZE], 0.1)))
+    mod.forward_backward(mx.io.DataBatch([mx.nd.array(x, ctx=ctx)],
+                                         [mx.nd.array(y, ctx=ctx)]))
+    grads = {n: g.asnumpy() for n, g in mod._exec.grad_dict.items()
+             if g is not None}
+    mod.update()
+    new_args, new_auxs = mod.get_params()
+    return (grads, {n: v.asnumpy() for n, v in new_auxs.items()},
+            {n: new_args[n].asnumpy() - args[n] for n in args})
+
+
+def phase_module_train(dev):
+    """``Module.fit`` of the symbolic ResNet-50 at train_imagenet.py's
+    settings on 256 seeded images, then the card-vs-CPU step gate.
+    Returns the trained parameters (numpy) and the module, for the rtc
+    phase and ``--profile``."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models.resnet_symbol import get_symbol
+    from mxnet_tpu_torch.ops.kernels import common
+
+    ctx = mx.gpu(0)
+    net = get_symbol(**INT8_NET)
+    shape = tuple(int(v) for v in INT8_NET["image_shape"].split(","))
+    rng = np.random.default_rng(3)
+    images = rng.random((MODULE_IMAGES,) + shape, dtype=np.float32)
+    labels = rng.integers(0, INT8_NET["num_classes"],
+                          MODULE_IMAGES).astype(np.float32)
+    it = mx.io.NDArrayIter(images, labels, MODULE_BATCH, shuffle=False)
+    ends, losses = [], []
+
+    def step_end(param):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        p = mod.get_outputs()[0].asnumpy()
+        y = param.locals["data_batch"].label[0].asnumpy().astype(int)
+        losses.append(float(-np.log(p[np.arange(len(y)), y]).mean()))
+
+    mx.random.seed(0)
+    mod = mx.mod.Module(net, context=ctx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_counts()
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=1, optimizer="sgd",
+            optimizer_params=dict(
+                MODULE_SGD, lr_scheduler=mx.lr_scheduler.MultiFactorScheduler(
+                    [30 * MODULE_EPOCH_SIZE, 60 * MODULE_EPOCH_SIZE], 0.1)),
+            eval_metric=["accuracy"],
+            batch_end_callback=[step_end,
+                                mx.callback.Speedometer(MODULE_BATCH, 2)])
+    fit_s = time.perf_counter() - t0
+    launches = common.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = [(b - a) * 1e3 for a, b in zip(ends, ends[1:])]
+    steps = MODULE_IMAGES // MODULE_BATCH
+    opt = mod._optimizer
+
+    # the data BatchNorm sees the images themselves: after k steps its
+    # moving statistics are k EMA applications of the batches' moments
+    mean, var = np.zeros(3), np.ones(3)
+    for k in range(steps):
+        xb = images[k * MODULE_BATCH:(k + 1) * MODULE_BATCH].astype(
+            np.float64)
+        mean = 0.9 * mean + 0.1 * xb.mean(axis=(0, 2, 3))
+        var = 0.9 * var + 0.1 * xb.var(axis=(0, 2, 3))
+    args, auxs = mod.get_params()
+    args = {n: v.asnumpy() for n, v in args.items()}
+    auxs = {n: v.asnumpy() for n, v in auxs.items()}
+    stats_err = max(_rel_l2(auxs["bn_data_moving_mean"], mean),
+                    _rel_l2(auxs["bn_data_moving_var"], var))
+    moved = sum(not (np.all(v == 0) or np.all(v == 1))
+                for v in auxs.values())
+    rec = {
+        "phase": "module_train", "device": dev["name"],
+        "nvidia_smi": dev["smi"], "net": INT8_NET, "batch": MODULE_BATCH,
+        "images": MODULE_IMAGES, "steps": steps, "fit_s": fit_s,
+        "step_ms": step_ms, "img_per_s": [MODULE_BATCH * 1e3 / m
+                                          for m in step_ms],
+        "median_step_ms": statistics.median(step_ms),
+        "peak_mem_gb": peak_gb, "losses": losses,
+        "num_update": opt.num_update, "lr": opt._get_lr(0),
+        "bn_data_stats_rel_err_vs_k_ema": stats_err,
+        "moving_stats_moved": moved, "moving_stats": len(auxs),
+        "launch_counts": launches,
+    }
+    _emit(rec)
+    _check(len(losses) == steps and all(np.isfinite(losses)),
+           "module_train: losses %s" % losses)
+    _check(opt.num_update == steps, "module_train: %d updates for %d steps"
+           % (opt.num_update, steps))
+    _check(stats_err <= MODULE_STATS_REL, "module_train: the data "
+           "BatchNorm's moving statistics are %g from %d EMA steps"
+           % (stats_err, steps))
+    _check(moved == len(auxs), "module_train: %d of %d moving statistics "
+           "moved" % (moved, len(auxs)))
+
+    # -- the gate: one step on the card against the same step on the CPU
+    x = images[:MODULE_CHECK_BATCH]
+    y = labels[:MODULE_CHECK_BATCH]
+    t0 = time.perf_counter()
+    card = _module_step(mx, net, ctx, args, auxs, x, y)
+    host = _module_step(mx, net, mx.cpu(), args, auxs, x, y)
+    check_s = time.perf_counter() - t0
+    report, ok = {}, True
+    for what, c, h in zip(("grad", "aux", "update"), card, host):
+        good, report[what] = _compare_tensors(c, h, MODULE_CHECK_REL)
+        ok = ok and good
+    _emit({"phase": "module_step_card_vs_cpu", "batch": MODULE_CHECK_BATCH,
+           "tol": MODULE_CHECK_REL, "cancelled_share": CANCELLED_SHARE,
+           "report": report, "seconds": check_s, "ok": ok})
+    _check(ok, "module_train: the step on the card differs from the CPU's: "
+           "%s" % report)
+    return {"args": args, "auxs": auxs, "module": mod, "images": images,
+            "labels": labels}
+
+
+def _rtc_kernel_case(kernels, numpy_op, n, c, seed):
+    """The rtc softmax kernels at [n, c] against numpy_softmax (their plain
+    version) on the same inputs: forward within RTC_FWD_*, backward on the
+    same p bit for bit; kernel times as the other kernels', the plain
+    version's on the host clock.  Two records."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+
+    fwd, bwd = kernels
+    ctx = mx.gpu(0)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = mx.nd.NDArray(3 * torch.randn((n, c), generator=gen,
+                                      device="cuda"))
+    y = mx.nd.NDArray(torch.randint(0, c, (n,), generator=gen,
+                                    device="cuda").float())
+    p_k, p_n = mx.nd.zeros((n, c), ctx=ctx), mx.nd.zeros((n, c), ctx=ctx)
+    fwd.launch([x, p_k, c], ctx, (n, 1, 1), (RTC_THREADS, 1, 1))
+    op = numpy_op()
+    op.forward(True, ["write"], [x, y], [p_n], [])
+    dx_k = mx.nd.zeros((n, c), ctx=ctx)
+    dx_n = [mx.nd.zeros((n, c), ctx=ctx), mx.nd.zeros((n,), ctx=ctx)]
+    bwd.launch([p_n, y, dx_k, c, float(n)], ctx, (n, 1, 1),
+               (RTC_THREADS, 1, 1))
+    op.backward(["write", "write"], [None], [x, y], [p_n], dx_n, [])
+    torch.cuda.synchronize()
+    fk, fn_ = p_k.data, p_n.data
+    f_err = float((fk - fn_).abs().max())
+    f_ok = bool(((fk - fn_).abs() <= RTC_FWD_ATOL
+                 + RTC_FWD_RTOL * fn_.abs()).all())
+    b_exact = bool(torch.equal(dx_k.data.view(torch.int32),
+                               dx_n[0].data.view(torch.int32)))
+    b_err = float((dx_k.data - dx_n[0].data).abs().max())
+
+    def host_ms(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    nb = 4.0 * n * c
+    fwd_bound, fwd_by = _bound(5.0 * n * c, 2 * nb, "float32")
+    bwd_bound, bwd_by = _bound(2.0 * n * c, 2 * nb + 4 * n, "float32")
+    fargs = _copies((x.data, p_k.data))
+    bargs = _copies((p_n.data, y.data, dx_k.data))
+
+    def launch_fwd(xt, pt):
+        fwd.launch([mx.nd.NDArray(xt), mx.nd.NDArray(pt), c], ctx,
+                   (n, 1, 1), (RTC_THREADS, 1, 1))
+
+    def launch_bwd(pt, yt, dt):
+        bwd.launch([mx.nd.NDArray(pt), mx.nd.NDArray(yt), mx.nd.NDArray(dt),
+                    c, float(n)], ctx, (n, 1, 1), (RTC_THREADS, 1, 1))
+
+    shared = {"shape": [n, c], "dtype": "float32",
+              "plain": "numpy_softmax (host numpy; host clock, with its "
+                       "device-host copies)"}
+    f_rec = dict(shared, kernel="rtc.softmax_forward", max_abs_err=f_err,
+                 atol=RTC_FWD_ATOL, rtol=RTC_FWD_RTOL, ok=f_ok,
+                 ms=_time_ms(launch_fwd, fargs),
+                 plain_ms=host_ms(lambda: op.forward(
+                     True, ["write"], [x, y], [p_n], [])),
+                 library_ms=_time_ms(lambda xt, pt: torch.softmax(xt, -1),
+                                     fargs),
+                 library="torch.softmax", bound_ms=fwd_bound,
+                 bound_by=fwd_by)
+    b_rec = dict(shared, kernel="rtc.softmax_backward", max_abs_err=b_err,
+                 bit_exact=b_exact, ok=b_exact,
+                 ms=_time_ms(launch_bwd, bargs),
+                 plain_ms=host_ms(lambda: op.backward(
+                     ["write", "write"], [None], [x, y], [p_n], dx_n, [])),
+                 library_ms=None,
+                 library="none: no one PyTorch call computes (p - onehot)/n",
+                 bound_ms=bwd_bound, bound_by=bwd_by)
+    for rec in (f_rec, b_rec):
+        _emit(rec)
+        _check(rec["ok"], "%s %s disagrees with numpy_softmax (max abs err "
+               "%g)" % (rec["kernel"], [n, c], rec["max_abs_err"]))
+    return f_rec, b_rec
+
+
+def _rtc_basics():
+    """(a): the reference's templated axpy and tests/test_rtc.py's kernels,
+    held exactly against torch; compile ms; no compile on a second module
+    of the same source or a second launch; the host cost of a launch."""
+    import torch
+    import mxnet_tpu_torch as mx
+
+    ctx = mx.gpu(0)
+    tmpl = mx.rtc.CudaModule(RTC_AXPY_TEMPLATE_SRC, options=["--fmad=false"],
+                             exports=["axpy<float>", "axpy<double>"])
+    test = mx.rtc.CudaModule(RTC_TEST_SRC, options=["--fmad=false"])
+    rec = {"phase": "rtc_basics",
+           "compile_ms": {"axpy_template": tmpl.compile_ms,
+                          "test_rtc": test.compile_ms}}
+    compiles = mx.rtc.compile_count()
+    exact = {}
+    for dt, ctype in ((torch.float32, "float"), (torch.float64, "double")):
+        k = tmpl.get_kernel("axpy<%s>" % ctype, "const %s *x, %s *y, %s "
+                            "alpha" % (ctype, ctype, ctype))
+        x = mx.nd.NDArray(torch.arange(1024, dtype=dt, device="cuda"))
+        y = mx.nd.NDArray(torch.full((1024,), 0.5, dtype=dt, device="cuda"))
+        want = y.data + 3.0 * x.data
+        k.launch([x, y, 3.0], ctx, (4, 1, 1), (256, 1, 1))
+        exact["axpy<%s>" % ctype] = bool(torch.equal(y.data, want))
+    n = 1000
+    x = mx.nd.NDArray(torch.randn(n, device="cuda"))
+    y = mx.nd.NDArray(torch.randn(n, device="cuda"))
+    out = mx.nd.zeros((n,), ctx=ctx)
+    axpy = test.get_kernel("axpy", "const float *x, const float *y, "
+                                   "float *o, int n")
+    scale = test.get_kernel("scale", "const float *x, float *o, int n")
+    for _ in range(2):
+        axpy.launch([x, y, out, n], ctx, ((n + 255) // 256, 1, 1),
+                    (256, 1, 1))
+    exact["axpy"] = bool(torch.equal(out.data, 2.5 * x.data + y.data))
+    scale.launch([x, out, n], ctx, ((n + 255) // 256, 1, 1), (256, 1, 1))
+    exact["scale"] = bool(torch.equal(out.data, x.data * 3.0))
+    again = mx.rtc.CudaModule(RTC_TEST_SRC, options=["--fmad=false"])
+    rec["second_module_compile_ms"] = again.compile_ms
+    rec["compiles_after_second_module_and_launches"] = \
+        mx.rtc.compile_count() - compiles
+    rec["functions_loaded_after_two_launches"] = len(axpy._functions)
+    # the host cost of one launch through ctypes (the device work of one
+    # 1000-element launch is far shorter, so this is the host's)
+    reps = 2000
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        scale.launch([x, out, n], ctx, ((n + 255) // 256, 1, 1),
+                     (256, 1, 1))
+    host_us = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    rec.update(exact=exact, launch_host_us=host_us,
+               launch_host_us_reps=reps)
+    _emit(rec)
+    _check(all(exact.values()), "rtc kernels differ from torch: %s" % exact)
+    _check(rec["compiles_after_second_module_and_launches"] == 0
+           and again.compile_ms is None, "rtc compiled again")
+    _check(rec["functions_loaded_after_two_launches"] == 1,
+           "rtc loaded the kernel twice")
+    return rec
+
+
+def _fit_custom_softmax(mx, op_type, params, X, Y):
+    """The example's network and training through ``op_type``."""
+    ctx = mx.gpu(0)
+    data = mx.sym.Variable("data")
+    label = mx.sym.Variable("softmax_label")
+    net = mx.sym.FullyConnected(data, num_hidden=16, name="fc1")
+    net = mx.sym.Activation(net, act_type="relu")
+    net = mx.sym.FullyConnected(net, num_hidden=4, name="fc2")
+    net = mx.sym.Custom(net, label, op_type=op_type, name="softmax")
+    it = mx.io.NDArrayIter(X, Y, batch_size=64, shuffle=False)
+    mod = mx.mod.Module(net, context=ctx)
+    mod.fit(it, num_epoch=RTC_EPOCHS, optimizer="adam",
+            optimizer_params={"learning_rate": 5e-3}, eval_metric="acc",
+            arg_params={k: mx.nd.array(v, ctx=ctx)
+                        for k, v in params.items()})
+    it.reset()
+    metric = mx.metric.Accuracy()
+    mod.score(it, metric)
+    acc = dict(metric.get_name_value())["accuracy"]
+    return acc, {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+
+def phase_rtc(dev, trained):
+    """User CUDA kernels through mx.rtc inside a Custom op: (a) the basics,
+    (b) the custom-softmax example trained through rtc_softmax and through
+    numpy_softmax, (c) ResNet-50 at batch 32 with its head swapped for
+    rtc_softmax against numpy_softmax, and the kernels against their plain
+    version.  Returns the launches of the counted runs and the kernel
+    records."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models.resnet_symbol import get_symbol
+    from mxnet_tpu_torch.ops.kernels import common
+
+    basics = _rtc_basics()
+    user = register_user_ops(mx)
+    t0 = time.perf_counter()
+    kernels = user["kernels"]()
+    softmax_compile_ms = user["compiled"]["module"].compile_ms
+    setup_ms = (time.perf_counter() - t0) * 1e3
+
+    # -- (b) the example: 512 separable examples, 10 epochs --------------
+    rng = np.random.RandomState(0)
+    X = rng.uniform(0, 1, (512, 16)).astype(np.float32)
+    Y = rng.randint(0, 4, (512,)).astype(np.float32)
+    X[np.arange(512), Y.astype(int)] += 2.0
+    mx.random.seed(0)
+    probe = mx.mod.Module(mx.sym.FullyConnected(mx.sym.FullyConnected(
+        mx.sym.Variable("data"), num_hidden=16, name="fc1"), num_hidden=4,
+        name="fc2"), label_names=(), context=mx.gpu(0))
+    probe.bind(data_shapes=[("data", (64, 16))])
+    probe.init_params(initializer=mx.init.Xavier())
+    params = {k: v.asnumpy() for k, v in probe.get_params()[0].items()}
+    common.reset_counts()
+    acc_rtc, p_rtc = _fit_custom_softmax(mx, "rtc_softmax", params, X, Y)
+    fit_launches = common.launch_counts()
+    acc_np, p_np = _fit_custom_softmax(mx, "numpy_softmax", params, X, Y)
+    fit_err = max(_rel_l2(p_rtc[k], p_np[k]) for k in p_np)
+    batches = 512 // 64
+    want_fit = {"kernels.launch.rtc.softmax_forward":
+                RTC_EPOCHS * batches + batches,       # + the scoring pass
+                "kernels.launch.rtc.softmax_backward": RTC_EPOCHS * batches}
+
+    # -- (c) ResNet-50 at batch 32, the head swapped ---------------------
+    net = get_symbol(**INT8_NET)
+    fc1 = net.get_internals()["fc1_output"]
+    x = trained["images"][:MODULE_BATCH]
+    y = trained["labels"][:MODULE_BATCH]
+    heads = {}
+    for op_type in ("rtc_softmax", "numpy_softmax"):
+        head = mx.sym.Custom(fc1, mx.sym.Variable("softmax_label"),
+                             op_type=op_type, name="softmax")
+        common.reset_counts()
+        heads[op_type] = _module_step(mx, head, mx.gpu(0), trained["args"],
+                                      trained["auxs"], x, y)
+        torch.cuda.synchronize()
+        heads[op_type + "_launches"] = common.launch_counts()
+    step_ok, step_report = _compare_tensors(heads["rtc_softmax"][0],
+                                            heads["numpy_softmax"][0],
+                                            RTC_STEP_REL)
+    want_step = {"kernels.launch.rtc.softmax_forward": 1,
+                 "kernels.launch.rtc.softmax_backward": 1}
+
+    # -- the kernels against their plain version --------------------------
+    main = dict(zip(("rtc.softmax_forward", "rtc.softmax_backward"),
+                    _rtc_kernel_case(kernels, user["numpy"], MODULE_BATCH,
+                                     INT8_NET["num_classes"], 5)))
+    _rtc_kernel_case(kernels, user["numpy"], 64, 4, 6)
+
+    _emit({"phase": "rtc", "device": dev["name"], "nvidia_smi": dev["smi"],
+           "softmax_module_compile_ms": softmax_compile_ms,
+           "softmax_setup_ms": setup_ms, "basics_compile_ms":
+           basics["compile_ms"], "launch_host_us": basics["launch_host_us"],
+           "example_accuracy": {"rtc_softmax": acc_rtc,
+                                "numpy_softmax": acc_np},
+           "example_params_rel_l2": fit_err, "example_tol": RTC_FIT_REL,
+           "example_launches": fit_launches,
+           "resnet50_step_grads": step_report,
+           "resnet50_step_tol": RTC_STEP_REL,
+           "resnet50_step_launches": heads["rtc_softmax_launches"],
+           "numpy_head_launches": heads["numpy_softmax_launches"]})
+    _check(min(acc_rtc, acc_np) >= RTC_MIN_ACC, "rtc: the example's accuracy "
+           "%g / %g is below %g" % (acc_rtc, acc_np, RTC_MIN_ACC))
+    _check(fit_err <= RTC_FIT_REL, "rtc: the example's parameters through "
+           "rtc_softmax differ from numpy_softmax's by %g" % fit_err)
+    _check(fit_launches == want_fit, "rtc: the example launched %s, "
+           "expected %s" % (fit_launches, want_fit))
+    _check(step_ok, "rtc: ResNet-50 gradients through rtc_softmax differ "
+           "from numpy_softmax's: %s" % (step_report,))
+    _check(heads["rtc_softmax_launches"] == want_step, "rtc: the ResNet-50 "
+           "step launched %s, expected %s"
+           % (heads["rtc_softmax_launches"], want_step))
+    _check(heads["numpy_softmax_launches"] == {}, "rtc: the numpy head "
+           "launched %s" % heads["numpy_softmax_launches"])
+    return [fit_launches, heads["rtc_softmax_launches"]], main
+
+
 def _profile_window(name, fn):
     """Trace ``fn`` (after one warm call) with ``torch.profiler``; print
     the wall time, the device busy time and share, and the kernels that
@@ -1104,6 +1760,26 @@ def phase_profile(model):
         _profile_window(name, fn)
 
 
+def phase_profile_module(trained):
+    """``--profile`` only: one ResNet-50 training step (forward_backward
+    and update) of the module_train phase's Module at batch 32: where the
+    device time goes, and how much of the step the node-by-node executor
+    leaves the device idle."""
+    import mxnet_tpu_torch as mx
+
+    mod = trained["module"]
+    ctx = mx.gpu(0)
+    batch = mx.io.DataBatch(
+        [mx.nd.array(trained["images"][:MODULE_BATCH], ctx=ctx)],
+        [mx.nd.array(trained["labels"][:MODULE_BATCH], ctx=ctx)])
+
+    def step():
+        mod.forward_backward(batch)
+        mod.update()
+
+    _profile_window("resnet50_module_train_step_b%d" % MODULE_BATCH, step)
+
+
 def main():
     dev = phase_device()
     phase_build()
@@ -1111,12 +1787,16 @@ def main():
     serve_launches, model = phase_serve(dev)
     train_launches, states = phase_train(dev)
     int8_launches, int8_exes = phase_int8(dev)
+    trained = phase_module_train(dev)
+    rtc_launches, rtc_main = phase_rtc(dev, trained)
+    main_cases.update(rtc_main)
     if "--profile" in sys.argv[1:]:
         phase_profile(model)
         phase_profile_train(states)
         for name, exe in int8_exes.items():
             _profile_window("resnet50_%s_forward_b%d" % (name, INT8_BATCH),
                             lambda exe=exe: exe.forward(is_train=False))
+        phase_profile_module(trained)
     sources = {
         "fused_rmsnorm": ("mxnet_tpu_torch/ops/kernels/csrc/rmsnorm.cu",
                           "mxnet_tpu/ops/pallas/layers.py:31"),
@@ -1141,8 +1821,13 @@ def main():
         "int8_matmul_dequant": (
             "mxnet_tpu_torch/ops/kernels/csrc/int8_matmul.cu",
             "mxnet_tpu/ops/pallas/int8_matmul.py:54"),
+        # user kernels (this script's RTC_SOFTMAX_SRC) compiled at runtime
+        # by mxnet_tpu_torch/rtc.py, the counterpart of PallasKernel.launch
+        "rtc.softmax_forward": ("chip_smoke.py", "mxnet_tpu/rtc.py:87"),
+        "rtc.softmax_backward": ("chip_smoke.py", "mxnet_tpu/rtc.py:87"),
     }
-    runs = [serve_launches] + list(train_launches.values()) + int8_launches
+    runs = ([serve_launches] + list(train_launches.values()) + int8_launches
+            + rtc_launches)
     kernels = []
     for name, (src, replaces) in sources.items():
         rec = main_cases[name]

@@ -19,7 +19,14 @@ It carries three paths:
   (the MXNet API core: ``Context``, ``nd``, ``sym``, the executor,
   ``io.NDArrayIter``): ``contrib.quantization.quantize_model`` -> ``bind``
   -> ``forward``, with the int8 matmul kernels (int32 out, and with the
-  per-channel dequant fused).
+  per-channel dequant fused);
+* symbolic training: ``mod.Module.fit`` -> ``bind`` / ``init_params``
+  (``init``) / ``init_optimizer`` (``optimizer``, ``lr_scheduler``) -> per
+  batch ``forward_backward`` (the executor's autograd backward) ->
+  ``update`` -> ``update_metric`` (``metric``), with ``callback`` and
+  ``random``; user operators (``operator.CustomOp``, ``sym.Custom``) on
+  that path may launch CUDA kernels compiled at runtime by ``rtc``
+  (NVRTC), the counterpart of the JAX package's Pallas ``rtc``.
 
 Entry points take ``device=`` (or, on the symbolic path, ``ctx=``).  The
 default is ``cuda:0`` (``gpu(0)``); without a CUDA device they raise unless
@@ -33,7 +40,9 @@ import torch
 __all__ = ["default_device", "resolve_device", "TransformerConfig",
            "TransformerLM", "make_train_step", "GenerationConfig",
            "GenerationEngine", "GenerationServer", "Context", "cpu", "gpu",
-           "current_context", "nd", "sym", "io", "contrib"]
+           "current_context", "nd", "sym", "io", "contrib", "init", "mod",
+           "metric", "optimizer", "lr_scheduler", "callback", "random",
+           "operator", "rtc"]
 
 
 def default_device() -> torch.device:
@@ -75,3 +84,7 @@ from .context import Context, cpu, current_context, gpu  # noqa: E402
 from . import ndarray as nd  # noqa: E402
 from . import symbol as sym  # noqa: E402
 from . import contrib, io, model  # noqa: E402,F401
+from . import (callback, lr_scheduler, metric, operator,  # noqa: E402,F401
+               optimizer, random, rtc)
+from . import initializer as init  # noqa: E402
+from . import module as mod  # noqa: E402

@@ -7,8 +7,10 @@ Counterpart of those classes in ``mxnet_tpu/io/io.py`` (reference
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .. import ndarray as nd
+from .. import random as _random
 from ..context import cpu
 from ..ndarray import NDArray
 
@@ -111,7 +113,10 @@ class NDArrayIter(DataIter):
     """Iterate over in-memory arrays in batches of ``batch_size``.
 
     ``last_batch_handle``: ``'pad'`` (the last batch wraps around to the
-    start) or ``'discard'`` (a short last batch is dropped)."""
+    start) or ``'discard'`` (a short last batch is dropped).  With
+    ``shuffle`` every ``reset`` permutes the order, drawing from the host's
+    generator in ``mx.random`` (or, given ``seed``, from a generator of the
+    iterator's own)."""
 
     def __init__(self, data, label=None, batch_size=1, shuffle=False,
                  last_batch_handle="pad", data_name="data",
@@ -131,8 +136,8 @@ class NDArrayIter(DataIter):
                                  "of samples")
         self.shuffle = shuffle
         self.last_batch_handle = last_batch_handle
-        self._rng = np.random.RandomState(seed) if seed is not None \
-            else np.random
+        self._gen = (torch.Generator().manual_seed(int(seed))
+                     if seed is not None else None)
         self.idx = np.arange(self.num_data)
         self.cursor = -batch_size
         self.reset()
@@ -142,9 +147,16 @@ class NDArrayIter(DataIter):
         return [DataDesc(k, (self.batch_size,) + v.shape[1:], v.dtype)
                 for k, v in self.data]
 
+    @property
+    def provide_label(self):
+        return [DataDesc(k, (self.batch_size,) + v.shape[1:], v.dtype)
+                for k, v in self.label]
+
     def reset(self):
         if self.shuffle:
-            self._rng.shuffle(self.idx)
+            gen = self._gen or _random.generator("cpu")
+            self.idx = self.idx[torch.randperm(self.num_data,
+                                               generator=gen).numpy()]
         self.cursor = -self.batch_size
 
     def iter_next(self):

@@ -11,7 +11,9 @@ import sys as _sys
 
 from .. import ops as _ops  # noqa: F401  (registers the op corpus)
 from ..ops.registry import OPS as _OPS, invoke as _invoke
-from .ndarray import NDArray, array, zeros  # noqa: F401
+from .ndarray import (NDArray, array, concat, ones, ones_like,  # noqa: F401
+                      zeros, zeros_like)
+from .. import operator as _operator  # noqa: E402,F401  (registers Custom)
 
 
 def _make_op_func(opname, opdef):

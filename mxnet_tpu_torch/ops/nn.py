@@ -1,12 +1,20 @@
-"""Neural-network operators, inference forward only.
+"""Neural-network operators of the symbolic path, inference and training.
 
 Counterpart of the ops of ``mxnet_tpu/ops/nn.py`` that the symbolic
 ResNet path runs: Convolution, FullyConnected, Pooling, BatchNorm (with the
-moving statistics), Activation and SoftmaxOutput (forward: softmax).
-Layouts are the reference's (NCHW data, OIHW weights, ``(num_hidden,
-input_dim)`` FC weights).  Convolutions go to cuDNN and products to cuBLAS
-through PyTorch; the executor turns TF32 off for both on the card, so f32
-stays f32 as JAX's "highest" precision keeps it.
+moving statistics), Activation and SoftmaxOutput.  Layouts are the
+reference's (NCHW data, OIHW weights, ``(num_hidden, input_dim)`` FC
+weights).  Convolutions go to cuDNN and products to cuBLAS through
+PyTorch, forward and backward (the JAX package leaves both to XLA); the
+executor turns TF32 off for both on the card, so f32 stays f32 as JAX's
+"highest" precision keeps it.
+
+Gradients come from autograd, except SoftmaxOutput's, which is the
+reference's fused softmax-cross-entropy gradient (an
+:class:`torch.autograd.Function` that ignores the head gradient).
+BatchNorm in training (``_train=True``) normalizes with the batch
+statistics and returns the new moving statistics for the executor to write
+back.
 """
 from __future__ import annotations
 
@@ -122,31 +130,49 @@ def _pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
 
 
 # ---------------------------------------------------------------------------
-# BatchNorm (inference)
+# BatchNorm
 # ---------------------------------------------------------------------------
 @register("BatchNorm", input_names=("data", "gamma", "beta", "moving_mean",
                                     "moving_var"),
-          mutate={3: 3, 4: 4}, num_outputs=5,
+          mutate={3: 3, 4: 4}, num_outputs=5, train_aware=True,
           visible_out=lambda attrs: [0, 1, 2]
           if _attr_bool(attrs.get("output_mean_var", False)) else [0])
 def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                 momentum=0.9, fix_gamma=True, use_global_stats=False,
-                output_mean_var=False, axis=1, cudnn_off=False):
-    """src/operator/nn/batch_norm.cc in inference mode: normalize with the
-    moving statistics, ``(x − mean)·(γ·rsqrt(var + eps)) + β`` (γ = 1 under
-    ``fix_gamma``), subtract first as the reference does.  Returns the
-    reference's five outputs; the moving statistics come back unchanged."""
+                output_mean_var=False, axis=1, cudnn_off=False, _train=False):
+    """src/operator/nn/batch_norm.cc: ``(x − mean)·(γ·rsqrt(var + eps)) +
+    β`` (γ = 1 under ``fix_gamma``, so γ's gradient is 0), subtract first as
+    the reference does.
+
+    In training (``_train`` without ``use_global_stats``) mean and the
+    biased variance are the batch's over every axis but ``axis``, the
+    gradient flows through both, and the new moving statistics are
+    ``momentum·old + (1 − momentum)·batch``, without gradient; otherwise
+    the moving statistics normalize and come back unchanged.  Returns
+    ``(out, mean, var, new_moving_mean, new_moving_var)``; f16/bf16 data
+    is normalized in f32."""
     low = data.dtype in (torch.float16, torch.bfloat16)
     x = data.float() if low else data
     g = torch.ones_like(gamma) if _attr_bool(fix_gamma) else gamma
     ax = int(axis) % data.dim()
     bshape = [1] * data.dim()
     bshape[ax] = data.shape[ax]
-    inv = torch.rsqrt(moving_var + eps)
-    out = (x - moving_mean.reshape(bshape)) * (g * inv).reshape(bshape) \
+    if _train and not _attr_bool(use_global_stats):
+        red = [i for i in range(data.dim()) if i != ax]
+        mean = x.mean(dim=red)
+        var = x.var(dim=red, unbiased=False)
+        new_mean = (momentum * moving_mean
+                    + (1 - momentum) * mean.detach())
+        new_var = (momentum * moving_var
+                   + (1 - momentum) * var.detach())
+    else:
+        mean, var = moving_mean, moving_var
+        new_mean, new_var = moving_mean, moving_var
+    inv = torch.rsqrt(var + eps)
+    out = (x - mean.reshape(bshape)) * (g * inv).reshape(bshape) \
         + beta.reshape(bshape)
-    return (out.to(data.dtype), moving_mean, moving_var, moving_mean,
-            moving_var)
+    return (out.to(data.dtype), mean.detach(), var.detach(), new_mean,
+            new_var)
 
 
 # ---------------------------------------------------------------------------
@@ -160,12 +186,62 @@ def _activation(data, act_type="relu"):
     return torch.relu(data)
 
 
+def softmax_output_grad(p, label, grad_scale=1.0, ignore_label=-1.0,
+                        use_ignore=False, multi_output=False,
+                        normalization="null"):
+    """The reference's fused softmax-cross-entropy gradient
+    (softmax_output-inl.h; ``_softmax_out_grad`` in the JAX package):
+    ``(p − onehot(label))·grad_scale / norm``, rows whose label is
+    ``ignore_label`` zeroed under ``use_ignore``; ``norm`` is 1 (``null``),
+    the batch (``batch``), or the count of labels, of kept labels under
+    ``use_ignore`` (``valid``)."""
+    ax = 1 if multi_output else p.dim() - 1
+    shape = [1] * p.dim()
+    shape[ax] = p.shape[ax]
+    classes = torch.arange(p.shape[ax], device=p.device).reshape(shape)
+    onehot = (label.long().unsqueeze(ax) == classes).to(p.dtype)
+    g = p - onehot
+    if use_ignore:
+        keep = (label != ignore_label).to(p.dtype).unsqueeze(ax)
+        g = g * keep
+    norm = 1.0
+    if normalization == "batch":
+        norm = p.shape[0]
+    elif normalization == "valid" and use_ignore:
+        norm = (label != ignore_label).sum().to(p.dtype).clamp_min(1.0)
+    elif normalization == "valid":
+        norm = float(label.numel())
+    return g * (grad_scale / norm)
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Forward: the softmax.  Backward: :func:`softmax_output_grad`,
+    whatever the head gradient (the reference ignores it)."""
+
+    @staticmethod
+    def forward(ctx, data, label, cfg):
+        p = torch.softmax(data, dim=1 if cfg["multi_output"] else -1)
+        ctx.save_for_backward(p, label)
+        ctx.cfg = cfg
+        return p
+
+    @staticmethod
+    def backward(ctx, _head):
+        p, label = ctx.saved_tensors
+        return softmax_output_grad(p, label, **ctx.cfg), None, None
+
+
 @register("SoftmaxOutput", input_names=("data", "label"),
           aliases=("Softmax",))
 def _softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
                     multi_output=False, use_ignore=False,
                     preserve_shape=False, normalization="null",
                     out_grad=False, smooth_alpha=0.0):
-    """Forward of src/operator/softmax_output.cc: the softmax of ``data``
-    (over axis 1 with ``multi_output``, else the last)."""
-    return torch.softmax(data, dim=1 if _attr_bool(multi_output) else -1)
+    """src/operator/softmax_output.cc: the softmax of ``data`` (over axis 1
+    with ``multi_output``, else the last); its gradient is the fused
+    softmax-cross-entropy one."""
+    cfg = dict(grad_scale=float(grad_scale), ignore_label=float(ignore_label),
+               use_ignore=_attr_bool(use_ignore),
+               multi_output=_attr_bool(multi_output),
+               normalization=str(normalization))
+    return _SoftmaxOutput.apply(data, label, cfg)

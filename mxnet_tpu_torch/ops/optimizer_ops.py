@@ -1,0 +1,131 @@
+"""Optimizer-update operators.
+
+Counterpart of ``mxnet_tpu/ops/optimizer_ops.py`` (reference
+``src/operator/optimizer_op.cc``): ``sgd_update``, ``sgd_mom_update``,
+``adam_update`` and the multi-tensor ``multi_sgd_update`` /
+``multi_sgd_mom_update``.  Where the JAX package returns new arrays that
+its dispatcher writes back, these update the weight and state tensors in
+place (their ``mutate`` outputs are those same tensors), which saves a copy
+of every parameter per step.  The arithmetic is the JAX package's, in its
+order, one f32 rounding per step of it:
+
+* ``g = rescale_grad·grad``, then clipped to ``±clip_gradient`` when that
+  is positive;
+* SGD: ``w −= lr·(g + wd·w)``; with momentum ``mom = momentum·mom −
+  lr·(g + wd·w)``, then ``w += mom``;
+* Adam: ``g += wd·w``, ``m = β1·m + (1 − β1)·g``, ``v = β2·v + (1 −
+  β2)·g²``, ``w −= lr·m / (√v + ε)``.
+
+The multi-tensor forms take ``(w, g[, mom])`` interleaved per weight, with
+one ``lr`` and ``wd`` per weight, and run each step over the group with
+``torch._foreach_*``: one launch per step for the whole group on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+from .registry import register
+
+
+def _prep(grads, rescale_grad, clip_gradient):
+    """New tensors ``rescale_grad·g``, clipped."""
+    gs = torch._foreach_mul(list(grads), float(rescale_grad))
+    if clip_gradient is not None and clip_gradient > 0:
+        torch._foreach_clamp_min_(gs, -float(clip_gradient))
+        torch._foreach_clamp_max_(gs, float(clip_gradient))
+    return gs
+
+
+def _sgd(ws, gs, moms, lrs, wds, momentum, rescale_grad, clip_gradient):
+    """In place over the lists: ``w`` (and ``mom``) updated."""
+    with torch.no_grad():
+        d = _prep(gs, rescale_grad, clip_gradient)
+        torch._foreach_add_(d, torch._foreach_mul(ws, wds))   # g + wd·w
+        torch._foreach_mul_(d, lrs)                            # lr·(...)
+        if moms is None:
+            torch._foreach_sub_(ws, d)
+            return
+        torch._foreach_mul_(moms, float(momentum))
+        torch._foreach_sub_(moms, d)
+        torch._foreach_add_(ws, moms)
+
+
+@register("sgd_update", input_names=("weight", "grad"), mutate={0: 0},
+          no_grad=True)
+def _sgd_update(weight, grad, lr=0.01, wd=0.0, rescale_grad=1.0,
+                clip_gradient=-1.0, lazy_update=True):
+    _sgd([weight], [grad], None, [float(lr)], [float(wd)], 0.0,
+         rescale_grad, clip_gradient)
+    return weight
+
+
+@register("sgd_mom_update", input_names=("weight", "grad", "mom"),
+          mutate={0: 0, 1: 2}, no_grad=True)
+def _sgd_mom_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
+                    rescale_grad=1.0, clip_gradient=-1.0, lazy_update=True):
+    _sgd([weight], [grad], [mom], [float(lr)], [float(wd)], momentum,
+         rescale_grad, clip_gradient)
+    return weight, mom
+
+
+@register("adam_update", input_names=("weight", "grad", "mean", "var"),
+          mutate={0: 0, 1: 2, 2: 3}, no_grad=True)
+def _adam_update(weight, grad, mean, var, lr=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
+                 lazy_update=True):
+    with torch.no_grad():
+        (g,) = _prep([grad], rescale_grad, clip_gradient)
+        g.add_(weight * wd)
+        mean.mul_(beta1).add_(g * (1 - beta1))
+        var.mul_(beta2).add_(g.square().mul_(1 - beta2))
+        weight.sub_(mean * lr / (var.sqrt().add_(epsilon)))
+    return weight, mean, var
+
+
+def _multi_mutate(stride, state_slots):
+    def mut(params, n_inputs):
+        n = int(params.get("num_weights", n_inputs // stride))
+        m = {i: stride * i for i in range(n)}
+        for si, slot in enumerate(state_slots):
+            for i in range(n):
+                m[(si + 1) * n + i] = stride * i + slot
+        return m
+    return mut
+
+
+def _multi_visible(attrs):
+    # only the updated weights are visible outputs (reference parity)
+    return list(range(int(attrs.get("num_weights", 1))))
+
+
+def _groups(tensors, stride, num_weights, lrs, wds):
+    n = int(num_weights)
+    if len(tensors) != n * stride:
+        raise ValueError("multi-update expects %d interleaved tensors for "
+                         "num_weights=%d, got %d" % (n * stride, n,
+                                                     len(tensors)))
+    if len(lrs) != n or len(wds) != n:
+        raise ValueError("multi-update: %d lrs and %d wds for num_weights="
+                         "%d" % (len(lrs), len(wds), n))
+    return [list(tensors[i::stride]) for i in range(stride)]
+
+
+@register("multi_sgd_update", mutate=_multi_mutate(2, ()), no_grad=True,
+          visible_out=_multi_visible)
+def _multi_sgd_update(*tensors, lrs=(), wds=(), rescale_grad=1.0,
+                      clip_gradient=-1.0, num_weights=1):
+    ws, gs = _groups(tensors, 2, num_weights, lrs, wds)
+    _sgd(ws, gs, None, [float(x) for x in lrs], [float(x) for x in wds],
+         0.0, rescale_grad, clip_gradient)
+    return tuple(ws)
+
+
+@register("multi_sgd_mom_update", mutate=_multi_mutate(3, (2,)),
+          no_grad=True, visible_out=_multi_visible)
+def _multi_sgd_mom_update(*tensors, lrs=(), wds=(), momentum=0.0,
+                          rescale_grad=1.0, clip_gradient=-1.0,
+                          num_weights=1):
+    ws, gs, moms = _groups(tensors, 3, num_weights, lrs, wds)
+    _sgd(ws, gs, moms, [float(x) for x in lrs], [float(x) for x in wds],
+         momentum, rescale_grad, clip_gradient)
+    return tuple(ws) + tuple(moms)

@@ -11,15 +11,22 @@ What the declaration keeps from the reference:
   creates ``{name}_{input}`` Variables for the ones a caller leaves out;
 * ``num_outputs`` and ``visible_out`` — how many outputs the function
   returns, and which of them a symbol shows (BatchNorm returns five and
-  shows one);
+  shows one); ``visible_out`` is a function of the node's attributes;
 * ``mutate`` — ``{output: input}`` slots the reference writes back in
-  place; the symbol layer reads it to tell auxiliary states (BatchNorm's
-  moving statistics) from arguments.  The inference executor never writes
-  them back: in inference they do not change.
+  place (FMutateInputs): BatchNorm's moving statistics, an optimizer's
+  weight and state.  It is a dict, or, for ops whose arity is known only
+  per call (``Custom``, ``multi_sgd_*``), a function ``mutate(params,
+  n_inputs)`` giving the dict.  The symbol layer reads it to tell
+  auxiliary states from arguments; :func:`invoke` and the training
+  executor write the mutated outputs back into their inputs;
+* ``train_aware`` — the function takes ``_train`` (True in a training
+  forward): BatchNorm's batch statistics, ``Custom``'s ``is_train``;
+* ``no_grad`` — the op is an update, not part of a differentiated graph.
 """
 from __future__ import annotations
 
-__all__ = ["OpDef", "register", "get_op", "list_ops", "invoke", "OPS"]
+__all__ = ["OpDef", "register", "get_op", "list_ops", "invoke", "call",
+           "OPS"]
 
 OPS: dict = {}
 
@@ -28,18 +35,30 @@ class OpDef:
     """A registered operator."""
 
     __slots__ = ("name", "fn", "num_outputs", "no_grad", "aliases",
-                 "input_names", "mutate", "visible_out")
+                 "input_names", "mutate", "mutate_fn", "visible_out",
+                 "train_aware")
 
     def __init__(self, name, fn, num_outputs=1, no_grad=False, aliases=(),
-                 input_names=(), mutate=None, visible_out=None):
+                 input_names=(), mutate=None, visible_out=None,
+                 train_aware=False):
         self.name = name
         self.fn = fn
         self.num_outputs = num_outputs
         self.no_grad = no_grad
         self.aliases = tuple(aliases)
         self.input_names = tuple(input_names)
-        self.mutate = dict(mutate or {})
+        if callable(mutate):
+            self.mutate_fn, self.mutate = mutate, {}
+        else:
+            self.mutate_fn, self.mutate = None, dict(mutate or {})
         self.visible_out = visible_out
+        self.train_aware = train_aware
+
+    def mutate_map(self, params, n_inputs):
+        """``{output: input}`` write-backs of one call with ``params``."""
+        if self.mutate_fn is not None:
+            return self.mutate_fn(params, n_inputs)
+        return self.mutate
 
     def __repr__(self):
         return "OpDef(%s)" % self.name
@@ -72,15 +91,39 @@ def list_ops(distinct=True):
     return sorted(OPS)
 
 
+def call(opdef, tensors, params, train=False):
+    """``opdef``'s function on ``tensors``; ``_train`` goes to ops that
+    take it.  Always a tuple of outputs."""
+    if opdef.train_aware:
+        params = dict(params, _train=train)
+    res = opdef.fn(*tensors, **params)
+    return tuple(res) if isinstance(res, (tuple, list)) else (res,)
+
+
 def invoke(op, ndarray_inputs, params=None):
     """Run op ``op`` (a name or an :class:`OpDef`) on NDArrays; returns one
-    NDArray or a list of them (the reference's convention)."""
+    NDArray or a list of them (the reference's convention).
+
+    Outputs in the op's ``mutate`` map are written back into their input
+    NDArrays, which come back in their place; an op with a dynamic map
+    and ``visible_out`` (``Custom``, ``multi_sgd_*``) returns only its
+    visible outputs.  Imperative calls run in inference mode
+    (``_train=False``)."""
     from ..ndarray.ndarray import NDArray
 
     opdef = get_op(op) if isinstance(op, str) else op
-    datas = [x.data if isinstance(x, NDArray) else x
-             for x in ndarray_inputs]
-    res = opdef.fn(*datas, **(params or {}))
-    if not isinstance(res, (tuple, list)):
-        return NDArray(res)
-    return [NDArray(r) for r in res]
+    params = dict(params or {})
+    inputs = list(ndarray_inputs)
+    res = call(opdef, [x.data if isinstance(x, NDArray) else x
+                       for x in inputs], params)
+    mut = opdef.mutate_map(params, len(inputs))
+    outputs = []
+    for i, r in enumerate(res):
+        if i in mut and isinstance(inputs[mut[i]], NDArray):
+            inputs[mut[i]]._set_data(r)
+            outputs.append(inputs[mut[i]])
+        else:
+            outputs.append(NDArray(r))
+    if opdef.mutate_fn is not None and opdef.visible_out is not None:
+        outputs = [outputs[j] for j in opdef.visible_out(params)]
+    return outputs[0] if len(outputs) == 1 else outputs

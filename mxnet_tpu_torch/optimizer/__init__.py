@@ -1,0 +1,5 @@
+"""Optimizer package (counterpart of ``mxnet_tpu/optimizer``)."""
+from .optimizer import (SGD, Adam, Optimizer, Updater, create,  # noqa: F401
+                        get_updater, register)
+
+opt_registry = Optimizer.opt_registry

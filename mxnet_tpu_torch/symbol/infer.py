@@ -4,7 +4,8 @@ Counterpart of ``mxnet_tpu/symbol/infer.py``: a forward walk in which each
 op first derives its parameter input shapes from its (known) data input
 shape through a small hook table, then gets its output shapes by running
 its own function on ``meta`` tensors (shapes and dtypes, no data) — one
-source of truth, no per-op shape math.
+source of truth, no per-op shape math.  A ``Custom`` node takes both from
+the user's ``infer_shape`` / ``infer_type``.
 
 As in the reference, a variable without a known dtype is float32, and an op
 that cannot run on what it is given leaves its outputs unknown: on a
@@ -44,6 +45,14 @@ def _norm_params(node, in_shapes):
             "moving_var": (c,)}
 
 
+def _custom_params(node, in_shapes):
+    """A ``Custom`` node's inputs by position, from the user's
+    ``infer_shape`` (keys are positions: its inputs have no fixed names)."""
+    from ..operator import custom_arg_shapes
+
+    return custom_arg_shapes(node.attrs, in_shapes)
+
+
 def _softmax_label(node, in_shapes):
     d = in_shapes[0]
     if node.attrs.get("multi_output"):
@@ -56,6 +65,7 @@ _PARAM_HOOKS = {
     "FullyConnected": _fc_params,
     "BatchNorm": _norm_params,
     "SoftmaxOutput": _softmax_label,
+    "Custom": _custom_params,
 }
 
 
@@ -86,8 +96,9 @@ def infer_shapes(sym, known):
             names = node.op.input_names
             for i in missing:
                 src = node.inputs[i][0]
-                if i < len(names) and names[i] in hints and src.is_var:
-                    s = tuple(int(x) for x in hints[names[i]])
+                key = names[i] if i < len(names) else i
+                if key in hints and src.is_var:
+                    s = tuple(int(x) for x in hints[key])
                     var_shape[src.name] = s
                     ins[i] = torch.empty(s, device="meta", dtype=torch_dtype(
                         src.dtype_hint or "float32"))

@@ -3,10 +3,18 @@
 Counterpart of ``mxnet_tpu/symbol/symbol.py`` (reference
 ``python/mxnet/symbol/symbol.py``): graph nodes, composition,
 ``list_arguments`` / ``list_outputs`` / ``list_auxiliary_states``,
-``get_internals``, ``infer_shape``, the nnvm-shaped ``tojson`` and
-``load_json``, and ``bind`` / ``simple_bind`` into an inference
-:class:`~mxnet_tpu_torch.executor.Executor`.  Node names and the JSON are
-the JAX package's, byte for byte, for the same graph.
+``get_internals``, ``infer_shape``, ``attr_dict`` (the ``__init__``,
+``__lr_mult__`` and ``__wd_mult__`` attributes of Variables, which the
+initializer and the optimizer read), the nnvm-shaped ``tojson`` and
+``load_json``, and ``bind`` / ``simple_bind`` into an
+:class:`~mxnet_tpu_torch.executor.Executor` (with a per-argument
+``grad_req``).  Node names and the JSON are the JAX package's, byte for
+byte, for the same graph.
+
+An auxiliary state is a Variable feeding an input slot that its op
+mutates (BatchNorm's moving statistics, a ``Custom`` op's trailing
+``list_auxiliary_states`` inputs, whose map depends on the node's
+attributes).
 """
 from __future__ import annotations
 
@@ -133,7 +141,8 @@ class Symbol:
         for node in self._topo():
             if node.is_var:
                 continue
-            for in_idx in node.op.mutate.values():
+            mut = node.op.mutate_map(node.attrs, len(node.inputs))
+            for in_idx in mut.values():
                 if in_idx < len(node.inputs) and \
                         node.inputs[in_idx][0].is_var:
                     aux.add(id(node.inputs[in_idx][0]))
@@ -170,6 +179,19 @@ class Symbol:
                 known[name] = shp
         return infer_shapes(self, known)
 
+    # -- attributes -------------------------------------------------------
+    def attr(self, key):
+        """Attribute ``key`` of this (single-output) symbol's node."""
+        return self._outputs[0][0].user_attrs.get(key)
+
+    def list_attr(self):
+        return dict(self._outputs[0][0].user_attrs)
+
+    def attr_dict(self):
+        """``{node name: {attribute: value}}`` over the graph."""
+        return {n.name: dict(n.user_attrs) for n in self._topo()
+                if n.user_attrs}
+
     # -- serialization --------------------------------------------------
     def tojson(self):
         """nnvm-shaped graph JSON (nodes / arg_nodes / heads)."""
@@ -202,8 +224,10 @@ class Symbol:
     # -- binding --------------------------------------------------------
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
                     **kwargs):
-        """An executor whose arguments are zeros of the shapes inferred
-        from ``kwargs`` (``data=(N, C, H, W)``, ...)."""
+        """An executor whose arguments, auxiliary states and gradients are
+        zeros of the shapes inferred from ``kwargs`` (``data=(N, C, H,
+        W)``, ...).  ``grad_req``: one string, or a list or dict per
+        argument."""
         from ..executor import Executor
 
         return Executor(self, ctx=ctx, grad_req=grad_req, arg_shapes=kwargs,
@@ -245,10 +269,24 @@ def _apply(op_name, input_syms, attrs, name=None):
     return _single(_Node(opdef, name, inputs, attrs))
 
 
-def Variable(name, shape=None, dtype=None):
-    """A symbolic variable."""
+def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
+             dtype=None, init=None, **kwargs):
+    """A symbolic variable.  ``lr_mult``, ``wd_mult`` and ``init`` (an
+    Initializer or its ``dumps()``) become the ``__lr_mult__``,
+    ``__wd_mult__`` and ``__init__`` attributes, beside ``attr`` and any
+    ``__name__=value`` keyword."""
+    ua = dict(attr or {})
+    if lr_mult is not None:
+        ua["__lr_mult__"] = str(lr_mult)
+    if wd_mult is not None:
+        ua["__wd_mult__"] = str(wd_mult)
+    if init is not None:
+        ua["__init__"] = init if isinstance(init, str) else init.dumps()
+    for k, v in kwargs.items():
+        if k.startswith("__") and k.endswith("__"):
+            ua[k] = str(v)
     return Symbol([(_Node(None, name, shape_hint=tuple(shape) if shape
-                          else None, dtype_hint=dtype), 0)])
+                          else None, dtype_hint=dtype, user_attrs=ua), 0)])
 
 
 var = Variable

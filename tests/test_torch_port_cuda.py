@@ -15,10 +15,26 @@ order than the dense plain version: f32 within 1e-4 relative and 1e-4
 absolute; bf16 after their one rounding, 2^-7 relative and 1e-3 absolute.
 The int8 matmul, both variants, is bit-exact against its plain version (an
 exact int32 sum; one rounding to f32 and one f32 product in the dequant).
+
+``mx.rtc``: tests/test_rtc.py's kernels written in CUDA and the
+reference's templated ``axpy`` (compiled with ``--fmad=false``) equal the
+torch expressions exactly; the user op ``rtc_softmax`` (chip_smoke.py's
+user code) against the example's ``numpy_softmax``, forward and backward,
+within 1e-5 relative and 1e-7 absolute (``expf`` and numpy's ``exp`` within
+2 ulp, the row sum in another order).  One ResNet-20 Module step on the
+card against the CPU: every gradient, moving statistic and update within
+1e-3 relative L2, as chip_smoke.py's ResNet-50 gate holds them.
 """
+import importlib
+import pathlib
+import sys
+import uuid
+
 import numpy as np
 import pytest
 import torch
+
+import mxnet_tpu_torch as mx
 
 from mxnet_tpu_torch.ops.kernels import common, int8_matmul
 from mxnet_tpu_torch.ops.kernels.int8_matmul import (_int8_matmul_cuda,
@@ -389,3 +405,132 @@ def test_int8_matmul_refuses_bad_inputs(dev):
         _int8_matmul_cuda(a, b[:, :8])
     with pytest.raises(ValueError, match="scales"):
         _int8_matmul_cuda(a, b, None, torch.ones(5, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# mx.rtc
+# ---------------------------------------------------------------------------
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture
+def smoke(dev):
+    """chip_smoke.py (its user kernels and helpers), with its user ops
+    registered."""
+    if str(REPO) not in sys.path:
+        sys.path.insert(0, str(REPO))
+    mod = importlib.import_module("chip_smoke")
+    mod.register_user_ops(mx)
+    return mod
+
+
+def _nd(t):
+    return mx.nd.NDArray(t)
+
+
+def test_rtc_test_rtc_kernels_in_cuda(dev, smoke):
+    m = mx.rtc.CudaModule(smoke.RTC_TEST_SRC, options=["--fmad=false"])
+    axpy = m.get_kernel("axpy", "const float *x, const float *y, float *o, "
+                                "int n")
+    scale = m.get_kernel("scale", "const float *x, float *o, int n")
+    n = 8
+    x = _nd(torch.arange(n, dtype=torch.float32, device=dev))
+    y = _nd(torch.ones(n, device=dev))
+    out = mx.nd.zeros((n,), ctx=mx.gpu(0))
+    axpy.launch([x, y, out, n], mx.gpu(0), (1, 1, 1), (32, 1, 1))
+    torch.testing.assert_close(out.data, 2.5 * x.data + y.data,
+                               rtol=0, atol=0)
+    scale.launch([x, out, n], mx.gpu(0), (1, 1, 1), (32, 1, 1))
+    torch.testing.assert_close(out.data, x.data * 3.0, rtol=0, atol=0)
+
+
+def test_rtc_templated_exports(dev, smoke):
+    m = mx.rtc.CudaModule(smoke.RTC_AXPY_TEMPLATE_SRC,
+                          options=["--fmad=false"],
+                          exports=["axpy<float>", "axpy<double>"])
+    for dt, ctype in ((torch.float32, "float"), (torch.float64, "double")):
+        k = m.get_kernel("axpy<%s>" % ctype, "const %s *x, %s *y, %s alpha"
+                         % (ctype, ctype, ctype))
+        x = _nd(torch.ones(10, dtype=dt, device=dev))
+        y = _nd(torch.zeros(10, dtype=dt, device=dev))
+        k.launch([x, y, 3.0], mx.gpu(0), (1, 1, 1), (10, 1, 1))
+        assert torch.equal(y.data, torch.full((10,), 3.0, dtype=dt,
+                                              device=dev))
+
+
+def test_rtc_compiles_once(dev, smoke):
+    src = smoke.RTC_TEST_SRC + "\n// %s\n" % uuid.uuid4()
+    before = mx.rtc.compile_count()
+    m = mx.rtc.CudaModule(src)
+    assert mx.rtc.compile_count() == before + 1 and m.compile_ms > 0
+    again = mx.rtc.CudaModule(src)              # the cached cubin
+    assert mx.rtc.compile_count() == before + 1 and again.compile_ms is None
+    k = again.get_kernel("scale", "const float *x, float *o, int n")
+    x = _nd(torch.ones(4, device=dev))
+    out = mx.nd.zeros((4,), ctx=mx.gpu(0))
+    for _ in range(2):
+        k.launch([x, out, 4], mx.gpu(0), (1, 1, 1), (4, 1, 1))
+    assert len(k._functions) == 1 and mx.rtc.compile_count() == before + 1
+    assert torch.equal(out.data, torch.full((4,), 3.0, device=dev))
+
+
+def test_rtc_errors(dev, smoke):
+    m = mx.rtc.CudaModule(smoke.RTC_TEST_SRC)
+    with pytest.raises(ValueError, match="not in the module"):
+        m.get_kernel("nonexistent", "int n")
+    with pytest.raises(RuntimeError, match="undeclared_fn"):
+        mx.rtc.CudaModule('extern "C" __global__ void k(float *x) '
+                          '{ x[0] = undeclared_fn(); }')
+    k = m.get_kernel("scale", "const float *x, float *o, int n")
+    x64 = _nd(torch.ones(4, dtype=torch.float64, device=dev))
+    out = mx.nd.zeros((4,), ctx=mx.gpu(0))
+    with pytest.raises(TypeError, match="float32"):
+        k.launch([x64, out, 4], mx.gpu(0), (1, 1, 1), (4, 1, 1))
+    with pytest.raises(ValueError, match="lies on cpu"):
+        k.launch([mx.nd.zeros((4,), ctx=mx.cpu()), out, 4], mx.gpu(0),
+                 (1, 1, 1), (4, 1, 1))
+
+
+@pytest.mark.parametrize("shape", [(64, 4), (32, 1000)])
+def test_rtc_softmax_matches_numpy_softmax(dev, smoke, shape):
+    n, c = shape
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = 3 * torch.randn(shape, generator=g, device=dev)
+    y = torch.randint(0, c, (n,), generator=g, device=dev).float()
+    res = {}
+    for op_type in ("rtc_softmax", "numpy_softmax"):
+        net = mx.sym.Custom(mx.sym.Variable("data"), mx.sym.Variable("label"),
+                            op_type=op_type, name="sm")
+        ex = net.simple_bind(ctx=mx.gpu(0), grad_req={"data": "write"},
+                             data=shape, label=(n,))
+        out = ex.forward(is_train=True, data=_nd(x), label=_nd(y))[0]
+        ex.backward()
+        res[op_type] = (out.data, ex.grad_dict["data"].data)
+    tol = dict(rtol=smoke.RTC_FWD_RTOL, atol=smoke.RTC_FWD_ATOL)
+    torch.testing.assert_close(res["rtc_softmax"][0], res["numpy_softmax"][0],
+                               **tol)
+    torch.testing.assert_close(res["rtc_softmax"][1], res["numpy_softmax"][1],
+                               **tol)
+    assert torch.allclose(res["rtc_softmax"][0].sum(1),
+                          torch.ones(n, device=dev))
+
+
+def test_resnet20_module_step_card_vs_cpu(dev, smoke):
+    from mxnet_tpu_torch.models.resnet_symbol import get_symbol
+
+    net = get_symbol(num_classes=10, num_layers=20, image_shape="3,28,28")
+    rng = np.random.RandomState(0)
+    arg_shapes, _, aux_shapes = net.infer_shape(data=(4, 3, 28, 28))
+    args = {n: (rng.randn(*s) * 0.1).astype(np.float32)
+            for n, s in zip(net.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+    auxs = {n: np.ones(s, np.float32) if n.endswith("_var")
+            else np.zeros(s, np.float32)
+            for n, s in zip(net.list_auxiliary_states(), aux_shapes)}
+    x = rng.rand(4, 3, 28, 28).astype(np.float32)
+    y = rng.randint(0, 10, 4).astype(np.float32)
+    card = smoke._module_step(mx, net, mx.gpu(0), args, auxs, x, y)
+    host = smoke._module_step(mx, net, mx.cpu(), args, auxs, x, y)
+    for c, h in zip(card, host):
+        ok, report = smoke._compare_tensors(c, h, smoke.MODULE_CHECK_REL)
+        assert ok, report

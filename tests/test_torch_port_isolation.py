@@ -4,7 +4,10 @@
   ``chip_smoke.py`` finds no import of ``jax`` or ``mxnet_tpu``.
 * A child process in which ``jax`` and ``mxnet_tpu`` cannot be imported
   imports the port and serves two tokens on the CPU; another quantizes a
-  small symbolic convnet and runs it in int8.
+  small symbolic convnet and runs it in int8; a third trains a small
+  network with a user ``Custom`` op through ``Module.fit`` (``rtc``,
+  ``operator``, ``module``, ``optimizer``, ``initializer``, ``metric``,
+  ``lr_scheduler``, ``callback`` and ``random`` all loaded).
 * Without a CUDA device, the entry points refuse to start unless the
   caller asks for the CPU (``device="cpu"``, or ``ctx=cpu()`` on the
   symbolic path).
@@ -144,6 +147,70 @@ def test_int8_path_runs_with_jax_unimportable():
     assert res["max_err"] <= 0.05 * res["scale"]
 
 
+_CHILD_TRAIN = r"""
+import importlib.abc, json, logging, sys
+
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, _Block())
+import numpy as np
+import mxnet_tpu_torch as mx
+
+class Square(mx.operator.CustomOp):
+    def forward(self, is_train, req, in_data, out_data, aux):
+        self.assign(out_data[0], req[0], in_data[0] * in_data[0])
+
+    def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+        self.assign(in_grad[0], req[0], out_grad[0] * in_data[0] * 2.0)
+
+@mx.operator.register("square")
+class SquareProp(mx.operator.CustomOpProp):
+    def create_operator(self, ctx, shapes, dtypes):
+        return Square()
+
+mx.random.seed(0)
+rng = np.random.RandomState(0)
+x = rng.randn(64, 8).astype(np.float32)
+y = (x[:, 0] > 0).astype(np.float32)
+net = mx.sym.Custom(mx.sym.FullyConnected(mx.sym.Variable("data"),
+                                          num_hidden=8, name="fc1"),
+                    op_type="square", name="sq")
+net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(net, num_hidden=2,
+                                                 name="fc2"), name="softmax")
+it = mx.io.NDArrayIter(x, y, batch_size=16, shuffle=True)
+mod = mx.mod.Module(net, context=mx.cpu())
+mod.fit(it, num_epoch=3, optimizer="sgd",
+        optimizer_params={"learning_rate": 0.1, "momentum": 0.9,
+                          "lr_scheduler": mx.lr_scheduler.FactorScheduler(4)},
+        initializer=mx.init.Xavier(),
+        batch_end_callback=[mx.callback.Speedometer(16, 2),
+                            mx.callback.log_train_metric(2)])
+acc = dict(mod.score(it, mx.metric.Accuracy()))["accuracy"]
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))
+mods = sorted(m for m in sys.modules if m.startswith("mxnet_tpu_torch."))
+print(json.dumps({"acc": acc, "loaded": loaded, "modules": mods}))
+"""
+
+
+def test_trains_with_jax_unimportable():
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD_TRAIN], capture_output=True,
+        text=True, timeout=120, cwd=REPO, env=subprocess_env())
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == []
+    for name in ("rtc", "operator", "module.module", "optimizer.optimizer",
+                 "initializer", "metric", "lr_scheduler", "callback",
+                 "random"):
+        assert "mxnet_tpu_torch." + name in res["modules"], name
+    assert 0.0 <= res["acc"] <= 1.0
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -191,6 +258,11 @@ def test_symbolic_entry_points_refuse_cpu_fallback(no_cuda):
         assert current_context() == cpu()
         assert nd.array([1.0]).context == cpu()
     assert current_context() == gpu(0)
+    # the training path: a Module binds on gpu(0) unless told otherwise
+    from mxnet_tpu_torch import mod
+    m = mod.Module(net, label_names=())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        m.bind(data_shapes=[("data", (1, 3))])
 
 
 def test_default_device_is_cuda0_when_present(monkeypatch):
