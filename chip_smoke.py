@@ -43,16 +43,21 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. device  — the card's name and ``nvidia-smi`` name / power limit;
 2. build   — ``nvcc`` builds every kernel from ``mxnet_tpu_torch/ops/
-   kernels/csrc`` (in parallel), with the ptxas register/spill report;
+   kernels/csrc`` (in parallel), with the ptxas register/spill report and
+   one line per instantiation of the tensor-core flash forward;
 3. kernels — each kernel against its plain version at the flagship's
    shapes: max error and tolerance; the device time of the kernel, of the
    plain version and of one PyTorch library call (for the record only),
    each from a CUDA graph of repeated calls replayed between CUDA events;
-   and the card's bound for the same work;
+   and the card's bound for the same work.  At the two main flash shapes
+   the forward's tensor-core (wgmma) and CUDA-core (simt) variants are
+   both held against the plain version and timed in turns;
 4. serve   — a flagship ``GenerationServer`` answers 7 concurrent greedy
    requests (one ~4000-token prompt crosses the flash gate), a solo
    resubmission must reproduce its batched stream, the kernel counters
-   must show the CUDA kernels on the path, and the prefill logits through
+   must show the CUDA kernels on the path (every flash forward, one per
+   layer of the long prompt's prefill, through the tensor-core variant),
+   and the prefill logits through
    the kernels must match those through the plain versions;
 5. train   — for each training configuration, one warm step and then
    ``TRAIN_STEPS`` timed steps on one fixed batch: losses must be finite
@@ -76,8 +81,10 @@ Phases, in order; any failure raises and exits non-zero:
    statistics equal to 8 EMA steps of the batches' moments (each step
    updates them exactly once), every moving statistic moved; then one
    ``forward_backward`` and ``update`` at batch 4 on the card against the
-   same on the CPU: every gradient, moving statistic and update within
-   ``MODULE_CHECK_REL``;
+   same on the CPU: in float64 every gradient, moving statistic and update
+   within ``MODULE_CHECK_REL_F64``; in f32 every moving statistic within
+   ``MODULE_CHECK_REL``, and each device's f32 gradients reported against
+   the float64 step;
 8. rtc — (a) the reference's templated ``axpy<float>`` / ``axpy<double>``
    and tests/test_rtc.py's kernels in CUDA, equal to torch; a second
    module of the same source and a second launch compile nothing; the host
@@ -116,6 +123,10 @@ FLAGSHIP = dict(vocab_size=32000, d_model=2048, n_heads=16, n_layers=4,
 PROMPT_LENS = (16, 40, 100, 256, 384, 512, 4000)
 MAX_NEW = 32
 SOLO_INDEX = 1
+# flash forward launches of the serve phase: only the ~4000-token prompt
+# crosses the dense->flash gate, once in each of the flagship's 4 layers,
+# and each must go through the tensor-core variant (bf16, head_dim 128)
+SERVE_FLASH_LAUNCHES = 4
 # kernel-vs-plain prefill logits (bf16 model, logits of order 1): the two
 # paths round activations to bf16 at other points (flash keeps p in f32,
 # dense rounds it), and one-ulp flips (2^-8 relative) compound over 4 layers
@@ -132,12 +143,14 @@ TRAIN_CELLS = (
 TRAIN_STEPS = 3
 # kernel launches per training step, from the code: RMSNorm twice per block
 # and once before the logits, and with remat once more per block for the
-# recomputed forward; flash forward per block (twice with remat), dQ and
-# dK/dV once per block; the softmax cross-entropy once each way
+# recomputed forward; flash forward per block (twice with remat), every
+# one through the tensor-core variant (bf16, head_dim 64), dQ and dK/dV
+# once per block; the softmax cross-entropy once each way
 EXPECTED_LAUNCHES = {
     "flagship_b8_t1024": {"fused_rmsnorm": 9, "fused_softmax_xent": 1,
                           "fused_softmax_xent_bwd": 1},
     "longctx_b1_t8192": {"fused_rmsnorm": 17, "flash_attention": 8,
+                         "flash_attention.wgmma": 8,
                          "flash_attention_dq": 4, "flash_attention_dkv": 4,
                          "fused_softmax_xent": 1,
                          "fused_softmax_xent_bwd": 1},
@@ -184,12 +197,21 @@ MODULE_BATCH = 32
 MODULE_IMAGES = 256                  # 8 steps: one warm, 7 timed
 MODULE_EPOCH_SIZE = 1281167 // MODULE_BATCH
 MODULE_SGD = dict(learning_rate=0.1, momentum=0.9, wd=1e-4)
-# card vs CPU, one forward_backward and update at batch 4, f32: every
-# gradient, moving statistic and update w_new - w_old within 1e-3 relative
-# L2 (cuDNN and the CPU's convolutions sum in other orders through 50
-# layers and their backward; see _compare_tensors for sums that cancel)
+# card vs CPU, one forward_backward and update at batch 4 from the fit's
+# parameters.  At those parameters the f32 gradients are ill-conditioned:
+# each device's f32 step stands up to 1e-2 (relative L2) from a float64 one
+# on its worst tensor, the CPU's as well as the card's, and on which tensor
+# changes with the state that the fit (nondeterministic on the card)
+# leaves.  So the same step is taken in float64 on both devices, where
+# that amplification leaves ~1e-11: every gradient, moving statistic and
+# update w_new - w_old within MODULE_CHECK_REL_F64, far below one f32
+# rounding, so an op that dropped to f32 on one device shows too.  In f32
+# the moving statistics (the forward, well conditioned) stay within
+# MODULE_CHECK_REL; the f32 gradients of both devices are reported against
+# the float64 step.  See _compare_tensors for sums that cancel.
 MODULE_CHECK_BATCH = 4
 MODULE_CHECK_REL = 1e-3
+MODULE_CHECK_REL_F64 = 1e-8
 # the data BatchNorm's moving statistics after k steps against k EMA
 # applications of the batches' moments, computed on the host in f64
 MODULE_STATS_REL = 1e-5
@@ -410,7 +432,26 @@ def phase_build():
             info["seconds"], "".join("\n  " + ln for ln in report)))
     print("build: %d kernel source(s) in %.1f s" % (len(built), wall),
           flush=True)
+    for line in _ptxas_summary(built["flash_attention_wgmma"]["log"]):
+        print("build flash_attention_wgmma %s" % line, flush=True)
     return wall
+
+
+def _ptxas_summary(log):
+    """One line per kernel instantiation of a ptxas ``-v`` log: its
+    template argument (the head_dim), registers, spills and stack."""
+    out, name, props = [], None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif "spill stores" in ln:
+            props = ln.strip()
+        elif "Used" in ln and "registers" in ln and name is not None:
+            arg = name.split("ILi")[1].split("E")[0] if "ILi" in name else "?"
+            out.append("D=%s: %s; %s" % (arg, ln.split(":", 1)[1].strip(),
+                                         props))
+            name = None
+    return out
 
 
 def _time_ms(fn, args_list, rounds=2, replays=5):
@@ -507,12 +548,18 @@ def _rmsnorm_case(shape, dtype_name, gen):
     return rec
 
 
-def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen):
+def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
+                variants=False):
+    """The flash forward against its plain version.  ``variants``: also
+    hold the CUDA-core (simt) variant against the plain version, and time
+    the tensor-core one and it in turns (wgmma, simt, simt, wgmma); ``ms``
+    is then the tensor-core variant's mean of its two turns."""
     import torch
     import torch.nn.functional as F
     # (the package exports a function under this module's name)
     from mxnet_tpu_torch.ops.kernels.flash_attention import (
-        _flash_cuda, flash_attention_reference)
+        _flash_cuda, _flash_simt_cuda, _flash_wgmma_cuda, _fwd_variant,
+        flash_attention_reference)
 
     dt = getattr(torch, dtype_name)
 
@@ -537,12 +584,28 @@ def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen):
     nbytes = isz * B * H * D * (2 * Tq + 2 * Tk) + 4 * B * H * Tq
     bound, by = _bound(4.0 * D * B * H * pairs, nbytes, dtype_name)
     args = _copies((q, k, v))
+    variant = _fwd_variant(q.dtype, D)
+    turns = {}
+    if variants:
+        _check(variant == "wgmma", "flash_attention %s %s takes the %s "
+               "variant" % ([B, Tq, H, D], dtype_name, variant))
+        so, slse = _flash_simt_cuda(q, k, v, causal)
+        torch.cuda.synchronize()
+        simt_err, ok_so = _err(so, o_ref, atol, rtol)
+        simt_lse_err, ok_sl = _err(slse, lse_ref, 1e-4, 1e-5)
+        del so, slse
+        for name in ("wgmma", "simt", "simt", "wgmma"):
+            fn = _flash_wgmma_cuda if name == "wgmma" else _flash_simt_cuda
+            turns.setdefault(name, []).append(_time_ms(
+                lambda q, k, v, fn=fn: fn(q, k, v, causal), args))
     rec = {
-        "kernel": "flash_attention", "q": [B, Tq, H, D], "k": [B, Tk, H, D],
+        "kernel": "flash_attention", "variant": variant,
+        "q": [B, Tq, H, D], "k": [B, Tk, H, D],
         "causal": causal, "dtype": dtype_name, "max_abs_err": err,
         "atol": atol, "rtol": rtol, "lse_max_abs_err": lse_err,
         "ok": ok_o and ok_l,
-        "ms": _time_ms(lambda q, k, v: _flash_cuda(q, k, v, causal), args),
+        "ms": (statistics.mean(turns["wgmma"]) if turns else _time_ms(
+            lambda q, k, v: _flash_cuda(q, k, v, causal), args)),
         "plain_ms": _time_ms(lambda q, k, v: flash_attention_reference(
             q, k, v, causal, return_lse=True), args, rounds=1),
         # the same [B, T, H, D] views the kernel reads, no copies
@@ -552,9 +615,21 @@ def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen):
                 is_causal=causal), args),
         "bound_ms": bound, "bound_by": by,
     }
+    if turns:
+        rec.update({
+            "wgmma_ms_turns": turns["wgmma"], "simt_ms_turns": turns["simt"],
+            "simt_ms": statistics.mean(turns["simt"]),
+            "simt_over_wgmma": (statistics.mean(turns["simt"])
+                                / statistics.mean(turns["wgmma"])),
+            "simt_max_abs_err": simt_err,
+            "simt_lse_max_abs_err": simt_lse_err})
+        rec["ok"] = rec["ok"] and ok_so and ok_sl
     _emit(rec)
-    _check(ok_o and ok_l, "flash_attention %s disagrees with its plain "
-           "version (o err %g, lse err %g)" % (rec["q"], err, lse_err))
+    _check(rec["ok"], "flash_attention %s disagrees with its plain "
+           "version (o err %g, lse err %g%s)" % (
+               rec["q"], err, lse_err,
+               "; simt o err %g, lse err %g" % (simt_err, simt_lse_err)
+               if turns else ""))
     return rec
 
 
@@ -816,13 +891,13 @@ def phase_kernels():
             if shape == (4096, 2048) and dt == "bfloat16":
                 main["fused_rmsnorm"] = rec
     main["flash_attention"] = _flash_case(1, 4096, 4096, 16, 128, True,
-                                          "bfloat16", gen)
+                                          "bfloat16", gen, variants=True)
     _flash_case(1, 4000, 4000, 16, 128, True, "bfloat16", gen)
     _flash_case(1, 1000, 3000, 16, 128, False, "bfloat16", gen)
     _flash_case(2, 1024, 1024, 8, 64, True, "float32", gen)
     # the training path: the long-context configuration's attention and
     # both configurations' logits
-    _flash_case(1, 8192, 8192, 16, 64, True, "bfloat16", gen)
+    _flash_case(1, 8192, 8192, 16, 64, True, "bfloat16", gen, variants=True)
     main["flash_attention_dq"], main["flash_attention_dkv"] = \
         _flash_bwd_case(1, 8192, 8192, 16, 64, True, "bfloat16", gen)
     _flash_bwd_case(2, 1024, 1024, 8, 64, True, "float32", gen,
@@ -913,6 +988,13 @@ def phase_serve(dev):
                "%s never ran its CUDA kernel on the main path" % name)
     _check(not any(k.endswith(".reference") for k in selects),
            "a plain version ran on the main path: %s" % selects)
+    flash = {k: v for k, v in launches.items()
+             if k.startswith("kernels.launch.flash_attention")}
+    _check(flash == {"kernels.launch.flash_attention": SERVE_FLASH_LAUNCHES,
+                     "kernels.launch.flash_attention.wgmma":
+                         SERVE_FLASH_LAUNCHES},
+           "flash forward launches on the serve path %s, expected %d, all "
+           "through the tensor-core variant" % (flash, SERVE_FLASH_LAUNCHES))
 
     ttft_ms = [(f.t_first_token - f.t_admit) * 1e3 for f in futs]
     # every prompt is queued before the first prefill ends, and the
@@ -1288,28 +1370,67 @@ def _compare_tensors(got, want, tol):
                 "cancelled": {n: errs[n] for n in sorted(small)}}
 
 
-def _module_step(mx, net, ctx, args, auxs, x, y):
+def _module_step(mx, net, ctx, args, auxs, x, y, dtype="float32"):
     """One ``forward_backward`` and ``update`` of a fresh Module on ``ctx``
     from numpy ``args`` / ``auxs``: the gradients, the moving statistics
-    after the step and the update ``w_new - w_old``, as numpy."""
+    after the step and the update ``w_new - w_old``, as numpy.  With
+    ``dtype="float64"`` every array of the bound executor, the inputs and
+    so the optimizer's state are float64."""
+    import torch
     from mxnet_tpu_torch.model import params_from_numpy
 
     mod = mx.mod.Module(net, context=ctx)
     mod.bind(data_shapes=[("data", x.shape)],
              label_shapes=[("softmax_label", y.shape)])
+    if dtype == "float64":          # nd.array makes f32 of f64 input
+        ex = mod._exec
+        for arr in ex.arg_arrays + ex.aux_arrays + ex.grad_arrays:
+            if arr is not None:
+                arr._set_data(arr.data.double())
     a, b = params_from_numpy(args, auxs, ctx=ctx)
-    mod.init_params(arg_params=a, aux_params=b)
+    mod.init_params(arg_params=a, aux_params=b)      # cast into the bound
     mod.init_optimizer(optimizer="sgd", optimizer_params=dict(
         MODULE_SGD, lr_scheduler=mx.lr_scheduler.MultiFactorScheduler(
             [30 * MODULE_EPOCH_SIZE, 60 * MODULE_EPOCH_SIZE], 0.1)))
-    mod.forward_backward(mx.io.DataBatch([mx.nd.array(x, ctx=ctx)],
-                                         [mx.nd.array(y, ctx=ctx)]))
+    x, y = (mx.nd.NDArray(torch.from_numpy(v.astype(dtype)).to(
+        ctx.torch_device())) for v in (x, y))
+    mod.forward_backward(mx.io.DataBatch([x], [y]))
     grads = {n: g.asnumpy() for n, g in mod._exec.grad_dict.items()
              if g is not None}
     mod.update()
     new_args, new_auxs = mod.get_params()
     return (grads, {n: v.asnumpy() for n, v in new_auxs.items()},
             {n: new_args[n].asnumpy() - args[n] for n in args})
+
+
+def _module_gate(mx, net, args, auxs, images, labels):
+    """The module_train gate at the parameters ``args`` / ``auxs``: the
+    step at ``MODULE_CHECK_BATCH`` on the card and on the CPU, in float64
+    (gradients, moving statistics and updates within
+    ``MODULE_CHECK_REL_F64``) and in f32 (moving statistics within
+    ``MODULE_CHECK_REL``; gradients of each device against the CPU's
+    float64 step, reported).  Returns ``(ok, report)``."""
+    x = images[:MODULE_CHECK_BATCH]
+    y = labels[:MODULE_CHECK_BATCH]
+    step = {(where, dt): _module_step(mx, net, ctx, args, auxs, x, y, dt)
+            for where, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu()))
+            for dt in ("float64", "float32")}
+    report, ok = {"float64": {}, "float32": {}}, True
+    for i, what in enumerate(("grad", "aux", "update")):
+        good, report["float64"][what] = _compare_tensors(
+            step["card", "float64"][i], step["cpu", "float64"][i],
+            MODULE_CHECK_REL_F64)
+        ok = ok and good
+    good, report["float32"]["aux"] = _compare_tensors(
+        step["card", "float32"][1], step["cpu", "float32"][1],
+        MODULE_CHECK_REL)
+    ok = ok and good
+    for where in ("card", "cpu"):
+        _, rep = _compare_tensors(step[where, "float32"][0],
+                                  step["cpu", "float64"][0], MODULE_CHECK_REL)
+        report["float32"]["grad_%s_vs_float64" % where] = {
+            k: rep[k] for k in ("joint_rel_l2", "worst")}
+    return ok, report
 
 
 def phase_module_train(dev):
@@ -1400,19 +1521,12 @@ def phase_module_train(dev):
            "moved" % (moved, len(auxs)))
 
     # -- the gate: one step on the card against the same step on the CPU
-    x = images[:MODULE_CHECK_BATCH]
-    y = labels[:MODULE_CHECK_BATCH]
     t0 = time.perf_counter()
-    card = _module_step(mx, net, ctx, args, auxs, x, y)
-    host = _module_step(mx, net, mx.cpu(), args, auxs, x, y)
-    check_s = time.perf_counter() - t0
-    report, ok = {}, True
-    for what, c, h in zip(("grad", "aux", "update"), card, host):
-        good, report[what] = _compare_tensors(c, h, MODULE_CHECK_REL)
-        ok = ok and good
+    ok, report = _module_gate(mx, net, args, auxs, images, labels)
     _emit({"phase": "module_step_card_vs_cpu", "batch": MODULE_CHECK_BATCH,
-           "tol": MODULE_CHECK_REL, "cancelled_share": CANCELLED_SHARE,
-           "report": report, "seconds": check_s, "ok": ok})
+           "tol": MODULE_CHECK_REL, "tol_f64": MODULE_CHECK_REL_F64,
+           "cancelled_share": CANCELLED_SHARE, "report": report,
+           "seconds": time.perf_counter() - t0, "ok": ok})
     _check(ok, "module_train: the step on the card differs from the CPU's: "
            "%s" % report)
     return {"args": args, "auxs": auxs, "module": mod, "images": images,
@@ -1800,8 +1914,9 @@ def main():
     sources = {
         "fused_rmsnorm": ("mxnet_tpu_torch/ops/kernels/csrc/rmsnorm.cu",
                           "mxnet_tpu/ops/pallas/layers.py:31"),
+        # the tensor-core variant, which every main path's forward takes
         "flash_attention": (
-            "mxnet_tpu_torch/ops/kernels/csrc/flash_attention.cu",
+            "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_wgmma.cu",
             "mxnet_tpu/ops/pallas/flash_attention.py:55"),
         "flash_attention_dq": (
             "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu",

@@ -1,4 +1,13 @@
-// Flash-attention forward for Hopper (sm_90a), CUDA C++.
+// Flash-attention forward for Hopper (sm_90a), CUDA C++: the CUDA-core
+// ("simt") variant of the forward.
+//
+// The wrapper (flash_attention.py, _fwd_variant) sends f32 inputs and
+// head_dim 16 or 32 here.  f32: the tensor cores have no f32 operand that
+// keeps q.k^T exact (tf32 would round q and k).  head_dim 16 or 32: less
+// than one 128-byte row of the swizzled tiles that the tensor-core variant
+// (flash_attention_wgmma.cu, bf16 with head_dim 64 or 128) reads.  The bf16
+// instantiations at head_dim 64 and 128 stay so that the two variants can
+// be held against each other on the same inputs.
 //
 // Replaces the Pallas TPU kernel mxnet_tpu/ops/pallas/flash_attention.py
 // `_fwd_kernel` (launched by `_fwd`, public `flash_attention` and
@@ -28,9 +37,8 @@
 //
 // What bounds it on the card: operations.  4*D flops per (q, k) pair against
 // 2*D bytes per row read once puts attention at T >= 4096 far above the
-// ridge.  This first version computes in f32 on the CUDA cores (no tensor
-// cores: p stays f32 for P.V, as on the TPU), so it runs well below the bf16
-// tensor-core bound; moving to wgmma/TMA is later work.
+// ridge.  This variant computes in f32 on the CUDA cores (p stays f32 for
+// P.V, as on the TPU), so it runs far below the bf16 tensor-core bound.
 //
 // Plain C interface (no PyTorch headers), called through ctypes.
 

@@ -13,11 +13,25 @@ with torch ops, as ``_bwd`` does (the lse cotangent folds into ``delta``,
 which is what lets a merge of partials over key sets train), then runs the
 dQ and dK/dV kernels.
 
-On a CUDA tensor they launch the hand-written kernels ``csrc/
-flash_attention.cu`` (forward) and ``csrc/flash_attention_bwd.cu`` (dQ and
-dK/dV), which read the inputs through their strides (the q/k/v slices of a
-fused qkv projection and a non-contiguous ``dO`` go in without a transpose
-or a pad copy).  On a CPU tensor they run :func:`flash_attention_reference`
+On a CUDA tensor they launch hand-written kernels, which read the inputs
+through their strides (the q/k/v slices of a fused qkv projection and a
+non-contiguous ``dO`` go in without a transpose or a pad copy).  The
+forward has two variants, chosen by dtype and head_dim alone
+(:func:`_fwd_variant`), never by whether a build or a launch worked:
+
+* ``wgmma`` — ``csrc/flash_attention_wgmma.cu``, tensor cores (wgmma, a TMA
+  ring of K/V tiles, p split into two bf16 terms): bf16 with head_dim 64 or
+  128, the widths of the models' flash paths (the flagship's 128, the
+  long-context configuration's 64).  It needs 16-byte-aligned bases and
+  (B, T, H) strides that are multiples of 8 elements
+  (:func:`_check_wgmma` raises otherwise);
+* ``simt`` — ``csrc/flash_attention.cu``, CUDA cores: f32 (the tensor cores
+  have no f32 operand that keeps q·kᵀ exact) and head_dim 16 or 32 (less
+  than one 128-byte row of the swizzled tiles the wgmma variant reads).
+
+Every forward launch counts as ``kernels.launch.flash_attention`` and as
+``kernels.launch.flash_attention.<variant>``.  The backward runs
+``csrc/flash_attention_bwd.cu`` (dQ and dK/dV).  On a CPU tensor they run :func:`flash_attention_reference`
 and :func:`flash_attention_bwd_reference`, the plain dense f32 versions of
 the same functions.  The causal mask is ``q_pos >= k_pos`` with both
 positions counted from 0, as in the TPU kernels.
@@ -37,6 +51,7 @@ __all__ = ["flash_attention", "flash_attention_lse",
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
+_WGMMA_HEAD_DIMS = (64, 128)
 
 
 def flash_attention_reference(q, k, v, causal=True, scale=None,
@@ -112,6 +127,16 @@ def _configure(lib):
     lib.mxt_flash_error_string.restype = ctypes.c_char_p
 
 
+def _configure_wgmma(lib):
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.mxt_flash_wgmma_fwd.argtypes = (
+        [vp] * 5 + [i] * 5
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, i, vp])
+    lib.mxt_flash_wgmma_fwd.restype = ctypes.c_int
+    lib.mxt_flash_wgmma_error_string.argtypes = [i]
+    lib.mxt_flash_wgmma_error_string.restype = ctypes.c_char_p
+
+
 def _configure_bwd(lib):
     vp, i = ctypes.c_void_p, ctypes.c_int
     tail = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, i, vp]
@@ -152,11 +177,59 @@ def _check_qkv(q, k, v):
     return B, Tq, Tk, H, D
 
 
-def _flash_cuda(q, k, v, causal=True, scale=None):
-    """Launch ``csrc/flash_attention.cu``; returns ``(o, lse)``."""
+def _fwd_variant(dtype, head_dim):
+    """The forward kernel for ``dtype`` and ``head_dim``: ``"wgmma"`` for
+    bf16 with head_dim 64 or 128, ``"simt"`` for every other input the
+    forward takes (f32, head_dim 16 or 32)."""
+    if dtype == torch.bfloat16 and head_dim in _WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
+
+
+def _tma_strides(t):
+    """The (B, T, H) element strides of ``t`` as the wgmma variant's tensor
+    maps take them.  A size-1 axis is never stepped along, so its stride is
+    replaced by the one a contiguous layout would give it (PyTorch may give
+    such an axis any stride)."""
+    B, T, H, D = t.shape
+    sb, st, sh = t.stride()[:3]
+    if H == 1:
+        sh = D
+    if T == 1:
+        st = H * sh
+    if B == 1:
+        sb = T * st
+    return sb, st, sh
+
+
+def _check_wgmma(q, k, v):
+    """Raise :class:`ValueError` on inputs the wgmma variant cannot read:
+    its TMA copies need each base address 16-byte aligned and each (B, T,
+    H) stride a multiple of 8 elements (16 bytes).  Never a reason to take
+    the other variant."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(
+                "flash_attention (wgmma variant): %s's base address is not "
+                "16-byte aligned (offset %d bytes); pass a tensor whose "
+                "data starts on a 16-byte boundary"
+                % (name, t.data_ptr() % 16))
+        for axis, stride in zip("BTH", _tma_strides(t)):
+            if stride % 8:
+                raise ValueError(
+                    "flash_attention (wgmma variant): %s's %s stride %d is "
+                    "not a multiple of 8 elements (16 bytes)"
+                    % (name, axis, stride))
+
+
+def _flash_simt_cuda(q, k, v, causal=True, scale=None, kv_len=None):
+    """Launch the CUDA-core variant ``csrc/flash_attention.cu``; returns
+    ``(o, lse)``.  ``kv_len`` (default ``Tk``): keys at and past it are
+    masked, as ``_fwd``'s argument of that name."""
     B, Tq, Tk, H, D = _check_qkv(q, k, v)
     if scale is None:
         scale = 1.0 / (D ** 0.5)
+    kv_len = Tk if kv_len is None else int(kv_len)
     o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     if B * H * Tq == 0:
@@ -165,12 +238,53 @@ def _flash_cuda(q, k, v, causal=True, scale=None):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
     count_launch("flash_attention")
+    count_launch("flash_attention.simt")
     rc = lib.mxt_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            o.data_ptr(), lse.data_ptr(), B, H, Tq, Tk, D,
-                           *strides, float(scale), int(bool(causal)), Tk,
+                           *strides, float(scale), int(bool(causal)), kv_len,
                            _DTYPE_CODE[q.dtype], stream)
     _build.check(lib, "mxt_flash", rc)
     return o, lse
+
+
+def _flash_wgmma_cuda(q, k, v, causal=True, scale=None, kv_len=None):
+    """Launch the tensor-core variant ``csrc/flash_attention_wgmma.cu`` on
+    bf16 inputs with head_dim 64 or 128; returns ``(o, lse)``.  Raises on
+    inputs it does not take (:func:`_check_wgmma`)."""
+    B, Tq, Tk, H, D = _check_qkv(q, k, v)
+    if _fwd_variant(q.dtype, D) != "wgmma":
+        raise ValueError("flash_attention (wgmma variant): takes bf16 with "
+                         "head_dim in %s; got %s, head_dim %d"
+                         % (_WGMMA_HEAD_DIMS, q.dtype, D))
+    _check_wgmma(q, k, v)
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    kv_len = Tk if kv_len is None else int(kv_len)
+    o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    if B * H * Tq == 0:
+        return o, lse
+    lib = _build.load("flash_attention_wgmma", _configure_wgmma)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    flat = [s for t in (q, k, v) for s in _tma_strides(t)] + list(
+        o.stride()[:3])
+    count_launch("flash_attention")
+    count_launch("flash_attention.wgmma")
+    rc = lib.mxt_flash_wgmma_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), B, H, Tq, Tk, D, (ctypes.c_longlong * 12)(*flat),
+        float(scale), int(bool(causal)), kv_len, stream)
+    _build.check(lib, "mxt_flash_wgmma", rc)
+    return o, lse
+
+
+def _flash_cuda(q, k, v, causal=True, scale=None, kv_len=None):
+    """The forward on CUDA tensors: the variant :func:`_fwd_variant` names
+    for q's dtype and head_dim; returns ``(o, lse)``."""
+    _, _, _, _, D = _check_qkv(q, k, v)
+    launch = (_flash_wgmma_cuda if _fwd_variant(q.dtype, D) == "wgmma"
+              else _flash_simt_cuda)
+    return launch(q, k, v, causal, scale, kv_len)
 
 
 def _strides(*tensors):

@@ -40,8 +40,9 @@ from mxnet_tpu_torch.ops.kernels import common, int8_matmul
 from mxnet_tpu_torch.ops.kernels.int8_matmul import (_int8_matmul_cuda,
                                                      int8_matmul_reference)
 from mxnet_tpu_torch.ops.kernels.flash_attention import (
-    _flash_bwd_cuda, _flash_cuda, flash_attention, flash_attention_bwd_reference,
-    flash_attention_lse, flash_attention_reference)
+    _flash_bwd_cuda, _flash_cuda, _flash_simt_cuda, _flash_wgmma_cuda,
+    flash_attention, flash_attention_bwd_reference, flash_attention_lse,
+    flash_attention_reference)
 from mxnet_tpu_torch.ops.kernels.layers import (
     _rmsnorm_cuda, _xent_bwd_cuda, _xent_fwd_cuda, fused_rmsnorm,
     fused_rmsnorm_reference, fused_softmax_xent, softmax_xent_bwd_reference,
@@ -131,7 +132,9 @@ def test_flash_reads_strided_qkv_slices(dev):
     o, lse = flash_attention_lse(q, k, v)
     o2, lse2 = _flash_cuda(q.contiguous(), k.contiguous(), v.contiguous())
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
-    assert common.launch_counts() == {"kernels.launch.flash_attention": 2}
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention": 2,
+        "kernels.launch.flash_attention.wgmma": 2}
     assert common.selection_counts() == {
         "kernels.select.flash_attention.cuda": 1}
 
@@ -143,6 +146,118 @@ def test_flash_refuses_bad_inputs(dev):
     q = torch.randn(1, 8, 2, 64, device=dev)
     with pytest.raises(TypeError):
         _flash_cuda(q, q.half(), q)
+
+
+# ---------------------------------------------------------------------------
+# flash forward: the tensor-core (wgmma) variant, bf16 with D 64 or 128
+# ---------------------------------------------------------------------------
+WGMMA_CASES = [
+    # (B, Tq, Tk, H, D, causal); tiles are 128 queries x 128 keys
+    (1, 1, 1, 2, 64, True),
+    (1, 1, 1, 2, 128, False),
+    (2, 63, 63, 2, 64, True),
+    (1, 65, 65, 2, 128, True),
+    (1, 127, 127, 3, 64, False),
+    (1, 129, 129, 2, 128, True),
+    (1, 129, 129, 2, 64, True),
+    (1, 1000, 3000, 2, 128, False),
+    (1, 1000, 3000, 2, 64, False),
+    (1, 4000, 4000, 2, 128, True),
+    (1, 4000, 4000, 2, 64, True),
+    (1, 20, 300, 2, 64, True),       # causal, Tq < Tk (top-left aligned)
+    (1, 65, 200, 2, 128, True),
+    (1, 300, 70, 2, 128, True),      # causal, Tq > Tk
+    (1, 1, 129, 2, 64, False),
+]
+
+
+def _qkv(dev, B, Tq, Tk, H, D, dtype=torch.bfloat16, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn((B, T, H, D), generator=g, device=dev).to(dtype)
+                 for T in (Tq, Tk, Tk))
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES)
+def test_flash_wgmma_matches_plain(dev, case):
+    B, Tq, Tk, H, D, causal = case
+    q, k, v = _qkv(dev, B, Tq, Tk, H, D)
+    common.reset_counts()
+    o, lse = _flash_cuda(q, k, v, causal)
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention": 1,
+        "kernels.launch.flash_attention.wgmma": 1}
+    ro, rlse = flash_attention_reference(q, k, v, causal, return_lse=True)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    np.testing.assert_allclose(_np(o), _np(ro), **BF16_ONE_ROUNDING)
+    np.testing.assert_allclose(_np(lse), _np(rlse), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_wgmma_reads_fused_qkv_views(dev, D):
+    """q/k/v as [B, T, H, D] views of one [B, T, 3·H·D] product, as the
+    model makes them: no copy, the same bits as contiguous copies."""
+    B, T, H = 2, 333, 3
+    g = torch.Generator(device=dev).manual_seed(3)
+    qkv = torch.randn(B, T, 3 * H * D, generator=g, device=dev,
+                      dtype=torch.bfloat16)
+    q, k, v = (t.view(B, T, H, D) for t in qkv.split(H * D, -1))
+    assert not q.is_contiguous()
+    o, lse = _flash_wgmma_cuda(q, k, v)
+    o2, lse2 = _flash_wgmma_cuda(q.contiguous(), k.contiguous(),
+                                 v.contiguous())
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ro, rlse = flash_attention_reference(q, k, v, return_lse=True)
+    np.testing.assert_allclose(_np(o), _np(ro), **BF16_ONE_ROUNDING)
+    np.testing.assert_allclose(_np(lse), _np(rlse), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("launch", [_flash_wgmma_cuda, _flash_simt_cuda])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kv_len_and_rows_without_keys(dev, launch, causal):
+    """``kv_len`` (``_fwd``'s argument) masks keys at and past it: the same
+    as attending over the first kv_len keys; with kv_len 0 every row has l
+    = 0 and gets o = 0 and the finite lse -1e30, in both variants."""
+    q, k, v = _qkv(dev, 1, 200, 300, 2, 128, seed=4)
+    o, lse = launch(q, k, v, causal, kv_len=0)
+    assert not o.any()
+    assert torch.isfinite(lse).all() and bool((lse == -1e30).all())
+    o, lse = launch(q, k, v, causal, kv_len=150)
+    ro, rlse = flash_attention_reference(q, k[:, :150], v[:, :150], causal,
+                                         return_lse=True)
+    np.testing.assert_allclose(_np(o), _np(ro), **BF16_ONE_ROUNDING)
+    np.testing.assert_allclose(_np(lse), _np(rlse), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,D,variant", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 32, "simt"), (torch.bfloat16, 16, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt")])
+def test_flash_forward_variant_counters(dev, dtype, D, variant):
+    q, k, v = _qkv(dev, 1, 70, 70, 2, D, dtype)
+    common.reset_counts()
+    flash_attention(q, k, v)
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention": 1,
+        "kernels.launch.flash_attention.%s" % variant: 1}
+
+
+def test_flash_wgmma_refuses_misaligned_inputs(dev):
+    """The wgmma variant raises on inputs its TMA copies cannot read; it
+    never hands them to the other variant."""
+    B, T, H, D = 1, 64, 2, 64
+    flat = torch.randn(B * T * H * D + 1, device=dev, dtype=torch.bfloat16)
+    q = flat[1:].view(B, T, H, D)                     # base 2 bytes off
+    k = torch.randn(B, T, H, D, device=dev, dtype=torch.bfloat16)
+    common.reset_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(q, k, k)
+    wide = torch.randn(B, T, H * D + 4, device=dev, dtype=torch.bfloat16)
+    k2 = wide[..., :H * D].view(B, T, H, D)           # T stride 132
+    with pytest.raises(ValueError, match="T stride 132"):
+        _flash_cuda(k, k2, k)
+    assert common.launch_counts() == {}
+    with pytest.raises(ValueError, match="wgmma variant"):
+        _flash_wgmma_cuda(*_qkv(dev, 1, 8, 8, 2, 64, torch.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -212,6 +327,7 @@ def test_flash_autograd_launches_backward_kernels(dev):
     (o.square().sum() + lse.tanh().sum()).backward()
     assert common.launch_counts() == {
         "kernels.launch.flash_attention": 1,
+        "kernels.launch.flash_attention.simt": 1,
         "kernels.launch.flash_attention_dq": 1,
         "kernels.launch.flash_attention_dkv": 1}
     assert common.selection_counts() == {

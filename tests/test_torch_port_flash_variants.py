@@ -1,0 +1,151 @@
+"""The flash forward's two CUDA variants, from the Python side, on the CPU.
+
+Which variant a dtype / head_dim selects, how the tensor-core variant's
+tensor maps see a tensor's strides, and that its precondition check raises
+with a message (and never hands an input to the other variant).  None of
+these needs a card: the checks run on tensor metadata before any build or
+launch.  The kernels themselves are held against their plain version on
+the card (tests/test_torch_port_cuda.py, chip_smoke.py).
+"""
+import importlib
+
+import pytest
+import torch
+
+fa = importlib.import_module("mxnet_tpu_torch.ops.kernels.flash_attention")
+
+BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize("dtype,D,variant", [
+    (BF16, 64, "wgmma"), (BF16, 128, "wgmma"),
+    (BF16, 16, "simt"), (BF16, 32, "simt"),
+    (torch.float32, 16, "simt"), (torch.float32, 32, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt")])
+def test_variant_by_dtype_and_head_dim(dtype, D, variant):
+    assert fa._fwd_variant(dtype, D) == variant
+
+
+@pytest.mark.parametrize("dtype,D,variant", [
+    (BF16, 64, "wgmma"), (BF16, 128, "wgmma"), (BF16, 32, "simt"),
+    (torch.float32, 128, "simt")])
+def test_flash_cuda_dispatches_by_variant(monkeypatch, dtype, D, variant):
+    """``_flash_cuda`` hands the inputs to the launcher its variant names,
+    with the caller's arguments."""
+    calls = []
+
+    def launcher(name):
+        def launch(q, k, v, causal, scale, kv_len):
+            calls.append((name, causal, scale, kv_len))
+            return "out"
+        return launch
+
+    monkeypatch.setattr(fa, "_flash_wgmma_cuda", launcher("wgmma"))
+    monkeypatch.setattr(fa, "_flash_simt_cuda", launcher("simt"))
+    q = torch.zeros(1, 5, 2, D, dtype=dtype)
+    assert fa._flash_cuda(q, q, q, False, 0.5, 3) == "out"
+    assert calls == [(variant, False, 0.5, 3)]
+
+
+@pytest.mark.parametrize("H,D", [(16, 128), (16, 64)])
+@pytest.mark.parametrize("B,T", [(1, 4000), (1, 8192), (8, 1024), (1, 1),
+                                 (2, 4001)])
+def test_model_qkv_views_meet_the_preconditions(B, T, H, D):
+    """The flagship's (16 x 128) and the long-context configuration's
+    (16 x 64) q/k/v: [B, T, H, D] views of one fused qkv product, as
+    models/transformer.py makes them; the check must not raise."""
+    qkv = torch.zeros(B, T, 3 * H * D, dtype=BF16)
+    q, k, v = (t.view(B, T, H, D) for t in qkv.split(H * D, dim=-1))
+    fa._check_wgmma(q, k, v)
+    fa._check_wgmma(q.contiguous(), k.contiguous(), v.contiguous())
+
+
+def test_tma_strides_of_fused_and_contiguous_layouts():
+    B, T, H, D = 2, 7, 3, 64
+    qkv = torch.zeros(B, T, 3 * H * D, dtype=BF16)
+    q = qkv[..., :H * D].view(B, T, H, D)
+    assert fa._tma_strides(q) == (T * 3 * H * D, 3 * H * D, D)
+    c = torch.zeros(B, T, H, D, dtype=BF16)
+    assert fa._tma_strides(c) == c.stride()[:3]
+
+
+@pytest.mark.parametrize("shape", [(1, 9, 3, 64), (2, 1, 3, 64),
+                                   (2, 9, 1, 128), (1, 1, 1, 64)])
+def test_tma_strides_replace_size_one_axes(shape):
+    """A size-1 axis may carry any stride in PyTorch; the tensor map gets
+    the contiguous one, so such a stride never fails the check."""
+    B, T, H, D = shape
+    t = torch.zeros(B, T, H, D, dtype=BF16).as_strided(
+        shape, (1 if B == 1 else T * H * D, 3 if T == 1 else H * D,
+                5 if H == 1 else D, 1))
+    sb, st, sh = fa._tma_strides(t)
+    assert sh == (D if H == 1 else t.stride(2))
+    assert st == (H * sh if T == 1 else t.stride(1))
+    assert sb == (T * st if B == 1 else t.stride(0))
+    fa._check_wgmma(t, t, t)
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_check_raises_on_misaligned_base(which):
+    B, T, H, D = 1, 16, 2, 64
+    good = torch.zeros(B, T, H, D, dtype=BF16)
+    bad = torch.zeros(B * T * H * D + 1, dtype=BF16)[1:].view(B, T, H, D)
+    args = [good, good, good]
+    args[which] = bad
+    name = "qkv"[which]
+    with pytest.raises(ValueError,
+                       match="%s's base address is not 16-byte aligned"
+                       % name):
+        fa._check_wgmma(*args)
+
+
+@pytest.mark.parametrize("axis,stride", [("T", 132), ("B", 2 * 132 + 4),
+                                         ("H", 68)])
+def test_check_raises_on_strides_off_16_bytes(axis, stride):
+    B, T, H, D = 2, 2, 2, 64
+    strides = {"B": T * H * D, "T": H * D, "H": D}
+    strides[axis] = stride
+    n = max(strides[a] * (s - 1) for a, s in zip("BTH", (B, T, H))) * 3 + D
+    t = torch.zeros(n, dtype=BF16).as_strided(
+        (B, T, H, D), (strides["B"], strides["T"], strides["H"], 1))
+    good = torch.zeros(B, T, H, D, dtype=BF16)
+    with pytest.raises(ValueError,
+                       match="k's %s stride %d is not a multiple of 8"
+                       % (axis, stride)):
+        fa._check_wgmma(good, t, good)
+
+
+def test_wgmma_launcher_refuses_before_any_build(monkeypatch):
+    """The tensor-core launcher raises on what it does not take before it
+    builds or counts anything: another dtype or head_dim, a misaligned
+    input."""
+    from mxnet_tpu_torch.ops.kernels import _build, common
+
+    def no_build(*a, **k):
+        raise AssertionError("built a kernel")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    common.reset_counts()
+    q32 = torch.zeros(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="takes bf16 with head_dim"):
+        fa._flash_wgmma_cuda(q32, q32, q32)
+    q = torch.zeros(1, 8, 2, 32, dtype=BF16)
+    with pytest.raises(ValueError, match="head_dim 32"):
+        fa._flash_wgmma_cuda(q, q, q)
+    bad = torch.zeros(8 * 2 * 64 + 1, dtype=BF16)[1:].view(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._flash_wgmma_cuda(bad, bad, bad)
+    assert common.launch_counts() == {}
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    common = importlib.import_module("mxnet_tpu_torch.ops.kernels.common")
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 70, 2, 64, generator=g).to(BF16)
+               for _ in range(3))
+    common.reset_counts()
+    o = fa.flash_attention(q, k, v)
+    assert common.launch_counts() == {}
+    assert common.selection_counts() == {
+        "kernels.select.flash_attention.reference": 1}
+    assert torch.equal(o, fa.flash_attention_reference(q, k, v))

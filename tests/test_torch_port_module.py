@@ -523,3 +523,54 @@ def test_executor_grad_req_add_and_reshape():
     assert small.grad_dict["fc_weight"] is ex.grad_dict["fc_weight"]
     out = small.forward(data=x[:2])[0].asnumpy()
     np.testing.assert_allclose(out, x[:2] @ w.T, rtol=1e-5, atol=1e-6)
+
+
+def test_chip_smoke_module_gate_steps_in_float64_and_f32(monkeypatch):
+    """``chip_smoke._module_gate`` takes the step in float64 and in f32 (the
+    card's side run on the CPU here): the float64 step keeps every array,
+    gradient and update in float64, its f32 gradients stand within
+    ``NET_REL`` of it, and a change of 1e-6 relative to one float64
+    gradient on the card's side fails the gate."""
+    import chip_smoke
+
+    monkeypatch.setattr(mt, "gpu", lambda i=0: CPU)
+    net = resnet_symbol.get_symbol(**R20)
+    rng = np.random.RandomState(0)
+    arg_shapes, _, aux_shapes = net.infer_shape(data=(BATCH, 3, 28, 28))
+    args = {n: (rng.randn(*s) * 0.1).astype(np.float32)
+            for n, s in zip(net.list_arguments(), arg_shapes)
+            if n not in ("data", "softmax_label")}
+    auxs = {n: np.ones(s, np.float32) if n.endswith("_var")
+            else np.zeros(s, np.float32)
+            for n, s in zip(net.list_auxiliary_states(), aux_shapes)}
+    x = rng.rand(2 * BATCH, 3, 28, 28).astype(np.float32)
+    y = rng.randint(0, 10, 2 * BATCH).astype(np.float32)
+    f64 = chip_smoke._module_step(mt, net, CPU, args, auxs, x[:BATCH],
+                                  y[:BATCH], "float64")
+    f32 = chip_smoke._module_step(mt, net, CPU, args, auxs, x[:BATCH],
+                                  y[:BATCH])
+    for part in f64:
+        assert {v.dtype for v in part.values()} == {np.dtype(np.float64)}
+    assert {v.dtype for v in f32[0].values()} == {np.dtype(np.float32)}
+    assert chip_smoke._compare_tensors(f32[0], f64[0], NET_REL)[0]
+
+    ok, report = chip_smoke._module_gate(mt, net, args, auxs, x, y)
+    assert ok, report
+    assert report["float64"]["grad"]["joint_rel_l2"] == 0.0
+    assert report["float32"]["grad_card_vs_float64"]["joint_rel_l2"] < NET_REL
+
+    step = chip_smoke._module_step
+    calls = []
+
+    def nudged(mx_, net_, ctx, args_, auxs_, x_, y_, dtype="float32"):
+        out = step(mx_, net_, ctx, args_, auxs_, x_, y_, dtype)
+        calls.append(dtype)
+        if len(calls) == 1:                  # the card's float64 step
+            out[0]["stage1_unit1_conv1_weight"] *= 1 + 1e-6
+        return out
+
+    monkeypatch.setattr(chip_smoke, "_module_step", nudged)
+    ok, report = chip_smoke._module_gate(mt, net, args, auxs, x, y)
+    assert calls[0] == "float64" and not ok
+    assert report["float64"]["grad"]["worst"][0] == \
+        "stage1_unit1_conv1_weight"
