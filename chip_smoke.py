@@ -44,14 +44,19 @@ Phases, in order; any failure raises and exits non-zero:
 1. device  — the card's name and ``nvidia-smi`` name / power limit;
 2. build   — ``nvcc`` builds every kernel from ``mxnet_tpu_torch/ops/
    kernels/csrc`` (in parallel), with the ptxas register/spill report and
-   one line per instantiation of the tensor-core flash forward;
+   one line per instantiation of the tensor-core flash kernels (forward,
+   dQ and dK/dV at head_dim 64 and 128), each of which must not spill;
 3. kernels — each kernel against its plain version at the flagship's
    shapes: max error and tolerance; the device time of the kernel, of the
    plain version and of one PyTorch library call (for the record only),
    each from a CUDA graph of repeated calls replayed between CUDA events;
    and the card's bound for the same work.  At the two main flash shapes
-   the forward's tensor-core (wgmma) and CUDA-core (simt) variants are
-   both held against the plain version and timed in turns;
+   ([1, 4096, 16, 128] and [1, 8192, 16, 64], causal bf16) the forward's
+   and the backward's tensor-core (wgmma) and CUDA-core (simt) variants
+   are all held against the plain version and timed in turns; the
+   backward is also held against autograd through the dense forward and
+   two of its calls must agree bit for bit; head_dim 96 runs padded to
+   128;
 4. serve   — a flagship ``GenerationServer`` answers 7 concurrent greedy
    requests (one ~4000-token prompt crosses the flash gate), a solo
    resubmission must reproduce its batched stream, the kernel counters
@@ -108,6 +113,7 @@ exits non-zero and prints no result.
 """
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -145,13 +151,16 @@ TRAIN_STEPS = 3
 # and once before the logits, and with remat once more per block for the
 # recomputed forward; flash forward per block (twice with remat), every
 # one through the tensor-core variant (bf16, head_dim 64), dQ and dK/dV
-# once per block; the softmax cross-entropy once each way
+# once per block, also through the tensor-core variant; the softmax
+# cross-entropy once each way
 EXPECTED_LAUNCHES = {
     "flagship_b8_t1024": {"fused_rmsnorm": 9, "fused_softmax_xent": 1,
                           "fused_softmax_xent_bwd": 1},
     "longctx_b1_t8192": {"fused_rmsnorm": 17, "flash_attention": 8,
                          "flash_attention.wgmma": 8,
                          "flash_attention_dq": 4, "flash_attention_dkv": 4,
+                         "flash_attention_dq.wgmma": 4,
+                         "flash_attention_dkv.wgmma": 4,
                          "fused_softmax_xent": 1,
                          "fused_softmax_xent_bwd": 1},
 }
@@ -432,14 +441,18 @@ def phase_build():
             info["seconds"], "".join("\n  " + ln for ln in report)))
     print("build: %d kernel source(s) in %.1f s" % (len(built), wall),
           flush=True)
-    for line in _ptxas_summary(built["flash_attention_wgmma"]["log"]):
-        print("build flash_attention_wgmma %s" % line, flush=True)
+    for src in ("flash_attention_wgmma", "flash_attention_bwd_wgmma"):
+        for line in _ptxas_summary(built[src]["log"]):
+            print("build %s %s" % (src, line), flush=True)
+            _check(" 0 bytes spill stores" in line,
+                   "%s spills: %s" % (src, line))
     return wall
 
 
 def _ptxas_summary(log):
-    """One line per kernel instantiation of a ptxas ``-v`` log: its
-    template argument (the head_dim), registers, spills and stack."""
+    """One line per kernel instantiation of a ptxas ``-v`` log: the
+    kernel, its template argument (the head_dim), registers, spills and
+    stack."""
     out, name, props = [], None, ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -448,8 +461,10 @@ def _ptxas_summary(log):
             props = ln.strip()
         elif "Used" in ln and "registers" in ln and name is not None:
             arg = name.split("ILi")[1].split("E")[0] if "ILi" in name else "?"
-            out.append("D=%s: %s; %s" % (arg, ln.split(":", 1)[1].strip(),
-                                         props))
+            kernel = re.search(r"\d+(flash_\w+?_kernel)", name)
+            out.append("%s D=%s: %s; %s" % (
+                kernel.group(1) if kernel else "?", arg,
+                ln.split(":", 1)[1].strip(), props))
             name = None
     return out
 
@@ -633,7 +648,7 @@ def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     return rec
 
 
-def _time_eager_ms(fn, reps=5):
+def _time_eager_ms(fn, reps=20):
     """Device milliseconds of one call of ``fn``, called ``reps`` times
     between two CUDA events after a warm call (no graph: for the library
     yardsticks that run autograd)."""
@@ -713,18 +728,27 @@ def _xent_case(N, V, dtype_name, gen):
 
 
 def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
-                    with_dlse=False):
-    """The dQ and the dK/dV kernel against the plain backward: two
-    records."""
+                    with_dlse=False, variants=False):
+    """The dQ and the dK/dV kernel of the variant ``_bwd_variant`` names
+    against the plain backward and autograd through the dense forward, and
+    two calls bit for bit (no atomics): two records.  ``variants``: also
+    hold the CUDA-core (simt) kernels against the plain backward and time
+    the tensor-core ones and them in turns (wgmma, simt, simt, wgmma);
+    ``ms`` is then the tensor-core kernel's mean of its two turns.  A head
+    dim the kernels lack is timed at its padded width, on inputs padded
+    once, as the backward runs it."""
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops.kernels.flash_attention import (
-        _delta, _flash_bwd_cuda, _flash_cuda, _flash_dkv_cuda,
-        _flash_dq_cuda, flash_attention_bwd_reference,
-        flash_attention_reference)
+        _bwd_variant, _delta, _flash_bwd_cuda, _flash_cuda,
+        _flash_dkv_simt_cuda, _flash_dkv_wgmma_cuda, _flash_dq_simt_cuda,
+        _flash_dq_wgmma_cuda, _pad_d, _padded_dim,
+        flash_attention_bwd_reference, flash_attention_reference)
 
     dt = getattr(torch, dtype_name)
     scale = 1.0 / D ** 0.5
+    launchers = {"wgmma": (_flash_dq_wgmma_cuda, _flash_dkv_wgmma_cuda),
+                 "simt": (_flash_dq_simt_cuda, _flash_dkv_simt_cuda)}
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dt)
@@ -735,20 +759,22 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     dlse = (torch.randn((B, H, Tq), generator=gen, device="cuda")
             if with_dlse else None)
     got = _flash_bwd_cuda(q, k, v, o, lse, do, dlse, causal)
+    again = _flash_bwd_cuda(q, k, v, o, lse, do, dlse, causal)
     want = flash_attention_bwd_reference(q, k, v, o, lse, do, dlse, causal)
     torch.cuda.synchronize()
+    repeat_ok = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
     # f32 sums over every key (dQ) or query (dK, dV) in another order;
     # bf16 adds one rounding of that sum (2^-8 relative)
     atol, rtol = (1e-4, 1e-4) if dtype_name == "float32" \
         else (1e-3, 2**-7)
     errs = [_err(a, b, atol, rtol) for a, b in zip(got, want)]
     # the plain backward repeats the kernels' arithmetic (same lse, same
-    # delta, f32 GEMMs that accumulate in the kernels' order) and may agree
-    # bit for bit, so the kernels are also held against an independent
-    # formula: autograd through the dense forward.  In bf16 that formula
-    # takes delta = sum(p * dp) in f32 where the kernels, as the TPU's do,
-    # take rowsum(dO * O) of the bf16-rounded O; held to 2^-6 of each
-    # gradient's largest entry
+    # delta) and may agree bit for bit, so the kernels are also held
+    # against an independent formula: autograd through the dense forward.
+    # In bf16 that formula takes delta = sum(p * dp) in f32 where the
+    # kernels, as the TPU's do, take rowsum(dO * O) of the bf16-rounded O;
+    # held to 2^-6 of each gradient's largest entry
     qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
     o_r, lse_r = flash_attention_reference(qr, kr, vr, causal,
                                            return_lse=True)
@@ -760,6 +786,7 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     auto_rel = 1e-4 if dtype_name == "float32" else 2**-6
     auto_errs = [float((a.float() - b.float()).abs().max())
                  / float(b.float().abs().max()) for a, b in zip(got, auto)]
+    del auto
     auto_ok = max(auto_errs) <= auto_rel
     zero_ok = True
     if causal and Tq < Tk:        # keys no query sees: dK = dV = 0
@@ -777,44 +804,83 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
                                isz * B * H * D * (2 * Tq + 4 * Tk) + rows,
                                dtype_name)
     delta = _delta(o, do, dlse)
-    args = _copies((q, k, v, do, lse, delta))
     plain_ms = _time_ms(
         lambda q, k, v, do, lse, delta: flash_attention_bwd_reference(
-            q, k, v, o, lse, do, dlse, causal), args, rounds=1)
-    # SDPA's backward at the same shape: forward+backward minus forward
+            q, k, v, o, lse, do, dlse, causal),
+        _copies((q, k, v, do, lse, delta)), rounds=1)
+    width = _padded_dim(D)
+    args = _copies(tuple(_pad_d(t, width) for t in (q, k, v, do))
+                   + (lse, delta))
+    variant = _bwd_variant(q.dtype, D)
+    simt = {}
+    if variants:
+        _check(variant == "wgmma", "flash backward %s %s takes the %s "
+               "variant" % ([B, Tq, H, D], dtype_name, variant))
+        qp, kp, vp, dop = args[0][:4]
+        sdq = _flash_dq_simt_cuda(qp, kp, vp, dop, lse, delta, causal, scale)
+        sdk, sdv = _flash_dkv_simt_cuda(qp, kp, vp, dop, lse, delta, causal,
+                                        scale)
+        torch.cuda.synchronize()
+        simt_errs = [_err(a, b, atol, rtol)
+                     for a, b in zip((sdq, sdk, sdv), want)]
+        simt = {"dq": simt_errs[:1], "dkv": simt_errs[1:]}
+        del sdq, sdk, sdv
+    turns = {}
+    for kind, which in (("dq", 0), ("dkv", 1)):
+        order = ("wgmma", "simt", "simt", "wgmma") if variants else (
+            variant,)
+        for name in order:
+            fn = launchers[name][which]
+            turns.setdefault((kind, name), []).append(_time_ms(
+                lambda q, k, v, do, lse, delta, fn=fn: fn(
+                    q, k, v, do, lse, delta, causal, scale), args))
+    # SDPA's backward alone at the same shape, replayed over one retained
+    # forward graph
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, k, v))
-    dot = do.transpose(1, 2)
-
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
-
-    lib_ms = (_time_eager_ms(lambda: torch.autograd.grad(
-        sdpa(), (qt, kt, vt), dot)) - _time_eager_ms(sdpa))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    lib_ms = _time_eager_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+    del out
     shared = {"q": [B, Tq, H, D], "k": [B, Tk, H, D], "causal": causal,
-              "dtype": dtype_name, "dlse": with_dlse, "atol": atol,
-              "rtol": rtol, "err_vs_dense_autograd_rel_to_max": auto_errs,
+              "dtype": dtype_name, "dlse": with_dlse, "variant": variant,
+              "padded_head_dim": width, "atol": atol, "rtol": rtol,
+              "err_vs_dense_autograd_rel_to_max": auto_errs,
               "dense_autograd_rel_tol": auto_rel,
+              "repeat_bit_identical": repeat_ok,
               # the plain version computes dQ, dK and dV in one call, and
               # SDPA's backward all three too: both rows carry that time
               "plain_ms": plain_ms, "library_ms": lib_ms,
-              "library": "SDPA backward (forward+backward minus forward)"}
+              "library": "SDPA backward (torch.autograd.grad over a "
+                         "retained SDPA forward)"}
     dq = dict(shared, kernel="flash_attention_dq", max_abs_err=errs[0][0],
-              ok=errs[0][1] and auto_ok,
-              ms=_time_ms(lambda q, k, v, do, lse, delta: _flash_dq_cuda(
-                  q, k, v, do, lse, delta, causal, scale), args),
+              ok=errs[0][1] and auto_ok and repeat_ok,
               bound_ms=dq_bound, bound_by=dq_by)
     dkv = dict(shared, kernel="flash_attention_dkv",
                max_abs_err=max(errs[1][0], errs[2][0]),
-               ok=errs[1][1] and errs[2][1] and zero_ok and auto_ok,
-               ms=_time_ms(lambda q, k, v, do, lse, delta: _flash_dkv_cuda(
-                   q, k, v, do, lse, delta, causal, scale), args),
+               ok=(errs[1][1] and errs[2][1] and zero_ok and auto_ok
+                   and repeat_ok),
                bound_ms=dkv_bound, bound_by=dkv_by)
+    for rec, kind in ((dq, "dq"), (dkv, "dkv")):
+        rec["ms"] = statistics.mean(turns[(kind, variant)])
+        if variants:
+            serr = simt[kind]
+            rec.update({
+                "wgmma_ms_turns": turns[(kind, "wgmma")],
+                "simt_ms_turns": turns[(kind, "simt")],
+                "simt_ms": statistics.mean(turns[(kind, "simt")]),
+                "simt_over_wgmma": (statistics.mean(turns[(kind, "simt")])
+                                    / rec["ms"]),
+                "simt_max_abs_err": max(e[0] for e in serr)})
+            rec["ok"] = rec["ok"] and all(e[1] for e in serr)
+        rec["ms_over_bound"] = rec["ms"] / rec["bound_ms"]
     for rec in (dq, dkv):
         _emit(rec)
         _check(rec["ok"], "%s q %s k %s %s disagrees with its plain version "
-               "(max abs err %g)" % (rec["kernel"], rec["q"], rec["k"],
-                                     dtype_name, rec["max_abs_err"]))
+               "or with dense autograd, or repeats differ (max abs err %g, "
+               "autograd %s, repeat bit-identical %s)"
+               % (rec["kernel"], rec["q"], rec["k"], dtype_name,
+                  rec["max_abs_err"], auto_errs, repeat_ok))
     return dq, dkv
 
 
@@ -899,7 +965,14 @@ def phase_kernels():
     # both configurations' logits
     _flash_case(1, 8192, 8192, 16, 64, True, "bfloat16", gen, variants=True)
     main["flash_attention_dq"], main["flash_attention_dkv"] = \
-        _flash_bwd_case(1, 8192, 8192, 16, 64, True, "bfloat16", gen)
+        _flash_bwd_case(1, 8192, 8192, 16, 64, True, "bfloat16", gen,
+                        variants=True)
+    # the flagship's head_dim, and a head_dim the kernels pad (96 -> 128)
+    _flash_bwd_case(1, 4096, 4096, 16, 128, True, "bfloat16", gen,
+                    variants=True)
+    _flash_case(1, 4096, 4096, 16, 96, True, "bfloat16", gen)
+    _flash_bwd_case(1, 4096, 4096, 16, 96, True, "bfloat16", gen,
+                    with_dlse=True)
     _flash_bwd_case(2, 1024, 1024, 8, 64, True, "float32", gen,
                     with_dlse=True)
     _flash_bwd_case(1, 1000, 3000, 16, 64, False, "bfloat16", gen)
@@ -1918,11 +1991,12 @@ def main():
         "flash_attention": (
             "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_wgmma.cu",
             "mxnet_tpu/ops/pallas/flash_attention.py:55"),
+        # the tensor-core variants, which the long-context step takes
         "flash_attention_dq": (
-            "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu",
+            "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd_wgmma.cu",
             "mxnet_tpu/ops/pallas/flash_attention.py:142"),
         "flash_attention_dkv": (
-            "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu",
+            "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd_wgmma.cu",
             "mxnet_tpu/ops/pallas/flash_attention.py:179"),
         "fused_softmax_xent": (
             "mxnet_tpu_torch/ops/kernels/csrc/softmax_xent.cu",
@@ -1946,10 +2020,12 @@ def main():
     kernels = []
     for name, (src, replaces) in sources.items():
         rec = main_cases[name]
-        launches = sum(r.get("kernels.launch.%s" % name, 0) for r in runs)
-        _check(launches > 0, "%s never launched on the main paths" % name)
+        counter = name + (".wgmma" if rec.get("variant") == "wgmma" else "")
+        launches = sum(r.get("kernels.launch.%s" % counter, 0) for r in runs)
+        _check(launches > 0, "%s never launched on the main paths" % counter)
         kernels.append({
             "name": name, "route": "cuda", "source": src,
+            **({"variant": rec["variant"]} if "variant" in rec else {}),
             "replaces": replaces, "launches": launches,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],

@@ -4,8 +4,9 @@ Each source under ``csrc/`` is compiled on its own by ``nvcc`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), for ``sm_90a``.  Libraries land in ``mxnet_tpu_torch/_build/``
 (listed in ``.gitignore``) under a name keyed by a hash of the source, the
-flags and ``nvcc --version``, so an edited source or another toolkit builds
-anew and an unchanged one is reused.  Nothing is built at import: the first
+``csrc/*.cuh`` headers, the flags and ``nvcc --version``, so an edited
+source or header or another toolkit builds anew and an unchanged one is
+reused.  Nothing is built at import: the first
 launch of a kernel builds its library, and :func:`build` builds several at
 once, one ``nvcc`` process per source, all started together.
 
@@ -30,7 +31,8 @@ _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE.parents[1] / "_build"
 SOURCES = ("rmsnorm", "flash_attention", "flash_attention_wgmma",
-           "flash_attention_bwd", "softmax_xent", "int8_matmul")
+           "flash_attention_bwd", "flash_attention_bwd_wgmma",
+           "softmax_xent", "int8_matmul")
 # no --use_fast_math: its approximate expf would break the stated tolerances
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -72,6 +74,8 @@ def library_path(name, exe=None):
     exe = exe or nvcc()
     h = hashlib.sha256()
     h.update((CSRC / (name + ".cu")).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # shared by several sources
+        h.update(header.read_bytes())
     h.update("\0".join(NVCC_FLAGS).encode())
     h.update(_nvcc_version(exe).encode())
     return BUILD_DIR / ("%s-%s.so" % (name, h.hexdigest()[:16]))

@@ -1,4 +1,9 @@
-// Flash-attention backward for Hopper (sm_90a), CUDA C++: two kernels.
+// Flash-attention backward for Hopper (sm_90a), CUDA C++: the "simt"
+// variant of the backward (two kernels, dQ and dK/dV, on the CUDA cores),
+// which the wrapper takes for f32 inputs and for head_dim 16 or 32.  bf16 at
+// head_dim 64 or 128 takes the tensor-core variant in
+// flash_attention_bwd_wgmma.cu; the launchers here stay callable on those
+// inputs, for timing the two variants in turns.
 //
 // Replaces the Pallas TPU kernels mxnet_tpu/ops/pallas/flash_attention.py
 // `_dq_kernel` and `_dkv_kernel` (launched together by `_bwd`, the backward
@@ -36,8 +41,10 @@
 // What bounds it on the card: operations.  dQ does 6*D and dK/dV 8*D flops
 // per unmasked (q, k) pair against a few bytes per row, far above the
 // ridge.  As the TPU kernel does, p, dO, V, K and Q stay f32 for the
-// products, so this first version computes in f32 FMA on the CUDA cores and
-// runs well below the bf16 tensor-core bound; wgmma/TMA are later work.
+// products, which this variant computes in f32 FMA on the CUDA cores: for
+// f32 inputs the tensor cores have no operand that keeps them exact, and
+// head_dim 16 or 32 is less than one 128-byte row of the swizzled tiles the
+// tensor-core variant reads.
 //
 // Plain C interface (no PyTorch headers), called through ctypes.  Strides
 // come in a host array of int64, read by the launcher before the launch.

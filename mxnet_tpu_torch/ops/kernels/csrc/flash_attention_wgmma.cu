@@ -72,10 +72,7 @@
 //
 // Plain C interface (no PyTorch headers), called through ctypes.
 
-#include <cuda.h>  // CUtensorMap and its enums only: no link against libcuda
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -88,12 +85,8 @@ constexpr int NT = NCONS + 128;  // and the producer warpgroup
 // the SM's 65536; at launch every thread holds 65536 / 384 rounded down
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
-constexpr int PANEL = 64;     // bf16 columns of one 128-byte swizzled row
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-// returned when cuTensorMapEncodeTiled refuses a layout (not a cudaError_t)
-constexpr int kErrTensorMap = 100001;
-constexpr int kErrNoEntryPoint = 100002;
 
 // Byte offsets in the (1024-aligned) dynamic shared memory.  Every tile is
 // D / 64 panels of [rows][64] bf16, 128 bytes a row, swizzled by the TMA
@@ -122,249 +115,6 @@ __device__ __forceinline__ uint32_t bar_empty_k(uint32_t bars, int s) {
 }
 __device__ __forceinline__ uint32_t bar_empty_v(uint32_t bars, int s) {
   return bars + 8 * (1 + 3 * STAGES + s);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait for the completion of the barrier's phase of parity `parity`.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of the 4-d map (D, H, T, B) at (c0, c1, c2, c3) into shared
-// memory, completing `bar`'s transaction bytes.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle.  K-major
-// operands: the leading offset is unused and the stride offset is 1024 (one
-// 8-row atom).  MN-major operands: the leading offset steps from one
-// 64-column panel to the next along MN, the stride offset from one 8-row
-// group to the next along K.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Wait until at most N of this warpgroup's committed groups are pending
-// (groups complete in the order they were committed).
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Pin registers at this point of the program: the compiler may neither
-// move their reads and writes across it nor reuse them before it.  Used
-// around the asynchronous wgmmas, which read and write registers after the
-// instruction that issued them.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// 2^x by the MUFU unit alone (results below 2^-126 flush to 0: a p that
-// small is below every rounding of the outputs)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d = A·B (d is written, not read), operands as wgmma_ss_n128
-__device__ __forceinline__ void wgmma_ss_n128_first(float (&d)[64], uint64_t da,
-                                                  uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
-        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
-        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
-        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
-        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
-        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
-        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
-        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
-        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]),
-        "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
-        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]),
-        "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
-        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]),
-        "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
-        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
-        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
-      : "l"(da), "l"(db), "r"(0));
-}
-
-// d += A·B, A [64 x 16] and B [16 x 128] both K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// d += A·B, A [64 x 16] bf16 in registers (the accumulator layout of
-// wgmma, packed in pairs), B [16 x 64] MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A·B, A [64 x 16] bf16 in registers (the accumulator layout of
-// wgmma, packed in pairs), B [16 x 128] MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2],
-                                         const uint32_t (&a)[4], uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&acc)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  wgmma_rs_n64(acc, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&acc)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  wgmma_rs_n128(acc, a, db);
 }
 
 template <int D>
@@ -432,8 +182,8 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
     const uint64_t dv = desc_sw128(vt + kk * 16 * 128, BK * 128, 1024);
-    wgmma_pv<D>(acc, ph[kk], dv);
-    wgmma_pv<D>(acc, pl[kk], dv);
+    wgmma_rs<D>(acc, ph[kk], dv);
+    wgmma_rs<D>(acc, pl[kk], dv);
   }
   wgmma_commit();
 }
@@ -505,26 +255,6 @@ __device__ __forceinline__ void softmax_step(
   m1 = mn1;
 }
 
-// p (f32, in S) -> p_hi = bf16(p), p_lo = bf16(p - p_hi), packed in the
-// A-operand layout of wgmma: register r of k-step kk holds the pair of S
-// entries (2kk + (r >> 1)) * 4 + (r & 1) * 2 and the next one.
-__device__ __forceinline__ void split_p(const float (&S)[BK / 2],
-                                        uint32_t (&ph)[BK / 16][4],
-                                        uint32_t (&pl)[BK / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = (2 * kk + (r >> 1)) * 4 + (r & 1) * 2;
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(S[i], S[i + 1]);
-      const __nv_bfloat162 lo = __floats2bfloat162_rn(
-          S[i] - __low2float(hi), S[i + 1] - __high2float(hi));
-      ph[kk][r] = bits(hi);
-      pl[kk][r] = bits(lo);
-    }
-  }
-}
-
 // A consumer warpgroup: 64 query rows.  Software-pipelined by one tile:
 // the scores of tile j and the P.V product of tile j - 1 are issued
 // together, and the softmax of tile j runs while that product is in
@@ -576,7 +306,7 @@ __device__ __forceinline__ void consume(uint32_t base, int q0, int h, int b,
     mbar_arrive(bar_empty_k(bars, 0));
     softmax_step(S, masked(0), 0, r0, r1, cq, scale, causal, kv_len, m0, m1,
                  l0, l1, al0, al1);
-    split_p(S, ph, pl);
+    split_hi_lo(S, ph, pl);
   }
   for (int j = 1; j < n_tiles; ++j) {
     const int s = j % STAGES, sp = (j - 1) % STAGES;
@@ -600,7 +330,7 @@ __device__ __forceinline__ void consume(uint32_t base, int q0, int h, int b,
     mbar_arrive(bar_empty_v(bars, sp));
 #pragma unroll
     for (int i = 0; i < NO; ++i) acc[i] *= (i & 2) ? al1 : al0;
-    split_p(S, ph, pl);
+    split_hi_lo(S, ph, pl);
   }
   if (n_tiles > 0) {
     const int sp = (n_tiles - 1) % STAGES;
@@ -684,50 +414,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     consume<D>(base, q0, h, b, n_tiles, o, lse, H, Tq, o_sb, o_st, o_sh,
                scale, causal, kv_len);
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t rc = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (rc != cudaSuccess || found != cudaDriverEntryPointSuccess) p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// The map of one [B, T, H, D] bf16 tensor as the 4-d (D, H, T, B) with
-// element strides (sh, st, sb), boxes of 64 x 1 x rows x 1.
-int make_map(CUtensorMap* map, const void* ptr, int B, int T, int H, int D,
-             long long sb, long long st, long long sh, int rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return kErrNoEntryPoint;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {PANEL, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r =
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-         dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
 }
 
 template <int D>

@@ -15,26 +15,37 @@ dQ and dK/dV kernels.
 
 On a CUDA tensor they launch hand-written kernels, which read the inputs
 through their strides (the q/k/v slices of a fused qkv projection and a
-non-contiguous ``dO`` go in without a transpose or a pad copy).  The
-forward has two variants, chosen by dtype and head_dim alone
-(:func:`_fwd_variant`), never by whether a build or a launch worked:
+non-contiguous ``dO`` go in without a transpose copy).  The kernels take
+head_dim 16, 32, 64 or 128; any other head_dim up to 128 is zero-padded
+along D to the next of those widths (a layout copy: zero columns add 0 to
+q·kᵀ and dO·Vᵀ), run at that width with ``scale`` fixed from the real
+head_dim, and sliced back (:func:`_padded_dim`); above 128 they raise.
+The forward and the backward each have two variants, chosen by dtype and
+padded head_dim alone (:func:`_fwd_variant`, :func:`_bwd_variant`), never
+by whether a build or a launch worked:
 
-* ``wgmma`` — ``csrc/flash_attention_wgmma.cu``, tensor cores (wgmma, a TMA
-  ring of K/V tiles, p split into two bf16 terms): bf16 with head_dim 64 or
-  128, the widths of the models' flash paths (the flagship's 128, the
-  long-context configuration's 64).  It needs 16-byte-aligned bases and
-  (B, T, H) strides that are multiples of 8 elements
-  (:func:`_check_wgmma` raises otherwise);
-* ``simt`` — ``csrc/flash_attention.cu``, CUDA cores: f32 (the tensor cores
-  have no f32 operand that keeps q·kᵀ exact) and head_dim 16 or 32 (less
-  than one 128-byte row of the swizzled tiles the wgmma variant reads).
+* ``wgmma`` — tensor cores (wgmma, TMA rings, the f32 operands p and ds
+  split into two bf16 terms): bf16 at head_dim 64 or 128 (the flagship's
+  128, the long-context configuration's 64; 48 pads to 64, 80 and 96 to
+  128).  Forward ``csrc/flash_attention_wgmma.cu``; backward
+  ``csrc/flash_attention_bwd_wgmma.cu`` (dQ and dK/dV).  They need
+  16-byte-aligned bases and (B, T, H) strides that are multiples of 8
+  elements (:func:`_check_wgmma` raises otherwise; the backward copies the
+  internal cotangent ``dO`` instead);
+* ``simt`` — CUDA cores: f32 (the tensor cores have no f32 operand that
+  keeps q·kᵀ exact) and head_dim 16 or 32 (less than one 128-byte row of
+  the swizzled tiles the wgmma variant reads).  Forward
+  ``csrc/flash_attention.cu``; backward ``csrc/flash_attention_bwd.cu``.
 
 Every forward launch counts as ``kernels.launch.flash_attention`` and as
-``kernels.launch.flash_attention.<variant>``.  The backward runs
-``csrc/flash_attention_bwd.cu`` (dQ and dK/dV).  On a CPU tensor they run :func:`flash_attention_reference`
-and :func:`flash_attention_bwd_reference`, the plain dense f32 versions of
-the same functions.  The causal mask is ``q_pos >= k_pos`` with both
-positions counted from 0, as in the TPU kernels.
+``kernels.launch.flash_attention.<variant>``; every backward launch as
+``kernels.launch.flash_attention_dq`` / ``flash_attention_dkv`` and as
+``kernels.launch.flash_attention_dq.<variant>`` /
+``flash_attention_dkv.<variant>``.  On a CPU tensor they run
+:func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`,
+the plain dense f32 versions of the same functions, at any head_dim.
+The causal mask is ``q_pos >= k_pos`` with both positions counted from 0,
+as in the TPU kernels.
 """
 from __future__ import annotations
 
@@ -50,8 +61,9 @@ __all__ = ["flash_attention", "flash_attention_lse",
            "flash_attention_reference", "flash_attention_bwd_reference"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128)      # the widths the kernels are built for
 _WGMMA_HEAD_DIMS = (64, 128)
+_BWD_ROWS = 64                      # lse/delta rows per tile of the wgmma dK/dV
 
 
 def flash_attention_reference(q, k, v, causal=True, scale=None,
@@ -148,6 +160,17 @@ def _configure_bwd(lib):
     lib.mxt_flash_bwd_error_string.restype = ctypes.c_char_p
 
 
+def _configure_bwd_wgmma(lib):
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    tail = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, vp]
+    lib.mxt_flash_bwd_wgmma_dq.argtypes = [vp] * 7 + [i] * 6 + tail
+    lib.mxt_flash_bwd_wgmma_dq.restype = ctypes.c_int
+    lib.mxt_flash_bwd_wgmma_dkv.argtypes = [vp] * 8 + [i] * 6 + tail
+    lib.mxt_flash_bwd_wgmma_dkv.restype = ctypes.c_int
+    lib.mxt_flash_bwd_wgmma_error_string.argtypes = [i]
+    lib.mxt_flash_bwd_wgmma_error_string.restype = ctypes.c_char_p
+
+
 def _check_qkv(q, k, v):
     """Refuse what the kernels do not take; returns ``(B, Tq, Tk, H,
     D)``."""
@@ -166,9 +189,9 @@ def _check_qkv(q, k, v):
     if (k.shape[0], k.shape[2], k.shape[3]) != (B, H, D):
         raise ValueError("flash_attention: k/v batch, heads or head_dim "
                          "differ from q's")
-    if D not in _HEAD_DIMS:
-        raise ValueError("flash_attention: head_dim %d not in %s"
-                         % (D, _HEAD_DIMS))
+    if not 1 <= D <= _HEAD_DIMS[-1]:
+        raise ValueError("flash_attention: got head_dim %d; the kernels take "
+                         "head_dim up to %d" % (D, _HEAD_DIMS[-1]))
     if Tk < 1:
         raise ValueError("flash_attention: no keys")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
@@ -177,13 +200,34 @@ def _check_qkv(q, k, v):
     return B, Tq, Tk, H, D
 
 
+def _padded_dim(head_dim):
+    """The kernel width a head_dim runs at: the least of 16, 32, 64 and 128
+    that holds it."""
+    return next(w for w in _HEAD_DIMS if w >= head_dim)
+
+
+def _pad_d(t, width):
+    """``t`` zero-padded along its last axis to ``width`` (``t`` itself when
+    it has that width)."""
+    D = t.shape[-1]
+    return t if D == width else torch.nn.functional.pad(t, (0, width - D))
+
+
 def _fwd_variant(dtype, head_dim):
-    """The forward kernel for ``dtype`` and ``head_dim``: ``"wgmma"`` for
-    bf16 with head_dim 64 or 128, ``"simt"`` for every other input the
-    forward takes (f32, head_dim 16 or 32)."""
-    if dtype == torch.bfloat16 and head_dim in _WGMMA_HEAD_DIMS:
+    """The forward kernel for ``dtype`` and ``head_dim`` (1..128):
+    ``"wgmma"`` for bf16 whose padded head_dim is 64 or 128, ``"simt"`` for
+    every other input the forward takes (f32; bf16 at head_dim up to 32)."""
+    if dtype == torch.bfloat16 and _padded_dim(head_dim) in _WGMMA_HEAD_DIMS:
         return "wgmma"
     return "simt"
+
+
+def _bwd_variant(dtype, head_dim):
+    """The backward kernels (dQ and dK/dV) for ``dtype`` and ``head_dim``:
+    the same rule as :func:`_fwd_variant` — ``"wgmma"``
+    (``csrc/flash_attention_bwd_wgmma.cu``) for bf16 at a padded head_dim
+    of 64 or 128, ``"simt"`` (``csrc/flash_attention_bwd.cu``) otherwise."""
+    return _fwd_variant(dtype, head_dim)
 
 
 def _tma_strides(t):
@@ -202,31 +246,46 @@ def _tma_strides(t):
     return sb, st, sh
 
 
-def _check_wgmma(q, k, v):
-    """Raise :class:`ValueError` on inputs the wgmma variant cannot read:
-    its TMA copies need each base address 16-byte aligned and each (B, T,
-    H) stride a multiple of 8 elements (16 bytes).  Never a reason to take
-    the other variant."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:
-            raise ValueError(
-                "flash_attention (wgmma variant): %s's base address is not "
-                "16-byte aligned (offset %d bytes); pass a tensor whose "
-                "data starts on a 16-byte boundary"
+def _tma_fault(name, t):
+    """Why the wgmma variants' TMA copies cannot read ``t`` (a message), or
+    ``None``: they need its base address 16-byte aligned and each (B, T, H)
+    stride a multiple of 8 elements (16 bytes)."""
+    if t.data_ptr() % 16:
+        return ("%s's base address is not 16-byte aligned (offset %d bytes); "
+                "pass a tensor whose data starts on a 16-byte boundary"
                 % (name, t.data_ptr() % 16))
-        for axis, stride in zip("BTH", _tma_strides(t)):
-            if stride % 8:
-                raise ValueError(
-                    "flash_attention (wgmma variant): %s's %s stride %d is "
-                    "not a multiple of 8 elements (16 bytes)"
-                    % (name, axis, stride))
+    for axis, stride in zip("BTH", _tma_strides(t)):
+        if stride % 8:
+            return ("%s's %s stride %d is not a multiple of 8 elements (16 "
+                    "bytes)" % (name, axis, stride))
+    return None
+
+
+def _check_wgmma(q, k, v, do=None):
+    """Raise :class:`ValueError` on inputs the wgmma variants cannot read
+    (:func:`_tma_fault`): q, k, v and, for the backward, ``do``.  Never a
+    reason to take the other variant."""
+    named = (("q", q), ("k", k), ("v", v)) + (
+        (("dO", do),) if do is not None else ())
+    for name, t in named:
+        fault = _tma_fault(name, t)
+        if fault:
+            raise ValueError("flash_attention (wgmma variant): " + fault)
+
+
+def _check_simt_width(D):
+    if D not in _HEAD_DIMS:
+        raise ValueError("flash_attention (simt variant): takes head_dim in "
+                         "%s; got %d (_flash_cuda pads other head dims)"
+                         % (_HEAD_DIMS, D))
 
 
 def _flash_simt_cuda(q, k, v, causal=True, scale=None, kv_len=None):
-    """Launch the CUDA-core variant ``csrc/flash_attention.cu``; returns
-    ``(o, lse)``.  ``kv_len`` (default ``Tk``): keys at and past it are
-    masked, as ``_fwd``'s argument of that name."""
+    """Launch the CUDA-core variant ``csrc/flash_attention.cu`` on head_dim
+    16, 32, 64 or 128; returns ``(o, lse)``.  ``kv_len`` (default ``Tk``):
+    keys at and past it are masked, as ``_fwd``'s argument of that name."""
     B, Tq, Tk, H, D = _check_qkv(q, k, v)
+    _check_simt_width(D)
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     kv_len = Tk if kv_len is None else int(kv_len)
@@ -252,10 +311,7 @@ def _flash_wgmma_cuda(q, k, v, causal=True, scale=None, kv_len=None):
     bf16 inputs with head_dim 64 or 128; returns ``(o, lse)``.  Raises on
     inputs it does not take (:func:`_check_wgmma`)."""
     B, Tq, Tk, H, D = _check_qkv(q, k, v)
-    if _fwd_variant(q.dtype, D) != "wgmma":
-        raise ValueError("flash_attention (wgmma variant): takes bf16 with "
-                         "head_dim in %s; got %s, head_dim %d"
-                         % (_WGMMA_HEAD_DIMS, q.dtype, D))
+    _check_bf16_width(q.dtype, D)
     _check_wgmma(q, k, v)
     if scale is None:
         scale = 1.0 / (D ** 0.5)
@@ -278,13 +334,29 @@ def _flash_wgmma_cuda(q, k, v, causal=True, scale=None, kv_len=None):
     return o, lse
 
 
+def _check_bf16_width(dtype, D):
+    if dtype != torch.bfloat16 or D not in _WGMMA_HEAD_DIMS:
+        raise ValueError("flash_attention (wgmma variant): takes bf16 with "
+                         "head_dim in %s; got %s, head_dim %d"
+                         % (_WGMMA_HEAD_DIMS, dtype, D))
+
+
 def _flash_cuda(q, k, v, causal=True, scale=None, kv_len=None):
-    """The forward on CUDA tensors: the variant :func:`_fwd_variant` names
-    for q's dtype and head_dim; returns ``(o, lse)``."""
+    """The forward on CUDA tensors: q, k and v padded along D to
+    :func:`_padded_dim`, the variant :func:`_fwd_variant` names for q's
+    dtype and head_dim, ``o`` sliced back; returns ``(o, lse)``.
+    ``scale=None`` is 1/√D of the real head_dim."""
     _, _, _, _, D = _check_qkv(q, k, v)
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    width = _padded_dim(D)
     launch = (_flash_wgmma_cuda if _fwd_variant(q.dtype, D) == "wgmma"
               else _flash_simt_cuda)
-    return launch(q, k, v, causal, scale, kv_len)
+    if width == D:
+        return launch(q, k, v, causal, scale, kv_len)
+    o, lse = launch(_pad_d(q, width), _pad_d(k, width), _pad_d(v, width),
+                    causal, scale, kv_len)
+    return o[..., :D].contiguous(), lse
 
 
 def _strides(*tensors):
@@ -293,17 +365,19 @@ def _strides(*tensors):
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
-def _flash_dq_cuda(q, k, v, do, lse, delta, causal=True, scale=None):
-    """Launch the dQ kernel of ``csrc/flash_attention_bwd.cu`` on checked
-    inputs (``lse``, ``delta``: f32 [B, H, Tq] contiguous); returns ``dq``,
-    contiguous, in ``q``'s dtype."""
+def _flash_dq_simt_cuda(q, k, v, do, lse, delta, causal=True, scale=None):
+    """Launch the dQ kernel of ``csrc/flash_attention_bwd.cu`` (CUDA cores)
+    on checked inputs at a kernel width (``lse``, ``delta``: f32 [B, H, Tq]
+    contiguous); returns ``dq``, contiguous, in ``q``'s dtype."""
     B, Tq, H, D = q.shape
+    _check_simt_width(D)
     dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     if B * H * Tq == 0:
         return dq
     lib = _build.load("flash_attention_bwd", _configure_bwd)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     count_launch("flash_attention_dq")
+    count_launch("flash_attention_dq.simt")
     rc = lib.mxt_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, Tq,
@@ -313,12 +387,14 @@ def _flash_dq_cuda(q, k, v, do, lse, delta, causal=True, scale=None):
     return dq
 
 
-def _flash_dkv_cuda(q, k, v, do, lse, delta, causal=True, scale=None):
-    """Launch the dK/dV kernel of ``csrc/flash_attention_bwd.cu`` on
-    checked inputs; returns ``(dk, dv)``, contiguous, every row written
-    (rows no query sees are 0)."""
+def _flash_dkv_simt_cuda(q, k, v, do, lse, delta, causal=True,
+                         scale=None):
+    """Launch the dK/dV kernel of ``csrc/flash_attention_bwd.cu`` (CUDA
+    cores) on checked inputs; returns ``(dk, dv)``, contiguous, every row
+    written (rows no query sees are 0)."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
+    _check_simt_width(D)
     dk = torch.empty((B, Tk, H, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, Tk, H, D), dtype=v.dtype, device=q.device)
     if B * H * Tq == 0:
@@ -326,6 +402,7 @@ def _flash_dkv_cuda(q, k, v, do, lse, delta, causal=True, scale=None):
     lib = _build.load("flash_attention_bwd", _configure_bwd)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     count_launch("flash_attention_dkv")
+    count_launch("flash_attention_dkv.simt")
     rc = lib.mxt_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
@@ -335,12 +412,86 @@ def _flash_dkv_cuda(q, k, v, do, lse, delta, causal=True, scale=None):
     return dk, dv
 
 
+def _rows_padded(x, Tq):
+    """f32 [B, H, Tq] -> f32 [B, H, Tq rounded up to 64], zeros past Tq,
+    contiguous: the wgmma dK/dV kernel copies lse and delta 64 rows at a
+    time."""
+    return torch.nn.functional.pad(x.float(),
+                                   (0, -Tq % _BWD_ROWS)).contiguous()
+
+
+def _bwd_wgmma_args(q, k, v, do, lse, delta):
+    """Check the wgmma backward's inputs; returns ``(lse, delta, tq_pad)``
+    with the row buffers padded (:func:`_rows_padded`)."""
+    _check_bf16_width(q.dtype, q.shape[-1])
+    _check_wgmma(q, k, v, do)
+    Tq = q.shape[1]
+    lse_p, delta_p = _rows_padded(lse, Tq), _rows_padded(delta, Tq)
+    return lse_p, delta_p, lse_p.shape[-1]
+
+
+def _flash_dq_wgmma_cuda(q, k, v, do, lse, delta, causal=True, scale=None):
+    """Launch the dQ kernel of ``csrc/flash_attention_bwd_wgmma.cu``
+    (tensor cores) on bf16 inputs with head_dim 64 or 128 (``lse``,
+    ``delta``: f32 [B, H, Tq]); returns ``dq``, contiguous.  Raises on
+    inputs it does not take (:func:`_check_wgmma`, with ``do``)."""
+    B, Tq, H, D = q.shape
+    lse_p, delta_p, tq_pad = _bwd_wgmma_args(q, k, v, do, lse, delta)
+    dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+    if B * H * Tq == 0:
+        return dq
+    lib = _build.load("flash_attention_bwd_wgmma", _configure_bwd_wgmma)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    flat = [s for t in (q, k, v, do) for s in _tma_strides(t)] + list(
+        dq.stride()[:3])
+    count_launch("flash_attention_dq")
+    count_launch("flash_attention_dq.wgmma")
+    rc = lib.mxt_flash_bwd_wgmma_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse_p.data_ptr(), delta_p.data_ptr(), dq.data_ptr(), B, H, Tq,
+        k.shape[1], D, tq_pad, (ctypes.c_longlong * 15)(*flat), float(scale),
+        int(bool(causal)), stream)
+    _build.check(lib, "mxt_flash_bwd_wgmma", rc)
+    return dq
+
+
+def _flash_dkv_wgmma_cuda(q, k, v, do, lse, delta, causal=True,
+                          scale=None):
+    """Launch the dK/dV kernel of ``csrc/flash_attention_bwd_wgmma.cu`` on
+    bf16 inputs with head_dim 64 or 128; returns ``(dk, dv)``, contiguous,
+    every row written (rows no query sees are 0)."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    lse_p, delta_p, tq_pad = _bwd_wgmma_args(q, k, v, do, lse, delta)
+    dk = torch.empty((B, Tk, H, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, Tk, H, D), dtype=v.dtype, device=q.device)
+    if B * H * Tq == 0:
+        return dk.zero_(), dv.zero_()
+    lib = _build.load("flash_attention_bwd_wgmma", _configure_bwd_wgmma)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    flat = [s for t in (q, k, v, do) for s in _tma_strides(t)] + list(
+        dk.stride()[:3]) + list(dv.stride()[:3])
+    count_launch("flash_attention_dkv")
+    count_launch("flash_attention_dkv.wgmma")
+    rc = lib.mxt_flash_bwd_wgmma_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse_p.data_ptr(), delta_p.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, H, Tq, Tk, D, tq_pad, (ctypes.c_longlong * 18)(*flat),
+        float(scale), int(bool(causal)), stream)
+    _build.check(lib, "mxt_flash_bwd_wgmma", rc)
+    return dk, dv
+
+
 def _flash_bwd_cuda(q, k, v, o, lse, do, dlse=None, causal=True,
                     scale=None):
-    """The backward on CUDA tensors: ``delta`` with torch ops, then the dQ
-    and the dK/dV kernel; returns ``(dq, dk, dv)``, contiguous, in the
-    input dtype.  ``dO`` is read through its strides (copied only if its
-    head_dim axis is not unit-stride)."""
+    """The backward on CUDA tensors: ``delta`` with torch ops on the
+    unpadded o and dO, then q, k, v and dO padded along D to
+    :func:`_padded_dim` and the dQ and the dK/dV kernel of the variant
+    :func:`_bwd_variant` names; the gradients sliced back.  Returns ``(dq,
+    dk, dv)``, contiguous, in the input dtype.  ``scale=None`` is 1/√D of
+    the real head_dim.  ``dO`` is read through its strides (copied if its
+    head_dim axis is not unit-stride, or, for the wgmma variant, if its
+    layout fails :func:`_tma_fault`)."""
     B, Tq, Tk, H, D = _check_qkv(q, k, v)
     if tuple(do.shape) != (B, Tq, H, D) or tuple(o.shape) != (B, Tq, H, D):
         raise ValueError("flash_attention backward: o/dO shapes %s/%s, "
@@ -356,8 +507,18 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, dlse=None, causal=True,
         do = do.contiguous()
     lse = lse.float().contiguous()
     delta = _delta(o, do, dlse)
-    dq = _flash_dq_cuda(q, k, v, do, lse, delta, causal, scale)
-    dk, dv = _flash_dkv_cuda(q, k, v, do, lse, delta, causal, scale)
+    width = _padded_dim(D)
+    q, k, v, do = (_pad_d(t, width) for t in (q, k, v, do))
+    if _bwd_variant(q.dtype, D) == "wgmma":
+        if _tma_fault("dO", do):
+            do = do.clone(memory_format=torch.contiguous_format)
+        launch_dq, launch_dkv = _flash_dq_wgmma_cuda, _flash_dkv_wgmma_cuda
+    else:
+        launch_dq, launch_dkv = _flash_dq_simt_cuda, _flash_dkv_simt_cuda
+    dq = launch_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = launch_dkv(q, k, v, do, lse, delta, causal, scale)
+    if width != D:
+        dq, dk, dv = (t[..., :D].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 

@@ -13,6 +13,9 @@ rounding, 2^-6 after RMSNorm's two.  ``lse`` is f32 in both.  The flash
 gradients sum over every key (dQ) or query (dK, dV) in f32, in another
 order than the dense plain version: f32 within 1e-4 relative and 1e-4
 absolute; bf16 after their one rounding, 2^-7 relative and 1e-3 absolute.
+The tensor-core (wgmma) backward is also held against autograd through the
+dense forward, an independent formula, within 2^-6 of each gradient's
+largest entry (in bf16 that formula takes delta from the unrounded O).
 The int8 matmul, both variants, is bit-exact against its plain version (an
 exact int32 sum; one rounding to f32 and one f32 product in the dequant).
 
@@ -40,7 +43,8 @@ from mxnet_tpu_torch.ops.kernels import common, int8_matmul
 from mxnet_tpu_torch.ops.kernels.int8_matmul import (_int8_matmul_cuda,
                                                      int8_matmul_reference)
 from mxnet_tpu_torch.ops.kernels.flash_attention import (
-    _flash_bwd_cuda, _flash_cuda, _flash_simt_cuda, _flash_wgmma_cuda,
+    _delta, _flash_bwd_cuda, _flash_cuda, _flash_dkv_wgmma_cuda,
+    _flash_dq_wgmma_cuda, _flash_simt_cuda, _flash_wgmma_cuda,
     flash_attention, flash_attention_bwd_reference, flash_attention_lse,
     flash_attention_reference)
 from mxnet_tpu_torch.ops.kernels.layers import (
@@ -140,8 +144,8 @@ def test_flash_reads_strided_qkv_slices(dev):
 
 
 def test_flash_refuses_bad_inputs(dev):
-    q = torch.randn(1, 8, 2, 48, device=dev)
-    with pytest.raises(ValueError, match="head_dim"):
+    q = torch.randn(1, 8, 2, 160, device=dev)
+    with pytest.raises(ValueError, match="up to 128"):
         _flash_cuda(q, q, q)
     q = torch.randn(1, 8, 2, 64, device=dev)
     with pytest.raises(TypeError):
@@ -329,7 +333,9 @@ def test_flash_autograd_launches_backward_kernels(dev):
         "kernels.launch.flash_attention": 1,
         "kernels.launch.flash_attention.simt": 1,
         "kernels.launch.flash_attention_dq": 1,
-        "kernels.launch.flash_attention_dkv": 1}
+        "kernels.launch.flash_attention_dq.simt": 1,
+        "kernels.launch.flash_attention_dkv": 1,
+        "kernels.launch.flash_attention_dkv.simt": 1}
     assert common.selection_counts() == {
         "kernels.select.flash_attention.cuda": 1,
         "kernels.select.flash_attention_bwd.cuda": 1}
@@ -341,9 +347,9 @@ def test_flash_autograd_launches_backward_kernels(dev):
 
 
 def test_flash_bwd_refuses_bad_inputs(dev):
-    q = torch.randn(1, 8, 2, 48, device=dev)
+    q = torch.randn(1, 8, 2, 160, device=dev)
     lse = torch.zeros(1, 2, 8, device=dev)
-    with pytest.raises(ValueError, match="head_dim"):
+    with pytest.raises(ValueError, match="up to 128"):
         _flash_bwd_cuda(q, q, q, q, lse, q)
     q = torch.randn(1, 8, 2, 64, device=dev, dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -353,6 +359,165 @@ def test_flash_bwd_refuses_bad_inputs(dev):
         _flash_bwd_cuda(q, q, q, q, lse[:, :, :4], q)
     with pytest.raises(TypeError):
         flash_attention(q.double(), q.double(), q.double())
+
+
+# ---------------------------------------------------------------------------
+# flash backward: the tensor-core (wgmma) variant, bf16 with D 64 or 128
+# ---------------------------------------------------------------------------
+WGMMA_BWD_CASES = [
+    # (B, Tq, Tk, H, D, causal); CTAs own 128 rows, tiles stream 64
+    (1, 1, 1, 2, 64, True),
+    (1, 1, 1, 2, 128, False),
+    (2, 63, 63, 2, 64, True),
+    (1, 65, 65, 2, 128, True),
+    (1, 127, 127, 3, 64, False),
+    (1, 129, 129, 2, 128, True),
+    (1, 129, 129, 2, 64, True),
+    (1, 1000, 3000, 2, 128, False),
+    (1, 1000, 3000, 2, 64, False),
+    (1, 20, 300, 2, 64, True),       # causal, Tq < Tk: keys 20.. dK=dV=0
+    (1, 65, 200, 2, 128, True),
+    (1, 300, 70, 2, 128, True),      # causal, Tq > Tk
+    (1, 300, 70, 2, 64, True),
+    (1, 1, 129, 2, 64, False),
+]
+
+
+def _dense_autograd_grads(q, k, v, do, dlse, causal):
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o, lse = flash_attention_reference(qr, kr, vr, causal, return_lse=True)
+    return torch.autograd.grad((o, lse), (qr, kr, vr), (do, dlse))
+
+
+def _rel_to_max(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("case", WGMMA_BWD_CASES)
+def test_flash_bwd_wgmma_matches_plain(dev, case):
+    B, Tq, Tk, H, D, causal = case
+    q, k, v, o, lse, do, dlse = _flash_bwd_inputs(dev, *case, torch.bfloat16)
+    for t in (q, k, v):                    # see test_flash_bwd_kernels_...
+        torch.full_like(t, float("nan"))
+    common.reset_counts()
+    got = _flash_bwd_cuda(q, k, v, o, lse, do, dlse, causal)
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention_dq": 1,
+        "kernels.launch.flash_attention_dq.wgmma": 1,
+        "kernels.launch.flash_attention_dkv": 1,
+        "kernels.launch.flash_attention_dkv.wgmma": 1}
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, dlse, causal)
+    auto = _dense_autograd_grads(q, k, v, do, dlse, causal)
+    for gt, wt, at, name in zip(got, want, auto, ("dq", "dk", "dv")):
+        assert gt.dtype == torch.bfloat16 and gt.shape == wt.shape
+        assert gt.is_contiguous() and torch.isfinite(gt).all(), name
+        np.testing.assert_allclose(_np(gt), _np(wt), err_msg=name,
+                                   **BF16_GRAD_TOL)
+        assert _rel_to_max(gt, at) <= 2.0 ** -6, name
+    if causal and Tq < Tk:
+        assert not got[1][:, Tq:].any() and not got[2][:, Tq:].any()
+    again = _flash_bwd_cuda(q, k, v, o, lse, do, dlse, causal)
+    for a, b in zip(got, again):           # no atomics: the same bits
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bwd_wgmma_reads_fused_qkv_views_and_strided_dout(dev, D):
+    """q/k/v as views of one fused qkv product and a transposed dO give
+    the same bits as contiguous copies."""
+    B, T, H = 2, 333, 3
+    g = torch.Generator(device=dev).manual_seed(5)
+    qkv = torch.randn(B, T, 3 * H * D, generator=g, device=dev,
+                      dtype=torch.bfloat16)
+    q, k, v = (t.view(B, T, H, D) for t in qkv.split(H * D, -1))
+    o, lse = _flash_cuda(q, k, v)
+    do = torch.randn(B, H, T, D, generator=g, device=dev,
+                     dtype=torch.bfloat16).transpose(1, 2)
+    assert not q.is_contiguous() and not do.is_contiguous()
+    a = _flash_bwd_cuda(q, k, v, o, lse, do)
+    b = _flash_bwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(), o,
+                        lse, do.contiguous())
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_flash_bwd_wgmma_refuses_misaligned_inputs(dev):
+    """Misaligned q/k/v raise before any launch; a misaligned dO (an
+    internal cotangent) is copied by the backward, and refused by the
+    launchers themselves."""
+    B, T, H, D = 1, 64, 2, 64
+    q, k, v, o, lse, do, _ = _flash_bwd_inputs(dev, B, T, T, H, D, True,
+                                               torch.bfloat16)
+    flat = torch.randn(B * T * H * D + 1, device=dev, dtype=torch.bfloat16)
+    bad = flat[1:].view(B, T, H, D)                   # base 2 bytes off
+    bad.copy_(q)
+    delta = _delta(o, do, None)
+    common.reset_counts()
+    with pytest.raises(ValueError, match="q's base address"):
+        _flash_bwd_cuda(bad, k, v, o, lse, do)
+    for launch in (_flash_dq_wgmma_cuda, _flash_dkv_wgmma_cuda):
+        with pytest.raises(ValueError, match="k's base address"):
+            launch(q, bad, v, do, lse, delta)
+        with pytest.raises(ValueError, match="dO's base address"):
+            launch(q, k, v, bad, lse, delta)
+    assert common.launch_counts() == {}
+    bad.copy_(do)
+    got = _flash_bwd_cuda(q, k, v, o, lse, bad)
+    want = _flash_bwd_cuda(q, k, v, o, lse, do)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_flash_autograd_bf16_launches_wgmma_kernels(dev):
+    B, T, H, D = 1, 130, 2, 64
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn(B, T, H, D, generator=g, device=dev,
+                           dtype=torch.bfloat16, requires_grad=True)
+               for _ in range(3))
+    common.reset_counts()
+    o, lse = flash_attention_lse(q, k, v)
+    (o.float().square().sum() + lse.tanh().sum()).backward()
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention": 1,
+        "kernels.launch.flash_attention.wgmma": 1,
+        "kernels.launch.flash_attention_dq": 1,
+        "kernels.launch.flash_attention_dq.wgmma": 1,
+        "kernels.launch.flash_attention_dkv": 1,
+        "kernels.launch.flash_attention_dkv.wgmma": 1}
+
+
+# ---------------------------------------------------------------------------
+# head dims the kernels do not have: zero-padded along D on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [48, 80, 96])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_padded_head_dims_match_plain(dev, D, dtype, causal):
+    """Forward and backward at head_dim 48, 80 and 96 (padded to 64, 128
+    and 128): no ValueError, the plain version's results, ``scale`` from
+    the real head_dim, and the padded variant's launches."""
+    B, Tq, Tk, H = 1, 150, 150, 2
+    q, k, v, o, lse, do, dlse = _flash_bwd_inputs(dev, B, Tq, Tk, H, D,
+                                                  causal, dtype)
+    ro, rlse = flash_attention_reference(q, k, v, causal, return_lse=True)
+    assert o.shape == (B, Tq, H, D) and o.is_contiguous()
+    tol = F32_TOL if dtype == torch.float32 else BF16_ONE_ROUNDING
+    np.testing.assert_allclose(_np(o), _np(ro), **tol)
+    np.testing.assert_allclose(_np(lse), _np(rlse), rtol=1e-5, atol=1e-4)
+    variant = "wgmma" if dtype == torch.bfloat16 else "simt"
+    common.reset_counts()
+    got = _flash_bwd_cuda(q, k, v, o, lse, do, dlse, causal)
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention_dq": 1,
+        "kernels.launch.flash_attention_dq.%s" % variant: 1,
+        "kernels.launch.flash_attention_dkv": 1,
+        "kernels.launch.flash_attention_dkv.%s" % variant: 1}
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, dlse, causal)
+    gtol = F32_GRAD_TOL if dtype == torch.float32 else BF16_GRAD_TOL
+    for gt, wt, name in zip(got, want, ("dq", "dk", "dv")):
+        assert gt.shape == wt.shape and gt.is_contiguous(), name
+        np.testing.assert_allclose(_np(gt), _np(wt), err_msg=name, **gtol)
 
 
 # ---------------------------------------------------------------------------

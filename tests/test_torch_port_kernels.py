@@ -23,6 +23,8 @@ the attention backward: a sum over every key or query row in another
 order).  bf16 gradients are rounded once from f32 sums that differ only in
 order, so they are held to one rounding, 2^-7 relative.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -293,6 +295,65 @@ class TestFlashAttentionGrad:
         assert sel == {"kernels.select.flash_attention.reference": 1,
                        "kernels.select.flash_attention_bwd.reference": 1}
         assert launch_counts() == {}
+
+
+def _plain_launchers(monkeypatch):
+    """Route the CUDA wrappers' kernel launchers to the plain versions, so
+    that ``_flash_cuda`` / ``_flash_bwd_cuda`` run on CPU tensors: their
+    padding along D, the real-D scale and the slicing back run as on the
+    card, with the plain arithmetic in place of the kernels."""
+    fa = importlib.import_module("mxnet_tpu_torch.ops.kernels.flash_attention")
+    widths = []
+
+    def fwd(q, k, v, causal, scale, kv_len):
+        widths.append(q.shape[-1])
+        return flash_attention_reference(q, k, v, causal, scale,
+                                         return_lse=True)
+
+    def bwd(q, k, v, do, lse, delta, causal, scale):
+        # o = 0 and dlse = -delta make the plain version's delta this one
+        return flash_attention_bwd_reference(q, k, v, torch.zeros_like(do),
+                                             lse, do, -delta, causal, scale)
+
+    for name in ("wgmma", "simt"):
+        monkeypatch.setattr(fa, "_flash_%s_cuda" % name, fwd)
+        monkeypatch.setattr(fa, "_flash_dq_%s_cuda" % name,
+                            lambda *a: bwd(*a)[0])
+        monkeypatch.setattr(fa, "_flash_dkv_%s_cuda" % name,
+                            lambda *a: bwd(*a)[1:])
+    return fa, widths
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,width", [(48, 64), (80, 128), (96, 128)])
+def test_padded_head_dims_match_pallas_kernels(monkeypatch, D, width, dtype):
+    """Head dims the kernels lack go through the CUDA wrappers' padding
+    (launchers replaced by the plain versions) and match the JAX package's
+    Pallas kernels through the interpreter: o, lse and the VJP with a
+    cotangent on both outputs."""
+    fa, widths = _plain_launchers(monkeypatch)
+    B, T, H, causal = 1, 37, 2, True
+    q, k, v = _qkv(B, T, T, H, D, dtype)
+    do = _np((B, T, H, D), 17, dtype)
+    dlse = _np((B, H, T), 18, "float32")
+    (jo, jlse), vjp = jax.vjp(lambda q, k, v: jax_flash_lse(
+        q, k, v, causal=causal, interpret=True),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp((jnp.asarray(do), jnp.asarray(dlse)))
+    tq, tk, tv = (_to_torch(a) for a in (q, k, v))
+    o, lse = fa._flash_cuda(tq, tk, tv, causal)
+    got = fa._flash_bwd_cuda(tq, tk, tv, o, lse, _to_torch(do),
+                             _to_torch(dlse), causal)
+    assert widths == [width]
+    assert o.shape == (B, T, H, D) and o.dtype == tq.dtype
+    tol = F32_FLASH_TOL if dtype == "float32" else BF16_ONE_ROUNDING
+    np.testing.assert_allclose(_f32(o), _f32(jo), **tol)
+    np.testing.assert_allclose(lse.numpy(), _f32(jlse), **F32_FLASH_TOL)
+    gtol = F32_FLASH_GRAD_TOL if dtype == "float32" else BF16_GRAD_TOL
+    for g, w, name in zip(got, want, "qkv"):
+        assert g.shape == (B, T, H, D) and g.dtype == tq.dtype
+        np.testing.assert_allclose(_f32(g), _f32(w), err_msg="d" + name,
+                                   **gtol)
 
 
 XENT_CASES = [
