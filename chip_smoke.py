@@ -45,7 +45,8 @@ Phases, in order; any failure raises and exits non-zero:
 2. build   — ``nvcc`` builds every kernel from ``mxnet_tpu_torch/ops/
    kernels/csrc`` (in parallel), with the ptxas register/spill report and
    one line per instantiation of the tensor-core flash kernels (forward,
-   dQ and dK/dV at head_dim 64 and 128), each of which must not spill;
+   dQ and dK/dV at head_dim 64 and 128), of the wide flash kernels and of
+   the int8 matmul; none but the int8 ``mma`` kernel may spill;
 3. kernels — each kernel against its plain version at the flagship's
    shapes: max error and tolerance; the device time of the kernel, of the
    plain version and of one PyTorch library call (for the record only),
@@ -56,7 +57,10 @@ Phases, in order; any failure raises and exits non-zero:
    are all held against the plain version and timed in turns; the
    backward is also held against autograd through the dense forward and
    two of its calls must agree bit for bit; head_dim 96 runs padded to
-   128;
+   128; head dims 160, 256 and 320 run the wide variant.  The int8
+   matmul's planned variant and, where that is wgmma, its mma variant are
+   held bit for bit to the plain version and timed in turns beside
+   ``torch._int_mm``;
 4. serve   — a flagship ``GenerationServer`` answers 7 concurrent greedy
    requests (one ~4000-token prompt crosses the flash gate), a solo
    resubmission must reproduce its batched stream, the kernel counters
@@ -77,9 +81,10 @@ Phases, in order; any failure raises and exits non-zero:
    package's, the int8 outputs must keep a cosine above 0.99 with the
    fp32 ones, the int8 forward through the kernels must equal the one
    through the plain versions bit for bit, the int8 matmul must launch
-   exactly once per forward, and ``quantized_dense`` on the classifier's
-   int8 inputs must equal ``dequantize(quantized_fully_connected(...))``
-   and launch the fused-dequant kernel once;
+   exactly once per forward, through its wgmma variant, and
+   ``quantized_dense`` on the classifier's int8 inputs must equal
+   ``dequantize(quantized_fully_connected(...))`` and launch the
+   fused-dequant kernel's wgmma variant once;
 7. module_train — ``Module.fit`` of ResNet-50 on 256 seeded images in
    batches of 32 (one warm step, then 7 timed, each ending in a
    synchronize): losses finite, 8 updates, the data BatchNorm's moving
@@ -107,7 +112,9 @@ training through ``rtc_softmax`` and the ResNet-50 step through it) runs
 with the counters zeroed
 just before it and read just after.  The line before the
 last is the ``{"kernels": [...]}`` summary (launches summed over those
-runs), and before it the ``nvidia-smi`` name and power limit; the last line
+runs; each kernel with several variants lists them, with their sources,
+launches and times), and before it the ``nvidia-smi`` name and power
+limit; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits non-zero and prints no result.
 """
@@ -441,18 +448,23 @@ def phase_build():
             info["seconds"], "".join("\n  " + ln for ln in report)))
     print("build: %d kernel source(s) in %.1f s" % (len(built), wall),
           flush=True)
-    for src in ("flash_attention_wgmma", "flash_attention_bwd_wgmma"):
-        for line in _ptxas_summary(built[src]["log"]):
+    # each instantiation's registers and spills: the tensor-core flash
+    # kernels, the wide flash kernels and the int8 matmul, none of which
+    # may spill but the int8 mma kernel
+    for src in ("flash_attention_wgmma", "flash_attention_bwd_wgmma",
+                "flash_attention_wide", "int8_matmul"):
+        for kernel, line in _ptxas_summary(built[src]["log"]):
             print("build %s %s" % (src, line), flush=True)
-            _check(" 0 bytes spill stores" in line,
-                   "%s spills: %s" % (src, line))
+            if kernel != "int8_mm_kernel":
+                _check(" 0 bytes spill stores" in line,
+                       "%s spills: %s" % (src, line))
     return wall
 
 
 def _ptxas_summary(log):
-    """One line per kernel instantiation of a ptxas ``-v`` log: the
-    kernel, its template argument (the head_dim), registers, spills and
-    stack."""
+    """``(kernel, line)`` per kernel instantiation of a ptxas ``-v`` log:
+    the kernel, its template arguments (a head_dim; a column tile and the
+    dequant flag; a dtype), registers, spills and stack."""
     out, name, props = [], None, ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -460,11 +472,14 @@ def _ptxas_summary(log):
         elif "spill stores" in ln:
             props = ln.strip()
         elif "Used" in ln and "registers" in ln and name is not None:
-            arg = name.split("ILi")[1].split("E")[0] if "ILi" in name else "?"
-            kernel = re.search(r"\d+(flash_\w+?_kernel)", name)
-            out.append("%s D=%s: %s; %s" % (
-                kernel.group(1) if kernel else "?", arg,
-                ln.split(":", 1)[1].strip(), props))
+            # the last length-prefixed name before the template arguments
+            m = re.search(r".*\d((?:flash|int8)_\w*?_kernel)I(.*?)E+v",
+                          name)
+            kernel, args = (m.group(1), m.group(2)) if m else ("?", "?")
+            args = (args.replace("13__nv_bfloat16", "bf16").replace("Li", "")
+                    .replace("Lb", "b").replace("E", ","))
+            out.append((kernel, "%s<%s>: %s; %s" % (
+                kernel, args, ln.split(":", 1)[1].strip(), props)))
             name = None
     return out
 
@@ -741,14 +756,16 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops.kernels.flash_attention import (
         _bwd_variant, _delta, _flash_bwd_cuda, _flash_cuda,
-        _flash_dkv_simt_cuda, _flash_dkv_wgmma_cuda, _flash_dq_simt_cuda,
-        _flash_dq_wgmma_cuda, _pad_d, _padded_dim,
-        flash_attention_bwd_reference, flash_attention_reference)
+        _flash_dkv_simt_cuda, _flash_dkv_wgmma_cuda, _flash_dkv_wide_cuda,
+        _flash_dq_simt_cuda, _flash_dq_wgmma_cuda, _flash_dq_wide_cuda,
+        _pad_d, _padded_dim, flash_attention_bwd_reference,
+        flash_attention_reference)
 
     dt = getattr(torch, dtype_name)
     scale = 1.0 / D ** 0.5
     launchers = {"wgmma": (_flash_dq_wgmma_cuda, _flash_dkv_wgmma_cuda),
-                 "simt": (_flash_dq_simt_cuda, _flash_dkv_simt_cuda)}
+                 "simt": (_flash_dq_simt_cuda, _flash_dkv_simt_cuda),
+                 "wide": (_flash_dq_wide_cuda, _flash_dkv_wide_cuda)}
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dt)
@@ -887,11 +904,14 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
 def _int8_case(M, K, N, gen):
     """Both int8 matmul kernels on a [M, K] x [N, K]: int32 out, and the
     fused dequant with a scalar ``scale_a`` and a per-channel ``scale_b``
-    (bench.py's kernel leg).  Both must equal their plain version bit for
-    bit.  Two records."""
+    (bench.py's kernel leg).  The variant the planner picks and, where it
+    is wgmma, the mma variant too must equal the plain version bit for bit;
+    the two are timed in turns (wgmma, mma, mma, wgmma) beside
+    ``torch._int_mm``.  ``ms`` is the planned variant's.  Two records."""
     import torch
     from mxnet_tpu_torch.ops.kernels.int8_matmul import (
-        _int8_matmul_cuda, int8_matmul_reference)
+        _int8_matmul_cuda, _int8_mm_mma_cuda, _int8_mm_wgmma_cuda,
+        _tma_aligned, int8_matmul_reference, plan_int8_matmul)
 
     a = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
                       dtype=torch.int8)
@@ -899,17 +919,10 @@ def _int8_case(M, K, N, gen):
                       dtype=torch.int8)
     sa = torch.tensor([0.05], device="cuda")
     sb = torch.rand(N, generator=gen, device="cuda") * 0.1 + 0.01
-    got = _int8_matmul_cuda(a, b)
-    ref = int8_matmul_reference(a, b)
-    got_d = _int8_matmul_cuda(a, b, sa, sb)
-    ref_d = int8_matmul_reference(a, b, sa, sb)
-    torch.cuda.synchronize()
-    exact = bool(torch.equal(got, ref))
-    # bitwise: the f32 outputs compared as their int32 bit patterns
-    exact_d = bool(torch.equal(got_d.view(torch.int32),
-                               ref_d.view(torch.int32)))
-    err = float((got.double() - ref.double()).abs().max())
-    err_d = float((got_d - ref_d).abs().max())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = plan_int8_matmul(M, N, K, sms, _tma_aligned(a, b))
+    fns = {"wgmma": _int8_mm_wgmma_cuda, "mma": _int8_mm_mma_cuda}
+    variants = ("wgmma", "mma") if plan.variant == "wgmma" else ("mma",)
 
     def lib(a, b):
         return torch._int_mm(a, b.t())
@@ -924,24 +937,46 @@ def _int8_case(M, K, N, gen):
     dargs = _copies((a, b, sa, sb))
     lib_ms = _time_ms(lib, args) if lib else None
     recs = []
-    for name, ok, e, nbytes, fn, fargs in (
-            ("int8_matmul", exact, err, M * K + N * K + 4 * M * N,
-             _int8_matmul_cuda, args),
-            ("int8_matmul_dequant", exact_d, err_d,
-             M * K + N * K + 4 * M * N + 4 * N, _int8_matmul_cuda, dargs)):
+    for name, scales, nbytes, fargs in (
+            ("int8_matmul", (), M * K + N * K + 4 * M * N, args),
+            ("int8_matmul_dequant", (sa, sb),
+             M * K + N * K + 4 * M * N + 4 * N, dargs)):
+        ref = int8_matmul_reference(a, b, *scales)
+        got = _int8_matmul_cuda(a, b, *scales)
+        outs = {v: fns[v](a, b, *scales) for v in variants}
+        torch.cuda.synchronize()
+        # bitwise: the f32 outputs compared as their int32 bit patterns
+        exact = {v: bool(torch.equal(o.view(torch.int32),
+                                     ref.view(torch.int32)))
+                 for v, o in dict(outs, routed=got).items()}
+        err = max(float((o.double() - ref.double()).abs().max())
+                  for o in dict(outs, routed=got).values())
+        del outs, got
+        turns = {}
+        order = ("wgmma", "mma", "mma", "wgmma") if len(variants) == 2 \
+            else ("mma",)
+        for v in order:
+            turns.setdefault(v, []).append(_time_ms(fns[v], fargs))
         bound, by = _bound(ops, nbytes, "int8")
-        rec = {"kernel": name, "M": M, "K": K, "N": N, "bit_exact": ok,
-               "max_abs_err": e, "ok": ok,
-               "ms": _time_ms(fn, fargs),
+        ok = all(exact.values())
+        rec = {"kernel": name, "M": M, "K": K, "N": N,
+               "variant": plan.variant, "plan": plan._asdict(),
+               "bit_exact": exact, "max_abs_err": err, "ok": ok,
+               "ms": statistics.mean(turns[plan.variant]),
+               "ms_turns": turns,
+               "mma_ms": statistics.mean(turns["mma"]),
                "plain_ms": _time_ms(int8_matmul_reference, fargs),
                "library_ms": lib_ms,
                "library": "torch._int_mm (cuBLASLt int8; the int32 "
                           "accumulator only)" if lib else
                           "none: torch._int_mm refuses this shape",
                "bound_ms": bound, "bound_by": by}
+        rec["ms_over_library"] = rec["ms"] / lib_ms if lib_ms else None
+        rec["mma_over_ms"] = rec["mma_ms"] / rec["ms"]
         _emit(rec)
         _check(ok, "%s [%d, %d] x [%d, %d] is not bit-exact against its "
-               "plain version (max abs err %g)" % (name, M, K, N, K, e))
+               "plain version: %s (max abs err %g)" % (name, M, K, N, K,
+                                                      exact, err))
         recs.append(rec)
     return recs
 
@@ -974,6 +1009,21 @@ def phase_kernels():
     _flash_bwd_case(1, 4096, 4096, 16, 96, True, "bfloat16", gen,
                     with_dlse=True)
     _flash_bwd_case(2, 1024, 1024, 8, 64, True, "float32", gen,
+                    with_dlse=True)
+    # head dims above 128: the wide variant (160 and 256 pad to 192 and 256;
+    # 320 is three column chunks of at most 128)
+    for dt in ("bfloat16", "float32"):
+        fwd = _flash_case(1, 4096, 4096, 16, 256, True, dt, gen)
+        dq, dkv = _flash_bwd_case(1, 4096, 4096, 16, 256, True, dt, gen,
+                                  with_dlse=dt == "float32")
+        if dt == "bfloat16":
+            main["flash_attention.wide"] = fwd
+            main["flash_attention_dq.wide"] = dq
+            main["flash_attention_dkv.wide"] = dkv
+    _flash_case(2, 1000, 1000, 4, 320, False, "bfloat16", gen)
+    _flash_bwd_case(2, 1000, 1000, 4, 320, False, "bfloat16", gen)
+    _flash_case(1, 777, 777, 4, 160, True, "float32", gen)
+    _flash_bwd_case(1, 777, 777, 4, 160, True, "bfloat16", gen,
                     with_dlse=True)
     _flash_bwd_case(1, 1000, 3000, 16, 64, False, "bfloat16", gen)
     _flash_bwd_case(1, 1000, 3000, 16, 64, True, "bfloat16", gen)
@@ -1332,9 +1382,19 @@ def phase_int8(dev):
     fwd_launches = common.launch_counts()
     int8_peak = torch.cuda.max_memory_allocated() / 1e9
     got, logits = (o.asnumpy() for o in outs)
-    _check(fwd_launches == {"kernels.launch.int8_matmul": INT8_TIMED},
-           "int8 forwards launched %s, expected int8_matmul once per "
-           "forward" % fwd_launches)
+    # the classifier's plan: with a split of K, the kernel that adds the
+    # splits launches beside each wgmma launch
+    from mxnet_tpu_torch.ops.kernels.int8_matmul import plan_int8_matmul
+    fc1_plan = plan_int8_matmul(
+        INT8_BATCH, INT8_NET["num_classes"], 2048,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    want_launches = {"kernels.launch.int8_matmul": INT8_TIMED,
+                     "kernels.launch.int8_matmul.wgmma": INT8_TIMED}
+    if fc1_plan.splits > 1:
+        want_launches["kernels.launch.int8_matmul.reduce"] = INT8_TIMED
+    _check(fwd_launches == want_launches,
+           "int8 forwards launched %s, expected %s: int8_matmul's wgmma "
+           "variant once per forward" % (fwd_launches, want_launches))
     _check(not any(k.endswith(".reference") for k in selects),
            "a plain version ran on the int8 path: %s" % selects)
     with _plain_versions():
@@ -1400,8 +1460,11 @@ def phase_int8(dev):
            % (cos, INT8_MIN_COSINE))
     _check(same_as_plain, "the int8 forward through the kernels differs "
            "from the one through the plain versions")
-    _check(dense_launches == {"kernels.launch.int8_matmul_dequant": 1},
-           "quantized_dense launched %s" % dense_launches)
+    want_dense = {k.replace("int8_matmul", "int8_matmul_dequant"): 1
+                  for k in want_launches}
+    _check(dense_launches == want_dense,
+           "quantized_dense launched %s, expected %s: the dequant form's "
+           "wgmma variant once" % (dense_launches, want_dense))
     _check(dense_ok, "quantized_dense differs from dequantize("
            "quantized_fully_connected) by %g" % dense_err)
     return [fwd_launches, dense_launches], {"fp32": exe, "int8": qexe}
@@ -1967,6 +2030,30 @@ def phase_profile_module(trained):
     _profile_window("resnet50_module_train_step_b%d" % MODULE_BATCH, step)
 
 
+_CSRC = "mxnet_tpu_torch/ops/kernels/csrc/"
+# the variants of each kernel, by source
+VARIANT_SOURCES = {
+    "flash_attention": {"wgmma": _CSRC + "flash_attention_wgmma.cu",
+                        "simt": _CSRC + "flash_attention.cu",
+                        "wide": _CSRC + "flash_attention_wide.cu"},
+    "flash_attention_dq": {"wgmma": _CSRC + "flash_attention_bwd_wgmma.cu",
+                           "simt": _CSRC + "flash_attention_bwd.cu",
+                           "wide": _CSRC + "flash_attention_wide.cu"},
+    "flash_attention_dkv": {"wgmma": _CSRC + "flash_attention_bwd_wgmma.cu",
+                            "simt": _CSRC + "flash_attention_bwd.cu",
+                            "wide": _CSRC + "flash_attention_wide.cu"},
+    "int8_matmul": {"wgmma": _CSRC + "int8_matmul.cu",
+                    "mma": _CSRC + "int8_matmul.cu"},
+    "int8_matmul_dequant": {"wgmma": _CSRC + "int8_matmul.cu",
+                            "mma": _CSRC + "int8_matmul.cu"},
+}
+
+
+def _case_shape(rec):
+    """A kernel record's shape: q's [B, T, H, D], or [M, K, N]."""
+    return rec["q"] if "q" in rec else [rec["M"], rec["K"], rec["N"]]
+
+
 def main():
     dev = phase_device()
     phase_build()
@@ -2017,20 +2104,41 @@ def main():
     }
     runs = ([serve_launches] + list(train_launches.values()) + int8_launches
             + rtc_launches)
+
+    def launched(counter):
+        return sum(r.get("kernels.launch.%s" % counter, 0) for r in runs)
+
     kernels = []
     for name, (src, replaces) in sources.items():
         rec = main_cases[name]
         counter = name + (".wgmma" if rec.get("variant") == "wgmma" else "")
-        launches = sum(r.get("kernels.launch.%s" % counter, 0) for r in runs)
+        launches = launched(counter)
         _check(launches > 0, "%s never launched on the main paths" % counter)
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": src,
             **({"variant": rec["variant"]} if "variant" in rec else {}),
             "replaces": replaces, "launches": launches,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-        })
+        }
+        if name.startswith("int8_matmul"):      # split-K's second kernel
+            entry["reduce_launches"] = launched(name + ".reduce")
+        # every variant of the kernel: its source, its launches on the main
+        # paths and its time (the main shape's, or its own case's)
+        if name in VARIANT_SOURCES:
+            entry["variants"] = []
+            for variant, vsrc in VARIANT_SOURCES[name].items():
+                vrec = main_cases.get("%s.%s" % (name, variant), rec)
+                ms = (vrec["ms"] if vrec is not rec or variant ==
+                      rec["variant"] else rec["%s_ms" % variant])
+                entry["variants"].append({
+                    "variant": variant, "source": vsrc,
+                    "launches": launched("%s.%s" % (name, variant)),
+                    "ms": ms, "shape": _case_shape(vrec),
+                    "dtype": vrec.get("dtype", "int8"),
+                    "bound_ms": vrec["bound_ms"]})
+        kernels.append(entry)
     import torch
 
     print(dev["smi"])                   # name, power limit as nvidia-smi has it

@@ -32,7 +32,7 @@ CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE.parents[1] / "_build"
 SOURCES = ("rmsnorm", "flash_attention", "flash_attention_wgmma",
            "flash_attention_bwd", "flash_attention_bwd_wgmma",
-           "softmax_xent", "int8_matmul")
+           "flash_attention_wide", "softmax_xent", "int8_matmul")
 # no --use_fast_math: its approximate expf would break the stated tolerances
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",

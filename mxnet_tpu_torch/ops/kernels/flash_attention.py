@@ -16,13 +16,13 @@ dQ and dK/dV kernels.
 On a CUDA tensor they launch hand-written kernels, which read the inputs
 through their strides (the q/k/v slices of a fused qkv projection and a
 non-contiguous ``dO`` go in without a transpose copy).  The kernels take
-head_dim 16, 32, 64 or 128; any other head_dim up to 128 is zero-padded
-along D to the next of those widths (a layout copy: zero columns add 0 to
-q·kᵀ and dO·Vᵀ), run at that width with ``scale`` fixed from the real
-head_dim, and sliced back (:func:`_padded_dim`); above 128 they raise.
-The forward and the backward each have two variants, chosen by dtype and
-padded head_dim alone (:func:`_fwd_variant`, :func:`_bwd_variant`), never
-by whether a build or a launch worked:
+head_dim 16, 32, 64 or 128, or above 128 any multiple of 64; any other
+head_dim is zero-padded along D to the next of those widths (a layout copy:
+zero columns add 0 to q·kᵀ and dO·Vᵀ), run at that width with ``scale``
+fixed from the real head_dim, and sliced back (:func:`_padded_dim`).  Only
+head_dim 0 raises.  The forward and the backward each have three variants,
+chosen by dtype and padded head_dim alone (:func:`_fwd_variant`,
+:func:`_bwd_variant`), never by whether a build or a launch worked:
 
 * ``wgmma`` — tensor cores (wgmma, TMA rings, the f32 operands p and ds
   split into two bf16 terms): bf16 at head_dim 64 or 128 (the flagship's
@@ -32,10 +32,15 @@ by whether a build or a launch worked:
   16-byte-aligned bases and (B, T, H) strides that are multiples of 8
   elements (:func:`_check_wgmma` raises otherwise; the backward copies the
   internal cotangent ``dO`` instead);
-* ``simt`` — CUDA cores: f32 (the tensor cores have no f32 operand that
-  keeps q·kᵀ exact) and head_dim 16 or 32 (less than one 128-byte row of
-  the swizzled tiles the wgmma variant reads).  Forward
-  ``csrc/flash_attention.cu``; backward ``csrc/flash_attention_bwd.cu``.
+* ``simt`` — CUDA cores: f32 up to head_dim 128 (the tensor cores have no
+  f32 operand that keeps q·kᵀ exact) and head_dim 16 or 32 (less than one
+  128-byte row of the swizzled tiles the wgmma variant reads).  Forward
+  ``csrc/flash_attention.cu``; backward ``csrc/flash_attention_bwd.cu``;
+* ``wide`` — CUDA cores, f32 and bf16 above head_dim 128 (padded to a
+  multiple of 64): the dot products over D walk it in chunks of 64 and
+  each CTA owns at most 128 output columns, so any head_dim fits
+  (``csrc/flash_attention_wide.cu``: forward, dQ and dK/dV).  A correctness
+  path: no configuration in the repository has such a head_dim yet.
 
 Every forward launch counts as ``kernels.launch.flash_attention`` and as
 ``kernels.launch.flash_attention.<variant>``; every backward launch as
@@ -63,6 +68,7 @@ __all__ = ["flash_attention", "flash_attention_lse",
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)      # the widths the kernels are built for
 _WGMMA_HEAD_DIMS = (64, 128)
+_WIDE_CHUNK = 64                    # above 128, widths are multiples of it
 _BWD_ROWS = 64                      # lse/delta rows per tile of the wgmma dK/dV
 
 
@@ -171,6 +177,19 @@ def _configure_bwd_wgmma(lib):
     lib.mxt_flash_bwd_wgmma_error_string.restype = ctypes.c_char_p
 
 
+def _configure_wide(lib):
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    tail = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i]
+    lib.mxt_flash_wide_fwd.argtypes = [vp] * 5 + [i] * 5 + tail + [i, i, vp]
+    lib.mxt_flash_wide_fwd.restype = ctypes.c_int
+    lib.mxt_flash_wide_dq.argtypes = [vp] * 7 + [i] * 5 + tail + [i, vp]
+    lib.mxt_flash_wide_dq.restype = ctypes.c_int
+    lib.mxt_flash_wide_dkv.argtypes = [vp] * 8 + [i] * 5 + tail + [i, vp]
+    lib.mxt_flash_wide_dkv.restype = ctypes.c_int
+    lib.mxt_flash_wide_error_string.argtypes = [i]
+    lib.mxt_flash_wide_error_string.restype = ctypes.c_char_p
+
+
 def _check_qkv(q, k, v):
     """Refuse what the kernels do not take; returns ``(B, Tq, Tk, H,
     D)``."""
@@ -189,9 +208,9 @@ def _check_qkv(q, k, v):
     if (k.shape[0], k.shape[2], k.shape[3]) != (B, H, D):
         raise ValueError("flash_attention: k/v batch, heads or head_dim "
                          "differ from q's")
-    if not 1 <= D <= _HEAD_DIMS[-1]:
+    if D < 1:
         raise ValueError("flash_attention: got head_dim %d; the kernels take "
-                         "head_dim up to %d" % (D, _HEAD_DIMS[-1]))
+                         "head_dim 1 and up" % D)
     if Tk < 1:
         raise ValueError("flash_attention: no keys")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
@@ -202,7 +221,10 @@ def _check_qkv(q, k, v):
 
 def _padded_dim(head_dim):
     """The kernel width a head_dim runs at: the least of 16, 32, 64 and 128
-    that holds it."""
+    that holds it, and above 128 the least multiple of 64 (the ``wide``
+    variant's chunk)."""
+    if head_dim > _HEAD_DIMS[-1]:
+        return -(-head_dim // _WIDE_CHUNK) * _WIDE_CHUNK
     return next(w for w in _HEAD_DIMS if w >= head_dim)
 
 
@@ -214,9 +236,12 @@ def _pad_d(t, width):
 
 
 def _fwd_variant(dtype, head_dim):
-    """The forward kernel for ``dtype`` and ``head_dim`` (1..128):
-    ``"wgmma"`` for bf16 whose padded head_dim is 64 or 128, ``"simt"`` for
-    every other input the forward takes (f32; bf16 at head_dim up to 32)."""
+    """The forward kernel for ``dtype`` and ``head_dim`` (1 and up):
+    ``"wide"`` above head_dim 128, ``"wgmma"`` for bf16 whose padded
+    head_dim is 64 or 128, ``"simt"`` for every other input (f32 up to 128;
+    bf16 at head_dim up to 32)."""
+    if head_dim > _HEAD_DIMS[-1]:
+        return "wide"
     if dtype == torch.bfloat16 and _padded_dim(head_dim) in _WGMMA_HEAD_DIMS:
         return "wgmma"
     return "simt"
@@ -224,7 +249,8 @@ def _fwd_variant(dtype, head_dim):
 
 def _bwd_variant(dtype, head_dim):
     """The backward kernels (dQ and dK/dV) for ``dtype`` and ``head_dim``:
-    the same rule as :func:`_fwd_variant` — ``"wgmma"``
+    the same rule as :func:`_fwd_variant` — ``"wide"``
+    (``csrc/flash_attention_wide.cu``) above head_dim 128, ``"wgmma"``
     (``csrc/flash_attention_bwd_wgmma.cu``) for bf16 at a padded head_dim
     of 64 or 128, ``"simt"`` (``csrc/flash_attention_bwd.cu``) otherwise."""
     return _fwd_variant(dtype, head_dim)
@@ -334,6 +360,39 @@ def _flash_wgmma_cuda(q, k, v, causal=True, scale=None, kv_len=None):
     return o, lse
 
 
+def _check_wide_width(D):
+    if D <= _HEAD_DIMS[-1] or D % _WIDE_CHUNK:
+        raise ValueError("flash_attention (wide variant): takes head_dim "
+                         "above %d in multiples of %d; got %d (_flash_cuda "
+                         "pads other head dims)" % (_HEAD_DIMS[-1],
+                                                    _WIDE_CHUNK, D))
+
+
+def _flash_wide_cuda(q, k, v, causal=True, scale=None, kv_len=None):
+    """Launch the forward of ``csrc/flash_attention_wide.cu`` (CUDA cores)
+    on f32 or bf16 inputs with a head_dim above 128 that is a multiple of
+    64; returns ``(o, lse)``."""
+    B, Tq, Tk, H, D = _check_qkv(q, k, v)
+    _check_wide_width(D)
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    kv_len = Tk if kv_len is None else int(kv_len)
+    o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    if B * H * Tq == 0:
+        return o, lse
+    lib = _build.load("flash_attention_wide", _configure_wide)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    count_launch("flash_attention")
+    count_launch("flash_attention.wide")
+    rc = lib.mxt_flash_wide_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), B, H, Tq, Tk, D, _strides(q, k, v, o), float(scale),
+        int(bool(causal)), kv_len, _DTYPE_CODE[q.dtype], stream)
+    _build.check(lib, "mxt_flash_wide", rc)
+    return o, lse
+
+
 def _check_bf16_width(dtype, D):
     if dtype != torch.bfloat16 or D not in _WGMMA_HEAD_DIMS:
         raise ValueError("flash_attention (wgmma variant): takes bf16 with "
@@ -350,8 +409,8 @@ def _flash_cuda(q, k, v, causal=True, scale=None, kv_len=None):
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     width = _padded_dim(D)
-    launch = (_flash_wgmma_cuda if _fwd_variant(q.dtype, D) == "wgmma"
-              else _flash_simt_cuda)
+    launch = {"wgmma": _flash_wgmma_cuda, "simt": _flash_simt_cuda,
+              "wide": _flash_wide_cuda}[_fwd_variant(q.dtype, D)]
     if width == D:
         return launch(q, k, v, causal, scale, kv_len)
     o, lse = launch(_pad_d(q, width), _pad_d(k, width), _pad_d(v, width),
@@ -409,6 +468,53 @@ def _flash_dkv_simt_cuda(q, k, v, do, lse, delta, causal=True,
         H, Tq, Tk, D, _strides(q, k, v, do, dk, dv), float(scale),
         int(bool(causal)), _DTYPE_CODE[q.dtype], stream)
     _build.check(lib, "mxt_flash_bwd", rc)
+    return dk, dv
+
+
+def _flash_dq_wide_cuda(q, k, v, do, lse, delta, causal=True, scale=None):
+    """Launch the dQ kernel of ``csrc/flash_attention_wide.cu`` (CUDA
+    cores) on checked inputs at a wide kernel width; returns ``dq``,
+    contiguous, in ``q``'s dtype."""
+    B, Tq, H, D = q.shape
+    _check_wide_width(D)
+    dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+    if B * H * Tq == 0:
+        return dq
+    lib = _build.load("flash_attention_wide", _configure_wide)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    count_launch("flash_attention_dq")
+    count_launch("flash_attention_dq.wide")
+    rc = lib.mxt_flash_wide_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, Tq,
+        k.shape[1], D, _strides(q, k, v, do, dq), float(scale),
+        int(bool(causal)), _DTYPE_CODE[q.dtype], stream)
+    _build.check(lib, "mxt_flash_wide", rc)
+    return dq
+
+
+def _flash_dkv_wide_cuda(q, k, v, do, lse, delta, causal=True,
+                         scale=None):
+    """Launch the dK/dV kernel of ``csrc/flash_attention_wide.cu`` on
+    checked inputs at a wide kernel width; returns ``(dk, dv)``,
+    contiguous, every row written (rows no query sees are 0)."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    _check_wide_width(D)
+    dk = torch.empty((B, Tk, H, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, Tk, H, D), dtype=v.dtype, device=q.device)
+    if B * H * Tq == 0:
+        return dk.zero_(), dv.zero_()
+    lib = _build.load("flash_attention_wide", _configure_wide)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    count_launch("flash_attention_dkv")
+    count_launch("flash_attention_dkv.wide")
+    rc = lib.mxt_flash_wide_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
+        H, Tq, Tk, D, _strides(q, k, v, do, dk, dv), float(scale),
+        int(bool(causal)), _DTYPE_CODE[q.dtype], stream)
+    _build.check(lib, "mxt_flash_wide", rc)
     return dk, dv
 
 
@@ -509,10 +615,13 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, dlse=None, causal=True,
     delta = _delta(o, do, dlse)
     width = _padded_dim(D)
     q, k, v, do = (_pad_d(t, width) for t in (q, k, v, do))
-    if _bwd_variant(q.dtype, D) == "wgmma":
+    variant = _bwd_variant(q.dtype, D)
+    if variant == "wgmma":
         if _tma_fault("dO", do):
             do = do.clone(memory_format=torch.contiguous_format)
         launch_dq, launch_dkv = _flash_dq_wgmma_cuda, _flash_dkv_wgmma_cuda
+    elif variant == "wide":
+        launch_dq, launch_dkv = _flash_dq_wide_cuda, _flash_dkv_wide_cuda
     else:
         launch_dq, launch_dkv = _flash_dq_simt_cuda, _flash_dkv_simt_cuda
     dq = launch_dq(q, k, v, do, lse, delta, causal, scale)

@@ -16,8 +16,12 @@ absolute; bf16 after their one rounding, 2^-7 relative and 1e-3 absolute.
 The tensor-core (wgmma) backward is also held against autograd through the
 dense forward, an independent formula, within 2^-6 of each gradient's
 largest entry (in bf16 that formula takes delta from the unrounded O).
-The int8 matmul, both variants, is bit-exact against its plain version (an
-exact int32 sum; one rounding to f32 and one f32 product in the dequant).
+The int8 matmul, both forms and both variants (wgmma with its split-K, and
+mma), is bit-exact against its plain version (an exact int32 sum in any
+order; one rounding to f32 and one f32 product in the dequant).  Head dims
+above 128 take the flash kernels' wide variant, held to the plain versions
+at the padded cases' tolerances, and a TransformerLM with head_dim 256
+prefills through it as through the plain versions.
 
 ``mx.rtc``: tests/test_rtc.py's kernels written in CUDA and the
 reference's templated ``axpy`` (compiled with ``--fmad=false``) equal the
@@ -40,8 +44,9 @@ import torch
 import mxnet_tpu_torch as mx
 
 from mxnet_tpu_torch.ops.kernels import common, int8_matmul
-from mxnet_tpu_torch.ops.kernels.int8_matmul import (_int8_matmul_cuda,
-                                                     int8_matmul_reference)
+from mxnet_tpu_torch.ops.kernels.int8_matmul import (
+    _int8_matmul_cuda, _int8_mm_mma_cuda, _int8_mm_wgmma_cuda,
+    int8_matmul_reference, plan_int8_matmul)
 from mxnet_tpu_torch.ops.kernels.flash_attention import (
     _delta, _flash_bwd_cuda, _flash_cuda, _flash_dkv_wgmma_cuda,
     _flash_dq_wgmma_cuda, _flash_simt_cuda, _flash_wgmma_cuda,
@@ -144,8 +149,8 @@ def test_flash_reads_strided_qkv_slices(dev):
 
 
 def test_flash_refuses_bad_inputs(dev):
-    q = torch.randn(1, 8, 2, 160, device=dev)
-    with pytest.raises(ValueError, match="up to 128"):
+    q = torch.randn(1, 8, 2, 0, device=dev)
+    with pytest.raises(ValueError, match="head_dim 0"):
         _flash_cuda(q, q, q)
     q = torch.randn(1, 8, 2, 64, device=dev)
     with pytest.raises(TypeError):
@@ -347,9 +352,9 @@ def test_flash_autograd_launches_backward_kernels(dev):
 
 
 def test_flash_bwd_refuses_bad_inputs(dev):
-    q = torch.randn(1, 8, 2, 160, device=dev)
+    q = torch.randn(1, 8, 2, 0, device=dev)
     lse = torch.zeros(1, 2, 8, device=dev)
-    with pytest.raises(ValueError, match="up to 128"):
+    with pytest.raises(ValueError, match="head_dim 0"):
         _flash_bwd_cuda(q, q, q, q, lse, q)
     q = torch.randn(1, 8, 2, 64, device=dev, dtype=torch.float16)
     with pytest.raises(TypeError):
@@ -491,21 +496,29 @@ def test_flash_autograd_bf16_launches_wgmma_kernels(dev):
 # head dims the kernels do not have: zero-padded along D on the card
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [48, 80, 96])
+@pytest.mark.parametrize("D", [48, 80, 96, 160, 256, 320])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_padded_head_dims_match_plain(dev, D, dtype, causal):
     """Forward and backward at head_dim 48, 80 and 96 (padded to 64, 128
-    and 128): no ValueError, the plain version's results, ``scale`` from
+    and 128) and above 128 (160 padded to 192, 256, 320: the wide
+    variant): no ValueError, the plain version's results, ``scale`` from
     the real head_dim, and the padded variant's launches."""
     B, Tq, Tk, H = 1, 150, 150, 2
+    common.reset_counts()
     q, k, v, o, lse, do, dlse = _flash_bwd_inputs(dev, B, Tq, Tk, H, D,
                                                   causal, dtype)
+    if D > 128:
+        variant = "wide"
+    else:
+        variant = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention": 1,
+        "kernels.launch.flash_attention.%s" % variant: 1}
     ro, rlse = flash_attention_reference(q, k, v, causal, return_lse=True)
     assert o.shape == (B, Tq, H, D) and o.is_contiguous()
     tol = F32_TOL if dtype == torch.float32 else BF16_ONE_ROUNDING
     np.testing.assert_allclose(_np(o), _np(ro), **tol)
     np.testing.assert_allclose(_np(lse), _np(rlse), rtol=1e-5, atol=1e-4)
-    variant = "wgmma" if dtype == torch.bfloat16 else "simt"
     common.reset_counts()
     got = _flash_bwd_cuda(q, k, v, o, lse, do, dlse, causal)
     assert common.launch_counts() == {
@@ -518,6 +531,78 @@ def test_flash_padded_head_dims_match_plain(dev, D, dtype, causal):
     for gt, wt, name in zip(got, want, ("dq", "dk", "dv")):
         assert gt.shape == wt.shape and gt.is_contiguous(), name
         np.testing.assert_allclose(_np(gt), _np(wt), err_msg=name, **gtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wide_kv_len_strided_views_and_repeat(dev, dtype):
+    """The wide forward masks keys at and past kv_len, reads q/k/v slices
+    of a fused qkv tensor through their strides, and its backward gives the
+    same bits twice (no atomics)."""
+    B, T, H, D = 2, 90, 2, 256
+    g = torch.Generator(device=dev).manual_seed(5)
+    qkv = torch.randn(B, T, 3 * H * D, generator=g, device=dev).to(dtype)
+    q, k, v = (t.view(B, T, H, D) for t in qkv.split(H * D, dim=-1))
+    assert not q.is_contiguous()
+    from mxnet_tpu_torch.ops.kernels.flash_attention import _flash_wide_cuda
+    o, lse = _flash_wide_cuda(q, k, v, False, None, 50)
+    ro, rlse = flash_attention_reference(q[:, :, :, :], k[:, :50],
+                                         v[:, :50], False, return_lse=True)
+    tol = F32_TOL if dtype == torch.float32 else BF16_ONE_ROUNDING
+    np.testing.assert_allclose(_np(o), _np(ro), **tol)
+    np.testing.assert_allclose(_np(lse), _np(rlse), rtol=1e-5, atol=1e-4)
+    o, lse = _flash_cuda(q, k, v, True)
+    do = torch.randn(B, T, H, D, generator=g, device=dev).to(dtype)
+    first = _flash_bwd_cuda(q, k, v, o, lse, do, None, True)
+    again = _flash_bwd_cuda(q, k, v, o, lse, do, None, True)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, None, True)
+    gtol = F32_GRAD_TOL if dtype == torch.float32 else BF16_GRAD_TOL
+    for gt, wt, name in zip(first, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(_np(gt), _np(wt), err_msg=name, **gtol)
+
+
+def test_transformer_prefill_at_head_dim_256_matches_plain(dev):
+    """A TransformerLM with head_dim 256 (d_model 512, 2 heads) prefills a
+    prompt whose scores pass the dense gate through the wide flash kernels,
+    and its logits match those through the plain versions."""
+    from mxnet_tpu_torch.models.transformer import (TransformerConfig,
+                                                    TransformerLM)
+    cfg = TransformerConfig(vocab_size=512, d_model=512, n_heads=2,
+                            n_layers=2, d_ff=1024, max_len=1024,
+                            dtype="bfloat16", dense_attn_max_score_mb=1)
+    assert cfg.head_dim == 256
+    model = TransformerLM(cfg, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(0))
+    T, ps = 600, 16                     # 2 * 600^2 * 4 bytes > 1 MB: flash
+    g = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, 512, (1, T), generator=g, device=dev)
+    table = torch.arange(T // ps + 1, device=dev)
+    runs = []
+    for plain in (False, True):
+        kp, vp = model.init_kv_pages(T // ps + 2, ps)
+        saved = dict(common._REGISTRY)
+        if plain:
+            for name, entry in saved.items():
+                common._REGISTRY[name] = {"cuda": entry["reference"],
+                                          "reference": entry["reference"]}
+        try:
+            common.reset_counts()
+            with torch.no_grad():
+                logits = model.prefill(kp, vp, tokens, T, table)
+            torch.cuda.synchronize()
+            launches = common.launch_counts()
+        finally:
+            common._REGISTRY.clear()
+            common._REGISTRY.update(saved)
+        runs.append((logits, launches))
+    (lk, launches), (lp, plain_launches) = runs
+    assert launches.get("kernels.launch.flash_attention.wide") == 2
+    assert "kernels.launch.flash_attention" not in plain_launches
+    assert torch.isfinite(lk).all() and lk.shape == (512,)
+    # bf16 through two layers: the attention output's and RMSNorm's
+    # roundings, then the GEMMs downstream of them (chip_smoke.py's
+    # prefill bound, LOGITS_ATOL)
+    np.testing.assert_allclose(_np(lk), _np(lp), rtol=0, atol=5e-2)
 
 
 # ---------------------------------------------------------------------------
@@ -625,10 +710,15 @@ INT8_CASES = [
     (777, 301, 1001),                # ragged everywhere, K odd
     (64, 48, 130),                   # K % 16 == 0 but not a tile of K
     (300, 1000, 72),                 # K % 16 != 0, K % 8 == 0
-    (2048, 2048, 2048),              # the 128x128 tile path on an H100
+    (2048, 2048, 2048),              # one wave of 128 x 256 wgmma tiles
+    (128, 25088, 4096),              # VGG16's fc6 at batch 128: split-K
+    (1, 2048, 1000),                 # M = 1, split-K
+    (16, 2048, 1000),
+    (127, 4096, 1000),
+    (200, 1024, 1001),               # N not a multiple of any tile
+    (128, 16, 1000),                 # K = 16: one zero-filled K tile
+    (128, 2432, 1000),               # 19 K tiles: a shorter last split
 ]
-
-
 def _int8_inputs(dev, M, K, N, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     a = torch.randint(-127, 128, (M, K), generator=g, device=dev,
@@ -675,7 +765,59 @@ def test_int8_matmul_routes_cuda_tensors_to_the_kernels(dev):
         "kernels.select.int8_matmul.cuda": 2}
     assert common.launch_counts() == {
         "kernels.launch.int8_matmul": 1,
-        "kernels.launch.int8_matmul_dequant": 1}
+        "kernels.launch.int8_matmul.wgmma": 1,
+        "kernels.launch.int8_matmul_dequant": 1,
+        "kernels.launch.int8_matmul_dequant.wgmma": 1}
+
+
+@pytest.mark.parametrize("M,K,N,offset,variant", [
+    (128, 2048, 1000, 0, "wgmma"),   # fc1: split-K
+    (2048, 2048, 2048, 0, "wgmma"),
+    (777, 301, 1001, 0, "mma"),      # K odd
+    (70, 64, 40, 3, "mma"),          # an offset view
+])
+def test_int8_matmul_variant_by_layout(dev, M, K, N, offset, variant):
+    """The planner's variant is the one that launches, in both forms, and
+    the other variant, launched directly, gives the same bits where it
+    takes the input."""
+    a, b, sa, sb = _int8_inputs(dev, M, K + offset, N)
+    a = a[:, offset:offset + K]
+    b = b[:, :K]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = plan_int8_matmul(M, N, K, sms, variant == "wgmma")
+    assert plan.variant == variant
+    for scales in ((None, None), (sa, sb)):
+        common.reset_counts()
+        got = _int8_matmul_cuda(a, b, *scales)
+        name = "int8_matmul" if scales[0] is None else "int8_matmul_dequant"
+        want_counts = {"kernels.launch.%s" % name: 1,
+                       "kernels.launch.%s.%s" % (name, variant): 1}
+        if plan.splits > 1:          # the kernel that adds the splits
+            want_counts["kernels.launch.%s.reduce" % name] = 1
+        assert common.launch_counts() == want_counts
+        want = int8_matmul_reference(a.contiguous(), b.contiguous(), *scales)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        other = _int8_mm_mma_cuda(a, b, *scales)
+        assert torch.equal(other.view(torch.int32), want.view(torch.int32))
+        if variant == "mma":
+            with pytest.raises(ValueError, match="wgmma variant"):
+                _int8_mm_wgmma_cuda(a, b, *scales)
+
+
+def test_int8_matmul_wgmma_split_k_wraps_past_2_31(dev):
+    """Sums past +2^31 and -2^31 wrap in int32 as the plain version's do,
+    through the split-K adds."""
+    M, K, N = 4, 140032, 8
+    a = torch.full((M, K), 127, dtype=torch.int8, device=dev)
+    a[1] = -127
+    b = torch.full((N, K), 127, dtype=torch.int8, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert plan_int8_matmul(M, N, K, sms).splits > 1
+    got = _int8_mm_wgmma_cuda(a, b)
+    want = int8_matmul_reference(a, b)
+    exact = (127 * 127 * K + 2 ** 31) % 2 ** 32 - 2 ** 31
+    assert int(want[0, 0]) == exact and int(want[1, 0]) == -exact
+    assert torch.equal(got, want)
 
 
 def test_int8_matmul_refuses_bad_inputs(dev):

@@ -1,4 +1,4 @@
-"""The flash kernels' two CUDA variants, from the Python side, on the CPU.
+"""The flash kernels' three CUDA variants, from the Python side, on the CPU.
 
 Which variant a dtype / head_dim selects (forward and backward), how a head
 dim the kernels lack is padded to a kernel width with the real head_dim's
@@ -27,7 +27,10 @@ BF16 = torch.bfloat16
     # head dims the kernels lack select by their padded width
     (BF16, 48, "wgmma"), (BF16, 80, "wgmma"), (BF16, 96, "wgmma"),
     (BF16, 33, "wgmma"), (BF16, 8, "simt"), (torch.float32, 48, "simt"),
-    (torch.float32, 96, "simt")])
+    (torch.float32, 96, "simt"),
+    # above 128 every dtype takes the wide variant
+    (BF16, 129, "wide"), (BF16, 256, "wide"), (torch.float32, 160, "wide"),
+    (torch.float32, 320, "wide")])
 def test_variant_by_dtype_and_head_dim(dtype, D, variant):
     """The forward and the backward select alike."""
     assert fa._fwd_variant(dtype, D) == variant
@@ -36,7 +39,8 @@ def test_variant_by_dtype_and_head_dim(dtype, D, variant):
 
 @pytest.mark.parametrize("dtype,D,variant", [
     (BF16, 64, "wgmma"), (BF16, 128, "wgmma"), (BF16, 32, "simt"),
-    (torch.float32, 128, "simt")])
+    (torch.float32, 128, "simt"), (BF16, 256, "wide"),
+    (torch.float32, 192, "wide")])
 def test_flash_cuda_dispatches_by_variant(monkeypatch, dtype, D, variant):
     """``_flash_cuda`` hands the inputs to the launcher its variant names,
     with the caller's arguments."""
@@ -48,8 +52,8 @@ def test_flash_cuda_dispatches_by_variant(monkeypatch, dtype, D, variant):
             return "out"
         return launch
 
-    monkeypatch.setattr(fa, "_flash_wgmma_cuda", launcher("wgmma"))
-    monkeypatch.setattr(fa, "_flash_simt_cuda", launcher("simt"))
+    for name in ("wgmma", "simt", "wide"):
+        monkeypatch.setattr(fa, "_flash_%s_cuda" % name, launcher(name))
     q = torch.zeros(1, 5, 2, D, dtype=dtype)
     assert fa._flash_cuda(q, q, q, False, 0.5, 3) == "out"
     assert calls == [(variant, False, 0.5, 3)]
@@ -58,7 +62,9 @@ def test_flash_cuda_dispatches_by_variant(monkeypatch, dtype, D, variant):
 @pytest.mark.parametrize("D,width", [(1, 16), (16, 16), (17, 32), (32, 32),
                                      (33, 64), (48, 64), (64, 64),
                                      (65, 128), (80, 128), (96, 128),
-                                     (128, 128)])
+                                     (128, 128), (129, 192), (160, 192),
+                                     (192, 192), (256, 256), (257, 320),
+                                     (320, 320)])
 def test_padded_dim(D, width):
     assert fa._padded_dim(D) == width
 
@@ -75,13 +81,15 @@ def _bwd_launchers(monkeypatch, calls):
             return torch.zeros_like(k), torch.zeros_like(v)
         return launch
 
-    for name in ("dq_wgmma", "dkv_wgmma", "dq_simt", "dkv_simt"):
+    for name in ("dq_wgmma", "dkv_wgmma", "dq_simt", "dkv_simt", "dq_wide",
+                 "dkv_wide"):
         monkeypatch.setattr(fa, "_flash_%s_cuda" % name, launcher(name))
 
 
 @pytest.mark.parametrize("dtype,D,variant", [
     (BF16, 64, "wgmma"), (BF16, 128, "wgmma"), (BF16, 32, "simt"),
-    (torch.float32, 128, "simt"), (torch.float32, 64, "simt")])
+    (torch.float32, 128, "simt"), (torch.float32, 64, "simt"),
+    (BF16, 256, "wide"), (torch.float32, 192, "wide")])
 def test_flash_bwd_cuda_dispatches_by_variant(monkeypatch, dtype, D,
                                               variant):
     """``_flash_bwd_cuda`` hands the inputs to the dQ and the dK/dV
@@ -130,13 +138,68 @@ def test_padded_width_and_real_scale_reach_the_launchers(monkeypatch, dtype,
     assert all(g.shape == q.shape and g.is_contiguous() for g in grads)
 
 
-@pytest.mark.parametrize("D", [0, 129, 160, 256])
-def test_head_dims_outside_1_to_128_raise(D):
-    q = torch.zeros(1, 4, 2, D, dtype=BF16)
-    with pytest.raises(ValueError, match="head_dim up to 128"):
+def test_head_dim_zero_raises():
+    """Every head_dim from 1 up runs on the card (padded where the kernels
+    lack it); 0 is the only one refused, forward and backward."""
+    q = torch.zeros(1, 4, 2, 0, dtype=BF16)
+    with pytest.raises(ValueError, match="head_dim 0"):
         fa._flash_cuda(q, q, q)
-    with pytest.raises(ValueError, match="head_dim up to 128"):
+    with pytest.raises(ValueError, match="head_dim 0"):
         fa._flash_bwd_cuda(q, q, q, q, torch.zeros(1, 2, 4), q)
+
+
+@pytest.mark.parametrize("dtype", [BF16, torch.float32])
+@pytest.mark.parametrize("D,width", [(129, 192), (160, 192), (256, 256),
+                                     (320, 320)])
+def test_head_dims_above_128_reach_wide(monkeypatch, dtype, D, width):
+    """Above 128 the forward, dQ and dK/dV go to the wide launchers at the
+    width padded to a multiple of 64, with ``scale`` 1/√D of the real D,
+    and the outputs come back at D."""
+    fwd = []
+
+    def wide(q, k, v, causal, scale, kv_len):
+        fwd.append((q.shape[-1], k.shape[-1], v.shape[-1], scale))
+        return (torch.zeros(q.shape, dtype=q.dtype),
+                torch.zeros(q.shape[0], q.shape[2], q.shape[1]))
+
+    def refuse(*a):
+        raise AssertionError("another variant ran")
+
+    monkeypatch.setattr(fa, "_flash_wide_cuda", wide)
+    monkeypatch.setattr(fa, "_flash_wgmma_cuda", refuse)
+    monkeypatch.setattr(fa, "_flash_simt_cuda", refuse)
+    bwd = []
+    _bwd_launchers(monkeypatch, bwd)
+    q = torch.ones(1, 5, 2, D, dtype=dtype)
+    o, lse = fa._flash_cuda(q, q, q)
+    assert fwd == [(width, width, width, 1.0 / D ** 0.5)]
+    assert o.shape == q.shape and o.is_contiguous()
+    grads = fa._flash_bwd_cuda(q, q, q, o, lse, q)
+    assert [c[:5] for c in bwd] == [
+        ("dq_wide", width, width, True, 1.0 / D ** 0.5),
+        ("dkv_wide", width, width, True, 1.0 / D ** 0.5)]
+    assert all(g.shape == q.shape and g.is_contiguous() for g in grads)
+
+
+def test_wide_launchers_refuse_other_widths_before_any_build(monkeypatch):
+    """The wide launchers take head dims above 128 in multiples of 64 only
+    (the wrapper pads); they raise before they build or count anything."""
+    from mxnet_tpu_torch.ops.kernels import _build, common
+
+    def no_build(*a, **k):
+        raise AssertionError("built a kernel")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    common.reset_counts()
+    lse = torch.zeros(1, 2, 8)
+    for D in (128, 160):
+        q = torch.zeros(1, 8, 2, D)
+        with pytest.raises(ValueError, match="wide variant.*got %d" % D):
+            fa._flash_wide_cuda(q, q, q)
+        for launch in (fa._flash_dq_wide_cuda, fa._flash_dkv_wide_cuda):
+            with pytest.raises(ValueError, match="wide variant.*got %d" % D):
+                launch(q, q, q, q, lse, lse)
+    assert common.launch_counts() == {}
 
 
 @pytest.mark.parametrize("H,D", [(16, 128), (16, 64)])

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, nothing of ``mxnet_tpu``, no silent CPU.
 
-* An AST scan of every module of ``mxnet_tpu_torch/`` and of
-  ``chip_smoke.py`` finds no import of ``jax`` or ``mxnet_tpu``.
+* An AST scan of every module of ``mxnet_tpu_torch/`` and of the scripts
+  that run it on the card (``chip_smoke.py`` and its probes) finds no
+  import of ``jax`` or ``mxnet_tpu``.
 * A child process in which ``jax`` and ``mxnet_tpu`` cannot be imported
   imports the port and serves two tokens on the CPU; another quantizes a
   small symbolic convnet and runs it in int8; a third trains a small
@@ -36,7 +37,8 @@ TINY = dict(vocab_size=97, d_model=64, n_heads=4, n_layers=2, d_ff=128,
 
 def _port_files():
     files = sorted((REPO / "mxnet_tpu_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    return files + [REPO / name for name in (
+        "chip_smoke.py", "module_gate_probe.py", "int8_plan_probe.py")]
 
 
 def _imported_roots(path):

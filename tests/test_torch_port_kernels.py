@@ -315,7 +315,7 @@ def _plain_launchers(monkeypatch):
         return flash_attention_bwd_reference(q, k, v, torch.zeros_like(do),
                                              lse, do, -delta, causal, scale)
 
-    for name in ("wgmma", "simt"):
+    for name in ("wgmma", "simt", "wide"):
         monkeypatch.setattr(fa, "_flash_%s_cuda" % name, fwd)
         monkeypatch.setattr(fa, "_flash_dq_%s_cuda" % name,
                             lambda *a: bwd(*a)[0])
@@ -325,12 +325,18 @@ def _plain_launchers(monkeypatch):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D,width", [(48, 64), (80, 128), (96, 128)])
+@pytest.mark.parametrize("D,width", [(48, 64), (80, 128), (96, 128),
+                                     (160, 192), (256, 256)])
 def test_padded_head_dims_match_pallas_kernels(monkeypatch, D, width, dtype):
     """Head dims the kernels lack go through the CUDA wrappers' padding
     (launchers replaced by the plain versions) and match the JAX package's
     Pallas kernels through the interpreter: o, lse and the VJP with a
-    cotangent on both outputs."""
+    cotangent on both outputs.  The VJP is held on the JAX forward's
+    residuals (o, lse) in every case, and on the port's own forward too
+    except for bf16 above head_dim 128: there the one bf16 rounding in
+    which the two forwards' o may differ enters delta = rowsum(dO∘O) over
+    more than 128 terms, which moves a few cancelling gradient entries
+    past one rounding (D 160: 4 of 11840 dQ entries)."""
     fa, widths = _plain_launchers(monkeypatch)
     B, T, H, causal = 1, 37, 2, True
     q, k, v = _qkv(B, T, T, H, D, dtype)
@@ -342,18 +348,22 @@ def test_padded_head_dims_match_pallas_kernels(monkeypatch, D, width, dtype):
     want = vjp((jnp.asarray(do), jnp.asarray(dlse)))
     tq, tk, tv = (_to_torch(a) for a in (q, k, v))
     o, lse = fa._flash_cuda(tq, tk, tv, causal)
-    got = fa._flash_bwd_cuda(tq, tk, tv, o, lse, _to_torch(do),
-                             _to_torch(dlse), causal)
     assert widths == [width]
     assert o.shape == (B, T, H, D) and o.dtype == tq.dtype
     tol = F32_FLASH_TOL if dtype == "float32" else BF16_ONE_ROUNDING
     np.testing.assert_allclose(_f32(o), _f32(jo), **tol)
     np.testing.assert_allclose(lse.numpy(), _f32(jlse), **F32_FLASH_TOL)
+    residuals = [(_to_torch(jo), _to_torch(jlse))]
+    if dtype == "float32" or D <= 128:
+        residuals.append((o, lse))
     gtol = F32_FLASH_GRAD_TOL if dtype == "float32" else BF16_GRAD_TOL
-    for g, w, name in zip(got, want, "qkv"):
-        assert g.shape == (B, T, H, D) and g.dtype == tq.dtype
-        np.testing.assert_allclose(_f32(g), _f32(w), err_msg="d" + name,
-                                   **gtol)
+    for o_r, lse_r in residuals:
+        got = fa._flash_bwd_cuda(tq, tk, tv, o_r, lse_r, _to_torch(do),
+                                 _to_torch(dlse), causal)
+        for g, w, name in zip(got, want, "qkv"):
+            assert g.shape == (B, T, H, D) and g.dtype == tq.dtype
+            np.testing.assert_allclose(_f32(g), _f32(w), err_msg="d" + name,
+                                       **gtol)
 
 
 XENT_CASES = [
