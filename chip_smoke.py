@@ -45,13 +45,19 @@ Phases, in order; any failure raises and exits non-zero:
 2. build   — ``nvcc`` builds every kernel from ``mxnet_tpu_torch/ops/
    kernels/csrc`` (in parallel), with the ptxas register/spill report and
    one line per instantiation of the tensor-core flash kernels (forward,
-   dQ and dK/dV at head_dim 64 and 128), of the wide flash kernels and of
-   the int8 matmul; none but the int8 ``mma`` kernel may spill;
+   dQ and dK/dV at head_dim 64 and 128), of the wide flash kernels, of
+   the int8 matmul and of the RMSNorm variants; none but the int8 ``mma``
+   kernel may spill;
 3. kernels — each kernel against its plain version at the flagship's
    shapes: max error and tolerance; the device time of the kernel, of the
    plain version and of one PyTorch library call (for the record only),
    each from a CUDA graph of repeated calls replayed between CUDA events;
-   and the card's bound for the same work.  At the two main flash shapes
+   and the card's bound for the same work.  RMSNorm at the main paths'
+   five bf16 shapes and two f32 ones: the planned variant and the others
+   (warp, block, simt) held against the plain version, two calls of each
+   bit-identical, timed in turns beside ``F.rms_norm``; and the plain
+   RMSNorm backward's device time at the training steps' shapes.  At the
+   two main flash shapes
    ([1, 4096, 16, 128] and [1, 8192, 16, 64], causal bf16) the forward's
    and the backward's tensor-core (wgmma) and CUDA-core (simt) variants
    are all held against the plain version and timed in turns; the
@@ -65,13 +71,16 @@ Phases, in order; any failure raises and exits non-zero:
    requests (one ~4000-token prompt crosses the flash gate), a solo
    resubmission must reproduce its batched stream, the kernel counters
    must show the CUDA kernels on the path (every flash forward, one per
-   layer of the long prompt's prefill, through the tensor-core variant),
+   layer of the long prompt's prefill, through the tensor-core variant;
+   every RMSNorm through the vector variants, warp for each prefill bucket
+   the planner gives it, block for the rest),
    and the prefill logits through
    the kernels must match those through the plain versions;
 5. train   — for each training configuration, one warm step and then
    ``TRAIN_STEPS`` timed steps on one fixed batch: losses must be finite
    and fall, the kernel counters must show exactly the expected launches
-   per step and no plain version; then, on the long-context
+   per step (RMSNorm's all through the warp variant) and no plain
+   version; then, on the long-context
    configuration, the loss and every parameter gradient through the
    kernels must match those through the plain versions;
 6. int8    — the fp32 ResNet-50 graph at batch 128 (one warm forward, then
@@ -145,6 +154,16 @@ SERVE_FLASH_LAUNCHES = 4
 # dense rounds it), and one-ulp flips (2^-8 relative) compound over 4 layers
 LOGITS_ATOL = 5e-2
 
+# RMSNorm at the main paths' shapes, bf16 (N, E): decode at 7-8 streams
+# (the slot bucket of 8), the 4000-token prompt (which prefills at its 4096
+# bucket), 4096 rows, the flagship step (8 x 1024 rows), the long-context
+# step (8192 rows of 1024); then the two f32 shapes timed since the first
+# port, and the plain backward at the two training steps' shapes
+RMSNORM_SHAPES = ((8, 2048), (4000, 2048), (4096, 2048), (8192, 2048),
+                  (8192, 1024))
+RMSNORM_F32_SHAPES = ((4096, 2048), (8, 2048))
+RMSNORM_BWD_SHAPES = ((8192, 2048), (8192, 1024))
+
 # the training configurations: (name, config, batch, sequence length)
 LONGCTX = dict(vocab_size=32000, d_model=1024, n_heads=16, n_layers=4,
                d_ff=4096, max_len=8192, dtype="bfloat16", remat=True)
@@ -156,14 +175,17 @@ TRAIN_CELLS = (
 TRAIN_STEPS = 3
 # kernel launches per training step, from the code: RMSNorm twice per block
 # and once before the logits, and with remat once more per block for the
-# recomputed forward; flash forward per block (twice with remat), every
+# recomputed forward, every one through the warp variant (8192 rows); flash
+# forward per block (twice with remat), every
 # one through the tensor-core variant (bf16, head_dim 64), dQ and dK/dV
 # once per block, also through the tensor-core variant; the softmax
 # cross-entropy once each way
 EXPECTED_LAUNCHES = {
-    "flagship_b8_t1024": {"fused_rmsnorm": 9, "fused_softmax_xent": 1,
+    "flagship_b8_t1024": {"fused_rmsnorm": 9, "fused_rmsnorm.warp": 9,
+                          "fused_softmax_xent": 1,
                           "fused_softmax_xent_bwd": 1},
-    "longctx_b1_t8192": {"fused_rmsnorm": 17, "flash_attention": 8,
+    "longctx_b1_t8192": {"fused_rmsnorm": 17, "fused_rmsnorm.warp": 17,
+                         "flash_attention": 8,
                          "flash_attention.wgmma": 8,
                          "flash_attention_dq": 4, "flash_attention_dkv": 4,
                          "flash_attention_dq.wgmma": 4,
@@ -449,10 +471,10 @@ def phase_build():
     print("build: %d kernel source(s) in %.1f s" % (len(built), wall),
           flush=True)
     # each instantiation's registers and spills: the tensor-core flash
-    # kernels, the wide flash kernels and the int8 matmul, none of which
-    # may spill but the int8 mma kernel
+    # kernels, the wide flash kernels, the int8 matmul and the RMSNorm
+    # variants, none of which may spill but the int8 mma kernel
     for src in ("flash_attention_wgmma", "flash_attention_bwd_wgmma",
-                "flash_attention_wide", "int8_matmul"):
+                "flash_attention_wide", "int8_matmul", "rmsnorm"):
         for kernel, line in _ptxas_summary(built[src]["log"]):
             print("build %s %s" % (src, line), flush=True)
             if kernel != "int8_mm_kernel":
@@ -464,7 +486,8 @@ def phase_build():
 def _ptxas_summary(log):
     """``(kernel, line)`` per kernel instantiation of a ptxas ``-v`` log:
     the kernel, its template arguments (a head_dim; a column tile and the
-    dequant flag; a dtype), registers, spills and stack."""
+    dequant flag; a dtype, vectors a thread and warps a row), registers,
+    spills and stack."""
     out, name, props = [], None, ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -473,11 +496,14 @@ def _ptxas_summary(log):
             props = ln.strip()
         elif "Used" in ln and "registers" in ln and name is not None:
             # the last length-prefixed name before the template arguments
-            m = re.search(r".*\d((?:flash|int8)_\w*?_kernel)I(.*?)E+v",
-                          name)
+            m = re.search(
+                r".*\d((?:flash|int8|rmsnorm)_\w*?_kernel)I(.*?)E+v", name)
             kernel, args = (m.group(1), m.group(2)) if m else ("?", "?")
-            args = (args.replace("13__nv_bfloat16", "bf16").replace("Li", "")
-                    .replace("Lb", "b").replace("E", ","))
+            args = args.replace("13__nv_bfloat16", "bf16,")
+            if args.startswith("f"):                        # float
+                args = "f32," + args[1:]
+            args = (args.replace("Li", "").replace("Lb", "b")
+                    .replace("E", ",").rstrip(","))
             out.append((kernel, "%s<%s>: %s; %s" % (
                 kernel, args, ln.split(":", 1)[1].strip(), props)))
             name = None
@@ -545,36 +571,96 @@ def _bound(flops, nbytes, dtype):
 
 
 def _rmsnorm_case(shape, dtype_name, gen):
+    """RMSNorm at ``shape``: the variant ``plan_rmsnorm`` takes, and each
+    other variant forced, held against the plain version (and two calls of
+    each bit-identical; the routed call bit-identical to its variant), then
+    timed in turns, the planned variant first and last (p, a, b, b, a, p),
+    beside ``F.rms_norm``.  ``ms`` is the planned variant's mean of its two
+    turns."""
     import torch
     import torch.nn.functional as F
-    from mxnet_tpu_torch.ops.kernels import layers
+    from mxnet_tpu_torch.ops.kernels import common, layers
 
     dt = getattr(torch, dtype_name)
     N, E = shape
     x = torch.randn(shape, generator=gen, device="cuda").to(dt)
     scale = (1 + 0.1 * torch.randn(E, generator=gen, device="cuda")).to(dt)
-    got = layers._rmsnorm_cuda(x, scale)
-    ref = layers.fused_rmsnorm_reference(x, scale)
-    torch.cuda.synchronize()
+    plan = layers.plan_rmsnorm(N, E, dt, E, 16, common.sm_count(x.device))
+    fns = {"warp": layers._rmsnorm_warp_cuda,
+           "block": layers._rmsnorm_block_cuda,
+           "simt": layers._rmsnorm_simt_cuda}
+    order = [plan.variant] + [v for v in fns if v != plan.variant]
     # f32: rsqrtf (<= 2 ulp) and another summation order; bf16: each of
     # the two roundings to bf16 may flip one ulp (2^-8 relative)
     atol, rtol = (1e-5, 1e-5) if dtype_name == "float32" else (1e-6, 2**-6)
-    err, ok = _err(got, ref, atol, rtol)
+    ref = layers.fused_rmsnorm_reference(x, scale)
+    bits = torch.int32 if dtype_name == "float32" else torch.int16
+    routed = layers._rmsnorm_cuda(x, scale)
+    errs, oks, repeat = {}, {}, {}
+    for v in order:
+        a, b = fns[v](x, scale), fns[v](x, scale)
+        torch.cuda.synchronize()
+        errs[v], oks[v] = _err(a, ref, atol, rtol)
+        repeat[v] = bool(torch.equal(a.view(bits), b.view(bits)))
+        if v == plan.variant:
+            repeat["routed"] = bool(torch.equal(a.view(bits),
+                                                routed.view(bits)))
+        del a, b
+    del routed
     isz = x.element_size()
     bound, by = _bound(4.0 * N * E, (2 * N * E + E) * isz, dtype_name)
     args = _copies((x, scale))
+    turns = {}
+    for v in order + order[::-1]:
+        turns.setdefault(v, []).append(_time_ms(fns[v], args))
+    lib_ms = _time_ms(
+        lambda x, s: F.rms_norm(x, (E,), weight=s, eps=1e-6), args)
+    # a copy of x into a new tensor: the same bytes through the same
+    # timing, so the rate the card reaches for them
+    copy_ms = _time_ms(lambda x, s: torch.empty_like(x).copy_(x), args)
+    ms = statistics.mean(turns[plan.variant])
     rec = {
         "kernel": "fused_rmsnorm", "shape": list(shape), "dtype": dtype_name,
-        "max_abs_err": err, "atol": atol, "rtol": rtol, "ok": ok,
-        "ms": _time_ms(layers._rmsnorm_cuda, args),
+        "variant": plan.variant, "plan": plan._asdict(),
+        "max_abs_err": errs[plan.variant], "variant_max_abs_err": errs,
+        "atol": atol, "rtol": rtol, "bit_identical": repeat,
+        "ok": all(oks.values()) and all(repeat.values()),
+        "ms": ms, "ms_turns": turns,
+        **{"%s_ms" % v: statistics.mean(t) for v, t in turns.items()},
         "plain_ms": _time_ms(layers.fused_rmsnorm_reference, args),
-        "library_ms": _time_ms(
-            lambda x, s: F.rms_norm(x, (E,), weight=s, eps=1e-6), args),
-        "bound_ms": bound, "bound_by": by,
+        "library_ms": lib_ms, "library": "F.rms_norm",
+        "bound_ms": bound, "bound_by": by, "ms_over_bound": ms / bound,
+        "ms_over_library": ms / lib_ms, "copy_ms": copy_ms,
+        "ms_over_copy": ms / copy_ms,
     }
     _emit(rec)
-    _check(ok, "fused_rmsnorm %s %s disagrees with its plain version "
-           "(max abs err %g)" % (shape, dtype_name, err))
+    _check(rec["ok"], "fused_rmsnorm %s %s disagrees with its plain version "
+           "or repeats differ (max abs err %s, bit-identical %s)"
+           % (shape, dtype_name, errs, repeat))
+    return rec
+
+
+def _rmsnorm_bwd_plain_case(shape, gen):
+    """The device time of the plain RMSNorm backward
+    (``rmsnorm_bwd_reference``, the port's backward on every device) at a
+    training step's shape, bf16, beside its byte bound: x and g read, dx
+    written, scale read and dscale written once.  For the record: the
+    backward has no kernel."""
+    import torch
+    from mxnet_tpu_torch.ops.kernels import layers
+
+    N, E = shape
+    x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    scale = (1 + 0.1 * torch.randn(E, generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    bound, by = _bound(10.0 * N * E, (3 * N * E + 2 * E) * 2, "bfloat16")
+    ms = _time_ms(lambda x, s, g: layers.rmsnorm_bwd_reference(x, s, g),
+                  _copies((x, scale, g)))
+    rec = {"kernel": "rmsnorm_bwd_reference (plain torch, no kernel)",
+           "shape": list(shape), "dtype": "bfloat16", "ms": ms,
+           "bound_ms": bound, "bound_by": by, "ms_over_bound": ms / bound}
+    _emit(rec)
     return rec
 
 
@@ -986,11 +1072,16 @@ def phase_kernels():
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     main = {}
-    for shape in ((4096, 2048), (8, 2048)):
-        for dt in ("bfloat16", "float32"):
-            rec = _rmsnorm_case(shape, dt, gen)
-            if shape == (4096, 2048) and dt == "bfloat16":
-                main["fused_rmsnorm"] = rec
+    for shape in RMSNORM_SHAPES:
+        rec = _rmsnorm_case(shape, "bfloat16", gen)
+        if shape == (4096, 2048):
+            main["fused_rmsnorm"] = rec
+        elif shape == (8, 2048):                     # decode
+            main["fused_rmsnorm.block"] = rec
+    for shape in RMSNORM_F32_SHAPES:
+        _rmsnorm_case(shape, "float32", gen)
+    for shape in RMSNORM_BWD_SHAPES:
+        _rmsnorm_bwd_plain_case(shape, gen)
     main["flash_attention"] = _flash_case(1, 4096, 4096, 16, 128, True,
                                           "bfloat16", gen, variants=True)
     _flash_case(1, 4000, 4000, 16, 128, True, "bfloat16", gen)
@@ -1063,7 +1154,9 @@ def phase_serve(dev):
     import torch
     from mxnet_tpu_torch import (GenerationConfig, GenerationServer,
                                  TransformerConfig, TransformerLM)
+    from mxnet_tpu_torch.generation import _pick_bucket
     from mxnet_tpu_torch.ops.kernels import common
+    from mxnet_tpu_torch.ops.kernels.layers import plan_rmsnorm
 
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1111,6 +1204,26 @@ def phase_serve(dev):
                "%s never ran its CUDA kernel on the main path" % name)
     _check(not any(k.endswith(".reference") for k in selects),
            "a plain version ran on the main path: %s" % selects)
+    # RMSNorm, twice per layer at each prefill's bucket and once on its
+    # last row, and twice per layer and once more per decode iteration at
+    # the slot bucket: only the vector variants, warp exactly for the
+    # prefill buckets the planner gives it
+    eng = srv.engine
+    n_layers, E = FLAGSHIP["n_layers"], FLAGSHIP["d_model"]
+    sms = common.sm_count(torch.device("cuda", 0))
+    warp = 2 * n_layers * sum(
+        plan_rmsnorm(_pick_bucket(eng.prefill_chain, len(p)), E,
+                     torch.bfloat16, E, 16, sms).variant == "warp"
+        for p in prompts + [prompts[SOLO_INDEX]])
+    rms = {k: v for k, v in launches.items()
+           if k.startswith("kernels.launch.fused_rmsnorm")}
+    total = rms.get("kernels.launch.fused_rmsnorm", 0)
+    _check(rms == {"kernels.launch.fused_rmsnorm": total,
+                   "kernels.launch.fused_rmsnorm.warp": warp,
+                   "kernels.launch.fused_rmsnorm.block": total - warp}
+           and total > warp,
+           "RMSNorm launches on the serve path %s, expected %d through the "
+           "warp variant and the rest through block" % (rms, warp))
     flash = {k: v for k, v in launches.items()
              if k.startswith("kernels.launch.flash_attention")}
     _check(flash == {"kernels.launch.flash_attention": SERVE_FLASH_LAUNCHES,
@@ -2033,6 +2146,9 @@ def phase_profile_module(trained):
 _CSRC = "mxnet_tpu_torch/ops/kernels/csrc/"
 # the variants of each kernel, by source
 VARIANT_SOURCES = {
+    "fused_rmsnorm": {"warp": _CSRC + "rmsnorm.cu",
+                      "block": _CSRC + "rmsnorm.cu",
+                      "simt": _CSRC + "rmsnorm.cu"},
     "flash_attention": {"wgmma": _CSRC + "flash_attention_wgmma.cu",
                         "simt": _CSRC + "flash_attention.cu",
                         "wide": _CSRC + "flash_attention_wide.cu"},
@@ -2050,7 +2166,9 @@ VARIANT_SOURCES = {
 
 
 def _case_shape(rec):
-    """A kernel record's shape: q's [B, T, H, D], or [M, K, N]."""
+    """A kernel record's shape: [N, E], q's [B, T, H, D], or [M, K, N]."""
+    if "shape" in rec:
+        return rec["shape"]
     return rec["q"] if "q" in rec else [rec["M"], rec["K"], rec["N"]]
 
 
@@ -2072,6 +2190,8 @@ def main():
                             lambda exe=exe: exe.forward(is_train=False))
         phase_profile_module(trained)
     sources = {
+        # the warp variant, which the prefills and training steps take;
+        # decode takes block (VARIANT_SOURCES)
         "fused_rmsnorm": ("mxnet_tpu_torch/ops/kernels/csrc/rmsnorm.cu",
                           "mxnet_tpu/ops/pallas/layers.py:31"),
         # the tensor-core variant, which every main path's forward takes

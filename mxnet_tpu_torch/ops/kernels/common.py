@@ -57,6 +57,13 @@ def select_impl(name, x):
     return entry[impl], impl
 
 
+def sm_count(device):
+    """The SM count of CUDA ``device``: what the planners size grids by."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def count_launch(name):
     """Called by a CUDA wrapper at its kernel launch, and nowhere else."""
     _bump("kernels.launch.%s" % name)

@@ -45,7 +45,7 @@ import fractions
 import torch
 
 from . import _build
-from .common import count_launch, register_impl, select_impl
+from .common import count_launch, register_impl, select_impl, sm_count
 
 __all__ = ["int8_matmul", "int8_matmul_reference", "plan_int8_matmul"]
 
@@ -219,10 +219,6 @@ def _operands(a, b, scale_a, scale_b):
     return a, b, s, out
 
 
-def _num_sms(device):
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _launch(variant, a, b, s, out, plan=None):
     """Launch ``variant`` on operands checked by :func:`_operands` (wgmma
     with ``plan``, by default :func:`plan_int8_matmul`'s); counts the
@@ -253,9 +249,9 @@ def _launch(variant, a, b, s, out, plan=None):
         rc = lib.mxt_int8_mm_mma(a.data_ptr(), b.data_ptr(), *sp,
                                  out.data_ptr(), M, N, K, a.stride(0),
                                  b.stride(0), out.stride(0),
-                                 _num_sms(a.device), stream)
+                                 sm_count(a.device), stream)
     else:
-        plan = plan or plan_int8_matmul(M, N, K, _num_sms(a.device))
+        plan = plan or plan_int8_matmul(M, N, K, sm_count(a.device))
         ws = None            # split-K: one int32 [M, N] slice per split
         if plan.splits > 1:
             ws = torch.empty(plan.splits * M * N, dtype=torch.int32,
@@ -294,7 +290,7 @@ def _int8_matmul_cuda(a, b, scale_a=None, scale_b=None):
     (M, K), N = a.shape, b.shape[0]
     if not (M and N and K):
         return _launch("mma", a, b, s, out)      # empty: nothing to launch
-    plan = plan_int8_matmul(M, N, K, _num_sms(a.device), _tma_aligned(a, b))
+    plan = plan_int8_matmul(M, N, K, sm_count(a.device), _tma_aligned(a, b))
     return _launch(plan.variant, a, b, s, out, plan)
 
 

@@ -18,7 +18,11 @@ dense forward, an independent formula, within 2^-6 of each gradient's
 largest entry (in bf16 that formula takes delta from the unrounded O).
 The int8 matmul, both forms and both variants (wgmma with its split-K, and
 mma), is bit-exact against its plain version (an exact int32 sum in any
-order; one rounding to f32 and one f32 product in the dequant).  Head dims
+order; one rounding to f32 and one f32 product in the dequant).  Each
+RMSNorm variant (warp, block, simt), planned and forced, is held to its
+plain version at those tolerances at the main paths' shapes and at the
+edges (odd E, offset views, strided rows, 1-8 rows, 128 KB rows), two
+calls bit-identical, with 0 ptxas spills in every instantiation.  Head dims
 above 128 take the flash kernels' wide variant, held to the plain versions
 at the padded cases' tolerances, and a TransformerLM with head_dim 256
 prefills through it as through the plain versions.
@@ -53,9 +57,11 @@ from mxnet_tpu_torch.ops.kernels.flash_attention import (
     flash_attention, flash_attention_bwd_reference, flash_attention_lse,
     flash_attention_reference)
 from mxnet_tpu_torch.ops.kernels.layers import (
-    _rmsnorm_cuda, _xent_bwd_cuda, _xent_fwd_cuda, fused_rmsnorm,
-    fused_rmsnorm_reference, fused_softmax_xent, softmax_xent_bwd_reference,
-    softmax_xent_reference)
+    _rmsnorm_block_cuda, _rmsnorm_cuda, _rmsnorm_simt_cuda,
+    _rmsnorm_warp_cuda, _xent_bwd_cuda, _xent_fwd_cuda, fused_rmsnorm,
+    fused_rmsnorm_reference, fused_softmax_xent, plan_rmsnorm,
+    softmax_xent_bwd_reference, softmax_xent_reference)
+from mxnet_tpu_torch.ops.kernels import _build
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_ONE_ROUNDING = dict(rtol=2.0 ** -7, atol=1e-5)
@@ -108,7 +114,139 @@ def test_rmsnorm_routes_to_kernel_and_counts_launches(dev):
     fused_rmsnorm(x, torch.ones(64, device=dev))
     assert common.selection_counts() == {
         "kernels.select.fused_rmsnorm.cuda": 1}
-    assert common.launch_counts() == {"kernels.launch.fused_rmsnorm": 1}
+    # few rows: one CTA a row
+    assert common.launch_counts() == {"kernels.launch.fused_rmsnorm": 1,
+                                      "kernels.launch.fused_rmsnorm.block": 1}
+    # more rows than SMs: rows to warps; an offset view: the scalar kernel
+    common.reset_counts()
+    fused_rmsnorm(torch.randn(4096, 64, device=dev),
+                  torch.ones(64, device=dev))
+    fused_rmsnorm(torch.randn(8, 65, device=dev)[:, 1:],
+                  torch.ones(64, device=dev))
+    assert common.launch_counts() == {"kernels.launch.fused_rmsnorm": 2,
+                                      "kernels.launch.fused_rmsnorm.warp": 1,
+                                      "kernels.launch.fused_rmsnorm.simt": 1}
+    assert common.selection_counts() == {
+        "kernels.select.fused_rmsnorm.cuda": 2}
+
+
+# (N, E): the main paths' shapes (decode, the 4000-token prompt's prefill,
+# a 4096-row prefill, the flagship step, the long-context step)
+RMSNORM_MAIN = [(8, 2048), (4000, 2048), (4096, 2048), (8192, 2048),
+                (8192, 1024)]
+RMSNORM_VARIANTS = {"warp": _rmsnorm_warp_cuda, "block": _rmsnorm_block_cuda,
+                    "simt": _rmsnorm_simt_cuda, "planned": _rmsnorm_cuda}
+
+
+def _rmsnorm_inputs(dev, shape, dtype, seed=0, scale_shift=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    scale = (1 + 0.1 * torch.randn(shape[-1] + scale_shift, generator=g,
+                                   device=dev)).to(dtype)
+    return x, scale[scale_shift:]
+
+
+def _rmsnorm_check(fn, x, scale):
+    """``fn`` against the plain version at the stated tolerances, and two
+    calls bit-identical."""
+    got = fn(x, scale)
+    again = fn(x, scale)
+    ref = fused_rmsnorm_reference(x, scale)
+    assert got.shape == x.shape and got.dtype == x.dtype
+    tol = F32_TOL if x.dtype == torch.float32 else BF16_TWO_ROUNDINGS
+    np.testing.assert_allclose(_np(got), _np(ref), **tol)
+    assert torch.equal(got.view(torch.int16 if x.dtype == torch.bfloat16
+                                else torch.int32),
+                       again.view(torch.int16 if x.dtype == torch.bfloat16
+                                  else torch.int32))
+
+
+@pytest.mark.parametrize("variant", list(RMSNORM_VARIANTS))
+@pytest.mark.parametrize("shape", RMSNORM_MAIN)
+def test_rmsnorm_variants_at_main_path_shapes(dev, shape, variant):
+    x, scale = _rmsnorm_inputs(dev, shape, torch.bfloat16)
+    _rmsnorm_check(RMSNORM_VARIANTS[variant], x, scale)
+
+
+@pytest.mark.parametrize("variant", list(RMSNORM_VARIANTS))
+@pytest.mark.parametrize("shape", [(4096, 2048), (8, 2048), (1000, 1000)])
+def test_rmsnorm_variants_f32(dev, shape, variant):
+    x, scale = _rmsnorm_inputs(dev, shape, torch.float32)
+    _rmsnorm_check(RMSNORM_VARIANTS[variant], x, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (1, 2048), (2, 2048), (3, 2048), (5, 2048), (7, 2048),  # N = 1 ... 8
+    (8, 8), (133, 8), (300, 1000), (4000, 1000),   # short rows, masked lanes
+    (200, 4096), (200, 8192), (3, 16384), (140, 16384),  # row groups, block
+    (2, 65536), (9, 65536),                        # 128 / 256 KB rows
+    (6, 7), (300, 7), (300, 2047), (1, 1),         # odd E: simt only
+    (0, 2048),                                     # no rows
+])
+def test_rmsnorm_variants_at_edges(dev, shape, dtype):
+    """Each variant, forced, where it takes the layout (and raises where it
+    cannot), and the planned one."""
+    x, scale = _rmsnorm_inputs(dev, shape, dtype)
+    n, E = shape
+    plan = plan_rmsnorm(n, E, dtype, E, 16, common.sm_count(dev))
+    chunks = E * x.element_size() / 16
+    for variant, fn in RMSNORM_VARIANTS.items():
+        takes = {"warp": chunks == int(chunks) and chunks <= 1024,
+                 "block": chunks == int(chunks) and chunks <= 8192,
+                 "simt": True, "planned": True}[variant]
+        if not takes:
+            with pytest.raises(ValueError, match=variant):
+                fn(x, scale)
+            continue
+        common.reset_counts()
+        _rmsnorm_check(fn, x, scale)
+        if variant == "planned" and n:
+            assert common.launch_counts()[
+                "kernels.launch.fused_rmsnorm.%s" % plan.variant] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_offset_views_and_strided_rows(dev, dtype):
+    """Strided rows of whole vectors take the vector variants; an offset
+    view (a base off 16 bytes) or a row stride off whole vectors takes the
+    scalar kernel, which the vector ones refuse."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    big = torch.randn(300, 2048 + 64, generator=g, device=dev).to(dtype)
+    scale = (1 + 0.1 * torch.randn(2048, generator=g, device=dev)).to(dtype)
+    strided = big[:, :2048]                       # row stride 2112
+    offset = big[:, 1:2049]                       # base 2 or 4 bytes off
+    odd_stride = torch.randn(300, 2049, generator=g, device=dev).to(
+        dtype)[:, :2048]
+    for x, vector in ((strided, True), (big[:8, 32:2080], True),
+                      (offset, False), (odd_stride, False),
+                      (big[:7, 1:2049], False)):
+        for variant, fn in RMSNORM_VARIANTS.items():
+            if not vector and variant in ("warp", "block"):
+                with pytest.raises(ValueError, match="16-byte"):
+                    fn(x, scale)
+                continue
+            common.reset_counts()
+            _rmsnorm_check(fn, x, scale)
+            if variant == "planned":
+                launched = common.launch_counts()
+                assert ("kernels.launch.fused_rmsnorm.simt" in launched) \
+                    == (not vector)
+    # a scale off 16 bytes: the scalar kernel too
+    x, s = _rmsnorm_inputs(dev, (4096, 2048), dtype, scale_shift=1)
+    common.reset_counts()
+    _rmsnorm_check(_rmsnorm_cuda, x, s)
+    assert common.launch_counts()["kernels.launch.fused_rmsnorm.simt"] == 2
+
+
+def test_rmsnorm_kernels_do_not_spill(dev):
+    """ptxas: every RMSNorm kernel instantiation, 0 bytes of spills."""
+    log = _build.build(["rmsnorm"])["rmsnorm"]["log"]
+    lines = [ln for ln in log.splitlines() if "spill stores" in ln]
+    # simt 2, warp 6 x 2, block 4 x 2 instantiations
+    assert len(lines) == 22, log
+    assert all(" 0 bytes spill stores, 0 bytes spill loads" in ln
+               for ln in lines), log
 
 
 def test_rmsnorm_refuses_other_dtypes(dev):

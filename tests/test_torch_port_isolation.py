@@ -38,7 +38,8 @@ TINY = dict(vocab_size=97, d_model=64, n_heads=4, n_layers=2, d_ff=128,
 def _port_files():
     files = sorted((REPO / "mxnet_tpu_torch").rglob("*.py"))
     return files + [REPO / name for name in (
-        "chip_smoke.py", "module_gate_probe.py", "int8_plan_probe.py")]
+        "chip_smoke.py", "module_gate_probe.py", "int8_plan_probe.py",
+        "rmsnorm_plan_probe.py")]
 
 
 def _imported_roots(path):
