@@ -28,7 +28,12 @@ on the card:
 * user kernels — CUDA source compiled at runtime by ``mx.rtc`` (NVRTC)
   and launched from a ``CustomOp`` (``rtc_softmax``) on that path: in
   ``example/numpy-ops/custom_softmax.py``'s training and as ResNet-50's
-  head.
+  head;
+* imperative training — ``autograd`` and Gluon: bench.py's train leg
+  (``gluon.model_zoo.vision.resnet50_v1``, batch 128, bf16 with f32
+  master weights, hybridized, ``gluon.contrib.FusedTrainStep``) and
+  BASELINE.json's Gluon ResNet-18 CIFAR-10 config (record -> backward ->
+  ``Trainer.step``); no hand-written kernel is on this path.
 
 Run from the root of the repository, with no arguments::
 
@@ -36,7 +41,8 @@ Run from the root of the repository, with no arguments::
 
 ``--profile`` adds a last phase that traces one long prefill, a few decode
 iterations, one training step of each training configuration, one fp32
-and one int8 ResNet-50 forward and one ResNet-50 Module training step with
+and one int8 ResNet-50 forward, one ResNet-50 Module training step and
+one Gluon ``FusedTrainStep`` at the gluon_train settings with
 ``torch.profiler`` (where the device time goes).
 
 Phases, in order; any failure raises and exits non-zero:
@@ -114,6 +120,19 @@ Phases, in order; any failure raises and exits non-zero:
    swapped for each: every gradient within ``RTC_STEP_REL``, one launch of
    each kernel; and the two kernels against numpy_softmax at [32, 1000]
    and [64, 4], timed.
+
+9. gluon_train — bench.py's train leg at its settings (see GLUON_*): 3
+   warm ``FusedTrainStep`` calls, then ``GLUON_TIMED`` timed ones, each
+   ending in a synchronize: ms per step, img/s, peak memory, the losses;
+   gates: finite losses, one update per step, bf16 weights beside f32
+   BatchNorm Parameters, one f32 master per bf16 weight, a bf16 loss of
+   shape (128,);
+10. gluon_cifar — resnet18_v1 thumbnail, f32, hybridized, 20 steps of
+   record -> backward -> ``Trainer.step`` on one seeded batch of 128: the
+   loss must fall below ``CIFAR_FALL`` times the first;
+11. gluon_step_card_vs_cpu — one Gluon step at batch 4: float64 on the
+   card against the CPU within ``MODULE_CHECK_REL_F64``, f32 hybridized
+   against not on the card within ``GLUON_HYBRID_REL``.
 
 Each main path (serve, each training configuration, the timed int8
 forwards, the ``quantized_dense`` call, ``Module.fit``, the example's
@@ -270,6 +289,36 @@ RTC_FWD_ATOL, RTC_FWD_RTOL = 1e-7, 1e-5
 # tensors whose norm is below this share of their group's joint norm are
 # reported, not gated, by the step comparisons (see _compare_tensors)
 CANCELLED_SHARE = 1e-3
+
+# the Gluon phases.  gluon_train is bench.py's train leg (bench.py:392-470)
+# at its settings: resnet50_v1(classes=1000), Xavier, RandomState(0)'s
+# rand(128, 3, 224, 224) and randint(0, 1000, 128), deferred init in f32
+# under autograd.pause(), net.cast("bfloat16"), hybridize(static_alloc,
+# static_shape), SoftmaxCrossEntropyLoss, SGD lr 0.05 / momentum 0.9 with
+# multi_precision, gluon.contrib.FusedTrainStep: 3 warm steps, then
+# GLUON_TIMED timed ones, each ending in a synchronize
+GLUON_BATCH = 128
+GLUON_SIZE = 224
+GLUON_WARM = 3
+GLUON_TIMED = 10
+GLUON_SGD = {"learning_rate": 0.05, "momentum": 0.9,
+             "multi_precision": True}
+# gluon_cifar: BASELINE.json's "Gluon HybridBlock ResNet-18 CIFAR-10":
+# resnet18_v1(classes=10, thumbnail=True), f32, hybridized, one seeded
+# batch of 128 3x32x32 images, record -> backward -> Trainer.step(128),
+# SGD 0.1 / 0.9 / wd 1e-4; the loss of the last step must be below
+# CIFAR_FALL times the first's
+CIFAR_BATCH = 128
+CIFAR_STEPS = 20
+CIFAR_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+CIFAR_FALL = 0.5
+# gluon_step_card_vs_cpu: one Gluon step (record, backward, Trainer.step)
+# of resnet18_v1 thumbnail at batch 4 from the same seeded weights, in
+# float64 on the card and on the CPU (gradients, running statistics and
+# updates w_new - w_old within MODULE_CHECK_REL_F64), and in f32 on the
+# card hybridized against not (within GLUON_HYBRID_REL)
+GLUON_CHECK_BATCH = 4
+GLUON_HYBRID_REL = 1e-5
 
 # User code: the kernels a user of mx.rtc writes, and the CustomOps over
 # them.  One CTA per row; max and sum in f32 by warp shuffles.
@@ -2047,6 +2096,211 @@ def phase_rtc(dev, trained):
     return [fit_launches, heads["rtc_softmax_launches"]], main
 
 
+def _gluon_weights(mx, vision, prefix, seed):
+    """Xavier-initialized resnet18_v1 thumbnail weights, made on the CPU
+    from ``seed``, as numpy."""
+    import numpy as np
+
+    mx.random.seed(seed)
+    net = vision.resnet18_v1(classes=10, thumbnail=True, prefix=prefix)
+    net.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    with mx.autograd.pause():
+        net(mx.nd.zeros((1, 3, 32, 32), ctx=mx.cpu()))
+    return {n: v.astype(np.float32)
+            for n, v in net.collect_params().save_dict().items()}
+
+
+def _gluon_step(mx, ctx, weights, x, y, dtype, hybridize, prefix):
+    """One record -> backward -> Trainer.step of resnet18_v1 thumbnail on
+    ``ctx`` in ``dtype`` from numpy ``weights``: the gradients, the running
+    statistics after the step and the updates ``w_new - w_old``, as
+    numpy."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    net = vision.resnet18_v1(classes=10, thumbnail=True, prefix=prefix)
+    net.load_dict(weights, ctx=ctx)
+    if dtype != "float32":
+        net.cast(dtype)
+    if hybridize:
+        net.hybridize(static_alloc=True, static_shape=True)
+    params = net.collect_params()
+    tr = gluon.Trainer(params, "sgd", dict(CIFAR_SGD))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    xd = mx.nd.NDArray(torch.from_numpy(x.astype(dtype)).to(
+        ctx.torch_device()))
+    with mx.autograd.record():
+        loss = loss_fn(net(xd), mx.nd.array(y, ctx=ctx))
+    loss.backward()
+    grads = {n: p.grad().asnumpy() for n, p in params.items()
+             if p.grad_req != "null"}
+    tr.step(x.shape[0])
+    after = {n: p.data().asnumpy().astype(np.float64)
+             for n, p in params.items()}
+    stats = {n: v for n, v in after.items() if "running" in n}
+    updates = {n: after[n] - weights[n].astype(np.float64)
+               for n in grads}
+    return grads, stats, updates
+
+
+def phase_gluon_train(dev):
+    """bench.py's train leg on the card (see GLUON_*): ms per step, img/s,
+    peak memory, the losses.  Returns what ``--profile`` traces."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.contrib import FusedTrainStep
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    ctx = mx.gpu(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mx.random.seed(0)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net.hybridize(static_alloc=True, static_shape=True)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    rng = np.random.RandomState(0)
+    x32 = mx.nd.array(rng.rand(GLUON_BATCH, 3, GLUON_SIZE, GLUON_SIZE)
+                      .astype(np.float32), ctx=ctx)
+    y = mx.nd.array(rng.randint(0, 1000, (GLUON_BATCH,)), ctx=ctx)
+    with mx.autograd.pause():
+        net(x32)
+    net.cast("bfloat16")
+    x = x32.astype("bfloat16")
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(GLUON_SGD))
+    step = FusedTrainStep(net, loss_fn, trainer)
+    losses = []
+    for _ in range(GLUON_WARM):
+        losses.append(step(x, y))
+    losses = [float(np.asarray(l.asnumpy(), np.float32).mean())
+              for l in losses]
+    setup_s = time.perf_counter() - t0
+    step_ms = []
+    for _ in range(GLUON_TIMED):
+        t1 = time.perf_counter()
+        loss = step(x, y)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(np.asarray(loss.asnumpy(), np.float32).mean()))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    params = net.collect_params()
+    dtypes = {}
+    for n, p in params.items():
+        dtypes.setdefault(str(p.data().dtype), []).append(n)
+    upd = trainer._updaters[0]
+    masters = [s[1] for s in upd.states.values() if isinstance(s, tuple)]
+    med = statistics.median(step_ms)
+    rec = {
+        "phase": "gluon_train", "device": dev["name"],
+        "nvidia_smi": dev["smi"], "net": "resnet50_v1", "batch":
+        GLUON_BATCH, "image": [3, GLUON_SIZE, GLUON_SIZE],
+        "dtype": "bfloat16", "multi_precision": True,
+        "hybridize": net._flags, "warm_steps": GLUON_WARM,
+        "setup_s": setup_s, "step_ms": step_ms, "median_step_ms": med,
+        "img_per_s": GLUON_BATCH * 1e3 / med, "peak_mem_gb": peak_gb,
+        "losses": losses, "num_update": trainer._optimizer.num_update,
+        "params_by_dtype": {k: len(v) for k, v in dtypes.items()},
+        "f32_masters": len(masters), "last_scalars_head":
+        step.last_scalars[:5].tolist(),
+    }
+    _emit(rec)
+    _check(all(np.isfinite(losses)), "gluon_train: losses %s" % losses)
+    _check(trainer._optimizer.num_update == GLUON_WARM + GLUON_TIMED,
+           "gluon_train: %d updates" % trainer._optimizer.num_update)
+    _check(all("batchnorm" in n for n in dtypes.get("float32", []))
+           and sorted(dtypes) == ["bfloat16", "float32"],
+           "gluon_train: parameter dtypes %s" % {
+               k: v[:3] for k, v in dtypes.items()})
+    _check(len(masters) == len(dtypes["bfloat16"])
+           and all(m.dtype == np.float32 for m in masters),
+           "gluon_train: %d f32 masters for %d bf16 weights"
+           % (len(masters), len(dtypes["bfloat16"])))
+    _check(str(loss.dtype) == "bfloat16" and loss.shape == (GLUON_BATCH,),
+           "gluon_train: loss %s %s" % (loss.dtype, loss.shape))
+    return {"step": step, "x": x, "y": y}
+
+
+def phase_gluon_cifar(dev):
+    """BASELINE.json's Gluon ResNet-18 CIFAR-10 config (see CIFAR_*): the
+    loss must fall."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    ctx = mx.gpu(0)
+    mx.random.seed(0)
+    net = vision.resnet18_v1(classes=10, thumbnail=True)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net.hybridize()
+    rng = np.random.RandomState(0)
+    x = mx.nd.array(rng.rand(CIFAR_BATCH, 3, 32, 32).astype(np.float32),
+                    ctx=ctx)
+    y = mx.nd.array(rng.randint(0, 10, (CIFAR_BATCH,)), ctx=ctx)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(CIFAR_SGD))
+    losses, step_ms = [], []
+    for _ in range(CIFAR_STEPS):
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(CIFAR_BATCH)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.asnumpy().mean()))
+    med = statistics.median(step_ms[1:])
+    _emit({"phase": "gluon_cifar", "device": dev["name"],
+           "nvidia_smi": dev["smi"], "net": "resnet18_v1 thumbnail",
+           "batch": CIFAR_BATCH, "steps": CIFAR_STEPS, "losses": losses,
+           "median_step_ms": med, "img_per_s": CIFAR_BATCH * 1e3 / med})
+    _check(all(np.isfinite(losses)) and losses[-1] < CIFAR_FALL * losses[0],
+           "gluon_cifar: the loss did not fall: %s" % losses)
+
+
+def phase_gluon_step_card_vs_cpu(dev):
+    """One Gluon step of resnet18_v1 thumbnail at batch 4: float64 on the
+    card against the CPU within MODULE_CHECK_REL_F64, and f32 on the card
+    hybridized against not within GLUON_HYBRID_REL."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    t0 = time.perf_counter()
+    weights = _gluon_weights(mx, vision, "gate_", seed=1)
+    rng = np.random.RandomState(1)
+    x = rng.rand(GLUON_CHECK_BATCH, 3, 32, 32).astype(np.float32)
+    y = rng.randint(0, 10, GLUON_CHECK_BATCH).astype(np.float32)
+    runs = {
+        ("card", "float64"): (mx.gpu(0), "float64", False),
+        ("cpu", "float64"): (mx.cpu(), "float64", False),
+        ("card", "float32"): (mx.gpu(0), "float32", False),
+        ("card_hybridized", "float32"): (mx.gpu(0), "float32", True)}
+    step = {k: _gluon_step(mx, ctx, weights, x, y, dt, hyb, "gate_")
+            for k, (ctx, dt, hyb) in runs.items()}
+    report, ok = {"float64_card_vs_cpu": {}, "float32_hybrid": {}}, True
+    for i, what in enumerate(("grad", "stats", "update")):
+        good, report["float64_card_vs_cpu"][what] = _compare_tensors(
+            step["card", "float64"][i], step["cpu", "float64"][i],
+            MODULE_CHECK_REL_F64)
+        ok = ok and good
+        good, report["float32_hybrid"][what] = _compare_tensors(
+            step["card_hybridized", "float32"][i],
+            step["card", "float32"][i], GLUON_HYBRID_REL)
+        ok = ok and good
+    _emit({"phase": "gluon_step_card_vs_cpu", "batch": GLUON_CHECK_BATCH,
+           "tol_f64": MODULE_CHECK_REL_F64, "tol_hybrid": GLUON_HYBRID_REL,
+           "report": report, "seconds": time.perf_counter() - t0,
+           "ok": ok})
+    _check(ok, "gluon_step_card_vs_cpu: %s" % report)
+
+
 def _profile_window(name, fn):
     """Trace ``fn`` (after one warm call) with ``torch.profiler``; print
     the wall time, the device busy time and share, and the kernels that
@@ -2182,6 +2436,9 @@ def main():
     trained = phase_module_train(dev)
     rtc_launches, rtc_main = phase_rtc(dev, trained)
     main_cases.update(rtc_main)
+    gluon = phase_gluon_train(dev)
+    phase_gluon_cifar(dev)
+    phase_gluon_step_card_vs_cpu(dev)
     if "--profile" in sys.argv[1:]:
         phase_profile(model)
         phase_profile_train(states)
@@ -2189,6 +2446,9 @@ def main():
             _profile_window("resnet50_%s_forward_b%d" % (name, INT8_BATCH),
                             lambda exe=exe: exe.forward(is_train=False))
         phase_profile_module(trained)
+        _profile_window("resnet50_gluon_fused_train_step_b%d_bf16"
+                        % GLUON_BATCH,
+                        lambda: gluon["step"](gluon["x"], gluon["y"]))
     sources = {
         # the warp variant, which the prefills and training steps take;
         # decode takes block (VARIANT_SOURCES)

@@ -6,7 +6,7 @@ written by hand for Hopper (``ops/kernels/csrc``), built with ``nvcc`` at
 first use.  The package imports ``torch`` and ``numpy``, never ``jax`` and
 nothing of ``mxnet_tpu``; only the parity tests import both.
 
-It carries three paths:
+It carries these paths:
 
 * serving the flagship TransformerLM: ``GenerationServer.submit_async`` ->
   scheduler -> ``GenerationEngine`` -> ``TransformerLM.prefill`` /
@@ -26,7 +26,15 @@ It carries three paths:
   ``update`` -> ``update_metric`` (``metric``), with ``callback`` and
   ``random``; user operators (``operator.CustomOp``, ``sym.Custom``) on
   that path may launch CUDA kernels compiled at runtime by ``rtc``
-  (NVRTC), the counterpart of the JAX package's Pallas ``rtc``.
+  (NVRTC), the counterpart of the JAX package's Pallas ``rtc``;
+* imperative training: ``autograd.record()`` over ``nd`` ops and Gluon
+  (``gluon.Parameter``, ``HybridBlock`` and ``hybridize``, ``nn`` layers,
+  ``loss``, ``model_zoo.vision`` ResNets) -> ``loss.backward()`` ->
+  ``gluon.Trainer.step`` (SGD with f32 master weights under
+  ``multi_precision``), or all of it in one call with
+  ``gluon.contrib.FusedTrainStep``; convolutions, BatchNorm and products
+  go to cuDNN / cuBLAS through PyTorch, as XLA generates them in the JAX
+  package.
 
 Entry points take ``device=`` (or, on the symbolic path, ``ctx=``).  The
 default is ``cuda:0`` (``gpu(0)``); without a CUDA device they raise unless
@@ -42,7 +50,7 @@ __all__ = ["default_device", "resolve_device", "TransformerConfig",
            "GenerationEngine", "GenerationServer", "Context", "cpu", "gpu",
            "current_context", "nd", "sym", "io", "contrib", "init", "mod",
            "metric", "optimizer", "lr_scheduler", "callback", "random",
-           "operator", "rtc"]
+           "operator", "rtc", "autograd", "gluon"]
 
 
 def default_device() -> torch.device:
@@ -88,3 +96,4 @@ from . import (callback, lr_scheduler, metric, operator,  # noqa: E402,F401
                optimizer, random, rtc)
 from . import initializer as init  # noqa: E402
 from . import module as mod  # noqa: E402
+from . import autograd, gluon  # noqa: E402,F401

@@ -1,8 +1,10 @@
 """Neural-network operators of the symbolic path, inference and training.
 
 Counterpart of the ops of ``mxnet_tpu/ops/nn.py`` that the symbolic
-ResNet path runs: Convolution, FullyConnected, Pooling, BatchNorm (with the
-moving statistics), Activation and SoftmaxOutput.  Layouts are the
+ResNet path and the Gluon layers run: Convolution, FullyConnected,
+Pooling, BatchNorm (with the moving statistics), Activation, LeakyReLU,
+softmax / log_softmax, Dropout, LayerNorm, InstanceNorm, Embedding and
+SoftmaxOutput.  Layouts are the
 reference's (NCHW data, OIHW weights, ``(num_hidden, input_dim)`` FC
 weights).  Convolutions go to cuDNN and products to cuBLAS through
 PyTorch, forward and backward (the JAX package leaves both to XLA); the
@@ -86,7 +88,7 @@ def _convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
 def _pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
              pad=(), pooling_convention="valid", count_include_pad=True,
              cudnn_off=False, p_value=2, layout=None):
-    """src/operator/nn/pooling.cc, NC(D)HW: max, avg or sum.
+    """src/operator/nn/pooling.cc, NC(D)HW or NCW: max, avg or sum.
 
     As in the reference's lowering, the input is padded explicitly (with
     -inf for max, 0 for avg/sum), with ``pooling_convention="full"`` adding
@@ -95,9 +97,8 @@ def _pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
     ``count_include_pad``, by the count of real elements), one IEEE
     division, as in the reference."""
     n = data.dim() - 2
-    if n not in (2, 3):
-        raise ValueError("Pooling: %d spatial dims (2-d and 3-d are "
-                         "ported)" % n)
+    if n not in (1, 2, 3):
+        raise ValueError("Pooling: %d spatial dims" % n)
     if _attr_bool(global_pool):
         kernel, stride, pad = tuple(data.shape[2:]), (1,) * n, (0,) * n
     else:
@@ -178,12 +179,107 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
 # ---------------------------------------------------------------------------
 # Activation / SoftmaxOutput
 # ---------------------------------------------------------------------------
+_ACTIVATIONS = {
+    "relu": torch.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
+    "softrelu": F.softplus, "softsign": F.softsign,
+}
+
+
 @register("Activation", input_names=("data",))
 def _activation(data, act_type="relu"):
-    if act_type != "relu":
-        raise ValueError("Activation: act_type %r is not ported (relu)"
-                         % (act_type,))
-    return torch.relu(data)
+    """src/operator/nn/activation.cc: relu, sigmoid, tanh, softrelu
+    (softplus) or softsign."""
+    if act_type not in _ACTIVATIONS:
+        raise ValueError("unknown act_type %r" % (act_type,))
+    return _ACTIVATIONS[act_type](data)
+
+
+@register("LeakyReLU", input_names=("data", "gamma"))
+def _leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+                lower_bound=0.125, upper_bound=0.334):
+    """src/operator/leaky_relu.cc: leaky, elu, prelu (``gamma`` per
+    channel), selu, gelu (exact)."""
+    if act_type == "leaky":
+        return torch.where(data >= 0, data, slope * data)
+    if act_type == "elu":
+        return torch.where(data >= 0, data, slope * torch.expm1(data))
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.dim() - 2)) \
+            if gamma.dim() == 1 else gamma
+        return torch.where(data >= 0, data, g * data)
+    if act_type == "selu":
+        return F.selu(data)
+    if act_type == "gelu":
+        return F.gelu(data)
+    raise ValueError("unknown act_type %r" % (act_type,))
+
+
+@register("softmax")
+def _softmax(x, axis=-1, temperature=None):
+    if temperature:
+        x = x / temperature
+    return torch.softmax(x, dim=int(axis))
+
+
+@register("log_softmax")
+def _log_softmax(x, axis=-1, temperature=None):
+    """The log-softmax; f16/bf16 logits accumulate in f32 and come back in
+    their dtype, as in the reference."""
+    if temperature:
+        x = x / temperature
+    if x.dtype in (torch.float16, torch.bfloat16):
+        return torch.log_softmax(x.float(), dim=int(axis)).to(x.dtype)
+    return torch.log_softmax(x, dim=int(axis))
+
+
+@register("Dropout", input_names=("data",), train_aware=True)
+def _dropout(data, p=0.5, mode="training", axes=(), cudnn_off=False,
+             _train=False):
+    """src/operator/nn/dropout.cc: inverted dropout in training (or always
+    with ``mode="always"``), one mask entry per position, broadcast along
+    ``axes``; the mask comes from the device's generator in
+    ``mx.random``."""
+    from .. import random as _random
+
+    if (not _train and mode != "always") or p <= 0:
+        return data
+    shape = list(data.shape)
+    for a in axes:
+        shape[a] = 1
+    keep = torch.rand(shape, generator=_random.generator(data.device),
+                      device=data.device) < (1.0 - p)
+    return torch.where(keep, data / (1.0 - p), torch.zeros((), dtype=data.dtype,
+                                                           device=data.device))
+
+
+@register("LayerNorm", input_names=("data", "gamma", "beta"))
+def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
+    """src/operator/nn/layer_norm.cc, with the biased variance."""
+    ax = int(axis)
+    mean = data.mean(dim=ax, keepdim=True)
+    var = data.var(dim=ax, unbiased=False, keepdim=True)
+    out = (data - mean) * torch.rsqrt(var + eps)
+    bshape = [1] * data.dim()
+    bshape[ax % data.dim()] = data.shape[ax]
+    return out * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+@register("InstanceNorm", input_names=("data", "gamma", "beta"))
+def _instance_norm(data, gamma, beta, eps=1e-3):
+    red = tuple(range(2, data.dim()))
+    mean = data.mean(dim=red, keepdim=True)
+    var = data.var(dim=red, unbiased=False, keepdim=True)
+    out = (data - mean) * torch.rsqrt(var + eps)
+    bshape = (1, -1) + (1,) * (data.dim() - 2)
+    return out * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+@register("Embedding", input_names=("data", "weight"))
+def _embedding(data, weight, input_dim=None, output_dim=None, dtype="float32",
+               sparse_grad=False):
+    """src/operator/tensor/indexing_op.cc: rows of the (input_dim,
+    output_dim) table; the gradient is a dense scatter-add."""
+    return weight[data.long()]
 
 
 def softmax_output_grad(p, label, grad_scale=1.0, ignore_label=-1.0,

@@ -2,8 +2,10 @@
 
 Counterpart of ``mxnet_tpu/ops/optimizer_ops.py`` (reference
 ``src/operator/optimizer_op.cc``): ``sgd_update``, ``sgd_mom_update``,
-``adam_update`` and the multi-tensor ``multi_sgd_update`` /
-``multi_sgd_mom_update``.  Where the JAX package returns new arrays that
+``adam_update``, the multi-precision ``mp_sgd_update`` /
+``mp_sgd_mom_update`` (f16/bf16 weights with f32 master copies) and the
+multi-tensor ``multi_sgd_update`` / ``multi_sgd_mom_update`` /
+``multi_mp_sgd_update`` / ``multi_mp_sgd_mom_update``.  Where the JAX package returns new arrays that
 its dispatcher writes back, these update the weight and state tensors in
 place (their ``mutate`` outputs are those same tensors), which saves a copy
 of every parameter per step.  The arithmetic is the JAX package's, in its
@@ -13,6 +15,9 @@ order, one f32 rounding per step of it:
   is positive;
 * SGD: ``w −= lr·(g + wd·w)``; with momentum ``mom = momentum·mom −
   lr·(g + wd·w)``, then ``w += mom``;
+* multi-precision: the same on the f32 master ``w32`` with the gradient
+  cast to f32, each multiply-add rounded once (``_mp_sgd``), then ``w =
+  w32`` rounded to ``w``'s dtype;
 * Adam: ``g += wd·w``, ``m = β1·m + (1 − β1)·g``, ``v = β2·v + (1 −
   β2)·g²``, ``w −= lr·m / (√v + ε)``.
 
@@ -22,6 +27,7 @@ one ``lr`` and ``wd`` per weight, and run each step over the group with
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .registry import register
@@ -48,6 +54,39 @@ def _sgd(ws, gs, moms, lrs, wds, momentum, rescale_grad, clip_gradient):
         torch._foreach_mul_(moms, float(momentum))
         torch._foreach_sub_(moms, d)
         torch._foreach_add_(ws, moms)
+
+
+def _f32(v):
+    """A Python scalar rounded to f32, as the update ops receive it."""
+    return float(np.float32(v))
+
+
+def _fma(s, x, y):
+    """``s·x + y`` rounded once to f32 (``s`` an f32 scalar, ``x`` and
+    ``y`` f32 tensors; the f64 product is exact)."""
+    return (x.double() * s + y.double()).float()
+
+
+def _mp_sgd(ws, gs, moms, w32s, lrs, wds, momentum, rescale_grad,
+            clip_gradient):
+    """The multi-precision update, in place: the f32 master weights (and
+    momenta) from the gradients cast to f32, then each weight is its
+    master rounded to the weight's dtype.  The two multiply-adds of each
+    step round once, as the reference's compiled update does (XLA fuses
+    them): ``t = wd·w32 + g``; without momentum ``w32 = −lr·t + w32``;
+    with it ``mom = momentum·mom − lr·t`` (``lr·t`` rounded first), then
+    ``w32 += mom``."""
+    with torch.no_grad():
+        gs = _prep([g.float() for g in gs], rescale_grad, clip_gradient)
+        for i, (w, g, w32) in enumerate(zip(ws, gs, w32s)):
+            t = _fma(_f32(wds[i]), w32, g)
+            if moms is None:
+                w32.copy_(_fma(-_f32(lrs[i]), t, w32))
+            else:
+                moms[i].copy_(_fma(_f32(momentum), moms[i],
+                                   -(t * _f32(lrs[i]))))
+                w32.add_(moms[i])
+            w.copy_(w32)
 
 
 @register("sgd_update", input_names=("weight", "grad"), mutate={0: 0},
@@ -80,6 +119,28 @@ def _adam_update(weight, grad, mean, var, lr=0.001, beta1=0.9, beta2=0.999,
         var.mul_(beta2).add_(g.square().mul_(1 - beta2))
         weight.sub_(mean * lr / (var.sqrt().add_(epsilon)))
     return weight, mean, var
+
+
+@register("mp_sgd_update", input_names=("weight", "grad", "weight32"),
+          mutate={0: 0, 1: 2}, no_grad=True)
+def _mp_sgd_update(weight, grad, weight32, lr=0.01, wd=0.0, rescale_grad=1.0,
+                   clip_gradient=-1.0, lazy_update=True):
+    """f16/bf16 weights with an f32 master copy (reference
+    mp_sgd_update)."""
+    _mp_sgd([weight], [grad], None, [weight32], [lr], [wd], 0.0,
+            rescale_grad, clip_gradient)
+    return weight, weight32
+
+
+@register("mp_sgd_mom_update",
+          input_names=("weight", "grad", "mom", "weight32"),
+          mutate={0: 0, 1: 2, 2: 3}, no_grad=True)
+def _mp_sgd_mom_update(weight, grad, mom, weight32, lr=0.01, momentum=0.0,
+                       wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
+                       lazy_update=True):
+    _mp_sgd([weight], [grad], [mom], [weight32], [lr], [wd], momentum,
+            rescale_grad, clip_gradient)
+    return weight, mom, weight32
 
 
 def _multi_mutate(stride, state_slots):
@@ -129,3 +190,23 @@ def _multi_sgd_mom_update(*tensors, lrs=(), wds=(), momentum=0.0,
     _sgd(ws, gs, moms, [float(x) for x in lrs], [float(x) for x in wds],
          momentum, rescale_grad, clip_gradient)
     return tuple(ws) + tuple(moms)
+
+
+@register("multi_mp_sgd_update", mutate=_multi_mutate(3, (2,)),
+          no_grad=True, visible_out=_multi_visible)
+def _multi_mp_sgd_update(*tensors, lrs=(), wds=(), rescale_grad=1.0,
+                         clip_gradient=-1.0, num_weights=1):
+    ws, gs, w32s = _groups(tensors, 3, num_weights, lrs, wds)
+    _mp_sgd(ws, gs, None, w32s, lrs, wds, 0.0, rescale_grad, clip_gradient)
+    return tuple(ws) + tuple(w32s)
+
+
+@register("multi_mp_sgd_mom_update", mutate=_multi_mutate(4, (2, 3)),
+          no_grad=True, visible_out=_multi_visible)
+def _multi_mp_sgd_mom_update(*tensors, lrs=(), wds=(), momentum=0.0,
+                             rescale_grad=1.0, clip_gradient=-1.0,
+                             num_weights=1):
+    ws, gs, moms, w32s = _groups(tensors, 4, num_weights, lrs, wds)
+    _mp_sgd(ws, gs, moms, w32s, lrs, wds, momentum, rescale_grad,
+            clip_gradient)
+    return tuple(ws) + tuple(moms) + tuple(w32s)

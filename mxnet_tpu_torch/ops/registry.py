@@ -22,13 +22,19 @@ What the declaration keeps from the reference:
 * ``train_aware`` — the function takes ``_train`` (True in a training
   forward): BatchNorm's batch statistics, ``Custom``'s ``is_train``;
 * ``no_grad`` — the op is an update, not part of a differentiated graph.
+
+:class:`invoke_tap` lets a scope see every imperative call's op and
+parameters (the reference's ``invoke_tap``).
 """
 from __future__ import annotations
 
+import threading
+
 __all__ = ["OpDef", "register", "get_op", "list_ops", "invoke", "call",
-           "OPS"]
+           "invoke_tap", "OPS"]
 
 OPS: dict = {}
+_TAPS = threading.local()
 
 
 class OpDef:
@@ -100,6 +106,24 @@ def call(opdef, tensors, params, train=False):
     return tuple(res) if isinstance(res, (tuple, list)) else (res,)
 
 
+class invoke_tap:  # pylint: disable=invalid-name
+    """Scope: ``fn(opdef, params)`` sees every :func:`invoke` on this
+    thread before the op runs (``FusedTrainStep`` reads the optimizer's
+    per-step scalars this way)."""
+
+    def __init__(self, fn):
+        self._fn = fn
+
+    def __enter__(self):
+        if not hasattr(_TAPS, "fns"):
+            _TAPS.fns = []
+        _TAPS.fns.append(self._fn)
+        return self
+
+    def __exit__(self, *a):
+        _TAPS.fns.remove(self._fn)
+
+
 def invoke(op, ndarray_inputs, params=None):
     """Run op ``op`` (a name or an :class:`OpDef`) on NDArrays; returns one
     NDArray or a list of them (the reference's convention).
@@ -107,15 +131,21 @@ def invoke(op, ndarray_inputs, params=None):
     Outputs in the op's ``mutate`` map are written back into their input
     NDArrays, which come back in their place; an op with a dynamic map
     and ``visible_out`` (``Custom``, ``multi_sgd_*``) returns only its
-    visible outputs.  Imperative calls run in inference mode
-    (``_train=False``)."""
+    visible outputs.  As in the reference, ``_train`` is
+    ``autograd.is_training()``, and the op builds an autograd graph only
+    while ``autograd.is_recording()``."""
+    from .. import autograd
     from ..ndarray.ndarray import NDArray
 
     opdef = get_op(op) if isinstance(op, str) else op
     params = dict(params or {})
+    for fn in getattr(_TAPS, "fns", ()):
+        fn(opdef, params)
     inputs = list(ndarray_inputs)
-    res = call(opdef, [x.data if isinstance(x, NDArray) else x
-                       for x in inputs], params)
+    with autograd.grad_scope():
+        res = call(opdef, [x.data if isinstance(x, NDArray) else x
+                           for x in inputs], params,
+                   autograd.is_training())
     mut = opdef.mutate_map(params, len(inputs))
     outputs = []
     for i, r in enumerate(res):

@@ -35,6 +35,15 @@ within 1e-5 relative and 1e-7 absolute (``expf`` and numpy's ``exp`` within
 2 ulp, the row sum in another order).  One ResNet-20 Module step on the
 card against the CPU: every gradient, moving statistic and update within
 1e-3 relative L2, as chip_smoke.py's ResNet-50 gate holds them.
+
+Gluon: one step (record, backward, Trainer.step) of resnet18_v1
+thumbnail at batch 4, hybridized against imperative on the card (f32,
+within 1e-5 relative L2) and in float64 on the card against the CPU
+(within 1e-8), as chip_smoke.py's gluon_step_card_vs_cpu gate holds them;
+FusedTrainStep against record / backward / Trainer.step on the card, f32
+and bf16 with multi_precision; the Gluon entry points on ``gpu(0)`` by
+default.  Without a card they refuse to start unless given ``ctx=cpu()``
+(``test_torch_port_isolation.py``).
 """
 import importlib
 import pathlib
@@ -1095,3 +1104,100 @@ def test_resnet20_module_step_card_vs_cpu(dev, smoke):
     for c, h in zip(card, host):
         ok, report = smoke._compare_tensors(c, h, smoke.MODULE_CHECK_REL)
         assert ok, report
+
+
+# ---------------------------------------------------------------------------
+# Gluon on the card
+# ---------------------------------------------------------------------------
+def _gluon_case(smoke, seed=1, batch=4):
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    weights = smoke._gluon_weights(mx, vision, "cudagate_", seed=seed)
+    rng = np.random.RandomState(seed)
+    x = rng.rand(batch, 3, 32, 32).astype(np.float32)
+    y = rng.randint(0, 10, batch).astype(np.float32)
+    return weights, x, y
+
+
+def test_gluon_hybridized_matches_imperative_on_card(dev, smoke):
+    weights, x, y = _gluon_case(smoke)
+    imp = smoke._gluon_step(mx, mx.gpu(0), weights, x, y, "float32", False,
+                            "cudagate_")
+    hyb = smoke._gluon_step(mx, mx.gpu(0), weights, x, y, "float32", True,
+                            "cudagate_")
+    for a, b in zip(hyb, imp):
+        ok, report = smoke._compare_tensors(a, b, smoke.GLUON_HYBRID_REL)
+        assert ok, report
+
+
+def test_gluon_float64_step_card_vs_cpu(dev, smoke):
+    weights, x, y = _gluon_case(smoke, seed=2)
+    card = smoke._gluon_step(mx, mx.gpu(0), weights, x, y, "float64", False,
+                             "cudagate_")
+    host = smoke._gluon_step(mx, mx.cpu(), weights, x, y, "float64", False,
+                             "cudagate_")
+    for a, b in zip(card, host):
+        ok, report = smoke._compare_tensors(a, b,
+                                            smoke.MODULE_CHECK_REL_F64)
+        assert ok, report
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gluon_fused_step_matches_trainer_step_on_card(dev, smoke, dtype):
+    """FusedTrainStep and record / backward / Trainer.step on the card,
+    three steps each from the same weights, with cuDNN's deterministic
+    algorithms (its default weight-gradient kernels add in an order that
+    changes between calls, and at lr 0.1 three steps amplify that to 1e-2
+    in the losses): losses within 1e-5 (f32) or 2^-7 (bf16,
+    multi_precision), the weights within 1e-4 relative L2 (f32) or 2^-6
+    (bf16)."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    weights, x, y = _gluon_case(smoke, seed=3, batch=8)
+    opts = dict(smoke.CIFAR_SGD, multi_precision=dtype == "bfloat16")
+    ctx = mx.gpu(0)
+    out = []
+    for fused in (True, False):
+        net = vision.resnet18_v1(classes=10, thumbnail=True,
+                                 prefix="cudagate_")
+        net.load_dict(weights, ctx=ctx)
+        net.cast(dtype)
+        net.hybridize()
+        tr = gluon.Trainer(net.collect_params(), "sgd", dict(opts))
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        xd = mx.nd.array(x, ctx=ctx).astype(dtype)
+        yd = mx.nd.array(y, ctx=ctx)
+        step = gluon.contrib.FusedTrainStep(net, loss_fn, tr)
+        losses = []
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True):
+            for _ in range(3):
+                if fused:
+                    loss = step(xd, yd)
+                else:
+                    with mx.autograd.record():
+                        loss = loss_fn(net(xd), yd)
+                    loss.backward()
+                    tr.step(len(x))
+                losses.append(loss.asnumpy().astype(np.float32))
+        out.append((losses, {n: p.data().asnumpy().astype(np.float64)
+                             for n, p in net.collect_params().items()}))
+    (lf, wf), (lp, wp) = out
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    np.testing.assert_allclose(np.array(lf), np.array(lp), rtol=tol,
+                               atol=tol)
+    ok, report = smoke._compare_tensors(
+        wf, wp, 1e-4 if dtype == "float32" else 2.0 ** -6)
+    assert ok, report
+
+
+def test_gluon_entry_points_default_to_the_card(dev):
+    from mxnet_tpu_torch import gluon
+
+    net = gluon.nn.Dense(3, in_units=2)
+    net.initialize()
+    assert net.weight.list_ctx() == [mx.gpu(0)]
+    assert net.weight.data().data.is_cuda
+    out = net(mx.nd.ones((4, 2)))
+    assert out.context == mx.gpu(0) and out.shape == (4, 3)

@@ -19,6 +19,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -214,6 +215,65 @@ def test_trains_with_jax_unimportable():
     assert 0.0 <= res["acc"] <= 1.0
 
 
+_CHILD_GLUON = r"""
+import importlib.abc, json, sys
+
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, _Block())
+import numpy as np
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import autograd, gluon
+from mxnet_tpu_torch.gluon.contrib import FusedTrainStep
+from mxnet_tpu_torch.gluon.model_zoo import vision
+
+cpu = mx.cpu()
+rng = np.random.RandomState(0)
+x = mx.nd.array(rng.rand(8, 3, 16, 16), ctx=cpu)
+y = mx.nd.array(rng.randint(0, 4, 8), ctx=cpu)
+losses = []
+for fused in (False, True):
+    net = vision.get_resnet(1, 18, classes=4, thumbnail=True)
+    net.initialize(mx.init.Xavier(), ctx=cpu)
+    net.hybridize()
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    tr = gluon.Trainer(net.collect_params(), "sgd",
+                       {"learning_rate": 0.05, "momentum": 0.9})
+    step = FusedTrainStep(net, loss_fn, tr)
+    for _ in range(3):
+        if fused:
+            loss = step(x, y)
+        else:
+            with autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            tr.step(8)
+        losses.append(float(loss.mean().asscalar()))
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))
+mods = sorted(m for m in sys.modules if m.startswith("mxnet_tpu_torch."))
+print(json.dumps({"losses": losses, "loaded": loaded, "modules": mods}))
+"""
+
+
+def test_gluon_trains_with_jax_unimportable():
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD_GLUON], capture_output=True,
+        text=True, timeout=120, cwd=REPO, env=subprocess_env())
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == []
+    for name in ("autograd", "gluon.block", "gluon.parameter",
+                 "gluon.trainer", "gluon.loss", "gluon.nn.conv_layers",
+                 "gluon.model_zoo.vision.resnet", "gluon.contrib.fused"):
+        assert "mxnet_tpu_torch." + name in res["modules"], name
+    assert all(np.isfinite(res["losses"]))
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -276,3 +336,35 @@ def test_default_device_is_cuda0_when_present(monkeypatch):
 def test_other_devices_rejected():
     with pytest.raises(ValueError):
         mxnet_tpu_torch.resolve_device("meta")
+
+
+def test_gluon_entry_points_refuse_cpu_fallback(no_cuda):
+    """Without a card the Gluon entry points refuse to start unless given
+    ``ctx=cpu()`` (or a ``with cpu():`` scope)."""
+    from mxnet_tpu_torch import autograd, cpu, gluon, nd
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    net = gluon.nn.Dense(3, in_units=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        net.initialize()                       # default context gpu(0)
+    p = gluon.Parameter("p_weight", shape=(2, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        p.initialize(ctx=__import__("mxnet_tpu_torch").gpu(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vision.resnet18_v1(classes=4, thumbnail=True).initialize()
+    deferred = gluon.nn.BatchNorm()
+    deferred.initialize()                      # deferred: nothing placed
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deferred(nd.ones((2, 3), ctx=cpu()))
+    net.initialize(ctx=cpu(), force_reinit=True)
+    x = nd.ones((4, 2), ctx=cpu())
+    with autograd.record():
+        loss = net(x).sum()
+    loss.backward()
+    tr = gluon.Trainer(net.collect_params(), "sgd", {"learning_rate": 0.1})
+    tr.step(4)
+    assert net.weight.data().context == cpu()
+    with cpu():
+        d = gluon.nn.Dense(2, in_units=2)
+        d.initialize()
+        assert d.weight.list_ctx() == [cpu()]
