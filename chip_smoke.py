@@ -8,7 +8,9 @@ on the card:
 * serving — ``GenerationServer.submit_async`` -> scheduler ->
   ``GenerationEngine`` -> ``TransformerLM.prefill`` / ``decode_step`` — on
   the flagship TransformerLM (vocab 32000, d_model 2048, 16 heads of 128,
-  4 layers, d_ff 8192, bf16);
+  4 layers, d_ff 8192, bf16), and around it the serving plane on the same
+  model: QoS preemption, live KV migration, load replay, tenancy and
+  operations (``swap_params``, the SIGTERM drain);
 * training — ``make_train_step`` -> ``TransformerLM.loss`` -> ``apply`` and
   its backward, SGD with momentum — on the flagship at batch 8 x 1024
   (bench.py's training configuration: dense attention, no remat) and on
@@ -82,6 +84,37 @@ Phases, in order; any failure raises and exits non-zero:
    the planner gives it, block for the rest),
    and the prefill logits through
    the kernels must match those through the plain versions;
+4b. the serving plane, on the serve phase's model (one decode slot bucket
+   of 8, page_size 16; each path's kernel counters zeroed just before it
+   and read just after, with no plain version, every RMSNorm through warp
+   or block and every flash forward through wgmma):
+   serve_qos — six rank-0 streams (1024-token prompts, 64 new) fill 408
+   pages, two ``gold=5`` requests preempt (at least one preemption,
+   nothing shed, every stream complete, each gold's first token before
+   the first rank-0 completion), then a ``page_pressure`` chaos run in
+   which every stream completes;
+   serve_migrate — two servers over one model; at 256, 1024 and 4000
+   tokens a greedy stream parked after 4 tokens is exported, imported
+   and attached on the other (bit for bit the unparked stream, no
+   prefill on the receiver), 3 times, against the ``resume_from``
+   re-prefill (park-to-next-token ms of each, blob bytes); the resume
+   path's first-token logits within ``LOGITS_ATOL`` of the unmigrated
+   decode's; a corrupt blob refused and the stream resumed; ``defrag``
+   with holes, streams bit for bit; no page held and the leak ledger
+   quiescent after drain;
+   serve_loadreplay — bench.py's loadreplay leg: capacity from an
+   as-fast-as-possible burst, a ``loadgen`` trace at twice it for 8 s
+   (prompts 128 tokens mean, 1024 max; outputs 32 mean, 64 max; queue 8;
+   deadline 8 s): typed outcomes only, ok and Overloaded both, no
+   recompile, goodput, TTFT p50 / p99 (``gen.ttft_ms``), shed rate, knee;
+   serve_tenant — bench.py's tenant leg: gold / free / bulk (4 / 2 / 1,
+   bulk's quota rate 2 burst 2), 12 req/s for 6 s replayed at speed 2,
+   clean and with ``tenant_flood`` on three bulk requests: QuotaExceeded
+   for bulk only, the victims' TTFT p99 ratio;
+   serve_ops — ``swap_params`` to a perturbed copy mid-stream (no
+   recompile; afterwards a stream equals a fresh server's on the new
+   weights), then ``install_preemption_drain`` and SIGTERM to itself (a
+   new submit raises Draining, the streams in flight complete);
 5. train   — for each training configuration, one warm step and then
    ``TRAIN_STEPS`` timed steps on one fixed batch: losses must be finite
    and fall, the kernel counters must show exactly the expected launches
@@ -134,15 +167,16 @@ Phases, in order; any failure raises and exits non-zero:
    card against the CPU within ``MODULE_CHECK_REL_F64``, f32 hybridized
    against not on the card within ``GLUON_HYBRID_REL``.
 
-Each main path (serve, each training configuration, the timed int8
+Each main path (serve, each serving-plane path, each training
+configuration, the timed int8
 forwards, the ``quantized_dense`` call, ``Module.fit``, the example's
 training through ``rtc_softmax`` and the ResNet-50 step through it) runs
 with the counters zeroed
 just before it and read just after.  The line before the
 last is the ``{"kernels": [...]}`` summary (launches summed over those
 runs; each kernel with several variants lists them, with their sources,
-launches and times), and before it the ``nvidia-smi`` name and power
-limit; the last line
+launches and times), before it the ``nvidia-smi`` name and power limit,
+and before that the script's total wall time; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits non-zero and prints no result.
 """
@@ -172,6 +206,35 @@ SERVE_FLASH_LAUNCHES = 4
 # paths round activations to bf16 at other points (flash keeps p in f32,
 # dense rounds it), and one-ulp flips (2^-8 relative) compound over 4 layers
 LOGITS_ATOL = 5e-2
+
+# the serving plane's phases run the serve phase's flagship model unchanged
+# (greedy, page_size 16, one decode slot bucket of 8).  One KV page holds
+# 4 layers x 16 tokens x 16 heads x 128 x 2 B x 2 (K and V) = 0.5 MB.
+# serve_qos: six rank-0 streams of a 1024-token prompt and 64 new tokens
+# (68 pages each) fill 408 pages; then two gold=5 requests of that shape
+QOS_PROMPT, QOS_NEW, QOS_LOW, QOS_GOLD = 1024, 64, 6, 2
+QOS_PAGES = QOS_LOW * ((QOS_PROMPT + QOS_NEW) // 16) + 1
+# serve_migrate: a greedy stream at each context parked after 4 tokens and
+# carried to a second server over the same weights, 3 times each
+MIGRATE_CONTEXTS = (256, 1024, 4000)
+MIGRATE_NEW = 24
+MIGRATE_PARK_AFTER = 4
+MIGRATE_REPS = 3
+# defrag: three streams; the middle one ends early and leaves holes
+DEFRAG_PROMPTS = (512, 256, 1024)
+# serve_loadreplay (bench.py's loadreplay leg at full width) and
+# serve_tenant (its tenant leg's isolation half): the trace's lengths
+TRACE_LENGTHS = dict(prompt_len_mean=128.0, prompt_len_max=1024,
+                     output_len_mean=32.0, output_len_max=64)
+TRACE_DEADLINE = [{"name": "std", "deadline_ms": 8000.0, "weight": 1.0}]
+LOADREPLAY_S = 8.0
+LOADREPLAY_QUEUE = 8
+TENANTS = [{"name": "gold", "weight": 4}, {"name": "free", "weight": 2},
+           {"name": "bulk", "weight": 1}]
+TENANT_RPS, TENANT_S, TENANT_SPEED = 12.0, 6.0, 2.0
+# the tenant phase's queue: deep enough that gold and free never reach
+# their weighted-fair share at this offered load (the gate is the quota)
+TENANT_QUEUE = 64
 
 # RMSNorm at the main paths' shapes, bf16 (N, E): decode at 7-8 streams
 # (the slot bucket of 8), the 4000-token prompt (which prefills at its 4096
@@ -1322,6 +1385,586 @@ def phase_serve(dev):
     return launches, model
 
 
+# ---------------------------------------------------------------------------
+# the serving plane: QoS, migration, load replay, tenancy, operations
+# ---------------------------------------------------------------------------
+def _flagship_server(model, max_queue=None, **kw):
+    """A GenerationServer over the serve phase's flagship model: greedy,
+    page_size 16, 8 slots in one decode bucket."""
+    from mxnet_tpu_torch import GenerationConfig, GenerationServer
+
+    cfg = dict(page_size=16, max_slots=8, slot_buckets="8",
+               temperature=0.0, top_k=0, seed=0)
+    cfg.update(kw)
+    return GenerationServer(model, GenerationConfig(**cfg),
+                            device=model.device, max_queue=max_queue)
+
+
+def _wait_for(cond, timeout, what):
+    t0 = time.monotonic()
+    while not cond():
+        _check(time.monotonic() - t0 < timeout, "timed out waiting for "
+               + what)
+        time.sleep(0.001)
+
+
+def _outcomes(futs, timeout=300):
+    """(outcome name, tokens) of each future: ``ok`` or the typed error."""
+    out = []
+    for f in futs:
+        try:
+            out.append(("ok", f.result(timeout=timeout)))
+        except Exception as e:         # typed outcomes, reported by name
+            out.append((type(e).__name__, f.stream_tokens))
+    return out
+
+
+@contextlib.contextmanager
+def _counted(name, out):
+    """The counted window of a serving-plane path: the kernel counters
+    zeroed just before, read just after, and held to the path's contract:
+    no plain version, every RMSNorm through the warp or block variant,
+    every flash forward through the tensor-core variant."""
+    import torch
+    from mxnet_tpu_torch.ops.kernels import common
+
+    common.reset_counts()
+    yield
+    torch.cuda.synchronize()
+    selects = common.selection_counts()
+    launches = common.launch_counts()
+    out["selects"], out["launches"] = selects, launches
+    _check(not any(k.endswith(".reference") for k in selects),
+           "%s: a plain version ran: %s" % (name, selects))
+    rms = launches.get("kernels.launch.fused_rmsnorm", 0)
+    vec = sum(launches.get("kernels.launch.fused_rmsnorm.%s" % v, 0)
+              for v in ("warp", "block"))
+    _check(rms > 0 and vec == rms,
+           "%s: RMSNorm launches %s, expected all through warp / block"
+           % (name, {k: v for k, v in launches.items() if "rmsnorm" in k}))
+    flash = launches.get("kernels.launch.flash_attention", 0)
+    _check(launches.get("kernels.launch.flash_attention.wgmma", 0) == flash,
+           "%s: flash launches %s, expected all through wgmma"
+           % (name, {k: v for k, v in launches.items() if "flash" in k}))
+
+
+def phase_serve_qos(dev, model):
+    """QoS preemption at full width: six rank-0 streams fill the pool, two
+    gold=5 requests preempt; then a page_pressure chaos run."""
+    import numpy as np
+    from mxnet_tpu_torch import chaos, profiler
+
+    t_phase = time.perf_counter()
+    srv = _flagship_server(model, max_pages=QOS_PAGES,
+                           max_new_tokens=QOS_NEW)
+    V = FLAGSHIP["vocab_size"]
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, V, QOS_PROMPT)
+               for _ in range(QOS_LOW + QOS_GOLD)]
+    stats0 = dict(srv.stats)
+    profiler.start()                  # gen.preempt events carry the tokens
+    win = {}
+    with _counted("serve_qos", win):
+        lows = [srv.submit_async(p, priority="batch=0")
+                for p in prompts[:QOS_LOW]]
+        _wait_for(lambda: all(len(f.stream_tokens) >= 2 for f in lows), 120,
+                  "the rank-0 streams to fill the pool")
+        used_full = srv.engine.allocator.used
+        golds = [srv.submit_async(p, priority="gold=5")
+                 for p in prompts[QOS_LOW:]]
+        outs = _outcomes(lows + golds)
+    profiler.stop()
+    stats = {k: srv.stats[k] - stats0[k] for k in stats0}
+    preempt_evts = [e for e in profiler.recent_events(100000)
+                    if e.get("name") == "gen.preempt"]
+    reprefilled = sum(QOS_PROMPT + e["args"]["tokens"]
+                      for e in preempt_evts)
+    ttft = {"batch": [(f.t_first_token - f.t_admit) * 1e3 for f in lows],
+            "gold": [(f.t_first_token - f.t_admit) * 1e3 for f in golds]}
+    t_gold_first = max(f.t_first_token for f in golds)
+    t_low_done = min(f.t_done for f in lows)
+    _check(all(k == "ok" and len(t) == QOS_NEW for k, t in outs),
+           "serve_qos: not every stream resolved with %d tokens: %s"
+           % (QOS_NEW, [(k, len(t)) for k, t in outs]))
+    _check(stats["preempted"] >= 1, "serve_qos: nothing was preempted")
+    _check(stats["shed_pages"] == stats["shed_queue"] == 0,
+           "serve_qos: requests were shed: %s" % stats)
+    _check(t_gold_first < t_low_done,
+           "serve_qos: a gold first token came after the first rank-0 "
+           "completion")
+
+    # -- page_pressure: most of the free list impounded mid-decode ------
+    win2 = {}
+    stats1 = dict(srv.stats)
+    with _counted("serve_qos_chaos", win2):
+        lows2 = [srv.submit_async(p, priority="batch=0")
+                 for p in prompts[:2]]
+        _wait_for(lambda: all(len(f.stream_tokens) >= 2 for f in lows2),
+                  120, "the chaos run's rank-0 streams")
+        with chaos.inject("page_pressure@%d" % (srv._loop_turn + 5)) as plan:
+            _wait_for(lambda: srv.engine.allocator.held > 0, 60,
+                      "page_pressure to impound the free list")
+            held = srv.engine.allocator.held
+            gold2 = srv.submit_async(prompts[QOS_LOW], priority="gold=5")
+            outs2 = _outcomes(lows2 + [gold2])
+    stats2 = {k: srv.stats[k] - stats1[k] for k in stats1}
+    _check(plan.pending() == [], "serve_qos: page_pressure never fired")
+    _check(all(k == "ok" and len(t) == QOS_NEW for k, t in outs2),
+           "serve_qos chaos: not every stream resolved: %s"
+           % [(k, len(t)) for k, t in outs2])
+    _check(stats2["preempted"] >= 1 and stats2["shed_pages"] == 0,
+           "serve_qos chaos: %s" % stats2)
+    _wait_for(lambda: srv.engine.allocator.held == 0, 60,
+              "the pressure window to end")
+    _check(srv.drain(timeout=60), "serve_qos: drain did not complete")
+    _check(srv.engine.allocator.used == 0, "serve_qos: pages held")
+    rec = {"phase": "serve_qos", "device": dev["name"],
+           "nvidia_smi": dev["smi"], "pages_capacity": QOS_PAGES - 1,
+           "pages_used_before_gold": used_full,
+           "ttft_ms": ttft, "gold_first_token_before_first_rank0_done_ms":
+           (t_low_done - t_gold_first) * 1e3,
+           "preempted": stats["preempted"],
+           "reprefilled_tokens": reprefilled, "stats": stats,
+           "chaos": {"impounded_pages": held, "stats": stats2},
+           "launch_counts": win["launches"],
+           "chaos_launch_counts": win2["launches"],
+           "wall_s": time.perf_counter() - t_phase}
+    _emit(rec)
+    return [win["launches"], win2["launches"]]
+
+
+def _park_after(srv, prompt, n_tokens, on_token=None):
+    """Submit ``prompt``, park the stream once it streamed ``n_tokens``;
+    returns (delivered tokens, handle)."""
+    from mxnet_tpu_torch.serving import StreamMigrated
+
+    fut = srv.submit_async(prompt, on_token=on_token)
+    _wait_for(lambda: len(fut.stream_tokens) >= n_tokens, 120,
+              "%d tokens before the park" % n_tokens)
+    handles = srv.park_streams(1)
+    _check(len(handles) == 1, "park_streams parked %d" % len(handles))
+    try:
+        fut.result(timeout=60)
+        _check(False, "a parked stream resolved")
+    except StreamMigrated as e:
+        _check(e.handle == handles[0], "StreamMigrated carries another "
+               "handle")
+    return fut.stream_tokens, handles[0]
+
+
+def _first_token_ms(submit):
+    """ms from this call to the first token of ``submit(on_token)``'s
+    future, and its result."""
+    import threading
+
+    evt = threading.Event()
+    t0 = time.perf_counter()
+    fut = submit(lambda t: evt.set())
+    _check(evt.wait(120), "no continuation token within 120 s")
+    dt = (time.perf_counter() - t0) * 1e3
+    return dt, fut.result(timeout=120)
+
+
+def _decode_logits(srv, prompt, fed):
+    """On ``srv``'s scheduler thread: prefill ``prompt`` into fresh pages,
+    feed ``fed`` through decode one token at a time (the slot bucket the
+    stream decodes in), return the logits after the last (np [V]).  With
+    ``fed`` empty, the prefill's logits."""
+    import types
+
+    import numpy as np
+
+    eng = srv.engine
+
+    def run():
+        n = len(prompt) + len(fed)
+        need = -(-n // eng.page_size)
+        pages = eng.allocator.alloc(need)
+        _check(pages is not None, "no pages for the logits check")
+        try:
+            table = np.zeros(eng.pages_per_seq, np.int64)
+            table[:need] = pages
+            logits = eng.prefill(np.asarray(prompt), table)
+            s = types.SimpleNamespace(table=table, length=len(prompt),
+                                      last_token=None)
+            for t in fed:
+                s.last_token = int(t)
+                logits = eng.decode([s])[0]
+                s.length += 1
+            return logits
+        finally:
+            eng.allocator.free(pages)
+
+    return srv._run_on_scheduler(run, timeout=120)
+
+
+def phase_serve_migrate(dev, model):
+    """Live KV migration at full width between two servers over one model
+    (shared weights, two KV pools): park -> export -> import -> attach at
+    256, 1024 and 4000 tokens, against the re-prefill path; a corrupt
+    blob; defrag; quiescence after drain."""
+    import numpy as np
+    from mxnet_tpu_torch import leakcheck
+
+    t_phase = time.perf_counter()
+    leakcheck.install("raise")
+    max_pages = 2 * ((max(MIGRATE_CONTEXTS) + MIGRATE_NEW) // 16 + 1) + 64
+    a = _flagship_server(model, max_pages=max_pages,
+                         max_new_tokens=MIGRATE_NEW)
+    b = _flagship_server(model, max_pages=max_pages,
+                         max_new_tokens=MIGRATE_NEW)
+    V = FLAGSHIP["vocab_size"]
+    rng = np.random.default_rng(11)
+    prompts = {ctx: rng.integers(0, V, ctx) for ctx in MIGRATE_CONTEXTS}
+    per_ctx = {}
+    win = {}
+    with _counted("serve_migrate", win):
+        for ctx in MIGRATE_CONTEXTS:
+            prompt = prompts[ctx]
+            ref = a.submit(prompt, timeout=120)        # the unparked stream
+            mig, rep, agree, blob_bytes, legs = [], [], [], [], []
+            for _ in range(MIGRATE_REPS):
+                delivered, h = _park_after(a, prompt, MIGRATE_PARK_AFTER)
+                p0 = b.engine.stats["prefills"]
+
+                def migrate(cb, h=h, delivered=delivered):
+                    t0 = time.perf_counter()
+                    blob = a.export_stream(h)
+                    t1 = time.perf_counter()
+                    h2 = b.import_stream(blob)
+                    legs.append(((t1 - t0) * 1e3,
+                                 (time.perf_counter() - t1) * 1e3))
+                    blob_bytes.append(len(blob))
+                    return b.submit_async(prompt, resume_from=delivered,
+                                          migrate_handle=h2, on_token=cb)
+
+                ms, cont = _first_token_ms(migrate)
+                _check(b.engine.stats["prefills"] == p0,
+                       "ctx %d: the attach ran a prefill" % ctx)
+                _check(delivered + cont == ref,
+                       "ctx %d: the migrated stream parted from the "
+                       "unparked one" % ctx)
+                mig.append(ms)
+                ms, cont = _first_token_ms(
+                    lambda cb, d=delivered: b.submit_async(
+                        prompt, resume_from=d, on_token=cb))
+                _check(len(delivered) + len(cont) == MIGRATE_NEW,
+                       "ctx %d: the resume path returned %d tokens"
+                       % (ctx, len(cont)))
+                rep.append(ms)
+                tail = ref[len(delivered):]
+                n = 0
+                while n < len(cont) and cont[n] == tail[n]:
+                    n += 1
+                agree.append(n)
+            per_ctx[ctx] = {"migrate_ms": mig, "reprefill_ms": rep,
+                            "migrate_ms_min": min(mig),
+                            "reprefill_ms_min": min(rep),
+                            "blob_bytes": blob_bytes[-1],
+                            "export_ms": [e for e, _ in legs],
+                            "import_ms": [i for _, i in legs],
+                            "delivered": len(delivered),
+                            "reprefill_tokens_agreeing": agree,
+                            "continuation_tokens": len(tail)}
+    # the resume path's first-token logits against the unmigrated decode's
+    for ctx in MIGRATE_CONTEXTS:
+        prompt = prompts[ctx]
+        delivered = a.submit(prompt, max_new_tokens=MIGRATE_PARK_AFTER,
+                             timeout=120)
+        dec = _decode_logits(a, prompt, delivered)
+        re_ = _decode_logits(b, np.concatenate([prompt, delivered]), [])
+        diff = float(np.abs(dec - re_).max())
+        per_ctx[ctx]["resume_logits_max_abs_err"] = diff
+        per_ctx[ctx]["resume_logits_argmax_equal"] = \
+            int(np.argmax(dec)) == int(np.argmax(re_))
+        _check(np.isfinite(re_).all() and diff <= LOGITS_ATOL,
+               "ctx %d: resume logits differ from decode's by %g (atol %g)"
+               % (ctx, diff, LOGITS_ATOL))
+
+    # a corrupt blob is refused and the stream falls back to re-prefill
+    prompt = prompts[MIGRATE_CONTEXTS[0]]
+    ref = a.submit(prompt, timeout=120)
+    delivered, h = _park_after(a, prompt, MIGRATE_PARK_AFTER)
+    blob = bytearray(a.export_stream(h))
+    blob[len(blob) // 2] ^= 0x01
+    used = b.engine.allocator.used
+    try:
+        b.import_stream(bytes(blob))
+        _check(False, "a corrupt blob was imported")
+    except ValueError:
+        pass
+    _check(b.engine.allocator.used == used, "the refused import held pages")
+    fallback = b.submit(prompt, resume_from=delivered, timeout=120)
+    _check(len(delivered) + len(fallback) == MIGRATE_NEW,
+           "the fallback resume did not complete")
+
+    # defrag with holes in the pool: the streams continue bit for bit
+    dprompts = [rng.integers(0, V, n) for n in DEFRAG_PROMPTS]
+    dnew = (MIGRATE_NEW, 6, MIGRATE_NEW)
+    drefs = [a.submit(p, max_new_tokens=n, timeout=120)
+             for p, n in zip(dprompts, dnew)]
+    futs = [a.submit_async(p, max_new_tokens=n,
+                           on_token=lambda t: time.sleep(0.003))
+            for p, n in zip(dprompts, dnew)]
+    futs[1].result(timeout=120)             # its pages become holes
+    _wait_for(lambda: len(futs[2].stream_tokens) >= 10, 120,
+              "the defrag streams mid-decode")
+    holes = a.engine.allocator.min_free()
+    moved = a.defrag()
+    douts = [f.result(timeout=120) for f in futs]
+    _check(moved >= 1, "defrag moved no stream")
+    _check(douts == drefs, "a stream parted from its reference across "
+           "defrag")
+    _check(a.drain(timeout=60) and b.drain(timeout=60),
+           "serve_migrate: drain did not complete")
+    _check(a.engine.allocator.used == 0 and b.engine.allocator.used == 0,
+           "serve_migrate: pages held after drain")
+    leakcheck.assert_quiescent()
+    leakcheck.uninstall()
+    last = MIGRATE_CONTEXTS[-1]
+    rec = {"phase": "serve_migrate", "device": dev["name"],
+           "nvidia_smi": dev["smi"], "contexts": per_ctx,
+           "migrate_vs_reprefill_ratio_at_%d" % last:
+           per_ctx[last]["migrate_ms_min"]
+           / per_ctx[last]["reprefill_ms_min"],
+           "corrupt_blob_refused": True, "defrag_moved": moved,
+           "defrag_lowest_hole": holes, "launch_counts": win["launches"],
+           "wall_s": time.perf_counter() - t_phase}
+    _emit(rec)
+    return [win["launches"]]
+
+
+def phase_serve_loadreplay(dev, model):
+    """bench.py's loadreplay leg at full width: capacity from an
+    as-fast-as-possible burst, then a loadgen trace offered at twice that
+    for 8 s."""
+    from mxnet_tpu_torch import loadgen, profiler, telemetry
+
+    t_phase = time.perf_counter()
+    srv = _flagship_server(model, max_queue=LOADREPLAY_QUEUE,
+                           max_pages=8 * ((1024 + 64) // 16 + 1) + 16,
+                           max_new_tokens=64)
+    V = FLAGSHIP["vocab_size"]
+    target = loadgen.generation_target(srv, vocab=V)
+    cal_spec = loadgen.TraceSpec(
+        seed=11, segments=[{"duration_s": 1.0, "rate_rps": 16.0}],
+        deadline_classes=[{"name": "cal", "deadline_ms": 60000.0,
+                           "weight": 1.0}], **TRACE_LENGTHS)
+    cal = loadgen.replay(loadgen.generate_trace(cal_spec), target,
+                         speed=float("inf"), name="calibrate")
+    n_ok = cal.outcome_counts().get("ok", 0)
+    _check(n_ok > 0, "calibration completed nothing: %s"
+           % cal.outcome_counts())
+    capacity = n_ok / max(cal.wall_s, 1e-6)
+    spec = loadgen.TraceSpec(
+        seed=12, segments=[{"duration_s": LOADREPLAY_S,
+                            "rate_rps": 2.0 * capacity}],
+        deadline_classes=TRACE_DEADLINE, **TRACE_LENGTHS)
+    trace = loadgen.generate_trace(spec)
+    ttft = telemetry.registry().histogram("gen.ttft_ms")
+    ttft.reset()
+    r0 = profiler.dispatch_value("recompile")
+    win = {}
+    with _counted("serve_loadreplay", win):
+        report = loadgen.replay(trace, target, speed=1.0)
+    recompiles = profiler.dispatch_value("recompile") - r0
+    counts = report.outcome_counts()
+    summary = report.summary()
+    hist = ttft.snapshot()
+    _check(not any(k.startswith("UNTYPED") for k in counts),
+           "serve_loadreplay: untyped outcomes %s" % counts)
+    _check(counts.get("ok", 0) >= 1 and counts.get("Overloaded", 0) >= 1,
+           "serve_loadreplay: expected ok and Overloaded, got %s" % counts)
+    _check(recompiles == 0, "serve_loadreplay: %d recompile(s) in the "
+           "window" % recompiles)
+    _check(srv.drain(timeout=60), "serve_loadreplay: drain did not complete")
+    _check(srv.engine.allocator.used == 0,
+           "serve_loadreplay: pages held after drain")
+    rec = {"phase": "serve_loadreplay", "device": dev["name"],
+           "nvidia_smi": dev["smi"], "capacity_rps": capacity,
+           "calibration": cal.outcome_counts(),
+           "offered_rps": 2.0 * capacity, "requests": len(trace),
+           "outcomes": counts,
+           "goodput_per_s": summary["loadreplay_goodput_per_sec"],
+           "shed_rate": summary["loadreplay_shed_rate"],
+           "knee_rps": loadgen.shed_knee(report.curve()),
+           "ttft_ms_p50": hist["p50"], "ttft_ms_p99": hist["p99"],
+           "ttft_count": hist["count"], "recompiles": recompiles,
+           "summary": summary, "launch_counts": win["launches"],
+           "wall_s": time.perf_counter() - t_phase}
+    _emit(rec)
+    return [win["launches"]]
+
+
+def phase_serve_tenant(dev, model):
+    """bench.py's tenant leg, isolation half, at full width: a gold /
+    free / bulk trace replayed clean, then with tenant_flood on three bulk
+    requests; bulk's quota (rate 2, burst 2) contains the flood."""
+    from mxnet_tpu_torch import chaos, loadgen, serving, tenancy
+
+    t_phase = time.perf_counter()
+    srv = _flagship_server(model, max_queue=TENANT_QUEUE,
+                           max_pages=8 * ((1024 + 64) // 16 + 1) + 16,
+                           max_new_tokens=64)
+    spec = loadgen.TraceSpec(
+        seed=31, segments=[{"duration_s": TENANT_S,
+                            "rate_rps": TENANT_RPS}],
+        tenants=TENANTS, deadline_classes=TRACE_DEADLINE, **TRACE_LENGTHS)
+    trace = loadgen.generate_trace(spec)
+    target = loadgen.generation_target(srv, vocab=FLAGSHIP["vocab_size"])
+    bulk_idx = [i for i, r in enumerate(trace) if r["tenant"] == "bulk"]
+    steps = bulk_idx[len(bulk_idx) // 2:len(bulk_idx) // 2 + 3]
+
+    def run(chaos_spec):
+        tenancy.reset_governor(tenancy.TenantGovernor(quotas={
+            "gold": tenancy.TenantSpec("gold", weight=4.0),
+            "free": tenancy.TenantSpec("free", weight=2.0),
+            "bulk": tenancy.TenantSpec("bulk", rate=2.0, burst=2.0,
+                                       weight=1.0)}))
+        serving.brownout().reset()
+        try:
+            if chaos_spec:
+                with chaos.inject(chaos_spec) as plan:
+                    rep = loadgen.replay(trace, target, speed=TENANT_SPEED,
+                                         name="tenant")
+                _check(plan.pending() == [], "tenant_flood never fired")
+                return rep
+            return loadgen.replay(trace, target, speed=TENANT_SPEED,
+                                  name="tenant")
+        finally:
+            tenancy.reset_governor()
+            serving.brownout().reset()
+
+    def victim_p99(report):
+        ttfts = [r["ttft_ms"] for r in report.records
+                 if r["tenant"] in ("gold", "free") and r["outcome"] == "ok"
+                 and r["ttft_ms"] is not None]
+        return loadgen._pctl(ttfts, 99) if ttfts else None
+
+    win = {}
+    with _counted("serve_tenant", win):
+        base = run(None)
+        flood = run(",".join("tenant_flood@%d" % s for s in steps))
+    by = {"clean": base.tenant_summary(), "flood": flood.tenant_summary()}
+    for name, t in by.items():
+        for victim in ("gold", "free"):
+            _check(t.get(victim, {}).get("shed_quota", 0) == 0,
+                   "serve_tenant %s: %s got QuotaExceeded" % (name, victim))
+            _check(t.get(victim, {}).get("ok", 0) >= 1,
+                   "serve_tenant %s: %s completed nothing" % (name, victim))
+    bulk = by["flood"].get("bulk", {})
+    _check(bulk.get("shed_quota", 0) >= 1,
+           "serve_tenant: bulk got no QuotaExceeded")
+    for rep in (base, flood):
+        _check(not any(k.startswith("UNTYPED")
+                       for k in rep.outcome_counts()),
+               "serve_tenant: untyped outcomes %s" % rep.outcome_counts())
+    p99_base, p99_flood = victim_p99(base), victim_p99(flood)
+    _check(srv.drain(timeout=60), "serve_tenant: drain did not complete")
+    _check(srv.engine.allocator.used == 0, "serve_tenant: pages held")
+    rec = {"phase": "serve_tenant", "device": dev["name"],
+           "nvidia_smi": dev["smi"], "requests": len(trace),
+           "flood_steps": steps,
+           "victim_ttft_p99_ms": {"clean": p99_base, "flood": p99_flood},
+           "isolation_ratio": (p99_flood / p99_base
+                               if p99_base and p99_flood else None),
+           "bulk_flood_shed_rate": bulk.get("shed_quota", 0)
+           / max(1, bulk.get("requests", 1)),
+           "outcomes": {"clean": base.outcome_counts(),
+                        "flood": flood.outcome_counts()},
+           "tenants": by, "launch_counts": win["launches"],
+           "wall_s": time.perf_counter() - t_phase}
+    _emit(rec)
+    return [win["launches"]]
+
+
+def phase_serve_ops(dev, model):
+    """Operations at full width: swap_params to a perturbed copy of the
+    weights mid-stream (no recompile; afterwards a stream equals a fresh
+    server's on the new weights), then the SIGTERM drain."""
+    import os
+    import signal
+
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import TransformerLM, profiler
+    from mxnet_tpu_torch.serving import Draining
+
+    t_phase = time.perf_counter()
+    srv = _flagship_server(model, max_pages=512, max_new_tokens=32)
+    gen = torch.Generator(device=model.device).manual_seed(5)
+    new = {k: (p.float() + 0.02 * torch.randn(p.shape, generator=gen,
+                                               device=p.device)).to(p.dtype)
+           for k, p in srv.engine.params.items()}
+    V = FLAGSHIP["vocab_size"]
+    rng = np.random.default_rng(12)
+    p_mid, p_after = rng.integers(0, V, 256), rng.integers(0, V, 384)
+    win = {}
+    r0 = profiler.dispatch_value("recompile")
+    with _counted("serve_ops", win):
+        before = srv.submit(p_after, timeout=120)
+        mid = srv.submit_async(p_mid, on_token=lambda t: time.sleep(0.003))
+        _wait_for(lambda: len(mid.stream_tokens) >= 8, 120,
+                  "the stream the swap lands in")
+        srv.swap_params(new)
+        n_mid = len(mid.result(timeout=120))
+        after = srv.submit(p_after, timeout=120)
+    recompiles = profiler.dispatch_value("recompile") - r0
+    _check(recompiles == 0, "swap_params: %d recompile(s)" % recompiles)
+    _check(n_mid == 32, "the stream across the swap returned %d tokens"
+           % n_mid)
+    fresh_model = TransformerLM(model.cfg, device=model.device,
+                                generator=gen)
+    with torch.no_grad():
+        for k, p in fresh_model.named_parameters():
+            p.copy_(new[k])
+    fresh = _flagship_server(fresh_model, max_pages=64, max_new_tokens=32)
+    want = fresh.submit(p_after, timeout=120)
+    _check(fresh.drain(timeout=60), "the fresh server did not drain")
+    del fresh, fresh_model
+    _check(after == want, "after swap_params the stream differs from a "
+           "fresh server's on the new weights")
+    _check(after != before, "swap_params left the stream unchanged")
+
+    # -- the SIGTERM drain: admission closes, admitted streams complete --
+    prev = signal.getsignal(signal.SIGTERM)
+    handler = srv.install_preemption_drain()
+    try:
+        futs = [srv.submit_async(rng.integers(0, V, n),
+                                 on_token=lambda t: time.sleep(0.002))
+                for n in (64, 200, 400)]
+        os.kill(os.getpid(), signal.SIGTERM)
+        _wait_for(lambda: handler.requested, 30, "the SIGTERM handler")
+        try:
+            srv.submit_async(rng.integers(0, V, 32))
+            rejected = False
+        except Draining:
+            rejected = True
+        drain_outs = _outcomes(futs, timeout=120)
+    finally:
+        handler.uninstall()
+    restored = signal.getsignal(signal.SIGTERM) == prev
+    _check(rejected, "a submit after SIGTERM was admitted")
+    _check(all(k == "ok" and len(t) == 32 for k, t in drain_outs),
+           "in-flight streams did not resolve after SIGTERM: %s"
+           % [(k, len(t)) for k, t in drain_outs])
+    _check(restored, "the previous SIGTERM handler was not restored")
+    _check(srv.drain(timeout=60), "serve_ops: drain did not complete")
+    _check(srv.engine.allocator.used == 0, "serve_ops: pages held")
+    torch.cuda.empty_cache()
+    rec = {"phase": "serve_ops", "device": dev["name"],
+           "nvidia_smi": dev["smi"], "swap_recompiles": recompiles,
+           "after_swap_equals_fresh_server": True,
+           "tokens_changed_by_swap": sum(x != y for x, y in
+                                         zip(before, after)),
+           "sigterm_submit_rejected": rejected,
+           "sigterm_streams_resolved": [len(t) for _, t in drain_outs],
+           "handler_restored": restored, "launch_counts": win["launches"],
+           "wall_s": time.perf_counter() - t_phase}
+    _emit(rec)
+    return [win["launches"]]
+
+
 def _train_cell(name, cfg_kw, B, T, dev):
     """One training configuration: seeded weights, one fixed batch, one
     warm step, then ``TRAIN_STEPS`` timed steps with the counters zeroed
@@ -2426,11 +3069,24 @@ def _case_shape(rec):
     return rec["q"] if "q" in rec else [rec["M"], rec["K"], rec["N"]]
 
 
+SERVING_PLANE = (phase_serve_qos, phase_serve_migrate, phase_serve_loadreplay,
+                 phase_serve_tenant, phase_serve_ops)
+
+
 def main():
+    import torch
+
+    t_start = time.perf_counter()
     dev = phase_device()
     phase_build()
     main_cases = phase_kernels()
     serve_launches, model = phase_serve(dev)
+    t0 = time.perf_counter()
+    plane_launches = []
+    for phase in SERVING_PLANE:
+        plane_launches += phase(dev, model)
+    torch.cuda.empty_cache()
+    plane_s = time.perf_counter() - t0
     train_launches, states = phase_train(dev)
     int8_launches, int8_exes = phase_int8(dev)
     trained = phase_module_train(dev)
@@ -2482,8 +3138,8 @@ def main():
         "rtc.softmax_forward": ("chip_smoke.py", "mxnet_tpu/rtc.py:87"),
         "rtc.softmax_backward": ("chip_smoke.py", "mxnet_tpu/rtc.py:87"),
     }
-    runs = ([serve_launches] + list(train_launches.values()) + int8_launches
-            + rtc_launches)
+    runs = ([serve_launches] + plane_launches + list(train_launches.values())
+            + int8_launches + rtc_launches)
 
     def launched(counter):
         return sum(r.get("kernels.launch.%s" % counter, 0) for r in runs)
@@ -2519,8 +3175,8 @@ def main():
                     "dtype": vrec.get("dtype", "int8"),
                     "bound_ms": vrec["bound_ms"]})
         kernels.append(entry)
-    import torch
-
+    _emit({"phase": "total", "wall_s": time.perf_counter() - t_start,
+           "serving_plane_s": plane_s})
     print(dev["smi"])                   # name, power limit as nvidia-smi has it
     _emit({"kernels": kernels})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

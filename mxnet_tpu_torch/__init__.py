@@ -11,7 +11,12 @@ It carries these paths:
 * serving the flagship TransformerLM: ``GenerationServer.submit_async`` ->
   scheduler -> ``GenerationEngine`` -> ``TransformerLM.prefill`` /
   ``decode_step``, with the fused RMSNorm and flash-attention forward
-  kernels;
+  kernels; around it the serving plane's host half — QoS preemption,
+  ``resume_from``, live KV migration and defrag, ``swap_params``, the
+  SIGTERM drain, and the modules the server reads (``telemetry``,
+  ``profiler``'s dispatch counters, ``tenancy``, ``chaos``, ``memory``,
+  ``leakcheck``, ``debug``, ``dispatch``, ``elastic``, ``config``), with
+  ``loadgen`` to drive it;
 * training it: ``make_train_step`` -> ``TransformerLM.loss`` -> ``apply``
   and backward, with, besides those, the flash-attention dQ and dK/dV
   kernels and the fused softmax cross-entropy forward and backward kernels;

@@ -287,18 +287,20 @@ class TransformerLM(nn.Module):
         return (torch.zeros(shape, dtype=self.dtype, device=self.device),
                 torch.zeros(shape, dtype=self.dtype, device=self.device))
 
-    def prefill(self, k_pages, v_pages, tokens, length, page_table):
+    def prefill(self, k_pages, v_pages, tokens, length, page_table,
+                params=None):
         """Run a prompt through the model, writing each layer's K/V into the
         pages, and return the next-token logits [V] (f32).
 
         tokens: [1, Tpad] int64 (prompt left-aligned, padded to a bucket);
         length: int, the true prompt length; page_table: [M] int64, the
-        pages backing positions 0..length-1."""
+        pages backing positions 0..length-1; params: a flat dict under the
+        JAX names (``None``: the module's own parameters)."""
         cfg = self.cfg
         H, D = cfg.n_heads, cfg.head_dim
         ps = k_pages.shape[2]
         Tpad = tokens.shape[1]
-        P = self._params(None)
+        P = self._params(params)
         x = P["embed"][tokens]
         t = torch.arange(Tpad, device=tokens.device)
         dest = torch.where(t < length, page_table[t // ps] * ps + t % ps,
@@ -310,19 +312,20 @@ class TransformerLM(nn.Module):
         return self._logits(P, x[:, length - 1])[0]
 
     def decode_step(self, k_pages, v_pages, tokens, page_tables, lens,
-                    active):
+                    active, params=None):
         """One autoregressive step for a batch of decode slots; returns the
         next-token logits [S, V] (f32).
 
         tokens: [S] int64, the token each slot appends; page_tables: [S, M]
         int64; lens: [S] int64, the sequence length BEFORE this token (it
         is written at position ``lens`` and attends 0..lens); active: [S]
-        bool — inactive slots write to the garbage page."""
+        bool — inactive slots write to the garbage page; params: as in
+        :meth:`prefill`."""
         cfg = self.cfg
         H, D = cfg.n_heads, cfg.head_dim
         S = tokens.shape[0]
         ps = k_pages.shape[2]
-        P = self._params(None)
+        P = self._params(params)
         x = P["embed"][tokens][:, None, :]                  # [S, 1, E]
         cur_page = page_tables.gather(1, (lens // ps)[:, None])[:, 0]
         dest = torch.where(active, cur_page, 0) * ps + lens % ps

@@ -48,6 +48,7 @@ default.  Without a card they refuse to start unless given ``ctx=cpu()``
 import importlib
 import pathlib
 import sys
+import threading
 import uuid
 
 import numpy as np
@@ -1201,3 +1202,117 @@ def test_gluon_entry_points_default_to_the_card(dev):
     assert net.weight.data().data.is_cuda
     out = net(mx.nd.ones((4, 2)))
     assert out.context == mx.gpu(0) and out.shape == (4, 3)
+
+
+# ---------------------------------------------------------------------------
+# the serving plane's page movement on the card
+# ---------------------------------------------------------------------------
+SERVE_SMALL = dict(vocab_size=97, d_model=256, n_heads=2, n_layers=2,
+                   d_ff=512, max_len=256, dtype="bfloat16")
+
+
+def _serve_small(dev, n=2):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = mx.TransformerLM(mx.TransformerConfig(**SERVE_SMALL),
+                             device=dev, generator=gen)
+    cfg = mx.GenerationConfig(page_size=16, max_pages=64, max_slots=4,
+                              max_new_tokens=40, slot_buckets="4",
+                              prefill_buckets="64,128")
+    return [mx.GenerationServer(model, cfg, device=dev) for _ in range(n)]
+
+
+def _slow_token(t):
+    import time
+
+    time.sleep(0.005)
+
+
+def _park_mid_stream(srv, prompt, n_before=4):
+    import time
+
+    from mxnet_tpu_torch.serving import StreamMigrated
+
+    fut = srv.submit_async(prompt, on_token=_slow_token)
+    t0 = time.monotonic()
+    while len(fut.stream_tokens) < n_before:
+        assert time.monotonic() - t0 < 60, "stream never started"
+        time.sleep(0.001)
+    [h] = srv.park_streams(1)
+    with pytest.raises(StreamMigrated):
+        fut.result(timeout=30)
+    return fut.stream_tokens, h
+
+
+def test_kv_blob_bf16_roundtrip_of_card_pages(dev):
+    """bf16 pages gathered from the card pack to the bytes of their raw
+    words and scatter back bit for bit."""
+    from mxnet_tpu_torch.generation import (_block_tensor, pack_kv_blob,
+                                            unpack_kv_blob)
+
+    [srv] = _serve_small(dev, 1)
+    try:
+        eng = srv.engine
+        g = torch.Generator(device=dev).manual_seed(1)
+        eng.k_pages.copy_(torch.randn(eng.k_pages.shape, generator=g,
+                                      device=dev))
+        eng.v_pages.copy_(torch.randn(eng.v_pages.shape, generator=g,
+                                      device=dev))
+        pages = [5, 2, 9]
+        k, v = srv._run_on_scheduler(lambda: eng.gather_pages(pages))
+        blob = pack_kv_blob({"n_pages": 3}, k, v)
+        h, kb, vb = unpack_kv_blob(blob)
+        assert h["kv_dtype"] == "bfloat16"
+        kt = _block_tensor(kb, torch.bfloat16, dev)
+        vt = _block_tensor(vb, torch.bfloat16, dev)
+        assert torch.equal(kt.view(torch.int16),
+                           eng.k_pages[:, pages].view(torch.int16))
+        srv._run_on_scheduler(lambda: eng.scatter_pages([20, 21, 22],
+                                                        kt, vt))
+        assert torch.equal(eng.v_pages[:, [20, 21, 22]].view(torch.int16),
+                           eng.v_pages[:, pages].view(torch.int16))
+    finally:
+        srv.drain(timeout=30)
+
+
+def test_migrate_bitwise_on_card(dev):
+    """One slot bucket on both servers: a migrated bf16 stream's greedy
+    continuation is the unparked stream's, bit for bit, with no prefill on
+    the receiver."""
+    from mxnet_tpu_torch import profiler
+
+    a, b = _serve_small(dev)
+    try:
+        p = np.random.default_rng(3).integers(0, 97, 100)
+        ref = a.submit(p, timeout=120)
+        delivered, h = _park_mid_stream(a, p)
+        blob = a.export_stream(h)
+        p0 = profiler.dispatch_value("gen_prefills")
+        h2 = b.import_stream(blob)
+        fut = b.submit_async(p, resume_from=delivered, migrate_handle=h2)
+        cont = list(fut.tokens(timeout=120))
+        assert profiler.dispatch_value("gen_prefills") == p0
+        assert delivered + cont == ref
+    finally:
+        for s in (a, b):
+            s.drain(timeout=30)
+            assert s.engine.allocator.used == 0
+
+
+def test_defrag_on_card_continues_bitwise(dev):
+    [srv] = _serve_small(dev, 1)
+    try:
+        rng = np.random.default_rng(4)
+        p_long, p_short = rng.integers(0, 97, 60), rng.integers(0, 97, 60)
+        ref = srv.submit(p_long, timeout=120)
+        fut_s = srv.submit_async(p_short, max_new_tokens=20)
+        fut_l = srv.submit_async(p_long, on_token=_slow_token)
+        fut_s.result(timeout=120)
+        while len(fut_l.stream_tokens) < 24:
+            assert not fut_l.done
+            threading.Event().wait(0.001)
+        moved = srv.defrag()
+        assert fut_l.result(timeout=120) == ref
+        assert moved == 1 and srv.stats["defrag_moved"] == 1
+    finally:
+        srv.drain(timeout=30)
+        assert srv.engine.allocator.used == 0

@@ -274,6 +274,77 @@ def test_gluon_trains_with_jax_unimportable():
     assert all(np.isfinite(res["losses"]))
 
 
+_CHILD_SERVING_PLANE = r"""
+import importlib.abc, json, sys
+
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, _Block())
+import time
+import numpy as np
+import mxnet_tpu_torch as mt
+from mxnet_tpu_torch import (chaos, config, debug, dispatch, elastic,
+                             leakcheck, loadgen, memory, profiler, telemetry,
+                             tenancy)
+from mxnet_tpu_torch.serving import StreamMigrated, brownout
+
+leakcheck.install("raise")
+cfg = mt.TransformerConfig(**json.loads(sys.argv[1]))
+model = mt.TransformerLM(cfg, device="cpu")
+gcfg = mt.GenerationConfig(page_size=8, max_pages=16, max_slots=2,
+                           max_new_tokens=12)
+a = mt.GenerationServer(model, gcfg, device="cpu", warm=False)
+b = mt.GenerationServer(model, gcfg, device="cpu", warm=False)
+p = np.array([3, 1, 4, 1, 5])
+ref = a.submit(p, timeout=60)
+fut = a.submit_async(p, on_token=lambda t: time.sleep(0.01))
+while len(fut.stream_tokens) < 2:
+    time.sleep(0.002)
+[h] = a.park_streams(1)
+try:
+    fut.result(timeout=10)
+except StreamMigrated:
+    pass
+got = fut.stream_tokens
+h2 = b.import_stream(a.export_stream(h))
+got += list(b.submit_async(p, resume_from=got, migrate_handle=h2).tokens(
+    timeout=60))
+trace = loadgen.generate_trace(loadgen.TraceSpec(
+    seed=1, segments=[{"duration_s": 0.5, "rate_rps": 8.0}],
+    prompt_len_mean=4, prompt_len_max=8, output_len_mean=2,
+    output_len_max=4))
+rep = loadgen.replay(trace, loadgen.generation_target(b), speed=4.0)
+drained = a.drain(timeout=10) and b.drain(timeout=10)
+leakcheck.assert_quiescent()
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))
+print(json.dumps({"equal": got == ref, "outcomes": rep.outcome_counts(),
+                  "drained": drained, "loaded": loaded,
+                  "pages": a.engine.allocator.used + b.engine.allocator.used,
+                  "tokens": profiler.dispatch_value("gen_tokens")}))
+"""
+
+
+def test_serving_plane_runs_with_jax_unimportable():
+    """Migration, loadgen replay, telemetry, chaos, tenancy, memory, leak
+    ledger and drain, with ``jax`` and ``mxnet_tpu`` unimportable."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD_SERVING_PLANE,
+         json.dumps(dict(TINY, max_len=64))],
+        capture_output=True, text=True, timeout=120, cwd=REPO,
+        env=subprocess_env())
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == []
+    assert res["equal"] and res["drained"] and res["pages"] == 0
+    assert set(res["outcomes"]) <= {"ok", "Overloaded"}
+    assert res["tokens"] > 0
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -326,6 +397,20 @@ def test_symbolic_entry_points_refuse_cpu_fallback(no_cuda):
     m = mod.Module(net, label_names=())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         m.bind(data_shapes=[("data", (1, 3))])
+
+
+def test_serving_plane_refuses_cpu_fallback(no_cuda):
+    """Without a card a server for the serving plane (migration peers,
+    loadgen targets) refuses to start unless given ``device="cpu"``, and
+    the memory view reports the host, not a card."""
+    from mxnet_tpu_torch import memory
+
+    model = TransformerLM(TransformerConfig(**TINY), device="cpu")
+    for _ in range(2):                         # a migration's two peers
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            GenerationServer(model, GenerationConfig(max_pages=4),
+                             warm=False)
+    assert list(memory.device_view()) == ["cpu"]
 
 
 def test_default_device_is_cuda0_when_present(monkeypatch):
