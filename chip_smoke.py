@@ -35,7 +35,13 @@ on the card:
   (``gluon.model_zoo.vision.resnet50_v1``, batch 128, bf16 with f32
   master weights, hybridized, ``gluon.contrib.FusedTrainStep``) and
   BASELINE.json's Gluon ResNet-18 CIFAR-10 config (record -> backward ->
-  ``Trainer.step``); no hand-written kernel is on this path.
+  ``Trainer.step``); no hand-written kernel is on this path;
+* inference, model serving and numerical health — bench.py's inference,
+  latency_b1, serving and sentinel legs: the same ResNet-50 through
+  ``benchmark.compiled_throughput`` (a CUDA graph) and
+  ``percall_throughput``; bench.py's serving MLP through ``predict.
+  Predictor`` and ``serving.ModelServer``; the bf16 step under
+  ``FusedTrainStep(numeric_guard="skip")`` with ``chaos`` faults.
 
 Run from the root of the repository, with no arguments::
 
@@ -122,18 +128,7 @@ Phases, in order; any failure raises and exits non-zero:
    version; then, on the long-context
    configuration, the loss and every parameter gradient through the
    kernels must match those through the plain versions;
-6. int8    — the fp32 ResNet-50 graph at batch 128 (one warm forward, then
-   ``INT8_TIMED`` timed), ``quantize_model`` (naive calibration on 32
-   images in batches of 16, fold_bn, fuse_int8), the int8 graph (one warm
-   forward, then ``INT8_TIMED`` timed): the op counts must equal the JAX
-   package's, the int8 outputs must keep a cosine above 0.99 with the
-   fp32 ones, the int8 forward through the kernels must equal the one
-   through the plain versions bit for bit, the int8 matmul must launch
-   exactly once per forward, through its wgmma variant, and
-   ``quantized_dense`` on the classifier's int8 inputs must equal
-   ``dequantize(quantized_fully_connected(...))`` and launch the
-   fused-dequant kernel's wgmma variant once;
-7. module_train — ``Module.fit`` of ResNet-50 on 256 seeded images in
+6. module_train — ``Module.fit`` of ResNet-50 on 256 seeded images in
    batches of 32 (one warm step, then 7 timed, each ending in a
    synchronize): losses finite, 8 updates, the data BatchNorm's moving
    statistics equal to 8 EMA steps of the batches' moments (each step
@@ -143,7 +138,7 @@ Phases, in order; any failure raises and exits non-zero:
    within ``MODULE_CHECK_REL_F64``; in f32 every moving statistic within
    ``MODULE_CHECK_REL``, and each device's f32 gradients reported against
    the float64 step;
-8. rtc — (a) the reference's templated ``axpy<float>`` / ``axpy<double>``
+7. rtc — (a) the reference's templated ``axpy<float>`` / ``axpy<double>``
    and tests/test_rtc.py's kernels in CUDA, equal to torch; a second
    module of the same source and a second launch compile nothing; the host
    cost of one launch; (b) the custom-softmax example through
@@ -154,16 +149,56 @@ Phases, in order; any failure raises and exits non-zero:
    each kernel; and the two kernels against numpy_softmax at [32, 1000]
    and [64, 4], timed.
 
-9. gluon_train — bench.py's train leg at its settings (see GLUON_*): 3
+8. gluon_train — bench.py's train leg at its settings (see GLUON_*): 3
    warm ``FusedTrainStep`` calls, then ``GLUON_TIMED`` timed ones, each
    ending in a synchronize: ms per step, img/s, peak memory, the losses;
    gates: finite losses, one update per step, bf16 weights beside f32
    BatchNorm Parameters, one f32 master per bf16 weight, a bf16 loss of
-   shape (128,);
-10. gluon_cifar — resnet18_v1 thumbnail, f32, hybridized, 20 steps of
+   shape (128,); the step accountant's
+   ``train.fused.*`` gauges (mfu, hbm_util, items_per_sec) present;
+9. gluon_infer — bench.py's inference and latency_b1 legs on
+   gluon_train's net and batch (see INFER_*): ``benchmark.
+   compiled_throughput`` (one CUDA graph of 30 chained forwards, one
+   replay per draw, 5 draws), ``percall_throughput`` (30 x 5) and batch 1
+   (100 x 3): img/s median / min / max, ms at batch 1, peak memory; gates:
+   the graph's chain equals the eager chain bit for bit (the same
+   kernels on the same inputs), one replay per draw, the probe leaves the
+   input unchanged;
+10. serving_front — bench.py's serving leg (see SERVE_*): the bare
+   ``Predictor`` against ``serving.ModelServer`` on the card, 400
+   requests: p50 / p99 of each (the served ones from the
+   ``serving.latency_ms`` histogram), the p99 overhead, a burst of 4 x
+   max_queue (shed rate, burst p99, queue peak, batch counts); gates:
+   every served output equals the bare Predictor's at its batch's shape
+   bit for bit, every outcome typed, the queue bounded, nothing pending
+   after drain; then two replicas under ``replica_crash`` /
+   ``slow_replica``: every request typed, failovers and hedges above 0;
+11. sentinel — bench.py's sentinel leg (see SENTINEL_*): gluon_train's
+   step against ``FusedTrainStep(numeric_guard="skip")`` in 9 interleaved
+   pairs of 15-step windows: the median per-pair overhead, the guard's
+   img/s, and each step's host time from an idle card;
+   gates: a ``nan_grad`` step leaves every parameter, BatchNorm statistic
+   and optimizer-state buffer bitwise unchanged, records ``skip``, and the
+   steps after it stay finite; a finite guarded step equals the unguarded
+   one bit for bit (cuDNN deterministic, two unguarded steps agreeing
+   first); ``flip_param_bit`` flips one bit of one f32 element;
+12. int8   — the fp32 ResNet-50 graph at batch 128 (one warm forward, then
+   ``INT8_TIMED`` timed), ``quantize_model`` (naive calibration on 32
+   images in batches of 16, fold_bn, fuse_int8), the int8 graph (one warm
+   forward, then ``INT8_TIMED`` timed): the op counts must equal the JAX
+   package's, the int8 outputs must keep a cosine above 0.99 with the
+   fp32 ones, the int8 forward through the kernels must equal the one
+   through the plain versions bit for bit, the int8 matmul must launch
+   exactly once per forward, through its wgmma variant, and
+   ``quantized_dense`` on the classifier's int8 inputs must equal
+   ``dequantize(quantized_fully_connected(...))`` and launch the
+   fused-dequant kernel's wgmma variant once, and
+   ``int8_vs_bf16``: the int8 forwards' img/s over gluon_infer's per-call
+   bf16 figure (both per-dispatch timings);
+13. gluon_cifar — resnet18_v1 thumbnail, f32, hybridized, 20 steps of
    record -> backward -> ``Trainer.step`` on one seeded batch of 128: the
    loss must fall below ``CIFAR_FALL`` times the first;
-11. gluon_step_card_vs_cpu — one Gluon step at batch 4: float64 on the
+14. gluon_step_card_vs_cpu — one Gluon step at batch 4: float64 on the
    card against the CPU within ``MODULE_CHECK_REL_F64``, f32 hybridized
    against not on the card within ``GLUON_HYBRID_REL``.
 
@@ -382,6 +417,37 @@ CIFAR_FALL = 0.5
 # card hybridized against not (within GLUON_HYBRID_REL)
 GLUON_CHECK_BATCH = 4
 GLUON_HYBRID_REL = 1e-5
+
+# gluon_infer: bench.py's inference and latency_b1 legs (bench.py:543-580)
+# on gluon_train's net and batch: compiled_throughput (one CUDA graph of
+# INFER_STEPS chained forwards, one replay per draw) and
+# percall_throughput at INFER_STEPS x INFER_DRAWS, and at batch 1
+# compiled_throughput with B1_STEPS x B1_DRAWS.  The graph's last output
+# must equal the same chain run eagerly bit for bit
+INFER_STEPS = 30
+INFER_DRAWS = 5
+B1_STEPS = 100
+B1_DRAWS = 3
+# serving_front: bench.py's serving leg (bench.py:705-805, not cut): the
+# 64 -> 256 -> 8 MLP symbol, SERVE_REQUESTS sequential requests through
+# the bare Predictor and through ModelServer(max_queue SERVE_QUEUE,
+# max_batch 8, max_wait_ms 0, deadline_ms 30000), then a burst of
+# 4 x SERVE_QUEUE; then a two-replica chaos run (SERVE_CHAOS_SPEC over
+# SERVE_CHAOS_REQUESTS requests in waves, hedge_ms SERVE_HEDGE_MS)
+SERVE_REQUESTS = 400
+SERVE_QUEUE = 32
+SERVE_D_IN, SERVE_D_H = 64, 256
+SERVE_CHAOS_SPEC = ("replica_crash@1,replica_crash@4,slow_replica@6,"
+                    "slow_replica@8")
+SERVE_CHAOS_REQUESTS = 48
+SERVE_HEDGE_MS = 50
+# sentinel: bench.py's sentinel leg (bench.py:508-541): gluon_train's step
+# beside a FusedTrainStep(numeric_guard="skip") over the same net and
+# trainer, SENTINEL_PAIRS interleaved base/guard windows of SENTINEL_WIN
+# steps each ending in a host fetch of the loss; the overhead is the
+# median per-pair ratio
+SENTINEL_WIN = 15
+SENTINEL_PAIRS = 9
 
 # User code: the kernels a user of mx.rtc writes, and the CustomOps over
 # them.  One CTA per row; max and sum in f32 by warp shuffles.
@@ -2118,10 +2184,13 @@ def _timed_forwards(exe, n):
     return ms, outs
 
 
-def phase_int8(dev):
+def phase_int8(dev, bf16_img_s=None):
     """The INT8 path on the symbolic ResNet-50.  Returns the launches of
     its two counted runs (the timed int8 forwards, the quantized_dense
-    call) and the fp32 and int8 executors, for ``--profile``."""
+    call) and the fp32 and int8 executors, for ``--profile``.
+    ``bf16_img_s`` is gluon_infer's per-call img/s of the bf16 Gluon
+    ResNet-50 at the same batch: the record's ``int8_vs_bf16`` is the
+    median timed int8 forward's img/s over it (bench.py:582-584)."""
     import numpy as np
     import torch
     import mxnet_tpu_torch as mx
@@ -2257,6 +2326,14 @@ def phase_int8(dev):
         "quantized_dense_max_abs_err_vs_oracle": dense_err,
         "quantized_dense_rtol": DENSE_RTOL,
     }
+    if bf16_img_s:
+        rec["int8_vs_bf16"] = (statistics.median(rec["int8_img_per_s"])
+                               / bf16_img_s)
+        rec["int8_vs_bf16_basis"] = (
+            "median img/s of the timed int8 forwards (each ending in a "
+            "synchronize) over gluon_infer's per-call bf16 img/s "
+            "(percall_throughput: chained calls ending in a host fetch); "
+            "both per-dispatch timings")
     _emit(rec)
     _check(np.isfinite(got).all() and got.shape == (INT8_BATCH, nh),
            "int8 outputs: shape %s, finite %s" % (got.shape,
@@ -2838,6 +2915,11 @@ def phase_gluon_train(dev):
     upd = trainer._updaters[0]
     masters = [s[1] for s in upd.states.values() if isinstance(s, tuple)]
     med = statistics.median(step_ms)
+    # the step accountant's live gauges (bench.py:497-505), from the
+    # shapes-counted cost and the host clock between steps
+    from mxnet_tpu_torch import telemetry
+    gauges = {k: v for k, v in telemetry.registry().snapshot()[
+        "gauges"].items() if k.startswith("train.fused.")}
     rec = {
         "phase": "gluon_train", "device": dev["name"],
         "nvidia_smi": dev["smi"], "net": "resnet50_v1", "batch":
@@ -2849,7 +2931,9 @@ def phase_gluon_train(dev):
         "losses": losses, "num_update": trainer._optimizer.num_update,
         "params_by_dtype": {k: len(v) for k, v in dtypes.items()},
         "f32_masters": len(masters), "last_scalars_head":
-        step.last_scalars[:5].tolist(),
+        step.last_scalars[:5].tolist(), "gauges": gauges,
+        "step_cost": step._accountant.cost,
+        "seconds": time.perf_counter() - t0,
     }
     _emit(rec)
     _check(all(np.isfinite(losses)), "gluon_train: losses %s" % losses)
@@ -2865,7 +2949,12 @@ def phase_gluon_train(dev):
            % (len(masters), len(dtypes["bfloat16"])))
     _check(str(loss.dtype) == "bfloat16" and loss.shape == (GLUON_BATCH,),
            "gluon_train: loss %s %s" % (loss.dtype, loss.shape))
-    return {"step": step, "x": x, "y": y}
+    _check(all(k in gauges for k in ("train.fused.mfu",
+                                     "train.fused.hbm_util",
+                                     "train.fused.items_per_sec")),
+           "gluon_train: train.fused gauges %s" % sorted(gauges))
+    return {"step": step, "x": x, "y": y, "net": net, "loss_fn": loss_fn,
+            "trainer": trainer}
 
 
 def phase_gluon_cifar(dev):
@@ -2944,6 +3033,406 @@ def phase_gluon_step_card_vs_cpu(dev):
     _check(ok, "gluon_step_card_vs_cpu: %s" % report)
 
 
+def phase_gluon_infer(dev, gluon):
+    """bench.py's inference and latency_b1 legs on gluon_train's net (see
+    INFER_*): img/s of one CUDA-graph replay of the chained forwards per
+    draw, of the per-call path, and at batch 1; gates on the graph against
+    the eager chain.  Returns the per-call figure the int8 phase divides
+    by."""
+    import torch
+    from mxnet_tpu_torch import autograd, benchmark
+
+    t0 = time.perf_counter()
+    net, x = gluon["net"], gluon["x"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the gates, on a loop built here: one replay per draw, the probe
+    # leaves the input unchanged, the graph's chain equals the eager one
+    loop = benchmark.compiled_loop(net, x, INFER_STEPS)
+    before = benchmark.graph_replays()
+    loop.draw()
+    one_replay = benchmark.graph_replays() - before == 1
+    carry_is_x = bool(torch.equal(loop.carry, x.data))
+    graph_out = loop.out.float().clone()
+    del loop
+    torch.cuda.empty_cache()
+    zero = torch.zeros((), dtype=x.data.dtype, device=x.data.device)
+    with autograd.pause(train_mode=False):
+        _, eager_out = benchmark.chained_forward(net, x.data, zero,
+                                                 INFER_STEPS)
+    eager_out = eager_out.float()
+    err = float((graph_out - eager_out).abs().max())
+    scale = float(eager_out.abs().max())
+    bitwise = bool(torch.equal(graph_out, eager_out))
+    # bench.py's figures (each compiled_throughput builds its own graph)
+    before = benchmark.graph_replays()
+    compiled = benchmark.compiled_throughput(net, x, steps=INFER_STEPS,
+                                             draws=INFER_DRAWS)
+    replays = benchmark.graph_replays() - before
+    torch.cuda.empty_cache()
+    percall = benchmark.percall_throughput(net, x, steps=INFER_STEPS,
+                                           draws=INFER_DRAWS)
+    b1 = benchmark.compiled_throughput(net, x[0:1], steps=B1_STEPS,
+                                       draws=B1_DRAWS)
+    torch.cuda.empty_cache()
+    rec = {
+        "phase": "gluon_infer", "device": dev["name"],
+        "nvidia_smi": dev["smi"], "net": "resnet50_v1",
+        "batch": GLUON_BATCH, "dtype": "bfloat16", "steps": INFER_STEPS,
+        "draws": INFER_DRAWS,
+        "compiled_img_per_s": compiled, "percall_img_per_s": percall,
+        "latency_b1": {"img_per_s": b1, "ms": 1e3 / b1["median"],
+                       "steps": B1_STEPS, "draws": B1_DRAWS},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "graph_vs_eager_max_abs_err": err, "eager_max_abs": scale,
+        "graph_vs_eager_bitwise": bitwise, "one_replay_per_draw":
+        one_replay, "probe_leaves_input": carry_is_x,
+        "replays_in_compiled_throughput": replays,
+        "seconds": time.perf_counter() - t0,
+    }
+    _emit(rec)
+    _check(bitwise, "gluon_infer: graph vs eager chain differ, max abs "
+           "err %g of %g" % (err, scale))
+    _check(one_replay, "gluon_infer: a draw launched %d replays"
+           % (benchmark.graph_replays() - before))
+    # one replay when the loop is built (the first, uncounted draw) and
+    # one per timed draw
+    _check(replays == INFER_DRAWS + 1,
+           "gluon_infer: %d replays for %d draws" % (replays, INFER_DRAWS))
+    _check(carry_is_x, "gluon_infer: the probe changed the input")
+    return percall["median"]
+
+
+def _serving_mlp(mx, ctx, seed=0):
+    """bench.py's serving MLP (64 -> 256 -> relu -> 8) and its params,
+    made from ``seed`` as bench.py makes them, and its 16 request rows."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    data = mx.sym.var("data")
+    w1, b1 = mx.sym.var("fc1_weight"), mx.sym.var("fc1_bias")
+    w2, b2 = mx.sym.var("fc2_weight"), mx.sym.var("fc2_bias")
+    h = mx.sym.Activation(
+        mx.sym.FullyConnected(data, w1, b1, num_hidden=SERVE_D_H,
+                              name="fc1"), act_type="relu")
+    sym = mx.sym.FullyConnected(h, w2, b2, num_hidden=8, name="fc2")
+    params = {
+        "arg:fc1_weight": mx.nd.array(
+            (rng.rand(SERVE_D_H, SERVE_D_IN) * 0.1).astype(np.float32),
+            ctx=ctx),
+        "arg:fc1_bias": mx.nd.zeros((SERVE_D_H,), ctx=ctx),
+        "arg:fc2_weight": mx.nd.array(
+            (rng.rand(8, SERVE_D_H) * 0.1).astype(np.float32), ctx=ctx),
+        "arg:fc2_bias": mx.nd.zeros((8,), ctx=ctx),
+    }
+    xs = [rng.rand(1, SERVE_D_IN).astype(np.float32) for _ in range(16)]
+    return sym, params, xs
+
+
+def phase_serving_front(dev):
+    """bench.py's serving leg (see SERVE_*): the bare Predictor against
+    ModelServer on the card, the burst, then a two-replica chaos run."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import chaos, serving, telemetry
+    from mxnet_tpu_torch.predict import Predictor
+
+    t0 = time.perf_counter()
+    ctx = mx.gpu(0)
+    sym, params, xs = _serving_mlp(mx, ctx)
+    shapes = {"data": (1, SERVE_D_IN)}
+
+    def pctl(lat_s, q):
+        return float(np.percentile(np.asarray(lat_s), q)) * 1e3
+
+    bare = Predictor(sym, dict(params), ctx=ctx, input_shapes=shapes)
+    want = [bare.forward(data=mx.nd.array(x, ctx=ctx))[0].asnumpy()
+            for x in xs]
+    bare_lat = []
+    for i in range(SERVE_REQUESTS):
+        t1 = time.perf_counter()
+        bare.forward(data=mx.nd.array(xs[i % len(xs)], ctx=ctx))[0] \
+            .asnumpy()
+        bare_lat.append(time.perf_counter() - t1)
+    rec = {"phase": "serving_front", "device": dev["name"],
+           "nvidia_smi": dev["smi"], "requests": SERVE_REQUESTS,
+           "max_queue": SERVE_QUEUE, "bare_p50_ms": pctl(bare_lat, 50),
+           "bare_p99_ms": pctl(bare_lat, 99)}
+    # bit-for-bit against the bare Predictor at the batch's own padded
+    # shape (a Predictor reshaped to it, over the same parameters)
+    refs = {1: bare}
+
+    def same_as_bare(fut, got):
+        job = fut.job
+        p = refs.get(job.padded_rows)
+        if p is None:
+            p = refs[job.padded_rows] = bare.reshape(
+                {"data": (job.padded_rows, SERVE_D_IN)})
+        off = job.offsets[job.requests.index(fut)]
+        ref = p.forward(data=mx.nd.array(job.feed["data"], ctx=ctx))[0] \
+            .asnumpy()[off:off + fut.rows]
+        return np.array_equal(got[0], ref)
+
+    hist = telemetry.registry().histogram("serving.latency_ms")
+    srv = serving.ModelServer(sym, dict(params), input_shapes=shapes,
+                              ctx=ctx, max_queue=SERVE_QUEUE, max_batch=8,
+                              max_wait_ms=0, deadline_ms=30_000)
+    mismatched, untyped = 0, 0
+    try:
+        for x in xs:
+            srv.submit({"data": x})  # settle the EWMA + caches
+        hist.reset()
+        for i in range(SERVE_REQUESTS):
+            got = srv.submit({"data": xs[i % len(xs)]})
+            mismatched += not np.array_equal(got[0], want[i % len(xs)])
+        hs = hist.snapshot()
+        rec.update(served_p50_ms=hs["p50"], served_p99_ms=hs["p99"],
+                   served_count=hs["count"])
+        rec["overhead_p99_pct"] = (hs["p99"] / max(rec["bare_p99_ms"],
+                                                   1e-9) - 1.0) * 100.0
+        # the burst at 4x the admission cap: shedding, not collapse
+        hist.reset()
+        futs, shed = [], 0
+        offered = 4 * SERVE_QUEUE
+        for i in range(offered):
+            try:
+                futs.append(srv.submit_async({"data": xs[i % len(xs)]},
+                                             deadline_ms=30_000))
+            except serving.Overloaded:
+                shed += 1
+        for f in futs:
+            try:
+                got = f.result(timeout=60)
+            except serving.ServingError:
+                continue
+            except Exception:                 # noqa: BLE001 — counted
+                untyped += 1
+                continue
+            mismatched += not same_as_bare(f, got)
+        snap = srv.snapshot()
+        rec.update(burst_offered=offered, shed=shed,
+                   shed_rate=shed / offered,
+                   burst_p99_ms=hist.snapshot()["p99"] or 0.0,
+                   queue_depth_peak=snap["queue_depth_peak"],
+                   batches={k: snap[k] for k in ("batches_full",
+                                                 "batches_timer",
+                                                 "batches_deadline")})
+    finally:
+        drained = srv.drain(timeout=30)
+    pending = len(srv._pending) + len(srv._jobs)
+    rec.update(mismatched_vs_bare=mismatched, untyped=untyped,
+               drained=drained, pending_after_drain=pending,
+               state_after_drain=srv.state)
+
+    # two replicas under chaos: crashes fail over, stragglers are hedged
+    srv = serving.ModelServer(sym, dict(params), input_shapes=shapes,
+                              ctx=ctx, num_replicas=2,
+                              max_queue=SERVE_QUEUE, max_batch=8,
+                              max_wait_ms=1, deadline_ms=30_000,
+                              hedge_ms=SERVE_HEDGE_MS,
+                              breaker_threshold=2, breaker_backoff=0.05,
+                              breaker_backoff_cap=0.1)
+    outcomes = []
+    try:
+        with chaos.inject(SERVE_CHAOS_SPEC, seed=11) as plan:
+            futs = []
+            for wave in range(SERVE_CHAOS_REQUESTS // 4):
+                for j in range(4):
+                    x = xs[(4 * wave + j) % len(xs)]
+                    try:
+                        futs.append(srv.submit_async({"data": x}))
+                    except serving.ServingError as e:
+                        outcomes.append(type(e).__name__)
+                time.sleep(0.01)
+            for f in futs:
+                try:
+                    f.result(timeout=60)
+                    outcomes.append("ok")
+                except serving.ServingError as e:
+                    outcomes.append(type(e).__name__)
+                except Exception as e:        # noqa: BLE001 — counted
+                    outcomes.append("untyped:" + type(e).__name__)
+            fired = plan.pending() == []
+        snap = srv.snapshot()
+    finally:
+        srv.drain(timeout=30)
+    rec["chaos"] = {
+        "spec": SERVE_CHAOS_SPEC, "outcomes": {
+            k: outcomes.count(k) for k in sorted(set(outcomes))},
+        "all_fired": fired, "failovers": snap["failovers"],
+        "hedges_fired": snap["hedges_fired"],
+        "hedge_wins": snap["hedge_wins"],
+        "breaker_trips": sum(r["trips"] for r in snap["replicas"])}
+    rec["seconds"] = time.perf_counter() - t0
+    _emit(rec)
+    _check(mismatched == 0, "serving_front: %d served outputs differ from "
+           "the bare Predictor's" % mismatched)
+    _check(untyped == 0, "serving_front: %d untyped outcomes" % untyped)
+    _check(rec["queue_depth_peak"] <= SERVE_QUEUE,
+           "serving_front: queue depth %d > %d"
+           % (rec["queue_depth_peak"], SERVE_QUEUE))
+    _check(drained and pending == 0 and rec["state_after_drain"] ==
+           serving.STOPPED, "serving_front: after drain %d pending, "
+           "state %s" % (pending, rec["state_after_drain"]))
+    _check(len(outcomes) == SERVE_CHAOS_REQUESTS
+           and not any(o.startswith("untyped") for o in outcomes),
+           "serving_front: chaos outcomes %s" % rec["chaos"]["outcomes"])
+    _check(snap["failovers"] > 0 and snap["hedges_fired"] > 0 and fired,
+           "serving_front: chaos run %s" % rec["chaos"])
+
+
+def _train_digest(trainer):
+    """CRC32 over every Parameter (BatchNorm statistics included) and every
+    optimizer-state buffer (momenta, f32 masters) of ``trainer``."""
+    from mxnet_tpu_torch import sentinel
+
+    states = []
+
+    def flat(s):
+        if isinstance(s, (tuple, list)):
+            for t in s:
+                flat(t)
+        elif s is not None:
+            states.append(s)
+
+    for i in sorted(trainer._updaters[0].states):
+        flat(trainer._updaters[0].states[i])
+    return (sentinel.params_digest(trainer._params),
+            sentinel.params_digest(states))
+
+
+def phase_sentinel(dev, gluon):
+    """bench.py's sentinel leg (see SENTINEL_*) and the guard's gates:
+    containment of a nan_grad step, a finite guarded step bitwise the
+    unguarded one, and flip_param_bit."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import chaos, sentinel
+    from mxnet_tpu_torch.gluon.contrib import FusedTrainStep
+
+    t0 = time.perf_counter()
+    step, x, y = gluon["step"], gluon["x"], gluon["y"]
+    trainer = gluon["trainer"]
+    guard = FusedTrainStep(gluon["net"], gluon["loss_fn"], trainer,
+                           numeric_guard="skip")
+    for _ in range(GLUON_WARM):
+        loss = guard(x, y)
+    loss.asnumpy()
+    guard_img_s, ratios = 0.0, []
+    for _ in range(SENTINEL_PAIRS):
+        dts = {}
+        for tag, s in (("base", step), ("guard", guard)):
+            t1 = time.perf_counter()
+            for _ in range(SENTINEL_WIN):
+                loss = s(x, y)
+            loss.asnumpy()
+            dts[tag] = time.perf_counter() - t1
+        guard_img_s = max(guard_img_s, GLUON_BATCH * SENTINEL_WIN
+                          / dts["guard"])
+        ratios.append(dts["guard"] / dts["base"] - 1.0)
+    guard.check_health()
+    overhead = statistics.median(ratios)
+    # each step's host time from an idle card (the call returns when its
+    # last launch is queued): where the guard's cost lies
+    host_ms = {}
+    for tag, s in (("base", step), ("guard", guard)):
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            s(x, y)
+            ms.append((time.perf_counter() - t1) * 1e3)
+        host_ms[tag] = statistics.median(ms)
+    torch.cuda.synchronize()
+    guard.check_health()
+
+    # containment: the nan_grad step leaves every buffer bitwise unchanged
+    k = guard._step_idx
+    before = _train_digest(trainer)
+    with chaos.inject("nan_grad@%d" % k, seed=7) as plan:
+        bad_loss = guard(x, y)
+        guard.check_health()
+    after = _train_digest(trainer)
+    event = guard._sentinel.events[-1] if guard._sentinel.events else None
+    later = [float(np.asarray(guard(x, y).asnumpy(), np.float32).mean())
+             for _ in range(2)]
+    guard.check_health()
+    finite_after = bool(np.isfinite(later).all()) and all(
+        bool(torch.isfinite(p.data().data.float()).all())
+        for p in trainer._params)
+
+    # a finite guarded step is bitwise the unguarded one from one state
+    # (cuDNN's deterministic algorithms, so that two runs can agree)
+    ring = sentinel.RollbackRing(1, trainer._params, trainer._updaters)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        digests = {}
+        for tag, s in (("base", step), ("base_again", step),
+                       ("guard", guard)):
+            ring.snapshot(0)
+            s(x, y).asnumpy()
+            guard.check_health()
+            digests[tag] = _train_digest(trainer)
+            ring.restore()
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+    # flip_param_bit flips one bit of one element (of the f32 Parameters:
+    # a bf16 one is left alone, as the JAX package leaves it)
+    f32 = [p for p in trainer._params if p.grad_req != "null"
+           and p.data().dtype == np.float32]
+    host = {p.name: p.data().asnumpy().copy() for p in f32}
+    with chaos.inject("bitflip_param@0", seed=3):
+        flipped = chaos.flip_param_bit(0, f32)
+    changed = {}
+    for p in f32:
+        a = host[p.name].reshape(-1).view(np.uint32)
+        b = p.data().asnumpy().reshape(-1).view(np.uint32)
+        d = np.flatnonzero(a != b)
+        if d.size:
+            changed[p.name] = [int(d.size),
+                               bin(int(a[d[0]] ^ b[d[0]])).count("1")]
+    for p in f32:                                  # undo the flip
+        p.data()[:] = host[p.name]
+    rec = {
+        "phase": "sentinel", "device": dev["name"],
+        "nvidia_smi": dev["smi"], "net": "resnet50_v1",
+        "batch": GLUON_BATCH, "window": SENTINEL_WIN,
+        "pairs": SENTINEL_PAIRS, "overhead_pct": overhead * 100.0,
+        "pair_overheads_pct": [r * 100.0 for r in ratios],
+        "guard_img_per_s": guard_img_s, "host_ms_from_idle": host_ms,
+        "nan_grad_step": k, "fired": plan.pending() == [],
+        "event": list(event[:2]) if event else None,
+        "bad_step_loss_finite": bool(np.isfinite(np.asarray(
+            bad_loss.asnumpy(), np.float32)).all()),
+        "digest_unchanged": before == after, "later_losses": later,
+        "finite_after": finite_after,
+        "digests": {k2: ["%08x" % d for d in v]
+                    for k2, v in digests.items()},
+        "guard_bitwise_unguarded": digests["guard"] == digests["base"],
+        "base_deterministic": digests["base_again"] == digests["base"],
+        "flipped": flipped, "changed": changed,
+        "seconds": time.perf_counter() - t0,
+    }
+    _emit(rec)
+    _check(rec["fired"] and before == after,
+           "sentinel: the nan_grad step changed the state %s -> %s"
+           % (before, after))
+    _check(event is not None and event[:2] == (k, "skip"),
+           "sentinel: events %s" % guard._sentinel.events)
+    _check(finite_after, "sentinel: non-finite after the skipped step")
+    _check(rec["base_deterministic"], "sentinel: two unguarded steps from "
+           "one state differ: %s" % rec["digests"])
+    _check(rec["guard_bitwise_unguarded"], "sentinel: the guarded finite "
+           "step differs from the unguarded one: %s" % rec["digests"])
+    _check(flipped is not None and list(changed) == [flipped]
+           and changed[flipped] == [1, 1],
+           "sentinel: flip_param_bit flipped %s, changed %s"
+           % (flipped, changed))
+    return guard
+
+
 def _profile_window(name, fn):
     """Trace ``fn`` (after one warm call) with ``torch.profiler``; print
     the wall time, the device busy time and share, and the kernels that
@@ -2974,6 +3463,17 @@ def _profile_window(name, fn):
                 "calls": e.count,
                 "share_of_busy": e.self_device_time_total / 1e3 / busy_ms}
                for e in kern[:12]]})
+
+
+def _profile_guard_windows(gluon, guard):
+    """``--profile``: one Gluon FusedTrainStep at the gluon_train settings,
+    unguarded and under ``numeric_guard="skip"``."""
+    x, y = gluon["x"], gluon["y"]
+    _profile_window("resnet50_gluon_fused_train_step_b%d_bf16"
+                    % GLUON_BATCH, lambda: gluon["step"](x, y))
+    _profile_window("resnet50_gluon_guarded_train_step_b%d_bf16"
+                    % GLUON_BATCH, lambda: guard(x, y))
+    guard.check_health()
 
 
 def phase_profile_train(states):
@@ -3069,6 +3569,14 @@ def _case_shape(rec):
     return rec["q"] if "q" in rec else [rec["M"], rec["K"], rec["N"]]
 
 
+def _timed_phase(name, fn, *args):
+    """``fn(*args)``, then a line with the phase's wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    _emit({"phase_wall_s": {name: time.perf_counter() - t0}})
+    return out
+
+
 SERVING_PLANE = (phase_serve_qos, phase_serve_migrate, phase_serve_loadreplay,
                  phase_serve_tenant, phase_serve_ops)
 
@@ -3088,11 +3596,15 @@ def main():
     torch.cuda.empty_cache()
     plane_s = time.perf_counter() - t0
     train_launches, states = phase_train(dev)
-    int8_launches, int8_exes = phase_int8(dev)
     trained = phase_module_train(dev)
     rtc_launches, rtc_main = phase_rtc(dev, trained)
     main_cases.update(rtc_main)
-    gluon = phase_gluon_train(dev)
+    gluon = _timed_phase("gluon_train", phase_gluon_train, dev)
+    bf16_img_s = _timed_phase("gluon_infer", phase_gluon_infer, dev, gluon)
+    _timed_phase("serving_front", phase_serving_front, dev)
+    guard = _timed_phase("sentinel", phase_sentinel, dev, gluon)
+    int8_launches, int8_exes = _timed_phase("int8", phase_int8, dev,
+                                            bf16_img_s)
     phase_gluon_cifar(dev)
     phase_gluon_step_card_vs_cpu(dev)
     if "--profile" in sys.argv[1:]:
@@ -3102,9 +3614,7 @@ def main():
             _profile_window("resnet50_%s_forward_b%d" % (name, INT8_BATCH),
                             lambda exe=exe: exe.forward(is_train=False))
         phase_profile_module(trained)
-        _profile_window("resnet50_gluon_fused_train_step_b%d_bf16"
-                        % GLUON_BATCH,
-                        lambda: gluon["step"](gluon["x"], gluon["y"]))
+        _profile_guard_windows(gluon, guard)
     sources = {
         # the warp variant, which the prefills and training steps take;
         # decode takes block (VARIANT_SOURCES)

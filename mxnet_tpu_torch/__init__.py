@@ -39,7 +39,15 @@ It carries these paths:
   ``multi_precision``), or all of it in one call with
   ``gluon.contrib.FusedTrainStep``; convolutions, BatchNorm and products
   go to cuDNN / cuBLAS through PyTorch, as XLA generates them in the JAX
-  package.
+  package;
+* model serving: the predict API (``predict.Predictor`` and the C-shaped
+  ``MXPred*``, over ``nd.load`` / ``nd.save`` in the npz and the dmlc
+  formats) behind ``serving.ModelServer`` (bounded admission, bucketed
+  batching, deadlines, hedging, circuit breakers, drain, hot reload);
+  ``benchmark``'s throughput harness (one CUDA graph of K chained
+  forwards a draw); and the numerical-health ``sentinel`` with
+  ``FusedTrainStep(numeric_guard=)`` / ``Trainer(numeric_guard=)``, the
+  loss scaler and ``monitor``.
 
 Entry points take ``device=`` (or, on the symbolic path, ``ctx=``).  The
 default is ``cuda:0`` (``gpu(0)``); without a CUDA device they raise unless
@@ -55,7 +63,8 @@ __all__ = ["default_device", "resolve_device", "TransformerConfig",
            "GenerationEngine", "GenerationServer", "Context", "cpu", "gpu",
            "current_context", "nd", "sym", "io", "contrib", "init", "mod",
            "metric", "optimizer", "lr_scheduler", "callback", "random",
-           "operator", "rtc", "autograd", "gluon"]
+           "operator", "rtc", "autograd", "gluon", "predict", "serving",
+           "benchmark", "monitor", "Monitor", "sentinel"]
 
 
 def default_device() -> torch.device:
@@ -102,3 +111,5 @@ from . import (callback, lr_scheduler, metric, operator,  # noqa: E402,F401
 from . import initializer as init  # noqa: E402
 from . import module as mod  # noqa: E402
 from . import autograd, gluon  # noqa: E402,F401
+from . import benchmark, monitor, predict, sentinel, serving  # noqa: E402,F401
+from .monitor import Monitor  # noqa: E402,F401

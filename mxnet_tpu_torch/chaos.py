@@ -1,4 +1,4 @@
-"""Deterministic seeded fault injection: the serving half of
+"""Deterministic seeded fault injection: the serving and training hooks of
 ``mxnet_tpu/chaos.py``.
 
 A plan is a comma list of ``fault@step`` items plus an optional seed::
@@ -28,14 +28,28 @@ counter):
                                 token kills the worker
 ``adapter_swap_mid_burst@N``    the Nth opportunity with a resident
                                 adapter hot-swaps it mid-traffic
+``slow_replica@N``              ModelServer: the Nth model execution stalls
+                                0.25 s (outside every lock)
+``replica_crash@N``             ModelServer: the Nth model execution raises
+                                :class:`InjectedReplicaCrash`
+``replica_slow_start@N``        ModelServer: the Nth ``add_replica`` build
+                                stalls 0.3 s
+``nan_grad@N``                  training step N: the loss scale is NaN
+                                (FusedTrainStep), or one seeded gradient
+                                element is NaN (the eager Trainer)
+``bitflip_param@N``             training step N: one seeded bit of one
+                                parameter element flips
 ==============================  ==============================================
 
 Every fault fires at most once per process; ``step`` counts are 0-based
 and fault-local (the Nth opportunity of that kind).  The plan is inert —
 a hook costs one attribute load — unless ``MXNET_CHAOS`` is set or
-``inject()`` is active.  The training and kvstore hooks (``nan_grad``,
-``bitflip_param``, ``kv_*``, ``ckpt_*``, ``loader_raise``) parse but have
-no consumer in the port yet.
+``inject()`` is active.  The seeded hooks pick what they hit from
+``ChaosPlan.rng`` exactly as the JAX package's do, so in one process both
+packages poison the same element and flip the same bit.  A bfloat16
+parameter is left alone by both (its numpy twin is not a float kind in
+the JAX package).  The kvstore and data hooks (``kv_*``, ``ckpt_*``,
+``loader_raise``) parse but have no consumer in the port yet.
 """
 from __future__ import annotations
 
@@ -43,11 +57,14 @@ import os
 import threading
 
 import numpy as np
+import torch
 
 __all__ = ["ChaosPlan", "inject", "active", "FAULT_KINDS",
            "page_pressure", "tenant_flood", "request_burst",
            "migrate_interrupt", "drain_migrate", "worker_kill_mid_decode",
-           "adapter_swap_mid_burst"]
+           "adapter_swap_mid_burst", "slow_replica", "replica_crash",
+           "replica_slow_start", "InjectedReplicaCrash",
+           "corrupt_loss_scale", "poison_grad", "flip_param_bit"]
 
 FAULT_KINDS = frozenset({
     "nan_grad", "bitflip_param", "kv_drop", "kv_delay", "kv_dup",
@@ -250,3 +267,113 @@ def adapter_swap_mid_burst(n, adapters):
     if plan is None or adapters < 1:
         return False
     return plan.fire("adapter_swap_mid_burst", n)
+
+
+# ---------------------------------------------------------------------------
+# serving-front fault hooks (mxnet_tpu_torch.serving.ModelServer)
+# ---------------------------------------------------------------------------
+class InjectedReplicaCrash(RuntimeError):
+    """The failure :func:`replica_crash` raises inside a serving replica
+    execution — caught by the serving layer's failover path like any
+    real replica fault."""
+
+
+def slow_replica(n, delay=0.25):
+    """``slow_replica@N``: seconds the Nth model execution should stall
+    before running (0.0 otherwise).  The serving worker sleeps OUTSIDE
+    every lock, then executes normally — a straggler, not a failure."""
+    plan = active()
+    if plan is not None and plan.fire("slow_replica", n):
+        return float(delay)
+    return 0.0
+
+
+def replica_crash(n):
+    """``replica_crash@N``: raise :class:`InjectedReplicaCrash` in place
+    of the Nth model execution — feeds the serving failover and circuit
+    breaker exactly like a real replica fault."""
+    plan = active()
+    if plan is not None and plan.fire("replica_crash", n):
+        raise InjectedReplicaCrash("chaos: injected crash on serving "
+                                   "execution %d" % n)
+
+
+def replica_slow_start(n, delay=0.3):
+    """``replica_slow_start@N``: seconds the Nth ``add_replica`` build
+    should stall before starting (0.0 otherwise) — a slow cold start."""
+    plan = active()
+    if plan is not None and plan.fire("replica_slow_start", n):
+        return float(delay)
+    return 0.0
+
+
+# ---------------------------------------------------------------------------
+# training fault hooks (FusedTrainStep / Trainer under a numeric guard)
+# ---------------------------------------------------------------------------
+def corrupt_loss_scale(step, scale):
+    """``nan_grad``: NaN in place of the step's loss scale.  The scale
+    multiplies the loss inside the step, so every gradient goes
+    non-finite through the real backward computation."""
+    plan = active()
+    if plan is not None and plan.fire("nan_grad", step):
+        return float("nan")
+    return scale
+
+
+def _flippable(t, kinds):
+    """Whether a tensor's numpy kind is in ``kinds`` (bfloat16's numpy
+    twin is a 2-byte void, kind ``'V'``, as in the JAX package)."""
+    if t.dtype == torch.bfloat16:
+        return False
+    if t.dtype.is_floating_point:
+        return "f" in kinds
+    if t.dtype == torch.bool:
+        return False
+    return ("u" if t.dtype == torch.uint8 else "i") in kinds
+
+
+def poison_grad(step, params):
+    """``nan_grad`` on the eager Trainer path (which has no loss-scale
+    slot): NaN into one seeded element of one parameter's gradient before
+    the update (the element the JAX package's hook picks).  Returns the
+    poisoned parameter's name or None."""
+    plan = active()
+    if plan is None or not params or "nan_grad" not in plan.kinds:
+        return None
+    if not plan.fire("nan_grad", step):
+        return None
+    rng = plan.rng("nan_grad", step)
+    p = params[rng.randint(len(params))]
+    for g in p.list_grad():
+        flat = g.data.detach().reshape(-1)
+        if flat.numel() == 0 or not _flippable(flat, "f"):
+            return None
+        i = rng.randint(flat.numel())
+        with torch.no_grad():
+            g.data.view(-1)[i] = float("nan")
+    return getattr(p, "name", None)
+
+
+def flip_param_bit(step, params):
+    """``bitflip_param``: flip one seeded bit of one element of one
+    parameter, in place (the bit the JAX package's hook flips).  Returns
+    the poisoned parameter's name, or None when nothing fired."""
+    plan = active()
+    if plan is None or not params or "bitflip_param" not in plan.kinds:
+        return None
+    if not plan.fire("bitflip_param", step):
+        return None
+    rng = plan.rng("bitflip_param", step)
+    p = params[rng.randint(len(params))]
+    arr = p.list_data()[0] if hasattr(p, "list_data") else p
+    t = arr.data
+    if t.numel() == 0 or not _flippable(t, "fiu"):
+        return None
+    idx = rng.randint(t.numel())
+    item = t.element_size()
+    elem = t.detach().reshape(-1)[idx:idx + 1].cpu().numpy().copy()
+    bits = elem.view("u%d" % item)
+    bits ^= np.asarray(1, bits.dtype) << rng.randint(8 * item)
+    with torch.no_grad():
+        t.view(-1)[idx:idx + 1] = torch.from_numpy(elem).to(t.device)
+    return getattr(p, "name", None)

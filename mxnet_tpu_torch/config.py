@@ -1,6 +1,7 @@
 """Environment-variable configuration tier: the knobs of
-``mxnet_tpu/config.py`` that the serving plane reads through ``config``
-(telemetry's peak rates, debug bundles, memory accounting).
+``mxnet_tpu/config.py`` that the port reads through ``config``
+(telemetry's peak rates and step costs, debug bundles, memory accounting,
+the numerical-health guard and its rollback ring).
 
 Each knob is declared once with a type, default and doc.  Names are the
 JAX package's, so one launch script sets both packages.  The peak rates
@@ -36,6 +37,26 @@ class _Config:
     """Typed view over the MXNET_* / MXTPU_* env tier."""
 
     _KNOBS = [
+        Knob("MXNET_NUMERIC_GUARD", str, "",
+             "Numerical-health sentinel over the training hot path: a "
+             "finiteness reduction over loss+gradients on the device "
+             "rides FusedTrainStep / Trainer.step. 'warn' counts+warns "
+             "but still applies the update; 'skip' keeps params, "
+             "BatchNorm statistics and optimizer state bitwise unchanged "
+             "across a non-finite step (selected on the device, no host "
+             "round-trip); 'escalate' runs the ladder skip -> rescale -> "
+             "rollback-k -> exit(77, retryable). '' disables."),
+        Knob("MXNET_ROLLBACK_STEPS", int, 0,
+             "Depth k of the bad-step rollback ring (host-RAM snapshots "
+             "of params + optimizer state kept by the sentinel; a restore "
+             "writes into the same tensors). 0 disables snapshotting; the "
+             "escalation ladder then skips the rollback rung."),
+        Knob("MXNET_TELEMETRY_COST", bool, True,
+             "Count each training step's FLOPs and bytes from the shapes "
+             "its first call sees (convolutions and products forward and "
+             "backward; parameters, optimizer state and activations), so "
+             "the live train.fused.mfu / hbm_gbs / hbm_util gauges are "
+             "published with zero device syncs; set 0 to skip."),
         Knob("MXNET_TELEMETRY_PEAK_FLOPS", float, 989e12,
              "Accelerator peak FLOP/s the MFU gauges divide by. Default: "
              "one NVIDIA H100 SXM, dense bf16 (989 TFLOP/s, published "

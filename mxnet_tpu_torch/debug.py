@@ -21,13 +21,14 @@ loop from filling the disk.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import threading
 import time
 
 __all__ = ["bundle_dir", "write_bundle", "add_section", "remove_section",
-           "SCHEMA_VERSION"]
+           "StormDetector", "SCHEMA_VERSION"]
 
 SCHEMA_VERSION = 1
 _COOLDOWN_S = 30.0
@@ -36,6 +37,30 @@ _lock = threading.Lock()
 _last_write = {}           # reason -> monotonic ts of last bundle
 _sections = {}             # name -> zero-arg provider (weak for methods)
 _seq = 0
+
+
+class StormDetector:
+    """Sliding-window threshold: ``hit()`` records one event and returns
+    True when ``threshold`` events landed within ``window_s`` (the trigger
+    of storm bundles, such as the serving front's breaker trips)."""
+
+    __slots__ = ("threshold", "window_s", "_times", "_lock")
+
+    def __init__(self, threshold, window_s=60.0):
+        self.threshold = int(threshold)
+        self.window_s = float(window_s)
+        self._times = collections.deque(maxlen=max(4, self.threshold * 4))
+        self._lock = threading.Lock()
+
+    def hit(self, now=None):
+        if self.threshold <= 0:
+            return False
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            self._times.append(now)
+            recent = sum(1 for t in self._times
+                         if now - t <= self.window_s)
+        return recent >= self.threshold
 
 
 def bundle_dir():

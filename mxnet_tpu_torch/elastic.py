@@ -5,6 +5,8 @@
   notice) into a flag (``requested``), with callbacks that run on the
   first signal (a server's drain flag); a second signal exits with
   :data:`PREEMPTED_EXIT_CODE`.
+* :data:`NUMERIC_EXIT_CODE` — the retryable exit code of the
+  numerical-health sentinel's last rung (:mod:`~mxnet_tpu_torch.sentinel`).
 * :func:`install_preemption_drain` — wires a server's drain flag into the
   handler: the first signal closes admission, and the server completes
   what it admitted.  It sets a flag and nothing else; it never exits the
@@ -22,9 +24,10 @@ import sys
 import threading
 
 __all__ = ["PreemptionHandler", "install_preemption_drain",
-           "PREEMPTED_EXIT_CODE"]
+           "PREEMPTED_EXIT_CODE", "NUMERIC_EXIT_CODE"]
 
 PREEMPTED_EXIT_CODE = 76  # graceful drain: checkpointed, restart for free
+NUMERIC_EXIT_CODE = 77    # sentinel escalation exhausted: params poisoned
 
 
 def _log(msg):

@@ -13,6 +13,8 @@ activations (in training: what autograd saved for the backward).
   recording from the arguments whose ``grad_req`` is not ``null``, and
   writes each op's new auxiliary states (its ``mutate`` outputs) back into
   the aux arrays, once.
+* ``set_monitor_callback(cb)`` taps every op node's outputs
+  (``monitor.Monitor.install``).
 * ``backward(out_grads)`` takes ``torch.autograd.grad`` of the last
   training forward's outputs with respect to those arguments, the head
   gradients being ``out_grads`` (ones where none is given), and writes the
@@ -97,6 +99,14 @@ class Executor:
         self._index()
         self.outputs = []
         self._pending = None      # the last training forward, until backward
+        self._monitor_cb = None
+
+    def set_monitor_callback(self, callback, monitor_all=False):
+        """Install a per-node output tap (reference
+        ``MXExecutorSetMonitorCallbackEX``): every forward then calls
+        ``callback(node name, outputs)`` after each op node, the outputs
+        being that node's tensors.  ``None`` removes it."""
+        self._monitor_cb = callback
 
     def _index(self):
         self.arg_dict = dict(zip(self.arg_names, self.arg_arrays))
@@ -163,6 +173,8 @@ class Executor:
             res = call(node.op, [env[id(src)][oi] for src, oi in node.inputs],
                        node.attrs, train)
             env[id(node)] = res
+            if self._monitor_cb is not None:
+                self._monitor_cb(node.name, res)
             if train:
                 mut = node.op.mutate_map(node.attrs, len(node.inputs))
                 for out_i, in_i in mut.items():

@@ -2,7 +2,8 @@
 
 Counterpart of ``mxnet_tpu/ndarray/__init__.py``: every name in the op
 registry becomes ``nd.<name>``, and every ``_contrib_*`` op also
-``nd.contrib.<short name>``.  Each function takes NDArrays as positional
+``nd.contrib.<short name>``; ``save`` / ``load`` / ``load_frombuffer``
+are :mod:`.utils`'.  Each function takes NDArrays as positional
 (or named) inputs and the op's parameters as keywords.
 """
 from __future__ import annotations
@@ -14,6 +15,7 @@ from ..ops.registry import OPS as _OPS, invoke as _invoke
 from .ndarray import (NDArray, array, concat, ones, ones_like,  # noqa: F401
                       zeros, zeros_like)
 from .. import operator as _operator  # noqa: E402,F401  (registers Custom)
+from .utils import load, load_frombuffer, save  # noqa: E402,F401
 
 
 def _make_op_func(opname, opdef):

@@ -124,8 +124,12 @@ def _pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
     if pool_type == "sum":
         return out
     if _attr_bool(count_include_pad):
-        return out / torch.tensor(float(math.prod(kernel)), dtype=out.dtype,
-                                  device=out.device)
+        # the window size as a 0-dim tensor made on the device (a fill, no
+        # host-to-device copy, so a CUDA graph can capture it); a true
+        # division, where a CPU scalar divisor would multiply by its
+        # reciprocal on the card
+        return out / torch.full((), float(math.prod(kernel)),
+                                dtype=out.dtype, device=out.device)
     ones = torch.ones_like(data)
     return out / window_sum(F.pad(ones, pads) if any(pads) else ones)
 

@@ -23,8 +23,8 @@ What the declaration keeps from the reference:
   forward): BatchNorm's batch statistics, ``Custom``'s ``is_train``;
 * ``no_grad`` — the op is an update, not part of a differentiated graph.
 
-:class:`invoke_tap` lets a scope see every imperative call's op and
-parameters (the reference's ``invoke_tap``).
+:class:`invoke_tap` lets a scope see every imperative call's op,
+parameters and tensors (after the reference's ``invoke_tap``).
 """
 from __future__ import annotations
 
@@ -107,9 +107,11 @@ def call(opdef, tensors, params, train=False):
 
 
 class invoke_tap:  # pylint: disable=invalid-name
-    """Scope: ``fn(opdef, params)`` sees every :func:`invoke` on this
-    thread before the op runs (``FusedTrainStep`` reads the optimizer's
-    per-step scalars this way)."""
+    """Scope: ``fn(opdef, params, inputs, outputs)`` sees every
+    :func:`invoke` on this thread after the op ran, with its input and
+    output tensors (``FusedTrainStep`` reads the optimizer's per-step
+    scalars, and counts a step's FLOPs and bytes from the shapes, this
+    way)."""
 
     def __init__(self, fn):
         self._fn = fn
@@ -139,13 +141,12 @@ def invoke(op, ndarray_inputs, params=None):
 
     opdef = get_op(op) if isinstance(op, str) else op
     params = dict(params or {})
-    for fn in getattr(_TAPS, "fns", ()):
-        fn(opdef, params)
     inputs = list(ndarray_inputs)
+    tensors = [x.data if isinstance(x, NDArray) else x for x in inputs]
     with autograd.grad_scope():
-        res = call(opdef, [x.data if isinstance(x, NDArray) else x
-                           for x in inputs], params,
-                   autograd.is_training())
+        res = call(opdef, tensors, params, autograd.is_training())
+    for fn in getattr(_TAPS, "fns", ()):
+        fn(opdef, params, tensors, res)
     mut = opdef.mutate_map(params, len(inputs))
     outputs = []
     for i, r in enumerate(res):

@@ -25,7 +25,7 @@ import time
 
 __all__ = ["set_state", "start", "stop", "state", "dispatch_count",
            "dispatch_stats", "dispatch_value", "record_event",
-           "recent_events"]
+           "record_span", "now_us", "recent_events"]
 
 _lock = threading.Lock()
 _state = "stop"
@@ -38,6 +38,12 @@ _t0 = time.perf_counter()
 
 def _now_us():
     return (time.perf_counter() - _t0) * 1e6
+
+
+def now_us():
+    """Microseconds on the event ring's timebase (for callers that time
+    work themselves and report it through :func:`record_span`)."""
+    return _now_us()
 
 
 def _count_dropped(n):
@@ -77,6 +83,20 @@ def record_event(evt):
     e.setdefault("pid", os.getpid())
     e.setdefault("tid", threading.get_ident() % 10000)
     _append(e)
+
+
+def record_span(name, cat, begin_us, dur_us, tid=None, args=None):
+    """Append one complete ('X') chrome-trace span; a no-op unless the
+    profiler is running."""
+    if _state != "run":
+        return
+    evt = {"name": name, "cat": cat, "ph": "X", "ts": begin_us,
+           "dur": dur_us, "pid": os.getpid(),
+           "tid": tid if tid is not None
+           else threading.get_ident() % 10000}
+    if args:
+        evt["args"] = args
+    _append(evt)
 
 
 # -- dispatch counters (always on) -------------------------------------------

@@ -5,7 +5,8 @@ Counterpart of ``mxnet_tpu/symbol``: a Symbol is a Python DAG of op nodes;
 ``bind`` / ``simple_bind`` give an inference executor that runs the graph
 node by node on the bound context's device.
 """
-from .symbol import Group, Symbol, Variable, load_json, var  # noqa: F401
+from .symbol import (Group, Symbol, Variable, load, load_json,  # noqa: F401
+                     var)
 from .register import _init_symbol_module
 
 _init_symbol_module()

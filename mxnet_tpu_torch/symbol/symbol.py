@@ -25,7 +25,7 @@ import threading
 from .. import ops as _ops  # noqa: F401  (registers the op corpus)
 from ..ops.registry import get_op
 
-__all__ = ["Symbol", "Variable", "var", "Group", "load_json"]
+__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json"]
 
 
 class _Node:
@@ -298,6 +298,12 @@ def Group(symbols):
     for s in symbols:
         outs.extend(s._outputs)
     return Symbol(outs)
+
+
+def load(fname):
+    """The Symbol of a graph-JSON file (:func:`load_json`)."""
+    with open(fname) as f:
+        return load_json(f.read())
 
 
 def _parse_legacy_attr(value):

@@ -44,6 +44,14 @@ FusedTrainStep against record / backward / Trainer.step on the card, f32
 and bf16 with multi_precision; the Gluon entry points on ``gpu(0)`` by
 default.  Without a card they refuse to start unless given ``ctx=cpu()``
 (``test_torch_port_isolation.py``).
+
+Inference, serving and numerical health: ``benchmark.compiled_loop``'s
+CUDA graph of chained forwards equals the eager chain bit for bit (f32
+and bf16), a draw is one replay and the probe leaves the input alone; a
+finite ``FusedTrainStep(numeric_guard="skip")`` step equals the unguarded
+one bit for bit and a ``nan_grad`` step leaves every parameter, BatchNorm
+statistic and optimizer-state buffer unchanged (cuDNN deterministic);
+``serving.ModelServer`` answers the bare Predictor's bits.
 """
 import importlib
 import pathlib
@@ -1316,3 +1324,128 @@ def test_defrag_on_card_continues_bitwise(dev):
     finally:
         srv.drain(timeout=30)
         assert srv.engine.allocator.used == 0
+
+
+# ---------------------------------------------------------------------------
+# the throughput harness, the numerical-health guard and the serving front
+# ---------------------------------------------------------------------------
+def _small_resnet(dev, dtype="bfloat16", batch=4):
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    mx.random.seed(0)
+    net = vision.resnet18_v1(classes=10, thumbnail=True)
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net.hybridize(static_alloc=True, static_shape=True)
+    rng = np.random.RandomState(0)
+    x32 = mx.nd.array(rng.rand(batch, 3, 32, 32).astype(np.float32),
+                      ctx=mx.gpu(0))
+    y = mx.nd.array(rng.randint(0, 10, (batch,)), ctx=mx.gpu(0))
+    with mx.autograd.pause():
+        net(x32)
+    if dtype != "float32":
+        net.cast(dtype)
+    return net, x32.astype(dtype), y
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_compiled_throughput_graph_equals_eager_chain(dev, dtype):
+    """One CUDA graph of the chained forwards: each draw is one replay,
+    the probe leaves the input unchanged, and the graph's last output is
+    the eager chain's, bit for bit."""
+    from mxnet_tpu_torch import autograd, benchmark
+
+    net, x, _ = _small_resnet(dev, dtype)
+    loop = benchmark.compiled_loop(net, x, 5)
+    assert isinstance(loop.graph, torch.cuda.CUDAGraph)
+    before = benchmark.graph_replays()
+    assert loop.draw() > 0
+    assert benchmark.graph_replays() == before + 1
+    assert torch.equal(loop.carry, x.data)
+    zero = torch.zeros((), dtype=x.data.dtype, device=dev)
+    with autograd.pause():
+        _, eager = benchmark.chained_forward(net, x.data, zero, 5)
+    assert torch.equal(loop.out, eager)
+    r = benchmark.compiled_throughput(net, x, steps=3, draws=2)
+    assert r["draws"] == 2 and r["median"] > 0
+    assert benchmark.graph_replays() == before + 1 + 1 + 2
+
+
+def _state_digest(trainer):
+    from mxnet_tpu_torch import sentinel
+
+    states = []
+    for i in sorted(trainer._updaters[0].states):
+        s = trainer._updaters[0].states[i]
+        states += [t for t in (s if isinstance(s, tuple) else (s,))
+                   if t is not None]
+    return (sentinel.params_digest(trainer._params),
+            sentinel.params_digest(states))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_guarded_step_is_bitwise_and_contains_nan_on_card(dev, dtype):
+    """From one state (cuDNN's deterministic algorithms), a finite guarded
+    step equals the unguarded one bit for bit; a nan_grad step leaves every
+    parameter, BatchNorm statistic and optimizer-state buffer unchanged."""
+    from mxnet_tpu_torch import chaos, gluon, sentinel
+    from mxnet_tpu_torch.gluon.contrib import FusedTrainStep
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        net, x, y = _small_resnet(dev, dtype)
+        tr = gluon.Trainer(net.collect_params(), "sgd",
+                           {"learning_rate": 0.05, "momentum": 0.9,
+                            "multi_precision": dtype != "float32"})
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        base = FusedTrainStep(net, loss_fn, tr)
+        guard = FusedTrainStep(net, loss_fn, tr, numeric_guard="skip")
+        base(x, y)
+        ring = sentinel.RollbackRing(1, tr._params, tr._updaters)
+        digests = []
+        for s in (base, base, guard):
+            ring.snapshot(0)
+            s(x, y).asnumpy()
+            guard.check_health()
+            digests.append(_state_digest(tr))
+            ring.restore()
+        assert digests[0] == digests[1] == digests[2]
+        before = _state_digest(tr)
+        k = guard._step_idx
+        with chaos.inject("nan_grad@%d" % k):
+            guard(x, y)
+            guard.check_health()
+        assert _state_digest(tr) == before
+        assert guard._sentinel.events[-1][:2] == (k, "skip")
+        assert np.isfinite(guard(x, y).asnumpy().astype(np.float32)).all()
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+def test_model_server_serves_bare_predictor_bits_on_card(dev):
+    """The serving front on the card answers what the bare Predictor
+    answers at the same batch shape, bit for bit."""
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.predict import Predictor
+
+    ctx = mx.gpu(0)
+    rng = np.random.RandomState(0)
+    net = mx.sym.FullyConnected(
+        mx.sym.Activation(mx.sym.FullyConnected(
+            mx.sym.var("data"), num_hidden=32, name="fc1"),
+            act_type="relu"), num_hidden=8, name="fc2")
+    params = {"arg:fc1_weight": mx.nd.array(rng.rand(32, 16), ctx=ctx),
+              "arg:fc1_bias": mx.nd.zeros((32,), ctx=ctx),
+              "arg:fc2_weight": mx.nd.array(rng.rand(8, 32), ctx=ctx),
+              "arg:fc2_bias": mx.nd.zeros((8,), ctx=ctx)}
+    bare = Predictor(net, params, ctx=ctx, input_shapes={"data": (1, 16)})
+    srv = serving.ModelServer(net, params, ctx=ctx,
+                              input_shapes={"data": (1, 16)},
+                              max_batch=8, max_wait_ms=0)
+    try:
+        for _ in range(8):
+            xi = rng.rand(1, 16).astype(np.float32)
+            want = bare.forward(data=xi)[0].asnumpy()
+            assert np.array_equal(srv.submit({"data": xi})[0], want)
+    finally:
+        assert srv.drain(timeout=30)

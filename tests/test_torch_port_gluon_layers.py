@@ -553,9 +553,25 @@ def test_bf16_multi_precision_training(fused):
                                     "preemption", "numeric_guard",
                                     "sentinel"])
 def test_fused_step_unported_options_raise(option):
+    """The options still unported raise; ``numeric_guard`` and
+    ``sentinel``, ported since, take a guard mode or a HealthSentinel and
+    refuse a bad mode as the JAX package does."""
+    from mxnet_tpu_torch import sentinel
+
     _, net, _, _ = _fused_pair("opts_%s_" % option)
     tr = tgluon.Trainer(net.collect_params(), "sgd", {"learning_rate": 0.1})
     loss_fn = tgluon.loss.SoftmaxCrossEntropyLoss()
-    with pytest.raises(NotImplementedError):
-        tgluon.contrib.FusedTrainStep(net, loss_fn, tr, **{option: object()})
+    if option in ("numeric_guard", "sentinel"):
+        with pytest.raises(ValueError, match="MXNET_NUMERIC_GUARD"):
+            tgluon.contrib.FusedTrainStep(net, loss_fn, tr,
+                                          numeric_guard="bogus")
+        given = ("skip" if option == "numeric_guard" else
+                 sentinel.HealthSentinel(trainer=tr, mode="skip"))
+        step = tgluon.contrib.FusedTrainStep(net, loss_fn, tr,
+                                             **{option: given})
+        assert step._guard_mode == "skip"
+    else:
+        with pytest.raises(NotImplementedError):
+            tgluon.contrib.FusedTrainStep(net, loss_fn, tr,
+                                          **{option: object()})
     tgluon.contrib.FusedTrainStep(net, loss_fn, tr, donate=True)

@@ -453,3 +453,106 @@ def test_gluon_entry_points_refuse_cpu_fallback(no_cuda):
         d = gluon.nn.Dense(2, in_units=2)
         d.initialize()
         assert d.weight.list_ctx() == [cpu()]
+
+
+def test_predict_and_model_server_refuse_cpu_fallback(no_cuda, tmp_path):
+    """Without a card the predict API, the serving front and the loaders
+    refuse to start unless given ``ctx=cpu()``."""
+    from mxnet_tpu_torch import cpu, nd, predict, serving, sym
+
+    net = sym.FullyConnected(sym.Variable("data"), num_hidden=2, name="fc")
+    params = {"arg:fc_weight": nd.zeros((2, 3), ctx=cpu()),
+              "arg:fc_bias": nd.zeros((2,), ctx=cpu())}
+    shapes = {"data": (1, 3)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        predict.Predictor(net, params, input_shapes=shapes)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serving.ModelServer(net, params, input_shapes=shapes)
+    path = str(tmp_path / "m.params")
+    nd.save(path, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        predict.MXPredCreate(net.tojson(), open(path, "rb").read(), 2, 0,
+                             1, ["data"], [(1, 3)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        nd.load(path)
+    p = predict.Predictor(net, path, ctx=cpu(), input_shapes=shapes)
+    assert p.forward(data=np.ones((1, 3), np.float32))[0].shape == (1, 2)
+    srv = serving.ModelServer(predictors=[p], max_wait_ms=1)
+    try:
+        assert srv.submit({"data": np.ones((1, 3), np.float32)})[0].shape \
+            == (1, 2)
+    finally:
+        assert srv.drain(timeout=30)
+
+
+_CHILD_NUMERICAL = r"""
+import importlib.abc, json, sys, tempfile, os
+
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, _Block())
+import numpy as np
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import benchmark, chaos, gluon, monitor, sentinel
+from mxnet_tpu_torch.gluon.contrib import FusedTrainStep
+from mxnet_tpu_torch.predict import Predictor
+from mxnet_tpu_torch.serving import ModelServer
+
+cpu = mx.cpu()
+rng = np.random.RandomState(0)
+net = gluon.nn.HybridSequential()
+net.add(gluon.nn.Dense(8, activation="relu"), gluon.nn.BatchNorm(),
+        gluon.nn.Dense(4))
+net.initialize(mx.init.Xavier(), ctx=cpu)
+net.hybridize()
+x = mx.nd.array(rng.rand(8, 6), ctx=cpu)
+y = mx.nd.array(rng.randint(0, 4, 8), ctx=cpu)
+tr = gluon.Trainer(net.collect_params(), "sgd", {"learning_rate": 0.1})
+step = FusedTrainStep(net, gluon.loss.SoftmaxCrossEntropyLoss(), tr,
+                      numeric_guard="skip")
+with chaos.inject("nan_grad@1"):
+    losses = [float(step(x, y).mean().asscalar()) for _ in range(3)]
+step.check_health()
+rate = benchmark.compiled_throughput(net, x, steps=2, draws=2)["median"]
+d = tempfile.mkdtemp()
+data = mx.sym.var("data")
+sym = mx.sym.FullyConnected(data, num_hidden=3, name="fc")
+mx.nd.save(os.path.join(d, "m.params"),
+           {"arg:fc_weight": mx.nd.array(rng.rand(3, 6), ctx=cpu),
+            "arg:fc_bias": mx.nd.zeros((3,), ctx=cpu)}, format="mxnet")
+pred = Predictor(sym.tojson(), os.path.join(d, "m.params"), ctx=cpu,
+                 input_shapes={"data": (1, 6)})
+srv = ModelServer(predictors=[pred], max_wait_ms=1)
+out = srv.submit({"data": rng.rand(1, 6).astype(np.float32)})[0]
+drained = srv.drain(timeout=30)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))
+mods = sorted(m for m in sys.modules if m.startswith("mxnet_tpu_torch."))
+print(json.dumps({"losses": losses, "events": [list(e[:2]) for e in
+                  step._sentinel.events], "rate": rate,
+                  "out": list(out.shape), "drained": drained,
+                  "loaded": loaded, "modules": mods}))
+"""
+
+
+def test_predict_serving_and_sentinel_run_with_jax_unimportable():
+    """The predict API over a dmlc params file, the serving front, the
+    throughput harness and a guarded fused step with a nan_grad fault,
+    with ``jax`` and ``mxnet_tpu`` unimportable."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD_NUMERICAL], capture_output=True,
+        text=True, timeout=120, cwd=REPO, env=subprocess_env())
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == []
+    for name in ("predict", "serving", "sentinel", "monitor", "benchmark",
+                 "ndarray.utils", "ndarray.dmlc_serde",
+                 "optimizer.loss_scaler"):
+        assert "mxnet_tpu_torch." + name in res["modules"], name
+    assert res["events"] == [[1, "skip"]]
+    assert res["losses"][1] == res["losses"][2]       # the step was skipped
+    assert res["rate"] > 0 and res["out"] == [1, 3] and res["drained"]
