@@ -200,12 +200,49 @@ Phases, in order; any failure raises and exits non-zero:
    loss must fall below ``CIFAR_FALL`` times the first;
 14. gluon_step_card_vs_cpu — one Gluon step at batch 4: float64 on the
    card against the CPU within ``MODULE_CHECK_REL_F64``, f32 hybridized
-   against not on the card within ``GLUON_HYBRID_REL``.
+   against not on the card within ``GLUON_HYBRID_REL``;
+15. racecheck — bench.py's racecheck leg (see RACECHECK_*): a tracked
+   counter bumped under a held lock, 100 000 ops, 5 interleaved off/on
+   pairs, the field seeded into shared-modified from a second thread:
+   checked ops/s and the median per-pair overhead; gates: no race, and
+   ``threading.Lock`` the stdlib factory again afterwards;
+16. kernels_leg — bench.py's kernels leg through the kernel library's
+   front door (the JAX-form ``select_impl`` and ``kernel_unit``): flash
+   forward + backward of ``(o.float() ** 2).sum()`` at [1, 2048, 4, 64]
+   bf16 causal against materialized-scores attention (tokens/s, 10 steps
+   x 3 reps), and the int8 matmul with per-channel dequant at 2048^3
+   against a bf16 product (GFLOP/s, interleaved draws); first the leg's
+   flash shape against the plain versions (forward, dQ, dK/dV ms, bounds)
+   and SDPA's forward + backward; gates: ``pallas_mode() == "auto"``, both
+   impls ``'cuda'``, each of the four wgmma kernels launched once per step,
+   no plain version, the flash gradients within 2^-6 of each gradient's
+   largest entry of the plain version's and of dense autograd's;
+17. tenant_scaleup — bench.py's tenant leg, its scale-up A/B: SimFleet on
+   the seed-33 burst trace (3 s at 2 rps, then 6 s at 60), 2 to 12
+   replicas, reactive and predictive: mean lags and scale-up counts; gate:
+   a second run of each gives the same lags (host only, deterministic);
+18. gateway — bench.py's gateway leg: the demo model's direct p99 (200
+   requests); two spawned ``python -m mxnet_tpu_torch.fleet_worker``
+   processes serving it behind a ``Gateway``: 200 sequential requests
+   (``gateway_p99_ms``, ``gateway_route_p99_ms``), a burst of 64 clean and
+   with one worker SIGKILLed at request 16; then the generation kill
+   burst with two workers serving the flagship at full width
+   (``flagship_generation_worker``, the serve phase's configuration): 8
+   streams (two past the flash gate), 12 new tokens each, clean and with
+   the worker holding the most streams SIGKILLed once every stream has
+   streamed a token; gates: typed outcomes only, the clean bursts all ok,
+   at least one stream resumed on the sibling and each resumed stream that
+   ended ok delivering all 12 tokens (the leading tokens agreeing with the
+   clean run are reported: a resume re-prefills, and bf16 prefill and
+   decode can part at a near-tie), and in the generation workers (their
+   counters written at their drain) RMSNorm's warp and block and the flash
+   forward's wgmma variant launched, no plain version.
 
 Each main path (serve, each serving-plane path, each training
 configuration, the timed int8
 forwards, the ``quantized_dense`` call, ``Module.fit``, the example's
-training through ``rtc_softmax`` and the ResNet-50 step through it) runs
+training through ``rtc_softmax`` and the ResNet-50 step through it, the
+kernels leg, and each generation worker's served streams) runs
 with the counters zeroed
 just before it and read just after.  The line before the
 last is the ``{"kernels": [...]}`` summary (launches summed over those
@@ -3540,6 +3577,653 @@ def phase_profile_module(trained):
     _profile_window("resnet50_module_train_step_b%d" % MODULE_BATCH, step)
 
 
+# ---------------------------------------------------------------------------
+# bench.py's remaining single-card legs: racecheck, kernels, the tenant
+# leg's scale-up A/B, and the gateway (fleet workers in their own processes)
+# ---------------------------------------------------------------------------
+RACECHECK_OPS = 100_000              # bench.py's racecheck leg, uncut
+RACECHECK_PAIRS = 5
+KLEG_SHAPE = (1, 2048, 4, 64)        # bench.py's kernels leg: B, T, H, D
+KLEG_STEPS = 10
+KLEG_REPS = 3
+KLEG_MNK = 2048
+KLEG_GRAD_REL = 2.0 ** -6            # the wgmma backward vs dense autograd
+SCALEUP_SEGMENTS = [{"duration_s": 3.0, "rate_rps": 2.0},
+                    {"duration_s": 6.0, "rate_rps": 60.0}]
+SCALEUP_KW = dict(initial_replicas=2, max_replicas=12, seed=5,
+                  predict_horizon_s=4.0, predict_depth_up=6)
+GATEWAY_REQUESTS = 200
+GATEWAY_BURST = 64
+GATEWAY_KILL_AT = GATEWAY_BURST // 4
+GATEWAY_BUILDER = "mxnet_tpu_torch.fleet_worker:demo_model"
+GEN_STREAMS = 8
+GEN_MAX_NEW = 12
+# two of the eight prompts cross the flagship's dense->flash gate
+GEN_PROMPT_LENS = (16, 40, 100, 256, 384, 512, 4000, 4000)
+GEN_BUILDER = "chip_smoke:flagship_generation_worker"
+GEN_COUNTS_ENV = "CHIP_SMOKE_COUNTS_DIR"
+WORKER_START_S = 300
+
+
+def phase_racecheck():
+    """bench.py's racecheck leg: a tracked counter bumped under a held
+    lock, off against on in interleaved pairs; the field seeded into
+    shared-modified from a second thread, so every access pays the full
+    lockset intersection."""
+    import threading
+    from mxnet_tpu_torch import racecheck
+
+    _check(not racecheck.installed(), "racecheck armed from the "
+           "environment: the leg has no off window")
+
+    @racecheck.track("ctr")
+    class _Counter:
+        def __init__(self):
+            self.ctr = 0
+
+    def window(box, lk):
+        t0 = time.perf_counter()
+        for _ in range(RACECHECK_OPS):
+            with lk:
+                box.ctr += 1
+        return time.perf_counter() - t0
+
+    rates, ratios, races = [], [], []
+    for _ in range(RACECHECK_PAIRS):
+        box, lk = _Counter(), threading.Lock()
+        dt_off = window(box, lk)
+        racecheck.install("record")
+        try:
+            box = _Counter()
+            lk = racecheck._LockToken(threading._allocate_lock(),
+                                      "chip_smoke.py:0", "Lock")
+
+            def seed(box=box, lk=lk):
+                with lk:
+                    box.ctr = 0       # a second thread: leave exclusive
+
+            t = threading.Thread(target=seed)
+            t.start()
+            t.join()
+            dt_on = window(box, lk)
+            races.append(racecheck.snapshot()["counters"]["races"])
+        finally:
+            racecheck.uninstall()
+            racecheck.reset()
+        rates.append(RACECHECK_OPS / dt_on)
+        ratios.append(dt_on / dt_off - 1.0)
+    restored = threading.Lock is racecheck._real_Lock
+    rec = {"phase": "racecheck", "ops": RACECHECK_OPS,
+           "pairs": RACECHECK_PAIRS,
+           "racecheck_checked_ops_per_sec": max(rates),
+           "racecheck_overhead_pct": statistics.median(ratios) * 100.0,
+           "overhead_pct_pairs": [r * 100.0 for r in ratios],
+           "races": races, "factories_restored": restored}
+    _emit(rec)
+    _check(not any(races), "racecheck reported races in a lock-disciplined "
+           "loop: %s" % races)
+    _check(restored, "racecheck left threading.Lock wrapped")
+    return rec
+
+
+def _naive_attention_loss(q, k, v):
+    """Materialized-scores causal attention in f32, the kernels leg's
+    yardstick: (o ** 2).sum()."""
+    import torch
+
+    T, D = q.shape[1], q.shape[3]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * D ** -0.5
+    mask = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return (o ** 2).sum()
+
+
+def phase_kernels_leg(gen):
+    """bench.py's kernels leg through the kernel library's front door: the
+    JAX-form ``select_impl`` and ``kernel_unit``.  The flash forward +
+    backward of ``(o.float() ** 2).sum()`` at [1, 2048, 4, 64] bf16 causal
+    against materialized-scores attention of the same loss (tokens/s, 10
+    steps x 3 reps), and the int8 matmul with per-channel dequant at 2048^3
+    against a bf16 product in interleaved draws.  Returns the leg's kernel
+    launches and the flash records at the leg's shape."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.dispatch import pallas_mode
+    from mxnet_tpu_torch.ops.kernels import (common, flash_attention,
+                                             int8_matmul, kernel_unit,
+                                             select_impl)
+
+    B, T, H, D = KLEG_SHAPE
+    # the leg's shape against the plain versions, timed beside SDPA (these
+    # launches are not the leg's)
+    fwd = _flash_case(B, T, T, H, D, True, "bfloat16", gen)
+    dq, dkv = _flash_bwd_case(B, T, T, H, D, True, "bfloat16", gen)
+    qs, ks, vs = (torch.randn((B, T, H, D), generator=gen, device="cuda")
+                  .to(torch.bfloat16).transpose(1, 2).requires_grad_(True)
+                  for _ in range(3))
+    sdpa_ms = _time_eager_ms(lambda: torch.autograd.grad(
+        (F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+         .float() ** 2).sum(), (qs, ks, vs)))
+    del qs, ks, vs
+
+    mode = pallas_mode()
+    attn_fn, attn_impl = select_impl("flash_attention")
+    int8_fn, int8_impl = select_impl("int8_matmul")
+    _check(mode == "auto" and attn_impl == "cuda" and int8_impl == "cuda"
+           and attn_fn is flash_attention and int8_fn is int8_matmul,
+           "front door: mode %r, flash %r, int8 %r" % (mode, attn_impl,
+                                                       int8_impl))
+    q, k, v = (torch.randn((B, T, H, D), generator=gen, device="cuda")
+               .to(torch.bfloat16).requires_grad_(True) for _ in range(3))
+
+    def flash_loss(q, k, v):
+        o = attn_fn(q, k, v, causal=True)
+        return (o.float() ** 2).sum()
+
+    def fwd_bwd(loss_fn):
+        def step(q, k, v):
+            loss = loss_fn(q, k, v)
+            return (loss,) + torch.autograd.grad(loss, (q, k, v))
+        return step
+
+    flash_step = kernel_unit("bench_flash_fwd_bwd", fwd_bwd(flash_loss))
+    naive_step = fwd_bwd(_naive_attention_loss)
+
+    M = N = K = KLEG_MNK
+    rng = np.random.RandomState(0)
+    a8 = torch.from_numpy(rng.randint(-127, 128, (M, K)).astype(
+        np.int8)).cuda()
+    w8 = torch.from_numpy(rng.randint(-127, 128, (N, K)).astype(
+        np.int8)).cuda()
+    sa = torch.tensor([0.05], device="cuda")
+    sw = torch.from_numpy(rng.rand(N).astype(np.float32) * 0.1
+                          + 0.01).cuda()
+    int8_step = kernel_unit("bench_int8_matmul",
+                            lambda a, b, s_a, s_b: int8_fn(a, b, s_a, s_b))
+    a16 = (a8.float() * sa).to(torch.bfloat16)
+    w16 = (w8.float() * sw[:, None]).to(torch.bfloat16)
+
+    def bf16_step(a, b):
+        return torch.matmul(a, b.t()).float()
+
+    def tput(fn):
+        out = fn(q, k, v)                    # warm, outside the timing
+        torch.cuda.synchronize()
+        best = 0.0
+        for _ in range(KLEG_REPS):
+            t0 = time.perf_counter()
+            for _ in range(KLEG_STEPS):
+                fn(q, k, v)
+            torch.cuda.synchronize()
+            best = max(best, B * T * KLEG_STEPS
+                       / (time.perf_counter() - t0))
+        return best, out
+
+    # -- the leg: counters zeroed just before, read just after ----------
+    common.reset_counts()
+    flash_tps, flash_out = tput(flash_step)
+    int8_step(a8, w8, sa, sw)
+    bf16_step(a16, w16)
+    torch.cuda.synchronize()
+    best_i = best_b = 0.0
+    for _ in range(KLEG_REPS):
+        t0 = time.perf_counter()
+        for _ in range(KLEG_STEPS):
+            int8_step(a8, w8, sa, sw)
+        torch.cuda.synchronize()
+        best_i = max(best_i, KLEG_STEPS / (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        for _ in range(KLEG_STEPS):
+            bf16_step(a16, w16)
+        torch.cuda.synchronize()
+        best_b = max(best_b, KLEG_STEPS / (time.perf_counter() - t0))
+    selects = common.selection_counts()
+    launches = common.launch_counts()
+    naive_tps, naive_out = tput(naive_step)
+
+    # the flash gradients against the plain version's and dense autograd
+    with _plain_versions():
+        plain_out = flash_step(q, k, v)
+    torch.cuda.synchronize()
+    grad_rel = {}
+    for name, got, plain, naive in zip(("dq", "dk", "dv"), flash_out[1:],
+                                       plain_out[1:], naive_out[1:]):
+        for ref_name, ref in (("plain", plain), ("dense_autograd", naive)):
+            grad_rel["%s_vs_%s" % (name, ref_name)] = float(
+                (got.float() - ref.float()).abs().max()
+                / ref.float().abs().max())
+    finite = all(bool(torch.isfinite(g).all()) for g in flash_out)
+    loss_rel = abs(float(flash_out[0].detach()) - float(plain_out[0].detach())) \
+        / abs(float(plain_out[0].detach()))
+    calls = 1 + KLEG_REPS * KLEG_STEPS
+    want = {"kernels.launch.flash_attention": calls,
+            "kernels.launch.flash_attention.wgmma": calls,
+            "kernels.launch.flash_attention_dq": calls,
+            "kernels.launch.flash_attention_dq.wgmma": calls,
+            "kernels.launch.flash_attention_dkv": calls,
+            "kernels.launch.flash_attention_dkv.wgmma": calls,
+            "kernels.launch.int8_matmul_dequant": calls,
+            "kernels.launch.int8_matmul_dequant.wgmma": calls}
+    got_launches = {k: launches.get(k, 0) for k in want}
+    gflop = 2.0 * M * N * K / 1e9
+    rec = {
+        "phase": "kernels_leg", "pallas_mode": mode,
+        "kernels_flash_impl": attn_impl, "kernels_int8_impl": int8_impl,
+        "shape": list(KLEG_SHAPE), "steps": KLEG_STEPS, "reps": KLEG_REPS,
+        "kernels_flash_fwd_bwd_tokens_per_sec": flash_tps,
+        "kernels_naive_fwd_bwd_tokens_per_sec": naive_tps,
+        "kernels_flash_vs_naive": flash_tps / naive_tps,
+        "kernels_int8_matmul_gflops_per_sec": best_i * gflop,
+        "kernels_bf16_matmul_gflops_per_sec": best_b * gflop,
+        "kernels_int8_matmul_vs_bf16": best_i / best_b,
+        "flash_fwd_ms": fwd["ms"], "flash_dq_ms": dq["ms"],
+        "flash_dkv_ms": dkv["ms"],
+        "flash_fwd_bound_ms": fwd["bound_ms"],
+        "flash_dq_bound_ms": dq["bound_ms"],
+        "flash_dkv_bound_ms": dkv["bound_ms"],
+        "flash_plain_fwd_ms": fwd["plain_ms"],
+        "flash_plain_bwd_ms": dq["plain_ms"],
+        "sdpa_fwd_ms": fwd["library_ms"], "sdpa_fwd_bwd_ms": sdpa_ms,
+        "grad_rel_to_max": grad_rel, "grad_rel_tol": KLEG_GRAD_REL,
+        "loss_rel_vs_plain": loss_rel,
+        "unit_signatures": flash_step.tracker.signatures,
+        "selection_counts": selects, "launch_counts": launches}
+    _emit(rec)
+    _check(got_launches == want, "kernels leg launches %s, expected %s"
+           % (got_launches, want))
+    _check(not any(k.endswith(".reference") for k in selects),
+           "kernels leg: a plain version ran: %s" % selects)
+    _check(finite and max(grad_rel.values()) <= KLEG_GRAD_REL
+           and loss_rel <= 2 ** -7,
+           "kernels leg: flash gradients off the plain version / dense "
+           "autograd: %s, loss %g" % (grad_rel, loss_rel))
+    return launches, {"flash_attention.kleg": fwd,
+                      "flash_attention_dq.kleg": dq,
+                      "flash_attention_dkv.kleg": dkv}
+
+
+def phase_tenant_scaleup():
+    """bench.py's tenant leg, its scale-up half: SimFleet (the real
+    supervisor, gateway policy, brownout and governor in simulated time)
+    on the seed-33 burst trace, reactive then predictive, each run twice."""
+    from mxnet_tpu_torch import loadgen, serving, simfleet, tenancy
+
+    burst = loadgen.generate_trace(loadgen.TraceSpec(
+        seed=33, segments=SCALEUP_SEGMENTS))
+
+    def lags(predict):
+        tenancy.reset_governor(tenancy.TenantGovernor(quotas={}))
+        serving.brownout().reset()
+        try:
+            with simfleet.SimFleet(burst, predict=predict,
+                                   **SCALEUP_KW) as fleet:
+                res = fleet.run()
+        finally:
+            tenancy.reset_governor()
+            serving.brownout().reset()
+        return res["supervisor"]["scaleup_lags_ms"], res["outcomes"]
+
+    t0 = time.perf_counter()
+    (r_lags, r_out), (p_lags, p_out) = lags(False), lags(True)
+    wall = time.perf_counter() - t0
+    (r2, _), (p2, _) = lags(False), lags(True)
+    rec = {"phase": "tenant_scaleup", "requests": len(burst),
+           "tenant_scaleup_lag_reactive_ms":
+               sum(r_lags) / len(r_lags) if r_lags else None,
+           "tenant_scaleup_lag_predictive_ms":
+               sum(p_lags) / len(p_lags) if p_lags else None,
+           "tenant_scaleups_reactive": len(r_lags),
+           "tenant_scaleups_predictive": len(p_lags),
+           "lags_reactive_ms": r_lags, "lags_predictive_ms": p_lags,
+           "outcomes_reactive": r_out, "outcomes_predictive": p_out,
+           "host_wall_s_of_both": wall,
+           "repeat_identical": r2 == r_lags and p2 == p_lags}
+    _emit(rec)
+    _check(rec["repeat_identical"], "SimFleet lags differ across two runs: "
+           "%s / %s, %s / %s" % (r_lags, r2, p_lags, p2))
+    _check(r_lags and p_lags, "no scale-up in the A/B")
+    return rec
+
+
+def flagship_generation_worker(device="cuda"):
+    """The ``--builder`` of the gateway phase's generation workers (called
+    with no argument: on the card): the flagship TransformerLM (seeded
+    random bf16 weights) behind the serve phase's GenerationServer
+    configuration, warmed.  The kernel counters are zeroed once the server
+    is warm, and written to a file in ``$CHIP_SMOKE_COUNTS_DIR`` when the
+    worker process exits (its rc-76 drain), so the parent can read what
+    the served streams launched."""
+    import atexit
+    import os
+    import torch
+    from mxnet_tpu_torch import (GenerationConfig, GenerationServer,
+                                 TransformerConfig, TransformerLM)
+    from mxnet_tpu_torch.ops.kernels import common
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = TransformerLM(TransformerConfig(**FLAGSHIP), device=device,
+                          generator=gen)
+    srv = GenerationServer(model, GenerationConfig(
+        page_size=16, max_pages=1024, max_slots=8, max_new_tokens=MAX_NEW,
+        slot_buckets="8", temperature=0.0, top_k=0, seed=0), device=device)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    common.reset_counts()
+    out_dir = os.environ.get(GEN_COUNTS_ENV)
+
+    def dump():
+        if out_dir:
+            with open(os.path.join(out_dir, "%d.json" % os.getpid()),
+                      "w") as f:
+                json.dump({"launches": common.launch_counts(),
+                           "selects": common.selection_counts()}, f)
+
+    atexit.register(dump)
+    return srv
+
+
+def _http_predict(addr, obj, timeout=90):
+    import http.client
+
+    host, _, port = addr.rpartition(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=timeout)
+    try:
+        conn.request("POST", "/v1/predict", body=json.dumps(obj).encode(),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        body = json.loads(resp.read() or b"{}")
+        return "ok" if resp.status == 200 else body.get(
+            "error", "UNTYPED:HTTP%d" % resp.status)
+    except OSError as e:
+        return "UNTYPED:%s" % type(e).__name__
+    finally:
+        conn.close()
+
+
+def _http_stream(addr, prompt, max_new, timeout=300, on_token=None):
+    """One streamed generation through the gateway: (outcome, tokens,
+    resumed), ``resumed`` the number of times the gateway resumed it on a
+    sibling (its terminal line's ``resumed``).  ``on_token`` is called
+    after each streamed token."""
+    import http.client
+
+    host, _, port = addr.rpartition(":")
+    conn = http.client.HTTPConnection(host, int(port), timeout=timeout)
+    toks, outcome, resumed = [], "UNTYPED:TruncatedStream", 0
+    try:
+        conn.request("POST", "/v1/generate", body=json.dumps(
+            {"prompt": [int(t) for t in prompt], "max_new_tokens": max_new,
+             "deadline_ms": 120000}).encode(),
+            headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            return "UNTYPED:HTTP%d" % resp.status, toks, resumed
+        while True:
+            raw = resp.readline()
+            if not raw:
+                break
+            line = json.loads(raw)
+            if "token" in line:
+                toks.append(line["token"])
+                if on_token is not None:
+                    on_token()
+            elif "done" in line:
+                outcome = "ok"
+                resumed = int(line.get("resumed", 0))
+                break
+            elif "error" in line:
+                outcome = line["error"]
+                break
+    except OSError as e:
+        outcome = "UNTYPED:%s" % type(e).__name__
+    finally:
+        conn.close()
+    return outcome, toks, resumed
+
+
+def _worker_fleet(service, builder, env, reg):
+    """Two ``python -m mxnet_tpu_torch.fleet_worker`` processes (started
+    by subprocess: fork and exec, no CUDA context inherited) and a gateway
+    that sees both."""
+    from mxnet_tpu_torch.fleet import WorkerSupervisor
+    from mxnet_tpu_torch.gateway import Gateway
+
+    sup = WorkerSupervisor(
+        {rid: [sys.executable, "-m", "mxnet_tpu_torch.fleet_worker",
+               "--registry", reg.addr, "--service", service, "--rid", rid,
+               "--heartbeat-s", "0.1", "--builder", builder]
+         for rid in ("w0", "w1")},
+        registry=reg, service=service, max_restarts=3, backoff=0.05,
+        poll_s=0.05, env=env)
+    gw = Gateway(registry=reg, service=service, refresh_s=0.1,
+                 suspect_s=0.5, retries=2)
+    try:
+        sup.wait_registered(2, timeout=WORKER_START_S)
+        _wait_for(lambda: gw._view is not None
+                  and len(gw._view.replicas) >= 2, 30,
+                  "the gateway to see both workers")
+    except Exception:
+        gw.stop()
+        sup.stop(timeout=20.0)
+        raise
+    return sup, gw
+
+
+def phase_gateway(dev):
+    """bench.py's gateway leg: the direct demo-model p99; two spawned fleet
+    workers serving it behind the gateway (200 sequential requests, then a
+    burst of 64 clean and with a worker SIGKILLed at request 16); and the
+    generation kill burst, with the two workers serving the flagship at
+    full width: 8 streams, and once every stream has streamed a token, the
+    worker holding the most of them SIGKILLed, so each stream it held is
+    resumed on the sibling.  Returns the generation workers' summed kernel
+    launches."""
+    import os
+    import tempfile
+    import threading
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.fleet import ServiceRegistry
+    from mxnet_tpu_torch.fleet_worker import _resolve_builder
+
+    def p99(lat_s):
+        return float(np.percentile(np.asarray(lat_s), 99)) * 1e3
+
+    x = {"inputs": {"data": [[1.0, 2.0, 3.0, 4.0]]}}
+    rec = {"phase": "gateway"}
+    # -- the direct ModelServer baseline (the model the workers build) ---
+    direct = _resolve_builder(GATEWAY_BUILDER)()
+    try:
+        arr = np.asarray(x["inputs"]["data"], np.float32)
+        for _ in range(8):
+            direct.submit({"data": arr})
+        lat = []
+        for _ in range(GATEWAY_REQUESTS):
+            t0 = time.perf_counter()
+            direct.submit({"data": arr})
+            lat.append(time.perf_counter() - t0)
+        rec["gateway_direct_p99_ms"] = p99(lat)
+    finally:
+        _check(direct.drain(timeout=30), "direct server did not drain")
+    torch.cuda.empty_cache()
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    # -- two spawned predict workers behind the gateway -------------------
+    reg = ServiceRegistry(service="smoke-gw", ttl_s=1.0)
+    t_start = time.perf_counter()
+    sup, gw = _worker_fleet("smoke-gw", GATEWAY_BUILDER, env, reg)
+    rec["workers_up_s"] = time.perf_counter() - t_start
+    try:
+        for _ in range(8):
+            _http_predict(gw.addr, x)
+        route_ms = telemetry.registry().histogram("gateway.route_ms")
+        route_ms.reset()            # the 200 sequential requests alone
+        lat, outs = [], []
+        for _ in range(GATEWAY_REQUESTS):
+            t0 = time.perf_counter()
+            outs.append(_http_predict(gw.addr, x))
+            lat.append(time.perf_counter() - t0)
+        rec["gateway_p99_ms"] = p99(lat)
+        hs = route_ms.snapshot()
+        rec["gateway_route_p99_ms"] = hs["p99"] if hs["count"] else None
+        rec["sequential_outcomes"] = {o: outs.count(o) for o in set(outs)}
+
+        def burst(kill_at=None):
+            outcomes, lock = [], threading.Lock()
+
+            def one():
+                o = _http_predict(gw.addr, x)
+                with lock:
+                    outcomes.append(o)
+
+            ts = [threading.Thread(target=one) for _ in range(GATEWAY_BURST)]
+            for i, t in enumerate(ts):
+                t.start()
+                if kill_at is not None and i == kill_at:
+                    sup.kill_worker()
+            for t in ts:
+                t.join(timeout=180)
+            return {o: outcomes.count(o) for o in set(outcomes)}
+
+        rec["burst_baseline"] = burst()
+        rec["burst_killed"] = burst(GATEWAY_KILL_AT)
+        rec["gateway_burst_ok_baseline"] = rec["burst_baseline"].get("ok", 0)
+        rec["gateway_burst_ok_killed"] = rec["burst_killed"].get("ok", 0)
+        rec["gateway_retries"] = gw.retried
+        rec["gateway_worker_restarts"] = sup.restarts
+    finally:
+        gw.stop()
+        sup.stop(timeout=30.0)
+        reg.close()
+    typed = ("ok", "Overloaded", "Draining", "DeadlineExceeded",
+             "Unavailable")
+    for key in ("sequential_outcomes", "burst_baseline", "burst_killed"):
+        _check(set(rec[key]) <= set(typed), "gateway %s: untyped outcomes "
+               "%s" % (key, rec[key]))
+    _check(rec["sequential_outcomes"].get("ok", 0) == GATEWAY_REQUESTS,
+           "gateway: not every sequential request ok: %s"
+           % rec["sequential_outcomes"])
+
+    # -- the generation kill burst, flagship workers -----------------------
+    counts_dir = tempfile.mkdtemp(prefix="chip_smoke_counts_")
+    reg = ServiceRegistry(service="smoke-gen", ttl_s=2.0)
+    t_start = time.perf_counter()
+    sup, gw = _worker_fleet("smoke-gen", GEN_BUILDER,
+                            dict(env, **{GEN_COUNTS_ENV: counts_dir}), reg)
+    rec["gen_workers_up_s"] = time.perf_counter() - t_start
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, FLAGSHIP["vocab_size"], n)
+               for n in GEN_PROMPT_LENS[:GEN_STREAMS]]
+    try:
+        def gen_burst(kill=False):
+            results, lock = [None] * len(prompts), threading.Lock()
+            seen = [0] * len(prompts)
+
+            def one(i):
+                def tick():
+                    seen[i] += 1
+                r = _http_stream(gw.addr, prompts[i], GEN_MAX_NEW,
+                                 on_token=tick)
+                with lock:
+                    results[i] = r
+
+            ts = [threading.Thread(target=one, args=(i,))
+                  for i in range(len(prompts))]
+            t0 = time.perf_counter()
+            for t in ts:
+                t.start()
+            killed = None
+            if kill:
+                # mid-decode by construction: every stream has a token
+                # delivered (bench.py waits for one fleet-wide), and the
+                # victim is the worker holding the most streams, so each
+                # it held is resumed on the sibling, not retried
+                _wait_for(lambda: min(seen) >= 1, 120,
+                          "a streamed token on every stream")
+                with gw._lock:
+                    held = dict(gw._inflight)
+                killed = sup.kill_worker(max(sorted(held), key=held.get))
+            for t in ts:
+                t.join(timeout=600)
+            return results, killed, time.perf_counter() - t0
+
+        base, _, base_s = gen_burst()
+        resumed0 = gw.streams_resumed
+        killed_res, killed, killed_s = gen_burst(kill=True)
+        resumed = [(t, bt) for (o, t, n), (_, bt, _) in zip(killed_res, base)
+                   if o == "ok" and n]
+        rec.update({
+            "gen_streams": len(prompts), "gen_max_new_tokens": GEN_MAX_NEW,
+            "gen_prompt_lens": list(GEN_PROMPT_LENS[:GEN_STREAMS]),
+            "gen_outcomes_baseline": [r[0] for r in base],
+            "gen_outcomes_killed": [r[0] for r in killed_res],
+            "gen_killed_worker": killed,
+            "gateway_gen_ok_baseline": sum(r[0] == "ok" for r in base),
+            "gateway_gen_ok_killed": sum(r[0] == "ok" for r in killed_res),
+            "gateway_gen_replica_lost": sum(r[0] == "ReplicaLost"
+                                            for r in killed_res),
+            "gateway_streams_resumed": gw.streams_resumed - resumed0,
+            "gen_resumed_ok_token_counts": [len(t) for t, _ in resumed],
+            # a resume re-prefills prompt + delivered tokens, and bf16
+            # prefill and decode can part at a near-tie (serve_migrate's
+            # reprefill_tokens_agreeing), so token equality is reported
+            # as the leading tokens agreeing with the clean run, not gated
+            "gen_resumed_tokens_agreeing": [
+                next((j for j, (a, b) in enumerate(zip(t, bt)) if a != b),
+                     min(len(t), len(bt))) for t, bt in resumed],
+            "gen_burst_s_baseline": base_s, "gen_burst_s_killed": killed_s})
+        rec["gateway_kill_goodput_vs_baseline"] = (
+            rec["gateway_gen_ok_killed"]
+            / max(rec["gateway_gen_ok_baseline"], 1))
+    finally:
+        gw.stop()
+        sup.stop(timeout=60.0)
+        reg.close()
+    launches, selects, files = {}, {}, 0
+    for name in sorted(os.listdir(counts_dir)):
+        with open(os.path.join(counts_dir, name)) as f:
+            got = json.load(f)
+        files += 1
+        for dst, src in ((launches, got["launches"]),
+                         (selects, got["selects"])):
+            for k, v in src.items():
+                dst[k] = dst.get(k, 0) + v
+    rec.update({"gen_worker_count_files": files,
+                "gen_worker_launch_counts": launches,
+                "gen_worker_selection_counts": selects})
+    _emit(rec)
+    outcomes = rec["gen_outcomes_baseline"] + rec["gen_outcomes_killed"]
+    _check(not any(o.startswith("UNTYPED") for o in outcomes),
+           "generation burst: untyped outcomes %s" % outcomes)
+    _check(set(outcomes) <= {"ok", "ReplicaLost"},
+           "generation burst: outcomes %s" % outcomes)
+    _check(rec["gateway_gen_ok_baseline"] == len(prompts),
+           "generation baseline burst not all ok: %s"
+           % rec["gen_outcomes_baseline"])
+    _check(rec["gateway_streams_resumed"] >= 1 and resumed,
+           "generation kill burst: no stream resumed on the sibling "
+           "(%d resumes, outcomes %s)" % (rec["gateway_streams_resumed"],
+                                         rec["gen_outcomes_killed"]))
+    # the durable-stream contract: each position delivered exactly once
+    _check(all(n == GEN_MAX_NEW for n in rec["gen_resumed_ok_token_counts"]),
+           "generation kill burst: a resumed stream delivered %s tokens, "
+           "not %d" % (rec["gen_resumed_ok_token_counts"], GEN_MAX_NEW))
+    _check(files >= 1, "no generation worker wrote its kernel counters")
+    for counter in ("fused_rmsnorm.warp", "fused_rmsnorm.block",
+                    "flash_attention.wgmma"):
+        _check(launches.get("kernels.launch." + counter, 0) > 0,
+               "generation workers: %s never launched: %s"
+               % (counter, launches))
+    _check(not any(k.endswith(".reference") for k in selects),
+           "generation workers: a plain version ran: %s" % selects)
+    return launches
+
+
 _CSRC = "mxnet_tpu_torch/ops/kernels/csrc/"
 # the variants of each kernel, by source
 VARIANT_SOURCES = {
@@ -3607,6 +4291,13 @@ def main():
                                             bf16_img_s)
     phase_gluon_cifar(dev)
     phase_gluon_step_card_vs_cpu(dev)
+    _timed_phase("racecheck", phase_racecheck)
+    kleg_launches, _ = _timed_phase(
+        "kernels_leg", phase_kernels_leg,
+        torch.Generator(device="cuda").manual_seed(12))
+    _timed_phase("tenant_scaleup", phase_tenant_scaleup)
+    torch.cuda.empty_cache()
+    gen_launches = _timed_phase("gateway", phase_gateway, dev)
     if "--profile" in sys.argv[1:]:
         phase_profile(model)
         phase_profile_train(states)
@@ -3649,7 +4340,7 @@ def main():
         "rtc.softmax_backward": ("chip_smoke.py", "mxnet_tpu/rtc.py:87"),
     }
     runs = ([serve_launches] + plane_launches + list(train_launches.values())
-            + int8_launches + rtc_launches)
+            + int8_launches + rtc_launches + [kleg_launches, gen_launches])
 
     def launched(counter):
         return sum(r.get("kernels.launch.%s" % counter, 0) for r in runs)

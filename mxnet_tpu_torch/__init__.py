@@ -47,7 +47,18 @@ It carries these paths:
   ``benchmark``'s throughput harness (one CUDA graph of K chained
   forwards a draw); and the numerical-health ``sentinel`` with
   ``FusedTrainStep(numeric_guard=)`` / ``Trainer(numeric_guard=)``, the
-  loss scaler and ``monitor``.
+  loss scaler and ``monitor``;
+* the fleet plane: ``fleet_worker`` processes (``python -m
+  mxnet_tpu_torch.fleet_worker``) host a ``ModelServer`` or a
+  ``GenerationServer`` behind an HTTP endpoint and publish TTL'd load
+  reports into ``fleet.ServiceRegistry`` (over ``async_kv``'s socket
+  server); ``gateway.Gateway`` routes requests across them (least-loaded,
+  breaker-aware, sticky sessions, idempotent retries, mid-stream resume on
+  a sibling, live KV migration); ``fleet.FleetSupervisor`` autoscales a
+  ``ModelServer``'s replicas and ``fleet.WorkerSupervisor`` restarts
+  worker processes; ``simfleet.SimFleet`` runs that control plane in
+  simulated time; and the runtime sanitizers ``lockdep`` and
+  ``racecheck`` (``MXTPU_LOCKDEP`` / ``MXTPU_RACECHECK``, armed at import).
 
 Entry points take ``device=`` (or, on the symbolic path, ``ctx=``).  The
 default is ``cuda:0`` (``gpu(0)``); without a CUDA device they raise unless
@@ -56,7 +67,21 @@ which the tests do), and then every kernel runs its plain PyTorch version.
 """
 from __future__ import annotations
 
-import torch
+# arm the runtime lock-order sanitizer (MXTPU_LOCKDEP) before any other
+# package import: the factories must be wrapped before the first package
+# lock is created (lockdep and config are stdlib-only)
+from . import lockdep  # noqa: E402
+
+lockdep.install_from_env()
+
+# then the lockset race sanitizer (MXTPU_RACECHECK): its lock tokens wrap
+# whatever factory is live (stacking on lockdep's), and it must be armed
+# before any tracked class is defined
+from . import racecheck  # noqa: E402
+
+racecheck.install_from_env()
+
+import torch  # noqa: E402
 
 __all__ = ["default_device", "resolve_device", "TransformerConfig",
            "TransformerLM", "make_train_step", "GenerationConfig",

@@ -28,6 +28,17 @@ counter):
                                 token kills the worker
 ``adapter_swap_mid_burst@N``    the Nth opportunity with a resident
                                 adapter hot-swaps it mid-traffic
+``registry_stale@N``            fleet: the Nth heartbeat publish is dropped,
+                                so the registry entry's TTL lapses and the
+                                reaper fires
+``gateway_partition@N``         gateway: the Nth registry refresh fails as
+                                if the registry were unreachable (the
+                                last-known-good view keeps routing)
+``worker_kill@N``               fleet: the Nth worker-kill opportunity
+                                SIGKILLs a live worker process
+``kv_drop@N`` / ``kv_delay@N``  the async-KV client's Nth call loses its
+/ ``kv_dup@N``                  reply after send / is delayed before send /
+                                is sent twice (:func:`arm_kv_client`)
 ``slow_replica@N``              ModelServer: the Nth model execution stalls
                                 0.25 s (outside every lock)
 ``replica_crash@N``             ModelServer: the Nth model execution raises
@@ -48,7 +59,7 @@ a hook costs one attribute load — unless ``MXNET_CHAOS`` is set or
 ``ChaosPlan.rng`` exactly as the JAX package's do, so in one process both
 packages poison the same element and flip the same bit.  A bfloat16
 parameter is left alone by both (its numpy twin is not a float kind in
-the JAX package).  The kvstore and data hooks (``kv_*``, ``ckpt_*``,
+the JAX package).  The checkpoint and data hooks (``ckpt_*``,
 ``loader_raise``) parse but have no consumer in the port yet.
 """
 from __future__ import annotations
@@ -62,7 +73,9 @@ import torch
 __all__ = ["ChaosPlan", "inject", "active", "FAULT_KINDS",
            "page_pressure", "tenant_flood", "request_burst",
            "migrate_interrupt", "drain_migrate", "worker_kill_mid_decode",
-           "adapter_swap_mid_burst", "slow_replica", "replica_crash",
+           "adapter_swap_mid_burst", "registry_stale", "gateway_partition",
+           "worker_kill", "arm_kv_client", "note_kv_fault",
+           "slow_replica", "replica_crash",
            "replica_slow_start", "InjectedReplicaCrash",
            "corrupt_loss_scale", "poison_grad", "flip_param_bit"]
 
@@ -267,6 +280,72 @@ def adapter_swap_mid_burst(n, adapters):
     if plan is None or adapters < 1:
         return False
     return plan.fire("adapter_swap_mid_burst", n)
+
+# ---------------------------------------------------------------------------
+# fleet fault hooks (the registry heartbeat, the gateway, the supervisors)
+# ---------------------------------------------------------------------------
+def registry_stale(n):
+    """``registry_stale@N``: True when the Nth fleet heartbeat publish
+    should be dropped — the replica's TTL'd registry entry lapses and
+    the reaper must purge it (then the next beat re-registers; the
+    fleet view self-heals)."""
+    plan = active()
+    return plan is not None and plan.fire("registry_stale", n)
+
+
+def gateway_partition(n):
+    """``gateway_partition@N``: True when the gateway's Nth registry
+    refresh should fail as if the KV registry were unreachable.  The
+    gateway keeps serving from its last-known-good :class:`FleetView`
+    (marked stale) and re-syncs on the next successful refresh — the
+    same self-healing contract :func:`registry_stale` proves for the
+    worker side."""
+    plan = active()
+    return plan is not None and plan.fire("gateway_partition", n)
+
+
+def worker_kill(n):
+    """``worker_kill@N``: True when the Nth worker-kill opportunity
+    should SIGKILL a live worker process (a hard crash, no drain).  The
+    WorkerSupervisor must restart it within the backoff budget and the
+    gateway must fail over — retrying idempotent work, resolving
+    non-resumable streams with typed ``ReplicaLost``."""
+    plan = active()
+    return plan is not None and plan.fire("worker_kill", n)
+
+
+# ---------------------------------------------------------------------------
+# async-KV transport fault hooks (mxnet_tpu_torch.async_kv)
+# ---------------------------------------------------------------------------
+def arm_kv_client(client):
+    """Arm the async-KV transport faults (``kv_drop``/``kv_delay``/
+    ``kv_dup``) on an :class:`~mxnet_tpu_torch.async_kv.AsyncKVClient`.  The
+    step number in the spec is the 1-based sequence number of the call to
+    hit (the client numbers requests from 1)."""
+    plan = active()
+    if plan is None:
+        return client
+    for (kind, seq), live in list(plan._faults.items()):
+        if not live:
+            continue
+        if kind == "kv_drop":
+            client._fi_drop_after_send.add(seq)
+        elif kind == "kv_delay":
+            client._fi_delay_before_send[seq] = 0.05
+        elif kind == "kv_dup":
+            client._fi_duplicate_send.add(seq)
+    return client
+
+
+def note_kv_fault(kind, seq):
+    """Called by the async_kv client when an armed transport fault
+    actually fires — routes the event through the plan so counters and
+    ``pending()`` stay truthful."""
+    plan = active()
+    if plan is not None:
+        plan.fire(kind, seq)
+    else:
+        _count_fault()  # hand-armed via the test hooks
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,10 @@
 """Environment-variable configuration tier: the knobs of
 ``mxnet_tpu/config.py`` that the port reads through ``config``
 (telemetry's peak rates and step costs, debug bundles, memory accounting,
-the numerical-health guard and its rollback ring).
+the numerical-health guard and its rollback ring, the kernel-selection
+mode, the two runtime sanitizers, and the fleet plane's defaults: the
+async-KV transport, the registry and autoscaler, the rebalancer, the
+gateway, the fleet worker and the simulated fleet).
 
 Each knob is declared once with a type, default and doc.  Names are the
 JAX package's, so one launch script sets both packages.  The peak rates
@@ -79,6 +82,117 @@ class _Config:
              "per-device live/peak gauges from the CUDA caching "
              "allocator, per-subsystem tag providers. Set 0 to make "
              "update() a no-op."),
+        Knob("MXTPU_PALLAS", str, "auto",
+             "Kernel-selection mode (ops.kernels.common.select_impl; "
+             "dispatch.pallas_mode): every mode runs the plain PyTorch "
+             "version on a CPU tensor; on a CUDA tensor 'auto' launches "
+             "the hand-written CUDA kernel, and 'off' and 'interpret' "
+             "raise (the port has no kernel interpreter, and never hands "
+             "the card the plain version because of this knob)."),
+        Knob("MXTPU_LOCKDEP", str, "off",
+             "Runtime lock-order sanitizer (mxnet_tpu_torch.lockdep): "
+             "wraps every threading.Lock/RLock created by mxnet_tpu_torch "
+             "code and keeps the acquisition-order graph by creation "
+             "site. 'record' keeps edges, inversions and held-across-"
+             "blocking events (lockdep.* gauges, a 'lockdep' debug-bundle "
+             "section); 'raise' also raises LockOrderError at the acquire "
+             "that would deadlock. 'off' (default): zero overhead. Read "
+             "once, at import mxnet_tpu_torch, before any package lock."),
+        Knob("MXTPU_RACECHECK", str, "off",
+             "Runtime lockset race sanitizer (mxnet_tpu_torch.racecheck): "
+             "Eraser locksets over the fields @racecheck.track declares. "
+             "'record' keeps races (racecheck.* gauges, a 'racecheck' "
+             "debug-bundle section); 'raise' also raises RaceError at the "
+             "racing write. 'off' (default): zero overhead. Read once, at "
+             "import mxnet_tpu_torch, after MXTPU_LOCKDEP."),
+        # -- the async-KV transport (the fleet registry's backing store) --
+        Knob("MXTPU_KV_TIMEOUT", float, 60.0,
+             "Async-KV client socket timeout in s."),
+        Knob("MXTPU_KV_RETRIES", int, 5,
+             "Async-KV client retries of a failed call on a fresh "
+             "connection."),
+        Knob("MXTPU_KV_BACKOFF", float, 0.05,
+             "Async-KV client retry backoff base in s."),
+        Knob("MXTPU_KV_BACKOFF_CAP", float, 2.0,
+             "Async-KV client retry backoff cap in s."),
+        Knob("MXTPU_KV_REAP_S", float, 600.0,
+             "Async-KV server: a connection idle this long is closed."),
+        # -- the fleet: registry, autoscaler, rebalancer --------------------
+        Knob("MXTPU_FLEET_HEARTBEAT_S", float, 0.25,
+             "Fleet registry heartbeat period in s."),
+        Knob("MXTPU_FLEET_TTL_S", str, "",
+             "Registry-entry TTL in s ('' = 3 x the heartbeat period)."),
+        Knob("MXTPU_FLEET_INTERVAL_S", float, 0.25,
+             "FleetSupervisor control-tick period in s."),
+        Knob("MXTPU_FLEET_MIN_REPLICAS", int, 1,
+             "Autoscaler lower replica bound."),
+        Knob("MXTPU_FLEET_MAX_REPLICAS", int, 4,
+             "Autoscaler upper replica bound."),
+        Knob("MXTPU_FLEET_SHED_UP", float, 0.05,
+             "Scale-up trigger: windowed shed-rate threshold."),
+        Knob("MXTPU_FLEET_P99_UP_MS", float, 0.0,
+             "Scale-up trigger: latency p99 threshold in ms (0 = off)."),
+        Knob("MXTPU_FLEET_IDLE_DOWN_S", float, 2.0,
+             "Scale-down after this many s of continuous idle."),
+        Knob("MXTPU_FLEET_COOLDOWN_S", float, 1.0,
+             "Cooldown after each scaling decision in s."),
+        Knob("MXTPU_FLEET_BREACH_TICKS", int, 2,
+             "Consecutive breach ticks before a scale-up (hysteresis)."),
+        Knob("MXTPU_FLEET_PREDICT", bool, False,
+             "Predictive scale-up on the EWMA'd queue-depth slope."),
+        Knob("MXTPU_FLEET_PREDICT_ALPHA", float, 0.4,
+             "EWMA smoothing factor of the queue-depth slope."),
+        Knob("MXTPU_FLEET_PREDICT_HORIZON_S", float, 3.0,
+             "Predictive look-ahead horizon in s."),
+        Knob("MXTPU_FLEET_PREDICT_DEPTH_UP", float, 8.0,
+             "Projected queue depth that fires a predictive scale-up."),
+        Knob("MXTPU_MIGRATE_REBALANCE_S", float, 0.5,
+             "FleetRebalancer tick period in s."),
+        Knob("MXTPU_MIGRATE_REBALANCE_BAND", float, 2.0,
+             "Streams above the fleet median before a worker is shaved."),
+        Knob("MXTPU_MIGRATE_REBALANCE_COOLDOWN_S", float, 2.0,
+             "Per-worker cooldown between shaves in s."),
+        Knob("MXTPU_MIGRATE_REBALANCE_MAX", int, 1,
+             "Most streams parked per worker per rebalance tick."),
+        # -- the gateway ------------------------------------------------------
+        Knob("MXTPU_GATE_REFRESH_S", float, 0.25,
+             "Gateway fleet-view refresh period in s."),
+        Knob("MXTPU_GATE_RETRIES", int, 2,
+             "Gateway retry budget for idempotent failover."),
+        Knob("MXTPU_GATE_TIMEOUT_S", float, 60.0,
+             "Gateway per-hop worker connection timeout in s."),
+        Knob("MXTPU_GATE_SUSPECT_S", float, 2.0,
+             "Seconds a worker stays routed around after a connection "
+             "failure."),
+        Knob("MXTPU_GATE_SESSION_CAP", int, 4096,
+             "Session-affinity entries the gateway keeps (LRU)."),
+        Knob("MXTPU_GATE_JOURNAL_CAP", int, 4096,
+             "Delivered tokens journaled per stream for mid-decode "
+             "resume; past it a worker death ends in ReplicaLost."),
+        Knob("MXTPU_MIGRATE_CHUNK_KB", int, 256,
+             "Live-migration transfer chunk size in KiB."),
+        # -- the fleet worker ---------------------------------------------
+        Knob("MXTPU_FLEET_WORKER_HEARTBEAT_S", float, 0.25,
+             "Fleet worker registry heartbeat period in s."),
+        Knob("MXTPU_FLEET_WORKER_IDEM_CACHE", int, 1024,
+             "Idempotency-cache entries a fleet worker keeps."),
+        Knob("MXTPU_FLEET_WORKER_DEADLINE_MS", float, 30000.0,
+             "Fleet worker default request deadline in ms."),
+        Knob("MXTPU_MIGRATE_PARK_TIMEOUT_S", float, 30.0,
+             "Seconds a migration transfer buffer on a receiver survives "
+             "unfinished."),
+        Knob("MXTPU_MIGRATE_DRAIN_WAIT_S", float, 5.0,
+             "Seconds a draining worker waits for its parked streams to "
+             "be fetched before it exits rc 76."),
+        # -- the simulated fleet ------------------------------------------
+        Knob("MXTPU_SIM_TICK_S", float, 0.05,
+             "SimFleet stepping tick in simulated s."),
+        Knob("MXTPU_SIM_SLOTS", int, 4,
+             "SimFleet per-replica concurrency slots."),
+        Knob("MXTPU_SIM_QUEUE", int, 16,
+             "SimFleet per-replica queue depth."),
+        Knob("MXTPU_SIM_MAX_WALL_S", float, 300.0,
+             "SimFleet real-wall-clock safety fuse in s."),
     ]
 
     def __init__(self):
@@ -90,6 +204,9 @@ class _Config:
             if key in self._by_name:
                 return self._by_name[key].value
         raise AttributeError(item)
+
+    def knob(self, name):
+        return self._by_name[name]
 
 
 config = _Config()

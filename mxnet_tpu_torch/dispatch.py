@@ -3,6 +3,10 @@
 
 * :func:`pow2_chain` / :func:`bucket_size` — leading-dim shape buckets
   (``MXNET_SHAPE_BUCKETS``), as in the JAX package.
+* :func:`pallas_mode` — the validated ``MXTPU_PALLAS`` kernel-selection
+  mode (``auto`` / ``off`` / ``interpret``) that
+  :func:`mxnet_tpu_torch.ops.kernels.common.select_impl` reads for a CUDA
+  tensor.
 * :class:`ShapeTracker` — the counterpart of ``TrackedJit`` as a counter.
   Under JAX a call with a new argument signature traces and compiles;
   eager PyTorch compiles nothing, so here the tracker is a tripwire: the
@@ -19,12 +23,15 @@
 from __future__ import annotations
 
 import collections
+import functools
 import os
 import threading
 import time
 
-__all__ = ["bucket_size", "bucket_spec", "pow2_chain", "ShapeTracker",
-           "recompile_ring", "explain_recompiles"]
+from .config import config
+
+__all__ = ["bucket_size", "bucket_spec", "pow2_chain", "pallas_mode",
+           "ShapeTracker", "recompile_ring", "explain_recompiles"]
 
 # -- shape bucketing --------------------------------------------------------
 _POW2 = "pow2"
@@ -85,6 +92,36 @@ def pow2_chain(cap):
         b <<= 1
     out.append(cap)
     return tuple(out)
+
+
+# -- kernel-selection mode ---------------------------------------------------
+_PALLAS = config.knob("MXTPU_PALLAS")
+
+
+def pallas_mode():
+    """'auto', 'off', or 'interpret' — the MXTPU_PALLAS knob, validated
+    (the JAX package's name and parsing).
+
+    Consumed by ``ops.kernels.common.select_impl``: on a CPU tensor every
+    mode runs the plain PyTorch version; on a CUDA tensor 'auto' launches
+    the hand-written kernel and 'off' or 'interpret' raise — the port has
+    no kernel interpreter, and it never hands the card the plain version
+    because of an environment variable."""
+    return _parse_pallas(_PALLAS.value)
+
+
+@functools.lru_cache(maxsize=None)
+def _parse_pallas(raw):
+    mode = (raw or "").strip().lower()
+    if mode in ("", "1", "on", "true"):
+        return "auto"
+    if mode in ("0", "false", "no"):
+        return "off"
+    if mode not in ("auto", "off", "interpret"):
+        raise ValueError(
+            "MXTPU_PALLAS must be 'auto', 'off' or 'interpret'; got %r"
+            % mode)
+    return mode
 
 
 # -- shape tracker ----------------------------------------------------------

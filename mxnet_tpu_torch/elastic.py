@@ -10,15 +10,19 @@
 * :func:`install_preemption_drain` — wires a server's drain flag into the
   handler: the first signal closes admission, and the server completes
   what it admitted.  It sets a flag and nothing else; it never exits the
-  process.
+  process.  The owner exits afterwards through the handler's
+  :meth:`~PreemptionHandler.drain` (the fleet worker does, with rc 76).
+* :func:`_backoff_delay` — the restart backoff with jitter that
+  :class:`~mxnet_tpu_torch.fleet.WorkerSupervisor` spaces crashed
+  workers' respawns by.
 
-The training side (``PreemptionRequested``, the handler's checkpoint-and-
-exit ``drain``), ``CheckpointManager``, ``Watchdog``, ``supervise`` and
-``FaultInjector`` are not ported yet.
+The training side (``PreemptionRequested``), ``CheckpointManager``,
+``Watchdog``, ``supervise`` and ``FaultInjector`` are not ported yet.
 """
 from __future__ import annotations
 
 import os
+import random as _pyrandom
 import signal
 import sys
 import threading
@@ -96,6 +100,12 @@ class PreemptionHandler:
     def requested(self):
         return self._requested.is_set()
 
+    def drain(self):
+        """Exit with the drain status (:data:`PREEMPTED_EXIT_CODE` by
+        default): the owner calls it once it has drained."""
+        _log("drained; exiting rc=%d" % self.exit_code)
+        sys.exit(self.exit_code)
+
 
 def install_preemption_drain(drain_flag_set, handler=None):
     """Wire a server's drain flag into SIGTERM/SIGINT (the rc-76
@@ -114,3 +124,13 @@ def install_preemption_drain(drain_flag_set, handler=None):
         handler = PreemptionHandler().install()
     handler.add_callback(drain_flag_set)
     return handler
+
+
+def _backoff_delay(failures, base, cap=30.0):
+    """Exponential backoff with jitter for restart ``failures`` (1-based):
+    ``min(cap, base * 2**(failures-1))`` scaled by uniform [0.5, 1.0) —
+    decorrelates a gang of workers restarting off the same fault."""
+    if base <= 0:
+        return 0.0
+    return min(float(cap), float(base) * (2.0 ** (failures - 1))) \
+        * (0.5 + 0.5 * _pyrandom.random())

@@ -14,9 +14,10 @@
   compressed time.  Targets are plain callables built by the adapter
   factories: :func:`server_target` (an in-process server with
   ``submit_async(feed, deadline_ms=)``) or :func:`generation_target` (a
-  ``GenerationServer`` stream).  Every request produces exactly one
+  ``GenerationServer`` stream) or :func:`gateway_target` (the HTTP front
+  door of the fleet plane).  Every request produces exactly one
   typed-outcome record — the serving layer's outcome contract, observed
-  from the client side.  The HTTP ``gateway_target`` is not ported yet.
+  from the client side.
 * :class:`ReplayReport` — per-request records plus aggregate curves
   (offered vs goodput per second, shed rate, TTFT/latency percentiles)
   and :func:`shed_knee`.
@@ -40,7 +41,8 @@ from . import clock as _clockmod
 
 __all__ = ["TraceSpec", "generate_trace", "prompt_tokens", "save_trace",
            "load_trace", "replay", "ReplayReport", "server_target",
-           "generation_target", "shed_knee", "TYPED_OUTCOMES"]
+           "generation_target", "gateway_target", "shed_knee",
+           "TYPED_OUTCOMES"]
 
 # env-tunable defaults (the JAX package's names)
 _DEF_MAX_INFLIGHT = int(os.environ.get("MXTPU_LOADGEN_MAX_INFLIGHT",
@@ -520,6 +522,101 @@ def generation_target(server, vocab=None, seed=0, timeout_s=None):
             (fut.t_first_token - fut.t_admit) * 1e3
         return _outcome_record(req, "ok", (time.monotonic() - t0) * 1e3,
                                ttft_ms=ttft, tokens=n_tok)
+
+    return call
+
+
+def gateway_target(addr, kind="predict", input_fn=None, vocab=1000,
+                   seed=0, timeout_s=None, route=None):
+    """Adapter over the HTTP front door (a
+    :class:`~mxnet_tpu_torch.gateway.Gateway` or one fleet worker) at
+    ``addr`` (``host:port``).  ``kind='predict'`` POSTs ``input_fn(req)`` (JSON
+    arrays) to ``/v1/predict``; ``kind='generate'`` streams
+    ``/v1/generate`` NDJSON, mapping the terminal line to the typed
+    outcome.  ``route`` targets a named model route
+    (``/v1/<route>/<verb>``, e.g. ``gen@v1``) instead of the bare
+    default-route alias.  Sticky sessions — and each request's tenant
+    (``X-MXTPU-Tenant``) — from the trace ride along."""
+    import http.client
+
+    if kind not in ("predict", "generate"):
+        raise ValueError("kind must be 'predict' or 'generate'")
+    if kind == "predict" and input_fn is None:
+        raise ValueError("predict replay needs input_fn(req) -> feed")
+    timeout_s = _DEF_TIMEOUT_S if timeout_s is None else float(timeout_s)
+    host, _, port = str(addr).rpartition(":")
+    prefix = "/v1" if route in (None, "default") else "/v1/%s" % route
+
+    def call(req):
+        t0 = time.monotonic()
+        conn = http.client.HTTPConnection(host, int(port),
+                                          timeout=timeout_s)
+        try:
+            if kind == "predict":
+                body = {"inputs": {k: np.asarray(v).tolist()
+                                   for k, v in input_fn(req).items()},
+                        "deadline_ms": req["deadline_ms"]}
+                headers = {"Content-Type": "application/json"}
+                if req.get("tenant"):
+                    headers["X-MXTPU-Tenant"] = str(req["tenant"])
+                conn.request("POST", prefix + "/predict",
+                             body=json.dumps(body).encode(),
+                             headers=headers)
+                resp = conn.getresponse()
+                payload = json.loads(resp.read() or b"{}")
+                lat = (time.monotonic() - t0) * 1e3
+                if resp.status == 200:
+                    return _outcome_record(req, "ok", lat)
+                return _outcome_record(
+                    req, payload.get("error", "UNTYPED:HTTP%d"
+                                     % resp.status), lat)
+            body = {"prompt": prompt_tokens(req, vocab=vocab,
+                                            seed=seed).tolist(),
+                    "max_new_tokens": req["max_new_tokens"],
+                    "deadline_ms": req["deadline_ms"]}
+            if req.get("session"):
+                body["session"] = req["session"]
+            headers = {"Content-Type": "application/json"}
+            prio = req.get("priority") or req.get("class")
+            if prio:
+                headers["X-MXTPU-Priority"] = str(prio)
+            if req.get("tenant"):
+                headers["X-MXTPU-Tenant"] = str(req["tenant"])
+            conn.request("POST", prefix + "/generate",
+                         body=json.dumps(body).encode(),
+                         headers=headers)
+            resp = conn.getresponse()
+            if resp.status != 200:
+                return _outcome_record(
+                    req, "UNTYPED:HTTP%d" % resp.status,
+                    (time.monotonic() - t0) * 1e3)
+            n_tok, ttft, outcome, migrated = 0, None, None, 0
+            while True:
+                raw = resp.readline()
+                if not raw:
+                    outcome = "UNTYPED:TruncatedStream"
+                    break
+                line = json.loads(raw)
+                if "error" in line:
+                    outcome = line["error"]
+                    break
+                if "done" in line:
+                    outcome = "ok"
+                    migrated = int(line.get("migrated", 0))
+                    break
+                if "token" in line:
+                    if ttft is None:
+                        ttft = (time.monotonic() - t0) * 1e3
+                    n_tok += 1
+            return _outcome_record(req, outcome,
+                                   (time.monotonic() - t0) * 1e3,
+                                   ttft_ms=ttft, tokens=n_tok,
+                                   migrated=migrated)
+        except OSError as e:
+            return _outcome_record(req, "UNTYPED:%s" % type(e).__name__,
+                                   (time.monotonic() - t0) * 1e3)
+        finally:
+            conn.close()
 
     return call
 

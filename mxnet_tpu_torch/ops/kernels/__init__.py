@@ -1,7 +1,9 @@
 """Hand-written Hopper kernels (CUDA C++ under ``csrc/``) with their plain
 PyTorch versions; the counterpart of ``mxnet_tpu/ops/pallas``."""
-from .common import (launch_counts, register_impl, reset_counts,  # noqa: F401
-                     select_impl, selection_counts)
+from .common import (kernel_unit, kernel_units,  # noqa: F401
+                     launch_counts, register_entry, register_impl,
+                     reset_counts, resolve_entry, select_impl,
+                     selection_counts)
 from .flash_attention import (flash_attention,  # noqa: F401
                               flash_attention_bwd_reference,
                               flash_attention_lse,

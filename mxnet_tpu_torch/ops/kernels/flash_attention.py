@@ -60,7 +60,8 @@ import functools
 import torch
 
 from . import _build
-from .common import _NEG, count_launch, register_impl, select_impl
+from .common import (_NEG, count_launch, register_entry, register_impl,
+                     select_impl)
 
 __all__ = ["flash_attention", "flash_attention_lse",
            "flash_attention_reference", "flash_attention_bwd_reference"]
@@ -675,3 +676,4 @@ register_impl("flash_attention", cuda=_flash_cuda,
                                           return_lse=True))
 register_impl("flash_attention_bwd", cuda=_flash_bwd_cuda,
               reference=flash_attention_bwd_reference)
+register_entry("flash_attention", flash_attention)

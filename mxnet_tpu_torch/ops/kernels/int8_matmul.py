@@ -45,7 +45,8 @@ import fractions
 import torch
 
 from . import _build
-from .common import count_launch, register_impl, select_impl, sm_count
+from .common import (count_launch, register_entry, register_impl,
+                     select_impl, sm_count)
 
 __all__ = ["int8_matmul", "int8_matmul_reference", "plan_int8_matmul"]
 
@@ -305,3 +306,4 @@ def int8_matmul(a, b, scale_a=None, scale_b=None):
 
 register_impl("int8_matmul", cuda=_int8_matmul_cuda,
               reference=int8_matmul_reference)
+register_entry("int8_matmul", int8_matmul)

@@ -35,7 +35,8 @@ import os
 import string
 import threading
 
-__all__ = ["parse_tenant", "TenantSpec", "TenantGovernor", "governor",
+__all__ = ["parse_tenant", "parse_route", "TenantSpec", "TenantGovernor",
+           "governor",
            "reset_governor"]
 
 # env-tunable defaults (the JAX package's names)
@@ -80,6 +81,15 @@ def parse_tenant(value):
     if not s:
         return "anon"
     return _checked_name(s, _TENANT_CHARS, "tenant id")
+
+
+def parse_route(value):
+    """Validate a route name (``model@version`` style) from a
+    ``/v1/<route>/...`` path.  Same hardening as :func:`parse_tenant`
+    plus ``@``; raises ``ValueError`` on anything else."""
+    if value is None:
+        return "default"
+    return _checked_name(value, _ROUTE_CHARS, "route name")
 
 
 class TenantSpec:

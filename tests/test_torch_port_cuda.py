@@ -52,6 +52,14 @@ finite ``FusedTrainStep(numeric_guard="skip")`` step equals the unguarded
 one bit for bit and a ``nan_grad`` step leaves every parameter, BatchNorm
 statistic and optimizer-state buffer unchanged (cuDNN deterministic);
 ``serving.ModelServer`` answers the bare Predictor's bits.
+
+The kernel library's front door: ``select_impl("flash_attention")`` and
+``select_impl("int8_matmul")`` resolve to ``'cuda'`` and, through a
+``kernel_unit``, launch the forward, dQ and dK/dV kernels and the fused
+dequant kernel on their tensor-core variants; ``MXTPU_PALLAS=interpret``
+and ``off`` raise on a CUDA tensor (no plain version on the card because
+of the knob), and ``off`` runs the plain version on a CPU tensor, counted
+as ``kernels.select.<name>.reference``.
 """
 import importlib
 import pathlib
@@ -1449,3 +1457,90 @@ def test_model_server_serves_bare_predictor_bits_on_card(dev):
             assert np.array_equal(srv.submit({"data": xi})[0], want)
     finally:
         assert srv.drain(timeout=30)
+
+
+# ---------------------------------------------------------------------------
+# the kernel library's front door (MXTPU_PALLAS, the JAX-form select_impl,
+# kernel_unit) on the card
+# ---------------------------------------------------------------------------
+def test_front_door_flash_fwd_bwd_launches_the_kernels(dev, monkeypatch):
+    """bench.py's kernels-leg step through ``select_impl("flash_attention")``
+    and a kernel unit: 'cuda', and the forward, dQ and dK/dV kernels each
+    launched once through their tensor-core variants; the gradients are
+    autograd's through the dense plain forward within 2^-6 of each
+    gradient's largest entry (the tensor-core backward's tolerance against
+    that independent formula)."""
+    monkeypatch.delenv("MXTPU_PALLAS", raising=False)
+    fn, impl = common.select_impl("flash_attention")
+    assert impl == "cuda" and fn is flash_attention
+    unit = common.kernel_unit(
+        "test_card_flash_fwd_bwd",
+        lambda q, k, v: (fn(q, k, v, causal=True).float() ** 2).sum())
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn(1, 256, 4, 64, generator=g, device=dev,
+                           dtype=torch.bfloat16, requires_grad=True)
+               for _ in range(3))
+    common.reset_counts()
+    got = torch.autograd.grad(unit(q, k, v), (q, k, v))
+    torch.cuda.synchronize()
+    assert common.selection_counts() == {
+        "kernels.select.flash_attention.cuda": 1,
+        "kernels.select.flash_attention_bwd.cuda": 1}
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention": 1,
+        "kernels.launch.flash_attention.wgmma": 1,
+        "kernels.launch.flash_attention_dq": 1,
+        "kernels.launch.flash_attention_dq.wgmma": 1,
+        "kernels.launch.flash_attention_dkv": 1,
+        "kernels.launch.flash_attention_dkv.wgmma": 1}
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    o = flash_attention_reference(qr, kr, vr, True)
+    want = torch.autograd.grad((o.float() ** 2).sum(), (qr, kr, vr))
+    for gt, wt, name in zip(got, want, "qkv"):
+        assert torch.isfinite(gt).all(), name
+        assert _rel_to_max(gt, wt) <= 2.0 ** -6, name
+
+
+def test_front_door_int8_dequant_launches_the_kernel(dev, monkeypatch):
+    monkeypatch.delenv("MXTPU_PALLAS", raising=False)
+    fn, impl = common.select_impl("int8_matmul")
+    assert impl == "cuda" and fn is int8_matmul
+    a, b, sa, sb = _int8_inputs(dev, 256, 512, 384)
+    common.reset_counts()
+    got = common.kernel_unit("test_card_int8", fn)(a, b, sa, sb)
+    launches = common.launch_counts()
+    # a plan with split-K adds the kernel that sums the splits
+    assert launches.pop("kernels.launch.int8_matmul_dequant.reduce", 1) == 1
+    assert launches == {
+        "kernels.launch.int8_matmul_dequant": 1,
+        "kernels.launch.int8_matmul_dequant.wgmma": 1}
+    assert torch.equal(got, int8_matmul_reference(a, b, sa, sb))
+
+
+def test_interpret_mode_raises_on_a_cuda_tensor(dev, monkeypatch):
+    monkeypatch.setenv("MXTPU_PALLAS", "interpret")
+    x = torch.randn(8, 64, device=dev)
+    common.reset_counts()
+    with pytest.raises(RuntimeError, match="interpret"):
+        fused_rmsnorm(x, torch.ones(64, device=dev))
+    assert common.launch_counts() == {}
+    assert common.select_impl("flash_attention")[1] == "reference"
+
+
+def test_off_mode_is_visible_in_the_reference_counters(dev, monkeypatch):
+    """``off`` never hands the card the plain version: a CUDA tensor
+    raises and launches nothing; a CPU tensor runs the plain version,
+    counted as ``reference``."""
+    monkeypatch.setenv("MXTPU_PALLAS", "off")
+    x = torch.randn(8, 64, device=dev)
+    common.reset_counts()
+    with pytest.raises(RuntimeError, match="MXTPU_PALLAS=off"):
+        fused_rmsnorm(x, torch.ones(64, device=dev))
+    assert common.selection_counts() == {}
+    assert common.launch_counts() == {}
+    out = fused_rmsnorm(x.cpu(), torch.ones(64))
+    assert out.device.type == "cpu"
+    assert common.selection_counts() == {
+        "kernels.select.fused_rmsnorm.reference": 1}
+    assert common.launch_counts() == {}
+    assert common.select_impl("int8_matmul")[1] == "reference"

@@ -8,7 +8,10 @@
   small symbolic convnet and runs it in int8; a third trains a small
   network with a user ``Custom`` op through ``Module.fit`` (``rtc``,
   ``operator``, ``module``, ``optimizer``, ``initializer``, ``metric``,
-  ``lr_scheduler``, ``callback`` and ``random`` all loaded).
+  ``lr_scheduler``, ``callback`` and ``random`` all loaded); another runs
+  the fleet plane (registry, worker, gateway, SimFleet, the kernel front
+  door, ``python -m mxnet_tpu_torch.fleet_worker``'s entry) with both
+  sanitizers armed from the environment.
 * Without a CUDA device, the entry points refuse to start unless the
   caller asks for the CPU (``device="cpu"``, or ``ctx=cpu()`` on the
   symbolic path).
@@ -556,3 +559,84 @@ def test_predict_serving_and_sentinel_run_with_jax_unimportable():
     assert res["events"] == [[1, "skip"]]
     assert res["losses"][1] == res["losses"][2]       # the step was skipped
     assert res["rate"] > 0 and res["out"] == [1, 3] and res["drained"]
+
+
+FLEET_MODULES = ("lockdep", "racecheck", "async_kv", "fleet",
+                 "fleet_worker", "gateway", "simfleet")
+
+
+def test_ast_scan_covers_the_fleet_plane():
+    names = {p.relative_to(REPO / "mxnet_tpu_torch").as_posix()
+             for p in _port_files() if "mxnet_tpu_torch" in p.parts}
+    assert {m + ".py" for m in FLEET_MODULES} <= names
+
+
+_CHILD_FLEET = r"""
+import importlib.abc, json, os, sys
+
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, _Block())
+import contextlib, http.client, io, time
+import numpy as np
+import mxnet_tpu_torch as mt
+from mxnet_tpu_torch import (async_kv, fleet, fleet_worker, gateway,
+                             lockdep, loadgen, racecheck, simfleet)
+from mxnet_tpu_torch.ops.kernels import kernel_unit, select_impl
+
+assert lockdep.installed() and racecheck.installed()
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    try:
+        fleet_worker.main(["--help"])
+    except SystemExit:
+        pass
+trace = loadgen.generate_trace(loadgen.TraceSpec(
+    seed=1, segments=[{"duration_s": 1.0, "rate_rps": 5.0}]))
+with simfleet.SimFleet(trace, initial_replicas=1, seed=0) as sim:
+    res = sim.run()
+reg = fleet.ServiceRegistry(service="iso", ttl_s=5.0)
+w = fleet_worker.FleetWorker(fleet_worker.demo_model(device="cpu"), "w0",
+                             registry=reg, heartbeat_s=0.05).start()
+gw = gateway.Gateway(registry=reg, refresh_s=0.05)
+while gw._view is None or not gw._view.replicas:
+    time.sleep(0.02)
+host, _, port = gw.addr.rpartition(":")
+conn = http.client.HTTPConnection(host, int(port), timeout=30)
+conn.request("POST", "/v1/predict",
+             body=json.dumps({"inputs": {"data": [[1, 2, 3, 4]]}}).encode())
+status = conn.getresponse().status
+gw.stop(); w.shutdown(drain_timeout=10); reg.close()
+fn, impl = select_impl("flash_attention")
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))
+print(json.dumps({"help": "mxnet_tpu_torch.fleet_worker" in out.getvalue(),
+                  "sim": sum(res["outcomes"].values()), "n": len(trace),
+                  "status": status, "impl": impl,
+                  "races": racecheck.snapshot()["counters"]["races"],
+                  "inversions": lockdep.snapshot()["counters"]["inversions"],
+                  "loaded": loaded}))
+"""
+
+
+def test_fleet_plane_runs_with_jax_unimportable():
+    """The fleet plane — registry, worker, gateway, SimFleet, the
+    sanitizers (armed from the environment), the kernel front door — and
+    ``python -m mxnet_tpu_torch.fleet_worker``'s entry, with ``jax`` and
+    ``mxnet_tpu`` unimportable."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD_FLEET], capture_output=True,
+        text=True, timeout=120, cwd=REPO,
+        env=subprocess_env(MXTPU_LOCKDEP="record",
+                           MXTPU_RACECHECK="record"))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == []
+    assert res["help"] and res["status"] == 200
+    assert res["sim"] == res["n"] > 0
+    assert res["impl"] == "reference"
+    assert res["races"] == 0 and res["inversions"] == 0
