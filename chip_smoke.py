@@ -128,6 +128,35 @@ Phases, in order; any failure raises and exits non-zero:
    version; then, on the long-context
    configuration, the loss and every parameter gradient through the
    kernels must match those through the plain versions;
+5b. mesh_nccl — the device mesh at world size 1: a child rank process
+   (``tools/launch.py -n 1``, NCCL: a real communicator, every collective
+   of the step runs) takes the flagship step with
+   ``make_train_step(rules=default_rules())`` under ``make_mesh(dp=1)``
+   against the meshless step on the same numpy weights (loss within
+   ``MESH_LOSS_REL``, every parameter after the step bit for bit, the
+   expected launches, no plain version), and a
+   ``dist_sync`` KVStore push / pull that must return the pushed bits;
+5c. multirank — two rank processes on the one card over gloo (NCCL
+   refuses two ranks on one device), started by ``tools/launch.py``:
+   first each collective on CUDA tensors against its exact result (which
+   gloo takes on the card, which it copies through host memory); then each
+   leg's single-rank gradient and two steps on the same weights, then the
+   leg's gradient held to it (``MULTIRANK_GRAD_REL``) and two steps, each
+   loss held to its own by ``tools/dryrun.py``'s loss parity, the second
+   timed (see ``MULTIRANK_LEGS``): tp=2, fsdp=2 (with the ZeRO bytes check) and ep=2
+   (MoE, 8 experts) on the flagship, pp=2 (its block as two stages, 4
+   microbatches of 2; gradients against the sequential stages), sp=2
+   (ring attention) and tp=2 (flash on 8 local heads) on the long-context
+   configuration, and ``ring_attention(use_pallas=True)`` at [1, 8192,
+   16, 64] bf16 split two ways against the one-card flash kernel (o, dq,
+   dk, dv); per leg and rank: wall ms, peak memory, the ops gloo copied
+   through host memory (``parallel.host_staged.*``), loss and its
+   difference from the single-rank step; gates: every rank launched the
+   kernels its leg reaches (RMSNorm, cross-entropy, and the flash
+   forward, dQ and dK/dV through ``.wgmma``), no plain version ran; then
+   flash at the tp=2 local shape [1, 8192, 8, 64] against its plain
+   version and SDPA.  Two ranks on one card share its SMs: their times
+   are not scaling figures;
 6. module_train — ``Module.fit`` of ResNet-50 on 256 seeded images in
    batches of 32 (one warm step, then 7 timed, each ending in a
    synchronize): losses finite, 8 updates, the data BatchNorm's moving
@@ -239,7 +268,7 @@ Phases, in order; any failure raises and exits non-zero:
    forward's wgmma variant launched, no plain version.
 
 Each main path (serve, each serving-plane path, each training
-configuration, the timed int8
+configuration, the mesh_nccl step, each rank's multirank leg, the timed int8
 forwards, the ``quantized_dense`` call, ``Module.fit``, the example's
 training through ``rtc_softmax`` and the ResNet-50 step through it, the
 kernels leg, and each generation worker's served streams) runs
@@ -347,6 +376,59 @@ EXPECTED_LAUNCHES = {
                          "fused_softmax_xent": 1,
                          "fused_softmax_xent_bwd": 1},
 }
+# the device mesh (mxnet_tpu_torch/parallel over torch.distributed).
+# mesh_nccl: one rank over NCCL (a real communicator: every collective of
+# the step runs), the flagship step with make_train_step(rules=
+# default_rules()) under make_mesh(dp=1) against the meshless step on the
+# same weights: the loss within 1e-5 relative (the mean is an all-reduced
+# sum over the token count), every parameter after the step bit for bit
+# the meshless step's (one rank: the same kernels on the same operands)
+MESH_LOSS_REL = 1e-5
+MESH_TIMEOUT_S = 180
+# multirank: two rank processes on the one card over gloo (NCCL refuses
+# two ranks on one device), started by tools/launch.py; each leg two steps
+# against two single-rank steps (tools/dryrun.py's loss parity, 1e-3 ·
+# max(1, |ref|), on each step's loss; the second step is the timed one),
+# and the gradients at the initial weights gathered whole, each within
+# MULTIRANK_GRAD_REL of its largest entry of the single-rank gradient
+# (bf16 gradients summed in another order across ranks: the legs' worst
+# leaves read 0.0075-0.0132 on an H100 80GB HBM3, 2-3.4 bf16 ulps of the
+# largest entry; 2^-5 leaves room for other reduction orders, while a
+# reduction dropped or doubled puts a leaf off by about half its size).  (leg, config, batch,
+# sequence, mesh axes, rules, the kernels the leg reaches)
+MULTIRANK_TIMEOUT_S = 400
+MULTIRANK_GRAD_REL = 2.0 ** -5
+_DENSE_KERNELS = ("fused_rmsnorm", "fused_softmax_xent",
+                  "fused_softmax_xent_bwd")
+_FLASH_KERNELS = ("flash_attention.wgmma", "flash_attention_dq.wgmma",
+                  "flash_attention_dkv.wgmma")
+FLAGSHIP_TRAIN = dict(FLAGSHIP, max_len=1024, remat=False)
+MULTIRANK_LEGS = (
+    ("tp2_flagship", FLAGSHIP_TRAIN, 8, 1024, {"tp": 2}, False,
+     _DENSE_KERNELS),
+    ("fsdp2_flagship", FLAGSHIP_TRAIN, 8, 1024, {"fsdp": 2}, True,
+     _DENSE_KERNELS),
+    ("ep2_flagship_moe", dict(FLAGSHIP_TRAIN, use_moe=True, n_experts=8), 8,
+     1024, {"ep": 2}, False, _DENSE_KERNELS),
+    ("sp2_longctx", LONGCTX, 1, 8192, {"sp": 2}, False, _DENSE_KERNELS),
+    ("tp2_longctx", LONGCTX, 1, 8192, {"tp": 2}, False,
+     _DENSE_KERNELS + _FLASH_KERNELS),
+)
+# pp=2: the flagship's block as two stages, M = 4 microbatches of 2; loss
+# by the parity above, each gradient within 2^-6 of its largest entry of
+# the sequential stages' (bf16 gradients summed per microbatch in bf16)
+PP_MICROBATCHES, PP_MB = 4, 2
+PP_GRAD_REL = 2.0 ** -6
+# the kernel form of ring attention at [1, 8192, 16, 64] bf16, causal,
+# split over the ranks, against the one-card flash kernel: o, dq, dk and
+# dv each within 2^-6 of its largest entry (the flash backward's tolerance
+# against an independent formula).  Each block's output is rounded to
+# bf16 before the merge and each rank's gradient adds the blocks' bf16
+# partials: n roundings where the one-card kernel has one, relative to
+# the partials, not to a merged entry that cancels
+RING_SHAPE = (1, 8192, 16, 64)
+RING_REL = 2.0 ** -6
+
 # kernel-vs-plain training step (bf16 model, loss of order 10): loss within
 # 1e-3 absolute, every parameter gradient within 2e-2 relative L2 error.
 # The kernels and the plain versions round to bf16 at the same points, so
@@ -2177,6 +2259,400 @@ def phase_train(dev):
         torch.cuda.empty_cache()
     return launches, states
 
+
+# ---------------------------------------------------------------------------
+# the device mesh: one NCCL rank, then two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+def _leg_tokens(V, B, T, seed=1):
+    import numpy as np
+
+    toks = np.random.default_rng(seed).integers(0, V, (B, T + 1))
+    return toks[:, :-1].copy(), toks[:, 1:].copy()
+
+
+def _leave_group():
+    """The end of a rank process: wait for every rank, then close the
+    process group (rank 0 hosts the group's store and must not exit
+    first)."""
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _launch_workers(n, entry, out_dir, timeout, backend=None):
+    """``n`` rank processes through the port's launcher, each running
+    ``chip_smoke.<entry>(out_dir)``; every process ends within
+    ``timeout``."""
+    from mxnet_tpu_torch.tools.launch import launch_local
+
+    return launch_local(
+        n, [sys.executable, "-c",
+            "import sys, chip_smoke; chip_smoke.%s(sys.argv[1])" % entry,
+            out_dir], backend=backend, timeout=timeout)
+
+
+def mesh_nccl_worker(out_dir):
+    """The one rank of mesh_nccl (NCCL, world size 1): the flagship step
+    through the mesh and rules against the meshless step, then a
+    ``dist_sync`` KVStore round."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _dist
+    from mxnet_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM, default_rules, make_train_step,
+        params_from_numpy)
+    from mxnet_tpu_torch.ops.kernels import common
+    from mxnet_tpu_torch.parallel import make_mesh
+    from mxnet_tpu_torch.parallel.sharding import (auto_shard, local_tensor,
+                                                   zeros_like)
+    from mxnet_tpu_torch.tools import dryrun
+
+    _check(dist.get_backend() == "nccl" and _dist.world_size() == 1,
+           "mesh_nccl: backend %s, world %d" % (dist.get_backend(),
+                                                _dist.world_size()))
+    dev = _dist.device()
+    model = TransformerLM(TransformerConfig(**FLAGSHIP_TRAIN), device=dev)
+    np_params = dryrun.numpy_params(model, 0)
+    x, y = (torch.from_numpy(a).to(dev) for a in
+            _leg_tokens(FLAGSHIP_TRAIN["vocab_size"], 8, 1024))
+    ref_p = params_from_numpy(np_params, dev, model.dtype)
+    ref_v = {k: torch.zeros_like(p) for k, p in ref_p.items()}
+    ref_loss = float(make_train_step(model)(ref_p, ref_v, x, y)[2])
+    rules = default_rules()
+    with make_mesh(dp=1) as mesh:
+        params = auto_shard(params_from_numpy(np_params, dev, model.dtype),
+                            rules, mesh)
+        velocity = {k: zeros_like(v) for k, v in params.items()}
+        step = make_train_step(model, rules=rules)
+        losses, step_ms, launches, peaks = [], [], [], []
+        for _ in range(2):
+            common.reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = step(params, velocity, x, y)[2]
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            peaks.append(torch.cuda.max_memory_allocated())
+            losses.append(float(loss))
+            launches.append(common.launch_counts())
+            if len(losses) == 1:
+                selects = common.selection_counts()
+                rel = {k: dryrun.rel_to_max(local_tensor(params[k]),
+                                            ref_p[k])
+                       for k in ref_p}
+                equal = sum(bool(torch.equal(local_tensor(params[k]),
+                                             ref_p[k])) for k in ref_p)
+    # a dist_sync KVStore round over the same communicator
+    kv = mx.kv.create("dist_sync")
+    g = np.random.default_rng(3).standard_normal((4096, 256), np.float32)
+    kv.init("w", mx.nd.zeros(g.shape, ctx=mx.gpu(0)))
+    kv.push("w", mx.nd.array(g, ctx=mx.gpu(0)))
+    out = mx.nd.zeros(g.shape, ctx=mx.gpu(0))
+    kv.pull("w", out=out)
+    rec = {"ref_loss": ref_loss, "losses": losses,
+           "loss_rel_err": abs(losses[0] - ref_loss) / abs(ref_loss),
+           "param_rel_to_max": max(rel.values()),
+           "params_bitwise_equal": equal, "params": len(ref_p),
+           "step_ms": step_ms, "peak_bytes": peaks, "launches": launches,
+           "selects": selects,
+           "kv_round_exact": bool(np.array_equal(out.asnumpy(), g)),
+           "backend": dist.get_backend(), "world": _dist.world_size()}
+    with open(os.path.join(out_dir, "mesh_nccl.json"), "w") as f:
+        json.dump(rec, f)
+    _leave_group()
+
+
+def phase_mesh_nccl(dev):
+    """The sharded flagship step at world size 1 over NCCL, in a child
+    process, against the meshless step; a dist_sync KVStore round."""
+    import os
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="mesh_nccl_")
+    codes = _launch_workers(1, "mesh_nccl_worker", out_dir, MESH_TIMEOUT_S)
+    _check(codes == [0], "mesh_nccl: the rank exited %s" % codes)
+    with open(os.path.join(out_dir, "mesh_nccl.json")) as f:
+        rec = json.load(f)
+    want = {k: 2 * v for k, v in EXPECTED_LAUNCHES["flagship_b8_t1024"]
+            .items()}
+    launched = {}
+    for run in rec["launches"]:
+        for k, v in run.items():
+            launched[k] = launched.get(k, 0) + v
+    per_step = {k.split(".", 2)[2]: v for k, v in launched.items()}
+    rec.update({"phase": "mesh_nccl", "device": dev["name"],
+                "nvidia_smi": dev["smi"], "loss_rel_tol": MESH_LOSS_REL,
+                "wall_s": time.perf_counter() - t0})
+    _emit(rec)
+    _check(rec["loss_rel_err"] <= MESH_LOSS_REL,
+           "mesh_nccl: loss %r against the meshless %r"
+           % (rec["losses"][0], rec["ref_loss"]))
+    _check(rec["params_bitwise_equal"] == rec["params"],
+           "mesh_nccl: %d of %d parameters after the step differ from the "
+           "meshless step's (by up to %g of the largest entry)"
+           % (rec["params"] - rec["params_bitwise_equal"], rec["params"],
+              rec["param_rel_to_max"]))
+    _check(rec["kv_round_exact"], "mesh_nccl: the dist_sync round differs")
+    _check(not any(k.endswith(".reference") for k in rec["selects"]),
+           "mesh_nccl: a plain version ran: %s" % rec["selects"])
+    _check(per_step == want, "mesh_nccl: launches over two steps %s, "
+           "expected %s" % (per_step, want))
+    return launched
+
+
+def _ring_leg(dev):
+    """The kernel form of ring attention split over sp = every rank
+    against the one-card flash kernel on the whole sequence."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import _dist
+    from mxnet_tpu_torch.ops.kernels import common
+    from mxnet_tpu_torch.ops.kernels.flash_attention import flash_attention
+    from mxnet_tpu_torch.parallel import collectives as C
+    from mxnet_tpu_torch.parallel import make_mesh, ring_attention
+    from mxnet_tpu_torch.tools.dryrun import rel_to_max
+
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal(RING_SHAPE, np.float32))
+               .to(dev, torch.bfloat16).requires_grad_(True)
+               for _ in range(3))
+    w = torch.from_numpy(rng.standard_normal(RING_SHAPE, np.float32)).to(dev)
+    o_ref = flash_attention(q, k, v, causal=True)
+    g_ref = torch.autograd.grad((o_ref.float() * w).sum(), (q, k, v))
+    n = _dist.world_size()
+    with make_mesh(sp=n) as mesh:
+        T = RING_SHAPE[1] // n
+        sl = slice(mesh.index("sp") * T, (mesh.index("sp") + 1) * T)
+        lq, lk, lv = (t.detach()[:, sl].clone().requires_grad_(True)
+                      for t in (q, k, v))
+        C.reset_host_staged()
+        common.reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        o = ring_attention(lq, lk, lv, "sp", causal=True, use_pallas=True)
+        g = torch.autograd.grad((o.float() * w[:, sl]).sum(), (lq, lk, lv))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = common.launch_counts()
+        selects = common.selection_counts()
+    rel = {n: rel_to_max(a.detach(), b.detach()[:, sl])
+           for n, a, b in zip("oqkv", (o,) + g, (o_ref,) + g_ref)}
+    return {"leg": "ring_kernel_sp%d" % n, "shape": list(RING_SHAPE),
+            "o_max_abs_err": float((o.detach().float()
+                                    - o_ref.detach()[:, sl].float())
+                                   .abs().max()),
+            "rel_to_max": rel,
+            "grad_max_abs_err": {n: float((a.float() - b[:, sl].float())
+                                          .abs().max())
+                                 for n, a, b in zip("qkv", g, g_ref)},
+            "ok": max(rel.values()) <= RING_REL, "ms": ms,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "host_staged": C.host_staged_counts(), "launches": launches,
+            "selects": selects}
+
+
+def _collectives_leg(dev):
+    """Each collective of ``parallel.collectives`` on CUDA tensors over
+    every rank against its exact result, and which of them the backend
+    took on the card (gloo's others are copied through host memory,
+    counted)."""
+    import torch
+
+    from mxnet_tpu_torch import _dist
+    from mxnet_tpu_torch.parallel import collectives as C
+    from mxnet_tpu_torch.parallel import make_mesh
+
+    n = _dist.world_size()
+    xs = [torch.arange(8.0) + 10 * s for s in range(n)]
+    total = sum(xs)
+    with make_mesh(tp=n):
+        r = C.axis_index("tp")
+        x = xs[r].to(dev)
+        c = 8 // n
+        want = {
+            "allreduce": total, "allreduce_bf16": total,
+            "allgather": torch.cat(xs),
+            "reduce_scatter": total[c * r:c * (r + 1)],
+            "ppermute": xs[(r - 1) % n],
+            "all_to_all": torch.cat([xs[s][c * r:c * (r + 1)]
+                                     for s in range(n)]),
+            "broadcast": xs[n - 1],
+        }
+        C.reset_host_staged()
+        got = {
+            "allreduce": C.allreduce(x, "tp"),
+            "allreduce_bf16": C.allreduce(x.to(torch.bfloat16), "tp"),
+            "allgather": C.allgather(x, "tp"),
+            "reduce_scatter": C.reduce_scatter(x, "tp"),
+            "ppermute": C.ppermute_shift(x, "tp", 1),
+            "all_to_all": C.all_to_all(x.view(n, c), "tp", 0, 1).view(-1),
+            "broadcast": C.broadcast(x, "tp", src=n - 1),
+        }
+        exact = {k: bool(torch.equal(got[k].float().cpu(), want[k]))
+                 for k in want}
+        staged = C.host_staged_counts()
+    return {"leg": "collectives", "exact": exact, "host_staged": staged,
+            "ok": all(exact.values()), "launches": {}, "selects": {}}
+
+
+def mesh_legs(out_dir, legs, pp_stages):
+    """This rank's part of the multi-rank legs (the multirank phase's and
+    mesh_probe.py's): the collectives check; each train leg of ``legs``
+    after its single-rank step on this rank; the flagship's first
+    ``pp_stages`` blocks as a pipeline against its sequential stages; the
+    kernel ring.  Writes ``rank<r>.json``: each leg's record and its
+    counters."""
+    import os
+
+    import torch
+
+    import mxnet_tpu_torch  # noqa: F401  (joins the launcher's group)
+    from mxnet_tpu_torch import _dist
+    from mxnet_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM, default_rules)
+    from mxnet_tpu_torch.ops.kernels import common
+    from mxnet_tpu_torch.tools import dryrun
+
+    dev = _dist.device()
+    recs = [_collectives_leg(dev)]
+
+    def finish(rec, t0):
+        rec.update(launches=common.launch_counts(),
+                   selects=common.selection_counts(),
+                   wall_s=time.perf_counter() - t0)
+        recs.append(rec)
+        torch.cuda.empty_cache()
+
+    for leg, cfg, B, T, axes, rules, _ in legs:
+        t0 = time.perf_counter()
+        model = TransformerLM(TransformerConfig(**cfg), device=dev)
+        np_params = dryrun.numpy_params(model, 0)
+        x, y = _leg_tokens(cfg["vocab_size"], B, T)
+        ref = dryrun.single_step(model, np_params, x, y, lr=1e-2, steps=2,
+                                 grads=True)
+        torch.cuda.empty_cache()
+        common.reset_counts()
+        rec = dryrun.train_leg(leg, model, np_params, x, y, axes,
+                               rules=default_rules() if rules else None,
+                               lr=1e-2, ref=ref["loss"], steps=2,
+                               zero_factor=axes.get("fsdp") if rules
+                               else None, ref_losses=ref["losses"],
+                               ref_grads=ref["grads"],
+                               grad_rel=MULTIRANK_GRAD_REL)
+        rec["ref_ms"] = ref["ms"]
+        del model, np_params, ref
+        finish(rec, t0)
+    t0 = time.perf_counter()
+    ppm = TransformerLM(TransformerConfig(**dict(
+        FLAGSHIP_TRAIN, n_layers=pp_stages)), device=dev)
+    np_params = dryrun.numpy_params(ppm, 0)
+    x, y = _leg_tokens(FLAGSHIP_TRAIN["vocab_size"], PP_MICROBATCHES * PP_MB,
+                       1024)
+    rec = dryrun.pp_leg(ppm, np_params, x, y, PP_MICROBATCHES, PP_MB,
+                        {"pp": pp_stages}, grad_rel=PP_GRAD_REL)
+    rec["leg"] = "pp%d_flagship" % pp_stages
+    del ppm, np_params
+    finish(rec, t0)
+    t0 = time.perf_counter()
+    recs.append(dict(_ring_leg(dev), wall_s=time.perf_counter() - t0))
+    with open(os.path.join(out_dir, "rank%d.json" % _dist.rank()), "w") as f:
+        json.dump(recs, f)
+    _leave_group()
+
+
+def multirank_worker(out_dir):
+    """One of the two gloo ranks of the multirank phase."""
+    mesh_legs(out_dir, MULTIRANK_LEGS, 2)
+
+
+def read_mesh_legs(out_dir, n, legs, dev, note=None):
+    """Every rank's records of :func:`mesh_legs`: one line a leg (each key
+    a list over the ranks; ``note`` beside), gated: each result as
+    expected, the kernels a leg reaches launched on every rank, no plain
+    version.  Returns each rank's launches of each leg."""
+    import os
+
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(out_dir, "rank%d.json" % r)) as f:
+            ranks.append(json.load(f))
+    reaches = {leg: kern for leg, *_, kern in legs}
+    reaches["collectives"] = ()
+    runs = []
+    for i, rec0 in enumerate(ranks[0]):
+        per_rank = [rk[i] for rk in ranks]
+        leg = rec0["leg"]
+        kern = reaches.get(leg, _FLASH_KERNELS if leg.startswith("ring")
+                           else _DENSE_KERNELS)
+        out = {"phase": "multirank", "leg": leg, "ranks": n,
+               "device": dev["name"], "nvidia_smi": dev["smi"],
+               **({"note": note} if note else {})}
+        for key in ("axes", "losses", "ref_loss", "ref_losses", "ref_ms",
+                    "loss_diff", "loss_diffs", "ms", "peak_bytes",
+                    "host_staged", "zero", "wall_s", "grad_max_abs_err",
+                    "grad_max_rel_to_max", "grad_rel_to_max", "grad_rel_tol",
+                    "o_max_abs_err", "rel_to_max", "ok", "shape",
+                    "exact"):
+            if key in rec0:
+                out[key] = [p.get(key) for p in per_rank]
+        out["launches"] = [{k.split(".", 2)[2]: v for k, v in
+                            p["launches"].items()} for p in per_rank]
+        _emit(out)
+        for p in per_rank:
+            _check(p.get("ok", True), "%s: a result is not the expected "
+                   "one: %s" % (leg, {k: p.get(k) for k in (
+                       "rel_to_max", "exact")}))
+            _check(not any(k.endswith(".reference") for k in p["selects"]),
+                   "%s: a plain version ran: %s" % (leg, p["selects"]))
+            for k in kern:
+                _check(p["launches"].get("kernels.launch." + k, 0) > 0,
+                       "%s: %s never launched: %s"
+                       % (leg, k, p["launches"]))
+            runs.append(p["launches"])
+    return runs
+
+
+def phase_multirank(dev, gen):
+    """Two rank processes on the one card over gloo: the collectives check
+    and the multi-rank legs (tp, fsdp with the ZeRO check, ep with MoE,
+    pp, sp with the ring, tp on the long-context configuration, the
+    kernel ring), each against the single-rank step (:func:`mesh_legs`);
+    then flash at the tp=2 local shape against its plain version and
+    SDPA.  Two ranks share one card's SMs and copy through host memory
+    over gloo: their times are not scaling figures.  Returns each rank's
+    launches of each leg."""
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="multirank_")
+    codes = _launch_workers(2, "multirank_worker", out_dir,
+                            MULTIRANK_TIMEOUT_S, backend="gloo")
+    _check(codes == [0, 0], "multirank: the ranks exited %s" % codes)
+    runs = read_mesh_legs(out_dir, 2, MULTIRANK_LEGS, dev, note=(
+        "two ranks share one card's SMs and copy through host memory over "
+        "gloo: not a scaling figure"))
+    flash = _flash_case(1, 8192, 8192, 8, 64, True, "bfloat16", gen)
+    _emit({"phase": "multirank_flash_local_shape",
+           "q": flash["q"], "ms": flash["ms"], "bound_ms": flash["bound_ms"],
+           "library_ms": flash["library_ms"], "plain_ms": flash["plain_ms"],
+           "wall_s": time.perf_counter() - t0})
+    return runs
 
 def _xavier_params(sym, ctx, seed=0):
     """Seeded weights for ``sym``: Xavier-uniform convolution and FC
@@ -4280,6 +4756,10 @@ def main():
     torch.cuda.empty_cache()
     plane_s = time.perf_counter() - t0
     train_launches, states = phase_train(dev)
+    mesh_launches = [_timed_phase("mesh_nccl", phase_mesh_nccl, dev)]
+    mesh_launches += _timed_phase(
+        "multirank", phase_multirank, dev,
+        torch.Generator(device="cuda").manual_seed(13))
     trained = phase_module_train(dev)
     rtc_launches, rtc_main = phase_rtc(dev, trained)
     main_cases.update(rtc_main)
@@ -4340,7 +4820,8 @@ def main():
         "rtc.softmax_backward": ("chip_smoke.py", "mxnet_tpu/rtc.py:87"),
     }
     runs = ([serve_launches] + plane_launches + list(train_launches.values())
-            + int8_launches + rtc_launches + [kleg_launches, gen_launches])
+            + mesh_launches + int8_launches + rtc_launches
+            + [kleg_launches, gen_launches])
 
     def launched(counter):
         return sum(r.get("kernels.launch.%s" % counter, 0) for r in runs)

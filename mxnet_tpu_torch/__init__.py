@@ -58,7 +58,14 @@ It carries these paths:
   ``ModelServer``'s replicas and ``fleet.WorkerSupervisor`` restarts
   worker processes; ``simfleet.SimFleet`` runs that control plane in
   simulated time; and the runtime sanitizers ``lockdep`` and
-  ``racecheck`` (``MXTPU_LOCKDEP`` / ``MXTPU_RACECHECK``, armed at import).
+  ``racecheck`` (``MXTPU_LOCKDEP`` / ``MXTPU_RACECHECK``, armed at import);
+* the device mesh: ``parallel`` (a ``DeviceMesh`` of ranks over
+  ``torch.distributed``, sharding rules, named-axis collectives, ring
+  attention, pipelines, mixture of experts) under TransformerLM's sharded
+  training step (``make_train_step(model, rules=...)`` inside ``with
+  parallel.make_mesh(...)``), the ``dist_sync`` ``kvstore``, and
+  ``python -m mxnet_tpu_torch.tools.launch``, whose ranks join their
+  process group when they import the package (``_dist``).
 
 Entry points take ``device=`` (or, on the symbolic path, ``ctx=``).  The
 default is ``cuda:0`` (``gpu(0)``); without a CUDA device they raise unless
@@ -83,13 +90,19 @@ racecheck.install_from_env()
 
 import torch  # noqa: E402
 
+# a rank started by tools.launch joins its process group (MXNET_TPU_*)
+from . import _dist  # noqa: E402
+
+_dist.init_from_env()
+
 __all__ = ["default_device", "resolve_device", "TransformerConfig",
            "TransformerLM", "make_train_step", "GenerationConfig",
            "GenerationEngine", "GenerationServer", "Context", "cpu", "gpu",
            "current_context", "nd", "sym", "io", "contrib", "init", "mod",
            "metric", "optimizer", "lr_scheduler", "callback", "random",
            "operator", "rtc", "autograd", "gluon", "predict", "serving",
-           "benchmark", "monitor", "Monitor", "sentinel"]
+           "benchmark", "monitor", "Monitor", "sentinel", "kvstore", "kv",
+           "parallel"]
 
 
 def default_device() -> torch.device:
@@ -138,3 +151,5 @@ from . import module as mod  # noqa: E402
 from . import autograd, gluon  # noqa: E402,F401
 from . import benchmark, monitor, predict, sentinel, serving  # noqa: E402,F401
 from .monitor import Monitor  # noqa: E402,F401
+from . import kvstore, parallel  # noqa: E402,F401
+from . import kvstore as kv  # noqa: E402,F401

@@ -2,8 +2,9 @@
 
 It carries the forward pass, the paged-KV serving path (``init_kv_pages``
 / ``prefill`` / ``decode_step``) and training (``loss``,
-:func:`make_train_step`, SGD with momentum) on one device.  MoE and the
-mesh paths (ring attention, sharding rules) come in later slices.
+:func:`make_train_step`, SGD with momentum), on one device or under a
+:class:`~mxnet_tpu_torch.parallel.DeviceMesh`; ``use_moe`` trains (the
+paged decode refuses it, as the JAX package's does).
 
 The parameters are those of the JAX model, under the same names: the
 stacked per-layer tensors ``[L, ...]`` live in the ``blocks`` submodule, so
@@ -19,9 +20,27 @@ stay f32 where it does not (the MLP's ``up`` before gelu, the logits).  The
 dense and decode attention round ``p`` to the model dtype before P·V; the
 flash kernel keeps it f32.  ``gelu`` is the tanh approximation, as
 ``jax.nn.gelu`` is by default.  Masked scores use the finite ``-1e30``.
+
+Under a mesh each rank runs the model on its shards (``_Plan``): the batch
+is cut over ``dp`` and ``fsdp``, the sequence over ``sp`` (ring attention,
+the streaming form, as in JAX), heads, the MLP's hidden units and the
+vocabulary over ``tp``, experts over ``ep``.  Parameters are stored in
+their rule's layout (:func:`default_rules`; a DTensor's placements say
+which) and gathered per layer over the axes the compute does not cut
+(``fsdp`` always, ZeRO-style; ``wqkv`` over ``tp`` too, since its stored
+column blocks cut across q, k and v).  The dense/flash gate reads the
+global B·H·T² score size.  The routing differs from the JAX package's
+under a mesh: there GSPMD cannot partition a custom call, so RMSNorm, the
+cross-entropy and, unless wrapped in ``shard_map``, flash fall back to lax.
+Here every rank runs the hand-written kernels on its local shards: RMSNorm
+over E (no rule cuts it), flash on the local batch and heads (whole where
+their axes do not divide, where JAX's wrapper falls back to the blockwise
+form), and the cross-entropy on whole rows, the vocab-cut logits gathered
+over ``tp`` first.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -35,9 +54,16 @@ from .. import resolve_device
 from ..ops.kernels.common import _NEG
 from ..ops.kernels.flash_attention import flash_attention
 from ..ops.kernels.layers import fused_rmsnorm, fused_softmax_xent
+from ..parallel import collectives as C
+from ..parallel.mesh import current_mesh
+from ..parallel.moe import moe_layer
+from ..parallel.ring_attention import ring_attention
+from ..parallel.sharding import (PartitionSpec as P_, ShardingRules,
+                                 _entry_axes, _filter_spec, local_shard,
+                                 local_tensor, shard_array, spec_of, gather)
 
 __all__ = ["TransformerConfig", "TransformerLM", "make_train_step",
-           "params_from_numpy"]
+           "params_from_numpy", "default_rules"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -48,8 +74,7 @@ class TransformerConfig:
     recomputes each block's forward in the backward pass (per-block
     activation checkpointing, as ``jax.checkpoint`` of the scan body).
     ``scan_unroll`` has no meaning in eager PyTorch (the layers are a
-    Python loop); ``n_experts`` and ``moe_aux_weight`` matter only to MoE,
-    which is not ported: ``use_moe=True`` is refused."""
+    Python loop)."""
     vocab_size: int = 32000
     d_model: int = 512
     n_heads: int = 8
@@ -69,6 +94,25 @@ class TransformerConfig:
     @property
     def head_dim(self):
         return self.d_model // self.n_heads
+
+
+def default_rules() -> ShardingRules:
+    """The JAX model's layout: qkv and the MLP's up projection cut on
+    their output features over ``tp``, the output and down projections on
+    their input features; ``fsdp`` cuts the other large dimension; experts
+    over ``ep``."""
+    return ShardingRules([
+        (r"embed",        P_("tp", "fsdp")),
+        (r".*wqkv",       P_(None, "fsdp", "tp")),
+        (r".*wo",         P_(None, "tp", "fsdp")),
+        (r".*w_up",       P_(None, "fsdp", "tp")),
+        (r".*w_down",     P_(None, "tp", "fsdp")),
+        (r".*moe_up",     P_(None, "ep", "fsdp", None)),
+        (r".*moe_down",   P_(None, "ep", None, "fsdp")),
+        (r".*gate",       P_(None, "fsdp", None)),
+        (r"unembed",      P_("fsdp", "tp")),
+        (r".*",           P_()),
+    ])
 
 
 def params_from_numpy(np_params, device, dtype=None):
@@ -118,8 +162,14 @@ class _Blocks(nn.Module):
         self.ln2_scale = _param((L, E), device, dtype)
         self.wqkv = _param((L, E, 3 * HD), device, dtype)
         self.wo = _param((L, HD, E), device, dtype)
-        self.w_up = _param((L, E, F_), device, dtype)
-        self.w_down = _param((L, F_, E), device, dtype)
+        if cfg.use_moe:
+            n = cfg.n_experts
+            self.gate = _param((L, E, n), device, dtype)
+            self.moe_up = _param((L, n, E, F_), device, dtype)
+            self.moe_down = _param((L, n, F_, E), device, dtype)
+        else:
+            self.w_up = _param((L, E, F_), device, dtype)
+            self.w_down = _param((L, F_, E), device, dtype)
 
 
 class TransformerLM(nn.Module):
@@ -134,9 +184,6 @@ class TransformerLM(nn.Module):
     def __init__(self, config: TransformerConfig, device=None,
                  generator=None):
         super().__init__()
-        if config.use_moe:
-            raise NotImplementedError("mxnet_tpu_torch: MoE is not ported "
-                                      "yet")
         if config.dtype not in _DTYPES:
             raise ValueError("dtype %r not in %s" % (config.dtype,
                                                       sorted(_DTYPES)))
@@ -167,11 +214,7 @@ class TransformerLM(nn.Module):
         the values differ from JAX's for the same seed."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        cfg = self.cfg
-        HD = cfg.n_heads * cfg.head_dim
-        fan_in = {"embed": cfg.d_model, "blocks.wqkv": cfg.d_model,
-                  "blocks.wo": HD, "blocks.w_up": cfg.d_model,
-                  "blocks.w_down": cfg.d_ff, "unembed": cfg.d_model}
+        fan_in = self.fan_in()
         for name, p in self.named_parameters():
             if name in fan_in:
                 w = torch.randn(p.shape, generator=generator,
@@ -180,6 +223,16 @@ class TransformerLM(nn.Module):
             else:
                 p.fill_(1.0)
         return self
+
+    def fan_in(self):
+        """Each matrix's fan-in, by name: its ``init`` draws N(0, 1) /
+        sqrt(fan-in); every other parameter (a norm scale) is 1."""
+        cfg = self.cfg
+        return {"embed": cfg.d_model, "blocks.wqkv": cfg.d_model,
+                "blocks.wo": cfg.n_heads * cfg.head_dim,
+                "blocks.w_up": cfg.d_model, "blocks.w_down": cfg.d_ff,
+                "unembed": cfg.d_model, "blocks.gate": cfg.d_model,
+                "blocks.moe_up": cfg.d_model, "blocks.moe_down": cfg.d_ff}
 
     @torch.no_grad()
     def load_jax_params(self, np_params):
@@ -197,32 +250,63 @@ class TransformerLM(nn.Module):
     def _rmsnorm(self, x, scale):
         return fused_rmsnorm(x, scale.to(x.dtype))
 
-    def _block(self, P, layer, x, with_kv=False):
+    def _block(self, P, layer, x, with_kv=False, plan=None):
+        """One layer: ``(x, aux)``, or ``(x, aux, k, v)`` with ``with_kv``.
+        ``plan`` (a :class:`_Plan`) runs it on this rank's shards under a
+        mesh; ``None`` is one device."""
         cfg = self.cfg
+        plan = plan or _ONE_DEVICE
         B, T, _ = x.shape
         H, D = cfg.n_heads, cfg.head_dim
-        h = self._rmsnorm(x, P["blocks.ln1_scale"][layer])
-        qkv = torch.matmul(h, P["blocks.wqkv"][layer])
-        q, k, v = (t.view(B, T, H, D) for t in qkv.split(H * D, dim=-1))
-        score_mb = B * H * T * T * 4 / 1e6
-        if score_mb <= cfg.dense_attn_max_score_mb:
+        h = self._rmsnorm(x, plan.weight(P, "blocks.ln1_scale", layer))
+        qkv = torch.matmul(h, plan.qkv_weight(P, layer))
+        Hl = qkv.shape[-1] // (3 * D)                   # this rank's heads
+        q, k, v = (t.view(B, T, Hl, D) for t in qkv.split(Hl * D, dim=-1))
+        Bg, Tg = plan.global_bt(B, T)
+        score_mb = Bg * H * Tg * Tg * 4 / 1e6
+        if plan.ring:
+            attn = ring_attention(q, k, v, "sp", causal=True)
+        elif score_mb <= cfg.dense_attn_max_score_mb:
             attn = _dense_self_attention(q, k, v, causal=True)
         else:
             attn = flash_attention(q, k, v, causal=True)
-        o = torch.matmul(attn.reshape(B, T, H * D), P["blocks.wo"][layer])
-        x = x + o
-        h = self._rmsnorm(x, P["blocks.ln2_scale"][layer])
-        up = torch.matmul(h.float(), P["blocks.w_up"][layer].float())
-        ff = torch.matmul(F.gelu(up, approximate="tanh").to(x.dtype),
-                          P["blocks.w_down"][layer])
+        o = torch.matmul(attn.reshape(B, T, Hl * D),
+                         plan.weight(P, "blocks.wo", layer,
+                                     {0: "tp"} if plan.heads else None))
+        x = x + plan.tp_sum(o, plan.heads)
+        h = self._rmsnorm(x, plan.weight(P, "blocks.ln2_scale", layer))
+        if cfg.use_moe:
+            ff, aux = plan.moe(self, P, layer, h)
+        else:
+            cut = {1: "tp"} if plan.ff else None
+            up = torch.matmul(h.float(),
+                              plan.weight(P, "blocks.w_up", layer, cut).float())
+            ff = torch.matmul(
+                F.gelu(up, approximate="tanh").to(x.dtype),
+                plan.weight(P, "blocks.w_down", layer,
+                            {0: "tp"} if plan.ff else None))
+            ff = plan.tp_sum(ff, plan.ff)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
         x = x + ff
         if with_kv:
-            return x, k, v
-        return x
+            return x, aux, k, v
+        return x, aux
 
-    def _logits(self, P, x):
-        x = self._rmsnorm(x, P["final_ln_scale"])
-        return torch.matmul(x.float(), P["unembed"].float())
+    def _block_in_mesh(self, P, layer, x, plan):
+        """:meth:`_block` inside the plan's mesh: the checkpoint's
+        recomputation may run on autograd's device thread, where the
+        caller's mesh is not current."""
+        with plan.mesh if plan.mesh is not None else contextlib.nullcontext():
+            return self._block(P, layer, x, plan=plan)
+
+    def _logits(self, P, x, plan=None):
+        plan = plan or _ONE_DEVICE
+        x = self._rmsnorm(x, plan.weight(P, "final_ln_scale"))
+        w = plan.weight(P, "unembed", None, {1: "tp"} if plan.vocab else None)
+        logits = torch.matmul(x.float(), w.float())
+        if plan.vocab:                  # whole rows for the cross-entropy
+            logits = C.allgather(logits, "tp", axis=-1)
+        return logits
 
     def apply(self, tokens, params=None):
         """tokens [B, T] (int) -> ``(logits [B, T, V] f32, aux)``, ``aux``
@@ -231,18 +315,29 @@ class TransformerLM(nn.Module):
 
         With ``cfg.remat`` and gradients enabled, each block runs under
         non-reentrant activation checkpointing and its forward runs again
-        in the backward pass, as under ``jax.checkpoint``."""
+        in the backward pass, as under ``jax.checkpoint`` (under a mesh its
+        collectives run again too, in the same order on every rank).
+
+        Under a mesh ``tokens`` is the global batch (the same on every
+        rank) and the logits are this rank's rows of it, whole over the
+        vocabulary."""
         P = self._params(params)
-        x = P["embed"][tokens]
+        return self._run(tokens, P, _plan_for(self, P, tokens.shape))
+
+    def _run(self, tokens, P, plan):
+        tokens = plan.local_tokens(tokens)
+        x = plan.embed(P, tokens)
         remat = self.cfg.remat and torch.is_grad_enabled()
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in range(self.cfg.n_layers):
             if remat:
-                x = checkpoint(self._block, P, layer, x, use_reentrant=False,
-                               preserve_rng_state=False)
+                x, a = checkpoint(self._block_in_mesh, P, layer, x, plan,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
             else:
-                x = self._block(P, layer, x)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return self._logits(P, x), aux
+                x, a = self._block(P, layer, x, plan=plan)
+            aux = aux + a
+        return self._logits(P, x, plan), aux
 
     def forward(self, tokens):
         return self.apply(tokens)
@@ -252,20 +347,39 @@ class TransformerLM(nn.Module):
         """Causal LM loss: the mean token cross-entropy of the fused
         softmax-xent kernel, plus ``moe_aux_weight·aux``.  ``params`` is a
         flat ``{name: tensor}`` dict or ``None`` (the module's own
-        parameters); tokens, targets: [B, T] int."""
-        logits, aux = self.apply(tokens, params)
-        nll = fused_softmax_xent(logits, targets).mean()
+        parameters); tokens, targets: [B, T] int (under a mesh the global
+        batch; the loss is the global mean, the same on every rank)."""
+        P = self._params(params)
+        return self._loss(P, tokens, targets,
+                          _plan_for(self, P, tokens.shape))
+
+    def _loss(self, P, tokens, targets, plan):
+        logits, aux = self._run(tokens, P, plan)
+        nll = fused_softmax_xent(logits, plan.local_tokens(targets))
+        if plan.mesh is None:
+            nll = nll.mean()
+        else:
+            nll = C.allreduce(nll.sum(), plan.batch_axes + plan.seq_axes) \
+                / targets.numel()
         return nll + self.cfg.moe_aux_weight * aux
 
     def value_and_grad(self, params, tokens, targets):
         """``(loss, grads)`` of :meth:`loss` with respect to every tensor of
         ``params`` (``None``: the module's own), the counterpart of
         ``jax.value_and_grad(model.loss)``.  ``grads`` is a dict under the
-        same names, each gradient in its parameter's dtype."""
+        same names, each gradient in its parameter's dtype.
+
+        Under a mesh each parameter is this rank's shard (a DTensor, or a
+        plain tensor for a replicated one) and its gradient is the local
+        shard of the whole gradient, summed over the ranks that share the
+        shard (the transposes of :mod:`~mxnet_tpu_torch.parallel.
+        collectives`)."""
         P = self._params(params)
-        leaves = {k: p.detach().requires_grad_(True) for k, p in P.items()}
-        loss = self.loss(leaves, tokens, targets)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
+        plan = _plan_for(self, P, tokens.shape)
+        leaves = {k: local_tensor(p).detach().requires_grad_(True)
+                  for k, p in P.items()}
+        loss = self._loss(plan.enter(leaves), tokens, targets, plan)
+        grads = torch.autograd.grad(plan.leave(loss), list(leaves.values()))
         return loss.detach(), dict(zip(leaves, grads))
 
     # -- generative decode (paged KV cache) ----------------------------
@@ -297,6 +411,7 @@ class TransformerLM(nn.Module):
         pages backing positions 0..length-1; params: a flat dict under the
         JAX names (``None``: the module's own parameters)."""
         cfg = self.cfg
+        _refuse_moe(cfg)
         H, D = cfg.n_heads, cfg.head_dim
         ps = k_pages.shape[2]
         Tpad = tokens.shape[1]
@@ -306,7 +421,7 @@ class TransformerLM(nn.Module):
         dest = torch.where(t < length, page_table[t // ps] * ps + t % ps,
                            t % ps)
         for layer in range(cfg.n_layers):
-            x, k, v = self._block(P, layer, x, with_kv=True)
+            x, _, k, v = self._block(P, layer, x, with_kv=True)
             k_pages[layer].view(-1, H, D)[dest] = k[0]
             v_pages[layer].view(-1, H, D)[dest] = v[0]
         return self._logits(P, x[:, length - 1])[0]
@@ -322,6 +437,7 @@ class TransformerLM(nn.Module):
         bool — inactive slots write to the garbage page; params: as in
         :meth:`prefill`."""
         cfg = self.cfg
+        _refuse_moe(cfg)
         H, D = cfg.n_heads, cfg.head_dim
         S = tokens.shape[0]
         ps = k_pages.shape[2]
@@ -369,18 +485,181 @@ def make_train_step(model, lr=1e-2, momentum=0.9, rules=None):
     then ``p = p − lr·v`` (``lr·v`` rounded to the dtype first).  It is made
     IN PLACE: the returned dicts are the ones passed in, their tensors
     overwritten, so passing the module's own parameters trains the module.
-    ``rules`` (sharding) is not ported until the mesh slice."""
-    if rules is not None:
-        raise NotImplementedError("mxnet_tpu_torch: sharding rules are not "
-                                  "ported yet (one device only)")
+
+    Under a mesh the step runs on each rank's shards and the loss is the
+    global one.  With ``rules`` (a :class:`ShardingRules`) the parameters
+    and the velocity are pinned to their rule's placement first (a dict
+    entry whose layout differs is replaced by a DTensor in the rule's
+    layout): on an ``fsdp`` axis each rank then stores 1/fsdp of every
+    parameter and of its velocity, ZeRO-style, and updates only that.
+    Outside a mesh ``rules`` changes nothing, as a JAX sharding constraint
+    outside a mesh does not."""
 
     def step(params, velocity, tokens, targets):
+        mesh = current_mesh()
+        if rules is not None and mesh is not None:
+            for tree in (params, velocity):
+                _pin(tree, rules, mesh)
         loss, grads = model.value_and_grad(params, tokens, targets)
         with torch.no_grad():
             for name, p in params.items():
-                v = velocity[name]
+                p, v = local_tensor(p), local_tensor(velocity[name])
                 v.mul_(momentum).add_(grads[name].to(v.dtype))
                 p.sub_(v.to(p.dtype) * lr)
         return params, velocity, loss
 
     return step
+
+
+def _pin(tree, rules, mesh):
+    """Re-store each tensor of ``tree`` in its rule's layout, in place."""
+    for name, t in tree.items():
+        want = _filter_spec(rules.spec_for(name), mesh, tuple(t.shape))
+        have = spec_of(t)
+        if _filter_spec(have, mesh, tuple(t.shape)) != want:
+            full = gather(local_tensor(t).detach(), have, mesh)
+            tree[name] = shard_array(full, want, mesh)
+
+
+def _refuse_moe(cfg):
+    if cfg.use_moe:
+        raise NotImplementedError("paged decode does not support MoE yet")
+
+
+def _pad(spec, ndim):
+    return tuple(spec) + (None,) * (ndim - len(spec))
+
+
+class _Plan:
+    """How one call's tensors are cut over the current mesh: the batch
+    over ``dp`` and ``fsdp``, the sequence over ``sp`` (each where it
+    divides), heads, the MLP's hidden units and the vocabulary over ``tp``
+    and experts over ``ep`` where those divide; each parameter's stored
+    spec.  ``mesh=None`` is one device: every method is then the plain
+    read of the parameter, with no collective."""
+
+    def __init__(self, cfg=None, mesh=None, specs=None, shape=None):
+        self.mesh = mesh
+        self.specs = specs or {}
+        self.batch_axes = self.seq_axes = ()
+        self.ring = self.heads = self.ff = self.vocab = self.experts = False
+        if mesh is None:
+            return
+        tok = _filter_spec(P_(("dp", "fsdp"), "sp"), mesh, tuple(shape))
+        self.token_spec = tok
+        self.batch_axes, self.seq_axes = (_entry_axes(tok[0]),
+                                          _entry_axes(tok[1]))
+        self.ring = bool(self.seq_axes)
+        tp, ep = mesh.size("tp"), mesh.size("ep")
+        self.heads = tp > 1 and cfg.n_heads % tp == 0
+        self.ff = tp > 1 and cfg.d_ff % tp == 0 and not cfg.use_moe
+        self.vocab = tp > 1 and cfg.vocab_size % tp == 0
+        self.experts = ep > 1 and cfg.n_experts % ep == 0
+
+    # -- the boundary of the per-rank region (shard_map's transposes) ---
+    def enter(self, leaves):
+        if self.mesh is None:
+            return leaves
+        out = {}
+        for name, t in leaves.items():
+            cut = {a for e in self.specs.get(name, ()) for a in _entry_axes(e)}
+            out[name] = C.region_in(t, tuple(a for a in self.mesh.axis_names
+                                             if a not in cut))
+        return out
+
+    def leave(self, loss):
+        if self.mesh is None:
+            return loss
+        return C.region_out(loss, self.mesh.axis_names)
+
+    # -- tensors --------------------------------------------------------
+    def weight(self, P, name, layer=None, cut=None):
+        """Parameter ``name`` (layer ``layer`` of a stack) as the compute
+        reads it: whole, but for the dims in ``cut`` (``{dim: axis}``),
+        which stay this rank's chunk on that axis."""
+        t = local_tensor(P[name])
+        if self.mesh is None:
+            return t if layer is None else t[layer]
+        spec = _pad(self.specs.get(name, ()), t.ndim)
+        if layer is not None:
+            t, spec = t[layer], spec[1:]
+        cut = cut or {}
+        for dim, entry in enumerate(spec):
+            if entry is not None and cut.get(dim) != entry:
+                t = C.allgather(t, _entry_axes(entry), axis=dim)
+        for dim, axis in cut.items():
+            if spec[dim] != axis:       # stored whole: take the chunk
+                n = self.mesh.size(axis)
+                t = t.chunk(n, dim)[self.mesh.index(axis)]
+        return t
+
+    def qkv_weight(self, P, layer):
+        """``wqkv`` whole, then, with heads cut over ``tp``, the q, k and v
+        columns of this rank's heads."""
+        w = self.weight(P, "blocks.wqkv", layer)
+        if not self.heads:
+            return w
+        HD = w.shape[-1] // 3
+        n, i = self.mesh.size("tp"), self.mesh.index("tp")
+        per = HD // n
+        return torch.cat([w[:, j * HD + i * per:j * HD + (i + 1) * per]
+                          for j in range(3)], dim=-1)
+
+    def tp_sum(self, x, on):
+        return C.allreduce(x, "tp") if on else x
+
+    def embed(self, P, tokens):
+        """The lookup; over a vocabulary cut on ``tp``, each rank looks up
+        the ids it holds and the rows sum over ``tp``."""
+        w = self.weight(P, "embed", None, {0: "tp"} if self.vocab else None)
+        if not self.vocab:
+            return w[tokens]
+        Vl = w.shape[0]
+        local = tokens - self.mesh.index("tp") * Vl
+        inside = (local >= 0) & (local < Vl)
+        rows = w[local.clamp(0, Vl - 1)]
+        rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+        return C.allreduce(rows, "tp")
+
+    def local_tokens(self, tokens):
+        if self.mesh is None:
+            return tokens
+        return local_shard(tokens, self.token_spec, self.mesh)
+
+    def global_bt(self, B, T):
+        """The global batch and sequence of a rank's [B, T]: cut only over
+        the axes the plan cuts them on (an axis that does not divide leaves
+        the dim whole on every rank)."""
+        if self.mesh is None:
+            return B, T
+        return (B * C.axis_size(self.batch_axes),
+                T * C.axis_size(self.seq_axes))
+
+    def moe(self, model, P, layer, h):
+        """The MoE feed-forward on the global tokens (gathered over the
+        batch and sequence axes; JAX's routing and capacity count them
+        all), this rank's experts; returns this rank's rows and aux."""
+        x = h
+        if self.mesh is not None:
+            if self.seq_axes:
+                x = C.allgather(x, self.seq_axes, axis=1)
+            if self.batch_axes:
+                x = C.allgather(x, self.batch_axes, axis=0)
+        ex = {0: "ep"} if self.experts else None
+        y, aux = moe_layer(x, self.weight(P, "blocks.gate", layer),
+                           self.weight(P, "blocks.moe_up", layer, ex),
+                           self.weight(P, "blocks.moe_down", layer, ex))
+        if self.mesh is not None:
+            y = local_shard(y, self.token_spec, self.mesh)
+        return y, aux
+
+
+_ONE_DEVICE = _Plan()
+
+
+def _plan_for(model, P, shape):
+    mesh = current_mesh()
+    if mesh is None:
+        return _ONE_DEVICE
+    specs = {k: spec_of(v) for k, v in P.items()}
+    return _Plan(model.cfg, mesh, specs, shape)

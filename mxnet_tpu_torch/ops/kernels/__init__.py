@@ -7,7 +7,8 @@ from .common import (kernel_unit, kernel_units,  # noqa: F401
 from .flash_attention import (flash_attention,  # noqa: F401
                               flash_attention_bwd_reference,
                               flash_attention_lse,
-                              flash_attention_reference)
+                              flash_attention_reference,
+                              flash_self_attention)
 from .int8_matmul import int8_matmul, int8_matmul_reference  # noqa: F401
 from .layers import (fused_rmsnorm, fused_rmsnorm_reference,  # noqa: F401
                      fused_softmax_xent, rmsnorm_bwd_reference,

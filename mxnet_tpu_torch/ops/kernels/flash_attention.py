@@ -63,7 +63,7 @@ from . import _build
 from .common import (_NEG, count_launch, register_entry, register_impl,
                      select_impl)
 
-__all__ = ["flash_attention", "flash_attention_lse",
+__all__ = ["flash_attention", "flash_attention_lse", "flash_self_attention",
            "flash_attention_reference", "flash_attention_bwd_reference"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -669,6 +669,16 @@ def flash_attention_lse(q, k, v, causal=True, scale=None):
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
     return _FlashAttention.apply(q, k, v, bool(causal), float(scale))
+
+
+# The JAX package's mesh-aware wrapper runs the kernel under ``shard_map``
+# over the batch and head axes, and falls back to the blockwise form when
+# they do not divide (``shard_map`` needs exact division and GSPMD cannot
+# partition the custom call).  Per-rank code needs neither: each rank's
+# q, k, v are already the batch elements and heads it attends (whole where
+# an axis does not divide), and attention is independent per batch element
+# and head, so the wrapper is the kernel itself.
+flash_self_attention = flash_attention
 
 
 register_impl("flash_attention", cuda=_flash_cuda,

@@ -1544,3 +1544,110 @@ def test_off_mode_is_visible_in_the_reference_counters(dev, monkeypatch):
         "kernels.select.fused_rmsnorm.reference": 1}
     assert common.launch_counts() == {}
     assert common.select_impl("int8_matmul")[1] == "reference"
+
+
+# ---------------------------------------------------------------------------
+# the device mesh at world size 1 (a real NCCL communicator over one rank)
+# ---------------------------------------------------------------------------
+def _qkv_bf16(dev, shape=(2, 1024, 8, 64), seed=21):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev,
+                        dtype=torch.bfloat16).requires_grad_(True)
+            for _ in range(3)]
+
+
+def test_mesh_attention_at_world_size_one_is_the_flash_kernel(dev):
+    """Under a mesh the model's attention is the flash kernel on the rank's
+    batch and heads (``flash_self_attention`` is the kernel's own entry):
+    a bf16 model past the dense gate under ``make_mesh(dp=1, tp=1)`` gives
+    the meshless gradients bit for bit and its loss within 1e-6 relative
+    (the mean taken as an all-reduced sum over the token count), the
+    forward, dQ and dK/dV
+    launched through their tensor-core variants once a layer, no plain
+    version selected."""
+    from mxnet_tpu_torch.models.transformer import (TransformerConfig,
+                                                    TransformerLM)
+    from mxnet_tpu_torch.ops.kernels.flash_attention import (
+        flash_self_attention)
+    from mxnet_tpu_torch.parallel import make_mesh
+
+    assert flash_self_attention is flash_attention
+    cfg = TransformerConfig(vocab_size=512, d_model=128, n_heads=2,
+                            n_layers=2, d_ff=256, dtype="bfloat16",
+                            remat=False, dense_attn_max_score_mb=0)
+    model = TransformerLM(cfg, device=dev)
+    toks = torch.randint(0, 512, (2, 257), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(6))
+    x, y = toks[:, :-1].contiguous(), toks[:, 1:].contiguous()
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    ref_loss, ref_grads = model.value_and_grad(params, x, y)
+    with make_mesh(dp=1, tp=1):
+        common.reset_counts()
+        loss, grads = model.value_and_grad(params, x, y)
+        selects = common.selection_counts()
+        launches = common.launch_counts()
+    assert abs(float(loss) - float(ref_loss)) <= 1e-6 * abs(float(ref_loss))
+    for k, want in ref_grads.items():
+        assert torch.equal(grads[k], want), k
+    assert not any(k.endswith(".reference") for k in selects), selects
+    for name in ("flash_attention", "flash_attention_dq",
+                 "flash_attention_dkv"):
+        assert launches["kernels.launch.%s.wgmma" % name] == cfg.n_layers
+
+
+def test_kernel_ring_on_one_rank_equals_the_flash_kernel(dev):
+    """``ring_attention(use_pallas=True)`` over an sp axis of one rank is
+    one flash block: output and gradients bit for bit the kernel's."""
+    from mxnet_tpu_torch.parallel import make_mesh, ring_attention
+
+    q, k, v = _qkv_bf16(dev, (1, 2048, 16, 64), seed=22)
+    w = torch.randn(q.shape, device=dev)
+    with make_mesh(sp=1):
+        o = ring_attention(q, k, v, "sp", causal=True, use_pallas=True)
+        got = torch.autograd.grad((o.float() * w).sum(), (q, k, v))
+    o_ref = flash_attention(q, k, v, causal=True)
+    want = torch.autograd.grad((o_ref.float() * w).sum(), (q, k, v))
+    assert torch.equal(o, o_ref)
+    for gt, wt in zip(got, want):
+        assert torch.equal(gt, wt)
+
+
+def test_sharded_step_at_world_size_one_matches_meshless(dev):
+    """``make_train_step(rules=default_rules())`` under ``make_mesh(dp=1)``
+    (NCCL over one rank: every collective runs) against the meshless step
+    on the same bf16 parameters: the loss within 1e-5 relative (the mean
+    taken as an all-reduced sum over the token count), each parameter
+    within 2^-8 of its largest entry (a gradient an ulp apart can move a
+    bf16 update by one ulp); the kernels launched, no plain version."""
+    from mxnet_tpu_torch.models.transformer import (TransformerConfig,
+                                                    TransformerLM,
+                                                    default_rules,
+                                                    make_train_step)
+    from mxnet_tpu_torch.parallel import make_mesh
+
+    cfg = TransformerConfig(vocab_size=512, d_model=128, n_heads=2,
+                            n_layers=2, d_ff=256, dtype="bfloat16",
+                            remat=False)
+    model = TransformerLM(cfg, device=dev)
+    toks = torch.randint(0, 512, (2, 129), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(5))
+    x, y = toks[:, :-1].contiguous(), toks[:, 1:].contiguous()
+    base = {k: p.detach().clone() for k, p in model.named_parameters()}
+    ref_p = {k: v.clone() for k, v in base.items()}
+    ref_v = {k: torch.zeros_like(v) for k, v in base.items()}
+    _, _, ref_loss = make_train_step(model)(ref_p, ref_v, x, y)
+    with make_mesh(dp=1):
+        p = {k: v.clone() for k, v in base.items()}
+        v = {k: torch.zeros_like(t) for k, t in base.items()}
+        common.reset_counts()
+        p, v, loss = make_train_step(model, rules=default_rules())(p, v, x, y)
+        selects = common.selection_counts()
+        launches = common.launch_counts()
+    assert abs(float(loss) - float(ref_loss)) <= 1e-5 * abs(float(ref_loss))
+    for k, want in ref_p.items():
+        got = p[k].to_local() if hasattr(p[k], "to_local") else p[k]
+        assert _rel_to_max(got, want) <= 2.0 ** -8, k
+    assert not any(k.endswith(".reference") for k in selects), selects
+    for name in ("fused_rmsnorm", "fused_softmax_xent",
+                 "fused_softmax_xent_bwd"):
+        assert launches.get("kernels.launch." + name, 0) > 0, name

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, nothing of ``mxnet_tpu``, no silent CPU.
 
 * An AST scan of every module of ``mxnet_tpu_torch/`` and of the scripts
-  that run it on the card (``chip_smoke.py`` and its probes) finds no
+  that run it on the card (``chip_smoke.py``, its probes and
+  ``mesh_probe.py``) finds no
   import of ``jax`` or ``mxnet_tpu``.
 * A child process in which ``jax`` and ``mxnet_tpu`` cannot be imported
   imports the port and serves two tokens on the CPU; another quantizes a
@@ -11,10 +12,14 @@
   ``lr_scheduler``, ``callback`` and ``random`` all loaded); another runs
   the fleet plane (registry, worker, gateway, SimFleet, the kernel front
   door, ``python -m mxnet_tpu_torch.fleet_worker``'s entry) with both
-  sanitizers armed from the environment.
+  sanitizers armed from the environment; two gloo ranks started by the
+  port's launcher run the dryrun's legs (``parallel``, ``kvstore``,
+  ``_dist``, ``tools.launch``, ``tools.dryrun``).
 * Without a CUDA device, the entry points refuse to start unless the
   caller asks for the CPU (``device="cpu"``, or ``ctx=cpu()`` on the
-  symbolic path).
+  symbolic path); so do ``make_mesh`` and a rank's ``init_from_env``
+  (``--platform cpu`` / ``device="cpu"``), and ``MXNET_TPU_LOCAL_DEVICES``
+  above 1 is refused.
 """
 import ast
 import json
@@ -43,7 +48,7 @@ def _port_files():
     files = sorted((REPO / "mxnet_tpu_torch").rglob("*.py"))
     return files + [REPO / name for name in (
         "chip_smoke.py", "module_gate_probe.py", "int8_plan_probe.py",
-        "rmsnorm_plan_probe.py")]
+        "rmsnorm_plan_probe.py", "mesh_probe.py")]
 
 
 def _imported_roots(path):
@@ -640,3 +645,96 @@ def test_fleet_plane_runs_with_jax_unimportable():
     assert res["sim"] == res["n"] > 0
     assert res["impl"] == "reference"
     assert res["races"] == 0 and res["inversions"] == 0
+
+
+_BLOCK = r"""
+import importlib.abc, sys
+
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, _Block())
+"""
+
+_RANK_DRYRUN = _BLOCK + r"""
+import json, os, torch
+torch.set_num_threads(1)
+import mxnet_tpu_torch as mt
+from mxnet_tpu_torch.tools import dryrun
+legs = [rec["leg"] for rec in dryrun.run()]
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))
+mods = sorted(m for m in sys.modules if m.startswith("mxnet_tpu_torch."))
+with open(os.path.join(sys.argv[1], "rank%d.json" % mt._dist.rank()),
+          "w") as f:
+    json.dump({"legs": legs, "loaded": loaded, "modules": mods}, f)
+"""
+
+
+def test_dryrun_ranks_run_with_jax_unimportable(tmp_path):
+    from mxnet_tpu_torch.tools.launch import launch_local
+
+    codes = launch_local(2, [sys.executable, "-c", _RANK_DRYRUN,
+                             str(tmp_path)], platform="cpu", timeout=120,
+                         env=dict(subprocess_env(), OMP_NUM_THREADS="1"))
+    assert codes == [0, 0]
+    for r in range(2):
+        res = json.loads((tmp_path / ("rank%d.json" % r)).read_text())
+        assert res["loaded"] == []
+        assert res["legs"] == ["dp/sp/tp", "dp/fsdp/tp", "pp", "ep"]
+        for name in ("_dist", "kvstore", "parallel.mesh",
+                     "parallel.collectives", "parallel.sharding",
+                     "parallel.ring_attention", "parallel.pipeline",
+                     "parallel.moe", "tools.dryrun"):
+            assert "mxnet_tpu_torch." + name in res["modules"], name
+
+
+_NO_CARD = _BLOCK + r"""
+import json, os, torch
+torch.cuda.is_available = lambda: False
+case = sys.argv[1]
+try:
+    if case.startswith("env"):
+        os.environ.update(MXNET_TPU_COORDINATOR="localhost:%s" % sys.argv[2],
+                          MXNET_TPU_NUM_WORKERS="1", MXNET_TPU_WORKER_ID="0")
+        if case == "env_local_devices":
+            os.environ.update(MXNET_TPU_PLATFORM="cpu",
+                              MXNET_TPU_LOCAL_DEVICES="2")
+        if case == "env_cpu":
+            os.environ["MXNET_TPU_PLATFORM"] = "cpu"
+        import mxnet_tpu_torch as mt
+        out = {"ok": mt._dist.world_size(), "dev": str(mt._dist.device())}
+    else:
+        from mxnet_tpu_torch.parallel import make_mesh
+        m = make_mesh(dp=1, device=None if case == "mesh" else "cpu")
+        out = {"ok": m.size(), "dev": m.device_type}
+except Exception as e:
+    out = {"error": type(e).__name__, "msg": str(e)}
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.parametrize("case,want", [
+    ("mesh", {"error": "RuntimeError"}),
+    ("mesh_cpu", {"ok": 1, "dev": "cpu"}),
+    ("env", {"error": "RuntimeError"}),
+    ("env_cpu", {"ok": 1, "dev": "cpu"}),
+    ("env_local_devices", {"error": "ValueError"}),
+])
+def test_mesh_and_ranks_refuse_the_cpu_unless_asked(case, want):
+    from mxnet_tpu_torch.tools.launch import _free_port
+
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_CARD, case, str(_free_port())],
+        capture_output=True, text=True, timeout=120, cwd=REPO,
+        env=subprocess_env())
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert {k: res[k] for k in want} == want, res
+    if "error" in want and case != "env_local_devices":
+        assert "no CUDA device" in res["msg"]
+    if case == "env_local_devices":
+        assert "one rank drives one device" in res["msg"]

@@ -150,9 +150,18 @@ class TestWeights:
         assert abs(std * np.sqrt(128) - 1.0) < 0.1   # N(0,1)/sqrt(fan_in)
 
     def test_moe_refused(self):
-        with pytest.raises(NotImplementedError):
-            TransformerLM(TransformerConfig(use_moe=True, **{
-                k: v for k, v in _cfg_kw("float32").items()}), device="cpu")
+        """MoE trains since the mesh slice; the paged decode refuses it,
+        as the JAX package's does."""
+        m = TransformerLM(TransformerConfig(use_moe=True, **{
+            k: v for k, v in _cfg_kw("float32").items()}), device="cpu")
+        kp, vp = m.init_kv_pages(4, 8)
+        with pytest.raises(NotImplementedError, match="MoE"):
+            m.prefill(kp, vp, torch.zeros((1, 8), dtype=torch.long), 3,
+                      torch.tensor([1, 2, 3, 0]))
+        with pytest.raises(NotImplementedError, match="MoE"):
+            m.decode_step(kp, vp, torch.zeros(1, dtype=torch.long),
+                          torch.tensor([[1, 2, 3, 0]]), torch.tensor([3]),
+                          torch.tensor([True]))
 
 
 # ---------------------------------------------------------------------------

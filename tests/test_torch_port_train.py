@@ -225,5 +225,20 @@ def test_value_and_grad_takes_a_params_dict():
 
 
 def test_sharding_rules_not_ported():
-    with pytest.raises(NotImplementedError):
-        make_train_step(_port_model("float32", flash=False), rules=object())
+    """``rules`` is ported with the mesh (tests/test_torch_port_parallel*.py
+    hold it on 4 ranks); outside a mesh it changes nothing, as a JAX
+    sharding constraint outside a mesh does not: the same bits as the
+    step without it."""
+    from mxnet_tpu_torch.models.transformer import default_rules
+
+    m = _port_model("float32", flash=False)
+    toks, tgts = (torch.from_numpy(a) for a in _batch())
+    out = []
+    for rules in (None, default_rules()):
+        P = {k: v.detach().clone() for k, v in m.named_parameters()}
+        V = {k: torch.zeros_like(v) for k, v in P.items()}
+        out.append(make_train_step(m, rules=rules)(P, V, toks, tgts))
+    (p0, v0, l0), (p1, v1, l1) = out
+    assert torch.equal(l0, l1)
+    for k in p0:
+        assert torch.equal(p0[k], p1[k]) and torch.equal(v0[k], v1[k])
