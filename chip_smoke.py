@@ -31,6 +31,10 @@ on the card:
   and launched from a ``CustomOp`` (``rtc_softmax``) on that path: in
   ``example/numpy-ops/custom_softmax.py``'s training and as ResNet-50's
   head;
+* recurrent models — the LSTM language model (example/rnn/word_lm.py and
+  bucketing.py, through ``Module`` and ``BucketingModule``) and Gluon's
+  recurrent layers (example/bi-lstm-sort), on cuDNN's fused RNN; and
+  BASELINE.json's LeNet MNIST config through ``Module.fit``;
 * imperative training — ``autograd`` and Gluon: bench.py's train leg
   (``gluon.model_zoo.vision.resnet50_v1``, batch 128, bf16 with f32
   master weights, hybridized, ``gluon.contrib.FusedTrainStep``) and
@@ -49,9 +53,10 @@ Run from the root of the repository, with no arguments::
 
 ``--profile`` adds a last phase that traces one long prefill, a few decode
 iterations, one training step of each training configuration, one fp32
-and one int8 ResNet-50 forward, one ResNet-50 Module training step and
-one Gluon ``FusedTrainStep`` at the gluon_train settings with
-``torch.profiler`` (where the device time goes).
+and one int8 ResNet-50 forward, one ResNet-50 Module training step, one
+Gluon ``FusedTrainStep`` at the gluon_train settings and one word_lm step
+(with and without its Perplexity update) with ``torch.profiler`` (where
+the device time goes).
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -230,6 +235,25 @@ Phases, in order; any failure raises and exits non-zero:
 14. gluon_step_card_vs_cpu — one Gluon step at batch 4: float64 on the
    card against the CPU within ``MODULE_CHECK_REL_F64``, f32 hybridized
    against not on the card within ``GLUON_HYBRID_REL``;
+14b. the recurrent phases and the MNIST config (no hand-written kernel
+   is on them; each gates that none launched): word_lm —
+   example/rnn/word_lm.py's graph through ``Module`` at MXNet's word_lm
+   medium width (vocab 10000, 650 / 650, 2 layers, bptt 35, batch 32;
+   see LM_*): ms a step, tokens/s, peak memory, perplexity; gates: cuDNN's
+   RNN (``CudnnRnnBackward0``, and no plain loop) in the graph's backward,
+   ``rnn_cudnn`` against ``rnn_reference`` at the phase's shapes (f32,
+   TF32 off; forward, hy / cy and every gradient), timed beside
+   ``torch.nn.LSTM`` on the same weights in one buffer, one float64
+   ``Module`` step at full width on the card against the CPU;
+   bucketing — bucketing.py's sym_gen under ``BucketingModule`` over its
+   four buckets at word_lm's width: each bucket bound once, every switch
+   carrying the updated parameters, one shared optimizer, a float64 batch
+   per bucket on the card against the CPU; gluon_rnn —
+   bi-lstm-sort's SortNet (a bidirectional ``gluon.rnn.LSTM``) trained
+   with Adam: accuracy per epoch rising, cuDNN in the backward, the
+   hybridized layer equal to eager; mnist — train_mnist.py's mlp and
+   lenet through ``Module.fit`` for one epoch: img/s, held-out accuracy
+   above chance, a float64 step on the card against the CPU;
 15. racecheck — bench.py's racecheck leg (see RACECHECK_*): a tracked
    counter bumped under a held lock, 100 000 ops, 5 interleaved off/on
    pairs, the field seeded into shared-modified from a second thread:
@@ -567,6 +591,61 @@ SERVE_HEDGE_MS = 50
 # median per-pair ratio
 SENTINEL_WIN = 15
 SENTINEL_PAIRS = 9
+
+# The recurrent phases: BASELINE.json's "LSTM language model (example/rnn,
+# cuDNN RNN op replacement)".  The fused RNN op runs cuDNN's RNN through
+# PyTorch (mxnet_tpu_torch/ops/rnn.py); no hand-written kernel is on these
+# paths, and each phase checks that none launched.
+# word_lm: example/rnn/word_lm.py's graph (Embedding -> 2-layer sym.RNN lstm
+# -> reshape -> FullyConnected -> SoftmaxOutput) at MXNet's word_lm medium
+# PTB setting: vocab 10000, emsize 650, nhid 650, 2 layers, bptt 35, batch
+# 32; the example's SGD (lr 1.0, momentum 0.9), Xavier with the graph's own
+# Normal(0.05) / Zero variable inits, seeded uniform tokens.  The
+# reference's dropout 0.5 and weight tying are not in the repo's graph and
+# stay out.  LM_WARM steps, then LM_TIMED timed ones, each ending in a
+# synchronize (Perplexity's host copy timed apart).
+LM = dict(vocab=10000, emsize=650, nhid=650, nlayers=2)
+LM_BPTT, LM_BATCH = 35, 32
+LM_SGD = {"learning_rate": 1.0, "momentum": 0.9}
+LM_WARM, LM_TIMED = 2, 10
+# cuDNN (rnn_cudnn) against the plain time loop (rnn_reference) on the card
+# at word_lm's RNN shapes, f32 with TF32 off: outputs, hy and cy within
+# RNN_FWD_REL of each tensor's largest entry, the gradients of the data,
+# the packed parameters and both states within RNN_GRAD_REL of theirs (the
+# same f32 function, its products summed in another order)
+RNN_FWD_REL = 1e-5
+RNN_GRAD_REL = 1e-4
+# bucketing: example/rnn/bucketing.py's sym_gen (a 1-layer LSTM) over its
+# buckets 8 / 16 / 24 / 32 (sequence keys 7 / 15 / 23 / 31, default 31) at
+# word_lm's width and batch, its SGD (lr 0.2, momentum 0.9) and
+# Perplexity(ignore_label=0), over BUCKET_PLAN's keys (each bucket twice)
+BUCKET_KEYS = (7, 15, 23, 31)
+BUCKET_PLAN = (15, 7, 31, 23, 7, 23, 15, 31)
+BUCKET_SGD = {"learning_rate": 0.2, "momentum": 0.9}
+# gluon_rnn: example/bi-lstm-sort/sort_io.py's SortNet (Embedding(10, 32)
+# -> bidirectional gluon.rnn.LSTM(64), NTC -> Dense(10, flatten=False)),
+# its make_data (6 digits to sort; 256 validation sequences from seed 1),
+# 2048 examples in batches of 64, Adam lr 3e-3, SoftmaxCrossEntropyLoss,
+# Xavier, for SORT_EPOCHS epochs (the example runs 12): the per-position
+# validation accuracy after each epoch must rise
+SORT_VOCAB, SORT_SEQ = 10, 6
+SORT_EXAMPLES, SORT_BATCH, SORT_LR = 2048, 64, 3e-3
+SORT_EPOCHS = 4
+# mnist: train_mnist.py (BASELINE.json's "LeNet MNIST via Module"):
+# symbols/mlp.py (its default network) and symbols/lenet.py through
+# Module.fit, batch 64, fit.py's SGD (lr 0.05, momentum 0.9, wd 1e-4) and
+# Module.fit's Uniform(0.01), on common/data.py's seeded synthetic 1x28x28
+# set of 2048 (256 held out, as its get_iters holds out an eighth), for
+# MNIST_EPOCHS epochs (train_mnist.py runs 20): from Uniform(0.01) the
+# JAX package's own train_mnist.py is still at chance after one epoch
+# (held-out 0.152 mlp, 0.078 lenet on the CPU) and leaves it in the
+# second or third, so the best held-out accuracy of the epochs must exceed
+# MNIST_MIN_ACC (chance is 0.1)
+MNIST_BATCH = 64
+MNIST_EXAMPLES = 2048
+MNIST_EPOCHS = 4
+MNIST_SGD = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
+MNIST_MIN_ACC = 0.3
 
 # User code: the kernels a user of mx.rtc writes, and the CustomOps over
 # them.  One CTA per row; max and sum in f32 by warp shuffles.
@@ -2901,12 +2980,14 @@ def _compare_tensors(got, want, tol):
                 "cancelled": {n: errs[n] for n in sorted(small)}}
 
 
-def _module_step(mx, net, ctx, args, auxs, x, y, dtype="float32"):
+def _module_step(mx, net, ctx, args, auxs, x, y, dtype="float32",
+                 optimizer_params=None):
     """One ``forward_backward`` and ``update`` of a fresh Module on ``ctx``
     from numpy ``args`` / ``auxs``: the gradients, the moving statistics
     after the step and the update ``w_new - w_old``, as numpy.  With
     ``dtype="float64"`` every array of the bound executor, the inputs and
-    so the optimizer's state are float64."""
+    so the optimizer's state are float64.  The SGD is module_train's
+    unless ``optimizer_params`` are given."""
     import torch
     from mxnet_tpu_torch.model import params_from_numpy
 
@@ -2920,9 +3001,11 @@ def _module_step(mx, net, ctx, args, auxs, x, y, dtype="float32"):
                 arr._set_data(arr.data.double())
     a, b = params_from_numpy(args, auxs, ctx=ctx)
     mod.init_params(arg_params=a, aux_params=b)      # cast into the bound
-    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(
-        MODULE_SGD, lr_scheduler=mx.lr_scheduler.MultiFactorScheduler(
-            [30 * MODULE_EPOCH_SIZE, 60 * MODULE_EPOCH_SIZE], 0.1)))
+    if optimizer_params is None:
+        optimizer_params = dict(
+            MODULE_SGD, lr_scheduler=mx.lr_scheduler.MultiFactorScheduler(
+                [30 * MODULE_EPOCH_SIZE, 60 * MODULE_EPOCH_SIZE], 0.1))
+    mod.init_optimizer(optimizer="sgd", optimizer_params=optimizer_params)
     x, y = (mx.nd.NDArray(torch.from_numpy(v.astype(dtype)).to(
         ctx.torch_device())) for v in (x, y))
     mod.forward_backward(mx.io.DataBatch([x], [y]))
@@ -4033,6 +4116,24 @@ def phase_profile(model):
         _profile_window(name, fn)
 
 
+def phase_profile_word_lm(lm):
+    """``--profile`` only: one word_lm step (forward_backward and update)
+    at its batch, and the same step with the example's per-step
+    ``update_metric`` (Perplexity's host copy of the softmax)."""
+    mod, batch, metric = lm["module"], lm["batch"], lm["metric"]
+
+    def step():
+        mod.forward_backward(batch)
+        mod.update()
+
+    def step_and_metric():
+        step()
+        mod.update_metric(metric, batch.label)
+
+    _profile_window("word_lm_step_b%d_t%d" % (LM_BATCH, LM_BPTT), step)
+    _profile_window("word_lm_step_and_perplexity", step_and_metric)
+
+
 def phase_profile_module(trained):
     """``--profile`` only: one ResNet-50 training step (forward_backward
     and update) of the module_train phase's Module at batch 32: where the
@@ -4700,6 +4801,608 @@ def phase_gateway(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the recurrent phases and BASELINE.json's LeNet MNIST config
+# ---------------------------------------------------------------------------
+def _word_lm_symbol(mx, vocab, emsize, nhid, nlayers):
+    """example/rnn/word_lm.py's graph as its main() builds it (with one
+    layer, bucketing.py's sym_gen), through the port's ``mx.sym``."""
+    data = mx.sym.Variable("data")        # (bptt, batch)
+    label = mx.sym.Variable("softmax_label")
+    embed = mx.sym.Embedding(data, input_dim=vocab, output_dim=emsize,
+                             name="embed")
+    rnn_params = mx.sym.Variable("lstm_parameters",
+                                 init=mx.init.Normal(0.05))
+    state = mx.sym.Variable("lstm_state", init=mx.init.Zero())
+    state_cell = mx.sym.Variable("lstm_state_cell", init=mx.init.Zero())
+    rnn = mx.sym.RNN(embed, parameters=rnn_params, state=state,
+                     state_cell=state_cell, state_size=nhid,
+                     num_layers=nlayers, mode="lstm", name="lstm")
+    pred = mx.sym.reshape(rnn, shape=(-1, nhid))
+    pred = mx.sym.FullyConnected(pred, num_hidden=vocab, name="decoder")
+    return mx.sym.SoftmaxOutput(pred, mx.sym.reshape(label, shape=(-1,)),
+                                name="softmax")
+
+
+def _lm_tokens(n, seq, seed, low=0):
+    """``n`` (data, label) pairs of seeded uniform tokens, (seq, batch)
+    each, the label the next token."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(low, LM["vocab"], (n, seq + 1, LM_BATCH)).astype(
+        np.float32)
+    return [(t[:-1], t[1:]) for t in toks]
+
+
+def _lm_batch(mx, ctx, x, y, key=None):
+    kw = {}
+    if key is not None:
+        kw = dict(bucket_key=key,
+                  provide_data=[mx.io.DataDesc("data", x.shape)],
+                  provide_label=[mx.io.DataDesc("softmax_label", y.shape)])
+    return mx.io.DataBatch([mx.nd.array(x, ctx=ctx)],
+                           [mx.nd.array(y, ctx=ctx)], **kw)
+
+
+def _autograd_names(tensors):
+    """The type names of every autograd node reachable from ``tensors``."""
+    seen, keep, names = set(), [], set()
+    stack = [t.grad_fn for t in tensors if t.grad_fn is not None]
+    while stack:
+        fn = stack.pop()
+        if fn is None or id(fn) in seen:
+            continue
+        seen.add(id(fn))
+        keep.append(fn)                   # ids stay unique while kept
+        names.add(type(fn).__name__)
+        stack.extend(f for f, _ in fn.next_functions)
+    return names
+
+
+def _held_bytes():
+    """Device bytes earlier phases still hold, their cyclic garbage
+    collected first: a phase's own peak is the peak above this."""
+    import gc
+    import torch
+
+    gc.collect()
+    return torch.cuda.memory_allocated()
+
+
+def _no_kernel_launched(phase, launches):
+    _check(not any(launches.values()), "%s: a hand-written kernel launched "
+           "on a path that has none: %s" % (phase, launches))
+
+
+def _rnn_cudnn_case(gen, T, N, I, H, layers):
+    """``ops.rnn.rnn_cudnn`` (cuDNN through PyTorch, the packed vector's
+    views copied into cuDNN's buffer each call) against ``rnn_reference``
+    (the plain time loop) on the card at one LSTM shape, f32 with TF32
+    off: each tensor's error over its largest entry, forward and backward;
+    the device ms of a forward + backward of each, of the forward alone,
+    and of ``torch.nn.LSTM`` holding the same weights in its flat buffer
+    (the library call: the difference is the weight copy); the autograd
+    node names of the cuDNN output; the f32 bound of the fused RNN."""
+    import torch
+    from mxnet_tpu_torch.ops import rnn as trnn
+
+    dev = gen.device
+    size = trnn.rnn_param_size("lstm", I, H, layers, False)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    inputs = [rnd(T, N, I), rnd(size, scale=H ** -0.5),
+              rnd(layers, N, H, scale=0.5), rnd(layers, N, H, scale=0.5)]
+    inputs = [t.requires_grad_() for t in inputs]
+    kw = dict(mode="lstm", state_size=H, num_layers=layers)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = trnn.rnn_cudnn(*inputs, **kw)
+        cts = [rnd(*o.shape) for o in got]
+        g_got = torch.autograd.grad(got, inputs, cts)
+        ref = trnn.rnn_reference(*inputs, **kw)
+        g_ref = torch.autograd.grad(ref, inputs, cts)
+
+        def rel(a, b):
+            return float((a.detach() - b.detach()).abs().max()
+                         / b.detach().abs().max().clamp_min(1e-30))
+
+        fwd = {n: rel(a, b) for n, a, b in zip(("out", "hy", "cy"), got,
+                                                ref)}
+        grad = {n: rel(a, b) for n, a, b in zip(
+            ("data", "parameters", "state", "state_cell"), g_got, g_ref)}
+        names = sorted(_autograd_names([got[0]]))
+        lib = torch.nn.LSTM(I, H, layers).to(dev)
+        w, b = trnn._unpack(inputs[1].detach(), "lstm", I, H, layers, False)
+        with torch.no_grad():
+            for layer in range(layers):
+                for attr, val in zip(("weight_ih", "weight_hh", "bias_ih",
+                                      "bias_hh"), (*w[layer], *b[layer])):
+                    getattr(lib, "%s_l%d" % (attr, layer)).copy_(val)
+        x, h0, c0 = inputs[0], inputs[2], inputs[3]
+        lib_out = lib(x, (h0, c0))
+        lib_diff = float((lib_out[0] - got[0]).detach().abs().max())
+        lib_leaves = [x, h0, c0] + list(lib.parameters())
+
+        def cudnn_fb():
+            torch.autograd.grad(trnn.rnn_cudnn(*inputs, **kw), inputs, cts)
+
+        def plain_fb():
+            torch.autograd.grad(trnn.rnn_reference(*inputs, **kw), inputs,
+                                cts)
+
+        def lib_fb():
+            out, (hy, cy) = lib(x, (h0, c0))
+            torch.autograd.grad([out, hy, cy], lib_leaves, cts)
+
+        detached = [t.detach() for t in inputs]
+
+        def cudnn_fwd():
+            with torch.no_grad():
+                trnn.rnn_cudnn(*detached, **kw)
+
+        def lib_fwd():
+            with torch.no_grad():
+                lib(detached[0], (detached[2], detached[3]))
+
+        ms = _time_eager_ms(cudnn_fb, reps=10)
+        plain_ms = _time_eager_ms(plain_fb, reps=3)
+        library_ms = _time_eager_ms(lib_fb, reps=10)
+        fwd_ms = _time_eager_ms(cudnn_fwd, reps=10)
+        lib_fwd_ms = _time_eager_ms(lib_fwd, reps=10)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    flops = 0
+    for layer in range(layers):
+        flops += 2 * T * N * 4 * H * ((I if layer == 0 else H) + H)
+    flops *= 3                       # the backward's two products per one
+    nbytes = 4 * 2 * sum(t.numel() for t in inputs + list(got))
+    bound_ms, bound_by = _bound(flops, nbytes, "float32")
+    return {"shape": [T, N, I, H, layers], "dtype": "float32", "tf32": False,
+            "fwd_rel_err": fwd, "grad_rel_err": grad,
+            "fwd_ok": max(fwd.values()) <= RNN_FWD_REL,
+            "grad_ok": max(grad.values()) <= RNN_GRAD_REL,
+            "autograd_nodes": names, "nn_lstm_max_abs_diff": lib_diff,
+            "fwd_bwd_ms": ms, "plain_fwd_bwd_ms": plain_ms,
+            "library_fwd_bwd_ms": library_ms, "fwd_ms": fwd_ms,
+            "library_fwd_ms": lib_fwd_ms,
+            "weight_copy_ms": fwd_ms - lib_fwd_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _f64_card_vs_cpu(mx, sym, args, x, y, optimizer_params):
+    """One ``forward_backward`` and ``update`` in float64 on the card and on
+    the CPU from the same parameters: gradients and updates within
+    ``MODULE_CHECK_REL_F64``.  Returns ``(ok, report)``."""
+    step = {where: _module_step(mx, sym, ctx, args, {}, x, y, "float64",
+                                dict(optimizer_params))
+            for where, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu()))}
+    ok, report = True, {}
+    for i, what in ((0, "grad"), (2, "update")):
+        good, report[what] = _compare_tensors(step["card"][i],
+                                              step["cpu"][i],
+                                              MODULE_CHECK_REL_F64)
+        ok = ok and good
+    return ok, report
+
+
+def phase_word_lm(dev):
+    """example/rnn/word_lm.py's LSTM language model on the card at word_lm
+    medium width (see LM_*): ms a step, tokens/s, peak memory, perplexity;
+    gates: cuDNN's RNN in the backward, cuDNN against the plain loop,
+    float64 card against CPU.  Returns the record with the module, a batch
+    and the metric, for ``--profile``."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops.kernels import common
+
+    t0 = time.perf_counter()
+    held = _held_bytes()
+    ctx = mx.gpu(0)
+    sym = _word_lm_symbol(mx, **LM)
+    mod = mx.mod.Module(sym, data_names=["data"],
+                        label_names=["softmax_label"], context=ctx)
+    mod.bind(data_shapes=[("data", (LM_BPTT, LM_BATCH))],
+             label_shapes=[("softmax_label", (LM_BPTT, LM_BATCH))],
+             for_training=True)
+    mx.random.seed(0)
+    mod.init_params(mx.init.Xavier())
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(LM_SGD))
+    init_args = {n: v.asnumpy() for n, v in mod.get_params()[0].items()}
+    tokens = _lm_tokens(LM_WARM + LM_TIMED, LM_BPTT, seed=0)
+    batches = [_lm_batch(mx, ctx, x, y) for x, y in tokens]
+    metric = mx.metric.Perplexity(ignore_label=None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_counts()
+    step_ms, metric_ms = [], []
+    for b in batches:
+        t1 = time.perf_counter()
+        mod.forward_backward(b)
+        mod.update()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        mod.update_metric(metric, b.label)
+        step_ms.append((t2 - t1) * 1e3)
+        metric_ms.append((time.perf_counter() - t2) * 1e3)
+    launches = common.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    own_gb = peak_gb - held / 1e9
+    tf32 = {"cudnn": torch.backends.cudnn.allow_tf32,
+            "matmul": torch.backends.cuda.matmul.allow_tf32}
+    ppl = metric.get()[1]
+    # (i) the RNN node's backward is cuDNN's: the graph of a training
+    # forward through the executor, read before its backward
+    mod.forward(batches[0], is_train=True)
+    names = _autograd_names(mod._exec._pending[0])
+    mod.backward()
+    # (ii) cuDNN against the plain loop at the phase's shapes
+    case = _rnn_cudnn_case(torch.Generator(device="cuda").manual_seed(14),
+                           LM_BPTT, LM_BATCH, LM["emsize"], LM["nhid"],
+                           LM["nlayers"])
+    # (iii) one Module step in float64, card against CPU, at full width
+    t1 = time.perf_counter()
+    f64_ok, f64_report = _f64_card_vs_cpu(mx, sym, init_args, *tokens[0],
+                                          LM_SGD)
+    f64_s = time.perf_counter() - t1
+    timed = step_ms[LM_WARM:]
+    med = statistics.median(timed)
+    rec = {
+        "phase": "word_lm", "device": dev["name"], "nvidia_smi": dev["smi"],
+        "config": dict(LM, bptt=LM_BPTT, batch=LM_BATCH), "sgd": LM_SGD,
+        "params": int(sum(v.size for v in init_args.values())),
+        "tf32_during_steps": tf32, "warm_steps": LM_WARM,
+        "step_ms": timed, "median_step_ms": med,
+        "tokens_per_s": LM_BPTT * LM_BATCH * 1e3 / med,
+        "metric_ms_median": statistics.median(metric_ms),
+        "peak_mem_gb": peak_gb, "peak_above_start_gb": own_gb,
+        "perplexity": ppl,
+        "rnn_backward_nodes": sorted(n for n in names if "Rnn" in n),
+        "launch_counts": launches, "cudnn_vs_plain": case,
+        "float64_card_vs_cpu": {"tol": MODULE_CHECK_REL_F64, "ok": f64_ok,
+                                "report": f64_report, "seconds": f64_s},
+        "seconds": time.perf_counter() - t0}
+    _emit(rec)
+    _no_kernel_launched("word_lm", launches)
+    _check("CudnnRnnBackward0" in names and not names & {
+        "SigmoidBackward0", "TanhBackward0"}, "word_lm: the RNN's backward "
+        "is not cuDNN's alone: %s" % sorted(names))
+    _check("CudnnRnnBackward0" in case["autograd_nodes"],
+           "word_lm: rnn_cudnn's graph %s" % case["autograd_nodes"])
+    _check(case["fwd_ok"] and case["grad_ok"], "word_lm: cuDNN differs "
+           "from the plain loop: %s %s (limits %g, %g)" % (
+               case["fwd_rel_err"], case["grad_rel_err"], RNN_FWD_REL,
+               RNN_GRAD_REL))
+    _check(f64_ok, "word_lm: the float64 step on the card differs from "
+           "the CPU's: %s" % f64_report)
+    _check(np.isfinite(ppl) and ppl > 1.0, "word_lm: perplexity %s" % ppl)
+    return dict(rec, module=mod, batch=batches[0], metric=metric)
+
+
+def phase_bucketing(dev):
+    """example/rnn/bucketing.py's sym_gen under BucketingModule on the
+    card at word_lm's width (see BUCKET_*): each bucket binds once, a
+    switch carries the updated parameters, and one float64 batch per
+    bucket on the card matches the CPU."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops.kernels import common
+
+    t0 = time.perf_counter()
+    held = _held_bytes()
+    ctx = mx.gpu(0)
+    width = dict(LM, nlayers=1)
+
+    def sym_gen(bucket_key):
+        return _word_lm_symbol(mx, **width), ("data",), ("softmax_label",)
+
+    binds = []
+    bind = mx.mod.Module.bind
+
+    def counted_bind(self, data_shapes, *a, **kw):
+        binds.append(tuple(dict(data_shapes)["data"]))
+        return bind(self, data_shapes, *a, **kw)
+
+    default = max(BUCKET_KEYS)
+    mod = mx.mod.BucketingModule(sym_gen, default_bucket_key=default,
+                                 context=ctx)
+    mx.mod.Module.bind = counted_bind
+    try:
+        mod.bind(data_shapes=[mx.io.DataDesc("data", (default, LM_BATCH))],
+                 label_shapes=[mx.io.DataDesc("softmax_label",
+                                              (default, LM_BATCH))])
+        mx.random.seed(0)
+        mod.init_params(mx.init.Xavier())
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params=dict(BUCKET_SGD))
+        metric = mx.metric.Perplexity(ignore_label=0)
+        plan = [(key, _lm_batch(mx, ctx, x, y, key=key)) for i, key in
+                enumerate(BUCKET_PLAN)
+                for x, y in _lm_tokens(1, key, seed=20 + i, low=1)]
+        carried, step_ms, execs = [], [], {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        common.reset_counts()
+        for key, b in plan:
+            if key != mod._curr_bucket_key:
+                before = {n: v.asnumpy()
+                          for n, v in mod.get_params()[0].items()}
+                mod.switch_bucket(key, b.provide_data, b.provide_label)
+                after = mod.get_params()[0]
+                carried.append(all(np.array_equal(after[n].asnumpy(), v)
+                                   for n, v in before.items()))
+            t1 = time.perf_counter()
+            mod.forward_backward(b)
+            mod.update()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            mod.update_metric(metric, b.label)
+            execs.setdefault(key, set()).add(id(mod._curr_module._exec))
+        launches = common.launch_counts()
+    finally:
+        mx.mod.Module.bind = bind
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    own_gb = peak_gb - held / 1e9
+    ppl = metric.get()[1]
+    shared = all(m._updater is mod._curr_module._updater
+                 for m in mod._buckets.values())
+    # one float64 batch per bucket, card against CPU, from the first
+    # bucket's parameters after the run
+    args = {n: v.asnumpy() for n, v in mod.get_params()[0].items()}
+    t1 = time.perf_counter()
+    f64 = {}
+    for key in BUCKET_KEYS:
+        x, y = _lm_tokens(1, key, seed=40 + key, low=1)[0]
+        f64[key] = _f64_card_vs_cpu(mx, sym_gen(key)[0], args, x, y,
+                                    BUCKET_SGD)
+    f64_s = time.perf_counter() - t1
+    rec = {
+        "phase": "bucketing", "device": dev["name"],
+        "nvidia_smi": dev["smi"],
+        "config": dict(width, batch=LM_BATCH, buckets=list(BUCKET_KEYS)),
+        "plan": list(BUCKET_PLAN), "step_ms": step_ms,
+        "binds": [list(s) for s in binds], "switches": len(carried),
+        "params_carried_on_switch": carried,
+        "optimizer_shared": shared,
+        "num_update": mod._curr_module._optimizer.num_update,
+        "peak_mem_gb": peak_gb, "peak_above_start_gb": own_gb,
+        "perplexity": ppl,
+        "launch_counts": launches,
+        "float64_card_vs_cpu": {"tol": MODULE_CHECK_REL_F64,
+                                "ok": {k: v[0] for k, v in f64.items()},
+                                "report": {k: v[1] for k, v in f64.items()},
+                                "seconds": f64_s},
+        "seconds": time.perf_counter() - t0}
+    _emit(rec)
+    _no_kernel_launched("bucketing", launches)
+    _check(sorted(binds) == sorted((k, LM_BATCH) for k in BUCKET_KEYS)
+           and all(len(v) == 1 for v in execs.values()),
+           "bucketing: binds %s, executors %s" % (binds, execs))
+    _check(len(carried) >= len(BUCKET_KEYS) and all(carried),
+           "bucketing: a switch lost the updated parameters: %s" % carried)
+    _check(shared and rec["num_update"] == len(BUCKET_PLAN),
+           "bucketing: optimizer shared %s, %d updates"
+           % (shared, rec["num_update"]))
+    _check(all(v[0] for v in f64.values()), "bucketing: float64 card vs "
+           "CPU: %s" % {k: v[1] for k, v in f64.items()})
+    _check(np.isfinite(ppl), "bucketing: perplexity %s" % ppl)
+    return rec
+
+
+def _sort_data(n, seed):
+    """bi-lstm-sort's make_data: ``n`` sequences of SORT_SEQ digits and
+    the same digits sorted."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    x = rng.randint(0, SORT_VOCAB, (n, SORT_SEQ)).astype(np.float32)
+    return x, np.sort(x, axis=1)
+
+
+def _sort_net(mx):
+    """bi-lstm-sort's SortNet (sort_io.py:34-47) over the port's Gluon."""
+    from mxnet_tpu_torch import gluon
+
+    class SortNet(gluon.nn.Block):
+        def __init__(self, hidden=64, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.embed = gluon.nn.Embedding(SORT_VOCAB, 32)
+                self.rnn = gluon.rnn.LSTM(hidden, bidirectional=True,
+                                          layout="NTC")
+                self.head = gluon.nn.Dense(SORT_VOCAB, flatten=False)
+
+        def forward(self, x):
+            return self.head(self.rnn(self.embed(x)))
+
+    return SortNet()
+
+
+def phase_gluon_rnn(dev):
+    """bi-lstm-sort's training on the card (see SORT_*): accuracy per
+    epoch, ms a step, peak memory; gates: cuDNN's RNN in the backward,
+    the accuracy rising, and the LSTM layer hybridized equal to eager."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.ops.kernels import common
+
+    t0 = time.perf_counter()
+    held = _held_bytes()
+    ctx = mx.gpu(0)
+    X, Y = _sort_data(SORT_EXAMPLES, 0)
+    Xv, Yv = _sort_data(256, 1)
+    mx.random.seed(0)
+    net = _sort_net(mx)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": SORT_LR})
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    batches = [(mx.nd.array(X[s:s + SORT_BATCH], ctx=ctx),
+                mx.nd.array(Y[s:s + SORT_BATCH], ctx=ctx))
+               for s in range(0, SORT_EXAMPLES, SORT_BATCH)]
+    xv = mx.nd.array(Xv, ctx=ctx)
+    accs, step_ms, names = [], [], None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_counts()
+    for _ in range(SORT_EPOCHS):
+        for xb, yb in batches:
+            t1 = time.perf_counter()
+            with autograd.record():
+                logits = net(xb)
+                loss = ce(logits.reshape((-1, SORT_VOCAB)),
+                          yb.reshape((-1,))).mean()
+            if names is None:
+                names = _autograd_names([loss.data])
+            loss.backward()
+            trainer.step(xb.shape[0])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        pred = net(xv).asnumpy().argmax(-1)
+        accs.append(float((pred == Yv).mean()))
+    launches = common.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    own_gb = peak_gb - held / 1e9
+    exact = float((pred == Yv).all(axis=1).mean())
+    # the trained LSTM layer alone, hybridized against eager, on the
+    # validation embeddings with begin_state's zeros
+    emb = net.embed(xv)
+    eager = net.rnn(emb).asnumpy()
+    net.rnn.hybridize()
+    hybrid = net.rnn(emb).asnumpy()
+    hybrid_err = float(np.abs(hybrid - eager).max()
+                       / max(np.abs(eager).max(), 1e-30))
+    med = statistics.median(step_ms[len(batches):])
+    rec = {
+        "phase": "gluon_rnn", "device": dev["name"],
+        "nvidia_smi": dev["smi"], "net": "SortNet (bi-lstm-sort)",
+        "examples": SORT_EXAMPLES, "batch": SORT_BATCH, "lr": SORT_LR,
+        "epochs": SORT_EPOCHS, "accuracy_per_epoch": accs,
+        "exact_sequence": exact, "median_step_ms": med,
+        "examples_per_s": SORT_BATCH * 1e3 / med, "peak_mem_gb": peak_gb,
+        "peak_above_start_gb": own_gb,
+        "rnn_backward_nodes": sorted(n for n in names if "Rnn" in n),
+        "hybrid_vs_eager_rel": hybrid_err, "launch_counts": launches,
+        "seconds": time.perf_counter() - t0}
+    _emit(rec)
+    _no_kernel_launched("gluon_rnn", launches)
+    _check("CudnnRnnBackward0" in names, "gluon_rnn: no cuDNN RNN in the "
+           "backward: %s" % sorted(names))
+    _check(accs[-1] > accs[0] and all(np.isfinite(accs)),
+           "gluon_rnn: the accuracy did not rise: %s" % accs)
+    _check(hybrid_err <= GLUON_HYBRID_REL, "gluon_rnn: hybridized LSTM "
+           "%g from eager" % hybrid_err)
+    return rec
+
+
+def _example_symbol(mx, path, **kwargs):
+    """The example's ``get_symbol`` (``path`` from the repository's root),
+    its import lines dropped, run with the port as its ``mx``."""
+    import ast
+    import pathlib
+
+    src = (pathlib.Path(__file__).resolve().parent / path).read_text()
+    tree = ast.parse(src, path)
+    tree.body = [n for n in tree.body
+                 if not isinstance(n, (ast.Import, ast.ImportFrom))]
+    ns = {"mx": mx}
+    exec(compile(tree, path, "exec"), ns)   # noqa: S102 (the repo's file)
+    return ns["get_symbol"](**kwargs)
+
+
+def _mnist_data(n, seed=0):
+    """common/data.py's _synthetic at train_mnist.py's shape: class-
+    coloured noisy 1x28x28 images and their labels."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    y = rng.randint(0, 10, (n,)).astype(np.float32)
+    palette = np.linspace(-1.0, 1.0, 10)
+    X = rng.normal(0, 0.15, (n, 1, 28, 28)).astype(np.float32)
+    X += palette[y.astype(int)][:, None, None, None]
+    return X, y
+
+
+def phase_mnist(dev):
+    """train_mnist.py's two networks through Module.fit on the card (see
+    MNIST_*): img/s, held-out accuracy after each epoch; gates: it leaves
+    chance, and a float64 step on the card matches the CPU."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops.kernels import common
+
+    ctx = mx.gpu(0)
+    X, y = _mnist_data(MNIST_EXAMPLES)
+    n_val = min(max(len(X) // 8, MNIST_BATCH), len(X) - MNIST_BATCH)
+    recs = {}
+    for network in ("mlp", "lenet"):
+        t0 = time.perf_counter()
+        held = _held_bytes()
+        sym = _example_symbol(
+            mx, "example/image-classification/symbols/%s.py" % network,
+            num_classes=10)
+        train = mx.io.NDArrayIter(X[n_val:], y[n_val:], MNIST_BATCH,
+                                  shuffle=True)
+        val = mx.io.NDArrayIter(X[:n_val], y[:n_val], MNIST_BATCH)
+        ends = []
+
+        def step_end(param):
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+
+        accs = []
+
+        def epoch_end(param):
+            accs.append(dict(param.eval_metric.get_name_value())[
+                "accuracy"])
+
+        mx.random.seed(0)
+        mod = mx.mod.Module(sym, context=ctx)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        common.reset_counts()
+        mod.fit(train, eval_data=val, num_epoch=MNIST_EPOCHS,
+                optimizer="sgd", optimizer_params=dict(MNIST_SGD),
+                eval_metric=["accuracy"], batch_end_callback=step_end,
+                eval_end_callback=epoch_end)
+        launches = common.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        own_gb = peak_gb - held / 1e9
+        steps = len(ends) // MNIST_EPOCHS
+        step_ms = [(b - a) * 1e3 for a, b in zip(ends[:steps],
+                                                  ends[1:steps])]
+        med = statistics.median(step_ms)
+        args = {n: v.asnumpy() for n, v in mod.get_params()[0].items()}
+        f64_ok, f64_report = _f64_card_vs_cpu(
+            mx, sym, args, X[:MNIST_BATCH], y[:MNIST_BATCH], MNIST_SGD)
+        recs[network] = rec = {
+            "phase": "mnist", "network": network, "device": dev["name"],
+            "nvidia_smi": dev["smi"], "batch": MNIST_BATCH,
+            "train_examples": len(X) - n_val, "epochs": MNIST_EPOCHS,
+            "steps": len(ends), "median_step_ms_epoch0": med,
+            "img_per_s": MNIST_BATCH * 1e3 / med, "peak_mem_gb": peak_gb,
+            "peak_above_start_gb": own_gb,
+            "val_accuracy_per_epoch": accs,
+            "launch_counts": launches,
+            "float64_card_vs_cpu": {"tol": MODULE_CHECK_REL_F64,
+                                    "ok": f64_ok, "report": f64_report},
+            "seconds": time.perf_counter() - t0}
+        _emit(rec)
+        _no_kernel_launched("mnist", launches)
+        _check(max(accs) > MNIST_MIN_ACC, "mnist %s: held-out accuracy "
+               "%s" % (network, accs))
+        _check(f64_ok, "mnist %s: the float64 step on the card differs "
+               "from the CPU's: %s" % (network, f64_report))
+    return recs
+
+
 _CSRC = "mxnet_tpu_torch/ops/kernels/csrc/"
 # the variants of each kernel, by source
 VARIANT_SOURCES = {
@@ -4737,6 +5440,8 @@ def _timed_phase(name, fn, *args):
     return out
 
 
+RECURRENT = (("word_lm", phase_word_lm), ("bucketing", phase_bucketing),
+             ("gluon_rnn", phase_gluon_rnn), ("mnist", phase_mnist))
 SERVING_PLANE = (phase_serve_qos, phase_serve_migrate, phase_serve_loadreplay,
                  phase_serve_tenant, phase_serve_ops)
 
@@ -4771,6 +5476,8 @@ def main():
                                             bf16_img_s)
     phase_gluon_cifar(dev)
     phase_gluon_step_card_vs_cpu(dev)
+    recurrent = {name: _timed_phase(name, phase, dev)
+                 for name, phase in RECURRENT}
     _timed_phase("racecheck", phase_racecheck)
     kleg_launches, _ = _timed_phase(
         "kernels_leg", phase_kernels_leg,
@@ -4786,6 +5493,7 @@ def main():
                             lambda exe=exe: exe.forward(is_train=False))
         phase_profile_module(trained)
         _profile_guard_windows(gluon, guard)
+        phase_profile_word_lm(recurrent["word_lm"])
     sources = {
         # the warp variant, which the prefills and training steps take;
         # decode takes block (VARIANT_SOURCES)

@@ -96,6 +96,9 @@ _DEF_JOURNAL_CAP = _config.gate_journal_cap
 # to the receiver in app-level chunks of this many KiB under one
 # idempotency key
 _DEF_MIGR_CHUNK_KB = _config.migrate_chunk_kb
+# a worker lost mid-response: a failed connection, or a response cut short
+# (``http.client.IncompleteRead`` when the worker dies after its headers)
+_WORKER_LOST = (OSError, http.client.HTTPException)
 
 def _log(msg):
     print("[gateway] %s" % msg, file=sys.stderr, flush=True)
@@ -378,7 +381,7 @@ class Gateway:
                 data = resp.read()
                 status = resp.status
                 conn.close()
-            except OSError as e:
+            except _WORKER_LOST as e:
                 # connection-level failure: the worker is gone; the
                 # idempotency key makes a retry elsewhere safe
                 self._note_suspect(rid)
@@ -597,7 +600,7 @@ class Gateway:
                              "— falling back to journal resume" % rid)
                     continue
                 return
-            except (OSError, ValueError) as e:
+            except _WORKER_LOST + (ValueError,) as e:
                 self._note_suspect(rid)
                 excluded.append(rid)
                 if delivered or streamed > 0:
@@ -699,7 +702,7 @@ class Gateway:
                 raise OSError("transfer settled without a handle: %s"
                               % resp)
             return rid2, addr2, new_handle
-        except (OSError, ValueError, KeyError) as e:
+        except _WORKER_LOST + (ValueError, KeyError) as e:
             _log("KV transfer %s -> %s failed (%s: %s) — aborting"
                  % (handle, rid2, type(e).__name__, e))
             try:

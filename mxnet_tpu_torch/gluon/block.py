@@ -252,10 +252,16 @@ class Block:
                 param._load_init_data(loaded[name], ctx)
 
     def load_dict(self, arg_dict, ctx=None, allow_missing=False,
-                  ignore_extra=False):
+                  ignore_extra=False, from_prefix=None):
         """Set this block's parameters from ``{full name: array}``, e.g.
         the JAX package's ``net.collect_params()`` read out as numpy
-        (:meth:`ParameterDict.load_dict`)."""
+        (:meth:`ParameterDict.load_dict`).  With ``from_prefix`` (the
+        source block's prefix), names under it are read as under this
+        block's prefix, so a block named by another counter loads."""
+        if from_prefix is not None:
+            n = len(from_prefix)
+            arg_dict = {self.prefix + k[n:] if k.startswith(from_prefix)
+                        else k: v for k, v in arg_dict.items()}
         self.collect_params().load_dict(arg_dict, ctx, allow_missing,
                                         ignore_extra)
 

@@ -43,13 +43,19 @@ class DataDesc:
 
 
 class DataBatch:
-    """One minibatch."""
+    """One minibatch; ``bucket_key`` and its ``provide_data`` /
+    ``provide_label`` tell ``BucketingModule`` which graph and shapes it
+    takes."""
 
-    def __init__(self, data, label=None, pad=None, index=None):
+    def __init__(self, data, label=None, pad=None, index=None,
+                 bucket_key=None, provide_data=None, provide_label=None):
         self.data = data
         self.label = label
         self.pad = pad
         self.index = index
+        self.bucket_key = bucket_key
+        self.provide_data = provide_data
+        self.provide_label = provide_label
 
 
 class DataIter:

@@ -3,19 +3,23 @@
 Counterpart of ``mxnet_tpu/metric.py`` (reference ``python/mxnet/
 metric.py``): ``EvalMetric`` (``update`` / ``update_dict`` / ``get`` /
 ``get_name_value``), ``CompositeEvalMetric``, ``Accuracy``,
-``TopKAccuracy``, ``CrossEntropy`` and ``create``, with the reference's
-names (``"acc"`` and ``"accuracy"``, ``"ce"``, ``"top_k_accuracy"``).  A
+``TopKAccuracy``, ``CrossEntropy``, ``Perplexity`` and ``create``, with the
+reference's names (``"acc"`` and ``"accuracy"``, ``"ce"``,
+``"top_k_accuracy"``, ``"perplexity"``).  A
 metric reads its labels and predictions on the host with numpy: one
 device-to-host copy of each per update.
 """
 from __future__ import annotations
+
+import math
 
 import numpy
 
 from .ndarray import NDArray
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
-           "CrossEntropy", "create", "register", "check_label_shapes"]
+           "CrossEntropy", "Perplexity", "create", "register",
+           "check_label_shapes"]
 
 _METRIC_REGISTRY = {}
 
@@ -222,7 +226,40 @@ class CrossEntropy(EvalMetric):
         return -numpy.log(probs + self.eps).sum(), flat.shape[0]
 
 
+class Perplexity(EvalMetric):
+    """``exp`` of the mean ``-log p[label]`` over the labels, those equal
+    to ``ignore_label`` (if not None) left out; ``p`` is floored at 1e-10.
+    ``axis`` is accepted and kept; the classes are the last axis."""
+
+    def __init__(self, ignore_label, axis=-1, name="perplexity",
+                 output_names=None, label_names=None):
+        super().__init__(name, ignore_label=ignore_label, axis=axis,
+                         output_names=output_names, label_names=label_names)
+        self.ignore_label = ignore_label
+        self.axis = axis
+
+    def _measure(self, label, pred):
+        if label.size != pred.size // pred.shape[-1]:
+            raise ValueError("shape mismatch: %s vs. %s"
+                             % (label.shape, pred.shape))
+        flat = label.ravel().astype("int64")
+        probs = pred.reshape(-1, pred.shape[-1])[
+            numpy.arange(flat.size), flat]
+        count = flat.size
+        if self.ignore_label is not None:
+            keep = flat != self.ignore_label
+            count -= int((~keep).sum())
+            probs = numpy.where(keep, probs, 1.0)
+        return -numpy.log(numpy.maximum(1e-10, probs)).sum(), count
+
+    def get(self):
+        if self.num_inst == 0:
+            return (self.name, float("nan"))
+        return (self.name, math.exp(self.sum_metric / self.num_inst))
+
+
 register(Accuracy, "acc", "accuracy")
+register(Perplexity, "perplexity")
 register(CrossEntropy, "ce", "cross-entropy")
 register(TopKAccuracy, "top_k_accuracy", "top_k_acc")
 register(CompositeEvalMetric, "composite")

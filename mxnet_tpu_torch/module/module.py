@@ -6,9 +6,10 @@ context, with ``grad_req`` ``null`` for the data and labels),
 ``init_params`` / ``set_params`` / ``get_params``, ``init_optimizer``
 (``rescale_grad = 1/batch`` unless given), ``forward``, ``backward``,
 ``forward_backward``, ``update`` (one list-valued ``Updater`` call, so SGD
-runs in aggregated groups), ``update_metric`` and ``get_outputs``.
-``kvstore`` is accepted and ignored.  Checkpoints, monitors and
-``BucketingModule`` are not ported.
+runs in aggregated groups), ``update_metric`` and ``get_outputs``;
+``fixed_param_names`` bind with ``grad_req`` ``null`` and are not updated.
+``kvstore`` is accepted and ignored.  Checkpoints and monitors are not
+ported.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ class Module(BaseModule):
 
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
-                 context=None):
+                 context=None, fixed_param_names=None):
         super().__init__(logger=logger)
         if isinstance(context, (list, tuple)):
             if len(context) != 1:
@@ -45,6 +46,7 @@ class Module(BaseModule):
         self._symbol = symbol
         self._data_names = list(data_names or [])
         self._label_names = list(label_names or [])
+        self._fixed_param_names = list(fixed_param_names or [])
         inputs = self._data_names + self._label_names
         self._param_names = [n for n in symbol.list_arguments()
                              if n not in inputs]
@@ -63,8 +65,9 @@ class Module(BaseModule):
     # -- bind ----------------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              force_rebind=False, grad_req="write"):
-        """One executor for these input shapes; the data and labels get no
-        gradient, the parameters ``grad_req`` when ``for_training``."""
+        """One executor for these input shapes; the data, the labels and
+        the fixed parameters get no gradient, the other parameters
+        ``grad_req`` when ``for_training``."""
         if self.binded and not force_rebind:
             return
         self.for_training = for_training
@@ -72,7 +75,8 @@ class Module(BaseModule):
         self._label_shapes = list(label_shapes or [])
         shapes = dict(_desc(d) for d in self._data_shapes
                       + self._label_shapes)
-        req = {n: grad_req if for_training else "null"
+        req = {n: grad_req if for_training
+               and n not in self._fixed_param_names else "null"
                for n in self._param_names}
         self._exec = self._symbol.simple_bind(ctx=self._context,
                                               grad_req=req, **shapes)

@@ -213,6 +213,17 @@ class NDArray:
     def swapaxes(self, dim1, dim2):
         return _invoke("swapaxes", [self], {"dim1": dim1, "dim2": dim2})
 
+    def expand_dims(self, axis):
+        return _invoke("expand_dims", [self], {"axis": axis})
+
+    def squeeze(self, axis=None):
+        return _invoke("squeeze", [self], {"axis": axis})
+
+    def split(self, num_outputs, axis=1, squeeze_axis=False):
+        return _invoke("split", [self], {"num_outputs": num_outputs,
+                                         "axis": axis,
+                                         "squeeze_axis": squeeze_axis})
+
     def slice_axis(self, axis, begin, end):
         return _invoke("slice_axis", [self], {"axis": axis, "begin": begin,
                                               "end": end})

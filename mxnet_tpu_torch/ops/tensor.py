@@ -1,11 +1,13 @@
 """Tensor operators: elementwise, broadcast and scalar arithmetic,
-reductions (with ``exclude``), shape ops, ``pick``, ``dot`` and ``cast``.
+reductions (with ``exclude``), shape ops (``split`` / ``stack`` and
+``expand_dims`` / ``squeeze`` among them), ``pick``, ``dot``, ``cast`` and
+``zeros_like`` / ``ones_like``.
 Counterpart of those ops in ``mxnet_tpu/ops/tensor.py``, under the
 reference's names: the ones the symbolic ResNet path emits
 (``broadcast_add``, which ``Symbol.__add__`` composes, with the aliases
 ``elemwise_add``, ``_plus`` and ``_add``; ``_plus_scalar``; ``Flatten``),
 and the ones NDArray's operators and methods, the Gluon layers, losses and
-``gluon.utils`` call.
+``gluon.utils`` and ``gluon.rnn`` call.
 
 A scalar operand takes the dtype of the array first (``_scalar_*``), as the
 reference's ``jnp.asarray(scalar, x.dtype)`` does; comparisons return the
@@ -207,6 +209,19 @@ def _transpose(x, axes=None):
                      tuple(reversed(range(x.dim()))))
 
 
+@register("expand_dims")
+def _expand_dims(x, axis=0):
+    return x.unsqueeze(int(axis))
+
+
+@register("squeeze")
+def _squeeze(x, axis=None):
+    if axis is None:
+        return x.squeeze()
+    return x.squeeze(tuple(axis) if isinstance(axis, (list, tuple))
+                     else int(axis))
+
+
 @register("swapaxes", aliases=("SwapAxis",))
 def _swapaxes(x, dim1=0, dim2=0):
     return x.transpose(int(dim1), int(dim2))
@@ -240,6 +255,27 @@ def _concat(*xs, dim=1, num_args=None):
     return torch.cat(xs, dim=int(dim))
 
 
+@register("stack")
+def _stack(*xs, axis=0, num_args=None):
+    return torch.stack(xs, dim=int(axis))
+
+
+@register("split", aliases=("SliceChannel",),
+          visible_out=lambda attrs: list(range(int(
+              attrs.get("num_outputs", 1)))))
+def _split(x, num_outputs=1, axis=1, squeeze_axis=False):
+    """``num_outputs`` equal pieces along ``axis`` (each without it under
+    ``squeeze_axis``): a tuple, or the one piece."""
+    num_outputs, axis = int(num_outputs), int(axis)
+    if x.shape[axis] % num_outputs:
+        raise ValueError("split: axis %d of size %d does not divide into "
+                         "%d" % (axis, x.shape[axis], num_outputs))
+    parts = x.chunk(num_outputs, dim=axis)
+    if squeeze_axis:
+        parts = [p.squeeze(axis) for p in parts]
+    return tuple(parts) if num_outputs > 1 else parts[0]
+
+
 # ---------------------------------------------------------------------------
 # indexing and products
 # ---------------------------------------------------------------------------
@@ -269,3 +305,10 @@ def _dot(a, b, transpose_a=False, transpose_b=False):
 @register("where")
 def _where(cond, x, y):
     return torch.where(cond != 0, x, y)
+
+
+# ---------------------------------------------------------------------------
+# init-like
+# ---------------------------------------------------------------------------
+register("zeros_like")(torch.zeros_like)
+register("ones_like")(torch.ones_like)

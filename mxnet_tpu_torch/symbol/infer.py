@@ -45,6 +45,28 @@ def _norm_params(node, in_shapes):
             "moving_var": (c,)}
 
 
+def _embedding_params(node, in_shapes):
+    p = node.attrs
+    return {"weight": (int(p["input_dim"]), int(p["output_dim"]))}
+
+
+def _rnn_params(node, in_shapes):
+    """The packed parameter vector and the (L*dirs, N, H) states of a
+    (T, N, I) input."""
+    from ..ops.nn import _attr_bool
+    from ..ops.rnn import rnn_param_size
+
+    p = node.attrs
+    d = in_shapes[0]
+    bidir = _attr_bool(p.get("bidirectional", False))
+    layers = int(p.get("num_layers", 1))
+    ss = int(p.get("state_size", 0))
+    state = (layers * (2 if bidir else 1), d[1], ss)
+    return {"parameters": (rnn_param_size(p.get("mode", "lstm"), d[2], ss,
+                                          layers, bidir),),
+            "state": state, "state_cell": state}
+
+
 def _custom_params(node, in_shapes):
     """A ``Custom`` node's inputs by position, from the user's
     ``infer_shape`` (keys are positions: its inputs have no fixed names)."""
@@ -64,6 +86,8 @@ _PARAM_HOOKS = {
     "Convolution": _conv_params,
     "FullyConnected": _fc_params,
     "BatchNorm": _norm_params,
+    "Embedding": _embedding_params,
+    "RNN": _rnn_params,
     "SoftmaxOutput": _softmax_label,
     "Custom": _custom_params,
 }

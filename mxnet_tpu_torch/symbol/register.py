@@ -13,7 +13,10 @@ from .symbol import Symbol, Variable, _NameManager, _Node, _single
 
 
 def _skip_input(in_name, params):
-    """``bias`` is no input when ``no_bias`` is set."""
+    """``bias`` is no input when ``no_bias`` is set, nor ``RNN``'s
+    ``state_cell`` outside the lstm mode."""
+    if in_name == "state_cell":
+        return params.get("mode", "lstm") != "lstm"
     return in_name == "bias" and bool(params.get("no_bias"))
 
 

@@ -53,6 +53,15 @@ one bit for bit and a ``nan_grad`` step leaves every parameter, BatchNorm
 statistic and optimizer-state buffer unchanged (cuDNN deterministic);
 ``serving.ModelServer`` answers the bare Predictor's bits.
 
+The fused RNN op: cuDNN (``ops.rnn.rnn_cudnn``) against the plain time
+loop (``rnn_reference``) for lstm, gru, rnn_tanh and rnn_relu at 1 layer
+and at 2 bidirectional ones, f32 (TF32 off) and float64, outputs and the
+gradients of the data, the packed parameters and the states; dropout
+between layers only, one cuDNN call a layer; no plain path for bf16 on
+the card; word_lm.py's graph at a small width, one float64 ``Module`` step
+on the card against the CPU within 1e-8, with cuDNN's RNN node in its
+backward.
+
 The kernel library's front door: ``select_impl("flash_attention")`` and
 ``select_impl("int8_matmul")`` resolve to ``'cuda'`` and, through a
 ``kernel_unit``, launch the forward, dQ and dK/dV kernels and the fused
@@ -1651,3 +1660,111 @@ def test_sharded_step_at_world_size_one_matches_meshless(dev):
     for name in ("fused_rmsnorm", "fused_softmax_xent",
                  "fused_softmax_xent_bwd"):
         assert launches.get("kernels.launch." + name, 0) > 0, name
+
+
+# ---------------------------------------------------------------------------
+# the fused RNN op on cuDNN, and the LSTM language model's step
+# ---------------------------------------------------------------------------
+def _rel64(got, want):
+    """max |got - want| over want's largest entry, in float64."""
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max().clamp_min(1e-300))
+
+
+def _rnn_inputs(dev, dtype, mode, layers, bidir, T=7, N=3, I=5, H=8):
+    from mxnet_tpu_torch.ops import rnn as trnn
+
+    dirs = 2 if bidir else 1
+    g = torch.Generator(device=dev).manual_seed(3)
+    size = trnn.rnn_param_size(mode, I, H, layers, bidir)
+    shapes = [(T, N, I), (size,), (layers * dirs, N, H),
+              (layers * dirs, N, H)]
+    return [(torch.randn(s, generator=g, device=dev, dtype=dtype)
+             * (H ** -0.5 if len(s) == 1 else 1.0)).requires_grad_()
+            for s in shapes], dict(mode=mode, state_size=H,
+                                   num_layers=layers, bidirectional=bidir)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("layers,bidir", [(1, False), (2, True)])
+@pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh", "rnn_relu"])
+def test_rnn_cudnn_matches_plain_loop(dev, mode, layers, bidir, dtype):
+    """cuDNN against rnn_reference: outputs and every gradient within 1e-4
+    / 1e-3 of each tensor's largest entry in f32 (TF32 off: cuDNN's f32
+    activations are not the correctly rounded ones torch's are, and at 2
+    bidirectional rnn_tanh layers its output stood 1.7e-5 of the largest
+    entry off on an H100), 1e-12 in float64, where the rounding is gone and
+    only the function is compared; the output's autograd node is
+    cuDNN's."""
+    from mxnet_tpu_torch.ops import rnn as trnn
+
+    inputs, kw = _rnn_inputs(dev, dtype, mode, layers, bidir)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got = [o for o in trnn.rnn_cudnn(*inputs, **kw) if o is not None]
+        ref = [o for o in trnn.rnn_reference(*inputs, **kw)
+               if o is not None]
+        g = torch.Generator(device=dev).manual_seed(4)
+        cts = [torch.randn(o.shape, generator=g, device=dev, dtype=dtype)
+               for o in got]
+        leaves = inputs if mode == "lstm" else inputs[:3]
+        g_got = torch.autograd.grad(got, leaves, cts)
+        g_ref = torch.autograd.grad(ref, leaves, cts)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert type(got[0].grad_fn).__name__ == "CudnnRnnBackward0"
+    fwd, grad = (1e-4, 1e-3) if dtype == torch.float32 else (1e-12, 1e-12)
+    for a, b in zip(got, ref):
+        assert _rel64(a.detach(), b.detach()) <= fwd
+    for a, b in zip(g_got, g_ref):
+        assert _rel64(a, b) <= grad
+
+
+def test_rnn_cudnn_dropout_goes_between_layers(dev):
+    """p > 0 in training: one cuDNN call a layer, the mask from mx.random
+    between them and none after the last, as the plain loop does."""
+    from mxnet_tpu_torch.ops import rnn as trnn
+
+    inputs, kw = _rnn_inputs(dev, torch.float64, "lstm", 3, True)
+    mx.random.seed(11)
+    got = trnn.rnn_cudnn(*inputs, p=0.4, train=True, **kw)
+    mx.random.seed(11)
+    ref = trnn.rnn_reference(*inputs, p=0.4, train=True, **kw)
+    for a, b in zip(got, ref):
+        assert _rel64(a.detach(), b.detach()) <= 1e-12
+    plain = trnn.rnn_cudnn(*inputs, **kw)
+    assert not torch.allclose(got[0], plain[0])
+    assert torch.equal(trnn.rnn_cudnn(*inputs, p=0.4, **kw)[0], plain[0])
+
+
+def test_rnn_op_has_no_plain_path_on_the_card(dev):
+    """A tensor cuDNN's RNN does not take (bf16) raises on the card."""
+    from mxnet_tpu_torch.ops import rnn as trnn
+
+    inputs, kw = _rnn_inputs(dev, torch.bfloat16, "lstm", 1, False)
+    with pytest.raises(RuntimeError, match="cuDNN"):
+        trnn._rnn(*inputs, **kw)
+
+
+def test_word_lm_float64_module_step_card_vs_cpu(dev, smoke):
+    """word_lm.py's graph at a small width: one float64 Module step on
+    the card against the CPU within chip_smoke's 1e-8, and cuDNN in its
+    training graph's backward."""
+    sym = smoke._word_lm_symbol(mx, vocab=97, emsize=16, nhid=24, nlayers=2)
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, 97, (9, 4)).astype(np.float32)
+    y = rng.randint(0, 97, (9, 4)).astype(np.float32)
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    mod.bind(data_shapes=[("data", x.shape)],
+             label_shapes=[("softmax_label", y.shape)])
+    mx.random.seed(0)
+    mod.init_params(mx.init.Xavier())
+    args = {n: v.asnumpy() for n, v in mod.get_params()[0].items()}
+    mod.forward(mx.io.DataBatch([mx.nd.array(x, ctx=mx.gpu(0))],
+                                [mx.nd.array(y, ctx=mx.gpu(0))]),
+                is_train=True)
+    assert "CudnnRnnBackward0" in smoke._autograd_names(
+        mod._exec._pending[0])
+    ok, report = smoke._f64_card_vs_cpu(mx, sym, args, x, y, smoke.LM_SGD)
+    assert ok, report

@@ -11,15 +11,22 @@
   the CPU: a worker that dies mid-stream is resumed on its sibling and the
   client sees the uninterrupted greedy stream exactly once; with no
   sibling left the stream ends in one typed ``ReplicaLost``.
+* A worker that dies after sending its response headers (the body cut
+  short) is a lost worker to the port's gateway, which retries the
+  idempotent predict on a sibling; the JAX package lets the
+  ``http.client.IncompleteRead`` escape (ROADMAP Queue 3).
 * The spawned acceptance scenario: two ``python -m
   mxnet_tpu_torch.fleet_worker`` processes (a CPU builder from
   ``torch_port_fleet_util``) behind a ``Gateway`` survive a SIGKILL and a
   registry partition mid-burst with one typed outcome per request, and the
   killed worker comes back within the restart budget.
 """
+import http.client
 import json
+import socket
 import threading
 import types
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import pytest
@@ -180,6 +187,71 @@ def test_idempotent_replay_and_forget_alike():
     # the same numpy-seeded weights in both demo models
     np.testing.assert_allclose(got["out1"], ref["out1"], rtol=1e-6)
     np.testing.assert_allclose(got["out4"], ref["out4"], rtol=1e-6)
+
+
+def _truncating_worker():
+    """A worker that answers every request with headers promising a body
+    of 125 bytes, and then closes: it died mid-response."""
+    srv = socket.socket()
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(8)
+
+    def serve():
+        while True:
+            try:
+                conn, _ = srv.accept()
+            except OSError:
+                return
+            conn.recv(65536)
+            conn.sendall(b"HTTP/1.1 200 OK\r\nContent-Type: "
+                         b"application/json\r\nContent-Length: 125\r\n\r\n")
+            conn.close()
+
+    threading.Thread(target=serve, daemon=True).start()
+    return srv
+
+
+def _answering_worker(body):
+    class _H(BaseHTTPRequestHandler):
+        def do_POST(self):
+            self.rfile.read(int(self.headers["Content-Length"]))
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):
+            pass
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), _H)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv
+
+
+def test_a_response_cut_short_is_retried_on_a_sibling():
+    body = b'{"outputs": [[1.0, 2.0]]}'
+    bad, good = _truncating_worker(), _answering_worker(body)
+    views = {"w0": {"addr": "127.0.0.1:%d" % bad.getsockname()[1],
+                    "inflight": 0},
+             "w1": {"addr": "127.0.0.1:%d" % good.server_port,
+                    "inflight": 3}}
+    try:
+        for P in (PORT, JAX):
+            gw = _offline_gateway(P)
+            gw._view = _view(P, views)
+            try:
+                if P is PORT:
+                    out = gw._forward_predict(b"{}", gw.clock.now())
+                    assert out == (200, body, "w1") and gw.retried == 1
+                else:
+                    with pytest.raises(http.client.IncompleteRead):
+                        gw._forward_predict(b"{}", gw.clock.now())
+            finally:
+                gw.httpd.server_close()
+    finally:
+        bad.close()
+        good.shutdown()
+        good.server_close()
 
 
 def test_demo_builders_refuse_a_missing_card(monkeypatch):

@@ -14,7 +14,9 @@
   door, ``python -m mxnet_tpu_torch.fleet_worker``'s entry) with both
   sanitizers armed from the environment; two gloo ranks started by the
   port's launcher run the dryrun's legs (``parallel``, ``kvstore``,
-  ``_dist``, ``tools.launch``, ``tools.dryrun``).
+  ``_dist``, ``tools.launch``, ``tools.dryrun``); another trains an LSTM
+  language model under ``BucketingModule`` and runs ``gluon.rnn``'s
+  layers and cells and the sequence ops.
 * Without a CUDA device, the entry points refuse to start unless the
   caller asks for the CPU (``device="cpu"``, or ``ctx=cpu()`` on the
   symbolic path); so do ``make_mesh`` and a rank's ``init_from_env``
@@ -353,6 +355,96 @@ def test_serving_plane_runs_with_jax_unimportable():
     assert res["tokens"] > 0
 
 
+_CHILD_RNN = r"""
+import importlib.abc, json, sys
+
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, _Block())
+import numpy as np
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import autograd, gluon
+
+cpu = mx.cpu()
+
+def lm(key=None):
+    data = mx.sym.Variable("data")
+    embed = mx.sym.Embedding(data, input_dim=20, output_dim=6, name="embed")
+    rnn = mx.sym.RNN(embed, parameters=mx.sym.Variable(
+        "lstm_parameters", init=mx.init.Normal(0.05)), state=mx.sym.Variable(
+        "lstm_state", init=mx.init.Zero()), state_cell=mx.sym.Variable(
+        "lstm_state_cell", init=mx.init.Zero()), state_size=8, num_layers=2,
+        mode="lstm", name="lstm")
+    pred = mx.sym.FullyConnected(mx.sym.reshape(rnn, shape=(-1, 8)),
+                                 num_hidden=20, name="decoder")
+    return mx.sym.SoftmaxOutput(pred, mx.sym.reshape(
+        mx.sym.Variable("softmax_label"), shape=(-1,)), name="softmax")
+
+rng = np.random.RandomState(0)
+metric = mx.metric.Perplexity(ignore_label=None)
+mod = mx.mod.BucketingModule(lambda k: lm(k), default_bucket_key=5,
+                             context=cpu)
+mod.bind(data_shapes=[("data", (5, 3))],
+         label_shapes=[("softmax_label", (5, 3))])
+mod.init_params(mx.init.Xavier())
+mod.init_optimizer(optimizer="sgd", optimizer_params={"learning_rate": 0.5})
+for key in (5, 3, 5):
+    x = rng.randint(0, 20, (key, 3)).astype(np.float32)
+    b = mx.io.DataBatch([mx.nd.array(x, ctx=cpu)],
+                        [mx.nd.array(x, ctx=cpu)], bucket_key=key,
+                        provide_data=[mx.io.DataDesc("data", (key, 3))],
+                        provide_label=[mx.io.DataDesc("softmax_label",
+                                                      (key, 3))])
+    mod.forward_backward(b)
+    mod.update()
+    mod.update_metric(metric, b.label)
+net = gluon.rnn.GRU(4, num_layers=2, bidirectional=True, layout="NTC")
+net.initialize(ctx=cpu)
+xs = mx.nd.array(rng.randn(3, 5, 2), ctx=cpu)
+with autograd.record():
+    out = net(xs)
+    loss = out.sum()
+loss.backward()
+cell = gluon.rnn.SequentialRNNCell()
+cell.add(gluon.rnn.LSTMCell(4))
+cell.add(gluon.rnn.ResidualCell(gluon.rnn.GRUCell(4)))
+cell.initialize(ctx=cpu)
+outs, _ = cell.unroll(5, xs, merge_outputs=True)
+masked = mx.nd.SequenceMask(out.swapaxes(0, 1), mx.nd.array([1, 5, 3],
+                            ctx=cpu), use_sequence_length=True)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))
+mods = sorted(m for m in sys.modules if m.startswith("mxnet_tpu_torch."))
+print(json.dumps({"ppl": metric.get()[1], "out": list(out.shape),
+                  "unrolled": list(outs.shape),
+                  "masked_zero": float(masked.asnumpy()[1:, 0].max()),
+                  "buckets": sorted(mod._buckets), "loaded": loaded,
+                  "modules": mods}))
+"""
+
+
+def test_recurrent_path_runs_with_jax_unimportable():
+    """The fused RNN op, BucketingModule, Perplexity, gluon.rnn's layers
+    and cells and the sequence ops, with ``jax`` and ``mxnet_tpu``
+    unimportable."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD_RNN], capture_output=True, text=True,
+        timeout=120, cwd=REPO, env=subprocess_env())
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == []
+    for name in ("ops.rnn", "ops.sequence", "module.bucketing_module",
+                 "gluon.rnn.rnn_layer", "gluon.rnn.rnn_cell", "metric"):
+        assert "mxnet_tpu_torch." + name in res["modules"], name
+    assert np.isfinite(res["ppl"]) and res["ppl"] > 1.0
+    assert res["out"] == [3, 5, 8] and res["unrolled"] == [3, 5, 4]
+    assert res["masked_zero"] == 0.0 and res["buckets"] == [3, 5]
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -461,6 +553,35 @@ def test_gluon_entry_points_refuse_cpu_fallback(no_cuda):
         d = gluon.nn.Dense(2, in_units=2)
         d.initialize()
         assert d.weight.list_ctx() == [cpu()]
+
+
+def test_recurrent_entry_points_refuse_cpu_fallback(no_cuda):
+    """Without a card ``Module`` / ``BucketingModule`` over an RNN graph
+    and ``gluon.rnn`` layers refuse to start unless given ``cpu()``."""
+    from mxnet_tpu_torch import cpu, gluon, init, mod, nd, sym
+
+    def lstm(key=None):
+        return sym.RNN(sym.Variable("data"), parameters=sym.Variable(
+            "p", init=init.Normal(0.05)), state=sym.Variable(
+            "h", init=init.Zero()), state_cell=sym.Variable(
+            "c", init=init.Zero()), state_size=4, num_layers=1,
+            mode="lstm", name="lstm")
+
+    shapes = dict(data_shapes=[("data", (5, 2, 3))], label_shapes=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.Module(lstm(), label_names=None).bind(**shapes)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.BucketingModule(lambda k: (lstm(), ("data",), ()),
+                            default_bucket_key=5).bind(**shapes)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gluon.rnn.LSTM(4, input_size=3).initialize()
+    bm = mod.BucketingModule(lambda k: (lstm(), ("data",), ()),
+                             default_bucket_key=5, context=cpu())
+    bm.bind(**shapes)
+    bm.init_params()
+    bm.forward(__import__("mxnet_tpu_torch").io.DataBatch(
+        [nd.ones((5, 2, 3), ctx=cpu())]), is_train=False)
+    assert bm.get_outputs()[0].shape == (5, 2, 4)
 
 
 def test_predict_and_model_server_refuse_cpu_fallback(no_cuda, tmp_path):
