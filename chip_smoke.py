@@ -17,7 +17,9 @@ on the card:
   the long-context configuration (d_model 1024, 16 heads of 64, 4 layers,
   d_ff 4096, bf16, remat, batch 1 x 8192: bench.py's long-context leg),
   which crosses the dense->flash gate and so runs the flash forward, dQ
-  and dK/dV kernels;
+  and dK/dV kernels, and on the same configuration with 4 heads of 256
+  (Gemma-style head_dim), whose flash forward runs the wide variant and
+  whose dQ and dK/dV run the tensor-core wgmma_wide kernels;
 * INT8 inference — the symbolic ResNet-50 (``models/resnet_symbol.py``,
   1000 classes, 3x224x224) is calibrated, quantized, BN-folded and
   int8-fused by ``contrib.quantization.quantize_model``, bound, and run at
@@ -82,7 +84,10 @@ Phases, in order; any failure raises and exits non-zero:
    are all held against the plain version and timed in turns; the
    backward is also held against autograd through the dense forward and
    two of its calls must agree bit for bit; head_dim 96 runs padded to
-   128; head dims 160, 256 and 320 run the wide variant.  The int8
+   128; head dims 160, 256 and 320 run the wide variant forward, and the
+   bf16 backward at 160, 192 and 256 the tensor-core wgmma_wide variant
+   (at [1, 4096, 16, 256] timed in turns with wide; also at the
+   head_dim-256 leg's [1, 8192, 4, 256] and with Tq != Tk).  The int8
    matmul's planned variant and, where that is wgmma, its mma variant are
    held bit for bit to the plain version and timed in turns beside
    ``torch._int_mm``;
@@ -130,7 +135,7 @@ Phases, in order; any failure raises and exits non-zero:
    ``TRAIN_STEPS`` timed steps on one fixed batch: losses must be finite
    and fall, the kernel counters must show exactly the expected launches
    per step (RMSNorm's all through the warp variant) and no plain
-   version; then, on the long-context
+   version; then, on each long-context
    configuration, the loss and every parameter gradient through the
    kernels must match those through the plain versions;
 5b. mesh_nccl — the device mesh at world size 1: a child rank process
@@ -374,19 +379,25 @@ RMSNORM_BWD_SHAPES = ((8192, 2048), (8192, 1024))
 # the training configurations: (name, config, batch, sequence length)
 LONGCTX = dict(vocab_size=32000, d_model=1024, n_heads=16, n_layers=4,
                d_ff=4096, max_len=8192, dtype="bfloat16", remat=True)
+LONGCTX_HD256 = dict(LONGCTX, n_heads=4)
 TRAIN_CELLS = (
     ("flagship_b8_t1024", dict(FLAGSHIP, max_len=1024, remat=False), 8,
      1024),
     ("longctx_b1_t8192", LONGCTX, 1, 8192),
+    # the long-context configuration with 4 heads of 256 (Gemma-style
+    # head_dim): the flash forward on the wide variant, the backward on the
+    # tensor-core wgmma_wide kernels
+    ("longctx_hd256_b1_t8192", LONGCTX_HD256, 1, 8192),
 )
 TRAIN_STEPS = 3
 # kernel launches per training step, from the code: RMSNorm twice per block
 # and once before the logits, and with remat once more per block for the
 # recomputed forward, every one through the warp variant (8192 rows); flash
 # forward per block (twice with remat), every
-# one through the tensor-core variant (bf16, head_dim 64), dQ and dK/dV
-# once per block, also through the tensor-core variant; the softmax
-# cross-entropy once each way
+# one through the tensor-core variant (bf16, head_dim 64; at head_dim 256
+# through wide), dQ and dK/dV once per block, also through the tensor-core
+# variant (wgmma; wgmma_wide at head_dim 256); the softmax cross-entropy
+# once each way
 EXPECTED_LAUNCHES = {
     "flagship_b8_t1024": {"fused_rmsnorm": 9, "fused_rmsnorm.warp": 9,
                           "fused_softmax_xent": 1,
@@ -399,6 +410,15 @@ EXPECTED_LAUNCHES = {
                          "flash_attention_dkv.wgmma": 4,
                          "fused_softmax_xent": 1,
                          "fused_softmax_xent_bwd": 1},
+    "longctx_hd256_b1_t8192": {"fused_rmsnorm": 17, "fused_rmsnorm.warp": 17,
+                               "flash_attention": 8,
+                               "flash_attention.wide": 8,
+                               "flash_attention_dq": 4,
+                               "flash_attention_dkv": 4,
+                               "flash_attention_dq.wgmma_wide": 4,
+                               "flash_attention_dkv.wgmma_wide": 4,
+                               "fused_softmax_xent": 1,
+                               "fused_softmax_xent_bwd": 1},
 }
 # the device mesh (mxnet_tpu_torch/parallel over torch.distributed).
 # mesh_nccl: one rank over NCCL (a real communicator: every collective of
@@ -850,7 +870,8 @@ def phase_build():
     # kernels, the wide flash kernels, the int8 matmul and the RMSNorm
     # variants, none of which may spill but the int8 mma kernel
     for src in ("flash_attention_wgmma", "flash_attention_bwd_wgmma",
-                "flash_attention_wide", "int8_matmul", "rmsnorm"):
+                "flash_attention_bwd_wgmma_wide", "flash_attention_wide",
+                "int8_matmul", "rmsnorm"):
         for kernel, line in _ptxas_summary(built[src]["log"]):
             print("build %s %s" % (src, line), flush=True)
             if kernel != "int8_mm_kernel":
@@ -1204,30 +1225,39 @@ def _xent_case(N, V, dtype_name, gen):
     return fwd, bwd
 
 
+# the CUDA-core variant each tensor-core backward variant is timed against
+# in turns (``_flash_bwd_case(variants=True)``)
+BWD_CUDA_CORE_TWIN = {"wgmma": "simt", "wgmma_wide": "wide"}
+
+
 def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
                     with_dlse=False, variants=False):
     """The dQ and the dK/dV kernel of the variant ``_bwd_variant`` names
     against the plain backward and autograd through the dense forward, and
-    two calls bit for bit (no atomics): two records.  ``variants``: also
-    hold the CUDA-core (simt) kernels against the plain backward and time
-    the tensor-core ones and them in turns (wgmma, simt, simt, wgmma);
-    ``ms`` is then the tensor-core kernel's mean of its two turns.  A head
-    dim the kernels lack is timed at its padded width, on inputs padded
-    once, as the backward runs it."""
+    two calls bit for bit (no atomics): two records.  ``variants``: the
+    variant is a tensor-core one; also hold its CUDA-core twin
+    (``BWD_CUDA_CORE_TWIN``: simt for wgmma, wide for wgmma_wide) against
+    the plain backward and time the two in turns (tensor-core, CUDA-core,
+    CUDA-core, tensor-core); ``ms`` is then the tensor-core kernel's mean
+    of its two turns.  A head dim the kernels lack is timed at its padded
+    width, on inputs padded once, as the backward runs it."""
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops.kernels.flash_attention import (
         _bwd_variant, _delta, _flash_bwd_cuda, _flash_cuda,
-        _flash_dkv_simt_cuda, _flash_dkv_wgmma_cuda, _flash_dkv_wide_cuda,
-        _flash_dq_simt_cuda, _flash_dq_wgmma_cuda, _flash_dq_wide_cuda,
-        _pad_d, _padded_dim, flash_attention_bwd_reference,
-        flash_attention_reference)
+        _flash_dkv_simt_cuda, _flash_dkv_wgmma_cuda,
+        _flash_dkv_wgmma_wide_cuda, _flash_dkv_wide_cuda,
+        _flash_dq_simt_cuda, _flash_dq_wgmma_cuda, _flash_dq_wgmma_wide_cuda,
+        _flash_dq_wide_cuda, _pad_d, _padded_dim,
+        flash_attention_bwd_reference, flash_attention_reference)
 
     dt = getattr(torch, dtype_name)
     scale = 1.0 / D ** 0.5
-    launchers = {"wgmma": (_flash_dq_wgmma_cuda, _flash_dkv_wgmma_cuda),
-                 "simt": (_flash_dq_simt_cuda, _flash_dkv_simt_cuda),
-                 "wide": (_flash_dq_wide_cuda, _flash_dkv_wide_cuda)}
+    launchers = {
+        "wgmma": (_flash_dq_wgmma_cuda, _flash_dkv_wgmma_cuda),
+        "wgmma_wide": (_flash_dq_wgmma_wide_cuda, _flash_dkv_wgmma_wide_cuda),
+        "simt": (_flash_dq_simt_cuda, _flash_dkv_simt_cuda),
+        "wide": (_flash_dq_wide_cuda, _flash_dkv_wide_cuda)}
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dt)
@@ -1291,23 +1321,23 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     args = _copies(tuple(_pad_d(t, width) for t in (q, k, v, do))
                    + (lse, delta))
     variant = _bwd_variant(q.dtype, D)
-    simt = {}
+    twin = BWD_CUDA_CORE_TWIN.get(variant)
+    twin_errs = {}
     if variants:
-        _check(variant == "wgmma", "flash backward %s %s takes the %s "
+        _check(twin is not None, "flash backward %s %s takes the %s "
                "variant" % ([B, Tq, H, D], dtype_name, variant))
         qp, kp, vp, dop = args[0][:4]
-        sdq = _flash_dq_simt_cuda(qp, kp, vp, dop, lse, delta, causal, scale)
-        sdk, sdv = _flash_dkv_simt_cuda(qp, kp, vp, dop, lse, delta, causal,
-                                        scale)
+        tdq = launchers[twin][0](qp, kp, vp, dop, lse, delta, causal, scale)
+        tdk, tdv = launchers[twin][1](qp, kp, vp, dop, lse, delta, causal,
+                                      scale)
         torch.cuda.synchronize()
-        simt_errs = [_err(a, b, atol, rtol)
-                     for a, b in zip((sdq, sdk, sdv), want)]
-        simt = {"dq": simt_errs[:1], "dkv": simt_errs[1:]}
-        del sdq, sdk, sdv
+        errs_t = [_err(a[..., :D], b, atol, rtol)
+                  for a, b in zip((tdq, tdk, tdv), want)]
+        twin_errs = {"dq": errs_t[:1], "dkv": errs_t[1:]}
+        del tdq, tdk, tdv
     turns = {}
     for kind, which in (("dq", 0), ("dkv", 1)):
-        order = ("wgmma", "simt", "simt", "wgmma") if variants else (
-            variant,)
+        order = (variant, twin, twin, variant) if variants else (variant,)
         for name in order:
             fn = launchers[name][which]
             turns.setdefault((kind, name), []).append(_time_ms(
@@ -1343,15 +1373,15 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     for rec, kind in ((dq, "dq"), (dkv, "dkv")):
         rec["ms"] = statistics.mean(turns[(kind, variant)])
         if variants:
-            serr = simt[kind]
+            terr = twin_errs[kind]
+            twin_ms = statistics.mean(turns[(kind, twin)])
             rec.update({
-                "wgmma_ms_turns": turns[(kind, "wgmma")],
-                "simt_ms_turns": turns[(kind, "simt")],
-                "simt_ms": statistics.mean(turns[(kind, "simt")]),
-                "simt_over_wgmma": (statistics.mean(turns[(kind, "simt")])
-                                    / rec["ms"]),
-                "simt_max_abs_err": max(e[0] for e in serr)})
-            rec["ok"] = rec["ok"] and all(e[1] for e in serr)
+                "%s_ms_turns" % variant: turns[(kind, variant)],
+                "%s_ms_turns" % twin: turns[(kind, twin)],
+                "%s_ms" % twin: twin_ms,
+                "%s_over_%s" % (twin, variant): twin_ms / rec["ms"],
+                "%s_max_abs_err" % twin: max(e[0] for e in terr)})
+            rec["ok"] = rec["ok"] and all(e[1] for e in terr)
         rec["ms_over_bound"] = rec["ms"] / rec["bound_ms"]
     for rec in (dq, dkv):
         _emit(rec)
@@ -1361,6 +1391,16 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
                % (rec["kernel"], rec["q"], rec["k"], dtype_name,
                   rec["max_abs_err"], auto_errs, repeat_ok))
     return dq, dkv
+
+
+def _twin_record(rec):
+    """A ``_flash_bwd_case(variants=True)`` record as its CUDA-core twin's:
+    the twin's time and error at the same shape, the same bound."""
+    twin = BWD_CUDA_CORE_TWIN[rec["variant"]]
+    out = dict(rec, variant=twin, ms=rec["%s_ms" % twin],
+               max_abs_err=rec["%s_max_abs_err" % twin])
+    out["ms_over_bound"] = out["ms"] / out["bound_ms"]
+    return out
 
 
 def _int8_case(M, K, N, gen):
@@ -1477,16 +1517,28 @@ def phase_kernels():
                     with_dlse=True)
     _flash_bwd_case(2, 1024, 1024, 8, 64, True, "float32", gen,
                     with_dlse=True)
-    # head dims above 128: the wide variant (160 and 256 pad to 192 and 256;
-    # 320 is three column chunks of at most 128)
+    # head dims above 128: the forward on the wide variant in both dtypes
+    # (160 and 256 pad to 192 and 256; 320 is three column chunks of at most
+    # 128); the bf16 backward at padded 192 and 256 on the tensor-core
+    # wgmma_wide kernels, timed in turns with the wide ones; the f32
+    # backward and bf16's at 320 on wide
     for dt in ("bfloat16", "float32"):
         fwd = _flash_case(1, 4096, 4096, 16, 256, True, dt, gen)
         dq, dkv = _flash_bwd_case(1, 4096, 4096, 16, 256, True, dt, gen,
-                                  with_dlse=dt == "float32")
+                                  with_dlse=dt == "float32",
+                                  variants=dt == "bfloat16")
         if dt == "bfloat16":
             main["flash_attention.wide"] = fwd
-            main["flash_attention_dq.wide"] = dq
-            main["flash_attention_dkv.wide"] = dkv
+            main["flash_attention_dq.wgmma_wide"] = dq
+            main["flash_attention_dkv.wgmma_wide"] = dkv
+            main["flash_attention_dq.wide"] = _twin_record(dq)
+            main["flash_attention_dkv.wide"] = _twin_record(dkv)
+    # the head_dim-256 training leg's attention ([1, 8192, 4, 256]), D 192,
+    # and Tq != Tk
+    _flash_case(1, 8192, 8192, 4, 256, True, "bfloat16", gen)
+    _flash_bwd_case(1, 8192, 8192, 4, 256, True, "bfloat16", gen)
+    _flash_bwd_case(1, 4096, 4096, 16, 192, True, "bfloat16", gen)
+    _flash_bwd_case(1, 1000, 3000, 16, 256, False, "bfloat16", gen)
     _flash_case(2, 1000, 1000, 4, 320, False, "bfloat16", gen)
     _flash_bwd_case(2, 1000, 1000, 4, 320, False, "bfloat16", gen)
     _flash_case(1, 777, 777, 4, 160, True, "float32", gen)
@@ -2324,7 +2376,7 @@ def _step_kernels_vs_plain(name, st):
 
 
 def phase_train(dev):
-    """Both training configurations; the long-context one carries the
+    """Every training configuration; the long-context ones carry the
     kernel-vs-plain step check.  Returns the launches of each run and the
     state of each configuration."""
     import torch
@@ -5413,9 +5465,13 @@ VARIANT_SOURCES = {
                         "simt": _CSRC + "flash_attention.cu",
                         "wide": _CSRC + "flash_attention_wide.cu"},
     "flash_attention_dq": {"wgmma": _CSRC + "flash_attention_bwd_wgmma.cu",
+                           "wgmma_wide":
+                               _CSRC + "flash_attention_bwd_wgmma_wide.cu",
                            "simt": _CSRC + "flash_attention_bwd.cu",
                            "wide": _CSRC + "flash_attention_wide.cu"},
     "flash_attention_dkv": {"wgmma": _CSRC + "flash_attention_bwd_wgmma.cu",
+                            "wgmma_wide":
+                                _CSRC + "flash_attention_bwd_wgmma_wide.cu",
                             "simt": _CSRC + "flash_attention_bwd.cu",
                             "wide": _CSRC + "flash_attention_wide.cu"},
     "int8_matmul": {"wgmma": _CSRC + "int8_matmul.cu",
@@ -5510,6 +5566,19 @@ def main():
         "flash_attention_dkv": (
             "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd_wgmma.cu",
             "mxnet_tpu/ops/pallas/flash_attention.py:179"),
+        # the head_dim-256 training leg's: the forward on the CUDA-core wide
+        # variant, dQ and dK/dV on the tensor-core wgmma_wide kernels
+        "flash_attention.wide": (
+            "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_wide.cu",
+            "mxnet_tpu/ops/pallas/flash_attention.py:55"),
+        "flash_attention_dq.wgmma_wide": (
+            "mxnet_tpu_torch/ops/kernels/csrc/"
+            "flash_attention_bwd_wgmma_wide.cu",
+            "mxnet_tpu/ops/pallas/flash_attention.py:142"),
+        "flash_attention_dkv.wgmma_wide": (
+            "mxnet_tpu_torch/ops/kernels/csrc/"
+            "flash_attention_bwd_wgmma_wide.cu",
+            "mxnet_tpu/ops/pallas/flash_attention.py:179"),
         "fused_softmax_xent": (
             "mxnet_tpu_torch/ops/kernels/csrc/softmax_xent.cu",
             "mxnet_tpu/ops/pallas/layers.py:116"),
@@ -5537,7 +5606,9 @@ def main():
     kernels = []
     for name, (src, replaces) in sources.items():
         rec = main_cases[name]
-        counter = name + (".wgmma" if rec.get("variant") == "wgmma" else "")
+        counter = name
+        if "." not in name and rec.get("variant") == "wgmma":
+            counter += ".wgmma"
         launches = launched(counter)
         _check(launches > 0, "%s never launched on the main paths" % counter)
         entry = {
@@ -5556,14 +5627,20 @@ def main():
             entry["variants"] = []
             for variant, vsrc in VARIANT_SOURCES[name].items():
                 vrec = main_cases.get("%s.%s" % (name, variant), rec)
-                ms = (vrec["ms"] if vrec is not rec or variant ==
-                      rec["variant"] else rec["%s_ms" % variant])
+                own = vrec is not rec or variant == rec["variant"]
                 entry["variants"].append({
                     "variant": variant, "source": vsrc,
                     "launches": launched("%s.%s" % (name, variant)),
-                    "ms": ms, "shape": _case_shape(vrec),
+                    "ms": vrec["ms"] if own else rec["%s_ms" % variant],
+                    "max_abs_err": (vrec["max_abs_err"] if own else rec.get(
+                        "%s_max_abs_err" % variant,
+                        rec.get("variant_max_abs_err", {}).get(variant))),
+                    "shape": _case_shape(vrec),
                     "dtype": vrec.get("dtype", "int8"),
-                    "bound_ms": vrec["bound_ms"]})
+                    "plain_ms": vrec["plain_ms"],
+                    "library_ms": vrec["library_ms"],
+                    "bound_ms": vrec["bound_ms"],
+                    "bound_by": vrec["bound_by"]})
         kernels.append(entry)
     _emit({"phase": "total", "wall_s": time.perf_counter() - t_start,
            "serving_plane_s": plane_s})

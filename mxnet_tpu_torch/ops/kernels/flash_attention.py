@@ -32,15 +32,23 @@ chosen by dtype and padded head_dim alone (:func:`_fwd_variant`,
   16-byte-aligned bases and (B, T, H) strides that are multiples of 8
   elements (:func:`_check_wgmma` raises otherwise; the backward copies the
   internal cotangent ``dO`` instead);
+* ``wgmma_wide`` — the backward only (dQ and dK/dV), tensor cores as
+  ``wgmma``: bf16 at a padded head_dim of 192 or 256 (head_dim 129-256;
+  Gemma-style models' 256).  Each CTA owns 64 output rows and its two
+  consumer warpgroups split the output's columns
+  (``csrc/flash_attention_bwd_wgmma_wide.cu``).  The same preconditions
+  and the same copy of ``dO`` as ``wgmma``;
 * ``simt`` — CUDA cores: f32 up to head_dim 128 (the tensor cores have no
   f32 operand that keeps q·kᵀ exact) and head_dim 16 or 32 (less than one
   128-byte row of the swizzled tiles the wgmma variant reads).  Forward
   ``csrc/flash_attention.cu``; backward ``csrc/flash_attention_bwd.cu``;
-* ``wide`` — CUDA cores, f32 and bf16 above head_dim 128 (padded to a
-  multiple of 64): the dot products over D walk it in chunks of 64 and
-  each CTA owns at most 128 output columns, so any head_dim fits
-  (``csrc/flash_attention_wide.cu``: forward, dQ and dK/dV).  A correctness
-  path: no configuration in the repository has such a head_dim yet.
+* ``wide`` — CUDA cores, above head_dim 128 (padded to a multiple of 64):
+  the dot products over D walk it in chunks of 64 and each CTA owns at
+  most 128 output columns, so any head_dim fits
+  (``csrc/flash_attention_wide.cu``: forward, dQ and dK/dV).  The forward
+  of every dtype above 128, and the backward of f32 above 128 and of bf16
+  above 256 (a third 64-column panel per warpgroup would not fit
+  ``wgmma_wide``'s registers).
 
 Every forward launch counts as ``kernels.launch.flash_attention`` and as
 ``kernels.launch.flash_attention.<variant>``; every backward launch as
@@ -69,6 +77,7 @@ __all__ = ["flash_attention", "flash_attention_lse", "flash_self_attention",
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)      # the widths the kernels are built for
 _WGMMA_HEAD_DIMS = (64, 128)
+_WGMMA_WIDE_HEAD_DIMS = (192, 256)  # the wgmma_wide backward's widths
 _WIDE_CHUNK = 64                    # above 128, widths are multiples of it
 _BWD_ROWS = 64                      # lse/delta rows per tile of the wgmma dK/dV
 
@@ -167,15 +176,17 @@ def _configure_bwd(lib):
     lib.mxt_flash_bwd_error_string.restype = ctypes.c_char_p
 
 
-def _configure_bwd_wgmma(lib):
+def _configure_bwd_tc(prefix, lib):
+    """The tensor-core backward libraries' entry points ``<prefix>_dq``,
+    ``<prefix>_dkv`` and ``<prefix>_error_string``."""
     vp, i = ctypes.c_void_p, ctypes.c_int
     tail = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, vp]
-    lib.mxt_flash_bwd_wgmma_dq.argtypes = [vp] * 7 + [i] * 6 + tail
-    lib.mxt_flash_bwd_wgmma_dq.restype = ctypes.c_int
-    lib.mxt_flash_bwd_wgmma_dkv.argtypes = [vp] * 8 + [i] * 6 + tail
-    lib.mxt_flash_bwd_wgmma_dkv.restype = ctypes.c_int
-    lib.mxt_flash_bwd_wgmma_error_string.argtypes = [i]
-    lib.mxt_flash_bwd_wgmma_error_string.restype = ctypes.c_char_p
+    getattr(lib, prefix + "_dq").argtypes = [vp] * 7 + [i] * 6 + tail
+    getattr(lib, prefix + "_dq").restype = ctypes.c_int
+    getattr(lib, prefix + "_dkv").argtypes = [vp] * 8 + [i] * 6 + tail
+    getattr(lib, prefix + "_dkv").restype = ctypes.c_int
+    getattr(lib, prefix + "_error_string").argtypes = [i]
+    getattr(lib, prefix + "_error_string").restype = ctypes.c_char_p
 
 
 def _configure_wide(lib):
@@ -250,10 +261,15 @@ def _fwd_variant(dtype, head_dim):
 
 def _bwd_variant(dtype, head_dim):
     """The backward kernels (dQ and dK/dV) for ``dtype`` and ``head_dim``:
-    the same rule as :func:`_fwd_variant` — ``"wide"``
-    (``csrc/flash_attention_wide.cu``) above head_dim 128, ``"wgmma"``
+    ``"wgmma_wide"`` (``csrc/flash_attention_bwd_wgmma_wide.cu``) for bf16
+    at a padded head_dim of 192 or 256, otherwise the forward's rule
+    (:func:`_fwd_variant`) — ``"wide"`` (``csrc/flash_attention_wide.cu``)
+    above head_dim 128 (f32, and bf16 above 256), ``"wgmma"``
     (``csrc/flash_attention_bwd_wgmma.cu``) for bf16 at a padded head_dim
     of 64 or 128, ``"simt"`` (``csrc/flash_attention_bwd.cu``) otherwise."""
+    if (dtype == torch.bfloat16
+            and _padded_dim(head_dim) in _WGMMA_WIDE_HEAD_DIMS):
+        return "wgmma_wide"
     return _fwd_variant(dtype, head_dim)
 
 
@@ -288,16 +304,18 @@ def _tma_fault(name, t):
     return None
 
 
-def _check_wgmma(q, k, v, do=None):
-    """Raise :class:`ValueError` on inputs the wgmma variants cannot read
-    (:func:`_tma_fault`): q, k, v and, for the backward, ``do``.  Never a
-    reason to take the other variant."""
+def _check_wgmma(q, k, v, do=None, variant="wgmma"):
+    """Raise :class:`ValueError` on inputs the tensor-core variants
+    (``wgmma``, ``wgmma_wide``) cannot read (:func:`_tma_fault`): q, k, v
+    and, for the backward, ``do``.  Never a reason to take another
+    variant."""
     named = (("q", q), ("k", k), ("v", v)) + (
         (("dO", do),) if do is not None else ())
     for name, t in named:
         fault = _tma_fault(name, t)
         if fault:
-            raise ValueError("flash_attention (wgmma variant): " + fault)
+            raise ValueError("flash_attention (%s variant): %s"
+                             % (variant, fault))
 
 
 def _check_simt_width(D):
@@ -394,11 +412,12 @@ def _flash_wide_cuda(q, k, v, causal=True, scale=None, kv_len=None):
     return o, lse
 
 
-def _check_bf16_width(dtype, D):
-    if dtype != torch.bfloat16 or D not in _WGMMA_HEAD_DIMS:
-        raise ValueError("flash_attention (wgmma variant): takes bf16 with "
+def _check_bf16_width(dtype, D, variant="wgmma"):
+    widths = _BWD_TC[variant][2]
+    if dtype != torch.bfloat16 or D not in widths:
+        raise ValueError("flash_attention (%s variant): takes bf16 with "
                          "head_dim in %s; got %s, head_dim %d"
-                         % (_WGMMA_HEAD_DIMS, dtype, D))
+                         % (variant, widths, dtype, D))
 
 
 def _flash_cuda(q, k, v, causal=True, scale=None, kv_len=None):
@@ -527,14 +546,80 @@ def _rows_padded(x, Tq):
                                    (0, -Tq % _BWD_ROWS)).contiguous()
 
 
-def _bwd_wgmma_args(q, k, v, do, lse, delta):
-    """Check the wgmma backward's inputs; returns ``(lse, delta, tq_pad)``
-    with the row buffers padded (:func:`_rows_padded`)."""
-    _check_bf16_width(q.dtype, q.shape[-1])
-    _check_wgmma(q, k, v, do)
+# the tensor-core backward variants: source, C entry-point prefix, widths
+_BWD_TC = {
+    "wgmma": ("flash_attention_bwd_wgmma", "mxt_flash_bwd_wgmma",
+              _WGMMA_HEAD_DIMS),
+    "wgmma_wide": ("flash_attention_bwd_wgmma_wide",
+                   "mxt_flash_bwd_wgmma_wide", _WGMMA_WIDE_HEAD_DIMS),
+}
+
+
+def _bwd_tc_args(variant, q, k, v, do, lse, delta):
+    """Check a tensor-core backward's inputs; returns ``(lse, delta,
+    tq_pad)`` with the row buffers padded (:func:`_rows_padded`)."""
+    _check_bf16_width(q.dtype, q.shape[-1], variant)
+    _check_wgmma(q, k, v, do, variant)
     Tq = q.shape[1]
     lse_p, delta_p = _rows_padded(lse, Tq), _rows_padded(delta, Tq)
     return lse_p, delta_p, lse_p.shape[-1]
+
+
+def _bwd_tc_lib(variant):
+    source, prefix, _ = _BWD_TC[variant]
+    return _build.load(source, functools.partial(_configure_bwd_tc,
+                                                  prefix)), prefix
+
+
+def _flash_dq_tc_cuda(variant, q, k, v, do, lse, delta, causal, scale):
+    """Launch the dQ kernel of the tensor-core backward ``variant``
+    (``lse``, ``delta``: f32 [B, H, Tq]); returns ``dq``, contiguous.
+    Raises on inputs it does not take (:func:`_check_wgmma`, with
+    ``do``)."""
+    B, Tq, H, D = q.shape
+    lse_p, delta_p, tq_pad = _bwd_tc_args(variant, q, k, v, do, lse, delta)
+    dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+    if B * H * Tq == 0:
+        return dq
+    lib, prefix = _bwd_tc_lib(variant)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    flat = [s for t in (q, k, v, do) for s in _tma_strides(t)] + list(
+        dq.stride()[:3])
+    count_launch("flash_attention_dq")
+    count_launch("flash_attention_dq." + variant)
+    rc = getattr(lib, prefix + "_dq")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse_p.data_ptr(), delta_p.data_ptr(), dq.data_ptr(), B, H, Tq,
+        k.shape[1], D, tq_pad, (ctypes.c_longlong * 15)(*flat), float(scale),
+        int(bool(causal)), stream)
+    _build.check(lib, prefix, rc)
+    return dq
+
+
+def _flash_dkv_tc_cuda(variant, q, k, v, do, lse, delta, causal, scale):
+    """Launch the dK/dV kernel of the tensor-core backward ``variant``;
+    returns ``(dk, dv)``, contiguous, every row written (rows no query sees
+    are 0)."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    lse_p, delta_p, tq_pad = _bwd_tc_args(variant, q, k, v, do, lse, delta)
+    dk = torch.empty((B, Tk, H, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, Tk, H, D), dtype=v.dtype, device=q.device)
+    if B * H * Tq == 0:
+        return dk.zero_(), dv.zero_()
+    lib, prefix = _bwd_tc_lib(variant)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    flat = [s for t in (q, k, v, do) for s in _tma_strides(t)] + list(
+        dk.stride()[:3]) + list(dv.stride()[:3])
+    count_launch("flash_attention_dkv")
+    count_launch("flash_attention_dkv." + variant)
+    rc = getattr(lib, prefix + "_dkv")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse_p.data_ptr(), delta_p.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, H, Tq, Tk, D, tq_pad, (ctypes.c_longlong * 18)(*flat),
+        float(scale), int(bool(causal)), stream)
+    _build.check(lib, prefix, rc)
+    return dk, dv
 
 
 def _flash_dq_wgmma_cuda(q, k, v, do, lse, delta, causal=True, scale=None):
@@ -542,24 +627,7 @@ def _flash_dq_wgmma_cuda(q, k, v, do, lse, delta, causal=True, scale=None):
     (tensor cores) on bf16 inputs with head_dim 64 or 128 (``lse``,
     ``delta``: f32 [B, H, Tq]); returns ``dq``, contiguous.  Raises on
     inputs it does not take (:func:`_check_wgmma`, with ``do``)."""
-    B, Tq, H, D = q.shape
-    lse_p, delta_p, tq_pad = _bwd_wgmma_args(q, k, v, do, lse, delta)
-    dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
-    if B * H * Tq == 0:
-        return dq
-    lib = _build.load("flash_attention_bwd_wgmma", _configure_bwd_wgmma)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    flat = [s for t in (q, k, v, do) for s in _tma_strides(t)] + list(
-        dq.stride()[:3])
-    count_launch("flash_attention_dq")
-    count_launch("flash_attention_dq.wgmma")
-    rc = lib.mxt_flash_bwd_wgmma_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse_p.data_ptr(), delta_p.data_ptr(), dq.data_ptr(), B, H, Tq,
-        k.shape[1], D, tq_pad, (ctypes.c_longlong * 15)(*flat), float(scale),
-        int(bool(causal)), stream)
-    _build.check(lib, "mxt_flash_bwd_wgmma", rc)
-    return dq
+    return _flash_dq_tc_cuda("wgmma", q, k, v, do, lse, delta, causal, scale)
 
 
 def _flash_dkv_wgmma_cuda(q, k, v, do, lse, delta, causal=True,
@@ -567,26 +635,27 @@ def _flash_dkv_wgmma_cuda(q, k, v, do, lse, delta, causal=True,
     """Launch the dK/dV kernel of ``csrc/flash_attention_bwd_wgmma.cu`` on
     bf16 inputs with head_dim 64 or 128; returns ``(dk, dv)``, contiguous,
     every row written (rows no query sees are 0)."""
-    B, Tq, H, D = q.shape
-    Tk = k.shape[1]
-    lse_p, delta_p, tq_pad = _bwd_wgmma_args(q, k, v, do, lse, delta)
-    dk = torch.empty((B, Tk, H, D), dtype=k.dtype, device=q.device)
-    dv = torch.empty((B, Tk, H, D), dtype=v.dtype, device=q.device)
-    if B * H * Tq == 0:
-        return dk.zero_(), dv.zero_()
-    lib = _build.load("flash_attention_bwd_wgmma", _configure_bwd_wgmma)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    flat = [s for t in (q, k, v, do) for s in _tma_strides(t)] + list(
-        dk.stride()[:3]) + list(dv.stride()[:3])
-    count_launch("flash_attention_dkv")
-    count_launch("flash_attention_dkv.wgmma")
-    rc = lib.mxt_flash_bwd_wgmma_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse_p.data_ptr(), delta_p.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, H, Tq, Tk, D, tq_pad, (ctypes.c_longlong * 18)(*flat),
-        float(scale), int(bool(causal)), stream)
-    _build.check(lib, "mxt_flash_bwd_wgmma", rc)
-    return dk, dv
+    return _flash_dkv_tc_cuda("wgmma", q, k, v, do, lse, delta, causal,
+                              scale)
+
+
+def _flash_dq_wgmma_wide_cuda(q, k, v, do, lse, delta, causal=True,
+                              scale=None):
+    """Launch the dQ kernel of ``csrc/flash_attention_bwd_wgmma_wide.cu``
+    (tensor cores) on bf16 inputs with head_dim 192 or 256; returns ``dq``,
+    contiguous.  Raises on inputs it does not take (:func:`_check_wgmma`,
+    with ``do``)."""
+    return _flash_dq_tc_cuda("wgmma_wide", q, k, v, do, lse, delta, causal,
+                             scale)
+
+
+def _flash_dkv_wgmma_wide_cuda(q, k, v, do, lse, delta, causal=True,
+                               scale=None):
+    """Launch the dK/dV kernel of ``csrc/flash_attention_bwd_wgmma_wide.cu``
+    on bf16 inputs with head_dim 192 or 256; returns ``(dk, dv)``,
+    contiguous, every row written (rows no query sees are 0)."""
+    return _flash_dkv_tc_cuda("wgmma_wide", q, k, v, do, lse, delta, causal,
+                              scale)
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, do, dlse=None, causal=True,
@@ -597,8 +666,8 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, dlse=None, causal=True,
     :func:`_bwd_variant` names; the gradients sliced back.  Returns ``(dq,
     dk, dv)``, contiguous, in the input dtype.  ``scale=None`` is 1/√D of
     the real head_dim.  ``dO`` is read through its strides (copied if its
-    head_dim axis is not unit-stride, or, for the wgmma variant, if its
-    layout fails :func:`_tma_fault`)."""
+    head_dim axis is not unit-stride, or, for the tensor-core variants, if
+    its layout fails :func:`_tma_fault`)."""
     B, Tq, Tk, H, D = _check_qkv(q, k, v)
     if tuple(do.shape) != (B, Tq, H, D) or tuple(o.shape) != (B, Tq, H, D):
         raise ValueError("flash_attention backward: o/dO shapes %s/%s, "
@@ -617,14 +686,13 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, dlse=None, causal=True,
     width = _padded_dim(D)
     q, k, v, do = (_pad_d(t, width) for t in (q, k, v, do))
     variant = _bwd_variant(q.dtype, D)
-    if variant == "wgmma":
-        if _tma_fault("dO", do):
-            do = do.clone(memory_format=torch.contiguous_format)
-        launch_dq, launch_dkv = _flash_dq_wgmma_cuda, _flash_dkv_wgmma_cuda
-    elif variant == "wide":
-        launch_dq, launch_dkv = _flash_dq_wide_cuda, _flash_dkv_wide_cuda
-    else:
-        launch_dq, launch_dkv = _flash_dq_simt_cuda, _flash_dkv_simt_cuda
+    if variant in _BWD_TC and _tma_fault("dO", do):
+        do = do.clone(memory_format=torch.contiguous_format)
+    launch_dq, launch_dkv = {
+        "wgmma": (_flash_dq_wgmma_cuda, _flash_dkv_wgmma_cuda),
+        "wgmma_wide": (_flash_dq_wgmma_wide_cuda, _flash_dkv_wgmma_wide_cuda),
+        "wide": (_flash_dq_wide_cuda, _flash_dkv_wide_cuda),
+        "simt": (_flash_dq_simt_cuda, _flash_dkv_simt_cuda)}[variant]
     dq = launch_dq(q, k, v, do, lse, delta, causal, scale)
     dk, dv = launch_dkv(q, k, v, do, lse, delta, causal, scale)
     if width != D:

@@ -1,4 +1,4 @@
-"""The flash kernels' three CUDA variants, from the Python side, on the CPU.
+"""The flash kernels' CUDA variants, from the Python side, on the CPU.
 
 Which variant a dtype / head_dim selects (forward and backward), how a head
 dim the kernels lack is padded to a kernel width with the real head_dim's
@@ -19,6 +19,16 @@ fa = importlib.import_module("mxnet_tpu_torch.ops.kernels.flash_attention")
 BF16 = torch.bfloat16
 
 
+def _bwd_expected(dtype, D, variant):
+    """The backward's variant where the forward's rule names ``variant``:
+    the same, except bf16 at a padded head_dim of 192 or 256 (head_dim
+    129-256), whose dQ and dK/dV take the tensor-core ``wgmma_wide``
+    kernels while its forward stays ``wide``."""
+    if dtype == BF16 and 128 < D <= 256:
+        return "wgmma_wide"
+    return variant
+
+
 @pytest.mark.parametrize("dtype,D,variant", [
     (BF16, 64, "wgmma"), (BF16, 128, "wgmma"),
     (BF16, 16, "simt"), (BF16, 32, "simt"),
@@ -32,9 +42,25 @@ BF16 = torch.bfloat16
     (BF16, 129, "wide"), (BF16, 256, "wide"), (torch.float32, 160, "wide"),
     (torch.float32, 320, "wide")])
 def test_variant_by_dtype_and_head_dim(dtype, D, variant):
-    """The forward and the backward select alike."""
+    """The forward and the backward select alike, but for bf16 at head_dim
+    129-256, whose backward takes wgmma_wide (:func:`_bwd_expected`)."""
     assert fa._fwd_variant(dtype, D) == variant
-    assert fa._bwd_variant(dtype, D) == variant
+    assert fa._bwd_variant(dtype, D) == _bwd_expected(dtype, D, variant)
+
+
+@pytest.mark.parametrize("dtype,D,fwd,bwd", [
+    (BF16, 129, "wide", "wgmma_wide"), (BF16, 160, "wide", "wgmma_wide"),
+    (BF16, 192, "wide", "wgmma_wide"), (BF16, 193, "wide", "wgmma_wide"),
+    (BF16, 256, "wide", "wgmma_wide"), (BF16, 257, "wide", "wide"),
+    (BF16, 320, "wide", "wide"), (torch.float32, 192, "wide", "wide"),
+    (torch.float32, 256, "wide", "wide"), (BF16, 128, "wgmma", "wgmma")])
+def test_backward_above_128_takes_wgmma_wide_for_bf16_up_to_256(dtype, D,
+                                                                fwd, bwd):
+    """Above head_dim 128 the forward stays wide in both dtypes; the bf16
+    backward takes the tensor-core wgmma_wide kernels at the padded widths
+    192 and 256, and wide beyond them and for f32."""
+    assert fa._fwd_variant(dtype, D) == fwd
+    assert fa._bwd_variant(dtype, D) == bwd
 
 
 @pytest.mark.parametrize("dtype,D,variant", [
@@ -82,7 +108,7 @@ def _bwd_launchers(monkeypatch, calls):
         return launch
 
     for name in ("dq_wgmma", "dkv_wgmma", "dq_simt", "dkv_simt", "dq_wide",
-                 "dkv_wide"):
+                 "dkv_wide", "dq_wgmma_wide", "dkv_wgmma_wide"):
         monkeypatch.setattr(fa, "_flash_%s_cuda" % name, launcher(name))
 
 
@@ -93,13 +119,14 @@ def _bwd_launchers(monkeypatch, calls):
 def test_flash_bwd_cuda_dispatches_by_variant(monkeypatch, dtype, D,
                                               variant):
     """``_flash_bwd_cuda`` hands the inputs to the dQ and the dK/dV
-    launcher its variant names, with the caller's arguments and ``delta``
-    [B, H, Tq]."""
+    launcher its variant names (:func:`_bwd_expected`), with the caller's
+    arguments and ``delta`` [B, H, Tq]."""
     calls = []
     _bwd_launchers(monkeypatch, calls)
     q = torch.zeros(1, 5, 2, D, dtype=dtype)
     lse = torch.zeros(1, 2, 5)
     dq, dk, dv = fa._flash_bwd_cuda(q, q, q, q, lse, q, None, False, 0.5)
+    variant = _bwd_expected(dtype, D, variant)
     assert calls == [("dq_" + variant, D, D, False, 0.5, (1, 2, 5)),
                      ("dkv_" + variant, D, D, False, 0.5, (1, 2, 5))]
     assert dq.shape == dk.shape == dv.shape == q.shape
@@ -152,9 +179,10 @@ def test_head_dim_zero_raises():
 @pytest.mark.parametrize("D,width", [(129, 192), (160, 192), (256, 256),
                                      (320, 320)])
 def test_head_dims_above_128_reach_wide(monkeypatch, dtype, D, width):
-    """Above 128 the forward, dQ and dK/dV go to the wide launchers at the
-    width padded to a multiple of 64, with ``scale`` 1/√D of the real D,
-    and the outputs come back at D."""
+    """Above 128 the forward goes to the wide launcher, and dQ and dK/dV to
+    the wide ones or, for bf16 up to 256, the wgmma_wide ones, at the width
+    padded to a multiple of 64, with ``scale`` 1/√D of the real D; the
+    outputs come back at D."""
     fwd = []
 
     def wide(q, k, v, causal, scale, kv_len):
@@ -175,9 +203,10 @@ def test_head_dims_above_128_reach_wide(monkeypatch, dtype, D, width):
     assert fwd == [(width, width, width, 1.0 / D ** 0.5)]
     assert o.shape == q.shape and o.is_contiguous()
     grads = fa._flash_bwd_cuda(q, q, q, o, lse, q)
+    variant = _bwd_expected(dtype, D, "wide")
     assert [c[:5] for c in bwd] == [
-        ("dq_wide", width, width, True, 1.0 / D ** 0.5),
-        ("dkv_wide", width, width, True, 1.0 / D ** 0.5)]
+        ("dq_" + variant, width, width, True, 1.0 / D ** 0.5),
+        ("dkv_" + variant, width, width, True, 1.0 / D ** 0.5)]
     assert all(g.shape == q.shape and g.is_contiguous() for g in grads)
 
 
@@ -323,6 +352,61 @@ def test_bwd_launchers_refuse_before_any_build(monkeypatch):
                                match="%s's base address" % name):
                 launch(*args, lse, lse)
     assert common.launch_counts() == {}
+
+
+def test_wgmma_wide_launchers_refuse_before_any_build(monkeypatch):
+    """The wgmma_wide backward launchers take bf16 at head_dim 192 or 256
+    only and raise on a misaligned q, k, v or dO, before they build or
+    count anything; never a hand-off to the wide kernels."""
+    from mxnet_tpu_torch.ops.kernels import _build, common
+
+    def no_build(*a, **k):
+        raise AssertionError("built a kernel")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    common.reset_counts()
+    lse = torch.zeros(1, 2, 8)
+    good = torch.zeros(1, 8, 2, 256, dtype=BF16)
+    bad = torch.zeros(8 * 2 * 256 + 1, dtype=BF16)[1:].view(1, 8, 2, 256)
+    for launch in (fa._flash_dq_wgmma_wide_cuda,
+                   fa._flash_dkv_wgmma_wide_cuda):
+        for t in (torch.zeros(1, 8, 2, 256),
+                  torch.zeros(1, 8, 2, 128, dtype=BF16),
+                  torch.zeros(1, 8, 2, 320, dtype=BF16)):
+            with pytest.raises(ValueError, match="wgmma_wide variant.*"
+                               "takes bf16 with head_dim in \\(192, 256\\)"):
+                launch(t, t, t, t, lse, lse)
+        for i, name in enumerate(("q", "k", "v", "dO")):
+            args = [good] * 4
+            args[i] = bad
+            with pytest.raises(ValueError, match="wgmma_wide variant.*%s's "
+                               "base address" % name):
+                launch(*args, lse, lse)
+    assert common.launch_counts() == {}
+
+
+@pytest.mark.parametrize("D", [160, 256])
+def test_wgmma_wide_bwd_copies_a_dout_the_tma_cannot_read(monkeypatch, D):
+    """As for the wgmma variant: a dO whose layout the TMA cannot read is
+    copied before the wgmma_wide launchers see it (bf16, head_dim 160
+    padded to 192, and 256)."""
+    seen = []
+
+    def dq(q, k, v, do, lse, delta, causal, scale):
+        seen.append(do)
+        return torch.zeros_like(q)
+
+    monkeypatch.setattr(fa, "_flash_dq_wgmma_wide_cuda", dq)
+    monkeypatch.setattr(fa, "_flash_dkv_wgmma_wide_cuda",
+                        lambda q, k, v, *a: (torch.zeros_like(k),
+                                             torch.zeros_like(v)))
+    q = torch.zeros(1, 8, 2, D, dtype=BF16)
+    bad = torch.arange(8 * 2 * D + 1).to(BF16)[1:].view(1, 8, 2, D)
+    assert fa._tma_fault("dO", bad)
+    fa._flash_bwd_cuda(q, q, q, q, torch.zeros(1, 2, 8), bad)
+    assert fa._tma_fault("dO", seen[0]) is None
+    assert seen[0].is_contiguous()
+    assert torch.equal(seen[0][..., :D], bad)
 
 
 def test_bwd_copies_a_dout_the_tma_cannot_read(monkeypatch):

@@ -301,9 +301,11 @@ def _plain_launchers(monkeypatch):
     """Route the CUDA wrappers' kernel launchers to the plain versions, so
     that ``_flash_cuda`` / ``_flash_bwd_cuda`` run on CPU tensors: their
     padding along D, the real-D scale and the slicing back run as on the
-    card, with the plain arithmetic in place of the kernels."""
+    card, with the plain arithmetic in place of the kernels.  Returns the
+    module, the forward's widths and the backward's variants, one per
+    backward."""
     fa = importlib.import_module("mxnet_tpu_torch.ops.kernels.flash_attention")
-    widths = []
+    widths, bwd_variants = [], []
 
     def fwd(q, k, v, causal, scale, kv_len):
         widths.append(q.shape[-1])
@@ -315,13 +317,20 @@ def _plain_launchers(monkeypatch):
         return flash_attention_bwd_reference(q, k, v, torch.zeros_like(do),
                                              lse, do, -delta, causal, scale)
 
+    def dq_launcher(variant):
+        def dq(*a):
+            bwd_variants.append(variant)
+            return bwd(*a)[0]
+        return dq
+
     for name in ("wgmma", "simt", "wide"):
         monkeypatch.setattr(fa, "_flash_%s_cuda" % name, fwd)
-        monkeypatch.setattr(fa, "_flash_dq_%s_cuda" % name,
-                            lambda *a: bwd(*a)[0])
+    # bf16 at head_dim 129-256 runs its backward on wgmma_wide
+    for name in ("wgmma", "simt", "wide", "wgmma_wide"):
+        monkeypatch.setattr(fa, "_flash_dq_%s_cuda" % name, dq_launcher(name))
         monkeypatch.setattr(fa, "_flash_dkv_%s_cuda" % name,
                             lambda *a: bwd(*a)[1:])
-    return fa, widths
+    return fa, widths, bwd_variants
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -337,7 +346,7 @@ def test_padded_head_dims_match_pallas_kernels(monkeypatch, D, width, dtype):
     which the two forwards' o may differ enters delta = rowsum(dO∘O) over
     more than 128 terms, which moves a few cancelling gradient entries
     past one rounding (D 160: 4 of 11840 dQ entries)."""
-    fa, widths = _plain_launchers(monkeypatch)
+    fa, widths, bwd_variants = _plain_launchers(monkeypatch)
     B, T, H, causal = 1, 37, 2, True
     q, k, v = _qkv(B, T, T, H, D, dtype)
     do = _np((B, T, H, D), 17, dtype)
@@ -364,6 +373,9 @@ def test_padded_head_dims_match_pallas_kernels(monkeypatch, D, width, dtype):
             assert g.shape == (B, T, H, D) and g.dtype == tq.dtype
             np.testing.assert_allclose(_f32(g), _f32(w), err_msg="d" + name,
                                        **gtol)
+    assert set(bwd_variants) == {fa._bwd_variant(tq.dtype, D)}
+    if dtype == "bfloat16" and D > 128:
+        assert bwd_variants[0] == "wgmma_wide"
 
 
 XENT_CASES = [

@@ -242,3 +242,54 @@ def test_sharding_rules_not_ported():
     assert torch.equal(l0, l1)
     for k in p0:
         assert torch.equal(p0[k], p1[k]) and torch.equal(v0[k], v1[k])
+
+
+# head_dim 256 (d_model 512, 2 heads): Gemma-style widths, whose flash
+# backward runs on the tensor-core wgmma_wide kernels on the card in bf16
+HD256 = dict(vocab_size=VOCAB, d_model=512, n_heads=2, n_layers=2,
+             d_ff=256, max_len=64)
+_HD256_CACHE = {}
+
+
+def _hd256_models(dtype):
+    """The JAX model at head_dim 256 with its parameters, and the port's
+    on the flash route from the same numpy weights."""
+    if dtype not in _HD256_CACHE:
+        jm = jtf.TransformerLM(jtf.TransformerConfig(**HD256, dtype=dtype))
+        _HD256_CACHE[dtype] = (jm, jm.init(jax.random.PRNGKey(0)))
+    jm, params = _HD256_CACHE[dtype]
+    m = TransformerLM(TransformerConfig(**HD256, dtype=dtype,
+                                        dense_attn_max_score_mb=0),
+                      device="cpu").load_jax_params(
+        {k: np.asarray(v) for k, v in params.items()})
+    assert m.cfg.head_dim == 256
+    return jm, params, m
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_256_flash_step_matches_jax(monkeypatch, dtype):
+    """At head_dim 256 on the flash route (Pallas kernels through the
+    interpreter on JAX's side): one SGD-momentum step's loss, parameters
+    and velocity match the JAX step at the bounds above, and every flash
+    backward ran (one per layer)."""
+    monkeypatch.setenv("MXTPU_PALLAS", "interpret")
+    jm, params, m = _hd256_models(dtype)
+    toks, tgts = _batch(seed=21)
+    jp, jv, jloss = jax.jit(jtf.make_train_step(jm))(
+        params, jax.tree_util.tree_map(jnp.zeros_like, params),
+        jnp.asarray(toks, jnp.int32), jnp.asarray(tgts, jnp.int32))
+    p, v = _port_dicts(m)
+    common.reset_counts()
+    _, _, loss = make_train_step(m)(p, v, torch.from_numpy(toks),
+                                    torch.from_numpy(tgts))
+    sel = common.selection_counts()
+    assert sel["kernels.select.flash_attention_bwd.reference"] == 2
+    if dtype == "float32":
+        np.testing.assert_allclose(float(loss), float(jloss), rtol=LOSS_RTOL)
+    else:
+        assert abs(float(loss) - float(jloss)) <= BF16_LOSS_ATOL
+    for name in p:
+        prel, vrel = ((GRAD_REL, GRAD_REL) if dtype == "float32"
+                      else (BF16_PARAM_REL, BF16_VELOCITY_REL))
+        _close_rel(p[name], jp[name], prel, name)
+        _close_rel(v[name], jv[name], vrel, "v " + name)
