@@ -18,8 +18,8 @@ on the card:
   d_ff 4096, bf16, remat, batch 1 x 8192: bench.py's long-context leg),
   which crosses the dense->flash gate and so runs the flash forward, dQ
   and dK/dV kernels, and on the same configuration with 4 heads of 256
-  (Gemma-style head_dim), whose flash forward runs the wide variant and
-  whose dQ and dK/dV run the tensor-core wgmma_wide kernels;
+  (Gemma-style head_dim), whose flash forward, dQ and dK/dV run the
+  tensor-core wgmma_wide kernels;
 * INT8 inference — the symbolic ResNet-50 (``models/resnet_symbol.py``,
   1000 classes, 3x224x224) is calibrated, quantized, BN-folded and
   int8-fused by ``contrib.quantization.quantize_model``, bound, and run at
@@ -66,7 +66,8 @@ Phases, in order; any failure raises and exits non-zero:
 2. build   — ``nvcc`` builds every kernel from ``mxnet_tpu_torch/ops/
    kernels/csrc`` (in parallel), with the ptxas register/spill report and
    one line per instantiation of the tensor-core flash kernels (forward,
-   dQ and dK/dV at head_dim 64 and 128), of the wide flash kernels, of
+   dQ and dK/dV at head_dim 64 and 128; wgmma_wide at 192 and 256), of
+   the wide flash kernels, of
    the int8 matmul and of the RMSNorm variants; none but the int8 ``mma``
    kernel may spill;
 3. kernels — each kernel against its plain version at the flagship's
@@ -84,10 +85,12 @@ Phases, in order; any failure raises and exits non-zero:
    are all held against the plain version and timed in turns; the
    backward is also held against autograd through the dense forward and
    two of its calls must agree bit for bit; head_dim 96 runs padded to
-   128; head dims 160, 256 and 320 run the wide variant forward, and the
-   bf16 backward at 160, 192 and 256 the tensor-core wgmma_wide variant
-   (at [1, 4096, 16, 256] timed in turns with wide; also at the
-   head_dim-256 leg's [1, 8192, 4, 256] and with Tq != Tk).  The int8
+   128; in bf16, head dims 160, 192 and 256 run the tensor-core
+   wgmma_wide forward and backward (at [1, 4096, 16, 256] both held
+   against the plain version beside their CUDA-core twin, wide, and
+   timed in turns with it; also at the head_dim-256 leg's [1, 8192, 4,
+   256] and with Tq != Tk), and f32 above 128 and bf16 at 320 the wide
+   variant.  The int8
    matmul's planned variant and, where that is wgmma, its mma variant are
    held bit for bit to the plain version and timed in turns beside
    ``torch._int_mm``;
@@ -385,8 +388,8 @@ TRAIN_CELLS = (
      1024),
     ("longctx_b1_t8192", LONGCTX, 1, 8192),
     # the long-context configuration with 4 heads of 256 (Gemma-style
-    # head_dim): the flash forward on the wide variant, the backward on the
-    # tensor-core wgmma_wide kernels
+    # head_dim): the flash forward and backward on the tensor-core
+    # wgmma_wide kernels
     ("longctx_hd256_b1_t8192", LONGCTX_HD256, 1, 8192),
 )
 TRAIN_STEPS = 3
@@ -394,9 +397,9 @@ TRAIN_STEPS = 3
 # and once before the logits, and with remat once more per block for the
 # recomputed forward, every one through the warp variant (8192 rows); flash
 # forward per block (twice with remat), every
-# one through the tensor-core variant (bf16, head_dim 64; at head_dim 256
-# through wide), dQ and dK/dV once per block, also through the tensor-core
-# variant (wgmma; wgmma_wide at head_dim 256); the softmax cross-entropy
+# one through the tensor-core variant (bf16: wgmma at head_dim 64,
+# wgmma_wide at 256), dQ and dK/dV once per block, also through the
+# tensor-core variant; the softmax cross-entropy
 # once each way
 EXPECTED_LAUNCHES = {
     "flagship_b8_t1024": {"fused_rmsnorm": 9, "fused_rmsnorm.warp": 9,
@@ -412,7 +415,7 @@ EXPECTED_LAUNCHES = {
                          "fused_softmax_xent_bwd": 1},
     "longctx_hd256_b1_t8192": {"fused_rmsnorm": 17, "fused_rmsnorm.warp": 17,
                                "flash_attention": 8,
-                               "flash_attention.wide": 8,
+                               "flash_attention.wgmma_wide": 8,
                                "flash_attention_dq": 4,
                                "flash_attention_dkv": 4,
                                "flash_attention_dq.wgmma_wide": 4,
@@ -869,9 +872,9 @@ def phase_build():
     # each instantiation's registers and spills: the tensor-core flash
     # kernels, the wide flash kernels, the int8 matmul and the RMSNorm
     # variants, none of which may spill but the int8 mma kernel
-    for src in ("flash_attention_wgmma", "flash_attention_bwd_wgmma",
-                "flash_attention_bwd_wgmma_wide", "flash_attention_wide",
-                "int8_matmul", "rmsnorm"):
+    for src in ("flash_attention_wgmma", "flash_attention_wgmma_wide",
+                "flash_attention_bwd_wgmma", "flash_attention_bwd_wgmma_wide",
+                "flash_attention_wide", "int8_matmul", "rmsnorm"):
         for kernel, line in _ptxas_summary(built[src]["log"]):
             print("build %s %s" % (src, line), flush=True)
             if kernel != "int8_mm_kernel":
@@ -1061,20 +1064,32 @@ def _rmsnorm_bwd_plain_case(shape, gen):
     return rec
 
 
+# the CUDA-core variant each tensor-core variant of the forward and of the
+# backward is timed against in turns (``variants=True``)
+CUDA_CORE_TWIN = {"wgmma": "simt", "wgmma_wide": "wide"}
+
+
 def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
                 variants=False):
-    """The flash forward against its plain version.  ``variants``: also
-    hold the CUDA-core (simt) variant against the plain version, and time
-    the tensor-core one and it in turns (wgmma, simt, simt, wgmma); ``ms``
-    is then the tensor-core variant's mean of its two turns."""
+    """The flash forward of the variant ``_variant`` names against its
+    plain version.  ``variants``: that variant is a tensor-core one; also
+    hold its CUDA-core twin (``CUDA_CORE_TWIN``: simt for wgmma, wide for
+    wgmma_wide) against the plain version, and time the two in turns
+    (tensor-core, CUDA-core, CUDA-core, tensor-core); ``ms`` is then the
+    tensor-core variant's mean of its two turns.  ``variants`` needs a
+    head_dim the kernels have."""
     import torch
     import torch.nn.functional as F
     # (the package exports a function under this module's name)
     from mxnet_tpu_torch.ops.kernels.flash_attention import (
-        _flash_cuda, _flash_simt_cuda, _flash_wgmma_cuda, _fwd_variant,
+        _flash_cuda, _flash_simt_cuda, _flash_wgmma_cuda,
+        _flash_wgmma_wide_cuda, _flash_wide_cuda, _variant,
         flash_attention_reference)
 
     dt = getattr(torch, dtype_name)
+    launchers = {"wgmma": _flash_wgmma_cuda,
+                 "wgmma_wide": _flash_wgmma_wide_cuda,
+                 "simt": _flash_simt_cuda, "wide": _flash_wide_cuda}
 
     def rnd(T):
         return torch.randn((B, T, H, D), generator=gen, device="cuda").to(dt)
@@ -1097,18 +1112,19 @@ def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     nbytes = isz * B * H * D * (2 * Tq + 2 * Tk) + 4 * B * H * Tq
     bound, by = _bound(4.0 * D * B * H * pairs, nbytes, dtype_name)
     args = _copies((q, k, v))
-    variant = _fwd_variant(q.dtype, D)
+    variant = _variant(q.dtype, D)
+    twin = CUDA_CORE_TWIN.get(variant)
     turns = {}
     if variants:
-        _check(variant == "wgmma", "flash_attention %s %s takes the %s "
+        _check(twin is not None, "flash_attention %s %s takes the %s "
                "variant" % ([B, Tq, H, D], dtype_name, variant))
-        so, slse = _flash_simt_cuda(q, k, v, causal)
+        to, tlse = launchers[twin](q, k, v, causal)
         torch.cuda.synchronize()
-        simt_err, ok_so = _err(so, o_ref, atol, rtol)
-        simt_lse_err, ok_sl = _err(slse, lse_ref, 1e-4, 1e-5)
-        del so, slse
-        for name in ("wgmma", "simt", "simt", "wgmma"):
-            fn = _flash_wgmma_cuda if name == "wgmma" else _flash_simt_cuda
+        twin_err, ok_to = _err(to, o_ref, atol, rtol)
+        twin_lse_err, ok_tl = _err(tlse, lse_ref, 1e-4, 1e-5)
+        del to, tlse
+        for name in (variant, twin, twin, variant):
+            fn = launchers[name]
             turns.setdefault(name, []).append(_time_ms(
                 lambda q, k, v, fn=fn: fn(q, k, v, causal), args))
     rec = {
@@ -1117,7 +1133,7 @@ def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
         "causal": causal, "dtype": dtype_name, "max_abs_err": err,
         "atol": atol, "rtol": rtol, "lse_max_abs_err": lse_err,
         "ok": ok_o and ok_l,
-        "ms": (statistics.mean(turns["wgmma"]) if turns else _time_ms(
+        "ms": (statistics.mean(turns[variant]) if turns else _time_ms(
             lambda q, k, v: _flash_cuda(q, k, v, causal), args)),
         "plain_ms": _time_ms(lambda q, k, v: flash_attention_reference(
             q, k, v, causal, return_lse=True), args, rounds=1),
@@ -1128,20 +1144,22 @@ def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
                 is_causal=causal), args),
         "bound_ms": bound, "bound_by": by,
     }
+    rec["ms_over_bound"] = rec["ms"] / bound
     if turns:
+        twin_ms = statistics.mean(turns[twin])
         rec.update({
-            "wgmma_ms_turns": turns["wgmma"], "simt_ms_turns": turns["simt"],
-            "simt_ms": statistics.mean(turns["simt"]),
-            "simt_over_wgmma": (statistics.mean(turns["simt"])
-                                / statistics.mean(turns["wgmma"])),
-            "simt_max_abs_err": simt_err,
-            "simt_lse_max_abs_err": simt_lse_err})
-        rec["ok"] = rec["ok"] and ok_so and ok_sl
+            "%s_ms_turns" % variant: turns[variant],
+            "%s_ms_turns" % twin: turns[twin],
+            "%s_ms" % twin: twin_ms,
+            "%s_over_%s" % (twin, variant): twin_ms / rec["ms"],
+            "%s_max_abs_err" % twin: twin_err,
+            "%s_lse_max_abs_err" % twin: twin_lse_err})
+        rec["ok"] = rec["ok"] and ok_to and ok_tl
     _emit(rec)
-    _check(rec["ok"], "flash_attention %s disagrees with its plain "
+    _check(rec["ok"], "flash_attention %s %s disagrees with its plain "
            "version (o err %g, lse err %g%s)" % (
-               rec["q"], err, lse_err,
-               "; simt o err %g, lse err %g" % (simt_err, simt_lse_err)
+               rec["q"], variant, err, lse_err,
+               "; %s o err %g, lse err %g" % (twin, twin_err, twin_lse_err)
                if turns else ""))
     return rec
 
@@ -1225,18 +1243,13 @@ def _xent_case(N, V, dtype_name, gen):
     return fwd, bwd
 
 
-# the CUDA-core variant each tensor-core backward variant is timed against
-# in turns (``_flash_bwd_case(variants=True)``)
-BWD_CUDA_CORE_TWIN = {"wgmma": "simt", "wgmma_wide": "wide"}
-
-
 def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
                     with_dlse=False, variants=False):
-    """The dQ and the dK/dV kernel of the variant ``_bwd_variant`` names
+    """The dQ and the dK/dV kernel of the variant ``_variant`` names
     against the plain backward and autograd through the dense forward, and
     two calls bit for bit (no atomics): two records.  ``variants``: the
     variant is a tensor-core one; also hold its CUDA-core twin
-    (``BWD_CUDA_CORE_TWIN``: simt for wgmma, wide for wgmma_wide) against
+    (``CUDA_CORE_TWIN``: simt for wgmma, wide for wgmma_wide) against
     the plain backward and time the two in turns (tensor-core, CUDA-core,
     CUDA-core, tensor-core); ``ms`` is then the tensor-core kernel's mean
     of its two turns.  A head dim the kernels lack is timed at its padded
@@ -1244,12 +1257,12 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops.kernels.flash_attention import (
-        _bwd_variant, _delta, _flash_bwd_cuda, _flash_cuda,
+        _delta, _flash_bwd_cuda, _flash_cuda,
         _flash_dkv_simt_cuda, _flash_dkv_wgmma_cuda,
         _flash_dkv_wgmma_wide_cuda, _flash_dkv_wide_cuda,
         _flash_dq_simt_cuda, _flash_dq_wgmma_cuda, _flash_dq_wgmma_wide_cuda,
         _flash_dq_wide_cuda, _pad_d, _padded_dim,
-        flash_attention_bwd_reference, flash_attention_reference)
+        _variant, flash_attention_bwd_reference, flash_attention_reference)
 
     dt = getattr(torch, dtype_name)
     scale = 1.0 / D ** 0.5
@@ -1320,8 +1333,8 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     width = _padded_dim(D)
     args = _copies(tuple(_pad_d(t, width) for t in (q, k, v, do))
                    + (lse, delta))
-    variant = _bwd_variant(q.dtype, D)
-    twin = BWD_CUDA_CORE_TWIN.get(variant)
+    variant = _variant(q.dtype, D)
+    twin = CUDA_CORE_TWIN.get(variant)
     twin_errs = {}
     if variants:
         _check(twin is not None, "flash backward %s %s takes the %s "
@@ -1394,9 +1407,10 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
 
 
 def _twin_record(rec):
-    """A ``_flash_bwd_case(variants=True)`` record as its CUDA-core twin's:
-    the twin's time and error at the same shape, the same bound."""
-    twin = BWD_CUDA_CORE_TWIN[rec["variant"]]
+    """A ``_flash_case`` or ``_flash_bwd_case`` record made with
+    ``variants=True`` as its CUDA-core twin's: the twin's time and error at
+    the same shape, the same bound."""
+    twin = CUDA_CORE_TWIN[rec["variant"]]
     out = dict(rec, variant=twin, ms=rec["%s_ms" % twin],
                max_abs_err=rec["%s_max_abs_err" % twin])
     out["ms_over_bound"] = out["ms"] / out["bound_ms"]
@@ -1517,31 +1531,35 @@ def phase_kernels():
                     with_dlse=True)
     _flash_bwd_case(2, 1024, 1024, 8, 64, True, "float32", gen,
                     with_dlse=True)
-    # head dims above 128: the forward on the wide variant in both dtypes
-    # (160 and 256 pad to 192 and 256; 320 is three column chunks of at most
-    # 128); the bf16 backward at padded 192 and 256 on the tensor-core
-    # wgmma_wide kernels, timed in turns with the wide ones; the f32
-    # backward and bf16's at 320 on wide
+    # head dims above 128 (160 pads to 192; 320 is three column chunks of
+    # at most 128): bf16 at padded 192 and 256 on the tensor-core
+    # wgmma_wide forward and backward, timed in turns with their wide
+    # twins; f32, and bf16 at 320, on wide
     for dt in ("bfloat16", "float32"):
-        fwd = _flash_case(1, 4096, 4096, 16, 256, True, dt, gen)
+        fwd = _flash_case(1, 4096, 4096, 16, 256, True, dt, gen,
+                          variants=dt == "bfloat16")
         dq, dkv = _flash_bwd_case(1, 4096, 4096, 16, 256, True, dt, gen,
                                   with_dlse=dt == "float32",
                                   variants=dt == "bfloat16")
         if dt == "bfloat16":
-            main["flash_attention.wide"] = fwd
+            main["flash_attention.wgmma_wide"] = fwd
+            main["flash_attention.wide"] = _twin_record(fwd)
             main["flash_attention_dq.wgmma_wide"] = dq
             main["flash_attention_dkv.wgmma_wide"] = dkv
             main["flash_attention_dq.wide"] = _twin_record(dq)
             main["flash_attention_dkv.wide"] = _twin_record(dkv)
     # the head_dim-256 training leg's attention ([1, 8192, 4, 256]), D 192,
-    # and Tq != Tk
+    # Tq != Tk, and head_dim 160 (padded to 192)
     _flash_case(1, 8192, 8192, 4, 256, True, "bfloat16", gen)
     _flash_bwd_case(1, 8192, 8192, 4, 256, True, "bfloat16", gen)
+    _flash_case(1, 4096, 4096, 16, 192, True, "bfloat16", gen)
     _flash_bwd_case(1, 4096, 4096, 16, 192, True, "bfloat16", gen)
+    _flash_case(1, 1000, 3000, 16, 256, False, "bfloat16", gen)
     _flash_bwd_case(1, 1000, 3000, 16, 256, False, "bfloat16", gen)
     _flash_case(2, 1000, 1000, 4, 320, False, "bfloat16", gen)
     _flash_bwd_case(2, 1000, 1000, 4, 320, False, "bfloat16", gen)
     _flash_case(1, 777, 777, 4, 160, True, "float32", gen)
+    _flash_case(1, 777, 777, 4, 160, True, "bfloat16", gen)
     _flash_bwd_case(1, 777, 777, 4, 160, True, "bfloat16", gen,
                     with_dlse=True)
     _flash_bwd_case(1, 1000, 3000, 16, 64, False, "bfloat16", gen)
@@ -5462,6 +5480,8 @@ VARIANT_SOURCES = {
                       "block": _CSRC + "rmsnorm.cu",
                       "simt": _CSRC + "rmsnorm.cu"},
     "flash_attention": {"wgmma": _CSRC + "flash_attention_wgmma.cu",
+                        "wgmma_wide":
+                            _CSRC + "flash_attention_wgmma_wide.cu",
                         "simt": _CSRC + "flash_attention.cu",
                         "wide": _CSRC + "flash_attention_wide.cu"},
     "flash_attention_dq": {"wgmma": _CSRC + "flash_attention_bwd_wgmma.cu",
@@ -5566,10 +5586,10 @@ def main():
         "flash_attention_dkv": (
             "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd_wgmma.cu",
             "mxnet_tpu/ops/pallas/flash_attention.py:179"),
-        # the head_dim-256 training leg's: the forward on the CUDA-core wide
-        # variant, dQ and dK/dV on the tensor-core wgmma_wide kernels
-        "flash_attention.wide": (
-            "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_wide.cu",
+        # the head_dim-256 training leg's: the forward, dQ and dK/dV on the
+        # tensor-core wgmma_wide kernels
+        "flash_attention.wgmma_wide": (
+            "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_wgmma_wide.cu",
             "mxnet_tpu/ops/pallas/flash_attention.py:55"),
         "flash_attention_dq.wgmma_wide": (
             "mxnet_tpu_torch/ops/kernels/csrc/"

@@ -86,7 +86,6 @@ constexpr int NT = NCONS + 128;  // and the producer warpgroup
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr float kNeg = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Byte offsets in the (1024-aligned) dynamic shared memory.  Every tile is
 // D / 64 panels of [rows][64] bf16, 128 bytes a row, swizzled by the TMA
@@ -186,73 +185,6 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
     wgmma_rs<D>(acc, pl[kk], dv);
   }
   wgmma_commit();
-}
-
-// One tile's online-softmax step on the raw scores S = q.k (rows r0 and
-// r1 of this thread, keys from k0): s = S * scale, masked to -1e30 where
-// the tile needs the mask; the new running max; alpha = exp(m_old - m_new)
-// per row; S := p = exp(s - m_new) in place (f32); l := l * alpha +
-// rowsum(p); m := m_new.  On a tile without the mask, s is never formed:
-// max(S) * scale is max(s) exactly (scale > 0), and exp(s - m_new) is
-// 2^(S * scale * log2(e) - m_new * log2(e)), one FFMA and one MUFU.
-// S[i] is row r0 if (i & 2) == 0 else r1, key k0 + (i >> 2) * 8 + cq +
-// (i & 1).  The 4 lanes of a quad share a row.
-__device__ __forceinline__ void softmax_step(
-    float (&S)[BK / 2], bool masked, int k0, int r0, int r1, int cq,
-    float scale, int causal, int kv_len, float& m0, float& m1, float& l0,
-    float& l1, float& al0, float& al1) {
-  constexpr int NS = BK / 2;
-  if (masked) {
-#pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      const int kpos = k0 + (i >> 2) * 8 + cq + (i & 1);
-      const int qpos = (i & 2) ? r1 : r0;
-      const bool ok = kpos < kv_len && (!causal || qpos >= kpos);
-      S[i] = ok ? S[i] * scale : kNeg;
-    }
-  }
-  float mx0 = kNeg, mx1 = kNeg;
-#pragma unroll
-  for (int i = 0; i < NS; ++i) {
-    if (i & 2)
-      mx1 = fmaxf(mx1, S[i]);
-    else
-      mx0 = fmaxf(mx0, S[i]);
-  }
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-  }
-  if (!masked) {
-    mx0 *= scale;
-    mx1 *= scale;
-  }
-  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-  al0 = ex2((m0 - mn0) * kLog2e);
-  al1 = ex2((m1 - mn1) * kLog2e);
-  const float f = masked ? kLog2e : scale * kLog2e;
-  const float b0 = -mn0 * kLog2e, b1 = -mn1 * kLog2e;
-  float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-  for (int i = 0; i < NS; ++i) {
-    if (i & 2) {
-      S[i] = ex2(fmaf(S[i], f, b1));
-      rs1 += S[i];
-    } else {
-      S[i] = ex2(fmaf(S[i], f, b0));
-      rs0 += S[i];
-    }
-  }
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    rs0 += __shfl_xor_sync(0xffffffffu, rs0, off);
-    rs1 += __shfl_xor_sync(0xffffffffu, rs1, off);
-  }
-  l0 = l0 * al0 + rs0;
-  l1 = l1 * al1 + rs1;
-  m0 = mn0;
-  m1 = mn1;
 }
 
 // A consumer warpgroup: 64 query rows.  Software-pipelined by one tile:

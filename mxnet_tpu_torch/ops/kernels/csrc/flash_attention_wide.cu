@@ -1,12 +1,12 @@
 // Flash attention for head dims above 128 on Hopper (sm_90a), CUDA C++: the
 // "wide" variant of the forward, dQ and dK/dV, on the CUDA cores.
 //
-// The wrapper (flash_attention.py, _fwd_variant / _bwd_variant) sends here,
-// zero-padded along D to a multiple of 64 (zero columns add 0 to q.k^T and
-// dO.v^T; `scale` stays 1/sqrt of the real head_dim), the forward at every
-// head_dim above 128 in f32 and bf16, and the backward of f32 above 128 and
-// of bf16 above 256 (bf16 at 129-256 takes the tensor-core wgmma_wide
-// backward, flash_attention_bwd_wgmma_wide.cu).  Neither the wgmma kernels'
+// The wrapper (flash_attention.py, _variant) sends here, zero-padded along
+// D to a multiple of 64 (zero columns add 0 to q.k^T and dO.v^T; `scale`
+// stays 1/sqrt of the real head_dim), the forward and the backward of f32
+// above head_dim 128 and of bf16 above 256 (bf16 at 129-256 takes the
+// tensor-core wgmma_wide kernels, flash_attention_wgmma_wide.cu and
+// flash_attention_bwd_wgmma_wide.cu).  Neither the tensor-core kernels'
 // shared-memory tiles nor the simt kernels' (which hold q, k and v whole
 // along D) reach these widths.
 //

@@ -1,10 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels: the
 // flash kernels (flash_attention_wgmma.cu, the forward;
-// flash_attention_bwd_wgmma.cu, dQ and dK/dV) and the int8 matmul
+// flash_attention_bwd_wgmma.cu, dQ and dK/dV; their wgmma_wide twins at
+// head_dim 192 and 256) and the int8 matmul
 // (int8_matmul.cu, its wgmma variant).  mbarriers, TMA loads, 128-byte-
 // swizzled wgmma descriptors, the wgmma shapes the kernels issue (bf16 with
-// f32 accumulation; s8 with s32 accumulation), and the host-side tensor maps
-// over [B, T, H, D] bf16 tensors and over [rows, K] int8 matrices.  Included
+// f32 accumulation; s8 with s32 accumulation), the flash kernels' hi / lo
+// split of an f32 operand and the forwards' online-softmax step, and the
+// host-side tensor maps over [B, T, H, D] bf16 tensors and over [rows, K]
+// int8 matrices.  Included
 // by each source; everything sits in an anonymous namespace, so each library
 // keeps its own copy.
 
@@ -190,6 +193,77 @@ __device__ __forceinline__ void split_hi_lo(const float (&x)[NS],
       lo[kk][r] = bits(l);
     }
   }
+}
+
+// One key tile's online-softmax step of the tensor-core flash forwards,
+// on the raw scores S = q.k of an f32 wgmma accumulator (NS registers:
+// rows r0 and r1 of this thread, keys from k0): s = S * scale, masked to
+// -1e30 where (k_pos >= kv_len) or (causal and q_pos < k_pos) if the tile
+// needs the mask; the new running max; alpha = exp(m_old - m_new) per row;
+// S := p = exp(s - m_new) in place (f32); l := l * alpha + rowsum(p); m :=
+// m_new.  On a tile without the mask, s is never formed: max(S) * scale is
+// max(s) exactly (scale > 0), and exp(s - m_new) is 2^(S * scale * log2(e)
+// - m_new * log2(e)), one FFMA and one MUFU.  S[i] is row r0 if (i & 2) ==
+// 0 else r1, key k0 + (i >> 2) * 8 + cq + (i & 1).  The 4 lanes of a quad
+// share a row.
+template <int NS>
+__device__ __forceinline__ void softmax_step(
+    float (&S)[NS], bool masked, int k0, int r0, int r1, int cq,
+    float scale, int causal, int kv_len, float& m0, float& m1, float& l0,
+    float& l1, float& al0, float& al1) {
+  constexpr float kNegS = -1e30f;
+  constexpr float kLog2eS = 1.4426950408889634f;
+  if (masked) {
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int kpos = k0 + (i >> 2) * 8 + cq + (i & 1);
+      const int qpos = (i & 2) ? r1 : r0;
+      const bool ok = kpos < kv_len && (!causal || qpos >= kpos);
+      S[i] = ok ? S[i] * scale : kNegS;
+    }
+  }
+  float mx0 = kNegS, mx1 = kNegS;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    if (i & 2)
+      mx1 = fmaxf(mx1, S[i]);
+    else
+      mx0 = fmaxf(mx0, S[i]);
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  if (!masked) {
+    mx0 *= scale;
+    mx1 *= scale;
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  al0 = ex2((m0 - mn0) * kLog2eS);
+  al1 = ex2((m1 - mn1) * kLog2eS);
+  const float f = masked ? kLog2eS : scale * kLog2eS;
+  const float b0 = -mn0 * kLog2eS, b1 = -mn1 * kLog2eS;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    if (i & 2) {
+      S[i] = ex2(fmaf(S[i], f, b1));
+      rs1 += S[i];
+    } else {
+      S[i] = ex2(fmaf(S[i], f, b0));
+      rs0 += S[i];
+    }
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    rs0 += __shfl_xor_sync(0xffffffffu, rs0, off);
+    rs1 += __shfl_xor_sync(0xffffffffu, rs1, off);
+  }
+  l0 = l0 * al0 + rs0;
+  l1 = l1 * al1 + rs1;
+  m0 = mn0;
+  m1 = mn1;
 }
 
 // d = A·B (d is written, not read), operands as wgmma_ss_n128

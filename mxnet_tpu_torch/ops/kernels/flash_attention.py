@@ -20,9 +20,9 @@ head_dim 16, 32, 64 or 128, or above 128 any multiple of 64; any other
 head_dim is zero-padded along D to the next of those widths (a layout copy:
 zero columns add 0 to q·kᵀ and dO·Vᵀ), run at that width with ``scale``
 fixed from the real head_dim, and sliced back (:func:`_padded_dim`).  Only
-head_dim 0 raises.  The forward and the backward each have three variants,
-chosen by dtype and padded head_dim alone (:func:`_fwd_variant`,
-:func:`_bwd_variant`), never by whether a build or a launch worked:
+head_dim 0 raises.  The forward and the backward (dQ and dK/dV) each have
+four variants, chosen by one rule on dtype and padded head_dim alone
+(:func:`_variant`), never by whether a build or a launch worked:
 
 * ``wgmma`` — tensor cores (wgmma, TMA rings, the f32 operands p and ds
   split into two bf16 terms): bf16 at head_dim 64 or 128 (the flagship's
@@ -32,12 +32,14 @@ chosen by dtype and padded head_dim alone (:func:`_fwd_variant`,
   16-byte-aligned bases and (B, T, H) strides that are multiples of 8
   elements (:func:`_check_wgmma` raises otherwise; the backward copies the
   internal cotangent ``dO`` instead);
-* ``wgmma_wide`` — the backward only (dQ and dK/dV), tensor cores as
-  ``wgmma``: bf16 at a padded head_dim of 192 or 256 (head_dim 129-256;
-  Gemma-style models' 256).  Each CTA owns 64 output rows and its two
-  consumer warpgroups split the output's columns
-  (``csrc/flash_attention_bwd_wgmma_wide.cu``).  The same preconditions
-  and the same copy of ``dO`` as ``wgmma``;
+* ``wgmma_wide`` — tensor cores as ``wgmma``: bf16 at a padded head_dim of
+  192 or 256 (head_dim 129-256; Gemma-style models' 256).  Forward
+  ``csrc/flash_attention_wgmma_wide.cu`` (the wgmma forward's layout with
+  key tiles of 64, so that a warpgroup's accumulator, scores and split p
+  fit its registers); backward ``csrc/flash_attention_bwd_wgmma_wide.cu``
+  (CTAs of 64 output rows whose two consumer warpgroups split the output's
+  columns).  The same preconditions and the same copy of ``dO`` as
+  ``wgmma``;
 * ``simt`` — CUDA cores: f32 up to head_dim 128 (the tensor cores have no
   f32 operand that keeps q·kᵀ exact) and head_dim 16 or 32 (less than one
   128-byte row of the swizzled tiles the wgmma variant reads).  Forward
@@ -45,10 +47,9 @@ chosen by dtype and padded head_dim alone (:func:`_fwd_variant`,
 * ``wide`` — CUDA cores, above head_dim 128 (padded to a multiple of 64):
   the dot products over D walk it in chunks of 64 and each CTA owns at
   most 128 output columns, so any head_dim fits
-  (``csrc/flash_attention_wide.cu``: forward, dQ and dK/dV).  The forward
-  of every dtype above 128, and the backward of f32 above 128 and of bf16
-  above 256 (a third 64-column panel per warpgroup would not fit
-  ``wgmma_wide``'s registers).
+  (``csrc/flash_attention_wide.cu``: forward, dQ and dK/dV).  f32 above
+  128, and bf16 above 256 (a third pair of 64-column panels would not fit
+  the ``wgmma_wide`` kernels' registers).
 
 Every forward launch counts as ``kernels.launch.flash_attention`` and as
 ``kernels.launch.flash_attention.<variant>``; every backward launch as
@@ -76,8 +77,8 @@ __all__ = ["flash_attention", "flash_attention_lse", "flash_self_attention",
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)      # the widths the kernels are built for
-_WGMMA_HEAD_DIMS = (64, 128)
-_WGMMA_WIDE_HEAD_DIMS = (192, 256)  # the wgmma_wide backward's widths
+# the tensor-core variants' widths
+_TC_WIDTHS = {"wgmma": (64, 128), "wgmma_wide": (192, 256)}
 _WIDE_CHUNK = 64                    # above 128, widths are multiples of it
 _BWD_ROWS = 64                      # lse/delta rows per tile of the wgmma dK/dV
 
@@ -155,14 +156,16 @@ def _configure(lib):
     lib.mxt_flash_error_string.restype = ctypes.c_char_p
 
 
-def _configure_wgmma(lib):
+def _configure_fwd_tc(prefix, lib):
+    """The tensor-core forward libraries' entry points ``<prefix>_fwd`` and
+    ``<prefix>_error_string``."""
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.mxt_flash_wgmma_fwd.argtypes = (
+    getattr(lib, prefix + "_fwd").argtypes = (
         [vp] * 5 + [i] * 5
         + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, i, i, vp])
-    lib.mxt_flash_wgmma_fwd.restype = ctypes.c_int
-    lib.mxt_flash_wgmma_error_string.argtypes = [i]
-    lib.mxt_flash_wgmma_error_string.restype = ctypes.c_char_p
+    getattr(lib, prefix + "_fwd").restype = ctypes.c_int
+    getattr(lib, prefix + "_error_string").argtypes = [i]
+    getattr(lib, prefix + "_error_string").restype = ctypes.c_char_p
 
 
 def _configure_bwd(lib):
@@ -247,30 +250,20 @@ def _pad_d(t, width):
     return t if D == width else torch.nn.functional.pad(t, (0, width - D))
 
 
-def _fwd_variant(dtype, head_dim):
-    """The forward kernel for ``dtype`` and ``head_dim`` (1 and up):
-    ``"wide"`` above head_dim 128, ``"wgmma"`` for bf16 whose padded
-    head_dim is 64 or 128, ``"simt"`` for every other input (f32 up to 128;
-    bf16 at head_dim up to 32)."""
+def _variant(dtype, head_dim):
+    """The flash kernels, forward and backward alike, for ``dtype`` and
+    ``head_dim`` (1 and up), by its padded width (:func:`_padded_dim`):
+    ``"wgmma"`` for bf16 at 64 or 128, ``"wgmma_wide"`` for bf16 at 192 or
+    256, ``"wide"`` for every other width above 128 (f32, and bf16 above
+    256), ``"simt"`` for the rest (f32 up to 128; bf16 up to 32)."""
+    width = _padded_dim(head_dim)
+    if dtype == torch.bfloat16 and width in _TC_WIDTHS["wgmma"]:
+        return "wgmma"
+    if dtype == torch.bfloat16 and width in _TC_WIDTHS["wgmma_wide"]:
+        return "wgmma_wide"
     if head_dim > _HEAD_DIMS[-1]:
         return "wide"
-    if dtype == torch.bfloat16 and _padded_dim(head_dim) in _WGMMA_HEAD_DIMS:
-        return "wgmma"
     return "simt"
-
-
-def _bwd_variant(dtype, head_dim):
-    """The backward kernels (dQ and dK/dV) for ``dtype`` and ``head_dim``:
-    ``"wgmma_wide"`` (``csrc/flash_attention_bwd_wgmma_wide.cu``) for bf16
-    at a padded head_dim of 192 or 256, otherwise the forward's rule
-    (:func:`_fwd_variant`) — ``"wide"`` (``csrc/flash_attention_wide.cu``)
-    above head_dim 128 (f32, and bf16 above 256), ``"wgmma"``
-    (``csrc/flash_attention_bwd_wgmma.cu``) for bf16 at a padded head_dim
-    of 64 or 128, ``"simt"`` (``csrc/flash_attention_bwd.cu``) otherwise."""
-    if (dtype == torch.bfloat16
-            and _padded_dim(head_dim) in _WGMMA_WIDE_HEAD_DIMS):
-        return "wgmma_wide"
-    return _fwd_variant(dtype, head_dim)
 
 
 def _tma_strides(t):
@@ -351,13 +344,20 @@ def _flash_simt_cuda(q, k, v, causal=True, scale=None, kv_len=None):
     return o, lse
 
 
-def _flash_wgmma_cuda(q, k, v, causal=True, scale=None, kv_len=None):
-    """Launch the tensor-core variant ``csrc/flash_attention_wgmma.cu`` on
-    bf16 inputs with head_dim 64 or 128; returns ``(o, lse)``.  Raises on
-    inputs it does not take (:func:`_check_wgmma`)."""
+# the tensor-core forward variants: source, C entry-point prefix
+_FWD_TC = {
+    "wgmma": ("flash_attention_wgmma", "mxt_flash_wgmma"),
+    "wgmma_wide": ("flash_attention_wgmma_wide", "mxt_flash_wgmma_wide"),
+}
+
+
+def _flash_tc_cuda(variant, q, k, v, causal, scale, kv_len):
+    """Launch the tensor-core forward ``variant`` on bf16 inputs at one of
+    its widths; returns ``(o, lse)``.  Raises on inputs it does not take
+    (:func:`_check_bf16_width`, :func:`_check_wgmma`)."""
     B, Tq, Tk, H, D = _check_qkv(q, k, v)
-    _check_bf16_width(q.dtype, D)
-    _check_wgmma(q, k, v)
+    _check_bf16_width(q.dtype, D, variant)
+    _check_wgmma(q, k, v, variant=variant)
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     kv_len = Tk if kv_len is None else int(kv_len)
@@ -365,18 +365,34 @@ def _flash_wgmma_cuda(q, k, v, causal=True, scale=None, kv_len=None):
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     if B * H * Tq == 0:
         return o, lse
-    lib = _build.load("flash_attention_wgmma", _configure_wgmma)
+    source, prefix = _FWD_TC[variant]
+    lib = _build.load(source, functools.partial(_configure_fwd_tc, prefix))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     flat = [s for t in (q, k, v) for s in _tma_strides(t)] + list(
         o.stride()[:3])
     count_launch("flash_attention")
-    count_launch("flash_attention.wgmma")
-    rc = lib.mxt_flash_wgmma_fwd(
+    count_launch("flash_attention." + variant)
+    rc = getattr(lib, prefix + "_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), B, H, Tq, Tk, D, (ctypes.c_longlong * 12)(*flat),
         float(scale), int(bool(causal)), kv_len, stream)
-    _build.check(lib, "mxt_flash_wgmma", rc)
+    _build.check(lib, prefix, rc)
     return o, lse
+
+
+def _flash_wgmma_cuda(q, k, v, causal=True, scale=None, kv_len=None):
+    """Launch the tensor-core variant ``csrc/flash_attention_wgmma.cu`` on
+    bf16 inputs with head_dim 64 or 128; returns ``(o, lse)``.  Raises on
+    inputs it does not take (:func:`_check_wgmma`)."""
+    return _flash_tc_cuda("wgmma", q, k, v, causal, scale, kv_len)
+
+
+def _flash_wgmma_wide_cuda(q, k, v, causal=True, scale=None, kv_len=None):
+    """Launch the tensor-core forward ``csrc/flash_attention_wgmma_wide.cu``
+    on bf16 inputs with head_dim 192 or 256; returns ``(o, lse)``.  Raises
+    on inputs it does not take (:func:`_check_wgmma`): never a hand-off to
+    the wide variant."""
+    return _flash_tc_cuda("wgmma_wide", q, k, v, causal, scale, kv_len)
 
 
 def _check_wide_width(D):
@@ -412,8 +428,8 @@ def _flash_wide_cuda(q, k, v, causal=True, scale=None, kv_len=None):
     return o, lse
 
 
-def _check_bf16_width(dtype, D, variant="wgmma"):
-    widths = _BWD_TC[variant][2]
+def _check_bf16_width(dtype, D, variant):
+    widths = _TC_WIDTHS[variant]
     if dtype != torch.bfloat16 or D not in widths:
         raise ValueError("flash_attention (%s variant): takes bf16 with "
                          "head_dim in %s; got %s, head_dim %d"
@@ -422,15 +438,17 @@ def _check_bf16_width(dtype, D, variant="wgmma"):
 
 def _flash_cuda(q, k, v, causal=True, scale=None, kv_len=None):
     """The forward on CUDA tensors: q, k and v padded along D to
-    :func:`_padded_dim`, the variant :func:`_fwd_variant` names for q's
+    :func:`_padded_dim`, the variant :func:`_variant` names for q's
     dtype and head_dim, ``o`` sliced back; returns ``(o, lse)``.
     ``scale=None`` is 1/√D of the real head_dim."""
     _, _, _, _, D = _check_qkv(q, k, v)
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     width = _padded_dim(D)
-    launch = {"wgmma": _flash_wgmma_cuda, "simt": _flash_simt_cuda,
-              "wide": _flash_wide_cuda}[_fwd_variant(q.dtype, D)]
+    launch = {"wgmma": _flash_wgmma_cuda,
+              "wgmma_wide": _flash_wgmma_wide_cuda,
+              "simt": _flash_simt_cuda,
+              "wide": _flash_wide_cuda}[_variant(q.dtype, D)]
     if width == D:
         return launch(q, k, v, causal, scale, kv_len)
     o, lse = launch(_pad_d(q, width), _pad_d(k, width), _pad_d(v, width),
@@ -546,12 +564,11 @@ def _rows_padded(x, Tq):
                                    (0, -Tq % _BWD_ROWS)).contiguous()
 
 
-# the tensor-core backward variants: source, C entry-point prefix, widths
+# the tensor-core backward variants: source, C entry-point prefix
 _BWD_TC = {
-    "wgmma": ("flash_attention_bwd_wgmma", "mxt_flash_bwd_wgmma",
-              _WGMMA_HEAD_DIMS),
+    "wgmma": ("flash_attention_bwd_wgmma", "mxt_flash_bwd_wgmma"),
     "wgmma_wide": ("flash_attention_bwd_wgmma_wide",
-                   "mxt_flash_bwd_wgmma_wide", _WGMMA_WIDE_HEAD_DIMS),
+                   "mxt_flash_bwd_wgmma_wide"),
 }
 
 
@@ -566,7 +583,7 @@ def _bwd_tc_args(variant, q, k, v, do, lse, delta):
 
 
 def _bwd_tc_lib(variant):
-    source, prefix, _ = _BWD_TC[variant]
+    source, prefix = _BWD_TC[variant]
     return _build.load(source, functools.partial(_configure_bwd_tc,
                                                   prefix)), prefix
 
@@ -663,7 +680,7 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, dlse=None, causal=True,
     """The backward on CUDA tensors: ``delta`` with torch ops on the
     unpadded o and dO, then q, k, v and dO padded along D to
     :func:`_padded_dim` and the dQ and the dK/dV kernel of the variant
-    :func:`_bwd_variant` names; the gradients sliced back.  Returns ``(dq,
+    :func:`_variant` names; the gradients sliced back.  Returns ``(dq,
     dk, dv)``, contiguous, in the input dtype.  ``scale=None`` is 1/√D of
     the real head_dim.  ``dO`` is read through its strides (copied if its
     head_dim axis is not unit-stride, or, for the tensor-core variants, if
@@ -685,7 +702,7 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, dlse=None, causal=True,
     delta = _delta(o, do, dlse)
     width = _padded_dim(D)
     q, k, v, do = (_pad_d(t, width) for t in (q, k, v, do))
-    variant = _bwd_variant(q.dtype, D)
+    variant = _variant(q.dtype, D)
     if variant in _BWD_TC and _tma_fault("dO", do):
         do = do.clone(memory_format=torch.contiguous_format)
     launch_dq, launch_dkv = {

@@ -23,12 +23,13 @@ RMSNorm variant (warp, block, simt), planned and forced, is held to its
 plain version at those tolerances at the main paths' shapes and at the
 edges (odd E, offset views, strided rows, 1-8 rows, 128 KB rows), two
 calls bit-identical, with 0 ptxas spills in every instantiation.  Head dims
-above 128 take the flash kernels' wide variant, held to the plain versions
-at the padded cases' tolerances, and a TransformerLM with head_dim 256
-prefills through it as through the plain versions.  The bf16 backward at
-head_dim 129-256 takes the tensor-core ``wgmma_wide`` kernels, held as the
-wgmma ones are (plain version, dense autograd, fused-qkv views, a strided
-dO, misaligned inputs, two calls bit-identical).
+above 128 take the flash kernels' wide variant in f32 and in bf16 above
+256, held to the plain versions at the padded cases' tolerances.  bf16 at
+head_dim 129-256 takes the tensor-core ``wgmma_wide`` kernels, forward and
+backward, held as the wgmma ones are (plain version, dense autograd for
+the backward, kv_len, fused-qkv views, a strided dO, misaligned inputs,
+two calls bit-identical), and a TransformerLM with head_dim 256 prefills
+through them as through the plain versions.
 
 ``mx.rtc``: tests/test_rtc.py's kernels written in CUDA and the
 reference's templated ``axpy`` (compiled with ``--fmad=false``) equal the
@@ -92,8 +93,8 @@ from mxnet_tpu_torch.ops.kernels.int8_matmul import (
 from mxnet_tpu_torch.ops.kernels.flash_attention import (
     _delta, _flash_bwd_cuda, _flash_cuda, _flash_dkv_wgmma_cuda,
     _flash_dq_wgmma_cuda, _flash_simt_cuda, _flash_wgmma_cuda,
-    flash_attention, flash_attention_bwd_reference, flash_attention_lse,
-    flash_attention_reference)
+    _flash_wgmma_wide_cuda, flash_attention, flash_attention_bwd_reference,
+    flash_attention_lse, flash_attention_reference)
 from mxnet_tpu_torch.ops.kernels.layers import (
     _rmsnorm_block_cuda, _rmsnorm_cuda, _rmsnorm_simt_cuda,
     _rmsnorm_warp_cuda, _xent_bwd_cuda, _xent_fwd_cuda, fused_rmsnorm,
@@ -396,13 +397,16 @@ def test_flash_wgmma_reads_fused_qkv_views(dev, D):
     np.testing.assert_allclose(_np(lse), _np(rlse), rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("launch", [_flash_wgmma_cuda, _flash_simt_cuda])
+@pytest.mark.parametrize("launch", [_flash_wgmma_cuda, _flash_simt_cuda,
+                                    _flash_wgmma_wide_cuda])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kv_len_and_rows_without_keys(dev, launch, causal):
     """``kv_len`` (``_fwd``'s argument) masks keys at and past it: the same
     as attending over the first kv_len keys; with kv_len 0 every row has l
-    = 0 and gets o = 0 and the finite lse -1e30, in both variants."""
-    q, k, v = _qkv(dev, 1, 200, 300, 2, 128, seed=4)
+    = 0 and gets o = 0 and the finite lse -1e30, in every variant (the
+    wgmma_wide one at head_dim 256)."""
+    D = 256 if launch is _flash_wgmma_wide_cuda else 128
+    q, k, v = _qkv(dev, 1, 200, 300, 2, D, seed=4)
     o, lse = launch(q, k, v, causal, kv_len=0)
     assert not o.any()
     assert torch.isfinite(lse).all() and bool((lse == -1e30).all())
@@ -416,7 +420,9 @@ def test_flash_kv_len_and_rows_without_keys(dev, launch, causal):
 @pytest.mark.parametrize("dtype,D,variant", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 32, "simt"), (torch.bfloat16, 16, "simt"),
-    (torch.float32, 64, "simt"), (torch.float32, 128, "simt")])
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+    (torch.bfloat16, 256, "wgmma_wide"), (torch.bfloat16, 192, "wgmma_wide"),
+    (torch.bfloat16, 320, "wide"), (torch.float32, 256, "wide")])
 def test_flash_forward_variant_counters(dev, dtype, D, variant):
     q, k, v = _qkv(dev, 1, 70, 70, 2, D, dtype)
     common.reset_counts()
@@ -669,6 +675,89 @@ def test_flash_autograd_bf16_launches_wgmma_kernels(dev):
 
 
 # ---------------------------------------------------------------------------
+# flash forward: the tensor-core wgmma_wide variant, bf16 at D 192 or 256
+# ---------------------------------------------------------------------------
+WGMMA_WIDE_FWD_CASES = [
+    # (B, Tq, Tk, H, D, causal); tiles are 128 queries x 64 keys; D 160
+    # pads to 192
+    (1, 1, 1, 2, 256, True),
+    (1, 1, 1, 2, 192, False),
+    (2, 63, 63, 2, 256, True),
+    (1, 65, 65, 2, 192, True),
+    (1, 127, 127, 3, 160, False),
+    (1, 129, 129, 2, 256, True),
+    (1, 129, 129, 2, 160, True),
+    (1, 1000, 3000, 2, 256, False),
+    (1, 1000, 3000, 2, 192, False),
+    (1, 4000, 4000, 2, 256, True),
+    (1, 4000, 4000, 2, 192, True),
+    (1, 20, 300, 2, 256, True),      # causal, Tq < Tk (top-left aligned)
+    (1, 65, 200, 2, 160, True),
+    (1, 300, 70, 2, 256, True),      # causal, Tq > Tk
+    (1, 300, 70, 2, 192, True),
+    (1, 1, 129, 2, 256, False),
+]
+
+
+@pytest.mark.parametrize("case", WGMMA_WIDE_FWD_CASES)
+def test_flash_wgmma_wide_matches_plain(dev, case):
+    """The wgmma_wide forward against the plain version at the wgmma
+    variant's bf16 tolerances, one launch of it, and two calls
+    bit-identical."""
+    B, Tq, Tk, H, D, causal = case
+    q, k, v = _qkv(dev, B, Tq, Tk, H, D)
+    common.reset_counts()
+    o, lse = _flash_cuda(q, k, v, causal)
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention": 1,
+        "kernels.launch.flash_attention.wgmma_wide": 1}
+    ro, rlse = flash_attention_reference(q, k, v, causal, return_lse=True)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    np.testing.assert_allclose(_np(o), _np(ro), **BF16_ONE_ROUNDING)
+    np.testing.assert_allclose(_np(lse), _np(rlse), rtol=1e-5, atol=1e-4)
+    o2, lse2 = _flash_cuda(q, k, v, causal)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("D", [192, 256])
+def test_flash_wgmma_wide_reads_fused_qkv_views(dev, D):
+    """q/k/v as [B, T, H, D] views of one [B, T, 3·H·D] product: no copy,
+    the same bits as contiguous copies."""
+    B, T, H = 2, 333, 3
+    g = torch.Generator(device=dev).manual_seed(3)
+    qkv = torch.randn(B, T, 3 * H * D, generator=g, device=dev,
+                      dtype=torch.bfloat16)
+    q, k, v = (t.view(B, T, H, D) for t in qkv.split(H * D, -1))
+    assert not q.is_contiguous()
+    o, lse = _flash_wgmma_wide_cuda(q, k, v)
+    o2, lse2 = _flash_wgmma_wide_cuda(q.contiguous(), k.contiguous(),
+                                      v.contiguous())
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ro, rlse = flash_attention_reference(q, k, v, return_lse=True)
+    np.testing.assert_allclose(_np(o), _np(ro), **BF16_ONE_ROUNDING)
+    np.testing.assert_allclose(_np(lse), _np(rlse), rtol=1e-5, atol=1e-4)
+
+
+def test_flash_wgmma_wide_refuses_misaligned_inputs(dev):
+    """The wgmma_wide forward raises on inputs its TMA copies cannot read,
+    before any launch; it never hands them to the wide variant."""
+    B, T, H, D = 1, 64, 2, 256
+    flat = torch.randn(B * T * H * D + 1, device=dev, dtype=torch.bfloat16)
+    q = flat[1:].view(B, T, H, D)                     # base 2 bytes off
+    k = torch.randn(B, T, H, D, device=dev, dtype=torch.bfloat16)
+    common.reset_counts()
+    with pytest.raises(ValueError, match="wgmma_wide variant.*16-byte"):
+        flash_attention(q, k, k)
+    wide = torch.randn(B, T, H * D + 4, device=dev, dtype=torch.bfloat16)
+    k2 = wide[..., :H * D].view(B, T, H, D)           # T stride 516
+    with pytest.raises(ValueError, match="wgmma_wide variant.*T stride 516"):
+        _flash_cuda(k, k, k2)
+    assert common.launch_counts() == {}
+    with pytest.raises(ValueError, match="wgmma_wide variant"):
+        _flash_wgmma_wide_cuda(*_qkv(dev, 1, 8, 8, 2, 256, torch.float32))
+
+
+# ---------------------------------------------------------------------------
 # flash backward: the tensor-core wgmma_wide variant, bf16 at D 192 or 256
 # ---------------------------------------------------------------------------
 WGMMA_WIDE_BWD_CASES = [
@@ -776,8 +865,8 @@ def test_flash_bwd_wgmma_wide_refuses_misaligned_inputs(dev):
 
 
 def test_flash_autograd_bf16_head_dim_256_launches_wgmma_wide(dev):
-    """Autograd of ``flash_attention`` at bf16 head_dim 256: the forward on
-    wide, dQ and dK/dV on wgmma_wide, no wide backward."""
+    """Autograd of ``flash_attention`` at bf16 head_dim 256: the forward,
+    dQ and dK/dV on wgmma_wide, one each, and nothing on wide."""
     B, T, H, D = 1, 130, 2, 256
     g = torch.Generator(device=dev).manual_seed(2)
     q, k, v = (torch.randn(B, T, H, D, generator=g, device=dev,
@@ -788,7 +877,7 @@ def test_flash_autograd_bf16_head_dim_256_launches_wgmma_wide(dev):
     (o.float().square().sum() + lse.tanh().sum()).backward()
     assert common.launch_counts() == {
         "kernels.launch.flash_attention": 1,
-        "kernels.launch.flash_attention.wide": 1,
+        "kernels.launch.flash_attention.wgmma_wide": 1,
         "kernels.launch.flash_attention_dq": 1,
         "kernels.launch.flash_attention_dq.wgmma_wide": 1,
         "kernels.launch.flash_attention_dkv": 1,
@@ -805,14 +894,16 @@ def test_flash_autograd_bf16_head_dim_256_launches_wgmma_wide(dev):
 def test_flash_padded_head_dims_match_plain(dev, D, dtype, causal):
     """Forward and backward at head_dim 48, 80 and 96 (padded to 64, 128
     and 128) and above 128 (160 padded to 192, 256, 320: the wide variant,
-    but for the bf16 backward at 160 and 256, which takes wgmma_wide): no
-    ValueError, the plain version's results, ``scale`` from the real
-    head_dim, and the padded variant's launches."""
+    but in bf16 at 160 and 256, which take wgmma_wide): no ValueError, the
+    plain version's results, ``scale`` from the real head_dim, and the
+    padded variant's launches."""
     B, Tq, Tk, H = 1, 150, 150, 2
     common.reset_counts()
     q, k, v, o, lse, do, dlse = _flash_bwd_inputs(dev, B, Tq, Tk, H, D,
                                                   causal, dtype)
-    if D > 128:
+    if dtype == torch.bfloat16 and 128 < D <= 256:
+        variant = "wgmma_wide"
+    elif D > 128:
         variant = "wide"
     else:
         variant = "wgmma" if dtype == torch.bfloat16 else "simt"
@@ -826,8 +917,6 @@ def test_flash_padded_head_dims_match_plain(dev, D, dtype, causal):
     np.testing.assert_allclose(_np(lse), _np(rlse), rtol=1e-5, atol=1e-4)
     common.reset_counts()
     got = _flash_bwd_cuda(q, k, v, o, lse, do, dlse, causal)
-    if dtype == torch.bfloat16 and 128 < D <= 256:
-        variant = "wgmma_wide"
     assert common.launch_counts() == {
         "kernels.launch.flash_attention_dq": 1,
         "kernels.launch.flash_attention_dq.%s" % variant: 1,
@@ -870,8 +959,8 @@ def test_flash_wide_kv_len_strided_views_and_repeat(dev, dtype):
 
 def test_transformer_prefill_at_head_dim_256_matches_plain(dev):
     """A TransformerLM with head_dim 256 (d_model 512, 2 heads) prefills a
-    prompt whose scores pass the dense gate through the wide flash kernels,
-    and its logits match those through the plain versions."""
+    prompt whose scores pass the dense gate through the wgmma_wide flash
+    forward, and its logits match those through the plain versions."""
     from mxnet_tpu_torch.models.transformer import (TransformerConfig,
                                                     TransformerLM)
     cfg = TransformerConfig(vocab_size=512, d_model=512, n_heads=2,
@@ -903,7 +992,7 @@ def test_transformer_prefill_at_head_dim_256_matches_plain(dev):
             common._REGISTRY.update(saved)
         runs.append((logits, launches))
     (lk, launches), (lp, plain_launches) = runs
-    assert launches.get("kernels.launch.flash_attention.wide") == 2
+    assert launches.get("kernels.launch.flash_attention.wgmma_wide") == 2
     assert "kernels.launch.flash_attention" not in plain_launches
     assert torch.isfinite(lk).all() and lk.shape == (512,)
     # bf16 through two layers: the attention output's and RMSNorm's

@@ -1,6 +1,7 @@
 """The flash kernels' CUDA variants, from the Python side, on the CPU.
 
-Which variant a dtype / head_dim selects (forward and backward), how a head
+Which variant a dtype / head_dim selects (one rule for the forward and the
+backward), how a head
 dim the kernels lack is padded to a kernel width with the real head_dim's
 scale, how the tensor-core variants' tensor maps see a tensor's strides,
 and that their precondition check raises with a message (and never hands an
@@ -19,16 +20,6 @@ fa = importlib.import_module("mxnet_tpu_torch.ops.kernels.flash_attention")
 BF16 = torch.bfloat16
 
 
-def _bwd_expected(dtype, D, variant):
-    """The backward's variant where the forward's rule names ``variant``:
-    the same, except bf16 at a padded head_dim of 192 or 256 (head_dim
-    129-256), whose dQ and dK/dV take the tensor-core ``wgmma_wide``
-    kernels while its forward stays ``wide``."""
-    if dtype == BF16 and 128 < D <= 256:
-        return "wgmma_wide"
-    return variant
-
-
 @pytest.mark.parametrize("dtype,D,variant", [
     (BF16, 64, "wgmma"), (BF16, 128, "wgmma"),
     (BF16, 16, "simt"), (BF16, 32, "simt"),
@@ -38,35 +29,34 @@ def _bwd_expected(dtype, D, variant):
     (BF16, 48, "wgmma"), (BF16, 80, "wgmma"), (BF16, 96, "wgmma"),
     (BF16, 33, "wgmma"), (BF16, 8, "simt"), (torch.float32, 48, "simt"),
     (torch.float32, 96, "simt"),
-    # above 128 every dtype takes the wide variant
-    (BF16, 129, "wide"), (BF16, 256, "wide"), (torch.float32, 160, "wide"),
-    (torch.float32, 320, "wide")])
+    # above 128: bf16 up to 256 on the tensor cores, the rest wide
+    (BF16, 129, "wgmma_wide"), (BF16, 256, "wgmma_wide"),
+    (torch.float32, 160, "wide"), (torch.float32, 320, "wide")])
 def test_variant_by_dtype_and_head_dim(dtype, D, variant):
-    """The forward and the backward select alike, but for bf16 at head_dim
-    129-256, whose backward takes wgmma_wide (:func:`_bwd_expected`)."""
-    assert fa._fwd_variant(dtype, D) == variant
-    assert fa._bwd_variant(dtype, D) == _bwd_expected(dtype, D, variant)
+    """One rule (:func:`_variant`) names the forward's and the backward's
+    variant."""
+    assert fa._variant(dtype, D) == variant
 
 
-@pytest.mark.parametrize("dtype,D,fwd,bwd", [
-    (BF16, 129, "wide", "wgmma_wide"), (BF16, 160, "wide", "wgmma_wide"),
-    (BF16, 192, "wide", "wgmma_wide"), (BF16, 193, "wide", "wgmma_wide"),
-    (BF16, 256, "wide", "wgmma_wide"), (BF16, 257, "wide", "wide"),
-    (BF16, 320, "wide", "wide"), (torch.float32, 192, "wide", "wide"),
-    (torch.float32, 256, "wide", "wide"), (BF16, 128, "wgmma", "wgmma")])
+@pytest.mark.parametrize("dtype,D,variant", [
+    (BF16, 129, "wgmma_wide"), (BF16, 160, "wgmma_wide"),
+    (BF16, 192, "wgmma_wide"), (BF16, 193, "wgmma_wide"),
+    (BF16, 256, "wgmma_wide"), (BF16, 257, "wide"), (BF16, 320, "wide"),
+    (torch.float32, 192, "wide"), (torch.float32, 256, "wide"),
+    (BF16, 128, "wgmma")])
 def test_backward_above_128_takes_wgmma_wide_for_bf16_up_to_256(dtype, D,
-                                                                fwd, bwd):
-    """Above head_dim 128 the forward stays wide in both dtypes; the bf16
-    backward takes the tensor-core wgmma_wide kernels at the padded widths
-    192 and 256, and wide beyond them and for f32."""
-    assert fa._fwd_variant(dtype, D) == fwd
-    assert fa._bwd_variant(dtype, D) == bwd
+                                                                variant):
+    """Above head_dim 128 the forward and the backward take the tensor-core
+    wgmma_wide kernels for bf16 at the padded widths 192 and 256, and wide
+    beyond them and for f32."""
+    assert fa._variant(dtype, D) == variant
 
 
 @pytest.mark.parametrize("dtype,D,variant", [
     (BF16, 64, "wgmma"), (BF16, 128, "wgmma"), (BF16, 32, "simt"),
-    (torch.float32, 128, "simt"), (BF16, 256, "wide"),
-    (torch.float32, 192, "wide")])
+    (torch.float32, 128, "simt"), (BF16, 256, "wgmma_wide"),
+    (torch.float32, 192, "wide"), (BF16, 192, "wgmma_wide"),
+    (BF16, 320, "wide")])
 def test_flash_cuda_dispatches_by_variant(monkeypatch, dtype, D, variant):
     """``_flash_cuda`` hands the inputs to the launcher its variant names,
     with the caller's arguments."""
@@ -78,7 +68,7 @@ def test_flash_cuda_dispatches_by_variant(monkeypatch, dtype, D, variant):
             return "out"
         return launch
 
-    for name in ("wgmma", "simt", "wide"):
+    for name in ("wgmma", "wgmma_wide", "simt", "wide"):
         monkeypatch.setattr(fa, "_flash_%s_cuda" % name, launcher(name))
     q = torch.zeros(1, 5, 2, D, dtype=dtype)
     assert fa._flash_cuda(q, q, q, False, 0.5, 3) == "out"
@@ -115,18 +105,17 @@ def _bwd_launchers(monkeypatch, calls):
 @pytest.mark.parametrize("dtype,D,variant", [
     (BF16, 64, "wgmma"), (BF16, 128, "wgmma"), (BF16, 32, "simt"),
     (torch.float32, 128, "simt"), (torch.float32, 64, "simt"),
-    (BF16, 256, "wide"), (torch.float32, 192, "wide")])
+    (BF16, 256, "wgmma_wide"), (torch.float32, 192, "wide")])
 def test_flash_bwd_cuda_dispatches_by_variant(monkeypatch, dtype, D,
                                               variant):
     """``_flash_bwd_cuda`` hands the inputs to the dQ and the dK/dV
-    launcher its variant names (:func:`_bwd_expected`), with the caller's
-    arguments and ``delta`` [B, H, Tq]."""
+    launcher its variant names, with the caller's arguments and ``delta``
+    [B, H, Tq]."""
     calls = []
     _bwd_launchers(monkeypatch, calls)
     q = torch.zeros(1, 5, 2, D, dtype=dtype)
     lse = torch.zeros(1, 2, 5)
     dq, dk, dv = fa._flash_bwd_cuda(q, q, q, q, lse, q, None, False, 0.5)
-    variant = _bwd_expected(dtype, D, variant)
     assert calls == [("dq_" + variant, D, D, False, 0.5, (1, 2, 5)),
                      ("dkv_" + variant, D, D, False, 0.5, (1, 2, 5))]
     assert dq.shape == dk.shape == dv.shape == q.shape
@@ -179,13 +168,14 @@ def test_head_dim_zero_raises():
 @pytest.mark.parametrize("D,width", [(129, 192), (160, 192), (256, 256),
                                      (320, 320)])
 def test_head_dims_above_128_reach_wide(monkeypatch, dtype, D, width):
-    """Above 128 the forward goes to the wide launcher, and dQ and dK/dV to
-    the wide ones or, for bf16 up to 256, the wgmma_wide ones, at the width
-    padded to a multiple of 64, with ``scale`` 1/√D of the real D; the
-    outputs come back at D."""
+    """Above 128 the forward, dQ and dK/dV go to the wide launchers or, for
+    bf16 up to 256, the wgmma_wide ones, at the width padded to a multiple
+    of 64, with ``scale`` 1/√D of the real D; the outputs come back at
+    D."""
     fwd = []
+    variant = "wgmma_wide" if dtype == BF16 and D <= 256 else "wide"
 
-    def wide(q, k, v, causal, scale, kv_len):
+    def launch(q, k, v, causal, scale, kv_len):
         fwd.append((q.shape[-1], k.shape[-1], v.shape[-1], scale))
         return (torch.zeros(q.shape, dtype=q.dtype),
                 torch.zeros(q.shape[0], q.shape[2], q.shape[1]))
@@ -193,9 +183,9 @@ def test_head_dims_above_128_reach_wide(monkeypatch, dtype, D, width):
     def refuse(*a):
         raise AssertionError("another variant ran")
 
-    monkeypatch.setattr(fa, "_flash_wide_cuda", wide)
-    monkeypatch.setattr(fa, "_flash_wgmma_cuda", refuse)
-    monkeypatch.setattr(fa, "_flash_simt_cuda", refuse)
+    for name in ("wgmma", "wgmma_wide", "simt", "wide"):
+        monkeypatch.setattr(fa, "_flash_%s_cuda" % name,
+                            launch if name == variant else refuse)
     bwd = []
     _bwd_launchers(monkeypatch, bwd)
     q = torch.ones(1, 5, 2, D, dtype=dtype)
@@ -203,7 +193,6 @@ def test_head_dims_above_128_reach_wide(monkeypatch, dtype, D, width):
     assert fwd == [(width, width, width, 1.0 / D ** 0.5)]
     assert o.shape == q.shape and o.is_contiguous()
     grads = fa._flash_bwd_cuda(q, q, q, o, lse, q)
-    variant = _bwd_expected(dtype, D, "wide")
     assert [c[:5] for c in bwd] == [
         ("dq_" + variant, width, width, True, 1.0 / D ** 0.5),
         ("dkv_" + variant, width, width, True, 1.0 / D ** 0.5)]
@@ -354,10 +343,12 @@ def test_bwd_launchers_refuse_before_any_build(monkeypatch):
     assert common.launch_counts() == {}
 
 
-def test_wgmma_wide_launchers_refuse_before_any_build(monkeypatch):
-    """The wgmma_wide backward launchers take bf16 at head_dim 192 or 256
-    only and raise on a misaligned q, k, v or dO, before they build or
-    count anything; never a hand-off to the wide kernels."""
+@pytest.mark.parametrize("which", ["bwd", "fwd"])
+def test_wgmma_wide_launchers_refuse_before_any_build(monkeypatch, which):
+    """The wgmma_wide launchers (the forward; dQ and dK/dV) take bf16 at
+    head_dim 192 or 256 only and raise on a misaligned q, k, v (or dO),
+    before they build or count anything; never a hand-off to the wide
+    kernels."""
     from mxnet_tpu_torch.ops.kernels import _build, common
 
     def no_build(*a, **k):
@@ -368,20 +359,29 @@ def test_wgmma_wide_launchers_refuse_before_any_build(monkeypatch):
     lse = torch.zeros(1, 2, 8)
     good = torch.zeros(1, 8, 2, 256, dtype=BF16)
     bad = torch.zeros(8 * 2 * 256 + 1, dtype=BF16)[1:].view(1, 8, 2, 256)
-    for launch in (fa._flash_dq_wgmma_wide_cuda,
-                   fa._flash_dkv_wgmma_wide_cuda):
+    if which == "fwd":
+        launchers = (lambda q, k, v, do: fa._flash_wgmma_wide_cuda(q, k, v),)
+        names = ("q", "k", "v")
+    else:
+        launchers = (
+            lambda q, k, v, do: fa._flash_dq_wgmma_wide_cuda(q, k, v, do,
+                                                             lse, lse),
+            lambda q, k, v, do: fa._flash_dkv_wgmma_wide_cuda(q, k, v, do,
+                                                              lse, lse))
+        names = ("q", "k", "v", "dO")
+    for launch in launchers:
         for t in (torch.zeros(1, 8, 2, 256),
                   torch.zeros(1, 8, 2, 128, dtype=BF16),
                   torch.zeros(1, 8, 2, 320, dtype=BF16)):
             with pytest.raises(ValueError, match="wgmma_wide variant.*"
                                "takes bf16 with head_dim in \\(192, 256\\)"):
-                launch(t, t, t, t, lse, lse)
-        for i, name in enumerate(("q", "k", "v", "dO")):
+                launch(t, t, t, t)
+        for i, name in enumerate(names):
             args = [good] * 4
             args[i] = bad
             with pytest.raises(ValueError, match="wgmma_wide variant.*%s's "
                                "base address" % name):
-                launch(*args, lse, lse)
+                launch(*args)
     assert common.launch_counts() == {}
 
 

@@ -189,9 +189,34 @@ def test_idempotent_replay_and_forget_alike():
     np.testing.assert_allclose(got["out4"], ref["out4"], rtol=1e-6)
 
 
+def _read_request(conn):
+    """Read one whole HTTP request from ``conn``: its headers, then as many
+    body bytes as its Content-Length names."""
+    data = b""
+    while b"\r\n\r\n" not in data:
+        chunk = conn.recv(65536)
+        if not chunk:
+            return
+        data += chunk
+    head, _, body = data.partition(b"\r\n\r\n")
+    length = 0
+    for line in head.split(b"\r\n")[1:]:
+        name, _, value = line.partition(b":")
+        if name.strip().lower() == b"content-length":
+            length = int(value)
+    while len(body) < length:
+        chunk = conn.recv(65536)
+        if not chunk:
+            return
+        body += chunk
+
+
 def _truncating_worker():
     """A worker that answers every request with headers promising a body
-    of 125 bytes, and then closes: it died mid-response."""
+    of 125 bytes, and then closes: it died mid-response.  It reads the
+    whole request first and half-closes before it closes, so that the
+    client always sees the body end early (``IncompleteRead``), never a
+    connection reset (which a close with unread request bytes sends)."""
     srv = socket.socket()
     srv.bind(("127.0.0.1", 0))
     srv.listen(8)
@@ -202,9 +227,10 @@ def _truncating_worker():
                 conn, _ = srv.accept()
             except OSError:
                 return
-            conn.recv(65536)
+            _read_request(conn)
             conn.sendall(b"HTTP/1.1 200 OK\r\nContent-Type: "
                          b"application/json\r\nContent-Length: 125\r\n\r\n")
+            conn.shutdown(socket.SHUT_WR)
             conn.close()
 
     threading.Thread(target=serve, daemon=True).start()

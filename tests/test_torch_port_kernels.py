@@ -323,9 +323,9 @@ def _plain_launchers(monkeypatch):
             return bwd(*a)[0]
         return dq
 
-    for name in ("wgmma", "simt", "wide"):
+    # bf16 at head_dim 129-256 runs forward and backward on wgmma_wide
+    for name in ("wgmma", "simt", "wide", "wgmma_wide"):
         monkeypatch.setattr(fa, "_flash_%s_cuda" % name, fwd)
-    # bf16 at head_dim 129-256 runs its backward on wgmma_wide
     for name in ("wgmma", "simt", "wide", "wgmma_wide"):
         monkeypatch.setattr(fa, "_flash_dq_%s_cuda" % name, dq_launcher(name))
         monkeypatch.setattr(fa, "_flash_dkv_%s_cuda" % name,
@@ -373,7 +373,7 @@ def test_padded_head_dims_match_pallas_kernels(monkeypatch, D, width, dtype):
             assert g.shape == (B, T, H, D) and g.dtype == tq.dtype
             np.testing.assert_allclose(_f32(g), _f32(w), err_msg="d" + name,
                                        **gtol)
-    assert set(bwd_variants) == {fa._bwd_variant(tq.dtype, D)}
+    assert set(bwd_variants) == {fa._variant(tq.dtype, D)}
     if dtype == "bfloat16" and D > 128:
         assert bwd_variants[0] == "wgmma_wide"
 
