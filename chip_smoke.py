@@ -19,7 +19,9 @@ on the card:
   which crosses the dense->flash gate and so runs the flash forward, dQ
   and dK/dV kernels, and on the same configuration with 4 heads of 256
   (Gemma-style head_dim), whose flash forward, dQ and dK/dV run the
-  tensor-core wgmma_wide kernels;
+  tensor-core wgmma_wide kernels, and on that configuration in f32, whose
+  dQ and dK/dV run the tensor-core tf32x3 kernels (split-TF32 products)
+  and whose forward runs wide;
 * INT8 inference — the symbolic ResNet-50 (``models/resnet_symbol.py``,
   1000 classes, 3x224x224) is calibrated, quantized, BN-folded and
   int8-fused by ``contrib.quantization.quantize_model``, bound, and run at
@@ -66,16 +68,19 @@ Phases, in order; any failure raises and exits non-zero:
 2. build   — ``nvcc`` builds every kernel from ``mxnet_tpu_torch/ops/
    kernels/csrc`` (in parallel), with the ptxas register/spill report and
    one line per instantiation of the tensor-core flash kernels (forward,
-   dQ and dK/dV at head_dim 64 and 128; wgmma_wide at 192 and 256), of
-   the wide flash kernels, of
+   dQ and dK/dV at head_dim 64 and 128; wgmma_wide at 192 and 256; the
+   f32 tf32x3 dQ and dK/dV at 192 and 256), of the wide flash kernels,
+   of
    the int8 matmul and of the RMSNorm variants; none but the int8 ``mma``
    kernel may spill;
 3. kernels — each kernel against its plain version at the flagship's
    shapes: max error and tolerance; the device time of the kernel, of the
    plain version and of one PyTorch library call (for the record only),
    each from a CUDA graph of repeated calls replayed between CUDA events;
-   and the card's bound for the same work.  RMSNorm at the main paths'
-   five bf16 shapes and two f32 ones: the planned variant and the others
+   and the card's bound for the same work (for f32 flash, both the bound
+   at three TF32 products, the least time for f32-accurate products on
+   the tensor cores, and the CUDA-core bound).  RMSNorm at the main
+   paths' five bf16 shapes and two f32 ones: the planned variant and the others
    (warp, block, simt) held against the plain version, two calls of each
    bit-identical, timed in turns beside ``F.rms_norm``; and the plain
    RMSNorm backward's device time at the training steps' shapes.  At the
@@ -90,7 +95,12 @@ Phases, in order; any failure raises and exits non-zero:
    against the plain version beside their CUDA-core twin, wide, and
    timed in turns with it; also at the head_dim-256 leg's [1, 8192, 4,
    256] and with Tq != Tk), and f32 above 128 and bf16 at 320 the wide
-   variant.  The int8
+   variant, but for the f32 backward at padded head_dim 192 and 256,
+   which runs the tensor-core tf32x3 dQ and dK/dV (at [1, 4096, 16, 256]
+   held against the plain backward and dense autograd beside its wide
+   twin and timed in turns with it; also at [1, 8192, 4, 256], [1, 4096,
+   16, 192], Tq 1000 x Tk 3000 not causal, and head_dim 160 with an lse
+   cotangent).  The int8
    matmul's planned variant and, where that is wgmma, its mma variant are
    held bit for bit to the plain version and timed in turns beside
    ``torch._int_mm``;
@@ -324,7 +334,8 @@ import time
 # published dense peaks of one H100 SXM (NVIDIA data sheet); roofline
 # bounds below are against these, with the card's power limit printed beside
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12,
+              "tf32": 495e12}
 
 FLAGSHIP = dict(vocab_size=32000, d_model=2048, n_heads=16, n_layers=4,
                 d_ff=8192, max_len=8192, dtype="bfloat16")
@@ -383,6 +394,9 @@ RMSNORM_BWD_SHAPES = ((8192, 2048), (8192, 1024))
 LONGCTX = dict(vocab_size=32000, d_model=1024, n_heads=16, n_layers=4,
                d_ff=4096, max_len=8192, dtype="bfloat16", remat=True)
 LONGCTX_HD256 = dict(LONGCTX, n_heads=4)
+# the same in f32 (TF32 off, torch's default for matmuls): its flash
+# backward on the tensor-core tf32x3 kernels, its forward on wide
+LONGCTX_HD256_F32 = dict(LONGCTX_HD256, dtype="float32")
 TRAIN_CELLS = (
     ("flagship_b8_t1024", dict(FLAGSHIP, max_len=1024, remat=False), 8,
      1024),
@@ -391,6 +405,7 @@ TRAIN_CELLS = (
     # head_dim): the flash forward and backward on the tensor-core
     # wgmma_wide kernels
     ("longctx_hd256_b1_t8192", LONGCTX_HD256, 1, 8192),
+    ("longctx_hd256_f32_b1_t8192", LONGCTX_HD256_F32, 1, 8192),
 )
 TRAIN_STEPS = 3
 # kernel launches per training step, from the code: RMSNorm twice per block
@@ -398,9 +413,9 @@ TRAIN_STEPS = 3
 # recomputed forward, every one through the warp variant (8192 rows); flash
 # forward per block (twice with remat), every
 # one through the tensor-core variant (bf16: wgmma at head_dim 64,
-# wgmma_wide at 256), dQ and dK/dV once per block, also through the
-# tensor-core variant; the softmax cross-entropy
-# once each way
+# wgmma_wide at 256) or, in f32 at 256, wide; dQ and dK/dV once per block,
+# through the tensor-core variant (f32 at 256: tf32x3); the softmax
+# cross-entropy once each way
 EXPECTED_LAUNCHES = {
     "flagship_b8_t1024": {"fused_rmsnorm": 9, "fused_rmsnorm.warp": 9,
                           "fused_softmax_xent": 1,
@@ -422,6 +437,16 @@ EXPECTED_LAUNCHES = {
                                "flash_attention_dkv.wgmma_wide": 4,
                                "fused_softmax_xent": 1,
                                "fused_softmax_xent_bwd": 1},
+    "longctx_hd256_f32_b1_t8192": {"fused_rmsnorm": 17,
+                                   "fused_rmsnorm.warp": 17,
+                                   "flash_attention": 8,
+                                   "flash_attention.wide": 8,
+                                   "flash_attention_dq": 4,
+                                   "flash_attention_dkv": 4,
+                                   "flash_attention_dq.tf32x3": 4,
+                                   "flash_attention_dkv.tf32x3": 4,
+                                   "fused_softmax_xent": 1,
+                                   "fused_softmax_xent_bwd": 1},
 }
 # the device mesh (mxnet_tpu_torch/parallel over torch.distributed).
 # mesh_nccl: one rank over NCCL (a real communicator: every collective of
@@ -874,7 +899,8 @@ def phase_build():
     # variants, none of which may spill but the int8 mma kernel
     for src in ("flash_attention_wgmma", "flash_attention_wgmma_wide",
                 "flash_attention_bwd_wgmma", "flash_attention_bwd_wgmma_wide",
-                "flash_attention_wide", "int8_matmul", "rmsnorm"):
+                "flash_attention_bwd_tf32x3", "flash_attention_wide",
+                "int8_matmul", "rmsnorm"):
         for kernel, line in _ptxas_summary(built[src]["log"]):
             print("build %s %s" % (src, line), flush=True)
             if kernel != "int8_mm_kernel":
@@ -968,6 +994,19 @@ def _bound(flops, nbytes, dtype):
     t_bytes = nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
+
+
+def _flash_bounds(flops, nbytes, dtype_name):
+    """A flash record's bound keys.  For f32, ``bound_ms`` counts each
+    product as three TF32 products at 495 TFLOP/s (the least time for
+    f32-accurate products on the tensor cores: the tf32x3 kernels' split)
+    and ``bound_f32_cuda_core_ms`` the CUDA-core figure at 67 TFLOP/s."""
+    if dtype_name != "float32":
+        bound, by = _bound(flops, nbytes, dtype_name)
+        return {"bound_ms": bound, "bound_by": by}
+    bound, by = _bound(3 * flops, nbytes, "tf32")
+    return {"bound_ms": bound, "bound_by": by,
+            "bound_f32_cuda_core_ms": _bound(flops, nbytes, "float32")[0]}
 
 
 def _rmsnorm_case(shape, dtype_name, gen):
@@ -1066,7 +1105,7 @@ def _rmsnorm_bwd_plain_case(shape, gen):
 
 # the CUDA-core variant each tensor-core variant of the forward and of the
 # backward is timed against in turns (``variants=True``)
-CUDA_CORE_TWIN = {"wgmma": "simt", "wgmma_wide": "wide"}
+CUDA_CORE_TWIN = {"wgmma": "simt", "wgmma_wide": "wide", "tf32x3": "wide"}
 
 
 def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
@@ -1110,7 +1149,7 @@ def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
         pairs = Tq * Tk
     isz = q.element_size()
     nbytes = isz * B * H * D * (2 * Tq + 2 * Tk) + 4 * B * H * Tq
-    bound, by = _bound(4.0 * D * B * H * pairs, nbytes, dtype_name)
+    bounds = _flash_bounds(4.0 * D * B * H * pairs, nbytes, dtype_name)
     args = _copies((q, k, v))
     variant = _variant(q.dtype, D)
     twin = CUDA_CORE_TWIN.get(variant)
@@ -1142,9 +1181,9 @@ def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
             lambda q, k, v: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 is_causal=causal), args),
-        "bound_ms": bound, "bound_by": by,
+        **bounds,
     }
-    rec["ms_over_bound"] = rec["ms"] / bound
+    rec["ms_over_bound"] = rec["ms"] / rec["bound_ms"]
     if turns:
         twin_ms = statistics.mean(turns[twin])
         rec.update({
@@ -1245,23 +1284,24 @@ def _xent_case(N, V, dtype_name, gen):
 
 def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
                     with_dlse=False, variants=False):
-    """The dQ and the dK/dV kernel of the variant ``_variant`` names
-    against the plain backward and autograd through the dense forward, and
-    two calls bit for bit (no atomics): two records.  ``variants``: the
-    variant is a tensor-core one; also hold its CUDA-core twin
-    (``CUDA_CORE_TWIN``: simt for wgmma, wide for wgmma_wide) against
-    the plain backward and time the two in turns (tensor-core, CUDA-core,
-    CUDA-core, tensor-core); ``ms`` is then the tensor-core kernel's mean
-    of its two turns.  A head dim the kernels lack is timed at its padded
-    width, on inputs padded once, as the backward runs it."""
+    """The dQ and the dK/dV kernel of the variant ``_variant`` names for
+    the backward against the plain backward and autograd through the dense
+    forward, and two calls bit for bit (no atomics): two records.
+    ``variants``: the variant is a tensor-core one; also hold its CUDA-core
+    twin (``CUDA_CORE_TWIN``: simt for wgmma, wide for wgmma_wide and
+    tf32x3) against the plain backward and time the two in turns
+    (tensor-core, CUDA-core, CUDA-core, tensor-core); ``ms`` is then the
+    tensor-core kernel's mean of its two turns.  A head dim the kernels
+    lack is timed at its padded width, on inputs padded once, as the
+    backward runs it."""
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops.kernels.flash_attention import (
         _delta, _flash_bwd_cuda, _flash_cuda,
-        _flash_dkv_simt_cuda, _flash_dkv_wgmma_cuda,
+        _flash_dkv_simt_cuda, _flash_dkv_tf32x3_cuda, _flash_dkv_wgmma_cuda,
         _flash_dkv_wgmma_wide_cuda, _flash_dkv_wide_cuda,
-        _flash_dq_simt_cuda, _flash_dq_wgmma_cuda, _flash_dq_wgmma_wide_cuda,
-        _flash_dq_wide_cuda, _pad_d, _padded_dim,
+        _flash_dq_simt_cuda, _flash_dq_tf32x3_cuda, _flash_dq_wgmma_cuda,
+        _flash_dq_wgmma_wide_cuda, _flash_dq_wide_cuda, _pad_d, _padded_dim,
         _variant, flash_attention_bwd_reference, flash_attention_reference)
 
     dt = getattr(torch, dtype_name)
@@ -1269,6 +1309,7 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     launchers = {
         "wgmma": (_flash_dq_wgmma_cuda, _flash_dkv_wgmma_cuda),
         "wgmma_wide": (_flash_dq_wgmma_wide_cuda, _flash_dkv_wgmma_wide_cuda),
+        "tf32x3": (_flash_dq_tf32x3_cuda, _flash_dkv_tf32x3_cuda),
         "simt": (_flash_dq_simt_cuda, _flash_dkv_simt_cuda),
         "wide": (_flash_dq_wide_cuda, _flash_dkv_wide_cuda)}
 
@@ -1319,10 +1360,10 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
         pairs = Tq * Tk
     isz = q.element_size()
     rows = 8 * B * H * Tq                           # lse and delta, f32
-    dq_bound, dq_by = _bound(6.0 * D * B * H * pairs,
-                             isz * B * H * D * (3 * Tq + 2 * Tk) + rows,
-                             dtype_name)
-    dkv_bound, dkv_by = _bound(8.0 * D * B * H * pairs,
+    dq_bounds = _flash_bounds(6.0 * D * B * H * pairs,
+                              isz * B * H * D * (3 * Tq + 2 * Tk) + rows,
+                              dtype_name)
+    dkv_bounds = _flash_bounds(8.0 * D * B * H * pairs,
                                isz * B * H * D * (2 * Tq + 4 * Tk) + rows,
                                dtype_name)
     delta = _delta(o, do, dlse)
@@ -1333,7 +1374,7 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     width = _padded_dim(D)
     args = _copies(tuple(_pad_d(t, width) for t in (q, k, v, do))
                    + (lse, delta))
-    variant = _variant(q.dtype, D)
+    variant = _variant(q.dtype, D, backward=True)
     twin = CUDA_CORE_TWIN.get(variant)
     twin_errs = {}
     if variants:
@@ -1376,13 +1417,11 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
               "library": "SDPA backward (torch.autograd.grad over a "
                          "retained SDPA forward)"}
     dq = dict(shared, kernel="flash_attention_dq", max_abs_err=errs[0][0],
-              ok=errs[0][1] and auto_ok and repeat_ok,
-              bound_ms=dq_bound, bound_by=dq_by)
+              ok=errs[0][1] and auto_ok and repeat_ok, **dq_bounds)
     dkv = dict(shared, kernel="flash_attention_dkv",
                max_abs_err=max(errs[1][0], errs[2][0]),
                ok=(errs[1][1] and errs[2][1] and zero_ok and auto_ok
-                   and repeat_ok),
-               bound_ms=dkv_bound, bound_by=dkv_by)
+                   and repeat_ok), **dkv_bounds)
     for rec, kind in ((dq, "dq"), (dkv, "dkv")):
         rec["ms"] = statistics.mean(turns[(kind, variant)])
         if variants:
@@ -1534,18 +1573,23 @@ def phase_kernels():
     # head dims above 128 (160 pads to 192; 320 is three column chunks of
     # at most 128): bf16 at padded 192 and 256 on the tensor-core
     # wgmma_wide forward and backward, timed in turns with their wide
-    # twins; f32, and bf16 at 320, on wide
+    # twins; the f32 backward there on the tensor-core tf32x3 kernels,
+    # timed in turns with wide; the f32 forward, and bf16 at 320, on wide.
+    # The wide records are f32's: the f32 leg's forward, and the backward
+    # tf32x3 replaced there
     for dt in ("bfloat16", "float32"):
         fwd = _flash_case(1, 4096, 4096, 16, 256, True, dt, gen,
                           variants=dt == "bfloat16")
         dq, dkv = _flash_bwd_case(1, 4096, 4096, 16, 256, True, dt, gen,
-                                  with_dlse=dt == "float32",
-                                  variants=dt == "bfloat16")
+                                  with_dlse=dt == "float32", variants=True)
         if dt == "bfloat16":
             main["flash_attention.wgmma_wide"] = fwd
-            main["flash_attention.wide"] = _twin_record(fwd)
             main["flash_attention_dq.wgmma_wide"] = dq
             main["flash_attention_dkv.wgmma_wide"] = dkv
+        else:
+            main["flash_attention.wide"] = fwd
+            main["flash_attention_dq.tf32x3"] = dq
+            main["flash_attention_dkv.tf32x3"] = dkv
             main["flash_attention_dq.wide"] = _twin_record(dq)
             main["flash_attention_dkv.wide"] = _twin_record(dkv)
     # the head_dim-256 training leg's attention ([1, 8192, 4, 256]), D 192,
@@ -1561,6 +1605,14 @@ def phase_kernels():
     _flash_case(1, 777, 777, 4, 160, True, "float32", gen)
     _flash_case(1, 777, 777, 4, 160, True, "bfloat16", gen)
     _flash_bwd_case(1, 777, 777, 4, 160, True, "bfloat16", gen,
+                    with_dlse=True)
+    # the f32 backward on tf32x3: the f32 leg's [1, 8192, 4, 256], D 192,
+    # Tq != Tk not causal, and head_dim 160 (padded to 192) with an lse
+    # cotangent
+    _flash_bwd_case(1, 8192, 8192, 4, 256, True, "float32", gen)
+    _flash_bwd_case(1, 4096, 4096, 16, 192, True, "float32", gen)
+    _flash_bwd_case(1, 1000, 3000, 16, 256, False, "float32", gen)
+    _flash_bwd_case(1, 777, 777, 4, 160, True, "float32", gen,
                     with_dlse=True)
     _flash_bwd_case(1, 1000, 3000, 16, 64, False, "bfloat16", gen)
     _flash_bwd_case(1, 1000, 3000, 16, 64, True, "bfloat16", gen)
@@ -5487,11 +5539,14 @@ VARIANT_SOURCES = {
     "flash_attention_dq": {"wgmma": _CSRC + "flash_attention_bwd_wgmma.cu",
                            "wgmma_wide":
                                _CSRC + "flash_attention_bwd_wgmma_wide.cu",
+                           "tf32x3": _CSRC + "flash_attention_bwd_tf32x3.cu",
                            "simt": _CSRC + "flash_attention_bwd.cu",
                            "wide": _CSRC + "flash_attention_wide.cu"},
     "flash_attention_dkv": {"wgmma": _CSRC + "flash_attention_bwd_wgmma.cu",
                             "wgmma_wide":
                                 _CSRC + "flash_attention_bwd_wgmma_wide.cu",
+                            "tf32x3":
+                                _CSRC + "flash_attention_bwd_tf32x3.cu",
                             "simt": _CSRC + "flash_attention_bwd.cu",
                             "wide": _CSRC + "flash_attention_wide.cu"},
     "int8_matmul": {"wgmma": _CSRC + "int8_matmul.cu",
@@ -5599,6 +5654,14 @@ def main():
             "mxnet_tpu_torch/ops/kernels/csrc/"
             "flash_attention_bwd_wgmma_wide.cu",
             "mxnet_tpu/ops/pallas/flash_attention.py:179"),
+        # the f32 head_dim-256 leg's: dQ and dK/dV on the tensor-core
+        # tf32x3 kernels (its forward is wide)
+        "flash_attention_dq.tf32x3": (
+            "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd_tf32x3.cu",
+            "mxnet_tpu/ops/pallas/flash_attention.py:142"),
+        "flash_attention_dkv.tf32x3": (
+            "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd_tf32x3.cu",
+            "mxnet_tpu/ops/pallas/flash_attention.py:179"),
         "fused_softmax_xent": (
             "mxnet_tpu_torch/ops/kernels/csrc/softmax_xent.cu",
             "mxnet_tpu/ops/pallas/layers.py:116"),
@@ -5638,6 +5701,7 @@ def main():
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            **{k: rec[k] for k in ("bound_f32_cuda_core_ms",) if k in rec},
         }
         if name.startswith("int8_matmul"):      # split-K's second kernel
             entry["reduce_launches"] = launched(name + ".reduce")
@@ -5660,7 +5724,9 @@ def main():
                     "plain_ms": vrec["plain_ms"],
                     "library_ms": vrec["library_ms"],
                     "bound_ms": vrec["bound_ms"],
-                    "bound_by": vrec["bound_by"]})
+                    "bound_by": vrec["bound_by"],
+                    **{k: vrec[k] for k in ("bound_f32_cuda_core_ms",)
+                       if k in vrec}})
         kernels.append(entry)
     _emit({"phase": "total", "wall_s": time.perf_counter() - t_start,
            "serving_plane_s": plane_s})

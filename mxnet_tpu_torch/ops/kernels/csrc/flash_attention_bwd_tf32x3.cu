@@ -1,0 +1,664 @@
+// Flash-attention backward for f32 above head_dim 128 on Hopper's tensor
+// cores (sm_90a), CUDA C++: the "tf32x3" variant of dQ and dK/dV, for f32
+// inputs at head_dim 192 or 256 (the wrapper pads head_dim 129-256 to one
+// of them).
+//
+// Replaces, at those widths and in f32, the Pallas TPU kernels
+// mxnet_tpu/ops/pallas/flash_attention.py `_dq_kernel` and `_dkv_kernel`
+// (launched together by `_bwd`), and computes the same function as the
+// wide variant (flash_attention_wide.cu), which runs them on the CUDA
+// cores:
+//
+//   s   = (q . k^T) * scale          masked where k_pos >= Tk or (causal
+//                                    and q_pos < k_pos)
+//   p   = exp(s - lse)               0 where masked and in rows past Tq;
+//                                    as 2^(S scale log2(e) - lse log2(e)):
+//                                    one FFMA and one MUFU ex2
+//   dp  = dO . v^T
+//   ds  = p * (dp - delta) * scale   delta = rowsum(dO*O) - dlse, computed
+//                                    by the caller
+//   dQ  = ds . k,  dK = ds^T . q,  dV = p^T . dO           all f32
+//
+// Split-TF32 products.  The tensor cores take no f32 operand, and one TF32
+// product keeps 11 of f32's 24 significant bits (about 2^-11 relative),
+// which the f32 gradients' 1e-4 would not pass.  Every operand x of a
+// product that feeds an output is split into hi (x with its 13 low bits
+// cleared, a TF32 value) and lo = x - hi (exact in f32, read by the tensor
+// cores at 11 bits; split_tf32), and the product is issued as three TF32
+// products with f32 accumulation, lo_a.hi_b + hi_a.lo_b + hi_a.hi_b
+// (mma_tf32x3): the dropped lo_a.lo_b and the truncation of lo leave under
+// 3 * 2^-20 relative a product.  S and dP are split so, and so are dQ, dK
+// and dV, with p and ds split in registers as they are read.
+//
+// What bounds it on the card: operations.  dQ does 6*D and dK/dV 8*D
+// flops per unmasked (q, k) pair; as three TF32 products, 18*D and 24*D
+// at the H100's 495 TFLOP/s TF32 peak.  mma.sync reaches about 318 of
+// them there (tf32x3_probe.py), and every product needs its operands split
+// beside it (two ops a value on the CUDA cores, issued from the same warp
+// schedulers), so the design counts splits.
+//
+// Why mma.sync and not wgmma: wgmma reads TF32 operands from shared memory
+// only K-major, and dQ's K and dK/dV's Q and dO are MN-major there (the
+// reduction runs over their rows).  mma.sync.m16n8k8 loads its fragments
+// from shared memory by address in any layout, and the split happens as
+// they load.
+//
+// Design.  CTAs of 8 warps own 64 resident rows (queries for dQ, keys for
+// dK/dV), loaded once, and stream the other side in tiles of 32 rows, f32
+// in shared memory with rows padded to D + 4 words (every fragment load
+// below is free of bank conflicts).  Per tile:
+//   * scores: warp w computes 32 rows (32 ((w / 2) % 2) ..) x all 32
+//     streamed rows of one product (w < 4: S, or S^T; else dP, or dP^T)
+//     over one half of D (w % 2): 16 values split for 24 tensor-core
+//     products a k-step.  The two halves' warps trade partial sums of one
+//     16-row block each through an exchange tile in shared memory, and
+//     each finishes its block, p or dp - delta, in place there;
+//   * output: warp w owns D / 8 output columns (32 at D 256, 24 at 192) of
+//     all 64 rows, over the 32 streamed rows: dQ += ds . K, or dV += p^T .
+//     dO and dK += ds^T . Q, with ds = p * (dp - delta) * scale formed as
+//     the exchange is read; accumulators in registers (D / 4 floats a
+//     thread, twice that for dK/dV), to which each tile's products are
+//     added in f32 after summing on the tensor cores from zero: their own
+//     accumulation does not round to nearest, and over the 3072 steps of
+//     an 8192-row sequence it drifted 1e-4 of dK and dV's largest entry
+//     from dense autograd.  Each streamed value is split by one warp.
+//     These products read the streamed tile with their k index permuted
+//     (k-slot t <-> row 2t, t + 4 <-> row 2t + 1), which the exchange's A
+//     fragment follows (a float2 a row pair).
+// dQ: one CTA per (64 queries, head, batch), heavy causal tiles first, key
+// tiles up to the diagonal.  dK/dV: one CTA per (64 keys, head, batch),
+// early keys (more queries) first, query tiles from the diagonal to Tq;
+// key tiles that no query sees store their zero accumulators, so every
+// dK/dV row is written.  Copies are 16-byte cp.async (rows past the end
+// zero-filled); one buffer a tile: shared memory at D 256 is 130 KB
+// resident, 65 KB streamed and 20 KB of exchange (215 KB of 227).  The
+// streamed tile that the first output product does not read (V in dQ,
+// dO in dK/dV) is refilled while it runs; the other after it, by the four
+// warps whose scores read it, which wait for it at their own barrier while
+// the other four start the next tile's scores.  No CTA reads what another
+// writes and there are no atomics: two calls give the same bits.
+//
+// Plain C interface (no PyTorch headers), called through ctypes.
+
+#include "hopper.cuh"
+
+namespace {
+
+constexpr int BR = 64;             // resident rows a CTA
+constexpr int BS = 32;             // streamed rows a tile
+constexpr int NT = 256;            // threads a CTA: 8 warps
+constexpr int XS = BS + 8;         // row stride (words) of an exchange tile
+constexpr int kErrPad = 100003;    // tq_pad not a multiple of BR or < Tq
+constexpr float kLog2e = 1.4426950408889634f;
+
+// (batch, time, head) strides in elements of each [B, T, H, D] tensor
+struct Strides {
+  long long s[18];
+};
+
+// Shared memory, in floats: two resident [BR][LD] tiles, two streamed
+// [BS][LD] tiles and two [BR][XS] exchange tiles.  LD % 32 == 4.
+template <int D>
+struct Smem {
+  static constexpr int LD = D + 4;
+  static constexpr int res0 = 0;                 // q | k
+  static constexpr int res1 = res0 + BR * LD;    // dO | v
+  static constexpr int str0 = res1 + BR * LD;    // k | q
+  static constexpr int str1 = str0 + BS * LD;    // v | dO
+  static constexpr int x0 = str1 + BS * LD;      // p | p^T
+  static constexpr int x1 = x0 + BR * XS;        // dp - delta (by row | col)
+  static constexpr int floats = x1 + BR * XS;
+  static constexpr size_t bytes = floats * sizeof(float);
+  static_assert(bytes <= 232448, "a block has 227 KB of shared memory");
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The barrier of one product's four warps (the scores' halves of the CTA):
+// this thread's copies have landed and those of its half are visible
+__device__ __forceinline__ void half_ready(int wp) {
+  cp_async_wait_all();
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wp) : "memory");
+}
+
+// rows row0 .. row0 + n - 1 of X (row stride ld_x elements, D contiguous
+// floats a row) into dst [n][D + 4], by the `nth` threads numbered from
+// threadIdx.x - tid (tid: this thread's number among them); rows at or past
+// `end` are zeros
+template <int D>
+__device__ __forceinline__ void copy_rows(float* dst, const float* X,
+                                          long long ld_x, int row0, int n,
+                                          int end, int tid = threadIdx.x,
+                                          int nth = NT) {
+  constexpr int V = D / 4;                    // 16-byte copies a row
+  for (int e = tid; e < n * V; e += nth) {
+    const int r = e / V, c = (e % V) * 4;
+    const int pos = row0 + r;
+    const bool in = pos < end;
+    cp_async16(dst + r * (D + 4) + c, X + (in ? pos : 0) * ld_x + c, in);
+  }
+}
+
+// A fragment (16 x 8), split, of a row-major [rows][k] tile at m
+__device__ __forceinline__ void frag_a(const float* m, int ld, int g, int t,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split_tf32(m[g * ld + t], hi[0], lo[0]);
+  split_tf32(m[(g + 8) * ld + t], hi[1], lo[1]);
+  split_tf32(m[g * ld + t + 4], hi[2], lo[2]);
+  split_tf32(m[(g + 8) * ld + t + 4], hi[3], lo[3]);
+}
+
+// B fragment (8 x 8), split, of N^T for a row-major [n][k] tile N at m
+__device__ __forceinline__ void frag_bt(const float* m, int ld, int g, int t,
+                                        uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  split_tf32(m[g * ld + t], hi[0], lo[0]);
+  split_tf32(m[g * ld + t + 4], hi[1], lo[1]);
+}
+
+// B fragment (8 x 8), split, of a row-major [k][n] tile at m with k
+// permuted: slot t reads row 2t, slot t + 4 row 2t + 1
+__device__ __forceinline__ void frag_b_perm(const float* m, int ld, int g,
+                                            int t, uint32_t (&hi)[2],
+                                            uint32_t (&lo)[2]) {
+  split_tf32(m[2 * t * ld + g], hi[0], lo[0]);
+  split_tf32(m[(2 * t + 1) * ld + g], hi[1], lo[1]);
+}
+
+// A fragment (16 x 8), split, of an exchange tile with k permuted as
+// frag_b_perm (columns 2t and 2t + 1 are one float2): p from P, or with
+// kDs, ds = p * (dp - delta) * scale from P and Dd (dp - delta)
+template <bool kDs>
+__device__ __forceinline__ void frag_x(const float* P, const float* Dd,
+                                       float scale, int g, int t,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  float2 u = *reinterpret_cast<const float2*>(P + g * XS + 2 * t);
+  float2 w = *reinterpret_cast<const float2*>(P + (g + 8) * XS + 2 * t);
+  if (kDs) {
+    const float2 du = *reinterpret_cast<const float2*>(Dd + g * XS + 2 * t);
+    const float2 dw =
+        *reinterpret_cast<const float2*>(Dd + (g + 8) * XS + 2 * t);
+    u = make_float2(u.x * du.x * scale, u.y * du.y * scale);
+    w = make_float2(w.x * dw.x * scale, w.y * dw.y * scale);
+  }
+  split_tf32(u.x, hi[0], lo[0]);
+  split_tf32(w.x, hi[1], lo[1]);
+  split_tf32(u.y, hi[2], lo[2]);
+  split_tf32(w.y, hi[3], lo[3]);
+}
+
+// One scores warp's partial products: acc[m][n] = A[16m .. 16m + 15] .
+// B[8n .. 8n + 7]^T over D / 2 columns, A 32 rows of a resident tile and B
+// the 32 rows of the streamed tile, both from this warp's half of D
+template <int D>
+__device__ __forceinline__ void score_half(const float* A, const float* B,
+                                           int g, int t,
+                                           float (&acc)[2][4][4]) {
+  constexpr int LD = D + 4;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < D / 2; d += 8) {
+    uint32_t ah[2][4], al[2][4];
+    frag_a(A + d, LD, g, t, ah[0], al[0]);
+    frag_a(A + 16 * LD + d, LD, g, t, ah[1], al[1]);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      uint32_t bh[2], bl[2];
+      frag_bt(B + 8 * n * LD + d, LD, g, t, bh, bl);
+      mma_tf32x3(acc[0][n], ah[0], al[0], bh, bl);
+      mma_tf32x3(acc[1][n], ah[1], al[1], bh, bl);
+    }
+  }
+}
+
+// 16 rows of score fragments (n-blocks of 8 columns) to / from an exchange
+// tile at X
+__device__ __forceinline__ void put(float* X, int g, int t,
+                                   const float (&f)[4][4]) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    float* x = X + g * XS + 8 * n + 2 * t;
+    *reinterpret_cast<float2*>(x) = make_float2(f[n][0], f[n][1]);
+    *reinterpret_cast<float2*>(x + 8 * XS) = make_float2(f[n][2], f[n][3]);
+  }
+}
+
+__device__ __forceinline__ void add_from(const float* X, int g, int t,
+                                         float (&f)[4][4]) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    const float* x = X + g * XS + 8 * n + 2 * t;
+    const float2 u = *reinterpret_cast<const float2*>(x);
+    const float2 w = *reinterpret_cast<const float2*>(x + 8 * XS);
+    f[n][0] += u.x;
+    f[n][1] += u.y;
+    f[n][2] += w.x;
+    f[n][3] += w.y;
+  }
+}
+
+// The two D halves' partial scores meet: each warp of the pair hands the
+// other its partial of one 16-row block (wd = 0 hands block 1, wd = 1 block
+// 0) through the exchange tile X (its 32 rows), and returns in f the full
+// sums of the other block, 16 rows from 16 wd (a + b == b + a: the pair
+// agrees bit for bit).  Contains the CTA barrier.
+__device__ __forceinline__ void meet_halves(float* X, int wd, int g, int t,
+                                            const float (&s)[2][4][4],
+                                            float (&f)[4][4]) {
+  float h[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      h[n][i] = wd ? s[0][n][i] : s[1][n][i];
+      f[n][i] = wd ? s[1][n][i] : s[0][n][i];
+    }
+  put(X + 16 * (1 - wd) * XS, g, t, h);
+  __syncthreads();
+  add_from(X + 16 * wd * XS, g, t, f);
+}
+
+template <int D>
+__device__ __forceinline__ void zero(float (&acc)[4][D / 64][4]) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int nb = 0; nb < D / 64; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][nb][i] = 0.f;
+}
+
+// acc[m][nb] += X[16m .., :] . M[:, 8nb ..] over the tile's BS streamed
+// rows: all 64 exchange rows (p, or ds with kDs) against D / 64 n-blocks of
+// the streamed tile M from this warp's first output column.  The tile's
+// products accumulate on the tensor cores from zero (12 steps) and are
+// then added to acc in f32: the tensor cores' own accumulation does not
+// round to nearest, and over the thousands of steps of a long sequence
+// its bias reaches 1e-4 of dK and dV
+template <int D, bool kDs>
+__device__ __forceinline__ void out_product(const float* P, const float* Dd,
+                                            float scale, const float* M,
+                                            int g, int t,
+                                            float (&acc)[4][D / 64][4]) {
+  constexpr int NB = D / 64, LD = D + 4;
+  float tile[4][NB][4];
+  zero<D>(tile);
+#pragma unroll
+  for (int kk = 0; kk < BS; kk += 8) {
+    uint32_t bh[NB][2], bl[NB][2];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      frag_b_perm(M + kk * LD + 8 * nb, LD, g, t, bh[nb], bl[nb]);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      uint32_t ah[4], al[4];
+      frag_x<kDs>(P + 16 * m * XS + kk, Dd + 16 * m * XS + kk, scale, g, t,
+                  ah, al);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+        mma_tf32x3(tile[m][nb], ah, al, bh[nb], bl[nb]);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][nb][i] += tile[m][nb][i];
+}
+
+// this warp's output fragments: rows r0 + 16m + g (+ 8), those at or past
+// `end` not stored; columns c0 + 8nb + 2t and the next
+template <int D>
+__device__ __forceinline__ void store(float* out, long long ld, int r0,
+                                      int end, int c0, int g, int t,
+                                      const float (&acc)[4][D / 64][4]) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 16 * m + g + 8 * half;
+      if (r >= end) continue;
+#pragma unroll
+      for (int nb = 0; nb < D / 64; ++nb)
+        *reinterpret_cast<float2*>(out + r * ld + c0 + 8 * nb + 2 * t) =
+            make_float2(acc[m][nb][2 * half], acc[m][nb][2 * half + 1]);
+    }
+}
+
+// st: q (0-2), k (3-5), v (6-8), dO (9-11), dQ (12-14)
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_dq_tf32x3_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       float* __restrict__ dq, int H, int Tq, int Tk,
+                       int tq_pad, Strides st, float scale, int causal) {
+  using L = Smem<D>;
+  constexpr int LD = L::LD;
+  extern __shared__ float4 smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  float* Ks = smem + L::str0;
+  float* Vs = smem + L::str1;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wp = warp >> 2, wr = (warp >> 1) & 1, wd = warp & 1;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BR;   // heavy tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+
+  const float* qb = q + b * st.s[0] + h * st.s[2];
+  const float* kb = k + b * st.s[3] + h * st.s[5];
+  const float* vb = v + b * st.s[6] + h * st.s[8];
+  const float* dob = dout + b * st.s[9] + h * st.s[11];
+  // the rows this warp finishes, r0 and r0 + 8, and their lse (wp 0) or
+  // delta (wp 1)
+  const int r0 = q0 + 32 * wr + 16 * wd + g;
+  const float* rv = (wp ? delta : lse) + ((long long)b * H + h) * tq_pad;
+  const float row[2] = {rv[r0] * (wp ? 1.f : kLog2e),
+                        rv[r0 + 8] * (wp ? 1.f : kLog2e)};
+  const float sl2 = scale * kLog2e;
+
+  const int q_last = min(q0 + BR, Tq) - 1;
+  const int k_end = causal ? min(Tk, q_last + 1) : Tk;
+
+  copy_rows<D>(smem + L::res0, qb, st.s[1], q0, BR, Tq);
+  copy_rows<D>(smem + L::res1, dob, st.s[10], q0, BR, Tq);
+  copy_rows<D>(Ks, kb, st.s[4], 0, BS, Tk);
+  copy_rows<D>(Vs, vb, st.s[7], 0, BS, Tk);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // scores: S = Q.K^T (wp 0) or dP = dO.V^T (wp 1), rows 32 wr .., D half
+  // wd; the two halves meet in the product's exchange tile
+  const float* A = smem + (wp ? L::res1 : L::res0) + 32 * wr * LD +
+                   wd * (D / 2);
+  const float* Bt = smem + (wp ? L::str1 : L::str0) + wd * (D / 2);
+  float* X = smem + (wp ? L::x1 : L::x0) + 32 * wr * XS;
+  const float* Xp = smem + L::x0;
+  const float* Xd = smem + L::x1;
+  const int c0 = warp * (D / 8);          // this warp's output columns
+  float acc[4][D / 64][4];
+  zero<D>(acc);
+
+  // the dP warps (wp 1, threads 128 ..) copy V, the S warps K: each half
+  // waits at its own barrier for what its scores read, so the dP scores
+  // of a tile run while its K tile is still on its way
+  const int ht = threadIdx.x & 127;
+  for (int k0 = 0; k0 < k_end; k0 += BS) {
+    const bool more = k0 + BS < k_end;
+    float s[2][4][4], f[4][4];
+    half_ready(wp);
+    score_half<D>(A, Bt, g, t, s);
+    meet_halves(X, wd, g, t, s, f);  // barrier: V is no longer read
+    if (more && wp) copy_rows<D>(Vs, vb, st.s[7], k0 + BS, BS, Tk, ht, 128);
+    if (wp) {                                          // dp - delta
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) f[n][i] -= row[i >> 1];
+    } else {                                           // p
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qpos = r0 + 8 * (i >> 1);
+          const int kpos = k0 + 8 * n + 2 * t + (i & 1);
+          const bool ok = qpos < Tq && kpos < Tk && (!causal || qpos >= kpos);
+          f[n][i] = ok ? ex2(fmaf(f[n][i], sl2, -row[i >> 1])) : 0.f;
+        }
+    }
+    put(X + 16 * wd * XS, g, t, f);
+    __syncthreads();              // p and dp - delta are in
+    out_product<D, true>(Xp, Xd, scale, Ks + c0, g, t, acc);
+    __syncthreads();              // K and the exchange are no longer read
+    if (more && !wp) copy_rows<D>(Ks, kb, st.s[4], k0 + BS, BS, Tk, ht, 128);
+  }
+  store<D>(dq + b * st.s[12] + h * st.s[14], st.s[13], q0, Tq, c0, g, t,
+           acc);
+}
+
+// st: q (0-2), k (3-5), v (6-8), dO (9-11), dK (12-14), dV (15-17)
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_dkv_tf32x3_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dk, float* __restrict__ dv, int H,
+                        int Tq, int Tk, int tq_pad, Strides st, float scale,
+                        int causal) {
+  using L = Smem<D>;
+  constexpr int LD = L::LD;
+  extern __shared__ float4 smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  float* Qs = smem + L::str0;
+  float* dOs = smem + L::str1;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wp = warp >> 2, wr = (warp >> 1) & 1, wd = warp & 1;
+  const int k0 = blockIdx.x * BR;        // early keys see the most queries
+  const int h = blockIdx.y, b = blockIdx.z;
+
+  const float* qb = q + b * st.s[0] + h * st.s[2];
+  const float* kb = k + b * st.s[3] + h * st.s[5];
+  const float* vb = v + b * st.s[6] + h * st.s[8];
+  const float* dob = dout + b * st.s[9] + h * st.s[11];
+  // lse (wp 0) or delta (wp 1) by query
+  const float* cv = (wp ? delta : lse) + ((long long)b * H + h) * tq_pad;
+  const int r0 = k0 + 32 * wr + 16 * wd + g;   // this warp's keys r0, r0 + 8
+
+  // causal: a query tile whose last row precedes k0 sees none of these keys
+  const int q_begin = causal ? (k0 / BS) * BS : 0;
+
+  copy_rows<D>(smem + L::res0, kb, st.s[4], k0, BR, Tk);
+  copy_rows<D>(smem + L::res1, vb, st.s[7], k0, BR, Tk);
+  if (q_begin < Tq) {
+    copy_rows<D>(Qs, qb, st.s[1], q_begin, BS, Tq);
+    copy_rows<D>(dOs, dob, st.s[10], q_begin, BS, Tq);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // scores: S^T = K.Q^T (wp 0) or dP^T = V.dO^T (wp 1)
+  const float* A = smem + (wp ? L::res1 : L::res0) + 32 * wr * LD +
+                   wd * (D / 2);
+  const float* Bt = smem + (wp ? L::str1 : L::str0) + wd * (D / 2);
+  float* X = smem + (wp ? L::x1 : L::x0) + 32 * wr * XS;
+  const float* Xp = smem + L::x0;
+  const float* Xd = smem + L::x1;
+  const int c0 = warp * (D / 8);
+  float dk_acc[4][D / 64][4], dv_acc[4][D / 64][4];
+  zero<D>(dk_acc);
+  zero<D>(dv_acc);
+
+  // the dP^T warps (wp 1) copy dO, the S^T warps Q, each half waiting at
+  // its own barrier (as in dQ)
+  const int ht = threadIdx.x & 127;
+  for (int q0 = q_begin; q0 < Tq; q0 += BS) {
+    const bool more = q0 + BS < Tq;
+    float s[2][4][4], f[4][4];
+    half_ready(wp);
+    score_half<D>(A, Bt, g, t, s);
+    meet_halves(X, wd, g, t, s, f);
+    float2 c2[4];                 // lse or delta of queries q0 + 8n + 2t, + 1
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      c2[n] = *reinterpret_cast<const float2*>(cv + q0 + 8 * n + 2 * t);
+    const float sl2 = scale * kLog2e;
+    if (wp) {                                          // dp - delta
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) f[n][i] -= (i & 1) ? c2[n].y : c2[n].x;
+    } else {                                           // p
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kpos = r0 + 8 * (i >> 1);
+          const int qpos = q0 + 8 * n + 2 * t + (i & 1);
+          const bool ok = qpos < Tq && kpos < Tk && (!causal || qpos >= kpos);
+          const float l2 = ((i & 1) ? c2[n].y : c2[n].x) * kLog2e;
+          f[n][i] = ok ? ex2(fmaf(f[n][i], sl2, -l2)) : 0.f;
+        }
+    }
+    put(X + 16 * wd * XS, g, t, f);
+    __syncthreads();              // p^T and dp^T - delta are in
+    out_product<D, false>(Xp, Xd, scale, dOs + c0, g, t, dv_acc);
+    __syncthreads();              // dO is no longer read
+    if (more && wp)
+      copy_rows<D>(dOs, dob, st.s[10], q0 + BS, BS, Tq, ht, 128);
+    out_product<D, true>(Xp, Xd, scale, Qs + c0, g, t, dk_acc);
+    __syncthreads();              // Q and the exchange are no longer read
+    if (more && !wp) copy_rows<D>(Qs, qb, st.s[1], q0 + BS, BS, Tq, ht, 128);
+  }
+  store<D>(dk + b * st.s[12] + h * st.s[14], st.s[13], k0, Tk, c0, g, t,
+           dk_acc);
+  store<D>(dv + b * st.s[15] + h * st.s[17], st.s[16], k0, Tk, c0, g, t,
+           dv_acc);
+}
+
+Strides copy_strides(const long long* st, int n) {
+  Strides s{};
+  for (int i = 0; i < n; ++i) s.s[i] = st[i];
+  return s;
+}
+
+template <int D>
+int launch_dq(const float* q, const float* k, const float* v,
+              const float* dout, const float* lse, const float* delta,
+              float* dq, int B, int H, int Tq, int Tk, int tq_pad,
+              const long long* st, float scale, int causal,
+              cudaStream_t stream) {
+  constexpr size_t smem = Smem<D>::bytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_dq_tf32x3_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((Tq + BR - 1) / BR, H, B);
+  flash_dq_tf32x3_kernel<D><<<grid, NT, smem, stream>>>(
+      q, k, v, dout, lse, delta, dq, H, Tq, Tk, tq_pad,
+      copy_strides(st, 15), scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv(const float* q, const float* k, const float* v,
+               const float* dout, const float* lse, const float* delta,
+               float* dk, float* dv, int B, int H, int Tq, int Tk,
+               int tq_pad, const long long* st, float scale, int causal,
+               cudaStream_t stream) {
+  constexpr size_t smem = Smem<D>::bytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_dkv_tf32x3_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((Tk + BR - 1) / BR, H, B);
+  flash_dkv_tf32x3_kernel<D><<<grid, NT, smem, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, H, Tq, Tk, tq_pad,
+      copy_strides(st, 18), scale, causal);
+  return (int)cudaGetLastError();
+}
+
+int check_sizes(int B, int H, int Tq, int Tk, int tq_pad) {
+  if (Tk <= 0 || B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
+  if (tq_pad < Tq || tq_pad % BR) return kErrPad;
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// q/k/v/dO: f32 [B, T, H, D] with unit stride on D, D 192 or 256; `st`
+// holds the (B, T, H) element strides of q, k, v, dO and dq in that order.
+// Base addresses 16-byte aligned, strides multiples of 4 elements (the
+// 16-byte copies).  lse, delta: f32 [B, H, tq_pad], contiguous.  Returns 0
+// on success, else a cudaError_t or kErrPad (see
+// mxt_flash_bwd_tf32x3_error_string).
+int mxt_flash_bwd_tf32x3_dq(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dq, int B, int H, int Tq,
+                            int Tk, int D, int tq_pad, const long long* st,
+                            float scale, int causal, void* stream) {
+  if (B <= 0 || H <= 0 || Tq <= 0) return 0;
+  const int rc = check_sizes(B, H, Tq, Tk, tq_pad);
+  if (rc != 0) return rc;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float *fq = static_cast<const float*>(q),
+              *fk = static_cast<const float*>(k),
+              *fv = static_cast<const float*>(v),
+              *fo = static_cast<const float*>(dout),
+              *fl = static_cast<const float*>(lse),
+              *fd = static_cast<const float*>(delta);
+  float* out = static_cast<float*>(dq);
+  switch (D) {
+    case 192:
+      return launch_dq<192>(fq, fk, fv, fo, fl, fd, out, B, H, Tq, Tk,
+                            tq_pad, st, scale, causal, s);
+    case 256:
+      return launch_dq<256>(fq, fk, fv, fo, fl, fd, out, B, H, Tq, Tk,
+                            tq_pad, st, scale, causal, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// As mxt_flash_bwd_tf32x3_dq; `st` holds the strides of q, k, v, dO, dk
+// and dv.  Every dK/dV row is written (rows no query sees get 0).
+int mxt_flash_bwd_tf32x3_dkv(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dk, void* dv, int B,
+                             int H, int Tq, int Tk, int D, int tq_pad,
+                             const long long* st, float scale, int causal,
+                             void* stream) {
+  if (B <= 0 || H <= 0 || Tq <= 0) return 0;
+  const int rc = check_sizes(B, H, Tq, Tk, tq_pad);
+  if (rc != 0) return rc;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float *fq = static_cast<const float*>(q),
+              *fk = static_cast<const float*>(k),
+              *fv = static_cast<const float*>(v),
+              *fo = static_cast<const float*>(dout),
+              *fl = static_cast<const float*>(lse),
+              *fd = static_cast<const float*>(delta);
+  float *ok = static_cast<float*>(dk), *ov = static_cast<float*>(dv);
+  switch (D) {
+    case 192:
+      return launch_dkv<192>(fq, fk, fv, fo, fl, fd, ok, ov, B, H, Tq, Tk,
+                             tq_pad, st, scale, causal, s);
+    case 256:
+      return launch_dkv<256>(fq, fk, fv, fo, fl, fd, ok, ov, B, H, Tq, Tk,
+                             tq_pad, st, scale, causal, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+const char* mxt_flash_bwd_tf32x3_error_string(int code) {
+  if (code == kErrPad)
+    return "lse/delta row length tq_pad is not a multiple of 64 >= Tq";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

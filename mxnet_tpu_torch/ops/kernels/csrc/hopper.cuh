@@ -1,11 +1,13 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels: the
 // flash kernels (flash_attention_wgmma.cu, the forward;
 // flash_attention_bwd_wgmma.cu, dQ and dK/dV; their wgmma_wide twins at
-// head_dim 192 and 256) and the int8 matmul
+// head_dim 192 and 256; the f32 backward's tf32x3 kernels,
+// flash_attention_bwd_tf32x3.cu) and the int8 matmul
 // (int8_matmul.cu, its wgmma variant).  mbarriers, TMA loads, 128-byte-
 // swizzled wgmma descriptors, the wgmma shapes the kernels issue (bf16 with
 // f32 accumulation; s8 with s32 accumulation), the flash kernels' hi / lo
-// split of an f32 operand and the forwards' online-softmax step, and the
+// split of an f32 operand (two bf16 terms; two TF32 terms with mma.sync's
+// TF32 product) and the forwards' online-softmax step, and the
 // host-side tensor maps over [B, T, H, D] bf16 tensors and over [rows, K]
 // int8 matrices.  Included
 // by each source; everything sits in an anonymous namespace, so each library
@@ -193,6 +195,48 @@ __device__ __forceinline__ void split_hi_lo(const float (&x)[NS],
       lo[kk][r] = bits(l);
     }
   }
+}
+
+// x -> hi + lo, the operand split of the split-TF32 products: hi is x with
+// its 13 low significand bits cleared (a TF32 value), lo = x - hi, exact in
+// f32 (|lo| < 2^-10 |x|).  lo goes to the tensor cores as it is: a TF32
+// operand's 13 low bits are not read (ptxas itself drops a mask of them
+// before an HMMA.TF32), so the product sees lo truncated to 11 significant
+// bits, and |x - hi - tf32(lo)| < 2^-20 |x|.  Two ops a value, one of them
+// on the integer pipe: the splits run beside every tensor-core product,
+// and longer ones (cvt.rna.tf32.f32, 16 results a clock an SM; integer
+// rounding; a Veltkamp split of lo) bound the kernels in place of the
+// tensor cores.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// d += A·B, TF32 operands and f32 accumulation, in mma.sync's m16n8k8
+// fragments (g = lane / 4, t = lane % 4): A [16 x 8] at (g, t), (g + 8, t),
+// (g, t + 4), (g + 8, t + 4); B [8 x 8] at (t, g), (t + 4, g); d [16 x 8]
+// at (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += A·B to about f32 accuracy on split operands (split_tf32): three
+// TF32 products, the small ones first; lo_a·lo_b (under 2^-20 of the
+// product) is dropped
+__device__ __forceinline__ void mma_tf32x3(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
 }
 
 // One key tile's online-softmax step of the tensor-core flash forwards,

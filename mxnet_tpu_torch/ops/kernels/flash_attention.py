@@ -20,9 +20,10 @@ head_dim 16, 32, 64 or 128, or above 128 any multiple of 64; any other
 head_dim is zero-padded along D to the next of those widths (a layout copy:
 zero columns add 0 to q·kᵀ and dO·Vᵀ), run at that width with ``scale``
 fixed from the real head_dim, and sliced back (:func:`_padded_dim`).  Only
-head_dim 0 raises.  The forward and the backward (dQ and dK/dV) each have
-four variants, chosen by one rule on dtype and padded head_dim alone
-(:func:`_variant`), never by whether a build or a launch worked:
+head_dim 0 raises.  The variants are chosen by one rule on dtype, padded
+head_dim and direction alone (:func:`_variant`), never by whether a build
+or a launch worked; the forward has four, the backward (dQ and dK/dV)
+five:
 
 * ``wgmma`` — tensor cores (wgmma, TMA rings, the f32 operands p and ds
   split into two bf16 terms): bf16 at head_dim 64 or 128 (the flagship's
@@ -40,16 +41,30 @@ four variants, chosen by one rule on dtype and padded head_dim alone
   (CTAs of 64 output rows whose two consumer warpgroups split the output's
   columns).  The same preconditions and the same copy of ``dO`` as
   ``wgmma``;
-* ``simt`` — CUDA cores: f32 up to head_dim 128 (the tensor cores have no
-  f32 operand that keeps q·kᵀ exact) and head_dim 16 or 32 (less than one
-  128-byte row of the swizzled tiles the wgmma variant reads).  Forward
-  ``csrc/flash_attention.cu``; backward ``csrc/flash_attention_bwd.cu``;
+* ``tf32x3`` — the backward only (dQ and dK/dV), tensor cores: f32 at a
+  padded head_dim of 192 or 256 (head_dim 129-256),
+  ``csrc/flash_attention_bwd_tf32x3.cu``.  The tensor cores have no f32
+  operand, and one TF32 product keeps 11 of f32's 24 significant bits
+  (about 2^-11 relative), too coarse for f32 gradients; so each operand is
+  split into ``hi`` (x with its 13 low bits cleared) and ``lo = x - hi``
+  and each product issued as three TF32 products with f32 accumulation
+  (``lo·hi + hi·lo + hi·hi``), under 3·2^-20 relative a product, each
+  tile's products summed from zero and added in f32 (the tensor cores'
+  own accumulation does not round to nearest).  mma.sync, 16-byte
+  ``cp.async`` copies: the same 16-byte preconditions as ``wgmma``
+  (:func:`_tma_fault`) and the same copy of ``dO``.  The f32 forward
+  there stays ``wide``;
+* ``simt`` — CUDA cores: f32 up to head_dim 128, and head_dim 16 or 32
+  (less than one 128-byte row of the swizzled tiles the wgmma variant
+  reads).  Forward ``csrc/flash_attention.cu``; backward
+  ``csrc/flash_attention_bwd.cu``;
 * ``wide`` — CUDA cores, above head_dim 128 (padded to a multiple of 64):
   the dot products over D walk it in chunks of 64 and each CTA owns at
   most 128 output columns, so any head_dim fits
-  (``csrc/flash_attention_wide.cu``: forward, dQ and dK/dV).  f32 above
-  128, and bf16 above 256 (a third pair of 64-column panels would not fit
-  the ``wgmma_wide`` kernels' registers).
+  (``csrc/flash_attention_wide.cu``: forward, dQ and dK/dV).  The f32
+  forward above 128, the f32 backward above 256, and bf16 above 256 both
+  ways (a third pair of 64-column panels would not fit the
+  ``wgmma_wide`` kernels' registers).
 
 Every forward launch counts as ``kernels.launch.flash_attention`` and as
 ``kernels.launch.flash_attention.<variant>``; every backward launch as
@@ -78,7 +93,11 @@ __all__ = ["flash_attention", "flash_attention_lse", "flash_self_attention",
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)      # the widths the kernels are built for
 # the tensor-core variants' widths
-_TC_WIDTHS = {"wgmma": (64, 128), "wgmma_wide": (192, 256)}
+_TC_WIDTHS = {"wgmma": (64, 128), "wgmma_wide": (192, 256),
+              "tf32x3": (192, 256)}
+# ... and the dtype each takes
+_TC_DTYPE = {"wgmma": torch.bfloat16, "wgmma_wide": torch.bfloat16,
+             "tf32x3": torch.float32}
 _WIDE_CHUNK = 64                    # above 128, widths are multiples of it
 _BWD_ROWS = 64                      # lse/delta rows per tile of the wgmma dK/dV
 
@@ -250,17 +269,21 @@ def _pad_d(t, width):
     return t if D == width else torch.nn.functional.pad(t, (0, width - D))
 
 
-def _variant(dtype, head_dim):
-    """The flash kernels, forward and backward alike, for ``dtype`` and
-    ``head_dim`` (1 and up), by its padded width (:func:`_padded_dim`):
-    ``"wgmma"`` for bf16 at 64 or 128, ``"wgmma_wide"`` for bf16 at 192 or
-    256, ``"wide"`` for every other width above 128 (f32, and bf16 above
-    256), ``"simt"`` for the rest (f32 up to 128; bf16 up to 32)."""
+def _variant(dtype, head_dim, backward=False):
+    """The flash kernels for ``dtype``, ``head_dim`` (1 and up) and the
+    direction, by the padded width (:func:`_padded_dim`): ``"wgmma"`` for
+    bf16 at 64 or 128, ``"wgmma_wide"`` for bf16 at 192 or 256, both ways;
+    for the ``backward`` (dQ and dK/dV), ``"tf32x3"`` for f32 at 192 or 256
+    (split-TF32 products on the tensor cores: three TF32 products of the
+    operands' hi / lo terms, under 3·2^-20 relative a product, where one
+    TF32 product leaves 2^-11); ``"wide"`` for every other width above 128
+    (the f32 forward, f32 above 256, bf16 above 256); ``"simt"`` for the
+    rest (f32 up to 128; bf16 up to 32)."""
     width = _padded_dim(head_dim)
-    if dtype == torch.bfloat16 and width in _TC_WIDTHS["wgmma"]:
-        return "wgmma"
-    if dtype == torch.bfloat16 and width in _TC_WIDTHS["wgmma_wide"]:
-        return "wgmma_wide"
+    for variant in ("wgmma", "wgmma_wide") + (("tf32x3",) if backward
+                                               else ()):
+        if dtype == _TC_DTYPE[variant] and width in _TC_WIDTHS[variant]:
+            return variant
     if head_dim > _HEAD_DIMS[-1]:
         return "wide"
     return "simt"
@@ -283,25 +306,27 @@ def _tma_strides(t):
 
 
 def _tma_fault(name, t):
-    """Why the wgmma variants' TMA copies cannot read ``t`` (a message), or
-    ``None``: they need its base address 16-byte aligned and each (B, T, H)
-    stride a multiple of 8 elements (16 bytes)."""
+    """Why the tensor-core variants' 16-byte copies (TMA; ``cp.async`` in
+    ``tf32x3``) cannot read ``t`` (a message), or ``None``: they need its
+    base address 16-byte aligned and each (B, T, H) stride a multiple of 16
+    bytes (8 bf16 or 4 f32 elements)."""
     if t.data_ptr() % 16:
         return ("%s's base address is not 16-byte aligned (offset %d bytes); "
                 "pass a tensor whose data starts on a 16-byte boundary"
                 % (name, t.data_ptr() % 16))
+    per = 16 // t.element_size()
     for axis, stride in zip("BTH", _tma_strides(t)):
-        if stride % 8:
-            return ("%s's %s stride %d is not a multiple of 8 elements (16 "
-                    "bytes)" % (name, axis, stride))
+        if stride % per:
+            return ("%s's %s stride %d is not a multiple of %d elements (16 "
+                    "bytes)" % (name, axis, stride, per))
     return None
 
 
 def _check_wgmma(q, k, v, do=None, variant="wgmma"):
     """Raise :class:`ValueError` on inputs the tensor-core variants
-    (``wgmma``, ``wgmma_wide``) cannot read (:func:`_tma_fault`): q, k, v
-    and, for the backward, ``do``.  Never a reason to take another
-    variant."""
+    (``wgmma``, ``wgmma_wide``, ``tf32x3``) cannot read
+    (:func:`_tma_fault`): q, k, v and, for the backward, ``do``.  Never a
+    reason to take another variant."""
     named = (("q", q), ("k", k), ("v", v)) + (
         (("dO", do),) if do is not None else ())
     for name, t in named:
@@ -354,9 +379,9 @@ _FWD_TC = {
 def _flash_tc_cuda(variant, q, k, v, causal, scale, kv_len):
     """Launch the tensor-core forward ``variant`` on bf16 inputs at one of
     its widths; returns ``(o, lse)``.  Raises on inputs it does not take
-    (:func:`_check_bf16_width`, :func:`_check_wgmma`)."""
+    (:func:`_check_tc_width`, :func:`_check_wgmma`)."""
     B, Tq, Tk, H, D = _check_qkv(q, k, v)
-    _check_bf16_width(q.dtype, D, variant)
+    _check_tc_width(q.dtype, D, variant)
     _check_wgmma(q, k, v, variant=variant)
     if scale is None:
         scale = 1.0 / (D ** 0.5)
@@ -428,12 +453,13 @@ def _flash_wide_cuda(q, k, v, causal=True, scale=None, kv_len=None):
     return o, lse
 
 
-def _check_bf16_width(dtype, D, variant):
-    widths = _TC_WIDTHS[variant]
-    if dtype != torch.bfloat16 or D not in widths:
-        raise ValueError("flash_attention (%s variant): takes bf16 with "
+def _check_tc_width(dtype, D, variant):
+    widths, want = _TC_WIDTHS[variant], _TC_DTYPE[variant]
+    if dtype != want or D not in widths:
+        raise ValueError("flash_attention (%s variant): takes %s with "
                          "head_dim in %s; got %s, head_dim %d"
-                         % (variant, widths, dtype, D))
+                         % (variant, "bf16" if want == torch.bfloat16
+                            else "float32", widths, dtype, D))
 
 
 def _flash_cuda(q, k, v, causal=True, scale=None, kv_len=None):
@@ -569,13 +595,14 @@ _BWD_TC = {
     "wgmma": ("flash_attention_bwd_wgmma", "mxt_flash_bwd_wgmma"),
     "wgmma_wide": ("flash_attention_bwd_wgmma_wide",
                    "mxt_flash_bwd_wgmma_wide"),
+    "tf32x3": ("flash_attention_bwd_tf32x3", "mxt_flash_bwd_tf32x3"),
 }
 
 
 def _bwd_tc_args(variant, q, k, v, do, lse, delta):
     """Check a tensor-core backward's inputs; returns ``(lse, delta,
     tq_pad)`` with the row buffers padded (:func:`_rows_padded`)."""
-    _check_bf16_width(q.dtype, q.shape[-1], variant)
+    _check_tc_width(q.dtype, q.shape[-1], variant)
     _check_wgmma(q, k, v, do, variant)
     Tq = q.shape[1]
     lse_p, delta_p = _rows_padded(lse, Tq), _rows_padded(delta, Tq)
@@ -675,6 +702,26 @@ def _flash_dkv_wgmma_wide_cuda(q, k, v, do, lse, delta, causal=True,
                               scale)
 
 
+def _flash_dq_tf32x3_cuda(q, k, v, do, lse, delta, causal=True,
+                          scale=None):
+    """Launch the dQ kernel of ``csrc/flash_attention_bwd_tf32x3.cu``
+    (tensor cores, split-TF32 products) on f32 inputs with head_dim 192 or
+    256; returns ``dq``, contiguous.  Raises on inputs it does not take
+    (:func:`_check_tc_width`, :func:`_check_wgmma` with ``do``): never a
+    hand-off to the wide variant."""
+    return _flash_dq_tc_cuda("tf32x3", q, k, v, do, lse, delta, causal,
+                             scale)
+
+
+def _flash_dkv_tf32x3_cuda(q, k, v, do, lse, delta, causal=True,
+                           scale=None):
+    """Launch the dK/dV kernel of ``csrc/flash_attention_bwd_tf32x3.cu`` on
+    f32 inputs with head_dim 192 or 256; returns ``(dk, dv)``, contiguous,
+    every row written (rows no query sees are 0)."""
+    return _flash_dkv_tc_cuda("tf32x3", q, k, v, do, lse, delta, causal,
+                              scale)
+
+
 def _flash_bwd_cuda(q, k, v, o, lse, do, dlse=None, causal=True,
                     scale=None):
     """The backward on CUDA tensors: ``delta`` with torch ops on the
@@ -702,12 +749,13 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, dlse=None, causal=True,
     delta = _delta(o, do, dlse)
     width = _padded_dim(D)
     q, k, v, do = (_pad_d(t, width) for t in (q, k, v, do))
-    variant = _variant(q.dtype, D)
+    variant = _variant(q.dtype, D, backward=True)
     if variant in _BWD_TC and _tma_fault("dO", do):
         do = do.clone(memory_format=torch.contiguous_format)
     launch_dq, launch_dkv = {
         "wgmma": (_flash_dq_wgmma_cuda, _flash_dkv_wgmma_cuda),
         "wgmma_wide": (_flash_dq_wgmma_wide_cuda, _flash_dkv_wgmma_wide_cuda),
+        "tf32x3": (_flash_dq_tf32x3_cuda, _flash_dkv_tf32x3_cuda),
         "wide": (_flash_dq_wide_cuda, _flash_dkv_wide_cuda),
         "simt": (_flash_dq_simt_cuda, _flash_dkv_simt_cuda)}[variant]
     dq = launch_dq(q, k, v, do, lse, delta, causal, scale)

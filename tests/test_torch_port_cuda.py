@@ -29,7 +29,12 @@ head_dim 129-256 takes the tensor-core ``wgmma_wide`` kernels, forward and
 backward, held as the wgmma ones are (plain version, dense autograd for
 the backward, kv_len, fused-qkv views, a strided dO, misaligned inputs,
 two calls bit-identical), and a TransformerLM with head_dim 256 prefills
-through them as through the plain versions.
+through them as through the plain versions.  The f32 backward at
+head_dim 129-256 takes the tensor-core ``tf32x3`` dQ and dK/dV
+(split-TF32 products), held at the f32 gradient tolerances to the plain
+backward and within 1e-4 of each gradient's largest entry to dense
+autograd, with the same views, refusals and repeat checks; the f32
+forward there stays wide.
 
 ``mx.rtc``: tests/test_rtc.py's kernels written in CUDA and the
 reference's templated ``axpy`` (compiled with ``--fmad=false``) equal the
@@ -886,6 +891,133 @@ def test_flash_autograd_bf16_head_dim_256_launches_wgmma_wide(dev):
 
 
 # ---------------------------------------------------------------------------
+# flash backward: the tensor-core tf32x3 variant, f32 at D 192 or 256
+# ---------------------------------------------------------------------------
+TF32X3_BWD_CASES = [
+    # (B, Tq, Tk, H, D, causal); CTAs own 64 rows, tiles stream 32; D 160
+    # pads to 192
+    (1, 1, 1, 2, 256, True),
+    (1, 1, 1, 2, 192, False),
+    (2, 63, 63, 2, 256, True),
+    (1, 65, 65, 2, 192, True),
+    (1, 127, 127, 3, 160, False),
+    (1, 129, 129, 2, 256, True),
+    (1, 1000, 3000, 2, 256, False),
+    (1, 1000, 3000, 2, 192, False),
+    (1, 20, 300, 2, 256, True),      # causal, Tq < Tk: keys 20.. dK=dV=0
+    (1, 65, 200, 2, 160, True),
+    (1, 300, 70, 2, 256, True),      # causal, Tq > Tk
+    (1, 1, 129, 2, 256, False),
+]
+
+
+@pytest.mark.parametrize("case", TF32X3_BWD_CASES)
+def test_flash_bwd_tf32x3_matches_plain(dev, case):
+    """dQ and dK/dV of the tf32x3 variant (split-TF32 products) against the
+    plain backward (with an lse cotangent) at the f32 gradient tolerances,
+    against dense autograd within 1e-4 of each gradient's largest entry,
+    keys no query sees at zero, and two calls bit-identical."""
+    B, Tq, Tk, H, D, causal = case
+    q, k, v, o, lse, do, dlse = _flash_bwd_inputs(dev, *case, torch.float32)
+    for t in (q, k, v):                    # see test_flash_bwd_kernels_...
+        torch.full_like(t, float("nan"))
+    common.reset_counts()
+    got = _flash_bwd_cuda(q, k, v, o, lse, do, dlse, causal)
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention_dq": 1,
+        "kernels.launch.flash_attention_dq.tf32x3": 1,
+        "kernels.launch.flash_attention_dkv": 1,
+        "kernels.launch.flash_attention_dkv.tf32x3": 1}
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, dlse, causal)
+    auto = _dense_autograd_grads(q, k, v, do, dlse, causal)
+    for gt, wt, at, name in zip(got, want, auto, ("dq", "dk", "dv")):
+        assert gt.dtype == torch.float32 and gt.shape == wt.shape
+        assert gt.is_contiguous() and torch.isfinite(gt).all(), name
+        np.testing.assert_allclose(_np(gt), _np(wt), err_msg=name,
+                                   **F32_GRAD_TOL)
+        assert _rel_to_max(gt, at) <= 1e-4, name
+    if causal and Tq < Tk:
+        assert not got[1][:, Tq:].any() and not got[2][:, Tq:].any()
+    again = _flash_bwd_cuda(q, k, v, o, lse, do, dlse, causal)
+    for a, b in zip(got, again):           # no atomics: the same bits
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D", [192, 256])
+def test_flash_bwd_tf32x3_reads_fused_qkv_views_and_strided_dout(dev, D):
+    """f32 q/k/v as views of one fused qkv product and a transposed dO give
+    the same bits as contiguous copies."""
+    B, T, H = 2, 333, 3
+    g = torch.Generator(device=dev).manual_seed(5)
+    qkv = torch.randn(B, T, 3 * H * D, generator=g, device=dev)
+    q, k, v = (t.view(B, T, H, D) for t in qkv.split(H * D, -1))
+    o, lse = _flash_cuda(q, k, v)
+    do = torch.randn(B, H, T, D, generator=g, device=dev).transpose(1, 2)
+    assert not q.is_contiguous() and not do.is_contiguous()
+    common.reset_counts()
+    a = _flash_bwd_cuda(q, k, v, o, lse, do)
+    assert common.launch_counts()[
+        "kernels.launch.flash_attention_dq.tf32x3"] == 1
+    b = _flash_bwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(), o,
+                        lse, do.contiguous())
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_flash_bwd_tf32x3_refuses_misaligned_inputs(dev):
+    """Misaligned f32 q/k/v raise before any launch; a misaligned dO (an
+    internal cotangent) is copied by the backward, and refused by the
+    launchers themselves; bf16 or another head_dim is refused too, never
+    handed to the wide kernels."""
+    from mxnet_tpu_torch.ops.kernels.flash_attention import (
+        _flash_dkv_tf32x3_cuda, _flash_dq_tf32x3_cuda)
+    B, T, H, D = 1, 64, 2, 256
+    q, k, v, o, lse, do, _ = _flash_bwd_inputs(dev, B, T, T, H, D, True,
+                                               torch.float32)
+    flat = torch.randn(B * T * H * D + 1, device=dev)
+    bad = flat[1:].view(B, T, H, D)                   # base 4 bytes off
+    bad.copy_(q)
+    delta = _delta(o, do, None)
+    common.reset_counts()
+    with pytest.raises(ValueError, match="tf32x3 variant.*q's base"):
+        _flash_bwd_cuda(bad, k, v, o, lse, do)
+    for launch in (_flash_dq_tf32x3_cuda, _flash_dkv_tf32x3_cuda):
+        with pytest.raises(ValueError, match="k's base address"):
+            launch(q, bad, v, do, lse, delta)
+        with pytest.raises(ValueError, match="dO's base address"):
+            launch(q, k, v, bad, lse, delta)
+        with pytest.raises(ValueError, match="tf32x3 variant.*takes float32"):
+            launch(*(t.to(torch.bfloat16) for t in (q, k, v, do)), lse,
+                   delta)
+    assert common.launch_counts() == {}
+    bad.copy_(do)
+    got = _flash_bwd_cuda(q, k, v, o, lse, bad)
+    want = _flash_bwd_cuda(q, k, v, o, lse, do)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_flash_autograd_f32_head_dim_256_launches_tf32x3(dev):
+    """Autograd of ``flash_attention`` at f32 head_dim 256: the forward on
+    wide, dQ and dK/dV on tf32x3, one each, and no wide backward."""
+    B, T, H, D = 1, 130, 2, 256
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn(B, T, H, D, generator=g, device=dev,
+                           requires_grad=True) for _ in range(3))
+    common.reset_counts()
+    o, lse = flash_attention_lse(q, k, v)
+    (o.square().sum() + lse.tanh().sum()).backward()
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention": 1,
+        "kernels.launch.flash_attention.wide": 1,
+        "kernels.launch.flash_attention_dq": 1,
+        "kernels.launch.flash_attention_dq.tf32x3": 1,
+        "kernels.launch.flash_attention_dkv": 1,
+        "kernels.launch.flash_attention_dkv.tf32x3": 1}
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+# ---------------------------------------------------------------------------
 # head dims the kernels do not have: zero-padded along D on the card
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -894,9 +1026,9 @@ def test_flash_autograd_bf16_head_dim_256_launches_wgmma_wide(dev):
 def test_flash_padded_head_dims_match_plain(dev, D, dtype, causal):
     """Forward and backward at head_dim 48, 80 and 96 (padded to 64, 128
     and 128) and above 128 (160 padded to 192, 256, 320: the wide variant,
-    but in bf16 at 160 and 256, which take wgmma_wide): no ValueError, the
-    plain version's results, ``scale`` from the real head_dim, and the
-    padded variant's launches."""
+    but in bf16 at 160 and 256, which take wgmma_wide, and the f32 backward
+    there, which takes tf32x3): no ValueError, the plain version's results,
+    ``scale`` from the real head_dim, and the padded variant's launches."""
     B, Tq, Tk, H = 1, 150, 150, 2
     common.reset_counts()
     q, k, v, o, lse, do, dlse = _flash_bwd_inputs(dev, B, Tq, Tk, H, D,
@@ -907,6 +1039,8 @@ def test_flash_padded_head_dims_match_plain(dev, D, dtype, causal):
         variant = "wide"
     else:
         variant = "wgmma" if dtype == torch.bfloat16 else "simt"
+    bwd_variant = "tf32x3" if dtype == torch.float32 and 128 < D <= 256 \
+        else variant
     assert common.launch_counts() == {
         "kernels.launch.flash_attention": 1,
         "kernels.launch.flash_attention.%s" % variant: 1}
@@ -919,9 +1053,9 @@ def test_flash_padded_head_dims_match_plain(dev, D, dtype, causal):
     got = _flash_bwd_cuda(q, k, v, o, lse, do, dlse, causal)
     assert common.launch_counts() == {
         "kernels.launch.flash_attention_dq": 1,
-        "kernels.launch.flash_attention_dq.%s" % variant: 1,
+        "kernels.launch.flash_attention_dq.%s" % bwd_variant: 1,
         "kernels.launch.flash_attention_dkv": 1,
-        "kernels.launch.flash_attention_dkv.%s" % variant: 1}
+        "kernels.launch.flash_attention_dkv.%s" % bwd_variant: 1}
     want = flash_attention_bwd_reference(q, k, v, o, lse, do, dlse, causal)
     gtol = F32_GRAD_TOL if dtype == torch.float32 else BF16_GRAD_TOL
     for gt, wt, name in zip(got, want, ("dq", "dk", "dv")):
@@ -931,9 +1065,10 @@ def test_flash_padded_head_dims_match_plain(dev, D, dtype, causal):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_wide_kv_len_strided_views_and_repeat(dev, dtype):
-    """The wide forward masks keys at and past kv_len, reads q/k/v slices
-    of a fused qkv tensor through their strides, and its backward gives the
-    same bits twice (no atomics)."""
+    """The wide forward masks keys at and past kv_len and reads q/k/v slices
+    of a fused qkv tensor through their strides; the backward at this
+    head_dim (256: tf32x3 in f32, wgmma_wide in bf16) reads the same slices
+    and gives the same bits twice (no atomics)."""
     B, T, H, D = 2, 90, 2, 256
     g = torch.Generator(device=dev).manual_seed(5)
     qkv = torch.randn(B, T, 3 * H * D, generator=g, device=dev).to(dtype)
@@ -948,7 +1083,14 @@ def test_flash_wide_kv_len_strided_views_and_repeat(dev, dtype):
     np.testing.assert_allclose(_np(lse), _np(rlse), rtol=1e-5, atol=1e-4)
     o, lse = _flash_cuda(q, k, v, True)
     do = torch.randn(B, T, H, D, generator=g, device=dev).to(dtype)
+    common.reset_counts()
     first = _flash_bwd_cuda(q, k, v, o, lse, do, None, True)
+    variant = "tf32x3" if dtype == torch.float32 else "wgmma_wide"
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention_dq": 1,
+        "kernels.launch.flash_attention_dq.%s" % variant: 1,
+        "kernels.launch.flash_attention_dkv": 1,
+        "kernels.launch.flash_attention_dkv.%s" % variant: 1}
     again = _flash_bwd_cuda(q, k, v, o, lse, do, None, True)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
     want = flash_attention_bwd_reference(q, k, v, o, lse, do, None, True)

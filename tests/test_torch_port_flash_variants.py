@@ -1,7 +1,7 @@
 """The flash kernels' CUDA variants, from the Python side, on the CPU.
 
-Which variant a dtype / head_dim selects (one rule for the forward and the
-backward), how a head
+Which variant a dtype / head_dim / direction selects (one rule,
+``_variant``), how a head
 dim the kernels lack is padded to a kernel width with the real head_dim's
 scale, how the tensor-core variants' tensor maps see a tensor's strides,
 and that their precondition check raises with a message (and never hands an
@@ -29,27 +29,39 @@ BF16 = torch.bfloat16
     (BF16, 48, "wgmma"), (BF16, 80, "wgmma"), (BF16, 96, "wgmma"),
     (BF16, 33, "wgmma"), (BF16, 8, "simt"), (torch.float32, 48, "simt"),
     (torch.float32, 96, "simt"),
-    # above 128: bf16 up to 256 on the tensor cores, the rest wide
+    # above 128: bf16 up to 256 on the tensor cores, the rest wide; the f32
+    # backward up to 256 on the tensor cores too (forward / backward)
     (BF16, 129, "wgmma_wide"), (BF16, 256, "wgmma_wide"),
-    (torch.float32, 160, "wide"), (torch.float32, 320, "wide")])
+    pytest.param(torch.float32, 160, ("wide", "tf32x3"),
+                 id="dtype17-160-wide-tf32x3"),
+    (torch.float32, 320, "wide")])
 def test_variant_by_dtype_and_head_dim(dtype, D, variant):
     """One rule (:func:`_variant`) names the forward's and the backward's
-    variant."""
-    assert fa._variant(dtype, D) == variant
+    variant: the same for both but for f32 at padded head_dim 192 and 256,
+    whose backward alone runs on the tensor cores (``tf32x3``)."""
+    fwd, bwd = variant if isinstance(variant, tuple) else (variant, variant)
+    assert fa._variant(dtype, D) == fwd
+    assert fa._variant(dtype, D, backward=True) == bwd
 
 
 @pytest.mark.parametrize("dtype,D,variant", [
     (BF16, 129, "wgmma_wide"), (BF16, 160, "wgmma_wide"),
     (BF16, 192, "wgmma_wide"), (BF16, 193, "wgmma_wide"),
     (BF16, 256, "wgmma_wide"), (BF16, 257, "wide"), (BF16, 320, "wide"),
-    (torch.float32, 192, "wide"), (torch.float32, 256, "wide"),
+    pytest.param(torch.float32, 192, ("wide", "tf32x3"),
+                 id="dtype7-192-wide-tf32x3"),
+    pytest.param(torch.float32, 256, ("wide", "tf32x3"),
+                 id="dtype8-256-wide-tf32x3"),
     (BF16, 128, "wgmma")])
 def test_backward_above_128_takes_wgmma_wide_for_bf16_up_to_256(dtype, D,
                                                                 variant):
     """Above head_dim 128 the forward and the backward take the tensor-core
     wgmma_wide kernels for bf16 at the padded widths 192 and 256, and wide
-    beyond them and for f32."""
-    assert fa._variant(dtype, D) == variant
+    beyond them; f32 there takes wide forward and the tensor-core tf32x3
+    kernels backward (forward / backward)."""
+    fwd, bwd = variant if isinstance(variant, tuple) else (variant, variant)
+    assert fa._variant(dtype, D) == fwd
+    assert fa._variant(dtype, D, backward=True) == bwd
 
 
 @pytest.mark.parametrize("dtype,D,variant", [
@@ -86,7 +98,7 @@ def test_padded_dim(D, width):
 
 
 def _bwd_launchers(monkeypatch, calls):
-    """Replace the four backward launchers with recorders that return
+    """Replace the five backward launchers with recorders that return
     zeros of the right shapes."""
     def launcher(name):
         def launch(q, k, v, do, lse, delta, causal, scale):
@@ -98,14 +110,16 @@ def _bwd_launchers(monkeypatch, calls):
         return launch
 
     for name in ("dq_wgmma", "dkv_wgmma", "dq_simt", "dkv_simt", "dq_wide",
-                 "dkv_wide", "dq_wgmma_wide", "dkv_wgmma_wide"):
+                 "dkv_wide", "dq_wgmma_wide", "dkv_wgmma_wide", "dq_tf32x3",
+                 "dkv_tf32x3"):
         monkeypatch.setattr(fa, "_flash_%s_cuda" % name, launcher(name))
 
 
 @pytest.mark.parametrize("dtype,D,variant", [
     (BF16, 64, "wgmma"), (BF16, 128, "wgmma"), (BF16, 32, "simt"),
     (torch.float32, 128, "simt"), (torch.float32, 64, "simt"),
-    (BF16, 256, "wgmma_wide"), (torch.float32, 192, "wide")])
+    (BF16, 256, "wgmma_wide"), (torch.float32, 192, "tf32x3"),
+    (torch.float32, 256, "tf32x3"), (torch.float32, 320, "wide")])
 def test_flash_bwd_cuda_dispatches_by_variant(monkeypatch, dtype, D,
                                               variant):
     """``_flash_bwd_cuda`` hands the inputs to the dQ and the dK/dV
@@ -169,11 +183,13 @@ def test_head_dim_zero_raises():
                                      (320, 320)])
 def test_head_dims_above_128_reach_wide(monkeypatch, dtype, D, width):
     """Above 128 the forward, dQ and dK/dV go to the wide launchers or, for
-    bf16 up to 256, the wgmma_wide ones, at the width padded to a multiple
-    of 64, with ``scale`` 1/√D of the real D; the outputs come back at
-    D."""
+    bf16 up to 256, the wgmma_wide ones (and the f32 backward up to 256 to
+    the tf32x3 ones), at the width padded to a multiple of 64, with
+    ``scale`` 1/√D of the real D; the outputs come back at D."""
     fwd = []
     variant = "wgmma_wide" if dtype == BF16 and D <= 256 else "wide"
+    bwd_variant = "tf32x3" if dtype == torch.float32 and D <= 256 \
+        else variant
 
     def launch(q, k, v, causal, scale, kv_len):
         fwd.append((q.shape[-1], k.shape[-1], v.shape[-1], scale))
@@ -194,8 +210,8 @@ def test_head_dims_above_128_reach_wide(monkeypatch, dtype, D, width):
     assert o.shape == q.shape and o.is_contiguous()
     grads = fa._flash_bwd_cuda(q, q, q, o, lse, q)
     assert [c[:5] for c in bwd] == [
-        ("dq_" + variant, width, width, True, 1.0 / D ** 0.5),
-        ("dkv_" + variant, width, width, True, 1.0 / D ** 0.5)]
+        ("dq_" + bwd_variant, width, width, True, 1.0 / D ** 0.5),
+        ("dkv_" + bwd_variant, width, width, True, 1.0 / D ** 0.5)]
     assert all(g.shape == q.shape and g.is_contiguous() for g in grads)
 
 
@@ -450,3 +466,89 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert common.selection_counts() == {
         "kernels.select.flash_attention.reference": 1}
     assert torch.equal(o, fa.flash_attention_reference(q, k, v))
+
+
+def _misaligned(shape, dtype):
+    """A ``shape`` tensor whose base is one element past a 16-byte
+    boundary."""
+    n = 1
+    for s in shape:
+        n *= s
+    return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+
+
+@pytest.mark.parametrize("which", ["dq", "dkv"])
+@pytest.mark.parametrize("case", [
+    "bf16", "f32_128", "f32_320", "q", "k", "v", "dO", "k_stride"])
+def test_tf32x3_launchers_refuse_before_any_build(monkeypatch, which, case):
+    """The tf32x3 launchers take f32 at head_dim 192 or 256 only, read
+    through 16-byte copies (a base 16-byte aligned, strides multiples of 4
+    elements), and raise on anything else before they build or count
+    anything; never a hand-off to the wide kernels."""
+    from mxnet_tpu_torch.ops.kernels import _build, common
+
+    def no_build(*a, **k):
+        raise AssertionError("built a kernel")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    common.reset_counts()
+    launch = {"dq": fa._flash_dq_tf32x3_cuda,
+              "dkv": fa._flash_dkv_tf32x3_cuda}[which]
+    shape = (1, 8, 2, 256)
+    args = [torch.zeros(shape) for _ in range(4)]
+    if case in ("bf16", "f32_128", "f32_320"):
+        dtype, D = {"bf16": (BF16, 256), "f32_128": (torch.float32, 128),
+                    "f32_320": (torch.float32, 320)}[case]
+        args = [torch.zeros(1, 8, 2, D, dtype=dtype)] * 4
+        match = ("tf32x3 variant.*takes float32 with head_dim in "
+                 "\\(192, 256\\); got %s, head_dim %d" % (dtype, D))
+    elif case == "k_stride":
+        wide = torch.zeros(1, 8, 2 * 256 + 2)     # T stride 514: 2 mod 4
+        args[1] = wide[..., :2 * 256].view(shape)
+        match = "tf32x3 variant.*k's T stride 514 is not a multiple of 4"
+    else:
+        i = ("q", "k", "v", "dO").index(case)
+        args[i] = _misaligned(shape, torch.float32)
+        match = "tf32x3 variant.*%s's base address is not 16-byte" % case
+    lse = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError, match=match):
+        launch(*args, lse, lse)
+    assert common.launch_counts() == {}
+
+
+@pytest.mark.parametrize("stride,ok", [(4 * 129, True), (2 * 257, False)])
+def test_f32_strides_need_16_bytes_not_8_elements(stride, ok):
+    """The 16-byte copies count strides in bytes: an f32 T stride that is a
+    multiple of 4 elements passes (it would fail a bf16 rule of 8), one of
+    2 mod 4 does not."""
+    t = torch.zeros(stride * 4).as_strided((1, 4, 2, 128), (4 * stride,
+                                                           stride, 128, 1))
+    fault = fa._tma_fault("q", t)
+    assert (fault is None) == ok
+    if not ok:
+        assert "T stride %d is not a multiple of 4 elements" % stride in fault
+
+
+@pytest.mark.parametrize("D", [160, 256])
+def test_tf32x3_bwd_copies_a_dout_the_copies_cannot_read(monkeypatch, D):
+    """As for the bf16 tensor-core variants: an f32 dO whose layout the
+    16-byte copies cannot read is copied before the tf32x3 launchers see it
+    (head_dim 160 padded to 192, and 256)."""
+    seen = []
+
+    def dq(q, k, v, do, lse, delta, causal, scale):
+        seen.append(do)
+        return torch.zeros_like(q)
+
+    monkeypatch.setattr(fa, "_flash_dq_tf32x3_cuda", dq)
+    monkeypatch.setattr(fa, "_flash_dkv_tf32x3_cuda",
+                        lambda q, k, v, *a: (torch.zeros_like(k),
+                                             torch.zeros_like(v)))
+    q = torch.zeros(1, 8, 2, D)
+    bad = torch.arange(8 * 2 * D + 1, dtype=torch.float32)[1:].view(
+        1, 8, 2, D)
+    assert fa._tma_fault("dO", bad)
+    fa._flash_bwd_cuda(q, q, q, q, torch.zeros(1, 2, 8), bad)
+    assert fa._tma_fault("dO", seen[0]) is None
+    assert seen[0].is_contiguous()
+    assert torch.equal(seen[0][..., :D], bad)

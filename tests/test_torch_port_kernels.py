@@ -323,10 +323,11 @@ def _plain_launchers(monkeypatch):
             return bwd(*a)[0]
         return dq
 
-    # bf16 at head_dim 129-256 runs forward and backward on wgmma_wide
+    # bf16 at head_dim 129-256 runs forward and backward on wgmma_wide, f32
+    # there the backward on tf32x3
     for name in ("wgmma", "simt", "wide", "wgmma_wide"):
         monkeypatch.setattr(fa, "_flash_%s_cuda" % name, fwd)
-    for name in ("wgmma", "simt", "wide", "wgmma_wide"):
+    for name in ("wgmma", "simt", "wide", "wgmma_wide", "tf32x3"):
         monkeypatch.setattr(fa, "_flash_dq_%s_cuda" % name, dq_launcher(name))
         monkeypatch.setattr(fa, "_flash_dkv_%s_cuda" % name,
                             lambda *a: bwd(*a)[1:])
@@ -373,9 +374,10 @@ def test_padded_head_dims_match_pallas_kernels(monkeypatch, D, width, dtype):
             assert g.shape == (B, T, H, D) and g.dtype == tq.dtype
             np.testing.assert_allclose(_f32(g), _f32(w), err_msg="d" + name,
                                        **gtol)
-    assert set(bwd_variants) == {fa._variant(tq.dtype, D)}
-    if dtype == "bfloat16" and D > 128:
-        assert bwd_variants[0] == "wgmma_wide"
+    assert set(bwd_variants) == {fa._variant(tq.dtype, D, backward=True)}
+    if D > 128:
+        assert bwd_variants[0] == ("wgmma_wide" if dtype == "bfloat16"
+                                   else "tf32x3")
 
 
 XENT_CASES = [

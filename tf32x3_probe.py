@@ -1,0 +1,271 @@
+#!/usr/bin/env python3
+"""Where the tf32x3 flash backward's time goes, on one NVIDIA card.
+
+Two measurements that the design of the tf32x3 kernels
+(``mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd_tf32x3.cu``)
+rests on:
+
+* the rate ``mma.sync`` reaches: m16n8k8 TF32 and m16n8k16 bf16 products
+  with f32 accumulation, operands in registers, eight independent
+  accumulators a warp, one CTA of 8 or 16 warps an SM; and the TF32 rate
+  with the kernels' operand split (``split_tf32``: two ops a value) of 16
+  values beside every 24 products, the ratio of the kernels' score loop;
+* each phase's share of the dQ and the dK/dV kernel at [1, 4096, 16, 256]
+  causal f32: a copy of the source in which thread 0 of every CTA reads
+  ``clock64`` at each phase boundary of every streamed tile and adds the
+  cycles to a per-phase sum (its barrier waits included: the phases of
+  warp 0, which computes p), beside the launch's device time.  The copy is
+  built in a temporary directory; the port's own build is untouched.
+
+It prints one JSON line per measurement, then the card's name and power
+limit.  Run from the root of a checkout, with one card::
+
+    python3 tf32x3_probe.py
+
+It exits non-zero without a CUDA device.
+"""
+import ctypes
+import importlib
+import json
+import os
+import subprocess
+import tempfile
+
+MMA_SRC = r'''
+#include <cuda_runtime.h>
+#include <stdint.h>
+__device__ __forceinline__ void tf32(float (&d)[4], const uint32_t (&a)[4],
+                                     const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void bf16(float (&d)[4], const uint32_t (&a)[4],
+                                     const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
+}
+// kind 0: TF32, 1: bf16, 2: TF32 with 16 values split a 24 products
+template <int KIND>
+__global__ void rate(float* out, int iters, float seed) {
+  float v[16];
+  for (int i = 0; i < 16; ++i) v[i] = seed * (threadIdx.x + i);
+  uint32_t a[4], al[4], b[2], bl[2];
+  for (int i = 0; i < 4; ++i) split(v[i], a[i], al[i]);
+  for (int i = 0; i < 2; ++i) split(v[4 + i], b[i], bl[i]);
+  float d[8][4] = {};
+  for (int it = 0; it < iters; ++it) {
+    if (KIND == 2) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        uint32_t h, l;
+        v[i] += 1.0f;
+        split(v[i], h, l);
+        if (i < 4) { a[i] = h; al[i] = l; }
+        else if (i < 6) { b[i - 4] = h; bl[i - 4] = l; }
+        else { a[i & 3] ^= h; al[i & 3] ^= l; }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (KIND == 1) bf16(d[j], a, b);
+        else tf32(d[j], k == 0 ? al : a, k == 1 ? bl : b);
+      }
+  }
+  float s = 0.f;
+  for (int j = 0; j < 8; ++j)
+    for (int i = 0; i < 4; ++i) s += d[j][i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" float mma_rate_ms(int kind, int warps, int ctas, int iters) {
+  float* out;
+  cudaMalloc(&out, (size_t)ctas * warps * 32 * sizeof(float));
+  void (*k)(float*, int, float) =
+      kind == 0 ? rate<0> : kind == 1 ? rate<1> : rate<2>;
+  k<<<ctas, warps * 32>>>(out, 16, 1e-3f);
+  cudaEvent_t e0, e1;
+  cudaEventCreate(&e0);
+  cudaEventCreate(&e1);
+  cudaEventRecord(e0);
+  k<<<ctas, warps * 32>>>(out, iters, 1e-3f);
+  cudaEventRecord(e1);
+  cudaEventSynchronize(e1);
+  float ms = 0.f;
+  cudaEventElapsedTime(&ms, e0, e1);
+  cudaFree(out);
+  return cudaGetLastError() == cudaSuccess ? ms : -1.f;
+}
+'''
+
+# (line of the kernel's tile loop, label of the phase that ends after it);
+# the first entry's tick, before the line, ends the previous tile's copy
+# issue
+DQ_PHASES = [
+    ("    half_ready(wp);\n", "copy issue (the tile before)"),
+    ("    half_ready(wp);\n", "wait for the streamed tile"),
+    ("    score_half<D>(A, Bt, g, t, s);\n", "scores (S, half of D)"),
+    ("    meet_halves(X, wd, g, t, s, f);  // barrier: V is no longer "
+     "read\n", "meet the other half (barrier)"),
+    ("    __syncthreads();              // p and dp - delta are in\n",
+     "p, dp - delta, V copy issue (barrier)"),
+    ("    out_product<D, true>(Xp, Xd, scale, Ks + c0, g, t, acc);\n",
+     "dQ += ds.K"),
+    ("    __syncthreads();              // K and the exchange are no longer "
+     "read\n", "barrier"),
+]
+DKV_PHASES = [
+    ("    half_ready(wp);\n", "copy issue (the tile before)"),
+    ("    half_ready(wp);\n", "wait for the streamed tile"),
+    ("    score_half<D>(A, Bt, g, t, s);\n", "scores (S^T, half of D)"),
+    ("    meet_halves(X, wd, g, t, s, f);\n", "meet the other half (barrier)"),
+    ("    __syncthreads();              // p^T and dp^T - delta are in\n",
+     "p, dp - delta (barrier)"),
+    ("    out_product<D, false>(Xp, Xd, scale, dOs + c0, g, t, dv_acc);\n",
+     "dV += p^T.dO"),
+    ("    __syncthreads();              // dO is no longer read\n",
+     "barrier, dO copy issue"),
+    ("    out_product<D, true>(Xp, Xd, scale, Qs + c0, g, t, dk_acc);\n",
+     "dK += ds^T.Q"),
+    ("    __syncthreads();              // Q and the exchange are no longer "
+     "read\n", "barrier"),
+]
+
+
+def _tick(base, i):
+    return ("    if (threadIdx.x == 0) { const unsigned long long _c = "
+            "clock64(); if (_t) atomicAdd(&g_prof[%d], _c - _t); _t = _c; }"
+            "\n" % (base + i))
+
+
+def _instrument(src, kernel, end_marker, phases, base):
+    """``src`` with ticks at ``phases`` inside ``kernel``'s tile loop,
+    summing into ``g_prof[base + i]``, and ``g_prof[base + 15]`` counting
+    tiles."""
+    k0 = src.index(kernel + "(")
+    k1 = src.index(end_marker, k0)
+    body = src[k0:k1]
+    first, label = phases[0]
+    at = body.index(first)
+    body = (body[:at] + _tick(base, 0) + "    if (threadIdx.x == 0) "
+            "atomicAdd(&g_prof[%d], 1ull);\n" % (base + 15) + body[at:])
+    pos = 0
+    for i, (line, _) in enumerate(phases[1:], 1):
+        at = body.index(line, pos) + len(line)
+        body = body[:at] + _tick(base, i) + body[at:]
+        pos = at
+    loop = body.index("\n  for (int ") + 1
+    body = body[:loop] + "  unsigned long long _t = 0;\n" + body[loop:]
+    return src[:k0] + body + src[k1:]
+
+
+def _profiled_library(fa, build, tmp):
+    csrc = os.path.join(os.path.dirname(fa.__file__), "csrc")
+    src = open(os.path.join(csrc, "flash_attention_bwd_tf32x3.cu")).read()
+    src = src.replace("namespace {\n", "namespace {\n__device__ unsigned "
+                      "long long g_prof[32];\n", 1)
+    src = _instrument(src, "flash_dq_tf32x3_kernel",
+                      "// st: q (0-2), k (3-5), v (6-8), dO (9-11), dK",
+                      DQ_PHASES, 0)
+    src = _instrument(src, "flash_dkv_tf32x3_kernel", "Strides copy_strides",
+                      DKV_PHASES, 16)
+    src += ('extern "C" int prof_io(unsigned long long* h, int zero) {\n'
+            '  return (int)(zero ? cudaMemcpyToSymbol(g_prof, h, 256)\n'
+            '                    : cudaMemcpyFromSymbol(h, g_prof, 256));\n'
+            '}\n')
+    path = os.path.join(tmp, "prof.cu")
+    open(path, "w").write(src)
+    so = os.path.join(tmp, "prof.so")
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I", csrc, "-o", so,
+                    path], check=True, capture_output=True)
+    lib = ctypes.CDLL(so)
+    fa._configure_bwd_tc("mxt_flash_bwd_tf32x3", lib)
+    lib.prof_io.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    return lib
+
+
+def main():
+    import torch
+
+    from mxnet_tpu_torch.ops.kernels import _build
+    fa = importlib.import_module(
+        "mxnet_tpu_torch.ops.kernels.flash_attention")
+
+    if not torch.cuda.is_available():
+        raise SystemExit("tf32x3_probe: no CUDA device is available")
+    with tempfile.TemporaryDirectory(prefix="tf32x3_probe_") as tmp:
+        _run(torch, fa, _build, tmp)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+
+
+def _run(torch, fa, build, tmp):
+    """The two measurements, with the libraries built into ``tmp``."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    path = os.path.join(tmp, "mma.cu")
+    open(path, "w").write(MMA_SRC)
+    so = os.path.join(tmp, "mma.so")
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", so, path],
+                   check=True, capture_output=True)
+    mma = ctypes.CDLL(so)
+    mma.mma_rate_ms.argtypes = [ctypes.c_int] * 4
+    mma.mma_rate_ms.restype = ctypes.c_float
+    iters = 2048
+    for kind, name, flops in (
+            (0, "tf32 m16n8k8", 2 * 16 * 8 * 8),
+            (1, "bf16 m16n8k16", 2 * 16 * 8 * 16),
+            (2, "tf32 m16n8k8, 16 values split a 24", 2 * 16 * 8 * 8)):
+        for warps in (8, 16):
+            ms = mma.mma_rate_ms(kind, warps, sms, iters)
+            total = flops * 24.0 * iters * warps * sms
+            print(json.dumps({"mma_sync": name, "warps_per_sm": warps,
+                              "ms": ms, "tflops": total / ms / 1e9}),
+                  flush=True)
+
+    lib = _profiled_library(fa, build, tmp)
+    build._LIBS["flash_attention_bwd_tf32x3"] = lib
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    B, T, H, D = 1, 4096, 16, 256
+    q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device="cuda")
+                   for _ in range(4))
+    o, lse = fa._flash_cuda(q, k, v, True)
+    delta = fa._delta(o, do, None)
+    buf = (ctypes.c_ulonglong * 32)()
+    for name, fn, phases, base in (
+            ("dq", fa._flash_dq_tf32x3_cuda, DQ_PHASES, 0),
+            ("dkv", fa._flash_dkv_tf32x3_cuda, DKV_PHASES, 16)):
+        fn(q, k, v, do, lse, delta, True, D ** -0.5)
+        torch.cuda.synchronize()
+        lib.prof_io(ctypes.cast((ctypes.c_ulonglong * 32)(), ctypes.c_void_p),
+                    1)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(q, k, v, do, lse, delta, True, D ** -0.5)
+        b.record()
+        b.synchronize()
+        lib.prof_io(ctypes.cast(buf, ctypes.c_void_p), 0)
+        cycles = [buf[base + i] for i in range(len(phases))]
+        tiles = buf[base + 15]
+        print(json.dumps({
+            "kernel": name, "shape": [B, T, H, D], "causal": True,
+            "dtype": "float32", "ms_instrumented": a.elapsed_time(b),
+            "tiles": tiles,
+            "phases": [{"phase": label, "share": c / sum(cycles),
+                        "cycles_a_tile": c / tiles}
+                       for (_, label), c in zip(phases, cycles)]}),
+              flush=True)
+
+
+if __name__ == "__main__":
+    main()
