@@ -20,8 +20,8 @@ on the card:
   and dK/dV kernels, and on the same configuration with 4 heads of 256
   (Gemma-style head_dim), whose flash forward, dQ and dK/dV run the
   tensor-core wgmma_wide kernels, and on that configuration in f32, whose
-  dQ and dK/dV run the tensor-core tf32x3 kernels (split-TF32 products)
-  and whose forward runs wide;
+  flash forward, dQ and dK/dV run the tensor-core tf32x3 kernels
+  (split-TF32 products);
 * INT8 inference — the symbolic ResNet-50 (``models/resnet_symbol.py``,
   1000 classes, 3x224x224) is calibrated, quantized, BN-folded and
   int8-fused by ``contrib.quantization.quantize_model``, bound, and run at
@@ -69,7 +69,8 @@ Phases, in order; any failure raises and exits non-zero:
    kernels/csrc`` (in parallel), with the ptxas register/spill report and
    one line per instantiation of the tensor-core flash kernels (forward,
    dQ and dK/dV at head_dim 64 and 128; wgmma_wide at 192 and 256; the
-   f32 tf32x3 dQ and dK/dV at 192 and 256), of the wide flash kernels,
+   f32 tf32x3 forward, dQ and dK/dV at 192 and 256), of the wide flash
+   kernels,
    of
    the int8 matmul and of the RMSNorm variants; none but the int8 ``mma``
    kernel may spill;
@@ -94,13 +95,14 @@ Phases, in order; any failure raises and exits non-zero:
    wgmma_wide forward and backward (at [1, 4096, 16, 256] both held
    against the plain version beside their CUDA-core twin, wide, and
    timed in turns with it; also at the head_dim-256 leg's [1, 8192, 4,
-   256] and with Tq != Tk), and f32 above 128 and bf16 at 320 the wide
-   variant, but for the f32 backward at padded head_dim 192 and 256,
-   which runs the tensor-core tf32x3 dQ and dK/dV (at [1, 4096, 16, 256]
-   held against the plain backward and dense autograd beside its wide
-   twin and timed in turns with it; also at [1, 8192, 4, 256], [1, 4096,
-   16, 192], Tq 1000 x Tk 3000 not causal, and head_dim 160 with an lse
-   cotangent).  The int8
+   256] and with Tq != Tk), and in f32 the tensor-core tf32x3 forward,
+   dQ and dK/dV (at [1, 4096, 16, 256] the forward held against the
+   plain version and the backward against the plain backward and dense
+   autograd, each beside its wide twin and timed in turns with it; the
+   forward also in turns at the f32 leg's [1, 8192, 4, 256]; both also
+   at [1, 8192, 4, 256], [1, 4096, 16, 192], Tq 1000 x Tk 3000 not
+   causal, and head_dim 160, the backward with an lse cotangent), and f32
+   and bf16 at 320 the wide variant.  The int8
    matmul's planned variant and, where that is wgmma, its mma variant are
    held bit for bit to the plain version and timed in turns beside
    ``torch._int_mm``;
@@ -395,7 +397,7 @@ LONGCTX = dict(vocab_size=32000, d_model=1024, n_heads=16, n_layers=4,
                d_ff=4096, max_len=8192, dtype="bfloat16", remat=True)
 LONGCTX_HD256 = dict(LONGCTX, n_heads=4)
 # the same in f32 (TF32 off, torch's default for matmuls): its flash
-# backward on the tensor-core tf32x3 kernels, its forward on wide
+# forward and backward on the tensor-core tf32x3 kernels
 LONGCTX_HD256_F32 = dict(LONGCTX_HD256, dtype="float32")
 TRAIN_CELLS = (
     ("flagship_b8_t1024", dict(FLAGSHIP, max_len=1024, remat=False), 8,
@@ -413,9 +415,8 @@ TRAIN_STEPS = 3
 # recomputed forward, every one through the warp variant (8192 rows); flash
 # forward per block (twice with remat), every
 # one through the tensor-core variant (bf16: wgmma at head_dim 64,
-# wgmma_wide at 256) or, in f32 at 256, wide; dQ and dK/dV once per block,
-# through the tensor-core variant (f32 at 256: tf32x3); the softmax
-# cross-entropy once each way
+# wgmma_wide at 256; f32 at 256: tf32x3); dQ and dK/dV once per block,
+# through the same variant; the softmax cross-entropy once each way
 EXPECTED_LAUNCHES = {
     "flagship_b8_t1024": {"fused_rmsnorm": 9, "fused_rmsnorm.warp": 9,
                           "fused_softmax_xent": 1,
@@ -440,7 +441,7 @@ EXPECTED_LAUNCHES = {
     "longctx_hd256_f32_b1_t8192": {"fused_rmsnorm": 17,
                                    "fused_rmsnorm.warp": 17,
                                    "flash_attention": 8,
-                                   "flash_attention.wide": 8,
+                                   "flash_attention.tf32x3": 8,
                                    "flash_attention_dq": 4,
                                    "flash_attention_dkv": 4,
                                    "flash_attention_dq.tf32x3": 4,
@@ -899,7 +900,8 @@ def phase_build():
     # variants, none of which may spill but the int8 mma kernel
     for src in ("flash_attention_wgmma", "flash_attention_wgmma_wide",
                 "flash_attention_bwd_wgmma", "flash_attention_bwd_wgmma_wide",
-                "flash_attention_bwd_tf32x3", "flash_attention_wide",
+                "flash_attention_tf32x3", "flash_attention_bwd_tf32x3",
+                "flash_attention_wide",
                 "int8_matmul", "rmsnorm"):
         for kernel, line in _ptxas_summary(built[src]["log"]):
             print("build %s %s" % (src, line), flush=True)
@@ -1113,7 +1115,8 @@ def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     """The flash forward of the variant ``_variant`` names against its
     plain version.  ``variants``: that variant is a tensor-core one; also
     hold its CUDA-core twin (``CUDA_CORE_TWIN``: simt for wgmma, wide for
-    wgmma_wide) against the plain version, and time the two in turns
+    wgmma_wide and tf32x3) against the plain version, and time the two in
+    turns
     (tensor-core, CUDA-core, CUDA-core, tensor-core); ``ms`` is then the
     tensor-core variant's mean of its two turns.  ``variants`` needs a
     head_dim the kernels have."""
@@ -1121,13 +1124,14 @@ def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     import torch.nn.functional as F
     # (the package exports a function under this module's name)
     from mxnet_tpu_torch.ops.kernels.flash_attention import (
-        _flash_cuda, _flash_simt_cuda, _flash_wgmma_cuda,
+        _flash_cuda, _flash_simt_cuda, _flash_tf32x3_cuda, _flash_wgmma_cuda,
         _flash_wgmma_wide_cuda, _flash_wide_cuda, _variant,
         flash_attention_reference)
 
     dt = getattr(torch, dtype_name)
     launchers = {"wgmma": _flash_wgmma_cuda,
                  "wgmma_wide": _flash_wgmma_wide_cuda,
+                 "tf32x3": _flash_tf32x3_cuda,
                  "simt": _flash_simt_cuda, "wide": _flash_wide_cuda}
 
     def rnd(T):
@@ -1374,7 +1378,7 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     width = _padded_dim(D)
     args = _copies(tuple(_pad_d(t, width) for t in (q, k, v, do))
                    + (lse, delta))
-    variant = _variant(q.dtype, D, backward=True)
+    variant = _variant(q.dtype, D)
     twin = CUDA_CORE_TWIN.get(variant)
     twin_errs = {}
     if variants:
@@ -1571,15 +1575,13 @@ def phase_kernels():
     _flash_bwd_case(2, 1024, 1024, 8, 64, True, "float32", gen,
                     with_dlse=True)
     # head dims above 128 (160 pads to 192; 320 is three column chunks of
-    # at most 128): bf16 at padded 192 and 256 on the tensor-core
-    # wgmma_wide forward and backward, timed in turns with their wide
-    # twins; the f32 backward there on the tensor-core tf32x3 kernels,
-    # timed in turns with wide; the f32 forward, and bf16 at 320, on wide.
-    # The wide records are f32's: the f32 leg's forward, and the backward
-    # tf32x3 replaced there
+    # at most 128): at padded 192 and 256 the tensor-core forward and
+    # backward, wgmma_wide in bf16 and tf32x3 in f32, timed in turns with
+    # their wide twins; f32 and bf16 at 320 on wide.  The wide records are
+    # f32's: the kernels tf32x3 replaced on the f32 leg
     for dt in ("bfloat16", "float32"):
         fwd = _flash_case(1, 4096, 4096, 16, 256, True, dt, gen,
-                          variants=dt == "bfloat16")
+                          variants=True)
         dq, dkv = _flash_bwd_case(1, 4096, 4096, 16, 256, True, dt, gen,
                                   with_dlse=dt == "float32", variants=True)
         if dt == "bfloat16":
@@ -1587,9 +1589,10 @@ def phase_kernels():
             main["flash_attention_dq.wgmma_wide"] = dq
             main["flash_attention_dkv.wgmma_wide"] = dkv
         else:
-            main["flash_attention.wide"] = fwd
+            main["flash_attention.tf32x3"] = fwd
             main["flash_attention_dq.tf32x3"] = dq
             main["flash_attention_dkv.tf32x3"] = dkv
+            main["flash_attention.wide"] = _twin_record(fwd)
             main["flash_attention_dq.wide"] = _twin_record(dq)
             main["flash_attention_dkv.wide"] = _twin_record(dkv)
     # the head_dim-256 training leg's attention ([1, 8192, 4, 256]), D 192,
@@ -1602,13 +1605,18 @@ def phase_kernels():
     _flash_bwd_case(1, 1000, 3000, 16, 256, False, "bfloat16", gen)
     _flash_case(2, 1000, 1000, 4, 320, False, "bfloat16", gen)
     _flash_bwd_case(2, 1000, 1000, 4, 320, False, "bfloat16", gen)
+    _flash_case(2, 1000, 1000, 4, 320, False, "float32", gen)
+    _flash_bwd_case(2, 1000, 1000, 4, 320, False, "float32", gen)
     _flash_case(1, 777, 777, 4, 160, True, "float32", gen)
     _flash_case(1, 777, 777, 4, 160, True, "bfloat16", gen)
     _flash_bwd_case(1, 777, 777, 4, 160, True, "bfloat16", gen,
                     with_dlse=True)
-    # the f32 backward on tf32x3: the f32 leg's [1, 8192, 4, 256], D 192,
-    # Tq != Tk not causal, and head_dim 160 (padded to 192) with an lse
-    # cotangent
+    # f32 on tf32x3: the f32 leg's [1, 8192, 4, 256] (the forward in turns
+    # with wide), D 192, Tq != Tk not causal, and head_dim 160 (padded to
+    # 192; the backward with an lse cotangent)
+    _flash_case(1, 8192, 8192, 4, 256, True, "float32", gen, variants=True)
+    _flash_case(1, 4096, 4096, 16, 192, True, "float32", gen)
+    _flash_case(1, 1000, 3000, 16, 256, False, "float32", gen)
     _flash_bwd_case(1, 8192, 8192, 4, 256, True, "float32", gen)
     _flash_bwd_case(1, 4096, 4096, 16, 192, True, "float32", gen)
     _flash_bwd_case(1, 1000, 3000, 16, 256, False, "float32", gen)
@@ -5534,6 +5542,7 @@ VARIANT_SOURCES = {
     "flash_attention": {"wgmma": _CSRC + "flash_attention_wgmma.cu",
                         "wgmma_wide":
                             _CSRC + "flash_attention_wgmma_wide.cu",
+                        "tf32x3": _CSRC + "flash_attention_tf32x3.cu",
                         "simt": _CSRC + "flash_attention.cu",
                         "wide": _CSRC + "flash_attention_wide.cu"},
     "flash_attention_dq": {"wgmma": _CSRC + "flash_attention_bwd_wgmma.cu",
@@ -5654,8 +5663,11 @@ def main():
             "mxnet_tpu_torch/ops/kernels/csrc/"
             "flash_attention_bwd_wgmma_wide.cu",
             "mxnet_tpu/ops/pallas/flash_attention.py:179"),
-        # the f32 head_dim-256 leg's: dQ and dK/dV on the tensor-core
-        # tf32x3 kernels (its forward is wide)
+        # the f32 head_dim-256 leg's: the forward, dQ and dK/dV on the
+        # tensor-core tf32x3 kernels
+        "flash_attention.tf32x3": (
+            "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_tf32x3.cu",
+            "mxnet_tpu/ops/pallas/flash_attention.py:55"),
         "flash_attention_dq.tf32x3": (
             "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd_tf32x3.cu",
             "mxnet_tpu/ops/pallas/flash_attention.py:142"),

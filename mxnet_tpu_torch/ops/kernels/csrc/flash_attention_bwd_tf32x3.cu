@@ -112,65 +112,11 @@ struct Smem {
   static_assert(bytes <= 232448, "a block has 227 KB of shared memory");
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(in ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // The barrier of one product's four warps (the scores' halves of the CTA):
 // this thread's copies have landed and those of its half are visible
 __device__ __forceinline__ void half_ready(int wp) {
   cp_async_wait_all();
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wp) : "memory");
-}
-
-// rows row0 .. row0 + n - 1 of X (row stride ld_x elements, D contiguous
-// floats a row) into dst [n][D + 4], by the `nth` threads numbered from
-// threadIdx.x - tid (tid: this thread's number among them); rows at or past
-// `end` are zeros
-template <int D>
-__device__ __forceinline__ void copy_rows(float* dst, const float* X,
-                                          long long ld_x, int row0, int n,
-                                          int end, int tid = threadIdx.x,
-                                          int nth = NT) {
-  constexpr int V = D / 4;                    // 16-byte copies a row
-  for (int e = tid; e < n * V; e += nth) {
-    const int r = e / V, c = (e % V) * 4;
-    const int pos = row0 + r;
-    const bool in = pos < end;
-    cp_async16(dst + r * (D + 4) + c, X + (in ? pos : 0) * ld_x + c, in);
-  }
-}
-
-// A fragment (16 x 8), split, of a row-major [rows][k] tile at m
-__device__ __forceinline__ void frag_a(const float* m, int ld, int g, int t,
-                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  split_tf32(m[g * ld + t], hi[0], lo[0]);
-  split_tf32(m[(g + 8) * ld + t], hi[1], lo[1]);
-  split_tf32(m[g * ld + t + 4], hi[2], lo[2]);
-  split_tf32(m[(g + 8) * ld + t + 4], hi[3], lo[3]);
-}
-
-// B fragment (8 x 8), split, of N^T for a row-major [n][k] tile N at m
-__device__ __forceinline__ void frag_bt(const float* m, int ld, int g, int t,
-                                        uint32_t (&hi)[2], uint32_t (&lo)[2]) {
-  split_tf32(m[g * ld + t], hi[0], lo[0]);
-  split_tf32(m[g * ld + t + 4], hi[1], lo[1]);
-}
-
-// B fragment (8 x 8), split, of a row-major [k][n] tile at m with k
-// permuted: slot t reads row 2t, slot t + 4 row 2t + 1
-__device__ __forceinline__ void frag_b_perm(const float* m, int ld, int g,
-                                            int t, uint32_t (&hi)[2],
-                                            uint32_t (&lo)[2]) {
-  split_tf32(m[2 * t * ld + g], hi[0], lo[0]);
-  split_tf32(m[(2 * t + 1) * ld + g], hi[1], lo[1]);
 }
 
 // A fragment (16 x 8), split, of an exchange tile with k permuted as
@@ -378,10 +324,10 @@ flash_dq_tf32x3_kernel(const float* __restrict__ q,
   const int q_last = min(q0 + BR, Tq) - 1;
   const int k_end = causal ? min(Tk, q_last + 1) : Tk;
 
-  copy_rows<D>(smem + L::res0, qb, st.s[1], q0, BR, Tq);
-  copy_rows<D>(smem + L::res1, dob, st.s[10], q0, BR, Tq);
-  copy_rows<D>(Ks, kb, st.s[4], 0, BS, Tk);
-  copy_rows<D>(Vs, vb, st.s[7], 0, BS, Tk);
+  copy_rows<D>(smem + L::res0, qb, st.s[1], q0, BR, Tq, threadIdx.x, NT);
+  copy_rows<D>(smem + L::res1, dob, st.s[10], q0, BR, Tq, threadIdx.x, NT);
+  copy_rows<D>(Ks, kb, st.s[4], 0, BS, Tk, threadIdx.x, NT);
+  copy_rows<D>(Vs, vb, st.s[7], 0, BS, Tk, threadIdx.x, NT);
   cp_async_wait_all();
   __syncthreads();
 
@@ -470,11 +416,11 @@ flash_dkv_tf32x3_kernel(const float* __restrict__ q,
   // causal: a query tile whose last row precedes k0 sees none of these keys
   const int q_begin = causal ? (k0 / BS) * BS : 0;
 
-  copy_rows<D>(smem + L::res0, kb, st.s[4], k0, BR, Tk);
-  copy_rows<D>(smem + L::res1, vb, st.s[7], k0, BR, Tk);
+  copy_rows<D>(smem + L::res0, kb, st.s[4], k0, BR, Tk, threadIdx.x, NT);
+  copy_rows<D>(smem + L::res1, vb, st.s[7], k0, BR, Tk, threadIdx.x, NT);
   if (q_begin < Tq) {
-    copy_rows<D>(Qs, qb, st.s[1], q_begin, BS, Tq);
-    copy_rows<D>(dOs, dob, st.s[10], q_begin, BS, Tq);
+    copy_rows<D>(Qs, qb, st.s[1], q_begin, BS, Tq, threadIdx.x, NT);
+    copy_rows<D>(dOs, dob, st.s[10], q_begin, BS, Tq, threadIdx.x, NT);
   }
   cp_async_wait_all();
   __syncthreads();

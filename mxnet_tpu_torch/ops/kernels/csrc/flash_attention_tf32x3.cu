@@ -1,0 +1,401 @@
+// Flash-attention forward for f32 above head_dim 128 on Hopper's tensor
+// cores (sm_90a), CUDA C++: the "tf32x3" variant of the forward, for f32
+// inputs at head_dim 192 or 256 (the wrapper pads head_dim 129-256 to one
+// of them).
+//
+// Replaces, at those widths and in f32, the Pallas TPU kernel
+// mxnet_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (launched by
+// `_fwd`), and computes the same function as the wide variant's forward
+// (flash_attention_wide.cu), which runs it on the CUDA cores:
+//
+//   s   = (q . k^T) * scale          -1e30 where k_pos >= kv_len or (causal
+//                                    and q_pos < k_pos)
+//   over key tiles, per row: m' = max(m, max(s)), alpha = exp(m - m'),
+//   p = exp(s - m') (as 2^(S scale log2(e) - m' log2(e)): one FFMA and one
+//   MUFU ex2), l = l * alpha + sum(p), acc = acc * alpha + p . v, m = m'
+//   o   = acc / l (0 where l == 0),  lse = m + log(l)            all f32
+//
+// Split-TF32 products, as in the tf32x3 backward (flash_attention_bwd_
+// tf32x3.cu): the tensor cores take no f32 operand, and one TF32 product
+// keeps about 2^-11 relative, which f32's 1e-4 would not pass.  Every
+// operand x is split into hi (x with its 13 low bits cleared) and lo = x -
+// hi (split_tf32), and each product is issued as three TF32 products with
+// f32 accumulation (mma_tf32x3), under 3 * 2^-20 relative.  S is summed
+// over a half of D on the tensor cores; each key tile's p . v is summed
+// there from zero and added to acc in f32 (acc * alpha + pv, _fwd_kernel's
+// own formula): the tensor cores' accumulation does not round to nearest,
+// and over the 128 tiles of an 8192-key row its bias would reach o.
+//
+// What bounds it on the card: operations.  4*D flops per unmasked (q, k)
+// pair; as three TF32 products, 12*D at the H100's 495 TFLOP/s TF32 peak.
+// mma.sync reaches about 318 of them (tf32x3_probe.py), every operand is
+// split beside its products on the CUDA cores and read from shared memory
+// beside them, so the design counts splits and reads a product.
+//
+// Design.  CTAs of 8 warps own 64 query rows (heavy causal tiles first)
+// and all of D: q resident in shared memory, loaded once, and key and
+// value tiles of 64 rows streamed, f32 with rows padded to D + 4 words
+// (every fragment load below is free of bank conflicts); 16-byte cp.async
+// copies, rows past Tk zero-filled.  One buffer a tile: at D 256 three
+// 64-row tiles are 195 KB, with the exchange tile 213 KB of 227.  Per key
+// tile:
+//   * scores: warp w computes rows 16 (w / 2) .. + 15 against all 64 keys
+//     over one half of D (w % 2): a q fragment split once for 8 key
+//     fragments, 20 values split and read a 24 tensor-core products.  The
+//     two halves' warps trade the partial sums of 8 rows each through the
+//     exchange tile, and each finishes its 8 rows (one row a quad of
+//     lanes): the mask (only on tiles that need it), the running max,
+//     alpha, p and the running sum; p goes over what it read there;
+//   * output: warp w owns D / 8 columns of all 64 rows (acc: D / 4 floats
+//     a thread), multiplied by the rows' alpha and added to the tile's
+//     p . v, which reads the value tile with its k index permuted (k-slot t
+//     <-> key 2t, t + 4 <-> key 2t + 1) so that p's A fragment is one
+//     float2 a row, as the backward's output products do.
+// The value tile's copies are issued beside the first half of the score
+// products and the next key tile's beside the first half of the output
+// products, so that they land while the rest runs and their issue does
+// not hold the warps up front: three barriers a tile.  Key tiles past the causal diagonal or kv_len are
+// skipped.  No CTA reads what another writes and there are no atomics: two
+// calls give the same bits.
+//
+// Plain C interface (no PyTorch headers), called through ctypes.
+
+#include "hopper.cuh"
+
+namespace {
+
+constexpr int BR = 64;             // query rows a CTA
+constexpr int BS = 64;             // key / value rows a tile
+constexpr int NS = BS / 8;         // 8-key blocks of a tile
+constexpr int NT = 256;            // threads a CTA: 8 warps
+constexpr int XS = BS + 8;         // row stride (words) of the exchange tile
+constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// (batch, time, head) strides in elements of q, k, v and o
+struct Strides {
+  long long s[12];
+};
+
+// A tile of BS rows copied by all NT threads, D / 4 16-byte pieces a row,
+// spread over the first kSteps steps of a loop of tensor-core products
+// (copy_step, called at each step): the copy issue runs beside the
+// products instead of before them
+struct TileCopy {
+  float* dst;
+  const float* src;
+  long long ld;
+  int row0, end;
+};
+
+template <int D, int kSteps>
+__device__ __forceinline__ void copy_step(const TileCopy& c, int step) {
+  constexpr int kPieces = BS * (D / 4) / NT;     // this thread's pieces
+  static_assert(kPieces % kSteps == 0, "whole pieces a step");
+  if (step >= kSteps) return;
+#pragma unroll
+  for (int i = 0; i < kPieces / kSteps; ++i)
+    copy_piece<D>(c.dst, c.src, c.ld, c.row0, c.end,
+                  threadIdx.x + NT * (step * (kPieces / kSteps) + i));
+}
+
+// Shared memory, in floats: q [BR][LD], the key and the value tile [BS][LD], the exchange tile [BR][XS]
+// (partial scores, then p) and the rows' alpha and l.  LD % 32 == 4.
+template <int D>
+struct Smem {
+  static constexpr int LD = D + 4;
+  static constexpr int q = 0;
+  static constexpr int k = q + BR * LD;
+  static constexpr int v = k + BS * LD;
+  static constexpr int x = v + BS * LD;
+  static constexpr int alpha = x + BR * XS;
+  static constexpr int l = alpha + BR;
+  static constexpr int floats = l + BR;
+  static constexpr size_t bytes = floats * sizeof(float);
+  static_assert(bytes <= 232448, "a block has 227 KB of shared memory");
+};
+
+// One warp's partial scores: s[n] = Q[16 rows] . K[8n .. 8n + 7]^T over
+// D / 2 columns, Q and K from this warp's half of D, split as their
+// fragments load; the copy `vc` issued over the first half of the steps
+template <int D>
+__device__ __forceinline__ void score_half(const float* Q, const float* K,
+                                           int g, int t, const TileCopy& vc,
+                                           float (&s)[NS][4]) {
+  constexpr int LD = D + 4;
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < D / 2; d += 8) {
+    uint32_t ah[4], al[4];
+    frag_a(Q + d, LD, g, t, ah, al);
+    copy_step<D, D / 32>(vc, d / 8);
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      uint32_t bh[2], bl[2];
+      frag_bt(K + 8 * n * LD + d, LD, g, t, bh, bl);
+      mma_tf32x3(s[n], ah, al, bh, bl);
+    }
+  }
+}
+
+// acc[m][nb] = acc[m][nb] * alpha(row) + P[16m .., :] . V[:, 8nb ..] over
+// the tile's BS keys: all 64 rows of p in the exchange tile P against D /
+// 64 n-blocks of the value tile V from this warp's first column, the
+// tile's products summed on the tensor cores from zero and then added in
+// f32.  p's A fragment reads columns 2t and 2t + 1 as k-slots t and t + 4,
+// V's B fragment (frag_b_perm) rows in the same order.  With `copy`, the
+// copy `kc` issued over the first half of the steps.
+template <int D>
+__device__ __forceinline__ void out_product(const float* P, const float* V,
+                                            const float* alpha, int g, int t,
+                                            bool copy, const TileCopy& kc,
+                                            float (&acc)[4][D / 64][4]) {
+  constexpr int NB = D / 64, LD = D + 4;
+  float tile[4][NB][4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) tile[m][nb][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < BS; kk += 8) {
+    if (copy) copy_step<D, BS / 16>(kc, kk / 8);
+    uint32_t bh[NB][2], bl[NB][2];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      frag_b_perm(V + kk * LD + 8 * nb, LD, g, t, bh[nb], bl[nb]);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const float2 u =
+          *reinterpret_cast<const float2*>(P + (16 * m + g) * XS + kk + 2 * t);
+      const float2 w = *reinterpret_cast<const float2*>(
+          P + (16 * m + g + 8) * XS + kk + 2 * t);
+      uint32_t ah[4], al[4];
+      split_tf32(u.x, ah[0], al[0]);
+      split_tf32(w.x, ah[1], al[1]);
+      split_tf32(u.y, ah[2], al[2]);
+      split_tf32(w.y, ah[3], al[3]);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+        mma_tf32x3(tile[m][nb], ah, al, bh[nb], bl[nb]);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const float a0 = alpha[16 * m + g], a1 = alpha[16 * m + g + 8];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        acc[m][nb][i] = acc[m][nb][i] * (i < 2 ? a0 : a1) + tile[m][nb][i];
+  }
+}
+
+// st: q (0-2), k (3-5), v (6-8), o (9-11)
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+flash_fwd_tf32x3_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        float* __restrict__ lse, int H, int Tq, int Tk,
+                        Strides st, float scale, int causal, int kv_len) {
+  using L = Smem<D>;
+  constexpr int LD = L::LD, NB = D / 64;
+  extern __shared__ float4 smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  float* Qs = smem + L::q;
+  float* Ks = smem + L::k;
+  float* Vs = smem + L::v;
+  float* X = smem + L::x;
+  float* alpha_s = smem + L::alpha;
+  float* l_s = smem + L::l;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rb = warp >> 1, wd = warp & 1;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BR;   // heavy tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+
+  const float* qb = q + b * st.s[0] + h * st.s[2];
+  const float* kb = k + b * st.s[3] + h * st.s[5];
+  const float* vb = v + b * st.s[6] + h * st.s[8];
+
+  // the row this thread (its quad) finishes: wd 0 the upper 8 of the warp's
+  // 16, wd 1 the lower 8
+  const int r = 16 * rb + 8 * wd + g;
+  const int qpos = q0 + r;
+  const float sl2 = scale * kLog2e;
+  float m_run = kNeg, l_run = 0.f;
+  float acc[4][NB][4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][nb][i] = 0.f;
+
+  const int q_last = min(q0 + BR, Tq) - 1;
+  const int k_end = causal ? min(kv_len, q_last + 1) : kv_len;
+
+  const float* Qw = Qs + 16 * rb * LD + wd * (D / 2);
+  const float* Kw = Ks + wd * (D / 2);
+  const int c0 = warp * (D / 8);          // this warp's output columns
+
+  if (k_end > 0) {
+    copy_rows<D>(Qs, qb, st.s[1], q0, BR, Tq, threadIdx.x, NT);
+    copy_rows<D>(Ks, kb, st.s[4], 0, BS, Tk, threadIdx.x, NT);
+    cp_async_commit();
+  }
+  for (int k0 = 0; k0 < k_end; k0 += BS) {
+    const bool more = k0 + BS < k_end;
+    cp_async_wait<0>();
+    __syncthreads();          // the key tile is in; the last tile's output
+                              // product no longer reads V, X or alpha
+    float s[NS][4];
+    score_half<D>(Qw, Kw, g, t, {Vs, vb, st.s[7], k0, Tk}, s);
+    cp_async_commit();        // the value tile
+    // trade halves: hand the partner the partial sums of its 8 rows
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      float* xo = X + (16 * rb + 8 * (1 - wd) + g) * XS + 8 * n + 2 * t;
+      *reinterpret_cast<float2*>(xo) =
+          wd ? make_float2(s[n][0], s[n][1]) : make_float2(s[n][2], s[n][3]);
+    }
+    __syncthreads();          // partials are in; K is no longer read
+    float* xr = X + r * XS + 2 * t;
+    float f[NS][2];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      const float2 u = *reinterpret_cast<const float2*>(xr + 8 * n);
+      f[n][0] = (wd ? s[n][2] : s[n][0]) + u.x;
+      f[n][1] = (wd ? s[n][3] : s[n][1]) + u.y;
+    }
+    // a tile needs the mask where it reaches kv_len or, causal, keys past
+    // the first row; elsewhere max(S) * scale is max(s) (scale > 0) and s
+    // is never formed
+    const bool masked = k0 + BS > kv_len || (causal && k0 + BS - 1 > q0) ||
+                        !(scale > 0.f);
+    float mx = kNeg;
+    if (masked) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int kpos = k0 + 8 * n + 2 * t + j;
+          const bool ok = kpos < kv_len && (!causal || qpos >= kpos);
+          f[n][j] = ok ? f[n][j] * scale : kNeg;
+          mx = fmaxf(mx, f[n][j]);
+        }
+    } else {
+#pragma unroll
+      for (int n = 0; n < NS; ++n) mx = fmaxf(mx, fmaxf(f[n][0], f[n][1]));
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    if (!masked) mx *= scale;
+    const float m_new = fmaxf(m_run, mx);
+    const float alpha = ex2((m_run - m_new) * kLog2e);
+    const float fs = masked ? kLog2e : sl2, bias = -m_new * kLog2e;
+    float rs = 0.f;
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      const float p0 = ex2(fmaf(f[n][0], fs, bias));
+      const float p1 = ex2(fmaf(f[n][1], fs, bias));
+      rs += p0 + p1;
+      *reinterpret_cast<float2*>(xr + 8 * n) = make_float2(p0, p1);
+    }
+    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+    l_run = l_run * alpha + rs;
+    m_run = m_new;
+    if (t == 0) alpha_s[r] = alpha;
+    cp_async_wait<0>();
+    __syncthreads();          // p, alpha and the value tile are in
+    out_product<D>(X, Vs + c0, alpha_s, g, t, more,
+                   {Ks, kb, st.s[4], k0 + BS, Tk}, acc);
+    cp_async_commit();        // the next key tile
+  }
+
+  // the rows' l to every warp; lse from the finishing quads
+  const float safe = l_run == 0.f ? 1.f : l_run;
+  if (t == 0) {
+    l_s[r] = safe;
+    if (qpos < Tq) lse[((long long)b * H + h) * Tq + qpos] = m_run + logf(safe);
+  }
+  __syncthreads();
+  float* ob = o + b * st.s[9] + h * st.s[11];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = 16 * m + g + 8 * half;
+      if (q0 + row >= Tq) continue;
+      const float den = l_s[row];
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+        *reinterpret_cast<float2*>(ob + (q0 + row) * st.s[10] + c0 + 8 * nb +
+                                   2 * t) =
+            make_float2(acc[m][nb][2 * half] / den,
+                        acc[m][nb][2 * half + 1] / den);
+    }
+}
+
+template <int D>
+int launch(const float* q, const float* k, const float* v, float* o,
+           float* lse, int B, int H, int Tq, int Tk, const long long* st,
+           float scale, int causal, int kv_len, cudaStream_t stream) {
+  constexpr size_t smem = Smem<D>::bytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_tf32x3_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  Strides s{};
+  for (int i = 0; i < 12; ++i) s.s[i] = st[i];
+  const dim3 grid((Tq + BR - 1) / BR, H, B);
+  flash_fwd_tf32x3_kernel<D><<<grid, NT, smem, stream>>>(
+      q, k, v, o, lse, H, Tq, Tk, s, scale, causal, kv_len);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// q/k/v/o: f32 [B, T, H, D] with unit stride on D, D 192 or 256; `st`
+// holds the (B, T, H) element strides of q, k, v and o in that order.
+// Base addresses 16-byte aligned, q/k/v strides multiples of 4 elements
+// (the 16-byte copies).  lse: f32 [B, H, Tq], contiguous.  Keys at and past
+// kv_len are masked.  Returns 0 on success, else a cudaError_t.
+int mxt_flash_tf32x3_fwd(const void* q, const void* k, const void* v,
+                         void* o, void* lse, int B, int H, int Tq, int Tk,
+                         int D, const long long* st, float scale, int causal,
+                         int kv_len, void* stream) {
+  if (B <= 0 || H <= 0 || Tq <= 0) return 0;
+  if (Tk <= 0 || kv_len < 0 || kv_len > Tk || B > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float *fq = static_cast<const float*>(q),
+              *fk = static_cast<const float*>(k),
+              *fv = static_cast<const float*>(v);
+  float *fo = static_cast<float*>(o), *fl = static_cast<float*>(lse);
+  switch (D) {
+    case 192:
+      return launch<192>(fq, fk, fv, fo, fl, B, H, Tq, Tk, st, scale, causal,
+                         kv_len, s);
+    case 256:
+      return launch<256>(fq, fk, fv, fo, fl, B, H, Tq, Tk, st, scale, causal,
+                         kv_len, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+const char* mxt_flash_tf32x3_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

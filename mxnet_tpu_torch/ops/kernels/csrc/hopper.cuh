@@ -1,17 +1,18 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels: the
-// flash kernels (flash_attention_wgmma.cu, the forward;
+// bf16 flash kernels (flash_attention_wgmma.cu, the forward;
 // flash_attention_bwd_wgmma.cu, dQ and dK/dV; their wgmma_wide twins at
-// head_dim 192 and 256; the f32 backward's tf32x3 kernels,
-// flash_attention_bwd_tf32x3.cu) and the int8 matmul
-// (int8_matmul.cu, its wgmma variant).  mbarriers, TMA loads, 128-byte-
-// swizzled wgmma descriptors, the wgmma shapes the kernels issue (bf16 with
-// f32 accumulation; s8 with s32 accumulation), the flash kernels' hi / lo
+// head_dim 192 and 256), the f32 flash kernels at head_dim 192 and 256
+// (tf32x3: the forward, flash_attention_tf32x3.cu; dQ and dK/dV,
+// flash_attention_bwd_tf32x3.cu) and the int8 matmul (int8_matmul.cu).
+// mbarriers, TMA loads, 16-byte cp.async copies, 128-byte-swizzled wgmma
+// descriptors, the wgmma shapes the kernels issue (bf16 with f32
+// accumulation; s8 with s32 accumulation), the flash kernels' hi / lo
 // split of an f32 operand (two bf16 terms; two TF32 terms with mma.sync's
-// TF32 product) and the forwards' online-softmax step, and the
-// host-side tensor maps over [B, T, H, D] bf16 tensors and over [rows, K]
-// int8 matrices.  Included
-// by each source; everything sits in an anonymous namespace, so each library
-// keeps its own copy.
+// TF32 product, and the tf32x3 kernels' split fragment loads and f32 row
+// copies) and the bf16 forwards' online-softmax step, and the host-side
+// tensor maps over [B, T, H, D] bf16 tensors and over [rows, K] int8
+// matrices.  Included by each source; everything sits in an anonymous
+// namespace, so each library keeps its own copy.
 
 #pragma once
 
@@ -237,6 +238,81 @@ __device__ __forceinline__ void mma_tf32x3(float (&d)[4],
   mma_tf32(d, al, bh);
   mma_tf32(d, ah, bl);
   mma_tf32(d, ah, bh);
+}
+
+// 16 bytes from global to shared memory by cp.async (cached in L2 only);
+// `src_bytes` 0 zero-fills the 16 bytes and reads nothing
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The tf32x3 kernels' f32 row copies, by 16-byte cp.async: piece e of
+// rows row0 .. of X (row stride ld_x elements, D contiguous floats a row),
+// row e / (D / 4), into dst [rows][D + 4]; rows at or past `end` are zeros
+template <int D>
+__device__ __forceinline__ void copy_piece(float* dst, const float* X,
+                                           long long ld_x, int row0, int end,
+                                           int e) {
+  const int r = e / (D / 4), c = (e % (D / 4)) * 4;
+  const int pos = row0 + r;
+  const bool in = pos < end;
+  cp_async16(dst + r * (D + 4) + c, X + (in ? pos : 0) * ld_x + c,
+             in ? 16 : 0);
+}
+
+// rows row0 .. row0 + n - 1, by the `nth` threads numbered from threadIdx.x
+// - tid (tid: this thread's number among them)
+template <int D>
+__device__ __forceinline__ void copy_rows(float* dst, const float* X,
+                                          long long ld_x, int row0, int n,
+                                          int end, int tid, int nth) {
+  for (int e = tid; e < n * (D / 4); e += nth)
+    copy_piece<D>(dst, X, ld_x, row0, end, e);
+}
+
+// The tf32x3 kernels' fragment loads, split as they load (split_tf32), in
+// mma.sync's m16n8k8 layout (g = lane / 4, t = lane % 4).  A (16 x 8) of
+// a row-major [rows][k] tile at m
+__device__ __forceinline__ void frag_a(const float* m, int ld, int g, int t,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split_tf32(m[g * ld + t], hi[0], lo[0]);
+  split_tf32(m[(g + 8) * ld + t], hi[1], lo[1]);
+  split_tf32(m[g * ld + t + 4], hi[2], lo[2]);
+  split_tf32(m[(g + 8) * ld + t + 4], hi[3], lo[3]);
+}
+
+// B (8 x 8) of N^T for a row-major [n][k] tile N at m
+__device__ __forceinline__ void frag_bt(const float* m, int ld, int g, int t,
+                                        uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  split_tf32(m[g * ld + t], hi[0], lo[0]);
+  split_tf32(m[g * ld + t + 4], hi[1], lo[1]);
+}
+
+// B (8 x 8) of a row-major [k][n] tile at m with k permuted: slot t reads
+// row 2t, slot t + 4 row 2t + 1 (the order in which an A fragment read as
+// one float2 a row holds columns 2t and 2t + 1)
+__device__ __forceinline__ void frag_b_perm(const float* m, int ld, int g,
+                                            int t, uint32_t (&hi)[2],
+                                            uint32_t (&lo)[2]) {
+  split_tf32(m[2 * t * ld + g], hi[0], lo[0]);
+  split_tf32(m[(2 * t + 1) * ld + g], hi[1], lo[1]);
 }
 
 // One key tile's online-softmax step of the tensor-core flash forwards,

@@ -20,10 +20,10 @@ head_dim 16, 32, 64 or 128, or above 128 any multiple of 64; any other
 head_dim is zero-padded along D to the next of those widths (a layout copy:
 zero columns add 0 to q·kᵀ and dO·Vᵀ), run at that width with ``scale``
 fixed from the real head_dim, and sliced back (:func:`_padded_dim`).  Only
-head_dim 0 raises.  The variants are chosen by one rule on dtype, padded
-head_dim and direction alone (:func:`_variant`), never by whether a build
-or a launch worked; the forward has four, the backward (dQ and dK/dV)
-five:
+head_dim 0 raises.  The variants are chosen by one rule on dtype and
+padded head_dim alone, the same for the forward and the backward (dQ and
+dK/dV) (:func:`_variant`), never by whether a build or a launch worked;
+there are five:
 
 * ``wgmma`` — tensor cores (wgmma, TMA rings, the f32 operands p and ds
   split into two bf16 terms): bf16 at head_dim 64 or 128 (the flagship's
@@ -41,19 +41,20 @@ five:
   (CTAs of 64 output rows whose two consumer warpgroups split the output's
   columns).  The same preconditions and the same copy of ``dO`` as
   ``wgmma``;
-* ``tf32x3`` — the backward only (dQ and dK/dV), tensor cores: f32 at a
-  padded head_dim of 192 or 256 (head_dim 129-256),
-  ``csrc/flash_attention_bwd_tf32x3.cu``.  The tensor cores have no f32
-  operand, and one TF32 product keeps 11 of f32's 24 significant bits
-  (about 2^-11 relative), too coarse for f32 gradients; so each operand is
-  split into ``hi`` (x with its 13 low bits cleared) and ``lo = x - hi``
-  and each product issued as three TF32 products with f32 accumulation
-  (``lo·hi + hi·lo + hi·hi``), under 3·2^-20 relative a product, each
-  tile's products summed from zero and added in f32 (the tensor cores'
-  own accumulation does not round to nearest).  mma.sync, 16-byte
-  ``cp.async`` copies: the same 16-byte preconditions as ``wgmma``
-  (:func:`_tma_fault`) and the same copy of ``dO``.  The f32 forward
-  there stays ``wide``;
+* ``tf32x3`` — tensor cores: f32 at a padded head_dim of 192 or 256
+  (head_dim 129-256), both ways.  Forward ``csrc/flash_attention_tf32x3.cu``
+  (CTAs of 64 query rows over all of D, key / value tiles of 64);
+  backward ``csrc/flash_attention_bwd_tf32x3.cu`` (dQ and dK/dV).  The
+  tensor cores have no f32 operand, and one TF32 product keeps 11 of
+  f32's 24 significant bits (about 2^-11 relative), too coarse for f32;
+  so each operand is split into ``hi`` (x with its 13 low bits cleared)
+  and ``lo = x - hi`` and each product issued as three TF32 products with
+  f32 accumulation (``lo·hi + hi·lo + hi·hi``), under 3·2^-20 relative a
+  product, each tile's products summed from zero and added in f32 (the
+  tensor cores' own accumulation does not round to nearest; the
+  forward's ``acc·alpha + pv``).  mma.sync, 16-byte ``cp.async`` copies:
+  the same 16-byte preconditions as ``wgmma`` (:func:`_tma_fault`) and
+  the same copy of ``dO``;
 * ``simt`` — CUDA cores: f32 up to head_dim 128, and head_dim 16 or 32
   (less than one 128-byte row of the swizzled tiles the wgmma variant
   reads).  Forward ``csrc/flash_attention.cu``; backward
@@ -61,10 +62,10 @@ five:
 * ``wide`` — CUDA cores, above head_dim 128 (padded to a multiple of 64):
   the dot products over D walk it in chunks of 64 and each CTA owns at
   most 128 output columns, so any head_dim fits
-  (``csrc/flash_attention_wide.cu``: forward, dQ and dK/dV).  The f32
-  forward above 128, the f32 backward above 256, and bf16 above 256 both
-  ways (a third pair of 64-column panels would not fit the
-  ``wgmma_wide`` kernels' registers).
+  (``csrc/flash_attention_wide.cu``: forward, dQ and dK/dV).  f32 and
+  bf16 above 256, both ways (a third pair of 64-column panels would not
+  fit the ``wgmma_wide`` kernels' registers, nor a wider f32 row the
+  ``tf32x3`` kernels' shared memory).
 
 Every forward launch counts as ``kernels.launch.flash_attention`` and as
 ``kernels.launch.flash_attention.<variant>``; every backward launch as
@@ -269,19 +270,18 @@ def _pad_d(t, width):
     return t if D == width else torch.nn.functional.pad(t, (0, width - D))
 
 
-def _variant(dtype, head_dim, backward=False):
-    """The flash kernels for ``dtype``, ``head_dim`` (1 and up) and the
-    direction, by the padded width (:func:`_padded_dim`): ``"wgmma"`` for
-    bf16 at 64 or 128, ``"wgmma_wide"`` for bf16 at 192 or 256, both ways;
-    for the ``backward`` (dQ and dK/dV), ``"tf32x3"`` for f32 at 192 or 256
-    (split-TF32 products on the tensor cores: three TF32 products of the
-    operands' hi / lo terms, under 3·2^-20 relative a product, where one
-    TF32 product leaves 2^-11); ``"wide"`` for every other width above 128
-    (the f32 forward, f32 above 256, bf16 above 256); ``"simt"`` for the
-    rest (f32 up to 128; bf16 up to 32)."""
+def _variant(dtype, head_dim):
+    """The flash kernels for ``dtype`` and ``head_dim`` (1 and up), by the
+    padded width (:func:`_padded_dim`), the same for the forward and the
+    backward (dQ and dK/dV): ``"wgmma"`` for bf16 at 64 or 128,
+    ``"wgmma_wide"`` for bf16 at 192 or 256, ``"tf32x3"`` for f32 at 192
+    or 256 (split-TF32 products on the tensor cores: three TF32 products
+    of the operands' hi / lo terms, under 3·2^-20 relative a product,
+    where one TF32 product leaves 2^-11); ``"wide"`` for every other width
+    above 128 (f32 and bf16 above 256); ``"simt"`` for the rest (f32 up to
+    128; bf16 up to 32)."""
     width = _padded_dim(head_dim)
-    for variant in ("wgmma", "wgmma_wide") + (("tf32x3",) if backward
-                                               else ()):
+    for variant in ("wgmma", "wgmma_wide", "tf32x3"):
         if dtype == _TC_DTYPE[variant] and width in _TC_WIDTHS[variant]:
             return variant
     if head_dim > _HEAD_DIMS[-1]:
@@ -373,13 +373,15 @@ def _flash_simt_cuda(q, k, v, causal=True, scale=None, kv_len=None):
 _FWD_TC = {
     "wgmma": ("flash_attention_wgmma", "mxt_flash_wgmma"),
     "wgmma_wide": ("flash_attention_wgmma_wide", "mxt_flash_wgmma_wide"),
+    "tf32x3": ("flash_attention_tf32x3", "mxt_flash_tf32x3"),
 }
 
 
 def _flash_tc_cuda(variant, q, k, v, causal, scale, kv_len):
-    """Launch the tensor-core forward ``variant`` on bf16 inputs at one of
-    its widths; returns ``(o, lse)``.  Raises on inputs it does not take
-    (:func:`_check_tc_width`, :func:`_check_wgmma`)."""
+    """Launch the tensor-core forward ``variant`` on inputs of its dtype
+    (bf16; f32 for ``tf32x3``) at one of its widths; returns ``(o,
+    lse)``.  Raises on inputs it does not take (:func:`_check_tc_width`,
+    :func:`_check_wgmma`)."""
     B, Tq, Tk, H, D = _check_qkv(q, k, v)
     _check_tc_width(q.dtype, D, variant)
     _check_wgmma(q, k, v, variant=variant)
@@ -418,6 +420,15 @@ def _flash_wgmma_wide_cuda(q, k, v, causal=True, scale=None, kv_len=None):
     on inputs it does not take (:func:`_check_wgmma`): never a hand-off to
     the wide variant."""
     return _flash_tc_cuda("wgmma_wide", q, k, v, causal, scale, kv_len)
+
+
+def _flash_tf32x3_cuda(q, k, v, causal=True, scale=None, kv_len=None):
+    """Launch the tensor-core forward ``csrc/flash_attention_tf32x3.cu``
+    (split-TF32 products) on f32 inputs with head_dim 192 or 256; returns
+    ``(o, lse)``.  Raises on inputs it does not take
+    (:func:`_check_tc_width`, :func:`_check_wgmma`): never a hand-off to
+    the wide variant."""
+    return _flash_tc_cuda("tf32x3", q, k, v, causal, scale, kv_len)
 
 
 def _check_wide_width(D):
@@ -473,6 +484,7 @@ def _flash_cuda(q, k, v, causal=True, scale=None, kv_len=None):
     width = _padded_dim(D)
     launch = {"wgmma": _flash_wgmma_cuda,
               "wgmma_wide": _flash_wgmma_wide_cuda,
+              "tf32x3": _flash_tf32x3_cuda,
               "simt": _flash_simt_cuda,
               "wide": _flash_wide_cuda}[_variant(q.dtype, D)]
     if width == D:
@@ -749,7 +761,7 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, dlse=None, causal=True,
     delta = _delta(o, do, dlse)
     width = _padded_dim(D)
     q, k, v, do = (_pad_d(t, width) for t in (q, k, v, do))
-    variant = _variant(q.dtype, D, backward=True)
+    variant = _variant(q.dtype, D)
     if variant in _BWD_TC and _tma_fault("dO", do):
         do = do.clone(memory_format=torch.contiguous_format)
     launch_dq, launch_dkv = {

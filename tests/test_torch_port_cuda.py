@@ -23,8 +23,8 @@ RMSNorm variant (warp, block, simt), planned and forced, is held to its
 plain version at those tolerances at the main paths' shapes and at the
 edges (odd E, offset views, strided rows, 1-8 rows, 128 KB rows), two
 calls bit-identical, with 0 ptxas spills in every instantiation.  Head dims
-above 128 take the flash kernels' wide variant in f32 and in bf16 above
-256, held to the plain versions at the padded cases' tolerances.  bf16 at
+above 256 take the flash kernels' wide variant in f32 and in bf16, held
+to the plain versions at the padded cases' tolerances.  bf16 at
 head_dim 129-256 takes the tensor-core ``wgmma_wide`` kernels, forward and
 backward, held as the wgmma ones are (plain version, dense autograd for
 the backward, kv_len, fused-qkv views, a strided dO, misaligned inputs,
@@ -33,8 +33,13 @@ through them as through the plain versions.  The f32 backward at
 head_dim 129-256 takes the tensor-core ``tf32x3`` dQ and dK/dV
 (split-TF32 products), held at the f32 gradient tolerances to the plain
 backward and within 1e-4 of each gradient's largest entry to dense
-autograd, with the same views, refusals and repeat checks; the f32
-forward there stays wide.
+autograd, with the same views, refusals and repeat checks.  The f32
+forward there takes the tensor-core ``tf32x3`` forward (split-TF32
+products for S and P·V), held to the plain version at the f32 forward
+gates (o within 1e-5 + 1e-4·|o|, lse within 1e-4 + 1e-5·|lse|: the
+kernels' gates on the card), with ``kv_len``, fused-qkv views,
+refusals, two calls bit-identical, and forward and backward through
+``flash_attention`` against dense autograd in float64.
 
 ``mx.rtc``: tests/test_rtc.py's kernels written in CUDA and the
 reference's templated ``axpy`` (compiled with ``--fmad=false``) equal the
@@ -97,8 +102,9 @@ from mxnet_tpu_torch.ops.kernels.int8_matmul import (
     int8_matmul_reference, plan_int8_matmul)
 from mxnet_tpu_torch.ops.kernels.flash_attention import (
     _delta, _flash_bwd_cuda, _flash_cuda, _flash_dkv_wgmma_cuda,
-    _flash_dq_wgmma_cuda, _flash_simt_cuda, _flash_wgmma_cuda,
-    _flash_wgmma_wide_cuda, flash_attention, flash_attention_bwd_reference,
+    _flash_dq_wgmma_cuda, _flash_simt_cuda, _flash_tf32x3_cuda,
+    _flash_wgmma_cuda, _flash_wgmma_wide_cuda, flash_attention,
+    flash_attention_bwd_reference,
     flash_attention_lse, flash_attention_reference)
 from mxnet_tpu_torch.ops.kernels.layers import (
     _rmsnorm_block_cuda, _rmsnorm_cuda, _rmsnorm_simt_cuda,
@@ -427,7 +433,9 @@ def test_flash_kv_len_and_rows_without_keys(dev, launch, causal):
     (torch.bfloat16, 32, "simt"), (torch.bfloat16, 16, "simt"),
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
     (torch.bfloat16, 256, "wgmma_wide"), (torch.bfloat16, 192, "wgmma_wide"),
-    (torch.bfloat16, 320, "wide"), (torch.float32, 256, "wide")])
+    (torch.bfloat16, 320, "wide"), (torch.float32, 256, "tf32x3"),
+    (torch.float32, 192, "tf32x3"), (torch.float32, 160, "tf32x3"),
+    (torch.float32, 320, "wide")])
 def test_flash_forward_variant_counters(dev, dtype, D, variant):
     q, k, v = _qkv(dev, 1, 70, 70, 2, D, dtype)
     common.reset_counts()
@@ -891,6 +899,158 @@ def test_flash_autograd_bf16_head_dim_256_launches_wgmma_wide(dev):
 
 
 # ---------------------------------------------------------------------------
+# flash forward: the tensor-core tf32x3 variant, f32 at D 192 or 256
+# ---------------------------------------------------------------------------
+F32_FWD_TOL = dict(rtol=1e-4, atol=1e-5)
+F32_LSE_TOL = dict(rtol=1e-5, atol=1e-4)
+TF32X3_FWD_CASES = [
+    # (B, Tq, Tk, H, D, causal); CTAs own 64 queries, key tiles of 64; D
+    # 160 pads to 192
+    (1, 1, 1, 2, 256, True),
+    (1, 1, 1, 2, 192, False),
+    (2, 63, 63, 2, 256, True),
+    (1, 65, 65, 2, 192, True),
+    (1, 127, 127, 3, 160, False),
+    (1, 129, 129, 2, 256, True),
+    (1, 1000, 3000, 2, 256, False),
+    (1, 1000, 3000, 16, 192, False),
+    (1, 4096, 4096, 16, 192, True),
+    (1, 8192, 8192, 4, 256, True),   # the f32 head_dim-256 leg's shape
+    (1, 777, 777, 4, 160, True),
+    (1, 20, 300, 2, 256, True),      # causal, Tq < Tk (top-left aligned)
+    (1, 300, 70, 2, 256, True),      # causal, Tq > Tk
+    (1, 1, 129, 2, 256, False),
+]
+
+
+@pytest.mark.parametrize("case", TF32X3_FWD_CASES)
+def test_flash_tf32x3_matches_plain(dev, case):
+    """The tf32x3 forward (split-TF32 products for S and P·V) against the
+    plain version at the f32 forward gates, o and lse, one launch of it,
+    and two calls bit-identical."""
+    B, Tq, Tk, H, D, causal = case
+    q, k, v = _qkv(dev, B, Tq, Tk, H, D, torch.float32)
+    common.reset_counts()
+    o, lse = _flash_cuda(q, k, v, causal)
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention": 1,
+        "kernels.launch.flash_attention.tf32x3": 1}
+    ro, rlse = flash_attention_reference(q, k, v, causal, return_lse=True)
+    assert o.dtype == torch.float32 and lse.dtype == torch.float32
+    assert o.shape == q.shape and o.is_contiguous()
+    np.testing.assert_allclose(_np(o), _np(ro), **F32_FWD_TOL)
+    np.testing.assert_allclose(_np(lse), _np(rlse), **F32_LSE_TOL)
+    o2, lse2 = _flash_cuda(q, k, v, causal)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("D", [192, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tf32x3_kv_len_and_rows_without_keys(dev, D, causal):
+    """``kv_len`` masks keys at and past it, as attending over the first
+    kv_len keys; with kv_len 0 every row gets o = 0 and lse = -1e30."""
+    q, k, v = _qkv(dev, 1, 200, 300, 2, D, torch.float32, seed=4)
+    o, lse = _flash_tf32x3_cuda(q, k, v, causal, kv_len=0)
+    assert not o.any() and bool((lse == -1e30).all())
+    for kv_len in (150, 300 - 17):
+        o, lse = _flash_tf32x3_cuda(q, k, v, causal, kv_len=kv_len)
+        ro, rlse = flash_attention_reference(q, k[:, :kv_len],
+                                             v[:, :kv_len], causal,
+                                             return_lse=True)
+        np.testing.assert_allclose(_np(o), _np(ro), **F32_FWD_TOL)
+        np.testing.assert_allclose(_np(lse), _np(rlse), **F32_LSE_TOL)
+
+
+@pytest.mark.parametrize("D", [192, 256])
+def test_flash_tf32x3_reads_fused_qkv_views(dev, D):
+    """f32 q/k/v as [B, T, H, D] views of one [B, T, 3·H·D] product: no
+    copy, the same bits as contiguous copies."""
+    B, T, H = 2, 333, 3
+    g = torch.Generator(device=dev).manual_seed(3)
+    qkv = torch.randn(B, T, 3 * H * D, generator=g, device=dev)
+    q, k, v = (t.view(B, T, H, D) for t in qkv.split(H * D, -1))
+    assert not q.is_contiguous()
+    o, lse = _flash_tf32x3_cuda(q, k, v)
+    o2, lse2 = _flash_tf32x3_cuda(q.contiguous(), k.contiguous(),
+                                  v.contiguous())
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ro, rlse = flash_attention_reference(q, k, v, return_lse=True)
+    np.testing.assert_allclose(_np(o), _np(ro), **F32_FWD_TOL)
+    np.testing.assert_allclose(_np(lse), _np(rlse), **F32_LSE_TOL)
+
+
+def test_flash_tf32x3_refuses_misaligned_inputs(dev):
+    """The tf32x3 forward raises on inputs its 16-byte copies cannot read,
+    and on bf16 or another head_dim, before any launch; it never hands
+    them to the wide variant."""
+    B, T, H, D = 1, 64, 2, 256
+    flat = torch.randn(B * T * H * D + 1, device=dev)
+    q = flat[1:].view(B, T, H, D)                     # base 4 bytes off
+    k = torch.randn(B, T, H, D, device=dev)
+    common.reset_counts()
+    with pytest.raises(ValueError, match="tf32x3 variant.*16-byte"):
+        flash_attention(q, k, k)
+    wide = torch.randn(B, T, H * D + 2, device=dev)
+    k2 = wide[..., :H * D].view(B, T, H, D)           # T stride 514
+    with pytest.raises(ValueError, match="tf32x3 variant.*T stride 514"):
+        _flash_cuda(k, k, k2)
+    for t in (k.to(torch.bfloat16), k[..., :128].contiguous()):
+        with pytest.raises(ValueError, match="tf32x3 variant.*takes float32"):
+            _flash_tf32x3_cuda(t, t, t)
+    assert common.launch_counts() == {}
+
+
+def _dense64(q, k, v, causal):
+    """Dense attention in float64 (the exact reference): o and lse."""
+    qd, kd, vd = (t.double() for t in (q, k, v))
+    D, Tq, Tk = q.shape[-1], q.shape[1], k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) / D ** 0.5
+    if causal:
+        keep = (torch.arange(Tq, device=q.device)[:, None]
+                >= torch.arange(Tk, device=q.device)[None, :])
+        s = s.masked_fill(~keep, float("-inf"))
+    lse = torch.logsumexp(s, -1)
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.exp(s - lse[..., None]), vd)
+    return o, lse
+
+
+@pytest.mark.parametrize("D", [192, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tf32x3_fwd_bwd_against_float64_autograd(dev, D, causal):
+    """Forward and backward through ``flash_attention_lse`` (the tf32x3
+    forward, dQ and dK/dV, one launch each) against autograd through
+    dense attention in float64: o and lse at the f32 forward gates, each
+    gradient within 1e-4 of its largest entry."""
+    B, T, H = 1, 700, 2
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = (torch.randn(B, T, H, D, generator=g, device=dev,
+                           requires_grad=True) for _ in range(3))
+    do = torch.randn(B, T, H, D, generator=g, device=dev)
+    dlse = torch.randn(B, H, T, generator=g, device=dev)
+    common.reset_counts()
+    o, lse = flash_attention_lse(q, k, v, causal)
+    got = torch.autograd.grad((o, lse), (q, k, v), (do, dlse))
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention": 1,
+        "kernels.launch.flash_attention.tf32x3": 1,
+        "kernels.launch.flash_attention_dq": 1,
+        "kernels.launch.flash_attention_dq.tf32x3": 1,
+        "kernels.launch.flash_attention_dkv": 1,
+        "kernels.launch.flash_attention_dkv.tf32x3": 1}
+    leaves = tuple(t.detach().double().requires_grad_(True)
+                   for t in (q, k, v))
+    o64, lse64 = _dense64(*leaves, causal)
+    want = torch.autograd.grad((o64, lse64), leaves,
+                               (do.double(), dlse.double()))
+    np.testing.assert_allclose(_np(o.detach()), o64.detach().cpu().numpy(),
+                               **F32_FWD_TOL)
+    np.testing.assert_allclose(_np(lse.detach()),
+                               lse64.detach().cpu().numpy(), **F32_LSE_TOL)
+    for gt, wt, name in zip(got, want, ("dq", "dk", "dv")):
+        assert _rel_to_max(gt.double(), wt) <= 1e-4, name
+
+
+# ---------------------------------------------------------------------------
 # flash backward: the tensor-core tf32x3 variant, f32 at D 192 or 256
 # ---------------------------------------------------------------------------
 TF32X3_BWD_CASES = [
@@ -998,8 +1158,8 @@ def test_flash_bwd_tf32x3_refuses_misaligned_inputs(dev):
 
 
 def test_flash_autograd_f32_head_dim_256_launches_tf32x3(dev):
-    """Autograd of ``flash_attention`` at f32 head_dim 256: the forward on
-    wide, dQ and dK/dV on tf32x3, one each, and no wide backward."""
+    """Autograd of ``flash_attention`` at f32 head_dim 256: the forward,
+    dQ and dK/dV on tf32x3, one each, and no wide kernel."""
     B, T, H, D = 1, 130, 2, 256
     g = torch.Generator(device=dev).manual_seed(2)
     q, k, v = (torch.randn(B, T, H, D, generator=g, device=dev,
@@ -1009,7 +1169,7 @@ def test_flash_autograd_f32_head_dim_256_launches_tf32x3(dev):
     (o.square().sum() + lse.tanh().sum()).backward()
     assert common.launch_counts() == {
         "kernels.launch.flash_attention": 1,
-        "kernels.launch.flash_attention.wide": 1,
+        "kernels.launch.flash_attention.tf32x3": 1,
         "kernels.launch.flash_attention_dq": 1,
         "kernels.launch.flash_attention_dq.tf32x3": 1,
         "kernels.launch.flash_attention_dkv": 1,
@@ -1026,21 +1186,20 @@ def test_flash_autograd_f32_head_dim_256_launches_tf32x3(dev):
 def test_flash_padded_head_dims_match_plain(dev, D, dtype, causal):
     """Forward and backward at head_dim 48, 80 and 96 (padded to 64, 128
     and 128) and above 128 (160 padded to 192, 256, 320: the wide variant,
-    but in bf16 at 160 and 256, which take wgmma_wide, and the f32 backward
-    there, which takes tf32x3): no ValueError, the plain version's results,
-    ``scale`` from the real head_dim, and the padded variant's launches."""
+    but at 160 and 256, which take wgmma_wide in bf16 and tf32x3 in f32):
+    no ValueError, the plain version's results, ``scale`` from the real
+    head_dim, and the padded variant's launches."""
     B, Tq, Tk, H = 1, 150, 150, 2
     common.reset_counts()
     q, k, v, o, lse, do, dlse = _flash_bwd_inputs(dev, B, Tq, Tk, H, D,
                                                   causal, dtype)
-    if dtype == torch.bfloat16 and 128 < D <= 256:
-        variant = "wgmma_wide"
+    if 128 < D <= 256:
+        variant = "wgmma_wide" if dtype == torch.bfloat16 else "tf32x3"
     elif D > 128:
         variant = "wide"
     else:
         variant = "wgmma" if dtype == torch.bfloat16 else "simt"
-    bwd_variant = "tf32x3" if dtype == torch.float32 and 128 < D <= 256 \
-        else variant
+    bwd_variant = variant
     assert common.launch_counts() == {
         "kernels.launch.flash_attention": 1,
         "kernels.launch.flash_attention.%s" % variant: 1}

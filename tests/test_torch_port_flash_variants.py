@@ -29,61 +29,56 @@ BF16 = torch.bfloat16
     (BF16, 48, "wgmma"), (BF16, 80, "wgmma"), (BF16, 96, "wgmma"),
     (BF16, 33, "wgmma"), (BF16, 8, "simt"), (torch.float32, 48, "simt"),
     (torch.float32, 96, "simt"),
-    # above 128: bf16 up to 256 on the tensor cores, the rest wide; the f32
-    # backward up to 256 on the tensor cores too (forward / backward)
+    # above 128: bf16 and f32 up to 256 on the tensor cores, the rest wide
     (BF16, 129, "wgmma_wide"), (BF16, 256, "wgmma_wide"),
-    pytest.param(torch.float32, 160, ("wide", "tf32x3"),
-                 id="dtype17-160-wide-tf32x3"),
+    pytest.param(torch.float32, 160, "tf32x3", id="dtype17-160-tf32x3"),
     (torch.float32, 320, "wide")])
 def test_variant_by_dtype_and_head_dim(dtype, D, variant):
-    """One rule (:func:`_variant`) names the forward's and the backward's
-    variant: the same for both but for f32 at padded head_dim 192 and 256,
-    whose backward alone runs on the tensor cores (``tf32x3``)."""
-    fwd, bwd = variant if isinstance(variant, tuple) else (variant, variant)
-    assert fa._variant(dtype, D) == fwd
-    assert fa._variant(dtype, D, backward=True) == bwd
+    """One rule (:func:`_variant`) names the variant of the forward and
+    of the backward alike: f32 at padded head_dim 192 and 256 runs on the
+    tensor cores (``tf32x3``) both ways."""
+    assert fa._variant(dtype, D) == variant
 
 
 @pytest.mark.parametrize("dtype,D,variant", [
     (BF16, 129, "wgmma_wide"), (BF16, 160, "wgmma_wide"),
     (BF16, 192, "wgmma_wide"), (BF16, 193, "wgmma_wide"),
     (BF16, 256, "wgmma_wide"), (BF16, 257, "wide"), (BF16, 320, "wide"),
-    pytest.param(torch.float32, 192, ("wide", "tf32x3"),
-                 id="dtype7-192-wide-tf32x3"),
-    pytest.param(torch.float32, 256, ("wide", "tf32x3"),
-                 id="dtype8-256-wide-tf32x3"),
+    pytest.param(torch.float32, 192, "tf32x3", id="dtype7-192-tf32x3"),
+    pytest.param(torch.float32, 256, "tf32x3", id="dtype8-256-tf32x3"),
     (BF16, 128, "wgmma")])
 def test_backward_above_128_takes_wgmma_wide_for_bf16_up_to_256(dtype, D,
                                                                 variant):
     """Above head_dim 128 the forward and the backward take the tensor-core
     wgmma_wide kernels for bf16 at the padded widths 192 and 256, and wide
-    beyond them; f32 there takes wide forward and the tensor-core tf32x3
-    kernels backward (forward / backward)."""
-    fwd, bwd = variant if isinstance(variant, tuple) else (variant, variant)
-    assert fa._variant(dtype, D) == fwd
-    assert fa._variant(dtype, D, backward=True) == bwd
+    beyond them; f32 there takes the tensor-core tf32x3 kernels both
+    ways (one rule, :func:`_variant`, for both directions)."""
+    assert fa._variant(dtype, D) == variant
 
 
 @pytest.mark.parametrize("dtype,D,variant", [
     (BF16, 64, "wgmma"), (BF16, 128, "wgmma"), (BF16, 32, "simt"),
     (torch.float32, 128, "simt"), (BF16, 256, "wgmma_wide"),
-    (torch.float32, 192, "wide"), (BF16, 192, "wgmma_wide"),
-    (BF16, 320, "wide")])
+    (torch.float32, 192, "tf32x3"), (BF16, 192, "wgmma_wide"),
+    (BF16, 320, "wide"), (torch.float32, 160, "tf32x3"),
+    (torch.float32, 256, "tf32x3"), (torch.float32, 320, "wide")])
 def test_flash_cuda_dispatches_by_variant(monkeypatch, dtype, D, variant):
     """``_flash_cuda`` hands the inputs to the launcher its variant names,
-    with the caller's arguments."""
+    with the caller's arguments (160 padded to 192), and returns what it
+    gives back."""
     calls = []
 
     def launcher(name):
         def launch(q, k, v, causal, scale, kv_len):
             calls.append((name, causal, scale, kv_len))
-            return "out"
+            return q, "lse"
         return launch
 
-    for name in ("wgmma", "wgmma_wide", "simt", "wide"):
+    for name in ("wgmma", "wgmma_wide", "tf32x3", "simt", "wide"):
         monkeypatch.setattr(fa, "_flash_%s_cuda" % name, launcher(name))
     q = torch.zeros(1, 5, 2, D, dtype=dtype)
-    assert fa._flash_cuda(q, q, q, False, 0.5, 3) == "out"
+    o, lse = fa._flash_cuda(q, q, q, False, 0.5, 3)
+    assert lse == "lse" and torch.equal(o, q)
     assert calls == [(variant, False, 0.5, 3)]
 
 
@@ -182,14 +177,14 @@ def test_head_dim_zero_raises():
 @pytest.mark.parametrize("D,width", [(129, 192), (160, 192), (256, 256),
                                      (320, 320)])
 def test_head_dims_above_128_reach_wide(monkeypatch, dtype, D, width):
-    """Above 128 the forward, dQ and dK/dV go to the wide launchers or, for
-    bf16 up to 256, the wgmma_wide ones (and the f32 backward up to 256 to
-    the tf32x3 ones), at the width padded to a multiple of 64, with
-    ``scale`` 1/√D of the real D; the outputs come back at D."""
+    """Above 128 the forward, dQ and dK/dV go to the wide launchers or, up
+    to 256, the wgmma_wide ones for bf16 and the tf32x3 ones for f32, at
+    the width padded to a multiple of 64, with ``scale`` 1/√D of the real
+    D; the outputs come back at D."""
     fwd = []
-    variant = "wgmma_wide" if dtype == BF16 and D <= 256 else "wide"
-    bwd_variant = "tf32x3" if dtype == torch.float32 and D <= 256 \
-        else variant
+    variant = "wide"
+    if D <= 256:
+        variant = "wgmma_wide" if dtype == BF16 else "tf32x3"
 
     def launch(q, k, v, causal, scale, kv_len):
         fwd.append((q.shape[-1], k.shape[-1], v.shape[-1], scale))
@@ -199,7 +194,7 @@ def test_head_dims_above_128_reach_wide(monkeypatch, dtype, D, width):
     def refuse(*a):
         raise AssertionError("another variant ran")
 
-    for name in ("wgmma", "wgmma_wide", "simt", "wide"):
+    for name in ("wgmma", "wgmma_wide", "tf32x3", "simt", "wide"):
         monkeypatch.setattr(fa, "_flash_%s_cuda" % name,
                             launch if name == variant else refuse)
     bwd = []
@@ -210,8 +205,8 @@ def test_head_dims_above_128_reach_wide(monkeypatch, dtype, D, width):
     assert o.shape == q.shape and o.is_contiguous()
     grads = fa._flash_bwd_cuda(q, q, q, o, lse, q)
     assert [c[:5] for c in bwd] == [
-        ("dq_" + bwd_variant, width, width, True, 1.0 / D ** 0.5),
-        ("dkv_" + bwd_variant, width, width, True, 1.0 / D ** 0.5)]
+        ("dq_" + variant, width, width, True, 1.0 / D ** 0.5),
+        ("dkv_" + variant, width, width, True, 1.0 / D ** 0.5)]
     assert all(g.shape == q.shape and g.is_contiguous() for g in grads)
 
 
@@ -513,6 +508,42 @@ def test_tf32x3_launchers_refuse_before_any_build(monkeypatch, which, case):
     lse = torch.zeros(1, 2, 8)
     with pytest.raises(ValueError, match=match):
         launch(*args, lse, lse)
+    assert common.launch_counts() == {}
+
+
+@pytest.mark.parametrize("case", [
+    "bf16", "f32_128", "f32_320", "q", "k", "v", "k_stride"])
+def test_tf32x3_forward_launcher_refuses_before_any_build(monkeypatch,
+                                                          case):
+    """The tf32x3 forward launcher takes f32 at head_dim 192 or 256 only,
+    read through 16-byte copies (a base 16-byte aligned, strides multiples
+    of 4 elements), and raises on anything else before it builds or counts
+    anything; never a hand-off to the wide kernel."""
+    from mxnet_tpu_torch.ops.kernels import _build, common
+
+    def no_build(*a, **k):
+        raise AssertionError("built a kernel")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    common.reset_counts()
+    shape = (1, 8, 2, 256)
+    args = [torch.zeros(shape) for _ in range(3)]
+    if case in ("bf16", "f32_128", "f32_320"):
+        dtype, D = {"bf16": (BF16, 256), "f32_128": (torch.float32, 128),
+                    "f32_320": (torch.float32, 320)}[case]
+        args = [torch.zeros(1, 8, 2, D, dtype=dtype)] * 3
+        match = ("tf32x3 variant.*takes float32 with head_dim in "
+                 "\\(192, 256\\); got %s, head_dim %d" % (dtype, D))
+    elif case == "k_stride":
+        wide = torch.zeros(1, 8, 2 * 256 + 2)     # T stride 514: 2 mod 4
+        args[1] = wide[..., :2 * 256].view(shape)
+        match = "tf32x3 variant.*k's T stride 514 is not a multiple of 4"
+    else:
+        i = ("q", "k", "v").index(case)
+        args[i] = _misaligned(shape, torch.float32)
+        match = "tf32x3 variant.*%s's base address is not 16-byte" % case
+    with pytest.raises(ValueError, match=match):
+        fa._flash_tf32x3_cuda(*args)
     assert common.launch_counts() == {}
 
 

@@ -323,9 +323,9 @@ def _plain_launchers(monkeypatch):
             return bwd(*a)[0]
         return dq
 
-    # bf16 at head_dim 129-256 runs forward and backward on wgmma_wide, f32
-    # there the backward on tf32x3
-    for name in ("wgmma", "simt", "wide", "wgmma_wide"):
+    # head_dim 129-256 runs forward and backward on wgmma_wide in bf16, on
+    # tf32x3 in f32
+    for name in ("wgmma", "simt", "wide", "wgmma_wide", "tf32x3"):
         monkeypatch.setattr(fa, "_flash_%s_cuda" % name, fwd)
     for name in ("wgmma", "simt", "wide", "wgmma_wide", "tf32x3"):
         monkeypatch.setattr(fa, "_flash_dq_%s_cuda" % name, dq_launcher(name))
@@ -374,7 +374,7 @@ def test_padded_head_dims_match_pallas_kernels(monkeypatch, D, width, dtype):
             assert g.shape == (B, T, H, D) and g.dtype == tq.dtype
             np.testing.assert_allclose(_f32(g), _f32(w), err_msg="d" + name,
                                        **gtol)
-    assert set(bwd_variants) == {fa._variant(tq.dtype, D, backward=True)}
+    assert set(bwd_variants) == {fa._variant(tq.dtype, D)}
     if D > 128:
         assert bwd_variants[0] == ("wgmma_wide" if dtype == "bfloat16"
                                    else "tf32x3")

@@ -1,20 +1,26 @@
-"""The arithmetic of the tf32x3 flash backward, emulated on the CPU.
+"""The arithmetic of the tf32x3 flash kernels, emulated on the CPU.
 
-The f32 flash backward at padded head_dim 192 and 256 runs on the tensor
-cores as split-TF32 products (``csrc/flash_attention_bwd_tf32x3.cu``): each
+The f32 flash forward and backward at padded head_dim 192 and 256 run on
+the tensor cores as split-TF32 products (``csrc/flash_attention_tf32x3.cu``,
+``csrc/flash_attention_bwd_tf32x3.cu``): each
 f32 operand x becomes ``hi`` (x with its 13 low significand bits cleared,
 a TF32 value) and ``lo = x - hi`` (exact in f32), which the tensor cores
 read at 11 significant bits (they skip a TF32 operand's 13 low bits), and
 each product ``a·b`` is issued as the three TF32 products ``lo_a·hi_b +
 hi_a·lo_b + hi_a·hi_b`` with f32 accumulation.  The kernel cannot run
 here, so this file repeats that arithmetic in plain torch (TF32 values and
-their products are exact in f32) through the
-whole backward at a small shape and head_dim 256, and holds it to float64
-and to the JAX package's Pallas backward (through the interpreter) within
-the card tests' f32 gradient tolerance, 1e-4.  One TF32 product alone
-(``tf32(a)·tf32(b)``) lands far further from float64: the split is what
-keeps the gradients f32-accurate.  The helper is a test of the design, not
-a plain version: on a CPU tensor the port runs
+their products are exact in f32) through the whole forward and the whole
+backward at small shapes and head_dim 256, and holds it to float64 and to
+the JAX package's Pallas kernels (through the interpreter) within the card
+tests' f32 tolerances: o within 1e-5 + 1e-4·|o| and lse within 1e-4 +
+1e-5·|lse| forward, 1e-4 for the gradients.  The forward as the kernel
+runs it: q split once, k, v and p split as they are read, key tiles of
+64, the scores summed over each half of D and the halves added in f32,
+each tile's p·v summed from zero and added as ``acc·alpha + pv``.  One
+TF32 product alone (``tf32(a)·tf32(b)``) lands far further from float64
+and misses those tolerances: the split is what keeps the results
+f32-accurate.  The helpers are a test of the design, not a plain version:
+on a CPU tensor the port runs ``flash_attention_reference`` and
 ``flash_attention_bwd_reference``.
 """
 import importlib
@@ -27,10 +33,15 @@ import jax
 import jax.numpy as jnp
 
 from mxnet_tpu.ops.pallas import flash_attention_lse as jax_flash_lse
+from mxnet_tpu.ops.pallas.flash_attention import _fwd as jax_pallas_fwd
 
 fa = importlib.import_module("mxnet_tpu_torch.ops.kernels.flash_attention")
 
 F32_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+F32_FWD_TOL = dict(rtol=1e-4, atol=1e-5)
+F32_LSE_TOL = dict(rtol=1e-5, atol=1e-4)
+NEG = -1e30                 # the kernels' mask filler
+TILE = 64                   # keys a tile of the tf32x3 forward
 
 
 def _tf32(x):
@@ -146,3 +157,118 @@ def test_tf32x3_backward_matches_float64_and_pallas(causal):
         err3 = float((g.double() - x).abs().max())
         err1 = float((g1.double() - x).abs().max())
         assert err1 > 10 * err3, (name, err1, err3)
+
+
+def _mm3_presplit(a_split, b):
+    """``a @ b`` with ``a`` split once beforehand (the forward's resident
+    q), ``a_split`` = ``(hi, lo, tf32(a))``: three TF32 products summed in
+    f32."""
+    ah, al, _ = a_split
+    bh, bl = _split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _mm1_presplit(a_split, b):
+    """One TF32 product, for the ``a_split`` form: ``tf32(a)·tf32(b)``."""
+    return a_split[2] @ _tf32(b)
+
+
+def _fwd(q, k, v, causal, kv_len, three=True):
+    """The tf32x3 forward's arithmetic ([B, T, H, D] in, ``(o, lse)`` out):
+    q split once; per key tile of 64 the scores of each half of D (split
+    products from zero) added in f32, masked with -1e30 where k_pos >=
+    kv_len or (causal and q_pos < k_pos), the online softmax in f32, and
+    ``acc = acc·alpha + p·v`` with p·v summed from zero.  ``three=False``:
+    every product one TF32 product instead."""
+    mm = _mm3_presplit if three else _mm1_presplit
+    D, Tq, Tk = q.shape[-1], q.shape[1], k.shape[1]
+    scale = 1.0 / D ** 0.5
+    qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+    halves = []
+    for c in (slice(0, D // 2), slice(D // 2, D)):
+        qc = qh[..., c].contiguous()
+        halves.append(_split(qc) + (_tf32(qc),))
+    B, H = qh.shape[:2]
+    m = torch.full((B, H, Tq, 1), NEG)
+    l = torch.zeros(B, H, Tq, 1)
+    acc = torch.zeros(B, H, Tq, D)
+    q_pos = torch.arange(Tq)[:, None]
+    for k0 in range(0, kv_len, TILE):
+        kt, vt = kh[:, :, k0:k0 + TILE], vh[:, :, k0:k0 + TILE]
+        s = sum(mm(halves[i], kt[..., c].transpose(-1, -2))
+                for i, c in enumerate((slice(0, D // 2),
+                                       slice(D // 2, D))))
+        k_pos = k0 + torch.arange(kt.shape[2])[None, :]
+        ok = k_pos < kv_len
+        if causal:
+            ok = ok & (q_pos >= k_pos)
+        s = torch.where(ok, s * scale, torch.full_like(s, NEG))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        pv = mm(_split(p) + (_tf32(p),), vt)
+        acc = acc * alpha + pv
+        m = m_new
+    safe = torch.where(l == 0, torch.ones_like(l), l)
+    return ((acc / safe).permute(0, 2, 1, 3),
+            (m + torch.log(safe))[..., 0])
+
+
+def _fwd64(q, k, v, causal, kv_len):
+    """Dense attention in float64 over the first kv_len keys."""
+    qd, kd, vd = (t.double() for t in (q, k[:, :kv_len], v[:, :kv_len]))
+    D, Tq = q.shape[-1], q.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", qd, kd) / D ** 0.5
+    if causal:
+        keep = torch.arange(Tq)[:, None] >= torch.arange(kv_len)[None, :]
+        s = s.masked_fill(~keep, float("-inf"))
+    lse = torch.logsumexp(s, -1)
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.exp(s - lse[..., None]), vd)
+    return o, lse
+
+
+def _pallas(q, k, v, causal, kv_len):
+    """The JAX package's Pallas forward (``_fwd``, through the interpreter)
+    with its ``kv_len``, on inputs padded to its blocks of 32 rows."""
+    D, Tq, Tk = q.shape[-1], q.shape[1], k.shape[1]
+
+    def padded(x, T):
+        x = jnp.asarray(x).transpose(0, 2, 1, 3)
+        return jnp.pad(x, ((0, 0), (0, 0), (0, -T % 32), (0, 0)))
+
+    o, lse = jax_pallas_fwd(padded(q, Tq), padded(k, Tk), padded(v, Tk),
+                            causal, 1.0 / D ** 0.5, 32, 32, kv_len, True)
+    return (np.asarray(o)[:, :, :Tq].transpose(0, 2, 1, 3),
+            np.asarray(lse)[:, :, :Tq, 0])
+
+
+@pytest.mark.parametrize("causal,Tq,Tk,kv_len", [
+    (True, 100, 100, 100),          # two key tiles, the second ragged
+    (False, 40, 150, 150),          # Tq != Tk
+    (True, 150, 90, 70),            # kv_len < Tk, Tq > Tk
+    (False, 60, 130, 100),          # kv_len < Tk
+])
+def test_tf32x3_forward_matches_float64_and_pallas(causal, Tq, Tk, kv_len):
+    """o and lse through the forward's split-TF32 arithmetic at head_dim
+    256 against float64 and against the Pallas forward, within the f32
+    forward gates; the same forward with one TF32 product a product misses
+    the gate on o and stays over ten times further from float64."""
+    B, H, D = 1, 2, 256
+    rng = np.random.default_rng(11)
+    q, k, v = (rng.normal(size=(B, T, H, D)).astype(np.float32)
+               for T in (Tq, Tk, Tk))
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    o, lse = _fwd(tq, tk, tv, causal, kv_len)
+    o1, lse1 = _fwd(tq, tk, tv, causal, kv_len, three=False)
+    o64, lse64 = _fwd64(tq, tk, tv, causal, kv_len)
+    po, plse = _pallas(q, k, v, causal, kv_len)
+    assert o.dtype == lse.dtype == torch.float32
+    assert o.shape == (B, Tq, H, D) and lse.shape == (B, H, Tq)
+    for want_o, want_lse in ((o64.numpy(), lse64.numpy()), (po, plse)):
+        np.testing.assert_allclose(o.numpy(), want_o, **F32_FWD_TOL)
+        np.testing.assert_allclose(lse.numpy(), want_lse, **F32_LSE_TOL)
+    assert not np.allclose(o1.numpy(), o64.numpy(), **F32_FWD_TOL)
+    err3 = float((o.double() - o64).abs().max())
+    err1 = float((o1.double() - o64).abs().max())
+    assert err1 > 10 * err3, (err1, err3)

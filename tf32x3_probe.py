@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
-"""Where the tf32x3 flash backward's time goes, on one NVIDIA card.
+"""Where the tf32x3 flash kernels' time goes, on one NVIDIA card.
 
-Two measurements that the design of the tf32x3 kernels
-(``mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd_tf32x3.cu``)
-rests on:
+The measurements that the design of the tf32x3 kernels
+(``mxnet_tpu_torch/ops/kernels/csrc/flash_attention_tf32x3.cu``, the
+forward; ``flash_attention_bwd_tf32x3.cu``, dQ and dK/dV) rests on:
 
 * the rate ``mma.sync`` reaches: m16n8k8 TF32 and m16n8k16 bf16 products
   with f32 accumulation, operands in registers, eight independent
   accumulators a warp, one CTA of 8 or 16 warps an SM; and the TF32 rate
   with the kernels' operand split (``split_tf32``: two ops a value) of 16
   values beside every 24 products, the ratio of the kernels' score loop;
-* each phase's share of the dQ and the dK/dV kernel at [1, 4096, 16, 256]
-  causal f32: a copy of the source in which thread 0 of every CTA reads
-  ``clock64`` at each phase boundary of every streamed tile and adds the
-  cycles to a per-phase sum (its barrier waits included: the phases of
-  warp 0, which computes p), beside the launch's device time.  The copy is
-  built in a temporary directory; the port's own build is untouched.
+* each phase's share of the forward, the dQ and the dK/dV kernel at [1,
+  4096, 16, 256] causal f32: a copy of each source in which thread 0 of
+  every CTA reads ``clock64`` at each phase boundary of every streamed
+  tile and adds the cycles to a per-phase sum (its barrier waits
+  included: the phases of warp 0, which computes p), beside the launch's
+  device time;
+
+and one design choice of the forward, timed in turns at [1, 4096, 16,
+256] and [1, 8192, 4, 256] causal f32 with the errors of both against the
+plain version: the value tile's and the next key tile's copies issued a
+few pieces at each step of the first half of a product loop (the built
+kernel, ``copy_step``), against each tile's copies issued at once before
+the loop (``copy_rows``, as the backward issues them).  The copies are
+built in a temporary directory; the port's own build is untouched.
 
 It prints one JSON line per measurement, then the card's name and power
 limit.  Run from the root of a checkout, with one card::
@@ -25,6 +33,7 @@ limit.  Run from the root of a checkout, with one card::
 It exits non-zero without a CUDA device.
 """
 import ctypes
+import functools
 import importlib
 import json
 import os
@@ -107,8 +116,21 @@ extern "C" float mma_rate_ms(int kind, int warps, int ctas, int iters) {
 '''
 
 # (line of the kernel's tile loop, label of the phase that ends after it);
-# the first entry's tick, before the line, ends the previous tile's copy
-# issue
+# the first entry's tick, before the line, ends the previous tile's last
+# phase (the forward's output product; the backward's copy issue)
+FWD_PHASES = [
+    ("    cp_async_wait<0>();\n    __syncthreads();          // the key tile "
+     "is in", "p.v with the next key tile's copy issue, acc * alpha (the "
+     "tile before)"),
+    ("                              // product no longer reads V, X or "
+     "alpha\n", "wait for the key tile (barrier)"),
+    ("    cp_async_commit();        // the value tile\n",
+     "scores (64 keys, half of D) with the value tile's copy issue"),
+    ("    __syncthreads();          // partials are in; K is no longer "
+     "read\n", "trade halves (barrier)"),
+    ("    __syncthreads();          // p, alpha and the value tile are in\n",
+     "softmax, wait for the value tile (barrier)"),
+]
 DQ_PHASES = [
     ("    half_ready(wp);\n", "copy issue (the tile before)"),
     ("    half_ready(wp);\n", "wait for the streamed tile"),
@@ -146,10 +168,11 @@ def _tick(base, i):
             "\n" % (base + i))
 
 
-def _instrument(src, kernel, end_marker, phases, base):
-    """``src`` with ticks at ``phases`` inside ``kernel``'s tile loop,
-    summing into ``g_prof[base + i]``, and ``g_prof[base + 15]`` counting
-    tiles."""
+def _instrument(src, kernel, end_marker, phases, base,
+                loop_marker="\n  for (int "):
+    """``src`` with ticks at ``phases`` inside ``kernel``'s tile loop (the
+    first line at ``loop_marker``), summing into ``g_prof[base + i]``, and
+    ``g_prof[base + 15]`` counting tiles."""
     k0 = src.index(kernel + "(")
     k1 = src.index(end_marker, k0)
     body = src[k0:k1]
@@ -162,34 +185,115 @@ def _instrument(src, kernel, end_marker, phases, base):
         at = body.index(line, pos) + len(line)
         body = body[:at] + _tick(base, i) + body[at:]
         pos = at
-    loop = body.index("\n  for (int ") + 1
+    loop = body.index(loop_marker) + 1
     body = body[:loop] + "  unsigned long long _t = 0;\n" + body[loop:]
     return src[:k0] + body + src[k1:]
 
 
-def _profiled_library(fa, build, tmp):
+def _edited_library(fa, build, tmp, name, edit, configure, tag):
+    """The source ``name`` as ``edit(src)`` returns it, built into ``tmp``
+    (``tag`` names the copy) and loaded."""
     csrc = os.path.join(os.path.dirname(fa.__file__), "csrc")
-    src = open(os.path.join(csrc, "flash_attention_bwd_tf32x3.cu")).read()
-    src = src.replace("namespace {\n", "namespace {\n__device__ unsigned "
-                      "long long g_prof[32];\n", 1)
-    src = _instrument(src, "flash_dq_tf32x3_kernel",
-                      "// st: q (0-2), k (3-5), v (6-8), dO (9-11), dK",
-                      DQ_PHASES, 0)
-    src = _instrument(src, "flash_dkv_tf32x3_kernel", "Strides copy_strides",
-                      DKV_PHASES, 16)
-    src += ('extern "C" int prof_io(unsigned long long* h, int zero) {\n'
-            '  return (int)(zero ? cudaMemcpyToSymbol(g_prof, h, 256)\n'
-            '                    : cudaMemcpyFromSymbol(h, g_prof, 256));\n'
-            '}\n')
-    path = os.path.join(tmp, "prof.cu")
+    src = edit(open(os.path.join(csrc, name + ".cu")).read())
+    path = os.path.join(tmp, "%s_%s.cu" % (name, tag))
     open(path, "w").write(src)
-    so = os.path.join(tmp, "prof.so")
+    so = path[:-3] + ".so"
     subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I", csrc, "-o", so,
                     path], check=True, capture_output=True)
     lib = ctypes.CDLL(so)
-    fa._configure_bwd_tc("mxt_flash_bwd_tf32x3", lib)
+    configure(lib)
+    return lib
+
+
+def _profiled_library(fa, build, tmp, name, instrument, configure):
+    """The source ``name`` with ``instrument(src)``'s ticks and a
+    ``prof_io`` entry point, built into ``tmp`` and loaded."""
+    def edit(src):
+        src = src.replace("namespace {\n", "namespace {\n__device__ "
+                          "unsigned long long g_prof[32];\n", 1)
+        return instrument(src) + (
+            'extern "C" int prof_io(unsigned long long* h, int zero) {\n'
+            '  return (int)(zero ? cudaMemcpyToSymbol(g_prof, h, 256)\n'
+            '                    : cudaMemcpyFromSymbol(h, g_prof, 256));\n'
+            '}\n')
+
+    lib = _edited_library(fa, build, tmp, name, edit, configure, "prof")
     lib.prof_io.argtypes = [ctypes.c_void_p, ctypes.c_int]
     return lib
+
+
+# the built forward's copy issue, spread over its product loops, and the
+# edits that issue each tile's copies at once before the loop instead
+COPY_AT_ONCE = [
+    ("    copy_step<D, D / 32>(vc, d / 8);\n", ""),
+    ("    if (copy) copy_step<D, BS / 16>(kc, kk / 8);\n", ""),
+    ("    score_half<D>(Qw, Kw,",
+     "    copy_rows<D>(Vs, vb, st.s[7], k0, BS, Tk, threadIdx.x, NT);\n"
+     "    score_half<D>(Qw, Kw,"),
+    ("    out_product<D>(X, Vs + c0,",
+     "    if (more)\n      copy_rows<D>(Ks, kb, st.s[4], k0 + BS, BS, Tk, "
+     "threadIdx.x, NT);\n    out_product<D>(X, Vs + c0,"),
+]
+
+
+def _copies_at_once(src):
+    for old, new in COPY_AT_ONCE:
+        if src.count(old) != 1:
+            raise SystemExit("tf32x3_probe: the forward's source no longer "
+                             "holds %r once" % old)
+        src = src.replace(old, new)
+    return src
+
+
+def _copy_issue_choice(torch, fa, build, tmp):
+    """The forward as built (copies spread over the product loops) and with
+    each tile's copies issued at once, in turns: built, at once, at once,
+    built; each time the mean of 5 launches between CUDA events after one
+    warm launch; and each one's largest error against the plain version."""
+    name = "flash_attention_tf32x3"
+    configure = functools.partial(fa._configure_fwd_tc, "mxt_flash_tf32x3")
+    libs = {"copies spread over the product loops": build.load(
+                name, configure),
+            "copies at once before the loops": _edited_library(
+                fa, build, tmp, name, _copies_at_once, configure, "atonce")}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for B, T, H, D in ((1, 4096, 16, 256), (1, 8192, 4, 256)):
+        q, k, v = (torch.randn(B, T, H, D, generator=gen, device="cuda")
+                   for _ in range(3))
+        ro, rlse = fa.flash_attention_reference(q, k, v, True,
+                                                return_lse=True)
+        rec = {"forward": [B, T, H, D], "causal": True, "dtype": "float32"}
+        order = list(libs) + list(libs)[::-1]
+        for choice in order:
+            build._LIBS[name] = libs[choice]
+            o, lse = fa._flash_tf32x3_cuda(q, k, v, True)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(5):
+                fa._flash_tf32x3_cuda(q, k, v, True)
+            b.record()
+            b.synchronize()
+            rec.setdefault(choice, {"ms_turns": []})["ms_turns"].append(
+                a.elapsed_time(b) / 5)
+            rec[choice]["o_max_abs_err"] = float((o - ro).abs().max())
+            rec[choice]["lse_max_abs_err"] = float((lse - rlse).abs().max())
+        build._LIBS[name] = libs[order[0]]
+        print(json.dumps(rec), flush=True)
+
+
+def _bwd_instrumented(src):
+    src = _instrument(src, "flash_dq_tf32x3_kernel",
+                      "// st: q (0-2), k (3-5), v (6-8), dO (9-11), dK",
+                      DQ_PHASES, 0)
+    return _instrument(src, "flash_dkv_tf32x3_kernel", "Strides copy_strides",
+                       DKV_PHASES, 16)
+
+
+def _fwd_instrumented(src):
+    return _instrument(src, "flash_fwd_tf32x3_kernel", "template <int D>\n"
+                       "int launch(", FWD_PHASES, 0,
+                       loop_marker="\n  for (int k0 = 0;")
 
 
 def main():
@@ -210,7 +314,7 @@ def main():
 
 
 def _run(torch, fa, build, tmp):
-    """The two measurements, with the libraries built into ``tmp``."""
+    """The measurements, with the libraries built into ``tmp``."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     path = os.path.join(tmp, "mma.cu")
     open(path, "w").write(MMA_SRC)
@@ -232,26 +336,37 @@ def _run(torch, fa, build, tmp):
                               "ms": ms, "tflops": total / ms / 1e9}),
                   flush=True)
 
-    lib = _profiled_library(fa, build, tmp)
-    build._LIBS["flash_attention_bwd_tf32x3"] = lib
+    _copy_issue_choice(torch, fa, build, tmp)
     gen = torch.Generator(device="cuda").manual_seed(0)
     B, T, H, D = 1, 4096, 16, 256
     q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device="cuda")
                    for _ in range(4))
     o, lse = fa._flash_cuda(q, k, v, True)
     delta = fa._delta(o, do, None)
+    fwd_lib = _profiled_library(
+        fa, build, tmp, "flash_attention_tf32x3", _fwd_instrumented,
+        functools.partial(fa._configure_fwd_tc, "mxt_flash_tf32x3"))
+    bwd_lib = _profiled_library(
+        fa, build, tmp, "flash_attention_bwd_tf32x3", _bwd_instrumented,
+        functools.partial(fa._configure_bwd_tc, "mxt_flash_bwd_tf32x3"))
+    build._LIBS["flash_attention_tf32x3"] = fwd_lib
+    build._LIBS["flash_attention_bwd_tf32x3"] = bwd_lib
     buf = (ctypes.c_ulonglong * 32)()
-    for name, fn, phases, base in (
-            ("dq", fa._flash_dq_tf32x3_cuda, DQ_PHASES, 0),
-            ("dkv", fa._flash_dkv_tf32x3_cuda, DKV_PHASES, 16)):
-        fn(q, k, v, do, lse, delta, True, D ** -0.5)
+    for name, lib, fn, phases, base in (
+            ("fwd", fwd_lib, lambda: fa._flash_tf32x3_cuda(q, k, v, True),
+             FWD_PHASES, 0),
+            ("dq", bwd_lib, lambda: fa._flash_dq_tf32x3_cuda(
+                q, k, v, do, lse, delta, True, D ** -0.5), DQ_PHASES, 0),
+            ("dkv", bwd_lib, lambda: fa._flash_dkv_tf32x3_cuda(
+                q, k, v, do, lse, delta, True, D ** -0.5), DKV_PHASES, 16)):
+        fn()
         torch.cuda.synchronize()
         lib.prof_io(ctypes.cast((ctypes.c_ulonglong * 32)(), ctypes.c_void_p),
                     1)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn(q, k, v, do, lse, delta, True, D ** -0.5)
+        fn()
         b.record()
         b.synchronize()
         lib.prof_io(ctypes.cast(buf, ctypes.c_void_p), 0)
