@@ -21,7 +21,9 @@ on the card:
   (Gemma-style head_dim), whose flash forward, dQ and dK/dV run the
   tensor-core wgmma_wide kernels, and on that configuration in f32, whose
   flash forward, dQ and dK/dV run the tensor-core tf32x3 kernels
-  (split-TF32 products);
+  (split-TF32 products), and with 2 heads of 512 at batch 2 x 8192,
+  whose flash dQ and dK/dV run the tensor-core wgmma_xwide kernels (its
+  forward the CUDA-core wide kernel);
 * INT8 inference — the symbolic ResNet-50 (``models/resnet_symbol.py``,
   1000 classes, 3x224x224) is calibrated, quantized, BN-folded and
   int8-fused by ``contrib.quantization.quantize_model``, bound, and run at
@@ -69,8 +71,9 @@ Phases, in order; any failure raises and exits non-zero:
    kernels/csrc`` (in parallel), with the ptxas register/spill report and
    one line per instantiation of the tensor-core flash kernels (forward,
    dQ and dK/dV at head_dim 64 and 128; wgmma_wide at 192 and 256; the
-   f32 tf32x3 forward, dQ and dK/dV at 192 and 256), of the wide flash
-   kernels,
+   f32 tf32x3 forward, dQ and dK/dV at 192 and 256; the wgmma_xwide dQ
+   and dK/dV at 320, 384, 448 and 512, all eight of them), of the wide
+   flash kernels,
    of
    the int8 matmul and of the RMSNorm variants; none but the int8 ``mma``
    kernel may spill;
@@ -102,7 +105,13 @@ Phases, in order; any failure raises and exits non-zero:
    forward also in turns at the f32 leg's [1, 8192, 4, 256]; both also
    at [1, 8192, 4, 256], [1, 4096, 16, 192], Tq 1000 x Tk 3000 not
    causal, and head_dim 160, the backward with an lse cotangent), and f32
-   and bf16 at 320 the wide variant.  The int8
+   at 320 the wide variant; the bf16 backward above 256 runs the
+   tensor-core wgmma_xwide dQ and dK/dV, held against the plain backward
+   and dense autograd (within 6.5e-3 of each gradient's largest entry)
+   beside their wide twins and timed in turns with them at [1, 4096, 16,
+   512] and [1, 4096, 16, 384] causal, at the head_dim-512 leg's [2,
+   8192, 2, 512] and at [2, 1000, 4, 320] not causal, whose bf16 forward
+   is wide.  The int8
    matmul's planned variant and, where that is wgmma, its mma variant are
    held bit for bit to the plain version and timed in turns beside
    ``torch._int_mm``;
@@ -399,6 +408,10 @@ LONGCTX_HD256 = dict(LONGCTX, n_heads=4)
 # the same in f32 (TF32 off, torch's default for matmuls): its flash
 # forward and backward on the tensor-core tf32x3 kernels
 LONGCTX_HD256_F32 = dict(LONGCTX_HD256, dtype="float32")
+# 2 heads of 512 at batch 2 (at batch 1 the dense scores, 537 MB, would
+# stay under the flash gate): the flash backward on the tensor-core
+# wgmma_xwide kernels, the forward on wide
+LONGCTX_HD512 = dict(LONGCTX, n_heads=2)
 TRAIN_CELLS = (
     ("flagship_b8_t1024", dict(FLAGSHIP, max_len=1024, remat=False), 8,
      1024),
@@ -408,15 +421,17 @@ TRAIN_CELLS = (
     # wgmma_wide kernels
     ("longctx_hd256_b1_t8192", LONGCTX_HD256, 1, 8192),
     ("longctx_hd256_f32_b1_t8192", LONGCTX_HD256_F32, 1, 8192),
+    ("longctx_hd512_b2_t8192", LONGCTX_HD512, 2, 8192),
 )
 TRAIN_STEPS = 3
 # kernel launches per training step, from the code: RMSNorm twice per block
 # and once before the logits, and with remat once more per block for the
-# recomputed forward, every one through the warp variant (8192 rows); flash
-# forward per block (twice with remat), every
-# one through the tensor-core variant (bf16: wgmma at head_dim 64,
-# wgmma_wide at 256; f32 at 256: tf32x3); dQ and dK/dV once per block,
-# through the same variant; the softmax cross-entropy once each way
+# recomputed forward, every one through the warp variant (8192 rows, 16384
+# at batch 2); flash forward per block (twice with remat), every one through
+# the tensor-core variant (bf16: wgmma at head_dim 64, wgmma_wide at 256;
+# f32 at 256: tf32x3) but at head_dim 512 (wide); dQ and dK/dV once per
+# block, through the same variant (at 512: wgmma_xwide); the softmax
+# cross-entropy once each way
 EXPECTED_LAUNCHES = {
     "flagship_b8_t1024": {"fused_rmsnorm": 9, "fused_rmsnorm.warp": 9,
                           "fused_softmax_xent": 1,
@@ -448,6 +463,15 @@ EXPECTED_LAUNCHES = {
                                    "flash_attention_dkv.tf32x3": 4,
                                    "fused_softmax_xent": 1,
                                    "fused_softmax_xent_bwd": 1},
+    "longctx_hd512_b2_t8192": {"fused_rmsnorm": 17, "fused_rmsnorm.warp": 17,
+                               "flash_attention": 8,
+                               "flash_attention.wide": 8,
+                               "flash_attention_dq": 4,
+                               "flash_attention_dkv": 4,
+                               "flash_attention_dq.wgmma_xwide": 4,
+                               "flash_attention_dkv.wgmma_xwide": 4,
+                               "fused_softmax_xent": 1,
+                               "fused_softmax_xent_bwd": 1},
 }
 # the device mesh (mxnet_tpu_torch/parallel over torch.distributed).
 # mesh_nccl: one rank over NCCL (a real communicator: every collective of
@@ -512,6 +536,11 @@ RING_REL = 2.0 ** -6
 # gradient error 8.0e-3 (embed)
 STEP_LOSS_ATOL = 1e-3
 STEP_GRAD_REL_L2 = 2e-2
+# the wgmma_xwide backward against autograd through the dense forward:
+# within 6.5e-3 of each gradient's largest entry (the other bf16 variants:
+# 2^-6); the dense formula takes delta from the unrounded O, the kernels
+# from the bf16 O, as the TPU's do
+XWIDE_AUTOGRAD_REL = 6.5e-3
 
 # the INT8 phase: resnet.py's ImageNet ResNet-50 (train_imagenet.py's
 # default network) and bench.py's int8 leg (int8_bench: batch 128, 224^2,
@@ -900,14 +929,19 @@ def phase_build():
     # variants, none of which may spill but the int8 mma kernel
     for src in ("flash_attention_wgmma", "flash_attention_wgmma_wide",
                 "flash_attention_bwd_wgmma", "flash_attention_bwd_wgmma_wide",
+                "flash_attention_bwd_wgmma_xwide",
                 "flash_attention_tf32x3", "flash_attention_bwd_tf32x3",
                 "flash_attention_wide",
                 "int8_matmul", "rmsnorm"):
-        for kernel, line in _ptxas_summary(built[src]["log"]):
+        summary = _ptxas_summary(built[src]["log"])
+        for kernel, line in summary:
             print("build %s %s" % (src, line), flush=True)
             if kernel != "int8_mm_kernel":
                 _check(" 0 bytes spill stores" in line,
                        "%s spills: %s" % (src, line))
+        if src == "flash_attention_bwd_wgmma_xwide":   # dQ, dK/dV x 4 widths
+            _check(len(summary) == 8, "%s: %d instantiations in the ptxas "
+                   "report, expected 8" % (src, len(summary)))
     return wall
 
 
@@ -1107,7 +1141,8 @@ def _rmsnorm_bwd_plain_case(shape, gen):
 
 # the CUDA-core variant each tensor-core variant of the forward and of the
 # backward is timed against in turns (``variants=True``)
-CUDA_CORE_TWIN = {"wgmma": "simt", "wgmma_wide": "wide", "tf32x3": "wide"}
+CUDA_CORE_TWIN = {"wgmma": "simt", "wgmma_wide": "wide", "tf32x3": "wide",
+                  "wgmma_xwide": "wide"}
 
 
 def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
@@ -1292,8 +1327,9 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     the backward against the plain backward and autograd through the dense
     forward, and two calls bit for bit (no atomics): two records.
     ``variants``: the variant is a tensor-core one; also hold its CUDA-core
-    twin (``CUDA_CORE_TWIN``: simt for wgmma, wide for wgmma_wide and
-    tf32x3) against the plain backward and time the two in turns
+    twin (``CUDA_CORE_TWIN``: simt for wgmma, wide for wgmma_wide,
+    tf32x3 and wgmma_xwide) against the plain backward and time the two in
+    turns
     (tensor-core, CUDA-core, CUDA-core, tensor-core); ``ms`` is then the
     tensor-core kernel's mean of its two turns.  A head dim the kernels
     lack is timed at its padded width, on inputs padded once, as the
@@ -1303,9 +1339,10 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     from mxnet_tpu_torch.ops.kernels.flash_attention import (
         _delta, _flash_bwd_cuda, _flash_cuda,
         _flash_dkv_simt_cuda, _flash_dkv_tf32x3_cuda, _flash_dkv_wgmma_cuda,
-        _flash_dkv_wgmma_wide_cuda, _flash_dkv_wide_cuda,
-        _flash_dq_simt_cuda, _flash_dq_tf32x3_cuda, _flash_dq_wgmma_cuda,
-        _flash_dq_wgmma_wide_cuda, _flash_dq_wide_cuda, _pad_d, _padded_dim,
+        _flash_dkv_wgmma_wide_cuda, _flash_dkv_wgmma_xwide_cuda,
+        _flash_dkv_wide_cuda, _flash_dq_simt_cuda, _flash_dq_tf32x3_cuda,
+        _flash_dq_wgmma_cuda, _flash_dq_wgmma_wide_cuda,
+        _flash_dq_wgmma_xwide_cuda, _flash_dq_wide_cuda, _pad_d, _padded_dim,
         _variant, flash_attention_bwd_reference, flash_attention_reference)
 
     dt = getattr(torch, dtype_name)
@@ -1314,6 +1351,8 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
         "wgmma": (_flash_dq_wgmma_cuda, _flash_dkv_wgmma_cuda),
         "wgmma_wide": (_flash_dq_wgmma_wide_cuda, _flash_dkv_wgmma_wide_cuda),
         "tf32x3": (_flash_dq_tf32x3_cuda, _flash_dkv_tf32x3_cuda),
+        "wgmma_xwide": (_flash_dq_wgmma_xwide_cuda,
+                        _flash_dkv_wgmma_xwide_cuda),
         "simt": (_flash_dq_simt_cuda, _flash_dkv_simt_cuda),
         "wide": (_flash_dq_wide_cuda, _flash_dkv_wide_cuda)}
 
@@ -1341,7 +1380,7 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     # against an independent formula: autograd through the dense forward.
     # In bf16 that formula takes delta = sum(p * dp) in f32 where the
     # kernels, as the TPU's do, take rowsum(dO * O) of the bf16-rounded O;
-    # held to 2^-6 of each gradient's largest entry
+    # held to 2^-6 of each gradient's largest entry (wgmma_xwide: 6.5e-3)
     qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
     o_r, lse_r = flash_attention_reference(qr, kr, vr, causal,
                                            return_lse=True)
@@ -1350,7 +1389,9 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
         outs, cts = (o_r,), (do,)
     auto = torch.autograd.grad(outs, (qr, kr, vr), cts)
     del o_r, lse_r, outs
-    auto_rel = 1e-4 if dtype_name == "float32" else 2**-6
+    variant = _variant(q.dtype, D, backward=True)
+    auto_rel = 1e-4 if dtype_name == "float32" else (
+        XWIDE_AUTOGRAD_REL if variant == "wgmma_xwide" else 2**-6)
     auto_errs = [float((a.float() - b.float()).abs().max())
                  / float(b.float().abs().max()) for a, b in zip(got, auto)]
     del auto
@@ -1378,7 +1419,6 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     width = _padded_dim(D)
     args = _copies(tuple(_pad_d(t, width) for t in (q, k, v, do))
                    + (lse, delta))
-    variant = _variant(q.dtype, D)
     twin = CUDA_CORE_TWIN.get(variant)
     twin_errs = {}
     if variants:
@@ -1603,8 +1643,11 @@ def phase_kernels():
     _flash_bwd_case(1, 4096, 4096, 16, 192, True, "bfloat16", gen)
     _flash_case(1, 1000, 3000, 16, 256, False, "bfloat16", gen)
     _flash_bwd_case(1, 1000, 3000, 16, 256, False, "bfloat16", gen)
+    # bf16 at 320: the forward on wide, the backward on wgmma_xwide (in
+    # turns with wide)
     _flash_case(2, 1000, 1000, 4, 320, False, "bfloat16", gen)
-    _flash_bwd_case(2, 1000, 1000, 4, 320, False, "bfloat16", gen)
+    _flash_bwd_case(2, 1000, 1000, 4, 320, False, "bfloat16", gen,
+                    variants=True)
     _flash_case(2, 1000, 1000, 4, 320, False, "float32", gen)
     _flash_bwd_case(2, 1000, 1000, 4, 320, False, "float32", gen)
     _flash_case(1, 777, 777, 4, 160, True, "float32", gen)
@@ -1624,6 +1667,17 @@ def phase_kernels():
                     with_dlse=True)
     _flash_bwd_case(1, 1000, 3000, 16, 64, False, "bfloat16", gen)
     _flash_bwd_case(1, 1000, 3000, 16, 64, True, "bfloat16", gen)
+    # the bf16 backward above 256 on wgmma_xwide, in turns with wide: the
+    # head_dim-512 leg's [2, 8192, 2, 512] (its forward on wide), [1, 4096,
+    # 16, 512] and [1, 4096, 16, 384]
+    _flash_case(2, 8192, 8192, 2, 512, True, "bfloat16", gen)
+    main["flash_attention_dq.wgmma_xwide"], \
+        main["flash_attention_dkv.wgmma_xwide"] = _flash_bwd_case(
+            2, 8192, 8192, 2, 512, True, "bfloat16", gen, variants=True)
+    _flash_bwd_case(1, 4096, 4096, 16, 512, True, "bfloat16", gen,
+                    variants=True)
+    _flash_bwd_case(1, 4096, 4096, 16, 384, True, "bfloat16", gen,
+                    with_dlse=True, variants=True)
     main["fused_softmax_xent"], main["fused_softmax_xent_bwd"] = \
         _xent_case(8192, 32000, "float32", gen)
     _xent_case(8192, 32000, "bfloat16", gen)
@@ -5549,6 +5603,8 @@ VARIANT_SOURCES = {
                            "wgmma_wide":
                                _CSRC + "flash_attention_bwd_wgmma_wide.cu",
                            "tf32x3": _CSRC + "flash_attention_bwd_tf32x3.cu",
+                           "wgmma_xwide":
+                               _CSRC + "flash_attention_bwd_wgmma_xwide.cu",
                            "simt": _CSRC + "flash_attention_bwd.cu",
                            "wide": _CSRC + "flash_attention_wide.cu"},
     "flash_attention_dkv": {"wgmma": _CSRC + "flash_attention_bwd_wgmma.cu",
@@ -5556,6 +5612,8 @@ VARIANT_SOURCES = {
                                 _CSRC + "flash_attention_bwd_wgmma_wide.cu",
                             "tf32x3":
                                 _CSRC + "flash_attention_bwd_tf32x3.cu",
+                            "wgmma_xwide":
+                                _CSRC + "flash_attention_bwd_wgmma_xwide.cu",
                             "simt": _CSRC + "flash_attention_bwd.cu",
                             "wide": _CSRC + "flash_attention_wide.cu"},
     "int8_matmul": {"wgmma": _CSRC + "int8_matmul.cu",
@@ -5673,6 +5731,16 @@ def main():
             "mxnet_tpu/ops/pallas/flash_attention.py:142"),
         "flash_attention_dkv.tf32x3": (
             "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd_tf32x3.cu",
+            "mxnet_tpu/ops/pallas/flash_attention.py:179"),
+        # the head_dim-512 leg's: dQ and dK/dV on the tensor-core
+        # wgmma_xwide kernels
+        "flash_attention_dq.wgmma_xwide": (
+            "mxnet_tpu_torch/ops/kernels/csrc/"
+            "flash_attention_bwd_wgmma_xwide.cu",
+            "mxnet_tpu/ops/pallas/flash_attention.py:142"),
+        "flash_attention_dkv.wgmma_xwide": (
+            "mxnet_tpu_torch/ops/kernels/csrc/"
+            "flash_attention_bwd_wgmma_xwide.cu",
             "mxnet_tpu/ops/pallas/flash_attention.py:179"),
         "fused_softmax_xent": (
             "mxnet_tpu_torch/ops/kernels/csrc/softmax_xent.cu",

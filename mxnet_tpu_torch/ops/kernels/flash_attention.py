@@ -20,10 +20,9 @@ head_dim 16, 32, 64 or 128, or above 128 any multiple of 64; any other
 head_dim is zero-padded along D to the next of those widths (a layout copy:
 zero columns add 0 to q·kᵀ and dO·Vᵀ), run at that width with ``scale``
 fixed from the real head_dim, and sliced back (:func:`_padded_dim`).  Only
-head_dim 0 raises.  The variants are chosen by one rule on dtype and
-padded head_dim alone, the same for the forward and the backward (dQ and
-dK/dV) (:func:`_variant`), never by whether a build or a launch worked;
-there are five:
+head_dim 0 raises.  The variants are chosen by one rule on dtype, padded
+head_dim and direction alone (:func:`_variant`), never by whether a build
+or a launch worked; there are six:
 
 * ``wgmma`` — tensor cores (wgmma, TMA rings, the f32 operands p and ds
   split into two bf16 terms): bf16 at head_dim 64 or 128 (the flagship's
@@ -55,6 +54,13 @@ there are five:
   forward's ``acc·alpha + pv``).  mma.sync, 16-byte ``cp.async`` copies:
   the same 16-byte preconditions as ``wgmma`` (:func:`_tma_fault`) and
   the same copy of ``dO``;
+* ``wgmma_xwide`` — tensor cores, the backward only (dQ and dK/dV): bf16
+  at a padded head_dim of 320, 384, 448 or 512 (head_dim 257-512)
+  (``csrc/flash_attention_bwd_wgmma_xwide.cu``: ``wgmma_wide``'s layout
+  with streamed tiles of 32 rows above 320, and dK/dV's output columns
+  cut into two windows on a grid axis, each window's CTA recomputing the
+  scores over all of D).  The same preconditions and the same copy of
+  ``dO`` as ``wgmma``.  The bf16 forward at these widths stays ``wide``;
 * ``simt`` — CUDA cores: f32 up to head_dim 128, and head_dim 16 or 32
   (less than one 128-byte row of the swizzled tiles the wgmma variant
   reads).  Forward ``csrc/flash_attention.cu``; backward
@@ -62,10 +68,10 @@ there are five:
 * ``wide`` — CUDA cores, above head_dim 128 (padded to a multiple of 64):
   the dot products over D walk it in chunks of 64 and each CTA owns at
   most 128 output columns, so any head_dim fits
-  (``csrc/flash_attention_wide.cu``: forward, dQ and dK/dV).  f32 and
-  bf16 above 256, both ways (a third pair of 64-column panels would not
-  fit the ``wgmma_wide`` kernels' registers, nor a wider f32 row the
-  ``tf32x3`` kernels' shared memory).
+  (``csrc/flash_attention_wide.cu``: forward, dQ and dK/dV).  f32 above
+  256 both ways (a wider f32 row would not fit the ``tf32x3`` kernels'
+  shared memory), the bf16 forward above 256, and bf16 above 512 both
+  ways.
 
 Every forward launch counts as ``kernels.launch.flash_attention`` and as
 ``kernels.launch.flash_attention.<variant>``; every backward launch as
@@ -93,12 +99,12 @@ __all__ = ["flash_attention", "flash_attention_lse", "flash_self_attention",
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)      # the widths the kernels are built for
-# the tensor-core variants' widths
+# the tensor-core variants' widths (wgmma_xwide: the backward only, for now)
 _TC_WIDTHS = {"wgmma": (64, 128), "wgmma_wide": (192, 256),
-              "tf32x3": (192, 256)}
+              "tf32x3": (192, 256), "wgmma_xwide": (320, 384, 448, 512)}
 # ... and the dtype each takes
 _TC_DTYPE = {"wgmma": torch.bfloat16, "wgmma_wide": torch.bfloat16,
-             "tf32x3": torch.float32}
+             "tf32x3": torch.float32, "wgmma_xwide": torch.bfloat16}
 _WIDE_CHUNK = 64                    # above 128, widths are multiples of it
 _BWD_ROWS = 64                      # lse/delta rows per tile of the wgmma dK/dV
 
@@ -270,18 +276,21 @@ def _pad_d(t, width):
     return t if D == width else torch.nn.functional.pad(t, (0, width - D))
 
 
-def _variant(dtype, head_dim):
-    """The flash kernels for ``dtype`` and ``head_dim`` (1 and up), by the
-    padded width (:func:`_padded_dim`), the same for the forward and the
-    backward (dQ and dK/dV): ``"wgmma"`` for bf16 at 64 or 128,
-    ``"wgmma_wide"`` for bf16 at 192 or 256, ``"tf32x3"`` for f32 at 192
-    or 256 (split-TF32 products on the tensor cores: three TF32 products
-    of the operands' hi / lo terms, under 3·2^-20 relative a product,
-    where one TF32 product leaves 2^-11); ``"wide"`` for every other width
-    above 128 (f32 and bf16 above 256); ``"simt"`` for the rest (f32 up to
-    128; bf16 up to 32)."""
+def _variant(dtype, head_dim, backward=False):
+    """The flash kernels for ``dtype``, ``head_dim`` (1 and up) and the
+    direction, by the padded width (:func:`_padded_dim`): ``"wgmma"`` for
+    bf16 at 64 or 128, ``"wgmma_wide"`` for bf16 at 192 or 256,
+    ``"tf32x3"`` for f32 at 192 or 256 (split-TF32 products on the tensor
+    cores: three TF32 products of the operands' hi / lo terms, under
+    3·2^-20 relative a product, where one TF32 product leaves 2^-11), all
+    three both ways; for the ``backward`` (dQ and dK/dV),
+    ``"wgmma_xwide"`` for bf16 at 320, 384, 448 or 512; ``"wide"`` for
+    every other width above 128 (f32 above 256, the bf16 forward above
+    256, bf16 above 512); ``"simt"`` for the rest (f32 up to 128; bf16 up
+    to 32)."""
     width = _padded_dim(head_dim)
-    for variant in ("wgmma", "wgmma_wide", "tf32x3"):
+    for variant in ("wgmma", "wgmma_wide", "tf32x3") + (
+            ("wgmma_xwide",) if backward else ()):
         if dtype == _TC_DTYPE[variant] and width in _TC_WIDTHS[variant]:
             return variant
     if head_dim > _HEAD_DIMS[-1]:
@@ -608,6 +617,8 @@ _BWD_TC = {
     "wgmma_wide": ("flash_attention_bwd_wgmma_wide",
                    "mxt_flash_bwd_wgmma_wide"),
     "tf32x3": ("flash_attention_bwd_tf32x3", "mxt_flash_bwd_tf32x3"),
+    "wgmma_xwide": ("flash_attention_bwd_wgmma_xwide",
+                    "mxt_flash_bwd_wgmma_xwide"),
 }
 
 
@@ -734,12 +745,33 @@ def _flash_dkv_tf32x3_cuda(q, k, v, do, lse, delta, causal=True,
                               scale)
 
 
+def _flash_dq_wgmma_xwide_cuda(q, k, v, do, lse, delta, causal=True,
+                               scale=None):
+    """Launch the dQ kernel of ``csrc/flash_attention_bwd_wgmma_xwide.cu``
+    (tensor cores) on bf16 inputs with head_dim 320, 384, 448 or 512;
+    returns ``dq``, contiguous.  Raises on inputs it does not take
+    (:func:`_check_tc_width`, :func:`_check_wgmma` with ``do``): never a
+    hand-off to the wide variant."""
+    return _flash_dq_tc_cuda("wgmma_xwide", q, k, v, do, lse, delta, causal,
+                             scale)
+
+
+def _flash_dkv_wgmma_xwide_cuda(q, k, v, do, lse, delta, causal=True,
+                                scale=None):
+    """Launch the dK/dV kernel of
+    ``csrc/flash_attention_bwd_wgmma_xwide.cu`` on bf16 inputs with
+    head_dim 320, 384, 448 or 512; returns ``(dk, dv)``, contiguous, every
+    row written (rows no query sees are 0)."""
+    return _flash_dkv_tc_cuda("wgmma_xwide", q, k, v, do, lse, delta, causal,
+                              scale)
+
+
 def _flash_bwd_cuda(q, k, v, o, lse, do, dlse=None, causal=True,
                     scale=None):
     """The backward on CUDA tensors: ``delta`` with torch ops on the
     unpadded o and dO, then q, k, v and dO padded along D to
     :func:`_padded_dim` and the dQ and the dK/dV kernel of the variant
-    :func:`_variant` names; the gradients sliced back.  Returns ``(dq,
+    :func:`_variant` names for the backward; the gradients sliced back.  Returns ``(dq,
     dk, dv)``, contiguous, in the input dtype.  ``scale=None`` is 1/√D of
     the real head_dim.  ``dO`` is read through its strides (copied if its
     head_dim axis is not unit-stride, or, for the tensor-core variants, if
@@ -761,13 +793,15 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, dlse=None, causal=True,
     delta = _delta(o, do, dlse)
     width = _padded_dim(D)
     q, k, v, do = (_pad_d(t, width) for t in (q, k, v, do))
-    variant = _variant(q.dtype, D)
+    variant = _variant(q.dtype, D, backward=True)
     if variant in _BWD_TC and _tma_fault("dO", do):
         do = do.clone(memory_format=torch.contiguous_format)
     launch_dq, launch_dkv = {
         "wgmma": (_flash_dq_wgmma_cuda, _flash_dkv_wgmma_cuda),
         "wgmma_wide": (_flash_dq_wgmma_wide_cuda, _flash_dkv_wgmma_wide_cuda),
         "tf32x3": (_flash_dq_tf32x3_cuda, _flash_dkv_tf32x3_cuda),
+        "wgmma_xwide": (_flash_dq_wgmma_xwide_cuda,
+                        _flash_dkv_wgmma_xwide_cuda),
         "wide": (_flash_dq_wide_cuda, _flash_dkv_wide_cuda),
         "simt": (_flash_dq_simt_cuda, _flash_dkv_simt_cuda)}[variant]
     dq = launch_dq(q, k, v, do, lse, delta, causal, scale)

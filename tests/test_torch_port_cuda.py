@@ -899,6 +899,142 @@ def test_flash_autograd_bf16_head_dim_256_launches_wgmma_wide(dev):
 
 
 # ---------------------------------------------------------------------------
+# flash backward: the tensor-core wgmma_xwide variant, bf16 at D 320-512
+# ---------------------------------------------------------------------------
+XWIDE_AUTOGRAD_REL = 6.5e-3
+WGMMA_XWIDE_BWD_CASES = [
+    # (B, Tq, Tk, H, D, causal); CTAs own 64 rows, tiles stream 64 rows at
+    # D 320 and 32 above; dK/dV CTAs hold one of two column windows; D 257
+    # pads to 320, 400 to 448
+    (1, 1, 1, 2, 512, True),
+    (1, 1, 1, 2, 320, False),
+    (2, 63, 63, 2, 512, True),
+    (1, 65, 65, 2, 384, True),
+    (1, 127, 127, 3, 257, False),
+    (1, 129, 129, 2, 448, True),
+    (1, 129, 129, 2, 400, True),
+    (1, 1000, 3000, 2, 512, False),
+    (1, 1000, 3000, 2, 320, False),
+    (1, 20, 300, 2, 512, True),      # causal, Tq < Tk: keys 20.. dK=dV=0
+    (1, 65, 200, 2, 400, True),
+    (1, 300, 70, 2, 512, True),      # causal, Tq > Tk
+    (1, 300, 70, 2, 384, True),
+    (1, 1, 129, 2, 448, False),
+    (2, 333, 333, 2, 320, True),
+    (1, 777, 777, 4, 257, True),
+]
+
+
+@pytest.mark.parametrize("case", WGMMA_XWIDE_BWD_CASES)
+def test_flash_bwd_wgmma_xwide_matches_plain(dev, case):
+    """dQ and dK/dV of the wgmma_xwide variant against the plain backward
+    (with an lse cotangent) within one bf16 ulp (2^-7 relative, 1e-3
+    absolute for cancelling entries), against dense autograd within 6.5e-3
+    of each gradient's largest entry, keys no query sees at zero, and two
+    calls bit-identical."""
+    B, Tq, Tk, H, D, causal = case
+    q, k, v, o, lse, do, dlse = _flash_bwd_inputs(dev, *case, torch.bfloat16)
+    for t in (q, k, v):                    # see test_flash_bwd_kernels_...
+        torch.full_like(t, float("nan"))
+    common.reset_counts()
+    got = _flash_bwd_cuda(q, k, v, o, lse, do, dlse, causal)
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention_dq": 1,
+        "kernels.launch.flash_attention_dq.wgmma_xwide": 1,
+        "kernels.launch.flash_attention_dkv": 1,
+        "kernels.launch.flash_attention_dkv.wgmma_xwide": 1}
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, dlse, causal)
+    auto = _dense_autograd_grads(q, k, v, do, dlse, causal)
+    for gt, wt, at, name in zip(got, want, auto, ("dq", "dk", "dv")):
+        assert gt.dtype == torch.bfloat16 and gt.shape == wt.shape
+        assert gt.is_contiguous() and torch.isfinite(gt).all(), name
+        np.testing.assert_allclose(_np(gt), _np(wt), err_msg=name,
+                                   **BF16_GRAD_TOL)
+        assert _rel_to_max(gt, at) <= XWIDE_AUTOGRAD_REL, name
+    if causal and Tq < Tk:
+        assert not got[1][:, Tq:].any() and not got[2][:, Tq:].any()
+    again = _flash_bwd_cuda(q, k, v, o, lse, do, dlse, causal)
+    for a, b in zip(got, again):           # no atomics: the same bits
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D", [320, 448, 512])
+def test_flash_bwd_wgmma_xwide_reads_fused_qkv_views_and_strided_dout(dev,
+                                                                      D):
+    """q/k/v as views of one fused qkv product and a transposed dO give
+    the same bits as contiguous copies."""
+    B, T, H = 2, 333, 3
+    g = torch.Generator(device=dev).manual_seed(5)
+    qkv = torch.randn(B, T, 3 * H * D, generator=g, device=dev,
+                      dtype=torch.bfloat16)
+    q, k, v = (t.view(B, T, H, D) for t in qkv.split(H * D, -1))
+    o, lse = _flash_cuda(q, k, v)
+    do = torch.randn(B, H, T, D, generator=g, device=dev,
+                     dtype=torch.bfloat16).transpose(1, 2)
+    assert not q.is_contiguous() and not do.is_contiguous()
+    common.reset_counts()
+    a = _flash_bwd_cuda(q, k, v, o, lse, do)
+    assert common.launch_counts()[
+        "kernels.launch.flash_attention_dq.wgmma_xwide"] == 1
+    b = _flash_bwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(), o,
+                        lse, do.contiguous())
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_flash_bwd_wgmma_xwide_refuses_misaligned_inputs(dev):
+    """Misaligned q/k/v raise before any launch; a misaligned dO (an
+    internal cotangent) is copied by the backward, and refused by the
+    launchers themselves."""
+    from mxnet_tpu_torch.ops.kernels.flash_attention import (
+        _flash_dkv_wgmma_xwide_cuda, _flash_dq_wgmma_xwide_cuda)
+    B, T, H, D = 1, 64, 2, 512
+    q, k, v, o, lse, do, _ = _flash_bwd_inputs(dev, B, T, T, H, D, True,
+                                               torch.bfloat16)
+    flat = torch.randn(B * T * H * D + 1, device=dev, dtype=torch.bfloat16)
+    bad = flat[1:].view(B, T, H, D)                   # base 2 bytes off
+    bad.copy_(q)
+    delta = _delta(o, do, None)
+    common.reset_counts()
+    with pytest.raises(ValueError, match="wgmma_xwide variant.*q's base"):
+        _flash_bwd_cuda(bad, k, v, o, lse, do)
+    for launch in (_flash_dq_wgmma_xwide_cuda, _flash_dkv_wgmma_xwide_cuda):
+        with pytest.raises(ValueError, match="k's base address"):
+            launch(q, bad, v, do, lse, delta)
+        with pytest.raises(ValueError, match="dO's base address"):
+            launch(q, k, v, bad, lse, delta)
+        with pytest.raises(ValueError, match="takes bf16 with head_dim"):
+            launch(q.float(), k.float(), v.float(), do.float(), lse, delta)
+    assert common.launch_counts() == {}
+    bad.copy_(do)
+    got = _flash_bwd_cuda(q, k, v, o, lse, bad)
+    want = _flash_bwd_cuda(q, k, v, o, lse, do)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_flash_autograd_bf16_head_dim_512_launches_wgmma_xwide(dev):
+    """Autograd of ``flash_attention`` at bf16 head_dim 512: the forward
+    on wide, dQ and dK/dV on wgmma_xwide, one each."""
+    B, T, H, D = 1, 130, 2, 512
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn(B, T, H, D, generator=g, device=dev,
+                           dtype=torch.bfloat16, requires_grad=True)
+               for _ in range(3))
+    common.reset_counts()
+    o, lse = flash_attention_lse(q, k, v)
+    (o.float().square().sum() + lse.tanh().sum()).backward()
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention": 1,
+        "kernels.launch.flash_attention.wide": 1,
+        "kernels.launch.flash_attention_dq": 1,
+        "kernels.launch.flash_attention_dq.wgmma_xwide": 1,
+        "kernels.launch.flash_attention_dkv": 1,
+        "kernels.launch.flash_attention_dkv.wgmma_xwide": 1}
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+# ---------------------------------------------------------------------------
 # flash forward: the tensor-core tf32x3 variant, f32 at D 192 or 256
 # ---------------------------------------------------------------------------
 F32_FWD_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -1186,7 +1322,8 @@ def test_flash_autograd_f32_head_dim_256_launches_tf32x3(dev):
 def test_flash_padded_head_dims_match_plain(dev, D, dtype, causal):
     """Forward and backward at head_dim 48, 80 and 96 (padded to 64, 128
     and 128) and above 128 (160 padded to 192, 256, 320: the wide variant,
-    but at 160 and 256, which take wgmma_wide in bf16 and tf32x3 in f32):
+    but at 160 and 256, which take wgmma_wide in bf16 and tf32x3 in f32,
+    and the bf16 backward at 320, which takes wgmma_xwide):
     no ValueError, the plain version's results, ``scale`` from the real
     head_dim, and the padded variant's launches."""
     B, Tq, Tk, H = 1, 150, 150, 2
@@ -1200,6 +1337,8 @@ def test_flash_padded_head_dims_match_plain(dev, D, dtype, causal):
     else:
         variant = "wgmma" if dtype == torch.bfloat16 else "simt"
     bwd_variant = variant
+    if dtype == torch.bfloat16 and 256 < D <= 512:
+        bwd_variant = "wgmma_xwide"
     assert common.launch_counts() == {
         "kernels.launch.flash_attention": 1,
         "kernels.launch.flash_attention.%s" % variant: 1}

@@ -50,10 +50,36 @@ def test_variant_by_dtype_and_head_dim(dtype, D, variant):
 def test_backward_above_128_takes_wgmma_wide_for_bf16_up_to_256(dtype, D,
                                                                 variant):
     """Above head_dim 128 the forward and the backward take the tensor-core
-    wgmma_wide kernels for bf16 at the padded widths 192 and 256, and wide
-    beyond them; f32 there takes the tensor-core tf32x3 kernels both
-    ways (one rule, :func:`_variant`, for both directions)."""
+    wgmma_wide kernels for bf16 at the padded widths 192 and 256; f32 there
+    takes the tensor-core tf32x3 kernels both ways.  Beyond 256 the bf16
+    forward takes wide and the bf16 backward the tensor-core wgmma_xwide
+    kernels."""
     assert fa._variant(dtype, D) == variant
+    bwd = "wgmma_xwide" if dtype == BF16 and D > 256 else variant
+    assert fa._variant(dtype, D, backward=True) == bwd
+
+
+@pytest.mark.parametrize("D,width", [(257, 320), (320, 320), (321, 384),
+                                     (384, 384), (400, 448), (448, 448),
+                                     (512, 512)])
+def test_bf16_backward_at_257_to_512_takes_wgmma_xwide(D, width):
+    """The bf16 backward at head_dim 257-512 (padded to 320, 384, 448 or
+    512) takes the tensor-core wgmma_xwide kernels; the bf16 forward there
+    stays on wide."""
+    assert fa._padded_dim(D) == width
+    assert width in fa._TC_WIDTHS["wgmma_xwide"]
+    assert fa._variant(BF16, D, backward=True) == "wgmma_xwide"
+    assert fa._variant(BF16, D) == "wide"
+
+
+@pytest.mark.parametrize("dtype,D", [
+    (BF16, 513), (BF16, 576), (BF16, 1024), (torch.float32, 257),
+    (torch.float32, 320), (torch.float32, 512), (torch.float32, 576)])
+def test_bf16_above_512_and_f32_above_256_stay_wide_both_ways(dtype, D):
+    """bf16 above head_dim 512 and f32 above 256 take the wide kernels,
+    forward and backward."""
+    assert fa._variant(dtype, D) == "wide"
+    assert fa._variant(dtype, D, backward=True) == "wide"
 
 
 @pytest.mark.parametrize("dtype,D,variant", [
@@ -93,7 +119,7 @@ def test_padded_dim(D, width):
 
 
 def _bwd_launchers(monkeypatch, calls):
-    """Replace the five backward launchers with recorders that return
+    """Replace the six backward launchers with recorders that return
     zeros of the right shapes."""
     def launcher(name):
         def launch(q, k, v, do, lse, delta, causal, scale):
@@ -106,7 +132,7 @@ def _bwd_launchers(monkeypatch, calls):
 
     for name in ("dq_wgmma", "dkv_wgmma", "dq_simt", "dkv_simt", "dq_wide",
                  "dkv_wide", "dq_wgmma_wide", "dkv_wgmma_wide", "dq_tf32x3",
-                 "dkv_tf32x3"):
+                 "dkv_tf32x3", "dq_wgmma_xwide", "dkv_wgmma_xwide"):
         monkeypatch.setattr(fa, "_flash_%s_cuda" % name, launcher(name))
 
 
@@ -114,7 +140,10 @@ def _bwd_launchers(monkeypatch, calls):
     (BF16, 64, "wgmma"), (BF16, 128, "wgmma"), (BF16, 32, "simt"),
     (torch.float32, 128, "simt"), (torch.float32, 64, "simt"),
     (BF16, 256, "wgmma_wide"), (torch.float32, 192, "tf32x3"),
-    (torch.float32, 256, "tf32x3"), (torch.float32, 320, "wide")])
+    (torch.float32, 256, "tf32x3"), (torch.float32, 320, "wide"),
+    (BF16, 320, "wgmma_xwide"), (BF16, 384, "wgmma_xwide"),
+    (BF16, 448, "wgmma_xwide"), (BF16, 512, "wgmma_xwide"),
+    (BF16, 576, "wide")])
 def test_flash_bwd_cuda_dispatches_by_variant(monkeypatch, dtype, D,
                                               variant):
     """``_flash_bwd_cuda`` hands the inputs to the dQ and the dK/dV
@@ -180,11 +209,13 @@ def test_head_dims_above_128_reach_wide(monkeypatch, dtype, D, width):
     """Above 128 the forward, dQ and dK/dV go to the wide launchers or, up
     to 256, the wgmma_wide ones for bf16 and the tf32x3 ones for f32, at
     the width padded to a multiple of 64, with ``scale`` 1/√D of the real
-    D; the outputs come back at D."""
+    D; the outputs come back at D.  Above 256 the bf16 backward goes to
+    the wgmma_xwide launchers."""
     fwd = []
     variant = "wide"
     if D <= 256:
         variant = "wgmma_wide" if dtype == BF16 else "tf32x3"
+    bwd_variant = "wgmma_xwide" if dtype == BF16 and D > 256 else variant
 
     def launch(q, k, v, causal, scale, kv_len):
         fwd.append((q.shape[-1], k.shape[-1], v.shape[-1], scale))
@@ -205,8 +236,8 @@ def test_head_dims_above_128_reach_wide(monkeypatch, dtype, D, width):
     assert o.shape == q.shape and o.is_contiguous()
     grads = fa._flash_bwd_cuda(q, q, q, o, lse, q)
     assert [c[:5] for c in bwd] == [
-        ("dq_" + variant, width, width, True, 1.0 / D ** 0.5),
-        ("dkv_" + variant, width, width, True, 1.0 / D ** 0.5)]
+        ("dq_" + bwd_variant, width, width, True, 1.0 / D ** 0.5),
+        ("dkv_" + bwd_variant, width, width, True, 1.0 / D ** 0.5)]
     assert all(g.shape == q.shape and g.is_contiguous() for g in grads)
 
 
@@ -415,6 +446,76 @@ def test_wgmma_wide_bwd_copies_a_dout_the_tma_cannot_read(monkeypatch, D):
     bad = torch.arange(8 * 2 * D + 1).to(BF16)[1:].view(1, 8, 2, D)
     assert fa._tma_fault("dO", bad)
     fa._flash_bwd_cuda(q, q, q, q, torch.zeros(1, 2, 8), bad)
+    assert fa._tma_fault("dO", seen[0]) is None
+    assert seen[0].is_contiguous()
+    assert torch.equal(seen[0][..., :D], bad)
+
+
+@pytest.mark.parametrize("which", ["dq", "dkv"])
+@pytest.mark.parametrize("case", [
+    "f32", "bf16_256", "bf16_576", "q", "k", "v", "dO", "k_stride",
+    "dO_stride"])
+def test_wgmma_xwide_launchers_refuse_before_any_build(monkeypatch, which,
+                                                       case):
+    """The wgmma_xwide launchers (dQ and dK/dV) take bf16 at head_dim 320,
+    384, 448 or 512 only, read through TMA (bases 16-byte aligned, (B, T,
+    H) strides multiples of 8 elements), and raise on anything else before
+    they build or count anything; never a hand-off to the wide kernels."""
+    from mxnet_tpu_torch.ops.kernels import _build, common
+
+    def no_build(*a, **k):
+        raise AssertionError("built a kernel")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    common.reset_counts()
+    launch = {"dq": fa._flash_dq_wgmma_xwide_cuda,
+              "dkv": fa._flash_dkv_wgmma_xwide_cuda}[which]
+    shape = (1, 8, 2, 512)
+    args = [torch.zeros(shape, dtype=BF16) for _ in range(4)]
+    if case in ("f32", "bf16_256", "bf16_576"):
+        dtype, D = {"f32": (torch.float32, 512), "bf16_256": (BF16, 256),
+                    "bf16_576": (BF16, 576)}[case]
+        args = [torch.zeros(1, 8, 2, D, dtype=dtype)] * 4
+        match = ("wgmma_xwide variant.*takes bf16 with head_dim in "
+                 "\\(320, 384, 448, 512\\); got %s, head_dim %d"
+                 % (dtype, D))
+    elif case.endswith("_stride"):
+        name = case[:-len("_stride")]
+        wide = torch.zeros(1, 8, 2 * 512 + 4, dtype=BF16)   # T stride 1028
+        i = ("q", "k", "v", "dO").index(name)
+        args[i] = wide[..., :2 * 512].view(shape)
+        match = ("wgmma_xwide variant.*%s's T stride 1028 is not a multiple "
+                 "of 8" % name)
+    else:
+        i = ("q", "k", "v", "dO").index(case)
+        args[i] = _misaligned(shape, BF16)
+        match = "wgmma_xwide variant.*%s's base address is not 16-byte" % case
+    lse = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError, match=match):
+        launch(*args, lse, lse)
+    assert common.launch_counts() == {}
+
+
+@pytest.mark.parametrize("D", [400, 512])
+def test_wgmma_xwide_bwd_copies_a_dout_the_tma_cannot_read(monkeypatch, D):
+    """As for the other bf16 tensor-core variants: a dO whose layout the
+    TMA cannot read is copied before the wgmma_xwide launchers see it
+    (head_dim 400 padded to 448, and 512)."""
+    seen = []
+
+    def dq(q, k, v, do, lse, delta, causal, scale):
+        seen.append(do)
+        return torch.zeros_like(q)
+
+    monkeypatch.setattr(fa, "_flash_dq_wgmma_xwide_cuda", dq)
+    monkeypatch.setattr(fa, "_flash_dkv_wgmma_xwide_cuda",
+                        lambda q, k, v, *a: (torch.zeros_like(k),
+                                             torch.zeros_like(v)))
+    q = torch.zeros(1, 8, 2, D, dtype=BF16)
+    bad = torch.arange(8 * 2 * D + 1).to(BF16)[1:].view(1, 8, 2, D)
+    assert fa._tma_fault("dO", bad)
+    fa._flash_bwd_cuda(q, q, q, q, torch.zeros(1, 2, 8), bad)
+    assert len(seen) == 1
     assert fa._tma_fault("dO", seen[0]) is None
     assert seen[0].is_contiguous()
     assert torch.equal(seen[0][..., :D], bad)

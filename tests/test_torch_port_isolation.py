@@ -50,7 +50,8 @@ def _port_files():
     files = sorted((REPO / "mxnet_tpu_torch").rglob("*.py"))
     return files + [REPO / name for name in (
         "chip_smoke.py", "module_gate_probe.py", "int8_plan_probe.py",
-        "rmsnorm_plan_probe.py", "mesh_probe.py", "tf32x3_probe.py")]
+        "rmsnorm_plan_probe.py", "mesh_probe.py", "tf32x3_probe.py",
+        "xwide_plan_probe.py")]
 
 
 def _imported_roots(path):

@@ -324,10 +324,11 @@ def _plain_launchers(monkeypatch):
         return dq
 
     # head_dim 129-256 runs forward and backward on wgmma_wide in bf16, on
-    # tf32x3 in f32
+    # tf32x3 in f32; the bf16 backward at 257-512 on wgmma_xwide
     for name in ("wgmma", "simt", "wide", "wgmma_wide", "tf32x3"):
         monkeypatch.setattr(fa, "_flash_%s_cuda" % name, fwd)
-    for name in ("wgmma", "simt", "wide", "wgmma_wide", "tf32x3"):
+    for name in ("wgmma", "simt", "wide", "wgmma_wide", "tf32x3",
+                 "wgmma_xwide"):
         monkeypatch.setattr(fa, "_flash_dq_%s_cuda" % name, dq_launcher(name))
         monkeypatch.setattr(fa, "_flash_dkv_%s_cuda" % name,
                             lambda *a: bwd(*a)[1:])
@@ -336,7 +337,8 @@ def _plain_launchers(monkeypatch):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("D,width", [(48, 64), (80, 128), (96, 128),
-                                     (160, 192), (256, 256)])
+                                     (160, 192), (256, 256), (320, 320),
+                                     (400, 448), (512, 512)])
 def test_padded_head_dims_match_pallas_kernels(monkeypatch, D, width, dtype):
     """Head dims the kernels lack go through the CUDA wrappers' padding
     (launchers replaced by the plain versions) and match the JAX package's
@@ -374,8 +376,11 @@ def test_padded_head_dims_match_pallas_kernels(monkeypatch, D, width, dtype):
             assert g.shape == (B, T, H, D) and g.dtype == tq.dtype
             np.testing.assert_allclose(_f32(g), _f32(w), err_msg="d" + name,
                                        **gtol)
-    assert set(bwd_variants) == {fa._variant(tq.dtype, D)}
-    if D > 128:
+    assert set(bwd_variants) == {fa._variant(tq.dtype, D, backward=True)}
+    if D > 256:
+        assert bwd_variants[0] == ("wgmma_xwide" if dtype == "bfloat16"
+                                   else "wide")
+    elif D > 128:
         assert bwd_variants[0] == ("wgmma_wide" if dtype == "bfloat16"
                                    else "tf32x3")
 

@@ -293,3 +293,48 @@ def test_head_dim_256_flash_step_matches_jax(monkeypatch, dtype):
                       else (BF16_PARAM_REL, BF16_VELOCITY_REL))
         _close_rel(p[name], jp[name], prel, name)
         _close_rel(v[name], jv[name], vrel, "v " + name)
+
+
+# head_dim 512 (d_model 1024, 2 heads), one layer: the widths of the
+# long-context head_dim-512 leg, whose bf16 flash backward runs on the
+# tensor-core wgmma_xwide kernels on the card (the forward on wide)
+HD512 = dict(vocab_size=VOCAB, d_model=1024, n_heads=2, n_layers=1,
+             d_ff=256, max_len=64)
+_HD512_CACHE = {}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_512_flash_step_matches_jax(monkeypatch, dtype):
+    """At head_dim 512 on the flash route (Pallas kernels through the
+    interpreter on JAX's side): one SGD-momentum step's loss, parameters
+    and velocity match the JAX step at the bounds above, and the flash
+    backward ran (one layer)."""
+    monkeypatch.setenv("MXTPU_PALLAS", "interpret")
+    if dtype not in _HD512_CACHE:
+        jm = jtf.TransformerLM(jtf.TransformerConfig(**HD512, dtype=dtype))
+        _HD512_CACHE[dtype] = (jm, jm.init(jax.random.PRNGKey(0)))
+    jm, params = _HD512_CACHE[dtype]
+    m = TransformerLM(TransformerConfig(**HD512, dtype=dtype,
+                                        dense_attn_max_score_mb=0),
+                      device="cpu").load_jax_params(
+        {k: np.asarray(v) for k, v in params.items()})
+    assert m.cfg.head_dim == 512
+    toks, tgts = _batch(B=2, T=24, seed=23)
+    jp, jv, jloss = jax.jit(jtf.make_train_step(jm))(
+        params, jax.tree_util.tree_map(jnp.zeros_like, params),
+        jnp.asarray(toks, jnp.int32), jnp.asarray(tgts, jnp.int32))
+    p, v = _port_dicts(m)
+    common.reset_counts()
+    _, _, loss = make_train_step(m)(p, v, torch.from_numpy(toks),
+                                    torch.from_numpy(tgts))
+    sel = common.selection_counts()
+    assert sel["kernels.select.flash_attention_bwd.reference"] == 1
+    if dtype == "float32":
+        np.testing.assert_allclose(float(loss), float(jloss), rtol=LOSS_RTOL)
+    else:
+        assert abs(float(loss) - float(jloss)) <= BF16_LOSS_ATOL
+    for name in p:
+        prel, vrel = ((GRAD_REL, GRAD_REL) if dtype == "float32"
+                      else (BF16_PARAM_REL, BF16_VELOCITY_REL))
+        _close_rel(p[name], jp[name], prel, name)
+        _close_rel(v[name], jv[name], vrel, "v " + name)
