@@ -22,8 +22,8 @@ on the card:
   tensor-core wgmma_wide kernels, and on that configuration in f32, whose
   flash forward, dQ and dK/dV run the tensor-core tf32x3 kernels
   (split-TF32 products), and with 2 heads of 512 at batch 2 x 8192,
-  whose flash dQ and dK/dV run the tensor-core wgmma_xwide kernels (its
-  forward the CUDA-core wide kernel);
+  whose flash forward, dQ and dK/dV run the tensor-core wgmma_xwide
+  kernels;
 * INT8 inference — the symbolic ResNet-50 (``models/resnet_symbol.py``,
   1000 classes, 3x224x224) is calibrated, quantized, BN-folded and
   int8-fused by ``contrib.quantization.quantize_model``, bound, and run at
@@ -71,9 +71,9 @@ Phases, in order; any failure raises and exits non-zero:
    kernels/csrc`` (in parallel), with the ptxas register/spill report and
    one line per instantiation of the tensor-core flash kernels (forward,
    dQ and dK/dV at head_dim 64 and 128; wgmma_wide at 192 and 256; the
-   f32 tf32x3 forward, dQ and dK/dV at 192 and 256; the wgmma_xwide dQ
-   and dK/dV at 320, 384, 448 and 512, all eight of them), of the wide
-   flash kernels,
+   f32 tf32x3 forward, dQ and dK/dV at 192 and 256; the wgmma_xwide
+   forward at 320, 384, 448 and 512, all four of them, and its dQ and
+   dK/dV there, all eight of them), of the wide flash kernels,
    of
    the int8 matmul and of the RMSNorm variants; none but the int8 ``mma``
    kernel may spill;
@@ -105,13 +105,14 @@ Phases, in order; any failure raises and exits non-zero:
    forward also in turns at the f32 leg's [1, 8192, 4, 256]; both also
    at [1, 8192, 4, 256], [1, 4096, 16, 192], Tq 1000 x Tk 3000 not
    causal, and head_dim 160, the backward with an lse cotangent), and f32
-   at 320 the wide variant; the bf16 backward above 256 runs the
-   tensor-core wgmma_xwide dQ and dK/dV, held against the plain backward
-   and dense autograd (within 6.5e-3 of each gradient's largest entry)
-   beside their wide twins and timed in turns with them at [1, 4096, 16,
-   512] and [1, 4096, 16, 384] causal, at the head_dim-512 leg's [2,
-   8192, 2, 512] and at [2, 1000, 4, 320] not causal, whose bf16 forward
-   is wide.  The int8
+   at 320 the wide variant; bf16 above 256 runs the tensor-core
+   wgmma_xwide forward, dQ and dK/dV, the forward held against the plain
+   version, the backward against the plain backward and dense autograd
+   (within 6.5e-3 of each gradient's largest entry), each beside its wide
+   twin and timed in turns with it at [1, 4096, 16, 512] and [1, 4096,
+   16, 384] causal, at the head_dim-512 leg's [2, 8192, 2, 512] and at
+   [2, 1000, 4, 320] not causal; every tensor-core forward held in the
+   kernels phase gives the same bits in two calls.  The int8
    matmul's planned variant and, where that is wgmma, its mma variant are
    held bit for bit to the plain version and timed in turns beside
    ``torch._int_mm``;
@@ -409,8 +410,8 @@ LONGCTX_HD256 = dict(LONGCTX, n_heads=4)
 # forward and backward on the tensor-core tf32x3 kernels
 LONGCTX_HD256_F32 = dict(LONGCTX_HD256, dtype="float32")
 # 2 heads of 512 at batch 2 (at batch 1 the dense scores, 537 MB, would
-# stay under the flash gate): the flash backward on the tensor-core
-# wgmma_xwide kernels, the forward on wide
+# stay under the flash gate): the flash forward and backward on the
+# tensor-core wgmma_xwide kernels
 LONGCTX_HD512 = dict(LONGCTX, n_heads=2)
 TRAIN_CELLS = (
     ("flagship_b8_t1024", dict(FLAGSHIP, max_len=1024, remat=False), 8,
@@ -428,10 +429,9 @@ TRAIN_STEPS = 3
 # and once before the logits, and with remat once more per block for the
 # recomputed forward, every one through the warp variant (8192 rows, 16384
 # at batch 2); flash forward per block (twice with remat), every one through
-# the tensor-core variant (bf16: wgmma at head_dim 64, wgmma_wide at 256;
-# f32 at 256: tf32x3) but at head_dim 512 (wide); dQ and dK/dV once per
-# block, through the same variant (at 512: wgmma_xwide); the softmax
-# cross-entropy once each way
+# the tensor-core variant (bf16: wgmma at head_dim 64, wgmma_wide at 256,
+# wgmma_xwide at 512; f32 at 256: tf32x3); dQ and dK/dV once per block,
+# through the same variant; the softmax cross-entropy once each way
 EXPECTED_LAUNCHES = {
     "flagship_b8_t1024": {"fused_rmsnorm": 9, "fused_rmsnorm.warp": 9,
                           "fused_softmax_xent": 1,
@@ -465,7 +465,7 @@ EXPECTED_LAUNCHES = {
                                    "fused_softmax_xent_bwd": 1},
     "longctx_hd512_b2_t8192": {"fused_rmsnorm": 17, "fused_rmsnorm.warp": 17,
                                "flash_attention": 8,
-                               "flash_attention.wide": 8,
+                               "flash_attention.wgmma_xwide": 8,
                                "flash_attention_dq": 4,
                                "flash_attention_dkv": 4,
                                "flash_attention_dq.wgmma_xwide": 4,
@@ -928,6 +928,7 @@ def phase_build():
     # kernels, the wide flash kernels, the int8 matmul and the RMSNorm
     # variants, none of which may spill but the int8 mma kernel
     for src in ("flash_attention_wgmma", "flash_attention_wgmma_wide",
+                "flash_attention_wgmma_xwide",
                 "flash_attention_bwd_wgmma", "flash_attention_bwd_wgmma_wide",
                 "flash_attention_bwd_wgmma_xwide",
                 "flash_attention_tf32x3", "flash_attention_bwd_tf32x3",
@@ -939,9 +940,12 @@ def phase_build():
             if kernel != "int8_mm_kernel":
                 _check(" 0 bytes spill stores" in line,
                        "%s spills: %s" % (src, line))
-        if src == "flash_attention_bwd_wgmma_xwide":   # dQ, dK/dV x 4 widths
-            _check(len(summary) == 8, "%s: %d instantiations in the ptxas "
-                   "report, expected 8" % (src, len(summary)))
+        # the wgmma_xwide forward and dQ, dK/dV at each of its 4 widths
+        want = {"flash_attention_wgmma_xwide": 4,
+                "flash_attention_bwd_wgmma_xwide": 8}.get(src)
+        if want is not None:
+            _check(len(summary) == want, "%s: %d instantiations in the "
+                   "ptxas report, expected %d" % (src, len(summary), want))
     return wall
 
 
@@ -1148,24 +1152,25 @@ CUDA_CORE_TWIN = {"wgmma": "simt", "wgmma_wide": "wide", "tf32x3": "wide",
 def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
                 variants=False):
     """The flash forward of the variant ``_variant`` names against its
-    plain version.  ``variants``: that variant is a tensor-core one; also
-    hold its CUDA-core twin (``CUDA_CORE_TWIN``: simt for wgmma, wide for
-    wgmma_wide and tf32x3) against the plain version, and time the two in
-    turns
-    (tensor-core, CUDA-core, CUDA-core, tensor-core); ``ms`` is then the
-    tensor-core variant's mean of its two turns.  ``variants`` needs a
-    head_dim the kernels have."""
+    plain version; a tensor-core variant must also give the same bits in
+    two calls (no atomics).  ``variants``: that variant is a tensor-core
+    one; also hold its CUDA-core twin (``CUDA_CORE_TWIN``: simt for
+    wgmma, wide for wgmma_wide, wgmma_xwide and tf32x3) against the plain
+    version, and time the two in turns (tensor-core, CUDA-core, CUDA-core,
+    tensor-core); ``ms`` is then the tensor-core variant's mean of its two
+    turns.  ``variants`` needs a head_dim the kernels have."""
     import torch
     import torch.nn.functional as F
     # (the package exports a function under this module's name)
     from mxnet_tpu_torch.ops.kernels.flash_attention import (
         _flash_cuda, _flash_simt_cuda, _flash_tf32x3_cuda, _flash_wgmma_cuda,
-        _flash_wgmma_wide_cuda, _flash_wide_cuda, _variant,
-        flash_attention_reference)
+        _flash_wgmma_wide_cuda, _flash_wgmma_xwide_cuda, _flash_wide_cuda,
+        _variant, flash_attention_reference)
 
     dt = getattr(torch, dtype_name)
     launchers = {"wgmma": _flash_wgmma_cuda,
                  "wgmma_wide": _flash_wgmma_wide_cuda,
+                 "wgmma_xwide": _flash_wgmma_xwide_cuda,
                  "tf32x3": _flash_tf32x3_cuda,
                  "simt": _flash_simt_cuda, "wide": _flash_wide_cuda}
 
@@ -1174,6 +1179,12 @@ def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
 
     q, k, v = rnd(Tq), rnd(Tk), rnd(Tk)
     o, lse = _flash_cuda(q, k, v, causal)
+    variant = _variant(q.dtype, D)
+    repeat_ok = True
+    if variant in CUDA_CORE_TWIN:
+        o2, lse2 = _flash_cuda(q, k, v, causal)
+        repeat_ok = torch.equal(o, o2) and torch.equal(lse, lse2)
+        del o2, lse2
     o_ref, lse_ref = flash_attention_reference(q, k, v, causal,
                                                return_lse=True)
     torch.cuda.synchronize()
@@ -1190,7 +1201,6 @@ def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     nbytes = isz * B * H * D * (2 * Tq + 2 * Tk) + 4 * B * H * Tq
     bounds = _flash_bounds(4.0 * D * B * H * pairs, nbytes, dtype_name)
     args = _copies((q, k, v))
-    variant = _variant(q.dtype, D)
     twin = CUDA_CORE_TWIN.get(variant)
     turns = {}
     if variants:
@@ -1210,7 +1220,7 @@ def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
         "q": [B, Tq, H, D], "k": [B, Tk, H, D],
         "causal": causal, "dtype": dtype_name, "max_abs_err": err,
         "atol": atol, "rtol": rtol, "lse_max_abs_err": lse_err,
-        "ok": ok_o and ok_l,
+        "repeat_bit_identical": repeat_ok, "ok": ok_o and ok_l and repeat_ok,
         "ms": (statistics.mean(turns[variant]) if turns else _time_ms(
             lambda q, k, v: _flash_cuda(q, k, v, causal), args)),
         "plain_ms": _time_ms(lambda q, k, v: flash_attention_reference(
@@ -1235,8 +1245,9 @@ def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
         rec["ok"] = rec["ok"] and ok_to and ok_tl
     _emit(rec)
     _check(rec["ok"], "flash_attention %s %s disagrees with its plain "
-           "version (o err %g, lse err %g%s)" % (
-               rec["q"], variant, err, lse_err,
+           "version or repeats differ (o err %g, lse err %g, repeat "
+           "bit-identical %s%s)" % (
+               rec["q"], variant, err, lse_err, repeat_ok,
                "; %s o err %g, lse err %g" % (twin, twin_err, twin_lse_err)
                if turns else ""))
     return rec
@@ -1389,7 +1400,7 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
         outs, cts = (o_r,), (do,)
     auto = torch.autograd.grad(outs, (qr, kr, vr), cts)
     del o_r, lse_r, outs
-    variant = _variant(q.dtype, D, backward=True)
+    variant = _variant(q.dtype, D)
     auto_rel = 1e-4 if dtype_name == "float32" else (
         XWIDE_AUTOGRAD_REL if variant == "wgmma_xwide" else 2**-6)
     auto_errs = [float((a.float() - b.float()).abs().max())
@@ -1617,8 +1628,9 @@ def phase_kernels():
     # head dims above 128 (160 pads to 192; 320 is three column chunks of
     # at most 128): at padded 192 and 256 the tensor-core forward and
     # backward, wgmma_wide in bf16 and tf32x3 in f32, timed in turns with
-    # their wide twins; f32 and bf16 at 320 on wide.  The wide records are
-    # f32's: the kernels tf32x3 replaced on the f32 leg
+    # their wide twins; f32 at 320 on wide, bf16 there on wgmma_xwide
+    # (below).  The wide records are f32's: the kernels tf32x3 replaced on
+    # the f32 leg
     for dt in ("bfloat16", "float32"):
         fwd = _flash_case(1, 4096, 4096, 16, 256, True, dt, gen,
                           variants=True)
@@ -1643,9 +1655,9 @@ def phase_kernels():
     _flash_bwd_case(1, 4096, 4096, 16, 192, True, "bfloat16", gen)
     _flash_case(1, 1000, 3000, 16, 256, False, "bfloat16", gen)
     _flash_bwd_case(1, 1000, 3000, 16, 256, False, "bfloat16", gen)
-    # bf16 at 320: the forward on wide, the backward on wgmma_xwide (in
-    # turns with wide)
-    _flash_case(2, 1000, 1000, 4, 320, False, "bfloat16", gen)
+    # bf16 at 320: the forward and the backward on wgmma_xwide (in turns
+    # with wide)
+    _flash_case(2, 1000, 1000, 4, 320, False, "bfloat16", gen, variants=True)
     _flash_bwd_case(2, 1000, 1000, 4, 320, False, "bfloat16", gen,
                     variants=True)
     _flash_case(2, 1000, 1000, 4, 320, False, "float32", gen)
@@ -1667,10 +1679,13 @@ def phase_kernels():
                     with_dlse=True)
     _flash_bwd_case(1, 1000, 3000, 16, 64, False, "bfloat16", gen)
     _flash_bwd_case(1, 1000, 3000, 16, 64, True, "bfloat16", gen)
-    # the bf16 backward above 256 on wgmma_xwide, in turns with wide: the
-    # head_dim-512 leg's [2, 8192, 2, 512] (its forward on wide), [1, 4096,
-    # 16, 512] and [1, 4096, 16, 384]
-    _flash_case(2, 8192, 8192, 2, 512, True, "bfloat16", gen)
+    # bf16 above 256 on wgmma_xwide, forward and backward, in turns with
+    # wide: the head_dim-512 leg's [2, 8192, 2, 512], [1, 4096, 16, 512]
+    # and [1, 4096, 16, 384]
+    main["flash_attention.wgmma_xwide"] = _flash_case(
+        2, 8192, 8192, 2, 512, True, "bfloat16", gen, variants=True)
+    _flash_case(1, 4096, 4096, 16, 512, True, "bfloat16", gen, variants=True)
+    _flash_case(1, 4096, 4096, 16, 384, True, "bfloat16", gen, variants=True)
     main["flash_attention_dq.wgmma_xwide"], \
         main["flash_attention_dkv.wgmma_xwide"] = _flash_bwd_case(
             2, 8192, 8192, 2, 512, True, "bfloat16", gen, variants=True)
@@ -5596,6 +5611,8 @@ VARIANT_SOURCES = {
     "flash_attention": {"wgmma": _CSRC + "flash_attention_wgmma.cu",
                         "wgmma_wide":
                             _CSRC + "flash_attention_wgmma_wide.cu",
+                        "wgmma_xwide":
+                            _CSRC + "flash_attention_wgmma_xwide.cu",
                         "tf32x3": _CSRC + "flash_attention_tf32x3.cu",
                         "simt": _CSRC + "flash_attention.cu",
                         "wide": _CSRC + "flash_attention_wide.cu"},
@@ -5732,8 +5749,11 @@ def main():
         "flash_attention_dkv.tf32x3": (
             "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd_tf32x3.cu",
             "mxnet_tpu/ops/pallas/flash_attention.py:179"),
-        # the head_dim-512 leg's: dQ and dK/dV on the tensor-core
-        # wgmma_xwide kernels
+        # the head_dim-512 leg's: the forward, dQ and dK/dV on the
+        # tensor-core wgmma_xwide kernels
+        "flash_attention.wgmma_xwide": (
+            "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_wgmma_xwide.cu",
+            "mxnet_tpu/ops/pallas/flash_attention.py:55"),
         "flash_attention_dq.wgmma_xwide": (
             "mxnet_tpu_torch/ops/kernels/csrc/"
             "flash_attention_bwd_wgmma_xwide.cu",

@@ -31,7 +31,8 @@ _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE.parents[1] / "_build"
 SOURCES = ("rmsnorm", "flash_attention", "flash_attention_wgmma",
-           "flash_attention_wgmma_wide", "flash_attention_bwd",
+           "flash_attention_wgmma_wide", "flash_attention_wgmma_xwide",
+           "flash_attention_bwd",
            "flash_attention_bwd_wgmma", "flash_attention_bwd_wgmma_wide",
            "flash_attention_bwd_wgmma_xwide",
            "flash_attention_tf32x3", "flash_attention_bwd_tf32x3",

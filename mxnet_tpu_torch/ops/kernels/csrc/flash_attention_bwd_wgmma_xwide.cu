@@ -1,6 +1,7 @@
 // Flash-attention backward on Hopper's tensor cores (sm_90a), CUDA C++: the
 // "wgmma_xwide" variant of the backward, for bf16 inputs at head_dim 320,
-// 384, 448 or 512 (the wrapper pads head_dim 257-512 to one of them).
+// 384, 448 or 512 (the wrapper pads head_dim 257-512 to one of them).  Its
+// forward sibling is flash_attention_wgmma_xwide.cu.
 //
 // Replaces, at those widths, the Pallas TPU kernels
 // mxnet_tpu/ops/pallas/flash_attention.py `_dq_kernel` and `_dkv_kernel`

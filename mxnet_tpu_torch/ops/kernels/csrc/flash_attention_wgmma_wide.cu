@@ -64,8 +64,10 @@
 //   (The first warpgroup computes the CTA's last tile, which lies above its
 //   own diagonal, and adds those zeros; the other warpgroup needs it.)
 //
-// Head dims above 256 stay on the CUDA-core `wide` variant: a third
-// 128-column panel pair would put the accumulator alone at 192 registers.
+// Head dims 257-512 take the wgmma_xwide forward
+// (flash_attention_wgmma_xwide.cu): a third 128-column panel pair would put
+// the accumulator alone at 192 registers, so there the two warpgroups
+// split D instead of the query rows.
 //
 // Host side: the tensor maps are built per launch (hopper.cuh).
 // Preconditions, checked by the Python wrapper: bf16, D in {192, 256}, unit
@@ -203,34 +205,6 @@ __device__ __forceinline__ void issue_pv(float (&acc_a)[64],
   wgmma_commit();
 }
 
-// acc *= alpha of its row (register i holds row r0 if (i & 2) == 0)
-template <int N>
-__device__ __forceinline__ void rescale(float (&acc)[N], float al0,
-                                        float al1) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) acc[i] *= (i & 2) ? al1 : al0;
-}
-
-// o's columns c0 .. c0 + 2N - 1 of rows r0 and r1 from acc [N] / l
-template <int N>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* ob,
-                                           const float (&acc)[N], int c0,
-                                           int cq, int r0, int r1, int Tq,
-                                           long long o_st, float safe0,
-                                           float safe1) {
-#pragma unroll
-  for (int n = 0; n < N / 4; ++n) {
-    const int col = c0 + n * 8 + cq;
-    if (r0 < Tq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + r0 * o_st + col) =
-          __floats2bfloat162_rn(acc[4 * n] / safe0, acc[4 * n + 1] / safe0);
-    if (r1 < Tq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + r1 * o_st + col) =
-          __floats2bfloat162_rn(acc[4 * n + 2] / safe1,
-                                acc[4 * n + 3] / safe1);
-  }
-}
-
 // A consumer warpgroup: 64 query rows.  Software-pipelined by one tile:
 // the scores of tile j and the P.V product of tile j - 1 are issued
 // together, and the softmax of tile j runs while that product is in
@@ -333,8 +307,8 @@ __device__ __forceinline__ void consume(uint32_t base, int q0, int h, int b,
   const float safe0 = l0 == 0.f ? 1.f : l0;
   const float safe1 = l1 == 0.f ? 1.f : l1;
   __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
-  store_rows(ob, acc_a, 0, cq, r0, r1, Tq, o_st, safe0, safe1);
-  store_rows(ob, acc_b, 128, cq, r0, r1, Tq, o_st, safe0, safe1);
+  store_o_rows(ob, acc_a, 0, cq, r0, r1, Tq, o_st, safe0, safe1);
+  store_o_rows(ob, acc_b, 128, cq, r0, r1, Tq, o_st, safe0, safe1);
   if ((lane & 3) == 0) {
     float* lb = lse + ((long long)b * H + h) * Tq;
     if (r0 < Tq) lb[r0] = m0 + logf(safe0);

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels: the
 // bf16 flash kernels (flash_attention_wgmma.cu, the forward;
 // flash_attention_bwd_wgmma.cu, dQ and dK/dV; their wgmma_wide twins at
-// head_dim 192 and 256; the wgmma_xwide dQ and dK/dV at head_dim 320-512),
+// head_dim 192 and 256; the wgmma_xwide forward, dQ and dK/dV at head_dim
+// 320-512),
 // the f32 flash kernels at head_dim 192 and 256
 // (tf32x3: the forward, flash_attention_tf32x3.cu; dQ and dK/dV,
 // flash_attention_bwd_tf32x3.cu) and the int8 matmul (int8_matmul.cu).
@@ -10,9 +11,9 @@
 // accumulation; s8 with s32 accumulation), the flash kernels' hi / lo
 // split of an f32 operand (two bf16 terms; two TF32 terms with mma.sync's
 // TF32 product, and the tf32x3 kernels' split fragment loads and f32 row
-// copies) and the bf16 forwards' online-softmax step, and the host-side
-// tensor maps over [B, T, H, D] bf16 tensors and over [rows, K] int8
-// matrices.  Included by each source; everything sits in an anonymous
+// copies), the bf16 forwards' online-softmax step and epilogue, and the
+// host-side tensor maps over [B, T, H, D] bf16 tensors and over [rows, K]
+// int8 matrices.  Included by each source; everything sits in an anonymous
 // namespace, so each library keeps its own copy.
 
 #pragma once
@@ -385,6 +386,38 @@ __device__ __forceinline__ void softmax_step(
   l1 = l1 * al1 + rs1;
   m0 = mn0;
   m1 = mn1;
+}
+
+// The bf16 forwards' epilogue helpers (flash_attention_wgmma_wide.cu,
+// flash_attention_wgmma_xwide.cu), on f32 wgmma accumulators of rows r0
+// and r1 = r0 + 8: acc *= alpha of its row (register i holds row r0 if (i
+// & 2) == 0) ...
+template <int N>
+__device__ __forceinline__ void rescale(float (&acc)[N], float al0,
+                                        float al1) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] *= (i & 2) ? al1 : al0;
+}
+
+// ... and o's columns c0 .. c0 + 2N - 1 of rows r0 and r1 from acc [N] /
+// l, rows at and past Tq not written
+template <int N>
+__device__ __forceinline__ void store_o_rows(__nv_bfloat16* ob,
+                                             const float (&acc)[N], int c0,
+                                             int cq, int r0, int r1, int Tq,
+                                             long long o_st, float safe0,
+                                             float safe1) {
+#pragma unroll
+  for (int n = 0; n < N / 4; ++n) {
+    const int col = c0 + n * 8 + cq;
+    if (r0 < Tq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + r0 * o_st + col) =
+          __floats2bfloat162_rn(acc[4 * n] / safe0, acc[4 * n + 1] / safe0);
+    if (r1 < Tq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + r1 * o_st + col) =
+          __floats2bfloat162_rn(acc[4 * n + 2] / safe1,
+                                acc[4 * n + 3] / safe1);
+  }
 }
 
 // The wide backwards' products (flash_attention_bwd_wgmma_wide.cu,

@@ -20,9 +20,9 @@ head_dim 16, 32, 64 or 128, or above 128 any multiple of 64; any other
 head_dim is zero-padded along D to the next of those widths (a layout copy:
 zero columns add 0 to q·kᵀ and dO·Vᵀ), run at that width with ``scale``
 fixed from the real head_dim, and sliced back (:func:`_padded_dim`).  Only
-head_dim 0 raises.  The variants are chosen by one rule on dtype, padded
-head_dim and direction alone (:func:`_variant`), never by whether a build
-or a launch worked; there are six:
+head_dim 0 raises.  The variants are chosen by one rule on dtype and padded
+head_dim alone, the same for both directions (:func:`_variant`), never by
+whether a build or a launch worked; there are six:
 
 * ``wgmma`` — tensor cores (wgmma, TMA rings, the f32 operands p and ds
   split into two bf16 terms): bf16 at head_dim 64 or 128 (the flagship's
@@ -54,13 +54,16 @@ or a launch worked; there are six:
   forward's ``acc·alpha + pv``).  mma.sync, 16-byte ``cp.async`` copies:
   the same 16-byte preconditions as ``wgmma`` (:func:`_tma_fault`) and
   the same copy of ``dO``;
-* ``wgmma_xwide`` — tensor cores, the backward only (dQ and dK/dV): bf16
-  at a padded head_dim of 320, 384, 448 or 512 (head_dim 257-512)
-  (``csrc/flash_attention_bwd_wgmma_xwide.cu``: ``wgmma_wide``'s layout
+* ``wgmma_xwide`` — tensor cores: bf16 at a padded head_dim of 320, 384,
+  448 or 512 (head_dim 257-512), both ways.  Forward
+  ``csrc/flash_attention_wgmma_xwide.cu`` (CTAs of 64 query rows whose two
+  consumer warpgroups split o's columns and the score product's head
+  dims, the partial scores summed through shared memory); backward
+  ``csrc/flash_attention_bwd_wgmma_xwide.cu`` (``wgmma_wide``'s layout
   with streamed tiles of 32 rows above 320, and dK/dV's output columns
   cut into two windows on a grid axis, each window's CTA recomputing the
   scores over all of D).  The same preconditions and the same copy of
-  ``dO`` as ``wgmma``.  The bf16 forward at these widths stays ``wide``;
+  ``dO`` as ``wgmma``;
 * ``simt`` — CUDA cores: f32 up to head_dim 128, and head_dim 16 or 32
   (less than one 128-byte row of the swizzled tiles the wgmma variant
   reads).  Forward ``csrc/flash_attention.cu``; backward
@@ -70,8 +73,7 @@ or a launch worked; there are six:
   most 128 output columns, so any head_dim fits
   (``csrc/flash_attention_wide.cu``: forward, dQ and dK/dV).  f32 above
   256 both ways (a wider f32 row would not fit the ``tf32x3`` kernels'
-  shared memory), the bf16 forward above 256, and bf16 above 512 both
-  ways.
+  shared memory) and bf16 above 512 both ways.
 
 Every forward launch counts as ``kernels.launch.flash_attention`` and as
 ``kernels.launch.flash_attention.<variant>``; every backward launch as
@@ -99,7 +101,7 @@ __all__ = ["flash_attention", "flash_attention_lse", "flash_self_attention",
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)      # the widths the kernels are built for
-# the tensor-core variants' widths (wgmma_xwide: the backward only, for now)
+# the tensor-core variants' widths
 _TC_WIDTHS = {"wgmma": (64, 128), "wgmma_wide": (192, 256),
               "tf32x3": (192, 256), "wgmma_xwide": (320, 384, 448, 512)}
 # ... and the dtype each takes
@@ -276,21 +278,19 @@ def _pad_d(t, width):
     return t if D == width else torch.nn.functional.pad(t, (0, width - D))
 
 
-def _variant(dtype, head_dim, backward=False):
-    """The flash kernels for ``dtype``, ``head_dim`` (1 and up) and the
-    direction, by the padded width (:func:`_padded_dim`): ``"wgmma"`` for
-    bf16 at 64 or 128, ``"wgmma_wide"`` for bf16 at 192 or 256,
-    ``"tf32x3"`` for f32 at 192 or 256 (split-TF32 products on the tensor
-    cores: three TF32 products of the operands' hi / lo terms, under
-    3·2^-20 relative a product, where one TF32 product leaves 2^-11), all
-    three both ways; for the ``backward`` (dQ and dK/dV),
-    ``"wgmma_xwide"`` for bf16 at 320, 384, 448 or 512; ``"wide"`` for
-    every other width above 128 (f32 above 256, the bf16 forward above
+def _variant(dtype, head_dim):
+    """The flash kernels for ``dtype`` and ``head_dim`` (1 and up), one rule
+    for the forward and the backward (dQ and dK/dV), by the padded width
+    (:func:`_padded_dim`): ``"wgmma"`` for bf16 at 64 or 128,
+    ``"wgmma_wide"`` for bf16 at 192 or 256, ``"wgmma_xwide"`` for bf16 at
+    320, 384, 448 or 512, ``"tf32x3"`` for f32 at 192 or 256 (split-TF32
+    products on the tensor cores: three TF32 products of the operands' hi
+    / lo terms, under 3·2^-20 relative a product, where one TF32 product
+    leaves 2^-11); ``"wide"`` for every other width above 128 (f32 above
     256, bf16 above 512); ``"simt"`` for the rest (f32 up to 128; bf16 up
     to 32)."""
     width = _padded_dim(head_dim)
-    for variant in ("wgmma", "wgmma_wide", "tf32x3") + (
-            ("wgmma_xwide",) if backward else ()):
+    for variant in ("wgmma", "wgmma_wide", "wgmma_xwide", "tf32x3"):
         if dtype == _TC_DTYPE[variant] and width in _TC_WIDTHS[variant]:
             return variant
     if head_dim > _HEAD_DIMS[-1]:
@@ -333,7 +333,7 @@ def _tma_fault(name, t):
 
 def _check_wgmma(q, k, v, do=None, variant="wgmma"):
     """Raise :class:`ValueError` on inputs the tensor-core variants
-    (``wgmma``, ``wgmma_wide``, ``tf32x3``) cannot read
+    (``wgmma``, ``wgmma_wide``, ``wgmma_xwide``, ``tf32x3``) cannot read
     (:func:`_tma_fault`): q, k, v and, for the backward, ``do``.  Never a
     reason to take another variant."""
     named = (("q", q), ("k", k), ("v", v)) + (
@@ -382,6 +382,7 @@ def _flash_simt_cuda(q, k, v, causal=True, scale=None, kv_len=None):
 _FWD_TC = {
     "wgmma": ("flash_attention_wgmma", "mxt_flash_wgmma"),
     "wgmma_wide": ("flash_attention_wgmma_wide", "mxt_flash_wgmma_wide"),
+    "wgmma_xwide": ("flash_attention_wgmma_xwide", "mxt_flash_wgmma_xwide"),
     "tf32x3": ("flash_attention_tf32x3", "mxt_flash_tf32x3"),
 }
 
@@ -429,6 +430,14 @@ def _flash_wgmma_wide_cuda(q, k, v, causal=True, scale=None, kv_len=None):
     on inputs it does not take (:func:`_check_wgmma`): never a hand-off to
     the wide variant."""
     return _flash_tc_cuda("wgmma_wide", q, k, v, causal, scale, kv_len)
+
+
+def _flash_wgmma_xwide_cuda(q, k, v, causal=True, scale=None, kv_len=None):
+    """Launch the tensor-core forward ``csrc/flash_attention_wgmma_xwide.cu``
+    on bf16 inputs with head_dim 320, 384, 448 or 512; returns ``(o,
+    lse)``.  Raises on inputs it does not take (:func:`_check_tc_width`,
+    :func:`_check_wgmma`): never a hand-off to the wide variant."""
+    return _flash_tc_cuda("wgmma_xwide", q, k, v, causal, scale, kv_len)
 
 
 def _flash_tf32x3_cuda(q, k, v, causal=True, scale=None, kv_len=None):
@@ -493,6 +502,7 @@ def _flash_cuda(q, k, v, causal=True, scale=None, kv_len=None):
     width = _padded_dim(D)
     launch = {"wgmma": _flash_wgmma_cuda,
               "wgmma_wide": _flash_wgmma_wide_cuda,
+              "wgmma_xwide": _flash_wgmma_xwide_cuda,
               "tf32x3": _flash_tf32x3_cuda,
               "simt": _flash_simt_cuda,
               "wide": _flash_wide_cuda}[_variant(q.dtype, D)]
@@ -771,8 +781,8 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, dlse=None, causal=True,
     """The backward on CUDA tensors: ``delta`` with torch ops on the
     unpadded o and dO, then q, k, v and dO padded along D to
     :func:`_padded_dim` and the dQ and the dK/dV kernel of the variant
-    :func:`_variant` names for the backward; the gradients sliced back.  Returns ``(dq,
-    dk, dv)``, contiguous, in the input dtype.  ``scale=None`` is 1/√D of
+    :func:`_variant` names; the gradients sliced back.  Returns ``(dq, dk,
+    dv)``, contiguous, in the input dtype.  ``scale=None`` is 1/√D of
     the real head_dim.  ``dO`` is read through its strides (copied if its
     head_dim axis is not unit-stride, or, for the tensor-core variants, if
     its layout fails :func:`_tma_fault`)."""
@@ -793,7 +803,7 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, dlse=None, causal=True,
     delta = _delta(o, do, dlse)
     width = _padded_dim(D)
     q, k, v, do = (_pad_d(t, width) for t in (q, k, v, do))
-    variant = _variant(q.dtype, D, backward=True)
+    variant = _variant(q.dtype, D)
     if variant in _BWD_TC and _tma_fault("dO", do):
         do = do.clone(memory_format=torch.contiguous_format)
     launch_dq, launch_dkv = {

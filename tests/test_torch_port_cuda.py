@@ -23,13 +23,16 @@ RMSNorm variant (warp, block, simt), planned and forced, is held to its
 plain version at those tolerances at the main paths' shapes and at the
 edges (odd E, offset views, strided rows, 1-8 rows, 128 KB rows), two
 calls bit-identical, with 0 ptxas spills in every instantiation.  Head dims
-above 256 take the flash kernels' wide variant in f32 and in bf16, held
-to the plain versions at the padded cases' tolerances.  bf16 at
+above 256 take the flash kernels' wide variant in f32, and above 512 in
+bf16, held to the plain versions at the padded cases' tolerances.  bf16 at
 head_dim 129-256 takes the tensor-core ``wgmma_wide`` kernels, forward and
 backward, held as the wgmma ones are (plain version, dense autograd for
 the backward, kv_len, fused-qkv views, a strided dO, misaligned inputs,
 two calls bit-identical), and a TransformerLM with head_dim 256 prefills
-through them as through the plain versions.  The f32 backward at
+through them as through the plain versions.  bf16 at head_dim 257-512
+takes the tensor-core ``wgmma_xwide`` kernels, forward and backward, held
+the same way (the backward against dense autograd within 6.5e-3 of each
+gradient's largest entry).  The f32 backward at
 head_dim 129-256 takes the tensor-core ``tf32x3`` dQ and dK/dV
 (split-TF32 products), held at the f32 gradient tolerances to the plain
 backward and within 1e-4 of each gradient's largest entry to dense
@@ -103,7 +106,8 @@ from mxnet_tpu_torch.ops.kernels.int8_matmul import (
 from mxnet_tpu_torch.ops.kernels.flash_attention import (
     _delta, _flash_bwd_cuda, _flash_cuda, _flash_dkv_wgmma_cuda,
     _flash_dq_wgmma_cuda, _flash_simt_cuda, _flash_tf32x3_cuda,
-    _flash_wgmma_cuda, _flash_wgmma_wide_cuda, flash_attention,
+    _flash_wgmma_cuda, _flash_wgmma_wide_cuda, _flash_wgmma_xwide_cuda,
+    flash_attention,
     flash_attention_bwd_reference,
     flash_attention_lse, flash_attention_reference)
 from mxnet_tpu_torch.ops.kernels.layers import (
@@ -409,14 +413,16 @@ def test_flash_wgmma_reads_fused_qkv_views(dev, D):
 
 
 @pytest.mark.parametrize("launch", [_flash_wgmma_cuda, _flash_simt_cuda,
-                                    _flash_wgmma_wide_cuda])
+                                    _flash_wgmma_wide_cuda,
+                                    _flash_wgmma_xwide_cuda])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kv_len_and_rows_without_keys(dev, launch, causal):
     """``kv_len`` (``_fwd``'s argument) masks keys at and past it: the same
     as attending over the first kv_len keys; with kv_len 0 every row has l
     = 0 and gets o = 0 and the finite lse -1e30, in every variant (the
-    wgmma_wide one at head_dim 256)."""
-    D = 256 if launch is _flash_wgmma_wide_cuda else 128
+    wgmma_wide one at head_dim 256, the wgmma_xwide one at 512)."""
+    D = {_flash_wgmma_wide_cuda: 256,
+         _flash_wgmma_xwide_cuda: 512}.get(launch, 128)
     q, k, v = _qkv(dev, 1, 200, 300, 2, D, seed=4)
     o, lse = launch(q, k, v, causal, kv_len=0)
     assert not o.any()
@@ -433,9 +439,10 @@ def test_flash_kv_len_and_rows_without_keys(dev, launch, causal):
     (torch.bfloat16, 32, "simt"), (torch.bfloat16, 16, "simt"),
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
     (torch.bfloat16, 256, "wgmma_wide"), (torch.bfloat16, 192, "wgmma_wide"),
-    (torch.bfloat16, 320, "wide"), (torch.float32, 256, "tf32x3"),
+    (torch.bfloat16, 320, "wgmma_xwide"), (torch.float32, 256, "tf32x3"),
     (torch.float32, 192, "tf32x3"), (torch.float32, 160, "tf32x3"),
-    (torch.float32, 320, "wide")])
+    (torch.float32, 320, "wide"), (torch.bfloat16, 512, "wgmma_xwide"),
+    (torch.bfloat16, 576, "wide")])
 def test_flash_forward_variant_counters(dev, dtype, D, variant):
     q, k, v = _qkv(dev, 1, 70, 70, 2, D, dtype)
     common.reset_counts()
@@ -899,6 +906,104 @@ def test_flash_autograd_bf16_head_dim_256_launches_wgmma_wide(dev):
 
 
 # ---------------------------------------------------------------------------
+# flash forward: the tensor-core wgmma_xwide variant, bf16 at D 320-512
+# ---------------------------------------------------------------------------
+WGMMA_XWIDE_FWD_CASES = [
+    # (B, Tq, Tk, H, D, causal); CTAs own 64 query rows, key tiles of 64
+    # (32 at 448 and 512), the two warpgroups split D's panels 3 + 2 (320),
+    # 3 + 3, 4 + 3, 4 + 4; D 257 pads to 320, 400 to 448
+    (1, 1, 1, 2, 512, True),
+    (1, 1, 1, 2, 320, False),
+    (2, 63, 63, 2, 512, True),
+    (1, 65, 65, 2, 384, True),
+    (1, 127, 127, 3, 257, False),
+    (1, 129, 129, 2, 448, True),
+    (1, 129, 129, 2, 400, True),
+    (1, 1000, 3000, 2, 512, False),
+    (1, 1000, 3000, 2, 320, False),
+    (1, 2000, 2000, 2, 512, True),
+    (1, 2000, 2000, 2, 384, True),
+    (1, 20, 300, 2, 512, True),      # causal, Tq < Tk (top-left aligned)
+    (1, 65, 200, 2, 400, True),
+    (1, 300, 70, 2, 512, True),      # causal, Tq > Tk
+    (1, 300, 70, 2, 448, True),
+    (1, 1, 129, 2, 384, False),
+    (2, 333, 333, 2, 320, True),
+    (1, 777, 777, 4, 257, True),
+]
+
+
+@pytest.mark.parametrize("case", WGMMA_XWIDE_FWD_CASES)
+def test_flash_wgmma_xwide_matches_plain(dev, case):
+    """The wgmma_xwide forward against the plain version: o within one
+    bf16 rounding, lse within 1e-4 + 1e-5·|lse|, one launch of it, and
+    two calls bit-identical."""
+    B, Tq, Tk, H, D, causal = case
+    q, k, v = _qkv(dev, B, Tq, Tk, H, D)
+    common.reset_counts()
+    o, lse = _flash_cuda(q, k, v, causal)
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention": 1,
+        "kernels.launch.flash_attention.wgmma_xwide": 1}
+    ro, rlse = flash_attention_reference(q, k, v, causal, return_lse=True)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert o.shape == q.shape and o.is_contiguous()
+    np.testing.assert_allclose(_np(o), _np(ro), **BF16_ONE_ROUNDING)
+    np.testing.assert_allclose(_np(lse), _np(rlse), rtol=1e-5, atol=1e-4)
+    o2, lse2 = _flash_cuda(q, k, v, causal)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def test_flash_wgmma_xwide_forward_does_not_spill(dev):
+    """ptxas: the wgmma_xwide forward at each of its 4 widths, 0 bytes of
+    spills."""
+    src = "flash_attention_wgmma_xwide"
+    log = _build.build([src])[src]["log"]
+    lines = [ln for ln in log.splitlines() if "spill stores" in ln]
+    assert len(lines) == 4, log
+    assert all(" 0 bytes spill stores, 0 bytes spill loads" in ln
+               for ln in lines), log
+
+
+@pytest.mark.parametrize("D", [320, 448, 512])
+def test_flash_wgmma_xwide_reads_fused_qkv_views(dev, D):
+    """q/k/v as [B, T, H, D] views of one [B, T, 3·H·D] product: no copy,
+    the same bits as contiguous copies."""
+    B, T, H = 2, 333, 3
+    g = torch.Generator(device=dev).manual_seed(3)
+    qkv = torch.randn(B, T, 3 * H * D, generator=g, device=dev,
+                      dtype=torch.bfloat16)
+    q, k, v = (t.view(B, T, H, D) for t in qkv.split(H * D, -1))
+    assert not q.is_contiguous()
+    o, lse = _flash_wgmma_xwide_cuda(q, k, v)
+    o2, lse2 = _flash_wgmma_xwide_cuda(q.contiguous(), k.contiguous(),
+                                       v.contiguous())
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ro, rlse = flash_attention_reference(q, k, v, return_lse=True)
+    np.testing.assert_allclose(_np(o), _np(ro), **BF16_ONE_ROUNDING)
+    np.testing.assert_allclose(_np(lse), _np(rlse), rtol=1e-5, atol=1e-4)
+
+
+def test_flash_wgmma_xwide_refuses_misaligned_inputs(dev):
+    """The wgmma_xwide forward raises on inputs its TMA copies cannot read,
+    before any launch; it never hands them to the wide variant."""
+    B, T, H, D = 1, 64, 2, 512
+    flat = torch.randn(B * T * H * D + 1, device=dev, dtype=torch.bfloat16)
+    q = flat[1:].view(B, T, H, D)                     # base 2 bytes off
+    k = torch.randn(B, T, H, D, device=dev, dtype=torch.bfloat16)
+    common.reset_counts()
+    with pytest.raises(ValueError, match="wgmma_xwide variant.*16-byte"):
+        flash_attention(q, k, k)
+    wide = torch.randn(B, T, H * D + 4, device=dev, dtype=torch.bfloat16)
+    k2 = wide[..., :H * D].view(B, T, H, D)           # T stride 1028
+    with pytest.raises(ValueError, match="wgmma_xwide variant.*T stride 1028"):
+        _flash_cuda(k, k, k2)
+    assert common.launch_counts() == {}
+    with pytest.raises(ValueError, match="wgmma_xwide variant"):
+        _flash_wgmma_xwide_cuda(*_qkv(dev, 1, 8, 8, 2, 512, torch.float32))
+
+
+# ---------------------------------------------------------------------------
 # flash backward: the tensor-core wgmma_xwide variant, bf16 at D 320-512
 # ---------------------------------------------------------------------------
 XWIDE_AUTOGRAD_REL = 6.5e-3
@@ -1014,8 +1119,8 @@ def test_flash_bwd_wgmma_xwide_refuses_misaligned_inputs(dev):
 
 
 def test_flash_autograd_bf16_head_dim_512_launches_wgmma_xwide(dev):
-    """Autograd of ``flash_attention`` at bf16 head_dim 512: the forward
-    on wide, dQ and dK/dV on wgmma_xwide, one each."""
+    """Autograd of ``flash_attention`` at bf16 head_dim 512: the forward,
+    dQ and dK/dV on wgmma_xwide, one each."""
     B, T, H, D = 1, 130, 2, 512
     g = torch.Generator(device=dev).manual_seed(2)
     q, k, v = (torch.randn(B, T, H, D, generator=g, device=dev,
@@ -1026,7 +1131,7 @@ def test_flash_autograd_bf16_head_dim_512_launches_wgmma_xwide(dev):
     (o.float().square().sum() + lse.tanh().sum()).backward()
     assert common.launch_counts() == {
         "kernels.launch.flash_attention": 1,
-        "kernels.launch.flash_attention.wide": 1,
+        "kernels.launch.flash_attention.wgmma_xwide": 1,
         "kernels.launch.flash_attention_dq": 1,
         "kernels.launch.flash_attention_dq.wgmma_xwide": 1,
         "kernels.launch.flash_attention_dkv": 1,
@@ -1317,13 +1422,13 @@ def test_flash_autograd_f32_head_dim_256_launches_tf32x3(dev):
 # head dims the kernels do not have: zero-padded along D on the card
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [48, 80, 96, 160, 256, 320])
+@pytest.mark.parametrize("D", [48, 80, 96, 160, 256, 320, 576])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_padded_head_dims_match_plain(dev, D, dtype, causal):
     """Forward and backward at head_dim 48, 80 and 96 (padded to 64, 128
-    and 128) and above 128 (160 padded to 192, 256, 320: the wide variant,
-    but at 160 and 256, which take wgmma_wide in bf16 and tf32x3 in f32,
-    and the bf16 backward at 320, which takes wgmma_xwide):
+    and 128) and above 128 (160 padded to 192, 256, 320, 576: the wide
+    variant, but at 160 and 256, which take wgmma_wide in bf16 and tf32x3
+    in f32, and bf16 at 320, which takes wgmma_xwide both ways):
     no ValueError, the plain version's results, ``scale`` from the real
     head_dim, and the padded variant's launches."""
     B, Tq, Tk, H = 1, 150, 150, 2
@@ -1332,13 +1437,13 @@ def test_flash_padded_head_dims_match_plain(dev, D, dtype, causal):
                                                   causal, dtype)
     if 128 < D <= 256:
         variant = "wgmma_wide" if dtype == torch.bfloat16 else "tf32x3"
+    elif dtype == torch.bfloat16 and 256 < D <= 512:
+        variant = "wgmma_xwide"
     elif D > 128:
         variant = "wide"
     else:
         variant = "wgmma" if dtype == torch.bfloat16 else "simt"
     bwd_variant = variant
-    if dtype == torch.bfloat16 and 256 < D <= 512:
-        bwd_variant = "wgmma_xwide"
     assert common.launch_counts() == {
         "kernels.launch.flash_attention": 1,
         "kernels.launch.flash_attention.%s" % variant: 1}

@@ -1,8 +1,7 @@
 """The flash kernels' CUDA variants, from the Python side, on the CPU.
 
-Which variant a dtype / head_dim / direction selects (one rule,
-``_variant``), how a head
-dim the kernels lack is padded to a kernel width with the real head_dim's
+Which variant a dtype / head_dim selects (one rule for the forward and the
+backward, ``_variant``), how a head dim the kernels lack is padded to a kernel width with the real head_dim's
 scale, how the tensor-core variants' tensor maps see a tensor's strides,
 and that their precondition check raises with a message (and never hands an
 input to the other variant).  None of these needs a card: the checks run on
@@ -43,7 +42,8 @@ def test_variant_by_dtype_and_head_dim(dtype, D, variant):
 @pytest.mark.parametrize("dtype,D,variant", [
     (BF16, 129, "wgmma_wide"), (BF16, 160, "wgmma_wide"),
     (BF16, 192, "wgmma_wide"), (BF16, 193, "wgmma_wide"),
-    (BF16, 256, "wgmma_wide"), (BF16, 257, "wide"), (BF16, 320, "wide"),
+    (BF16, 256, "wgmma_wide"), (BF16, 257, "wgmma_xwide"),
+    (BF16, 320, "wgmma_xwide"),
     pytest.param(torch.float32, 192, "tf32x3", id="dtype7-192-tf32x3"),
     pytest.param(torch.float32, 256, "tf32x3", id="dtype8-256-tf32x3"),
     (BF16, 128, "wgmma")])
@@ -51,25 +51,21 @@ def test_backward_above_128_takes_wgmma_wide_for_bf16_up_to_256(dtype, D,
                                                                 variant):
     """Above head_dim 128 the forward and the backward take the tensor-core
     wgmma_wide kernels for bf16 at the padded widths 192 and 256; f32 there
-    takes the tensor-core tf32x3 kernels both ways.  Beyond 256 the bf16
-    forward takes wide and the bf16 backward the tensor-core wgmma_xwide
-    kernels."""
+    takes the tensor-core tf32x3 kernels both ways.  Beyond 256 bf16 takes
+    the tensor-core wgmma_xwide kernels, forward and backward: one rule
+    for both directions."""
     assert fa._variant(dtype, D) == variant
-    bwd = "wgmma_xwide" if dtype == BF16 and D > 256 else variant
-    assert fa._variant(dtype, D, backward=True) == bwd
 
 
 @pytest.mark.parametrize("D,width", [(257, 320), (320, 320), (321, 384),
                                      (384, 384), (400, 448), (448, 448),
                                      (512, 512)])
 def test_bf16_backward_at_257_to_512_takes_wgmma_xwide(D, width):
-    """The bf16 backward at head_dim 257-512 (padded to 320, 384, 448 or
-    512) takes the tensor-core wgmma_xwide kernels; the bf16 forward there
-    stays on wide."""
+    """bf16 at head_dim 257-512 (padded to 320, 384, 448 or 512) takes the
+    tensor-core wgmma_xwide kernels, the backward and the forward alike."""
     assert fa._padded_dim(D) == width
     assert width in fa._TC_WIDTHS["wgmma_xwide"]
-    assert fa._variant(BF16, D, backward=True) == "wgmma_xwide"
-    assert fa._variant(BF16, D) == "wide"
+    assert fa._variant(BF16, D) == "wgmma_xwide"
 
 
 @pytest.mark.parametrize("dtype,D", [
@@ -79,15 +75,15 @@ def test_bf16_above_512_and_f32_above_256_stay_wide_both_ways(dtype, D):
     """bf16 above head_dim 512 and f32 above 256 take the wide kernels,
     forward and backward."""
     assert fa._variant(dtype, D) == "wide"
-    assert fa._variant(dtype, D, backward=True) == "wide"
 
 
 @pytest.mark.parametrize("dtype,D,variant", [
     (BF16, 64, "wgmma"), (BF16, 128, "wgmma"), (BF16, 32, "simt"),
     (torch.float32, 128, "simt"), (BF16, 256, "wgmma_wide"),
     (torch.float32, 192, "tf32x3"), (BF16, 192, "wgmma_wide"),
-    (BF16, 320, "wide"), (torch.float32, 160, "tf32x3"),
-    (torch.float32, 256, "tf32x3"), (torch.float32, 320, "wide")])
+    (BF16, 320, "wgmma_xwide"), (torch.float32, 160, "tf32x3"),
+    (torch.float32, 256, "tf32x3"), (torch.float32, 320, "wide"),
+    (BF16, 512, "wgmma_xwide"), (BF16, 576, "wide")])
 def test_flash_cuda_dispatches_by_variant(monkeypatch, dtype, D, variant):
     """``_flash_cuda`` hands the inputs to the launcher its variant names,
     with the caller's arguments (160 padded to 192), and returns what it
@@ -100,7 +96,8 @@ def test_flash_cuda_dispatches_by_variant(monkeypatch, dtype, D, variant):
             return q, "lse"
         return launch
 
-    for name in ("wgmma", "wgmma_wide", "tf32x3", "simt", "wide"):
+    for name in ("wgmma", "wgmma_wide", "wgmma_xwide", "tf32x3", "simt",
+                 "wide"):
         monkeypatch.setattr(fa, "_flash_%s_cuda" % name, launcher(name))
     q = torch.zeros(1, 5, 2, D, dtype=dtype)
     o, lse = fa._flash_cuda(q, q, q, False, 0.5, 3)
@@ -204,18 +201,20 @@ def test_head_dim_zero_raises():
 
 @pytest.mark.parametrize("dtype", [BF16, torch.float32])
 @pytest.mark.parametrize("D,width", [(129, 192), (160, 192), (256, 256),
-                                     (320, 320)])
+                                     (320, 320), (257, 320), (400, 448),
+                                     (512, 512), (576, 576)])
 def test_head_dims_above_128_reach_wide(monkeypatch, dtype, D, width):
     """Above 128 the forward, dQ and dK/dV go to the wide launchers or, up
     to 256, the wgmma_wide ones for bf16 and the tf32x3 ones for f32, at
     the width padded to a multiple of 64, with ``scale`` 1/√D of the real
-    D; the outputs come back at D.  Above 256 the bf16 backward goes to
-    the wgmma_xwide launchers."""
+    D; the outputs come back at D.  From 257 to 512 bf16 goes to the
+    wgmma_xwide launchers, forward and backward."""
     fwd = []
     variant = "wide"
     if D <= 256:
         variant = "wgmma_wide" if dtype == BF16 else "tf32x3"
-    bwd_variant = "wgmma_xwide" if dtype == BF16 and D > 256 else variant
+    elif D <= 512 and dtype == BF16:
+        variant = "wgmma_xwide"
 
     def launch(q, k, v, causal, scale, kv_len):
         fwd.append((q.shape[-1], k.shape[-1], v.shape[-1], scale))
@@ -225,7 +224,8 @@ def test_head_dims_above_128_reach_wide(monkeypatch, dtype, D, width):
     def refuse(*a):
         raise AssertionError("another variant ran")
 
-    for name in ("wgmma", "wgmma_wide", "tf32x3", "simt", "wide"):
+    for name in ("wgmma", "wgmma_wide", "wgmma_xwide", "tf32x3", "simt",
+                 "wide"):
         monkeypatch.setattr(fa, "_flash_%s_cuda" % name,
                             launch if name == variant else refuse)
     bwd = []
@@ -236,8 +236,8 @@ def test_head_dims_above_128_reach_wide(monkeypatch, dtype, D, width):
     assert o.shape == q.shape and o.is_contiguous()
     grads = fa._flash_bwd_cuda(q, q, q, o, lse, q)
     assert [c[:5] for c in bwd] == [
-        ("dq_" + bwd_variant, width, width, True, 1.0 / D ** 0.5),
-        ("dkv_" + bwd_variant, width, width, True, 1.0 / D ** 0.5)]
+        ("dq_" + variant, width, width, True, 1.0 / D ** 0.5),
+        ("dkv_" + variant, width, width, True, 1.0 / D ** 0.5)]
     assert all(g.shape == q.shape and g.is_contiguous() for g in grads)
 
 
@@ -645,6 +645,43 @@ def test_tf32x3_forward_launcher_refuses_before_any_build(monkeypatch,
         match = "tf32x3 variant.*%s's base address is not 16-byte" % case
     with pytest.raises(ValueError, match=match):
         fa._flash_tf32x3_cuda(*args)
+    assert common.launch_counts() == {}
+
+
+@pytest.mark.parametrize("case", [
+    "f32", "bf16_256", "bf16_576", "q", "k", "v", "k_stride"])
+def test_wgmma_xwide_forward_launcher_refuses_before_any_build(monkeypatch,
+                                                               case):
+    """The wgmma_xwide forward launcher takes bf16 at head_dim 320, 384,
+    448 or 512 only, read through TMA (bases 16-byte aligned, (B, T, H)
+    strides multiples of 8 elements), and raises on anything else before
+    it builds or counts anything; never a hand-off to the wide kernel."""
+    from mxnet_tpu_torch.ops.kernels import _build, common
+
+    def no_build(*a, **k):
+        raise AssertionError("built a kernel")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    common.reset_counts()
+    shape = (1, 8, 2, 512)
+    args = [torch.zeros(shape, dtype=BF16) for _ in range(3)]
+    if case in ("f32", "bf16_256", "bf16_576"):
+        dtype, D = {"f32": (torch.float32, 512), "bf16_256": (BF16, 256),
+                    "bf16_576": (BF16, 576)}[case]
+        args = [torch.zeros(1, 8, 2, D, dtype=dtype)] * 3
+        match = ("wgmma_xwide variant.*takes bf16 with head_dim in "
+                 "\\(320, 384, 448, 512\\); got %s, head_dim %d"
+                 % (dtype, D))
+    elif case == "k_stride":
+        wide = torch.zeros(1, 8, 2 * 512 + 4, dtype=BF16)   # T stride 1028
+        args[1] = wide[..., :2 * 512].view(shape)
+        match = "wgmma_xwide variant.*k's T stride 1028 is not a multiple of 8"
+    else:
+        i = ("q", "k", "v").index(case)
+        args[i] = _misaligned(shape, BF16)
+        match = "wgmma_xwide variant.*%s's base address is not 16-byte" % case
+    with pytest.raises(ValueError, match=match):
+        fa._flash_wgmma_xwide_cuda(*args)
     assert common.launch_counts() == {}
 
 

@@ -302,15 +302,17 @@ def _plain_launchers(monkeypatch):
     that ``_flash_cuda`` / ``_flash_bwd_cuda`` run on CPU tensors: their
     padding along D, the real-D scale and the slicing back run as on the
     card, with the plain arithmetic in place of the kernels.  Returns the
-    module, the forward's widths and the backward's variants, one per
-    backward."""
+    module, the forward's (variant, width) pairs and the backward's
+    variants, one per call."""
     fa = importlib.import_module("mxnet_tpu_torch.ops.kernels.flash_attention")
     widths, bwd_variants = [], []
 
-    def fwd(q, k, v, causal, scale, kv_len):
-        widths.append(q.shape[-1])
-        return flash_attention_reference(q, k, v, causal, scale,
-                                         return_lse=True)
+    def fwd_launcher(variant):
+        def fwd(q, k, v, causal, scale, kv_len):
+            widths.append((variant, q.shape[-1]))
+            return flash_attention_reference(q, k, v, causal, scale,
+                                             return_lse=True)
+        return fwd
 
     def bwd(q, k, v, do, lse, delta, causal, scale):
         # o = 0 and dlse = -delta make the plain version's delta this one
@@ -324,9 +326,10 @@ def _plain_launchers(monkeypatch):
         return dq
 
     # head_dim 129-256 runs forward and backward on wgmma_wide in bf16, on
-    # tf32x3 in f32; the bf16 backward at 257-512 on wgmma_xwide
-    for name in ("wgmma", "simt", "wide", "wgmma_wide", "tf32x3"):
-        monkeypatch.setattr(fa, "_flash_%s_cuda" % name, fwd)
+    # tf32x3 in f32; bf16 at 257-512 on wgmma_xwide, both ways
+    for name in ("wgmma", "simt", "wide", "wgmma_wide", "tf32x3",
+                 "wgmma_xwide"):
+        monkeypatch.setattr(fa, "_flash_%s_cuda" % name, fwd_launcher(name))
     for name in ("wgmma", "simt", "wide", "wgmma_wide", "tf32x3",
                  "wgmma_xwide"):
         monkeypatch.setattr(fa, "_flash_dq_%s_cuda" % name, dq_launcher(name))
@@ -360,7 +363,7 @@ def test_padded_head_dims_match_pallas_kernels(monkeypatch, D, width, dtype):
     want = vjp((jnp.asarray(do), jnp.asarray(dlse)))
     tq, tk, tv = (_to_torch(a) for a in (q, k, v))
     o, lse = fa._flash_cuda(tq, tk, tv, causal)
-    assert widths == [width]
+    assert widths == [(fa._variant(tq.dtype, D), width)]
     assert o.shape == (B, T, H, D) and o.dtype == tq.dtype
     tol = F32_FLASH_TOL if dtype == "float32" else BF16_ONE_ROUNDING
     np.testing.assert_allclose(_f32(o), _f32(jo), **tol)
@@ -376,10 +379,10 @@ def test_padded_head_dims_match_pallas_kernels(monkeypatch, D, width, dtype):
             assert g.shape == (B, T, H, D) and g.dtype == tq.dtype
             np.testing.assert_allclose(_f32(g), _f32(w), err_msg="d" + name,
                                        **gtol)
-    assert set(bwd_variants) == {fa._variant(tq.dtype, D, backward=True)}
+    assert set(bwd_variants) == {fa._variant(tq.dtype, D)}
     if D > 256:
-        assert bwd_variants[0] == ("wgmma_xwide" if dtype == "bfloat16"
-                                   else "wide")
+        assert widths[0][0] == bwd_variants[0] == (
+            "wgmma_xwide" if dtype == "bfloat16" else "wide")
     elif D > 128:
         assert bwd_variants[0] == ("wgmma_wide" if dtype == "bfloat16"
                                    else "tf32x3")

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The ring plan of the wgmma_xwide flash backward, timed on one card.
+"""The ring plans of the wgmma_xwide flash kernels, timed on one card.
 
+The backward,
 ``mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd_wgmma_xwide.cu``
 streams tiles of BT rows through STAGES ring slots, per padded head_dim
 and kernel (its ``Plan``): one slot of 32 rows at 448 and 512, two slots
@@ -12,11 +13,27 @@ wrong results, the time of everything but those copies) in a temporary
 directory (the port's own build is untouched), holds the built and the
 two-slot kernels against the plain backward, and times the three in
 turns (built, two slots, no copies, no copies, two slots, built) at the
-bf16 shapes of chip_smoke.py's wgmma_xwide cases.  One JSON line per
-shape and kernel, then the card's name and power limit.  Run from the
-root of a checkout, with one card::
+bf16 shapes of chip_smoke.py's wgmma_xwide cases.
 
-    python3 xwide_plan_probe.py
+The forward, ``mxnet_tpu_torch/ops/kernels/csrc/
+flash_attention_wgmma_xwide.cu``, streams key tiles of BK keys through ST
+ring slots (its ``Plan``: two slots of 32 keys at 448 and 512, one slot of
+64 at 320 and 384).  Its part builds a copy with the other plan at each
+width (one slot of 64 keys at 448 and 512, three slots of 32 at 320 and
+384), a copy whose warpgroups skip the exchange of their partial scores
+(each softmax runs on its own half of S: wrong results, the time of
+everything but the exchange) and a copy whose producer copies only the
+first ST key tiles, holds the built and the other plan's copies against
+the plain forward, and times the four in turns (built, other plan, no
+exchange, no copies, no copies, no exchange, other plan, built) at the
+bf16 shapes of chip_smoke.py's forward cases and at [1, 4096, 16, 448]
+and [1, 4096, 16, 320].
+
+One JSON line per shape and kernel, then the card's name and power
+limit.  Run from the root of a checkout, with one card::
+
+    python3 xwide_plan_probe.py            # the forward, then the backward
+    python3 xwide_plan_probe.py fwd        # the forward only (or bwd)
 
 It exits non-zero without a CUDA device.
 """
@@ -51,20 +68,55 @@ NO_COPIES = ("    if (j >= STAGES) {\n      mbar_arrive(full);\n"
              "      continue;\n    }\n" + EXPECT)
 
 
-def _library(fa, build, tmp, tag, edit):
+FWD_SHAPES = (  # (B, T, H, D, causal)
+    (2, 8192, 2, 512, True),
+    (1, 4096, 16, 512, True),
+    (1, 4096, 16, 448, True),
+    (1, 4096, 16, 384, True),
+    (1, 4096, 16, 320, True),
+    (2, 1000, 4, 320, False),
+)
+FWD_SOURCE = "flash_attention_wgmma_xwide"
+FWD_PLAN = ("  static constexpr int BK = D >= 448 ? 32 : 64;\n"
+            "  static constexpr int ST = D >= 448 ? 2 : 1;\n")
+FWD_OTHER = ("  static constexpr int BK = D >= 448 ? 64 : 32;\n"
+             "  static constexpr int ST = D >= 448 ? 1 : 3;\n")
+# the exchange's first line; the no-exchange copy returns before it
+EXCHANGE = "  if (wait_read) consumers_sync(2);\n"
+NO_EXCHANGE = "  return;\n" + EXCHANGE
+# the producer's K and V copies of a tile; the no-copy copy skips them
+# after the first ST tiles (the consumers still wait on the barriers)
+FWD_EXPECT_K = "    mbar_expect_tx(L::full_k(bars, s), L::kTileBytes);\n"
+FWD_EXPECT_V = "    mbar_expect_tx(L::full_v(bars, s), L::kTileBytes);\n"
+
+
+def _fwd_no_copies(src):
+    for which, tile in (("k", "kt"), ("v", "vt")):
+        expect = FWD_EXPECT_K if which == "k" else FWD_EXPECT_V
+        src = _replaced(src, expect, "    if (j >= ST) mbar_arrive(L::full_%s("
+                        "bars, s)); else\n  " % which + expect)
+        loop = ("    for (int p = 0; p < D / PANEL; ++p)\n"
+                "      tma_load(%s + " % tile)
+        src = _replaced(src, loop, loop.replace(
+            "p < D / PANEL", "p < (j >= ST ? 0 : D / PANEL)"))
+    return src
+
+
+def _library(fa, build, tmp, tag, edit, source=SOURCE,
+             prefix="mxt_flash_bwd_wgmma_xwide", configure=None):
     """The source as ``edit`` returns it, built into ``tmp`` and
     loaded."""
     import ctypes
 
     csrc = os.path.join(os.path.dirname(fa.__file__), "csrc")
-    src = edit(open(os.path.join(csrc, SOURCE + ".cu")).read())
-    path = os.path.join(tmp, "%s_%s.cu" % (SOURCE, tag))
+    src = edit(open(os.path.join(csrc, source + ".cu")).read())
+    path = os.path.join(tmp, "%s_%s.cu" % (source, tag))
     open(path, "w").write(src)
     so = path[:-3] + ".so"
     subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I", csrc, "-o", so,
                     path], check=True, capture_output=True)
     lib = ctypes.CDLL(so)
-    fa._configure_bwd_tc("mxt_flash_bwd_wgmma_xwide", lib)
+    (configure or fa._configure_bwd_tc)(prefix, lib)
     return lib
 
 
@@ -133,7 +185,63 @@ def _run(torch, fa, build, smoke, tmp):
         build._LIBS[SOURCE] = built
 
 
+def _run_fwd(torch, fa, build, smoke, tmp):
+    prefix = "mxt_flash_wgmma_xwide"
+    built = build.load(FWD_SOURCE, functools.partial(fa._configure_fwd_tc,
+                                                     prefix))
+
+    def lib(tag, edit):
+        return _library(fa, build, tmp, tag, edit, FWD_SOURCE, prefix,
+                        fa._configure_fwd_tc)
+
+    libs = {"built": built,
+            "other_plan": lib("other_plan", lambda src: _replaced(
+                src, FWD_PLAN, FWD_OTHER)),
+            "no_exchange": lib("no_exchange", lambda src: _replaced(
+                src, EXCHANGE, NO_EXCHANGE)),
+            "no_copies": lib("no_copies", _fwd_no_copies)}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    fn = fa._flash_wgmma_xwide_cuda
+    for B, T, H, D, causal in FWD_SHAPES:
+        q, k, v = (torch.randn(B, T, H, D, generator=gen,
+                               device="cuda").bfloat16() for _ in range(3))
+        o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal,
+                                                      return_lse=True)
+        errs = {}
+        for plan in ("built", "other_plan"):
+            build._LIBS[FWD_SOURCE] = libs[plan]
+            o, lse = fn(q, k, v, causal)
+            torch.cuda.synchronize()
+            e_o, e_l = (smoke._err(o, o_ref, 1e-4, 2 ** -7),
+                        smoke._err(lse, lse_ref, 1e-4, 1e-5))
+            errs[plan] = (max(e_o[0], e_l[0]), e_o[1] and e_l[1])
+        del o_ref, lse_ref, o, lse
+        args = smoke._copies((q, k, v))
+        turns = {}
+        for plan in ("built", "other_plan", "no_exchange", "no_copies",
+                     "no_copies", "no_exchange", "other_plan", "built"):
+            build._LIBS[FWD_SOURCE] = libs[plan]
+            turns.setdefault(plan, []).append(smoke._time_ms(
+                lambda q, k, v: fn(q, k, v, causal), args))
+        ms = {p: statistics.mean(t) for p, t in turns.items()}
+        print(json.dumps({
+            "kernel": "forward", "shape": [B, T, H, D], "causal": causal,
+            "dtype": "bfloat16", "ms_turns": turns, "ms": ms,
+            "other_plan_over_built": ms["other_plan"] / ms["built"],
+            "share_of_the_exchange": 1 - ms["no_exchange"] / ms["built"],
+            "share_of_the_streamed_copies":
+                1 - ms["no_copies"] / ms["built"],
+            "max_abs_err": {p: e[0] for p, e in errs.items()},
+            "ok": {p: e[1] for p, e in errs.items()}}), flush=True)
+        if not all(e[1] for e in errs.values()):
+            raise SystemExit("xwide_plan_probe: a forward plan disagrees "
+                             "with the plain forward")
+    build._LIBS[FWD_SOURCE] = built
+
+
 def main():
+    import sys
+
     import torch
 
     from mxnet_tpu_torch.ops.kernels import _build
@@ -143,8 +251,12 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("xwide_plan_probe: no CUDA device is available")
+    parts = sys.argv[1:] or ["fwd", "bwd"]
     with tempfile.TemporaryDirectory(prefix="xwide_plan_probe_") as tmp:
-        _run(torch, fa, _build, smoke, tmp)
+        if "fwd" in parts:
+            _run_fwd(torch, fa, _build, smoke, tmp)
+        if "bwd" in parts:
+            _run(torch, fa, _build, smoke, tmp)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
