@@ -23,7 +23,9 @@ on the card:
   flash forward, dQ and dK/dV run the tensor-core tf32x3 kernels
   (split-TF32 products), and with 2 heads of 512 at batch 2 x 8192,
   whose flash forward, dQ and dK/dV run the tensor-core wgmma_xwide
-  kernels;
+  kernels, and that in f32, whose dQ and dK/dV run the tensor-core
+  tf32x3_xwide kernels (2-CTA clusters that split D) and whose forward
+  runs the wide kernel;
 * INT8 inference — the symbolic ResNet-50 (``models/resnet_symbol.py``,
   1000 classes, 3x224x224) is calibrated, quantized, BN-folded and
   int8-fused by ``contrib.quantization.quantize_model``, bound, and run at
@@ -73,7 +75,9 @@ Phases, in order; any failure raises and exits non-zero:
    dQ and dK/dV at head_dim 64 and 128; wgmma_wide at 192 and 256; the
    f32 tf32x3 forward, dQ and dK/dV at 192 and 256; the wgmma_xwide
    forward at 320, 384, 448 and 512, all four of them, and its dQ and
-   dK/dV there, all eight of them), of the wide flash kernels,
+   dK/dV there, all eight of them; the f32 tf32x3_xwide dQ and dK/dV at
+   384 and 512, the four cluster instantiations beside tf32x3's four),
+   of the wide flash kernels,
    of
    the int8 matmul and of the RMSNorm variants; none but the int8 ``mma``
    kernel may spill;
@@ -105,7 +109,15 @@ Phases, in order; any failure raises and exits non-zero:
    forward also in turns at the f32 leg's [1, 8192, 4, 256]; both also
    at [1, 8192, 4, 256], [1, 4096, 16, 192], Tq 1000 x Tk 3000 not
    causal, and head_dim 160, the backward with an lse cotangent), and f32
-   at 320 the wide variant; bf16 above 256 runs the tensor-core
+   above 256 the forward on the wide variant and the backward on the
+   tensor-core tf32x3_xwide dQ and dK/dV (2-CTA clusters that split D),
+   held against the plain backward and dense autograd (1e-4 of each
+   gradient's largest entry) and timed in turns with wide at [2, 8192, 2,
+   512] (the f32 hd512 leg's shape), [1, 4096, 16, 512] and [1, 4096,
+   16, 384] causal (the last with an lse cotangent) and [2, 1000, 4, 320]
+   not causal; bf16 at head_dim 576 on the wide forward and backward at
+   [2, 1000, 4, 576] not causal and [1, 4096, 16, 576] causal, beside
+   SDPA; bf16 above 256 runs the tensor-core
    wgmma_xwide forward, dQ and dK/dV, the forward held against the plain
    version, the backward against the plain backward and dense autograd
    (within 6.5e-3 of each gradient's largest entry), each beside its wide
@@ -413,6 +425,9 @@ LONGCTX_HD256_F32 = dict(LONGCTX_HD256, dtype="float32")
 # stay under the flash gate): the flash forward and backward on the
 # tensor-core wgmma_xwide kernels
 LONGCTX_HD512 = dict(LONGCTX, n_heads=2)
+# the same in f32: its dQ and dK/dV on the tensor-core tf32x3_xwide kernels
+# (2-CTA clusters that split D), its forward on the wide kernel
+LONGCTX_HD512_F32 = dict(LONGCTX_HD512, dtype="float32")
 TRAIN_CELLS = (
     ("flagship_b8_t1024", dict(FLAGSHIP, max_len=1024, remat=False), 8,
      1024),
@@ -423,6 +438,7 @@ TRAIN_CELLS = (
     ("longctx_hd256_b1_t8192", LONGCTX_HD256, 1, 8192),
     ("longctx_hd256_f32_b1_t8192", LONGCTX_HD256_F32, 1, 8192),
     ("longctx_hd512_b2_t8192", LONGCTX_HD512, 2, 8192),
+    ("longctx_hd512_f32_b2_t8192", LONGCTX_HD512_F32, 2, 8192),
 )
 TRAIN_STEPS = 3
 # kernel launches per training step, from the code: RMSNorm twice per block
@@ -430,8 +446,9 @@ TRAIN_STEPS = 3
 # recomputed forward, every one through the warp variant (8192 rows, 16384
 # at batch 2); flash forward per block (twice with remat), every one through
 # the tensor-core variant (bf16: wgmma at head_dim 64, wgmma_wide at 256,
-# wgmma_xwide at 512; f32 at 256: tf32x3); dQ and dK/dV once per block,
-# through the same variant; the softmax cross-entropy once each way
+# wgmma_xwide at 512; f32 at 256: tf32x3) but f32 at 512 (wide); dQ and
+# dK/dV once per block, through the same variant (f32 at 512:
+# tf32x3_xwide); the softmax cross-entropy once each way
 EXPECTED_LAUNCHES = {
     "flagship_b8_t1024": {"fused_rmsnorm": 9, "fused_rmsnorm.warp": 9,
                           "fused_softmax_xent": 1,
@@ -472,6 +489,16 @@ EXPECTED_LAUNCHES = {
                                "flash_attention_dkv.wgmma_xwide": 4,
                                "fused_softmax_xent": 1,
                                "fused_softmax_xent_bwd": 1},
+    "longctx_hd512_f32_b2_t8192": {"fused_rmsnorm": 17,
+                                   "fused_rmsnorm.warp": 17,
+                                   "flash_attention": 8,
+                                   "flash_attention.wide": 8,
+                                   "flash_attention_dq": 4,
+                                   "flash_attention_dkv": 4,
+                                   "flash_attention_dq.tf32x3_xwide": 4,
+                                   "flash_attention_dkv.tf32x3_xwide": 4,
+                                   "fused_softmax_xent": 1,
+                                   "fused_softmax_xent_bwd": 1},
 }
 # the device mesh (mxnet_tpu_torch/parallel over torch.distributed).
 # mesh_nccl: one rank over NCCL (a real communicator: every collective of
@@ -946,6 +973,14 @@ def phase_build():
         if want is not None:
             _check(len(summary) == want, "%s: %d instantiations in the "
                    "ptxas report, expected %d" % (src, len(summary), want))
+        if src == "flash_attention_bwd_tf32x3":
+            # tf32x3 (<D, 1>) and tf32x3_xwide (<D, 2>: 2-CTA clusters)
+            # dQ and dK/dV at 192 and 256 columns a CTA
+            for cl in (1, 2):
+                n = sum(1 for _, line in summary
+                        if re.search(r"<(192|256),%d>" % cl, line))
+                _check(n == 4, "%s: %d instantiations of cluster size %d "
+                       "in the ptxas report, expected 4" % (src, n, cl))
     return wall
 
 
@@ -1146,7 +1181,7 @@ def _rmsnorm_bwd_plain_case(shape, gen):
 # the CUDA-core variant each tensor-core variant of the forward and of the
 # backward is timed against in turns (``variants=True``)
 CUDA_CORE_TWIN = {"wgmma": "simt", "wgmma_wide": "wide", "tf32x3": "wide",
-                  "wgmma_xwide": "wide"}
+                  "wgmma_xwide": "wide", "tf32x3_xwide": "wide"}
 
 
 def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
@@ -1339,22 +1374,26 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     forward, and two calls bit for bit (no atomics): two records.
     ``variants``: the variant is a tensor-core one; also hold its CUDA-core
     twin (``CUDA_CORE_TWIN``: simt for wgmma, wide for wgmma_wide,
-    tf32x3 and wgmma_xwide) against the plain backward and time the two in
-    turns
+    tf32x3, wgmma_xwide and tf32x3_xwide) against the plain backward and
+    time the two in turns
     (tensor-core, CUDA-core, CUDA-core, tensor-core); ``ms`` is then the
     tensor-core kernel's mean of its two turns.  A head dim the kernels
-    lack is timed at its padded width, on inputs padded once, as the
-    backward runs it."""
+    lack is timed at its padded width (each variant's own,
+    ``_kernel_width``: tf32x3_xwide runs 320 at 384, wide at 320), on
+    inputs padded once, as the backward runs it; the bounds count the
+    real head_dim's work."""
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops.kernels.flash_attention import (
         _delta, _flash_bwd_cuda, _flash_cuda,
-        _flash_dkv_simt_cuda, _flash_dkv_tf32x3_cuda, _flash_dkv_wgmma_cuda,
+        _flash_dkv_simt_cuda, _flash_dkv_tf32x3_cuda,
+        _flash_dkv_tf32x3_xwide_cuda, _flash_dkv_wgmma_cuda,
         _flash_dkv_wgmma_wide_cuda, _flash_dkv_wgmma_xwide_cuda,
         _flash_dkv_wide_cuda, _flash_dq_simt_cuda, _flash_dq_tf32x3_cuda,
-        _flash_dq_wgmma_cuda, _flash_dq_wgmma_wide_cuda,
-        _flash_dq_wgmma_xwide_cuda, _flash_dq_wide_cuda, _pad_d, _padded_dim,
-        _variant, flash_attention_bwd_reference, flash_attention_reference)
+        _flash_dq_tf32x3_xwide_cuda, _flash_dq_wgmma_cuda,
+        _flash_dq_wgmma_wide_cuda, _flash_dq_wgmma_xwide_cuda,
+        _flash_dq_wide_cuda, _kernel_width, _pad_d, _variant,
+        flash_attention_bwd_reference, flash_attention_reference)
 
     dt = getattr(torch, dtype_name)
     scale = 1.0 / D ** 0.5
@@ -1364,6 +1403,8 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
         "tf32x3": (_flash_dq_tf32x3_cuda, _flash_dkv_tf32x3_cuda),
         "wgmma_xwide": (_flash_dq_wgmma_xwide_cuda,
                         _flash_dkv_wgmma_xwide_cuda),
+        "tf32x3_xwide": (_flash_dq_tf32x3_xwide_cuda,
+                         _flash_dkv_tf32x3_xwide_cuda),
         "simt": (_flash_dq_simt_cuda, _flash_dkv_simt_cuda),
         "wide": (_flash_dq_wide_cuda, _flash_dkv_wide_cuda)}
 
@@ -1400,7 +1441,7 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
         outs, cts = (o_r,), (do,)
     auto = torch.autograd.grad(outs, (qr, kr, vr), cts)
     del o_r, lse_r, outs
-    variant = _variant(q.dtype, D)
+    variant = _variant(q.dtype, D, backward=True)
     auto_rel = 1e-4 if dtype_name == "float32" else (
         XWIDE_AUTOGRAD_REL if variant == "wgmma_xwide" else 2**-6)
     auto_errs = [float((a.float() - b.float()).abs().max())
@@ -1427,15 +1468,20 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
         lambda q, k, v, do, lse, delta: flash_attention_bwd_reference(
             q, k, v, o, lse, do, dlse, causal),
         _copies((q, k, v, do, lse, delta)), rounds=1)
-    width = _padded_dim(D)
+    width = _kernel_width(variant, D)
     args = _copies(tuple(_pad_d(t, width) for t in (q, k, v, do))
                    + (lse, delta))
     twin = CUDA_CORE_TWIN.get(variant)
     twin_errs = {}
+    run_args = {variant: args}
     if variants:
         _check(twin is not None, "flash backward %s %s takes the %s "
                "variant" % ([B, Tq, H, D], dtype_name, variant))
-        qp, kp, vp, dop = args[0][:4]
+        twin_width = _kernel_width(twin, D)
+        run_args[twin] = args if twin_width == width else _copies(
+            tuple(_pad_d(t, twin_width) for t in (q, k, v, do))
+            + (lse, delta))
+        qp, kp, vp, dop = run_args[twin][0][:4]
         tdq = launchers[twin][0](qp, kp, vp, dop, lse, delta, causal, scale)
         tdk, tdv = launchers[twin][1](qp, kp, vp, dop, lse, delta, causal,
                                       scale)
@@ -1451,7 +1497,8 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
             fn = launchers[name][which]
             turns.setdefault((kind, name), []).append(_time_ms(
                 lambda q, k, v, do, lse, delta, fn=fn: fn(
-                    q, k, v, do, lse, delta, causal, scale), args))
+                    q, k, v, do, lse, delta, causal, scale),
+                run_args[name]))
     # SDPA's backward alone at the same shape, replayed over one retained
     # forward graph
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
@@ -1487,7 +1534,8 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
                 "%s_ms_turns" % twin: turns[(kind, twin)],
                 "%s_ms" % twin: twin_ms,
                 "%s_over_%s" % (twin, variant): twin_ms / rec["ms"],
-                "%s_max_abs_err" % twin: max(e[0] for e in terr)})
+                "%s_max_abs_err" % twin: max(e[0] for e in terr),
+                "%s_padded_head_dim" % twin: _kernel_width(twin, D)})
             rec["ok"] = rec["ok"] and all(e[1] for e in terr)
         rec["ms_over_bound"] = rec["ms"] / rec["bound_ms"]
     for rec in (dq, dkv):
@@ -1644,7 +1692,6 @@ def phase_kernels():
             main["flash_attention.tf32x3"] = fwd
             main["flash_attention_dq.tf32x3"] = dq
             main["flash_attention_dkv.tf32x3"] = dkv
-            main["flash_attention.wide"] = _twin_record(fwd)
             main["flash_attention_dq.wide"] = _twin_record(dq)
             main["flash_attention_dkv.wide"] = _twin_record(dkv)
     # the head_dim-256 training leg's attention ([1, 8192, 4, 256]), D 192,
@@ -1661,7 +1708,6 @@ def phase_kernels():
     _flash_bwd_case(2, 1000, 1000, 4, 320, False, "bfloat16", gen,
                     variants=True)
     _flash_case(2, 1000, 1000, 4, 320, False, "float32", gen)
-    _flash_bwd_case(2, 1000, 1000, 4, 320, False, "float32", gen)
     _flash_case(1, 777, 777, 4, 160, True, "float32", gen)
     _flash_case(1, 777, 777, 4, 160, True, "bfloat16", gen)
     _flash_bwd_case(1, 777, 777, 4, 160, True, "bfloat16", gen,
@@ -1693,6 +1739,27 @@ def phase_kernels():
                     variants=True)
     _flash_bwd_case(1, 4096, 4096, 16, 384, True, "bfloat16", gen,
                     with_dlse=True, variants=True)
+    # f32 above 256: the forward on wide (at the f32 hd512 leg's [2, 8192,
+    # 2, 512], the shape its 8 forwards a step run at), the backward on
+    # tf32x3_xwide (2-CTA clusters that split D), in turns with wide: the
+    # leg's shape, [1, 4096, 16, 512], [1, 4096, 16, 384] with an lse
+    # cotangent and [2, 1000, 4, 320] (run at 384; wide at 320)
+    main["flash_attention.wide"] = _flash_case(2, 8192, 8192, 2, 512, True,
+                                               "float32", gen)
+    main["flash_attention_dq.tf32x3_xwide"], \
+        main["flash_attention_dkv.tf32x3_xwide"] = _flash_bwd_case(
+            2, 8192, 8192, 2, 512, True, "float32", gen, variants=True)
+    _flash_bwd_case(1, 4096, 4096, 16, 512, True, "float32", gen,
+                    variants=True)
+    _flash_bwd_case(1, 4096, 4096, 16, 384, True, "float32", gen,
+                    with_dlse=True, variants=True)
+    _flash_bwd_case(2, 1000, 1000, 4, 320, False, "float32", gen,
+                    variants=True)
+    # bf16 above 512 on wide, forward and backward, beside SDPA
+    for args in ((2, 1000, 1000, 4, 576, False), (1, 4096, 4096, 16, 576,
+                                                  True)):
+        _flash_case(*args, "bfloat16", gen)
+        _flash_bwd_case(*args, "bfloat16", gen)
     main["fused_softmax_xent"], main["fused_softmax_xent_bwd"] = \
         _xent_case(8192, 32000, "float32", gen)
     _xent_case(8192, 32000, "bfloat16", gen)
@@ -5622,6 +5689,8 @@ VARIANT_SOURCES = {
                            "tf32x3": _CSRC + "flash_attention_bwd_tf32x3.cu",
                            "wgmma_xwide":
                                _CSRC + "flash_attention_bwd_wgmma_xwide.cu",
+                           "tf32x3_xwide":
+                               _CSRC + "flash_attention_bwd_tf32x3.cu",
                            "simt": _CSRC + "flash_attention_bwd.cu",
                            "wide": _CSRC + "flash_attention_wide.cu"},
     "flash_attention_dkv": {"wgmma": _CSRC + "flash_attention_bwd_wgmma.cu",
@@ -5631,6 +5700,8 @@ VARIANT_SOURCES = {
                                 _CSRC + "flash_attention_bwd_tf32x3.cu",
                             "wgmma_xwide":
                                 _CSRC + "flash_attention_bwd_wgmma_xwide.cu",
+                            "tf32x3_xwide":
+                                _CSRC + "flash_attention_bwd_tf32x3.cu",
                             "simt": _CSRC + "flash_attention_bwd.cu",
                             "wide": _CSRC + "flash_attention_wide.cu"},
     "int8_matmul": {"wgmma": _CSRC + "int8_matmul.cu",
@@ -5761,6 +5832,17 @@ def main():
         "flash_attention_dkv.wgmma_xwide": (
             "mxnet_tpu_torch/ops/kernels/csrc/"
             "flash_attention_bwd_wgmma_xwide.cu",
+            "mxnet_tpu/ops/pallas/flash_attention.py:179"),
+        # the f32 head_dim-512 leg's: the forward on the wide kernel, dQ and
+        # dK/dV on the tensor-core tf32x3_xwide kernels (2-CTA clusters)
+        "flash_attention.wide": (
+            "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_wide.cu",
+            "mxnet_tpu/ops/pallas/flash_attention.py:55"),
+        "flash_attention_dq.tf32x3_xwide": (
+            "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd_tf32x3.cu",
+            "mxnet_tpu/ops/pallas/flash_attention.py:142"),
+        "flash_attention_dkv.tf32x3_xwide": (
+            "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd_tf32x3.cu",
             "mxnet_tpu/ops/pallas/flash_attention.py:179"),
         "fused_softmax_xent": (
             "mxnet_tpu_torch/ops/kernels/csrc/softmax_xent.cu",

@@ -1,7 +1,9 @@
 // Flash-attention backward for f32 above head_dim 128 on Hopper's tensor
 // cores (sm_90a), CUDA C++: the "tf32x3" variant of dQ and dK/dV, for f32
 // inputs at head_dim 192 or 256 (the wrapper pads head_dim 129-256 to one
-// of them).
+// of them), and the "tf32x3_xwide" variant at head_dim 384 or 512 (the
+// wrapper pads head_dim 257-384 to 384 and 385-512 to 512): the same
+// kernels run by clusters of two CTAs that split D (below).
 //
 // Replaces, at those widths and in f32, the Pallas TPU kernels
 // mxnet_tpu/ops/pallas/flash_attention.py `_dq_kernel` and `_dkv_kernel`
@@ -78,6 +80,47 @@
 // the other four start the next tile's scores.  No CTA reads what another
 // writes and there are no atomics: two calls give the same bits.
 //
+// tf32x3_xwide: above D 256 a CTA cannot hold 64 resident rows of two f32
+// tensors over all of D (at 320 the resident and streamed tiles alone take
+// 248,832 B of the 232,448 a block may use; at 512 the resident pair alone
+// 264,192 B), nor dK/dV's 2 * D / 4 accumulators a thread (255 registers
+// at D 256 already).  So a cluster of two CTAs (CL = 2, along grid x) owns
+// each tile of rows and CTA c of the pair takes columns c D' .. c D' + D'
+// - 1 of the padded width 2 D' (D' = 192 at 384, 256 at 512): each is the
+// kernel above at D', with its shared memory, warps and accumulators.
+//   * The score products are split along their reduction axis across the
+//     pair, as the two warp halves split them inside a CTA: after the two
+//     halves meet, each warp pushes its CTA's partial of its 16-row block
+//     into the same block of the peer's exchange tile (st.async, 16 bytes
+//     a lane four times, counted as transaction bytes on the peer warp's
+//     `full` mbarrier) and adds the peer's, which arrives the same way
+//     into its own tile (meet_peer).  a + b == b + a in IEEE arithmetic,
+//     so both CTAs hold the same bits of S and dP and form the same p and
+//     ds.  The block is free once the warp has read its partner's partial
+//     there, and it says so to the peer's warp by a remote arrival on that
+//     warp's `vacant` mbarrier; so the exchange needs no shared memory of
+//     its own (16 KB of receive buffers would not fit beside D' 256's
+//     215 KB), only two 8-byte mbarriers a warp, and each warp waits for
+//     its counterpart alone.  The first plan read the peer's block in place
+//     (ld.shared::cluster) between two cluster barriers a tile; that
+//     exchange took 22 % of dQ's and 17 % of dK/dV's time at [2, 8192, 2,
+//     512], most of it the barrier's release and the remote loads'
+//     latency (tf32x3_probe.py times both plans in turns).
+//   * The output products need only the CTA's own columns: dQ[:, own] +=
+//     ds . K[:, own], dK[:, own] += ds^T . Q[:, own], dV[:, own] += p^T .
+//     dO[:, own], so a CTA never loads the peer's half of any tile.  No
+//     score work is repeated: a pair does the flops of one CTA over all
+//     of D.
+//   * Both CTAs walk the same tiles in the same order, each warp meeting
+//     its counterpart once a tile (a cluster barrier after the mbarriers'
+//     initialisation and one at the end, so that neither CTA's shared
+//     memory is reached before it starts or after it ends); key tiles no
+//     query sees store zero dK/dV in both.  No atomics: two calls give
+//     the same bits.
+// A 2-CTA cluster at 215 KB a CTA needs two SMs of one GPC free at once;
+// the launcher checks once that one fits (cudaOccupancyMaxActiveClusters)
+// and returns kErrCluster if not.
+//
 // Plain C interface (no PyTorch headers), called through ctypes.
 
 #include "hopper.cuh"
@@ -89,6 +132,7 @@ constexpr int BS = 32;             // streamed rows a tile
 constexpr int NT = 256;            // threads a CTA: 8 warps
 constexpr int XS = BS + 8;         // row stride (words) of an exchange tile
 constexpr int kErrPad = 100003;    // tq_pad not a multiple of BR or < Tq
+constexpr int kErrCluster = 100004;  // no 2-CTA cluster fits on the device
 constexpr float kLog2e = 1.4426950408889634f;
 
 // (batch, time, head) strides in elements of each [B, T, H, D] tensor
@@ -97,8 +141,9 @@ struct Strides {
 };
 
 // Shared memory, in floats: two resident [BR][LD] tiles, two streamed
-// [BS][LD] tiles and two [BR][XS] exchange tiles.  LD % 32 == 4.
-template <int D>
+// [BS][LD] tiles and two [BR][XS] exchange tiles, and in a cluster (CL 2)
+// two mbarriers a warp (8 bytes each: full, then vacant).  LD % 32 == 4.
+template <int D, int CL = 1>
 struct Smem {
   static constexpr int LD = D + 4;
   static constexpr int res0 = 0;                 // q | k
@@ -107,7 +152,8 @@ struct Smem {
   static constexpr int str1 = str0 + BS * LD;    // v | dO
   static constexpr int x0 = str1 + BS * LD;      // p | p^T
   static constexpr int x1 = x0 + BR * XS;        // dp - delta (by row | col)
-  static constexpr int floats = x1 + BR * XS;
+  static constexpr int bars = x1 + BR * XS;      // full[8], vacant[8]
+  static constexpr int floats = bars + (CL == 2 ? 2 * 2 * NT / 32 : 0);
   static constexpr size_t bytes = floats * sizeof(float);
   static_assert(bytes <= 232448, "a block has 227 KB of shared memory");
 };
@@ -217,6 +263,67 @@ __device__ __forceinline__ void meet_halves(float* X, int wd, int g, int t,
   add_from(X + 16 * wd * XS, g, t, f);
 }
 
+// The two CTAs of a cluster meet (tf32x3_xwide).  f: this warp's block of
+// its CTA's partial sums (16 rows, the scores' 32 columns), Xw: the same
+// block of its exchange tile, free here (this warp has read its partner's
+// partial there, in meet_halves, and nothing else reads it before p is
+// put).  The warp's lane 0 arms its `full` mbarrier for the peer's 2048
+// bytes and tells the peer's warp that Xw is free (a remote arrival on its
+// `vacant`); once the peer's block is free, each lane pushes its 16 values
+// there (st.async, counted on the peer's `full`), thread-major (chunk i of
+// lane l at 4 l + 128 i); once its own `full` completes it adds the peer's
+// values, f += peer (the peer adds this CTA's: a + b == b + a, the same
+// bits in both).  Each barrier completes once a tile: `parity` is the
+// tile's count mod 2.  No cluster-wide barrier: a warp waits for its
+// counterpart alone.  The caller syncs the warp before Xw is written again
+__device__ __forceinline__ void meet_peer(float* Xw, uint32_t full,
+                                          uint32_t vacant, uint32_t parity,
+                                          int lane, float (&f)[4][4]) {
+  const uint32_t peer = cluster_ctarank() ^ 1u;
+  __syncwarp();                   // every lane has read the partner's partial
+  if (lane == 0) {
+    mbar_expect_tx(full, 2048);
+    mbar_arrive_remote(cluster_map(vacant, peer));
+  }
+  mbar_wait_cluster(vacant, parity);  // the peer's block is free
+  const uint32_t dst = cluster_map(
+      static_cast<uint32_t>(__cvta_generic_to_shared(Xw)), peer);
+  const uint32_t bar = cluster_map(full, peer);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    st_async_v4(dst + 16u * (lane + 32 * i), f[i][0], f[i][1], f[i][2],
+                f[i][3], bar);
+  mbar_wait_cluster(full, parity);    // the peer's block is in
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 u = *reinterpret_cast<const float4*>(Xw + 4 * lane + 128 * i);
+    f[i][0] += u.x;
+    f[i][1] += u.y;
+    f[i][2] += u.z;
+    f[i][3] += u.w;
+  }
+}
+
+// CL == 2: the cluster's mbarriers, two a warp, initialised and visible to
+// the peer before either CTA uses them (with a cluster barrier)
+template <int CL>
+__device__ __forceinline__ void init_cluster_bars(uint32_t bars) {
+  if constexpr (CL == 2) {
+    if (threadIdx.x < 2 * NT / 32) {
+      mbar_init(bars + 8 * threadIdx.x, 1);
+      fence_mbarrier_init();
+    }
+    cluster_sync();
+  }
+}
+
+// This CTA's column half of the padded width (0 unless CL == 2)
+template <int CL>
+__device__ __forceinline__ int column_half() {
+  if constexpr (CL == 2) return (int)cluster_ctarank();
+  return 0;
+}
+
 template <int D>
 __device__ __forceinline__ void zero(float (&acc)[4][D / 64][4]) {
 #pragma unroll
@@ -285,8 +392,10 @@ __device__ __forceinline__ void store(float* out, long long ld, int r0,
     }
 }
 
-// st: q (0-2), k (3-5), v (6-8), dO (9-11), dQ (12-14)
-template <int D>
+// st: q (0-2), k (3-5), v (6-8), dO (9-11), dQ (12-14).  D: the columns
+// of one CTA; CL: the CTAs of a cluster, which share a tile of rows and
+// split the head's CL * D columns
+template <int D, int CL>
 __global__ void __launch_bounds__(NT, 1)
 flash_dq_tf32x3_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
@@ -296,7 +405,7 @@ flash_dq_tf32x3_kernel(const float* __restrict__ q,
                        const float* __restrict__ delta,
                        float* __restrict__ dq, int H, int Tq, int Tk,
                        int tq_pad, Strides st, float scale, int causal) {
-  using L = Smem<D>;
+  using L = Smem<D, CL>;
   constexpr int LD = L::LD;
   extern __shared__ float4 smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
@@ -306,13 +415,17 @@ flash_dq_tf32x3_kernel(const float* __restrict__ q,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wp = warp >> 2, wr = (warp >> 1) & 1, wd = warp & 1;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BR;   // heavy tiles first
+  // heavy tiles first
+  const int q0 = (gridDim.x / CL - 1 - blockIdx.x / CL) * BR;
   const int h = blockIdx.y, b = blockIdx.z;
+  // this CTA's first column (read again for the store: one register less
+  // across the tile loop)
+  const int cd = column_half<CL>() * D;
 
-  const float* qb = q + b * st.s[0] + h * st.s[2];
-  const float* kb = k + b * st.s[3] + h * st.s[5];
-  const float* vb = v + b * st.s[6] + h * st.s[8];
-  const float* dob = dout + b * st.s[9] + h * st.s[11];
+  const float* qb = q + b * st.s[0] + h * st.s[2] + cd;
+  const float* kb = k + b * st.s[3] + h * st.s[5] + cd;
+  const float* vb = v + b * st.s[6] + h * st.s[8] + cd;
+  const float* dob = dout + b * st.s[9] + h * st.s[11] + cd;
   // the rows this warp finishes, r0 and r0 + 8, and their lse (wp 0) or
   // delta (wp 1)
   const int r0 = q0 + 32 * wr + 16 * wd + g;
@@ -328,6 +441,11 @@ flash_dq_tf32x3_kernel(const float* __restrict__ q,
   copy_rows<D>(smem + L::res1, dob, st.s[10], q0, BR, Tq, threadIdx.x, NT);
   copy_rows<D>(Ks, kb, st.s[4], 0, BS, Tk, threadIdx.x, NT);
   copy_rows<D>(Vs, vb, st.s[7], 0, BS, Tk, threadIdx.x, NT);
+  // this warp's full and vacant mbarriers (CL 2)
+  const uint32_t full =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem + L::bars)) +
+      8 * warp;
+  init_cluster_bars<CL>(full - 8 * warp);
   cp_async_wait_all();
   __syncthreads();
 
@@ -353,6 +471,8 @@ flash_dq_tf32x3_kernel(const float* __restrict__ q,
     half_ready(wp);
     score_half<D>(A, Bt, g, t, s);
     meet_halves(X, wd, g, t, s, f);  // barrier: V is no longer read
+    if constexpr (CL == 2)
+      meet_peer(X + 16 * wd * XS, full, full + 64, (k0 / BS) & 1, lane, f);
     if (more && wp) copy_rows<D>(Vs, vb, st.s[7], k0 + BS, BS, Tk, ht, 128);
     if (wp) {                                          // dp - delta
 #pragma unroll
@@ -370,18 +490,21 @@ flash_dq_tf32x3_kernel(const float* __restrict__ q,
           f[n][i] = ok ? ex2(fmaf(f[n][i], sl2, -row[i >> 1])) : 0.f;
         }
     }
+    if constexpr (CL == 2) __syncwarp();    // every lane has read Xw
     put(X + 16 * wd * XS, g, t, f);
     __syncthreads();              // p and dp - delta are in
     out_product<D, true>(Xp, Xd, scale, Ks + c0, g, t, acc);
     __syncthreads();              // K and the exchange are no longer read
     if (more && !wp) copy_rows<D>(Ks, kb, st.s[4], k0 + BS, BS, Tk, ht, 128);
   }
-  store<D>(dq + b * st.s[12] + h * st.s[14], st.s[13], q0, Tq, c0, g, t,
-           acc);
+  if constexpr (CL == 2) cluster_sync();  // no access to a finished peer
+  store<D>(dq + b * st.s[12] + h * st.s[14] + column_half<CL>() * D,
+           st.s[13], q0, Tq, c0, g, t, acc);
 }
 
-// st: q (0-2), k (3-5), v (6-8), dO (9-11), dK (12-14), dV (15-17)
-template <int D>
+// st: q (0-2), k (3-5), v (6-8), dO (9-11), dK (12-14), dV (15-17).  D,
+// CL: as in dQ
+template <int D, int CL>
 __global__ void __launch_bounds__(NT, 1)
 flash_dkv_tf32x3_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
@@ -392,7 +515,7 @@ flash_dkv_tf32x3_kernel(const float* __restrict__ q,
                         float* __restrict__ dk, float* __restrict__ dv, int H,
                         int Tq, int Tk, int tq_pad, Strides st, float scale,
                         int causal) {
-  using L = Smem<D>;
+  using L = Smem<D, CL>;
   constexpr int LD = L::LD;
   extern __shared__ float4 smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
@@ -402,13 +525,17 @@ flash_dkv_tf32x3_kernel(const float* __restrict__ q,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wp = warp >> 2, wr = (warp >> 1) & 1, wd = warp & 1;
-  const int k0 = blockIdx.x * BR;        // early keys see the most queries
+  // early keys see the most queries
+  const int k0 = blockIdx.x / CL * BR;
   const int h = blockIdx.y, b = blockIdx.z;
+  // this CTA's first column (read again for the store: one register less
+  // across the tile loop)
+  const int cd = column_half<CL>() * D;
 
-  const float* qb = q + b * st.s[0] + h * st.s[2];
-  const float* kb = k + b * st.s[3] + h * st.s[5];
-  const float* vb = v + b * st.s[6] + h * st.s[8];
-  const float* dob = dout + b * st.s[9] + h * st.s[11];
+  const float* qb = q + b * st.s[0] + h * st.s[2] + cd;
+  const float* kb = k + b * st.s[3] + h * st.s[5] + cd;
+  const float* vb = v + b * st.s[6] + h * st.s[8] + cd;
+  const float* dob = dout + b * st.s[9] + h * st.s[11] + cd;
   // lse (wp 0) or delta (wp 1) by query
   const float* cv = (wp ? delta : lse) + ((long long)b * H + h) * tq_pad;
   const int r0 = k0 + 32 * wr + 16 * wd + g;   // this warp's keys r0, r0 + 8
@@ -422,6 +549,11 @@ flash_dkv_tf32x3_kernel(const float* __restrict__ q,
     copy_rows<D>(Qs, qb, st.s[1], q_begin, BS, Tq, threadIdx.x, NT);
     copy_rows<D>(dOs, dob, st.s[10], q_begin, BS, Tq, threadIdx.x, NT);
   }
+  // this warp's full and vacant mbarriers (CL 2)
+  const uint32_t full =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem + L::bars)) +
+      8 * warp;
+  init_cluster_bars<CL>(full - 8 * warp);
   cp_async_wait_all();
   __syncthreads();
 
@@ -446,6 +578,9 @@ flash_dkv_tf32x3_kernel(const float* __restrict__ q,
     half_ready(wp);
     score_half<D>(A, Bt, g, t, s);
     meet_halves(X, wd, g, t, s, f);
+    if constexpr (CL == 2)
+      meet_peer(X + 16 * wd * XS, full, full + 64, ((q0 - q_begin) / BS) & 1,
+                lane, f);
     float2 c2[4];                 // lse or delta of queries q0 + 8n + 2t, + 1
 #pragma unroll
     for (int n = 0; n < 4; ++n)
@@ -468,6 +603,7 @@ flash_dkv_tf32x3_kernel(const float* __restrict__ q,
           f[n][i] = ok ? ex2(fmaf(f[n][i], sl2, -l2)) : 0.f;
         }
     }
+    if constexpr (CL == 2) __syncwarp();    // every lane has read Xw
     put(X + 16 * wd * XS, g, t, f);
     __syncthreads();              // p^T and dp^T - delta are in
     out_product<D, false>(Xp, Xd, scale, dOs + c0, g, t, dv_acc);
@@ -478,10 +614,11 @@ flash_dkv_tf32x3_kernel(const float* __restrict__ q,
     __syncthreads();              // Q and the exchange are no longer read
     if (more && !wp) copy_rows<D>(Qs, qb, st.s[1], q0 + BS, BS, Tq, ht, 128);
   }
-  store<D>(dk + b * st.s[12] + h * st.s[14], st.s[13], k0, Tk, c0, g, t,
-           dk_acc);
-  store<D>(dv + b * st.s[15] + h * st.s[17], st.s[16], k0, Tk, c0, g, t,
-           dv_acc);
+  if constexpr (CL == 2) cluster_sync();  // no access to a finished peer
+  store<D>(dk + b * st.s[12] + h * st.s[14] + column_half<CL>() * D,
+           st.s[13], k0, Tk, c0, g, t, dk_acc);
+  store<D>(dv + b * st.s[15] + h * st.s[17] + column_half<CL>() * D,
+           st.s[16], k0, Tk, c0, g, t, dv_acc);
 }
 
 Strides copy_strides(const long long* st, int n) {
@@ -490,46 +627,146 @@ Strides copy_strides(const long long* st, int n) {
   return s;
 }
 
-template <int D>
+// Launch `kernel` (one of the kernels above at D, CL) on `tiles` row tiles
+// x H x B, CL CTAs a tile as one cluster along x, with Smem<D>'s bytes.
+// A cluster's fit is checked once (kErrCluster if none fits)
+template <int D, int CL, typename... Params, typename... Args>
+int launch(void (*kernel)(Params...), int tiles, int H, int B,
+           cudaStream_t stream, Args... args) {
+  constexpr size_t smem = Smem<D, CL>::bytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL * tiles, H, B);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = CL;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  if (CL > 1) {
+    cfg.attrs = cluster;
+    cfg.numAttrs = 1;
+    static const int fits = [&] {
+      int n = 0;
+      const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+      return e == cudaSuccess ? n : -(int)e;
+    }();
+    if (fits < 0) return -fits;
+    if (fits == 0) return kErrCluster;
+  }
+  const cudaError_t rc = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(rc != cudaSuccess ? rc : last);
+}
+
+template <int D, int CL>
 int launch_dq(const float* q, const float* k, const float* v,
               const float* dout, const float* lse, const float* delta,
               float* dq, int B, int H, int Tq, int Tk, int tq_pad,
               const long long* st, float scale, int causal,
               cudaStream_t stream) {
-  constexpr size_t smem = Smem<D>::bytes;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_dq_tf32x3_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((Tq + BR - 1) / BR, H, B);
-  flash_dq_tf32x3_kernel<D><<<grid, NT, smem, stream>>>(
-      q, k, v, dout, lse, delta, dq, H, Tq, Tk, tq_pad,
-      copy_strides(st, 15), scale, causal);
-  return (int)cudaGetLastError();
+  return launch<D, CL>(flash_dq_tf32x3_kernel<D, CL>, (Tq + BR - 1) / BR, H,
+                       B, stream, q, k, v, dout, lse, delta, dq, H, Tq, Tk,
+                       tq_pad, copy_strides(st, 15), scale, causal);
 }
 
-template <int D>
+template <int D, int CL>
 int launch_dkv(const float* q, const float* k, const float* v,
                const float* dout, const float* lse, const float* delta,
                float* dk, float* dv, int B, int H, int Tq, int Tk,
                int tq_pad, const long long* st, float scale, int causal,
                cudaStream_t stream) {
-  constexpr size_t smem = Smem<D>::bytes;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_dkv_tf32x3_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((Tk + BR - 1) / BR, H, B);
-  flash_dkv_tf32x3_kernel<D><<<grid, NT, smem, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, H, Tq, Tk, tq_pad,
-      copy_strides(st, 18), scale, causal);
-  return (int)cudaGetLastError();
+  return launch<D, CL>(flash_dkv_tf32x3_kernel<D, CL>, (Tk + BR - 1) / BR, H,
+                       B, stream, q, k, v, dout, lse, delta, dk, dv, H, Tq,
+                       Tk, tq_pad, copy_strides(st, 18), scale, causal);
 }
 
 int check_sizes(int B, int H, int Tq, int Tk, int tq_pad) {
   if (Tk <= 0 || B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
   if (tq_pad < Tq || tq_pad % BR) return kErrPad;
   return 0;
+}
+
+// dQ of `D` columns: tf32x3 at 192 / 256 (one CTA a row tile), tf32x3_xwide
+// at 384 / 512 (a cluster of two CTAs, 192 / 256 columns each); any other
+// width, or one of the other variant's, is refused
+int dq_any(bool xwide, const void* q, const void* k, const void* v,
+           const void* dout, const void* lse, const void* delta, void* dq,
+           int B, int H, int Tq, int Tk, int D, int tq_pad,
+           const long long* st, float scale, int causal, void* stream) {
+  if (B <= 0 || H <= 0 || Tq <= 0) return 0;
+  const int rc = check_sizes(B, H, Tq, Tk, tq_pad);
+  if (rc != 0) return rc;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float *fq = static_cast<const float*>(q),
+              *fk = static_cast<const float*>(k),
+              *fv = static_cast<const float*>(v),
+              *fo = static_cast<const float*>(dout),
+              *fl = static_cast<const float*>(lse),
+              *fd = static_cast<const float*>(delta);
+  float* out = static_cast<float*>(dq);
+  switch (xwide ? -D : D) {
+    case 192:
+      return launch_dq<192, 1>(fq, fk, fv, fo, fl, fd, out, B, H, Tq, Tk,
+                               tq_pad, st, scale, causal, s);
+    case 256:
+      return launch_dq<256, 1>(fq, fk, fv, fo, fl, fd, out, B, H, Tq, Tk,
+                               tq_pad, st, scale, causal, s);
+    case -384:
+      return launch_dq<192, 2>(fq, fk, fv, fo, fl, fd, out, B, H, Tq, Tk,
+                               tq_pad, st, scale, causal, s);
+    case -512:
+      return launch_dq<256, 2>(fq, fk, fv, fo, fl, fd, out, B, H, Tq, Tk,
+                               tq_pad, st, scale, causal, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// dK/dV, as dq_any
+int dkv_any(bool xwide, const void* q, const void* k, const void* v,
+            const void* dout, const void* lse, const void* delta, void* dk,
+            void* dv, int B, int H, int Tq, int Tk, int D, int tq_pad,
+            const long long* st, float scale, int causal, void* stream) {
+  if (B <= 0 || H <= 0 || Tq <= 0) return 0;
+  const int rc = check_sizes(B, H, Tq, Tk, tq_pad);
+  if (rc != 0) return rc;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float *fq = static_cast<const float*>(q),
+              *fk = static_cast<const float*>(k),
+              *fv = static_cast<const float*>(v),
+              *fo = static_cast<const float*>(dout),
+              *fl = static_cast<const float*>(lse),
+              *fd = static_cast<const float*>(delta);
+  float *ok = static_cast<float*>(dk), *ov = static_cast<float*>(dv);
+  switch (xwide ? -D : D) {
+    case 192:
+      return launch_dkv<192, 1>(fq, fk, fv, fo, fl, fd, ok, ov, B, H, Tq, Tk,
+                                tq_pad, st, scale, causal, s);
+    case 256:
+      return launch_dkv<256, 1>(fq, fk, fv, fo, fl, fd, ok, ov, B, H, Tq, Tk,
+                                tq_pad, st, scale, causal, s);
+    case -384:
+      return launch_dkv<192, 2>(fq, fk, fv, fo, fl, fd, ok, ov, B, H, Tq, Tk,
+                                tq_pad, st, scale, causal, s);
+    case -512:
+      return launch_dkv<256, 2>(fq, fk, fv, fo, fl, fd, ok, ov, B, H, Tq, Tk,
+                                tq_pad, st, scale, causal, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+const char* error_string(int code) {
+  if (code == kErrPad)
+    return "lse/delta row length tq_pad is not a multiple of 64 >= Tq";
+  if (code == kErrCluster)
+    return "no cluster of two 215 KB CTAs fits on this device";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // namespace
@@ -547,27 +784,8 @@ int mxt_flash_bwd_tf32x3_dq(const void* q, const void* k, const void* v,
                             const void* delta, void* dq, int B, int H, int Tq,
                             int Tk, int D, int tq_pad, const long long* st,
                             float scale, int causal, void* stream) {
-  if (B <= 0 || H <= 0 || Tq <= 0) return 0;
-  const int rc = check_sizes(B, H, Tq, Tk, tq_pad);
-  if (rc != 0) return rc;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float *fq = static_cast<const float*>(q),
-              *fk = static_cast<const float*>(k),
-              *fv = static_cast<const float*>(v),
-              *fo = static_cast<const float*>(dout),
-              *fl = static_cast<const float*>(lse),
-              *fd = static_cast<const float*>(delta);
-  float* out = static_cast<float*>(dq);
-  switch (D) {
-    case 192:
-      return launch_dq<192>(fq, fk, fv, fo, fl, fd, out, B, H, Tq, Tk,
-                            tq_pad, st, scale, causal, s);
-    case 256:
-      return launch_dq<256>(fq, fk, fv, fo, fl, fd, out, B, H, Tq, Tk,
-                            tq_pad, st, scale, causal, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dq_any(false, q, k, v, dout, lse, delta, dq, B, H, Tq, Tk, D,
+                tq_pad, st, scale, causal, stream);
 }
 
 // As mxt_flash_bwd_tf32x3_dq; `st` holds the strides of q, k, v, dO, dk
@@ -578,33 +796,40 @@ int mxt_flash_bwd_tf32x3_dkv(const void* q, const void* k, const void* v,
                              int H, int Tq, int Tk, int D, int tq_pad,
                              const long long* st, float scale, int causal,
                              void* stream) {
-  if (B <= 0 || H <= 0 || Tq <= 0) return 0;
-  const int rc = check_sizes(B, H, Tq, Tk, tq_pad);
-  if (rc != 0) return rc;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float *fq = static_cast<const float*>(q),
-              *fk = static_cast<const float*>(k),
-              *fv = static_cast<const float*>(v),
-              *fo = static_cast<const float*>(dout),
-              *fl = static_cast<const float*>(lse),
-              *fd = static_cast<const float*>(delta);
-  float *ok = static_cast<float*>(dk), *ov = static_cast<float*>(dv);
-  switch (D) {
-    case 192:
-      return launch_dkv<192>(fq, fk, fv, fo, fl, fd, ok, ov, B, H, Tq, Tk,
-                             tq_pad, st, scale, causal, s);
-    case 256:
-      return launch_dkv<256>(fq, fk, fv, fo, fl, fd, ok, ov, B, H, Tq, Tk,
-                             tq_pad, st, scale, causal, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dkv_any(false, q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, D,
+                 tq_pad, st, scale, causal, stream);
 }
 
 const char* mxt_flash_bwd_tf32x3_error_string(int code) {
-  if (code == kErrPad)
-    return "lse/delta row length tq_pad is not a multiple of 64 >= Tq";
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return error_string(code);
+}
+
+// tf32x3_xwide: as mxt_flash_bwd_tf32x3_dq / _dkv at D 384 or 512, each
+// row tile run by a cluster of two CTAs (D / 2 columns each); also returns
+// kErrCluster (see mxt_flash_bwd_tf32x3_xwide_error_string)
+int mxt_flash_bwd_tf32x3_xwide_dq(const void* q, const void* k,
+                                  const void* v, const void* dout,
+                                  const void* lse, const void* delta,
+                                  void* dq, int B, int H, int Tq, int Tk,
+                                  int D, int tq_pad, const long long* st,
+                                  float scale, int causal, void* stream) {
+  return dq_any(true, q, k, v, dout, lse, delta, dq, B, H, Tq, Tk, D, tq_pad,
+                st, scale, causal, stream);
+}
+
+int mxt_flash_bwd_tf32x3_xwide_dkv(const void* q, const void* k,
+                                   const void* v, const void* dout,
+                                   const void* lse, const void* delta,
+                                   void* dk, void* dv, int B, int H, int Tq,
+                                   int Tk, int D, int tq_pad,
+                                   const long long* st, float scale,
+                                   int causal, void* stream) {
+  return dkv_any(true, q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, D,
+                 tq_pad, st, scale, causal, stream);
+}
+
+const char* mxt_flash_bwd_tf32x3_xwide_error_string(int code) {
+  return error_string(code);
 }
 
 }  // extern "C"

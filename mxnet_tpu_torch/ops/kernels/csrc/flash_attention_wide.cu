@@ -3,15 +3,17 @@
 //
 // The wrapper (flash_attention.py, _variant) sends here, zero-padded along
 // D to a multiple of 64 (zero columns add 0 to q.k^T and dO.v^T; `scale`
-// stays 1/sqrt of the real head_dim), the forward and the backward of f32
-// above head_dim 256 and of bf16 above 512 (at 129-256 bf16 takes the
-// tensor-core wgmma_wide kernels, flash_attention_wgmma_wide.cu and
-// flash_attention_bwd_wgmma_wide.cu, and f32 the tensor-core tf32x3 ones,
-// flash_attention_tf32x3.cu and flash_attention_bwd_tf32x3.cu; bf16 at
-// 257-512 the tensor-core wgmma_xwide kernels,
-// flash_attention_wgmma_xwide.cu and flash_attention_bwd_wgmma_xwide.cu).
-// Neither the tensor-core kernels' shared-memory tiles nor the simt
-// kernels' (which hold q, k and v whole along D) reach these widths.
+// stays 1/sqrt of the real head_dim), the f32 forward above head_dim 256,
+// the f32 backward above 512 and bf16 above 512 both ways (at 129-256 bf16
+// takes the tensor-core wgmma_wide kernels, flash_attention_wgmma_wide.cu
+// and flash_attention_bwd_wgmma_wide.cu, and f32 the tensor-core tf32x3
+// ones, flash_attention_tf32x3.cu and flash_attention_bwd_tf32x3.cu; bf16
+// at 257-512 the tensor-core wgmma_xwide kernels,
+// flash_attention_wgmma_xwide.cu and flash_attention_bwd_wgmma_xwide.cu;
+// the f32 backward at 257-512 the tensor-core tf32x3_xwide kernels, in
+// flash_attention_bwd_tf32x3.cu).  Neither the tensor-core kernels'
+// shared-memory tiles nor the simt kernels' (which hold q, k and v whole
+// along D) reach these widths.
 //
 // Replaces, for those head dims, the Pallas TPU kernels
 // mxnet_tpu/ops/pallas/flash_attention.py `_fwd_kernel`, `_dq_kernel` and

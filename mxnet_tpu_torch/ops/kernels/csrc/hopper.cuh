@@ -5,13 +5,16 @@
 // 320-512),
 // the f32 flash kernels at head_dim 192 and 256
 // (tf32x3: the forward, flash_attention_tf32x3.cu; dQ and dK/dV,
-// flash_attention_bwd_tf32x3.cu) and the int8 matmul (int8_matmul.cu).
+// flash_attention_bwd_tf32x3.cu, which also holds tf32x3_xwide, dQ and
+// dK/dV at 384 and 512 in 2-CTA clusters) and the int8 matmul
+// (int8_matmul.cu).
 // mbarriers, TMA loads, 16-byte cp.async copies, 128-byte-swizzled wgmma
 // descriptors, the wgmma shapes the kernels issue (bf16 with f32
 // accumulation; s8 with s32 accumulation), the flash kernels' hi / lo
 // split of an f32 operand (two bf16 terms; two TF32 terms with mma.sync's
 // TF32 product, and the tf32x3 kernels' split fragment loads and f32 row
-// copies), the bf16 forwards' online-softmax step and epilogue, and the
+// copies), a cluster's rank, barrier, remote mbarrier arrivals and
+// distributed shared memory stores (st.async), the bf16 forwards' online-softmax step and epilogue, and the
 // host-side tensor maps over [B, T, H, D] bf16 tensors and over [rows, K]
 // int8 matrices.  Included by each source; everything sits in an anonymous
 // namespace, so each library keeps its own copy.
@@ -315,6 +318,84 @@ __device__ __forceinline__ void frag_b_perm(const float* m, int ld, int g,
                                             uint32_t (&lo)[2]) {
   split_tf32(m[2 * t * ld + g], hi[0], lo[0]);
   split_tf32(m[(2 * t + 1) * ld + g], hi[1], lo[1]);
+}
+
+// Thread-block clusters (the tf32x3_xwide backward: two CTAs that split D).
+// This CTA's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The address (shared::cluster window) of the shared::cta address `a`'s
+// counterpart in the shared memory of the cluster's CTA `rank`
+__device__ __forceinline__ uint32_t cluster_map(uint32_t a, uint32_t rank) {
+  uint32_t d;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(d)
+               : "r"(a), "r"(rank));
+  return d;
+}
+
+// 16 bytes into another CTA's shared memory at `addr`, counted as
+// transaction bytes on its mbarrier `bar` (both shared::cluster addresses):
+// the data is visible to a thread that sees the barrier's phase complete
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float a, float b,
+                                            float c, float d, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+      : "memory");
+}
+
+// An arrival on another CTA's mbarrier (shared::cluster address), ordered
+// after this thread's earlier memory accesses (release, cluster scope)
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+               ::"r"(bar)
+               : "memory");
+}
+
+// mbar_wait for a barrier that another CTA's threads arrive on: acquire at
+// cluster scope
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Makes this thread's mbarrier initialisations visible to the cluster
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The cluster barrier in two halves: arrive publishes this thread's earlier
+// writes (release), wait returns once every thread of the cluster has
+// arrived and makes their writes visible (acquire).  Each thread
+// alternates them; every thread of a warp takes the same one (.aligned)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Both halves: every thread of the cluster is here
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
 }
 
 // One key tile's online-softmax step of the tensor-core flash forwards,

@@ -19,10 +19,11 @@ non-contiguous ``dO`` go in without a transpose copy).  The kernels take
 head_dim 16, 32, 64 or 128, or above 128 any multiple of 64; any other
 head_dim is zero-padded along D to the next of those widths (a layout copy:
 zero columns add 0 to q·kᵀ and dO·Vᵀ), run at that width with ``scale``
-fixed from the real head_dim, and sliced back (:func:`_padded_dim`).  Only
-head_dim 0 raises.  The variants are chosen by one rule on dtype and padded
-head_dim alone, the same for both directions (:func:`_variant`), never by
-whether a build or a launch worked; there are six:
+fixed from the real head_dim, and sliced back (:func:`_padded_dim`; the
+f32 backward at 257-512 pads further, to 384 or 512: :func:`_kernel_width`).
+Only head_dim 0 raises.  The variants are chosen by one rule on dtype,
+padded head_dim and direction alone (:func:`_variant`), never by whether a
+build or a launch worked; there are seven:
 
 * ``wgmma`` — tensor cores (wgmma, TMA rings, the f32 operands p and ds
   split into two bf16 terms): bf16 at head_dim 64 or 128 (the flagship's
@@ -54,6 +55,14 @@ whether a build or a launch worked; there are six:
   forward's ``acc·alpha + pv``).  mma.sync, 16-byte ``cp.async`` copies:
   the same 16-byte preconditions as ``wgmma`` (:func:`_tma_fault`) and
   the same copy of ``dO``;
+* ``tf32x3_xwide`` — tensor cores, the backward only (dQ and dK/dV): f32
+  at head_dim 257-512, run at 384 (257-384) or 512 (385-512)
+  (``csrc/flash_attention_bwd_tf32x3.cu``: the ``tf32x3`` kernels at 192
+  or 256 columns a CTA, two CTAs of a thread-block cluster splitting D;
+  each CTA's partial scores meet the peer's through distributed shared
+  memory, and each computes the output columns of its own half).  The
+  same preconditions and the same copy of ``dO`` as ``tf32x3``.  The f32
+  forward at these widths stays ``wide``;
 * ``wgmma_xwide`` — tensor cores: bf16 at a padded head_dim of 320, 384,
   448 or 512 (head_dim 257-512), both ways.  Forward
   ``csrc/flash_attention_wgmma_xwide.cu`` (CTAs of 64 query rows whose two
@@ -71,9 +80,10 @@ whether a build or a launch worked; there are six:
 * ``wide`` — CUDA cores, above head_dim 128 (padded to a multiple of 64):
   the dot products over D walk it in chunks of 64 and each CTA owns at
   most 128 output columns, so any head_dim fits
-  (``csrc/flash_attention_wide.cu``: forward, dQ and dK/dV).  f32 above
-  256 both ways (a wider f32 row would not fit the ``tf32x3`` kernels'
-  shared memory) and bf16 above 512 both ways.
+  (``csrc/flash_attention_wide.cu``: forward, dQ and dK/dV).  The f32
+  forward above 256 (a wider f32 row would not fit the ``tf32x3``
+  forward's shared memory), the f32 backward above 512, and bf16 above 512
+  both ways.
 
 Every forward launch counts as ``kernels.launch.flash_attention`` and as
 ``kernels.launch.flash_attention.<variant>``; every backward launch as
@@ -103,10 +113,12 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)      # the widths the kernels are built for
 # the tensor-core variants' widths
 _TC_WIDTHS = {"wgmma": (64, 128), "wgmma_wide": (192, 256),
-              "tf32x3": (192, 256), "wgmma_xwide": (320, 384, 448, 512)}
+              "tf32x3": (192, 256), "wgmma_xwide": (320, 384, 448, 512),
+              "tf32x3_xwide": (384, 512)}
 # ... and the dtype each takes
 _TC_DTYPE = {"wgmma": torch.bfloat16, "wgmma_wide": torch.bfloat16,
-             "tf32x3": torch.float32, "wgmma_xwide": torch.bfloat16}
+             "tf32x3": torch.float32, "wgmma_xwide": torch.bfloat16,
+             "tf32x3_xwide": torch.float32}
 _WIDE_CHUNK = 64                    # above 128, widths are multiples of it
 _BWD_ROWS = 64                      # lse/delta rows per tile of the wgmma dK/dV
 
@@ -278,24 +290,42 @@ def _pad_d(t, width):
     return t if D == width else torch.nn.functional.pad(t, (0, width - D))
 
 
-def _variant(dtype, head_dim):
-    """The flash kernels for ``dtype`` and ``head_dim`` (1 and up), one rule
-    for the forward and the backward (dQ and dK/dV), by the padded width
-    (:func:`_padded_dim`): ``"wgmma"`` for bf16 at 64 or 128,
-    ``"wgmma_wide"`` for bf16 at 192 or 256, ``"wgmma_xwide"`` for bf16 at
-    320, 384, 448 or 512, ``"tf32x3"`` for f32 at 192 or 256 (split-TF32
-    products on the tensor cores: three TF32 products of the operands' hi
-    / lo terms, under 3·2^-20 relative a product, where one TF32 product
-    leaves 2^-11); ``"wide"`` for every other width above 128 (f32 above
-    256, bf16 above 512); ``"simt"`` for the rest (f32 up to 128; bf16 up
-    to 32)."""
+def _variant(dtype, head_dim, backward=False):
+    """The flash kernels for ``dtype``, ``head_dim`` (1 and up) and the
+    direction, by the padded width (:func:`_padded_dim`): ``"wgmma"`` for
+    bf16 at 64 or 128, ``"wgmma_wide"`` for bf16 at 192 or 256,
+    ``"wgmma_xwide"`` for bf16 at 320, 384, 448 or 512, ``"tf32x3"`` for
+    f32 at 192 or 256 (split-TF32 products on the tensor cores: three TF32
+    products of the operands' hi / lo terms, under 3·2^-20 relative a
+    product, where one TF32 product leaves 2^-11), all four both ways; for
+    the ``backward`` (dQ and dK/dV), ``"tf32x3_xwide"`` for f32 at 320,
+    384, 448 or 512 (run at :func:`_kernel_width`); ``"wide"`` for every
+    other width above 128 (the f32 forward above 256, the f32 backward
+    above 512, bf16 above 512); ``"simt"`` for the rest (f32 up to 128;
+    bf16 up to 32)."""
     width = _padded_dim(head_dim)
     for variant in ("wgmma", "wgmma_wide", "wgmma_xwide", "tf32x3"):
         if dtype == _TC_DTYPE[variant] and width in _TC_WIDTHS[variant]:
             return variant
+    if (backward and dtype == _TC_DTYPE["tf32x3_xwide"]
+            and _TC_WIDTHS["tf32x3"][-1] < width
+            <= _TC_WIDTHS["tf32x3_xwide"][-1]):
+        return "tf32x3_xwide"
     if head_dim > _HEAD_DIMS[-1]:
         return "wide"
     return "simt"
+
+
+def _kernel_width(variant, head_dim):
+    """The width ``variant`` runs ``head_dim`` at: :func:`_padded_dim`,
+    rounded up to the next of the variant's own widths where it has them
+    (``tf32x3_xwide`` runs 320 at 384 and 448 at 512: a pair of CTAs
+    splits D evenly, and 160 or 224 columns a CTA would not divide into 8
+    warps of 8-column tiles; the zero columns add 0 to the score products,
+    and ``scale`` stays the real head_dim's)."""
+    width = _padded_dim(head_dim)
+    return min((w for w in _TC_WIDTHS.get(variant, ()) if w >= width),
+               default=width)
 
 
 def _tma_strides(t):
@@ -333,7 +363,8 @@ def _tma_fault(name, t):
 
 def _check_wgmma(q, k, v, do=None, variant="wgmma"):
     """Raise :class:`ValueError` on inputs the tensor-core variants
-    (``wgmma``, ``wgmma_wide``, ``wgmma_xwide``, ``tf32x3``) cannot read
+    (``wgmma``, ``wgmma_wide``, ``wgmma_xwide``, ``tf32x3``,
+    ``tf32x3_xwide``) cannot read
     (:func:`_tma_fault`): q, k, v and, for the backward, ``do``.  Never a
     reason to take another variant."""
     named = (("q", q), ("k", k), ("v", v)) + (
@@ -629,6 +660,9 @@ _BWD_TC = {
     "tf32x3": ("flash_attention_bwd_tf32x3", "mxt_flash_bwd_tf32x3"),
     "wgmma_xwide": ("flash_attention_bwd_wgmma_xwide",
                     "mxt_flash_bwd_wgmma_xwide"),
+    # the same source as tf32x3: its kernels in 2-CTA clusters
+    "tf32x3_xwide": ("flash_attention_bwd_tf32x3",
+                     "mxt_flash_bwd_tf32x3_xwide"),
 }
 
 
@@ -642,10 +676,18 @@ def _bwd_tc_args(variant, q, k, v, do, lse, delta):
     return lse_p, delta_p, lse_p.shape[-1]
 
 
+def _configure_bwd_source(source, lib):
+    """Declare the entry points of every backward variant built from
+    ``source`` (the library is configured once, on first load)."""
+    for src, prefix in _BWD_TC.values():
+        if src == source:
+            _configure_bwd_tc(prefix, lib)
+
+
 def _bwd_tc_lib(variant):
     source, prefix = _BWD_TC[variant]
-    return _build.load(source, functools.partial(_configure_bwd_tc,
-                                                  prefix)), prefix
+    return _build.load(source, functools.partial(_configure_bwd_source,
+                                                  source)), prefix
 
 
 def _flash_dq_tc_cuda(variant, q, k, v, do, lse, delta, causal, scale):
@@ -755,6 +797,26 @@ def _flash_dkv_tf32x3_cuda(q, k, v, do, lse, delta, causal=True,
                               scale)
 
 
+def _flash_dq_tf32x3_xwide_cuda(q, k, v, do, lse, delta, causal=True,
+                                scale=None):
+    """Launch the dQ kernel of ``csrc/flash_attention_bwd_tf32x3.cu`` in
+    2-CTA clusters that split D (tensor cores, split-TF32 products) on f32
+    inputs with head_dim 384 or 512; returns ``dq``, contiguous.  Raises on
+    inputs it does not take (:func:`_check_tc_width`, :func:`_check_wgmma`
+    with ``do``): never a hand-off to the wide variant."""
+    return _flash_dq_tc_cuda("tf32x3_xwide", q, k, v, do, lse, delta, causal,
+                             scale)
+
+
+def _flash_dkv_tf32x3_xwide_cuda(q, k, v, do, lse, delta, causal=True,
+                                 scale=None):
+    """Launch the dK/dV kernel of ``csrc/flash_attention_bwd_tf32x3.cu`` in
+    2-CTA clusters on f32 inputs with head_dim 384 or 512; returns ``(dk,
+    dv)``, contiguous, every row written (rows no query sees are 0)."""
+    return _flash_dkv_tc_cuda("tf32x3_xwide", q, k, v, do, lse, delta,
+                              causal, scale)
+
+
 def _flash_dq_wgmma_xwide_cuda(q, k, v, do, lse, delta, causal=True,
                                scale=None):
     """Launch the dQ kernel of ``csrc/flash_attention_bwd_wgmma_xwide.cu``
@@ -779,9 +841,9 @@ def _flash_dkv_wgmma_xwide_cuda(q, k, v, do, lse, delta, causal=True,
 def _flash_bwd_cuda(q, k, v, o, lse, do, dlse=None, causal=True,
                     scale=None):
     """The backward on CUDA tensors: ``delta`` with torch ops on the
-    unpadded o and dO, then q, k, v and dO padded along D to
-    :func:`_padded_dim` and the dQ and the dK/dV kernel of the variant
-    :func:`_variant` names; the gradients sliced back.  Returns ``(dq, dk,
+    unpadded o and dO, then the dQ and the dK/dV kernel of the variant
+    :func:`_variant` names for the backward, on q, k, v and dO padded
+    along D to its :func:`_kernel_width`; the gradients sliced back.  Returns ``(dq, dk,
     dv)``, contiguous, in the input dtype.  ``scale=None`` is 1/√D of
     the real head_dim.  ``dO`` is read through its strides (copied if its
     head_dim axis is not unit-stride, or, for the tensor-core variants, if
@@ -801,9 +863,9 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, dlse=None, causal=True,
         do = do.contiguous()
     lse = lse.float().contiguous()
     delta = _delta(o, do, dlse)
-    width = _padded_dim(D)
+    variant = _variant(q.dtype, D, backward=True)
+    width = _kernel_width(variant, D)
     q, k, v, do = (_pad_d(t, width) for t in (q, k, v, do))
-    variant = _variant(q.dtype, D)
     if variant in _BWD_TC and _tma_fault("dO", do):
         do = do.clone(memory_format=torch.contiguous_format)
     launch_dq, launch_dkv = {
@@ -812,6 +874,8 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, dlse=None, causal=True,
         "tf32x3": (_flash_dq_tf32x3_cuda, _flash_dkv_tf32x3_cuda),
         "wgmma_xwide": (_flash_dq_wgmma_xwide_cuda,
                         _flash_dkv_wgmma_xwide_cuda),
+        "tf32x3_xwide": (_flash_dq_tf32x3_xwide_cuda,
+                         _flash_dkv_tf32x3_xwide_cuda),
         "wide": (_flash_dq_wide_cuda, _flash_dkv_wide_cuda),
         "simt": (_flash_dq_simt_cuda, _flash_dkv_simt_cuda)}[variant]
     dq = launch_dq(q, k, v, do, lse, delta, causal, scale)

@@ -23,8 +23,9 @@ RMSNorm variant (warp, block, simt), planned and forced, is held to its
 plain version at those tolerances at the main paths' shapes and at the
 edges (odd E, offset views, strided rows, 1-8 rows, 128 KB rows), two
 calls bit-identical, with 0 ptxas spills in every instantiation.  Head dims
-above 256 take the flash kernels' wide variant in f32, and above 512 in
-bf16, held to the plain versions at the padded cases' tolerances.  bf16 at
+above 256 take the flash kernels' wide variant in the f32 forward, above
+512 in the f32 backward and above 512 in bf16, held to the plain versions
+at the padded cases' tolerances.  bf16 at
 head_dim 129-256 takes the tensor-core ``wgmma_wide`` kernels, forward and
 backward, held as the wgmma ones are (plain version, dense autograd for
 the backward, kv_len, fused-qkv views, a strided dO, misaligned inputs,
@@ -36,7 +37,10 @@ gradient's largest entry).  The f32 backward at
 head_dim 129-256 takes the tensor-core ``tf32x3`` dQ and dK/dV
 (split-TF32 products), held at the f32 gradient tolerances to the plain
 backward and within 1e-4 of each gradient's largest entry to dense
-autograd, with the same views, refusals and repeat checks.  The f32
+autograd, with the same views, refusals and repeat checks; at head_dim
+257-512 the f32 backward takes the tensor-core ``tf32x3_xwide`` dQ and
+dK/dV (the tf32x3 kernels in 2-CTA clusters that split D), held the same
+way.  The f32
 forward there takes the tensor-core ``tf32x3`` forward (split-TF32
 products for S and P·V), held to the plain version at the f32 forward
 gates (o within 1e-5 + 1e-4·|o|, lse within 1e-4 + 1e-5·|lse|: the
@@ -1419,6 +1423,140 @@ def test_flash_autograd_f32_head_dim_256_launches_tf32x3(dev):
 
 
 # ---------------------------------------------------------------------------
+# flash backward: the tensor-core tf32x3_xwide variant, f32 at D 257-512
+# (run at 384 or 512 by 2-CTA clusters that split D)
+# ---------------------------------------------------------------------------
+TF32X3_XWIDE_BWD_CASES = [
+    # (B, Tq, Tk, H, D, causal); 257 and 320 pad to 384, 400 and 448 to 512
+    (1, 1, 1, 2, 512, True),         # a single row
+    (1, 1, 129, 2, 384, False),
+    (2, 63, 63, 2, 512, True),
+    (1, 65, 65, 2, 257, True),
+    (1, 127, 127, 3, 320, False),
+    (1, 129, 129, 2, 400, True),
+    (1, 1000, 3000, 2, 320, False),
+    (1, 1000, 3000, 2, 512, False),
+    (1, 20, 300, 2, 384, True),      # causal, Tq < Tk: keys 20.. dK=dV=0
+    (1, 65, 200, 2, 448, True),
+    (1, 300, 70, 2, 512, True),      # causal, Tq > Tk
+    (1, 300, 70, 2, 448, False),
+]
+
+
+@pytest.mark.parametrize("case", TF32X3_XWIDE_BWD_CASES)
+def test_flash_bwd_tf32x3_xwide_matches_plain(dev, case):
+    """dQ and dK/dV of the tf32x3_xwide variant (split-TF32 products, D
+    split across a 2-CTA cluster) against the plain backward (with an lse
+    cotangent) at the f32 gradient tolerances, against dense autograd
+    within 1e-4 of each gradient's largest entry, keys no query sees at
+    zero, and two calls bit-identical."""
+    B, Tq, Tk, H, D, causal = case
+    q, k, v, o, lse, do, dlse = _flash_bwd_inputs(dev, *case, torch.float32)
+    for t in (q, k, v):                    # see test_flash_bwd_kernels_...
+        torch.full_like(t, float("nan"))
+    common.reset_counts()
+    got = _flash_bwd_cuda(q, k, v, o, lse, do, dlse, causal)
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention_dq": 1,
+        "kernels.launch.flash_attention_dq.tf32x3_xwide": 1,
+        "kernels.launch.flash_attention_dkv": 1,
+        "kernels.launch.flash_attention_dkv.tf32x3_xwide": 1}
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, dlse, causal)
+    auto = _dense_autograd_grads(q, k, v, do, dlse, causal)
+    for gt, wt, at, name in zip(got, want, auto, ("dq", "dk", "dv")):
+        assert gt.dtype == torch.float32 and gt.shape == wt.shape
+        assert gt.is_contiguous() and torch.isfinite(gt).all(), name
+        np.testing.assert_allclose(_np(gt), _np(wt), err_msg=name,
+                                   **F32_GRAD_TOL)
+        assert _rel_to_max(gt, at) <= 1e-4, name
+    if causal and Tq < Tk:
+        assert not got[1][:, Tq:].any() and not got[2][:, Tq:].any()
+    again = _flash_bwd_cuda(q, k, v, o, lse, do, dlse, causal)
+    for a, b in zip(got, again):           # no atomics: the same bits
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D", [320, 512])
+def test_flash_bwd_tf32x3_xwide_reads_fused_qkv_views_and_strided_dout(dev,
+                                                                       D):
+    """f32 q/k/v as views of one fused qkv product and a transposed dO give
+    the same bits as contiguous copies (at 512 the views go to the kernels
+    uncopied; 320 is padded to 384 first)."""
+    B, T, H = 2, 333, 3
+    g = torch.Generator(device=dev).manual_seed(5)
+    qkv = torch.randn(B, T, 3 * H * D, generator=g, device=dev)
+    q, k, v = (t.view(B, T, H, D) for t in qkv.split(H * D, -1))
+    o, lse = _flash_cuda(q, k, v)
+    do = torch.randn(B, H, T, D, generator=g, device=dev).transpose(1, 2)
+    assert not q.is_contiguous() and not do.is_contiguous()
+    common.reset_counts()
+    a = _flash_bwd_cuda(q, k, v, o, lse, do)
+    assert common.launch_counts()[
+        "kernels.launch.flash_attention_dq.tf32x3_xwide"] == 1
+    b = _flash_bwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(), o,
+                        lse, do.contiguous())
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_flash_bwd_tf32x3_xwide_refuses_misaligned_inputs(dev):
+    """Misaligned f32 q/k/v raise before any launch; a misaligned dO (an
+    internal cotangent) is copied by the backward, and refused by the
+    launchers themselves; bf16 or another head_dim is refused too, never
+    handed to the wide kernels."""
+    from mxnet_tpu_torch.ops.kernels.flash_attention import (
+        _flash_dkv_tf32x3_xwide_cuda, _flash_dq_tf32x3_xwide_cuda)
+    B, T, H, D = 1, 64, 2, 512
+    q, k, v, o, lse, do, _ = _flash_bwd_inputs(dev, B, T, T, H, D, True,
+                                               torch.float32)
+    flat = torch.randn(B * T * H * D + 1, device=dev)
+    bad = flat[1:].view(B, T, H, D)                   # base 4 bytes off
+    bad.copy_(q)
+    delta = _delta(o, do, None)
+    common.reset_counts()
+    with pytest.raises(ValueError, match="tf32x3_xwide variant.*q's base"):
+        _flash_bwd_cuda(bad, k, v, o, lse, do)
+    for launch in (_flash_dq_tf32x3_xwide_cuda, _flash_dkv_tf32x3_xwide_cuda):
+        with pytest.raises(ValueError, match="k's base address"):
+            launch(q, bad, v, do, lse, delta)
+        with pytest.raises(ValueError, match="dO's base address"):
+            launch(q, k, v, bad, lse, delta)
+        with pytest.raises(ValueError,
+                           match="tf32x3_xwide variant.*takes float32"):
+            launch(*(t.to(torch.bfloat16) for t in (q, k, v, do)), lse,
+                   delta)
+        with pytest.raises(ValueError,
+                           match="tf32x3_xwide variant.*head_dim 448"):
+            launch(*(t[..., :448] for t in (q, k, v, do)), lse, delta)
+    assert common.launch_counts() == {}
+    bad.copy_(do)
+    got = _flash_bwd_cuda(q, k, v, o, lse, bad)
+    want = _flash_bwd_cuda(q, k, v, o, lse, do)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_flash_autograd_f32_head_dim_512_launches_tf32x3_xwide(dev):
+    """Autograd of ``flash_attention`` at f32 head_dim 512: the forward on
+    wide, dQ and dK/dV on tf32x3_xwide, one each."""
+    B, T, H, D = 1, 130, 2, 512
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn(B, T, H, D, generator=g, device=dev,
+                           requires_grad=True) for _ in range(3))
+    common.reset_counts()
+    o, lse = flash_attention_lse(q, k, v)
+    (o.square().sum() + lse.tanh().sum()).backward()
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention": 1,
+        "kernels.launch.flash_attention.wide": 1,
+        "kernels.launch.flash_attention_dq": 1,
+        "kernels.launch.flash_attention_dq.tf32x3_xwide": 1,
+        "kernels.launch.flash_attention_dkv": 1,
+        "kernels.launch.flash_attention_dkv.tf32x3_xwide": 1}
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+# ---------------------------------------------------------------------------
 # head dims the kernels do not have: zero-padded along D on the card
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1428,7 +1566,8 @@ def test_flash_padded_head_dims_match_plain(dev, D, dtype, causal):
     """Forward and backward at head_dim 48, 80 and 96 (padded to 64, 128
     and 128) and above 128 (160 padded to 192, 256, 320, 576: the wide
     variant, but at 160 and 256, which take wgmma_wide in bf16 and tf32x3
-    in f32, and bf16 at 320, which takes wgmma_xwide both ways):
+    in f32, bf16 at 320, which takes wgmma_xwide both ways, and the f32
+    backward at 320, which takes tf32x3_xwide at 384):
     no ValueError, the plain version's results, ``scale`` from the real
     head_dim, and the padded variant's launches."""
     B, Tq, Tk, H = 1, 150, 150, 2
@@ -1444,6 +1583,8 @@ def test_flash_padded_head_dims_match_plain(dev, D, dtype, causal):
     else:
         variant = "wgmma" if dtype == torch.bfloat16 else "simt"
     bwd_variant = variant
+    if dtype == torch.float32 and 256 < D <= 512:
+        bwd_variant = "tf32x3_xwide"
     assert common.launch_counts() == {
         "kernels.launch.flash_attention": 1,
         "kernels.launch.flash_attention.%s" % variant: 1}

@@ -1,8 +1,8 @@
 """The flash kernels' CUDA variants, from the Python side, on the CPU.
 
-Which variant a dtype / head_dim selects (one rule for the forward and the
-backward, ``_variant``), how a head dim the kernels lack is padded to a kernel width with the real head_dim's
-scale, how the tensor-core variants' tensor maps see a tensor's strides,
+Which variant a dtype / head_dim selects, forward and backward
+(``_variant``), how a head dim the kernels lack is padded to a kernel
+width with the real head_dim's scale (``_padded_dim``, ``_kernel_width``), how the tensor-core variants' tensor maps see a tensor's strides,
 and that their precondition check raises with a message (and never hands an
 input to the other variant).  None of these needs a card: the checks run on
 tensor metadata before any build or launch, and the dispatch tests replace
@@ -33,10 +33,16 @@ BF16 = torch.bfloat16
     pytest.param(torch.float32, 160, "tf32x3", id="dtype17-160-tf32x3"),
     (torch.float32, 320, "wide")])
 def test_variant_by_dtype_and_head_dim(dtype, D, variant):
-    """One rule (:func:`_variant`) names the variant of the forward and
-    of the backward alike: f32 at padded head_dim 192 and 256 runs on the
-    tensor cores (``tf32x3``) both ways."""
+    """:func:`_variant` names the forward's variant (``variant``) and the
+    backward's, the same but for f32 at padded head_dim 320-512, whose
+    backward runs on the tensor cores (``tf32x3_xwide``) while its forward
+    stays ``wide``: f32 at padded head_dim 192 and 256 runs on the tensor
+    cores (``tf32x3``) both ways."""
     assert fa._variant(dtype, D) == variant
+    bwd = variant
+    if dtype == torch.float32 and 256 < D <= 512:
+        bwd = "tf32x3_xwide"
+    assert fa._variant(dtype, D, backward=True) == bwd
 
 
 @pytest.mark.parametrize("dtype,D,variant", [
@@ -52,9 +58,10 @@ def test_backward_above_128_takes_wgmma_wide_for_bf16_up_to_256(dtype, D,
     """Above head_dim 128 the forward and the backward take the tensor-core
     wgmma_wide kernels for bf16 at the padded widths 192 and 256; f32 there
     takes the tensor-core tf32x3 kernels both ways.  Beyond 256 bf16 takes
-    the tensor-core wgmma_xwide kernels, forward and backward: one rule
-    for both directions."""
+    the tensor-core wgmma_xwide kernels, forward and backward: the same
+    variant both ways."""
     assert fa._variant(dtype, D) == variant
+    assert fa._variant(dtype, D, backward=True) == variant
 
 
 @pytest.mark.parametrize("D,width", [(257, 320), (320, 320), (321, 384),
@@ -66,15 +73,36 @@ def test_bf16_backward_at_257_to_512_takes_wgmma_xwide(D, width):
     assert fa._padded_dim(D) == width
     assert width in fa._TC_WIDTHS["wgmma_xwide"]
     assert fa._variant(BF16, D) == "wgmma_xwide"
+    assert fa._variant(BF16, D, backward=True) == "wgmma_xwide"
+    assert fa._kernel_width("wgmma_xwide", D) == width
 
 
 @pytest.mark.parametrize("dtype,D", [
     (BF16, 513), (BF16, 576), (BF16, 1024), (torch.float32, 257),
-    (torch.float32, 320), (torch.float32, 512), (torch.float32, 576)])
+    (torch.float32, 320), (torch.float32, 512), (torch.float32, 576),
+    (torch.float32, 513), (torch.float32, 1024)])
 def test_bf16_above_512_and_f32_above_256_stay_wide_both_ways(dtype, D):
-    """bf16 above head_dim 512 and f32 above 256 take the wide kernels,
-    forward and backward."""
+    """bf16 above head_dim 512 takes the wide kernels forward and
+    backward, and so does f32 above 512; f32 at 257-512 takes the wide
+    forward and the tensor-core tf32x3_xwide backward."""
     assert fa._variant(dtype, D) == "wide"
+    xwide = dtype == torch.float32 and D <= 512
+    assert fa._variant(dtype, D, backward=True) == (
+        "tf32x3_xwide" if xwide else "wide")
+
+
+@pytest.mark.parametrize("D,width,bwd_width", [
+    (257, 320, 384), (320, 320, 384), (384, 384, 384), (400, 448, 512),
+    (448, 448, 512), (512, 512, 512)])
+def test_f32_backward_at_257_to_512_takes_tf32x3_xwide(D, width, bwd_width):
+    """f32 at head_dim 257-512: the forward on wide at the padded width, the
+    backward on tf32x3_xwide at 384 (257-384) or 512 (385-512), the next of
+    its own widths: a pair of CTAs splits D evenly."""
+    assert fa._padded_dim(D) == width
+    assert fa._variant(torch.float32, D) == "wide"
+    assert fa._kernel_width("wide", D) == width
+    assert fa._variant(torch.float32, D, backward=True) == "tf32x3_xwide"
+    assert fa._kernel_width("tf32x3_xwide", D) == bwd_width
 
 
 @pytest.mark.parametrize("dtype,D,variant", [
@@ -129,7 +157,8 @@ def _bwd_launchers(monkeypatch, calls):
 
     for name in ("dq_wgmma", "dkv_wgmma", "dq_simt", "dkv_simt", "dq_wide",
                  "dkv_wide", "dq_wgmma_wide", "dkv_wgmma_wide", "dq_tf32x3",
-                 "dkv_tf32x3", "dq_wgmma_xwide", "dkv_wgmma_xwide"):
+                 "dkv_tf32x3", "dq_wgmma_xwide", "dkv_wgmma_xwide",
+                 "dq_tf32x3_xwide", "dkv_tf32x3_xwide"):
         monkeypatch.setattr(fa, "_flash_%s_cuda" % name, launcher(name))
 
 
@@ -137,22 +166,26 @@ def _bwd_launchers(monkeypatch, calls):
     (BF16, 64, "wgmma"), (BF16, 128, "wgmma"), (BF16, 32, "simt"),
     (torch.float32, 128, "simt"), (torch.float32, 64, "simt"),
     (BF16, 256, "wgmma_wide"), (torch.float32, 192, "tf32x3"),
-    (torch.float32, 256, "tf32x3"), (torch.float32, 320, "wide"),
+    (torch.float32, 256, "tf32x3"), (torch.float32, 320, "tf32x3_xwide"),
     (BF16, 320, "wgmma_xwide"), (BF16, 384, "wgmma_xwide"),
     (BF16, 448, "wgmma_xwide"), (BF16, 512, "wgmma_xwide"),
-    (BF16, 576, "wide")])
+    (BF16, 576, "wide"), (torch.float32, 384, "tf32x3_xwide"),
+    (torch.float32, 448, "tf32x3_xwide"), (torch.float32, 512, "tf32x3_xwide"),
+    (torch.float32, 576, "wide")])
 def test_flash_bwd_cuda_dispatches_by_variant(monkeypatch, dtype, D,
                                               variant):
     """``_flash_bwd_cuda`` hands the inputs to the dQ and the dK/dV
     launcher its variant names, with the caller's arguments and ``delta``
-    [B, H, Tq]."""
+    [B, H, Tq]; tf32x3_xwide gets them padded to 384 or 512 and the
+    gradients come back at D."""
     calls = []
     _bwd_launchers(monkeypatch, calls)
     q = torch.zeros(1, 5, 2, D, dtype=dtype)
     lse = torch.zeros(1, 2, 5)
     dq, dk, dv = fa._flash_bwd_cuda(q, q, q, q, lse, q, None, False, 0.5)
-    assert calls == [("dq_" + variant, D, D, False, 0.5, (1, 2, 5)),
-                     ("dkv_" + variant, D, D, False, 0.5, (1, 2, 5))]
+    W = {320: 384, 448: 512}.get(D, D) if variant == "tf32x3_xwide" else D
+    assert calls == [("dq_" + variant, W, W, False, 0.5, (1, 2, 5)),
+                     ("dkv_" + variant, W, W, False, 0.5, (1, 2, 5))]
     assert dq.shape == dk.shape == dv.shape == q.shape
 
 
@@ -208,13 +241,18 @@ def test_head_dims_above_128_reach_wide(monkeypatch, dtype, D, width):
     to 256, the wgmma_wide ones for bf16 and the tf32x3 ones for f32, at
     the width padded to a multiple of 64, with ``scale`` 1/√D of the real
     D; the outputs come back at D.  From 257 to 512 bf16 goes to the
-    wgmma_xwide launchers, forward and backward."""
+    wgmma_xwide launchers, forward and backward, and the f32 backward to
+    the tf32x3_xwide ones at 384 or 512 (the f32 forward to wide)."""
     fwd = []
-    variant = "wide"
+    variant = bwd_variant = "wide"
+    bwd_width = width
     if D <= 256:
-        variant = "wgmma_wide" if dtype == BF16 else "tf32x3"
+        variant = bwd_variant = "wgmma_wide" if dtype == BF16 else "tf32x3"
     elif D <= 512 and dtype == BF16:
-        variant = "wgmma_xwide"
+        variant = bwd_variant = "wgmma_xwide"
+    elif D <= 512:
+        bwd_variant = "tf32x3_xwide"
+        bwd_width = 384 if D <= 384 else 512
 
     def launch(q, k, v, causal, scale, kv_len):
         fwd.append((q.shape[-1], k.shape[-1], v.shape[-1], scale))
@@ -236,9 +274,54 @@ def test_head_dims_above_128_reach_wide(monkeypatch, dtype, D, width):
     assert o.shape == q.shape and o.is_contiguous()
     grads = fa._flash_bwd_cuda(q, q, q, o, lse, q)
     assert [c[:5] for c in bwd] == [
-        ("dq_" + variant, width, width, True, 1.0 / D ** 0.5),
-        ("dkv_" + variant, width, width, True, 1.0 / D ** 0.5)]
+        ("dq_" + bwd_variant, bwd_width, bwd_width, True, 1.0 / D ** 0.5),
+        ("dkv_" + bwd_variant, bwd_width, bwd_width, True, 1.0 / D ** 0.5)]
     assert all(g.shape == q.shape and g.is_contiguous() for g in grads)
+
+
+@pytest.mark.parametrize("D,width,bwd_width", [
+    (257, 320, 384), (300, 320, 384), (384, 384, 384), (400, 448, 512),
+    (512, 512, 512)])
+def test_padded_width_and_real_scale_reach_tf32x3_xwide(monkeypatch, D,
+                                                        width, bwd_width):
+    """f32 at head_dim 257-512: the wide forward gets q, k, v zero-padded
+    to the multiple of 64, the tf32x3_xwide dQ and dK/dV launchers get q,
+    k, v and dO zero-padded to 384 or 512 (the values unchanged, the new
+    columns 0) with ``scale`` 1/√D of the real D, and the gradients come
+    back at D, contiguous, as the launchers computed them."""
+    fwd, seen = [], {}
+
+    def wide(q, k, v, causal, scale, kv_len):
+        fwd.append((q.shape[-1], k.shape[-1], v.shape[-1], scale))
+        return (torch.zeros(q.shape), torch.zeros(q.shape[0], q.shape[2],
+                                                  q.shape[1]))
+
+    def dq(q, k, v, do, lse, delta, causal, scale):
+        seen["dq"] = (q, k, v, do, scale)
+        return q * 2
+
+    def dkv(q, k, v, do, lse, delta, causal, scale):
+        seen["dkv"] = (q, k, v, do, scale)
+        return k * 3, v * 4
+
+    monkeypatch.setattr(fa, "_flash_wide_cuda", wide)
+    monkeypatch.setattr(fa, "_flash_dq_tf32x3_xwide_cuda", dq)
+    monkeypatch.setattr(fa, "_flash_dkv_tf32x3_xwide_cuda", dkv)
+    g = torch.Generator().manual_seed(D)
+    q, k, v, do = (torch.randn(1, 6, 2, D, generator=g) for _ in range(4))
+    o, lse = fa._flash_cuda(q, k, v)
+    assert fwd == [(width, width, width, 1.0 / D ** 0.5)]
+    grads = fa._flash_bwd_cuda(q, k, v, o, lse, do)
+    for kind in ("dq", "dkv"):
+        *ins, scale = seen[kind]
+        assert scale == 1.0 / D ** 0.5
+        for got, want in zip(ins, (q, k, v, do)):
+            assert got.shape == (1, 6, 2, bwd_width)
+            assert torch.equal(got[..., :D], want)
+            assert not got[..., D:].any()
+    for got, want in zip(grads, (q * 2, k * 3, v * 4)):
+        assert got.shape == (1, 6, 2, D) and got.is_contiguous()
+        assert torch.equal(got, want)
 
 
 def test_wide_launchers_refuse_other_widths_before_any_build(monkeypatch):
@@ -696,6 +779,80 @@ def test_f32_strides_need_16_bytes_not_8_elements(stride, ok):
     assert (fault is None) == ok
     if not ok:
         assert "T stride %d is not a multiple of 4 elements" % stride in fault
+
+
+@pytest.mark.parametrize("which", ["dq", "dkv"])
+@pytest.mark.parametrize("case", [
+    "bf16", "f32_256", "f32_320", "f32_576", "q", "k", "v", "dO",
+    "k_stride", "dO_stride"])
+def test_tf32x3_xwide_launchers_refuse_before_any_build(monkeypatch, which,
+                                                        case):
+    """The tf32x3_xwide launchers take f32 at head_dim 384 or 512 only (the
+    wrapper pads 257-512 to one of them), read through 16-byte copies (a
+    base 16-byte aligned, (B, T, H) strides multiples of 4 elements), and
+    raise on anything else before they build or count anything; never a
+    hand-off to the wide kernels or the plain version."""
+    from mxnet_tpu_torch.ops.kernels import _build, common
+
+    def no_build(*a, **k):
+        raise AssertionError("built a kernel")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    common.reset_counts()
+    launch = {"dq": fa._flash_dq_tf32x3_xwide_cuda,
+              "dkv": fa._flash_dkv_tf32x3_xwide_cuda}[which]
+    shape = (1, 8, 2, 512)
+    args = [torch.zeros(shape) for _ in range(4)]
+    if case in ("bf16", "f32_256", "f32_320", "f32_576"):
+        dtype, D = {"bf16": (BF16, 512), "f32_256": (torch.float32, 256),
+                    "f32_320": (torch.float32, 320),
+                    "f32_576": (torch.float32, 576)}[case]
+        args = [torch.zeros(1, 8, 2, D, dtype=dtype)] * 4
+        match = ("tf32x3_xwide variant.*takes float32 with head_dim in "
+                 "\\(384, 512\\); got %s, head_dim %d" % (dtype, D))
+    elif case.endswith("_stride"):
+        name = case[:-len("_stride")]
+        wide = torch.zeros(1, 8, 2 * 512 + 2)     # T stride 1026: 2 mod 4
+        i = ("q", "k", "v", "dO").index(name)
+        args[i] = wide[..., :2 * 512].view(shape)
+        match = ("tf32x3_xwide variant.*%s's T stride 1026 is not a "
+                 "multiple of 4" % name)
+    else:
+        i = ("q", "k", "v", "dO").index(case)
+        args[i] = _misaligned(shape, torch.float32)
+        match = ("tf32x3_xwide variant.*%s's base address is not 16-byte"
+                 % case)
+    lse = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError, match=match):
+        launch(*args, lse, lse)
+    assert common.launch_counts() == {}
+
+
+@pytest.mark.parametrize("D", [320, 512])
+def test_tf32x3_xwide_bwd_copies_a_dout_the_copies_cannot_read(monkeypatch,
+                                                               D):
+    """As for tf32x3: an f32 dO whose layout the 16-byte copies cannot read
+    is copied before the tf32x3_xwide launchers see it (head_dim 320
+    padded to 384, and 512)."""
+    seen = []
+
+    def dq(q, k, v, do, lse, delta, causal, scale):
+        seen.append(do)
+        return torch.zeros_like(q)
+
+    monkeypatch.setattr(fa, "_flash_dq_tf32x3_xwide_cuda", dq)
+    monkeypatch.setattr(fa, "_flash_dkv_tf32x3_xwide_cuda",
+                        lambda q, k, v, *a: (torch.zeros_like(k),
+                                             torch.zeros_like(v)))
+    q = torch.zeros(1, 8, 2, D)
+    bad = torch.arange(8 * 2 * D + 1, dtype=torch.float32)[1:].view(
+        1, 8, 2, D)
+    assert fa._tma_fault("dO", bad)
+    fa._flash_bwd_cuda(q, q, q, q, torch.zeros(1, 2, 8), bad)
+    assert len(seen) == 1
+    assert fa._tma_fault("dO", seen[0]) is None
+    assert seen[0].is_contiguous()
+    assert torch.equal(seen[0][..., :D], bad)
 
 
 @pytest.mark.parametrize("D", [160, 256])

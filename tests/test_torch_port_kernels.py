@@ -303,7 +303,7 @@ def _plain_launchers(monkeypatch):
     padding along D, the real-D scale and the slicing back run as on the
     card, with the plain arithmetic in place of the kernels.  Returns the
     module, the forward's (variant, width) pairs and the backward's
-    variants, one per call."""
+    (variant, width) pairs, one per call."""
     fa = importlib.import_module("mxnet_tpu_torch.ops.kernels.flash_attention")
     widths, bwd_variants = [], []
 
@@ -321,17 +321,18 @@ def _plain_launchers(monkeypatch):
 
     def dq_launcher(variant):
         def dq(*a):
-            bwd_variants.append(variant)
+            bwd_variants.append((variant, a[0].shape[-1]))
             return bwd(*a)[0]
         return dq
 
     # head_dim 129-256 runs forward and backward on wgmma_wide in bf16, on
-    # tf32x3 in f32; bf16 at 257-512 on wgmma_xwide, both ways
+    # tf32x3 in f32; bf16 at 257-512 on wgmma_xwide, both ways; the f32
+    # backward at 257-512 on tf32x3_xwide (at 384 or 512)
     for name in ("wgmma", "simt", "wide", "wgmma_wide", "tf32x3",
                  "wgmma_xwide"):
         monkeypatch.setattr(fa, "_flash_%s_cuda" % name, fwd_launcher(name))
     for name in ("wgmma", "simt", "wide", "wgmma_wide", "tf32x3",
-                 "wgmma_xwide"):
+                 "wgmma_xwide", "tf32x3_xwide"):
         monkeypatch.setattr(fa, "_flash_dq_%s_cuda" % name, dq_launcher(name))
         monkeypatch.setattr(fa, "_flash_dkv_%s_cuda" % name,
                             lambda *a: bwd(*a)[1:])
@@ -351,7 +352,8 @@ def test_padded_head_dims_match_pallas_kernels(monkeypatch, D, width, dtype):
     except for bf16 above head_dim 128: there the one bf16 rounding in
     which the two forwards' o may differ enters delta = rowsum(dO∘O) over
     more than 128 terms, which moves a few cancelling gradient entries
-    past one rounding (D 160: 4 of 11840 dQ entries)."""
+    past one rounding (D 160: 4 of 11840 dQ entries).  The f32 backward
+    at 257-512 runs padded further, to 384 or 512 (tf32x3_xwide)."""
     fa, widths, bwd_variants = _plain_launchers(monkeypatch)
     B, T, H, causal = 1, 37, 2, True
     q, k, v = _qkv(B, T, T, H, D, dtype)
@@ -379,13 +381,19 @@ def test_padded_head_dims_match_pallas_kernels(monkeypatch, D, width, dtype):
             assert g.shape == (B, T, H, D) and g.dtype == tq.dtype
             np.testing.assert_allclose(_f32(g), _f32(w), err_msg="d" + name,
                                        **gtol)
-    assert set(bwd_variants) == {fa._variant(tq.dtype, D)}
+    bwd_variant = fa._variant(tq.dtype, D, backward=True)
+    bwd_width = width
+    if bwd_variant == "tf32x3_xwide":
+        bwd_width = 384 if D <= 384 else 512
+    assert bwd_variants == [(bwd_variant, bwd_width)] * len(residuals)
     if D > 256:
-        assert widths[0][0] == bwd_variants[0] == (
-            "wgmma_xwide" if dtype == "bfloat16" else "wide")
+        assert widths[0][0] == ("wgmma_xwide" if dtype == "bfloat16"
+                                else "wide")
+        assert bwd_variant == ("wgmma_xwide" if dtype == "bfloat16"
+                               else "tf32x3_xwide")
     elif D > 128:
-        assert bwd_variants[0] == ("wgmma_wide" if dtype == "bfloat16"
-                                   else "tf32x3")
+        assert bwd_variant == ("wgmma_wide" if dtype == "bfloat16"
+                               else "tf32x3")
 
 
 XENT_CASES = [

@@ -1,7 +1,8 @@
 """The arithmetic of the tf32x3 flash kernels, emulated on the CPU.
 
-The f32 flash forward and backward at padded head_dim 192 and 256 run on
-the tensor cores as split-TF32 products (``csrc/flash_attention_tf32x3.cu``,
+The f32 flash forward and backward at padded head_dim 192 and 256, and
+the f32 backward at 384 and 512 (tf32x3_xwide), run on the tensor cores as
+split-TF32 products (``csrc/flash_attention_tf32x3.cu``,
 ``csrc/flash_attention_bwd_tf32x3.cu``): each
 f32 operand x becomes ``hi`` (x with its 13 low significand bits cleared,
 a TF32 value) and ``lo = x - hi`` (exact in f32), which the tensor cores
@@ -16,7 +17,12 @@ tests' f32 tolerances: o within 1e-5 + 1e-4·|o| and lse within 1e-4 +
 1e-5·|lse| forward, 1e-4 for the gradients.  The forward as the kernel
 runs it: q split once, k, v and p split as they are read, key tiles of
 64, the scores summed over each half of D and the halves added in f32,
-each tile's p·v summed from zero and added as ``acc·alpha + pv``.  One
+each tile's p·v summed from zero and added as ``acc·alpha + pv``.  The
+tf32x3_xwide backward as its two-CTA clusters sum: the scores over each
+quarter of D (a warp half of a CTA), the quarters of each CTA's half
+added, the two CTAs' partials added; dQ over key tiles of 32 and dK, dV
+over query tiles of 32, each tile's products summed from zero and added in
+f32.  One
 TF32 product alone (``tf32(a)·tf32(b)``) lands far further from float64
 and misses those tolerances: the split is what keeps the results
 f32-accurate.  The helpers are a test of the design, not a plain version:
@@ -141,6 +147,79 @@ def test_tf32x3_backward_matches_float64_and_pallas(causal):
                               for t in (q, k, v, do, dlse))
     got = _bwd(tq, tk, tv, o, lse, tdo, tdlse, causal, _mm3)
     one = _bwd(tq, tk, tv, o, lse, tdo, tdlse, causal, _mm1)
+    exact = _bwd(*(t.double() for t in (tq, tk, tv, o, lse, tdo, tdlse)),
+                 causal, torch.matmul)
+    (jo, jlse), vjp = jax.vjp(
+        lambda q, k, v: jax_flash_lse(q, k, v, causal=causal,
+                                      interpret=True),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    pallas = vjp((jnp.asarray(do), jnp.asarray(dlse)))
+    for g, g1, x, w, name in zip(got, one, exact, pallas, ("dq", "dk", "dv")):
+        assert g.dtype == torch.float32 and g.shape == x.shape
+        np.testing.assert_allclose(g.numpy(), x.numpy(), err_msg=name,
+                                   **F32_GRAD_TOL)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
+                                   **F32_GRAD_TOL)
+        err3 = float((g.double() - x).abs().max())
+        err1 = float((g1.double() - x).abs().max())
+        assert err1 > 10 * err3, (name, err1, err3)
+
+
+TILE_BWD = 32               # streamed rows a tile of the backward
+
+
+def _bwd_xwide(q, k, v, o, lse, do, dlse, causal, mm):
+    """The tf32x3_xwide backward's arithmetic ([B, T, H, D] in and out,
+    D 384 or 512): S and dP as the cluster sums them, each CTA's half of D
+    the sum of its two warp halves' quarters and the pair's partials added
+    in f32; ``p``, ``ds`` as in :func:`_bwd`; dQ summed over key tiles and
+    dK, dV over query tiles of ``TILE_BWD`` rows, each tile's product from
+    zero (every product through ``mm``)."""
+    D, Tq, Tk = q.shape[-1], q.shape[1], k.shape[1]
+    scale = 1.0 / D ** 0.5
+    qh, kh, vh, doh = (t.permute(0, 2, 1, 3) for t in (q, k, v, do))
+    quarters = [slice(i * D // 4, (i + 1) * D // 4) for i in range(4)]
+
+    def scores(a, b):
+        part = [mm(a[..., c], b[..., c].transpose(-1, -2)) for c in quarters]
+        return (part[0] + part[1]) + (part[2] + part[3])
+
+    s = scores(qh, kh) * scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        keep = (torch.arange(Tq)[:, None] >= torch.arange(Tk)[None, :])
+        p = torch.where(keep, p, torch.zeros_like(p))
+    dp = scores(doh, vh)
+    delta = (do * o).sum(-1).transpose(1, 2) - dlse
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.zeros_like(qh)
+    for k0 in range(0, Tk, TILE_BWD):
+        kt = slice(k0, k0 + TILE_BWD)
+        dq = dq + mm(ds[..., kt], kh[:, :, kt])
+    dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
+    for q0 in range(0, Tq, TILE_BWD):
+        qt = slice(q0, q0 + TILE_BWD)
+        dv = dv + mm(p[:, :, qt].transpose(-1, -2), doh[:, :, qt])
+        dk = dk + mm(ds[:, :, qt].transpose(-1, -2), qh[:, :, qt])
+    return tuple(g.permute(0, 2, 1, 3) for g in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("causal,Tq,Tk", [
+    (True, 70, 70),                 # three tiles, the last ragged
+    (False, 40, 90),                # Tq != Tk
+])
+def test_tf32x3_xwide_backward_matches_float64_and_pallas(causal, Tq, Tk):
+    """dQ, dK and dV through the split-TF32 products at head_dim 512 (the
+    tf32x3_xwide kernel's width: two CTAs of 256 columns), in the kernel's
+    summation order, against float64 and against the Pallas backward
+    within 1e-4; one TF32 product per product stays over ten times further
+    from float64."""
+    B, H, D = 1, 2, 512
+    q, k, v, do, dlse, o, lse = _inputs(B, Tq, Tk, H, D, causal)
+    tq, tk, tv, tdo, tdlse = (torch.from_numpy(t)
+                              for t in (q, k, v, do, dlse))
+    got = _bwd_xwide(tq, tk, tv, o, lse, tdo, tdlse, causal, _mm3)
+    one = _bwd_xwide(tq, tk, tv, o, lse, tdo, tdlse, causal, _mm1)
     exact = _bwd(*(t.double() for t in (tq, tk, tv, o, lse, tdo, tdlse)),
                  causal, torch.matmul)
     (jo, jlse), vjp = jax.vjp(

@@ -11,18 +11,34 @@ forward; ``flash_attention_bwd_tf32x3.cu``, dQ and dK/dV) rests on:
   with the kernels' operand split (``split_tf32``: two ops a value) of 16
   values beside every 24 products, the ratio of the kernels' score loop;
 * each phase's share of the forward, the dQ and the dK/dV kernel at [1,
-  4096, 16, 256] causal f32: a copy of each source in which thread 0 of
-  every CTA reads ``clock64`` at each phase boundary of every streamed
+  4096, 16, 256] causal f32, and of the tf32x3_xwide dQ and dK/dV (the
+  same kernels in 2-CTA clusters that split D) at the f32 hd512 training
+  leg's [2, 8192, 2, 512] causal: a copy of each source in which thread 0
+  of every CTA reads ``clock64`` at each phase boundary of every streamed
   tile and adds the cycles to a per-phase sum (its barrier waits
   included: the phases of warp 0, which computes p), beside the launch's
-  device time;
+  device time.  Two phases exist only in a cluster (0 cycles outside
+  one): meeting the peer CTA (its partial scores written, the cluster
+  barrier, the peer's read by distributed shared memory) and waiting for
+  the peer's reads before the exchange tile is overwritten; the waits for
+  the streamed tiles are the copies' share;
 
-and one design choice of the forward, timed in turns at [1, 4096, 16,
-256] and [1, 8192, 4, 256] causal f32 with the errors of both against the
-plain version: the value tile's and the next key tile's copies issued a
-few pieces at each step of the first half of a product loop (the built
+and two design choices, each timed in turns: the forward's at [1, 4096,
+16, 256] and [1, 8192, 4, 256] causal f32 with the errors of both against
+the plain version: the value tile's and the next key tile's copies issued
+a few pieces at each step of the first half of a product loop (the built
 kernel, ``copy_step``), against each tile's copies issued at once before
-the loop (``copy_rows``, as the backward issues them).  The copies are
+the loop (``copy_rows``, as the backward issues them); and tf32x3_xwide's
+exchange of partial scores between the two CTAs of a cluster at [2, 8192,
+2, 512] and [1, 4096, 16, 384] causal f32, dQ and dK/dV: each warp
+pushing its partials into the peer's exchange tile (st.async, per-warp
+mbarriers; the built kernel) against each reading the peer's in place
+(ld.shared::cluster) between two cluster barriers a tile, with both
+plans' gradients compared bit for bit.  Last, tf32x3_xwide's dK/dV at 256
+columns a CTA, the most registers of the eight instantiations, with its
+output products' k-steps fully unrolled (as built) and unrolled by two:
+the ptxas registers and spills of each, and the two timed in turns at
+[2, 8192, 2, 512].  The copies are
 built in a temporary directory; the port's own build is untouched.
 
 It prints one JSON line per measurement, then the card's name and power
@@ -137,8 +153,12 @@ DQ_PHASES = [
     ("    score_half<D>(A, Bt, g, t, s);\n", "scores (S, half of D)"),
     ("    meet_halves(X, wd, g, t, s, f);  // barrier: V is no longer "
      "read\n", "meet the other half (barrier)"),
+    ("      meet_peer(X + 16 * wd * XS, full, full + 64, (k0 / BS) & 1, "
+     "lane, f);\n", "meet the peer CTA (push, wait for its partials)"),
+    ("    if constexpr (CL == 2) __syncwarp();    // every lane has read "
+     "Xw\n", "p, dp - delta, V copy issue"),
     ("    __syncthreads();              // p and dp - delta are in\n",
-     "p, dp - delta, V copy issue (barrier)"),
+     "put p, dp - delta (barrier)"),
     ("    out_product<D, true>(Xp, Xd, scale, Ks + c0, g, t, acc);\n",
      "dQ += ds.K"),
     ("    __syncthreads();              // K and the exchange are no longer "
@@ -149,8 +169,12 @@ DKV_PHASES = [
     ("    half_ready(wp);\n", "wait for the streamed tile"),
     ("    score_half<D>(A, Bt, g, t, s);\n", "scores (S^T, half of D)"),
     ("    meet_halves(X, wd, g, t, s, f);\n", "meet the other half (barrier)"),
+    ("                lane, f);\n",
+     "meet the peer CTA (push, wait for its partials)"),
+    ("    if constexpr (CL == 2) __syncwarp();    // every lane has read "
+     "Xw\n", "p, dp - delta"),
     ("    __syncthreads();              // p^T and dp^T - delta are in\n",
-     "p, dp - delta (barrier)"),
+     "put p, dp - delta (barrier)"),
     ("    out_product<D, false>(Xp, Xd, scale, dOs + c0, g, t, dv_acc);\n",
      "dV += p^T.dO"),
     ("    __syncthreads();              // dO is no longer read\n",
@@ -198,10 +222,12 @@ def _edited_library(fa, build, tmp, name, edit, configure, tag):
     path = os.path.join(tmp, "%s_%s.cu" % (name, tag))
     open(path, "w").write(src)
     so = path[:-3] + ".so"
-    subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I", csrc, "-o", so,
-                    path], check=True, capture_output=True)
+    out = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I", csrc, "-o",
+                          so, path], check=True, capture_output=True,
+                         text=True)
     lib = ctypes.CDLL(so)
     configure(lib)
+    lib.ptxas_log = out.stdout + out.stderr
     return lib
 
 
@@ -234,6 +260,173 @@ COPY_AT_ONCE = [
      "    if (more)\n      copy_rows<D>(Ks, kb, st.s[4], k0 + BS, BS, Tk, "
      "threadIdx.x, NT);\n    out_product<D>(X, Vs + c0,"),
 ]
+
+
+# tf32x3_xwide's exchange as first built: each warp puts its CTA's partial
+# in its own exchange tile, and after a cluster barrier reads the peer's in
+# place; a second barrier phase, waited on before p is put, keeps the
+# peer's reads ahead of that write
+EXCHANGE_IN_PLACE_MEET = """__device__ __forceinline__ float2 ld_cluster_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\\n"
+               : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ void meet_peer(float* Xw, uint32_t full,
+                                          uint32_t vacant, uint32_t parity,
+                                          int lane, float (&f)[4][4]) {
+  const int g = lane >> 2, t = lane & 3;
+  put(Xw, g, t, f);
+  cluster_arrive();
+  cluster_wait();
+  const uint32_t peer = cluster_map(
+      static_cast<uint32_t>(__cvta_generic_to_shared(Xw)),
+      cluster_ctarank() ^ 1u);
+  float2 u[4], w[4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    const uint32_t x = peer + 4u * (g * XS + 8 * n + 2 * t);
+    u[n] = ld_cluster_f2(x);
+    w[n] = ld_cluster_f2(x + 4u * 8 * XS);
+  }
+  cluster_arrive();
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    f[n][0] += u[n].x;
+    f[n][1] += u[n].y;
+    f[n][2] += w[n].x;
+    f[n][3] += w[n].y;
+  }
+}
+
+"""
+
+
+def _exchange_in_place(src):
+    start = src.index("__device__ __forceinline__ void meet_peer(")
+    end = src.index("// CL == 2: the cluster's mbarriers")
+    src = src[:start] + EXCHANGE_IN_PLACE_MEET + src[end:]
+    old = "    if constexpr (CL == 2) __syncwarp();    // every lane has read Xw\n"
+    if src.count(old) != 2:
+        raise SystemExit("tf32x3_probe: the backward's source no longer "
+                         "holds %r twice" % old)
+    return src.replace(old, "    if constexpr (CL == 2) cluster_wait();\n")
+
+
+def _exchange_choice(torch, fa, build, tmp):
+    """tf32x3_xwide's dQ and dK/dV as built (the partials pushed) and with
+    the partials read in place, in turns: built, in place, in place, built;
+    each time the mean of 3 launches between CUDA events after one warm
+    launch; the two plans' gradients compared bit for bit."""
+    name = "flash_attention_bwd_tf32x3"
+    configure = functools.partial(fa._configure_bwd_source, name)
+    libs = {"pushed (st.async, per-warp mbarriers)": build.load(
+                name, configure),
+            "read in place (two cluster barriers a tile)": _edited_library(
+                fa, build, tmp, name, _exchange_in_place, configure,
+                "inplace")}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for B, T, H, D in ((2, 8192, 2, 512), (1, 4096, 16, 384)):
+        q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device="cuda")
+                       for _ in range(4))
+        o, lse = fa._flash_cuda(q, k, v, True)
+        delta = fa._delta(o, do, None)
+        for kind, fn in (("dq", fa._flash_dq_tf32x3_xwide_cuda),
+                         ("dkv", fa._flash_dkv_tf32x3_xwide_cuda)):
+            rec = {"backward": kind, "shape": [B, T, H, D], "causal": True,
+                   "dtype": "float32", "variant": "tf32x3_xwide"}
+            order = list(libs) + list(libs)[::-1]
+            outs = {}
+            for choice in order:
+                build._LIBS[name] = libs[choice]
+                call = functools.partial(fn, q, k, v, do, lse, delta, True,
+                                         D ** -0.5)
+                outs[choice] = call()
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                for _ in range(3):
+                    call()
+                b.record()
+                b.synchronize()
+                rec.setdefault(choice, {"ms_turns": []})["ms_turns"].append(
+                    a.elapsed_time(b) / 3)
+            first, second = (outs[c] for c in libs)
+            if kind == "dq":
+                first, second = (first,), (second,)
+            rec["same_bits"] = all(torch.equal(x, y)
+                                   for x, y in zip(first, second))
+            print(json.dumps(rec), flush=True)
+            del outs, first, second
+        build._LIBS[name] = libs[list(libs)[0]]
+
+
+UNROLL_BY_TWO = ("#pragma unroll\n  for (int kk = 0; kk < BS; kk += 8) {",
+                 "#pragma unroll 2\n  for (int kk = 0; kk < BS; kk += 8) {")
+
+
+def _unrolled_by_two(src):
+    old, new = UNROLL_BY_TWO
+    if src.count(old) != 1:
+        raise SystemExit("tf32x3_probe: the backward's source no longer "
+                         "holds %r once" % old)
+    return src.replace(old, new)
+
+
+def _dkv_256_cluster_line(log):
+    """The ptxas registers and spills of dK/dV<256, 2> in a build log."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "flash_dkv_tf32x3_kernelILi256ELi2E" in line and "Compiling" in line:
+            return " ".join(ln.split(":", 1)[-1].strip()
+                            for ln in lines[i + 2:i + 4])
+    return None
+
+
+def _unroll_choice(torch, fa, build, tmp):
+    """tf32x3_xwide's dK/dV at 256 columns a CTA with its output k-steps
+    fully unrolled (as built) and unrolled by two: each one's ptxas line,
+    then both in turns at [2, 8192, 2, 512] (built, by two, by two, built;
+    the mean of 3 launches after a warm one each time), their gradients
+    bit for bit."""
+    name = "flash_attention_bwd_tf32x3"
+    configure = functools.partial(fa._configure_bwd_source, name)
+    by_two = _edited_library(fa, build, tmp, name, _unrolled_by_two,
+                             configure, "unroll2")
+    libs = {"fully unrolled (built)": build.load(name, configure),
+            "unrolled by two": by_two}
+    print(json.dumps({"dkv<256,2> ptxas": {
+        "fully unrolled (built)": _dkv_256_cluster_line(
+            build.build([name])[name]["log"]),
+        "unrolled by two": _dkv_256_cluster_line(by_two.ptxas_log)}}),
+        flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    B, T, H, D = 2, 8192, 2, 512
+    q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device="cuda")
+                   for _ in range(4))
+    o, lse = fa._flash_cuda(q, k, v, True)
+    delta = fa._delta(o, do, None)
+    rec = {"backward": "dkv", "shape": [B, T, H, D], "causal": True,
+           "dtype": "float32", "variant": "tf32x3_xwide"}
+    outs = {}
+    for choice in list(libs) + list(libs)[::-1]:
+        build._LIBS[name] = libs[choice]
+        call = functools.partial(fa._flash_dkv_tf32x3_xwide_cuda, q, k, v,
+                                 do, lse, delta, True, D ** -0.5)
+        outs[choice] = call()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(3):
+            call()
+        b.record()
+        b.synchronize()
+        rec.setdefault(choice, {"ms_turns": []})["ms_turns"].append(
+            a.elapsed_time(b) / 3)
+    first, second = (outs[c] for c in libs)
+    rec["same_bits"] = all(torch.equal(x, y) for x, y in zip(first, second))
+    print(json.dumps(rec), flush=True)
+    build._LIBS[name] = libs["fully unrolled (built)"]
 
 
 def _copies_at_once(src):
@@ -337,6 +530,8 @@ def _run(torch, fa, build, tmp):
                   flush=True)
 
     _copy_issue_choice(torch, fa, build, tmp)
+    _exchange_choice(torch, fa, build, tmp)
+    _unroll_choice(torch, fa, build, tmp)
     gen = torch.Generator(device="cuda").manual_seed(0)
     B, T, H, D = 1, 4096, 16, 256
     q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device="cuda")
@@ -348,17 +543,33 @@ def _run(torch, fa, build, tmp):
         functools.partial(fa._configure_fwd_tc, "mxt_flash_tf32x3"))
     bwd_lib = _profiled_library(
         fa, build, tmp, "flash_attention_bwd_tf32x3", _bwd_instrumented,
-        functools.partial(fa._configure_bwd_tc, "mxt_flash_bwd_tf32x3"))
+        functools.partial(fa._configure_bwd_source,
+                          "flash_attention_bwd_tf32x3"))
     build._LIBS["flash_attention_tf32x3"] = fwd_lib
     build._LIBS["flash_attention_bwd_tf32x3"] = bwd_lib
+    # the tf32x3_xwide backward at the f32 hd512 leg's shape
+    xB, xT, xH, xD = 2, 8192, 2, 512
+    xq, xk, xv, xdo = (torch.randn(xB, xT, xH, xD, generator=gen,
+                                   device="cuda") for _ in range(4))
+    xo, xlse = fa._flash_cuda(xq, xk, xv, True)
+    xdelta = fa._delta(xo, xdo, None)
     buf = (ctypes.c_ulonglong * 32)()
-    for name, lib, fn, phases, base in (
+    for name, lib, fn, phases, base, shape in (
             ("fwd", fwd_lib, lambda: fa._flash_tf32x3_cuda(q, k, v, True),
-             FWD_PHASES, 0),
+             FWD_PHASES, 0, [B, T, H, D]),
             ("dq", bwd_lib, lambda: fa._flash_dq_tf32x3_cuda(
-                q, k, v, do, lse, delta, True, D ** -0.5), DQ_PHASES, 0),
+                q, k, v, do, lse, delta, True, D ** -0.5), DQ_PHASES, 0,
+             [B, T, H, D]),
             ("dkv", bwd_lib, lambda: fa._flash_dkv_tf32x3_cuda(
-                q, k, v, do, lse, delta, True, D ** -0.5), DKV_PHASES, 16)):
+                q, k, v, do, lse, delta, True, D ** -0.5), DKV_PHASES, 16,
+             [B, T, H, D]),
+            ("dq tf32x3_xwide", bwd_lib, lambda: fa._flash_dq_tf32x3_xwide_cuda(
+                xq, xk, xv, xdo, xlse, xdelta, True, xD ** -0.5), DQ_PHASES,
+             0, [xB, xT, xH, xD]),
+            ("dkv tf32x3_xwide", bwd_lib,
+             lambda: fa._flash_dkv_tf32x3_xwide_cuda(
+                 xq, xk, xv, xdo, xlse, xdelta, True, xD ** -0.5),
+             DKV_PHASES, 16, [xB, xT, xH, xD])):
         fn()
         torch.cuda.synchronize()
         lib.prof_io(ctypes.cast((ctypes.c_ulonglong * 32)(), ctypes.c_void_p),
@@ -373,7 +584,7 @@ def _run(torch, fa, build, tmp):
         cycles = [buf[base + i] for i in range(len(phases))]
         tiles = buf[base + 15]
         print(json.dumps({
-            "kernel": name, "shape": [B, T, H, D], "causal": True,
+            "kernel": name, "shape": shape, "causal": True,
             "dtype": "float32", "ms_instrumented": a.elapsed_time(b),
             "tiles": tiles,
             "phases": [{"phase": label, "share": c / sum(cycles),
