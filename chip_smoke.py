@@ -23,9 +23,8 @@ on the card:
   flash forward, dQ and dK/dV run the tensor-core tf32x3 kernels
   (split-TF32 products), and with 2 heads of 512 at batch 2 x 8192,
   whose flash forward, dQ and dK/dV run the tensor-core wgmma_xwide
-  kernels, and that in f32, whose dQ and dK/dV run the tensor-core
-  tf32x3_xwide kernels (2-CTA clusters that split D) and whose forward
-  runs the wide kernel;
+  kernels, and that in f32, whose flash forward, dQ and dK/dV run the
+  tensor-core tf32x3_xwide kernels (2-CTA clusters that split D);
 * INT8 inference — the symbolic ResNet-50 (``models/resnet_symbol.py``,
   1000 classes, 3x224x224) is calibrated, quantized, BN-folded and
   int8-fused by ``contrib.quantization.quantize_model``, bound, and run at
@@ -74,9 +73,11 @@ Phases, in order; any failure raises and exits non-zero:
    one line per instantiation of the tensor-core flash kernels (forward,
    dQ and dK/dV at head_dim 64 and 128; wgmma_wide at 192 and 256; the
    f32 tf32x3 forward, dQ and dK/dV at 192 and 256; the wgmma_xwide
-   forward at 320, 384, 448 and 512, all four of them, and its dQ and
-   dK/dV there, all eight of them; the f32 tf32x3_xwide dQ and dK/dV at
-   384 and 512, the four cluster instantiations beside tf32x3's four),
+   forward at 320, 384, 448 and 512 and the wgmma_xxwide forward (the
+   same kernel in 2-CTA clusters) at 640, 768, 896 and 1024, all eight of
+   them, and wgmma_xwide's dQ and dK/dV, all eight of them; the f32
+   tf32x3_xwide forward, dQ and dK/dV at 384 and 512, the six cluster
+   instantiations beside tf32x3's six),
    of the wide flash kernels,
    of
    the int8 matmul and of the RMSNorm variants; none but the int8 ``mma``
@@ -109,15 +110,17 @@ Phases, in order; any failure raises and exits non-zero:
    forward also in turns at the f32 leg's [1, 8192, 4, 256]; both also
    at [1, 8192, 4, 256], [1, 4096, 16, 192], Tq 1000 x Tk 3000 not
    causal, and head_dim 160, the backward with an lse cotangent), and f32
-   above 256 the forward on the wide variant and the backward on the
-   tensor-core tf32x3_xwide dQ and dK/dV (2-CTA clusters that split D),
-   held against the plain backward and dense autograd (1e-4 of each
-   gradient's largest entry) and timed in turns with wide at [2, 8192, 2,
-   512] (the f32 hd512 leg's shape), [1, 4096, 16, 512] and [1, 4096,
-   16, 384] causal (the last with an lse cotangent) and [2, 1000, 4, 320]
-   not causal; bf16 at head_dim 576 on the wide forward and backward at
-   [2, 1000, 4, 576] not causal and [1, 4096, 16, 576] causal, beside
-   SDPA; bf16 above 256 runs the tensor-core
+   above 256 the forward, dQ and dK/dV on the tensor-core tf32x3_xwide
+   kernels (2-CTA clusters that split D), the forward held against the
+   plain version, the backward against the plain backward and dense
+   autograd (1e-4 of each gradient's largest entry), each timed in turns
+   with wide at [2, 8192, 2, 512] (the f32 hd512 leg's shape), [1, 4096,
+   16, 512] and [2, 1000, 4, 320] not causal (run at 384, wide at 320),
+   the backward also at [1, 4096, 16, 384] causal with an lse cotangent;
+   bf16 at head_dim 576 (run at 640) on the tensor-core wgmma_xxwide
+   forward (2-CTA clusters that split D) and on the wide backward at [2,
+   1000, 4, 576] not causal and [1, 4096, 16, 576] causal, the forward
+   in turns with wide, both beside SDPA; bf16 above 256 runs the tensor-core
    wgmma_xwide forward, dQ and dK/dV, the forward held against the plain
    version, the backward against the plain backward and dense autograd
    (within 6.5e-3 of each gradient's largest entry), each beside its wide
@@ -425,8 +428,8 @@ LONGCTX_HD256_F32 = dict(LONGCTX_HD256, dtype="float32")
 # stay under the flash gate): the flash forward and backward on the
 # tensor-core wgmma_xwide kernels
 LONGCTX_HD512 = dict(LONGCTX, n_heads=2)
-# the same in f32: its dQ and dK/dV on the tensor-core tf32x3_xwide kernels
-# (2-CTA clusters that split D), its forward on the wide kernel
+# the same in f32: its forward, dQ and dK/dV on the tensor-core tf32x3_xwide
+# kernels (2-CTA clusters that split D)
 LONGCTX_HD512_F32 = dict(LONGCTX_HD512, dtype="float32")
 TRAIN_CELLS = (
     ("flagship_b8_t1024", dict(FLAGSHIP, max_len=1024, remat=False), 8,
@@ -446,9 +449,9 @@ TRAIN_STEPS = 3
 # recomputed forward, every one through the warp variant (8192 rows, 16384
 # at batch 2); flash forward per block (twice with remat), every one through
 # the tensor-core variant (bf16: wgmma at head_dim 64, wgmma_wide at 256,
-# wgmma_xwide at 512; f32 at 256: tf32x3) but f32 at 512 (wide); dQ and
-# dK/dV once per block, through the same variant (f32 at 512:
-# tf32x3_xwide); the softmax cross-entropy once each way
+# wgmma_xwide at 512; f32: tf32x3 at 256, tf32x3_xwide at 512); dQ and
+# dK/dV once per block, through the same variant; the softmax
+# cross-entropy once each way
 EXPECTED_LAUNCHES = {
     "flagship_b8_t1024": {"fused_rmsnorm": 9, "fused_rmsnorm.warp": 9,
                           "fused_softmax_xent": 1,
@@ -492,7 +495,7 @@ EXPECTED_LAUNCHES = {
     "longctx_hd512_f32_b2_t8192": {"fused_rmsnorm": 17,
                                    "fused_rmsnorm.warp": 17,
                                    "flash_attention": 8,
-                                   "flash_attention.wide": 8,
+                                   "flash_attention.tf32x3_xwide": 8,
                                    "flash_attention_dq": 4,
                                    "flash_attention_dkv": 4,
                                    "flash_attention_dq.tf32x3_xwide": 4,
@@ -967,20 +970,23 @@ def phase_build():
             if kernel != "int8_mm_kernel":
                 _check(" 0 bytes spill stores" in line,
                        "%s spills: %s" % (src, line))
-        # the wgmma_xwide forward and dQ, dK/dV at each of its 4 widths
-        want = {"flash_attention_wgmma_xwide": 4,
+        # the wgmma_xwide forward at each of its 4 widths alone and in
+        # 2-CTA clusters (wgmma_xxwide), its dQ and dK/dV at each width
+        want = {"flash_attention_wgmma_xwide": 8,
                 "flash_attention_bwd_wgmma_xwide": 8}.get(src)
         if want is not None:
             _check(len(summary) == want, "%s: %d instantiations in the "
                    "ptxas report, expected %d" % (src, len(summary), want))
-        if src == "flash_attention_bwd_tf32x3":
-            # tf32x3 (<D, 1>) and tf32x3_xwide (<D, 2>: 2-CTA clusters)
-            # dQ and dK/dV at 192 and 256 columns a CTA
-            for cl in (1, 2):
-                n = sum(1 for _, line in summary
-                        if re.search(r"<(192|256),%d>" % cl, line))
-                _check(n == 4, "%s: %d instantiations of cluster size %d "
-                       "in the ptxas report, expected 4" % (src, n, cl))
+        # the tf32x3 forward (<D, CL>) and dQ and dK/dV (<D, CL>), alone
+        # (CL 1) and in 2-CTA clusters (CL 2: tf32x3_xwide), at 192 and
+        # 256 columns a CTA
+        per_cl = {"flash_attention_tf32x3": 2,
+                  "flash_attention_bwd_tf32x3": 4}.get(src)
+        for cl in (1, 2) if per_cl else ():
+            n = sum(1 for _, line in summary
+                    if re.search(r"<(192|256),%d>" % cl, line))
+            _check(n == per_cl, "%s: %d instantiations of cluster size %d "
+                   "in the ptxas report, expected %d" % (src, n, cl, per_cl))
     return wall
 
 
@@ -1181,7 +1187,8 @@ def _rmsnorm_bwd_plain_case(shape, gen):
 # the CUDA-core variant each tensor-core variant of the forward and of the
 # backward is timed against in turns (``variants=True``)
 CUDA_CORE_TWIN = {"wgmma": "simt", "wgmma_wide": "wide", "tf32x3": "wide",
-                  "wgmma_xwide": "wide", "tf32x3_xwide": "wide"}
+                  "wgmma_xwide": "wide", "tf32x3_xwide": "wide",
+                  "wgmma_xxwide": "wide"}
 
 
 def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
@@ -1190,23 +1197,30 @@ def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     plain version; a tensor-core variant must also give the same bits in
     two calls (no atomics).  ``variants``: that variant is a tensor-core
     one; also hold its CUDA-core twin (``CUDA_CORE_TWIN``: simt for
-    wgmma, wide for wgmma_wide, wgmma_xwide and tf32x3) against the plain
-    version, and time the two in turns (tensor-core, CUDA-core, CUDA-core,
-    tensor-core); ``ms`` is then the tensor-core variant's mean of its two
-    turns.  ``variants`` needs a head_dim the kernels have."""
+    wgmma, wide for the others) against the plain version, and time the
+    two in turns (tensor-core, CUDA-core, CUDA-core, tensor-core); ``ms``
+    is then the tensor-core variant's mean of its two turns.  A head dim
+    the kernels lack is then timed at its padded width (each variant's
+    own, ``_kernel_width``: tf32x3_xwide runs 320 at 384, wgmma_xxwide 576
+    at 640, wide at 320 and 576), on inputs padded once; the bounds count
+    the real head_dim's work."""
     import torch
     import torch.nn.functional as F
     # (the package exports a function under this module's name)
     from mxnet_tpu_torch.ops.kernels.flash_attention import (
-        _flash_cuda, _flash_simt_cuda, _flash_tf32x3_cuda, _flash_wgmma_cuda,
-        _flash_wgmma_wide_cuda, _flash_wgmma_xwide_cuda, _flash_wide_cuda,
-        _variant, flash_attention_reference)
+        _flash_cuda, _flash_simt_cuda, _flash_tf32x3_cuda,
+        _flash_tf32x3_xwide_cuda, _flash_wgmma_cuda, _flash_wgmma_wide_cuda,
+        _flash_wgmma_xwide_cuda, _flash_wgmma_xxwide_cuda, _flash_wide_cuda,
+        _kernel_width, _pad_d, _variant, flash_attention_reference)
 
     dt = getattr(torch, dtype_name)
+    scale = 1.0 / D ** 0.5
     launchers = {"wgmma": _flash_wgmma_cuda,
                  "wgmma_wide": _flash_wgmma_wide_cuda,
                  "wgmma_xwide": _flash_wgmma_xwide_cuda,
+                 "wgmma_xxwide": _flash_wgmma_xxwide_cuda,
                  "tf32x3": _flash_tf32x3_cuda,
+                 "tf32x3_xwide": _flash_tf32x3_xwide_cuda,
                  "simt": _flash_simt_cuda, "wide": _flash_wide_cuda}
 
     def rnd(T):
@@ -1237,22 +1251,29 @@ def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     bounds = _flash_bounds(4.0 * D * B * H * pairs, nbytes, dtype_name)
     args = _copies((q, k, v))
     twin = CUDA_CORE_TWIN.get(variant)
+    width = _kernel_width(variant, D)
     turns = {}
     if variants:
         _check(twin is not None, "flash_attention %s %s takes the %s "
                "variant" % ([B, Tq, H, D], dtype_name, variant))
-        to, tlse = launchers[twin](q, k, v, causal)
+        run_args = {}
+        for name in (variant, twin):
+            w = _kernel_width(name, D)
+            run_args[name] = args if w == D else _copies(
+                tuple(_pad_d(t, w) for t in (q, k, v)))
+        to, tlse = launchers[twin](*run_args[twin][0], causal, scale)
         torch.cuda.synchronize()
-        twin_err, ok_to = _err(to, o_ref, atol, rtol)
+        twin_err, ok_to = _err(to[..., :D], o_ref, atol, rtol)
         twin_lse_err, ok_tl = _err(tlse, lse_ref, 1e-4, 1e-5)
         del to, tlse
         for name in (variant, twin, twin, variant):
             fn = launchers[name]
             turns.setdefault(name, []).append(_time_ms(
-                lambda q, k, v, fn=fn: fn(q, k, v, causal), args))
+                lambda q, k, v, fn=fn: fn(q, k, v, causal, scale),
+                run_args[name]))
     rec = {
         "kernel": "flash_attention", "variant": variant,
-        "q": [B, Tq, H, D], "k": [B, Tk, H, D],
+        "q": [B, Tq, H, D], "k": [B, Tk, H, D], "padded_head_dim": width,
         "causal": causal, "dtype": dtype_name, "max_abs_err": err,
         "atol": atol, "rtol": rtol, "lse_max_abs_err": lse_err,
         "repeat_bit_identical": repeat_ok, "ok": ok_o and ok_l and repeat_ok,
@@ -1276,7 +1297,8 @@ def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
             "%s_ms" % twin: twin_ms,
             "%s_over_%s" % (twin, variant): twin_ms / rec["ms"],
             "%s_max_abs_err" % twin: twin_err,
-            "%s_lse_max_abs_err" % twin: twin_lse_err})
+            "%s_lse_max_abs_err" % twin: twin_lse_err,
+            "%s_padded_head_dim" % twin: _kernel_width(twin, D)})
         rec["ok"] = rec["ok"] and ok_to and ok_tl
     _emit(rec)
     _check(rec["ok"], "flash_attention %s %s disagrees with its plain "
@@ -1676,9 +1698,9 @@ def phase_kernels():
     # head dims above 128 (160 pads to 192; 320 is three column chunks of
     # at most 128): at padded 192 and 256 the tensor-core forward and
     # backward, wgmma_wide in bf16 and tf32x3 in f32, timed in turns with
-    # their wide twins; f32 at 320 on wide, bf16 there on wgmma_xwide
-    # (below).  The wide records are f32's: the kernels tf32x3 replaced on
-    # the f32 leg
+    # their wide twins; at 320 f32 on tf32x3_xwide, bf16 on wgmma_xwide
+    # (below).  The wide backward records are f32's: the kernels tf32x3
+    # replaced on the f32 leg
     for dt in ("bfloat16", "float32"):
         fwd = _flash_case(1, 4096, 4096, 16, 256, True, dt, gen,
                           variants=True)
@@ -1707,7 +1729,6 @@ def phase_kernels():
     _flash_case(2, 1000, 1000, 4, 320, False, "bfloat16", gen, variants=True)
     _flash_bwd_case(2, 1000, 1000, 4, 320, False, "bfloat16", gen,
                     variants=True)
-    _flash_case(2, 1000, 1000, 4, 320, False, "float32", gen)
     _flash_case(1, 777, 777, 4, 160, True, "float32", gen)
     _flash_case(1, 777, 777, 4, 160, True, "bfloat16", gen)
     _flash_bwd_case(1, 777, 777, 4, 160, True, "bfloat16", gen,
@@ -1739,13 +1760,19 @@ def phase_kernels():
                     variants=True)
     _flash_bwd_case(1, 4096, 4096, 16, 384, True, "bfloat16", gen,
                     with_dlse=True, variants=True)
-    # f32 above 256: the forward on wide (at the f32 hd512 leg's [2, 8192,
-    # 2, 512], the shape its 8 forwards a step run at), the backward on
-    # tf32x3_xwide (2-CTA clusters that split D), in turns with wide: the
-    # leg's shape, [1, 4096, 16, 512], [1, 4096, 16, 384] with an lse
-    # cotangent and [2, 1000, 4, 320] (run at 384; wide at 320)
-    main["flash_attention.wide"] = _flash_case(2, 8192, 8192, 2, 512, True,
-                                               "float32", gen)
+    # f32 above 256: the forward, dQ and dK/dV on tf32x3_xwide (2-CTA
+    # clusters that split D), in turns with wide: the f32 hd512 leg's [2,
+    # 8192, 2, 512] (the shape its 8 forwards and 4 + 4 backward kernels a
+    # step run at), [1, 4096, 16, 512], [2, 1000, 4, 320] (run at 384; wide
+    # at 320) and, the backward, [1, 4096, 16, 384] with an lse cotangent.
+    # The wide forward's record is its turns at the leg's shape: the
+    # kernel tf32x3_xwide replaced on the leg
+    fwd = _flash_case(2, 8192, 8192, 2, 512, True, "float32", gen,
+                      variants=True)
+    main["flash_attention.tf32x3_xwide"] = fwd
+    main["flash_attention.wide"] = _twin_record(fwd)
+    _flash_case(1, 4096, 4096, 16, 512, True, "float32", gen, variants=True)
+    _flash_case(2, 1000, 1000, 4, 320, False, "float32", gen, variants=True)
     main["flash_attention_dq.tf32x3_xwide"], \
         main["flash_attention_dkv.tf32x3_xwide"] = _flash_bwd_case(
             2, 8192, 8192, 2, 512, True, "float32", gen, variants=True)
@@ -1755,10 +1782,13 @@ def phase_kernels():
                     with_dlse=True, variants=True)
     _flash_bwd_case(2, 1000, 1000, 4, 320, False, "float32", gen,
                     variants=True)
-    # bf16 above 512 on wide, forward and backward, beside SDPA
+    # bf16 above 512: the forward on wgmma_xxwide (2-CTA clusters that
+    # split D; 576 runs at 640) in turns with wide (at 576), the backward
+    # on wide, both beside SDPA
     for args in ((2, 1000, 1000, 4, 576, False), (1, 4096, 4096, 16, 576,
                                                   True)):
-        _flash_case(*args, "bfloat16", gen)
+        main["flash_attention.wgmma_xxwide"] = _flash_case(
+            *args, "bfloat16", gen, variants=True)
         _flash_bwd_case(*args, "bfloat16", gen)
     main["fused_softmax_xent"], main["fused_softmax_xent_bwd"] = \
         _xent_case(8192, 32000, "float32", gen)
@@ -5680,7 +5710,10 @@ VARIANT_SOURCES = {
                             _CSRC + "flash_attention_wgmma_wide.cu",
                         "wgmma_xwide":
                             _CSRC + "flash_attention_wgmma_xwide.cu",
+                        "wgmma_xxwide":
+                            _CSRC + "flash_attention_wgmma_xwide.cu",
                         "tf32x3": _CSRC + "flash_attention_tf32x3.cu",
+                        "tf32x3_xwide": _CSRC + "flash_attention_tf32x3.cu",
                         "simt": _CSRC + "flash_attention.cu",
                         "wide": _CSRC + "flash_attention_wide.cu"},
     "flash_attention_dq": {"wgmma": _CSRC + "flash_attention_bwd_wgmma.cu",
@@ -5833,10 +5866,10 @@ def main():
             "mxnet_tpu_torch/ops/kernels/csrc/"
             "flash_attention_bwd_wgmma_xwide.cu",
             "mxnet_tpu/ops/pallas/flash_attention.py:179"),
-        # the f32 head_dim-512 leg's: the forward on the wide kernel, dQ and
-        # dK/dV on the tensor-core tf32x3_xwide kernels (2-CTA clusters)
-        "flash_attention.wide": (
-            "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_wide.cu",
+        # the f32 head_dim-512 leg's: the forward, dQ and dK/dV on the
+        # tensor-core tf32x3_xwide kernels (2-CTA clusters)
+        "flash_attention.tf32x3_xwide": (
+            "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_tf32x3.cu",
             "mxnet_tpu/ops/pallas/flash_attention.py:55"),
         "flash_attention_dq.tf32x3_xwide": (
             "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd_tf32x3.cu",

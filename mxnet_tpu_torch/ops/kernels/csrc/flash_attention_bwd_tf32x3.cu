@@ -132,7 +132,6 @@ constexpr int BS = 32;             // streamed rows a tile
 constexpr int NT = 256;            // threads a CTA: 8 warps
 constexpr int XS = BS + 8;         // row stride (words) of an exchange tile
 constexpr int kErrPad = 100003;    // tq_pad not a multiple of BR or < Tq
-constexpr int kErrCluster = 100004;  // no 2-CTA cluster fits on the device
 constexpr float kLog2e = 1.4426950408889634f;
 
 // (batch, time, head) strides in elements of each [B, T, H, D] tensor
@@ -263,67 +262,6 @@ __device__ __forceinline__ void meet_halves(float* X, int wd, int g, int t,
   add_from(X + 16 * wd * XS, g, t, f);
 }
 
-// The two CTAs of a cluster meet (tf32x3_xwide).  f: this warp's block of
-// its CTA's partial sums (16 rows, the scores' 32 columns), Xw: the same
-// block of its exchange tile, free here (this warp has read its partner's
-// partial there, in meet_halves, and nothing else reads it before p is
-// put).  The warp's lane 0 arms its `full` mbarrier for the peer's 2048
-// bytes and tells the peer's warp that Xw is free (a remote arrival on its
-// `vacant`); once the peer's block is free, each lane pushes its 16 values
-// there (st.async, counted on the peer's `full`), thread-major (chunk i of
-// lane l at 4 l + 128 i); once its own `full` completes it adds the peer's
-// values, f += peer (the peer adds this CTA's: a + b == b + a, the same
-// bits in both).  Each barrier completes once a tile: `parity` is the
-// tile's count mod 2.  No cluster-wide barrier: a warp waits for its
-// counterpart alone.  The caller syncs the warp before Xw is written again
-__device__ __forceinline__ void meet_peer(float* Xw, uint32_t full,
-                                          uint32_t vacant, uint32_t parity,
-                                          int lane, float (&f)[4][4]) {
-  const uint32_t peer = cluster_ctarank() ^ 1u;
-  __syncwarp();                   // every lane has read the partner's partial
-  if (lane == 0) {
-    mbar_expect_tx(full, 2048);
-    mbar_arrive_remote(cluster_map(vacant, peer));
-  }
-  mbar_wait_cluster(vacant, parity);  // the peer's block is free
-  const uint32_t dst = cluster_map(
-      static_cast<uint32_t>(__cvta_generic_to_shared(Xw)), peer);
-  const uint32_t bar = cluster_map(full, peer);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    st_async_v4(dst + 16u * (lane + 32 * i), f[i][0], f[i][1], f[i][2],
-                f[i][3], bar);
-  mbar_wait_cluster(full, parity);    // the peer's block is in
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 u = *reinterpret_cast<const float4*>(Xw + 4 * lane + 128 * i);
-    f[i][0] += u.x;
-    f[i][1] += u.y;
-    f[i][2] += u.z;
-    f[i][3] += u.w;
-  }
-}
-
-// CL == 2: the cluster's mbarriers, two a warp, initialised and visible to
-// the peer before either CTA uses them (with a cluster barrier)
-template <int CL>
-__device__ __forceinline__ void init_cluster_bars(uint32_t bars) {
-  if constexpr (CL == 2) {
-    if (threadIdx.x < 2 * NT / 32) {
-      mbar_init(bars + 8 * threadIdx.x, 1);
-      fence_mbarrier_init();
-    }
-    cluster_sync();
-  }
-}
-
-// This CTA's column half of the padded width (0 unless CL == 2)
-template <int CL>
-__device__ __forceinline__ int column_half() {
-  if constexpr (CL == 2) return (int)cluster_ctarank();
-  return 0;
-}
-
 template <int D>
 __device__ __forceinline__ void zero(float (&acc)[4][D / 64][4]) {
 #pragma unroll
@@ -445,7 +383,7 @@ flash_dq_tf32x3_kernel(const float* __restrict__ q,
   const uint32_t full =
       static_cast<uint32_t>(__cvta_generic_to_shared(smem + L::bars)) +
       8 * warp;
-  init_cluster_bars<CL>(full - 8 * warp);
+  init_cluster_bars<CL>(full - 8 * warp, 2 * NT / 32);
   cp_async_wait_all();
   __syncthreads();
 
@@ -553,7 +491,7 @@ flash_dkv_tf32x3_kernel(const float* __restrict__ q,
   const uint32_t full =
       static_cast<uint32_t>(__cvta_generic_to_shared(smem + L::bars)) +
       8 * warp;
-  init_cluster_bars<CL>(full - 8 * warp);
+  init_cluster_bars<CL>(full - 8 * warp, 2 * NT / 32);
   cp_async_wait_all();
   __syncthreads();
 
@@ -627,51 +565,16 @@ Strides copy_strides(const long long* st, int n) {
   return s;
 }
 
-// Launch `kernel` (one of the kernels above at D, CL) on `tiles` row tiles
-// x H x B, CL CTAs a tile as one cluster along x, with Smem<D>'s bytes.
-// A cluster's fit is checked once (kErrCluster if none fits)
-template <int D, int CL, typename... Params, typename... Args>
-int launch(void (*kernel)(Params...), int tiles, int H, int B,
-           cudaStream_t stream, Args... args) {
-  constexpr size_t smem = Smem<D, CL>::bytes;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (attr != cudaSuccess) return (int)attr;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CL * tiles, H, B);
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute cluster[1];
-  cluster[0].id = cudaLaunchAttributeClusterDimension;
-  cluster[0].val.clusterDim.x = CL;
-  cluster[0].val.clusterDim.y = 1;
-  cluster[0].val.clusterDim.z = 1;
-  if (CL > 1) {
-    cfg.attrs = cluster;
-    cfg.numAttrs = 1;
-    static const int fits = [&] {
-      int n = 0;
-      const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
-      return e == cudaSuccess ? n : -(int)e;
-    }();
-    if (fits < 0) return -fits;
-    if (fits == 0) return kErrCluster;
-  }
-  const cudaError_t rc = cudaLaunchKernelEx(&cfg, kernel, args...);
-  const cudaError_t last = cudaGetLastError();
-  return (int)(rc != cudaSuccess ? rc : last);
-}
-
 template <int D, int CL>
 int launch_dq(const float* q, const float* k, const float* v,
               const float* dout, const float* lse, const float* delta,
               float* dq, int B, int H, int Tq, int Tk, int tq_pad,
               const long long* st, float scale, int causal,
               cudaStream_t stream) {
-  return launch<D, CL>(flash_dq_tf32x3_kernel<D, CL>, (Tq + BR - 1) / BR, H,
-                       B, stream, q, k, v, dout, lse, delta, dq, H, Tq, Tk,
-                       tq_pad, copy_strides(st, 15), scale, causal);
+  return launch_ex<flash_dq_tf32x3_kernel<D, CL>, CL>(
+      dim3(CL * ((Tq + BR - 1) / BR), H, B), NT, Smem<D, CL>::bytes, stream,
+      q, k, v, dout, lse, delta, dq, H, Tq, Tk, tq_pad, copy_strides(st, 15),
+      scale, causal);
 }
 
 template <int D, int CL>
@@ -680,9 +583,10 @@ int launch_dkv(const float* q, const float* k, const float* v,
                float* dk, float* dv, int B, int H, int Tq, int Tk,
                int tq_pad, const long long* st, float scale, int causal,
                cudaStream_t stream) {
-  return launch<D, CL>(flash_dkv_tf32x3_kernel<D, CL>, (Tk + BR - 1) / BR, H,
-                       B, stream, q, k, v, dout, lse, delta, dk, dv, H, Tq,
-                       Tk, tq_pad, copy_strides(st, 18), scale, causal);
+  return launch_ex<flash_dkv_tf32x3_kernel<D, CL>, CL>(
+      dim3(CL * ((Tk + BR - 1) / BR), H, B), NT, Smem<D, CL>::bytes, stream,
+      q, k, v, dout, lse, delta, dk, dv, H, Tq, Tk, tq_pad,
+      copy_strides(st, 18), scale, causal);
 }
 
 int check_sizes(int B, int H, int Tq, int Tk, int tq_pad) {

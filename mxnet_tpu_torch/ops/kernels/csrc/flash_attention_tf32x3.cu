@@ -1,7 +1,9 @@
 // Flash-attention forward for f32 above head_dim 128 on Hopper's tensor
 // cores (sm_90a), CUDA C++: the "tf32x3" variant of the forward, for f32
 // inputs at head_dim 192 or 256 (the wrapper pads head_dim 129-256 to one
-// of them).
+// of them), and the "tf32x3_xwide" variant at head_dim 384 or 512 (the
+// wrapper pads head_dim 257-384 to 384 and 385-512 to 512): the same
+// kernel run by clusters of two CTAs that split D (below).
 //
 // Replaces, at those widths and in f32, the Pallas TPU kernel
 // mxnet_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (launched by
@@ -58,6 +60,37 @@
 // skipped.  No CTA reads what another writes and there are no atomics: two
 // calls give the same bits.
 //
+// tf32x3_xwide: above D 256 one CTA cannot hold the tiles (at D 256 they
+// take 213 KB of the 227 a block may use).  So a cluster of two CTAs (CL =
+// 2, along grid x) owns each 64-row query tile, and CTA c of the pair takes
+// columns c D' .. c D' + D' - 1 of the padded width 2 D' (D' = 192 at 384,
+// 256 at 512): each is the kernel above at D', with its shared memory,
+// warps and accumulators, and loads only its half of q, k and v.
+//   * The score product is split along D across the pair, as the two warp
+//     halves split it inside a CTA: once the halves have met, each warp
+//     pushes its CTA's partial of its 8 rows into the same rows of the
+//     peer's exchange tile (st.async, 16 bytes a lane four times, counted
+//     as transaction bytes on the peer warp's `full` mbarrier) and adds the
+//     peer's, which arrives the same way (meet_peer).  a + b == b + a in
+//     IEEE arithmetic, so both CTAs hold the same bits of S and form the
+//     same m, alpha, p and l.  The rows are free once the warp has read its
+//     partner's partial there, and it says so to the peer's warp by a
+//     remote arrival on that warp's `vacant` mbarrier: the exchange needs
+//     no receive buffer (none fits beside D' 256's 213 KB), only two 8-byte
+//     mbarriers a warp, and each warp waits for its counterpart alone (the
+//     tf32x3_xwide backward's plan, flash_attention_bwd_tf32x3.cu).
+//   * P.V needs only the CTA's own columns of V: each CTA keeps acc for its
+//     D' columns of o and stores them; rank 0 alone writes lse.  No score
+//     work is repeated: a pair does the flops of one CTA over all of D.
+//   * Both CTAs walk the same key tiles, each warp meeting its counterpart
+//     once a tile, with a cluster barrier after the mbarriers'
+//     initialisation and one at the end (neither CTA's shared memory is
+//     reached before it starts or after it ends).  No atomics: two calls
+//     give the same bits.
+// A 2-CTA cluster at 213 KB a CTA needs two SMs of one GPC free at once;
+// the launcher checks once that one fits (cudaOccupancyMaxActiveClusters)
+// and returns kErrCluster if not.
+//
 // Plain C interface (no PyTorch headers), called through ctypes.
 
 #include "hopper.cuh"
@@ -100,8 +133,9 @@ __device__ __forceinline__ void copy_step(const TileCopy& c, int step) {
 }
 
 // Shared memory, in floats: q [BR][LD], the key and the value tile [BS][LD], the exchange tile [BR][XS]
-// (partial scores, then p) and the rows' alpha and l.  LD % 32 == 4.
-template <int D>
+// (partial scores, then p), the rows' alpha and l, and in a cluster (CL 2)
+// two mbarriers a warp (8 bytes each: full, then vacant).  LD % 32 == 4.
+template <int D, int CL = 1>
 struct Smem {
   static constexpr int LD = D + 4;
   static constexpr int q = 0;
@@ -110,7 +144,8 @@ struct Smem {
   static constexpr int x = v + BS * LD;
   static constexpr int alpha = x + BR * XS;
   static constexpr int l = alpha + BR;
-  static constexpr int floats = l + BR;
+  static constexpr int bars = l + BR;            // full[8], vacant[8]
+  static constexpr int floats = bars + (CL == 2 ? 2 * 2 * NT / 32 : 0);
   static constexpr size_t bytes = floats * sizeof(float);
   static_assert(bytes <= 232448, "a block has 227 KB of shared memory");
 };
@@ -195,15 +230,17 @@ __device__ __forceinline__ void out_product(const float* P, const float* V,
   }
 }
 
-// st: q (0-2), k (3-5), v (6-8), o (9-11)
-template <int D>
+// st: q (0-2), k (3-5), v (6-8), o (9-11).  D: the columns of one CTA; CL:
+// the CTAs of a cluster, which share a tile of query rows and split the
+// head's CL * D columns
+template <int D, int CL>
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_tf32x3_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v, float* __restrict__ o,
                         float* __restrict__ lse, int H, int Tq, int Tk,
                         Strides st, float scale, int causal, int kv_len) {
-  using L = Smem<D>;
+  using L = Smem<D, CL>;
   constexpr int LD = L::LD, NB = D / 64;
   extern __shared__ float4 smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
@@ -217,12 +254,15 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int rb = warp >> 1, wd = warp & 1;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BR;   // heavy tiles first
+  // heavy tiles first
+  const int q0 = (gridDim.x / CL - 1 - blockIdx.x / CL) * BR;
   const int h = blockIdx.y, b = blockIdx.z;
+  // this CTA's first column
+  const int cd = column_half<CL>() * D;
 
-  const float* qb = q + b * st.s[0] + h * st.s[2];
-  const float* kb = k + b * st.s[3] + h * st.s[5];
-  const float* vb = v + b * st.s[6] + h * st.s[8];
+  const float* qb = q + b * st.s[0] + h * st.s[2] + cd;
+  const float* kb = k + b * st.s[3] + h * st.s[5] + cd;
+  const float* vb = v + b * st.s[6] + h * st.s[8] + cd;
 
   // the row this thread (its quad) finishes: wd 0 the upper 8 of the warp's
   // 16, wd 1 the lower 8
@@ -250,6 +290,11 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q,
     copy_rows<D>(Ks, kb, st.s[4], 0, BS, Tk, threadIdx.x, NT);
     cp_async_commit();
   }
+  // this warp's full and vacant mbarriers (CL 2)
+  const uint32_t full =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem + L::bars)) +
+      8 * warp;
+  init_cluster_bars<CL>(full - 8 * warp, 2 * NT / 32);
   for (int k0 = 0; k0 < k_end; k0 += BS) {
     const bool more = k0 + BS < k_end;
     cp_async_wait<0>();
@@ -274,6 +319,9 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q,
       f[n][0] = (wd ? s[n][2] : s[n][0]) + u.x;
       f[n][1] = (wd ? s[n][3] : s[n][1]) + u.y;
     }
+    if constexpr (CL == 2)
+      meet_peer(X + (16 * rb + 8 * wd) * XS, full, full + 64, (k0 / BS) & 1,
+                lane, f);
     // a tile needs the mask where it reaches kv_len or, causal, keys past
     // the first row; elsewhere max(S) * scale is max(s) (scale > 0) and s
     // is never formed
@@ -301,6 +349,7 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q,
     const float alpha = ex2((m_run - m_new) * kLog2e);
     const float fs = masked ? kLog2e : sl2, bias = -m_new * kLog2e;
     float rs = 0.f;
+    if constexpr (CL == 2) __syncwarp();    // every lane has read Xw
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
       const float p0 = ex2(fmaf(f[n][0], fs, bias));
@@ -320,14 +369,17 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q,
     cp_async_commit();        // the next key tile
   }
 
-  // the rows' l to every warp; lse from the finishing quads
+  // the rows' l to every warp; lse from the finishing quads (of rank 0:
+  // both CTAs of a cluster hold the same m and l)
   const float safe = l_run == 0.f ? 1.f : l_run;
   if (t == 0) {
     l_s[r] = safe;
-    if (qpos < Tq) lse[((long long)b * H + h) * Tq + qpos] = m_run + logf(safe);
+    if (qpos < Tq && cd == 0)
+      lse[((long long)b * H + h) * Tq + qpos] = m_run + logf(safe);
   }
+  if constexpr (CL == 2) cluster_sync();  // no access to a finished peer
   __syncthreads();
-  float* ob = o + b * st.s[9] + h * st.s[11];
+  float* ob = o + b * st.s[9] + h * st.s[11] + cd;
 #pragma unroll
   for (int m = 0; m < 4; ++m)
 #pragma unroll
@@ -344,21 +396,54 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q,
     }
 }
 
-template <int D>
+template <int D, int CL>
 int launch(const float* q, const float* k, const float* v, float* o,
            float* lse, int B, int H, int Tq, int Tk, const long long* st,
            float scale, int causal, int kv_len, cudaStream_t stream) {
-  constexpr size_t smem = Smem<D>::bytes;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_tf32x3_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (attr != cudaSuccess) return (int)attr;
   Strides s{};
   for (int i = 0; i < 12; ++i) s.s[i] = st[i];
-  const dim3 grid((Tq + BR - 1) / BR, H, B);
-  flash_fwd_tf32x3_kernel<D><<<grid, NT, smem, stream>>>(
+  return launch_ex<flash_fwd_tf32x3_kernel<D, CL>, CL>(
+      dim3(CL * ((Tq + BR - 1) / BR), H, B), NT, Smem<D, CL>::bytes, stream,
       q, k, v, o, lse, H, Tq, Tk, s, scale, causal, kv_len);
-  return (int)cudaGetLastError();
+}
+
+// The forward at `D` columns: tf32x3 at 192 / 256 (one CTA a query tile),
+// tf32x3_xwide at 384 / 512 (a cluster of two CTAs, 192 / 256 columns
+// each); any other width, or one of the other variant's, is refused
+int fwd_any(bool xwide, const void* q, const void* k, const void* v, void* o,
+            void* lse, int B, int H, int Tq, int Tk, int D,
+            const long long* st, float scale, int causal, int kv_len,
+            void* stream) {
+  if (B <= 0 || H <= 0 || Tq <= 0) return 0;
+  if (Tk <= 0 || kv_len < 0 || kv_len > Tk || B > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float *fq = static_cast<const float*>(q),
+              *fk = static_cast<const float*>(k),
+              *fv = static_cast<const float*>(v);
+  float *fo = static_cast<float*>(o), *fl = static_cast<float*>(lse);
+  switch (xwide ? -D : D) {
+    case 192:
+      return launch<192, 1>(fq, fk, fv, fo, fl, B, H, Tq, Tk, st, scale,
+                            causal, kv_len, s);
+    case 256:
+      return launch<256, 1>(fq, fk, fv, fo, fl, B, H, Tq, Tk, st, scale,
+                            causal, kv_len, s);
+    case -384:
+      return launch<192, 2>(fq, fk, fv, fo, fl, B, H, Tq, Tk, st, scale,
+                            causal, kv_len, s);
+    case -512:
+      return launch<256, 2>(fq, fk, fv, fo, fl, B, H, Tq, Tk, st, scale,
+                            causal, kv_len, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+const char* error_string(int code) {
+  if (code == kErrCluster)
+    return "no cluster of two 213 KB CTAs fits on this device";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // namespace
@@ -374,28 +459,28 @@ int mxt_flash_tf32x3_fwd(const void* q, const void* k, const void* v,
                          void* o, void* lse, int B, int H, int Tq, int Tk,
                          int D, const long long* st, float scale, int causal,
                          int kv_len, void* stream) {
-  if (B <= 0 || H <= 0 || Tq <= 0) return 0;
-  if (Tk <= 0 || kv_len < 0 || kv_len > Tk || B > 65535 || H > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float *fq = static_cast<const float*>(q),
-              *fk = static_cast<const float*>(k),
-              *fv = static_cast<const float*>(v);
-  float *fo = static_cast<float*>(o), *fl = static_cast<float*>(lse);
-  switch (D) {
-    case 192:
-      return launch<192>(fq, fk, fv, fo, fl, B, H, Tq, Tk, st, scale, causal,
-                         kv_len, s);
-    case 256:
-      return launch<256>(fq, fk, fv, fo, fl, B, H, Tq, Tk, st, scale, causal,
-                         kv_len, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return fwd_any(false, q, k, v, o, lse, B, H, Tq, Tk, D, st, scale, causal,
+                 kv_len, stream);
 }
 
 const char* mxt_flash_tf32x3_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return error_string(code);
+}
+
+// tf32x3_xwide: as mxt_flash_tf32x3_fwd at D 384 or 512, each query tile
+// run by a cluster of two CTAs (D / 2 columns each); also returns
+// kErrCluster (see mxt_flash_tf32x3_xwide_error_string)
+int mxt_flash_tf32x3_xwide_fwd(const void* q, const void* k, const void* v,
+                               void* o, void* lse, int B, int H, int Tq,
+                               int Tk, int D, const long long* st,
+                               float scale, int causal, int kv_len,
+                               void* stream) {
+  return fwd_any(true, q, k, v, o, lse, B, H, Tq, Tk, D, st, scale, causal,
+                 kv_len, stream);
+}
+
+const char* mxt_flash_tf32x3_xwide_error_string(int code) {
+  return error_string(code);
 }
 
 }  // extern "C"

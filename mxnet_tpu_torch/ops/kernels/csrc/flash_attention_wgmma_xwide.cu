@@ -1,7 +1,10 @@
 // Flash-attention forward on Hopper's tensor cores (sm_90a), CUDA C++: the
 // "wgmma_xwide" variant of the forward, for bf16 inputs at head_dim 320,
-// 384, 448 or 512 (the wrapper pads head_dim 257-512 to one of them).  Its
-// backward sibling is flash_attention_bwd_wgmma_xwide.cu (dQ and dK/dV).
+// 384, 448 or 512 (the wrapper pads head_dim 257-512 to one of them), and
+// the "wgmma_xxwide" variant at head_dim 640, 768, 896 or 1024 (the wrapper
+// pads head_dim 513-1024 to one of them): the same kernel run by clusters
+// of two CTAs that split D (below).  wgmma_xwide's backward sibling is
+// flash_attention_bwd_wgmma_xwide.cu (dQ and dK/dV).
 //
 // Replaces, at those widths, the Pallas TPU kernel
 // mxnet_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (launched by `_fwd`;
@@ -88,10 +91,48 @@
 //   running max is finite from then on and a fully masked tile adds
 //   exp(-1e30 - m) = 0 to l and acc with alpha = 1: skipping it is exact.
 //
-// Host side: the tensor maps are built per launch (hopper.cuh).
+// wgmma_xxwide: above D 512 one CTA holds neither o's 64 x D f32
+// accumulator (at 640, 160 registers a consumer thread beside the scores
+// and p) nor the tiles (Q and one K + V slot of 32 keys: 240 KB).  So a
+// cluster of two CTAs (CL = 2, along grid x) owns each 64-row query tile,
+// and CTA c of the pair takes columns c D' .. c D' + D' - 1 of the padded
+// width 2 D' (D' = 320, 384, 448 or 512): each is the kernel above at D',
+// with its Plan, shared memory, warpgroups and accumulators, its TMA boxes
+// on its own half of q, k and v.
+//   * After the two warpgroups' partial scores have met (both hold the
+//     CTA's half of S, the own warpgroup's term first), each consumer warp
+//     pushes that half into the same fragment positions of the peer's
+//     exchange, in the other warpgroup's half, where this warp has just read
+//     its partner's partial (st.async, 16 bytes a thread NS / 4 times,
+//     counted as transaction bytes on the peer warp's `full` mbarrier), and
+//     adds the peer's half, which arrives the same way
+//     (meet_peer_scores): S = own + peer.  a + b == b + a in IEEE arithmetic, so both CTAs hold the
+//     same bits of S and form the same m, alpha, p and l.  The positions
+//     are free once the warp has read its partner's partial there, and it
+//     says so to the peer's warp by a remote arrival on that warp's
+//     `vacant` mbarrier; so the exchange needs no receive buffer, only two
+//     8-byte mbarriers a consumer warp, and each warp waits for its
+//     counterpart alone (the tf32x3_xwide kernels' plan).  The partner
+//     warpgroup stores its next partial there only after barrier 2 of the
+//     next tile, which this warp reaches after it has read the peer's.
+//   * P.V needs only the CTA's own panels of V: each CTA keeps acc for its
+//     D' columns of o and stores them; warpgroup 0 of rank 0 alone writes
+//     lse.  No score work is repeated: a pair does the flops of one CTA over
+//     all of D.
+//   * Both CTAs walk the same key tiles; a cluster barrier after the
+//     mbarriers' initialisation and one at the end keep either CTA's
+//     shared memory from being reached before it starts or after it ends.
+//     No atomics: two calls give the same bits.
+// A 2-CTA cluster at up to 209 KB a CTA needs two SMs of one GPC free at
+// once; the launcher checks once that one fits
+// (cudaOccupancyMaxActiveClusters) and returns kErrCluster if not.
+//
+// Host side: the tensor maps are built per launch (hopper.cuh), over the
+// whole head width; a CTA's boxes start at its first column.
 // Preconditions, checked by the Python wrapper: bf16, D in {320, 384, 448,
-// 512}, unit stride on D, 16-byte-aligned base addresses and (B, T, H)
-// strides that are multiples of 8 elements.
+// 512} (wgmma_xwide) or {640, 768, 896, 1024} (wgmma_xxwide), unit stride
+// on D, 16-byte-aligned base addresses and (B, T, H) strides that are
+// multiples of 8 elements.
 //
 // Plain C interface (no PyTorch headers), called through ctypes.
 
@@ -128,10 +169,11 @@ struct Cols {
 // Byte offsets in the (1024-aligned) dynamic shared memory: Q, the K ring
 // and the V ring, the exchange (two f32 [64][BK] partials, one a
 // warpgroup), then the barriers full_q, full_k[ST], full_v[ST],
-// empty_k[ST], empty_v[ST].  Every tensor tile is D / 64 panels of
-// [rows][64] bf16, 128 bytes a row, swizzled by the TMA unit in 1024-byte
-// atoms of 8 rows.
-template <int D>
+// empty_k[ST], empty_v[ST] and, in a cluster (CL 2), two a consumer warp
+// (full[8], vacant[8]).  Every tensor tile is D / 64 panels of [rows][64]
+// bf16, 128 bytes a row, swizzled by the TMA unit in 1024-byte atoms of 8
+// rows.
+template <int D, int CL = 1>
 struct Smem {
   static constexpr int BK = Plan<D>::BK;
   static constexpr int ST = Plan<D>::ST;
@@ -143,7 +185,9 @@ struct Smem {
   static constexpr uint32_t v = k + ST * kTileBytes;
   static constexpr uint32_t xch = v + ST * kTileBytes;
   static constexpr uint32_t bars = xch + 2 * kXBytes;
-  static constexpr size_t alloc = bars + 8 * (1 + 4 * ST) + 1024;
+  static constexpr uint32_t peer_bars = bars + 8 * (1 + 4 * ST);
+  static constexpr size_t alloc =
+      peer_bars + (CL == 2 ? 8 * 2 * NCONS / 32 : 0) + 1024;
   static_assert(alloc <= kSmemMax, "over the 227 KB a block may use");
   static_assert(BK == 32 || BK == 64, "a tile is 32 or 64 keys");
 
@@ -323,20 +367,21 @@ __device__ __forceinline__ void ld_shared_v4(uint32_t addr, float& a,
                : "memory");
 }
 
-template <int D>
+// The producer: every copy of the CTA, its columns from cd
+template <int D, int CL>
 __device__ __forceinline__ void produce(const CUtensorMap* tm_q,
                                         const CUtensorMap* tm_k,
                                         const CUtensorMap* tm_v,
                                         uint32_t base, int q0, int h, int b,
-                                        int n_tiles) {
-  using L = Smem<D>;
+                                        int n_tiles, int cd) {
+  using L = Smem<D, CL>;
   constexpr int ST = L::ST, BK = L::BK;
   const uint32_t sq = base + L::q, sk = base + L::k, sv = base + L::v;
   const uint32_t bars = base + L::bars;   // bars itself is full_q
   mbar_expect_tx(bars, L::kQBytes);
 #pragma unroll
   for (int p = 0; p < D / PANEL; ++p)
-    tma_load(sq + p * BQ * 128, tm_q, bars, p * PANEL, h, q0, b);
+    tma_load(sq + p * BQ * 128, tm_q, bars, cd + p * PANEL, h, q0, b);
   for (int j = 0; j < n_tiles; ++j) {
     const int s = j % ST;
     // slot s last held tile j - ST: wait for its release (K's as soon as
@@ -347,14 +392,14 @@ __device__ __forceinline__ void produce(const CUtensorMap* tm_q,
     mbar_expect_tx(L::full_k(bars, s), L::kTileBytes);
 #pragma unroll
     for (int p = 0; p < D / PANEL; ++p)
-      tma_load(kt + p * BK * 128, tm_k, L::full_k(bars, s), p * PANEL, h,
-               j * BK, b);
+      tma_load(kt + p * BK * 128, tm_k, L::full_k(bars, s), cd + p * PANEL,
+               h, j * BK, b);
     if (j >= ST) mbar_wait(L::empty_v(bars, s), parity);
     mbar_expect_tx(L::full_v(bars, s), L::kTileBytes);
 #pragma unroll
     for (int p = 0; p < D / PANEL; ++p)
-      tma_load(vt + p * BK * 128, tm_v, L::full_v(bars, s), p * PANEL, h,
-               j * BK, b);
+      tma_load(vt + p * BK * 128, tm_v, L::full_v(bars, s), cd + p * PANEL,
+               h, j * BK, b);
   }
 }
 
@@ -421,22 +466,65 @@ __device__ __forceinline__ void exchange(float (&S)[NS], uint32_t mine,
   }
 }
 
+// The two CTAs of a cluster meet (wgmma_xxwide), after exchange: S holds
+// this CTA's half of the scores, and this warp's positions of `other` (the
+// other warpgroup's half of the exchange; t: this thread's number in its
+// warpgroup) are free, read in exchange.  The warp's lane 0 arms its `full`
+// mbarrier for the peer's NS * 128 bytes and tells the peer's warp that
+// they are free (a remote arrival on its `vacant`); once the peer's are
+// free, each lane pushes its S to the same positions of the peer's
+// exchange (st.async, counted on the peer's `full`); once its own `full`
+// completes, S += the peer's half (the peer adds this CTA's: a + b == b +
+// a, the same bits in both).  Each barrier completes once a tile: `parity`
+// is the tile's count mod 2
+template <int NS>
+__device__ __forceinline__ void meet_peer_scores(float (&S)[NS],
+                                                 uint32_t other, int t,
+                                                 uint32_t full,
+                                                 uint32_t vacant,
+                                                 uint32_t parity) {
+  const uint32_t peer = cluster_ctarank() ^ 1u;
+  __syncwarp();                   // every lane has read the partner's partial
+  if ((t & 31) == 0) {
+    mbar_expect_tx(full, NS * 128);
+    mbar_arrive_remote(cluster_map(vacant, peer));
+  }
+  mbar_wait_cluster(vacant, parity);  // the peer's positions are free
+  const uint32_t dst = cluster_map(other, peer);
+  const uint32_t bar = cluster_map(full, peer);
+#pragma unroll
+  for (int c = 0; c < NS / 4; ++c)
+    st_async_v4(dst + (c * 128 + t) * 16, S[4 * c], S[4 * c + 1],
+                S[4 * c + 2], S[4 * c + 3], bar);
+  mbar_wait_cluster(full, parity);    // the peer's half is in
+#pragma unroll
+  for (int c = 0; c < NS / 4; ++c) {
+    float a, b, x, y;
+    ld_shared_v4(other + (c * 128 + t) * 16, a, b, x, y);
+    S[4 * c] += a;
+    S[4 * c + 1] += b;
+    S[4 * c + 2] += x;
+    S[4 * c + 3] += y;
+  }
+}
+
 // A consumer warpgroup: the CTA's 64 query rows on its NC columns from c0
-// (also its share of the score product's head dims).  Software-pipelined
+// (also its share of the score product's head dims); cd: the CTA's first
+// column of the head (CL 2).  Software-pipelined
 // by one tile: the partial scores of tile j and the P.V product of tile j
 // - 1 are issued together, and the exchange and the softmax of tile j run
 // while that product is in flight; acc is rescaled and p overwritten only
 // after it completes.
-template <int D, int NC>
+template <int D, int CL, int NC>
 __device__ __forceinline__ void consume(uint32_t base, int q0, int h, int b,
-                                        int n_tiles, int c0,
+                                        int n_tiles, int c0, int cd,
                                         __nv_bfloat16* __restrict__ o,
                                         float* __restrict__ lse, int H,
                                         int Tq, long long o_sb,
                                         long long o_st, long long o_sh,
                                         float scale, int causal,
                                         int kv_len) {
-  using L = Smem<D>;
+  using L = Smem<D, CL>;
   constexpr int ST = L::ST, BK = L::BK;
   constexpr int NS = BK / 2;    // score registers per thread
   constexpr int KP = BK / 16;   // k-steps of P.V
@@ -455,6 +543,8 @@ __device__ __forceinline__ void consume(uint32_t base, int q0, int h, int b,
   const uint32_t sk = base + L::k + col, sv = base + L::v + col;
   const uint32_t mine = base + L::xch + wg * L::kXBytes;
   const uint32_t other = base + L::xch + (wg ^ 1) * L::kXBytes;
+  // this warp's full and vacant mbarriers (CL 2)
+  const uint32_t full = base + L::peer_bars + 8 * (tid >> 5);
   // a tile needs the mask where it crosses kv_len or, under the causal
   // mask, holds a key past the CTA's first row
   auto masked = [&](int k0) {
@@ -477,6 +567,8 @@ __device__ __forceinline__ void consume(uint32_t base, int q0, int h, int b,
     pin(S);
     mbar_arrive(L::empty_k(bars, 0));
     exchange(S, mine, other, tid & 127, false);
+    if constexpr (CL == 2)
+      meet_peer_scores(S, other, tid & 127, full, full + 64, 0);
     softmax_step(S, masked(0), 0, r0, r1, cq, scale, causal, kv_len, m0, m1,
                  l0, l1, al0, al1);
     split_hi_lo(S, ph, pl);
@@ -495,6 +587,8 @@ __device__ __forceinline__ void consume(uint32_t base, int q0, int h, int b,
     pin(S);
     mbar_arrive(L::empty_k(bars, s));
     exchange(S, mine, other, tid & 127, true);
+    if constexpr (CL == 2)
+      meet_peer_scores(S, other, tid & 127, full, full + 64, j & 1);
     softmax_step(S, masked(j * BK), j * BK, r0, r1, cq, scale, causal,
                  kv_len, m0, m1, l0, l1, al0, al1);
     wgmma_wait<0>();                          // tile j - 1's product too
@@ -524,16 +618,18 @@ __device__ __forceinline__ void consume(uint32_t base, int q0, int h, int b,
   // the same m and l
   const float safe0 = l0 == 0.f ? 1.f : l0;
   const float safe1 = l1 == 0.f ? 1.f : l1;
-  store_o_rows(o + b * o_sb + h * o_sh, acc, c0, cq, r0, r1, Tq, o_st,
+  store_o_rows(o + b * o_sb + h * o_sh + cd, acc, c0, cq, r0, r1, Tq, o_st,
                safe0, safe1);
-  if (wg == 0 && (lane & 3) == 0) {
+  if (wg == 0 && cd == 0 && (lane & 3) == 0) {
     float* lb = lse + ((long long)b * H + h) * Tq;
     if (r0 < Tq) lb[r0] = m0 + logf(safe0);
     if (r1 < Tq) lb[r1] = m1 + logf(safe1);
   }
 }
 
-template <int D>
+// D: the columns of one CTA; CL: the CTAs of a cluster, which share a tile
+// of query rows and split the head's CL * D columns
+template <int D, int CL>
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_wgmma_xwide_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_k,
@@ -542,7 +638,7 @@ flash_fwd_wgmma_xwide_kernel(const __grid_constant__ CUtensorMap tm_q,
                              float* __restrict__ lse, int H, int Tq,
                              long long o_sb, long long o_st, long long o_sh,
                              float scale, int causal, int kv_len) {
-  using L = Smem<D>;
+  using L = Smem<D, CL>;
   using C = Cols<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw =
@@ -550,8 +646,10 @@ flash_fwd_wgmma_xwide_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t bars = base + L::bars;
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heavy tiles first
+  // heavy tiles first
+  const int q0 = (gridDim.x / CL - 1 - blockIdx.x / CL) * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
+  const int cd = column_half<CL>() * D;   // this CTA's first column
   const int q_last = min(q0 + BQ, Tq) - 1;
   const int k_end = causal ? min(kv_len, q_last + 1) : kv_len;
   const int n_tiles = (k_end + L::BK - 1) / L::BK;
@@ -568,45 +666,102 @@ flash_fwd_wgmma_xwide_kernel(const __grid_constant__ CUtensorMap tm_q,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  init_cluster_bars<CL>(base + L::peer_bars, 2 * NCONS / 32);
 
   // one if/else for the two roles, never reconverging, so that ptxas
   // applies each setmaxnreg to its whole branch
   if (threadIdx.x >= NCONS) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == NCONS)
-      produce<D>(&tm_q, &tm_k, &tm_v, base, q0, h, b, n_tiles);
+      produce<D, CL>(&tm_q, &tm_k, &tm_v, base, q0, h, b, n_tiles, cd);
+    if constexpr (CL == 2) {                // no access to a finished peer
+      __syncwarp();
+      cluster_sync();
+    }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
     if (C::c0 == C::c1 || threadIdx.x < 128)
-      consume<D, C::c0>(base, q0, h, b, n_tiles, (threadIdx.x >> 7) * C::c0,
-                        o, lse, H, Tq, o_sb, o_st, o_sh, scale, causal,
-                        kv_len);
+      consume<D, CL, C::c0>(base, q0, h, b, n_tiles,
+                            (threadIdx.x >> 7) * C::c0, cd, o, lse, H, Tq,
+                            o_sb, o_st, o_sh, scale, causal, kv_len);
     else
-      consume<D, C::c1>(base, q0, h, b, n_tiles, C::c0, o, lse, H, Tq, o_sb,
-                        o_st, o_sh, scale, causal, kv_len);
+      consume<D, CL, C::c1>(base, q0, h, b, n_tiles, C::c0, cd, o, lse, H,
+                            Tq, o_sb, o_st, o_sh, scale, causal, kv_len);
+    if constexpr (CL == 2) {
+      __syncwarp();
+      cluster_sync();
+    }
   }
 }
 
-template <int D>
+template <int D, int CL>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int Tq, int Tk, const long long* st, float scale,
            int causal, int kv_len, cudaStream_t stream) {
-  constexpr size_t smem = Smem<D>::alloc;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_wgmma_xwide_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (attr != cudaSuccess) return (int)attr;
   CUtensorMap mq, mk, mv;
-  constexpr int BK = Smem<D>::BK;
-  int rc = make_map(&mq, q, B, Tq, H, D, st[0], st[1], st[2], BQ);
-  if (rc == 0) rc = make_map(&mk, k, B, Tk, H, D, st[3], st[4], st[5], BK);
-  if (rc == 0) rc = make_map(&mv, v, B, Tk, H, D, st[6], st[7], st[8], BK);
+  constexpr int BK = Smem<D, CL>::BK;
+  int rc = make_map(&mq, q, B, Tq, H, CL * D, st[0], st[1], st[2], BQ);
+  if (rc == 0)
+    rc = make_map(&mk, k, B, Tk, H, CL * D, st[3], st[4], st[5], BK);
+  if (rc == 0)
+    rc = make_map(&mv, v, B, Tk, H, CL * D, st[6], st[7], st[8], BK);
   if (rc != 0) return rc;
-  const dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_fwd_wgmma_xwide_kernel<D><<<grid, NT, smem, stream>>>(
+  return launch_ex<flash_fwd_wgmma_xwide_kernel<D, CL>, CL>(
+      dim3(CL * ((Tq + BQ - 1) / BQ), H, B), NT, Smem<D, CL>::alloc, stream,
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, H, Tq, st[9], st[10],
       st[11], scale, causal, kv_len);
-  return (int)cudaGetLastError();
+}
+
+// The forward at `D` columns: wgmma_xwide at 320-512 (one CTA a query
+// tile), wgmma_xxwide at 640-1024 (a cluster of two CTAs, D / 2 columns
+// each); any other width, or one of the other variant's, is refused
+int fwd_any(bool xxwide, const void* q, const void* k, const void* v,
+            void* o, void* lse, int B, int H, int Tq, int Tk, int D,
+            const long long* st, float scale, int causal, int kv_len,
+            void* stream) {
+  if (B <= 0 || H <= 0 || Tq <= 0) return 0;
+  if (Tk <= 0 || kv_len < 0 || kv_len > Tk || B > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  switch (xxwide ? -D : D) {
+    case 320:
+      return launch<320, 1>(q, k, v, o, l, B, H, Tq, Tk, st, scale, causal,
+                            kv_len, s);
+    case 384:
+      return launch<384, 1>(q, k, v, o, l, B, H, Tq, Tk, st, scale, causal,
+                            kv_len, s);
+    case 448:
+      return launch<448, 1>(q, k, v, o, l, B, H, Tq, Tk, st, scale, causal,
+                            kv_len, s);
+    case 512:
+      return launch<512, 1>(q, k, v, o, l, B, H, Tq, Tk, st, scale, causal,
+                            kv_len, s);
+    case -640:
+      return launch<320, 2>(q, k, v, o, l, B, H, Tq, Tk, st, scale, causal,
+                            kv_len, s);
+    case -768:
+      return launch<384, 2>(q, k, v, o, l, B, H, Tq, Tk, st, scale, causal,
+                            kv_len, s);
+    case -896:
+      return launch<448, 2>(q, k, v, o, l, B, H, Tq, Tk, st, scale, causal,
+                            kv_len, s);
+    case -1024:
+      return launch<512, 2>(q, k, v, o, l, B, H, Tq, Tk, st, scale, causal,
+                            kv_len, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+const char* error_string(int code) {
+  if (code == kErrTensorMap)
+    return "cuTensorMapEncodeTiled refused a q/k/v layout";
+  if (code == kErrNoEntryPoint)
+    return "libcuda has no cuTensorMapEncodeTiled";
+  if (code == kErrCluster)
+    return "no cluster of two wgmma_xxwide CTAs fits on this device";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // namespace
@@ -623,35 +778,28 @@ int mxt_flash_wgmma_xwide_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int B, int H, int Tq,
                               int Tk, int D, const long long* st, float scale,
                               int causal, int kv_len, void* stream) {
-  if (B <= 0 || H <= 0 || Tq <= 0) return 0;
-  if (Tk <= 0 || kv_len < 0 || kv_len > Tk || B > 65535 || H > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  switch (D) {
-    case 320:
-      return launch<320>(q, k, v, o, l, B, H, Tq, Tk, st, scale, causal,
-                         kv_len, s);
-    case 384:
-      return launch<384>(q, k, v, o, l, B, H, Tq, Tk, st, scale, causal,
-                         kv_len, s);
-    case 448:
-      return launch<448>(q, k, v, o, l, B, H, Tq, Tk, st, scale, causal,
-                         kv_len, s);
-    case 512:
-      return launch<512>(q, k, v, o, l, B, H, Tq, Tk, st, scale, causal,
-                         kv_len, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return fwd_any(false, q, k, v, o, lse, B, H, Tq, Tk, D, st, scale, causal,
+                 kv_len, stream);
 }
 
 const char* mxt_flash_wgmma_xwide_error_string(int code) {
-  if (code == kErrTensorMap)
-    return "cuTensorMapEncodeTiled refused a q/k/v layout";
-  if (code == kErrNoEntryPoint)
-    return "libcuda has no cuTensorMapEncodeTiled";
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return error_string(code);
+}
+
+// wgmma_xxwide: as mxt_flash_wgmma_xwide_fwd at D 640, 768, 896 or 1024,
+// each query tile run by a cluster of two CTAs (D / 2 columns each); also
+// returns kErrCluster (see mxt_flash_wgmma_xxwide_error_string)
+int mxt_flash_wgmma_xxwide_fwd(const void* q, const void* k, const void* v,
+                               void* o, void* lse, int B, int H, int Tq,
+                               int Tk, int D, const long long* st,
+                               float scale, int causal, int kv_len,
+                               void* stream) {
+  return fwd_any(true, q, k, v, o, lse, B, H, Tq, Tk, D, st, scale, causal,
+                 kv_len, stream);
+}
+
+const char* mxt_flash_wgmma_xxwide_error_string(int code) {
+  return error_string(code);
 }
 
 }  // extern "C"

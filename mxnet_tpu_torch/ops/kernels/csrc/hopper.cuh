@@ -2,11 +2,11 @@
 // bf16 flash kernels (flash_attention_wgmma.cu, the forward;
 // flash_attention_bwd_wgmma.cu, dQ and dK/dV; their wgmma_wide twins at
 // head_dim 192 and 256; the wgmma_xwide forward, dQ and dK/dV at head_dim
-// 320-512),
+// 320-512, and wgmma_xxwide, the forward at 640-1024 in 2-CTA clusters),
 // the f32 flash kernels at head_dim 192 and 256
 // (tf32x3: the forward, flash_attention_tf32x3.cu; dQ and dK/dV,
-// flash_attention_bwd_tf32x3.cu, which also holds tf32x3_xwide, dQ and
-// dK/dV at 384 and 512 in 2-CTA clusters) and the int8 matmul
+// flash_attention_bwd_tf32x3.cu; each source also holds tf32x3_xwide, its
+// kernels at 384 and 512 in 2-CTA clusters) and the int8 matmul
 // (int8_matmul.cu).
 // mbarriers, TMA loads, 16-byte cp.async copies, 128-byte-swizzled wgmma
 // descriptors, the wgmma shapes the kernels issue (bf16 with f32
@@ -15,8 +15,8 @@
 // TF32 product, and the tf32x3 kernels' split fragment loads and f32 row
 // copies), a cluster's rank, barrier, remote mbarrier arrivals and
 // distributed shared memory stores (st.async), the bf16 forwards' online-softmax step and epilogue, and the
-// host-side tensor maps over [B, T, H, D] bf16 tensors and over [rows, K]
-// int8 matrices.  Included by each source; everything sits in an anonymous
+// host side: a launch with a cluster dimension (launch_ex), the tensor
+// maps over [B, T, H, D] bf16 tensors and over [rows, K] int8 matrices.  Included by each source; everything sits in an anonymous
 // namespace, so each library keeps its own copy.
 
 #pragma once
@@ -320,7 +320,8 @@ __device__ __forceinline__ void frag_b_perm(const float* m, int ld, int g,
   split_tf32(m[(2 * t + 1) * ld + g], hi[1], lo[1]);
 }
 
-// Thread-block clusters (the tf32x3_xwide backward: two CTAs that split D).
+// Thread-block clusters (tf32x3_xwide and wgmma_xxwide: two CTAs that split
+// D).
 // This CTA's rank in its cluster
 __device__ __forceinline__ uint32_t cluster_ctarank() {
   uint32_t r;
@@ -396,6 +397,75 @@ __device__ __forceinline__ void cluster_wait() {
 __device__ __forceinline__ void cluster_sync() {
   cluster_arrive();
   cluster_wait();
+}
+
+// CL == 2: `n` mbarriers of one arrival each from shared address `bars`
+// (8 bytes apart), initialised and made visible to the peer CTA before
+// either uses them, by a cluster barrier that every thread of the CTA
+// takes
+template <int CL>
+__device__ __forceinline__ void init_cluster_bars(uint32_t bars, int n) {
+  if constexpr (CL == 2) {
+    if ((int)threadIdx.x < n) {
+      mbar_init(bars + 8 * threadIdx.x, 1);
+      fence_mbarrier_init();
+    }
+    cluster_sync();
+  }
+}
+
+// This CTA's column half of a width split across a cluster of CL CTAs (0
+// unless CL == 2)
+template <int CL>
+__device__ __forceinline__ int column_half() {
+  if constexpr (CL == 2) return (int)cluster_ctarank();
+  return 0;
+}
+
+// The two CTAs of a cluster meet (the tf32x3_xwide kernels).  f: this
+// thread's 16 partial sums of its CTA (A x B, row-major: chunk i is flat
+// values 4i .. 4i + 3), Xw: the warp's 512-float block of its exchange
+// tile, free here (the warp has read its partner's partial there, and
+// nothing else reads it before the caller overwrites it).  The warp's lane
+// 0 arms its `full` mbarrier for the peer's 2048 bytes and tells the
+// peer's warp that Xw is free (a remote arrival on its `vacant`); once the
+// peer's block is free, each lane pushes its 16 values there (st.async,
+// counted on the peer's `full`), thread-major (chunk i of lane l at 4 l +
+// 128 i); once its own `full` completes it adds the peer's values, f +=
+// peer (the peer adds this CTA's: a + b == b + a, the same bits in both).
+// Each barrier completes once a tile: `parity` is the tile's count mod 2.
+// No cluster-wide barrier: a warp waits for its counterpart alone.  The
+// caller syncs the warp before Xw is written again
+template <int A, int B>
+__device__ __forceinline__ void meet_peer(float* Xw, uint32_t full,
+                                          uint32_t vacant, uint32_t parity,
+                                          int lane, float (&f)[A][B]) {
+  static_assert(A * B == 16 && B % 2 == 0, "16 values, pairs in a row");
+  const uint32_t peer = cluster_ctarank() ^ 1u;
+  __syncwarp();                   // every lane has read the partner's partial
+  if (lane == 0) {
+    mbar_expect_tx(full, 2048);
+    mbar_arrive_remote(cluster_map(vacant, peer));
+  }
+  mbar_wait_cluster(vacant, parity);  // the peer's block is free
+  const uint32_t dst = cluster_map(
+      static_cast<uint32_t>(__cvta_generic_to_shared(Xw)), peer);
+  const uint32_t bar = cluster_map(full, peer);
+#define MXT_F(k) f[(k) / B][(k) % B]
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    st_async_v4(dst + 16u * (lane + 32 * i), MXT_F(4 * i), MXT_F(4 * i + 1),
+                MXT_F(4 * i + 2), MXT_F(4 * i + 3), bar);
+  mbar_wait_cluster(full, parity);    // the peer's block is in
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 u = *reinterpret_cast<const float4*>(Xw + 4 * lane + 128 * i);
+    MXT_F(4 * i) += u.x;
+    MXT_F(4 * i + 1) += u.y;
+    MXT_F(4 * i + 2) += u.z;
+    MXT_F(4 * i + 3) += u.w;
+  }
+#undef MXT_F
 }
 
 // One key tile's online-softmax step of the tensor-core flash forwards,
@@ -936,6 +1006,47 @@ template <>
 __device__ __forceinline__ void wgmma_s8<256>(int (&d)[128], uint64_t da,
                                               uint64_t db) {
   wgmma_s8_n256(d, da, db);
+}
+
+// returned when no cluster of the kernel's CTAs fits on the device
+constexpr int kErrCluster = 100004;
+
+// Launch kKernel on `grid` CTAs of `threads` threads with `smem` bytes of
+// dynamic shared memory, CL CTAs a cluster along x (cudaLaunchKernelEx with
+// a cluster dimension; CL 1: an ordinary launch).  The shared-memory
+// attribute is set, and with CL > 1 a cluster's fit checked
+// (cudaOccupancyMaxActiveClusters; kErrCluster if none fits), once per
+// kernel.  Returns the launch's cudaError_t.
+template <auto kKernel, int CL, typename... Args>
+int launch_ex(dim3 grid, int threads, size_t smem, cudaStream_t stream,
+              Args... args) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = CL;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  if (CL > 1) {
+    cfg.attrs = cluster;
+    cfg.numAttrs = 1;
+    static const int fits = [&] {
+      int n = 0;
+      const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, kKernel, &cfg);
+      return e == cudaSuccess ? n : -(int)e;
+    }();
+    if (fits < 0) return -fits;
+    if (fits == 0) return kErrCluster;
+  }
+  const cudaError_t rc = cudaLaunchKernelEx(&cfg, kKernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(rc != cudaSuccess ? rc : last);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,

@@ -20,10 +20,11 @@ head_dim 16, 32, 64 or 128, or above 128 any multiple of 64; any other
 head_dim is zero-padded along D to the next of those widths (a layout copy:
 zero columns add 0 to q·kᵀ and dO·Vᵀ), run at that width with ``scale``
 fixed from the real head_dim, and sliced back (:func:`_padded_dim`; the
-f32 backward at 257-512 pads further, to 384 or 512: :func:`_kernel_width`).
+2-CTA-cluster variants pad further, f32 at 257-512 to 384 or 512, bf16 at
+513-1024 to 640, 768, 896 or 1024: :func:`_kernel_width`).
 Only head_dim 0 raises.  The variants are chosen by one rule on dtype,
 padded head_dim and direction alone (:func:`_variant`), never by whether a
-build or a launch worked; there are seven:
+build or a launch worked; there are eight:
 
 * ``wgmma`` — tensor cores (wgmma, TMA rings, the f32 operands p and ds
   split into two bf16 terms): bf16 at head_dim 64 or 128 (the flagship's
@@ -55,14 +56,15 @@ build or a launch worked; there are seven:
   forward's ``acc·alpha + pv``).  mma.sync, 16-byte ``cp.async`` copies:
   the same 16-byte preconditions as ``wgmma`` (:func:`_tma_fault`) and
   the same copy of ``dO``;
-* ``tf32x3_xwide`` — tensor cores, the backward only (dQ and dK/dV): f32
-  at head_dim 257-512, run at 384 (257-384) or 512 (385-512)
-  (``csrc/flash_attention_bwd_tf32x3.cu``: the ``tf32x3`` kernels at 192
-  or 256 columns a CTA, two CTAs of a thread-block cluster splitting D;
-  each CTA's partial scores meet the peer's through distributed shared
-  memory, and each computes the output columns of its own half).  The
-  same preconditions and the same copy of ``dO`` as ``tf32x3``.  The f32
-  forward at these widths stays ``wide``;
+* ``tf32x3_xwide`` — tensor cores: f32 at head_dim 257-512, run at 384
+  (257-384) or 512 (385-512), both ways: the ``tf32x3`` kernels at 192 or
+  256 columns a CTA, two CTAs of a thread-block cluster splitting D
+  (a wider f32 row fits no one CTA's shared memory); each CTA's partial
+  scores meet the peer's through distributed shared memory, and each
+  computes the output columns of its own half.  Forward
+  ``csrc/flash_attention_tf32x3.cu``, backward
+  ``csrc/flash_attention_bwd_tf32x3.cu``.  The same preconditions and
+  the same copy of ``dO`` as ``tf32x3``;
 * ``wgmma_xwide`` — tensor cores: bf16 at a padded head_dim of 320, 384,
   448 or 512 (head_dim 257-512), both ways.  Forward
   ``csrc/flash_attention_wgmma_xwide.cu`` (CTAs of 64 query rows whose two
@@ -73,6 +75,14 @@ build or a launch worked; there are seven:
   cut into two windows on a grid axis, each window's CTA recomputing the
   scores over all of D).  The same preconditions and the same copy of
   ``dO`` as ``wgmma``;
+* ``wgmma_xxwide`` — tensor cores, the forward only: bf16 at head_dim
+  513-1024, run at 640, 768, 896 or 1024
+  (``csrc/flash_attention_wgmma_xwide.cu``: the ``wgmma_xwide`` forward
+  at 320-512 columns a CTA, two CTAs of a thread-block cluster splitting
+  D, their partial scores meeting as ``tf32x3_xwide``'s do; o's 64 × D
+  f32 accumulator and the Q, K and V panels of a wider row fit no one
+  CTA).  The same preconditions as ``wgmma``.  The bf16 backward at these
+  widths stays ``wide``;
 * ``simt`` — CUDA cores: f32 up to head_dim 128, and head_dim 16 or 32
   (less than one 128-byte row of the swizzled tiles the wgmma variant
   reads).  Forward ``csrc/flash_attention.cu``; backward
@@ -80,10 +90,8 @@ build or a launch worked; there are seven:
 * ``wide`` — CUDA cores, above head_dim 128 (padded to a multiple of 64):
   the dot products over D walk it in chunks of 64 and each CTA owns at
   most 128 output columns, so any head_dim fits
-  (``csrc/flash_attention_wide.cu``: forward, dQ and dK/dV).  The f32
-  forward above 256 (a wider f32 row would not fit the ``tf32x3``
-  forward's shared memory), the f32 backward above 512, and bf16 above 512
-  both ways.
+  (``csrc/flash_attention_wide.cu``: forward, dQ and dK/dV).  f32 above
+  512 and bf16 above 1024 both ways, and the bf16 backward at 513-1024.
 
 Every forward launch counts as ``kernels.launch.flash_attention`` and as
 ``kernels.launch.flash_attention.<variant>``; every backward launch as
@@ -114,11 +122,12 @@ _HEAD_DIMS = (16, 32, 64, 128)      # the widths the kernels are built for
 # the tensor-core variants' widths
 _TC_WIDTHS = {"wgmma": (64, 128), "wgmma_wide": (192, 256),
               "tf32x3": (192, 256), "wgmma_xwide": (320, 384, 448, 512),
-              "tf32x3_xwide": (384, 512)}
+              "tf32x3_xwide": (384, 512),
+              "wgmma_xxwide": (640, 768, 896, 1024)}
 # ... and the dtype each takes
 _TC_DTYPE = {"wgmma": torch.bfloat16, "wgmma_wide": torch.bfloat16,
              "tf32x3": torch.float32, "wgmma_xwide": torch.bfloat16,
-             "tf32x3_xwide": torch.float32}
+             "tf32x3_xwide": torch.float32, "wgmma_xxwide": torch.bfloat16}
 _WIDE_CHUNK = 64                    # above 128, widths are multiples of it
 _BWD_ROWS = 64                      # lse/delta rows per tile of the wgmma dK/dV
 
@@ -197,7 +206,7 @@ def _configure(lib):
 
 
 def _configure_fwd_tc(prefix, lib):
-    """The tensor-core forward libraries' entry points ``<prefix>_fwd`` and
+    """A tensor-core forward variant's entry points ``<prefix>_fwd`` and
     ``<prefix>_error_string``."""
     vp, i = ctypes.c_void_p, ctypes.c_int
     getattr(lib, prefix + "_fwd").argtypes = (
@@ -297,20 +306,27 @@ def _variant(dtype, head_dim, backward=False):
     ``"wgmma_xwide"`` for bf16 at 320, 384, 448 or 512, ``"tf32x3"`` for
     f32 at 192 or 256 (split-TF32 products on the tensor cores: three TF32
     products of the operands' hi / lo terms, under 3·2^-20 relative a
-    product, where one TF32 product leaves 2^-11), all four both ways; for
-    the ``backward`` (dQ and dK/dV), ``"tf32x3_xwide"`` for f32 at 320,
-    384, 448 or 512 (run at :func:`_kernel_width`); ``"wide"`` for every
-    other width above 128 (the f32 forward above 256, the f32 backward
-    above 512, bf16 above 512); ``"simt"`` for the rest (f32 up to 128;
-    bf16 up to 32)."""
+    product, where one TF32 product leaves 2^-11), ``"tf32x3_xwide"`` for
+    f32 at 320, 384, 448 or 512 (run at :func:`_kernel_width`: 384 or 512,
+    two CTAs of a cluster splitting D), all five both ways; for the
+    forward only, ``"wgmma_xxwide"`` for bf16 at 576-1024 (run at 640, 768,
+    896 or 1024, two CTAs of a cluster splitting D); ``"wide"`` for every
+    other width above 128 (f32 above 512, bf16 above 1024, the bf16
+    backward above 512); ``"simt"`` for the rest (f32 up to 128; bf16 up to
+    32)."""
     width = _padded_dim(head_dim)
     for variant in ("wgmma", "wgmma_wide", "wgmma_xwide", "tf32x3"):
         if dtype == _TC_DTYPE[variant] and width in _TC_WIDTHS[variant]:
             return variant
-    if (backward and dtype == _TC_DTYPE["tf32x3_xwide"]
-            and _TC_WIDTHS["tf32x3"][-1] < width
-            <= _TC_WIDTHS["tf32x3_xwide"][-1]):
-        return "tf32x3_xwide"
+    # the cluster variants: from above the one-CTA variant's widest to
+    # their own widest (run at the next of their widths)
+    for variant, below in (("tf32x3_xwide", "tf32x3"),
+                           ("wgmma_xxwide", "wgmma_xwide")):
+        if (dtype == _TC_DTYPE[variant]
+                and not (backward and variant == "wgmma_xxwide")
+                and _TC_WIDTHS[below][-1] < width
+                <= _TC_WIDTHS[variant][-1]):
+            return variant
     if head_dim > _HEAD_DIMS[-1]:
         return "wide"
     return "simt"
@@ -321,8 +337,10 @@ def _kernel_width(variant, head_dim):
     rounded up to the next of the variant's own widths where it has them
     (``tf32x3_xwide`` runs 320 at 384 and 448 at 512: a pair of CTAs
     splits D evenly, and 160 or 224 columns a CTA would not divide into 8
-    warps of 8-column tiles; the zero columns add 0 to the score products,
-    and ``scale`` stays the real head_dim's)."""
+    warps of 8-column tiles; ``wgmma_xxwide`` runs 576 at 640, 704 at 768
+    and 832 at 896: a CTA's half is a width of ``wgmma_xwide``'s; the zero
+    columns add 0 to the score products, and ``scale`` stays the real
+    head_dim's)."""
     width = _padded_dim(head_dim)
     return min((w for w in _TC_WIDTHS.get(variant, ()) if w >= width),
                default=width)
@@ -415,13 +433,31 @@ _FWD_TC = {
     "wgmma_wide": ("flash_attention_wgmma_wide", "mxt_flash_wgmma_wide"),
     "wgmma_xwide": ("flash_attention_wgmma_xwide", "mxt_flash_wgmma_xwide"),
     "tf32x3": ("flash_attention_tf32x3", "mxt_flash_tf32x3"),
+    # the same sources as wgmma_xwide and tf32x3: their kernels in 2-CTA
+    # clusters
+    "wgmma_xxwide": ("flash_attention_wgmma_xwide",
+                     "mxt_flash_wgmma_xxwide"),
+    "tf32x3_xwide": ("flash_attention_tf32x3", "mxt_flash_tf32x3_xwide"),
 }
+
+
+def _configure_source(table, configure, source, lib):
+    """Declare, with ``configure(prefix, lib)``, the entry points of every
+    variant of ``table`` (variant -> source, prefix) built from ``source``:
+    a library is configured once, on first load, for all of them."""
+    for src, prefix in table.values():
+        if src == source:
+            configure(prefix, lib)
+
+
+_configure_fwd_source = functools.partial(_configure_source, _FWD_TC,
+                                          _configure_fwd_tc)
 
 
 def _flash_tc_cuda(variant, q, k, v, causal, scale, kv_len):
     """Launch the tensor-core forward ``variant`` on inputs of its dtype
-    (bf16; f32 for ``tf32x3``) at one of its widths; returns ``(o,
-    lse)``.  Raises on inputs it does not take (:func:`_check_tc_width`,
+    (bf16; f32 for ``tf32x3`` and ``tf32x3_xwide``) at one of its widths;
+    returns ``(o, lse)``.  Raises on inputs it does not take (:func:`_check_tc_width`,
     :func:`_check_wgmma`)."""
     B, Tq, Tk, H, D = _check_qkv(q, k, v)
     _check_tc_width(q.dtype, D, variant)
@@ -434,7 +470,8 @@ def _flash_tc_cuda(variant, q, k, v, causal, scale, kv_len):
     if B * H * Tq == 0:
         return o, lse
     source, prefix = _FWD_TC[variant]
-    lib = _build.load(source, functools.partial(_configure_fwd_tc, prefix))
+    lib = _build.load(source, functools.partial(_configure_fwd_source,
+                                                source))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     flat = [s for t in (q, k, v) for s in _tma_strides(t)] + list(
         o.stride()[:3])
@@ -480,6 +517,24 @@ def _flash_tf32x3_cuda(q, k, v, causal=True, scale=None, kv_len=None):
     return _flash_tc_cuda("tf32x3", q, k, v, causal, scale, kv_len)
 
 
+def _flash_tf32x3_xwide_cuda(q, k, v, causal=True, scale=None, kv_len=None):
+    """Launch the forward of ``csrc/flash_attention_tf32x3.cu`` in 2-CTA
+    clusters that split D (tensor cores, split-TF32 products) on f32 inputs
+    with head_dim 384 or 512; returns ``(o, lse)``.  Raises on inputs it
+    does not take (:func:`_check_tc_width`, :func:`_check_wgmma`): never a
+    hand-off to the wide variant."""
+    return _flash_tc_cuda("tf32x3_xwide", q, k, v, causal, scale, kv_len)
+
+
+def _flash_wgmma_xxwide_cuda(q, k, v, causal=True, scale=None, kv_len=None):
+    """Launch the forward of ``csrc/flash_attention_wgmma_xwide.cu`` in 2-CTA
+    clusters that split D (tensor cores) on bf16 inputs with head_dim 640,
+    768, 896 or 1024; returns ``(o, lse)``.  Raises on inputs it does not
+    take (:func:`_check_tc_width`, :func:`_check_wgmma`): never a hand-off
+    to the wide variant."""
+    return _flash_tc_cuda("wgmma_xxwide", q, k, v, causal, scale, kv_len)
+
+
 def _check_wide_width(D):
     if D <= _HEAD_DIMS[-1] or D % _WIDE_CHUNK:
         raise ValueError("flash_attention (wide variant): takes head_dim "
@@ -523,20 +578,23 @@ def _check_tc_width(dtype, D, variant):
 
 
 def _flash_cuda(q, k, v, causal=True, scale=None, kv_len=None):
-    """The forward on CUDA tensors: q, k and v padded along D to
-    :func:`_padded_dim`, the variant :func:`_variant` names for q's
-    dtype and head_dim, ``o`` sliced back; returns ``(o, lse)``.
+    """The forward on CUDA tensors: the variant :func:`_variant` names for
+    q's dtype and head_dim, on q, k and v padded along D to its
+    :func:`_kernel_width`, ``o`` sliced back; returns ``(o, lse)``.
     ``scale=None`` is 1/√D of the real head_dim."""
     _, _, _, _, D = _check_qkv(q, k, v)
     if scale is None:
         scale = 1.0 / (D ** 0.5)
-    width = _padded_dim(D)
+    variant = _variant(q.dtype, D)
+    width = _kernel_width(variant, D)
     launch = {"wgmma": _flash_wgmma_cuda,
               "wgmma_wide": _flash_wgmma_wide_cuda,
               "wgmma_xwide": _flash_wgmma_xwide_cuda,
+              "wgmma_xxwide": _flash_wgmma_xxwide_cuda,
               "tf32x3": _flash_tf32x3_cuda,
+              "tf32x3_xwide": _flash_tf32x3_xwide_cuda,
               "simt": _flash_simt_cuda,
-              "wide": _flash_wide_cuda}[_variant(q.dtype, D)]
+              "wide": _flash_wide_cuda}[variant]
     if width == D:
         return launch(q, k, v, causal, scale, kv_len)
     o, lse = launch(_pad_d(q, width), _pad_d(k, width), _pad_d(v, width),
@@ -676,12 +734,8 @@ def _bwd_tc_args(variant, q, k, v, do, lse, delta):
     return lse_p, delta_p, lse_p.shape[-1]
 
 
-def _configure_bwd_source(source, lib):
-    """Declare the entry points of every backward variant built from
-    ``source`` (the library is configured once, on first load)."""
-    for src, prefix in _BWD_TC.values():
-        if src == source:
-            _configure_bwd_tc(prefix, lib)
+_configure_bwd_source = functools.partial(_configure_source, _BWD_TC,
+                                          _configure_bwd_tc)
 
 
 def _bwd_tc_lib(variant):

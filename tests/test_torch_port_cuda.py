@@ -23,9 +23,9 @@ RMSNorm variant (warp, block, simt), planned and forced, is held to its
 plain version at those tolerances at the main paths' shapes and at the
 edges (odd E, offset views, strided rows, 1-8 rows, 128 KB rows), two
 calls bit-identical, with 0 ptxas spills in every instantiation.  Head dims
-above 256 take the flash kernels' wide variant in the f32 forward, above
-512 in the f32 backward and above 512 in bf16, held to the plain versions
-at the padded cases' tolerances.  bf16 at
+above 512 take the flash kernels' wide variant in f32, above 1024 in
+bf16 and the bf16 backward above 512, held to the plain versions at the
+padded cases' tolerances.  bf16 at
 head_dim 129-256 takes the tensor-core ``wgmma_wide`` kernels, forward and
 backward, held as the wgmma ones are (plain version, dense autograd for
 the backward, kv_len, fused-qkv views, a strided dO, misaligned inputs,
@@ -40,8 +40,11 @@ backward and within 1e-4 of each gradient's largest entry to dense
 autograd, with the same views, refusals and repeat checks; at head_dim
 257-512 the f32 backward takes the tensor-core ``tf32x3_xwide`` dQ and
 dK/dV (the tf32x3 kernels in 2-CTA clusters that split D), held the same
-way.  The f32
-forward there takes the tensor-core ``tf32x3`` forward (split-TF32
+way, and so does the f32 forward there (``tf32x3_xwide``: the tf32x3
+forward in 2-CTA clusters), held as the tf32x3 forward is; the bf16
+forward at head_dim 513-1024 takes ``wgmma_xxwide`` (the wgmma_xwide
+forward in 2-CTA clusters), held as the wgmma_xwide forward is.  The f32
+forward at head_dim 129-256 takes the tensor-core ``tf32x3`` forward (split-TF32
 products for S and P·V), held to the plain version at the f32 forward
 gates (o within 1e-5 + 1e-4·|o|, lse within 1e-4 + 1e-5·|lse|: the
 kernels' gates on the card), with ``kv_len``, fused-qkv views,
@@ -110,8 +113,8 @@ from mxnet_tpu_torch.ops.kernels.int8_matmul import (
 from mxnet_tpu_torch.ops.kernels.flash_attention import (
     _delta, _flash_bwd_cuda, _flash_cuda, _flash_dkv_wgmma_cuda,
     _flash_dq_wgmma_cuda, _flash_simt_cuda, _flash_tf32x3_cuda,
-    _flash_wgmma_cuda, _flash_wgmma_wide_cuda, _flash_wgmma_xwide_cuda,
-    flash_attention,
+    _flash_tf32x3_xwide_cuda, _flash_wgmma_cuda, _flash_wgmma_wide_cuda,
+    _flash_wgmma_xwide_cuda, _flash_wgmma_xxwide_cuda, flash_attention,
     flash_attention_bwd_reference,
     flash_attention_lse, flash_attention_reference)
 from mxnet_tpu_torch.ops.kernels.layers import (
@@ -445,8 +448,10 @@ def test_flash_kv_len_and_rows_without_keys(dev, launch, causal):
     (torch.bfloat16, 256, "wgmma_wide"), (torch.bfloat16, 192, "wgmma_wide"),
     (torch.bfloat16, 320, "wgmma_xwide"), (torch.float32, 256, "tf32x3"),
     (torch.float32, 192, "tf32x3"), (torch.float32, 160, "tf32x3"),
-    (torch.float32, 320, "wide"), (torch.bfloat16, 512, "wgmma_xwide"),
-    (torch.bfloat16, 576, "wide")])
+    (torch.float32, 320, "tf32x3_xwide"), (torch.bfloat16, 512,
+                                            "wgmma_xwide"),
+    (torch.bfloat16, 576, "wgmma_xxwide"), (torch.float32, 576, "wide"),
+    (torch.bfloat16, 1088, "wide")])
 def test_flash_forward_variant_counters(dev, dtype, D, variant):
     q, k, v = _qkv(dev, 1, 70, 70, 2, D, dtype)
     common.reset_counts()
@@ -959,12 +964,12 @@ def test_flash_wgmma_xwide_matches_plain(dev, case):
 
 
 def test_flash_wgmma_xwide_forward_does_not_spill(dev):
-    """ptxas: the wgmma_xwide forward at each of its 4 widths, 0 bytes of
-    spills."""
+    """ptxas: the wgmma_xwide forward at each of its 4 widths, alone and in
+    2-CTA clusters (wgmma_xxwide), 0 bytes of spills."""
     src = "flash_attention_wgmma_xwide"
     log = _build.build([src])[src]["log"]
     lines = [ln for ln in log.splitlines() if "spill stores" in ln]
-    assert len(lines) == 4, log
+    assert len(lines) == 8, log
     assert all(" 0 bytes spill stores, 0 bytes spill loads" in ln
                for ln in lines), log
 
@@ -1537,8 +1542,8 @@ def test_flash_bwd_tf32x3_xwide_refuses_misaligned_inputs(dev):
 
 
 def test_flash_autograd_f32_head_dim_512_launches_tf32x3_xwide(dev):
-    """Autograd of ``flash_attention`` at f32 head_dim 512: the forward on
-    wide, dQ and dK/dV on tf32x3_xwide, one each."""
+    """Autograd of ``flash_attention`` at f32 head_dim 512: the forward,
+    dQ and dK/dV on tf32x3_xwide, one each."""
     B, T, H, D = 1, 130, 2, 512
     g = torch.Generator(device=dev).manual_seed(2)
     q, k, v = (torch.randn(B, T, H, D, generator=g, device=dev,
@@ -1548,12 +1553,210 @@ def test_flash_autograd_f32_head_dim_512_launches_tf32x3_xwide(dev):
     (o.square().sum() + lse.tanh().sum()).backward()
     assert common.launch_counts() == {
         "kernels.launch.flash_attention": 1,
-        "kernels.launch.flash_attention.wide": 1,
+        "kernels.launch.flash_attention.tf32x3_xwide": 1,
         "kernels.launch.flash_attention_dq": 1,
         "kernels.launch.flash_attention_dq.tf32x3_xwide": 1,
         "kernels.launch.flash_attention_dkv": 1,
         "kernels.launch.flash_attention_dkv.tf32x3_xwide": 1}
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+# ---------------------------------------------------------------------------
+# flash forward in 2-CTA clusters that split D: tf32x3_xwide (f32 at
+# 257-512, run at 384 or 512) and wgmma_xxwide (bf16 at 513-1024, run at
+# 640, 768, 896 or 1024)
+# ---------------------------------------------------------------------------
+TF32X3_XWIDE_FWD_CASES = [
+    # (B, Tq, Tk, H, D, causal); a pair of CTAs owns 64 query rows, key
+    # tiles of 64; 257 and 320 pad to 384, 400 and 448 to 512
+    (1, 1, 1, 2, 512, True),         # a single row
+    (1, 1, 129, 2, 384, False),
+    (2, 63, 63, 2, 512, True),
+    (1, 65, 65, 2, 257, True),
+    (1, 127, 127, 3, 320, False),
+    (1, 129, 129, 2, 400, True),
+    (1, 1000, 3000, 2, 320, False),
+    (1, 1000, 3000, 2, 512, False),
+    (1, 2000, 2000, 2, 448, True),
+    (1, 20, 300, 2, 384, True),      # causal, Tq < Tk (top-left aligned)
+    (1, 300, 70, 2, 512, True),      # causal, Tq > Tk
+    (2, 333, 333, 2, 512, True),
+]
+
+
+@pytest.mark.parametrize("case", TF32X3_XWIDE_FWD_CASES)
+def test_flash_tf32x3_xwide_matches_plain(dev, case):
+    """The tf32x3_xwide forward (split-TF32 products, D split across a
+    2-CTA cluster) against the plain version at the f32 forward gates, o
+    and lse, one launch of it and none of wide, and two calls
+    bit-identical."""
+    B, Tq, Tk, H, D, causal = case
+    q, k, v = _qkv(dev, B, Tq, Tk, H, D, torch.float32)
+    common.reset_counts()
+    o, lse = _flash_cuda(q, k, v, causal)
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention": 1,
+        "kernels.launch.flash_attention.tf32x3_xwide": 1}
+    ro, rlse = flash_attention_reference(q, k, v, causal, return_lse=True)
+    assert o.dtype == torch.float32 and lse.dtype == torch.float32
+    assert o.shape == q.shape and o.is_contiguous()
+    np.testing.assert_allclose(_np(o), _np(ro), **F32_FWD_TOL)
+    np.testing.assert_allclose(_np(lse), _np(rlse), **F32_LSE_TOL)
+    o2, lse2 = _flash_cuda(q, k, v, causal)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+WGMMA_XXWIDE_FWD_CASES = [
+    # (B, Tq, Tk, H, D, causal); a pair of CTAs owns 64 query rows, each
+    # the wgmma_xwide layout over half of D; 513 and 576 pad to 640, 700
+    # to 768, 1000 to 1024
+    (1, 1, 1, 2, 1024, True),
+    (1, 1, 129, 2, 640, False),
+    (2, 63, 63, 2, 576, True),
+    (1, 65, 65, 2, 513, True),
+    (1, 127, 127, 3, 768, False),
+    (1, 129, 129, 2, 896, True),
+    (1, 129, 129, 2, 700, True),
+    (1, 1000, 3000, 2, 1024, False),
+    (1, 1000, 3000, 2, 576, False),
+    (1, 2000, 2000, 2, 1000, True),
+    (1, 20, 300, 2, 576, True),      # causal, Tq < Tk (top-left aligned)
+    (1, 300, 70, 2, 1024, True),     # causal, Tq > Tk
+    (2, 333, 333, 2, 640, True),
+]
+
+
+@pytest.mark.parametrize("case", WGMMA_XXWIDE_FWD_CASES)
+def test_flash_wgmma_xxwide_matches_plain(dev, case):
+    """The wgmma_xxwide forward (D split across a 2-CTA cluster) against
+    the plain version: o within one bf16 rounding, lse within 1e-4 +
+    1e-5·|lse|, one launch of it and none of wide, and two calls
+    bit-identical."""
+    B, Tq, Tk, H, D, causal = case
+    q, k, v = _qkv(dev, B, Tq, Tk, H, D)
+    common.reset_counts()
+    o, lse = _flash_cuda(q, k, v, causal)
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention": 1,
+        "kernels.launch.flash_attention.wgmma_xxwide": 1}
+    ro, rlse = flash_attention_reference(q, k, v, causal, return_lse=True)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert o.shape == q.shape and o.is_contiguous()
+    np.testing.assert_allclose(_np(o), _np(ro), **BF16_ONE_ROUNDING)
+    np.testing.assert_allclose(_np(lse), _np(rlse), rtol=1e-5, atol=1e-4)
+    o2, lse2 = _flash_cuda(q, k, v, causal)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+CLUSTER_FWD = {"tf32x3_xwide": (_flash_tf32x3_xwide_cuda, torch.float32,
+                                (384, 512)),
+               "wgmma_xxwide": (_flash_wgmma_xxwide_cuda, torch.bfloat16,
+                                (640, 1024))}
+
+
+def _cluster_fwd_tol(dtype):
+    if dtype == torch.float32:
+        return F32_FWD_TOL, F32_LSE_TOL
+    return BF16_ONE_ROUNDING, dict(rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("variant", sorted(CLUSTER_FWD))
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_cluster_forwards_kv_len_and_rows_without_keys(dev, variant,
+                                                             causal):
+    """``kv_len`` masks keys at and past it, as attending over the first
+    kv_len keys (Tq != Tk); with kv_len 0 every row gets o = 0 and lse =
+    -1e30, in both CTAs of each pair."""
+    launch, dtype, widths = CLUSTER_FWD[variant]
+    tol, lse_tol = _cluster_fwd_tol(dtype)
+    for D in widths:
+        q, k, v = _qkv(dev, 1, 200, 300, 2, D, dtype, seed=4)
+        o, lse = launch(q, k, v, causal, kv_len=0)
+        assert not o.any() and bool((lse == -1e30).all())
+        for kv_len in (150, 300 - 17):
+            o, lse = launch(q, k, v, causal, kv_len=kv_len)
+            ro, rlse = flash_attention_reference(q, k[:, :kv_len],
+                                                 v[:, :kv_len], causal,
+                                                 return_lse=True)
+            np.testing.assert_allclose(_np(o), _np(ro), **tol)
+            np.testing.assert_allclose(_np(lse), _np(rlse), **lse_tol)
+
+
+@pytest.mark.parametrize("variant", sorted(CLUSTER_FWD))
+def test_flash_cluster_forwards_read_fused_qkv_views(dev, variant):
+    """q/k/v as [B, T, H, D] views of one [B, T, 3·H·D] product: no copy,
+    the same bits as contiguous copies, at both ends of the variant's
+    widths."""
+    launch, dtype, widths = CLUSTER_FWD[variant]
+    tol, lse_tol = _cluster_fwd_tol(dtype)
+    B, T, H = 2, 333, 3
+    g = torch.Generator(device=dev).manual_seed(3)
+    for D in widths:
+        qkv = torch.randn(B, T, 3 * H * D, generator=g, device=dev).to(dtype)
+        q, k, v = (t.view(B, T, H, D) for t in qkv.split(H * D, -1))
+        assert not q.is_contiguous()
+        o, lse = launch(q, k, v)
+        o2, lse2 = launch(q.contiguous(), k.contiguous(), v.contiguous())
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        ro, rlse = flash_attention_reference(q, k, v, return_lse=True)
+        np.testing.assert_allclose(_np(o), _np(ro), **tol)
+        np.testing.assert_allclose(_np(lse), _np(rlse), **lse_tol)
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 448),
+                                     (torch.bfloat16, 576)])
+def test_flash_cluster_forwards_lse_through_flash_attention_lse(dev, dtype,
+                                                                D):
+    """``flash_attention_lse`` at a width the cluster forwards take: the
+    kernel's o and lse, the plain version's values."""
+    q, k, v = _qkv(dev, 2, 300, 300, 2, D, dtype, seed=6)
+    tol, lse_tol = _cluster_fwd_tol(dtype)
+    common.reset_counts()
+    o, lse = flash_attention_lse(q, k, v)
+    variant = "tf32x3_xwide" if dtype == torch.float32 else "wgmma_xxwide"
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention": 1,
+        "kernels.launch.flash_attention.%s" % variant: 1}
+    ro, rlse = flash_attention_reference(q, k, v, True, return_lse=True)
+    np.testing.assert_allclose(_np(o), _np(ro), **tol)
+    np.testing.assert_allclose(_np(lse), _np(rlse), **lse_tol)
+
+
+@pytest.mark.parametrize("variant", sorted(CLUSTER_FWD))
+def test_flash_cluster_forwards_refuse_misaligned_inputs(dev, variant):
+    """The cluster forwards raise on inputs their copies cannot read, and
+    on the other dtype or a width not theirs, before any launch; they
+    never hand them to the wide variant."""
+    launch, dtype, widths = CLUSTER_FWD[variant]
+    B, T, H, D = 1, 64, 2, widths[-1]
+    per = 16 // torch.tensor([], dtype=dtype).element_size()
+    flat = torch.randn(B * T * H * D + 1, device=dev).to(dtype)
+    q = flat[1:].view(B, T, H, D)                     # base off 16 bytes
+    k = torch.randn(B, T, H, D, device=dev).to(dtype)
+    common.reset_counts()
+    with pytest.raises(ValueError, match="%s variant.*16-byte" % variant):
+        flash_attention(q, k, k)
+    wide = torch.randn(B, T, H * D + per // 2, device=dev).to(dtype)
+    k2 = wide[..., :H * D].view(B, T, H, D)           # T stride off 16 bytes
+    with pytest.raises(ValueError, match="%s variant.*T stride %d"
+                       % (variant, H * D + per // 2)):
+        _flash_cuda(k, k, k2)
+    other = torch.bfloat16 if dtype == torch.float32 else torch.float32
+    for t in (k.to(other), k[..., :256].contiguous()):
+        with pytest.raises(ValueError, match="%s variant.*takes" % variant):
+            launch(t, t, t)
+    assert common.launch_counts() == {}
+
+
+def test_flash_tf32x3_forward_does_not_spill(dev):
+    """ptxas: the tf32x3 forward at 192 and 256 columns a CTA, alone and
+    in 2-CTA clusters (tf32x3_xwide), 0 bytes of spills."""
+    src = "flash_attention_tf32x3"
+    log = _build.build([src])[src]["log"]
+    lines = [ln for ln in log.splitlines() if "spill stores" in ln]
+    assert len(lines) == 4, log
+    assert all(" 0 bytes spill stores, 0 bytes spill loads" in ln
+               for ln in lines), log
 
 
 # ---------------------------------------------------------------------------
@@ -1566,8 +1769,9 @@ def test_flash_padded_head_dims_match_plain(dev, D, dtype, causal):
     """Forward and backward at head_dim 48, 80 and 96 (padded to 64, 128
     and 128) and above 128 (160 padded to 192, 256, 320, 576: the wide
     variant, but at 160 and 256, which take wgmma_wide in bf16 and tf32x3
-    in f32, bf16 at 320, which takes wgmma_xwide both ways, and the f32
-    backward at 320, which takes tf32x3_xwide at 384):
+    in f32, bf16 at 320, which takes wgmma_xwide both ways, f32 at 320,
+    which takes tf32x3_xwide at 384 both ways, and the bf16 forward at
+    576, which takes wgmma_xxwide at 640):
     no ValueError, the plain version's results, ``scale`` from the real
     head_dim, and the padded variant's launches."""
     B, Tq, Tk, H = 1, 150, 150, 2
@@ -1576,15 +1780,16 @@ def test_flash_padded_head_dims_match_plain(dev, D, dtype, causal):
                                                   causal, dtype)
     if 128 < D <= 256:
         variant = "wgmma_wide" if dtype == torch.bfloat16 else "tf32x3"
-    elif dtype == torch.bfloat16 and 256 < D <= 512:
-        variant = "wgmma_xwide"
+    elif 256 < D <= 512:
+        variant = ("wgmma_xwide" if dtype == torch.bfloat16
+                   else "tf32x3_xwide")
     elif D > 128:
         variant = "wide"
     else:
         variant = "wgmma" if dtype == torch.bfloat16 else "simt"
     bwd_variant = variant
-    if dtype == torch.float32 and 256 < D <= 512:
-        bwd_variant = "tf32x3_xwide"
+    if dtype == torch.bfloat16 and 512 < D <= 1024:
+        variant = "wgmma_xxwide"
     assert common.launch_counts() == {
         "kernels.launch.flash_attention": 1,
         "kernels.launch.flash_attention.%s" % variant: 1}

@@ -28,20 +28,23 @@ BF16 = torch.bfloat16
     (BF16, 48, "wgmma"), (BF16, 80, "wgmma"), (BF16, 96, "wgmma"),
     (BF16, 33, "wgmma"), (BF16, 8, "simt"), (torch.float32, 48, "simt"),
     (torch.float32, 96, "simt"),
-    # above 128: bf16 and f32 up to 256 on the tensor cores, the rest wide
+    # above 128: bf16 up to 1024 and f32 up to 512 on the tensor cores,
+    # the rest wide
     (BF16, 129, "wgmma_wide"), (BF16, 256, "wgmma_wide"),
     pytest.param(torch.float32, 160, "tf32x3", id="dtype17-160-tf32x3"),
-    (torch.float32, 320, "wide")])
+    (torch.float32, 320, "tf32x3_xwide"), (BF16, 576, "wgmma_xxwide"),
+    (torch.float32, 576, "wide"), (BF16, 1025, "wide")])
 def test_variant_by_dtype_and_head_dim(dtype, D, variant):
     """:func:`_variant` names the forward's variant (``variant``) and the
-    backward's, the same but for f32 at padded head_dim 320-512, whose
-    backward runs on the tensor cores (``tf32x3_xwide``) while its forward
-    stays ``wide``: f32 at padded head_dim 192 and 256 runs on the tensor
-    cores (``tf32x3``) both ways."""
+    backward's, the same but for bf16 at padded head_dim 576-1024, whose
+    forward runs on the tensor cores in 2-CTA clusters (``wgmma_xxwide``)
+    while its backward stays ``wide``: f32 at padded head_dim 192 and 256
+    runs on the tensor cores (``tf32x3``) both ways, and at 320-512 in
+    2-CTA clusters (``tf32x3_xwide``) both ways."""
     assert fa._variant(dtype, D) == variant
     bwd = variant
-    if dtype == torch.float32 and 256 < D <= 512:
-        bwd = "tf32x3_xwide"
+    if variant == "wgmma_xxwide":
+        bwd = "wide"
     assert fa._variant(dtype, D, backward=True) == bwd
 
 
@@ -80,29 +83,63 @@ def test_bf16_backward_at_257_to_512_takes_wgmma_xwide(D, width):
 @pytest.mark.parametrize("dtype,D", [
     (BF16, 513), (BF16, 576), (BF16, 1024), (torch.float32, 257),
     (torch.float32, 320), (torch.float32, 512), (torch.float32, 576),
-    (torch.float32, 513), (torch.float32, 1024)])
+    (torch.float32, 513), (torch.float32, 1024), (BF16, 1000), (BF16, 1025),
+    (BF16, 2048), (torch.float32, 448)])
 def test_bf16_above_512_and_f32_above_256_stay_wide_both_ways(dtype, D):
-    """bf16 above head_dim 512 takes the wide kernels forward and
-    backward, and so does f32 above 512; f32 at 257-512 takes the wide
-    forward and the tensor-core tf32x3_xwide backward."""
-    assert fa._variant(dtype, D) == "wide"
-    xwide = dtype == torch.float32 and D <= 512
-    assert fa._variant(dtype, D, backward=True) == (
-        "tf32x3_xwide" if xwide else "wide")
+    """What stays on the wide kernels above the one-CTA tensor-core
+    widths: bf16 at 513-1024 takes the 2-CTA-cluster wgmma_xxwide forward
+    and the wide backward, bf16 above 1024 wide both ways; f32 at 257-512
+    takes the 2-CTA-cluster tf32x3_xwide kernels both ways, f32 above 512
+    wide both ways."""
+    if dtype == BF16:
+        fwd = "wgmma_xxwide" if D <= 1024 else "wide"
+        bwd = "wide"
+    else:
+        fwd = bwd = "tf32x3_xwide" if D <= 512 else "wide"
+    assert fa._variant(dtype, D) == fwd
+    assert fa._variant(dtype, D, backward=True) == bwd
 
 
 @pytest.mark.parametrize("D,width,bwd_width", [
     (257, 320, 384), (320, 320, 384), (384, 384, 384), (400, 448, 512),
     (448, 448, 512), (512, 512, 512)])
 def test_f32_backward_at_257_to_512_takes_tf32x3_xwide(D, width, bwd_width):
-    """f32 at head_dim 257-512: the forward on wide at the padded width, the
-    backward on tf32x3_xwide at 384 (257-384) or 512 (385-512), the next of
-    its own widths: a pair of CTAs splits D evenly."""
+    """f32 at head_dim 257-512: the forward and the backward on
+    tf32x3_xwide at 384 (257-384) or 512 (385-512), the next of its own
+    widths past the padded width: a pair of CTAs splits D evenly."""
     assert fa._padded_dim(D) == width
-    assert fa._variant(torch.float32, D) == "wide"
     assert fa._kernel_width("wide", D) == width
-    assert fa._variant(torch.float32, D, backward=True) == "tf32x3_xwide"
+    for backward in (False, True):
+        assert fa._variant(torch.float32, D, backward) == "tf32x3_xwide"
     assert fa._kernel_width("tf32x3_xwide", D) == bwd_width
+
+
+@pytest.mark.parametrize("D,width,kernel_width", [
+    (513, 576, 640), (576, 576, 640), (640, 640, 640), (641, 704, 768),
+    (700, 704, 768), (768, 768, 768), (832, 832, 896), (896, 896, 896),
+    (960, 960, 1024), (1000, 1024, 1024), (1024, 1024, 1024)])
+def test_bf16_forward_at_513_to_1024_takes_wgmma_xxwide(D, width,
+                                                        kernel_width):
+    """bf16 at head_dim 513-1024: the forward on wgmma_xxwide at the next
+    of 640, 768, 896 and 1024 (a pair of CTAs, each at a wgmma_xwide
+    width); the backward on wide at the padded width."""
+    assert fa._padded_dim(D) == width
+    assert fa._variant(BF16, D) == "wgmma_xxwide"
+    assert fa._kernel_width("wgmma_xxwide", D) == kernel_width
+    assert kernel_width // 2 in fa._TC_WIDTHS["wgmma_xwide"]
+    assert fa._variant(BF16, D, backward=True) == "wide"
+    assert fa._kernel_width("wide", D) == width
+
+
+@pytest.mark.parametrize("dtype,D", [(BF16, 1025), (BF16, 1088),
+                                     (torch.float32, 513),
+                                     (torch.float32, 1024)])
+def test_past_the_cluster_widths_stays_wide(dtype, D):
+    """bf16 above 1024 and f32 above 512 take the wide kernels both ways,
+    at the padded width."""
+    for backward in (False, True):
+        assert fa._variant(dtype, D, backward) == "wide"
+    assert fa._kernel_width("wide", D) == fa._padded_dim(D)
 
 
 @pytest.mark.parametrize("dtype,D,variant", [
@@ -110,27 +147,31 @@ def test_f32_backward_at_257_to_512_takes_tf32x3_xwide(D, width, bwd_width):
     (torch.float32, 128, "simt"), (BF16, 256, "wgmma_wide"),
     (torch.float32, 192, "tf32x3"), (BF16, 192, "wgmma_wide"),
     (BF16, 320, "wgmma_xwide"), (torch.float32, 160, "tf32x3"),
-    (torch.float32, 256, "tf32x3"), (torch.float32, 320, "wide"),
-    (BF16, 512, "wgmma_xwide"), (BF16, 576, "wide")])
+    (torch.float32, 256, "tf32x3"), (torch.float32, 320, "tf32x3_xwide"),
+    (BF16, 512, "wgmma_xwide"), (BF16, 576, "wgmma_xxwide"),
+    (torch.float32, 400, "tf32x3_xwide"), (torch.float32, 512, "tf32x3_xwide"),
+    (BF16, 1024, "wgmma_xxwide"), (BF16, 1088, "wide"),
+    (torch.float32, 576, "wide")])
 def test_flash_cuda_dispatches_by_variant(monkeypatch, dtype, D, variant):
     """``_flash_cuda`` hands the inputs to the launcher its variant names,
-    with the caller's arguments (160 padded to 192), and returns what it
-    gives back."""
+    with the caller's arguments (160 padded to 192, 320 to 384, 400 to 512,
+    576 to 640 in bf16: the variant's kernel width), and returns what it
+    gives back, sliced to D."""
     calls = []
 
     def launcher(name):
         def launch(q, k, v, causal, scale, kv_len):
-            calls.append((name, causal, scale, kv_len))
+            calls.append((name, q.shape[-1], causal, scale, kv_len))
             return q, "lse"
         return launch
 
-    for name in ("wgmma", "wgmma_wide", "wgmma_xwide", "tf32x3", "simt",
-                 "wide"):
+    for name in ("wgmma", "wgmma_wide", "wgmma_xwide", "wgmma_xxwide",
+                 "tf32x3", "tf32x3_xwide", "simt", "wide"):
         monkeypatch.setattr(fa, "_flash_%s_cuda" % name, launcher(name))
     q = torch.zeros(1, 5, 2, D, dtype=dtype)
     o, lse = fa._flash_cuda(q, q, q, False, 0.5, 3)
     assert lse == "lse" and torch.equal(o, q)
-    assert calls == [(variant, False, 0.5, 3)]
+    assert calls == [(variant, fa._kernel_width(variant, D), False, 0.5, 3)]
 
 
 @pytest.mark.parametrize("D,width", [(1, 16), (16, 16), (17, 32), (32, 32),
@@ -241,18 +282,21 @@ def test_head_dims_above_128_reach_wide(monkeypatch, dtype, D, width):
     to 256, the wgmma_wide ones for bf16 and the tf32x3 ones for f32, at
     the width padded to a multiple of 64, with ``scale`` 1/√D of the real
     D; the outputs come back at D.  From 257 to 512 bf16 goes to the
-    wgmma_xwide launchers, forward and backward, and the f32 backward to
-    the tf32x3_xwide ones at 384 or 512 (the f32 forward to wide)."""
+    wgmma_xwide launchers and f32 to the tf32x3_xwide ones at 384 or 512,
+    forward and backward; above 512 the bf16 forward to wgmma_xxwide at
+    640 (576), the bf16 backward and f32 to wide."""
     fwd = []
     variant = bwd_variant = "wide"
-    bwd_width = width
+    fwd_width = bwd_width = width
     if D <= 256:
         variant = bwd_variant = "wgmma_wide" if dtype == BF16 else "tf32x3"
     elif D <= 512 and dtype == BF16:
         variant = bwd_variant = "wgmma_xwide"
     elif D <= 512:
-        bwd_variant = "tf32x3_xwide"
-        bwd_width = 384 if D <= 384 else 512
+        variant = bwd_variant = "tf32x3_xwide"
+        fwd_width = bwd_width = 384 if D <= 384 else 512
+    elif dtype == BF16:
+        variant, fwd_width = "wgmma_xxwide", 640
 
     def launch(q, k, v, causal, scale, kv_len):
         fwd.append((q.shape[-1], k.shape[-1], v.shape[-1], scale))
@@ -262,15 +306,15 @@ def test_head_dims_above_128_reach_wide(monkeypatch, dtype, D, width):
     def refuse(*a):
         raise AssertionError("another variant ran")
 
-    for name in ("wgmma", "wgmma_wide", "wgmma_xwide", "tf32x3", "simt",
-                 "wide"):
+    for name in ("wgmma", "wgmma_wide", "wgmma_xwide", "wgmma_xxwide",
+                 "tf32x3", "tf32x3_xwide", "simt", "wide"):
         monkeypatch.setattr(fa, "_flash_%s_cuda" % name,
                             launch if name == variant else refuse)
     bwd = []
     _bwd_launchers(monkeypatch, bwd)
     q = torch.ones(1, 5, 2, D, dtype=dtype)
     o, lse = fa._flash_cuda(q, q, q)
-    assert fwd == [(width, width, width, 1.0 / D ** 0.5)]
+    assert fwd == [(fwd_width, fwd_width, fwd_width, 1.0 / D ** 0.5)]
     assert o.shape == q.shape and o.is_contiguous()
     grads = fa._flash_bwd_cuda(q, q, q, o, lse, q)
     assert [c[:5] for c in bwd] == [
@@ -284,17 +328,17 @@ def test_head_dims_above_128_reach_wide(monkeypatch, dtype, D, width):
     (512, 512, 512)])
 def test_padded_width_and_real_scale_reach_tf32x3_xwide(monkeypatch, D,
                                                         width, bwd_width):
-    """f32 at head_dim 257-512: the wide forward gets q, k, v zero-padded
-    to the multiple of 64, the tf32x3_xwide dQ and dK/dV launchers get q,
-    k, v and dO zero-padded to 384 or 512 (the values unchanged, the new
-    columns 0) with ``scale`` 1/√D of the real D, and the gradients come
-    back at D, contiguous, as the launchers computed them."""
+    """f32 at head_dim 257-512: the tf32x3_xwide forward gets q, k, v and
+    the dQ and dK/dV launchers q, k, v and dO, zero-padded to 384 or 512
+    (the values unchanged, the new columns 0; ``width``, the multiple of
+    64, is what wide would take) with ``scale`` 1/√D of the real D; o and
+    the gradients come back at D, contiguous, as the launchers computed
+    them."""
     fwd, seen = [], {}
 
-    def wide(q, k, v, causal, scale, kv_len):
-        fwd.append((q.shape[-1], k.shape[-1], v.shape[-1], scale))
-        return (torch.zeros(q.shape), torch.zeros(q.shape[0], q.shape[2],
-                                                  q.shape[1]))
+    def xwide(q, k, v, causal, scale, kv_len):
+        fwd.append((q, k, v, scale))
+        return q * 5, torch.zeros(q.shape[0], q.shape[2], q.shape[1])
 
     def dq(q, k, v, do, lse, delta, causal, scale):
         seen["dq"] = (q, k, v, do, scale)
@@ -304,13 +348,21 @@ def test_padded_width_and_real_scale_reach_tf32x3_xwide(monkeypatch, D,
         seen["dkv"] = (q, k, v, do, scale)
         return k * 3, v * 4
 
-    monkeypatch.setattr(fa, "_flash_wide_cuda", wide)
+    monkeypatch.setattr(fa, "_flash_tf32x3_xwide_cuda", xwide)
     monkeypatch.setattr(fa, "_flash_dq_tf32x3_xwide_cuda", dq)
     monkeypatch.setattr(fa, "_flash_dkv_tf32x3_xwide_cuda", dkv)
     g = torch.Generator().manual_seed(D)
     q, k, v, do = (torch.randn(1, 6, 2, D, generator=g) for _ in range(4))
+    assert fa._padded_dim(D) == width
     o, lse = fa._flash_cuda(q, k, v)
-    assert fwd == [(width, width, width, 1.0 / D ** 0.5)]
+    [(fq, fk, fv, fscale)] = fwd
+    assert fscale == 1.0 / D ** 0.5
+    for got, want in zip((fq, fk, fv), (q, k, v)):
+        assert got.shape == (1, 6, 2, bwd_width)
+        assert torch.equal(got[..., :D], want)
+        assert not got[..., D:].any()
+    assert o.shape == q.shape and o.is_contiguous()
+    assert torch.equal(o, q * 5)
     grads = fa._flash_bwd_cuda(q, k, v, o, lse, do)
     for kind in ("dq", "dkv"):
         *ins, scale = seen[kind]
@@ -878,3 +930,97 @@ def test_tf32x3_bwd_copies_a_dout_the_copies_cannot_read(monkeypatch, D):
     assert fa._tma_fault("dO", seen[0]) is None
     assert seen[0].is_contiguous()
     assert torch.equal(seen[0][..., :D], bad)
+
+
+@pytest.mark.parametrize("variant,case", [
+    (variant, case) for variant in ("tf32x3_xwide", "wgmma_xxwide")
+    for case in ("other_dtype", "one_cta_width", "wide_width", "odd_width",
+                 "q", "k", "v", "k_stride")])
+def test_cluster_forward_launchers_refuse_before_any_build(monkeypatch,
+                                                           variant, case):
+    """The 2-CTA-cluster forward launchers take their dtype at their own
+    widths only (tf32x3_xwide: f32 at 384 or 512; wgmma_xxwide: bf16 at
+    640, 768, 896 or 1024; the wrapper pads to them), read through 16-byte
+    copies (bases 16-byte aligned, (B, T, H) strides multiples of 16
+    bytes), and raise on anything else before they build or count
+    anything; never a hand-off to the wide kernel."""
+    from mxnet_tpu_torch.ops.kernels import _build, common
+
+    def no_build(*a, **k):
+        raise AssertionError("built a kernel")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    common.reset_counts()
+    dtype = fa._TC_DTYPE[variant]
+    widths = fa._TC_WIDTHS[variant]
+    launch = getattr(fa, "_flash_%s_cuda" % variant)
+    D = widths[-1]
+    shape = (1, 8, 2, D)
+    args = [torch.zeros(shape, dtype=dtype) for _ in range(3)]
+    per = 16 // args[0].element_size()
+    if case in ("other_dtype", "one_cta_width", "wide_width", "odd_width"):
+        other = torch.float32 if dtype == BF16 else BF16
+        bad_dtype, bad_D = {
+            "other_dtype": (other, D),
+            "one_cta_width": (dtype, D // 2),
+            "wide_width": (dtype, 2 * D),
+            "odd_width": (dtype, widths[0] - 64)}[case]
+        args = [torch.zeros(1, 8, 2, bad_D, dtype=bad_dtype)] * 3
+        match = ("%s variant.*takes %s with head_dim in \\(%s\\); got %s, "
+                 "head_dim %d" % (variant, "bf16" if dtype == BF16
+                                  else "float32",
+                                  ", ".join(map(str, widths)), bad_dtype,
+                                  bad_D))
+    elif case == "k_stride":
+        wide = torch.zeros(1, 8, 2 * D + per // 2, dtype=dtype)
+        args[1] = wide[..., :2 * D].view(shape)
+        match = ("%s variant.*k's T stride %d is not a multiple of %d"
+                 % (variant, 2 * D + per // 2, per))
+    else:
+        i = ("q", "k", "v").index(case)
+        args[i] = _misaligned(shape, dtype)
+        match = "%s variant.*%s's base address is not 16-byte" % (variant,
+                                                                  case)
+    with pytest.raises(ValueError, match=match):
+        launch(*args)
+    assert common.launch_counts() == {}
+
+
+@pytest.mark.parametrize("dtype,D,variant,kernel_width", [
+    (torch.float32, 400, "tf32x3_xwide", 512),
+    (torch.float32, 512, "tf32x3_xwide", 512),
+    (BF16, 576, "wgmma_xxwide", 640),
+    (BF16, 1000, "wgmma_xxwide", 1024),
+    (BF16, 1024, "wgmma_xxwide", 1024)])
+def test_padded_width_and_real_scale_reach_the_cluster_forwards(
+        monkeypatch, dtype, D, variant, kernel_width):
+    """``_flash_cuda`` hands the cluster forwards q, k and v zero-padded to
+    the variant's kernel width (the values unchanged, the new columns 0)
+    with ``scale`` 1/√D of the real D and the caller's ``causal`` and
+    ``kv_len``, and slices o back to D, contiguous; lse as returned."""
+    seen = []
+
+    def launch(q, k, v, causal, scale, kv_len):
+        seen.append((q, k, v, causal, scale, kv_len))
+        return q * 3, "lse"
+
+    def refuse(*a):
+        raise AssertionError("another variant ran")
+
+    for name in ("wgmma", "wgmma_wide", "wgmma_xwide", "wgmma_xxwide",
+                 "tf32x3", "tf32x3_xwide", "simt", "wide"):
+        monkeypatch.setattr(fa, "_flash_%s_cuda" % name,
+                            launch if name == variant else refuse)
+    g = torch.Generator().manual_seed(D)
+    q, k, v = (torch.randn(1, 6, 2, D, generator=g).to(dtype)
+               for _ in range(3))
+    o, lse = fa._flash_cuda(q, k, v, False, None, 4)
+    [(pq, pk, pv, causal, scale, kv_len)] = seen
+    assert (causal, kv_len, lse) == (False, 4, "lse")
+    assert scale == 1.0 / D ** 0.5
+    for got, want in zip((pq, pk, pv), (q, k, v)):
+        assert got.shape == (1, 6, 2, kernel_width) and got.dtype == dtype
+        assert torch.equal(got[..., :D], want)
+        assert not got[..., D:].any()
+    assert o.shape == q.shape and o.is_contiguous()
+    assert torch.equal(o, q * 3)

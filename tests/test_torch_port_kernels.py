@@ -326,10 +326,11 @@ def _plain_launchers(monkeypatch):
         return dq
 
     # head_dim 129-256 runs forward and backward on wgmma_wide in bf16, on
-    # tf32x3 in f32; bf16 at 257-512 on wgmma_xwide, both ways; the f32
-    # backward at 257-512 on tf32x3_xwide (at 384 or 512)
+    # tf32x3 in f32; bf16 at 257-512 on wgmma_xwide, both ways; f32 at
+    # 257-512 on tf32x3_xwide (at 384 or 512), both ways; the bf16 forward
+    # at 513-1024 on wgmma_xxwide (at 640-1024)
     for name in ("wgmma", "simt", "wide", "wgmma_wide", "tf32x3",
-                 "wgmma_xwide"):
+                 "wgmma_xwide", "tf32x3_xwide", "wgmma_xxwide"):
         monkeypatch.setattr(fa, "_flash_%s_cuda" % name, fwd_launcher(name))
     for name in ("wgmma", "simt", "wide", "wgmma_wide", "tf32x3",
                  "wgmma_xwide", "tf32x3_xwide"):
@@ -342,7 +343,8 @@ def _plain_launchers(monkeypatch):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("D,width", [(48, 64), (80, 128), (96, 128),
                                      (160, 192), (256, 256), (320, 320),
-                                     (400, 448), (512, 512)])
+                                     (400, 448), (512, 512), (448, 448),
+                                     (576, 576), (1000, 1024)])
 def test_padded_head_dims_match_pallas_kernels(monkeypatch, D, width, dtype):
     """Head dims the kernels lack go through the CUDA wrappers' padding
     (launchers replaced by the plain versions) and match the JAX package's
@@ -352,8 +354,9 @@ def test_padded_head_dims_match_pallas_kernels(monkeypatch, D, width, dtype):
     except for bf16 above head_dim 128: there the one bf16 rounding in
     which the two forwards' o may differ enters delta = rowsum(dO∘O) over
     more than 128 terms, which moves a few cancelling gradient entries
-    past one rounding (D 160: 4 of 11840 dQ entries).  The f32 backward
-    at 257-512 runs padded further, to 384 or 512 (tf32x3_xwide)."""
+    past one rounding (D 160: 4 of 11840 dQ entries).  f32 at 257-512
+    runs padded further, to 384 or 512 (tf32x3_xwide), both ways, and the
+    bf16 forward at 513-1024 to 640-1024 (wgmma_xxwide)."""
     fa, widths, bwd_variants = _plain_launchers(monkeypatch)
     B, T, H, causal = 1, 37, 2, True
     q, k, v = _qkv(B, T, T, H, D, dtype)
@@ -365,7 +368,9 @@ def test_padded_head_dims_match_pallas_kernels(monkeypatch, D, width, dtype):
     want = vjp((jnp.asarray(do), jnp.asarray(dlse)))
     tq, tk, tv = (_to_torch(a) for a in (q, k, v))
     o, lse = fa._flash_cuda(tq, tk, tv, causal)
-    assert widths == [(fa._variant(tq.dtype, D), width)]
+    variant = fa._variant(tq.dtype, D)
+    assert widths == [(variant, fa._kernel_width(variant, D))]
+    assert fa._padded_dim(D) == width
     assert o.shape == (B, T, H, D) and o.dtype == tq.dtype
     tol = F32_FLASH_TOL if dtype == "float32" else BF16_ONE_ROUNDING
     np.testing.assert_allclose(_f32(o), _f32(jo), **tol)
@@ -386,11 +391,13 @@ def test_padded_head_dims_match_pallas_kernels(monkeypatch, D, width, dtype):
     if bwd_variant == "tf32x3_xwide":
         bwd_width = 384 if D <= 384 else 512
     assert bwd_variants == [(bwd_variant, bwd_width)] * len(residuals)
-    if D > 256:
-        assert widths[0][0] == ("wgmma_xwide" if dtype == "bfloat16"
+    if D > 512:
+        assert widths[0][0] == ("wgmma_xxwide" if dtype == "bfloat16"
                                 else "wide")
-        assert bwd_variant == ("wgmma_xwide" if dtype == "bfloat16"
-                               else "tf32x3_xwide")
+        assert bwd_variant == "wide"
+    elif D > 256:
+        assert widths[0][0] == bwd_variant == (
+            "wgmma_xwide" if dtype == "bfloat16" else "tf32x3_xwide")
     elif D > 128:
         assert bwd_variant == ("wgmma_wide" if dtype == "bfloat16"
                                else "tf32x3")

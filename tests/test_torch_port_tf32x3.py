@@ -1,7 +1,7 @@
 """The arithmetic of the tf32x3 flash kernels, emulated on the CPU.
 
 The f32 flash forward and backward at padded head_dim 192 and 256, and
-the f32 backward at 384 and 512 (tf32x3_xwide), run on the tensor cores as
+at 384 and 512 (tf32x3_xwide), run on the tensor cores as
 split-TF32 products (``csrc/flash_attention_tf32x3.cu``,
 ``csrc/flash_attention_bwd_tf32x3.cu``): each
 f32 operand x becomes ``hi`` (x with its 13 low significand bits cleared,
@@ -17,7 +17,10 @@ tests' f32 tolerances: o within 1e-5 + 1e-4·|o| and lse within 1e-4 +
 1e-5·|lse| forward, 1e-4 for the gradients.  The forward as the kernel
 runs it: q split once, k, v and p split as they are read, key tiles of
 64, the scores summed over each half of D and the halves added in f32,
-each tile's p·v summed from zero and added as ``acc·alpha + pv``.  The
+each tile's p·v summed from zero and added as ``acc·alpha + pv``; the
+tf32x3_xwide forward the same with the scores summed as its two-CTA
+clusters sum them: over each quarter of D (a warp half of a CTA), the
+quarters of each CTA's half added, the two CTAs' partials added.  The
 tf32x3_xwide backward as its two-CTA clusters sum: the scores over each
 quarter of D (a warp half of a CTA), the quarters of each CTA's half
 added, the two CTAs' partials added; dQ over key tiles of 32 and dK, dV
@@ -252,19 +255,24 @@ def _mm1_presplit(a_split, b):
     return a_split[2] @ _tf32(b)
 
 
-def _fwd(q, k, v, causal, kv_len, three=True):
+def _fwd(q, k, v, causal, kv_len, three=True, cluster=False):
     """The tf32x3 forward's arithmetic ([B, T, H, D] in, ``(o, lse)`` out):
     q split once; per key tile of 64 the scores of each half of D (split
     products from zero) added in f32, masked with -1e30 where k_pos >=
     kv_len or (causal and q_pos < k_pos), the online softmax in f32, and
     ``acc = acc·alpha + p·v`` with p·v summed from zero.  ``three=False``:
-    every product one TF32 product instead."""
+    every product one TF32 product instead.  ``cluster``: the
+    tf32x3_xwide forward's scores, over the quarters of D, ``(q0 + q1) +
+    (q2 + q3)`` (each CTA's two warp halves, then the pair)."""
     mm = _mm3_presplit if three else _mm1_presplit
     D, Tq, Tk = q.shape[-1], q.shape[1], k.shape[1]
     scale = 1.0 / D ** 0.5
     qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+    parts = 4 if cluster else 2
+    cols = [slice(i * D // parts, (i + 1) * D // parts)
+            for i in range(parts)]
     halves = []
-    for c in (slice(0, D // 2), slice(D // 2, D)):
+    for c in cols:
         qc = qh[..., c].contiguous()
         halves.append(_split(qc) + (_tf32(qc),))
     B, H = qh.shape[:2]
@@ -274,9 +282,10 @@ def _fwd(q, k, v, causal, kv_len, three=True):
     q_pos = torch.arange(Tq)[:, None]
     for k0 in range(0, kv_len, TILE):
         kt, vt = kh[:, :, k0:k0 + TILE], vh[:, :, k0:k0 + TILE]
-        s = sum(mm(halves[i], kt[..., c].transpose(-1, -2))
-                for i, c in enumerate((slice(0, D // 2),
-                                       slice(D // 2, D))))
+        part = [mm(halves[i], kt[..., c].transpose(-1, -2))
+                for i, c in enumerate(cols)]
+        s = (part[0] + part[1]) + (part[2] + part[3]) if cluster else \
+            part[0] + part[1]
         k_pos = k0 + torch.arange(kt.shape[2])[None, :]
         ok = k_pos < kv_len
         if causal:
@@ -340,6 +349,38 @@ def test_tf32x3_forward_matches_float64_and_pallas(causal, Tq, Tk, kv_len):
     tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
     o, lse = _fwd(tq, tk, tv, causal, kv_len)
     o1, lse1 = _fwd(tq, tk, tv, causal, kv_len, three=False)
+    o64, lse64 = _fwd64(tq, tk, tv, causal, kv_len)
+    po, plse = _pallas(q, k, v, causal, kv_len)
+    assert o.dtype == lse.dtype == torch.float32
+    assert o.shape == (B, Tq, H, D) and lse.shape == (B, H, Tq)
+    for want_o, want_lse in ((o64.numpy(), lse64.numpy()), (po, plse)):
+        np.testing.assert_allclose(o.numpy(), want_o, **F32_FWD_TOL)
+        np.testing.assert_allclose(lse.numpy(), want_lse, **F32_LSE_TOL)
+    assert not np.allclose(o1.numpy(), o64.numpy(), **F32_FWD_TOL)
+    err3 = float((o.double() - o64).abs().max())
+    err1 = float((o1.double() - o64).abs().max())
+    assert err1 > 10 * err3, (err1, err3)
+
+
+@pytest.mark.parametrize("causal,Tq,Tk,kv_len", [
+    (True, 100, 150, 150),          # Tq != Tk, the last key tile ragged
+    (False, 40, 150, 130),          # kv_len < Tk
+])
+def test_tf32x3_xwide_forward_matches_float64_and_pallas(causal, Tq, Tk,
+                                                         kv_len):
+    """o and lse through the tf32x3_xwide forward's arithmetic at head_dim
+    512 (two CTAs of 256 columns: the scores over quarters of D, each
+    CTA's halves added, then the pair's) against float64 and against the
+    Pallas forward, within the f32 forward gates; one TF32 product a
+    product misses the gate on o and stays over ten times further from
+    float64."""
+    B, H, D = 1, 2, 512
+    rng = np.random.default_rng(12)
+    q, k, v = (rng.normal(size=(B, T, H, D)).astype(np.float32)
+               for T in (Tq, Tk, Tk))
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    o, lse = _fwd(tq, tk, tv, causal, kv_len, cluster=True)
+    o1, lse1 = _fwd(tq, tk, tv, causal, kv_len, three=False, cluster=True)
     o64, lse64 = _fwd64(tq, tk, tv, causal, kv_len)
     po, plse = _pallas(q, k, v, causal, kv_len)
     assert o.dtype == lse.dtype == torch.float32

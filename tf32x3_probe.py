@@ -11,17 +11,18 @@ forward; ``flash_attention_bwd_tf32x3.cu``, dQ and dK/dV) rests on:
   with the kernels' operand split (``split_tf32``: two ops a value) of 16
   values beside every 24 products, the ratio of the kernels' score loop;
 * each phase's share of the forward, the dQ and the dK/dV kernel at [1,
-  4096, 16, 256] causal f32, and of the tf32x3_xwide dQ and dK/dV (the
-  same kernels in 2-CTA clusters that split D) at the f32 hd512 training
-  leg's [2, 8192, 2, 512] causal: a copy of each source in which thread 0
-  of every CTA reads ``clock64`` at each phase boundary of every streamed
-  tile and adds the cycles to a per-phase sum (its barrier waits
-  included: the phases of warp 0, which computes p), beside the launch's
-  device time.  Two phases exist only in a cluster (0 cycles outside
-  one): meeting the peer CTA (its partial scores written, the cluster
-  barrier, the peer's read by distributed shared memory) and waiting for
-  the peer's reads before the exchange tile is overwritten; the waits for
-  the streamed tiles are the copies' share;
+  4096, 16, 256] causal f32, and of the tf32x3_xwide forward, dQ and
+  dK/dV (the same kernels in 2-CTA clusters that split D) at the f32
+  hd512 training leg's [2, 8192, 2, 512] causal: a copy of each source in
+  which thread 0 of every CTA reads ``clock64`` at each phase boundary of
+  every streamed tile and adds the cycles to a per-phase sum (its barrier
+  waits included: the phases of warp 0, which computes p), beside the
+  launch's device time.  One phase is all but empty outside a cluster:
+  meeting the peer CTA (the partial scores pushed to the peer, the wait
+  for the peer's, their sum), the exchange's share; the waits for the
+  streamed tiles are the copies' share; and the ptxas registers and
+  spills of the forward's four instantiations (tf32x3 and tf32x3_xwide at
+  192 and 256 columns a CTA);
 
 and two design choices, each timed in turns: the forward's at [1, 4096,
 16, 256] and [1, 8192, 4, 256] causal f32 with the errors of both against
@@ -144,6 +145,8 @@ FWD_PHASES = [
      "scores (64 keys, half of D) with the value tile's copy issue"),
     ("    __syncthreads();          // partials are in; K is no longer "
      "read\n", "trade halves (barrier)"),
+    ("                lane, f);\n", "read the partner's half; meet the peer "
+     "CTA (push, wait for its partials; tf32x3_xwide only)"),
     ("    __syncthreads();          // p, alpha and the value tile are in\n",
      "softmax, wait for the value tile (barrier)"),
 ]
@@ -303,9 +306,10 @@ __device__ __forceinline__ void meet_peer(float* Xw, uint32_t full,
 
 
 def _exchange_in_place(src):
-    start = src.index("__device__ __forceinline__ void meet_peer(")
-    end = src.index("// CL == 2: the cluster's mbarriers")
-    src = src[:start] + EXCHANGE_IN_PLACE_MEET + src[end:]
+    # an overload of hopper.cuh's meet_peer template: the call's exact
+    # match, so the kernels take it
+    at = src.index("template <int D>\n__device__ __forceinline__ void zero(")
+    src = src[:at] + EXCHANGE_IN_PLACE_MEET + src[at:]
     old = "    if constexpr (CL == 2) __syncwarp();    // every lane has read Xw\n"
     if src.count(old) != 2:
         raise SystemExit("tf32x3_probe: the backward's source no longer "
@@ -383,6 +387,20 @@ def _dkv_256_cluster_line(log):
     return None
 
 
+def _ptxas_lines(log, kernel):
+    """``kernel``'s instantiations in a build log: the mangled name's
+    template arguments, registers and spills, one string each."""
+    lines = log.splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if kernel in line and "Compiling entry function" in line:
+            name = line.split("'")[1]
+            args = name[name.index(kernel) + len(kernel):]
+            out.append("%s%s: %s" % (kernel, args, " ".join(
+                ln.split(":", 1)[-1].strip() for ln in lines[i + 2:i + 4])))
+    return out
+
+
 def _unroll_choice(torch, fa, build, tmp):
     """tf32x3_xwide's dK/dV at 256 columns a CTA with its output k-steps
     fully unrolled (as built) and unrolled by two: each one's ptxas line,
@@ -444,7 +462,7 @@ def _copy_issue_choice(torch, fa, build, tmp):
     built; each time the mean of 5 launches between CUDA events after one
     warm launch; and each one's largest error against the plain version."""
     name = "flash_attention_tf32x3"
-    configure = functools.partial(fa._configure_fwd_tc, "mxt_flash_tf32x3")
+    configure = functools.partial(fa._configure_fwd_source, name)
     libs = {"copies spread over the product loops": build.load(
                 name, configure),
             "copies at once before the loops": _edited_library(
@@ -484,8 +502,8 @@ def _bwd_instrumented(src):
 
 
 def _fwd_instrumented(src):
-    return _instrument(src, "flash_fwd_tf32x3_kernel", "template <int D>\n"
-                       "int launch(", FWD_PHASES, 0,
+    return _instrument(src, "flash_fwd_tf32x3_kernel", "template <int D, "
+                       "int CL>\nint launch(", FWD_PHASES, 0,
                        loop_marker="\n  for (int k0 = 0;")
 
 
@@ -538,9 +556,14 @@ def _run(torch, fa, build, tmp):
                    for _ in range(4))
     o, lse = fa._flash_cuda(q, k, v, True)
     delta = fa._delta(o, do, None)
+    # the forward's registers and spills, tf32x3 and tf32x3_xwide
+    for line in _ptxas_lines(build.build(["flash_attention_tf32x3"])[
+            "flash_attention_tf32x3"]["log"], "flash_fwd_tf32x3_kernel"):
+        print(json.dumps({"ptxas": line}), flush=True)
     fwd_lib = _profiled_library(
         fa, build, tmp, "flash_attention_tf32x3", _fwd_instrumented,
-        functools.partial(fa._configure_fwd_tc, "mxt_flash_tf32x3"))
+        functools.partial(fa._configure_fwd_source,
+                          "flash_attention_tf32x3"))
     bwd_lib = _profiled_library(
         fa, build, tmp, "flash_attention_bwd_tf32x3", _bwd_instrumented,
         functools.partial(fa._configure_bwd_source,
@@ -563,6 +586,9 @@ def _run(torch, fa, build, tmp):
             ("dkv", bwd_lib, lambda: fa._flash_dkv_tf32x3_cuda(
                 q, k, v, do, lse, delta, True, D ** -0.5), DKV_PHASES, 16,
              [B, T, H, D]),
+            ("fwd tf32x3_xwide", fwd_lib,
+             lambda: fa._flash_tf32x3_xwide_cuda(xq, xk, xv, True),
+             FWD_PHASES, 0, [xB, xT, xH, xD]),
             ("dq tf32x3_xwide", bwd_lib, lambda: fa._flash_dq_tf32x3_xwide_cuda(
                 xq, xk, xv, xdo, xlse, xdelta, True, xD ** -0.5), DQ_PHASES,
              0, [xB, xT, xH, xD]),

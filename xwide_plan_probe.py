@@ -29,11 +29,24 @@ exchange, no copies, no copies, no exchange, other plan, built) at the
 bf16 shapes of chip_smoke.py's forward cases and at [1, 4096, 16, 448]
 and [1, 4096, 16, 320].
 
+The wgmma_xxwide forward (the same source's kernel in 2-CTA clusters that
+split D, at 640-1024) is timed the same way against copies that skip its
+exchanges: one whose warps skip meeting the peer CTA (each CTA's softmax
+on its own half of the scores: wrong results, the time of everything but
+the pair's exchange), one whose warpgroups skip their exchange inside a
+CTA, and one whose producer copies only the first ST key tiles, in turns
+(built, no peer, no exchange, no copies, and back) at chip_smoke.py's
+[2, 1000, 4, 576] (run at 640) and [1, 4096, 16, 576], and at [1, 4096,
+16, 1024]; it also prints the ptxas registers and spills of the
+forward's eight instantiations.
+
 One JSON line per shape and kernel, then the card's name and power
 limit.  Run from the root of a checkout, with one card::
 
-    python3 xwide_plan_probe.py            # the forward, then the backward
-    python3 xwide_plan_probe.py fwd        # the forward only (or bwd)
+    python3 xwide_plan_probe.py            # the forwards, then the backward
+    python3 xwide_plan_probe.py fwd        # wgmma_xwide's forward only
+    python3 xwide_plan_probe.py xxwide     # wgmma_xxwide's forward only
+    python3 xwide_plan_probe.py bwd        # the backward only
 
 It exits non-zero without a CUDA device.
 """
@@ -84,6 +97,15 @@ FWD_OTHER = ("  static constexpr int BK = D >= 448 ? 64 : 32;\n"
 # the exchange's first line; the no-exchange copy returns before it
 EXCHANGE = "  if (wait_read) consumers_sync(2);\n"
 NO_EXCHANGE = "  return;\n" + EXCHANGE
+# the first line of the meeting with the peer CTA (wgmma_xxwide); the
+# no-peer copy returns before it
+PEER = "  const uint32_t peer = cluster_ctarank() ^ 1u;\n"
+NO_PEER = "  return;\n" + PEER
+XXWIDE_SHAPES = (  # (B, T, H, D, causal)
+    (2, 1000, 4, 576, False),
+    (1, 4096, 16, 576, True),
+    (1, 4096, 16, 1024, True),
+)
 # the producer's K and V copies of a tile; the no-copy copy skips them
 # after the first ST tiles (the consumers still wait on the barriers)
 FWD_EXPECT_K = "    mbar_expect_tx(L::full_k(bars, s), L::kTileBytes);\n"
@@ -185,57 +207,77 @@ def _run(torch, fa, build, smoke, tmp):
         build._LIBS[SOURCE] = built
 
 
-def _run_fwd(torch, fa, build, smoke, tmp):
-    prefix = "mxt_flash_wgmma_xwide"
-    built = build.load(FWD_SOURCE, functools.partial(fa._configure_fwd_tc,
-                                                     prefix))
+# each forward variant's shapes, its edited copies (name -> edit) and the
+# copies held against the plain forward beside the built kernel
+FWD_PARTS = {
+    "wgmma_xwide": (FWD_SHAPES, {
+        "other_plan": lambda src: _replaced(src, FWD_PLAN, FWD_OTHER),
+        "no_exchange": lambda src: _replaced(src, EXCHANGE, NO_EXCHANGE),
+        "no_copies": _fwd_no_copies}, ("other_plan",)),
+    "wgmma_xxwide": (XXWIDE_SHAPES, {
+        "no_peer": lambda src: _replaced(src, PEER, NO_PEER),
+        "no_exchange": lambda src: _replaced(src, EXCHANGE, NO_EXCHANGE),
+        "no_copies": _fwd_no_copies}, ()),
+}
+SHARE = {"no_peer": "share_of_the_peer_exchange",
+         "no_exchange": "share_of_the_exchange",
+         "no_copies": "share_of_the_streamed_copies"}
 
-    def lib(tag, edit):
-        return _library(fa, build, tmp, tag, edit, FWD_SOURCE, prefix,
-                        fa._configure_fwd_tc)
 
-    libs = {"built": built,
-            "other_plan": lib("other_plan", lambda src: _replaced(
-                src, FWD_PLAN, FWD_OTHER)),
-            "no_exchange": lib("no_exchange", lambda src: _replaced(
-                src, EXCHANGE, NO_EXCHANGE)),
-            "no_copies": lib("no_copies", _fwd_no_copies)}
+def _run_fwd(torch, fa, build, smoke, tmp, variant):
+    shapes, edits, checked = FWD_PARTS[variant]
+    configure = functools.partial(fa._configure_fwd_source, FWD_SOURCE)
+    built = build.load(FWD_SOURCE, configure)
+    if variant == "wgmma_xxwide":      # its instantiations and xwide's
+        log = build.build([FWD_SOURCE])[FWD_SOURCE]["log"]
+        for kernel, line in smoke._ptxas_summary(log):
+            print(json.dumps({"ptxas": line}), flush=True)
+    libs = {"built": built}
+    for tag, edit in edits.items():
+        libs[tag] = _library(fa, build, tmp, tag, edit, FWD_SOURCE,
+                             "mxt_flash_" + variant,
+                             lambda prefix, lib: configure(lib))
     gen = torch.Generator(device="cuda").manual_seed(0)
-    fn = fa._flash_wgmma_xwide_cuda
-    for B, T, H, D, causal in FWD_SHAPES:
+    fn = getattr(fa, "_flash_%s_cuda" % variant)
+    for B, T, H, D, causal in shapes:
+        W = fa._kernel_width(variant, D)
+        scale = D ** -0.5
         q, k, v = (torch.randn(B, T, H, D, generator=gen,
                                device="cuda").bfloat16() for _ in range(3))
         o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal,
                                                       return_lse=True)
+        q, k, v = (fa._pad_d(t, W) for t in (q, k, v))
         errs = {}
-        for plan in ("built", "other_plan"):
+        for plan in ("built",) + checked:
             build._LIBS[FWD_SOURCE] = libs[plan]
-            o, lse = fn(q, k, v, causal)
+            o, lse = fn(q, k, v, causal, scale)
             torch.cuda.synchronize()
-            e_o, e_l = (smoke._err(o, o_ref, 1e-4, 2 ** -7),
+            e_o, e_l = (smoke._err(o[..., :D], o_ref, 1e-4, 2 ** -7),
                         smoke._err(lse, lse_ref, 1e-4, 1e-5))
             errs[plan] = (max(e_o[0], e_l[0]), e_o[1] and e_l[1])
         del o_ref, lse_ref, o, lse
         args = smoke._copies((q, k, v))
+        order = tuple(libs)
         turns = {}
-        for plan in ("built", "other_plan", "no_exchange", "no_copies",
-                     "no_copies", "no_exchange", "other_plan", "built"):
+        for plan in order + order[::-1]:
             build._LIBS[FWD_SOURCE] = libs[plan]
             turns.setdefault(plan, []).append(smoke._time_ms(
-                lambda q, k, v: fn(q, k, v, causal), args))
+                lambda q, k, v: fn(q, k, v, causal, scale), args))
         ms = {p: statistics.mean(t) for p, t in turns.items()}
-        print(json.dumps({
-            "kernel": "forward", "shape": [B, T, H, D], "causal": causal,
-            "dtype": "bfloat16", "ms_turns": turns, "ms": ms,
-            "other_plan_over_built": ms["other_plan"] / ms["built"],
-            "share_of_the_exchange": 1 - ms["no_exchange"] / ms["built"],
-            "share_of_the_streamed_copies":
-                1 - ms["no_copies"] / ms["built"],
-            "max_abs_err": {p: e[0] for p, e in errs.items()},
-            "ok": {p: e[1] for p, e in errs.items()}}), flush=True)
+        rec = {"kernel": "forward %s" % variant, "shape": [B, T, H, D],
+               "padded_head_dim": W, "causal": causal, "dtype": "bfloat16",
+               "ms_turns": turns, "ms": ms,
+               "max_abs_err": {p: e[0] for p, e in errs.items()},
+               "ok": {p: e[1] for p, e in errs.items()}}
+        for plan in edits:
+            if plan in SHARE:
+                rec[SHARE[plan]] = 1 - ms[plan] / ms["built"]
+            else:
+                rec["%s_over_built" % plan] = ms[plan] / ms["built"]
+        print(json.dumps(rec), flush=True)
         if not all(e[1] for e in errs.values()):
-            raise SystemExit("xwide_plan_probe: a forward plan disagrees "
-                             "with the plain forward")
+            raise SystemExit("xwide_plan_probe: a %s plan disagrees with "
+                             "the plain forward" % variant)
     build._LIBS[FWD_SOURCE] = built
 
 
@@ -251,10 +293,12 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("xwide_plan_probe: no CUDA device is available")
-    parts = sys.argv[1:] or ["fwd", "bwd"]
+    parts = sys.argv[1:] or ["fwd", "xxwide", "bwd"]
     with tempfile.TemporaryDirectory(prefix="xwide_plan_probe_") as tmp:
         if "fwd" in parts:
-            _run_fwd(torch, fa, _build, smoke, tmp)
+            _run_fwd(torch, fa, _build, smoke, tmp, "wgmma_xwide")
+        if "xxwide" in parts:
+            _run_fwd(torch, fa, _build, smoke, tmp, "wgmma_xxwide")
         if "bwd" in parts:
             _run(torch, fa, _build, smoke, tmp)
     print(subprocess.run(
