@@ -24,7 +24,9 @@ on the card:
   (split-TF32 products), and with 2 heads of 512 at batch 2 x 8192,
   whose flash forward, dQ and dK/dV run the tensor-core wgmma_xwide
   kernels, and that in f32, whose flash forward, dQ and dK/dV run the
-  tensor-core tf32x3_xwide kernels (2-CTA clusters that split D);
+  tensor-core tf32x3_xwide kernels (2-CTA clusters that split D), and
+  with one head of 1024 at batch 4 x 8192, whose flash forward, dQ and
+  dK/dV run the tensor-core wgmma_xxwide kernels (2-CTA clusters);
 * INT8 inference — the symbolic ResNet-50 (``models/resnet_symbol.py``,
   1000 classes, 3x224x224) is calibrated, quantized, BN-folded and
   int8-fused by ``contrib.quantization.quantize_model``, bound, and run at
@@ -75,7 +77,8 @@ Phases, in order; any failure raises and exits non-zero:
    f32 tf32x3 forward, dQ and dK/dV at 192 and 256; the wgmma_xwide
    forward at 320, 384, 448 and 512 and the wgmma_xxwide forward (the
    same kernel in 2-CTA clusters) at 640, 768, 896 and 1024, all eight of
-   them, and wgmma_xwide's dQ and dK/dV, all eight of them; the f32
+   them, and wgmma_xwide's dQ and dK/dV at 320-512 and wgmma_xxwide's
+   (the same kernels in 2-CTA clusters) at 640-1024, all sixteen; the f32
    tf32x3_xwide forward, dQ and dK/dV at 384 and 512, the six cluster
    instantiations beside tf32x3's six),
    of the wide flash kernels,
@@ -118,9 +121,11 @@ Phases, in order; any failure raises and exits non-zero:
    16, 512] and [2, 1000, 4, 320] not causal (run at 384, wide at 320),
    the backward also at [1, 4096, 16, 384] causal with an lse cotangent;
    bf16 at head_dim 576 (run at 640) on the tensor-core wgmma_xxwide
-   forward (2-CTA clusters that split D) and on the wide backward at [2,
-   1000, 4, 576] not causal and [1, 4096, 16, 576] causal, the forward
-   in turns with wide, both beside SDPA; bf16 above 256 runs the tensor-core
+   forward, dQ and dK/dV (2-CTA clusters that split D) at [2, 1000, 4,
+   576] not causal and [1, 4096, 16, 576] causal, and at 1024 at the
+   head_dim-1024 leg's [4, 8192, 1, 1024], each in turns with wide and
+   beside SDPA (the backward also against dense autograd within 6.5e-3 of
+   each gradient's largest entry); bf16 above 256 runs the tensor-core
    wgmma_xwide forward, dQ and dK/dV, the forward held against the plain
    version, the backward against the plain backward and dense autograd
    (within 6.5e-3 of each gradient's largest entry), each beside its wide
@@ -431,6 +436,10 @@ LONGCTX_HD512 = dict(LONGCTX, n_heads=2)
 # the same in f32: its forward, dQ and dK/dV on the tensor-core tf32x3_xwide
 # kernels (2-CTA clusters that split D)
 LONGCTX_HD512_F32 = dict(LONGCTX_HD512, dtype="float32")
+# one head of 1024 at batch 4 (at batch 3 the dense scores, 768 MiB, would
+# stay at the flash gate): the flash forward, dQ and dK/dV on the
+# tensor-core wgmma_xxwide kernels (2-CTA clusters that split D)
+LONGCTX_HD1024 = dict(LONGCTX, n_heads=1)
 TRAIN_CELLS = (
     ("flagship_b8_t1024", dict(FLAGSHIP, max_len=1024, remat=False), 8,
      1024),
@@ -442,16 +451,17 @@ TRAIN_CELLS = (
     ("longctx_hd256_f32_b1_t8192", LONGCTX_HD256_F32, 1, 8192),
     ("longctx_hd512_b2_t8192", LONGCTX_HD512, 2, 8192),
     ("longctx_hd512_f32_b2_t8192", LONGCTX_HD512_F32, 2, 8192),
+    ("longctx_hd1024_b4_t8192", LONGCTX_HD1024, 4, 8192),
 )
 TRAIN_STEPS = 3
 # kernel launches per training step, from the code: RMSNorm twice per block
 # and once before the logits, and with remat once more per block for the
 # recomputed forward, every one through the warp variant (8192 rows, 16384
-# at batch 2); flash forward per block (twice with remat), every one through
-# the tensor-core variant (bf16: wgmma at head_dim 64, wgmma_wide at 256,
-# wgmma_xwide at 512; f32: tf32x3 at 256, tf32x3_xwide at 512); dQ and
-# dK/dV once per block, through the same variant; the softmax
-# cross-entropy once each way
+# at batch 2, 32768 at batch 4); flash forward per block (twice with
+# remat), every one through the tensor-core variant (bf16: wgmma at
+# head_dim 64, wgmma_wide at 256, wgmma_xwide at 512, wgmma_xxwide at 1024;
+# f32: tf32x3 at 256, tf32x3_xwide at 512); dQ and dK/dV once per block,
+# through the same variant; the softmax cross-entropy once each way
 EXPECTED_LAUNCHES = {
     "flagship_b8_t1024": {"fused_rmsnorm": 9, "fused_rmsnorm.warp": 9,
                           "fused_softmax_xent": 1,
@@ -502,6 +512,16 @@ EXPECTED_LAUNCHES = {
                                    "flash_attention_dkv.tf32x3_xwide": 4,
                                    "fused_softmax_xent": 1,
                                    "fused_softmax_xent_bwd": 1},
+    "longctx_hd1024_b4_t8192": {"fused_rmsnorm": 17,
+                                "fused_rmsnorm.warp": 17,
+                                "flash_attention": 8,
+                                "flash_attention.wgmma_xxwide": 8,
+                                "flash_attention_dq": 4,
+                                "flash_attention_dkv": 4,
+                                "flash_attention_dq.wgmma_xxwide": 4,
+                                "flash_attention_dkv.wgmma_xxwide": 4,
+                                "fused_softmax_xent": 1,
+                                "fused_softmax_xent_bwd": 1},
 }
 # the device mesh (mxnet_tpu_torch/parallel over torch.distributed).
 # mesh_nccl: one rank over NCCL (a real communicator: every collective of
@@ -566,10 +586,10 @@ RING_REL = 2.0 ** -6
 # gradient error 8.0e-3 (embed)
 STEP_LOSS_ATOL = 1e-3
 STEP_GRAD_REL_L2 = 2e-2
-# the wgmma_xwide backward against autograd through the dense forward:
-# within 6.5e-3 of each gradient's largest entry (the other bf16 variants:
-# 2^-6); the dense formula takes delta from the unrounded O, the kernels
-# from the bf16 O, as the TPU's do
+# the wgmma_xwide backward and its 2-CTA-cluster twin wgmma_xxwide against
+# autograd through the dense forward: within 6.5e-3 of each gradient's
+# largest entry (the other bf16 variants: 2^-6); the dense formula takes
+# delta from the unrounded O, the kernels from the bf16 O, as the TPU's do
 XWIDE_AUTOGRAD_REL = 6.5e-3
 
 # the INT8 phase: resnet.py's ImageNet ResNet-50 (train_imagenet.py's
@@ -970,10 +990,10 @@ def phase_build():
             if kernel != "int8_mm_kernel":
                 _check(" 0 bytes spill stores" in line,
                        "%s spills: %s" % (src, line))
-        # the wgmma_xwide forward at each of its 4 widths alone and in
-        # 2-CTA clusters (wgmma_xxwide), its dQ and dK/dV at each width
+        # the wgmma_xwide forward, dQ and dK/dV at each of their 4 widths
+        # alone and in 2-CTA clusters (wgmma_xxwide)
         want = {"flash_attention_wgmma_xwide": 8,
-                "flash_attention_bwd_wgmma_xwide": 8}.get(src)
+                "flash_attention_bwd_wgmma_xwide": 16}.get(src)
         if want is not None:
             _check(len(summary) == want, "%s: %d instantiations in the "
                    "ptxas report, expected %d" % (src, len(summary), want))
@@ -1395,15 +1415,14 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     the backward against the plain backward and autograd through the dense
     forward, and two calls bit for bit (no atomics): two records.
     ``variants``: the variant is a tensor-core one; also hold its CUDA-core
-    twin (``CUDA_CORE_TWIN``: simt for wgmma, wide for wgmma_wide,
-    tf32x3, wgmma_xwide and tf32x3_xwide) against the plain backward and
-    time the two in turns
-    (tensor-core, CUDA-core, CUDA-core, tensor-core); ``ms`` is then the
-    tensor-core kernel's mean of its two turns.  A head dim the kernels
-    lack is timed at its padded width (each variant's own,
-    ``_kernel_width``: tf32x3_xwide runs 320 at 384, wide at 320), on
-    inputs padded once, as the backward runs it; the bounds count the
-    real head_dim's work."""
+    twin (``CUDA_CORE_TWIN``: simt for wgmma, wide for the others) against
+    the plain backward and time the two in turns (tensor-core, CUDA-core,
+    CUDA-core, tensor-core); ``ms`` is then the tensor-core kernel's mean
+    of its two turns.  A head dim the kernels lack is timed at its padded
+    width (each variant's own, ``_kernel_width``: tf32x3_xwide runs 320 at
+    384, wgmma_xxwide 576 at 640, wide at 320 and 576), on inputs padded
+    once, as the backward runs it; the bounds count the real head_dim's
+    work."""
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops.kernels.flash_attention import (
@@ -1414,6 +1433,7 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
         _flash_dkv_wide_cuda, _flash_dq_simt_cuda, _flash_dq_tf32x3_cuda,
         _flash_dq_tf32x3_xwide_cuda, _flash_dq_wgmma_cuda,
         _flash_dq_wgmma_wide_cuda, _flash_dq_wgmma_xwide_cuda,
+        _flash_dq_wgmma_xxwide_cuda, _flash_dkv_wgmma_xxwide_cuda,
         _flash_dq_wide_cuda, _kernel_width, _pad_d, _variant,
         flash_attention_bwd_reference, flash_attention_reference)
 
@@ -1427,6 +1447,8 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
                         _flash_dkv_wgmma_xwide_cuda),
         "tf32x3_xwide": (_flash_dq_tf32x3_xwide_cuda,
                          _flash_dkv_tf32x3_xwide_cuda),
+        "wgmma_xxwide": (_flash_dq_wgmma_xxwide_cuda,
+                         _flash_dkv_wgmma_xxwide_cuda),
         "simt": (_flash_dq_simt_cuda, _flash_dkv_simt_cuda),
         "wide": (_flash_dq_wide_cuda, _flash_dkv_wide_cuda)}
 
@@ -1454,7 +1476,8 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     # against an independent formula: autograd through the dense forward.
     # In bf16 that formula takes delta = sum(p * dp) in f32 where the
     # kernels, as the TPU's do, take rowsum(dO * O) of the bf16-rounded O;
-    # held to 2^-6 of each gradient's largest entry (wgmma_xwide: 6.5e-3)
+    # held to 2^-6 of each gradient's largest entry (wgmma_xwide and its
+    # cluster twin wgmma_xxwide: 6.5e-3)
     qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
     o_r, lse_r = flash_attention_reference(qr, kr, vr, causal,
                                            return_lse=True)
@@ -1465,7 +1488,8 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     del o_r, lse_r, outs
     variant = _variant(q.dtype, D, backward=True)
     auto_rel = 1e-4 if dtype_name == "float32" else (
-        XWIDE_AUTOGRAD_REL if variant == "wgmma_xwide" else 2**-6)
+        XWIDE_AUTOGRAD_REL if variant in ("wgmma_xwide", "wgmma_xxwide")
+        else 2**-6)
     auto_errs = [float((a.float() - b.float()).abs().max())
                  / float(b.float().abs().max()) for a, b in zip(got, auto)]
     del auto
@@ -1782,14 +1806,20 @@ def phase_kernels():
                     with_dlse=True, variants=True)
     _flash_bwd_case(2, 1000, 1000, 4, 320, False, "float32", gen,
                     variants=True)
-    # bf16 above 512: the forward on wgmma_xxwide (2-CTA clusters that
-    # split D; 576 runs at 640) in turns with wide (at 576), the backward
-    # on wide, both beside SDPA
+    # bf16 above 512: the forward, dQ and dK/dV on wgmma_xxwide (2-CTA
+    # clusters that split D; 576 runs at 640) in turns with wide (at 576),
+    # beside SDPA, at [2, 1000, 4, 576], [1, 4096, 16, 576] and the
+    # head_dim-1024 leg's [4, 8192, 1, 1024]
     for args in ((2, 1000, 1000, 4, 576, False), (1, 4096, 4096, 16, 576,
                                                   True)):
         main["flash_attention.wgmma_xxwide"] = _flash_case(
             *args, "bfloat16", gen, variants=True)
-        _flash_bwd_case(*args, "bfloat16", gen)
+        main["flash_attention_dq.wgmma_xxwide"], \
+            main["flash_attention_dkv.wgmma_xxwide"] = _flash_bwd_case(
+                *args, "bfloat16", gen, variants=True)
+    _flash_case(4, 8192, 8192, 1, 1024, True, "bfloat16", gen, variants=True)
+    _flash_bwd_case(4, 8192, 8192, 1, 1024, True, "bfloat16", gen,
+                    variants=True)
     main["fused_softmax_xent"], main["fused_softmax_xent_bwd"] = \
         _xent_case(8192, 32000, "float32", gen)
     _xent_case(8192, 32000, "bfloat16", gen)
@@ -5724,6 +5754,8 @@ VARIANT_SOURCES = {
                                _CSRC + "flash_attention_bwd_wgmma_xwide.cu",
                            "tf32x3_xwide":
                                _CSRC + "flash_attention_bwd_tf32x3.cu",
+                           "wgmma_xxwide":
+                               _CSRC + "flash_attention_bwd_wgmma_xwide.cu",
                            "simt": _CSRC + "flash_attention_bwd.cu",
                            "wide": _CSRC + "flash_attention_wide.cu"},
     "flash_attention_dkv": {"wgmma": _CSRC + "flash_attention_bwd_wgmma.cu",
@@ -5735,6 +5767,8 @@ VARIANT_SOURCES = {
                                 _CSRC + "flash_attention_bwd_wgmma_xwide.cu",
                             "tf32x3_xwide":
                                 _CSRC + "flash_attention_bwd_tf32x3.cu",
+                            "wgmma_xxwide":
+                                _CSRC + "flash_attention_bwd_wgmma_xwide.cu",
                             "simt": _CSRC + "flash_attention_bwd.cu",
                             "wide": _CSRC + "flash_attention_wide.cu"},
     "int8_matmul": {"wgmma": _CSRC + "int8_matmul.cu",
@@ -5876,6 +5910,19 @@ def main():
             "mxnet_tpu/ops/pallas/flash_attention.py:142"),
         "flash_attention_dkv.tf32x3_xwide": (
             "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_bwd_tf32x3.cu",
+            "mxnet_tpu/ops/pallas/flash_attention.py:179"),
+        # the head_dim-1024 leg's: the forward, dQ and dK/dV on the
+        # tensor-core wgmma_xxwide kernels (2-CTA clusters)
+        "flash_attention.wgmma_xxwide": (
+            "mxnet_tpu_torch/ops/kernels/csrc/flash_attention_wgmma_xwide.cu",
+            "mxnet_tpu/ops/pallas/flash_attention.py:55"),
+        "flash_attention_dq.wgmma_xxwide": (
+            "mxnet_tpu_torch/ops/kernels/csrc/"
+            "flash_attention_bwd_wgmma_xwide.cu",
+            "mxnet_tpu/ops/pallas/flash_attention.py:142"),
+        "flash_attention_dkv.wgmma_xxwide": (
+            "mxnet_tpu_torch/ops/kernels/csrc/"
+            "flash_attention_bwd_wgmma_xwide.cu",
             "mxnet_tpu/ops/pallas/flash_attention.py:179"),
         "fused_softmax_xent": (
             "mxnet_tpu_torch/ops/kernels/csrc/softmax_xent.cu",

@@ -1,7 +1,10 @@
 // Flash-attention backward on Hopper's tensor cores (sm_90a), CUDA C++: the
 // "wgmma_xwide" variant of the backward, for bf16 inputs at head_dim 320,
-// 384, 448 or 512 (the wrapper pads head_dim 257-512 to one of them).  Its
-// forward sibling is flash_attention_wgmma_xwide.cu.
+// 384, 448 or 512 (the wrapper pads head_dim 257-512 to one of them), and
+// the "wgmma_xxwide" variant at head_dim 640, 768, 896 or 1024 (the wrapper
+// pads head_dim 513-1024 to one of them): the same kernels run by clusters
+// of two CTAs that split D (below).  Its forward sibling is
+// flash_attention_wgmma_xwide.cu.
 //
 // Replaces, at those widths, the Pallas TPU kernels
 // mxnet_tpu/ops/pallas/flash_attention.py `_dq_kernel` and `_dkv_kernel`
@@ -35,10 +38,10 @@
 // split into hi = bf16(x) and lo = bf16(x - hi) and traded through a
 // swizzled exchange in shared memory, where each output product reads them
 // as a K-major A operand twice (hi, lo), so that they keep about 2^-17 of
-// f32 accuracy where one bf16 leaves 2^-9.  No CTA reads what another
-// writes and there are no atomics, so two calls on the same inputs give
-// the same bits.  `scale` multiplies dQ and dK once, at the store.  Causal
-// tiles that no query of a CTA sees are not visited.
+// f32 accuracy where one bf16 leaves 2^-9.  No CTA of wgmma_xwide reads
+// what another writes and there are no atomics, so two calls on the same
+// inputs give the same bits.  `scale` multiplies dQ and dK once, at the
+// store.  Causal tiles that no query of a CTA sees are not visited.
 //
 // * The score products split by product, not by rows: per streamed tile,
 //   warpgroup 0 computes the product with Q or K (S, S^T) and warpgroup 1
@@ -94,12 +97,55 @@
 //   The exchange tiles are [64][64] bf16 with 128-byte rows; a tile of BT <
 //   64 columns uses the first BT of each row.
 //
-// Host side: tensor maps are built per launch (hopper.cuh).  Preconditions,
-// checked by the Python wrapper: bf16, D in {320, 384, 448, 512}, unit
-// stride on D, 16-byte-aligned base addresses and (B, T, H) strides that
-// are multiples of 8 elements for q, k, v and dO; lse and delta f32 [B, H,
-// tq_pad] with tq_pad a multiple of 64 (zeros past Tq).  Outputs [B, T, H,
-// D] through their strides.
+// wgmma_xxwide: above D 512 one CTA holds neither the resident tensors and
+// a streamed slot (at 640, 160 KB + 80 KB for one 32-row slot) nor dQ's or
+// a window's accumulators.  So a cluster of two CTAs (CL = 2, along grid
+// x) takes the place of each CTA above, and CTA c of the pair takes
+// columns c D' .. c D' + D' - 1 of the padded width 2 D' (D' = 320, 384,
+// 448 or 512): each is the kernel above at D', with its Plan, shared
+// memory, warpgroups, windows and accumulators, its TMA boxes on its own
+// half of every tensor.  dK/dV's clusters of one key tile stay two, one a
+// column window (of the CTA's half): four CTAs a key tile.
+//   * Each warpgroup's score product (S or S^T in warpgroup 0, dP or dP^T
+//     in 1) is then a partial over the CTA's half of D.  Each consumer warp
+//     pushes its 16 rows of the partial into its counterpart warp's receive
+//     block in the peer CTA (st.async, 16 bytes a lane BT / 8 times,
+//     counted as transaction bytes on that warp's `full` mbarrier, once it
+//     has said the block is free by a remote arrival on this warp's
+//     `vacant`) and adds the peer's, pushed the same way (meet_peer):
+//     a + b == b + a in IEEE arithmetic, so both CTAs hold the same bits of
+//     S and dP and form the same p and ds (and their hi / lo terms).  No
+//     barrier spans the cluster inside the loop: a warp waits for its
+//     counterpart alone (the tf32x3_xwide kernels' plan).
+//   * The output products need only the CTA's own columns: dQ[:, own] +=
+//     ds . K[:, own], dK[:, own] += ds^T . Q[:, own], dV[:, own] += p^T .
+//     dO[:, own].  No score work is repeated across the pair: the flops a
+//     pair are those of the one-CTA kernels (dQ 8 * D, dK/dV 16 * D).
+//   * Receive blocks.  dQ has room for its own: 16 KB, a warp's 2 KB at
+//     rx, beside at most 214 KB.  dK/dV (up to 230 KB a CTA) has not, so a
+//     warp receives in its own rows of the exchange, free from named
+//     barrier 1 (both warpgroups' previous output products are done) until
+//     the warp itself overwrites them: warpgroup 0's warp w in its rows of
+//     the p^T tiles, where it stashes p^T after reading the peer's S^T,
+//     warpgroup 1's warp w in its rows of the ds^T tiles, where it stashes
+//     ds^T after reading the peer's dP^T.  So dK/dV meets after barrier 1,
+//     dQ before it.
+//   * Both CTAs of a pair walk the same tiles; a cluster barrier after the
+//     mbarriers' initialisation and one at the end keep either CTA's
+//     shared memory from being reached before it starts or after it ends.
+//     No atomics: two calls give the same bits.
+// A 2-CTA cluster at up to 226 KB a CTA needs two SMs of one GPC free at
+// once; the launcher checks once that one fits
+// (cudaOccupancyMaxActiveClusters) and returns kErrCluster if not.
+//
+// Host side: tensor maps are built per launch (hopper.cuh), over the whole
+// head width; a CTA's boxes start at its first column.  Preconditions,
+// checked by the Python wrapper: bf16, D in {320, 384, 448, 512}
+// (wgmma_xwide) or {640, 768, 896, 1024} (wgmma_xxwide), unit stride on D,
+// 16-byte-aligned base addresses and (B, T, H) strides that are multiples
+// of 8 elements for q, k, v and dO; lse and delta f32 [B, H, tq_pad] with
+// tq_pad a multiple of 64 (zeros past Tq).  Outputs [B, T, H, D] through
+// their strides.
 //
 // Plain C interface (no PyTorch headers), called through ctypes.
 
@@ -139,11 +185,14 @@ struct Cols {
 // tensors of BR rows (dQ: Q, dO; dK/dV: K, V), a ring of STAGES slots of
 // two streamed tiles of BT rows (dQ: K, V; dK/dV: Q, dO), the exchange
 // (NX bf16 [64][64] tiles: dQ's ds hi/lo; dK/dV's p^T hi/lo and ds^T
-// hi/lo) and, for dK/dV (NX = 4), the streamed tile's lse and delta; then
-// the barriers full_res, full[STAGES], empty[STAGES].  Every tensor tile is
-// D / 64 panels of [rows][64] bf16, swizzled by the TMA unit in 1024-byte
-// atoms of 8 rows; the exchange tiles are written with the same swizzle.
-template <int D, int NX>
+// hi/lo) and, for dK/dV (NX = 4), the streamed tile's lse and delta; then,
+// for dQ in a cluster (CL 2), the receive blocks of the peer's partials
+// (BT * 64 bytes a consumer warp); then the barriers full_res, full[STAGES],
+// empty[STAGES] and, in a cluster, two a consumer warp (full[8],
+// vacant[8]).  Every tensor tile is D / 64 panels of [rows][64] bf16,
+// swizzled by the TMA unit in 1024-byte atoms of 8 rows; the exchange
+// tiles are written with the same swizzle.
+template <int D, int NX, int CL = 1>
 struct Smem {
   static constexpr int BT = Plan<D, NX == 4>::BT;
   static constexpr int STAGES = Plan<D, NX == 4>::STAGES;
@@ -157,10 +206,15 @@ struct Smem {
   static constexpr uint32_t xch = ring1 + STAGES * kTileBytes;
   static constexpr uint32_t lse = xch + NX * kXBytes;
   static constexpr uint32_t delta = lse + STAGES * kRowBytes;
-  static constexpr uint32_t bars = delta + STAGES * kRowBytes;
-  static constexpr size_t alloc = bars + 8 * (1 + 2 * STAGES) + 1024;
+  static constexpr uint32_t rx = delta + STAGES * kRowBytes;
+  static constexpr uint32_t bars =
+      rx + (CL == 2 && NX == 2 ? NCONS / 32 * BT * 64 : 0);
+  static constexpr uint32_t peer_bars = bars + 8 * (1 + 2 * STAGES);
+  static constexpr size_t alloc =
+      peer_bars + (CL == 2 ? 8 * 2 * NCONS / 32 : 0) + 1024;
   static_assert(alloc <= 232448, "over the 227 KB a block may use");
   static_assert(BT % 16 == 0 && BT <= 64, "a tile is whole k-steps");
+  static_assert(NX == 4 || BT <= 32, "dQ receives one piece a warp");
 };
 
 template <int STAGES>
@@ -382,23 +436,23 @@ __device__ __forceinline__ void wgmma_k<64>(float (&d)[32], uint64_t da,
 
 // The producer thread: the two resident tensors (rows r_row0..+BR), then
 // n_tiles streamed tile pairs (rows t_row0 + j * BT) with, for dK/dV (NX =
-// 4), their lse and delta.
-template <int D, int NX>
+// 4), their lse and delta; every tile's D columns from cd.
+template <int D, int NX, int CL>
 __device__ __forceinline__ void produce(
     const CUtensorMap* tm_r0, const CUtensorMap* tm_r1,
     const CUtensorMap* tm_t0, const CUtensorMap* tm_t1, uint32_t base,
     int r_row0, int t_row0, int h, int b, int n_tiles,
-    const float* lse_row, const float* delta_row) {
-  using L = Smem<D, NX>;
+    const float* lse_row, const float* delta_row, int cd) {
+  using L = Smem<D, NX, CL>;
   constexpr int BT = L::BT, STAGES = L::STAGES;
   const uint32_t bars = base + L::bars;   // bars itself is full_res
   mbar_expect_tx(bars, 2 * L::kResBytes);
 #pragma unroll
   for (int p = 0; p < D / PANEL; ++p) {
-    tma_load(base + L::res0 + p * BR * 128, tm_r0, bars, p * PANEL, h, r_row0,
-             b);
-    tma_load(base + L::res1 + p * BR * 128, tm_r1, bars, p * PANEL, h, r_row0,
-             b);
+    tma_load(base + L::res0 + p * BR * 128, tm_r0, bars, cd + p * PANEL, h,
+             r_row0, b);
+    tma_load(base + L::res1 + p * BR * 128, tm_r1, bars, cd + p * PANEL, h,
+             r_row0, b);
   }
   const uint32_t bytes = 2 * L::kTileBytes + 2 * L::kRowBytes;
   for (int j = 0; j < n_tiles; ++j) {
@@ -413,8 +467,8 @@ __device__ __forceinline__ void produce(
     const uint32_t t1 = base + L::ring1 + s * L::kTileBytes;
 #pragma unroll
     for (int p = 0; p < D / PANEL; ++p) {
-      tma_load(t0 + p * BT * 128, tm_t0, full, p * PANEL, h, t, b);
-      tma_load(t1 + p * BT * 128, tm_t1, full, p * PANEL, h, t, b);
+      tma_load(t0 + p * BT * 128, tm_t0, full, cd + p * PANEL, h, t, b);
+      tma_load(t1 + p * BT * 128, tm_t1, full, cd + p * PANEL, h, t, b);
     }
     if (NX == 4) {
       bulk_load(base + L::lse + s * L::kRowBytes, lse_row + t, L::kRowBytes,
@@ -507,6 +561,48 @@ __device__ __forceinline__ void unstash(float (&x)[BT / 2], uint32_t hi,
   }
 }
 
+// The two CTAs of a cluster meet (wgmma_xxwide): X holds this warp's 16
+// rows of its CTA's partial score product (over the CTA's half of D).  The
+// warp's receive block is free here: NS * 128 bytes of f32 in pieces of
+// up to 2 KB, piece i at rx + i * kXBytes (a second piece only at BT =
+// 64), lane l's chunk c (16 bytes) in piece c / 4 at (c % 4 * 32 + l) *
+// 16.  Lane 0 arms the warp's `full` mbarrier for the peer's NS * 128
+// bytes and tells the peer's counterpart warp that the block is free (a
+// remote arrival on its `vacant`); once the peer's block is free, each
+// lane pushes its X there (st.async, counted on the peer's `full`); once
+// its own `full` completes, X += the peer's partial (the peer adds this
+// CTA's: a + b == b + a, the same bits in both).  Each barrier completes
+// once a tile: `parity` is the tile's count mod 2.
+template <int NS>
+__device__ __forceinline__ void meet_peer(float (&X)[NS], uint32_t rx,
+                                          int lane, uint32_t full,
+                                          uint32_t vacant, uint32_t parity) {
+  const uint32_t peer = cluster_ctarank() ^ 1u;
+  __syncwarp();                   // every lane is done with the block
+  if (lane == 0) {
+    mbar_expect_tx(full, NS * 128);
+    mbar_arrive_remote(cluster_map(vacant, peer));
+  }
+  mbar_wait_cluster(vacant, parity);  // the peer's block is free
+  const uint32_t dst = cluster_map(rx, peer);
+  const uint32_t bar = cluster_map(full, peer);
+#pragma unroll
+  for (int c = 0; c < NS / 4; ++c)
+    st_async_v4(dst + (c >> 2) * kXBytes + ((c & 3) * 32 + lane) * 16,
+                X[4 * c], X[4 * c + 1], X[4 * c + 2], X[4 * c + 3], bar);
+  mbar_wait_cluster(full, parity);    // the peer's partial is in
+#pragma unroll
+  for (int c = 0; c < NS / 4; ++c) {
+    float a, b, x, y;
+    ld_shared_v4(rx + (c >> 2) * kXBytes + ((c & 3) * 32 + lane) * 16, a, b,
+                 x, y);
+    X[4 * c] += a;
+    X[4 * c + 1] += b;
+    X[4 * c + 2] += x;
+    X[4 * c + 3] += y;
+  }
+}
+
 // Rows r0 and r0 + 8 of a 64 x NC accumulator times `mul`, rounded to
 // bf16, into out[row] at columns from `out` on (rows at and past n_rows are
 // not written).
@@ -532,14 +628,15 @@ __device__ __forceinline__ void store_rows(const float (&acc)[NC / 2],
 // dO.V^T and, from p read back out of the exchange, ds; X[i] is row r0 if
 // (i & 2) == 0 else r0 + 8, key k0 + (i >> 2) * 8 + cq + (i & 1) in both.
 // ds is accumulated without `scale`, which multiplies dQ once at the
-// store.
-template <int D, int NC>
+// store.  In a cluster (CL 2) S and dP are met with the peer CTA's
+// partials (meet_peer, in the warp's own receive block) before barrier 1.
+template <int D, int CL, int NC>
 __device__ __forceinline__ void consume_dq(
     uint32_t base, int q0, int n_tiles, int c0,
     const float* __restrict__ lse_row, const float* __restrict__ delta_row,
     __nv_bfloat16* __restrict__ dq, long long dq_st, int Tq, int Tk,
     float scale, int causal) {
-  using L = Smem<D, 2>;
+  using L = Smem<D, 2, CL>;
   constexpr int BT = L::BT, STAGES = L::STAGES;
   const uint32_t bars = base + L::bars;
   const int tid = threadIdx.x;
@@ -560,6 +657,9 @@ __device__ __forceinline__ void consume_dq(
   const float c_0 = r0 < Tq ? row[r0] * mul : 0.f;
   const float c_1 = r1 < Tq ? row[r1] * mul : 0.f;
   const float f = scale * kLog2e;
+  // this warp's receive block and its full and vacant mbarriers (CL 2)
+  const uint32_t rx = base + L::rx + (tid >> 5) * (BT * 64);
+  const uint32_t full = base + L::peer_bars + 8 * (tid >> 5);
 
   float acc[NC / 2];
 #pragma unroll
@@ -585,6 +685,7 @@ __device__ __forceinline__ void consume_dq(
     pin(X);
     pin(acc);
     if (held >= 0) release(bar_empty<STAGES>(bars, held), lane);
+    if constexpr (CL == 2) meet_peer(X, rx, lane, full, full + 64, j & 1);
     consumers_sync(1);     // both warpgroups' previous dQ products are done
     if (wg == 0) {         // p = exp(s - lse), masked, to the exchange
       const bool masked = k0 + BT > Tk || (causal && k0 + BT - 1 > q0);
@@ -631,12 +732,15 @@ __device__ __forceinline__ void consume_dq(
 // warpgroup 1 computes dP^T = V.dO^T, then dV += p^T.dO and, from p^T read
 // back out of the exchange, ds^T = p^T * (dP^T - delta).  X[i] is key row
 // r0 if (i & 2) == 0 else r0 + 8, query qt + (i >> 2) * 8 + cq + (i & 1).
-template <int D, int NW>
+// In a cluster (CL 2) S^T and dP^T are met with the peer CTA's partials
+// (meet_peer) after barrier 1, in the warp's own rows of the p^T tiles
+// (warpgroup 0) or the ds^T tiles (1), which it overwrites next.
+template <int D, int CL, int NW>
 __device__ __forceinline__ void consume_dkv(
     uint32_t base, const unsigned char* smem, int k0, int q_start,
     int n_tiles, int c0, __nv_bfloat16* __restrict__ out, long long out_st,
     int Tq, int Tk, float scale, int causal) {
-  using L = Smem<D, 4>;
+  using L = Smem<D, 4, CL>;
   constexpr int BT = L::BT, STAGES = L::STAGES;
   const uint32_t bars = base + L::bars;
   const int tid = threadIdx.x;
@@ -655,6 +759,10 @@ __device__ __forceinline__ void consume_dkv(
   const uint32_t x_out = wg == 0 ? xs : xp;
   const uint32_t col = (c0 / PANEL) * BT * 128;
   const float f = scale * kLog2e;
+  // this warp's receive block, its rows of the p^T or the ds^T tiles, and
+  // its full and vacant mbarriers (CL 2)
+  const uint32_t rx = (wg == 0 ? xp : xs) + warp * (16 * 128);
+  const uint32_t full = base + L::peer_bars + 8 * (tid >> 5);
 
   float acc[NW / 2];
 #pragma unroll
@@ -683,6 +791,7 @@ __device__ __forceinline__ void consume_dkv(
     pin(acc);
     if (held >= 0) release(bar_empty<STAGES>(bars, held), lane);
     consumers_sync(1);     // both warpgroups' previous products are done
+    if constexpr (CL == 2) meet_peer(X, rx, lane, full, full + 64, j & 1);
     if (wg == 0) {         // p^T = exp(s^T - lse), masked, to the exchange
       const bool masked = qt + BT > Tq || k0 + BR > Tk ||
                           (causal && qt < k0 + BR - 1);
@@ -753,7 +862,9 @@ __device__ __forceinline__ void init_bars(uint32_t bars) {
   __syncthreads();
 }
 
-template <int D>
+// D: the columns of one CTA; CL: the CTAs of a cluster, which share a tile
+// of query rows and split the head's CL * D columns
+template <int D, int CL>
 __global__ void __launch_bounds__(NT, 1)
 flash_dq_wgmma_xwide_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
@@ -765,42 +876,56 @@ flash_dq_wgmma_xwide_kernel(const __grid_constant__ CUtensorMap tm_q,
                             int Tk, int tq_pad, long long dq_sb,
                             long long dq_st, long long dq_sh, float scale,
                             int causal) {
-  using L = Smem<D, 2>;
+  using L = Smem<D, 2, CL>;
   using C = Cols<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw =
       static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t base = (raw + 1023u) & ~1023u;
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BR;  // heavy tiles first
+  // heavy tiles first
+  const int q0 = (gridDim.x / CL - 1 - blockIdx.x / CL) * BR;
   const int h = blockIdx.y, b = blockIdx.z;
+  const int cd = column_half<CL>() * D;   // this CTA's first column
   const int q_last = min(q0 + BR, Tq) - 1;
   const int k_end = causal ? min(Tk, q_last + 1) : Tk;
   const int n_tiles = (k_end + L::BT - 1) / L::BT;
   init_bars<L::STAGES>(base + L::bars);
+  init_cluster_bars<CL>(base + L::peer_bars, 2 * NCONS / 32);
 
   // one if/else for the two roles, never reconverging, so that ptxas
   // applies each setmaxnreg to its whole branch
   if (threadIdx.x >= NCONS) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == NCONS)
-      produce<D, 2>(&tm_q, &tm_do, &tm_k, &tm_v, base, q0, 0, h, b, n_tiles,
-                    nullptr, nullptr);
+      produce<D, 2, CL>(&tm_q, &tm_do, &tm_k, &tm_v, base, q0, 0, h, b,
+                        n_tiles, nullptr, nullptr, cd);
+    if constexpr (CL == 2) {                // no access to a finished peer
+      __syncwarp();
+      cluster_sync();
+    }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
     const long long row = ((long long)b * H + h) * tq_pad;
-    __nv_bfloat16* out = dq + b * dq_sb + h * dq_sh;
+    __nv_bfloat16* out = dq + b * dq_sb + h * dq_sh + cd;
     if (C::c0 == C::c1 || threadIdx.x < 128)
-      consume_dq<D, C::c0>(base, q0, n_tiles, (threadIdx.x >> 7) * C::c0,
-                           lse + row, delta + row, out, dq_st, Tq, Tk, scale,
-                           causal);
+      consume_dq<D, CL, C::c0>(base, q0, n_tiles, (threadIdx.x >> 7) * C::c0,
+                               lse + row, delta + row, out, dq_st, Tq, Tk,
+                               scale, causal);
     else
-      consume_dq<D, C::c1>(base, q0, n_tiles, C::c0, lse + row, delta + row,
-                           out, dq_st, Tq, Tk, scale, causal);
+      consume_dq<D, CL, C::c1>(base, q0, n_tiles, C::c0, lse + row,
+                               delta + row, out, dq_st, Tq, Tk, scale,
+                               causal);
+    if constexpr (CL == 2) {
+      __syncwarp();
+      cluster_sync();
+    }
   }
 }
 
-template <int D>
+// D, CL: as in dQ; the CTAs of a cluster share a key tile and a column
+// window of their own halves
+template <int D, int CL>
 __global__ void __launch_bounds__(NT, 1)
 flash_dkv_wgmma_xwide_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_k,
@@ -814,7 +939,7 @@ flash_dkv_wgmma_xwide_kernel(const __grid_constant__ CUtensorMap tm_q,
                              long long dk_st, long long dk_sh, long long dv_sb,
                              long long dv_st, long long dv_sh, float scale,
                              int causal) {
-  using L = Smem<D, 4>;
+  using L = Smem<D, 4, CL>;
   using C = Cols<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw =
@@ -823,101 +948,175 @@ flash_dkv_wgmma_xwide_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   // (key tile, window) pairs: early keys (more queries) first, the two
   // windows of a key tile side by side
-  const int k0 = (blockIdx.x >> 1) * BR;
-  const int window = blockIdx.x & 1;
+  const int tile = blockIdx.x / CL;
+  const int k0 = (tile >> 1) * BR;
+  const int window = tile & 1;
   const int h = blockIdx.y, b = blockIdx.z;
+  const int cd = column_half<CL>() * D;   // this CTA's first column
   // under the causal mask no query before k0 sees a key of this CTA
   const int q_start = causal ? k0 : 0;
   const int n_tiles = q_start < Tq ? (Tq - q_start + L::BT - 1) / L::BT : 0;
   init_bars<L::STAGES>(base + L::bars);
+  init_cluster_bars<CL>(base + L::peer_bars, 2 * NCONS / 32);
 
   if (threadIdx.x >= NCONS) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (threadIdx.x == NCONS) {
       const long long row = ((long long)b * H + h) * tq_pad;
-      produce<D, 4>(&tm_k, &tm_v, &tm_q, &tm_do, base, k0, q_start, h, b,
-                    n_tiles, lse + row, delta + row);
+      produce<D, 4, CL>(&tm_k, &tm_v, &tm_q, &tm_do, base, k0, q_start, h, b,
+                        n_tiles, lse + row, delta + row, cd);
+    }
+    if constexpr (CL == 2) {                // no access to a finished peer
+      __syncwarp();
+      cluster_sync();
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
     const unsigned char* smem = smem_raw + (base - raw);
     const bool is_dk = threadIdx.x < 128;
-    __nv_bfloat16* out = is_dk ? dk + b * dk_sb + h * dk_sh
-                               : dv + b * dv_sb + h * dv_sh;
+    __nv_bfloat16* out = (is_dk ? dk + b * dk_sb + h * dk_sh
+                                : dv + b * dv_sb + h * dv_sh) + cd;
     const long long out_st = is_dk ? dk_st : dv_st;
     if (C::c0 == C::c1 || window == 0)
-      consume_dkv<D, C::c0>(base, smem, k0, q_start, n_tiles,
-                            window * C::c0, out, out_st, Tq, Tk, scale,
-                            causal);
+      consume_dkv<D, CL, C::c0>(base, smem, k0, q_start, n_tiles,
+                                window * C::c0, out, out_st, Tq, Tk, scale,
+                                causal);
     else
-      consume_dkv<D, C::c1>(base, smem, k0, q_start, n_tiles, C::c0, out,
-                            out_st, Tq, Tk, scale, causal);
+      consume_dkv<D, CL, C::c1>(base, smem, k0, q_start, n_tiles, C::c0, out,
+                                out_st, Tq, Tk, scale, causal);
+    if constexpr (CL == 2) {
+      __syncwarp();
+      cluster_sync();
+    }
   }
 }
 
-// The maps of q, k, v and dO (element strides st[0..11]): q and dO in boxes
-// of q_rows rows, k and v in boxes of kv_rows.
-template <int D>
+// The maps of q, k, v and dO (element strides st[0..11]) over W columns:
+// q and dO in boxes of q_rows rows, k and v in boxes of kv_rows.
 int make_maps(CUtensorMap (&m)[4], const void* q, const void* k,
               const void* v, const void* dout, int B, int H, int Tq, int Tk,
-              const long long* st, int q_rows, int kv_rows) {
-  int rc = make_map(&m[0], q, B, Tq, H, D, st[0], st[1], st[2], q_rows);
+              int W, const long long* st, int q_rows, int kv_rows) {
+  int rc = make_map(&m[0], q, B, Tq, H, W, st[0], st[1], st[2], q_rows);
   if (rc == 0)
-    rc = make_map(&m[1], k, B, Tk, H, D, st[3], st[4], st[5], kv_rows);
+    rc = make_map(&m[1], k, B, Tk, H, W, st[3], st[4], st[5], kv_rows);
   if (rc == 0)
-    rc = make_map(&m[2], v, B, Tk, H, D, st[6], st[7], st[8], kv_rows);
+    rc = make_map(&m[2], v, B, Tk, H, W, st[6], st[7], st[8], kv_rows);
   if (rc == 0)
-    rc = make_map(&m[3], dout, B, Tq, H, D, st[9], st[10], st[11], q_rows);
+    rc = make_map(&m[3], dout, B, Tq, H, W, st[9], st[10], st[11], q_rows);
   return rc;
 }
 
-template <int D>
+template <int D, int CL>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int B, int H,
               int Tq, int Tk, int tq_pad, const long long* st, float scale,
               int causal, cudaStream_t stream) {
-  constexpr size_t smem = Smem<D, 2>::alloc;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_dq_wgmma_xwide_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (attr != cudaSuccess) return (int)attr;
+  using L = Smem<D, 2, CL>;
   CUtensorMap m[4];
-  const int rc = make_maps<D>(m, q, k, v, dout, B, H, Tq, Tk, st, BR,
-                              Smem<D, 2>::BT);
+  const int rc = make_maps(m, q, k, v, dout, B, H, Tq, Tk, CL * D, st, BR,
+                           L::BT);
   if (rc != 0) return rc;
-  const dim3 grid((Tq + BR - 1) / BR, H, B);
-  flash_dq_wgmma_xwide_kernel<D><<<grid, NT, smem, stream>>>(
-      m[0], m[1], m[2], m[3], lse, delta, static_cast<__nv_bfloat16*>(dq), H,
-      Tq, Tk, tq_pad, st[12], st[13], st[14], scale, causal);
-  return (int)cudaGetLastError();
+  return launch_ex<flash_dq_wgmma_xwide_kernel<D, CL>, CL>(
+      dim3(CL * ((Tq + BR - 1) / BR), H, B), NT, L::alloc, stream, m[0],
+      m[1], m[2], m[3], lse, delta, static_cast<__nv_bfloat16*>(dq), H, Tq,
+      Tk, tq_pad, st[12], st[13], st[14], scale, causal);
 }
 
-template <int D>
+template <int D, int CL>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dk, void* dv,
                int B, int H, int Tq, int Tk, int tq_pad, const long long* st,
                float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = Smem<D, 4>::alloc;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_dkv_wgmma_xwide_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (attr != cudaSuccess) return (int)attr;
+  using L = Smem<D, 4, CL>;
   CUtensorMap m[4];
-  const int rc = make_maps<D>(m, q, k, v, dout, B, H, Tq, Tk, st,
-                              Smem<D, 4>::BT, BR);
+  const int rc = make_maps(m, q, k, v, dout, B, H, Tq, Tk, CL * D, st, L::BT,
+                           BR);
   if (rc != 0) return rc;
-  const dim3 grid(2 * ((Tk + BR - 1) / BR), H, B);
-  flash_dkv_wgmma_xwide_kernel<D><<<grid, NT, smem, stream>>>(
-      m[0], m[1], m[2], m[3], lse, delta, static_cast<__nv_bfloat16*>(dk),
+  return launch_ex<flash_dkv_wgmma_xwide_kernel<D, CL>, CL>(
+      dim3(CL * 2 * ((Tk + BR - 1) / BR), H, B), NT, L::alloc, stream, m[0],
+      m[1], m[2], m[3], lse, delta, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), H, Tq, Tk, tq_pad, st[12], st[13],
       st[14], st[15], st[16], st[17], scale, causal);
-  return (int)cudaGetLastError();
 }
 
 int check_sizes(int B, int H, int Tq, int Tk, int tq_pad) {
   if (Tk <= 0 || B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
   if (tq_pad < Tq || tq_pad % BR) return kErrPad;
   return 0;
+}
+
+// dQ at `D` columns: wgmma_xwide at 320-512 (one CTA a query tile),
+// wgmma_xxwide at 640-1024 (a cluster of two CTAs, D / 2 columns each);
+// any other width, or one of the other variant's, is refused
+int dq_any(bool xxwide, const void* q, const void* k, const void* v,
+           const void* dout, const void* lse, const void* delta, void* dq,
+           int B, int H, int Tq, int Tk, int D, int tq_pad,
+           const long long* st, float scale, int causal, void* stream) {
+  if (B <= 0 || H <= 0 || Tq <= 0) return 0;
+  const int rc = check_sizes(B, H, Tq, Tk, tq_pad);
+  if (rc != 0) return rc;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  switch (xxwide ? -D : D) {
+#define MXT_DQ(W, DC, CL)                                                    \
+  case W:                                                                    \
+    return launch_dq<DC, CL>(q, k, v, dout, l, dl, dq, B, H, Tq, Tk, tq_pad, \
+                             st, scale, causal, s);
+    MXT_DQ(320, 320, 1)
+    MXT_DQ(384, 384, 1)
+    MXT_DQ(448, 448, 1)
+    MXT_DQ(512, 512, 1)
+    MXT_DQ(-640, 320, 2)
+    MXT_DQ(-768, 384, 2)
+    MXT_DQ(-896, 448, 2)
+    MXT_DQ(-1024, 512, 2)
+#undef MXT_DQ
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// dK/dV at `D` columns, as dq_any
+int dkv_any(bool xxwide, const void* q, const void* k, const void* v,
+            const void* dout, const void* lse, const void* delta, void* dk,
+            void* dv, int B, int H, int Tq, int Tk, int D, int tq_pad,
+            const long long* st, float scale, int causal, void* stream) {
+  if (B <= 0 || H <= 0 || Tq <= 0) return 0;
+  const int rc = check_sizes(B, H, Tq, Tk, tq_pad);
+  if (rc != 0) return rc;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  switch (xxwide ? -D : D) {
+#define MXT_DKV(W, DC, CL)                                                  \
+  case W:                                                                   \
+    return launch_dkv<DC, CL>(q, k, v, dout, l, dl, dk, dv, B, H, Tq, Tk,   \
+                              tq_pad, st, scale, causal, s);
+    MXT_DKV(320, 320, 1)
+    MXT_DKV(384, 384, 1)
+    MXT_DKV(448, 448, 1)
+    MXT_DKV(512, 512, 1)
+    MXT_DKV(-640, 320, 2)
+    MXT_DKV(-768, 384, 2)
+    MXT_DKV(-896, 448, 2)
+    MXT_DKV(-1024, 512, 2)
+#undef MXT_DKV
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+const char* error_string(int code) {
+  if (code == kErrTensorMap)
+    return "cuTensorMapEncodeTiled refused a q/k/v/dO layout";
+  if (code == kErrNoEntryPoint)
+    return "libcuda has no cuTensorMapEncodeTiled entry point";
+  if (code == kErrPad)
+    return "lse/delta row length tq_pad is not a multiple of 64 >= Tq";
+  if (code == kErrCluster)
+    return "no cluster of two wgmma_xxwide backward CTAs fits on this device";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // namespace
@@ -936,28 +1135,8 @@ int mxt_flash_bwd_wgmma_xwide_dq(const void* q, const void* k, const void* v,
                                  int Tq, int Tk, int D, int tq_pad,
                                  const long long* st, float scale, int causal,
                                  void* stream) {
-  if (B <= 0 || H <= 0 || Tq <= 0) return 0;
-  const int rc = check_sizes(B, H, Tq, Tk, tq_pad);
-  if (rc != 0) return rc;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  switch (D) {
-    case 320:
-      return launch_dq<320>(q, k, v, dout, l, dl, dq, B, H, Tq, Tk, tq_pad,
-                            st, scale, causal, s);
-    case 384:
-      return launch_dq<384>(q, k, v, dout, l, dl, dq, B, H, Tq, Tk, tq_pad,
-                            st, scale, causal, s);
-    case 448:
-      return launch_dq<448>(q, k, v, dout, l, dl, dq, B, H, Tq, Tk, tq_pad,
-                            st, scale, causal, s);
-    case 512:
-      return launch_dq<512>(q, k, v, dout, l, dl, dq, B, H, Tq, Tk, tq_pad,
-                            st, scale, causal, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dq_any(false, q, k, v, dout, lse, delta, dq, B, H, Tq, Tk, D,
+                tq_pad, st, scale, causal, stream);
 }
 
 // As mxt_flash_bwd_wgmma_xwide_dq; `st` holds the strides of q, k, v, dO,
@@ -969,38 +1148,41 @@ int mxt_flash_bwd_wgmma_xwide_dkv(const void* q, const void* k,
                                   int Tk, int D, int tq_pad,
                                   const long long* st, float scale,
                                   int causal, void* stream) {
-  if (B <= 0 || H <= 0 || Tq <= 0) return 0;
-  const int rc = check_sizes(B, H, Tq, Tk, tq_pad);
-  if (rc != 0) return rc;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  switch (D) {
-    case 320:
-      return launch_dkv<320>(q, k, v, dout, l, dl, dk, dv, B, H, Tq, Tk,
-                             tq_pad, st, scale, causal, s);
-    case 384:
-      return launch_dkv<384>(q, k, v, dout, l, dl, dk, dv, B, H, Tq, Tk,
-                             tq_pad, st, scale, causal, s);
-    case 448:
-      return launch_dkv<448>(q, k, v, dout, l, dl, dk, dv, B, H, Tq, Tk,
-                             tq_pad, st, scale, causal, s);
-    case 512:
-      return launch_dkv<512>(q, k, v, dout, l, dl, dk, dv, B, H, Tq, Tk,
-                             tq_pad, st, scale, causal, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dkv_any(false, q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, D,
+                 tq_pad, st, scale, causal, stream);
 }
 
 const char* mxt_flash_bwd_wgmma_xwide_error_string(int code) {
-  if (code == kErrTensorMap)
-    return "cuTensorMapEncodeTiled refused a q/k/v/dO layout";
-  if (code == kErrNoEntryPoint)
-    return "libcuda has no cuTensorMapEncodeTiled entry point";
-  if (code == kErrPad)
-    return "lse/delta row length tq_pad is not a multiple of 64 >= Tq";
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return error_string(code);
+}
+
+// wgmma_xxwide: as the two above at D 640, 768, 896 or 1024, each tile of
+// rows (and, for dK/dV, column window) run by a cluster of two CTAs (D / 2
+// columns each); also returns kErrCluster (see
+// mxt_flash_bwd_wgmma_xxwide_error_string)
+int mxt_flash_bwd_wgmma_xxwide_dq(const void* q, const void* k,
+                                  const void* v, const void* dout,
+                                  const void* lse, const void* delta,
+                                  void* dq, int B, int H, int Tq, int Tk,
+                                  int D, int tq_pad, const long long* st,
+                                  float scale, int causal, void* stream) {
+  return dq_any(true, q, k, v, dout, lse, delta, dq, B, H, Tq, Tk, D, tq_pad,
+                st, scale, causal, stream);
+}
+
+int mxt_flash_bwd_wgmma_xxwide_dkv(const void* q, const void* k,
+                                   const void* v, const void* dout,
+                                   const void* lse, const void* delta,
+                                   void* dk, void* dv, int B, int H, int Tq,
+                                   int Tk, int D, int tq_pad,
+                                   const long long* st, float scale,
+                                   int causal, void* stream) {
+  return dkv_any(true, q, k, v, dout, lse, delta, dk, dv, B, H, Tq, Tk, D,
+                 tq_pad, st, scale, causal, stream);
+}
+
+const char* mxt_flash_bwd_wgmma_xxwide_error_string(int code) {
+  return error_string(code);
 }
 
 }  // extern "C"

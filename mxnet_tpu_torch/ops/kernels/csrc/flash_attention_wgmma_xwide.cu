@@ -359,14 +359,6 @@ __device__ __forceinline__ void st_shared_v4(uint32_t addr, float a, float b,
                : "memory");
 }
 
-__device__ __forceinline__ void ld_shared_v4(uint32_t addr, float& a,
-                                             float& b, float& c, float& d) {
-  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(a), "=f"(b), "=f"(c), "=f"(d)
-               : "r"(addr)
-               : "memory");
-}
-
 // The producer: every copy of the CTA, its columns from cd
 template <int D, int CL>
 __device__ __forceinline__ void produce(const CUtensorMap* tm_q,

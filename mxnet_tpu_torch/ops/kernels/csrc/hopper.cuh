@@ -351,6 +351,15 @@ __device__ __forceinline__ void st_async_v4(uint32_t addr, float a, float b,
       : "memory");
 }
 
+// 16 bytes of this CTA's shared memory at `addr`
+__device__ __forceinline__ void ld_shared_v4(uint32_t addr, float& a,
+                                             float& b, float& c, float& d) {
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(a), "=f"(b), "=f"(c), "=f"(d)
+               : "r"(addr)
+               : "memory");
+}
+
 // An arrival on another CTA's mbarrier (shared::cluster address), ordered
 // after this thread's earlier memory accesses (release, cluster scope)
 __device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {

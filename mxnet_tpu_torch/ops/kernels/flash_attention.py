@@ -75,14 +75,14 @@ build or a launch worked; there are eight:
   cut into two windows on a grid axis, each window's CTA recomputing the
   scores over all of D).  The same preconditions and the same copy of
   ``dO`` as ``wgmma``;
-* ``wgmma_xxwide`` — tensor cores, the forward only: bf16 at head_dim
-  513-1024, run at 640, 768, 896 or 1024
-  (``csrc/flash_attention_wgmma_xwide.cu``: the ``wgmma_xwide`` forward
-  at 320-512 columns a CTA, two CTAs of a thread-block cluster splitting
-  D, their partial scores meeting as ``tf32x3_xwide``'s do; o's 64 × D
-  f32 accumulator and the Q, K and V panels of a wider row fit no one
-  CTA).  The same preconditions as ``wgmma``.  The bf16 backward at these
-  widths stays ``wide``;
+* ``wgmma_xxwide`` — tensor cores: bf16 at head_dim 513-1024, run at 640,
+  768, 896 or 1024, both ways: the ``wgmma_xwide`` kernels at 320-512
+  columns a CTA, two CTAs of a thread-block cluster splitting D, their
+  partial scores meeting as ``tf32x3_xwide``'s do (o's, dQ's or a
+  window's f32 accumulators and the panels of a wider row fit no one
+  CTA).  Forward ``csrc/flash_attention_wgmma_xwide.cu``, backward
+  ``csrc/flash_attention_bwd_wgmma_xwide.cu``.  The same preconditions
+  and the same copy of ``dO`` as ``wgmma``;
 * ``simt`` — CUDA cores: f32 up to head_dim 128, and head_dim 16 or 32
   (less than one 128-byte row of the swizzled tiles the wgmma variant
   reads).  Forward ``csrc/flash_attention.cu``; backward
@@ -91,7 +91,7 @@ build or a launch worked; there are eight:
   the dot products over D walk it in chunks of 64 and each CTA owns at
   most 128 output columns, so any head_dim fits
   (``csrc/flash_attention_wide.cu``: forward, dQ and dK/dV).  f32 above
-  512 and bf16 above 1024 both ways, and the bf16 backward at 513-1024.
+  512 and bf16 above 1024, both ways.
 
 Every forward launch counts as ``kernels.launch.flash_attention`` and as
 ``kernels.launch.flash_attention.<variant>``; every backward launch as
@@ -308,12 +308,12 @@ def _variant(dtype, head_dim, backward=False):
     products of the operands' hi / lo terms, under 3·2^-20 relative a
     product, where one TF32 product leaves 2^-11), ``"tf32x3_xwide"`` for
     f32 at 320, 384, 448 or 512 (run at :func:`_kernel_width`: 384 or 512,
-    two CTAs of a cluster splitting D), all five both ways; for the
-    forward only, ``"wgmma_xxwide"`` for bf16 at 576-1024 (run at 640, 768,
-    896 or 1024, two CTAs of a cluster splitting D); ``"wide"`` for every
-    other width above 128 (f32 above 512, bf16 above 1024, the bf16
-    backward above 512); ``"simt"`` for the rest (f32 up to 128; bf16 up to
-    32)."""
+    two CTAs of a cluster splitting D), ``"wgmma_xxwide"`` for bf16 at
+    576-1024 (run at 640, 768, 896 or 1024, two CTAs of a cluster splitting
+    D), all six both ways; ``"wide"`` for every other width above 128 (f32
+    above 512, bf16 above 1024); ``"simt"`` for the rest (f32 up to 128;
+    bf16 up to 32).  ``backward`` names the direction; the rule is the same
+    for both."""
     width = _padded_dim(head_dim)
     for variant in ("wgmma", "wgmma_wide", "wgmma_xwide", "tf32x3"):
         if dtype == _TC_DTYPE[variant] and width in _TC_WIDTHS[variant]:
@@ -323,7 +323,6 @@ def _variant(dtype, head_dim, backward=False):
     for variant, below in (("tf32x3_xwide", "tf32x3"),
                            ("wgmma_xxwide", "wgmma_xwide")):
         if (dtype == _TC_DTYPE[variant]
-                and not (backward and variant == "wgmma_xxwide")
                 and _TC_WIDTHS[below][-1] < width
                 <= _TC_WIDTHS[variant][-1]):
             return variant
@@ -381,8 +380,8 @@ def _tma_fault(name, t):
 
 def _check_wgmma(q, k, v, do=None, variant="wgmma"):
     """Raise :class:`ValueError` on inputs the tensor-core variants
-    (``wgmma``, ``wgmma_wide``, ``wgmma_xwide``, ``tf32x3``,
-    ``tf32x3_xwide``) cannot read
+    (``wgmma``, ``wgmma_wide``, ``wgmma_xwide``, ``wgmma_xxwide``,
+    ``tf32x3``, ``tf32x3_xwide``) cannot read
     (:func:`_tma_fault`): q, k, v and, for the backward, ``do``.  Never a
     reason to take another variant."""
     named = (("q", q), ("k", k), ("v", v)) + (
@@ -718,9 +717,12 @@ _BWD_TC = {
     "tf32x3": ("flash_attention_bwd_tf32x3", "mxt_flash_bwd_tf32x3"),
     "wgmma_xwide": ("flash_attention_bwd_wgmma_xwide",
                     "mxt_flash_bwd_wgmma_xwide"),
-    # the same source as tf32x3: its kernels in 2-CTA clusters
+    # the same sources as tf32x3 and wgmma_xwide: their kernels in 2-CTA
+    # clusters
     "tf32x3_xwide": ("flash_attention_bwd_tf32x3",
                      "mxt_flash_bwd_tf32x3_xwide"),
+    "wgmma_xxwide": ("flash_attention_bwd_wgmma_xwide",
+                     "mxt_flash_bwd_wgmma_xxwide"),
 }
 
 
@@ -892,6 +894,27 @@ def _flash_dkv_wgmma_xwide_cuda(q, k, v, do, lse, delta, causal=True,
                               scale)
 
 
+def _flash_dq_wgmma_xxwide_cuda(q, k, v, do, lse, delta, causal=True,
+                                scale=None):
+    """Launch the dQ kernel of ``csrc/flash_attention_bwd_wgmma_xwide.cu``
+    in 2-CTA clusters that split D (tensor cores) on bf16 inputs with
+    head_dim 640, 768, 896 or 1024; returns ``dq``, contiguous.  Raises on
+    inputs it does not take (:func:`_check_tc_width`, :func:`_check_wgmma`
+    with ``do``): never a hand-off to the wide variant."""
+    return _flash_dq_tc_cuda("wgmma_xxwide", q, k, v, do, lse, delta,
+                             causal, scale)
+
+
+def _flash_dkv_wgmma_xxwide_cuda(q, k, v, do, lse, delta, causal=True,
+                                 scale=None):
+    """Launch the dK/dV kernel of
+    ``csrc/flash_attention_bwd_wgmma_xwide.cu`` in 2-CTA clusters on bf16
+    inputs with head_dim 640, 768, 896 or 1024; returns ``(dk, dv)``,
+    contiguous, every row written (rows no query sees are 0)."""
+    return _flash_dkv_tc_cuda("wgmma_xxwide", q, k, v, do, lse, delta,
+                              causal, scale)
+
+
 def _flash_bwd_cuda(q, k, v, o, lse, do, dlse=None, causal=True,
                     scale=None):
     """The backward on CUDA tensors: ``delta`` with torch ops on the
@@ -930,6 +953,8 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, dlse=None, causal=True,
                         _flash_dkv_wgmma_xwide_cuda),
         "tf32x3_xwide": (_flash_dq_tf32x3_xwide_cuda,
                          _flash_dkv_tf32x3_xwide_cuda),
+        "wgmma_xxwide": (_flash_dq_wgmma_xxwide_cuda,
+                         _flash_dkv_wgmma_xxwide_cuda),
         "wide": (_flash_dq_wide_cuda, _flash_dkv_wide_cuda),
         "simt": (_flash_dq_simt_cuda, _flash_dkv_simt_cuda)}[variant]
     dq = launch_dq(q, k, v, do, lse, delta, causal, scale)

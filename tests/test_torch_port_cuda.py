@@ -24,8 +24,7 @@ plain version at those tolerances at the main paths' shapes and at the
 edges (odd E, offset views, strided rows, 1-8 rows, 128 KB rows), two
 calls bit-identical, with 0 ptxas spills in every instantiation.  Head dims
 above 512 take the flash kernels' wide variant in f32, above 1024 in
-bf16 and the bf16 backward above 512, held to the plain versions at the
-padded cases' tolerances.  bf16 at
+bf16, held to the plain versions at the padded cases' tolerances.  bf16 at
 head_dim 129-256 takes the tensor-core ``wgmma_wide`` kernels, forward and
 backward, held as the wgmma ones are (plain version, dense autograd for
 the backward, kv_len, fused-qkv views, a strided dO, misaligned inputs,
@@ -43,7 +42,10 @@ dK/dV (the tf32x3 kernels in 2-CTA clusters that split D), held the same
 way, and so does the f32 forward there (``tf32x3_xwide``: the tf32x3
 forward in 2-CTA clusters), held as the tf32x3 forward is; the bf16
 forward at head_dim 513-1024 takes ``wgmma_xxwide`` (the wgmma_xwide
-forward in 2-CTA clusters), held as the wgmma_xwide forward is.  The f32
+forward in 2-CTA clusters), held as the wgmma_xwide forward is, and so
+does the bf16 backward there (the wgmma_xwide dQ and dK/dV in 2-CTA
+clusters), held as the wgmma_xwide backward is, at head_dim 576-1024,
+with one head among the cases.  The f32
 forward at head_dim 129-256 takes the tensor-core ``tf32x3`` forward (split-TF32
 products for S and P·V), held to the plain version at the f32 forward
 gates (o within 1e-5 + 1e-4·|o|, lse within 1e-4 + 1e-5·|lse|: the
@@ -1148,6 +1150,160 @@ def test_flash_autograd_bf16_head_dim_512_launches_wgmma_xwide(dev):
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
 
 
+def test_flash_bwd_wgmma_xwide_does_not_spill(dev):
+    """ptxas: dQ and dK/dV at 320, 384, 448 and 512 columns a CTA, alone
+    (wgmma_xwide) and in 2-CTA clusters (wgmma_xxwide), 0 bytes of
+    spills."""
+    src = "flash_attention_bwd_wgmma_xwide"
+    log = _build.build([src])[src]["log"]
+    lines = [ln for ln in log.splitlines() if "spill stores" in ln]
+    assert len(lines) == 16, log
+    assert all(" 0 bytes spill stores, 0 bytes spill loads" in ln
+               for ln in lines), log
+
+
+# ---------------------------------------------------------------------------
+# flash backward: wgmma_xxwide, bf16 at D 640-1024 (the wgmma_xwide dQ and
+# dK/dV in 2-CTA clusters that split D)
+# ---------------------------------------------------------------------------
+WGMMA_XXWIDE_BWD_CASES = [
+    # (B, Tq, Tk, H, D, causal); a pair of CTAs owns 64 query rows (dQ) or
+    # 64 keys and a column window (dK/dV), each the wgmma_xwide layout over
+    # half of D; 576 pads to 640, 700 to 768, 1000 to 1024
+    (1, 1, 1, 2, 1024, True),
+    (1, 1, 1, 1, 640, False),
+    (2, 63, 63, 2, 576, True),
+    (1, 65, 65, 2, 768, True),
+    (1, 127, 127, 3, 1000, False),
+    (1, 129, 129, 2, 896, True),
+    (1, 129, 129, 2, 700, True),
+    (1, 1000, 3000, 2, 1024, False),
+    (1, 1000, 3000, 1, 576, False),
+    (1, 20, 300, 2, 576, True),      # causal, Tq < Tk: keys 20.. dK=dV=0
+    (1, 65, 200, 2, 896, True),
+    (1, 300, 70, 2, 1024, True),     # causal, Tq > Tk
+    (1, 300, 70, 2, 640, True),
+    (1, 1, 129, 2, 768, False),
+    (2, 333, 333, 2, 640, True),
+    (1, 777, 777, 1, 1024, True),
+    (1, 2000, 2000, 1, 1000, True),
+]
+
+
+@pytest.mark.parametrize("case", WGMMA_XXWIDE_BWD_CASES)
+def test_flash_bwd_wgmma_xxwide_matches_plain(dev, case):
+    """dQ and dK/dV of the wgmma_xxwide variant against the plain backward
+    (with an lse cotangent) within one bf16 ulp (2^-7 relative, 1e-3
+    absolute for cancelling entries), against dense autograd within 6.5e-3
+    of each gradient's largest entry, keys no query sees at zero, one
+    launch of each and none of wide, and two calls bit-identical."""
+    B, Tq, Tk, H, D, causal = case
+    q, k, v, o, lse, do, dlse = _flash_bwd_inputs(dev, *case, torch.bfloat16)
+    for t in (q, k, v):                    # see test_flash_bwd_kernels_...
+        torch.full_like(t, float("nan"))
+    common.reset_counts()
+    got = _flash_bwd_cuda(q, k, v, o, lse, do, dlse, causal)
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention_dq": 1,
+        "kernels.launch.flash_attention_dq.wgmma_xxwide": 1,
+        "kernels.launch.flash_attention_dkv": 1,
+        "kernels.launch.flash_attention_dkv.wgmma_xxwide": 1}
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, dlse, causal)
+    auto = _dense_autograd_grads(q, k, v, do, dlse, causal)
+    for gt, wt, at, name in zip(got, want, auto, ("dq", "dk", "dv")):
+        assert gt.dtype == torch.bfloat16 and gt.shape == wt.shape
+        assert gt.is_contiguous() and torch.isfinite(gt).all(), name
+        np.testing.assert_allclose(_np(gt), _np(wt), err_msg=name,
+                                   **BF16_GRAD_TOL)
+        assert _rel_to_max(gt, at) <= XWIDE_AUTOGRAD_REL, name
+    if causal and Tq < Tk:
+        assert not got[1][:, Tq:].any() and not got[2][:, Tq:].any()
+    again = _flash_bwd_cuda(q, k, v, o, lse, do, dlse, causal)
+    for a, b in zip(got, again):           # no atomics: the same bits
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D", [576, 1024])
+def test_flash_bwd_wgmma_xxwide_reads_fused_qkv_views_and_strided_dout(
+        dev, D):
+    """q/k/v as views of one fused qkv product and a transposed dO give
+    the same bits as contiguous copies."""
+    B, T, H = 2, 333, 3
+    g = torch.Generator(device=dev).manual_seed(5)
+    qkv = torch.randn(B, T, 3 * H * D, generator=g, device=dev,
+                      dtype=torch.bfloat16)
+    q, k, v = (t.view(B, T, H, D) for t in qkv.split(H * D, -1))
+    o, lse = _flash_cuda(q, k, v)
+    do = torch.randn(B, H, T, D, generator=g, device=dev,
+                     dtype=torch.bfloat16).transpose(1, 2)
+    assert not q.is_contiguous() and not do.is_contiguous()
+    common.reset_counts()
+    a = _flash_bwd_cuda(q, k, v, o, lse, do)
+    assert common.launch_counts()[
+        "kernels.launch.flash_attention_dkv.wgmma_xxwide"] == 1
+    b = _flash_bwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(), o,
+                        lse, do.contiguous())
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_flash_bwd_wgmma_xxwide_refuses_misaligned_inputs(dev):
+    """Misaligned q/k/v raise before any launch; a misaligned dO (an
+    internal cotangent) is copied by the backward, and refused by the
+    launchers themselves, as are f32 and a width not theirs."""
+    from mxnet_tpu_torch.ops.kernels.flash_attention import (
+        _flash_dkv_wgmma_xxwide_cuda, _flash_dq_wgmma_xxwide_cuda)
+    B, T, H, D = 1, 64, 2, 1024
+    q, k, v, o, lse, do, _ = _flash_bwd_inputs(dev, B, T, T, H, D, True,
+                                               torch.bfloat16)
+    flat = torch.randn(B * T * H * D + 1, device=dev, dtype=torch.bfloat16)
+    bad = flat[1:].view(B, T, H, D)                   # base 2 bytes off
+    bad.copy_(q)
+    delta = _delta(o, do, None)
+    common.reset_counts()
+    with pytest.raises(ValueError, match="wgmma_xxwide variant.*q's base"):
+        _flash_bwd_cuda(bad, k, v, o, lse, do)
+    for launch in (_flash_dq_wgmma_xxwide_cuda,
+                   _flash_dkv_wgmma_xxwide_cuda):
+        with pytest.raises(ValueError, match="k's base address"):
+            launch(q, bad, v, do, lse, delta)
+        with pytest.raises(ValueError, match="dO's base address"):
+            launch(q, k, v, bad, lse, delta)
+        with pytest.raises(ValueError, match="takes bf16 with head_dim"):
+            launch(q.float(), k.float(), v.float(), do.float(), lse, delta)
+        half = [t[..., :512].contiguous() for t in (q, k, v, do)]
+        with pytest.raises(ValueError, match="takes bf16 with head_dim"):
+            launch(*half, lse, delta)
+    assert common.launch_counts() == {}
+    bad.copy_(do)
+    got = _flash_bwd_cuda(q, k, v, o, lse, bad)
+    want = _flash_bwd_cuda(q, k, v, o, lse, do)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_flash_autograd_bf16_head_dim_1024_launches_wgmma_xxwide(dev):
+    """Autograd of ``flash_attention`` at bf16 head_dim 1024 with one head
+    (the head_dim-1024 leg's layout): the forward, dQ and dK/dV on
+    wgmma_xxwide, one each, none on wide."""
+    B, T, H, D = 2, 130, 1, 1024
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn(B, T, H, D, generator=g, device=dev,
+                           dtype=torch.bfloat16, requires_grad=True)
+               for _ in range(3))
+    common.reset_counts()
+    o, lse = flash_attention_lse(q, k, v)
+    (o.float().square().sum() + lse.tanh().sum()).backward()
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention": 1,
+        "kernels.launch.flash_attention.wgmma_xxwide": 1,
+        "kernels.launch.flash_attention_dq": 1,
+        "kernels.launch.flash_attention_dq.wgmma_xxwide": 1,
+        "kernels.launch.flash_attention_dkv": 1,
+        "kernels.launch.flash_attention_dkv.wgmma_xxwide": 1}
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
 # ---------------------------------------------------------------------------
 # flash forward: the tensor-core tf32x3 variant, f32 at D 192 or 256
 # ---------------------------------------------------------------------------
@@ -1770,8 +1926,8 @@ def test_flash_padded_head_dims_match_plain(dev, D, dtype, causal):
     and 128) and above 128 (160 padded to 192, 256, 320, 576: the wide
     variant, but at 160 and 256, which take wgmma_wide in bf16 and tf32x3
     in f32, bf16 at 320, which takes wgmma_xwide both ways, f32 at 320,
-    which takes tf32x3_xwide at 384 both ways, and the bf16 forward at
-    576, which takes wgmma_xxwide at 640):
+    which takes tf32x3_xwide at 384 both ways, and bf16 at 576, which
+    takes wgmma_xxwide at 640 both ways):
     no ValueError, the plain version's results, ``scale`` from the real
     head_dim, and the padded variant's launches."""
     B, Tq, Tk, H = 1, 150, 150, 2
@@ -1787,9 +1943,9 @@ def test_flash_padded_head_dims_match_plain(dev, D, dtype, causal):
         variant = "wide"
     else:
         variant = "wgmma" if dtype == torch.bfloat16 else "simt"
-    bwd_variant = variant
     if dtype == torch.bfloat16 and 512 < D <= 1024:
         variant = "wgmma_xxwide"
+    bwd_variant = variant
     assert common.launch_counts() == {
         "kernels.launch.flash_attention": 1,
         "kernels.launch.flash_attention.%s" % variant: 1}

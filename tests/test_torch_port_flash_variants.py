@@ -36,16 +36,12 @@ BF16 = torch.bfloat16
     (torch.float32, 576, "wide"), (BF16, 1025, "wide")])
 def test_variant_by_dtype_and_head_dim(dtype, D, variant):
     """:func:`_variant` names the forward's variant (``variant``) and the
-    backward's, the same but for bf16 at padded head_dim 576-1024, whose
-    forward runs on the tensor cores in 2-CTA clusters (``wgmma_xxwide``)
-    while its backward stays ``wide``: f32 at padded head_dim 192 and 256
-    runs on the tensor cores (``tf32x3``) both ways, and at 320-512 in
-    2-CTA clusters (``tf32x3_xwide``) both ways."""
+    backward's, the same: f32 at padded head_dim 192 and 256 runs on the
+    tensor cores (``tf32x3``) both ways, and at 320-512 in 2-CTA clusters
+    (``tf32x3_xwide``) both ways; bf16 at padded head_dim 576-1024 in
+    2-CTA clusters (``wgmma_xxwide``) both ways."""
     assert fa._variant(dtype, D) == variant
-    bwd = variant
-    if variant == "wgmma_xxwide":
-        bwd = "wide"
-    assert fa._variant(dtype, D, backward=True) == bwd
+    assert fa._variant(dtype, D, backward=True) == variant
 
 
 @pytest.mark.parametrize("dtype,D,variant", [
@@ -87,17 +83,16 @@ def test_bf16_backward_at_257_to_512_takes_wgmma_xwide(D, width):
     (BF16, 2048), (torch.float32, 448)])
 def test_bf16_above_512_and_f32_above_256_stay_wide_both_ways(dtype, D):
     """What stays on the wide kernels above the one-CTA tensor-core
-    widths: bf16 at 513-1024 takes the 2-CTA-cluster wgmma_xxwide forward
-    and the wide backward, bf16 above 1024 wide both ways; f32 at 257-512
-    takes the 2-CTA-cluster tf32x3_xwide kernels both ways, f32 above 512
-    wide both ways."""
+    widths: bf16 at 513-1024 takes the 2-CTA-cluster wgmma_xxwide kernels
+    both ways, bf16 above 1024 wide both ways; f32 at 257-512 takes the
+    2-CTA-cluster tf32x3_xwide kernels both ways, f32 above 512 wide both
+    ways."""
     if dtype == BF16:
-        fwd = "wgmma_xxwide" if D <= 1024 else "wide"
-        bwd = "wide"
+        want = "wgmma_xxwide" if D <= 1024 else "wide"
     else:
-        fwd = bwd = "tf32x3_xwide" if D <= 512 else "wide"
-    assert fa._variant(dtype, D) == fwd
-    assert fa._variant(dtype, D, backward=True) == bwd
+        want = "tf32x3_xwide" if D <= 512 else "wide"
+    assert fa._variant(dtype, D) == want
+    assert fa._variant(dtype, D, backward=True) == want
 
 
 @pytest.mark.parametrize("D,width,bwd_width", [
@@ -122,13 +117,25 @@ def test_bf16_forward_at_513_to_1024_takes_wgmma_xxwide(D, width,
                                                         kernel_width):
     """bf16 at head_dim 513-1024: the forward on wgmma_xxwide at the next
     of 640, 768, 896 and 1024 (a pair of CTAs, each at a wgmma_xwide
-    width); the backward on wide at the padded width."""
+    width), and the backward the same; wide would run the padded width."""
     assert fa._padded_dim(D) == width
     assert fa._variant(BF16, D) == "wgmma_xxwide"
     assert fa._kernel_width("wgmma_xxwide", D) == kernel_width
     assert kernel_width // 2 in fa._TC_WIDTHS["wgmma_xwide"]
-    assert fa._variant(BF16, D, backward=True) == "wide"
+    assert fa._variant(BF16, D, backward=True) == "wgmma_xxwide"
     assert fa._kernel_width("wide", D) == width
+
+
+@pytest.mark.parametrize("D,variant,kernel_width", [
+    (513, "wgmma_xxwide", 640), (576, "wgmma_xxwide", 640),
+    (769, "wgmma_xxwide", 896), (1000, "wgmma_xxwide", 1024),
+    (1024, "wgmma_xxwide", 1024), (1025, "wide", 1088)])
+def test_bf16_backward_widths_above_512(D, variant, kernel_width):
+    """The bf16 backward above 512: dQ and dK/dV on wgmma_xxwide (2-CTA
+    clusters that split D) at 640, 768, 896 or 1024, the next of them past
+    the padded width; above 1024 on wide at the padded width."""
+    assert fa._variant(BF16, D, backward=True) == variant
+    assert fa._kernel_width(variant, D) == kernel_width
 
 
 @pytest.mark.parametrize("dtype,D", [(BF16, 1025), (BF16, 1088),
@@ -185,8 +192,8 @@ def test_padded_dim(D, width):
 
 
 def _bwd_launchers(monkeypatch, calls):
-    """Replace the six backward launchers with recorders that return
-    zeros of the right shapes."""
+    """Replace the backward launchers (dQ and dK/dV of every variant) with
+    recorders that return zeros of the right shapes."""
     def launcher(name):
         def launch(q, k, v, do, lse, delta, causal, scale):
             calls.append((name, q.shape[-1], do.shape[-1], causal, scale,
@@ -199,7 +206,8 @@ def _bwd_launchers(monkeypatch, calls):
     for name in ("dq_wgmma", "dkv_wgmma", "dq_simt", "dkv_simt", "dq_wide",
                  "dkv_wide", "dq_wgmma_wide", "dkv_wgmma_wide", "dq_tf32x3",
                  "dkv_tf32x3", "dq_wgmma_xwide", "dkv_wgmma_xwide",
-                 "dq_tf32x3_xwide", "dkv_tf32x3_xwide"):
+                 "dq_tf32x3_xwide", "dkv_tf32x3_xwide", "dq_wgmma_xxwide",
+                 "dkv_wgmma_xxwide"):
         monkeypatch.setattr(fa, "_flash_%s_cuda" % name, launcher(name))
 
 
@@ -210,21 +218,22 @@ def _bwd_launchers(monkeypatch, calls):
     (torch.float32, 256, "tf32x3"), (torch.float32, 320, "tf32x3_xwide"),
     (BF16, 320, "wgmma_xwide"), (BF16, 384, "wgmma_xwide"),
     (BF16, 448, "wgmma_xwide"), (BF16, 512, "wgmma_xwide"),
-    (BF16, 576, "wide"), (torch.float32, 384, "tf32x3_xwide"),
+    (BF16, 576, "wgmma_xxwide"), (torch.float32, 384, "tf32x3_xwide"),
     (torch.float32, 448, "tf32x3_xwide"), (torch.float32, 512, "tf32x3_xwide"),
-    (torch.float32, 576, "wide")])
+    (torch.float32, 576, "wide"), (BF16, 1024, "wgmma_xxwide"),
+    (BF16, 1088, "wide")])
 def test_flash_bwd_cuda_dispatches_by_variant(monkeypatch, dtype, D,
                                               variant):
     """``_flash_bwd_cuda`` hands the inputs to the dQ and the dK/dV
     launcher its variant names, with the caller's arguments and ``delta``
-    [B, H, Tq]; tf32x3_xwide gets them padded to 384 or 512 and the
-    gradients come back at D."""
+    [B, H, Tq]; tf32x3_xwide gets them padded to 384 or 512, wgmma_xxwide
+    576 padded to 640, and the gradients come back at D."""
     calls = []
     _bwd_launchers(monkeypatch, calls)
     q = torch.zeros(1, 5, 2, D, dtype=dtype)
     lse = torch.zeros(1, 2, 5)
     dq, dk, dv = fa._flash_bwd_cuda(q, q, q, q, lse, q, None, False, 0.5)
-    W = {320: 384, 448: 512}.get(D, D) if variant == "tf32x3_xwide" else D
+    W = fa._kernel_width(variant, D)
     assert calls == [("dq_" + variant, W, W, False, 0.5, (1, 2, 5)),
                      ("dkv_" + variant, W, W, False, 0.5, (1, 2, 5))]
     assert dq.shape == dk.shape == dv.shape == q.shape
@@ -283,8 +292,9 @@ def test_head_dims_above_128_reach_wide(monkeypatch, dtype, D, width):
     the width padded to a multiple of 64, with ``scale`` 1/√D of the real
     D; the outputs come back at D.  From 257 to 512 bf16 goes to the
     wgmma_xwide launchers and f32 to the tf32x3_xwide ones at 384 or 512,
-    forward and backward; above 512 the bf16 forward to wgmma_xxwide at
-    640 (576), the bf16 backward and f32 to wide."""
+    forward and backward; above 512 bf16 to wgmma_xwide's 2-CTA-cluster
+    twin wgmma_xxwide at 640 (576), forward and backward, and f32 to
+    wide."""
     fwd = []
     variant = bwd_variant = "wide"
     fwd_width = bwd_width = width
@@ -296,7 +306,8 @@ def test_head_dims_above_128_reach_wide(monkeypatch, dtype, D, width):
         variant = bwd_variant = "tf32x3_xwide"
         fwd_width = bwd_width = 384 if D <= 384 else 512
     elif dtype == BF16:
-        variant, fwd_width = "wgmma_xxwide", 640
+        variant = bwd_variant = "wgmma_xxwide"
+        fwd_width = bwd_width = 640
 
     def launch(q, k, v, causal, scale, kv_len):
         fwd.append((q.shape[-1], k.shape[-1], v.shape[-1], scale))
@@ -644,6 +655,127 @@ def test_wgmma_xwide_bwd_copies_a_dout_the_tma_cannot_read(monkeypatch, D):
 
     monkeypatch.setattr(fa, "_flash_dq_wgmma_xwide_cuda", dq)
     monkeypatch.setattr(fa, "_flash_dkv_wgmma_xwide_cuda",
+                        lambda q, k, v, *a: (torch.zeros_like(k),
+                                             torch.zeros_like(v)))
+    q = torch.zeros(1, 8, 2, D, dtype=BF16)
+    bad = torch.arange(8 * 2 * D + 1).to(BF16)[1:].view(1, 8, 2, D)
+    assert fa._tma_fault("dO", bad)
+    fa._flash_bwd_cuda(q, q, q, q, torch.zeros(1, 2, 8), bad)
+    assert len(seen) == 1
+    assert fa._tma_fault("dO", seen[0]) is None
+    assert seen[0].is_contiguous()
+    assert torch.equal(seen[0][..., :D], bad)
+
+
+@pytest.mark.parametrize("which", ["dq", "dkv"])
+@pytest.mark.parametrize("case", [
+    "f32", "bf16_512", "bf16_576", "bf16_1088", "q", "k", "v", "dO",
+    "k_stride", "dO_stride"])
+def test_wgmma_xxwide_launchers_refuse_before_any_build(monkeypatch, which,
+                                                        case):
+    """The wgmma_xxwide launchers (dQ and dK/dV in 2-CTA clusters) take
+    bf16 at head_dim 640, 768, 896 or 1024 only (the wrapper pads 513-1024
+    to one of them), read through TMA (bases 16-byte aligned, (B, T, H)
+    strides multiples of 8 elements), and raise on anything else before
+    they build or count anything; never a hand-off to the wide kernels or
+    the plain version."""
+    from mxnet_tpu_torch.ops.kernels import _build, common
+
+    def no_build(*a, **k):
+        raise AssertionError("built a kernel")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    common.reset_counts()
+    launch = {"dq": fa._flash_dq_wgmma_xxwide_cuda,
+              "dkv": fa._flash_dkv_wgmma_xxwide_cuda}[which]
+    shape = (1, 8, 2, 1024)
+    args = [torch.zeros(shape, dtype=BF16) for _ in range(4)]
+    if case in ("f32", "bf16_512", "bf16_576", "bf16_1088"):
+        dtype, D = {"f32": (torch.float32, 1024), "bf16_512": (BF16, 512),
+                    "bf16_576": (BF16, 576),
+                    "bf16_1088": (BF16, 1088)}[case]
+        args = [torch.zeros(1, 8, 2, D, dtype=dtype)] * 4
+        match = ("wgmma_xxwide variant.*takes bf16 with head_dim in "
+                 "\\(640, 768, 896, 1024\\); got %s, head_dim %d"
+                 % (dtype, D))
+    elif case.endswith("_stride"):
+        name = case[:-len("_stride")]
+        wide = torch.zeros(1, 8, 2 * 1024 + 4, dtype=BF16)  # T stride 2052
+        i = ("q", "k", "v", "dO").index(name)
+        args[i] = wide[..., :2 * 1024].view(shape)
+        match = ("wgmma_xxwide variant.*%s's T stride 2052 is not a "
+                 "multiple of 8" % name)
+    else:
+        i = ("q", "k", "v", "dO").index(case)
+        args[i] = _misaligned(shape, BF16)
+        match = ("wgmma_xxwide variant.*%s's base address is not 16-byte"
+                 % case)
+    lse = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError, match=match):
+        launch(*args, lse, lse)
+    assert common.launch_counts() == {}
+
+
+@pytest.mark.parametrize("D,kernel_width", [(576, 640), (700, 768),
+                                            (1000, 1024), (1024, 1024)])
+def test_padded_width_and_real_scale_reach_wgmma_xxwide_bwd(monkeypatch, D,
+                                                            kernel_width):
+    """bf16 at head_dim 513-1024: ``_flash_bwd_cuda`` hands the
+    wgmma_xxwide dQ and dK/dV launchers q, k, v and dO zero-padded to the
+    kernel width (the values unchanged, the new columns 0) with ``scale``
+    1/√D of the real D, and slices the gradients back to D, contiguous, as
+    the launchers computed them."""
+    seen = {}
+
+    def dq(q, k, v, do, lse, delta, causal, scale):
+        seen["dq"] = (q, k, v, do, causal, scale)
+        return q * 2
+
+    def dkv(q, k, v, do, lse, delta, causal, scale):
+        seen["dkv"] = (q, k, v, do, causal, scale)
+        return k * 3, v * 4
+
+    def refuse(*a):
+        raise AssertionError("another variant ran")
+
+    for name in ("wgmma", "wgmma_wide", "wgmma_xwide", "tf32x3",
+                 "tf32x3_xwide", "simt", "wide"):
+        for kind in ("dq", "dkv"):
+            monkeypatch.setattr(fa, "_flash_%s_%s_cuda" % (kind, name),
+                                refuse)
+    monkeypatch.setattr(fa, "_flash_dq_wgmma_xxwide_cuda", dq)
+    monkeypatch.setattr(fa, "_flash_dkv_wgmma_xxwide_cuda", dkv)
+    g = torch.Generator().manual_seed(D)
+    q, k, v, o, do = (torch.randn(1, 6, 2, D, generator=g).to(BF16)
+                      for _ in range(5))
+    grads = fa._flash_bwd_cuda(q, k, v, o, torch.zeros(1, 2, 6), do, None,
+                               False)
+    for kind in ("dq", "dkv"):
+        *ins, causal, scale = seen[kind]
+        assert causal is False and scale == 1.0 / D ** 0.5
+        for got, want in zip(ins, (q, k, v, do)):
+            assert got.shape == (1, 6, 2, kernel_width)
+            assert got.dtype == BF16
+            assert torch.equal(got[..., :D], want)
+            assert not got[..., D:].any()
+    for got, want in zip(grads, (q * 2, k * 3, v * 4)):
+        assert got.shape == (1, 6, 2, D) and got.is_contiguous()
+        assert torch.equal(got, want[..., :D])
+
+
+@pytest.mark.parametrize("D", [576, 1024])
+def test_wgmma_xxwide_bwd_copies_a_dout_the_tma_cannot_read(monkeypatch, D):
+    """As for wgmma_xwide: a dO whose layout the TMA cannot read is copied
+    before the wgmma_xxwide launchers see it (head_dim 576 padded to 640,
+    and 1024)."""
+    seen = []
+
+    def dq(q, k, v, do, lse, delta, causal, scale):
+        seen.append(do)
+        return torch.zeros_like(q)
+
+    monkeypatch.setattr(fa, "_flash_dq_wgmma_xxwide_cuda", dq)
+    monkeypatch.setattr(fa, "_flash_dkv_wgmma_xxwide_cuda",
                         lambda q, k, v, *a: (torch.zeros_like(k),
                                              torch.zeros_like(v)))
     q = torch.zeros(1, 8, 2, D, dtype=BF16)

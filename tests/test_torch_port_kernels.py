@@ -327,13 +327,13 @@ def _plain_launchers(monkeypatch):
 
     # head_dim 129-256 runs forward and backward on wgmma_wide in bf16, on
     # tf32x3 in f32; bf16 at 257-512 on wgmma_xwide, both ways; f32 at
-    # 257-512 on tf32x3_xwide (at 384 or 512), both ways; the bf16 forward
-    # at 513-1024 on wgmma_xxwide (at 640-1024)
+    # 257-512 on tf32x3_xwide (at 384 or 512), both ways; bf16 at
+    # 513-1024 on wgmma_xxwide (at 640-1024), both ways
     for name in ("wgmma", "simt", "wide", "wgmma_wide", "tf32x3",
                  "wgmma_xwide", "tf32x3_xwide", "wgmma_xxwide"):
         monkeypatch.setattr(fa, "_flash_%s_cuda" % name, fwd_launcher(name))
     for name in ("wgmma", "simt", "wide", "wgmma_wide", "tf32x3",
-                 "wgmma_xwide", "tf32x3_xwide"):
+                 "wgmma_xwide", "tf32x3_xwide", "wgmma_xxwide"):
         monkeypatch.setattr(fa, "_flash_dq_%s_cuda" % name, dq_launcher(name))
         monkeypatch.setattr(fa, "_flash_dkv_%s_cuda" % name,
                             lambda *a: bwd(*a)[1:])
@@ -344,7 +344,8 @@ def _plain_launchers(monkeypatch):
 @pytest.mark.parametrize("D,width", [(48, 64), (80, 128), (96, 128),
                                      (160, 192), (256, 256), (320, 320),
                                      (400, 448), (512, 512), (448, 448),
-                                     (576, 576), (1000, 1024)])
+                                     (576, 576), (1000, 1024),
+                                     (1024, 1024)])
 def test_padded_head_dims_match_pallas_kernels(monkeypatch, D, width, dtype):
     """Head dims the kernels lack go through the CUDA wrappers' padding
     (launchers replaced by the plain versions) and match the JAX package's
@@ -355,8 +356,8 @@ def test_padded_head_dims_match_pallas_kernels(monkeypatch, D, width, dtype):
     which the two forwards' o may differ enters delta = rowsum(dO∘O) over
     more than 128 terms, which moves a few cancelling gradient entries
     past one rounding (D 160: 4 of 11840 dQ entries).  f32 at 257-512
-    runs padded further, to 384 or 512 (tf32x3_xwide), both ways, and the
-    bf16 forward at 513-1024 to 640-1024 (wgmma_xxwide)."""
+    runs padded further, to 384 or 512 (tf32x3_xwide), both ways, and bf16
+    at 513-1024 to 640-1024 (wgmma_xxwide), both ways."""
     fa, widths, bwd_variants = _plain_launchers(monkeypatch)
     B, T, H, causal = 1, 37, 2, True
     q, k, v = _qkv(B, T, T, H, D, dtype)
@@ -390,11 +391,12 @@ def test_padded_head_dims_match_pallas_kernels(monkeypatch, D, width, dtype):
     bwd_width = width
     if bwd_variant == "tf32x3_xwide":
         bwd_width = 384 if D <= 384 else 512
+    elif bwd_variant == "wgmma_xxwide":
+        bwd_width = 640 if D <= 640 else 1024
     assert bwd_variants == [(bwd_variant, bwd_width)] * len(residuals)
     if D > 512:
-        assert widths[0][0] == ("wgmma_xxwide" if dtype == "bfloat16"
-                                else "wide")
-        assert bwd_variant == "wide"
+        assert widths[0][0] == bwd_variant == (
+            "wgmma_xxwide" if dtype == "bfloat16" else "wide")
     elif D > 256:
         assert widths[0][0] == bwd_variant == (
             "wgmma_xwide" if dtype == "bfloat16" else "tf32x3_xwide")

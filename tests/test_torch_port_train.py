@@ -295,30 +295,33 @@ def test_head_dim_256_flash_step_matches_jax(monkeypatch, dtype):
         _close_rel(v[name], jv[name], vrel, "v " + name)
 
 
-# head_dim 512 (d_model 1024, 2 heads), one layer: the widths of the
-# long-context head_dim-512 leg, whose bf16 flash backward runs on the
-# tensor-core wgmma_xwide kernels on the card (the forward on wide)
+# head_dim 512 (d_model 1024, 2 heads) and 1024 (one head), one layer: the
+# widths of the long-context head_dim-512 and head_dim-1024 legs, whose
+# bf16 flash kernels run on the tensor cores on the card (wgmma_xwide at
+# 512, wgmma_xxwide's 2-CTA clusters at 1024, both ways)
 HD512 = dict(vocab_size=VOCAB, d_model=1024, n_heads=2, n_layers=1,
              d_ff=256, max_len=64)
-_HD512_CACHE = {}
+HD1024 = dict(HD512, n_heads=1)
+_WIDE_HEAD_CACHE = {}
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_head_dim_512_flash_step_matches_jax(monkeypatch, dtype):
-    """At head_dim 512 on the flash route (Pallas kernels through the
-    interpreter on JAX's side): one SGD-momentum step's loss, parameters
-    and velocity match the JAX step at the bounds above, and the flash
-    backward ran (one layer)."""
+def _wide_head_step_matches_jax(monkeypatch, cfg, dtype):
+    """One SGD-momentum step at ``cfg`` on the flash route (Pallas kernels
+    through the interpreter on JAX's side): the loss, parameters and
+    velocity match the JAX step at the bounds above, and the flash
+    backward ran (one layer).  The JAX model is built once per config and
+    dtype."""
     monkeypatch.setenv("MXTPU_PALLAS", "interpret")
-    if dtype not in _HD512_CACHE:
-        jm = jtf.TransformerLM(jtf.TransformerConfig(**HD512, dtype=dtype))
-        _HD512_CACHE[dtype] = (jm, jm.init(jax.random.PRNGKey(0)))
-    jm, params = _HD512_CACHE[dtype]
-    m = TransformerLM(TransformerConfig(**HD512, dtype=dtype,
+    key = (cfg["n_heads"], dtype)
+    if key not in _WIDE_HEAD_CACHE:
+        jm = jtf.TransformerLM(jtf.TransformerConfig(**cfg, dtype=dtype))
+        _WIDE_HEAD_CACHE[key] = (jm, jm.init(jax.random.PRNGKey(0)))
+    jm, params = _WIDE_HEAD_CACHE[key]
+    m = TransformerLM(TransformerConfig(**cfg, dtype=dtype,
                                         dense_attn_max_score_mb=0),
                       device="cpu").load_jax_params(
         {k: np.asarray(v) for k, v in params.items()})
-    assert m.cfg.head_dim == 512
+    assert m.cfg.head_dim == cfg["d_model"] // cfg["n_heads"]
     toks, tgts = _batch(B=2, T=24, seed=23)
     jp, jv, jloss = jax.jit(jtf.make_train_step(jm))(
         params, jax.tree_util.tree_map(jnp.zeros_like, params),
@@ -338,3 +341,15 @@ def test_head_dim_512_flash_step_matches_jax(monkeypatch, dtype):
                       else (BF16_PARAM_REL, BF16_VELOCITY_REL))
         _close_rel(p[name], jp[name], prel, name)
         _close_rel(v[name], jv[name], vrel, "v " + name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_512_flash_step_matches_jax(monkeypatch, dtype):
+    """At head_dim 512 (2 heads of d_model 1024)."""
+    _wide_head_step_matches_jax(monkeypatch, HD512, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_1024_flash_step_matches_jax(monkeypatch, dtype):
+    """At head_dim 1024 (one head of d_model 1024: a size-1 head axis)."""
+    _wide_head_step_matches_jax(monkeypatch, HD1024, dtype)

@@ -40,13 +40,25 @@ CTA, and one whose producer copies only the first ST key tiles, in turns
 16, 1024]; it also prints the ptxas registers and spills of the
 forward's eight instantiations.
 
+The wgmma_xxwide backward (the backward source's dQ and dK/dV in 2-CTA
+clusters that split D, at 640-1024) is timed the same way against a copy
+whose warps skip meeting the peer CTA (each CTA's p and ds from its own
+half of the scores: wrong results, the time of everything but the pair's
+exchange) and one whose producer copies only the first STAGES streamed
+tiles, in turns (built, no peer, no copies, and back) at chip_smoke.py's
+[2, 1000, 4, 576] and [1, 4096, 16, 576] (run at 640) and the
+head_dim-1024 leg's [4, 8192, 1, 1024], after holding the built kernels
+against the plain backward; it also prints the ptxas registers and
+spills of the backward's sixteen instantiations.
+
 One JSON line per shape and kernel, then the card's name and power
 limit.  Run from the root of a checkout, with one card::
 
-    python3 xwide_plan_probe.py            # the forwards, then the backward
+    python3 xwide_plan_probe.py            # every part below, in order
     python3 xwide_plan_probe.py fwd        # wgmma_xwide's forward only
     python3 xwide_plan_probe.py xxwide     # wgmma_xxwide's forward only
-    python3 xwide_plan_probe.py bwd        # the backward only
+    python3 xwide_plan_probe.py bwd        # wgmma_xwide's backward only
+    python3 xwide_plan_probe.py xxbwd      # wgmma_xxwide's backward only
 
 It exits non-zero without a CUDA device.
 """
@@ -67,6 +79,11 @@ SHAPES = (  # (B, T, H, D, causal)
     (2, 1000, 4, 320, False),
 )
 SOURCE = "flash_attention_bwd_wgmma_xwide"
+XXBWD_SHAPES = (  # (B, T, H, D, causal)
+    (2, 1000, 4, 576, False),
+    (1, 4096, 16, 576, True),
+    (4, 8192, 1, 1024, True),
+)
 
 
 # the plan's lines, and the two-slot plan in their place
@@ -126,8 +143,9 @@ def _fwd_no_copies(src):
 
 def _library(fa, build, tmp, tag, edit, source=SOURCE,
              prefix="mxt_flash_bwd_wgmma_xwide", configure=None):
-    """The source as ``edit`` returns it, built into ``tmp`` and
-    loaded."""
+    """The source as ``edit`` returns it, built into ``tmp`` and loaded
+    (the backward source's entry points declared for both its variants
+    unless ``configure`` says otherwise)."""
     import ctypes
 
     csrc = os.path.join(os.path.dirname(fa.__file__), "csrc")
@@ -138,7 +156,10 @@ def _library(fa, build, tmp, tag, edit, source=SOURCE,
     subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I", csrc, "-o", so,
                     path], check=True, capture_output=True)
     lib = ctypes.CDLL(so)
-    (configure or fa._configure_bwd_tc)(prefix, lib)
+    if configure is None:
+        fa._configure_bwd_source(source, lib)
+    else:
+        configure(prefix, lib)
     return lib
 
 
@@ -150,8 +171,8 @@ def _replaced(src, old, new):
 
 
 def _run(torch, fa, build, smoke, tmp):
-    built = build.load(SOURCE, functools.partial(
-        fa._configure_bwd_tc, "mxt_flash_bwd_wgmma_xwide"))
+    built = build.load(SOURCE, functools.partial(fa._configure_bwd_source,
+                                                 SOURCE))
     libs = {"built": built,
             "two_slots": _library(fa, build, tmp, "two_slots", lambda src:
                                   _replaced(src, PLAN, TWO_SLOTS)),
@@ -281,6 +302,69 @@ def _run_fwd(torch, fa, build, smoke, tmp, variant):
     build._LIBS[FWD_SOURCE] = built
 
 
+def _run_xxbwd(torch, fa, build, smoke, tmp):
+    """The wgmma_xxwide backward: its instantiations' registers and
+    spills, then per shape the built kernels held against the plain
+    backward and timed in turns with the no-peer and no-copies copies."""
+    built = build.load(SOURCE, functools.partial(fa._configure_bwd_source,
+                                                 SOURCE))
+    for kernel, line in smoke._ptxas_summary(
+            build.build([SOURCE])[SOURCE]["log"]):
+        print(json.dumps({"ptxas": line}), flush=True)
+    libs = {"built": built,
+            "no_peer": _library(fa, build, tmp, "no_peer", lambda src:
+                                _replaced(src, PEER, NO_PEER)),
+            "no_copies": _library(fa, build, tmp, "xx_no_copies", lambda src:
+                                  _replaced(src, EXPECT, NO_COPIES))}
+    launch = {"dq": fa._flash_dq_wgmma_xxwide_cuda,
+              "dkv": fa._flash_dkv_wgmma_xxwide_cuda}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for B, T, H, D, causal in XXBWD_SHAPES:
+        W = fa._kernel_width("wgmma_xxwide", D)
+        scale = D ** -0.5
+        q, k, v, do = (torch.randn(B, T, H, D, generator=gen,
+                                   device="cuda").bfloat16()
+                       for _ in range(4))
+        o, lse = fa._flash_cuda(q, k, v, causal)
+        delta = fa._delta(o, do, None)
+        want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, None,
+                                                causal)
+        q, k, v, do = (fa._pad_d(t, W) for t in (q, k, v, do))
+        build._LIBS[SOURCE] = built
+        dq = launch["dq"](q, k, v, do, lse, delta, causal, scale)
+        dk, dv = launch["dkv"](q, k, v, do, lse, delta, causal, scale)
+        torch.cuda.synchronize()
+        errs = {"dq": smoke._err(dq[..., :D], want[0], 1e-3, 2 ** -7)}
+        e_dk, e_dv = (smoke._err(g[..., :D], w, 1e-3, 2 ** -7)
+                      for g, w in zip((dk, dv), want[1:]))
+        errs["dkv"] = (max(e_dk[0], e_dv[0]), e_dk[1] and e_dv[1])
+        del want, dq, dk, dv, o
+        args = smoke._copies((q, k, v, do, lse, delta))
+        for kind, fn in launch.items():
+            turns = {}
+            for plan in ("built", "no_peer", "no_copies", "no_copies",
+                         "no_peer", "built"):
+                build._LIBS[SOURCE] = libs[plan]
+                turns.setdefault(plan, []).append(smoke._time_ms(
+                    lambda q, k, v, do, lse, delta, fn=fn: fn(
+                        q, k, v, do, lse, delta, causal, scale), args))
+            ms = {p: statistics.mean(t) for p, t in turns.items()}
+            print(json.dumps({
+                "kernel": "%s wgmma_xxwide" % kind, "shape": [B, T, H, D],
+                "padded_head_dim": W, "causal": causal, "dtype": "bfloat16",
+                "ms_turns": turns, "ms": ms,
+                "share_of_the_peer_exchange":
+                    1 - ms["no_peer"] / ms["built"],
+                "share_of_the_streamed_copies":
+                    1 - ms["no_copies"] / ms["built"],
+                "max_abs_err": errs[kind][0], "ok": errs[kind][1]}),
+                  flush=True)
+            if not errs[kind][1]:
+                raise SystemExit("xwide_plan_probe: the wgmma_xxwide %s "
+                                 "disagrees with the plain backward" % kind)
+        build._LIBS[SOURCE] = built
+
+
 def main():
     import sys
 
@@ -293,7 +377,7 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("xwide_plan_probe: no CUDA device is available")
-    parts = sys.argv[1:] or ["fwd", "xxwide", "bwd"]
+    parts = sys.argv[1:] or ["fwd", "xxwide", "bwd", "xxbwd"]
     with tempfile.TemporaryDirectory(prefix="xwide_plan_probe_") as tmp:
         if "fwd" in parts:
             _run_fwd(torch, fa, _build, smoke, tmp, "wgmma_xwide")
@@ -301,6 +385,8 @@ def main():
             _run_fwd(torch, fa, _build, smoke, tmp, "wgmma_xxwide")
         if "bwd" in parts:
             _run(torch, fa, _build, smoke, tmp)
+        if "xxbwd" in parts:
+            _run_xxbwd(torch, fa, _build, smoke, tmp)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
