@@ -32,10 +32,21 @@ on the card:
   int8-fused by ``contrib.quantization.quantize_model``, bound, and run at
   batch 128, with the int8 matmul kernel in its classifier; and
   ``nd.contrib.quantized_dense`` on the classifier's int8 inputs, with the
-  int8 matmul's fused-dequant kernel;
+  int8 matmul's fused-dequant kernel; and bench.py's interleaved bf16 vs
+  int8 VGG16 pair: the Gluon ``vgg16`` exported (``HybridBlock.export``),
+  read back (``model.load_checkpoint``), quantized, saved
+  (``save_checkpoint``) and served through ``gluon.SymbolBlock.imports``,
+  with the int8 matmul kernel in its three fully connected layers, against
+  the bf16 Gluon net, each a CUDA graph of chained forwards;
+* the vision model zoo — one fp32 forward of each family ported (VGG,
+  AlexNet, SqueezeNet, MobileNet V1 and V2, DenseNet, Inception V3) at its
+  published input size, held to the same weights in float64 on the CPU,
+  and each one's export served through ``predict.Predictor``;
 * symbolic training — ``Module.fit`` of the same ResNet-50 at
   train_imagenet.py's settings (batch 32, SGD with momentum and weight
-  decay, a MultiFactorScheduler, accuracy, ``Uniform(0.01)``), f32;
+  decay, a MultiFactorScheduler, accuracy, ``Uniform(0.01)``), f32, and
+  its checkpoint (``save_checkpoint`` with the optimizer's states,
+  ``Module.load``) resumed for one step;
 * user kernels — CUDA source compiled at runtime by ``mx.rtc`` (NVRTC)
   and launched from a ``CustomOp`` (``rtc_softmax``) on that path: in
   ``example/numpy-ops/custom_softmax.py``'s training and as ResNet-50's
@@ -62,7 +73,8 @@ Run from the root of the repository, with no arguments::
 
 ``--profile`` adds a last phase that traces one long prefill, a few decode
 iterations, one training step of each training configuration, one fp32
-and one int8 ResNet-50 forward, one ResNet-50 Module training step, one
+and one int8 ResNet-50 forward, one int8 and one bf16 VGG16 forward (the
+pair's nets at batch 128), one ResNet-50 Module training step, one
 Gluon ``FusedTrainStep`` at the gluon_train settings and one word_lm step
 (with and without its Perplexity update) with ``torch.profiler`` (where
 the device time goes).
@@ -135,7 +147,8 @@ Phases, in order; any failure raises and exits non-zero:
    kernels phase gives the same bits in two calls.  The int8
    matmul's planned variant and, where that is wgmma, its mma variant are
    held bit for bit to the plain version and timed in turns beside
-   ``torch._int_mm``;
+   ``torch._int_mm`` at 2048^3, VGG16's fc6 / fc7 / fc8 (batch 128),
+   ResNet-50's classifier and a ragged shape;
 4. serve   — a flagship ``GenerationServer`` answers 7 concurrent greedy
    requests (one ~4000-token prompt crosses the flash gate), a solo
    resubmission must reproduce its batched stream, the kernel counters
@@ -221,7 +234,12 @@ Phases, in order; any failure raises and exits non-zero:
    same on the CPU: in float64 every gradient, moving statistic and update
    within ``MODULE_CHECK_REL_F64``; in f32 every moving statistic within
    ``MODULE_CHECK_REL``, and each device's f32 gradients reported against
-   the float64 step;
+   the float64 step; then the checkpoint round trip: after the fit,
+   ``save_checkpoint(save_optimizer_states=True)``, ``Module.load(
+   load_optimizer_states=True)`` on the card and one more step on the next
+   batch, which must equal the fitted module's own next step bit for bit
+   (parameters, moving statistics and momenta; cuDNN deterministic for the
+   two steps);
 7. rtc — (a) the reference's templated ``axpy<float>`` / ``axpy<double>``
    and tests/test_rtc.py's kernels in CUDA, equal to torch; a second
    module of the same source and a second launch compile nothing; the host
@@ -279,6 +297,24 @@ Phases, in order; any failure raises and exits non-zero:
    fused-dequant kernel's wgmma variant once, and
    ``int8_vs_bf16``: the int8 forwards' img/s over gluon_infer's per-call
    bf16 figure (both per-dispatch timings);
+12b. int8_vgg16 — bench.py's pair at its settings (see VGG_*): the
+   exported fp32 ``SymbolBlock``'s logits must equal the Gluon net's
+   (``VGG_EXPORT_REL``), the int8 ``SymbolBlock``'s outputs through the
+   kernels must equal those through the plain versions bit for bit (on a
+   difference, each fully connected layer's largest int32 difference is
+   named), one forward must launch the int8 matmul once per fully
+   connected layer by the variant ``plan_int8_matmul`` names (and
+   split-K's adding kernel), no plain version, and the pair's draws that
+   many times a forward; ``interleaved_throughput``'s alternating draws
+   (steps=20, reps=3) give ``int8_vgg16_img_per_sec``,
+   ``int8_vgg16_bf16_img_per_sec`` and ``int8_vgg16_vs_bf16`` with their
+   spreads, and the peak memory;
+12c. zoo — ``vgg16``, ``alexnet``, ``squeezenet1.0``, ``mobilenet1.0``,
+   ``mobilenetv2_1.0``, ``densenet121`` (224^2) and ``inceptionv3``
+   (299^2), seeded Xavier weights, batch 8, fp32 on the card (TF32 off):
+   the logits within ``ZOO_REL`` of the same net's in float64 on the CPU,
+   the export served through ``predict.Predictor`` on the card within
+   ``ZOO_EXPORT_REL`` of the Gluon logits, and each forward's ms;
 13. gluon_cifar — resnet18_v1 thumbnail, f32, hybridized, 20 steps of
    record -> backward -> ``Trainer.step`` on one seeded batch of 128: the
    loss must fall below ``CIFAR_FALL`` times the first;
@@ -343,7 +379,8 @@ Phases, in order; any failure raises and exits non-zero:
 
 Each main path (serve, each serving-plane path, each training
 configuration, the mesh_nccl step, each rank's multirank leg, the timed int8
-forwards, the ``quantized_dense`` call, ``Module.fit``, the example's
+forwards, the ``quantized_dense`` call, the int8 VGG16's counted forward
+and the pair's draws, ``Module.fit``, the example's
 training through ``rtc_softmax`` and the ResNet-50 step through it, the
 kernels leg, and each generation worker's served streams) runs
 with the counters zeroed
@@ -357,6 +394,7 @@ exits non-zero and prints no result.
 """
 import contextlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -613,6 +651,37 @@ INT8_MIN_COSINE = 0.99          # the bar of tests/test_quantization.py
 # f32(acc) times the same f32 scale, so they agree bit for bit; held to
 # the oracle's stated 1e-6 relative
 DENSE_RTOL = 1e-6
+# bench.py's interleaved bf16 vs int8 VGG16 pair (_int8_vs_bf16_pair at
+# int8_bench's settings): vgg16(classes=1000), Xavier, batch 128 at
+# 224^2, 16 naive-calibration images in batches of 8, fold_bn, fuse_int8,
+# interleaved_throughput(steps=20, reps=3).  Its classifier (fc6, fc7,
+# fc8) is three quantized_fully_connected: the int8 matmul, [128, K] x
+# [N, K]
+VGG_BATCH = 128
+VGG_SIZE = 224
+VGG_CALIB = 16
+VGG_STEPS = 20
+VGG_REPS = 3
+VGG_FC = ((25088, 4096), (4096, 4096), (4096, 1000))      # (K, N)
+# the exported fp32 SymbolBlock against the hybridized Gluon net on the
+# same 8 images: the executor runs the same ops on the same arrays as the
+# CachedOp, so the logits agree to the last bit; gated at 1e-6 of the
+# largest logit
+VGG_EXPORT_REL = 1e-6
+VGG_EXPORT_BATCH = 8
+# the zoo phase: one model of each family ported for the Gluon model zoo,
+# at its published input size, batch 8, seeded Xavier weights, fp32 on the
+# card (TF32 off) against the same weights in float64 on the CPU: f32
+# rounding through 8-121 layers, within ZOO_REL of the largest logit; the
+# export served by predict.Predictor on the card runs the same ops on the
+# same arrays as the Gluon net, within ZOO_EXPORT_REL
+ZOO = (("vgg16", 224), ("alexnet", 224), ("squeezenet1.0", 224),
+       ("mobilenet1.0", 224), ("mobilenetv2_1.0", 224),
+       ("densenet121", 224), ("inceptionv3", 299))
+ZOO_BATCH = 8
+ZOO_TIMED = 3
+ZOO_REL = 1e-4
+ZOO_EXPORT_REL = 1e-6
 
 
 # the module_train phase: train_imagenet.py's defaults (resnet-50,
@@ -708,8 +777,15 @@ B1_DRAWS = 3
 SERVE_REQUESTS = 400
 SERVE_QUEUE = 32
 SERVE_D_IN, SERVE_D_H = 64, 256
+# the two stalls (0.25 s each) fall far enough apart that the first job's
+# hedge time comes while the other replica is still free: a hedge goes only
+# to a free replica that has not tried the job, in both packages
+# (tests/test_torch_port_model_server.py::
+# test_no_hedge_while_every_replica_is_stalled), and at executions 6 and 8
+# both replicas were often stalled by then, so that a hedge fired only if
+# the scheduler saw one replica free before the other's job settled
 SERVE_CHAOS_SPEC = ("replica_crash@1,replica_crash@4,slow_replica@6,"
-                    "slow_replica@8")
+                    "slow_replica@12")
 SERVE_CHAOS_REQUESTS = 48
 SERVE_HEDGE_MS = 50
 # sentinel: bench.py's sentinel leg (bench.py:508-541): gluon_train's step
@@ -1824,11 +1900,13 @@ def phase_kernels():
         _xent_case(8192, 32000, "float32", gen)
     _xent_case(8192, 32000, "bfloat16", gen)
     _xent_case(777, 30001, "float32", gen)
-    # the INT8 path: bench.py's 2048^3 kernel leg, VGG16's fc6 at batch
-    # 128, ResNet-50's classifier (the shape the int8 phase runs) and a
-    # ragged case (no dimension a multiple of the tiles, K odd)
+    # the INT8 path: bench.py's 2048^3 kernel leg, VGG16's fc6, fc7 and
+    # fc8 at batch 128 (the int8_vgg16 pair's classifier), ResNet-50's
+    # classifier (the shape the int8 phase runs) and a ragged case (no
+    # dimension a multiple of the tiles, K odd)
     _int8_case(2048, 2048, 2048, gen)
-    _int8_case(128, 25088, 4096, gen)
+    for K, N in VGG_FC:
+        _int8_case(VGG_BATCH, K, N, gen)
     main["int8_matmul"], main["int8_matmul_dequant"] = \
         _int8_case(INT8_BATCH, 2048, INT8_NET["num_classes"], gen)
     _int8_case(777, 301, 1001, gen)
@@ -3270,6 +3348,299 @@ def phase_int8(dev, bf16_img_s=None):
     return [fwd_launches, dense_launches], {"fp32": exe, "int8": qexe}
 
 
+def _vgg16_int8_net(mx, ctx):
+    """bench.py's ``_build_int8_net("vgg16")`` on the card: the seeded
+    Xavier ``vgg16(classes=1000)``, hybridized, exported, read back with
+    ``load_checkpoint``, quantized (naive calibration, fold_bn, fuse_int8),
+    saved with ``save_checkpoint`` and imported with
+    ``SymbolBlock.imports``, in a temporary directory.  Returns the int8
+    SymbolBlock, its symbol, the batch and the export gate's numbers (the
+    Gluon net's and the exported fp32 SymbolBlock's logits on
+    ``VGG_EXPORT_BATCH`` of its images)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.contrib.quantization import quantize_model
+    from mxnet_tpu_torch.gluon import SymbolBlock
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    rng = np.random.RandomState(0)
+    net = vision.vgg16(classes=1000)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net.hybridize()
+    x32 = mx.nd.array(rng.rand(VGG_BATCH, 3, VGG_SIZE, VGG_SIZE)
+                      .astype(np.float32), ctx=ctx)
+    with mx.autograd.pause():
+        net(x32[0:1])                   # deferred init only
+    xs = x32[0:VGG_EXPORT_BATCH]
+    with tempfile.TemporaryDirectory() as d:
+        prefix = os.path.join(d, "m")
+        net.export(prefix, 0)
+        fp32 = SymbolBlock.imports(prefix + "-symbol.json", ["data"],
+                                   prefix + "-0000.params", ctx=ctx)
+        with mx.autograd.pause():
+            gluon_logits = net(xs).asnumpy()
+            export_logits = fp32(xs).asnumpy()
+        del fp32, net
+        sym, args, auxs = mx.model.load_checkpoint(prefix, 0)
+        calib = mx.io.NDArrayIter(
+            rng.rand(VGG_CALIB, 3, VGG_SIZE, VGG_SIZE).astype(np.float32),
+            np.zeros((VGG_CALIB,)), max(1, VGG_CALIB // 2))
+        t0 = time.perf_counter()
+        qsym, qargs, qauxs = quantize_model(
+            sym, args, auxs, ctx=ctx, calib_mode="naive", calib_data=calib,
+            num_calib_examples=VGG_CALIB, fold_bn=True, fuse_int8=True)
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t0
+        mx.model.save_checkpoint(os.path.join(d, "q"), 0, qsym, qargs,
+                                 qauxs)
+        del sym, args, auxs, qargs, qauxs
+        qnet = SymbolBlock.imports(os.path.join(d, "q-symbol.json"),
+                                   ["data"], os.path.join(d, "q-0000.params"),
+                                   ctx=ctx)
+    torch.cuda.empty_cache()
+    return qnet, qsym, x32, gluon_logits, export_logits, quantize_s
+
+
+def _int8_divergence(mx, qnet, qsym, x):
+    """Where the int8 graph through the kernels leaves the one through the
+    plain versions: each quantized_fully_connected node's largest int32
+    difference (the only ops whose route the plain versions change)."""
+    from mxnet_tpu_torch.gluon import SymbolBlock
+
+    fcs = [n.name for n in qsym._topo() if not n.is_var
+           and n.op.name == "_contrib_quantized_fully_connected"]
+    inner = qsym.get_internals()
+    probe = SymbolBlock(mx.sym.Group([inner[n + "_output0"] for n in fcs]),
+                        [mx.sym.var("data")], params=qnet.collect_params())
+    with mx.autograd.pause():
+        got = [o.asnumpy() for o in probe(x)]
+        with _plain_versions():
+            want = [o.asnumpy() for o in probe(x)]
+    return {n: int(abs(g.astype("int64") - w).max())
+            for n, g, w in zip(fcs, got, want)}
+
+
+def phase_int8_vgg16(dev):
+    """bench.py's interleaved bf16 vs int8 VGG16 pair (int8_bench ->
+    _int8_vs_bf16_pair) at its settings.  Gates: the exported fp32
+    SymbolBlock's logits are the Gluon net's; the int8 SymbolBlock's
+    outputs through the kernels are those through the plain versions, bit
+    for bit; one forward launches the int8 matmul once per classifier
+    layer, as plan_int8_matmul names the variant (and split-K's adding
+    kernel), with no plain version; the pair's draws launched it as many
+    times a forward.  Returns the counted runs' launches and the two nets,
+    for ``--profile``."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.benchmark import (_summarize, compiled_loop,
+                                           graph_replays)
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ops.kernels import common
+    from mxnet_tpu_torch.ops.kernels.int8_matmul import plan_int8_matmul
+
+    ctx = mx.gpu(0)
+    qnet, qsym, x32, gluon_logits, export_logits, quantize_s = \
+        _vgg16_int8_net(mx, ctx)
+    export_err = float(np.abs(export_logits - gluon_logits).max())
+    export_scale = float(np.abs(gluon_logits).max())
+    ops = {}
+    for n in qsym._topo():
+        if not n.is_var:
+            ops[n.op.name] = ops.get(n.op.name, 0) + 1
+
+    # one forward through the kernels, counted, and through the plain
+    # versions
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = {}
+    for K, N in VGG_FC:
+        plan = plan_int8_matmul(VGG_BATCH, N, K, sms)
+        keys = ["int8_matmul", "int8_matmul." + plan.variant]
+        if plan.variant == "wgmma" and plan.splits > 1:
+            keys.append("int8_matmul.reduce")
+        for k in keys:
+            want["kernels.launch." + k] = want.get("kernels.launch." + k,
+                                                   0) + 1
+    with mx.autograd.pause():
+        qnet(x32)                                  # warm, uncounted
+        torch.cuda.synchronize()
+        common.reset_counts()
+        logits = qnet(x32).asnumpy()
+        fwd_launches = common.launch_counts()
+        fwd_selects = common.selection_counts()
+        with _plain_versions():
+            plain = qnet(x32).asnumpy()
+    same_as_plain = bool(np.array_equal(logits, plain))
+    divergence = None if same_as_plain else \
+        _int8_divergence(mx, qnet, qsym, x32)
+
+    # the bf16 side: the same seeded batch, the net cast after its
+    # deferred init in f32
+    rng = np.random.RandomState(0)
+    net16 = vision.vgg16(classes=1000)
+    net16.initialize(mx.init.Xavier(), ctx=ctx)
+    x_host = rng.rand(VGG_BATCH, 3, VGG_SIZE, VGG_SIZE).astype(np.float32)
+    with mx.autograd.pause():
+        net16(mx.nd.array(x_host[0:1], ctx=ctx))
+    net16.cast("bfloat16")
+    net16.hybridize()
+    x16 = mx.nd.array(x_host, ctx=ctx).astype("bfloat16")
+    del x_host
+
+    # the main path: the interleaved draws (one CUDA graph of VGG_STEPS
+    # chained forwards a loop, replayed once a draw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_counts()
+    replays0 = graph_replays()
+    t0 = time.perf_counter()
+    # interleaved_throughput's draws, A, B, A, B, kept whole for the spread
+    pairs = [(net16, x16), (qnet, x32)]
+    loops = [compiled_loop(net, x, VGG_STEPS) for net, x in pairs]
+    times = [[], []]
+    for _ in range(VGG_REPS):
+        for t, loop in zip(times, loops):
+            t.append(loop.draw())
+    bf16, int8 = [_summarize(t, x.shape[0] * VGG_STEPS)
+                  for t, (_, x) in zip(times, pairs)]
+    pair_s = time.perf_counter() - t0
+    pair_launches = common.launch_counts()
+    pair_selects = common.selection_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_fwd = pair_launches.get("kernels.launch.int8_matmul", 0) // len(VGG_FC)
+    ratio = int8["median"] / bf16["median"]
+    rec = {
+        "phase": "int8_vgg16", "device": dev["name"],
+        "nvidia_smi": dev["smi"], "batch": VGG_BATCH, "size": VGG_SIZE,
+        "calib_images": VGG_CALIB, "steps": VGG_STEPS, "reps": VGG_REPS,
+        "quantize_model_s": quantize_s, "op_counts": ops,
+        "int8_vgg16_img_per_sec": int8["median"],
+        "int8_vgg16_img_per_sec_spread": [int8["min"], int8["max"]],
+        "int8_vgg16_bf16_img_per_sec": bf16["median"],
+        "int8_vgg16_bf16_img_per_sec_spread": [bf16["min"], bf16["max"]],
+        "int8_vgg16_vs_bf16": ratio,
+        "int8_vgg16_vs_bf16_spread": [int8["min"] / bf16["max"],
+                                      int8["max"] / bf16["min"]],
+        "int8_ms_a_batch": 1e3 * VGG_BATCH / int8["median"],
+        "bf16_ms_a_batch": 1e3 * VGG_BATCH / bf16["median"],
+        "pair_s": pair_s, "graph_replays": graph_replays() - replays0,
+        "peak_mem_gb": peak_gb,
+        "export_max_abs_err": export_err, "export_logit_scale": export_scale,
+        "export_bitwise": bool(np.array_equal(export_logits, gluon_logits)),
+        "export_rel_tol": VGG_EXPORT_REL,
+        "kernels_equal_plain_bitwise": same_as_plain,
+        "divergence_by_fc": divergence,
+        "forward_launches": fwd_launches, "expected_launches": want,
+        "forward_selections": fwd_selects,
+        "pair_launches": pair_launches, "pair_forwards": n_fwd,
+        "pair_selections": pair_selects,
+    }
+    _emit(rec)
+    _check(export_err <= VGG_EXPORT_REL * export_scale,
+           "the exported VGG16 SymbolBlock's logits are %g from the Gluon "
+           "net's (largest %g)" % (export_err, export_scale))
+    _check(np.isfinite(logits).all() and logits.shape == (VGG_BATCH, 1000),
+           "int8 VGG16 logits: shape %s, finite %s"
+           % (logits.shape, np.isfinite(logits).all()))
+    _check(ops.get("_contrib_quantized_fully_connected") == len(VGG_FC),
+           "int8 VGG16: %s quantized_fully_connected nodes, expected %d"
+           % (ops.get("_contrib_quantized_fully_connected"), len(VGG_FC)))
+    _check(same_as_plain, "the int8 VGG16 through the kernels differs from "
+           "the one through the plain versions; largest int32 difference "
+           "by layer: %s" % divergence)
+    _check(fwd_launches == want, "an int8 VGG16 forward launched %s, "
+           "expected %s" % (fwd_launches, want))
+    for sel in (fwd_selects, pair_selects):
+        _check(not any(k.endswith(".reference") for k in sel),
+               "a plain version ran on the int8 VGG16 path: %s" % sel)
+    _check(n_fwd >= VGG_STEPS and pair_launches ==
+           {k: v * n_fwd for k, v in want.items()},
+           "the pair's draws launched %s: not %d forwards of %s"
+           % (pair_launches, n_fwd, want))
+    return [fwd_launches, pair_launches], {"int8": qnet, "bf16": net16,
+                                           "x32": x32, "x16": x16}
+
+
+def phase_zoo(dev):
+    """One fp32 forward of each family in ``ZOO`` on the card against the
+    same weights in float64 on the CPU, and its export served through
+    ``predict.Predictor`` on the card."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    card, host = mx.gpu(0), mx.cpu()
+    recs = []
+    for i, (name, size) in enumerate(ZOO):
+        np.random.seed(i)
+        x = np.random.RandomState(100 + i).rand(
+            ZOO_BATCH, 3, size, size).astype(np.float32)
+        net = vision.get_model(name, prefix="zoo_")
+        net.initialize(mx.init.Xavier(), ctx=card)
+        net.hybridize()
+        xc = mx.nd.array(x, ctx=card)
+        with mx.autograd.pause():
+            out = net(xc)                          # deferred init, warm
+            torch.cuda.synchronize()
+            ms = []
+            for _ in range(ZOO_TIMED):
+                t0 = time.perf_counter()
+                out = net(xc)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        on_card = out.data.is_cuda
+        logits = out.asnumpy()
+        weights = {k: v.data().asnumpy()
+                   for k, v in net.collect_params().items()}
+        with tempfile.TemporaryDirectory() as d:
+            prefix = os.path.join(d, name)
+            net.export(prefix)
+            pred = mx.predict.Predictor(
+                prefix + "-symbol.json", prefix + "-0000.params", ctx=card,
+                input_shapes={"data": x.shape})
+            served = pred.forward(data=xc)[0].asnumpy()
+        del pred, net, out
+        torch.cuda.empty_cache()
+        ref = vision.get_model(name, prefix="zoo_")
+        ref.load_dict(weights, ctx=host)
+        ref.cast("float64")
+        t0 = time.perf_counter()
+        with mx.autograd.pause():
+            want = ref(mx.nd.NDArray(torch.from_numpy(
+                x.astype(np.float64)))).asnumpy()
+        host_s = time.perf_counter() - t0
+        del ref, weights
+        scale = float(np.abs(want).max())
+        err = float(np.abs(logits - want).max())
+        export_err = float(np.abs(served - logits).max())
+        rec = {"phase": "zoo", "model": name, "device": dev["name"],
+               "nvidia_smi": dev["smi"], "batch": ZOO_BATCH, "size": size,
+               "forward_ms": ms, "img_per_s": [ZOO_BATCH * 1e3 / m
+                                               for m in ms],
+               "max_abs_err_vs_cpu_f64": err, "logit_scale": scale,
+               "tol": ZOO_REL, "export_max_abs_err": export_err,
+               "export_bitwise": bool(np.array_equal(served, logits)),
+               "export_tol": ZOO_EXPORT_REL, "cpu_f64_s": host_s}
+        _emit(rec)
+        recs.append(rec)
+        _check(on_card and logits.shape == (ZOO_BATCH, 1000)
+               and np.isfinite(logits).all(),
+               "zoo %s: logits %s on the card %s" % (name, logits.shape,
+                                                     on_card))
+        _check(err <= ZOO_REL * scale, "zoo %s: the card's fp32 logits are "
+               "%g from the CPU's float64 ones (largest %g)"
+               % (name, err, scale))
+        _check(export_err <= ZOO_EXPORT_REL * scale, "zoo %s: the export "
+               "through predict.Predictor is %g from the Gluon logits"
+               % (name, export_err))
+    return recs
+
+
 def _rel_l2(a, b):
     import numpy as np
 
@@ -3469,8 +3840,77 @@ def phase_module_train(dev):
            "seconds": time.perf_counter() - t0, "ok": ok})
     _check(ok, "module_train: the step on the card differs from the CPU's: "
            "%s" % report)
+    _module_resume(mx, mod, images, labels, ctx, dev)
     return {"args": args, "auxs": auxs, "module": mod, "images": images,
             "labels": labels}
+
+
+def _module_resume(mx, mod, images, labels, ctx, dev):
+    """The fitted module's checkpoint round trip: ``save_checkpoint`` with
+    the optimizer's states, ``Module.load(load_optimizer_states=True)`` on
+    the card, then one more step of each on the next batch (the first of
+    the next epoch), cuDNN deterministic: the resumed module's parameters,
+    moving statistics and momenta must equal the fitted one's bit for
+    bit."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    shape = (MODULE_BATCH,) + images.shape[1:]
+    batch = mx.io.DataBatch(
+        [mx.nd.array(images[:MODULE_BATCH], ctx=ctx)],
+        [mx.nd.array(labels[:MODULE_BATCH], ctx=ctx)])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        prefix = os.path.join(d, "resnet50")
+        mod.save_checkpoint(prefix, 1, save_optimizer_states=True)
+        sizes = {f: os.path.getsize(os.path.join(d, f))
+                 for f in sorted(os.listdir(d))}
+        resumed = mx.mod.Module.load(prefix, 1, load_optimizer_states=True,
+                                     context=ctx)
+        resumed.bind(data_shapes=[("data", shape)],
+                     label_shapes=[("softmax_label", (MODULE_BATCH,))])
+        resumed.init_optimizer(optimizer="sgd", optimizer_params=dict(
+            MODULE_SGD, lr_scheduler=mx.lr_scheduler.MultiFactorScheduler(
+                [30 * MODULE_EPOCH_SIZE, 60 * MODULE_EPOCH_SIZE], 0.1)))
+    round_trip_s = time.perf_counter() - t0
+
+    def state(m):
+        args, auxs = m.get_params()
+        out = {k: v.asnumpy() for k, v in list(args.items())
+               + list(auxs.items())}
+        out.update(("state%d" % i, np.asarray(
+            s.asnumpy() if hasattr(s, "asnumpy") else s))
+            for i, s in m._updater.states.items())
+        return out
+
+    before = (state(mod), state(resumed))
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for m in (mod, resumed):
+            m.forward_backward(batch)
+            m.update()
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    got, want = state(resumed), state(mod)
+    loaded_same = sorted(before[0]) == sorted(before[1]) and all(
+        np.array_equal(before[0][k], before[1][k]) for k in before[0])
+    differ = sorted(k for k in want if k not in got
+                    or not np.array_equal(got[k], want[k]))
+    moved = sum(not np.array_equal(want[k], before[0][k]) for k in want)
+    _emit({"phase": "module_checkpoint_resume", "device": dev["name"],
+           "files_bytes": sizes, "round_trip_s": round_trip_s,
+           "tensors": len(want), "moved_by_the_step": moved,
+           "loaded_equal_saved": loaded_same,
+           "differing_after_the_step": differ})
+    _check(loaded_same, "module_train: the loaded module's parameters or "
+           "optimizer states differ from the saved module's")
+    _check(not differ and moved > 0, "module_train: the resumed module's "
+           "step differs from the fitted module's in %s (%d tensors moved)"
+           % (differ[:8], moved))
 
 
 def _rtc_kernel_case(kernels, numpy_op, n, c, seed):
@@ -5827,6 +6267,9 @@ def main():
     guard = _timed_phase("sentinel", phase_sentinel, dev, gluon)
     int8_launches, int8_exes = _timed_phase("int8", phase_int8, dev,
                                             bf16_img_s)
+    vgg_launches, vgg = _timed_phase("int8_vgg16", phase_int8_vgg16, dev)
+    int8_launches += vgg_launches
+    _timed_phase("zoo", phase_zoo, dev)
     phase_gluon_cifar(dev)
     phase_gluon_step_card_vs_cpu(dev)
     recurrent = {name: _timed_phase(name, phase, dev)
@@ -5844,6 +6287,9 @@ def main():
         for name, exe in int8_exes.items():
             _profile_window("resnet50_%s_forward_b%d" % (name, INT8_BATCH),
                             lambda exe=exe: exe.forward(is_train=False))
+        for name, x in (("int8", vgg["x32"]), ("bf16", vgg["x16"])):
+            _profile_window("vgg16_%s_forward_b%d" % (name, VGG_BATCH),
+                            lambda net=vgg[name], x=x: net(x))
         phase_profile_module(trained)
         _profile_guard_windows(gluon, guard)
         phase_profile_word_lm(recurrent["word_lm"])

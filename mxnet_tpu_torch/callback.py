@@ -1,16 +1,50 @@
-"""Training callbacks: ``Speedometer`` and ``log_train_metric``.
+"""Training callbacks: ``Speedometer``, ``log_train_metric``,
+``do_checkpoint`` and ``module_checkpoint``.
 
 Counterpart of those in ``mxnet_tpu/callback.py`` (reference
 ``python/mxnet/callback.py``); the log lines keep the reference's shapes
 (``Epoch[%d] Batch [%d]\tSpeed: %.2f samples/sec``), which log parsers key
-on.  ``do_checkpoint`` waits for ``.params`` serialization.
+on.  The checkpoint callbacks number epochs from 1 in their file names,
+as the reference does.
 """
 from __future__ import annotations
 
 import logging
 import time
 
-__all__ = ["Speedometer", "log_train_metric"]
+from .model import save_checkpoint
+
+__all__ = ["Speedometer", "log_train_metric", "do_checkpoint",
+           "module_checkpoint"]
+
+
+def _every(period, fn):
+    """Epoch-end callback calling ``fn(epoch number from 1, *rest)`` every
+    ``period`` epochs."""
+    period = max(1, int(period))
+
+    def _callback(iter_no, *rest):
+        epoch = iter_no + 1
+        if epoch % period == 0:
+            fn(epoch, *rest)
+    return _callback
+
+
+def do_checkpoint(prefix, period=1):
+    """Epoch-end callback: ``save_checkpoint(prefix, ...)`` every
+    ``period`` epochs."""
+    return _every(period,
+                  lambda epoch, sym, arg, aux:
+                      save_checkpoint(prefix, epoch, sym, arg, aux))
+
+
+def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
+    """Epoch-end callback: ``mod.save_checkpoint`` (with the optimizer's
+    states, if asked) every ``period`` epochs."""
+    return _every(period,
+                  lambda epoch, *rest:
+                      mod.save_checkpoint(prefix, epoch,
+                                          save_optimizer_states))
 
 
 def log_train_metric(period, auto_reset=False):

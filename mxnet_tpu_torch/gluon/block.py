@@ -19,8 +19,10 @@ op by op, and keeps the CachedOp's contract:
   kept;
 * a hybridized block computes what the same block computes imperatively.
 
-Capturing the call as a CUDA graph is later work; ``export`` and
-``SymbolBlock`` are not ported.
+Capturing the call as a CUDA graph is later work.  ``HybridBlock.export``
+composes the block over Symbols and writes the ``save_checkpoint`` files;
+:class:`SymbolBlock` runs such a graph (reference: export:868,
+SymbolBlock:952).
 """
 from __future__ import annotations
 
@@ -30,11 +32,11 @@ import threading
 import numpy as np
 
 from .. import autograd, ndarray as nd
-from ..context import current_context
+from ..context import cpu, current_context
 from ..ndarray import NDArray
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
 
 class _BlockScope:
@@ -226,11 +228,19 @@ class Block:
     def load_parameters(self, filename, ctx=None, allow_missing=False,
                         ignore_extra=False, cast_dtype=False,
                         dtype_source="current"):
-        """Load a file :meth:`save_parameters` wrote (reference:
+        """Load a file :meth:`save_parameters` wrote, or any file
+        ``nd.load`` reads: the reference's dmlc ``.params`` (a model
+        store's pretrained weights) too, and, keyed by full names
+        (``collect_params().save``), the legacy layout (reference:
         block.py:356)."""
-        with np.load(filename) as f:
-            loaded = {k: f[k] for k in f.files}
+        loaded = nd.load(filename, ctx=cpu())
         params = self._collect_params_with_prefix()
+        if not loaded and not params:
+            return
+        if not any("." in k for k in loaded):
+            self.collect_params().load(filename, ctx, allow_missing,
+                                       ignore_extra, self.prefix)
+            return
         if not allow_missing:
             for name in params.keys():
                 assert name in loaded, \
@@ -386,9 +396,11 @@ class _CachedOp:
         self._block = block
         self._params = list(block.collect_params().values())
         self._out_fmt = None
+        self._n_inputs = None     # the flat input count, for export
 
     def __call__(self, flat, fmt):
         block = self._block
+        self._n_inputs = len(flat)
         ctx = flat[0].context if flat else current_context()
         for p in self._params:          # fetched once, then substituted
             p._cached_data = p.data(ctx)
@@ -416,9 +428,12 @@ class _CachedOp:
 
 
 class HybridBlock(Block):
-    """A Block whose ``hybrid_forward`` takes ``F`` (here always the
-    ``nd`` namespace) and its Parameters as keyword arrays, and which can
-    be hybridized (reference: gluon/block.py:671)."""
+    """A Block whose ``hybrid_forward`` takes ``F`` and its Parameters as
+    keyword arguments, and which can be hybridized (reference:
+    gluon/block.py:671).  On NDArrays ``F`` is the ``nd`` namespace and the
+    Parameters their arrays; on Symbols it is the ``sym`` namespace and
+    the Parameters their variables (:meth:`Parameter.var`), which is how
+    :meth:`export` gets the graph."""
 
     def __init__(self, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
@@ -468,9 +483,42 @@ class HybridBlock(Block):
     def _infer_shape_from_input(self, *args):
         return None
 
+    def export(self, path, epoch=0):
+        """Write ``path-symbol.json`` (this block composed over Symbol
+        inputs) and ``path-####.params`` (its Parameters keyed ``arg:`` /
+        ``aux:``, the auxiliary states being the graph's
+        ``list_auxiliary_states``): the ``save_checkpoint`` files that
+        ``SymbolBlock.imports``, ``model.load_checkpoint`` and
+        ``predict.Predictor`` read (reference: block.py:868).  The inputs
+        are ``data``, or ``data0``, ``data1``, ... when the block last ran
+        hybridized on several; several outputs are grouped."""
+        from .. import symbol as _sym
+        n_in = 1
+        if self._cached_op is not None and self._cached_op._n_inputs:
+            n_in = self._cached_op._n_inputs
+        if n_in <= 1:
+            data = [_sym.var("data")]
+        else:
+            data = [_sym.var("data%d" % i) for i in range(n_in)]
+        out = self.forward(*data)
+        if isinstance(out, (list, tuple)):
+            out = _sym.Group(list(out))
+        out.save("%s-symbol.json" % path)
+        aux_names = set(out.list_auxiliary_states())
+        arg_dict = {}
+        for p in self.collect_params().values():
+            prefix = "aux:" if p.name in aux_names else "arg:"
+            arg_dict[prefix + p.name] = p._reduce()
+        nd.save("%s-%04d.params" % (path, epoch), arg_dict)
+
     def forward(self, x, *args):
         """``hybrid_forward(nd, x, *args, **params)``, or, hybridized, the
-        CachedOp (reference: block.py:901)."""
+        CachedOp; on Symbols ``hybrid_forward(sym, x, *args, **vars)``
+        (reference: block.py:901)."""
+        from .. import symbol as _sym
+        if isinstance(x, _sym.Symbol):
+            params = {k: v.var() for k, v in self._reg_params.items()}
+            return self.hybrid_forward(_sym, x, *args, **params)
         ctx = x.context if isinstance(x, NDArray) else current_context()
         if self._active and not _in_cached_op():
             if self._cached_op is None:
@@ -521,6 +569,146 @@ class HybridBlock(Block):
             p = self._reg_params[name]
             p.shape = dims
             p._finish_deferred_init()
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError
+
+
+def _substitute_symbol(sym, mapping):
+    """A copy of ``sym``'s graph with ``mapping`` ``{variable name:
+    Symbol}`` spliced onto its input variables (SymbolBlock's symbolic
+    composition)."""
+    from ..symbol.symbol import Symbol, _Node
+
+    node_memo = {}
+
+    def clone_node(node):
+        if node.is_var:
+            return node                 # an unmapped variable: shared
+        if id(node) in node_memo:
+            return node_memo[id(node)]
+        new_inputs = []
+        for src, oi in node.inputs:
+            if src.is_var and src.name in mapping:
+                new_inputs.append(mapping[src.name]._outputs[0])
+            else:
+                new_inputs.append((clone_node(src), oi))
+        new = _Node(node.op, node.name, new_inputs, node.attrs,
+                    user_attrs=node.user_attrs)
+        node_memo[id(node)] = new
+        return new
+
+    outs = []
+    for n, oi in sym._outputs:
+        if n.is_var and n.name in mapping:
+            outs.append(mapping[n.name]._outputs[0])
+        else:
+            outs.append((clone_node(n), oi))
+    return Symbol(outs)
+
+
+class SymbolBlock(HybridBlock):
+    """A block over a Symbol graph (reference: block.py:952), made by
+    :meth:`imports` from exported files or from a Symbol and its input
+    variables.  The graph's other variables are the block's Parameters,
+    under their graph names; the auxiliary states and any non-float
+    Parameter (an int8 model's weights and ranges) have ``grad_req``
+    ``null``.
+
+    ``forward`` on arrays binds an executor once per input shapes and runs
+    it; under ``autograd.record()`` it runs the graph op by op instead, so
+    that gradients reach the Parameters (fine-tuning an imported model).
+    On Symbols it splices the graph onto them."""
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix="", params=params)
+        from .. import symbol as sym
+
+        if isinstance(outputs, (list, tuple)) and len(outputs) == 1:
+            outputs = outputs[0]
+        if isinstance(inputs, sym.Symbol):
+            inputs = [inputs]
+        self._output_sym = outputs
+        self._input_syms = list(inputs)
+        self._cached_ex = None
+        self._cached_shapes = None
+        input_names = {i.name for i in self._input_syms}
+        aux_names = set(outputs.list_auxiliary_states())
+        for name in outputs.list_inputs():
+            if name not in input_names:
+                self.params.get(name, allow_deferred_init=True,
+                                grad_req="null" if name in aux_names
+                                else "write")
+        self._reg_params = dict(self.params.items())
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A SymbolBlock of an exported ``symbol_file`` whose inputs are
+        ``input_names``, its Parameters loaded from ``param_file`` (the
+        ``arg:`` / ``aux:`` prefixes dropped, each in its saved dtype) onto
+        ``ctx`` (default: the current context)."""
+        from .. import symbol as sym
+
+        output = sym.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        ret = SymbolBlock(output, [sym.var(i) for i in input_names])
+        if param_file is not None:
+            loaded = nd.load(param_file, ctx=cpu())
+            data = {k.split(":", 1)[-1]: v for k, v in loaded.items()}
+            for name, param in ret.params.items():
+                if name not in data:
+                    continue
+                value = data[name]
+                param.cast(value.dtype)
+                if not value.data.is_floating_point():
+                    param.grad_req = "null"
+                param._load_init_data(value, ctx)
+        return ret
+
+    def forward(self, x, *args):
+        from .. import symbol as _symmod
+        from ..ops.registry import invoke
+
+        sym = self._output_sym
+        feeds = [x] + list(args)
+        if isinstance(x, _symmod.Symbol):
+            return _substitute_symbol(sym, {s.name: v for s, v in
+                                            zip(self._input_syms, feeds)})
+        ctx = x.context if isinstance(x, NDArray) else current_context()
+        feed = {s.name: v for s, v in zip(self._input_syms, feeds)}
+        aux_names = set(sym.list_auxiliary_states())
+        arg_dict, aux_dict = dict(feed), {}
+        for name, p in self.params.items():
+            (aux_dict if name in aux_names else arg_dict)[name] = p.data(ctx)
+
+        if autograd.is_recording():
+            env = dict(arg_dict, **aux_dict)
+            vals = {}
+            for node in sym._topo():
+                if node.is_var:
+                    vals[id(node)] = (env[node.name],)
+                    continue
+                res = invoke(node.op, [vals[id(src)][oi]
+                                       for src, oi in node.inputs],
+                             dict(node.attrs))
+                vals[id(node)] = tuple(res) if isinstance(res, list) \
+                    else (res,)
+            outs = [vals[id(n)][oi] for n, oi in sym._outputs]
+            return outs[0] if len(outs) == 1 else outs
+
+        shapes = tuple(v.shape for v in feed.values())
+        ex = self._cached_ex
+        if ex is None or self._cached_shapes != shapes:
+            ex = sym.bind(ctx=ctx, args=arg_dict, grad_req="null",
+                          aux_states=aux_dict)
+            self._cached_ex, self._cached_shapes = ex, shapes
+        else:
+            ex._stage(arg_dict)
+            for name, v in aux_dict.items():
+                ex.aux_dict[name]._set_data(v)
+        outs = ex.forward(is_train=autograd.is_training())
+        return outs[0] if len(outs) == 1 else outs
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError

@@ -3,13 +3,13 @@
 Counterpart of ``mxnet_tpu/gluon/model_zoo/vision/resnet.py`` (reference
 ``python/mxnet/gluon/model_zoo/vision/resnet.py``): 18/34/50/101/152
 layers, v1 post-activation and v2 pre-activation, the same blocks, names
-and layout.  ``pretrained=True`` raises: loading the reference's
-``.params`` files is not ported; carry weights in with
-``net.load_dict``."""
+and layout.  ``pretrained=True`` loads ``resnet<n>_v<v>.params`` through
+:func:`..model_store.get_model_file`."""
 from __future__ import annotations
 
 from ...block import HybridBlock
 from ... import nn
+from ..model_store import get_model_file
 
 __all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
            "BottleneckV1", "BottleneckV2", "resnet18_v1", "resnet34_v1",
@@ -262,11 +262,12 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
         "Invalid resnet version: %d. Options are 1 and 2." % version
     resnet_class = resnet_net_versions[version - 1]
     block_class = resnet_block_versions[version - 1][block_type]
+    net = resnet_class(block_class, layers, channels, **kwargs)
     if pretrained:
-        raise NotImplementedError(
-            "mxnet_tpu_torch: pretrained model-zoo weights (.params files) "
-            "are not ported; load weights with net.load_dict")
-    return resnet_class(block_class, layers, channels, **kwargs)
+        net.load_parameters(
+            get_model_file("resnet%d_v%d" % (num_layers, version),
+                           root=root), ctx=ctx)
+    return net
 
 
 def resnet18_v1(**kwargs):

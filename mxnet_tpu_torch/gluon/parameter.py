@@ -12,8 +12,8 @@ copy on the host, which then moves to each context.
 
 Files: ``save_dict`` / ``load_dict`` carry ``{name: numpy array}`` (the
 JAX package's ``collect_params()`` read out as numpy goes straight into
-the port's), and ``save`` / ``load`` write and read such a dict with
-``numpy.savez``.
+the port's), ``save`` writes such a dict with ``numpy.savez`` and ``load``
+reads what ``nd.load`` reads.
 """
 from __future__ import annotations
 
@@ -85,6 +85,7 @@ class Parameter:
         self._replicas = None        # list[_Replica] once initialized
         self._pending = None         # _PendingInit while deferred
         self._cached_data = None     # set by a running CachedOp
+        self._var = None             # the Symbol of var(), once made
         self._shape = tuple(shape) if shape is not None else None
         self._stype, self._grad_stype = stype, grad_stype
         self._differentiable = differentiable
@@ -342,6 +343,19 @@ class Parameter:
         self._pending = None
 
 
+    # -- symbolic bridge --------------------------------------------------
+    def var(self):
+        """This Parameter as a symbolic Variable (its name, shape, lr and
+        wd multipliers and initializer), made once: how a HybridBlock's
+        ``hybrid_forward`` sees it when composed over Symbols."""
+        from .. import symbol as sym
+        if self._var is None:
+            self._var = sym.var(self.name, shape=self.shape, dtype=self.dtype,
+                                lr_mult=self.lr_mult, wd_mult=self.wd_mult,
+                                init=self.init)
+        return self._var
+
+
 class Constant(Parameter):
     """A constant parameter (grad_req='null')
     (reference: gluon/parameter.py Constant)."""
@@ -534,11 +548,10 @@ class ParameterDict:
 
     def load(self, filename, ctx=None, allow_missing=False,
              ignore_extra=False, restore_prefix=""):
-        """:meth:`load_dict` from a file :meth:`save` wrote."""
-        with np.load(filename) as f:
-            arrays = {k: f[k] for k in f.files}
-        self.load_dict(arrays, ctx, allow_missing, ignore_extra,
-                       restore_prefix)
+        """:meth:`load_dict` from a file :meth:`save` wrote, or any file
+        ``nd.load`` reads (the reference's dmlc format too)."""
+        self.load_dict(nd.load(filename, ctx=cpu()), ctx, allow_missing,
+                       ignore_extra, restore_prefix)
 
 
 def _from_host(data):

@@ -7,8 +7,11 @@ context, with ``grad_req`` ``null`` for the data and labels),
 (``rescale_grad = 1/batch`` unless given), ``forward``, ``backward``,
 ``forward_backward``, ``update`` (one list-valued ``Updater`` call, so SGD
 runs in aggregated groups), ``update_metric`` and ``get_outputs``;
-``fixed_param_names`` bind with ``grad_req`` ``null`` and are not updated.
-``kvstore`` is accepted and ignored.  Checkpoints and monitors are not
+``fixed_param_names`` bind with ``grad_req`` ``null`` and are not updated;
+``save_checkpoint`` (with the optimizer's states as ``prefix-####.states``)
+and ``Module.load``, whose parameters apply at ``bind`` and whose
+optimizer states at ``init_optimizer``, so that ``fit(begin_epoch=)``
+resumes the run.  ``kvstore`` is accepted and ignored.  Monitors are not
 ported.
 """
 from __future__ import annotations
@@ -18,6 +21,7 @@ import logging
 from .. import initializer as _init
 from .. import optimizer as opt
 from ..context import current_context
+from ..model import load_checkpoint, save_checkpoint
 from .base_module import BaseModule
 
 __all__ = ["Module"]
@@ -54,6 +58,8 @@ class Module(BaseModule):
         self._exec = None
         self._optimizer = None
         self._updater = None
+        self._preloaded = None              # (args, auxs) of Module.load
+        self._preloaded_opt_states = None   # its .states file
 
     def _check(self, *flags):
         if not all(getattr(self, f) for f in flags):
@@ -81,6 +87,13 @@ class Module(BaseModule):
         self._exec = self._symbol.simple_bind(ctx=self._context,
                                               grad_req=req, **shapes)
         self.binded = True
+        if self._preloaded is not None:
+            # Module.load's parameters, applied once: a later rebind keeps
+            # the parameters the module has then
+            self.init_params(arg_params=self._preloaded[0],
+                             aux_params=self._preloaded[1],
+                             allow_missing=True)
+            self._preloaded = None
 
     # -- parameters ----------------------------------------------------------
     def init_params(self, initializer=None, arg_params=None, aux_params=None,
@@ -145,6 +158,9 @@ class Module(BaseModule):
         self._optimizer = optimizer
         self._updater = opt.get_updater(optimizer)
         self.optimizer_initialized = True
+        if self._preloaded_opt_states is not None:
+            self.load_optimizer_states(self._preloaded_opt_states)
+            self._preloaded_opt_states = None
 
     # -- compute -------------------------------------------------------------
     def _feed(self, data_batch):
@@ -200,6 +216,43 @@ class Module(BaseModule):
         eval_metric.update_dict(
             dict(zip(self._label_names, labels or [])),
             dict(zip(self._symbol.list_outputs(), self._exec.outputs)))
+
+    # -- checkpoints ---------------------------------------------------------
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False,
+                        remove_amp_cast=True):
+        """``model.save_checkpoint`` of the symbol and the parameters, and
+        with ``save_optimizer_states`` the Updater's states as
+        ``prefix-####.states``."""
+        arg_params, aux_params = self.get_params()
+        save_checkpoint(prefix, epoch, self._symbol, arg_params, aux_params)
+        if save_optimizer_states:
+            self.save_optimizer_states("%s-%04d.states" % (prefix, epoch))
+
+    @staticmethod
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """A Module of a checkpoint (``kwargs`` go to the constructor):
+        its parameters apply at ``bind``, and with
+        ``load_optimizer_states`` the saved states at ``init_optimizer``,
+        which the next update then reads."""
+        sym, args, auxs = load_checkpoint(prefix, epoch)
+        mod = Module(symbol=sym, **kwargs)
+        mod._preloaded = (args, auxs)
+        if load_optimizer_states:
+            mod._preloaded_opt_states = "%s-%04d.states" % (prefix, epoch)
+        return mod
+
+    def save_optimizer_states(self, fname):
+        """The Updater's states, pickled, to ``fname``."""
+        self._check("optimizer_initialized")
+        with open(fname, "wb") as f:
+            f.write(self._updater.get_states())
+
+    def load_optimizer_states(self, fname):
+        """The Updater's states from a :meth:`save_optimizer_states`
+        file."""
+        self._check("optimizer_initialized")
+        with open(fname, "rb") as f:
+            self._updater.set_states(f.read())
 
     @property
     def data_names(self):

@@ -84,6 +84,17 @@ def _convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
 # ---------------------------------------------------------------------------
 # Pooling
 # ---------------------------------------------------------------------------
+def _window_sum(x, kernel, stride):
+    """Each window's sum: an average pool with divisor 1 (in 1-D a 2-D one
+    over windows of height 1: ``avg_pool1d`` takes no divisor)."""
+    if len(kernel) == 1:
+        return F.avg_pool2d(x.unsqueeze(-2), (1,) + tuple(kernel),
+                            (1,) + tuple(stride),
+                            divisor_override=1).squeeze(-2)
+    return getattr(F, "avg_pool%dd" % len(kernel))(
+        x, kernel, stride, divisor_override=1)
+
+
 @register("Pooling", input_names=("data",))
 def _pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
              pad=(), pooling_convention="valid", count_include_pad=True,
@@ -116,10 +127,8 @@ def _pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
         return getattr(F, "max_pool%dd" % n)(x, kernel, stride)
     if pool_type not in ("avg", "sum"):
         raise ValueError("unknown pool_type %r" % pool_type)
-    # the window sum: an average pool with divisor 1
-    window_sum = functools.partial(getattr(F, "avg_pool%dd" % n),
-                                   kernel_size=kernel, stride=stride,
-                                   divisor_override=1)
+    window_sum = functools.partial(_window_sum, kernel=kernel,
+                                   stride=stride)
     out = window_sum(F.pad(data, pads) if any(pads) else data)
     if pool_type == "sum":
         return out

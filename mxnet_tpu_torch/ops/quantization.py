@@ -19,7 +19,9 @@ below 2^53.
 
 Every division by a constant divides by a tensor on the data's device: a
 CUDA division by a Python scalar multiplies by its reciprocal instead,
-which may round differently from the reference's division.
+which may round differently from the reference's division.  Such
+constants are made by a fill on the device, never copied from the host,
+so a quantized graph's forward can be captured in a CUDA graph.
 """
 from __future__ import annotations
 
@@ -36,7 +38,13 @@ INT32_MAX = 2147483647.0       # 2^31 once in f32, as in the reference
 
 
 def _f32(v, device):
-    return torch.as_tensor(v, dtype=torch.float32, device=device)
+    """``v`` as an f32 tensor on ``device``; a Python number by a fill on
+    the device (the same rounding as a copy), so that no op of the int8
+    graph copies from the host and a forward can be captured in a CUDA
+    graph."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32)
+    return torch.full((), float(v), dtype=torch.float32, device=device)
 
 
 def _div(x, q):

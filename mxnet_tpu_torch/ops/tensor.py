@@ -6,8 +6,10 @@ Counterpart of those ops in ``mxnet_tpu/ops/tensor.py``, under the
 reference's names: the ones the symbolic ResNet path emits
 (``broadcast_add``, which ``Symbol.__add__`` composes, with the aliases
 ``elemwise_add``, ``_plus`` and ``_add``; ``_plus_scalar``; ``Flatten``),
-and the ones NDArray's operators and methods, the Gluon layers, losses and
-``gluon.utils`` and ``gluon.rnn`` call.
+the ones NDArray's operators and methods, the Gluon layers, losses and
+``gluon.utils`` and ``gluon.rnn`` call, the scalar forms ``Symbol``'s
+other operators compose (``_minus_scalar`` ... ``_rpower_scalar``) and
+``clip`` (MobileNet's relu6).
 
 A scalar operand takes the dtype of the array first (``_scalar_*``), as the
 reference's ``jnp.asarray(scalar, x.dtype)`` does; comparisons return the
@@ -94,10 +96,34 @@ for _name, _f in _BINARY.items():
                 else scalar_in(x, scalar)))
 
 
+def _as_x(x, scalar):
+    """``scalar`` as a 0-d tensor of ``x``'s dtype on its device."""
+    return torch.tensor(scalar, dtype=x.dtype, device=x.device)
+
+
 @register("_plus_scalar")
 def _plus_scalar(x, scalar=0.0):
     """``x + scalar``, the scalar cast to ``x``'s dtype first."""
-    return x + torch.tensor(scalar, dtype=x.dtype, device=x.device)
+    return x + _as_x(x, scalar)
+
+
+# the scalar forms ``Symbol``'s operators compose, each scalar cast to the
+# array's dtype first
+register("_minus_scalar")(lambda x, scalar=0.0: x - _as_x(x, scalar))
+register("_rminus_scalar")(lambda x, scalar=0.0: _as_x(x, scalar) - x)
+register("_mul_scalar")(lambda x, scalar=1.0: x * _as_x(x, scalar))
+register("_div_scalar")(lambda x, scalar=1.0: x / _as_x(x, scalar))
+register("_rdiv_scalar")(lambda x, scalar=1.0: _as_x(x, scalar) / x)
+register("_power_scalar")(lambda x, scalar=1.0: x ** _as_x(x, scalar))
+register("_rpower_scalar")(lambda x, scalar=1.0: _as_x(x, scalar) ** x)
+
+
+@register("clip")
+def _clip(x, a_min=None, a_max=None):
+    """``x`` limited to ``[a_min, a_max]`` (either bound may be None)."""
+    if a_min is None and a_max is None:
+        return x.clone()
+    return torch.clamp(x, a_min, a_max)
 
 
 @register("add_n", aliases=("ElementWiseSum",))

@@ -3,6 +3,9 @@
 Counterpart of ``mxnet_tpu/symbol/register.py``: each wrapper composes
 symbols into a node and creates ``{name}_{input}`` Variables for the named
 inputs a caller leaves out (``conv0_weight``, ``bn1_moving_mean``, ...).
+Non-Symbol positional arguments after the inputs set the op's parameters
+in signature order, as the ``nd`` functions take them (``clip(x, 0, 6)``,
+which MobileNet's relu6 composes; the JAX package's wrapper raises there).
 """
 from __future__ import annotations
 
@@ -12,12 +15,36 @@ from ..ops.registry import OPS
 from .symbol import Symbol, Variable, _NameManager, _Node, _single
 
 
-def _skip_input(in_name, params):
+def _skip_input(op_name, in_name, params):
     """``bias`` is no input when ``no_bias`` is set, nor ``RNN``'s
-    ``state_cell`` outside the lstm mode."""
+    ``state_cell`` outside the lstm mode, nor ``LeakyReLU``'s ``gamma``
+    outside the prelu mode."""
     if in_name == "state_cell":
         return params.get("mode", "lstm") != "lstm"
+    if in_name == "gamma" and op_name == "LeakyReLU":
+        return params.get("act_type", "leaky") != "prelu"
     return in_name == "bias" and bool(params.get("no_bias"))
+
+
+def _split_positional(opdef, args, params):
+    """``(inputs, params)``: the leading Symbol (or None: an input not
+    given, as Dense's missing bias) arguments, and ``params`` with the
+    other ones after them set on the op's parameters in signature order
+    (``clip(x, 0, 6)``)."""
+    from ..ndarray import positional_params
+
+    slots = len(opdef.input_names)
+    n = 0
+    while n < len(args) and (isinstance(args[n], Symbol) or (
+            args[n] is None and n < slots)):
+        n += 1
+    extra = list(args[n:])
+    if any(isinstance(a, Symbol) for a in extra):
+        raise TypeError("%s: a Symbol input after a positional parameter"
+                        % opdef.name)
+    if extra:
+        params = positional_params(opdef, extra, params)
+    return list(args[:n]), params
 
 
 def _make_wrapper(opdef):
@@ -33,21 +60,18 @@ def _make_wrapper(opdef):
             elif v is not None:
                 params[k] = v
         name = name or _NameManager.get(opdef.name.lower().lstrip("_"))
+        args, params = _split_positional(opdef, args, params)
 
         if input_names:
             if len(args) > len(input_names):
                 raise TypeError("%s takes at most %d positional inputs"
                                 % (opdef.name, len(input_names)))
-            bound = {}
-            for in_name, a in zip(input_names, args):
-                if not isinstance(a, Symbol):
-                    raise TypeError("positional input %r of %s must be a "
-                                    "Symbol" % (in_name, opdef.name))
-                bound[in_name] = a
+            bound = {k: a for k, a in zip(input_names, args)
+                     if a is not None}
             bound.update(sym_kwargs)
             inputs = []
             for i, in_name in enumerate(input_names):
-                if _skip_input(in_name, params):
+                if _skip_input(opdef.name, in_name, params):
                     continue
                 if in_name in bound:
                     inputs.append(bound[in_name]._outputs[0])
@@ -59,7 +83,8 @@ def _make_wrapper(opdef):
                     inputs.append(v._outputs[0])
         else:
             inputs = []
-            for a in list(args) + list(sym_kwargs.values()):
+            for a in [a for a in args if a is not None] + list(
+                    sym_kwargs.values()):
                 if len(a._outputs) != 1:
                     raise ValueError("cannot compose with grouped symbol")
                 inputs.append(a._outputs[0])

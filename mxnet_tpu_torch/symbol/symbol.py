@@ -3,10 +3,11 @@
 Counterpart of ``mxnet_tpu/symbol/symbol.py`` (reference
 ``python/mxnet/symbol/symbol.py``): graph nodes, composition,
 ``list_arguments`` / ``list_outputs`` / ``list_auxiliary_states``,
-``get_internals``, ``infer_shape``, ``attr_dict`` (the ``__init__``,
+``get_internals``, ``list_inputs``, the arithmetic operators (an
+array's or a number's), ``infer_shape``, ``attr_dict`` (the ``__init__``,
 ``__lr_mult__`` and ``__wd_mult__`` attributes of Variables, which the
-initializer and the optimizer read), the nnvm-shaped ``tojson`` and
-``load_json``, and ``bind`` / ``simple_bind`` into an
+initializer and the optimizer read), the nnvm-shaped ``tojson`` / ``save``
+and ``load_json``, and ``bind`` / ``simple_bind`` into an
 :class:`~mxnet_tpu_torch.executor.Executor` (with a per-argument
 ``grad_req``).  Node names and the JSON are the JAX package's, byte for
 byte, for the same graph.
@@ -21,6 +22,8 @@ from __future__ import annotations
 import ast
 import json
 import threading
+
+import numpy as np
 
 from .. import ops as _ops  # noqa: F401  (registers the op corpus)
 from ..ops.registry import get_op
@@ -99,6 +102,12 @@ class Symbol:
             return "<Symbol %s>" % self._outputs[0][0].name
         return "<Symbol Grouped>"
 
+    def __iter__(self):
+        return (Symbol([o]) for o in self._outputs)
+
+    def __len__(self):
+        return len(self._outputs)
+
     def __getitem__(self, index):
         if isinstance(index, str):
             names = self.list_outputs()
@@ -156,6 +165,10 @@ class Symbol:
     def list_auxiliary_states(self):
         aux = self._aux_nodes()
         return [n.name for n in self._topo() if n.is_var and id(n) in aux]
+
+    def list_inputs(self):
+        """Every variable's name, arguments and auxiliary states alike."""
+        return [n.name for n in self._topo() if n.is_var]
 
     def list_outputs(self):
         names = []
@@ -221,6 +234,11 @@ class Symbol:
                       "mxnet_tpu_format": ["int", 1]},
         }, indent=2)
 
+    def save(self, fname):
+        """Write :meth:`tojson` to ``fname``."""
+        with open(fname, "w") as f:
+            f.write(self.tojson())
+
     # -- binding --------------------------------------------------------
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
                     **kwargs):
@@ -241,14 +259,76 @@ class Symbol:
                         aux_states=aux_states)
 
     # -- arithmetic -----------------------------------------------------
-    def __add__(self, other):
+    def _binop(self, other, op_name, scalar_op, rscalar_op=None, rev=False):
         if isinstance(other, Symbol):
-            return _apply("broadcast_add", [self, other], {})
-        if isinstance(other, (int, float)):
-            return _apply("_plus_scalar", [self], {"scalar": float(other)})
+            a, b = (other, self) if rev else (self, other)
+            return _apply(op_name, [a, b], {})
+        if isinstance(other, (int, float, np.floating, np.integer)):
+            name = rscalar_op if (rev and rscalar_op) else scalar_op
+            return _apply(name, [self], {"scalar": float(other)})
         raise TypeError(type(other))
 
-    __radd__ = __add__
+    def __add__(self, other):
+        return self._binop(other, "broadcast_add", "_plus_scalar")
+
+    def __radd__(self, other):
+        return self.__add__(other)
+
+    def __sub__(self, other):
+        return self._binop(other, "broadcast_sub", "_minus_scalar",
+                           "_rminus_scalar")
+
+    def __rsub__(self, other):
+        return self._binop(other, "broadcast_sub", "_minus_scalar",
+                           "_rminus_scalar", rev=True)
+
+    def __mul__(self, other):
+        return self._binop(other, "broadcast_mul", "_mul_scalar")
+
+    def __rmul__(self, other):
+        return self.__mul__(other)
+
+    def __truediv__(self, other):
+        return self._binop(other, "broadcast_div", "_div_scalar",
+                           "_rdiv_scalar")
+
+    def __rtruediv__(self, other):
+        return self._binop(other, "broadcast_div", "_div_scalar",
+                           "_rdiv_scalar", rev=True)
+
+    def __pow__(self, other):
+        return self._binop(other, "broadcast_power", "_power_scalar",
+                           "_rpower_scalar")
+
+    def __rpow__(self, other):
+        return self._binop(other, "broadcast_power", "_power_scalar",
+                           "_rpower_scalar", rev=True)
+
+    def __neg__(self):
+        return _apply("negative", [self], {})
+
+    def __lt__(self, other):
+        return self._binop(other, "broadcast_lesser",
+                           "_scalar_broadcast_lesser")
+
+    def __le__(self, other):
+        return self._binop(other, "broadcast_lesser_equal",
+                           "_scalar_broadcast_lesser_equal")
+
+    def __gt__(self, other):
+        return self._binop(other, "broadcast_greater",
+                           "_scalar_broadcast_greater")
+
+    def __ge__(self, other):
+        return self._binop(other, "broadcast_greater_equal",
+                           "_scalar_broadcast_greater_equal")
+
+    def __copy__(self):
+        return Symbol(list(self._outputs))
+
+    def __deepcopy__(self, memo):
+        # graph nodes are not changed once built: sharing them is safe
+        return Symbol(list(self._outputs))
 
 
 def _single(node):

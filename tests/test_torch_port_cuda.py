@@ -88,6 +88,12 @@ the card; word_lm.py's graph at a small width, one float64 ``Module`` step
 on the card against the CPU within 1e-8, with cuDNN's RNN node in its
 backward.
 
+Export and checkpoints: a narrow VGG11 exported, quantized
+(``quantize_model``) and imported as an int8 ``SymbolBlock`` on the card
+gives the plain versions' outputs bit for bit, launching the int8 matmul
+once per fully connected layer with no plain version; ``clip`` on the
+card gives the CPU's values bit for bit.
+
 The kernel library's front door: ``select_impl("flash_attention")`` and
 ``select_impl("int8_matmul")`` resolve to ``'cuda'`` and, through a
 ``kernel_unit``, launch the forward, dQ and dK/dV kernels and the fused
@@ -3038,3 +3044,72 @@ def test_word_lm_float64_module_step_card_vs_cpu(dev, smoke):
         mod._exec._pending[0])
     ok, report = smoke._f64_card_vs_cpu(mx, sym, args, x, y, smoke.LM_SGD)
     assert ok, report
+
+
+def test_int8_symbolblock_on_card_equals_plain(dev, smoke, tmp_path):
+    """A narrow VGG11 through export, ``quantize_model`` and
+    ``SymbolBlock.imports`` on the card: its int8 outputs through the
+    kernels equal those through the plain versions bit for bit, and one
+    forward launches the int8 matmul once per fully connected layer, by
+    the planned variant, with no plain version."""
+    from mxnet_tpu_torch.contrib.quantization import quantize_model
+    from mxnet_tpu_torch.gluon.model_zoo.vision.vgg import VGG
+
+    ctx = mx.gpu(0)
+    rng = np.random.RandomState(0)
+    net = VGG([1, 1, 2, 2, 2], [8, 16, 16, 32, 32], classes=10)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    net.hybridize()
+    x = mx.nd.array(rng.rand(32, 3, 32, 32).astype(np.float32), ctx=ctx)
+    with mx.autograd.pause():
+        net(x[0:1])
+    prefix = str(tmp_path / "vgg")
+    net.export(prefix, 0)
+    sym, args, auxs = mx.model.load_checkpoint(prefix, 0)
+    calib = mx.io.NDArrayIter(rng.rand(8, 3, 32, 32).astype(np.float32),
+                              np.zeros(8), 4)
+    qsym, qargs, qauxs = quantize_model(
+        sym, args, auxs, ctx=ctx, calib_mode="naive", calib_data=calib,
+        num_calib_examples=8, fold_bn=True, fuse_int8=True)
+    mx.model.save_checkpoint(prefix + "_q", 0, qsym, qargs, qauxs)
+    qnet = mx.gluon.SymbolBlock.imports(prefix + "_q-symbol.json", ["data"],
+                                        prefix + "_q-0000.params", ctx=ctx)
+    with mx.autograd.pause():
+        qnet(x)
+        torch.cuda.synchronize()
+        common.reset_counts()
+        got = qnet(x).asnumpy()
+        launches = common.launch_counts()
+        selects = common.selection_counts()
+        with smoke._plain_versions():
+            want = qnet(x).asnumpy()
+    np.testing.assert_array_equal(got, want)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    expect = {}
+    for K, N in ((32, 4096), (4096, 4096), (4096, 10)):
+        plan = plan_int8_matmul(32, N, K, sms)
+        keys = ["int8_matmul", "int8_matmul." + plan.variant]
+        if plan.variant == "wgmma" and plan.splits > 1:
+            keys.append("int8_matmul.reduce")
+        for k in keys:
+            expect["kernels.launch." + k] = expect.get(
+                "kernels.launch." + k, 0) + 1
+    assert launches == expect
+    assert not any(k.endswith(".reference") for k in selects)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bounds", [(0, 6), (None, 0.5), (-1.5, None)])
+def test_clip_on_card_equals_cpu(dev, dtype, bounds):
+    """``nd.clip`` and ``sym.clip`` (MobileNet's relu6) on the card give
+    the CPU's values, bit for bit."""
+    x = torch.from_numpy(np.random.RandomState(4).uniform(
+        -9, 9, (33, 65)).astype(np.float32)).to(getattr(torch, dtype))
+    want = mx.nd.clip(mx.nd.NDArray(x), *bounds).data
+    got = mx.nd.clip(mx.nd.NDArray(x.to(dev)), *bounds)
+    assert got.context.device_type == "gpu"
+    assert torch.equal(got.data.cpu(), want)
+    s = mx.sym.clip(mx.sym.var("x"), *bounds)
+    out = s.bind(mx.gpu(0), args={"x": mx.nd.NDArray(x.to(dev))},
+                 grad_req="null").forward()[0]
+    assert torch.equal(out.data.cpu(), want)

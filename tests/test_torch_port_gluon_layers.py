@@ -396,11 +396,15 @@ def test_model_zoo_resnet_v2_runs():
                                rtol=FWD_TOL, atol=FWD_TOL)
 
 
-def test_model_zoo_names():
+def test_model_zoo_names(tmp_path):
     with pytest.raises(ValueError):
         tgluon.model_zoo.vision.get_model("not_a_model")
-    with pytest.raises(NotImplementedError):
-        tgluon.model_zoo.vision.resnet18_v1(pretrained=True)
+    # pretrained weights come from the model store: a missing file raises,
+    # naming it, in both packages
+    for gl in (tgluon, jmx.gluon):
+        with pytest.raises(RuntimeError, match="'resnet18_v1'"):
+            gl.model_zoo.vision.resnet18_v1(pretrained=True,
+                                            root=str(tmp_path))
 
 
 def test_lambda_blocks():

@@ -503,6 +503,35 @@ def test_hedge_wins_only_counts_hedge_settling():
     assert stats["hedges_fired"] == 1 and stats["hedge_wins"] == 0
 
 
+def test_no_hedge_while_every_replica_is_stalled():
+    """Both replicas stall at once, one request each: past hedge_ms no
+    hedge fires, in either package, for a hedge needs a free replica that
+    has not tried the job (with one replica stalled it fires:
+    ``test_hedge_beats_straggler``).  A third request, whose deadline the
+    clock passes together with both jobs' hedge time, marks a scheduler
+    pass: it expires in the same pass, under the same lock, as the hedge
+    check runs."""
+    seen = {}
+    for pkg in PKGS:
+        srv, _ = _server(pkg, n_replicas=2, hedge_ms=60, max_batch=1)
+        try:
+            rng = np.random.RandomState(23)
+            with pkg.chaos.inject("slow_replica@0,slow_replica@1") as plan:
+                futs = [srv.submit_async(_req(rng)) for _ in range(2)]
+                srv.clock.advance(0.003)
+                _wait(lambda: plan.pending() == [], what="both stalls")
+                marker = srv.submit_async(_req(rng), deadline_ms=50)
+                srv.clock.advance(0.1)             # past hedge_ms
+                _wait(lambda: marker.done, what="the third request's deadline")
+                seen[pkg.name] = (srv.snapshot()["hedges_fired"],
+                                  _inflight(srv))
+                out = _outcomes(futs + [marker])
+        finally:
+            srv.drain(timeout=30)
+        assert out == ["ok", "ok", "DeadlineExceeded"]
+    assert seen["torch"] == seen["jax"] == (0, 2)
+
+
 @pytest.mark.parametrize("pkg", PKGS, ids=lambda p: p.name)
 def test_chaos_burst_and_crash_every_request_typed(pkg):
     """tests/test_serving.py's acceptance scenario in each package, on the
