@@ -17,7 +17,10 @@ on the card:
   the long-context configuration (d_model 1024, 16 heads of 64, 4 layers,
   d_ff 4096, bf16, remat, batch 1 x 8192: bench.py's long-context leg),
   which crosses the dense->flash gate and so runs the flash forward, dQ
-  and dK/dV kernels, and on the same configuration with 4 heads of 256
+  and dK/dV kernels, and on that configuration in f32, whose flash
+  forward runs the CUDA-core simt kernel and whose dQ and dK/dV run the
+  tensor-core tf32x3 kernels' narrow plan (split-TF32 products at head_dim
+  64), and on the same configuration with 4 heads of 256
   (Gemma-style head_dim), whose flash forward, dQ and dK/dV run the
   tensor-core wgmma_wide kernels, and on that configuration in f32, whose
   flash forward, dQ and dK/dV run the tensor-core tf32x3 kernels
@@ -92,8 +95,8 @@ Phases, in order; any failure raises and exits non-zero:
    them, and wgmma_xwide's dQ and dK/dV at 320-512 and wgmma_xxwide's
    (the same kernels in 2-CTA clusters) at 640-1024, all sixteen; the f32
    tf32x3_xwide forward, dQ and dK/dV at 384 and 512, the six cluster
-   instantiations beside tf32x3's six),
-   of the wide flash kernels,
+   instantiations beside tf32x3's six; tf32x3's narrow dQ and dK/dV at 64
+   and 128, all four), of the wide flash kernels,
    of
    the int8 matmul and of the RMSNorm variants; none but the int8 ``mma``
    kernel may spill;
@@ -125,6 +128,13 @@ Phases, in order; any failure raises and exits non-zero:
    forward also in turns at the f32 leg's [1, 8192, 4, 256]; both also
    at [1, 8192, 4, 256], [1, 4096, 16, 192], Tq 1000 x Tk 3000 not
    causal, and head_dim 160, the backward with an lse cotangent), and f32
+   at head_dim 33-128 the tensor-core tf32x3 dQ and dK/dV (the narrow
+   plan; the forward stays simt) held against the plain backward and
+   dense autograd and timed in turns with simt, the CUDA-core kernels
+   they replaced, at [2, 1024, 8, 64] with an lse cotangent, the f32
+   long-context leg's [1, 8192, 16, 64] and [1, 4096, 16, 128], and also
+   at head_dim 40 and 96 (padded to 64 and 128) with dlse and Tq 1000 x
+   Tk 3000 not causal, and f32
    above 256 the forward, dQ and dK/dV on the tensor-core tf32x3_xwide
    kernels (2-CTA clusters that split D), the forward held against the
    plain version, the backward against the plain backward and dense
@@ -144,7 +154,11 @@ Phases, in order; any failure raises and exits non-zero:
    twin and timed in turns with it at [1, 4096, 16, 512] and [1, 4096,
    16, 384] causal, at the head_dim-512 leg's [2, 8192, 2, 512] and at
    [2, 1000, 4, 320] not causal; every tensor-core forward held in the
-   kernels phase gives the same bits in two calls.  The int8
+   kernels phase gives the same bits in two calls.  The widths wide still
+   serves, forward and backward beside SDPA: f32 at [2, 1000, 4, 576] not
+   causal, bf16 at [1, 1024, 2, 1152] causal.  Every backward's library
+   figure is SDPA's backward on inputs cycled past the L2 cache, replayed
+   from a CUDA graph as the kernels are.  The int8
    matmul's planned variant and, where that is wgmma, its mma variant are
    held bit for bit to the plain version and timed in turns beside
    ``torch._int_mm`` at 2048^3, VGG16's fc6 / fc7 / fc8 (batch 128),
@@ -463,6 +477,10 @@ RMSNORM_BWD_SHAPES = ((8192, 2048), (8192, 1024))
 # the training configurations: (name, config, batch, sequence length)
 LONGCTX = dict(vocab_size=32000, d_model=1024, n_heads=16, n_layers=4,
                d_ff=4096, max_len=8192, dtype="bfloat16", remat=True)
+# the same in f32 (TF32 off, torch's default for matmuls): its flash
+# forward on the CUDA-core simt kernel, dQ and dK/dV on the tensor-core
+# tf32x3 kernels' narrow plan (head_dim 64)
+LONGCTX_F32 = dict(LONGCTX, dtype="float32")
 LONGCTX_HD256 = dict(LONGCTX, n_heads=4)
 # the same in f32 (TF32 off, torch's default for matmuls): its flash
 # forward and backward on the tensor-core tf32x3 kernels
@@ -482,6 +500,7 @@ TRAIN_CELLS = (
     ("flagship_b8_t1024", dict(FLAGSHIP, max_len=1024, remat=False), 8,
      1024),
     ("longctx_b1_t8192", LONGCTX, 1, 8192),
+    ("longctx_f32_b1_t8192", LONGCTX_F32, 1, 8192),
     # the long-context configuration with 4 heads of 256 (Gemma-style
     # head_dim): the flash forward and backward on the tensor-core
     # wgmma_wide kernels
@@ -498,8 +517,9 @@ TRAIN_STEPS = 3
 # at batch 2, 32768 at batch 4); flash forward per block (twice with
 # remat), every one through the tensor-core variant (bf16: wgmma at
 # head_dim 64, wgmma_wide at 256, wgmma_xwide at 512, wgmma_xxwide at 1024;
-# f32: tf32x3 at 256, tf32x3_xwide at 512); dQ and dK/dV once per block,
-# through the same variant; the softmax cross-entropy once each way
+# f32: tf32x3 at 256, tf32x3_xwide at 512) but f32 at head_dim 64, whose
+# forward runs on simt; dQ and dK/dV once per block, through the same
+# variant (f32 at 64: tf32x3); the softmax cross-entropy once each way
 EXPECTED_LAUNCHES = {
     "flagship_b8_t1024": {"fused_rmsnorm": 9, "fused_rmsnorm.warp": 9,
                           "fused_softmax_xent": 1,
@@ -512,6 +532,15 @@ EXPECTED_LAUNCHES = {
                          "flash_attention_dkv.wgmma": 4,
                          "fused_softmax_xent": 1,
                          "fused_softmax_xent_bwd": 1},
+    "longctx_f32_b1_t8192": {"fused_rmsnorm": 17, "fused_rmsnorm.warp": 17,
+                             "flash_attention": 8,
+                             "flash_attention.simt": 8,
+                             "flash_attention_dq": 4,
+                             "flash_attention_dkv": 4,
+                             "flash_attention_dq.tf32x3": 4,
+                             "flash_attention_dkv.tf32x3": 4,
+                             "fused_softmax_xent": 1,
+                             "fused_softmax_xent_bwd": 1},
     "longctx_hd256_b1_t8192": {"fused_rmsnorm": 17, "fused_rmsnorm.warp": 17,
                                "flash_attention": 8,
                                "flash_attention.wgmma_wide": 8,
@@ -1083,6 +1112,13 @@ def phase_build():
                     if re.search(r"<(192|256),%d>" % cl, line))
             _check(n == per_cl, "%s: %d instantiations of cluster size %d "
                    "in the ptxas report, expected %d" % (src, n, cl, per_cl))
+        # and tf32x3's dQ and dK/dV at 64 and 128 (the narrow plan)
+        if src == "flash_attention_bwd_tf32x3":
+            n = sum(1 for kernel, line in summary
+                    if kernel.endswith("_narrow_kernel")
+                    and re.search(r"<(64|128)>", line))
+            _check(n == 4, "%s: %d narrow instantiations in the ptxas "
+                   "report, expected 4" % (src, n))
     return wall
 
 
@@ -1281,10 +1317,20 @@ def _rmsnorm_bwd_plain_case(shape, gen):
 
 
 # the CUDA-core variant each tensor-core variant of the forward and of the
-# backward is timed against in turns (``variants=True``)
+# backward is timed against in turns (``variants=True``); tf32x3's dQ and
+# dK/dV at 64 and 128 have simt instead (_cuda_core_twin)
 CUDA_CORE_TWIN = {"wgmma": "simt", "wgmma_wide": "wide", "tf32x3": "wide",
                   "wgmma_xwide": "wide", "tf32x3_xwide": "wide",
                   "wgmma_xxwide": "wide"}
+
+
+def _cuda_core_twin(variant, width):
+    """The CUDA-core kernel ``variant`` replaced at the kernel width
+    ``width``: ``CUDA_CORE_TWIN``, but simt for tf32x3 at 64 and 128 (its
+    backward's narrow plan; wide runs above 128 only)."""
+    if variant == "tf32x3" and width <= 128:
+        return "simt"
+    return CUDA_CORE_TWIN.get(variant)
 
 
 def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
@@ -1423,6 +1469,48 @@ def _time_eager_ms(fn, reps=20):
     return a.elapsed_time(b) / reps
 
 
+def _sdpa_bwd_ms(q, k, v, do, causal, rounds=2, replays=5):
+    """Device milliseconds of SDPA's backward alone at the shape of ``q``,
+    ``k``, ``v`` ([B, T, H, D]), on the terms of :func:`_time_ms`: copies
+    of the inputs past twice the L2 cache (:func:`_copies`), each with its
+    own retained SDPA forward, their backwards (``torch.autograd.grad``)
+    ``rounds`` times over captured into one CUDA graph on the forwards'
+    stream (a backward runs on its forward's stream), so that each call
+    finds its inputs cold and no host time enters; the median over
+    ``replays`` replays, divided by the calls in one."""
+    import torch
+    import torch.nn.functional as F
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    sets = []
+    with torch.cuda.stream(side):
+        for q_, k_, v_, do_ in _copies((q, k, v, do)):
+            leaves = tuple(t.transpose(1, 2).detach().requires_grad_(True)
+                           for t in (q_, k_, v_))
+            out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+            sets.append((out, leaves, do_.transpose(1, 2)))
+        for out, leaves, g in sets:                       # warm up
+            torch.autograd.grad(out, leaves, g, retain_graph=True)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(rounds):
+            for out, leaves, g in sets:
+                torch.autograd.grad(out, leaves, g, retain_graph=True)
+    torch.cuda.current_stream().wait_stream(side)
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / (rounds * len(sets)))
+    del graph
+    return statistics.median(times)
+
+
 def _xent_case(N, V, dtype_name, gen):
     """Both softmax cross-entropy kernels on logits [N, V]: two records."""
     import torch
@@ -1491,16 +1579,17 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     the backward against the plain backward and autograd through the dense
     forward, and two calls bit for bit (no atomics): two records.
     ``variants``: the variant is a tensor-core one; also hold its CUDA-core
-    twin (``CUDA_CORE_TWIN``: simt for wgmma, wide for the others) against
-    the plain backward and time the two in turns (tensor-core, CUDA-core,
-    CUDA-core, tensor-core); ``ms`` is then the tensor-core kernel's mean
-    of its two turns.  A head dim the kernels lack is timed at its padded
-    width (each variant's own, ``_kernel_width``: tf32x3_xwide runs 320 at
-    384, wgmma_xxwide 576 at 640, wide at 320 and 576), on inputs padded
-    once, as the backward runs it; the bounds count the real head_dim's
-    work."""
+    twin (``_cuda_core_twin``: simt for wgmma and for tf32x3 at 64 and
+    128, wide for the others) against the plain backward and time the two
+    in turns (tensor-core, CUDA-core, CUDA-core, tensor-core); ``ms`` is
+    then the tensor-core kernel's mean of its two turns.  A head dim the
+    kernels lack is timed at its padded width (each variant's own,
+    ``_kernel_width``: tf32x3_xwide runs 320 at 384, wgmma_xxwide 576 at
+    640, wide at 320 and 576), on inputs padded once, as the backward runs
+    it; the bounds count the real head_dim's work.  ``library_ms`` is
+    SDPA's backward on inputs cycled past the L2 cache
+    (:func:`_sdpa_bwd_ms`)."""
     import torch
-    import torch.nn.functional as F
     from mxnet_tpu_torch.ops.kernels.flash_attention import (
         _delta, _flash_bwd_cuda, _flash_cuda,
         _flash_dkv_simt_cuda, _flash_dkv_tf32x3_cuda,
@@ -1590,16 +1679,16 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
         lambda q, k, v, do, lse, delta: flash_attention_bwd_reference(
             q, k, v, o, lse, do, dlse, causal),
         _copies((q, k, v, do, lse, delta)), rounds=1)
-    width = _kernel_width(variant, D)
+    width = _kernel_width(variant, D, backward=True)
     args = _copies(tuple(_pad_d(t, width) for t in (q, k, v, do))
                    + (lse, delta))
-    twin = CUDA_CORE_TWIN.get(variant)
+    twin = _cuda_core_twin(variant, width)
     twin_errs = {}
     run_args = {variant: args}
     if variants:
         _check(twin is not None, "flash backward %s %s takes the %s "
                "variant" % ([B, Tq, H, D], dtype_name, variant))
-        twin_width = _kernel_width(twin, D)
+        twin_width = _kernel_width(twin, D, backward=True)
         run_args[twin] = args if twin_width == width else _copies(
             tuple(_pad_d(t, twin_width) for t in (q, k, v, do))
             + (lse, delta))
@@ -1621,14 +1710,9 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
                 lambda q, k, v, do, lse, delta, fn=fn: fn(
                     q, k, v, do, lse, delta, causal, scale),
                 run_args[name]))
-    # SDPA's backward alone at the same shape, replayed over one retained
-    # forward graph
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
-                  for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
-    lib_ms = _time_eager_ms(lambda: torch.autograd.grad(
-        out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
-    del out
+    # SDPA's backward alone at the same shape, on inputs cycled past the
+    # L2 cache as the kernels' are
+    lib_ms = _sdpa_bwd_ms(q, k, v, do, causal)
     shared = {"q": [B, Tq, H, D], "k": [B, Tk, H, D], "causal": causal,
               "dtype": dtype_name, "dlse": with_dlse, "variant": variant,
               "padded_head_dim": width, "atol": atol, "rtol": rtol,
@@ -1657,7 +1741,8 @@ def _flash_bwd_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
                 "%s_ms" % twin: twin_ms,
                 "%s_over_%s" % (twin, variant): twin_ms / rec["ms"],
                 "%s_max_abs_err" % twin: max(e[0] for e in terr),
-                "%s_padded_head_dim" % twin: _kernel_width(twin, D)})
+                "%s_padded_head_dim" % twin: _kernel_width(twin, D,
+                                                           backward=True)})
             rec["ok"] = rec["ok"] and all(e[1] for e in terr)
         rec["ms_over_bound"] = rec["ms"] / rec["bound_ms"]
     for rec in (dq, dkv):
@@ -1674,7 +1759,7 @@ def _twin_record(rec):
     """A ``_flash_case`` or ``_flash_bwd_case`` record made with
     ``variants=True`` as its CUDA-core twin's: the twin's time and error at
     the same shape, the same bound."""
-    twin = CUDA_CORE_TWIN[rec["variant"]]
+    twin = _cuda_core_twin(rec["variant"], rec["padded_head_dim"])
     out = dict(rec, variant=twin, ms=rec["%s_ms" % twin],
                max_abs_err=rec["%s_max_abs_err" % twin])
     out["ms_over_bound"] = out["ms"] / out["bound_ms"]
@@ -1793,8 +1878,24 @@ def phase_kernels():
     _flash_case(1, 4096, 4096, 16, 96, True, "bfloat16", gen)
     _flash_bwd_case(1, 4096, 4096, 16, 96, True, "bfloat16", gen,
                     with_dlse=True)
+    # f32 at head_dim 33-128: dQ and dK/dV on tf32x3's narrow plan, each
+    # in turns with simt (the CUDA-core kernels it replaced there) beside
+    # SDPA f32's backward: [2, 1024, 8, 64] with an lse cotangent, the f32
+    # long-context leg's [1, 8192, 16, 64] (whose records the kernels line
+    # carries), head_dim 128, 40 and 96 (padded to 64 and 128) with dlse,
+    # and Tq 1000 x Tk 3000 not causal
     _flash_bwd_case(2, 1024, 1024, 8, 64, True, "float32", gen,
+                    with_dlse=True, variants=True)
+    main["flash_attention_dq.tf32x3.narrow"], \
+        main["flash_attention_dkv.tf32x3.narrow"] = _flash_bwd_case(
+            1, 8192, 8192, 16, 64, True, "float32", gen, variants=True)
+    _flash_bwd_case(1, 4096, 4096, 16, 128, True, "float32", gen,
+                    variants=True)
+    _flash_bwd_case(1, 777, 777, 4, 40, True, "float32", gen,
                     with_dlse=True)
+    _flash_bwd_case(1, 777, 777, 4, 96, True, "float32", gen,
+                    with_dlse=True)
+    _flash_bwd_case(1, 1000, 3000, 16, 64, False, "float32", gen)
     # head dims above 128 (160 pads to 192; 320 is three column chunks of
     # at most 128): at padded 192 and 256 the tensor-core forward and
     # backward, wgmma_wide in bf16 and tf32x3 in f32, timed in turns with
@@ -1896,6 +1997,13 @@ def phase_kernels():
     _flash_case(4, 8192, 8192, 1, 1024, True, "bfloat16", gen, variants=True)
     _flash_bwd_case(4, 8192, 8192, 1, 1024, True, "bfloat16", gen,
                     variants=True)
+    # the widths wide still serves (f32 above 512, bf16 above 1024), the
+    # forward, dQ and dK/dV beside SDPA: f32 at [2, 1000, 4, 576] not
+    # causal and bf16 at [1, 1024, 2, 1152] causal
+    _flash_case(2, 1000, 1000, 4, 576, False, "float32", gen)
+    _flash_bwd_case(2, 1000, 1000, 4, 576, False, "float32", gen)
+    _flash_case(1, 1024, 1024, 2, 1152, True, "bfloat16", gen)
+    _flash_bwd_case(1, 1024, 1024, 2, 1152, True, "bfloat16", gen)
     main["fused_softmax_xent"], main["fused_softmax_xent_bwd"] = \
         _xent_case(8192, 32000, "float32", gen)
     _xent_case(8192, 32000, "bfloat16", gen)
@@ -6413,6 +6521,14 @@ def main():
         }
         if name.startswith("int8_matmul"):      # split-K's second kernel
             entry["reduce_launches"] = launched(name + ".reduce")
+        # tf32x3's dQ and dK/dV at 64 and 128 (the narrow plan): the f32
+        # long-context leg's shape, beside the simt kernels it replaced
+        narrow = main_cases.get(name + ".narrow")
+        if narrow is not None:
+            entry["narrow"] = {k: narrow[k] for k in (
+                "q", "padded_head_dim", "ms", "simt_ms", "max_abs_err",
+                "plain_ms", "bound_ms", "bound_by", "bound_f32_cuda_core_ms",
+                "library_ms")}
         # every variant of the kernel: its source, its launches on the main
         # paths and its time (the main shape's, or its own case's)
         if name in VARIANT_SOURCES:

@@ -62,7 +62,12 @@ from ...ops.registry import invoke_tap
 
 __all__ = ["FusedTrainStep"]
 
-_UNPORTED = ("devices", "bucket", "watchdog", "preemption")
+# the arguments not ported yet, each with the ROADMAP Queue 1 item that
+# ports it
+_UNPORTED = {"devices": "9.3 (several devices a step)",
+             "bucket": "8 (the rest of elastic)",
+             "watchdog": "8 (the rest of elastic)",
+             "preemption": "8 (the rest of elastic)"}
 
 
 class _CostCounter:
@@ -141,11 +146,11 @@ class FusedTrainStep:
                  numeric_guard=None, sentinel=None):
         given = dict(devices=devices, bucket=bucket, watchdog=watchdog,
                      preemption=preemption)
-        for name in _UNPORTED:
+        for name, item in _UNPORTED.items():
             if given[name] not in (None, False):
                 raise NotImplementedError(
-                    "mxnet_tpu_torch: FusedTrainStep(%s=...) needs the mesh "
-                    "and the rest of elastic, which are not ported" % name)
+                    "mxnet_tpu_torch: FusedTrainStep(%s=...) is not ported "
+                    "(ROADMAP Queue 1 item %s)" % (name, item))
         for p in trainer._params:
             if p._replicas is not None and len(p.list_data()) > 1:
                 raise ValueError("FusedTrainStep supports single-context "

@@ -1,9 +1,13 @@
-// Flash-attention backward for f32 above head_dim 128 on Hopper's tensor
+// Flash-attention backward for f32 above head_dim 32 on Hopper's tensor
 // cores (sm_90a), CUDA C++: the "tf32x3" variant of dQ and dK/dV, for f32
-// inputs at head_dim 192 or 256 (the wrapper pads head_dim 129-256 to one
-// of them), and the "tf32x3_xwide" variant at head_dim 384 or 512 (the
-// wrapper pads head_dim 257-384 to 384 and 385-512 to 512): the same
-// kernels run by clusters of two CTAs that split D (below).
+// inputs at head_dim 64 or 128 (the wrapper pads head_dim 33-128 to one of
+// them; their own plan, "Narrow widths" below) and at head_dim 192 or 256
+// (the wrapper pads head_dim 129-256 to one of them), and the
+// "tf32x3_xwide" variant at head_dim 384 or 512 (the wrapper pads head_dim
+// 257-384 to 384 and 385-512 to 512): the 192 / 256 kernels run by
+// clusters of two CTAs that split D (below).  f32 at head_dim 16 or 32
+// stays on the CUDA cores (simt, flash_attention_bwd.cu); so does the f32
+// forward up to head_dim 128 (flash_attention.cu).
 //
 // Replaces, at those widths and in f32, the Pallas TPU kernels
 // mxnet_tpu/ops/pallas/flash_attention.py `_dq_kernel` and `_dkv_kernel`
@@ -45,10 +49,10 @@
 // from shared memory by address in any layout, and the split happens as
 // they load.
 //
-// Design.  CTAs of 8 warps own 64 resident rows (queries for dQ, keys for
-// dK/dV), loaded once, and stream the other side in tiles of 32 rows, f32
-// in shared memory with rows padded to D + 4 words (every fragment load
-// below is free of bank conflicts).  Per tile:
+// Design (192 / 256).  CTAs of 8 warps own 64 resident rows (queries for
+// dQ, keys for dK/dV), loaded once, and stream the other side in tiles of
+// 32 rows, f32 in shared memory with rows padded to D + 4 words (every
+// fragment load below is free of bank conflicts).  Per tile:
 //   * scores: warp w computes 32 rows (32 ((w / 2) % 2) ..) x all 32
 //     streamed rows of one product (w < 4: S, or S^T; else dP, or dP^T)
 //     over one half of D (w % 2): 16 values split for 24 tensor-core
@@ -121,6 +125,54 @@
 // the launcher checks once that one fits (cudaOccupancyMaxActiveClusters)
 // and returns kErrCluster if not.
 //
+// Narrow widths (64 and 128).  The plan above does not carry over: warp w's
+// D / 8 output columns are one n8 tile at D 64, so every warp forms and
+// splits all of ds for one tile of products; each score warp's half of D
+// is four k-steps, so the two half-barriers, the exchange tile and the
+// split of every streamed value weigh four times as much per flop as at
+// 256; and its 72,704 B of shared memory at D 64 leave most of the SM
+// idle under (256, 1) launch bounds.  So at 64 and 128 each warp owns M
+// blocks of 16 resident rows over all of D, in both products, as
+// FlashAttention-2's backward splits its work:
+//   * scores: the warp computes S (or S^T) and dP (or dP^T) for its rows
+//     against all BS streamed rows over all of D (score_rows), so no
+//     partial sum crosses a warp and there is no exchange tile;
+//   * p and ds = p * (dp - delta) * scale are formed in the accumulators'
+//     registers, and those registers are the A operand of the output
+//     products as they stand: an m16n8 accumulator fragment holds columns
+//     2t and 2t + 1, which mma's A fragment reads as k slots t and t + 4
+//     when the streamed tile's rows are read in that order (frag_b_perm,
+//     the permutation the plan above applies to its exchange tile);
+//   * output: dQ += ds . K, or dV += p^T . dO and dK += ds^T . Q, for the
+//     warp's rows and all D columns (out_rows), NC n-blocks at a time,
+//     each block's products over the tile summed from zero on the tensor
+//     cores and added in f32, as above.
+// The only barriers are the streamed tiles': two a tile (in, and no longer
+// read), with the next tile's copies (16-byte cp.async, two stages) issued
+// before the wait for this one.  dQ issues dP right after S, so that p's
+// exponentials run beside dP's last products.  A warp whose rows no key
+// (dQ) or query (dK/dV) of the tile reaches under the causal mask skips the
+// tile, and only tiles that cross Tq, Tk or the diagonal compute masks.  dQ
+// runs its heavy causal tiles first, dK/dV its early keys first; key tiles
+// no query sees store zero dK/dV.  No atomics: two calls give the same
+// bits.  Each kernel's plan (NarrowDq, NarrowDkv: warps W, 16-row blocks
+// M, streamed rows BS, n-blocks a chunk NC) was chosen by timing five sets
+// of candidates in turns (tf32x3_probe.py --narrow; H100 80GB HBM3,
+// 700 W).  At 64 both kernels take 4 warps of one block (64 rows a CTA)
+// and 64-row tiles: 104,448 B and 171 (dQ) / 198 (dK/dV) registers, so
+// two CTAs share an SM.  At 128, 8 warps of one block (128 rows) and
+// 32-row tiles, dK/dV's output in chunks of 4 n-blocks: 202,752 B and
+// 197 / 255 registers (no spill), one CTA an SM.  Two blocks a warp (each
+// streamed fragment split once for two mma rows) did not pay: dQ at 64
+// within the timing's spread, dK/dV at 64 3-19 % slower, dQ at 128 32-50 %
+// slower; nor did 8 warps with 32-row tiles at 64 (11 %), nor 4 warps or
+// 16-row tiles at 128 (15-24 %).  At the f32 long-context leg's [1, 8192,
+// 16, 64] the tiles' copies and barriers take 14 % of dQ's and 11 % of
+// dK/dV's time,
+// the products and the softmax the rest (tf32x3_probe.py's phases); two
+// libraries of the same dK/dV code timed 4.87 and 5.15 ms there in one
+// call, so plans within about 6 % are not told apart.
+//
 // Plain C interface (no PyTorch headers), called through ctypes.
 
 #include "hopper.cuh"
@@ -139,6 +191,9 @@ struct Strides {
   long long s[18];
 };
 
+// The plan at head_dim 192 and 256 (tf32x3) and, a CTA's half, at 384 and
+// 512 (tf32x3_xwide); 64 and 128 take the narrow plan (NarrowDq and
+// NarrowDkv, below).
 // Shared memory, in floats: two resident [BR][LD] tiles, two streamed
 // [BS][LD] tiles and two [BR][XS] exchange tiles, and in a cluster (CL 2)
 // two mbarriers a warp (8 bytes each: full, then vacant).  LD % 32 == 4.
@@ -559,6 +614,383 @@ flash_dkv_tf32x3_kernel(const float* __restrict__ q,
            st.s[16], k0, Tk, c0, g, t, dv_acc);
 }
 
+// ---------------------------------------------------------------------------
+// tf32x3 at head_dim 64 and 128: the narrow plan (header, "Narrow widths")
+// ---------------------------------------------------------------------------
+
+// The plan of one narrow kernel: W warps a CTA, each owning M blocks of 16
+// resident rows over all of D (R = 16 M W rows a CTA), streamed tiles of
+// BS rows in two stages, and the output products' n-blocks taken NC at a
+// time, each block's tile sum in registers
+template <int W_, int M_, int BS_, int NC_>
+struct Plan {
+  static constexpr int W = W_, M = M_, BS = BS_, NC = NC_;
+  static_assert(BS % 8 == 0, "streamed tiles of 8-row blocks");
+};
+// each kernel's plan at each width; tf32x3_probe.py times the candidates in
+// turns by editing these lines
+template <int D>
+struct NarrowDq;
+template <int D>
+struct NarrowDkv;
+template <>
+struct NarrowDq<64> : Plan<4, 1, 64, 8> {};
+template <>
+struct NarrowDkv<64> : Plan<4, 1, 64, 8> {};
+template <>
+struct NarrowDq<128> : Plan<8, 1, 32, 8> {};
+template <>
+struct NarrowDkv<128> : Plan<8, 1, 32, 4> {};
+
+// Shared memory, in floats: two resident [R][LD] tiles and two stages of
+// two streamed [BS][LD] tiles.  LD % 32 == 4, as above
+template <int D, class P>
+struct NarrowSmem {
+  static constexpr int LD = D + 4;
+  static constexpr int R = 16 * P::M * P::W;
+  static constexpr int NT = 32 * P::W;
+  static constexpr int res0 = 0;                 // q | k
+  static constexpr int res1 = R * LD;            // dO | v
+  static constexpr int str = 2 * R * LD;         // stage s: k, v | q, dO
+  static constexpr int stage = 2 * P::BS * LD;
+  static constexpr size_t bytes = (str + 2 * stage) * sizeof(float);
+  static_assert(bytes <= 232448, "a block has 227 KB of shared memory");
+};
+
+// One warp's M blocks of 16 rows of a score product over all of D:
+// acc[m][n] = A[16m ..] . B[8n .. 8n + 7]^T, A the warp's rows of a
+// resident tile, B the BS rows of a streamed tile; summed on the tensor
+// cores from zero.  Each B fragment, split once, serves the M blocks
+template <int D, int BS, int M>
+__device__ __forceinline__ void score_rows(const float* A, const float* B,
+                                           int g, int t,
+                                           float (&acc)[M][BS / 8][4]) {
+  constexpr int LD = D + 4;
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int n = 0; n < BS / 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 8) {
+    uint32_t ah[M][4], al[M][4];
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+      frag_a(A + 16 * m * LD + d, LD, g, t, ah[m], al[m]);
+#pragma unroll
+    for (int n = 0; n < BS / 8; ++n) {
+      uint32_t bh[2], bl[2];
+      frag_bt(B + 8 * n * LD + d, LD, g, t, bh, bl);
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+        mma_tf32x3(acc[m][n], ah[m], al[m], bh, bl);
+    }
+  }
+}
+
+// acc[m][nb] += X[m] . S[:, 8nb ..] for one warp's M blocks of 16 rows,
+// over a tile's BS streamed rows: X the warp's score fragments (p, or ds)
+// as they stand in registers, the A operand of k-step kk being fragment kk
+// with k permuted as frag_b_perm reads S (the fragment's columns 2t and
+// 2t + 1 are A's k slots t and t + 4), S the streamed tile.  NC n-blocks
+// at a time, each block's products over the tile summed on the tensor
+// cores from zero and then added to acc in f32
+template <int D, int BS, int NC, int M>
+__device__ __forceinline__ void out_rows(const float (&x)[M][BS / 8][4],
+                                         const float* S, int g, int t,
+                                         float (&acc)[M][D / 8][4]) {
+  constexpr int LD = D + 4;
+  static_assert((D / 8) % NC == 0, "n-blocks in whole chunks");
+#pragma unroll
+  for (int c = 0; c < D / 8; c += NC) {
+    float tile[M][NC][4];
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int nb = 0; nb < NC; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) tile[m][nb][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < BS / 8; ++kk) {
+      uint32_t ah[M][4], al[M][4];
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        split_tf32(x[m][kk][0], ah[m][0], al[m][0]);
+        split_tf32(x[m][kk][2], ah[m][1], al[m][1]);
+        split_tf32(x[m][kk][1], ah[m][2], al[m][2]);
+        split_tf32(x[m][kk][3], ah[m][3], al[m][3]);
+      }
+#pragma unroll
+      for (int nb = 0; nb < NC; ++nb) {
+        uint32_t bh[2], bl[2];
+        frag_b_perm(S + 8 * kk * LD + 8 * (c + nb), LD, g, t, bh, bl);
+#pragma unroll
+        for (int m = 0; m < M; ++m)
+          mma_tf32x3(tile[m][nb], ah[m], al[m], bh, bl);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int nb = 0; nb < NC; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[m][c + nb][i] += tile[m][nb][i];
+  }
+}
+
+template <int D, int M>
+__device__ __forceinline__ void zero_rows(float (&acc)[M][D / 8][4]) {
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][nb][i] = 0.f;
+}
+
+// One warp's output rows: this thread's rows r0 + 16m and r0 + 16m + 8,
+// those at or past `end` not stored; columns 8nb + 2t and the next
+template <int D, int M>
+__device__ __forceinline__ void store_rows(float* out, long long ld, int r0,
+                                           int end, int t,
+                                           const float (&acc)[M][D / 8][4]) {
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 16 * m + 8 * half;
+      if (r >= end) continue;
+#pragma unroll
+      for (int nb = 0; nb < D / 8; ++nb)
+        *reinterpret_cast<float2*>(out + r * ld + 8 * nb + 2 * t) =
+            make_float2(acc[m][nb][2 * half], acc[m][nb][2 * half + 1]);
+    }
+}
+
+// st: q (0-2), k (3-5), v (6-8), dO (9-11), dQ (12-14)
+template <int D>
+__global__ void __launch_bounds__(NarrowSmem<D, NarrowDq<D>>::NT, 1)
+flash_dq_tf32x3_narrow_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              float* __restrict__ dq, int H, int Tq, int Tk,
+                              int tq_pad, Strides st, float scale,
+                              int causal) {
+  using P = NarrowDq<D>;
+  using L = NarrowSmem<D, P>;
+  constexpr int LD = L::LD, BS = P::BS, M = P::M, R = L::R, NT = L::NT;
+  extern __shared__ float4 smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * R;     // heavy tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const float* kb = k + b * st.s[3] + h * st.s[5];
+  const float* vb = v + b * st.s[6] + h * st.s[8];
+  const int w0 = q0 + 16 * M * warp;  // this warp's first row
+  const int r0 = w0 + g;              // this thread's rows r0 + 16m (+ 8)
+  const long long rows = ((long long)b * H + h) * tq_pad;
+  float l2[M][2], dl[M][2];           // their lse (times log2 e) and delta
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 16 * m + 8 * i;
+      l2[m][i] = r < Tq ? lse[rows + r] * kLog2e : 0.f;
+      dl[m][i] = r < Tq ? delta[rows + r] : 0.f;
+    }
+  const float sl2 = scale * kLog2e;
+  const int q_last = min(q0 + R, Tq) - 1;
+  const int k_end = causal ? min(Tk, q_last + 1) : Tk;
+
+  copy_rows<D>(smem + L::res0, q + b * st.s[0] + h * st.s[2], st.s[1], q0, R,
+               Tq, threadIdx.x, NT);
+  copy_rows<D>(smem + L::res1, dout + b * st.s[9] + h * st.s[11], st.s[10],
+               q0, R, Tq, threadIdx.x, NT);
+  copy_rows<D>(smem + L::str, kb, st.s[4], 0, BS, Tk, threadIdx.x, NT);
+  copy_rows<D>(smem + L::str + BS * LD, vb, st.s[7], 0, BS, Tk, threadIdx.x,
+               NT);
+  cp_async_commit();
+  const float* Qw = smem + L::res0 + 16 * M * warp * LD;
+  const float* Ow = smem + L::res1 + 16 * M * warp * LD;
+  float acc[M][D / 8][4];
+  zero_rows<D, M>(acc);
+
+  int s = 0;
+  for (int k0 = 0; k0 < k_end; k0 += BS, s ^= 1) {
+    const float* Ks = smem + L::str + s * L::stage;
+    const float* Vs = Ks + BS * LD;
+    if (k0 + BS < k_end) {            // the next tile into the other stage
+      float* nk = smem + L::str + (s ^ 1) * L::stage;
+      copy_rows<D>(nk, kb, st.s[4], k0 + BS, BS, Tk, threadIdx.x, NT);
+      copy_rows<D>(nk + BS * LD, vb, st.s[7], k0 + BS, BS, Tk, threadIdx.x,
+                   NT);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                  // this tile is in, every thread's part
+    // a warp whose rows all precede the tile's keys (causal) or lie past Tq
+    // adds nothing: p = 0 there
+    if (w0 < Tq && (!causal || w0 + 16 * M - 1 >= k0)) {
+      float p[M][BS / 8][4], ds[M][BS / 8][4];
+      score_rows<D, BS, M>(Qw, Ks, g, t, p);
+      // dP first: p's exponentials then run beside its last products
+      score_rows<D, BS, M>(Ow, Vs, g, t, ds);
+      // masks only where the tile crosses Tk, Tq or the diagonal
+      const bool edge = k0 + BS > Tk || w0 + 16 * M > Tq ||
+                        (causal && k0 + BS - 1 > w0);
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+#pragma unroll
+        for (int n = 0; n < BS / 8; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float e = ex2(fmaf(p[m][n][i], sl2, -l2[m][i >> 1]));
+            const int qpos = r0 + 16 * m + 8 * (i >> 1);
+            const int kpos = k0 + 8 * n + 2 * t + (i & 1);
+            const bool ok = !edge || (qpos < Tq && kpos < Tk &&
+                                      (!causal || qpos >= kpos));
+            p[m][n][i] = ok ? e : 0.f;
+          }
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+#pragma unroll
+        for (int n = 0; n < BS / 8; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            ds[m][n][i] =
+                p[m][n][i] * (ds[m][n][i] - dl[m][i >> 1]) * scale;
+      out_rows<D, BS, P::NC, M>(ds, Ks, g, t, acc);
+    }
+    __syncthreads();                  // this stage is no longer read
+  }
+  store_rows<D, M>(dq + b * st.s[12] + h * st.s[14], st.s[13], r0, Tq, t,
+                   acc);
+}
+
+// st: q (0-2), k (3-5), v (6-8), dO (9-11), dK (12-14), dV (15-17)
+template <int D>
+__global__ void __launch_bounds__(NarrowSmem<D, NarrowDkv<D>>::NT, 1)
+flash_dkv_tf32x3_narrow_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               const float* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               float* __restrict__ dk, float* __restrict__ dv,
+                               int H, int Tq, int Tk, int tq_pad, Strides st,
+                               float scale, int causal) {
+  using P = NarrowDkv<D>;
+  using L = NarrowSmem<D, P>;
+  constexpr int LD = L::LD, BS = P::BS, M = P::M, R = L::R, NT = L::NT;
+  extern __shared__ float4 smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * R;      // early keys (the most queries) first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const float* qb = q + b * st.s[0] + h * st.s[2];
+  const float* dob = dout + b * st.s[9] + h * st.s[11];
+  const int w0 = k0 + 16 * M * warp;  // this warp's first key
+  const int r0 = w0 + g;              // this thread's keys r0 + 16m (+ 8)
+  const long long rows = ((long long)b * H + h) * tq_pad;
+  const float* lr = lse + rows;       // by query
+  const float* dr = delta + rows;
+  const float sl2 = scale * kLog2e;
+  // causal: a query tile whose last row precedes k0 sees none of these keys
+  const int q_begin = causal ? (k0 / BS) * BS : 0;
+
+  copy_rows<D>(smem + L::res0, k + b * st.s[3] + h * st.s[5], st.s[4], k0, R,
+               Tk, threadIdx.x, NT);
+  copy_rows<D>(smem + L::res1, v + b * st.s[6] + h * st.s[8], st.s[7], k0, R,
+               Tk, threadIdx.x, NT);
+  if (q_begin < Tq) {
+    copy_rows<D>(smem + L::str, qb, st.s[1], q_begin, BS, Tq, threadIdx.x,
+                 NT);
+    copy_rows<D>(smem + L::str + BS * LD, dob, st.s[10], q_begin, BS, Tq,
+                 threadIdx.x, NT);
+  }
+  cp_async_commit();
+  const float* Kw = smem + L::res0 + 16 * M * warp * LD;
+  const float* Vw = smem + L::res1 + 16 * M * warp * LD;
+  float dk_acc[M][D / 8][4], dv_acc[M][D / 8][4];
+  zero_rows<D, M>(dk_acc);
+  zero_rows<D, M>(dv_acc);
+
+  int s = 0;
+  for (int q0 = q_begin; q0 < Tq; q0 += BS, s ^= 1) {
+    const float* Qs = smem + L::str + s * L::stage;
+    const float* dOs = Qs + BS * LD;
+    if (q0 + BS < Tq) {               // the next tile into the other stage
+      float* nq = smem + L::str + (s ^ 1) * L::stage;
+      copy_rows<D>(nq, qb, st.s[1], q0 + BS, BS, Tq, threadIdx.x, NT);
+      copy_rows<D>(nq + BS * LD, dob, st.s[10], q0 + BS, BS, Tq, threadIdx.x,
+                   NT);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                  // this tile is in, every thread's part
+    // a warp whose keys all follow the tile's queries (causal) or lie past
+    // Tk adds nothing: p = 0 there
+    if (w0 < Tk && (!causal || q0 + BS - 1 >= w0)) {
+      float p[M][BS / 8][4], ds[M][BS / 8][4];
+      score_rows<D, BS, M>(Kw, Qs, g, t, p);              // S^T = K . Q^T
+      const bool edge = q0 + BS > Tq || w0 + 16 * M > Tk ||
+                        (causal && q0 < w0 + 16 * M - 1);
+#pragma unroll
+      for (int n = 0; n < BS / 8; ++n) {
+        const int qc = q0 + 8 * n + 2 * t;  // queries qc and qc + 1
+        // tq_pad is even: qc < Tq puts qc + 1 inside the row too
+        const float2 l = qc < Tq ? *reinterpret_cast<const float2*>(lr + qc)
+                                 : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int m = 0; m < M; ++m)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float l2 = ((i & 1) ? l.y : l.x) * kLog2e;
+            const float e = ex2(fmaf(p[m][n][i], sl2, -l2));
+            const int kpos = r0 + 16 * m + 8 * (i >> 1);
+            const int qpos = qc + (i & 1);
+            const bool ok = !edge || (qpos < Tq && kpos < Tk &&
+                                      (!causal || qpos >= kpos));
+            p[m][n][i] = ok ? e : 0.f;
+          }
+      }
+      out_rows<D, BS, P::NC, M>(p, dOs, g, t, dv_acc);    // dV += p^T . dO
+      score_rows<D, BS, M>(Vw, dOs, g, t, ds);            // dP^T = V . dO^T
+#pragma unroll
+      for (int n = 0; n < BS / 8; ++n) {
+        const int qc = q0 + 8 * n + 2 * t;
+        const float2 d = qc < Tq ? *reinterpret_cast<const float2*>(dr + qc)
+                                 : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int m = 0; m < M; ++m)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            ds[m][n][i] = p[m][n][i] *
+                          (ds[m][n][i] - ((i & 1) ? d.y : d.x)) * scale;
+      }
+      out_rows<D, BS, P::NC, M>(ds, Qs, g, t, dk_acc);    // dK += ds^T . Q
+    }
+    __syncthreads();                  // this stage is no longer read
+  }
+  cp_async_wait<0>();                 // no copy in flight at exit
+  store_rows<D, M>(dk + b * st.s[12] + h * st.s[14], st.s[13], r0, Tk, t,
+                   dk_acc);
+  store_rows<D, M>(dv + b * st.s[15] + h * st.s[17], st.s[16], r0, Tk, t,
+                   dv_acc);
+}
+
 Strides copy_strides(const long long* st, int n) {
   Strides s{};
   for (int i = 0; i < n; ++i) s.s[i] = st[i];
@@ -589,15 +1021,42 @@ int launch_dkv(const float* q, const float* k, const float* v,
       copy_strides(st, 18), scale, causal);
 }
 
+template <int D>
+int launch_dq_narrow(const float* q, const float* k, const float* v,
+                     const float* dout, const float* lse, const float* delta,
+                     float* dq, int B, int H, int Tq, int Tk, int tq_pad,
+                     const long long* st, float scale, int causal,
+                     cudaStream_t stream) {
+  using L = NarrowSmem<D, NarrowDq<D>>;
+  return launch_ex<flash_dq_tf32x3_narrow_kernel<D>, 1>(
+      dim3((Tq + L::R - 1) / L::R, H, B), L::NT, L::bytes, stream, q, k, v,
+      dout, lse, delta, dq, H, Tq, Tk, tq_pad, copy_strides(st, 15), scale,
+      causal);
+}
+
+template <int D>
+int launch_dkv_narrow(const float* q, const float* k, const float* v,
+                      const float* dout, const float* lse,
+                      const float* delta, float* dk, float* dv, int B, int H,
+                      int Tq, int Tk, int tq_pad, const long long* st,
+                      float scale, int causal, cudaStream_t stream) {
+  using L = NarrowSmem<D, NarrowDkv<D>>;
+  return launch_ex<flash_dkv_tf32x3_narrow_kernel<D>, 1>(
+      dim3((Tk + L::R - 1) / L::R, H, B), L::NT, L::bytes, stream, q, k, v,
+      dout, lse, delta, dk, dv, H, Tq, Tk, tq_pad, copy_strides(st, 18),
+      scale, causal);
+}
+
 int check_sizes(int B, int H, int Tq, int Tk, int tq_pad) {
   if (Tk <= 0 || B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
   if (tq_pad < Tq || tq_pad % BR) return kErrPad;
   return 0;
 }
 
-// dQ of `D` columns: tf32x3 at 192 / 256 (one CTA a row tile), tf32x3_xwide
-// at 384 / 512 (a cluster of two CTAs, 192 / 256 columns each); any other
-// width, or one of the other variant's, is refused
+// dQ of `D` columns: tf32x3 at 64 / 128 (the narrow plan) and 192 / 256
+// (one CTA a row tile), tf32x3_xwide at 384 / 512 (a cluster of two CTAs,
+// 192 / 256 columns each); any other width, or one of the other variant's,
+// is refused
 int dq_any(bool xwide, const void* q, const void* k, const void* v,
            const void* dout, const void* lse, const void* delta, void* dq,
            int B, int H, int Tq, int Tk, int D, int tq_pad,
@@ -614,6 +1073,12 @@ int dq_any(bool xwide, const void* q, const void* k, const void* v,
               *fd = static_cast<const float*>(delta);
   float* out = static_cast<float*>(dq);
   switch (xwide ? -D : D) {
+    case 64:
+      return launch_dq_narrow<64>(fq, fk, fv, fo, fl, fd, out, B, H, Tq, Tk,
+                                  tq_pad, st, scale, causal, s);
+    case 128:
+      return launch_dq_narrow<128>(fq, fk, fv, fo, fl, fd, out, B, H, Tq, Tk,
+                                   tq_pad, st, scale, causal, s);
     case 192:
       return launch_dq<192, 1>(fq, fk, fv, fo, fl, fd, out, B, H, Tq, Tk,
                                tq_pad, st, scale, causal, s);
@@ -648,6 +1113,12 @@ int dkv_any(bool xwide, const void* q, const void* k, const void* v,
               *fd = static_cast<const float*>(delta);
   float *ok = static_cast<float*>(dk), *ov = static_cast<float*>(dv);
   switch (xwide ? -D : D) {
+    case 64:
+      return launch_dkv_narrow<64>(fq, fk, fv, fo, fl, fd, ok, ov, B, H, Tq,
+                                   Tk, tq_pad, st, scale, causal, s);
+    case 128:
+      return launch_dkv_narrow<128>(fq, fk, fv, fo, fl, fd, ok, ov, B, H, Tq,
+                                    Tk, tq_pad, st, scale, causal, s);
     case 192:
       return launch_dkv<192, 1>(fq, fk, fv, fo, fl, fd, ok, ov, B, H, Tq, Tk,
                                 tq_pad, st, scale, causal, s);
@@ -677,8 +1148,9 @@ const char* error_string(int code) {
 
 extern "C" {
 
-// q/k/v/dO: f32 [B, T, H, D] with unit stride on D, D 192 or 256; `st`
-// holds the (B, T, H) element strides of q, k, v, dO and dq in that order.
+// q/k/v/dO: f32 [B, T, H, D] with unit stride on D, D 64, 128, 192 or 256;
+// `st` holds the (B, T, H) element strides of q, k, v, dO and dq in that
+// order.
 // Base addresses 16-byte aligned, strides multiples of 4 elements (the
 // 16-byte copies).  lse, delta: f32 [B, H, tq_pad], contiguous.  Returns 0
 // on success, else a cudaError_t or kErrPad (see

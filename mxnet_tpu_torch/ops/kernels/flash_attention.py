@@ -24,7 +24,9 @@ fixed from the real head_dim, and sliced back (:func:`_padded_dim`; the
 513-1024 to 640, 768, 896 or 1024: :func:`_kernel_width`).
 Only head_dim 0 raises.  The variants are chosen by one rule on dtype,
 padded head_dim and direction alone (:func:`_variant`), never by whether a
-build or a launch worked; there are eight:
+build or a launch worked.  The rule is the same both ways but at f32 64
+and 128 (head_dim 33-128), where the backward runs ``tf32x3`` and the
+forward ``simt``.  There are eight:
 
 * ``wgmma`` — tensor cores (wgmma, TMA rings, the f32 operands p and ds
   split into two bf16 terms): bf16 at head_dim 64 or 128 (the flagship's
@@ -43,9 +45,12 @@ build or a launch worked; there are eight:
   columns).  The same preconditions and the same copy of ``dO`` as
   ``wgmma``;
 * ``tf32x3`` — tensor cores: f32 at a padded head_dim of 192 or 256
-  (head_dim 129-256), both ways.  Forward ``csrc/flash_attention_tf32x3.cu``
-  (CTAs of 64 query rows over all of D, key / value tiles of 64);
-  backward ``csrc/flash_attention_bwd_tf32x3.cu`` (dQ and dK/dV).  The
+  (head_dim 129-256), both ways, and the backward alone at 64 or 128
+  (head_dim 33-128).  Forward ``csrc/flash_attention_tf32x3.cu`` (CTAs of
+  64 query rows over all of D, key / value tiles of 64); backward
+  ``csrc/flash_attention_bwd_tf32x3.cu`` (dQ and dK/dV; at 64 and 128 its
+  narrow plan: each warp owns 16 rows over all of D, and the score
+  registers are the output products' operand).  The
   tensor cores have no f32 operand, and one TF32 product keeps 11 of
   f32's 24 significant bits (about 2^-11 relative), too coarse for f32;
   so each operand is split into ``hi`` (x with its 13 low bits cleared)
@@ -83,10 +88,10 @@ build or a launch worked; there are eight:
   CTA).  Forward ``csrc/flash_attention_wgmma_xwide.cu``, backward
   ``csrc/flash_attention_bwd_wgmma_xwide.cu``.  The same preconditions
   and the same copy of ``dO`` as ``wgmma``;
-* ``simt`` — CUDA cores: f32 up to head_dim 128, and head_dim 16 or 32
-  (less than one 128-byte row of the swizzled tiles the wgmma variant
-  reads).  Forward ``csrc/flash_attention.cu``; backward
-  ``csrc/flash_attention_bwd.cu``;
+* ``simt`` — CUDA cores: the f32 forward up to head_dim 128, and head_dim
+  16 or 32 both ways, f32 and bf16 (less than one 128-byte row of the
+  swizzled tiles the wgmma variant reads).  Forward
+  ``csrc/flash_attention.cu``; backward ``csrc/flash_attention_bwd.cu``;
 * ``wide`` — CUDA cores, above head_dim 128 (padded to a multiple of 64):
   the dot products over D walk it in chunks of 64 and each CTA owns at
   most 128 output columns, so any head_dim fits
@@ -124,6 +129,10 @@ _TC_WIDTHS = {"wgmma": (64, 128), "wgmma_wide": (192, 256),
               "tf32x3": (192, 256), "wgmma_xwide": (320, 384, 448, 512),
               "tf32x3_xwide": (384, 512),
               "wgmma_xxwide": (640, 768, 896, 1024)}
+# ... and the backward's, where they differ: tf32x3's dQ and dK/dV also
+# at 64 and 128 (the narrow plan of csrc/flash_attention_bwd_tf32x3.cu),
+# where the forward stays simt
+_TC_BWD_WIDTHS = dict(_TC_WIDTHS, tf32x3=(64, 128, 192, 256))
 # ... and the dtype each takes
 _TC_DTYPE = {"wgmma": torch.bfloat16, "wgmma_wide": torch.bfloat16,
              "tf32x3": torch.float32, "wgmma_xwide": torch.bfloat16,
@@ -312,11 +321,14 @@ def _variant(dtype, head_dim, backward=False):
     576-1024 (run at 640, 768, 896 or 1024, two CTAs of a cluster splitting
     D), all six both ways; ``"wide"`` for every other width above 128 (f32
     above 512, bf16 above 1024); ``"simt"`` for the rest (f32 up to 128;
-    bf16 up to 32).  ``backward`` names the direction; the rule is the same
-    for both."""
+    bf16 up to 32).  ``backward`` names the direction, and the rule is the
+    same for both but at f32 64 and 128 (head_dim 33-128): the backward's
+    dQ and dK/dV there are ``"tf32x3"`` (``_TC_BWD_WIDTHS``), while the
+    forward stays ``"simt"``."""
     width = _padded_dim(head_dim)
+    widths = _TC_BWD_WIDTHS if backward else _TC_WIDTHS
     for variant in ("wgmma", "wgmma_wide", "wgmma_xwide", "tf32x3"):
-        if dtype == _TC_DTYPE[variant] and width in _TC_WIDTHS[variant]:
+        if dtype == _TC_DTYPE[variant] and width in widths[variant]:
             return variant
     # the cluster variants: from above the one-CTA variant's widest to
     # their own widest (run at the next of their widths)
@@ -331,18 +343,18 @@ def _variant(dtype, head_dim, backward=False):
     return "simt"
 
 
-def _kernel_width(variant, head_dim):
-    """The width ``variant`` runs ``head_dim`` at: :func:`_padded_dim`,
-    rounded up to the next of the variant's own widths where it has them
-    (``tf32x3_xwide`` runs 320 at 384 and 448 at 512: a pair of CTAs
-    splits D evenly, and 160 or 224 columns a CTA would not divide into 8
-    warps of 8-column tiles; ``wgmma_xxwide`` runs 576 at 640, 704 at 768
-    and 832 at 896: a CTA's half is a width of ``wgmma_xwide``'s; the zero
-    columns add 0 to the score products, and ``scale`` stays the real
-    head_dim's)."""
+def _kernel_width(variant, head_dim, backward=False):
+    """The width ``variant`` runs ``head_dim`` at in the direction
+    ``backward`` names: :func:`_padded_dim`, rounded up to the next of the
+    variant's own widths where it has them (``tf32x3_xwide`` runs 320 at
+    384 and 448 at 512: a pair of CTAs splits D evenly, and 160 or 224
+    columns a CTA would not divide into 8 warps of 8-column tiles;
+    ``wgmma_xxwide`` runs 576 at 640, 704 at 768 and 832 at 896: a CTA's
+    half is a width of ``wgmma_xwide``'s; the zero columns add 0 to the
+    score products, and ``scale`` stays the real head_dim's)."""
     width = _padded_dim(head_dim)
-    return min((w for w in _TC_WIDTHS.get(variant, ()) if w >= width),
-               default=width)
+    widths = (_TC_BWD_WIDTHS if backward else _TC_WIDTHS).get(variant, ())
+    return min((w for w in widths if w >= width), default=width)
 
 
 def _tma_strides(t):
@@ -567,8 +579,9 @@ def _flash_wide_cuda(q, k, v, causal=True, scale=None, kv_len=None):
     return o, lse
 
 
-def _check_tc_width(dtype, D, variant):
-    widths, want = _TC_WIDTHS[variant], _TC_DTYPE[variant]
+def _check_tc_width(dtype, D, variant, backward=False):
+    widths = (_TC_BWD_WIDTHS if backward else _TC_WIDTHS)[variant]
+    want = _TC_DTYPE[variant]
     if dtype != want or D not in widths:
         raise ValueError("flash_attention (%s variant): takes %s with "
                          "head_dim in %s; got %s, head_dim %d"
@@ -729,7 +742,7 @@ _BWD_TC = {
 def _bwd_tc_args(variant, q, k, v, do, lse, delta):
     """Check a tensor-core backward's inputs; returns ``(lse, delta,
     tq_pad)`` with the row buffers padded (:func:`_rows_padded`)."""
-    _check_tc_width(q.dtype, q.shape[-1], variant)
+    _check_tc_width(q.dtype, q.shape[-1], variant, backward=True)
     _check_wgmma(q, k, v, do, variant)
     Tq = q.shape[1]
     lse_p, delta_p = _rows_padded(lse, Tq), _rows_padded(delta, Tq)
@@ -836,10 +849,10 @@ def _flash_dkv_wgmma_wide_cuda(q, k, v, do, lse, delta, causal=True,
 def _flash_dq_tf32x3_cuda(q, k, v, do, lse, delta, causal=True,
                           scale=None):
     """Launch the dQ kernel of ``csrc/flash_attention_bwd_tf32x3.cu``
-    (tensor cores, split-TF32 products) on f32 inputs with head_dim 192 or
-    256; returns ``dq``, contiguous.  Raises on inputs it does not take
-    (:func:`_check_tc_width`, :func:`_check_wgmma` with ``do``): never a
-    hand-off to the wide variant."""
+    (tensor cores, split-TF32 products) on f32 inputs with head_dim 64,
+    128, 192 or 256; returns ``dq``, contiguous.  Raises on inputs it does
+    not take (:func:`_check_tc_width`, :func:`_check_wgmma` with ``do``):
+    never a hand-off to the simt or the wide variant."""
     return _flash_dq_tc_cuda("tf32x3", q, k, v, do, lse, delta, causal,
                              scale)
 
@@ -847,8 +860,8 @@ def _flash_dq_tf32x3_cuda(q, k, v, do, lse, delta, causal=True,
 def _flash_dkv_tf32x3_cuda(q, k, v, do, lse, delta, causal=True,
                            scale=None):
     """Launch the dK/dV kernel of ``csrc/flash_attention_bwd_tf32x3.cu`` on
-    f32 inputs with head_dim 192 or 256; returns ``(dk, dv)``, contiguous,
-    every row written (rows no query sees are 0)."""
+    f32 inputs with head_dim 64, 128, 192 or 256; returns ``(dk, dv)``,
+    contiguous, every row written (rows no query sees are 0)."""
     return _flash_dkv_tc_cuda("tf32x3", q, k, v, do, lse, delta, causal,
                               scale)
 
@@ -941,7 +954,7 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, dlse=None, causal=True,
     lse = lse.float().contiguous()
     delta = _delta(o, do, dlse)
     variant = _variant(q.dtype, D, backward=True)
-    width = _kernel_width(variant, D)
+    width = _kernel_width(variant, D, backward=True)
     q, k, v, do = (_pad_d(t, width) for t in (q, k, v, do))
     if variant in _BWD_TC and _tma_fault("dO", do):
         do = do.clone(memory_format=torch.contiguous_format)

@@ -20,7 +20,9 @@ Counterpart of ``mxnet_tpu/sentinel.py``:
   :data:`~mxnet_tpu_torch.elastic.NUMERIC_EXIT_CODE`.
 * **Divergence detection** — :class:`DivergenceDetector` checksums the
   parameters and compares the digest across replicas through a
-  store-if-absent ``transport`` (:class:`LocalTransport` in one process).
+  store-if-absent ``transport`` (:class:`LocalTransport` in one process,
+  :class:`KVDivergenceTransport` across processes over the async-KV
+  store).
 
 Events land in ``profiler.dispatch_stats()`` (``nonfinite_steps``,
 ``rollbacks``, ``divergence_checks``), in the ``sentinel.loss_scale`` and
@@ -29,10 +31,9 @@ in any active :class:`~mxnet_tpu_torch.monitor.Monitor`.
 
 Enable with ``MXNET_NUMERIC_GUARD=warn|skip|escalate`` (or the
 ``numeric_guard=`` argument of FusedTrainStep / Trainer); the rollback
-depth comes from ``MXNET_ROLLBACK_STEPS``.  Not ported: the async-KV
-digest exchange (:class:`KVDivergenceTransport`, ROADMAP Queue 1 item 9)
-and the checkpoint-restore rung (``checkpoint_manager=``, item 8), which
-raise.
+depth comes from ``MXNET_ROLLBACK_STEPS``.  Not ported: the
+checkpoint-restore rung (``checkpoint_manager=``, ROADMAP Queue 1 item
+8), which raises.
 """
 from __future__ import annotations
 
@@ -213,12 +214,18 @@ class LocalTransport:
 
 
 class KVDivergenceTransport:
-    """Digest exchange over the async-KV store: not ported."""
+    """Digest exchange over the async-KV store
+    (:class:`~mxnet_tpu_torch.async_kv.AsyncKVClient`): ``init`` is
+    store-if-absent (first worker wins), so every worker publishes and
+    then pulls the agreed digest — one round-trip, no barrier."""
 
     def __init__(self, client):
-        raise NotImplementedError(
-            "mxnet_tpu_torch: KVDivergenceTransport needs the async-KV "
-            "store, which is not ported (ROADMAP Queue 1 item 9)")
+        self._client = client
+
+    def publish(self, key, digest):
+        arr = np.array([int(digest)], dtype=np.int64)
+        self._client.init(key, arr)
+        return int(self._client.pull(key)[0])
 
 
 class DivergenceDetector:

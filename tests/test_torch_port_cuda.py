@@ -39,7 +39,13 @@ backward and within 1e-4 of each gradient's largest entry to dense
 autograd, with the same views, refusals and repeat checks; at head_dim
 257-512 the f32 backward takes the tensor-core ``tf32x3_xwide`` dQ and
 dK/dV (the tf32x3 kernels in 2-CTA clusters that split D), held the same
-way, and so does the f32 forward there (``tf32x3_xwide``: the tf32x3
+way; at head_dim 33-128 (run at 64 or 128) the f32 backward takes
+tf32x3's narrow dQ and dK/dV (each warp 16 rows over all of D) while the
+forward stays simt, held the same way, with ``kv_len`` (the backward over
+the first kv_len keys), keys no query sees, fused-qkv views, a strided
+dO, refusals, the autograd counters at head_dim 64, float64 autograd and
+the ptxas report of every tf32x3 backward instantiation; and so does the
+f32 forward there (``tf32x3_xwide``: the tf32x3
 forward in 2-CTA clusters), held as the tf32x3 forward is; the bf16
 forward at head_dim 513-1024 takes ``wgmma_xxwide`` (the wgmma_xwide
 forward in 2-CTA clusters), held as the wgmma_xwide forward is, and so
@@ -546,6 +552,8 @@ def test_flash_bwd_reads_strided_slices_and_dout(dev):
 
 
 def test_flash_autograd_launches_backward_kernels(dev):
+    """Autograd of ``flash_attention`` at f32 head_dim 64: the forward on
+    simt, dQ and dK/dV on tf32x3 (its narrow plan), one launch each."""
     B, T, H, D = 1, 130, 2, 64
     g = torch.Generator(device=dev).manual_seed(2)
     q, k, v = (torch.randn(B, T, H, D, generator=g, device=dev,
@@ -557,9 +565,9 @@ def test_flash_autograd_launches_backward_kernels(dev):
         "kernels.launch.flash_attention": 1,
         "kernels.launch.flash_attention.simt": 1,
         "kernels.launch.flash_attention_dq": 1,
-        "kernels.launch.flash_attention_dq.simt": 1,
+        "kernels.launch.flash_attention_dq.tf32x3": 1,
         "kernels.launch.flash_attention_dkv": 1,
-        "kernels.launch.flash_attention_dkv.simt": 1}
+        "kernels.launch.flash_attention_dkv.tf32x3": 1}
     assert common.selection_counts() == {
         "kernels.select.flash_attention.cuda": 1,
         "kernels.select.flash_attention_bwd.cuda": 1}
@@ -1590,6 +1598,201 @@ def test_flash_autograd_f32_head_dim_256_launches_tf32x3(dev):
 
 
 # ---------------------------------------------------------------------------
+# flash backward: the tensor-core tf32x3 variant's narrow plan, f32 at D
+# 33-128 (run at 64 or 128; the forward stays simt there)
+# ---------------------------------------------------------------------------
+TF32X3_NARROW_BWD_CASES = [
+    # (B, Tq, Tk, H, D, causal); CTAs own 64 rows at 64 and 128 at 128,
+    # tiles stream 64 and 32 rows; 40 pads to 64, 96 and 100 to 128
+    (1, 1, 1, 2, 64, True),          # a single row
+    (1, 1, 1, 2, 128, False),
+    (2, 63, 63, 2, 64, True),
+    (1, 65, 65, 2, 128, True),
+    (1, 127, 127, 3, 40, False),
+    (1, 129, 129, 2, 96, True),
+    (1, 257, 257, 2, 64, True),
+    (1, 1000, 3000, 2, 64, False),
+    (1, 1000, 3000, 2, 128, False),
+    (1, 20, 300, 2, 64, True),       # causal, Tq < Tk: keys 20.. dK=dV=0
+    (1, 65, 200, 2, 100, True),
+    (1, 300, 70, 2, 128, True),      # causal, Tq > Tk
+    (1, 300, 70, 2, 40, False),
+]
+
+
+@pytest.mark.parametrize("case", TF32X3_NARROW_BWD_CASES)
+def test_flash_bwd_tf32x3_narrow_matches_plain(dev, case):
+    """dQ and dK/dV of tf32x3 at 64 and 128 (split-TF32 products, each warp
+    16 rows over all of D) against the plain backward (with an lse
+    cotangent) at the f32 gradient tolerances, against dense autograd
+    within 1e-4 of each gradient's largest entry, keys no query sees at
+    zero, and two calls bit-identical."""
+    B, Tq, Tk, H, D, causal = case
+    q, k, v, o, lse, do, dlse = _flash_bwd_inputs(dev, *case, torch.float32)
+    for t in (q, k, v):                    # see test_flash_bwd_kernels_...
+        torch.full_like(t, float("nan"))
+    common.reset_counts()
+    got = _flash_bwd_cuda(q, k, v, o, lse, do, dlse, causal)
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention_dq": 1,
+        "kernels.launch.flash_attention_dq.tf32x3": 1,
+        "kernels.launch.flash_attention_dkv": 1,
+        "kernels.launch.flash_attention_dkv.tf32x3": 1}
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, dlse, causal)
+    auto = _dense_autograd_grads(q, k, v, do, dlse, causal)
+    for gt, wt, at, name in zip(got, want, auto, ("dq", "dk", "dv")):
+        assert gt.dtype == torch.float32 and gt.shape == wt.shape
+        assert gt.is_contiguous() and torch.isfinite(gt).all(), name
+        np.testing.assert_allclose(_np(gt), _np(wt), err_msg=name,
+                                   **F32_GRAD_TOL)
+        assert _rel_to_max(gt, at) <= 1e-4, name
+    if causal and Tq < Tk:
+        assert not got[1][:, Tq:].any() and not got[2][:, Tq:].any()
+    again = _flash_bwd_cuda(q, k, v, o, lse, do, dlse, causal)
+    for a, b in zip(got, again):           # no atomics: the same bits
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_tf32x3_narrow_kv_len_and_keys_no_query_sees(dev, D,
+                                                              causal):
+    """The backward of attention over the first kv_len keys (the simt
+    forward with ``kv_len`` on all 300 keys gives the o and lse of the
+    first kv_len): the tf32x3 dQ and dK/dV on k[:, :kv_len] against the
+    plain backward; with causal and 60 queries, the keys past 60 that no
+    query sees get dK = dV = 0."""
+    B, Tq, Tk, H = 1, 60, 300, 2
+    g = torch.Generator(device=dev).manual_seed(8)
+    q = torch.randn(B, Tq, H, D, generator=g, device=dev)
+    k, v = (torch.randn(B, Tk, H, D, generator=g, device=dev)
+            for _ in range(2))
+    do = torch.randn(B, Tq, H, D, generator=g, device=dev)
+    for kv_len in (150, 300 - 17):
+        o, lse = _flash_simt_cuda(q, k, v, causal, kv_len=kv_len)
+        ks, vs = k[:, :kv_len], v[:, :kv_len]
+        common.reset_counts()
+        got = _flash_bwd_cuda(q, ks, vs, o, lse, do, None, causal)
+        assert common.launch_counts()[
+            "kernels.launch.flash_attention_dkv.tf32x3"] == 1
+        want = flash_attention_bwd_reference(q, ks, vs, o, lse, do, None,
+                                             causal)
+        for gt, wt, name in zip(got, want, ("dq", "dk", "dv")):
+            assert gt.shape == wt.shape, name
+            np.testing.assert_allclose(_np(gt), _np(wt), err_msg=name,
+                                       **F32_GRAD_TOL)
+        if causal:
+            assert not got[1][:, Tq:].any() and not got[2][:, Tq:].any()
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bwd_tf32x3_narrow_reads_fused_qkv_views_and_strided_dout(
+        dev, D):
+    """f32 q/k/v as views of one fused qkv product and a transposed dO give
+    the same bits as contiguous copies, at 64 and 128."""
+    B, T, H = 2, 333, 3
+    g = torch.Generator(device=dev).manual_seed(5)
+    qkv = torch.randn(B, T, 3 * H * D, generator=g, device=dev)
+    q, k, v = (t.view(B, T, H, D) for t in qkv.split(H * D, -1))
+    o, lse = _flash_cuda(q, k, v)
+    do = torch.randn(B, H, T, D, generator=g, device=dev).transpose(1, 2)
+    assert not q.is_contiguous() and not do.is_contiguous()
+    common.reset_counts()
+    a = _flash_bwd_cuda(q, k, v, o, lse, do)
+    assert common.launch_counts()[
+        "kernels.launch.flash_attention_dq.tf32x3"] == 1
+    b = _flash_bwd_cuda(q.contiguous(), k.contiguous(), v.contiguous(), o,
+                        lse, do.contiguous())
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_flash_bwd_tf32x3_narrow_refuses_misaligned_inputs(dev):
+    """At f32 head_dim 64: misaligned q/k/v raise before any launch; a
+    misaligned dO is copied by the backward, and refused by the launchers
+    themselves; bf16, and f32 at a width that is not 64, 128, 192 or 256,
+    are refused too, never handed to the simt kernels."""
+    from mxnet_tpu_torch.ops.kernels.flash_attention import (
+        _flash_dkv_tf32x3_cuda, _flash_dq_tf32x3_cuda)
+    B, T, H, D = 1, 64, 2, 64
+    q, k, v, o, lse, do, _ = _flash_bwd_inputs(dev, B, T, T, H, D, True,
+                                               torch.float32)
+    flat = torch.randn(B * T * H * D + 1, device=dev)
+    bad = flat[1:].view(B, T, H, D)                   # base 4 bytes off
+    bad.copy_(q)
+    delta = _delta(o, do, None)
+    common.reset_counts()
+    with pytest.raises(ValueError, match="tf32x3 variant.*q's base"):
+        _flash_bwd_cuda(bad, k, v, o, lse, do)
+    for launch in (_flash_dq_tf32x3_cuda, _flash_dkv_tf32x3_cuda):
+        with pytest.raises(ValueError, match="k's base address"):
+            launch(q, bad, v, do, lse, delta)
+        with pytest.raises(ValueError, match="dO's base address"):
+            launch(q, k, v, bad, lse, delta)
+        with pytest.raises(ValueError, match="tf32x3 variant.*takes float32"):
+            launch(*(t.to(torch.bfloat16) for t in (q, k, v, do)), lse,
+                   delta)
+        with pytest.raises(ValueError, match="tf32x3 variant.*head_dim 32"):
+            launch(*(t[..., :32] for t in (q, k, v, do)), lse, delta)
+    assert common.launch_counts() == {}
+    bad.copy_(do)
+    got = _flash_bwd_cuda(q, k, v, o, lse, bad)
+    want = _flash_bwd_cuda(q, k, v, o, lse, do)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tf32x3_narrow_fwd_bwd_against_float64_autograd(dev, D,
+                                                              causal):
+    """Forward and backward through ``flash_attention_lse`` at f32 head_dim
+    64 and 128 (the simt forward, the tf32x3 dQ and dK/dV, one launch
+    each) against autograd through dense attention in float64: o and lse
+    at the f32 forward gates, each gradient within 1e-4 of its largest
+    entry."""
+    B, T, H = 1, 700, 2
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = (torch.randn(B, T, H, D, generator=g, device=dev,
+                           requires_grad=True) for _ in range(3))
+    do = torch.randn(B, T, H, D, generator=g, device=dev)
+    dlse = torch.randn(B, H, T, generator=g, device=dev)
+    common.reset_counts()
+    o, lse = flash_attention_lse(q, k, v, causal)
+    got = torch.autograd.grad((o, lse), (q, k, v), (do, dlse))
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention": 1,
+        "kernels.launch.flash_attention.simt": 1,
+        "kernels.launch.flash_attention_dq": 1,
+        "kernels.launch.flash_attention_dq.tf32x3": 1,
+        "kernels.launch.flash_attention_dkv": 1,
+        "kernels.launch.flash_attention_dkv.tf32x3": 1}
+    leaves = tuple(t.detach().double().requires_grad_(True)
+                   for t in (q, k, v))
+    o64, lse64 = _dense64(*leaves, causal)
+    want = torch.autograd.grad((o64, lse64), leaves,
+                               (do.double(), dlse.double()))
+    np.testing.assert_allclose(_np(o.detach()), o64.detach().cpu().numpy(),
+                               **F32_FWD_TOL)
+    np.testing.assert_allclose(_np(lse.detach()),
+                               lse64.detach().cpu().numpy(), **F32_LSE_TOL)
+    for gt, wt, name in zip(got, want, ("dq", "dk", "dv")):
+        assert _rel_to_max(gt.double(), wt) <= 1e-4, name
+
+
+def test_flash_bwd_tf32x3_does_not_spill(dev):
+    """ptxas: every dQ and dK/dV instantiation of tf32x3 (the narrow plan
+    at 64 and 128; 192 and 256 alone and in 2-CTA clusters), 0 bytes of
+    spills."""
+    src = "flash_attention_bwd_tf32x3"
+    log = _build.build([src])[src]["log"]
+    lines = [ln for ln in log.splitlines() if "spill stores" in ln]
+    assert len(lines) == 12, log
+    assert all(" 0 bytes spill stores, 0 bytes spill loads" in ln
+               for ln in lines), log
+
+
+# ---------------------------------------------------------------------------
 # flash backward: the tensor-core tf32x3_xwide variant, f32 at D 257-512
 # (run at 384 or 512 by 2-CTA clusters that split D)
 # ---------------------------------------------------------------------------
@@ -1952,6 +2155,8 @@ def test_flash_padded_head_dims_match_plain(dev, D, dtype, causal):
     if dtype == torch.bfloat16 and 512 < D <= 1024:
         variant = "wgmma_xxwide"
     bwd_variant = variant
+    if dtype == torch.float32 and 32 < D <= 128:
+        bwd_variant = "tf32x3"             # the forward stays simt there
     assert common.launch_counts() == {
         "kernels.launch.flash_attention": 1,
         "kernels.launch.flash_attention.%s" % variant: 1}

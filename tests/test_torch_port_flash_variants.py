@@ -33,15 +33,42 @@ BF16 = torch.bfloat16
     (BF16, 129, "wgmma_wide"), (BF16, 256, "wgmma_wide"),
     pytest.param(torch.float32, 160, "tf32x3", id="dtype17-160-tf32x3"),
     (torch.float32, 320, "tf32x3_xwide"), (BF16, 576, "wgmma_xxwide"),
-    (torch.float32, 576, "wide"), (BF16, 1025, "wide")])
+    (torch.float32, 576, "wide"), (BF16, 1025, "wide"),
+    # f32 at head_dim 33-128: the forward on the CUDA cores, the backward
+    # on the tensor cores (F32_NARROW_BWD)
+    (torch.float32, 33, "simt"), (torch.float32, 65, "simt"),
+    (torch.float32, 100, "simt")])
 def test_variant_by_dtype_and_head_dim(dtype, D, variant):
     """:func:`_variant` names the forward's variant (``variant``) and the
-    backward's, the same: f32 at padded head_dim 192 and 256 runs on the
-    tensor cores (``tf32x3``) both ways, and at 320-512 in 2-CTA clusters
-    (``tf32x3_xwide``) both ways; bf16 at padded head_dim 576-1024 in
-    2-CTA clusters (``wgmma_xxwide``) both ways."""
+    backward's, the same but at f32 padded head_dim 64 and 128, where the
+    backward takes ``tf32x3`` (``F32_NARROW_BWD``): f32 at padded head_dim
+    192 and 256 runs on the tensor cores (``tf32x3``) both ways, and at
+    320-512 in 2-CTA clusters (``tf32x3_xwide``) both ways; bf16 at padded
+    head_dim 576-1024 in 2-CTA clusters (``wgmma_xxwide``) both ways."""
     assert fa._variant(dtype, D) == variant
-    assert fa._variant(dtype, D, backward=True) == variant
+    bwd = F32_NARROW_BWD.get(D, variant) if dtype == torch.float32 \
+        else variant
+    assert fa._variant(dtype, D, backward=True) == bwd
+
+
+# the f32 backward's variant at head_dim 33-128 (the forward's is simt)
+F32_NARROW_BWD = {D: "tf32x3" for D in (33, 48, 64, 65, 96, 100, 128)}
+
+
+@pytest.mark.parametrize("D,width", [(33, 64), (48, 64), (64, 64),
+                                     (65, 128), (96, 128), (100, 128),
+                                     (128, 128)])
+def test_f32_backward_at_33_to_128_takes_tf32x3(D, width):
+    """f32 at head_dim 33-128: dQ and dK/dV on the tensor cores
+    (``tf32x3``'s narrow plan) at the padded width 64 or 128, the forward
+    still ``simt`` at the same width; 1-32 stays ``simt`` both ways."""
+    assert fa._variant(torch.float32, D, backward=True) == "tf32x3"
+    assert fa._kernel_width("tf32x3", D, backward=True) == width
+    assert fa._variant(torch.float32, D) == "simt"
+    assert fa._kernel_width("simt", D) == width
+    for small in (1, 16, 17, 32):
+        assert fa._variant(torch.float32, small, backward=True) == "simt"
+        assert fa._variant(BF16, small, backward=True) == "simt"
 
 
 @pytest.mark.parametrize("dtype,D,variant", [
@@ -213,7 +240,7 @@ def _bwd_launchers(monkeypatch, calls):
 
 @pytest.mark.parametrize("dtype,D,variant", [
     (BF16, 64, "wgmma"), (BF16, 128, "wgmma"), (BF16, 32, "simt"),
-    (torch.float32, 128, "simt"), (torch.float32, 64, "simt"),
+    (torch.float32, 128, "tf32x3"), (torch.float32, 64, "tf32x3"),
     (BF16, 256, "wgmma_wide"), (torch.float32, 192, "tf32x3"),
     (torch.float32, 256, "tf32x3"), (torch.float32, 320, "tf32x3_xwide"),
     (BF16, 320, "wgmma_xwide"), (BF16, 384, "wgmma_xwide"),
@@ -225,15 +252,16 @@ def _bwd_launchers(monkeypatch, calls):
 def test_flash_bwd_cuda_dispatches_by_variant(monkeypatch, dtype, D,
                                               variant):
     """``_flash_bwd_cuda`` hands the inputs to the dQ and the dK/dV
-    launcher its variant names, with the caller's arguments and ``delta``
-    [B, H, Tq]; tf32x3_xwide gets them padded to 384 or 512, wgmma_xxwide
-    576 padded to 640, and the gradients come back at D."""
+    launcher its variant names (f32 at 64 and 128: tf32x3), with the
+    caller's arguments and ``delta`` [B, H, Tq]; tf32x3_xwide gets them
+    padded to 384 or 512, wgmma_xxwide 576 padded to 640, and the gradients
+    come back at D."""
     calls = []
     _bwd_launchers(monkeypatch, calls)
     q = torch.zeros(1, 5, 2, D, dtype=dtype)
     lse = torch.zeros(1, 2, 5)
     dq, dk, dv = fa._flash_bwd_cuda(q, q, q, q, lse, q, None, False, 0.5)
-    W = fa._kernel_width(variant, D)
+    W = fa._kernel_width(variant, D, backward=True)
     assert calls == [("dq_" + variant, W, W, False, 0.5, (1, 2, 5)),
                      ("dkv_" + variant, W, W, False, 0.5, (1, 2, 5))]
     assert dq.shape == dk.shape == dv.shape == q.shape
@@ -246,8 +274,8 @@ def test_flash_bwd_cuda_dispatches_by_variant(monkeypatch, dtype, D,
 def test_padded_width_and_real_scale_reach_the_launchers(monkeypatch, dtype,
                                                          D, width, variant):
     """A head_dim the kernels lack runs at its padded width with ``scale``
-    1/√D of the real D (``scale=None``), forward and backward, and the
-    outputs come back at D."""
+    1/√D of the real D (``scale=None``), forward and backward (f32's on
+    tf32x3), and the outputs come back at D."""
     fwd = []
 
     def fwd_launcher(name):
@@ -266,10 +294,70 @@ def test_padded_width_and_real_scale_reach_the_launchers(monkeypatch, dtype,
     assert fwd == [(variant, width, width, width, 1.0 / D ** 0.5)]
     assert o.shape == q.shape and o.is_contiguous() and lse.shape == (1, 2, 5)
     grads = fa._flash_bwd_cuda(q, q, q, o, lse, q)
+    bwd_variant = "tf32x3" if dtype == torch.float32 else variant
     assert [c[:5] for c in bwd] == [
-        ("dq_" + variant, width, width, True, 1.0 / D ** 0.5),
-        ("dkv_" + variant, width, width, True, 1.0 / D ** 0.5)]
+        ("dq_" + bwd_variant, width, width, True, 1.0 / D ** 0.5),
+        ("dkv_" + bwd_variant, width, width, True, 1.0 / D ** 0.5)]
     assert all(g.shape == q.shape and g.is_contiguous() for g in grads)
+
+
+@pytest.mark.parametrize("D,width", [(33, 64), (40, 64), (64, 64),
+                                     (65, 128), (96, 128), (100, 128),
+                                     (128, 128)])
+def test_padded_width_and_real_scale_reach_tf32x3_narrow(monkeypatch, D,
+                                                        width):
+    """f32 at head_dim 33-128: the simt forward and the tf32x3 dQ and dK/dV
+    launchers get q, k, v (and dO) zero-padded to 64 or 128 (the values
+    unchanged, the new columns 0) with ``scale`` 1/√D of the real D, and
+    ``delta`` from the unpadded o and dO; o and the gradients come back at
+    D, contiguous, as the launchers computed them."""
+    fwd, seen = [], {}
+
+    def simt(q, k, v, causal, scale, kv_len):
+        fwd.append((q, k, v, scale))
+        return q * 5, torch.zeros(q.shape[0], q.shape[2], q.shape[1])
+
+    def dq(q, k, v, do, lse, delta, causal, scale):
+        seen["dq"] = (q, k, v, do, delta, scale)
+        return q * 2
+
+    def dkv(q, k, v, do, lse, delta, causal, scale):
+        seen["dkv"] = (q, k, v, do, delta, scale)
+        return k * 3, v * 4
+
+    def refuse(*a):
+        raise AssertionError("another variant ran")
+
+    for kind in ("dq", "dkv"):
+        for name in ("simt", "wgmma", "wide"):
+            monkeypatch.setattr(fa, "_flash_%s_%s_cuda" % (kind, name),
+                                refuse)
+    monkeypatch.setattr(fa, "_flash_simt_cuda", simt)
+    monkeypatch.setattr(fa, "_flash_dq_tf32x3_cuda", dq)
+    monkeypatch.setattr(fa, "_flash_dkv_tf32x3_cuda", dkv)
+    g = torch.Generator().manual_seed(D)
+    q, k, v, do = (torch.randn(1, 6, 2, D, generator=g) for _ in range(4))
+    o, lse = fa._flash_cuda(q, k, v)
+    [(fq, fk, fv, fscale)] = fwd
+    assert fscale == 1.0 / D ** 0.5
+    for got, want in zip((fq, fk, fv), (q, k, v)):
+        assert got.shape == (1, 6, 2, width)
+        assert torch.equal(got[..., :D], want)
+        assert not got[..., D:].any()
+    assert o.shape == q.shape and o.is_contiguous()
+    assert torch.equal(o, q * 5)
+    grads = fa._flash_bwd_cuda(q, k, v, o, lse, do)
+    for kind in ("dq", "dkv"):
+        *ins, delta, scale = seen[kind]
+        assert scale == 1.0 / D ** 0.5
+        assert torch.equal(delta, fa._delta(o, do, None))
+        for got, want in zip(ins, (q, k, v, do)):
+            assert got.shape == (1, 6, 2, width)
+            assert torch.equal(got[..., :D], want)
+            assert not got[..., D:].any()
+    for got, want in zip(grads, (q * 2, k * 3, v * 4)):
+        assert got.shape == q.shape and got.is_contiguous()
+        assert torch.equal(got, want)
 
 
 def test_head_dim_zero_raises():
@@ -842,12 +930,14 @@ def _misaligned(shape, dtype):
 
 @pytest.mark.parametrize("which", ["dq", "dkv"])
 @pytest.mark.parametrize("case", [
-    "bf16", "f32_128", "f32_320", "q", "k", "v", "dO", "k_stride"])
+    "bf16", "f32_128", "f32_320", "q", "k", "v", "dO", "k_stride",
+    "f32_96", "f32_32", "bf16_64", "q_64", "dO_128", "k_stride_64"])
 def test_tf32x3_launchers_refuse_before_any_build(monkeypatch, which, case):
-    """The tf32x3 launchers take f32 at head_dim 192 or 256 only, read
-    through 16-byte copies (a base 16-byte aligned, strides multiples of 4
+    """The tf32x3 backward launchers take f32 at head_dim 64, 128, 192 or
+    256 only (``f32_128`` gets past every check to the build), read through
+    16-byte copies (a base 16-byte aligned, strides multiples of 4
     elements), and raise on anything else before they build or count
-    anything; never a hand-off to the wide kernels."""
+    anything; never a hand-off to the simt or the wide kernels."""
     from mxnet_tpu_torch.ops.kernels import _build, common
 
     def no_build(*a, **k):
@@ -857,25 +947,36 @@ def test_tf32x3_launchers_refuse_before_any_build(monkeypatch, which, case):
     common.reset_counts()
     launch = {"dq": fa._flash_dq_tf32x3_cuda,
               "dkv": fa._flash_dkv_tf32x3_cuda}[which]
-    shape = (1, 8, 2, 256)
+    width = {"q_64": 64, "dO_128": 128, "k_stride_64": 64}.get(case, 256)
+    shape = (1, 8, 2, width)
     args = [torch.zeros(shape) for _ in range(4)]
-    if case in ("bf16", "f32_128", "f32_320"):
-        dtype, D = {"bf16": (BF16, 256), "f32_128": (torch.float32, 128),
-                    "f32_320": (torch.float32, 320)}[case]
+    widths = {"bf16": (BF16, 256), "f32_128": (torch.float32, 128),
+              "f32_320": (torch.float32, 320), "f32_96": (torch.float32, 96),
+              "f32_32": (torch.float32, 32), "bf16_64": (BF16, 64)}
+    if case in widths:
+        dtype, D = widths[case]
         args = [torch.zeros(1, 8, 2, D, dtype=dtype)] * 4
         match = ("tf32x3 variant.*takes float32 with head_dim in "
-                 "\\(192, 256\\); got %s, head_dim %d" % (dtype, D))
-    elif case == "k_stride":
-        wide = torch.zeros(1, 8, 2 * 256 + 2)     # T stride 514: 2 mod 4
-        args[1] = wide[..., :2 * 256].view(shape)
-        match = "tf32x3 variant.*k's T stride 514 is not a multiple of 4"
+                 "\\(64, 128, 192, 256\\); got %s, head_dim %d"
+                 % (dtype, D))
+    elif case.startswith("k_stride"):
+        # T stride 2 * width + 2: 2 mod 4
+        wide = torch.zeros(1, 8, 2 * width + 2)
+        args[1] = wide[..., :2 * width].view(shape)
+        match = ("tf32x3 variant.*k's T stride %d is not a multiple of 4"
+                 % (2 * width + 2))
     else:
-        i = ("q", "k", "v", "dO").index(case)
+        name = case.split("_")[0]
+        i = ("q", "k", "v", "dO").index(name)
         args[i] = _misaligned(shape, torch.float32)
-        match = "tf32x3 variant.*%s's base address is not 16-byte" % case
+        match = "tf32x3 variant.*%s's base address is not 16-byte" % name
     lse = torch.zeros(1, 2, 8)
-    with pytest.raises(ValueError, match=match):
-        launch(*args, lse, lse)
+    if case == "f32_128":
+        with pytest.raises(AssertionError, match="built a kernel"):
+            launch(*args, lse, lse)
+    else:
+        with pytest.raises(ValueError, match=match):
+            launch(*args, lse, lse)
     assert common.launch_counts() == {}
 
 

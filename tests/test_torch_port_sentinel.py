@@ -288,8 +288,58 @@ def test_exit_rung_when_no_mechanisms_available():
 def test_unported_rungs_raise_and_name_their_item():
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         tsent.HealthSentinel(mode="escalate", checkpoint_manager=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tsent.KVDivergenceTransport(object())
+
+
+@pytest.mark.parametrize("arg,item", [
+    ("devices", "9.3"), ("bucket", "8"), ("watchdog", "8"),
+    ("preemption", "8")])
+def test_fused_step_unported_arguments_name_their_item(arg, item):
+    """``FusedTrainStep``'s arguments that are not ported raise naming the
+    ROADMAP Queue 1 item that ports them."""
+    net, x, y = _nets(3)["torch"]
+    tr = tgluon.Trainer(net.collect_params(), "sgd", {"learning_rate": 0.1})
+    with pytest.raises(NotImplementedError,
+                       match=r"FusedTrainStep\(%s=\.\.\.\) is not ported "
+                             r"\(ROADMAP Queue 1 item %s " % (arg, item)):
+        TFused(net, tgluon.loss.SoftmaxCrossEntropyLoss(), tr,
+               **{arg: object()})
+
+
+def test_kv_divergence_transport_first_writer_wins_as_jax():
+    """``KVDivergenceTransport`` over each package's own local async-KV
+    server: two clients publish different digests under one key and both
+    get the first one back (``init`` is store-if-absent), a new key starts
+    afresh, and a ``DivergenceDetector`` over it agrees for the replica
+    whose parameters match the first and reports the other, in both
+    packages alike."""
+    from mxnet_tpu import async_kv as jkv
+    from mxnet_tpu_torch import async_kv as tkv
+
+    params = [np.arange(6, dtype=np.float32), np.ones(3, np.float32)]
+    other = [params[0] + 1, params[1]]
+    got = {}
+    for name, sent, kv, arr in (("jax", jsent, jkv, jmx.nd.array),
+                                ("port", tsent, tkv, mt.nd.array)):
+        server, addr = kv.start_local_server()
+        try:
+            a, b = (sent.KVDivergenceTransport(kv.AsyncKVClient(addr=addr))
+                    for _ in range(2))
+            seen = [a.publish("mxtpu:div:5", 0x1111), b.publish(
+                "mxtpu:div:5", 0x2222), b.publish("mxtpu:div:6", 0x3333),
+                a.publish("mxtpu:div:6", 0x4444)]
+            ctx = {} if name == "jax" else {"ctx": mt.cpu()}
+            mine, theirs = ([arr(x, **ctx) for x in ps]
+                            for ps in (params, other))
+            det_a, det_b = (sent.DivergenceDetector(interval=1, transport=t)
+                            for t in (a, b))
+            with pytest.warns(RuntimeWarning, match="replica divergence"):
+                verdicts = [det_a.check(7, mine), det_b.check(7, theirs)]
+            got[name] = (seen, verdicts, sent.params_digest(mine))
+        finally:
+            server.shutdown()
+    assert got["port"][0] == [0x1111, 0x1111, 0x3333, 0x3333]
+    assert got["port"][1] == [True, False]
+    assert got["port"] == got["jax"]
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The arithmetic of the tf32x3 flash kernels, emulated on the CPU.
 
 The f32 flash forward and backward at padded head_dim 192 and 256, and
-at 384 and 512 (tf32x3_xwide), run on the tensor cores as
+at 384 and 512 (tf32x3_xwide), and the f32 backward at 64 and 128, run on
+the tensor cores as
 split-TF32 products (``csrc/flash_attention_tf32x3.cu``,
 ``csrc/flash_attention_bwd_tf32x3.cu``): each
 f32 operand x becomes ``hi`` (x with its 13 low significand bits cleared,
@@ -25,7 +26,10 @@ tf32x3_xwide backward as its two-CTA clusters sum: the scores over each
 quarter of D (a warp half of a CTA), the quarters of each CTA's half
 added, the two CTAs' partials added; dQ over key tiles of 32 and dK, dV
 over query tiles of 32, each tile's products summed from zero and added in
-f32.  One
+f32.  The tf32x3 backward at head_dim 64 and 128 (its narrow plan) sums
+the scores over all of D in one product, dQ over key tiles and dK, dV over
+query tiles of 64 rows at 64 and 32 at 128, each tile's products from zero
+and added in f32.  One
 TF32 product alone (``tf32(a)·tf32(b)``) lands far further from float64
 and misses those tolerances: the split is what keeps the results
 f32-accurate.  The helpers are a test of the design, not a plain version:
@@ -223,6 +227,77 @@ def test_tf32x3_xwide_backward_matches_float64_and_pallas(causal, Tq, Tk):
                               for t in (q, k, v, do, dlse))
     got = _bwd_xwide(tq, tk, tv, o, lse, tdo, tdlse, causal, _mm3)
     one = _bwd_xwide(tq, tk, tv, o, lse, tdo, tdlse, causal, _mm1)
+    exact = _bwd(*(t.double() for t in (tq, tk, tv, o, lse, tdo, tdlse)),
+                 causal, torch.matmul)
+    (jo, jlse), vjp = jax.vjp(
+        lambda q, k, v: jax_flash_lse(q, k, v, causal=causal,
+                                      interpret=True),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    pallas = vjp((jnp.asarray(do), jnp.asarray(dlse)))
+    for g, g1, x, w, name in zip(got, one, exact, pallas, ("dq", "dk", "dv")):
+        assert g.dtype == torch.float32 and g.shape == x.shape
+        np.testing.assert_allclose(g.numpy(), x.numpy(), err_msg=name,
+                                   **F32_GRAD_TOL)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name,
+                                   **F32_GRAD_TOL)
+        err3 = float((g.double() - x).abs().max())
+        err1 = float((g1.double() - x).abs().max())
+        assert err1 > 10 * err3, (name, err1, err3)
+
+
+# streamed rows a tile of the narrow plan's dQ and dK/dV (Narrow<D> in
+# csrc/flash_attention_bwd_tf32x3.cu)
+NARROW_TILE = {64: 64, 128: 32}
+
+
+def _bwd_narrow(q, k, v, o, lse, do, dlse, causal, mm):
+    """The tf32x3 backward's arithmetic at head_dim 64 or 128 (the narrow
+    plan): S and dP as one product over all of D, ``p`` and ``ds`` as in
+    :func:`_bwd`; dQ summed over key tiles and dK, dV over query tiles of
+    ``NARROW_TILE[D]`` rows, each tile's product from zero (every product
+    through ``mm``)."""
+    D, Tq, Tk = q.shape[-1], q.shape[1], k.shape[1]
+    bs = NARROW_TILE[D]
+    scale = 1.0 / D ** 0.5
+    qh, kh, vh, doh = (t.permute(0, 2, 1, 3) for t in (q, k, v, do))
+    s = mm(qh, kh.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        keep = (torch.arange(Tq)[:, None] >= torch.arange(Tk)[None, :])
+        p = torch.where(keep, p, torch.zeros_like(p))
+    dp = mm(doh, vh.transpose(-1, -2))
+    delta = (do * o).sum(-1).transpose(1, 2) - dlse
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.zeros_like(qh)
+    for k0 in range(0, Tk, bs):
+        kt = slice(k0, k0 + bs)
+        dq = dq + mm(ds[..., kt], kh[:, :, kt])
+    dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
+    for q0 in range(0, Tq, bs):
+        qt = slice(q0, q0 + bs)
+        dv = dv + mm(p[:, :, qt].transpose(-1, -2), doh[:, :, qt])
+        dk = dk + mm(ds[:, :, qt].transpose(-1, -2), qh[:, :, qt])
+    return tuple(g.permute(0, 2, 1, 3) for g in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("D,causal,Tq,Tk", [
+    (64, True, 150, 150),           # three key / query tiles, the last ragged
+    (64, False, 40, 90),            # Tq != Tk
+    (128, True, 70, 70),
+    (128, False, 90, 40),
+])
+def test_tf32x3_narrow_backward_matches_float64_and_pallas(D, causal, Tq,
+                                                           Tk):
+    """dQ, dK and dV through the split-TF32 products at head_dim 64 and 128
+    (the narrow plan's widths), in the kernel's summation order, against
+    float64 and against the Pallas backward within 1e-4; one TF32 product
+    per product stays over ten times further from float64."""
+    B, H = 1, 2
+    q, k, v, do, dlse, o, lse = _inputs(B, Tq, Tk, H, D, causal)
+    tq, tk, tv, tdo, tdlse = (torch.from_numpy(t)
+                              for t in (q, k, v, do, dlse))
+    got = _bwd_narrow(tq, tk, tv, o, lse, tdo, tdlse, causal, _mm3)
+    one = _bwd_narrow(tq, tk, tv, o, lse, tdo, tdlse, causal, _mm1)
     exact = _bwd(*(t.double() for t in (tq, tk, tv, o, lse, tdo, tdlse)),
                  causal, torch.matmul)
     (jo, jlse), vjp = jax.vjp(

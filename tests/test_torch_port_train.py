@@ -305,14 +305,14 @@ HD1024 = dict(HD512, n_heads=1)
 _WIDE_HEAD_CACHE = {}
 
 
-def _wide_head_step_matches_jax(monkeypatch, cfg, dtype):
+def _wide_head_step_matches_jax(monkeypatch, cfg, dtype, T=24):
     """One SGD-momentum step at ``cfg`` on the flash route (Pallas kernels
-    through the interpreter on JAX's side): the loss, parameters and
-    velocity match the JAX step at the bounds above, and the flash
-    backward ran (one layer).  The JAX model is built once per config and
-    dtype."""
+    through the interpreter on JAX's side) over [2, T] tokens: the loss,
+    parameters and velocity match the JAX step at the bounds above, and
+    the flash backward ran once a layer.  The JAX model is built once per
+    config and dtype."""
     monkeypatch.setenv("MXTPU_PALLAS", "interpret")
-    key = (cfg["n_heads"], dtype)
+    key = (cfg["d_model"], cfg["n_heads"], dtype)
     if key not in _WIDE_HEAD_CACHE:
         jm = jtf.TransformerLM(jtf.TransformerConfig(**cfg, dtype=dtype))
         _WIDE_HEAD_CACHE[key] = (jm, jm.init(jax.random.PRNGKey(0)))
@@ -322,7 +322,7 @@ def _wide_head_step_matches_jax(monkeypatch, cfg, dtype):
                       device="cpu").load_jax_params(
         {k: np.asarray(v) for k, v in params.items()})
     assert m.cfg.head_dim == cfg["d_model"] // cfg["n_heads"]
-    toks, tgts = _batch(B=2, T=24, seed=23)
+    toks, tgts = _batch(B=2, T=T, seed=23)
     jp, jv, jloss = jax.jit(jtf.make_train_step(jm))(
         params, jax.tree_util.tree_map(jnp.zeros_like, params),
         jnp.asarray(toks, jnp.int32), jnp.asarray(tgts, jnp.int32))
@@ -331,7 +331,8 @@ def _wide_head_step_matches_jax(monkeypatch, cfg, dtype):
     _, _, loss = make_train_step(m)(p, v, torch.from_numpy(toks),
                                     torch.from_numpy(tgts))
     sel = common.selection_counts()
-    assert sel["kernels.select.flash_attention_bwd.reference"] == 1
+    assert sel["kernels.select.flash_attention_bwd.reference"] == \
+        cfg["n_layers"]
     if dtype == "float32":
         np.testing.assert_allclose(float(loss), float(jloss), rtol=LOSS_RTOL)
     else:
@@ -353,3 +354,14 @@ def test_head_dim_512_flash_step_matches_jax(monkeypatch, dtype):
 def test_head_dim_1024_flash_step_matches_jax(monkeypatch, dtype):
     """At head_dim 1024 (one head of d_model 1024: a size-1 head axis)."""
     _wide_head_step_matches_jax(monkeypatch, HD1024, dtype)
+
+
+# head_dim 64 (the long-context configuration's) and 128 (the flagship's)
+# in f32, 2 layers of 2 heads: on the card their flash backward runs on
+# the tensor-core tf32x3 kernels' narrow plan, the forward on simt
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_narrow_head_f32_flash_step_matches_jax(monkeypatch, head_dim):
+    """At f32 head_dim 64 and 128 over 64 tokens a row."""
+    cfg = dict(vocab_size=VOCAB, d_model=2 * head_dim, n_heads=2,
+               n_layers=2, d_ff=256, max_len=64)
+    _wide_head_step_matches_jax(monkeypatch, cfg, "float32", T=64)

@@ -42,10 +42,25 @@ the ptxas registers and spills of each, and the two timed in turns at
 [2, 8192, 2, 512].  The copies are
 built in a temporary directory; the port's own build is untouched.
 
+With ``--narrow`` it measures instead the backward's narrow plan (dQ and
+dK/dV at head_dim 64 and 128, ``NarrowDq`` / ``NarrowDkv``): five sets of
+plan candidates (warps a CTA, 16-row blocks a warp, streamed rows a tile,
+n-blocks a chunk of the output products; ``NARROW_PLANS``, the first as
+built), each one's ptxas registers and spills, dQ and dK/dV of every set
+timed in turns at [2, 1024, 8, D] and at [1, 8192, 16, 64] / [1, 4096,
+16, 128] causal f32, with their errors against the plain backward; then
+the score products' k-loop unrolled by two (as built) and fully, and dQ's
+dP issued before p (as built) and after, the same way; then each phase's
+share of the built dQ and dK/dV at [1, 8192, 16, 64] and [1, 4096, 16,
+128] (``NARROW_DQ_PHASES``, ``NARROW_DKV_PHASES``).  The timings use
+chip_smoke.py's ``_time_ms`` (a CUDA graph over input copies past the L2
+cache).
+
 It prints one JSON line per measurement, then the card's name and power
 limit.  Run from the root of a checkout, with one card::
 
-    python3 tf32x3_probe.py
+    python3 tf32x3_probe.py            # the measurements above
+    python3 tf32x3_probe.py --narrow   # the narrow plan's
 
 It exits non-zero without a CUDA device.
 """
@@ -55,6 +70,7 @@ import importlib
 import json
 import os
 import subprocess
+import sys
 import tempfile
 
 MMA_SRC = r'''
@@ -493,6 +509,232 @@ def _copy_issue_choice(torch, fa, build, tmp):
         print(json.dumps(rec), flush=True)
 
 
+# the narrow plan's candidates (csrc/flash_attention_bwd_tf32x3.cu,
+# ``NarrowDq<D>`` and ``NarrowDkv<D>`` at 64 and 128: warps a CTA, 16-row
+# blocks a warp, streamed rows a tile, n-blocks a chunk of the output
+# products), one library a set of four, the first as built
+NARROW_LINES = {(kind, D): "struct Narrow%s<%d> : Plan<%%d, %%d, %%d, %%d> {};"
+                % (kind, D) for kind in ("Dq", "Dkv") for D in (64, 128)}
+NARROW_PLANS = [
+    {("Dq", 64): (4, 1, 64, 8), ("Dkv", 64): (4, 1, 64, 8),
+     ("Dq", 128): (8, 1, 32, 8), ("Dkv", 128): (8, 1, 32, 4)},
+    {("Dq", 64): (4, 2, 32, 4), ("Dkv", 64): (4, 2, 16, 4),
+     ("Dq", 128): (4, 2, 16, 2), ("Dkv", 128): (4, 1, 32, 4)},
+    {("Dq", 64): (4, 2, 32, 8), ("Dkv", 64): (4, 2, 32, 2),
+     ("Dq", 128): (2, 2, 16, 2), ("Dkv", 128): (8, 1, 16, 4)},
+    {("Dq", 64): (8, 1, 32, 8), ("Dkv", 64): (8, 1, 64, 8),
+     ("Dq", 128): (8, 1, 32, 16), ("Dkv", 128): (4, 1, 16, 4)},
+    {("Dq", 64): (8, 1, 64, 8), ("Dkv", 64): (4, 1, 64, 4),
+     ("Dq", 128): (4, 1, 16, 8), ("Dkv", 128): (8, 1, 32, 2)},
+]
+NARROW_SHAPES = ((2, 1024, 8, 64), (1, 8192, 16, 64), (2, 1024, 8, 128),
+                 (1, 4096, 16, 128))
+
+
+# the narrow kernels' phases, as DQ_PHASES
+NARROW_DQ_PHASES = [
+    ("    if (k0 + BS < k_end) {            // the next tile into the other "
+     "stage\n", "barrier: the stage is no longer read (the tile before)"),
+    ("    __syncthreads();                  // this tile is in, every "
+     "thread's part\n", "next tile's copy issue, wait for this tile "
+     "(barrier)"),
+    ("      score_rows<D, BS, M>(Qw, Ks, g, t, p);\n", "S = Q.K^T"),
+    ("      score_rows<D, BS, M>(Ow, Vs, g, t, ds);\n", "dP = dO.V^T"),
+    ("      out_rows<D, BS, P::NC, M>(ds, Ks, g, t, acc);\n",
+     "p, ds, dQ += ds.K"),
+]
+NARROW_DKV_PHASES = [
+    ("    if (q0 + BS < Tq) {               // the next tile into the other "
+     "stage\n", "barrier: the stage is no longer read (the tile before)"),
+    ("    __syncthreads();                  // this tile is in, every "
+     "thread's part\n", "next tile's copy issue, wait for this tile "
+     "(barrier)"),
+    ("      score_rows<D, BS, M>(Kw, Qs, g, t, p);              // S^T = K "
+     ". Q^T\n", "S^T = K.Q^T"),
+    ("      out_rows<D, BS, P::NC, M>(p, dOs, g, t, dv_acc);    // dV += "
+     "p^T . dO\n", "p^T, dV += p^T.dO"),
+    ("      score_rows<D, BS, M>(Vw, dOs, g, t, ds);            // dP^T = V "
+     ". dO^T\n", "dP^T = V.dO^T"),
+    ("      out_rows<D, BS, P::NC, M>(ds, Qs, g, t, dk_acc);    // dK += "
+     "ds^T . Q\n", "ds^T, dK += ds^T.Q"),
+]
+
+
+def _narrow_instrumented(src):
+    src = _instrument(src, "flash_dq_tf32x3_narrow_kernel",
+                      "// st: q (0-2), k (3-5), v (6-8), dO (9-11), dK",
+                      NARROW_DQ_PHASES, 0, loop_marker="\n  int s = 0;\n")
+    return _instrument(src, "flash_dkv_tf32x3_narrow_kernel",
+                       "Strides copy_strides", NARROW_DKV_PHASES, 16,
+                       loop_marker="\n  int s = 0;\n")
+
+
+def _narrow_phases(torch, fa, build, tmp):
+    """Each phase's share of the narrow dQ and dK/dV kernels as built (warp
+    0's clock64 at each phase boundary of every streamed tile, summed over
+    the CTAs), causal f32 at the f32 long-context leg's [1, 8192, 16, 64]
+    and at [1, 4096, 16, 128], beside the instrumented launch's time."""
+    name = "flash_attention_bwd_tf32x3"
+    lib = _profiled_library(fa, build, tmp, name, _narrow_instrumented,
+                            functools.partial(fa._configure_bwd_source,
+                                              name))
+    built = build._LIBS.get(name)
+    build._LIBS[name] = lib
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    buf = (ctypes.c_ulonglong * 32)()
+    for B, T, H, D in ((1, 8192, 16, 64), (1, 4096, 16, 128)):
+        q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device="cuda")
+                       for _ in range(4))
+        o, lse = fa._flash_cuda(q, k, v, True)
+        delta = fa._delta(o, do, None)
+        for kind, fn, phases, base in (
+                ("dq", fa._flash_dq_tf32x3_cuda, NARROW_DQ_PHASES, 0),
+                ("dkv", fa._flash_dkv_tf32x3_cuda, NARROW_DKV_PHASES, 16)):
+            fn(q, k, v, do, lse, delta, True, D ** -0.5)
+            torch.cuda.synchronize()
+            lib.prof_io(ctypes.cast((ctypes.c_ulonglong * 32)(),
+                                    ctypes.c_void_p), 1)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn(q, k, v, do, lse, delta, True, D ** -0.5)
+            b.record()
+            b.synchronize()
+            lib.prof_io(ctypes.cast(buf, ctypes.c_void_p), 0)
+            cycles = [buf[base + i] for i in range(len(phases))]
+            tiles = buf[base + 15]
+            print(json.dumps({
+                "kernel": kind + " narrow", "shape": [B, T, H, D],
+                "causal": True, "dtype": "float32",
+                "ms_instrumented": a.elapsed_time(b), "tiles": tiles,
+                "phases": [{"phase": label, "share": c / sum(cycles),
+                            "cycles_a_tile": c / tiles}
+                           for (_, label), c in zip(phases, cycles)]}),
+                flush=True)
+    if built is not None:
+        build._LIBS[name] = built
+
+
+def _narrow_plan(src, plan):
+    for key, line in NARROW_LINES.items():
+        built = line % NARROW_PLANS[0][key]
+        if src.count(built) != 1:
+            raise SystemExit("tf32x3_probe: the backward's source no longer "
+                             "holds %r once" % built)
+        src = src.replace(built, line % plan[key])
+    return src
+
+
+def _narrow_choice(torch, fa, build, tmp, candidates):
+    """The narrow kernels built from each of ``candidates`` (``(record,
+    edit)``: ``edit(src)`` gives the candidate's source, the first the
+    built one's), all built into ``tmp`` at once: each one's ``record``
+    with the ptxas line of each narrow kernel, then dQ and dK/dV of every
+    candidate in turns at ``NARROW_SHAPES`` causal f32 (each candidate once
+    in order and once in reverse; chip_smoke.py's ``_time_ms``: a CUDA
+    graph over input copies past the L2 cache), with each one's largest
+    error against the plain backward at [2, 1024, 8, D] with an lse
+    cotangent."""
+    import chip_smoke
+
+    name = "flash_attention_bwd_tf32x3"
+    configure = functools.partial(fa._configure_bwd_source, name)
+    csrc = os.path.join(os.path.dirname(fa.__file__), "csrc")
+    src = open(os.path.join(csrc, name + ".cu")).read()
+    procs = []
+    for i, (_, edit) in enumerate(candidates):
+        path = os.path.join(tmp, "%s_narrow%d.cu" % (name, i))
+        open(path, "w").write(edit(src))
+        procs.append((path[:-3] + ".so", subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, "-I", csrc, "-o",
+             path[:-3] + ".so", path], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    libs = []
+    for (so, proc), (record, _) in zip(procs, candidates):
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit("tf32x3_probe: nvcc failed:\n" + log)
+        lib = ctypes.CDLL(so)
+        configure(lib)
+        libs.append(lib)
+        print(json.dumps(dict(record, ptxas=[
+            line for kernel, line in chip_smoke._ptxas_summary(log)
+            if "narrow" in kernel])), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for B, T, H, D in NARROW_SHAPES:
+        q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device="cuda")
+                       for _ in range(4))
+        o, lse = fa._flash_cuda(q, k, v, True)
+        dlse = (torch.randn(B, H, T, generator=gen, device="cuda")
+                if T <= 1024 else None)
+        delta = fa._delta(o, do, dlse)
+        want = (fa.flash_attention_bwd_reference(q, k, v, o, lse, do, dlse,
+                                                 True)
+                if dlse is not None else None)
+        args = chip_smoke._copies((q, k, v, do, lse, delta))
+        rec = {"backward": [B, T, H, D], "causal": True, "dtype": "float32",
+               "dlse": dlse is not None}
+        order = list(range(len(libs))) + list(range(len(libs)))[::-1]
+        for kind, launch in (("dq", fa._flash_dq_tf32x3_cuda),
+                             ("dkv", fa._flash_dkv_tf32x3_cuda)):
+            turns = [[] for _ in libs]
+            for i in order:
+                build._LIBS[name] = libs[i]
+                turns[i].append(chip_smoke._time_ms(
+                    lambda *a: launch(*a, True, D ** -0.5), args))
+            rec[kind + "_ms_turns"] = turns
+        if want is not None:
+            errs = []
+            for lib in libs:
+                build._LIBS[name] = lib
+                got = (fa._flash_dq_tf32x3_cuda(q, k, v, do, lse, delta,
+                                                True, D ** -0.5),
+                       *fa._flash_dkv_tf32x3_cuda(q, k, v, do, lse, delta,
+                                                  True, D ** -0.5))
+                errs.append([float((a - b).abs().max())
+                             for a, b in zip(got, want)])
+            rec["max_abs_err_dq_dk_dv"] = errs
+        print(json.dumps(rec), flush=True)
+    build._LIBS[name] = libs[0]
+
+
+def _plan_record(plan):
+    return {"narrow plan": {"%s<%d>" % key: dict(zip(
+        ("warps", "row_blocks", "streamed_rows", "n_blocks_a_chunk"),
+        plan[key])) for key in plan}}
+
+
+# the score products' k-loop as built, and the other of its two forms
+# (unrolled by two, fully unrolled); and dQ's dP = dO.V^T issued after p is
+# formed, where the built kernel issues it right after S (so that p's
+# exponentials can run beside its products)
+SCORE_UNROLL = ("#pragma unroll 2\n  for (int d = 0; d < D; d += 8) {\n"
+                "    uint32_t ah[M][4], al[M][4];",
+                "#pragma unroll\n  for (int d = 0; d < D; d += 8) {\n"
+                "    uint32_t ah[M][4], al[M][4];")
+DQ_DP = ("      // dP first: p's exponentials then run beside its last "
+         "products\n      score_rows<D, BS, M>(Ow, Vs, g, t, ds);\n")
+DQ_DS_LOOP = ("#pragma unroll\n      for (int m = 0; m < M; ++m)\n"
+              "#pragma unroll\n        for (int n = 0; n < BS / 8; ++n)\n"
+              "#pragma unroll\n          for (int i = 0; i < 4; ++i)\n"
+              "            ds[m][n][i] =\n")
+
+
+def _other_unroll(src):
+    built = next(form for form in SCORE_UNROLL if src.count(form) == 1)
+    return src.replace(built, SCORE_UNROLL[1 - SCORE_UNROLL.index(built)])
+
+
+def _dq_dp_after_p(src):
+    for text in (DQ_DP, DQ_DS_LOOP):
+        if src.count(text) != 1:
+            raise SystemExit("tf32x3_probe: the backward's source no longer "
+                             "holds %r once" % text)
+    src = src.replace(DQ_DP, "")
+    return src.replace(DQ_DS_LOOP, "      score_rows<D, BS, M>(Ow, Vs, g, t, "
+                       "ds);\n" + DQ_DS_LOOP)
+
+
 def _bwd_instrumented(src):
     src = _instrument(src, "flash_dq_tf32x3_kernel",
                       "// st: q (0-2), k (3-5), v (6-8), dO (9-11), dK",
@@ -517,7 +759,23 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("tf32x3_probe: no CUDA device is available")
     with tempfile.TemporaryDirectory(prefix="tf32x3_probe_") as tmp:
-        _run(torch, fa, _build, tmp)
+        if "--narrow" in sys.argv[1:]:
+            _narrow_choice(torch, fa, _build, tmp, [
+                (_plan_record(plan), functools.partial(_narrow_plan,
+                                                       plan=plan))
+                for plan in NARROW_PLANS])
+            _narrow_choice(torch, fa, _build, tmp, [
+                ({"score k-loop": "as built", "dQ": "dP before p (built)"},
+                 lambda src: src),
+                ({"score k-loop": "the other form",
+                  "dQ": "dP before p (built)"}, _other_unroll),
+                ({"score k-loop": "the other form", "dQ": "dP after p"},
+                 lambda src: _dq_dp_after_p(_other_unroll(src))),
+                ({"score k-loop": "as built", "dQ": "dP after p"},
+                 _dq_dp_after_p)])
+            _narrow_phases(torch, fa, _build, tmp)
+        else:
+            _run(torch, fa, _build, tmp)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
