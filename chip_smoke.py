@@ -18,9 +18,9 @@ on the card:
   d_ff 4096, bf16, remat, batch 1 x 8192: bench.py's long-context leg),
   which crosses the dense->flash gate and so runs the flash forward, dQ
   and dK/dV kernels, and on that configuration in f32, whose flash
-  forward runs the CUDA-core simt kernel and whose dQ and dK/dV run the
-  tensor-core tf32x3 kernels' narrow plan (split-TF32 products at head_dim
-  64), and on the same configuration with 4 heads of 256
+  forward, dQ and dK/dV run the tensor-core tf32x3 kernels' narrow plans
+  (split-TF32 products at head_dim 64), and on the same configuration
+  with 4 heads of 256
   (Gemma-style head_dim), whose flash forward, dQ and dK/dV run the
   tensor-core wgmma_wide kernels, and on that configuration in f32, whose
   flash forward, dQ and dK/dV run the tensor-core tf32x3 kernels
@@ -128,13 +128,16 @@ Phases, in order; any failure raises and exits non-zero:
    forward also in turns at the f32 leg's [1, 8192, 4, 256]; both also
    at [1, 8192, 4, 256], [1, 4096, 16, 192], Tq 1000 x Tk 3000 not
    causal, and head_dim 160, the backward with an lse cotangent), and f32
-   at head_dim 33-128 the tensor-core tf32x3 dQ and dK/dV (the narrow
-   plan; the forward stays simt) held against the plain backward and
-   dense autograd and timed in turns with simt, the CUDA-core kernels
-   they replaced, at [2, 1024, 8, 64] with an lse cotangent, the f32
+   at head_dim 33-128 the tensor-core tf32x3 forward, dQ and dK/dV (the
+   narrow plans), the forward held against the plain version, the
+   backward against the plain backward and dense autograd, each timed in
+   turns with simt, the CUDA-core kernels they replaced, at
+   [2, 1024, 8, 64] (the backward with an lse cotangent), the f32
    long-context leg's [1, 8192, 16, 64] and [1, 4096, 16, 128], and also
-   at head_dim 40 and 96 (padded to 64 and 128) with dlse and Tq 1000 x
-   Tk 3000 not causal, and f32
+   at head_dim 40 and 96 (padded to 64 and 128; the backward with dlse),
+   Tq 1000 x Tk 3000 not causal and, the forward, kv_len below Tk; the
+   widths simt still serves (head_dim 16 and 32, bf16 and f32) beside
+   SDPA at [1, 4096, 16, 32] and [1, 4096, 16, 16]; and f32
    above 256 the forward, dQ and dK/dV on the tensor-core tf32x3_xwide
    kernels (2-CTA clusters that split D), the forward held against the
    plain version, the backward against the plain backward and dense
@@ -478,8 +481,8 @@ RMSNORM_BWD_SHAPES = ((8192, 2048), (8192, 1024))
 LONGCTX = dict(vocab_size=32000, d_model=1024, n_heads=16, n_layers=4,
                d_ff=4096, max_len=8192, dtype="bfloat16", remat=True)
 # the same in f32 (TF32 off, torch's default for matmuls): its flash
-# forward on the CUDA-core simt kernel, dQ and dK/dV on the tensor-core
-# tf32x3 kernels' narrow plan (head_dim 64)
+# forward, dQ and dK/dV on the tensor-core tf32x3 kernels' narrow plans
+# (head_dim 64)
 LONGCTX_F32 = dict(LONGCTX, dtype="float32")
 LONGCTX_HD256 = dict(LONGCTX, n_heads=4)
 # the same in f32 (TF32 off, torch's default for matmuls): its flash
@@ -517,9 +520,9 @@ TRAIN_STEPS = 3
 # at batch 2, 32768 at batch 4); flash forward per block (twice with
 # remat), every one through the tensor-core variant (bf16: wgmma at
 # head_dim 64, wgmma_wide at 256, wgmma_xwide at 512, wgmma_xxwide at 1024;
-# f32: tf32x3 at 256, tf32x3_xwide at 512) but f32 at head_dim 64, whose
-# forward runs on simt; dQ and dK/dV once per block, through the same
-# variant (f32 at 64: tf32x3); the softmax cross-entropy once each way
+# f32: tf32x3 at 64 and 256, tf32x3_xwide at 512); dQ and dK/dV once per
+# block, through the same variant; the softmax cross-entropy once each
+# way
 EXPECTED_LAUNCHES = {
     "flagship_b8_t1024": {"fused_rmsnorm": 9, "fused_rmsnorm.warp": 9,
                           "fused_softmax_xent": 1,
@@ -534,7 +537,7 @@ EXPECTED_LAUNCHES = {
                          "fused_softmax_xent_bwd": 1},
     "longctx_f32_b1_t8192": {"fused_rmsnorm": 17, "fused_rmsnorm.warp": 17,
                              "flash_attention": 8,
-                             "flash_attention.simt": 8,
+                             "flash_attention.tf32x3": 8,
                              "flash_attention_dq": 4,
                              "flash_attention_dkv": 4,
                              "flash_attention_dq.tf32x3": 4,
@@ -1112,13 +1115,16 @@ def phase_build():
                     if re.search(r"<(192|256),%d>" % cl, line))
             _check(n == per_cl, "%s: %d instantiations of cluster size %d "
                    "in the ptxas report, expected %d" % (src, n, cl, per_cl))
-        # and tf32x3's dQ and dK/dV at 64 and 128 (the narrow plan)
-        if src == "flash_attention_bwd_tf32x3":
+        # and tf32x3's forward, dQ and dK/dV at 64 and 128 (the narrow
+        # plans)
+        per_narrow = {"flash_attention_tf32x3": 2,
+                      "flash_attention_bwd_tf32x3": 4}.get(src)
+        if per_narrow:
             n = sum(1 for kernel, line in summary
                     if kernel.endswith("_narrow_kernel")
                     and re.search(r"<(64|128)>", line))
-            _check(n == 4, "%s: %d narrow instantiations in the ptxas "
-                   "report, expected 4" % (src, n))
+            _check(n == per_narrow, "%s: %d narrow instantiations in the "
+                   "ptxas report, expected %d" % (src, n, per_narrow))
     return wall
 
 
@@ -1317,8 +1323,8 @@ def _rmsnorm_bwd_plain_case(shape, gen):
 
 
 # the CUDA-core variant each tensor-core variant of the forward and of the
-# backward is timed against in turns (``variants=True``); tf32x3's dQ and
-# dK/dV at 64 and 128 have simt instead (_cuda_core_twin)
+# backward is timed against in turns (``variants=True``); tf32x3 at 64 and
+# 128 has simt instead (_cuda_core_twin)
 CUDA_CORE_TWIN = {"wgmma": "simt", "wgmma_wide": "wide", "tf32x3": "wide",
                   "wgmma_xwide": "wide", "tf32x3_xwide": "wide",
                   "wgmma_xxwide": "wide"}
@@ -1327,19 +1333,21 @@ CUDA_CORE_TWIN = {"wgmma": "simt", "wgmma_wide": "wide", "tf32x3": "wide",
 def _cuda_core_twin(variant, width):
     """The CUDA-core kernel ``variant`` replaced at the kernel width
     ``width``: ``CUDA_CORE_TWIN``, but simt for tf32x3 at 64 and 128 (its
-    backward's narrow plan; wide runs above 128 only)."""
+    narrow plans; wide runs above 128 only)."""
     if variant == "tf32x3" and width <= 128:
         return "simt"
     return CUDA_CORE_TWIN.get(variant)
 
 
 def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
-                variants=False):
+                variants=False, kv_len=None):
     """The flash forward of the variant ``_variant`` names against its
     plain version; a tensor-core variant must also give the same bits in
-    two calls (no atomics).  ``variants``: that variant is a tensor-core
-    one; also hold its CUDA-core twin (``CUDA_CORE_TWIN``: simt for
-    wgmma, wide for the others) against the plain version, and time the
+    two calls (no atomics).  ``kv_len`` (default Tk): keys at and past it
+    are masked, against the plain version over the first kv_len keys.
+    ``variants``: that variant is a tensor-core one; also hold its
+    CUDA-core twin (``_cuda_core_twin``: simt for wgmma and for tf32x3 at
+    64 and 128, wide for the others) against the plain version, and time the
     two in turns (tensor-core, CUDA-core, CUDA-core, tensor-core); ``ms``
     is then the tensor-core variant's mean of its two turns.  A head dim
     the kernels lack is then timed at its padded width (each variant's
@@ -1369,14 +1377,15 @@ def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
         return torch.randn((B, T, H, D), generator=gen, device="cuda").to(dt)
 
     q, k, v = rnd(Tq), rnd(Tk), rnd(Tk)
-    o, lse = _flash_cuda(q, k, v, causal)
+    n = Tk if kv_len is None else kv_len
+    o, lse = _flash_cuda(q, k, v, causal, None, kv_len)
     variant = _variant(q.dtype, D)
     repeat_ok = True
     if variant in CUDA_CORE_TWIN:
-        o2, lse2 = _flash_cuda(q, k, v, causal)
+        o2, lse2 = _flash_cuda(q, k, v, causal, None, kv_len)
         repeat_ok = torch.equal(o, o2) and torch.equal(lse, lse2)
         del o2, lse2
-    o_ref, lse_ref = flash_attention_reference(q, k, v, causal,
+    o_ref, lse_ref = flash_attention_reference(q, k[:, :n], v[:, :n], causal,
                                                return_lse=True)
     torch.cuda.synchronize()
     # f32: the same f32 arithmetic in another summation order; bf16: the
@@ -1385,15 +1394,15 @@ def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
     err, ok_o = _err(o, o_ref, atol, rtol)
     lse_err, ok_l = _err(lse, lse_ref, 1e-4, 1e-5)
     if causal:
-        pairs = sum(min(i + 1, Tk) for i in range(Tq))
+        pairs = sum(min(i + 1, n) for i in range(Tq))
     else:
-        pairs = Tq * Tk
+        pairs = Tq * n
     isz = q.element_size()
-    nbytes = isz * B * H * D * (2 * Tq + 2 * Tk) + 4 * B * H * Tq
+    nbytes = isz * B * H * D * (2 * Tq + 2 * n) + 4 * B * H * Tq
     bounds = _flash_bounds(4.0 * D * B * H * pairs, nbytes, dtype_name)
     args = _copies((q, k, v))
-    twin = CUDA_CORE_TWIN.get(variant)
     width = _kernel_width(variant, D)
+    twin = _cuda_core_twin(variant, width)
     turns = {}
     if variants:
         _check(twin is not None, "flash_attention %s %s takes the %s "
@@ -1403,7 +1412,7 @@ def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
             w = _kernel_width(name, D)
             run_args[name] = args if w == D else _copies(
                 tuple(_pad_d(t, w) for t in (q, k, v)))
-        to, tlse = launchers[twin](*run_args[twin][0], causal, scale)
+        to, tlse = launchers[twin](*run_args[twin][0], causal, scale, kv_len)
         torch.cuda.synchronize()
         twin_err, ok_to = _err(to[..., :D], o_ref, atol, rtol)
         twin_lse_err, ok_tl = _err(tlse, lse_ref, 1e-4, 1e-5)
@@ -1411,23 +1420,26 @@ def _flash_case(B, Tq, Tk, H, D, causal, dtype_name, gen,
         for name in (variant, twin, twin, variant):
             fn = launchers[name]
             turns.setdefault(name, []).append(_time_ms(
-                lambda q, k, v, fn=fn: fn(q, k, v, causal, scale),
+                lambda q, k, v, fn=fn: fn(q, k, v, causal, scale, kv_len),
                 run_args[name]))
     rec = {
         "kernel": "flash_attention", "variant": variant,
         "q": [B, Tq, H, D], "k": [B, Tk, H, D], "padded_head_dim": width,
-        "causal": causal, "dtype": dtype_name, "max_abs_err": err,
+        "causal": causal, "kv_len": n, "dtype": dtype_name,
+        "max_abs_err": err,
         "atol": atol, "rtol": rtol, "lse_max_abs_err": lse_err,
         "repeat_bit_identical": repeat_ok, "ok": ok_o and ok_l and repeat_ok,
         "ms": (statistics.mean(turns[variant]) if turns else _time_ms(
-            lambda q, k, v: _flash_cuda(q, k, v, causal), args)),
+            lambda q, k, v: _flash_cuda(q, k, v, causal, None, kv_len),
+            args)),
         "plain_ms": _time_ms(lambda q, k, v: flash_attention_reference(
-            q, k, v, causal, return_lse=True), args, rounds=1),
+            q, k[:, :n], v[:, :n], causal, return_lse=True), args,
+            rounds=1),
         # the same [B, T, H, D] views the kernel reads, no copies
         "library_ms": _time_ms(
             lambda q, k, v: F.scaled_dot_product_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=causal), args),
+                q.transpose(1, 2), k[:, :n].transpose(1, 2),
+                v[:, :n].transpose(1, 2), is_causal=causal), args),
         **bounds,
     }
     rec["ms_over_bound"] = rec["ms"] / rec["bound_ms"]
@@ -1865,7 +1877,6 @@ def phase_kernels():
                                           "bfloat16", gen, variants=True)
     _flash_case(1, 4000, 4000, 16, 128, True, "bfloat16", gen)
     _flash_case(1, 1000, 3000, 16, 128, False, "bfloat16", gen)
-    _flash_case(2, 1024, 1024, 8, 64, True, "float32", gen)
     # the training path: the long-context configuration's attention and
     # both configurations' logits
     _flash_case(1, 8192, 8192, 16, 64, True, "bfloat16", gen, variants=True)
@@ -1878,12 +1889,24 @@ def phase_kernels():
     _flash_case(1, 4096, 4096, 16, 96, True, "bfloat16", gen)
     _flash_bwd_case(1, 4096, 4096, 16, 96, True, "bfloat16", gen,
                     with_dlse=True)
-    # f32 at head_dim 33-128: dQ and dK/dV on tf32x3's narrow plan, each
-    # in turns with simt (the CUDA-core kernels it replaced there) beside
-    # SDPA f32's backward: [2, 1024, 8, 64] with an lse cotangent, the f32
-    # long-context leg's [1, 8192, 16, 64] (whose records the kernels line
-    # carries), head_dim 128, 40 and 96 (padded to 64 and 128) with dlse,
-    # and Tq 1000 x Tk 3000 not causal
+    # f32 at head_dim 33-128: the forward, dQ and dK/dV on tf32x3's
+    # narrow plans, each in turns with simt (the CUDA-core kernels they
+    # replaced there) beside SDPA f32: [2, 1024, 8, 64] (the backward with
+    # an lse cotangent), the f32 long-context leg's [1, 8192, 16, 64]
+    # (whose records the kernels line carries), head_dim 128, 40 and 96
+    # (padded to 64 and 128; the backward with dlse), Tq 1000 x Tk 3000 not
+    # causal and, the forward, kv_len below Tk
+    _flash_case(2, 1024, 1024, 8, 64, True, "float32", gen, variants=True)
+    main["flash_attention.tf32x3.narrow"] = _flash_case(
+        1, 8192, 8192, 16, 64, True, "float32", gen, variants=True)
+    _flash_case(1, 4096, 4096, 16, 128, True, "float32", gen, variants=True)
+    _flash_case(1, 777, 777, 4, 40, True, "float32", gen, variants=True)
+    _flash_case(1, 777, 777, 4, 96, True, "float32", gen, variants=True)
+    _flash_case(1, 1000, 3000, 16, 64, False, "float32", gen, variants=True)
+    _flash_case(2, 1000, 3000, 8, 64, True, "float32", gen, variants=True,
+                kv_len=2345)
+    _flash_case(1, 1000, 3000, 8, 128, False, "float32", gen, variants=True,
+                kv_len=1111)
     _flash_bwd_case(2, 1024, 1024, 8, 64, True, "float32", gen,
                     with_dlse=True, variants=True)
     main["flash_attention_dq.tf32x3.narrow"], \
@@ -1896,6 +1919,12 @@ def phase_kernels():
     _flash_bwd_case(1, 777, 777, 4, 96, True, "float32", gen,
                     with_dlse=True)
     _flash_bwd_case(1, 1000, 3000, 16, 64, False, "float32", gen)
+    # the widths simt still serves, both ways (head_dim 16 and 32, bf16 and
+    # f32; no main path runs there) beside SDPA
+    for D in (32, 16):
+        for dt in ("bfloat16", "float32"):
+            _flash_case(1, 4096, 4096, 16, D, True, dt, gen)
+            _flash_bwd_case(1, 4096, 4096, 16, D, True, dt, gen)
     # head dims above 128 (160 pads to 192; 320 is three column chunks of
     # at most 128): at padded 192 and 256 the tensor-core forward and
     # backward, wgmma_wide in bf16 and tf32x3 in f32, timed in turns with
@@ -6521,8 +6550,9 @@ def main():
         }
         if name.startswith("int8_matmul"):      # split-K's second kernel
             entry["reduce_launches"] = launched(name + ".reduce")
-        # tf32x3's dQ and dK/dV at 64 and 128 (the narrow plan): the f32
-        # long-context leg's shape, beside the simt kernels it replaced
+        # tf32x3's forward, dQ and dK/dV at 64 and 128 (the narrow plans):
+        # the f32 long-context leg's shape, beside the simt kernels they
+        # replaced
         narrow = main_cases.get(name + ".narrow")
         if narrow is not None:
             entry["narrow"] = {k: narrow[k] for k in (

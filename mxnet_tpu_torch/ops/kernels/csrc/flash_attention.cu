@@ -1,13 +1,14 @@
 // Flash-attention forward for Hopper (sm_90a), CUDA C++: the CUDA-core
 // ("simt") variant of the forward.
 //
-// The wrapper (flash_attention.py, _fwd_variant) sends f32 inputs and
-// head_dim 16 or 32 here.  f32: the tensor cores have no f32 operand that
-// keeps q.k^T exact (tf32 would round q and k).  head_dim 16 or 32: less
-// than one 128-byte row of the swizzled tiles that the tensor-core variant
-// (flash_attention_wgmma.cu, bf16 with head_dim 64 or 128) reads.  The bf16
-// instantiations at head_dim 64 and 128 stay so that the two variants can
-// be held against each other on the same inputs.
+// The wrapper (flash_attention.py, _variant) sends head_dim 16 or 32 here,
+// f32 and bf16 (head_dim 1-32, zero-padded to one of them): less than one
+// 128-byte row of the swizzled tiles that the tensor-core variants read.
+// Every wider head_dim runs on the tensor cores (flash_attention_wgmma.cu
+// for bf16 at 64 and 128; tf32x3's narrow forward, flash_attention_tf32x3.cu,
+// for f32 there).  The f32 and bf16 instantiations at head_dim 64 and 128
+// stay as the CUDA-core twin that those kernels are held against and timed
+// in turns with on the same inputs (chip_smoke.py).
 //
 // Replaces the Pallas TPU kernel mxnet_tpu/ops/pallas/flash_attention.py
 // `_fwd_kernel` (launched by `_fwd`, public `flash_attention` and

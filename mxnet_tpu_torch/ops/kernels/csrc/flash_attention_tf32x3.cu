@@ -1,9 +1,12 @@
-// Flash-attention forward for f32 above head_dim 128 on Hopper's tensor
+// Flash-attention forward for f32 above head_dim 32 on Hopper's tensor
 // cores (sm_90a), CUDA C++: the "tf32x3" variant of the forward, for f32
-// inputs at head_dim 192 or 256 (the wrapper pads head_dim 129-256 to one
-// of them), and the "tf32x3_xwide" variant at head_dim 384 or 512 (the
-// wrapper pads head_dim 257-384 to 384 and 385-512 to 512): the same
-// kernel run by clusters of two CTAs that split D (below).
+// inputs at head_dim 64 or 128 (the wrapper pads head_dim 33-128 to one of
+// them; their own plan, "Narrow widths" below) and at head_dim 192 or 256
+// (the wrapper pads head_dim 129-256 to one of them), and the
+// "tf32x3_xwide" variant at head_dim 384 or 512 (the wrapper pads head_dim
+// 257-384 to 384 and 385-512 to 512): the 192 / 256 kernel run by clusters
+// of two CTAs that split D (below).  f32 at head_dim 16 or 32 stays on the
+// CUDA cores (simt, flash_attention.cu).
 //
 // Replaces, at those widths and in f32, the Pallas TPU kernel
 // mxnet_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (launched by
@@ -34,9 +37,10 @@
 // split beside its products on the CUDA cores and read from shared memory
 // beside them, so the design counts splits and reads a product.
 //
-// Design.  CTAs of 8 warps own 64 query rows (heavy causal tiles first)
-// and all of D: q resident in shared memory, loaded once, and key and
-// value tiles of 64 rows streamed, f32 with rows padded to D + 4 words
+// Design (192 / 256).  CTAs of 8 warps own 64 query rows (heavy causal
+// tiles first) and all of D: q resident in shared memory, loaded once,
+// and key and value tiles of 64 rows streamed, f32 with rows padded to D +
+// 4 words
 // (every fragment load below is free of bank conflicts); 16-byte cp.async
 // copies, rows past Tk zero-filled.  One buffer a tile: at D 256 three
 // 64-row tiles are 195 KB, with the exchange tile 213 KB of 227.  Per key
@@ -90,6 +94,43 @@
 // A 2-CTA cluster at 213 KB a CTA needs two SMs of one GPC free at once;
 // the launcher checks once that one fits (cudaOccupancyMaxActiveClusters)
 // and returns kErrCluster if not.
+//
+// Narrow widths (64 and 128).  The plan above does not carry over: warp
+// w's D / 8 output columns are one n8 tile at D 64, and each score warp's
+// half of D is four k-steps between the exchange's barriers, so the
+// exchange tile, its three barriers a tile and the split of every value
+// the output product reads weigh four times as much per flop as at 256.
+// So at 64 and 128 each warp owns 16 query rows over all of D, as
+// FlashAttention-2 splits the forward (and as the tf32x3 backward's narrow
+// plan does, flash_attention_bwd_tf32x3.cu):
+//   * scores: the warp computes S for its 16 rows against all BS keys of
+//     the tile over all of D (score_rows), q's fragments split once into
+//     registers (QR 1) or as they load from shared memory; no partial sum
+//     crosses a warp and there is no exchange tile.  The row max and row
+//     sum of rows g and g + 8 come from shuffles within the lane quad;
+//   * P.V: p is formed in the score registers, and those registers are the
+//     product's A operand as they stand: an m16n8 accumulator fragment
+//     holds columns 2t and 2t + 1, which mma's A fragment reads as k slots
+//     t and t + 4 when V's rows are read in that order (frag_b_perm).
+//     Each tile's p . v is summed from zero on the tensor cores, NC
+//     n-blocks at a time, and added in f32 as acc * alpha + pv.
+// The only barriers are the key / value tiles': two a tile (in, and no
+// longer read), with the next tile's copies (16-byte cp.async, two stages)
+// issued before the wait for this one.  A warp whose rows all precede the
+// tile's keys (causal) or lie past Tq skips the tile, and only tiles that
+// cross kv_len or the warp's diagonal compute the mask.  Heavy causal
+// tiles first; no atomics: two calls give the same bits.  The plan
+// (NarrowFwd: warps W, keys a tile BS, n-blocks a chunk NC, q in registers
+// QR) was chosen by timing five sets of candidates in turns
+// (tf32x3_probe.py --narrow; H100 80GB HBM3, 700 W).  At 64: 4 warps,
+// key tiles of 64, q in registers: 87,040 B and 226 registers, two CTAs
+// an SM; 8 warps came within 3 % (faster at [2, 1024, 8, 64], slower at
+// the f32 long-context leg's [1, 8192, 16, 64]), tiles of 32 keys 9-12 %
+// slower, q split as it loads 2-3 % slower.  At 128: 8 warps, key tiles
+// of 64, q split as it loads: 202,752 B and 239 registers (no spill), one
+// CTA an SM, 8-9 % faster than tiles of 32 keys.  At [1, 8192, 16, 64]
+// the score products take 34 % of the time, P.V 34 %, the softmax 11 %,
+// the tiles' copies and barriers 22 % (tf32x3_probe.py's phases).
 //
 // Plain C interface (no PyTorch headers), called through ctypes.
 
@@ -396,6 +437,278 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q,
     }
 }
 
+// ---------------------------------------------------------------------------
+// tf32x3 at head_dim 64 and 128: the narrow plan (header, "Narrow widths")
+// ---------------------------------------------------------------------------
+
+// The plan of the narrow forward: W warps a CTA, each owning 16 query rows
+// over all of D (16 W rows a CTA), key and value tiles of BS rows in two
+// stages, P.V's n-blocks taken NC at a time, and q's fragments split once
+// into registers (QR 1) or split as they load from shared memory (QR 0)
+template <int W_, int BS_, int NC_, int QR_>
+struct FwdPlan {
+  static constexpr int W = W_, BS = BS_, NC = NC_, QR = QR_;
+  static_assert(BS % 8 == 0, "key tiles of 8-key blocks");
+};
+// the plan at each width; tf32x3_probe.py times the candidates in turns by
+// editing these lines
+template <int D>
+struct NarrowFwd;
+template <>
+struct NarrowFwd<64> : FwdPlan<4, 64, 8, 1> {};
+template <>
+struct NarrowFwd<128> : FwdPlan<8, 64, 8, 0> {};
+
+// Shared memory, in floats: the CTA's q rows [R][LD] and two stages of a
+// key and a value tile [BS][LD].  LD % 32 == 4, as above
+template <int D, class P>
+struct NarrowSmem {
+  static constexpr int LD = D + 4;
+  static constexpr int R = 16 * P::W;
+  static constexpr int NT = 32 * P::W;
+  static constexpr int q = 0;
+  static constexpr int str = R * LD;             // stage s: k, v
+  static constexpr int stage = 2 * P::BS * LD;
+  static constexpr size_t bytes = (str + 2 * stage) * sizeof(float);
+  static_assert(bytes <= 232448, "a block has 227 KB of shared memory");
+};
+
+// One warp's scores: s[n] = Q[16 rows] . K[8n .. 8n + 7]^T over all of D,
+// summed on the tensor cores from zero, Q the warp's rows of q and K the
+// key tile.  QR: q's fragments as split once (qh, ql, one a k-step); else
+// split as they load from Q
+template <int D, int BS, int QR>
+__device__ __forceinline__ void score_rows(const float* Q, const float* K,
+                                           int g, int t,
+                                           const uint32_t (&qh)[D / 8][4],
+                                           const uint32_t (&ql)[D / 8][4],
+                                           float (&s)[BS / 8][4]) {
+  constexpr int LD = D + 4;
+#pragma unroll
+  for (int n = 0; n < BS / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+  if constexpr (QR) {
+#pragma unroll
+    for (int d = 0; d < D; d += 8)
+#pragma unroll
+      for (int n = 0; n < BS / 8; ++n) {
+        uint32_t bh[2], bl[2];
+        frag_bt(K + 8 * n * LD + d, LD, g, t, bh, bl);
+        mma_tf32x3(s[n], qh[d / 8], ql[d / 8], bh, bl);
+      }
+  } else {
+#pragma unroll 2
+    for (int d = 0; d < D; d += 8) {
+      uint32_t ah[4], al[4];
+      frag_a(Q + d, LD, g, t, ah, al);
+#pragma unroll
+      for (int n = 0; n < BS / 8; ++n) {
+        uint32_t bh[2], bl[2];
+        frag_bt(K + 8 * n * LD + d, LD, g, t, bh, bl);
+        mma_tf32x3(s[n], ah, al, bh, bl);
+      }
+    }
+  }
+}
+
+// acc[nb] = acc[nb] * alpha(row) + P . V[:, 8nb ..] for one warp's 16 rows
+// over a tile's BS keys: P the warp's p as it stands in the score
+// registers, the A operand of k-step kk being fragment kk with k permuted
+// as frag_b_perm reads V (the fragment's columns 2t and 2t + 1 are A's k
+// slots t and t + 4), V the value tile.  NC n-blocks at a time, each
+// block's products over the tile summed on the tensor cores from zero and
+// then added to acc * alpha in f32; a0, a1: alpha of rows g and g + 8
+template <int D, int BS, int NC>
+__device__ __forceinline__ void pv_rows(const float (&p)[BS / 8][4],
+                                        const float* V, float a0, float a1,
+                                        int g, int t,
+                                        float (&acc)[D / 8][4]) {
+  constexpr int LD = D + 4;
+  static_assert((D / 8) % NC == 0, "n-blocks in whole chunks");
+#pragma unroll
+  for (int c = 0; c < D / 8; c += NC) {
+    float tile[NC][4];
+#pragma unroll
+    for (int nb = 0; nb < NC; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) tile[nb][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < BS / 8; ++kk) {
+      uint32_t ah[4], al[4];
+      split_tf32(p[kk][0], ah[0], al[0]);
+      split_tf32(p[kk][2], ah[1], al[1]);
+      split_tf32(p[kk][1], ah[2], al[2]);
+      split_tf32(p[kk][3], ah[3], al[3]);
+#pragma unroll
+      for (int nb = 0; nb < NC; ++nb) {
+        uint32_t bh[2], bl[2];
+        frag_b_perm(V + 8 * kk * LD + 8 * (c + nb), LD, g, t, bh, bl);
+        mma_tf32x3(tile[nb], ah, al, bh, bl);
+      }
+    }
+#pragma unroll
+    for (int nb = 0; nb < NC; ++nb)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        acc[c + nb][i] = acc[c + nb][i] * (i < 2 ? a0 : a1) + tile[nb][i];
+  }
+}
+
+// st: q (0-2), k (3-5), v (6-8), o (9-11)
+template <int D>
+__global__ void __launch_bounds__(NarrowSmem<D, NarrowFwd<D>>::NT, 1)
+flash_fwd_tf32x3_narrow_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               float* __restrict__ o, float* __restrict__ lse,
+                               int H, int Tq, int Tk, Strides st, float scale,
+                               int causal, int kv_len) {
+  using P = NarrowFwd<D>;
+  using L = NarrowSmem<D, P>;
+  constexpr int LD = L::LD, BS = P::BS, R = L::R, NT = L::NT;
+  extern __shared__ float4 smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * R;     // heavy tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const float* kb = k + b * st.s[3] + h * st.s[5];
+  const float* vb = v + b * st.s[6] + h * st.s[8];
+  const int w0 = q0 + 16 * warp;      // this warp's first row
+  const int r0 = w0 + g;              // this thread's rows r0 and r0 + 8
+  const float sl2 = scale * kLog2e;
+  const int q_last = min(q0 + R, Tq) - 1;
+  const int k_end = causal ? min(kv_len, q_last + 1) : kv_len;
+  // the keys this warp's rows see: the tiles past them are skipped, as
+  // are all where its rows lie past Tq
+  const int w_end = w0 >= Tq ? 0 : causal ? min(k_end, w0 + 16) : k_end;
+
+  if (k_end > 0) {
+    copy_rows<D>(smem + L::q, q + b * st.s[0] + h * st.s[2], st.s[1], q0, R,
+                 Tq, threadIdx.x, NT);
+    copy_rows<D>(smem + L::str, kb, st.s[4], 0, BS, Tk, threadIdx.x, NT);
+    copy_rows<D>(smem + L::str + BS * LD, vb, st.s[7], 0, BS, Tk,
+                 threadIdx.x, NT);
+    cp_async_commit();
+  }
+  const float* Qw = smem + L::q + 16 * warp * LD;
+  // q's fragments, split once (QR): D / 8 k-steps of 4 + 4 registers
+  uint32_t qh[D / 8][4], ql[D / 8][4];
+  float m_run[2] = {kNeg, kNeg}, l_run[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < D / 8; ++nb)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nb][i] = 0.f;
+
+  int s = 0;
+  for (int k0 = 0; k0 < k_end; k0 += BS, s ^= 1) {
+    const float* Ks = smem + L::str + s * L::stage;
+    const float* Vs = Ks + BS * LD;
+    if (k0 + BS < k_end) {            // the next tile into the other stage
+      float* nk = smem + L::str + (s ^ 1) * L::stage;
+      copy_rows<D>(nk, kb, st.s[4], k0 + BS, BS, Tk, threadIdx.x, NT);
+      copy_rows<D>(nk + BS * LD, vb, st.s[7], k0 + BS, BS, Tk, threadIdx.x,
+                   NT);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                  // this tile is in, every thread's part
+    if constexpr (P::QR) {
+      if (k0 == 0) {                  // q came in with the first tile
+#pragma unroll
+        for (int d = 0; d < D; d += 8)
+          frag_a(Qw + d, LD, g, t, qh[d / 8], ql[d / 8]);
+      }
+    }
+    if (k0 < w_end) {
+      float f[BS / 8][4];
+      score_rows<D, BS, P::QR>(Qw, Ks, g, t, qh, ql, f);
+      // a tile needs the mask where it reaches kv_len or, causal, keys past
+      // the warp's first row; elsewhere max(S) * scale is max(s) (scale >
+      // 0) and s is never formed
+      const bool masked = k0 + BS > kv_len || (causal && k0 + BS - 1 > w0) ||
+                          !(scale > 0.f);
+      float mx[2] = {kNeg, kNeg};
+      if (masked) {
+#pragma unroll
+        for (int n = 0; n < BS / 8; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int kpos = k0 + 8 * n + 2 * t + (i & 1);
+            const int qpos = r0 + 8 * (i >> 1);
+            const bool ok = kpos < kv_len && (!causal || qpos >= kpos);
+            f[n][i] = ok ? f[n][i] * scale : kNeg;
+            mx[i >> 1] = fmaxf(mx[i >> 1], f[n][i]);
+          }
+      } else {
+#pragma unroll
+        for (int n = 0; n < BS / 8; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], f[n][i]);
+      }
+      float alpha[2], bias[2], rs[2] = {0.f, 0.f};
+      const float fs = masked ? kLog2e : sl2;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
+        mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
+        if (!masked) mx[j] *= scale;
+        const float m_new = fmaxf(m_run[j], mx[j]);
+        alpha[j] = ex2((m_run[j] - m_new) * kLog2e);
+        bias[j] = -m_new * kLog2e;
+        m_run[j] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < BS / 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          f[n][i] = ex2(fmaf(f[n][i], fs, bias[i >> 1]));
+          rs[i >> 1] += f[n][i];
+        }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        rs[j] += __shfl_xor_sync(0xffffffffu, rs[j], 1);
+        rs[j] += __shfl_xor_sync(0xffffffffu, rs[j], 2);
+        l_run[j] = l_run[j] * alpha[j] + rs[j];
+      }
+      pv_rows<D, BS, P::NC>(f, Vs, alpha[0], alpha[1], g, t, acc);
+    }
+    __syncthreads();                  // this stage is no longer read
+  }
+
+  // o = acc / l (0 where l == 0), lse = m + log(l): rows r0 and r0 + 8
+  float* ob = o + b * st.s[9] + h * st.s[11];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int r = r0 + 8 * j;
+    if (r >= Tq) continue;
+    const float safe = l_run[j] == 0.f ? 1.f : l_run[j];
+    if (t == 0) lse[((long long)b * H + h) * Tq + r] = m_run[j] + logf(safe);
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb)
+      *reinterpret_cast<float2*>(ob + r * st.s[10] + 8 * nb + 2 * t) =
+          make_float2(acc[nb][2 * j] / safe, acc[nb][2 * j + 1] / safe);
+  }
+}
+
+template <int D>
+int launch_narrow(const float* q, const float* k, const float* v, float* o,
+                  float* lse, int B, int H, int Tq, int Tk,
+                  const long long* st, float scale, int causal, int kv_len,
+                  cudaStream_t stream) {
+  using L = NarrowSmem<D, NarrowFwd<D>>;
+  Strides s{};
+  for (int i = 0; i < 12; ++i) s.s[i] = st[i];
+  return launch_ex<flash_fwd_tf32x3_narrow_kernel<D>, 1>(
+      dim3((Tq + L::R - 1) / L::R, H, B), L::NT, L::bytes, stream, q, k, v,
+      o, lse, H, Tq, Tk, s, scale, causal, kv_len);
+}
+
 template <int D, int CL>
 int launch(const float* q, const float* k, const float* v, float* o,
            float* lse, int B, int H, int Tq, int Tk, const long long* st,
@@ -407,9 +720,10 @@ int launch(const float* q, const float* k, const float* v, float* o,
       q, k, v, o, lse, H, Tq, Tk, s, scale, causal, kv_len);
 }
 
-// The forward at `D` columns: tf32x3 at 192 / 256 (one CTA a query tile),
-// tf32x3_xwide at 384 / 512 (a cluster of two CTAs, 192 / 256 columns
-// each); any other width, or one of the other variant's, is refused
+// The forward at `D` columns: tf32x3 at 64 / 128 (the narrow plan) and at
+// 192 / 256 (one CTA a query tile), tf32x3_xwide at 384 / 512 (a cluster
+// of two CTAs, 192 / 256 columns each); any other width, or one of the
+// other variant's, is refused
 int fwd_any(bool xwide, const void* q, const void* k, const void* v, void* o,
             void* lse, int B, int H, int Tq, int Tk, int D,
             const long long* st, float scale, int causal, int kv_len,
@@ -423,6 +737,12 @@ int fwd_any(bool xwide, const void* q, const void* k, const void* v, void* o,
               *fv = static_cast<const float*>(v);
   float *fo = static_cast<float*>(o), *fl = static_cast<float*>(lse);
   switch (xwide ? -D : D) {
+    case 64:
+      return launch_narrow<64>(fq, fk, fv, fo, fl, B, H, Tq, Tk, st, scale,
+                               causal, kv_len, s);
+    case 128:
+      return launch_narrow<128>(fq, fk, fv, fo, fl, B, H, Tq, Tk, st, scale,
+                                causal, kv_len, s);
     case 192:
       return launch<192, 1>(fq, fk, fv, fo, fl, B, H, Tq, Tk, st, scale,
                             causal, kv_len, s);
@@ -450,8 +770,8 @@ const char* error_string(int code) {
 
 extern "C" {
 
-// q/k/v/o: f32 [B, T, H, D] with unit stride on D, D 192 or 256; `st`
-// holds the (B, T, H) element strides of q, k, v and o in that order.
+// q/k/v/o: f32 [B, T, H, D] with unit stride on D, D 64, 128, 192 or 256;
+// `st` holds the (B, T, H) element strides of q, k, v and o in that order.
 // Base addresses 16-byte aligned, q/k/v strides multiples of 4 elements
 // (the 16-byte copies).  lse: f32 [B, H, Tq], contiguous.  Keys at and past
 // kv_len are masked.  Returns 0 on success, else a cudaError_t.

@@ -22,11 +22,9 @@ zero columns add 0 to q·kᵀ and dO·Vᵀ), run at that width with ``scale``
 fixed from the real head_dim, and sliced back (:func:`_padded_dim`; the
 2-CTA-cluster variants pad further, f32 at 257-512 to 384 or 512, bf16 at
 513-1024 to 640, 768, 896 or 1024: :func:`_kernel_width`).
-Only head_dim 0 raises.  The variants are chosen by one rule on dtype,
-padded head_dim and direction alone (:func:`_variant`), never by whether a
-build or a launch worked.  The rule is the same both ways but at f32 64
-and 128 (head_dim 33-128), where the backward runs ``tf32x3`` and the
-forward ``simt``.  There are eight:
+Only head_dim 0 raises.  The variants are chosen by one rule on dtype and
+padded head_dim alone (:func:`_variant`), the same both ways, never by
+whether a build or a launch worked.  There are eight:
 
 * ``wgmma`` — tensor cores (wgmma, TMA rings, the f32 operands p and ds
   split into two bf16 terms): bf16 at head_dim 64 or 128 (the flagship's
@@ -44,13 +42,13 @@ forward ``simt``.  There are eight:
   (CTAs of 64 output rows whose two consumer warpgroups split the output's
   columns).  The same preconditions and the same copy of ``dO`` as
   ``wgmma``;
-* ``tf32x3`` — tensor cores: f32 at a padded head_dim of 192 or 256
-  (head_dim 129-256), both ways, and the backward alone at 64 or 128
-  (head_dim 33-128).  Forward ``csrc/flash_attention_tf32x3.cu`` (CTAs of
-  64 query rows over all of D, key / value tiles of 64); backward
-  ``csrc/flash_attention_bwd_tf32x3.cu`` (dQ and dK/dV; at 64 and 128 its
-  narrow plan: each warp owns 16 rows over all of D, and the score
-  registers are the output products' operand).  The
+* ``tf32x3`` — tensor cores: f32 at a padded head_dim of 64, 128, 192 or
+  256 (head_dim 33-256), both ways.  Forward
+  ``csrc/flash_attention_tf32x3.cu`` (at 192 and 256 CTAs of 64 query rows
+  over all of D, key / value tiles of 64); backward
+  ``csrc/flash_attention_bwd_tf32x3.cu`` (dQ and dK/dV).  At 64 and 128
+  both take a narrow plan: each warp owns 16 rows over all of D, and the
+  score registers are the output products' operand.  The
   tensor cores have no f32 operand, and one TF32 product keeps 11 of
   f32's 24 significant bits (about 2^-11 relative), too coarse for f32;
   so each operand is split into ``hi`` (x with its 13 low bits cleared)
@@ -88,10 +86,10 @@ forward ``simt``.  There are eight:
   CTA).  Forward ``csrc/flash_attention_wgmma_xwide.cu``, backward
   ``csrc/flash_attention_bwd_wgmma_xwide.cu``.  The same preconditions
   and the same copy of ``dO`` as ``wgmma``;
-* ``simt`` — CUDA cores: the f32 forward up to head_dim 128, and head_dim
-  16 or 32 both ways, f32 and bf16 (less than one 128-byte row of the
-  swizzled tiles the wgmma variant reads).  Forward
-  ``csrc/flash_attention.cu``; backward ``csrc/flash_attention_bwd.cu``;
+* ``simt`` — CUDA cores: head_dim 16 or 32 both ways, f32 and bf16 (less
+  than one 128-byte row of the swizzled tiles the wgmma variant reads).
+  Forward ``csrc/flash_attention.cu``; backward
+  ``csrc/flash_attention_bwd.cu``;
 * ``wide`` — CUDA cores, above head_dim 128 (padded to a multiple of 64):
   the dot products over D walk it in chunks of 64 and each CTA owns at
   most 128 output columns, so any head_dim fits
@@ -124,15 +122,12 @@ __all__ = ["flash_attention", "flash_attention_lse", "flash_self_attention",
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)      # the widths the kernels are built for
-# the tensor-core variants' widths
+# the tensor-core variants' widths, both ways
 _TC_WIDTHS = {"wgmma": (64, 128), "wgmma_wide": (192, 256),
-              "tf32x3": (192, 256), "wgmma_xwide": (320, 384, 448, 512),
+              "tf32x3": (64, 128, 192, 256),
+              "wgmma_xwide": (320, 384, 448, 512),
               "tf32x3_xwide": (384, 512),
               "wgmma_xxwide": (640, 768, 896, 1024)}
-# ... and the backward's, where they differ: tf32x3's dQ and dK/dV also
-# at 64 and 128 (the narrow plan of csrc/flash_attention_bwd_tf32x3.cu),
-# where the forward stays simt
-_TC_BWD_WIDTHS = dict(_TC_WIDTHS, tf32x3=(64, 128, 192, 256))
 # ... and the dtype each takes
 _TC_DTYPE = {"wgmma": torch.bfloat16, "wgmma_wide": torch.bfloat16,
              "tf32x3": torch.float32, "wgmma_xwide": torch.bfloat16,
@@ -309,26 +304,22 @@ def _pad_d(t, width):
 
 
 def _variant(dtype, head_dim, backward=False):
-    """The flash kernels for ``dtype``, ``head_dim`` (1 and up) and the
-    direction, by the padded width (:func:`_padded_dim`): ``"wgmma"`` for
-    bf16 at 64 or 128, ``"wgmma_wide"`` for bf16 at 192 or 256,
-    ``"wgmma_xwide"`` for bf16 at 320, 384, 448 or 512, ``"tf32x3"`` for
-    f32 at 192 or 256 (split-TF32 products on the tensor cores: three TF32
-    products of the operands' hi / lo terms, under 3·2^-20 relative a
-    product, where one TF32 product leaves 2^-11), ``"tf32x3_xwide"`` for
-    f32 at 320, 384, 448 or 512 (run at :func:`_kernel_width`: 384 or 512,
-    two CTAs of a cluster splitting D), ``"wgmma_xxwide"`` for bf16 at
-    576-1024 (run at 640, 768, 896 or 1024, two CTAs of a cluster splitting
-    D), all six both ways; ``"wide"`` for every other width above 128 (f32
-    above 512, bf16 above 1024); ``"simt"`` for the rest (f32 up to 128;
-    bf16 up to 32).  ``backward`` names the direction, and the rule is the
-    same for both but at f32 64 and 128 (head_dim 33-128): the backward's
-    dQ and dK/dV there are ``"tf32x3"`` (``_TC_BWD_WIDTHS``), while the
-    forward stays ``"simt"``."""
+    """The flash kernels for ``dtype`` and ``head_dim`` (1 and up), by the
+    padded width (:func:`_padded_dim`): ``"wgmma"`` for bf16 at 64 or 128,
+    ``"wgmma_wide"`` for bf16 at 192 or 256, ``"wgmma_xwide"`` for bf16 at
+    320, 384, 448 or 512, ``"tf32x3"`` for f32 at 64, 128, 192 or 256
+    (split-TF32 products on the tensor cores: three TF32 products of the
+    operands' hi / lo terms, under 3·2^-20 relative a product, where one
+    TF32 product leaves 2^-11), ``"tf32x3_xwide"`` for f32 at 320, 384,
+    448 or 512 (run at :func:`_kernel_width`: 384 or 512, two CTAs of a
+    cluster splitting D), ``"wgmma_xxwide"`` for bf16 at 576-1024 (run at
+    640, 768, 896 or 1024, two CTAs of a cluster splitting D); ``"wide"``
+    for every other width above 128 (f32 above 512, bf16 above 1024);
+    ``"simt"`` for the rest (up to 32).  ``backward`` names the direction;
+    the rule is the same for both."""
     width = _padded_dim(head_dim)
-    widths = _TC_BWD_WIDTHS if backward else _TC_WIDTHS
     for variant in ("wgmma", "wgmma_wide", "wgmma_xwide", "tf32x3"):
-        if dtype == _TC_DTYPE[variant] and width in widths[variant]:
+        if dtype == _TC_DTYPE[variant] and width in _TC_WIDTHS[variant]:
             return variant
     # the cluster variants: from above the one-CTA variant's widest to
     # their own widest (run at the next of their widths)
@@ -344,8 +335,8 @@ def _variant(dtype, head_dim, backward=False):
 
 
 def _kernel_width(variant, head_dim, backward=False):
-    """The width ``variant`` runs ``head_dim`` at in the direction
-    ``backward`` names: :func:`_padded_dim`, rounded up to the next of the
+    """The width ``variant`` runs ``head_dim`` at, both ways (``backward``
+    names the direction): :func:`_padded_dim`, rounded up to the next of the
     variant's own widths where it has them (``tf32x3_xwide`` runs 320 at
     384 and 448 at 512: a pair of CTAs splits D evenly, and 160 or 224
     columns a CTA would not divide into 8 warps of 8-column tiles;
@@ -353,7 +344,7 @@ def _kernel_width(variant, head_dim, backward=False):
     half is a width of ``wgmma_xwide``'s; the zero columns add 0 to the
     score products, and ``scale`` stays the real head_dim's)."""
     width = _padded_dim(head_dim)
-    widths = (_TC_BWD_WIDTHS if backward else _TC_WIDTHS).get(variant, ())
+    widths = _TC_WIDTHS.get(variant, ())
     return min((w for w in widths if w >= width), default=width)
 
 
@@ -521,10 +512,10 @@ def _flash_wgmma_xwide_cuda(q, k, v, causal=True, scale=None, kv_len=None):
 
 def _flash_tf32x3_cuda(q, k, v, causal=True, scale=None, kv_len=None):
     """Launch the tensor-core forward ``csrc/flash_attention_tf32x3.cu``
-    (split-TF32 products) on f32 inputs with head_dim 192 or 256; returns
-    ``(o, lse)``.  Raises on inputs it does not take
+    (split-TF32 products) on f32 inputs with head_dim 64, 128, 192 or 256;
+    returns ``(o, lse)``.  Raises on inputs it does not take
     (:func:`_check_tc_width`, :func:`_check_wgmma`): never a hand-off to
-    the wide variant."""
+    the simt or the wide variant."""
     return _flash_tc_cuda("tf32x3", q, k, v, causal, scale, kv_len)
 
 
@@ -579,8 +570,8 @@ def _flash_wide_cuda(q, k, v, causal=True, scale=None, kv_len=None):
     return o, lse
 
 
-def _check_tc_width(dtype, D, variant, backward=False):
-    widths = (_TC_BWD_WIDTHS if backward else _TC_WIDTHS)[variant]
+def _check_tc_width(dtype, D, variant):
+    widths = _TC_WIDTHS[variant]
     want = _TC_DTYPE[variant]
     if dtype != want or D not in widths:
         raise ValueError("flash_attention (%s variant): takes %s with "
@@ -742,7 +733,7 @@ _BWD_TC = {
 def _bwd_tc_args(variant, q, k, v, do, lse, delta):
     """Check a tensor-core backward's inputs; returns ``(lse, delta,
     tq_pad)`` with the row buffers padded (:func:`_rows_padded`)."""
-    _check_tc_width(q.dtype, q.shape[-1], variant, backward=True)
+    _check_tc_width(q.dtype, q.shape[-1], variant)
     _check_wgmma(q, k, v, do, variant)
     Tq = q.shape[1]
     lse_p, delta_p = _rows_padded(lse, Tq), _rows_padded(delta, Tq)

@@ -40,11 +40,14 @@ autograd, with the same views, refusals and repeat checks; at head_dim
 257-512 the f32 backward takes the tensor-core ``tf32x3_xwide`` dQ and
 dK/dV (the tf32x3 kernels in 2-CTA clusters that split D), held the same
 way; at head_dim 33-128 (run at 64 or 128) the f32 backward takes
-tf32x3's narrow dQ and dK/dV (each warp 16 rows over all of D) while the
-forward stays simt, held the same way, with ``kv_len`` (the backward over
-the first kv_len keys), keys no query sees, fused-qkv views, a strided
-dO, refusals, the autograd counters at head_dim 64, float64 autograd and
-the ptxas report of every tf32x3 backward instantiation; and so does the
+tf32x3's narrow dQ and dK/dV (each warp 16 rows over all of D), held the
+same way, with ``kv_len`` (the backward over the first kv_len keys), keys
+no query sees, fused-qkv views, a strided dO, refusals, the autograd
+counters at head_dim 64, float64 autograd and the ptxas report of every
+tf32x3 backward instantiation, and the f32 forward there takes tf32x3's
+narrow forward, held to the plain version at the f32 forward gates at
+head_dim 40, 64, 96 and 128, causal and not, with ``kv_len`` below Tk,
+two calls bit for bit; and so does the
 f32 forward there (``tf32x3_xwide``: the tf32x3
 forward in 2-CTA clusters), held as the tf32x3 forward is; the bf16
 forward at head_dim 513-1024 takes ``wgmma_xxwide`` (the wgmma_xwide
@@ -52,7 +55,7 @@ forward in 2-CTA clusters), held as the wgmma_xwide forward is, and so
 does the bf16 backward there (the wgmma_xwide dQ and dK/dV in 2-CTA
 clusters), held as the wgmma_xwide backward is, at head_dim 576-1024,
 with one head among the cases.  The f32
-forward at head_dim 129-256 takes the tensor-core ``tf32x3`` forward (split-TF32
+forward at head_dim 33-256 takes the tensor-core ``tf32x3`` forward (split-TF32
 products for S and P·V), held to the plain version at the f32 forward
 gates (o within 1e-5 + 1e-4·|o|, lse within 1e-4 + 1e-5·|lse|: the
 kernels' gates on the card), with ``kv_len``, fused-qkv views,
@@ -458,7 +461,7 @@ def test_flash_kv_len_and_rows_without_keys(dev, launch, causal):
 @pytest.mark.parametrize("dtype,D,variant", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 32, "simt"), (torch.bfloat16, 16, "simt"),
-    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+    (torch.float32, 64, "tf32x3"), (torch.float32, 128, "tf32x3"),
     (torch.bfloat16, 256, "wgmma_wide"), (torch.bfloat16, 192, "wgmma_wide"),
     (torch.bfloat16, 320, "wgmma_xwide"), (torch.float32, 256, "tf32x3"),
     (torch.float32, 192, "tf32x3"), (torch.float32, 160, "tf32x3"),
@@ -552,8 +555,8 @@ def test_flash_bwd_reads_strided_slices_and_dout(dev):
 
 
 def test_flash_autograd_launches_backward_kernels(dev):
-    """Autograd of ``flash_attention`` at f32 head_dim 64: the forward on
-    simt, dQ and dK/dV on tf32x3 (its narrow plan), one launch each."""
+    """Autograd of ``flash_attention`` at f32 head_dim 64: the forward, dQ
+    and dK/dV on tf32x3 (its narrow plans), one launch each."""
     B, T, H, D = 1, 130, 2, 64
     g = torch.Generator(device=dev).manual_seed(2)
     q, k, v = (torch.randn(B, T, H, D, generator=g, device=dev,
@@ -563,7 +566,7 @@ def test_flash_autograd_launches_backward_kernels(dev):
     (o.square().sum() + lse.tanh().sum()).backward()
     assert common.launch_counts() == {
         "kernels.launch.flash_attention": 1,
-        "kernels.launch.flash_attention.simt": 1,
+        "kernels.launch.flash_attention.tf32x3": 1,
         "kernels.launch.flash_attention_dq": 1,
         "kernels.launch.flash_attention_dq.tf32x3": 1,
         "kernels.launch.flash_attention_dkv": 1,
@@ -1364,7 +1367,7 @@ def test_flash_tf32x3_matches_plain(dev, case):
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
-@pytest.mark.parametrize("D", [192, 256])
+@pytest.mark.parametrize("D", [192, 256, 64, 128])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_tf32x3_kv_len_and_rows_without_keys(dev, D, causal):
     """``kv_len`` masks keys at and past it, as attending over the first
@@ -1381,7 +1384,7 @@ def test_flash_tf32x3_kv_len_and_rows_without_keys(dev, D, causal):
         np.testing.assert_allclose(_np(lse), _np(rlse), **F32_LSE_TOL)
 
 
-@pytest.mark.parametrize("D", [192, 256])
+@pytest.mark.parametrize("D", [192, 256, 64, 128])
 def test_flash_tf32x3_reads_fused_qkv_views(dev, D):
     """f32 q/k/v as [B, T, H, D] views of one [B, T, 3·H·D] product: no
     copy, the same bits as contiguous copies."""
@@ -1414,11 +1417,55 @@ def test_flash_tf32x3_refuses_misaligned_inputs(dev):
     k2 = wide[..., :H * D].view(B, T, H, D)           # T stride 514
     with pytest.raises(ValueError, match="tf32x3 variant.*T stride 514"):
         _flash_cuda(k, k, k2)
-    for t in (k.to(torch.bfloat16), k[..., :128].contiguous()):
+    for t in (k.to(torch.bfloat16), k[..., :96].contiguous()):
         with pytest.raises(ValueError, match="tf32x3 variant.*takes float32"):
             _flash_tf32x3_cuda(t, t, t)
     assert common.launch_counts() == {}
 
+
+
+TF32X3_NARROW_FWD_CASES = [
+    # (B, Tq, Tk, H, D, causal, kv_len); 40 pads to 64, 96 to 128
+    (2, 1024, 1024, 8, 64, True, None),
+    (1, 8192, 8192, 16, 64, True, None),     # the f32 long-context leg's
+    (1, 4096, 4096, 16, 128, True, None),
+    (1, 777, 777, 4, 40, True, None),
+    (1, 777, 777, 4, 96, False, None),
+    (1, 1000, 3000, 16, 64, False, None),
+    (1, 1, 1, 2, 64, True, None),
+    (2, 63, 63, 2, 128, True, None),
+    (1, 65, 65, 2, 40, False, None),
+    (1, 300, 70, 2, 96, True, None),         # causal, Tq > Tk
+    (1, 20, 300, 2, 128, True, None),        # causal, Tq < Tk
+    (1, 200, 300, 2, 64, True, 150),         # kv_len < Tk
+    (1, 200, 300, 2, 128, False, 283),
+    (1, 130, 300, 3, 40, False, 77),
+    (1, 300, 200, 3, 96, True, 1),
+]
+
+
+@pytest.mark.parametrize("case", TF32X3_NARROW_FWD_CASES)
+def test_flash_tf32x3_narrow_forward_matches_plain(dev, case):
+    """The tf32x3 forward's narrow plan (f32 at head_dim 33-128, run at 64
+    or 128) through ``_flash_cuda`` against the plain version over the
+    first kv_len keys at the f32 forward gates, o and lse, one launch of it
+    and none of simt, and two calls bit-identical."""
+    B, Tq, Tk, H, D, causal, kv_len = case
+    q, k, v = _qkv(dev, B, Tq, Tk, H, D, torch.float32, seed=D)
+    common.reset_counts()
+    o, lse = _flash_cuda(q, k, v, causal, None, kv_len)
+    assert common.launch_counts() == {
+        "kernels.launch.flash_attention": 1,
+        "kernels.launch.flash_attention.tf32x3": 1}
+    n = Tk if kv_len is None else kv_len
+    ro, rlse = flash_attention_reference(q, k[:, :n], v[:, :n], causal,
+                                         return_lse=True)
+    assert o.dtype == torch.float32 and o.shape == q.shape
+    assert o.is_contiguous()
+    np.testing.assert_allclose(_np(o), _np(ro), **F32_FWD_TOL)
+    np.testing.assert_allclose(_np(lse), _np(rlse), **F32_LSE_TOL)
+    o2, lse2 = _flash_cuda(q, k, v, causal, None, kv_len)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 def _dense64(q, k, v, causal):
     """Dense attention in float64 (the exact reference): o and lse."""
@@ -1747,10 +1794,10 @@ def test_flash_bwd_tf32x3_narrow_refuses_misaligned_inputs(dev):
 def test_flash_tf32x3_narrow_fwd_bwd_against_float64_autograd(dev, D,
                                                               causal):
     """Forward and backward through ``flash_attention_lse`` at f32 head_dim
-    64 and 128 (the simt forward, the tf32x3 dQ and dK/dV, one launch
-    each) against autograd through dense attention in float64: o and lse
-    at the f32 forward gates, each gradient within 1e-4 of its largest
-    entry."""
+    64 and 128 (the tf32x3 forward, dQ and dK/dV of the narrow plans, one
+    launch each) against autograd through dense attention in float64: o
+    and lse at the f32 forward gates, each gradient within 1e-4 of its
+    largest entry."""
     B, T, H = 1, 700, 2
     g = torch.Generator(device=dev).manual_seed(6)
     q, k, v = (torch.randn(B, T, H, D, generator=g, device=dev,
@@ -1762,7 +1809,7 @@ def test_flash_tf32x3_narrow_fwd_bwd_against_float64_autograd(dev, D,
     got = torch.autograd.grad((o, lse), (q, k, v), (do, dlse))
     assert common.launch_counts() == {
         "kernels.launch.flash_attention": 1,
-        "kernels.launch.flash_attention.simt": 1,
+        "kernels.launch.flash_attention.tf32x3": 1,
         "kernels.launch.flash_attention_dq": 1,
         "kernels.launch.flash_attention_dq.tf32x3": 1,
         "kernels.launch.flash_attention_dkv": 1,
@@ -2115,11 +2162,12 @@ def test_flash_cluster_forwards_refuse_misaligned_inputs(dev, variant):
 
 def test_flash_tf32x3_forward_does_not_spill(dev):
     """ptxas: the tf32x3 forward at 192 and 256 columns a CTA, alone and
-    in 2-CTA clusters (tf32x3_xwide), 0 bytes of spills."""
+    in 2-CTA clusters (tf32x3_xwide), and its narrow plan at 64 and 128, 0
+    bytes of spills."""
     src = "flash_attention_tf32x3"
     log = _build.build([src])[src]["log"]
     lines = [ln for ln in log.splitlines() if "spill stores" in ln]
-    assert len(lines) == 4, log
+    assert len(lines) == 6, log
     assert all(" 0 bytes spill stores, 0 bytes spill loads" in ln
                for ln in lines), log
 
@@ -2151,12 +2199,10 @@ def test_flash_padded_head_dims_match_plain(dev, D, dtype, causal):
     elif D > 128:
         variant = "wide"
     else:
-        variant = "wgmma" if dtype == torch.bfloat16 else "simt"
+        variant = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     if dtype == torch.bfloat16 and 512 < D <= 1024:
         variant = "wgmma_xxwide"
     bwd_variant = variant
-    if dtype == torch.float32 and 32 < D <= 128:
-        bwd_variant = "tf32x3"             # the forward stays simt there
     assert common.launch_counts() == {
         "kernels.launch.flash_attention": 1,
         "kernels.launch.flash_attention.%s" % variant: 1}

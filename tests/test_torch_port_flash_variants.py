@@ -23,36 +23,28 @@ BF16 = torch.bfloat16
     (BF16, 64, "wgmma"), (BF16, 128, "wgmma"),
     (BF16, 16, "simt"), (BF16, 32, "simt"),
     (torch.float32, 16, "simt"), (torch.float32, 32, "simt"),
-    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+    (torch.float32, 64, "tf32x3"), (torch.float32, 128, "tf32x3"),
     # head dims the kernels lack select by their padded width
     (BF16, 48, "wgmma"), (BF16, 80, "wgmma"), (BF16, 96, "wgmma"),
-    (BF16, 33, "wgmma"), (BF16, 8, "simt"), (torch.float32, 48, "simt"),
-    (torch.float32, 96, "simt"),
+    (BF16, 33, "wgmma"), (BF16, 8, "simt"), (torch.float32, 48, "tf32x3"),
+    (torch.float32, 96, "tf32x3"),
     # above 128: bf16 up to 1024 and f32 up to 512 on the tensor cores,
     # the rest wide
     (BF16, 129, "wgmma_wide"), (BF16, 256, "wgmma_wide"),
     pytest.param(torch.float32, 160, "tf32x3", id="dtype17-160-tf32x3"),
     (torch.float32, 320, "tf32x3_xwide"), (BF16, 576, "wgmma_xxwide"),
     (torch.float32, 576, "wide"), (BF16, 1025, "wide"),
-    # f32 at head_dim 33-128: the forward on the CUDA cores, the backward
-    # on the tensor cores (F32_NARROW_BWD)
-    (torch.float32, 33, "simt"), (torch.float32, 65, "simt"),
-    (torch.float32, 100, "simt")])
+    # f32 at head_dim 33-128: the narrow plans of tf32x3, both ways
+    (torch.float32, 33, "tf32x3"), (torch.float32, 65, "tf32x3"),
+    (torch.float32, 100, "tf32x3")])
 def test_variant_by_dtype_and_head_dim(dtype, D, variant):
-    """:func:`_variant` names the forward's variant (``variant``) and the
-    backward's, the same but at f32 padded head_dim 64 and 128, where the
-    backward takes ``tf32x3`` (``F32_NARROW_BWD``): f32 at padded head_dim
-    192 and 256 runs on the tensor cores (``tf32x3``) both ways, and at
-    320-512 in 2-CTA clusters (``tf32x3_xwide``) both ways; bf16 at padded
-    head_dim 576-1024 in 2-CTA clusters (``wgmma_xxwide``) both ways."""
+    """:func:`_variant` names the same variant forward and backward: f32
+    at padded head_dim 64-256 runs on the tensor cores (``tf32x3``, at 64
+    and 128 its narrow plans), and at 320-512 in 2-CTA clusters
+    (``tf32x3_xwide``); bf16 at padded head_dim 576-1024 in 2-CTA clusters
+    (``wgmma_xxwide``)."""
     assert fa._variant(dtype, D) == variant
-    bwd = F32_NARROW_BWD.get(D, variant) if dtype == torch.float32 \
-        else variant
-    assert fa._variant(dtype, D, backward=True) == bwd
-
-
-# the f32 backward's variant at head_dim 33-128 (the forward's is simt)
-F32_NARROW_BWD = {D: "tf32x3" for D in (33, 48, 64, 65, 96, 100, 128)}
+    assert fa._variant(dtype, D, backward=True) == variant
 
 
 @pytest.mark.parametrize("D,width", [(33, 64), (48, 64), (64, 64),
@@ -60,12 +52,12 @@ F32_NARROW_BWD = {D: "tf32x3" for D in (33, 48, 64, 65, 96, 100, 128)}
                                      (128, 128)])
 def test_f32_backward_at_33_to_128_takes_tf32x3(D, width):
     """f32 at head_dim 33-128: dQ and dK/dV on the tensor cores
-    (``tf32x3``'s narrow plan) at the padded width 64 or 128, the forward
-    still ``simt`` at the same width; 1-32 stays ``simt`` both ways."""
+    (``tf32x3``'s narrow plan) at the padded width 64 or 128, and the
+    forward too at the same width; 1-32 stays ``simt`` both ways."""
     assert fa._variant(torch.float32, D, backward=True) == "tf32x3"
     assert fa._kernel_width("tf32x3", D, backward=True) == width
-    assert fa._variant(torch.float32, D) == "simt"
-    assert fa._kernel_width("simt", D) == width
+    assert fa._variant(torch.float32, D) == "tf32x3"
+    assert fa._kernel_width("tf32x3", D) == width
     for small in (1, 16, 17, 32):
         assert fa._variant(torch.float32, small, backward=True) == "simt"
         assert fa._variant(BF16, small, backward=True) == "simt"
@@ -178,7 +170,7 @@ def test_past_the_cluster_widths_stays_wide(dtype, D):
 
 @pytest.mark.parametrize("dtype,D,variant", [
     (BF16, 64, "wgmma"), (BF16, 128, "wgmma"), (BF16, 32, "simt"),
-    (torch.float32, 128, "simt"), (BF16, 256, "wgmma_wide"),
+    (torch.float32, 128, "tf32x3"), (BF16, 256, "wgmma_wide"),
     (torch.float32, 192, "tf32x3"), (BF16, 192, "wgmma_wide"),
     (BF16, 320, "wgmma_xwide"), (torch.float32, 160, "tf32x3"),
     (torch.float32, 256, "tf32x3"), (torch.float32, 320, "tf32x3_xwide"),
@@ -270,12 +262,12 @@ def test_flash_bwd_cuda_dispatches_by_variant(monkeypatch, dtype, D,
 @pytest.mark.parametrize("dtype,D,width,variant", [
     (BF16, 48, 64, "wgmma"), (BF16, 80, 128, "wgmma"),
     (BF16, 96, 128, "wgmma"), (BF16, 20, 32, "simt"),
-    (torch.float32, 48, 64, "simt"), (torch.float32, 96, 128, "simt")])
+    (torch.float32, 48, 64, "tf32x3"), (torch.float32, 96, 128, "tf32x3")])
 def test_padded_width_and_real_scale_reach_the_launchers(monkeypatch, dtype,
                                                          D, width, variant):
     """A head_dim the kernels lack runs at its padded width with ``scale``
-    1/√D of the real D (``scale=None``), forward and backward (f32's on
-    tf32x3), and the outputs come back at D."""
+    1/√D of the real D (``scale=None``), forward and backward on the same
+    variant, and the outputs come back at D."""
     fwd = []
 
     def fwd_launcher(name):
@@ -285,8 +277,8 @@ def test_padded_width_and_real_scale_reach_the_launchers(monkeypatch, dtype,
                     torch.zeros(q.shape[0], q.shape[2], q.shape[1]))
         return launch
 
-    monkeypatch.setattr(fa, "_flash_wgmma_cuda", fwd_launcher("wgmma"))
-    monkeypatch.setattr(fa, "_flash_simt_cuda", fwd_launcher("simt"))
+    for name in ("wgmma", "simt", "tf32x3"):
+        monkeypatch.setattr(fa, "_flash_%s_cuda" % name, fwd_launcher(name))
     bwd = []
     _bwd_launchers(monkeypatch, bwd)
     q = torch.ones(1, 5, 2, D, dtype=dtype)
@@ -294,10 +286,9 @@ def test_padded_width_and_real_scale_reach_the_launchers(monkeypatch, dtype,
     assert fwd == [(variant, width, width, width, 1.0 / D ** 0.5)]
     assert o.shape == q.shape and o.is_contiguous() and lse.shape == (1, 2, 5)
     grads = fa._flash_bwd_cuda(q, q, q, o, lse, q)
-    bwd_variant = "tf32x3" if dtype == torch.float32 else variant
     assert [c[:5] for c in bwd] == [
-        ("dq_" + bwd_variant, width, width, True, 1.0 / D ** 0.5),
-        ("dkv_" + bwd_variant, width, width, True, 1.0 / D ** 0.5)]
+        ("dq_" + variant, width, width, True, 1.0 / D ** 0.5),
+        ("dkv_" + variant, width, width, True, 1.0 / D ** 0.5)]
     assert all(g.shape == q.shape and g.is_contiguous() for g in grads)
 
 
@@ -306,14 +297,15 @@ def test_padded_width_and_real_scale_reach_the_launchers(monkeypatch, dtype,
                                      (128, 128)])
 def test_padded_width_and_real_scale_reach_tf32x3_narrow(monkeypatch, D,
                                                         width):
-    """f32 at head_dim 33-128: the simt forward and the tf32x3 dQ and dK/dV
-    launchers get q, k, v (and dO) zero-padded to 64 or 128 (the values
-    unchanged, the new columns 0) with ``scale`` 1/√D of the real D, and
-    ``delta`` from the unpadded o and dO; o and the gradients come back at
-    D, contiguous, as the launchers computed them."""
+    """f32 at head_dim 33-128: the tf32x3 forward, dQ and dK/dV launchers
+    (the narrow plans) get q, k, v (and dO) zero-padded to 64 or 128 (the
+    values unchanged, the new columns 0) with ``scale`` 1/√D of the real
+    D, and ``delta`` from the unpadded o and dO; o and the gradients come
+    back at D, contiguous, as the launchers computed them; no simt launcher
+    runs."""
     fwd, seen = [], {}
 
-    def simt(q, k, v, causal, scale, kv_len):
+    def narrow(q, k, v, causal, scale, kv_len):
         fwd.append((q, k, v, scale))
         return q * 5, torch.zeros(q.shape[0], q.shape[2], q.shape[1])
 
@@ -332,7 +324,9 @@ def test_padded_width_and_real_scale_reach_tf32x3_narrow(monkeypatch, D,
         for name in ("simt", "wgmma", "wide"):
             monkeypatch.setattr(fa, "_flash_%s_%s_cuda" % (kind, name),
                                 refuse)
-    monkeypatch.setattr(fa, "_flash_simt_cuda", simt)
+    for name in ("simt", "wgmma", "wide"):
+        monkeypatch.setattr(fa, "_flash_%s_cuda" % name, refuse)
+    monkeypatch.setattr(fa, "_flash_tf32x3_cuda", narrow)
     monkeypatch.setattr(fa, "_flash_dq_tf32x3_cuda", dq)
     monkeypatch.setattr(fa, "_flash_dkv_tf32x3_cuda", dkv)
     g = torch.Generator().manual_seed(D)
@@ -981,13 +975,16 @@ def test_tf32x3_launchers_refuse_before_any_build(monkeypatch, which, case):
 
 
 @pytest.mark.parametrize("case", [
-    "bf16", "f32_128", "f32_320", "q", "k", "v", "k_stride"])
+    "bf16", "f32_128", "f32_320", "q", "k", "v", "k_stride", "f32_64",
+    "f32_96", "f32_32", "bf16_64", "q_64", "v_128", "k_stride_64",
+    "v_stride_128"])
 def test_tf32x3_forward_launcher_refuses_before_any_build(monkeypatch,
                                                           case):
-    """The tf32x3 forward launcher takes f32 at head_dim 192 or 256 only,
+    """The tf32x3 forward launcher takes f32 at head_dim 64, 128, 192 or 256
+    only (``f32_128`` and ``f32_64`` get past every check to the build),
     read through 16-byte copies (a base 16-byte aligned, strides multiples
     of 4 elements), and raises on anything else before it builds or counts
-    anything; never a hand-off to the wide kernel."""
+    anything; never a hand-off to the simt or the wide kernel."""
     from mxnet_tpu_torch.ops.kernels import _build, common
 
     def no_build(*a, **k):
@@ -995,24 +992,38 @@ def test_tf32x3_forward_launcher_refuses_before_any_build(monkeypatch,
 
     monkeypatch.setattr(_build, "load", no_build)
     common.reset_counts()
-    shape = (1, 8, 2, 256)
+    width = {"q_64": 64, "v_128": 128, "k_stride_64": 64,
+             "v_stride_128": 128}.get(case, 256)
+    shape = (1, 8, 2, width)
     args = [torch.zeros(shape) for _ in range(3)]
-    if case in ("bf16", "f32_128", "f32_320"):
-        dtype, D = {"bf16": (BF16, 256), "f32_128": (torch.float32, 128),
-                    "f32_320": (torch.float32, 320)}[case]
+    widths = {"bf16": (BF16, 256), "f32_128": (torch.float32, 128),
+              "f32_320": (torch.float32, 320), "f32_64": (torch.float32, 64),
+              "f32_96": (torch.float32, 96), "f32_32": (torch.float32, 32),
+              "bf16_64": (BF16, 64)}
+    if case in widths:
+        dtype, D = widths[case]
         args = [torch.zeros(1, 8, 2, D, dtype=dtype)] * 3
         match = ("tf32x3 variant.*takes float32 with head_dim in "
-                 "\\(192, 256\\); got %s, head_dim %d" % (dtype, D))
-    elif case == "k_stride":
-        wide = torch.zeros(1, 8, 2 * 256 + 2)     # T stride 514: 2 mod 4
-        args[1] = wide[..., :2 * 256].view(shape)
-        match = "tf32x3 variant.*k's T stride 514 is not a multiple of 4"
+                 "\\(64, 128, 192, 256\\); got %s, head_dim %d"
+                 % (dtype, D))
+    elif "_stride" in case:
+        # T stride 2 * width + 2: 2 mod 4
+        name = case[0]
+        wide = torch.zeros(1, 8, 2 * width + 2)
+        args[("q", "k", "v").index(name)] = wide[..., :2 * width].view(shape)
+        match = ("tf32x3 variant.*%s's T stride %d is not a multiple of 4"
+                 % (name, 2 * width + 2))
     else:
-        i = ("q", "k", "v").index(case)
+        name = case.split("_")[0]
+        i = ("q", "k", "v").index(name)
         args[i] = _misaligned(shape, torch.float32)
-        match = "tf32x3 variant.*%s's base address is not 16-byte" % case
-    with pytest.raises(ValueError, match=match):
-        fa._flash_tf32x3_cuda(*args)
+        match = "tf32x3 variant.*%s's base address is not 16-byte" % name
+    if case in ("f32_128", "f32_64"):
+        with pytest.raises(AssertionError, match="built a kernel"):
+            fa._flash_tf32x3_cuda(*args)
+    else:
+        with pytest.raises(ValueError, match=match):
+            fa._flash_tf32x3_cuda(*args)
     assert common.launch_counts() == {}
 
 

@@ -1,8 +1,7 @@
 """The arithmetic of the tf32x3 flash kernels, emulated on the CPU.
 
-The f32 flash forward and backward at padded head_dim 192 and 256, and
-at 384 and 512 (tf32x3_xwide), and the f32 backward at 64 and 128, run on
-the tensor cores as
+The f32 flash forward and backward at padded head_dim 64, 128, 192 and
+256, and at 384 and 512 (tf32x3_xwide), run on the tensor cores as
 split-TF32 products (``csrc/flash_attention_tf32x3.cu``,
 ``csrc/flash_attention_bwd_tf32x3.cu``): each
 f32 operand x becomes ``hi`` (x with its 13 low significand bits cleared,
@@ -29,7 +28,9 @@ over query tiles of 32, each tile's products summed from zero and added in
 f32.  The tf32x3 backward at head_dim 64 and 128 (its narrow plan) sums
 the scores over all of D in one product, dQ over key tiles and dK, dV over
 query tiles of 64 rows at 64 and 32 at 128, each tile's products from zero
-and added in f32.  One
+and added in f32; its forward there sums the scores over all of D in one
+product, over key tiles of 64, each tile's p·v from
+zero and added as ``acc·alpha + pv``.  One
 TF32 product alone (``tf32(a)·tf32(b)``) lands far further from float64
 and misses those tolerances: the split is what keeps the results
 f32-accurate.  The helpers are a test of the design, not a plain version:
@@ -330,7 +331,8 @@ def _mm1_presplit(a_split, b):
     return a_split[2] @ _tf32(b)
 
 
-def _fwd(q, k, v, causal, kv_len, three=True, cluster=False):
+def _fwd(q, k, v, causal, kv_len, three=True, cluster=False, narrow=False,
+         scale=None):
     """The tf32x3 forward's arithmetic ([B, T, H, D] in, ``(o, lse)`` out):
     q split once; per key tile of 64 the scores of each half of D (split
     products from zero) added in f32, masked with -1e30 where k_pos >=
@@ -338,12 +340,17 @@ def _fwd(q, k, v, causal, kv_len, three=True, cluster=False):
     ``acc = acc·alpha + p·v`` with p·v summed from zero.  ``three=False``:
     every product one TF32 product instead.  ``cluster``: the
     tf32x3_xwide forward's scores, over the quarters of D, ``(q0 + q1) +
-    (q2 + q3)`` (each CTA's two warp halves, then the pair)."""
+    (q2 + q3)`` (each CTA's two warp halves, then the pair).  ``narrow``:
+    the narrow plan's at D 64 and 128, the scores as one product over all
+    of D and key tiles of ``NARROW_FWD_TILE[D]``.  ``scale``: 1/√D of the
+    width given unless set (a zero-padded head_dim keeps its own)."""
     mm = _mm3_presplit if three else _mm1_presplit
     D, Tq, Tk = q.shape[-1], q.shape[1], k.shape[1]
-    scale = 1.0 / D ** 0.5
+    if scale is None:
+        scale = 1.0 / D ** 0.5
+    tile = NARROW_FWD_TILE[D] if narrow else TILE
     qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
-    parts = 4 if cluster else 2
+    parts = 1 if narrow else 4 if cluster else 2
     cols = [slice(i * D // parts, (i + 1) * D // parts)
             for i in range(parts)]
     halves = []
@@ -355,12 +362,16 @@ def _fwd(q, k, v, causal, kv_len, three=True, cluster=False):
     l = torch.zeros(B, H, Tq, 1)
     acc = torch.zeros(B, H, Tq, D)
     q_pos = torch.arange(Tq)[:, None]
-    for k0 in range(0, kv_len, TILE):
-        kt, vt = kh[:, :, k0:k0 + TILE], vh[:, :, k0:k0 + TILE]
+    for k0 in range(0, kv_len, tile):
+        kt, vt = kh[:, :, k0:k0 + tile], vh[:, :, k0:k0 + tile]
         part = [mm(halves[i], kt[..., c].transpose(-1, -2))
                 for i, c in enumerate(cols)]
-        s = (part[0] + part[1]) + (part[2] + part[3]) if cluster else \
-            part[0] + part[1]
+        if narrow:
+            s = part[0]
+        elif cluster:
+            s = (part[0] + part[1]) + (part[2] + part[3])
+        else:
+            s = part[0] + part[1]
         k_pos = k0 + torch.arange(kt.shape[2])[None, :]
         ok = k_pos < kv_len
         if causal:
@@ -456,6 +467,52 @@ def test_tf32x3_xwide_forward_matches_float64_and_pallas(causal, Tq, Tk,
     tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
     o, lse = _fwd(tq, tk, tv, causal, kv_len, cluster=True)
     o1, lse1 = _fwd(tq, tk, tv, causal, kv_len, three=False, cluster=True)
+    o64, lse64 = _fwd64(tq, tk, tv, causal, kv_len)
+    po, plse = _pallas(q, k, v, causal, kv_len)
+    assert o.dtype == lse.dtype == torch.float32
+    assert o.shape == (B, Tq, H, D) and lse.shape == (B, H, Tq)
+    for want_o, want_lse in ((o64.numpy(), lse64.numpy()), (po, plse)):
+        np.testing.assert_allclose(o.numpy(), want_o, **F32_FWD_TOL)
+        np.testing.assert_allclose(lse.numpy(), want_lse, **F32_LSE_TOL)
+    assert not np.allclose(o1.numpy(), o64.numpy(), **F32_FWD_TOL)
+    err3 = float((o.double() - o64).abs().max())
+    err1 = float((o1.double() - o64).abs().max())
+    assert err1 > 10 * err3, (err1, err3)
+
+
+# keys a tile of the narrow plan's forward (NarrowFwd<D> in
+# csrc/flash_attention_tf32x3.cu)
+NARROW_FWD_TILE = {64: 64, 128: 64}
+
+
+@pytest.mark.parametrize("causal,Tq,Tk,kv_len", [
+    (True, 70, 70, 70),             # two key tiles, the second ragged
+    (False, 40, 100, 100),          # Tq != Tk
+    (True, 90, 70, 50),             # kv_len < Tk, Tq > Tk
+])
+@pytest.mark.parametrize("D", [64, 128, 40, 96])
+def test_tf32x3_narrow_forward_matches_float64_and_pallas(D, causal, Tq, Tk,
+                                                          kv_len):
+    """o and lse through the narrow forward's split-TF32 arithmetic at
+    head_dim 64 and 128, and at 40 and 96 zero-padded to them with the
+    real head_dim's scale, in the kernel's summation order (the scores one
+    product over all of D, each key tile's p·v from zero, then ``acc·alpha
+    + pv``), against float64 and against the Pallas forward within the f32
+    forward gates; one TF32 product a product misses the gate on o and
+    stays over ten times further from float64."""
+    B, H = 1, 1
+    width = 64 if D <= 64 else 128
+    rng = np.random.default_rng(13)
+    q, k, v = (rng.normal(size=(B, T, H, D)).astype(np.float32)
+               for T in (Tq, Tk, Tk))
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    padded = [torch.nn.functional.pad(t, (0, width - D))
+              for t in (tq, tk, tv)]
+    o, lse = _fwd(*padded, causal, kv_len, narrow=True, scale=D ** -0.5)
+    o1, lse1 = _fwd(*padded, causal, kv_len, three=False, narrow=True,
+                    scale=D ** -0.5)
+    assert not o[..., D:].any()
+    o, o1 = o[..., :D], o1[..., :D]
     o64, lse64 = _fwd64(tq, tk, tv, causal, kv_len)
     po, plse = _pallas(q, k, v, causal, kv_len)
     assert o.dtype == lse.dtype == torch.float32

@@ -42,8 +42,15 @@ the ptxas registers and spills of each, and the two timed in turns at
 [2, 8192, 2, 512].  The copies are
 built in a temporary directory; the port's own build is untouched.
 
-With ``--narrow`` it measures instead the backward's narrow plan (dQ and
-dK/dV at head_dim 64 and 128, ``NarrowDq`` / ``NarrowDkv``): five sets of
+With ``--narrow`` it measures instead the narrow plans at head_dim 64 and
+128: first the forward's (``NarrowFwd``: warps a CTA, keys a tile,
+n-blocks a chunk of P.V, q split once into registers or as it loads;
+``NARROW_FWD_PLANS``, five sets, the first as built), each one's ptxas
+registers and spills and every set timed in turns at the shapes below
+with its errors against the plain version at [2, 1024, 8, D], then each
+phase's share of the built forward at [1, 8192, 16, 64] and [1, 4096,
+16, 128] (``NARROW_FWD_PHASES``); then the backward's (dQ and dK/dV,
+``NarrowDq`` / ``NarrowDkv``): five sets of
 plan candidates (warps a CTA, 16-row blocks a warp, streamed rows a tile,
 n-blocks a chunk of the output products; ``NARROW_PLANS``, the first as
 built), each one's ptxas registers and spills, dQ and dK/dV of every set
@@ -205,28 +212,29 @@ DKV_PHASES = [
 ]
 
 
-def _tick(base, i):
-    return ("    if (threadIdx.x == 0) { const unsigned long long _c = "
+def _tick(base, i, who="threadIdx.x == 0"):
+    return ("    if (%s) { const unsigned long long _c = "
             "clock64(); if (_t) atomicAdd(&g_prof[%d], _c - _t); _t = _c; }"
-            "\n" % (base + i))
+            "\n" % (who, base + i))
 
 
 def _instrument(src, kernel, end_marker, phases, base,
-                loop_marker="\n  for (int "):
+                loop_marker="\n  for (int ", who="threadIdx.x == 0"):
     """``src`` with ticks at ``phases`` inside ``kernel``'s tile loop (the
     first line at ``loop_marker``), summing into ``g_prof[base + i]``, and
-    ``g_prof[base + 15]`` counting tiles."""
+    ``g_prof[base + 15]`` counting tiles; ``who``: the thread that ticks."""
     k0 = src.index(kernel + "(")
     k1 = src.index(end_marker, k0)
     body = src[k0:k1]
     first, label = phases[0]
     at = body.index(first)
-    body = (body[:at] + _tick(base, 0) + "    if (threadIdx.x == 0) "
-            "atomicAdd(&g_prof[%d], 1ull);\n" % (base + 15) + body[at:])
+    body = (body[:at] + _tick(base, 0, who) + "    if (%s) "
+            "atomicAdd(&g_prof[%d], 1ull);\n" % (who, base + 15)
+            + body[at:])
     pos = 0
     for i, (line, _) in enumerate(phases[1:], 1):
         at = body.index(line, pos) + len(line)
-        body = body[:at] + _tick(base, i) + body[at:]
+        body = body[:at] + _tick(base, i, who) + body[at:]
         pos = at
     loop = body.index(loop_marker) + 1
     body = body[:loop] + "  unsigned long long _t = 0;\n" + body[loop:]
@@ -625,20 +633,13 @@ def _narrow_plan(src, plan):
     return src
 
 
-def _narrow_choice(torch, fa, build, tmp, candidates):
-    """The narrow kernels built from each of ``candidates`` (``(record,
+def _candidate_libraries(fa, build, tmp, name, candidates, configure):
+    """The source ``name`` as each of ``candidates`` edits it (``(record,
     edit)``: ``edit(src)`` gives the candidate's source, the first the
-    built one's), all built into ``tmp`` at once: each one's ``record``
-    with the ptxas line of each narrow kernel, then dQ and dK/dV of every
-    candidate in turns at ``NARROW_SHAPES`` causal f32 (each candidate once
-    in order and once in reverse; chip_smoke.py's ``_time_ms``: a CUDA
-    graph over input copies past the L2 cache), with each one's largest
-    error against the plain backward at [2, 1024, 8, D] with an lse
-    cotangent."""
+    built one's), all built into ``tmp`` at once and loaded: each one's
+    ``record`` printed with the ptxas line of each narrow kernel."""
     import chip_smoke
 
-    name = "flash_attention_bwd_tf32x3"
-    configure = functools.partial(fa._configure_bwd_source, name)
     csrc = os.path.join(os.path.dirname(fa.__file__), "csrc")
     src = open(os.path.join(csrc, name + ".cu")).read()
     procs = []
@@ -660,6 +661,21 @@ def _narrow_choice(torch, fa, build, tmp, candidates):
         print(json.dumps(dict(record, ptxas=[
             line for kernel, line in chip_smoke._ptxas_summary(log)
             if "narrow" in kernel])), flush=True)
+    return libs
+
+
+def _narrow_choice(torch, fa, build, tmp, candidates):
+    """The narrow backward kernels built from each of ``candidates``
+    (:func:`_candidate_libraries`), then dQ and dK/dV of every candidate in
+    turns at ``NARROW_SHAPES`` causal f32 (each candidate once in order and
+    once in reverse; chip_smoke.py's ``_time_ms``: a CUDA graph over input
+    copies past the L2 cache), with each one's largest error against the
+    plain backward at [2, 1024, 8, D] with an lse cotangent."""
+    import chip_smoke
+
+    name = "flash_attention_bwd_tf32x3"
+    configure = functools.partial(fa._configure_bwd_source, name)
+    libs = _candidate_libraries(fa, build, tmp, name, candidates, configure)
     gen = torch.Generator(device="cuda").manual_seed(4)
     for B, T, H, D in NARROW_SHAPES:
         q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device="cuda")
@@ -696,6 +712,133 @@ def _narrow_choice(torch, fa, build, tmp, candidates):
             rec["max_abs_err_dq_dk_dv"] = errs
         print(json.dumps(rec), flush=True)
     build._LIBS[name] = libs[0]
+
+
+# the narrow forward's candidates (csrc/flash_attention_tf32x3.cu,
+# ``NarrowFwd<D>`` at 64 and 128: warps a CTA, keys a tile, n-blocks a
+# chunk of P.V, q's fragments split once into registers), one library a
+# set of two, the first as built
+NARROW_FWD_LINE = "struct NarrowFwd<%d> : FwdPlan<%d, %d, %d, %d> {};"
+NARROW_FWD_PLANS = [
+    {64: (4, 64, 8, 1), 128: (8, 64, 8, 0)},
+    {64: (8, 64, 8, 1), 128: (4, 32, 8, 0)},
+    {64: (4, 32, 8, 1), 128: (8, 32, 8, 0)},
+    {64: (8, 32, 8, 1), 128: (4, 64, 16, 0)},
+    {64: (4, 64, 8, 0), 128: (8, 32, 16, 0)},
+]
+# the narrow forward's phases, as FWD_PHASES
+NARROW_FWD_PHASES = [
+    ("    if (k0 + BS < k_end) {            // the next tile into the other "
+     "stage\n", "barrier: the stage is no longer read (the tile before)"),
+    ("    __syncthreads();                  // this tile is in, every "
+     "thread's part\n", "next tile's copy issue, wait for this tile "
+     "(barrier)"),
+    ("      score_rows<D, BS, P::QR>(Qw, Ks, g, t, qh, ql, f);\n",
+     "S = Q.K^T (the first tile: q's fragments too)"),
+    ("        l_run[j] = l_run[j] * alpha[j] + rs[j];\n      }\n",
+     "mask, running max, p, running sum"),
+    ("      pv_rows<D, BS, P::NC>(f, Vs, alpha[0], alpha[1], g, t, acc);\n",
+     "acc = acc * alpha + P.V"),
+]
+
+
+def _narrow_fwd_plan(src, plan):
+    for D in (64, 128):
+        built = NARROW_FWD_LINE % ((D,) + NARROW_FWD_PLANS[0][D])
+        if src.count(built) != 1:
+            raise SystemExit("tf32x3_probe: the forward's source no longer "
+                             "holds %r once" % built)
+        src = src.replace(built, NARROW_FWD_LINE % ((D,) + plan[D]))
+    return src
+
+
+def _narrow_fwd_choice(torch, fa, build, tmp):
+    """The narrow forward built from each of ``NARROW_FWD_PLANS``
+    (:func:`_candidate_libraries`), then every candidate in turns at
+    ``NARROW_SHAPES`` causal f32 (once in order and once in reverse;
+    chip_smoke.py's ``_time_ms``), with each one's largest o and lse errors
+    against the plain version at [2, 1024, 8, D]."""
+    import chip_smoke
+
+    name = "flash_attention_tf32x3"
+    configure = functools.partial(fa._configure_fwd_source, name)
+    libs = _candidate_libraries(fa, build, tmp, name, [
+        ({"narrow forward plan": {"%d" % D: dict(zip(
+            ("warps", "keys_a_tile", "n_blocks_a_chunk", "q_in_registers"),
+            plan[D])) for D in plan}}, functools.partial(_narrow_fwd_plan,
+                                                         plan=plan))
+        for plan in NARROW_FWD_PLANS], configure)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for B, T, H, D in NARROW_SHAPES:
+        q, k, v = (torch.randn(B, T, H, D, generator=gen, device="cuda")
+                   for _ in range(3))
+        args = chip_smoke._copies((q, k, v))
+        rec = {"forward": [B, T, H, D], "causal": True, "dtype": "float32"}
+        order = list(range(len(libs))) + list(range(len(libs)))[::-1]
+        turns = [[] for _ in libs]
+        for i in order:
+            build._LIBS[name] = libs[i]
+            turns[i].append(chip_smoke._time_ms(
+                lambda q, k, v: fa._flash_tf32x3_cuda(q, k, v, True), args))
+        rec["ms_turns"] = turns
+        if T <= 1024:
+            ro, rlse = fa.flash_attention_reference(q, k, v, True,
+                                                    return_lse=True)
+            errs = []
+            for lib in libs:
+                build._LIBS[name] = lib
+                o, lse = fa._flash_tf32x3_cuda(q, k, v, True)
+                errs.append([float((o - ro).abs().max()),
+                             float((lse - rlse).abs().max())])
+            rec["max_abs_err_o_lse"] = errs
+        print(json.dumps(rec), flush=True)
+    build._LIBS[name] = libs[0]
+
+
+def _narrow_fwd_phases(torch, fa, build, tmp):
+    """Each phase's share of the narrow forward as built (the last warp's
+    clock64 at each phase boundary of every key tile, summed over the CTAs:
+    under the causal mask it walks the most tiles), causal f32 at the f32
+    long-context leg's [1, 8192, 16, 64] and at [1, 4096, 16, 128], beside
+    the instrumented launch's time."""
+    name = "flash_attention_tf32x3"
+    lib = _profiled_library(
+        fa, build, tmp, name, lambda src: _instrument(
+            src, "flash_fwd_tf32x3_narrow_kernel",
+            "template <int D>\nint launch_narrow(", NARROW_FWD_PHASES, 0,
+            loop_marker="\n  int s = 0;\n",
+            who="threadIdx.x == blockDim.x - 32"),
+        functools.partial(fa._configure_fwd_source, name))
+    built = build._LIBS.get(name)
+    build._LIBS[name] = lib
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    buf = (ctypes.c_ulonglong * 32)()
+    for B, T, H, D in ((1, 8192, 16, 64), (1, 4096, 16, 128)):
+        q, k, v = (torch.randn(B, T, H, D, generator=gen, device="cuda")
+                   for _ in range(3))
+        fa._flash_tf32x3_cuda(q, k, v, True)
+        torch.cuda.synchronize()
+        lib.prof_io(ctypes.cast((ctypes.c_ulonglong * 32)(),
+                                ctypes.c_void_p), 1)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fa._flash_tf32x3_cuda(q, k, v, True)
+        b.record()
+        b.synchronize()
+        lib.prof_io(ctypes.cast(buf, ctypes.c_void_p), 0)
+        cycles = [buf[i] for i in range(len(NARROW_FWD_PHASES))]
+        tiles = buf[15]
+        print(json.dumps({
+            "kernel": "fwd narrow", "shape": [B, T, H, D], "causal": True,
+            "dtype": "float32", "ms_instrumented": a.elapsed_time(b),
+            "tiles": tiles,
+            "phases": [{"phase": label, "share": c / sum(cycles),
+                        "cycles_a_tile": c / tiles}
+                       for (_, label), c in zip(NARROW_FWD_PHASES, cycles)]}),
+            flush=True)
+    if built is not None:
+        build._LIBS[name] = built
 
 
 def _plan_record(plan):
@@ -760,6 +903,8 @@ def main():
         raise SystemExit("tf32x3_probe: no CUDA device is available")
     with tempfile.TemporaryDirectory(prefix="tf32x3_probe_") as tmp:
         if "--narrow" in sys.argv[1:]:
+            _narrow_fwd_choice(torch, fa, _build, tmp)
+            _narrow_fwd_phases(torch, fa, _build, tmp)
             _narrow_choice(torch, fa, _build, tmp, [
                 (_plan_record(plan), functools.partial(_narrow_plan,
                                                        plan=plan))
