@@ -41,6 +41,12 @@ on the card:
   (``save_checkpoint``) and served through ``gluon.SymbolBlock.imports``,
   with the int8 matmul kernel in its three fully connected layers, against
   the bf16 Gluon net, each a CUDA graph of chained forwards;
+* detection — MXNet example/ssd's SSD-300 on VGG16-reduced (8732
+  anchors, 20 classes, f32, batch 8) trained five steps through
+  ``autograd`` and ``gluon.Trainer`` (``MultiBoxTarget``, softmax
+  cross-entropy plus smooth L1) and decoded (``MultiBoxDetection``), whose
+  per-class NMS is the hand-written greedy-NMS kernel; Faster R-CNN's
+  ``Proposal`` and ``ROIPooling`` at a 600x800 image's conv5 size;
 * the vision model zoo — one fp32 forward of each family ported (VGG,
   AlexNet, SqueezeNet, MobileNet V1 and V2, DenseNet, Inception V3) at its
   published input size, held to the same weights in float64 on the CPU,
@@ -74,7 +80,8 @@ Run from the root of the repository, with no arguments::
 
     python3 chip_smoke.py
 
-``--profile`` adds a last phase that traces one long prefill, a few decode
+``--profile`` adds, after the detection phase, a traced SSD-300 training
+step and decode, and a last phase that traces one long prefill, a few decode
 iterations, one training step of each training configuration, one fp32
 and one int8 ResNet-50 forward, one int8 and one bf16 VGG16 forward (the
 pair's nets at batch 128), one ResNet-50 Module training step, one
@@ -332,6 +339,19 @@ Phases, in order; any failure raises and exits non-zero:
    the logits within ``ZOO_REL`` of the same net's in float64 on the CPU,
    the export served through ``predict.Predictor`` on the card within
    ``ZOO_EXPORT_REL`` of the Gluon logits, and each forward's ms;
+12d. detection — SSD-300 (see SSD_*): five steps on one seeded batch of
+   8 synthetic scenes (the loss must fall), ms a step, img/s, peak
+   memory, then the decode (nms 0.45, nms_topk 400) five times, its ms and
+   the greedy-NMS kernel's launches (one a decode; no plain version);
+   MultiBoxTarget and MultiBoxDetection on the last step's tensors, card
+   against CPU (positives, their classes, negative counts and decoded ids
+   exact, at most ``SSD_MINING_SWAPS`` mining swaps an image, loc targets
+   and boxes within ``SSD_CARD_CPU_TOL``); the NMS kernel against its
+   plain version bit for bit on the decode's sorted boxes at nms_topk 400
+   and -1, each timed beside the plain version, with the bound from the
+   bytes and the IoU evaluations those boxes need; Proposal (see RPN_*:
+   ``RPN_MATCH`` of its ROIs among the CPU's) and ROIPooling 7x7 over its
+   300 ROIs (bit for bit), card against CPU;
 13. gluon_cifar — resnet18_v1 thumbnail, f32, hybridized, 20 steps of
    record -> backward -> ``Trainer.step`` on one seeded batch of 128: the
    loss must fall below ``CIFAR_FALL`` times the first;
@@ -397,7 +417,8 @@ Phases, in order; any failure raises and exits non-zero:
 Each main path (serve, each serving-plane path, each training
 configuration, the mesh_nccl step, each rank's multirank leg, the timed int8
 forwards, the ``quantized_dense`` call, the int8 VGG16's counted forward
-and the pair's draws, ``Module.fit``, the example's
+and the pair's draws, the SSD-300 steps and decodes, ``Module.fit``, the
+example's
 training through ``rtc_softmax`` and the ResNet-50 step through it, the
 kernels leg, and each generation worker's served streams) runs
 with the counters zeroed
@@ -714,6 +735,52 @@ ZOO_BATCH = 8
 ZOO_TIMED = 3
 ZOO_REL = 1e-4
 ZOO_EXPORT_REL = 1e-6
+# the detection phase: MXNet example/ssd's SSD-300 on VGG16-reduced
+# (models/ssd.py: symbol_factory.get_config('vgg16_reduced', 300); 8732
+# anchors, 20 classes + background) at its published widths, f32, seeded
+# Xavier weights (no pretrained file), batch 8 of seeded synthetic 300x300
+# scenes with up to 6 boxes; 5 steps of record -> multibox_loss
+# (MultiBoxTarget at overlap 0.5, mining ratio 3 and threshold 0.5) ->
+# backward -> Trainer.step on that one batch, then the decode
+# (MultiBoxDetection at nms 0.45, nms_topk 400)
+SSD_BATCH = 8
+SSD_SIZE = 300
+SSD_CLASSES = 20
+SSD_MAX_OBJ = 6
+SSD_STEPS = 5
+SSD_SGD = {"learning_rate": 1e-3, "momentum": 0.9, "wd": 5e-4}
+SSD_NMS = dict(nms_threshold=0.45, nms_topk=400)
+SSD_DECODE_REPS = 5
+# card against CPU on the same tensors: loc targets and decoded boxes
+# within 1e-5 (exp / log within 2 ulp on either device); the positives,
+# their classes, each image's negative count and the decoded ids exact.
+# The hard-negative ranking sorts background probabilities made through
+# exp, so two candidates a few ulp apart at an image's mining cut may
+# trade places between the devices: at most SSD_MINING_SWAPS such swaps an
+# image (each moves one anchor from negative to ignored and one back)
+SSD_CARD_CPU_TOL = 1e-5
+SSD_MINING_SWAPS = 2
+# Faster R-CNN's RPN on a VGG16 conv5 map of a 600x800 image: Proposal on
+# [1, 2A, 38, 50] / [1, 4A, 38, 50] (A = 3 scales x 3 ratios), pre-NMS
+# 6000, post-NMS 300, threshold 0.7; then ROIPooling 7x7 at 1/16 over the
+# 300 ROIs on a [1, 512, 38, 50] map.  Proposal's ROIs card vs CPU: the
+# boxes come through exp, which the devices round within 2 ulp of each
+# other, so an IoU within an ulp of 0.7 may fall on either side and move
+# the survivors after it; at least RPN_MATCH of the card's ROIs must be
+# among the CPU's within RPN_ATOL pixels.  ROIPooling on the card's ROIs,
+# card vs CPU: its maxima bit for bit
+RPN_SHAPE = (1, 9, 38, 50)
+RPN_KW = dict(rpn_pre_nms_top_n=6000, rpn_post_nms_top_n=300, threshold=0.7,
+              rpn_min_size=16, scales=(8, 16, 32), ratios=(0.5, 1, 2),
+              feature_stride=16)
+RPN_ATOL = 1e-3
+RPN_MATCH = 0.98
+ROI_MAP = (1, 512, 38, 50)
+ROI_POOLED = (7, 7)
+# operations a greedy-NMS IoU evaluation takes (min / max / sub / mul /
+# add / div / the comparisons of _pair_iou and the threshold), for the
+# kernel's bound
+NMS_IOU_OPS = 20
 
 
 # the module_train phase: train_imagenet.py's defaults (resnet-50,
@@ -3778,6 +3845,272 @@ def phase_zoo(dev):
     return recs
 
 
+def _ssd_scenes(n, seed=0):
+    """``n`` seeded synthetic 300x300 scenes: noise plus up to
+    ``SSD_MAX_OBJ`` rectangles, each tinted by its class.  Labels
+    [n, SSD_MAX_OBJ, 5] rows (class, x1, y1, x2, y2) in [0, 1], -1
+    padded."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    S = SSD_SIZE
+    palette = rng.uniform(-1, 1, (SSD_CLASSES, 3)).astype(np.float32)
+    imgs = rng.normal(0, 0.1, (n, 3, S, S)).astype(np.float32)
+    labels = np.full((n, SSD_MAX_OBJ, 5), -1.0, np.float32)
+    for i in range(n):
+        for j in range(rng.randint(1, SSD_MAX_OBJ + 1)):
+            cls = rng.randint(0, SSD_CLASSES)
+            w, h = rng.randint(30, 160, 2)
+            x0, y0 = rng.randint(0, S - w), rng.randint(0, S - h)
+            imgs[i, :, y0:y0 + h, x0:x0 + w] += palette[cls][:, None, None]
+            labels[i, j] = (cls, x0 / S, y0 / S, (x0 + w) / S, (y0 + h) / S)
+    return imgs, labels
+
+
+@contextlib.contextmanager
+def _nms_calls(record):
+    """Record the arguments of every ``greedy_nms`` call the detection ops
+    make (for the kernel-vs-plain check on the decode's own boxes)."""
+    from mxnet_tpu_torch.ops import detection
+
+    real = detection.greedy_nms
+
+    def recorder(*args, **kw):
+        record.append((args, kw))
+        return real(*args, **kw)
+
+    detection.greedy_nms = recorder
+    try:
+        yield
+    finally:
+        detection.greedy_nms = real
+
+
+def _nms_pairs(keep, valid, ids):
+    """The IoU evaluations greedy NMS needs on these inputs: for each kept
+    box, the later valid boxes (of its class, with ``ids``)."""
+    import torch
+
+    keep, valid = keep.cpu(), valid.cpu()
+    total = 0
+    for b in range(valid.shape[0]):
+        groups = [valid[b]] if ids is None else [
+            valid[b] & (ids[b].cpu() == c)
+            for c in torch.unique(ids[b].cpu()[valid[b]])]
+        for m in groups:
+            later = m.long().flip(0).cumsum(0).flip(0) - m.long()
+            total += int(later[keep[b] & m].sum())
+    return total
+
+
+def _nms_case(args, kw, topk):
+    """The NMS kernel against its plain version on one decode's sorted
+    boxes: bit for bit, each timed; the bound from the bytes and the IoU
+    evaluations these boxes need."""
+    import torch
+    from mxnet_tpu_torch.ops.kernels.nms import (_greedy_nms_cuda,
+                                                 greedy_nms_reference)
+
+    boxes, valid, ids, thresh = args[:4]
+    call = (boxes, valid, ids, thresh, kw["iou"], kw["cmp"])
+    got = _greedy_nms_cuda(*call)
+    want = greedy_nms_reference(*call)
+    torch.cuda.synchronize()
+    B, N = valid.shape
+    tensors = [boxes, valid] + ([ids] if ids is not None else [])
+    ms = _time_ms(_greedy_nms_cuda, [
+        (c[0], c[1], c[2] if ids is not None else None) + call[3:]
+        for c in _copies(tensors)])
+    plain_ms = _time_eager_ms(lambda: greedy_nms_reference(*call), reps=2)
+    pairs = _nms_pairs(got, valid, ids)
+    nbytes = B * N * (16 + 1 + 4 + 1)           # boxes, valid, ids; keep
+    bound, by = _bound(NMS_IOU_OPS * pairs, nbytes, "float32")
+    return {"name": "greedy_nms", "nms_topk": topk, "shape": [B, N],
+            "valid": int(valid.sum()), "kept": int(got.sum()),
+            "iou_evaluations": pairs, "bitwise": bool(torch.equal(got,
+                                                                  want)),
+            "max_abs_err": float((got.int() - want.int()).abs().max()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None}
+
+
+def phase_detection(dev):
+    """SSD-300 (see SSD_*) trained five steps and decoded on the card, with
+    the NMS kernel's main-path count; MultiBoxTarget and MultiBoxDetection
+    card against CPU on the step's own tensors; the NMS kernel against its
+    plain version at nms_topk 400 and -1; Proposal and ROIPooling at
+    Faster R-CNN's size (see RPN_*, ROI_*) card against CPU."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import ssd
+    from mxnet_tpu_torch.ops import registry
+    from mxnet_tpu_torch.ops.kernels import common
+
+    card, host = mx.gpu(0), mx.cpu()
+    mx.random.seed(0)
+    np.random.seed(0)                   # the initializers draw from numpy
+    net = ssd.ssd_300_vgg16_reduced(classes=SSD_CLASSES)
+    net.initialize(mx.init.Xavier(), ctx=card)
+    imgs, labels = _ssd_scenes(SSD_BATCH)
+    x = mx.nd.array(imgs, ctx=card)
+    y = mx.nd.array(labels, ctx=card)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(SSD_SGD))
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, calls = [], [], []
+    common.reset_counts()
+    for _ in range(SSD_STEPS):
+        t0 = time.perf_counter()
+        with mx.autograd.record():
+            anchors, cls_preds, box_preds = net(x)
+            loss = ssd.multibox_loss(anchors, cls_preds, box_preds, y)
+        loss.backward()
+        trainer.step(SSD_BATCH)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.asnumpy()))
+    decode_ms = []
+    with mx.autograd.pause(), _nms_calls(calls):
+        for _ in range(SSD_DECODE_REPS):
+            t0 = time.perf_counter()
+            dets = ssd.detect(anchors, cls_preds, box_preds, **SSD_NMS)
+            torch.cuda.synchronize()
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = common.launch_counts()
+    selects = common.selection_counts()
+    peak = torch.cuda.max_memory_allocated()
+    det = dets.asnumpy()
+    med = statistics.median(step_ms[1:])
+    rec = {"phase": "detection", "device": dev["name"],
+           "nvidia_smi": dev["smi"], "net": "ssd_300_vgg16_reduced",
+           "anchors": int(anchors.shape[1]), "classes": SSD_CLASSES,
+           "batch": SSD_BATCH, "losses": losses, "step_ms": step_ms,
+           "median_step_ms": med, "img_per_s": SSD_BATCH * 1e3 / med,
+           "decode_ms": decode_ms,
+           "median_decode_ms": statistics.median(decode_ms[1:]),
+           "detections": int((det[..., 0] >= 0).sum()),
+           "peak_mem_gb": peak / 1e9, "launches": launches,
+           "selects": selects,
+           "torchvision_installed":
+               importlib.util.find_spec("torchvision") is not None}
+    _check(anchors.shape == (1, 8732, 4) and det.shape == (SSD_BATCH, 8732, 6)
+           and np.isfinite(det).all(), "detection: anchors %s, detections "
+           "%s" % (tuple(anchors.shape), det.shape))
+    _check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+           "detection: the SSD-300 loss did not fall: %s" % losses)
+    _check(launches.get("kernels.launch.greedy_nms", 0) == SSD_DECODE_REPS
+           and not any(k.endswith(".reference") for k in selects),
+           "detection: the decode's NMS launches %s, selections %s"
+           % (launches, selects))
+    # MultiBoxTarget and MultiBoxDetection, card against CPU, on the last
+    # step's own tensors (the class probabilities computed once, on the
+    # card)
+    a, cp, bp = (t.data.detach() for t in (anchors, cls_preds, box_preds))
+    tgt = registry.get_op("_contrib_MultiBoxTarget").fn
+    kw = dict(overlap_threshold=0.5, negative_mining_ratio=3,
+              negative_mining_thresh=0.5)
+    got = tgt(a, y.data, cp.transpose(1, 2), **kw)
+    want = tgt(a.cpu(), y.data.cpu(), cp.transpose(1, 2).cpu(), **kw)
+    prob = torch.softmax(cp, -1).transpose(1, 2)
+    mbd = registry.get_op("_contrib_MultiBoxDetection").fn
+    d_got = mbd(prob, bp, a, **SSD_NMS).cpu()
+    d_want = mbd(prob.cpu(), bp.cpu(), a.cpu(), **SSD_NMS)
+    pos = want[1].reshape(SSD_BATCH, -1, 4)[..., 0] > 0
+    cls_got = got[2].cpu()
+    rec["target_card_vs_cpu"] = {
+        "loc_target_max_abs_err": float((got[0].cpu() - want[0]).abs().max()),
+        "loc_mask_equal": bool(torch.equal(got[1].cpu(), want[1])),
+        "positive_classes_equal": bool(torch.equal(cls_got[pos],
+                                                   want[2][pos])),
+        "negatives_per_image_equal": bool(torch.equal(
+            (cls_got == 0).sum(1), (want[2] == 0).sum(1))),
+        "mining_swaps_per_image": ((cls_got != want[2]).sum(1) // 2).tolist(),
+        "positives": int(pos.sum()), "negatives": int((want[2] == 0).sum())}
+    rec["detection_card_vs_cpu"] = {
+        "ids_equal": bool(torch.equal(d_got[..., 0], d_want[..., 0])),
+        "max_abs_err": float((d_got - d_want).abs().max()),
+        "kept": int((d_want[..., 0] >= 0).sum())}
+    # the NMS kernel against its plain version on the decode's boxes
+    cases = [_nms_case(*calls[-1], SSD_NMS["nms_topk"])]
+    calls.clear()
+    with mx.autograd.pause(), _nms_calls(calls):
+        ssd.detect(anchors, cls_preds, box_preds,
+                   nms_threshold=SSD_NMS["nms_threshold"], nms_topk=-1)
+    cases.append(_nms_case(*calls[-1], -1))
+    rec["nms"] = cases
+    # Proposal and ROIPooling at Faster R-CNN's size
+    rng = np.random.RandomState(5)
+    B, A, H, W = RPN_SHAPE
+    cls = torch.from_numpy(rng.uniform(0, 1, (B, 2 * A, H, W))
+                           .astype(np.float32))
+    bbox = torch.from_numpy(rng.normal(0, 0.2, (B, 4 * A, H, W))
+                            .astype(np.float32))
+    info = torch.tensor([[H * 16.0, W * 16.0, 1.0]])
+    prop = registry.get_op("_contrib_Proposal").fn
+    common.reset_counts()
+    t0 = time.perf_counter()
+    rois = prop(cls.cuda(), bbox.cuda(), info.cuda(), **RPN_KW)
+    torch.cuda.synchronize()
+    prop_ms = (time.perf_counter() - t0) * 1e3
+    prop_launches = common.launch_counts()
+    rois_cpu = prop(cls, bbox, info, **RPN_KW)
+    fmap = torch.from_numpy(rng.standard_normal(ROI_MAP).astype(np.float32))
+    pool = registry.get_op("ROIPooling").fn
+    roi_in = rois.cpu()
+    t0 = time.perf_counter()
+    pooled = pool(fmap.cuda(), roi_in.cuda(), pooled_size=ROI_POOLED,
+                  spatial_scale=1 / 16)
+    torch.cuda.synchronize()
+    pool_ms = (time.perf_counter() - t0) * 1e3
+    pooled_cpu = pool(fmap, roi_in, pooled_size=ROI_POOLED,
+                      spatial_scale=1 / 16)
+    near = (roi_in[:, None, 1:] - rois_cpu[None, :, 1:]).abs().amax(-1)
+    rec["proposal"] = {"shape": list(RPN_SHAPE), **RPN_KW,
+                       "rois": list(rois.shape), "ms": prop_ms,
+                       "launches": prop_launches,
+                       "max_abs_err_vs_cpu": float(
+                           (roi_in - rois_cpu).abs().max()),
+                       "matched_share": float(
+                           (near.amin(1) <= RPN_ATOL).float().mean())}
+    rec["roi_pooling"] = {"map": list(ROI_MAP), "rois": int(roi_in.shape[0]),
+                          "pooled": list(ROI_POOLED), "ms": pool_ms,
+                          "bitwise_vs_cpu": bool(torch.equal(pooled.cpu(),
+                                                             pooled_cpu))}
+    _emit(rec)
+    tc, dc = rec["target_card_vs_cpu"], rec["detection_card_vs_cpu"]
+    _check(tc["loc_mask_equal"] and tc["positive_classes_equal"]
+           and tc["negatives_per_image_equal"]
+           and max(tc["mining_swaps_per_image"]) <= SSD_MINING_SWAPS
+           and tc["loc_target_max_abs_err"] <= SSD_CARD_CPU_TOL,
+           "detection: MultiBoxTarget card vs CPU: %s" % tc)
+    _check(dc["ids_equal"] and dc["max_abs_err"] <= SSD_CARD_CPU_TOL,
+           "detection: MultiBoxDetection card vs CPU: %s" % dc)
+    for c in cases:
+        _check(c["bitwise"], "detection: the NMS kernel differs from its "
+               "plain version at nms_topk %d" % c["nms_topk"])
+    _check(prop_launches == {"kernels.launch.greedy_nms": 1}
+           and rois.shape == (RPN_KW["rpn_post_nms_top_n"], 5)
+           and rec["proposal"]["matched_share"] >= RPN_MATCH,
+           "detection: Proposal: %s" % rec["proposal"])
+    _check(rec["roi_pooling"]["bitwise_vs_cpu"],
+           "detection: ROIPooling on the card differs from the CPU's")
+    if "--profile" in sys.argv[1:]:
+        def step():
+            with mx.autograd.record():
+                loss = ssd.multibox_loss(*net(x), y)
+            loss.backward()
+            trainer.step(SSD_BATCH)
+
+        _profile_window("ssd300_train_step_b%d" % SSD_BATCH, step)
+        with mx.autograd.pause():
+            _profile_window("ssd300_decode_b%d" % SSD_BATCH,
+                            lambda: ssd.detect(anchors, cls_preds, box_preds,
+                                               **SSD_NMS))
+    return launches, cases[0]
+
+
 def _rel_l2(a, b):
     import numpy as np
 
@@ -6407,6 +6740,9 @@ def main():
     vgg_launches, vgg = _timed_phase("int8_vgg16", phase_int8_vgg16, dev)
     int8_launches += vgg_launches
     _timed_phase("zoo", phase_zoo, dev)
+    det_launches, main_cases["greedy_nms"] = _timed_phase(
+        "detection", phase_detection, dev)
+    torch.cuda.empty_cache()
     phase_gluon_cifar(dev)
     phase_gluon_step_card_vs_cpu(dev)
     recurrent = {name: _timed_phase(name, phase, dev)
@@ -6523,10 +6859,14 @@ def main():
         # by mxnet_tpu_torch/rtc.py, the counterpart of PallasKernel.launch
         "rtc.softmax_forward": ("chip_smoke.py", "mxnet_tpu/rtc.py:87"),
         "rtc.softmax_backward": ("chip_smoke.py", "mxnet_tpu/rtc.py:87"),
+        # the SSD-300 decode's greedy NMS: no TPU kernel; the JAX package's
+        # lax.fori_loop over every box (MultiBoxDetection's)
+        "greedy_nms": ("mxnet_tpu_torch/ops/kernels/csrc/nms.cu",
+                       "mxnet_tpu/ops/detection.py:292"),
     }
     runs = ([serve_launches] + plane_launches + list(train_launches.values())
             + mesh_launches + int8_launches + rtc_launches
-            + [kleg_launches, gen_launches])
+            + [det_launches, kleg_launches, gen_launches])
 
     def launched(counter):
         return sum(r.get("kernels.launch.%s" % counter, 0) for r in runs)

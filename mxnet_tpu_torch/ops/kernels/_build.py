@@ -37,7 +37,7 @@ SOURCES = ("rmsnorm", "flash_attention", "flash_attention_wgmma",
            "flash_attention_bwd_wgmma_xwide",
            "flash_attention_tf32x3", "flash_attention_bwd_tf32x3",
            "flash_attention_wide",
-           "softmax_xent", "int8_matmul")
+           "softmax_xent", "int8_matmul", "nms")
 # no --use_fast_math: its approximate expf would break the stated tolerances
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",

@@ -3,8 +3,8 @@
 Counterpart of the ops of ``mxnet_tpu/ops/nn.py`` that the symbolic
 ResNet path and the Gluon layers run: Convolution, FullyConnected,
 Pooling, BatchNorm (with the moving statistics), Activation, LeakyReLU,
-softmax / log_softmax, Dropout, LayerNorm, InstanceNorm, Embedding and
-SoftmaxOutput.  Layouts are the
+softmax / log_softmax, Dropout, LayerNorm, InstanceNorm, L2Normalization,
+Embedding and SoftmaxOutput.  Layouts are the
 reference's (NCHW data, OIHW weights, ``(num_hidden, input_dim)`` FC
 weights).  Convolutions go to cuDNN and products to cuBLAS through
 PyTorch, forward and backward (the JAX package leaves both to XLA); the
@@ -285,6 +285,22 @@ def _instance_norm(data, gamma, beta, eps=1e-3):
     out = (data - mean) * torch.rsqrt(var + eps)
     bshape = (1, -1) + (1,) * (data.dim() - 2)
     return out * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+@register("L2Normalization", input_names=("data",))
+def _l2_normalization(data, eps=1e-10, mode="instance"):
+    """src/operator/l2_normalization.cc: ``data / sqrt(sum(data²) + eps)``
+    over every axis but the batch (``instance``), over the channels
+    (``channel``: SSD's conv4_3 norm) or over the spatial axes
+    (``spatial``)."""
+    if mode == "instance":
+        red = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        red = (1,)
+    else:
+        red = tuple(range(2, data.dim()))
+    return data / torch.sqrt(torch.square(data).sum(dim=red, keepdim=True)
+                             + eps)
 
 
 @register("Embedding", input_names=("data", "weight"))

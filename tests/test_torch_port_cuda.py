@@ -103,6 +103,14 @@ gives the plain versions' outputs bit for bit, launching the int8 matmul
 once per fully connected layer with no plain version; ``clip`` on the
 card gives the CPU's values bit for bit.
 
+Greedy NMS (``csrc/nms.cu``): the kernel's keep mask equals its plain
+loop's bit for bit at N 1, 33, 6000 and 8732, for each IoU formula
+(``_pair_iou`` / ``_iou_corner``), comparison (>= / >) and class mode,
+one launch a call; views, refusals and empty inputs; MultiBoxDetection,
+Proposal and box_nms on the card launch it once each, never select the
+plain version, and give the CPU's results (ids and keep decisions
+exact).
+
 The kernel library's front door: ``select_impl("flash_attention")`` and
 ``select_impl("int8_matmul")`` resolve to ``'cuda'`` and, through a
 ``kernel_unit``, launch the forward, dQ and dK/dV kernels and the fused
@@ -3364,3 +3372,116 @@ def test_clip_on_card_equals_cpu(dev, dtype, bounds):
     out = s.bind(mx.gpu(0), args={"x": mx.nd.NDArray(x.to(dev))},
                  grad_req="null").forward()[0]
     assert torch.equal(out.data.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# greedy NMS (csrc/nms.cu) and the detection ops on the card
+# ---------------------------------------------------------------------------
+def _nms_case(B, N, seed, dev):
+    """Score-sorted boxes in clusters (real suppression), 80% valid, three
+    classes; a degenerate box, a repeated one and a zero-area one."""
+    rng = np.random.RandomState(seed)
+    centers = rng.uniform(0, 1, (B, max(N // 8, 1), 2))
+    pick = rng.randint(0, centers.shape[1], (B, N))
+    c = np.take_along_axis(centers, pick[..., None], 1) + \
+        rng.normal(0, 0.02, (B, N, 2))
+    wh = rng.uniform(0.02, 0.3, (B, N, 2))
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    if N > 3:
+        boxes[:, 1] = boxes[:, 0]
+        boxes[:, 2, 2] = boxes[:, 2, 0] - 0.05         # negative width
+        boxes[:, 3, 2:] = boxes[:, 3, :2]               # zero area
+    valid = rng.uniform(size=(B, N)) < 0.8
+    ids = rng.randint(0, 3, (B, N)).astype(np.float32)
+    return (torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev),
+            torch.from_numpy(ids).to(dev))
+
+
+@pytest.mark.parametrize("classes", [False, True])
+@pytest.mark.parametrize("iou,cmp,thresh", [("pair", "ge", 0.45),
+                                            ("pair", "gt", 0.7),
+                                            ("corner", "gt", 0.5),
+                                            ("corner", "ge", 0.3)])
+@pytest.mark.parametrize("N", [1, 33, 6000, 8732])
+def test_greedy_nms_kernel_matches_plain_bit_for_bit(dev, N, iou, cmp,
+                                                     thresh, classes):
+    from mxnet_tpu_torch.ops.kernels.nms import (_greedy_nms_cuda,
+                                                 greedy_nms_reference)
+    boxes, valid, ids = _nms_case(2, N, N, dev)
+    ids = ids if classes else None
+    common.reset_counts()
+    got = _greedy_nms_cuda(boxes, valid, ids, thresh, iou, cmp)
+    assert common.launch_counts() == {"kernels.launch.greedy_nms": 1}
+    want = greedy_nms_reference(boxes, valid, ids, thresh, iou, cmp)
+    assert got.dtype == torch.bool and got.shape == valid.shape
+    assert torch.equal(got, want)
+    assert not (got & ~valid).any()
+    if N >= 33:
+        assert (valid & ~got).any()                  # something suppressed
+    assert torch.equal(_greedy_nms_cuda(boxes, valid, ids, thresh, iou, cmp),
+                       got)
+
+
+def test_greedy_nms_kernel_views_and_refusals(dev):
+    from mxnet_tpu_torch.ops.kernels.nms import (MAX_BOXES, _greedy_nms_cuda,
+                                                 greedy_nms_reference)
+    boxes, valid, ids = _nms_case(3, 300, 5, dev)
+    # a strided, offset view of the boxes: copied to an aligned buffer
+    wide = torch.zeros(3, 300, 6, device=dev)
+    wide[..., 1:5] = boxes
+    view = wide[..., 1:5]
+    assert torch.equal(_greedy_nms_cuda(view, valid, ids, 0.4),
+                       greedy_nms_reference(boxes, valid, ids, 0.4))
+    with pytest.raises(TypeError):
+        _greedy_nms_cuda(boxes.double(), valid)
+    with pytest.raises(ValueError):
+        _greedy_nms_cuda(torch.zeros(1, MAX_BOXES + 1, 4, device=dev),
+                         torch.ones(1, MAX_BOXES + 1, dtype=torch.bool,
+                                    device=dev))
+    empty = _greedy_nms_cuda(boxes[:, :0], valid[:, :0])
+    assert empty.shape == (3, 0)
+
+
+def test_detection_ops_launch_the_kernel_and_match_the_cpu(dev):
+    """MultiBoxDetection, Proposal and box_nms on the card launch the NMS
+    kernel once each and never select its plain version; each gives the
+    CPU's result on the same inputs (ids and keep decisions exact)."""
+    from mxnet_tpu_torch.ops import registry
+    rng = np.random.RandomState(0)
+    logits = rng.standard_normal((2, 6, 2000)).astype(np.float32)
+    prob = torch.softmax(torch.from_numpy(logits), 1)
+    loc = torch.from_numpy(rng.normal(0, 0.5, (2, 8000)).astype(np.float32))
+    anchors = _nms_case(1, 2000, 1, "cpu")[0].clamp(0, 1)
+    cls = torch.from_numpy(rng.uniform(0, 1, (1, 18, 20, 25))
+                           .astype(np.float32))
+    bbox = torch.from_numpy(rng.normal(0, 0.2, (1, 36, 20, 25))
+                            .astype(np.float32))
+    info = torch.tensor([[320.0, 400.0, 1.0]])
+    data = torch.cat([torch.from_numpy(rng.randint(0, 3, (2, 500, 1))
+                                       .astype(np.float32)),
+                      torch.from_numpy(rng.uniform(0, 1, (2, 500, 1))
+                                       .astype(np.float32)),
+                      _nms_case(2, 500, 2, "cpu")[0]], -1)
+    cases = [("_contrib_MultiBoxDetection", (prob, loc, anchors),
+              dict(nms_threshold=0.45, nms_topk=400)),
+             ("_contrib_Proposal", (cls, bbox, info),
+              dict(rpn_pre_nms_top_n=1000, rpn_post_nms_top_n=100,
+                   scales=(8, 16, 32))),
+             ("_contrib_box_nms", (data,), dict(overlap_thresh=0.5,
+                                                id_index=0))]
+    for name, args, kw in cases:
+        fn = registry.get_op(name).fn
+        want = fn(*args, **kw)
+        common.reset_counts()
+        got = fn(*[a.to(dev) for a in args], **kw)
+        assert common.launch_counts() == {"kernels.launch.greedy_nms": 1}, \
+            name
+        assert common.selection_counts() == {
+            "kernels.select.greedy_nms.cuda": 1}, name
+        got = got.cpu()
+        if name == "_contrib_MultiBoxDetection":
+            assert torch.equal(got[..., 0], want[..., 0])
+        if name == "_contrib_box_nms":
+            assert torch.equal(got[..., 1] >= 0, want[..., 1] >= 0)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5)
